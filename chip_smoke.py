@@ -30,8 +30,30 @@
    windows with CUDA events (median and spread, with the host's time to
    issue each window and the card's clocks after), and the host clock
    around ``ServedModel.predict``.
-7. Prints a ``kernels`` JSON line, a ``serving`` JSON line and, last,
-   ``{"ok": true, "device": {...}}``.
+7. Holds the backward kernels (dq and dk/dv, ``flash_chunk_grads``)
+   against their plain version on the card: the flagship's shape (BH 32,
+   S 1024, D 128) bf16 causal and not and f32 causal, ragged lengths and
+   every head dim, a ring chunk (Sq 512 of Sk 1024 at q_offset 512), the
+   zoo twin's training shape, and gradients through ``flash_attention``
+   against the CPU plain path. Each check prints its readings (largest
+   error, median and largest |w|, relative L2) and, for bf16, the same
+   readings of the plain version without its bf16 roundings, which must
+   fall outside the limits. Times each kernel, the plain version and
+   SDPA's backward (a yardstick only) at the flagship shape.
+8. Trains the zoo twin for 5 steps through ``LocalExecutor`` on the card
+   and on the CPU from the same seed: the losses, the first step's
+   gradients and every parameter's change agree, and the ``--output``
+   bundle serves on the card. Steps are recorded by a ``Callback``
+   passed to the executor.
+9. Trains the flagship through ``LocalExecutor`` (a zoo module written
+   to a temp dir calls the twin's ``custom_model`` with the flagship
+   config, bench_suite.py's ``_transformer_spec``): 40 steps at B 8 x
+   S 1024 on +1-chain records. Launch counts are zeroed just before and
+   read just after: 8 forward, 8 dq and 8 dk/dv launches a step. Checks
+   finite parameters and a falling loss; times the step with CUDA
+   events beside the host's time to issue it.
+10. Prints a ``serving``, a ``training`` and a ``kernels`` JSON line
+   and, last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero; without CUDA it
 exits 2 and prints no result.
@@ -64,6 +86,51 @@ FLAGSHIP = dict(vocab_size=32768, d_model=512, n_heads=4, n_layers=8,
 # final max in the plain version. f32: the order of f32 sums over up to
 # 1024 keys. lse: f32 sums in a different order, in both dtypes.
 TOL = {"bfloat16": dict(o=2e-2, lse=1e-3), "float32": dict(o=2e-5, lse=2e-5)}
+# Backward (dq, dk, dv in f32) against the plain version on the same
+# inputs, per tensor: |g - w| <= elem * (|w| + median|w|) at every
+# element, and ||g - w|| / ||w|| <= l2. bf16: kernel and plain version
+# round ds and p to bf16 at the same points, from an exp whose last f32
+# bits differ, so a rounding flips only now and then; one flip in a row
+# that sums few terms (the first causal rows) moves an element by about
+# 2^-8 of its size, which sets elem. The plain version without those
+# roundings (the "unrounded" reading, printed beside) differs by about
+# 2^-9 at every term: l2 sits between the two readings, and the script
+# checks that the unrounded one fails. f32: sums over up to 1024 keys or
+# queries in another order.
+BWD_TOL = {"bfloat16": dict(elem=3e-2, l2=2e-4),
+           "float32": dict(elem=2e-5, l2=1e-6)}
+# Gradients through flash_attention on the card vs the CPU plain path,
+# bf16 leaves: o and the gradients are rounded to bf16 on both sides,
+# and a flip of o's rounding carries into every gradient of its row.
+GRAD_TOL = dict(elem=6e-2, l2=5e-3)
+# The zoo twin, 5 Local steps on the card vs the CPU (bf16 products in
+# another order): the loss at each step, relative; the first step's
+# gradient of every parameter and each parameter's change over the 5
+# Adam steps, relative L2 per tensor (Adam's first step is lr * sign(g),
+# so a sign that flips on a near-zero gradient moves a whole step). The
+# key biases' true gradient is 0 (a bias shared by every key of a row
+# leaves its softmax alone): both sides' gradients are noise and Adam
+# steps them by it, so they are left out.
+TRAJ_TOL = dict(loss=2e-4, grad_l2=2e-2, delta_l2=2.5e-1)
+TRAIN_STEPS = 40
+TRAIN_BATCH = 8
+FLAGSHIP_ZOO = """
+import torch
+
+from elasticdl_tpu_torch.model_zoo.transformer import transformer_lm as twin
+from elasticdl_tpu_torch.model_zoo.transformer.transformer_lm import (
+    dataset_fn, eval_metrics_fn, loss, optimizer)
+from elasticdl_tpu_torch.models.transformer import TransformerConfig
+
+CONFIG = TransformerConfig(vocab_size=32768, d_model=512, n_heads=4,
+                           n_layers=8, d_ff=2048, max_len=1024,
+                           dropout_rate=0.0, remat=False,
+                           compute_dtype=torch.bfloat16)
+
+
+def custom_model(device=None):
+    return twin.custom_model(config=CONFIG, device=device)
+"""
 # Served logits against the in-process predict / the CPU run of the same
 # bundle: relative L2 error. Both run the bf16 model; a different batch
 # size or device changes the matrix products' summation order, and a
@@ -129,6 +196,22 @@ def flash_bound(bh, s, d, dtype, causal):
     t_ops = ops / PEAK_OPS_PER_S[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ptxas_lines(log):
+    """(kernel, "registers / spills / shared memory") per compiled
+    kernel in an nvcc -Xptxas -v log."""
+    import re
+
+    name, out = "?", []
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '.*?"
+                          r"(flash_(?:fwd|bwd)_\w*?kernel)ILi(\d+)", line)
+        if entry:
+            name = f"{entry.group(1)}<{entry.group(2)}>"
+        elif "spill" in line or "registers" in line or "error" in line:
+            out.append((name, line.split(":", 1)[-1].strip()))
+    return out
 
 
 def kernel_phase(torch, fa):
@@ -219,6 +302,26 @@ def post_json(port, tokens):
 
 def rel_err(a, b):
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def grad_readings(g, w):
+    """g against w (tensors, one device): the largest |g - w|, the
+    median and largest |w|, the largest |g - w| / (|w| + median|w|)
+    ("elem") and ||g - w|| / ||w|| ("l2")."""
+    g, w = g.float(), w.float()
+    err = (g - w).abs()
+    size = w.abs()
+    median = size.median().item()
+    return {
+        "max_abs_err": err.max().item(), "median_abs": median,
+        "max_abs": size.max().item(),
+        "elem": (err / (size + max(median, 1e-30))).max().item(),
+        "l2": (err.norm() / w.norm().clamp_min(1e-30)).item(),
+    }
+
+
+def within(reading, tol):
+    return reading["elem"] <= tol["elem"] and reading["l2"] <= tol["l2"]
 
 
 def zoo_phase(torch, fa):
@@ -372,6 +475,346 @@ def serving_phase(torch, fa, bundle_root):
     }
 
 
+def bwd_bound(bh, sq, sk, d, dtype, causal, products, outputs):
+    """Least time for one backward kernel on an H100: q, k, v, dO read
+    once, lse and delta once, ``outputs`` f32 (BH, S, D) tensors written
+    once, over the memory rate; against ``products`` products over the
+    unmasked pairs at the peak rate."""
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = (2 * bh * sq * d + 2 * bh * sk * d) * elt + 2 * bh * sq * 4 \
+        + outputs * bh * sk * d * 4
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk
+    ops = 2 * products * bh * pairs * d
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def chunk_inputs(torch, rng, bh, sq, sk, d, dtype, causal, q_offset):
+    """q, k, v, dO on the card and lse (the scores' logsumexp under the
+    mask) and delta = rowsum(dO o o) as the forward would give them."""
+    q, do = (torch.from_numpy(rng.standard_normal((bh, sq, d),
+                                                  dtype=np.float32))
+             .to("cuda", dtype) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((bh, sk, d),
+                                                 dtype=np.float32))
+            .to("cuda", dtype) for _ in range(2))
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * d ** -0.5
+    if causal:
+        qpos = q_offset + torch.arange(sq, device="cuda")
+        kpos = torch.arange(sk, device="cuda")
+        s = s.masked_fill(qpos[:, None] < kpos[None, :], -1e30)
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.exp(s - lse)
+    o = torch.matmul(p, v.float())
+    delta = (do.float() * o).sum(dim=-1, keepdim=True)
+    return q, k, v, do, lse.contiguous(), delta.contiguous()
+
+
+def bwd_kernel_phase(torch, fa):
+    """The backward kernels against their plain version, then timed."""
+    rng = np.random.default_rng(SEED + 10)
+    cases = [  # (bh, sq, sk, d, dtype, causal, q_offset)
+        (32, 1024, 1024, 128, "bfloat16", True, 0),   # the flagship step
+        (32, 1024, 1024, 128, "bfloat16", False, 0),
+        (32, 1024, 1024, 128, "float32", True, 0),
+        (8, 100, 100, 128, "bfloat16", True, 0),      # ragged last tiles
+        (8, 37, 37, 16, "bfloat16", False, 0),
+        (8, 130, 130, 32, "float32", True, 0),
+        (8, 200, 200, 64, "float32", False, 0),
+        (8, 512, 1024, 128, "bfloat16", True, 512),   # a ring chunk
+        (64, 127, 127, 16, "bfloat16", True, 0),      # the zoo twin's step
+    ]
+    checks = []
+    for bh, sq, sk, d, dtype_name, causal, q_offset in cases:
+        args = chunk_inputs(torch, rng, bh, sq, sk, d,
+                            getattr(torch, dtype_name), causal, q_offset)
+        got = fa.flash_chunk_grads_cuda(*args, q_offset, 0, causal,
+                                        d ** -0.5)
+        torch.cuda.synchronize()
+        want = fa.flash_chunk_grads_reference(*args, q_offset, 0, causal,
+                                              d ** -0.5)
+        unrounded = None
+        if dtype_name == "bfloat16":   # the same sums without the roundings
+            unrounded = fa.flash_chunk_grads_reference(
+                *(x.float() for x in args[:4]), *args[4:], q_offset, 0,
+                causal, d ** -0.5)
+        torch.cuda.synchronize()
+        tol = BWD_TOL[dtype_name]
+        res = {"shape": [bh, sq, sk, d], "dtype": dtype_name,
+               "causal": causal, "q_offset": q_offset, "tol": tol}
+        for i, (name, g, w) in enumerate(zip(("dq", "dk", "dv"), got, want)):
+            reading = grad_readings(g, w)
+            res[f"{name}_max_abs_err"] = reading["max_abs_err"]
+            res[name] = reading
+            if unrounded is not None:
+                res[f"{name}_unrounded"] = grad_readings(unrounded[i], w)
+        print("bwd kernel check", json.dumps(res), flush=True)
+        for name, g in zip(("dq", "dk", "dv"), got):
+            check(bool(torch.isfinite(g).all()), f"non-finite {name} {res}")
+            check(within(res[name], tol), f"{name} outside tolerance {res}")
+            if unrounded is not None:
+                check(not within(res[f"{name}_unrounded"], tol),
+                      f"{name}: the unrounded plain version passes the "
+                      f"limits, which could not see a rounding fault {res}")
+        checks.append(res)
+
+    # Gradients through flash_attention: card (kernels) vs CPU (plain).
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 256, 4, 128),
+                                                    dtype=np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    grads = []
+    for dev in ("cuda", "cpu"):
+        leaves = [x.to(dev).requires_grad_() for x in (q, k, v)]
+        out = fa.flash_attention(*leaves)
+        (out.float() * out.float().cos()).sum().backward()
+        grads.append([x.grad.float().cpu() for x in leaves])
+    torch.cuda.synchronize()
+    readings = {name: grad_readings(g, w)
+                for name, g, w in zip(("dq", "dk", "dv"), *grads)}
+    print("bwd autograd check", json.dumps({
+        "shape": [2, 256, 4, 128], "dtype": "bfloat16",
+        "vs_cpu_plain": readings, "tol": GRAD_TOL}), flush=True)
+    for name, reading in readings.items():
+        check(within(reading, GRAD_TOL),
+              f"flash_attention {name} vs CPU plain: {reading}")
+
+    # Times at the flagship's shape: each kernel alone, through the C
+    # entry points (these launches are not counted), the plain version
+    # and SDPA's backward for the pair.
+    bh, s, d = 32, 1024, 128
+    args = chunk_inputs(torch, rng, bh, s, s, d, torch.bfloat16, True, 0)
+    lib = fa._bwd_library()
+    q, k, v, do, lse, delta = args
+    dq = torch.empty(q.shape, dtype=torch.float32, device="cuda")
+    dk, dv = torch.empty_like(dq), torch.empty_like(dq)
+    ptrs = [t.data_ptr() for t in args]
+    tail = (bh, s, s, d, 1, 0, 0, d ** -0.5, 1)
+
+    def launch(name, outs):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, f"edl_flash_attention_bwd_{name}")(
+            *ptrs, *(t.data_ptr() for t in outs), *tail, stream)
+        check(err == 0, f"{name} launch: CUDA error {err}")
+
+    dq_windows = cuda_windows(lambda: launch("dq", (dq,)), 50, 5)[0]
+    dkv_windows = cuda_windows(lambda: launch("dkv", (dk, dv)), 50, 5)[0]
+    plain_ms = cuda_ms(lambda: fa.flash_chunk_grads_reference(
+        *args, 0, 0, True, d ** -0.5), iters=5)
+    q4, k4, v4 = (x.view(8, 4, s, d).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, scale=d ** -0.5)
+    do4 = do.view(8, 4, s, d)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (q4, k4, v4), do4, retain_graph=True), iters=50)
+    errs = {"dq": max(c["dq_max_abs_err"] for c in checks),
+            "dkv": max(max(c["dk_max_abs_err"], c["dv_max_abs_err"])
+                       for c in checks)}
+    rows = []
+    for name, replaces, windows, products, outputs in (
+            ("flash_attention_bwd_dq",
+             "elasticdl_tpu/ops/flash_attention.py:493", dq_windows, 3, 1),
+            ("flash_attention_bwd_dkv",
+             "elasticdl_tpu/ops/flash_attention.py:528", dkv_windows, 4, 2)):
+        bound_ms, bound_by = bwd_bound(bh, s, s, d, "bfloat16", True,
+                                       products, outputs)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "elasticdl_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            "replaces": replaces, "shape": [bh, s, d], "dtype": "bfloat16",
+            "causal": True,
+            "max_abs_err": errs[name.rsplit("_", 1)[1]],
+            "ms": float(np.median(windows)), "ms_windows": windows,
+            "plain_ms": plain_ms, "plain_computes": "dq, dk and dv",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library_call": "SDPA backward (dq, dk and dv together)",
+        })
+    return rows, checks
+
+
+def step_recorder(torch):
+    """A Callback for LocalExecutor that keeps, per train step, the loss
+    tensor, CUDA events around the step (on the card) and the host's ms
+    to issue it; and, on the CPU in f32, every parameter before the
+    first step and its gradient from the first step."""
+    from elasticdl_tpu_torch.callbacks import Callback
+
+    def on_cpu(named):
+        return {name: t.detach().float().cpu().clone() for name, t in named}
+
+    class StepRecorder(Callback):
+        def __init__(self):
+            self.loss, self.events, self.issue_ms = [], [], []
+            self.initial = self.first_grads = None
+
+        def on_train_batch_begin(self, owner=None):
+            model = owner.state.model
+            if self.initial is None:
+                self.initial = on_cpu(model.named_parameters())
+            self._start = None
+            self._t0 = time.perf_counter()
+            if owner.device.type == "cuda":
+                self._start = torch.cuda.Event(enable_timing=True)
+                self._start.record()
+
+        def on_train_batch_end(self, owner=None, metrics=None):
+            if self._start is not None:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                self.events.append((self._start, end))
+            self.issue_ms.append((time.perf_counter() - self._t0) * 1e3)
+            self.loss.append(metrics["loss"])
+            if self.first_grads is None:
+                self.first_grads = on_cpu(
+                    (name, p.grad)
+                    for name, p in owner.state.model.named_parameters()
+                    if p.grad is not None)
+
+    return StepRecorder()
+
+
+def twin_training_phase(torch, fa, root):
+    """The zoo twin, 5 Local steps on the card and on the CPU from the
+    same seed: the losses, the first step's gradients and the change of
+    every parameter agree; the card's --output bundle served on the
+    card."""
+    from elasticdl_tpu_torch.api.local_executor import LocalExecutor
+    from elasticdl_tpu_torch.serving.export import load_predictor
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    records = tdata.create_lm_record_file(os.path.join(root, "twin.rec"),
+                                          40, seed=SEED, seq_len=127)
+    runs, models = {}, {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(root, f"twin_{dev}")
+        args = tdata.make_local_args(
+            tdata.model_zoo_dir(), "transformer.transformer_lm.custom_model",
+            records, minibatch_size=8, extra=[
+                "--device", dev, "--max_steps", "5", "--output", out])
+        record = step_recorder(torch)
+        executor = LocalExecutor(args, callbacks=[record])
+        executor.run()
+        models[dev] = executor.state.model
+        record.final = {name: p.detach().float().cpu()
+                        for name, p in models[dev].named_parameters()}
+        runs[dev] = record
+    card, cpu = runs["cuda"], runs["cpu"]
+    losses = {dev: [float(x) for x in run.loss] for dev, run in runs.items()}
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"])]
+    # The key biases' gradients are noise on both sides (TRAJ_TOL).
+    names = [name for name in cpu.initial
+             if not name.endswith("attn.key.bias")]
+    grad_l2 = {name: rel_err(card.first_grads[name].numpy(),
+                             cpu.first_grads[name].numpy())
+               for name in names}
+    delta_l2 = {name: rel_err((card.final[name] - card.initial[name]).numpy(),
+                              (cpu.final[name] - cpu.initial[name]).numpy())
+                for name in names}
+    same_start = all(torch.equal(card.initial[n], cpu.initial[n])
+                     for n in cpu.initial)
+    bundle = os.path.join(root, "twin_cuda")
+    predict = load_predictor(bundle, device=DEVICE)
+    tokens = np.random.default_rng(SEED + 3).integers(
+        0, 256, (2, RAGGED_TOKENS)).astype(np.int32)
+    before = fa.launches
+    served = predict(tokens)
+    served_launches = fa.launches - before
+    model = models["cuda"].eval()
+    with torch.inference_mode():
+        want = model(torch.from_numpy(tokens).to(DEVICE)).cpu().numpy()
+    served_err = rel_err(served, want)
+    result = {"losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"],
+              "loss_max_rel_diff": max(rel),
+              "grad_l2_worst": max(grad_l2.items(), key=lambda kv: kv[1]),
+              "grad_l2_median": float(np.median(list(grad_l2.values()))),
+              "delta_l2_worst": max(delta_l2.items(), key=lambda kv: kv[1]),
+              "delta_l2_median": float(np.median(list(delta_l2.values()))),
+              "tol": TRAJ_TOL, "served_rel_err": served_err,
+              "served_flash_launches": served_launches}
+    print("zoo twin training", json.dumps(result), flush=True)
+    check(same_start, "twin: card and CPU runs start from other weights")
+    check(len(rel) == 5, f"twin steps: {len(rel)}")
+    check(max(rel) <= TRAJ_TOL["loss"], f"twin card vs CPU losses: {result}")
+    check(max(grad_l2.values()) <= TRAJ_TOL["grad_l2"],
+          f"twin card vs CPU first-step gradients: {grad_l2}")
+    check(max(delta_l2.values()) <= TRAJ_TOL["delta_l2"],
+          f"twin card vs CPU parameter changes: {delta_l2}")
+    check(losses["cuda"][-1] < losses["cuda"][0], "twin loss did not fall")
+    check(served_launches == model.cfg.n_layers,
+          f"served bundle made {served_launches} flash launches")
+    check(served_err <= LOGITS_REL_TOL, f"served bundle: {served_err}")
+    return result
+
+
+def training_phase(torch, fa, root):
+    """The flagship trained through LocalExecutor on the card."""
+    from elasticdl_tpu_torch.api.local_executor import LocalExecutor
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    zoo = os.path.join(root, "zoo")
+    os.makedirs(os.path.join(zoo, "flagship"))
+    with open(os.path.join(zoo, "flagship", "lm.py"), "w") as f:
+        f.write(FLAGSHIP_ZOO)
+    seq, vocab = FLAGSHIP["max_len"], FLAGSHIP["vocab_size"]
+    records = tdata.create_lm_record_file(
+        os.path.join(root, "flagship.rec"), TRAIN_STEPS * TRAIN_BATCH,
+        seed=SEED, seq_len=seq, vocab=vocab)
+    args = tdata.make_local_args(zoo, "flagship.lm.custom_model", records,
+                                 minibatch_size=TRAIN_BATCH,
+                                 extra=["--random_seed", str(SEED)])
+    record = step_recorder(torch)
+    executor = LocalExecutor(args, callbacks=[record])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0   # the main path
+    result = executor.run()
+    counts = {"flash_attention_fwd": fa.launches,                # ... ends
+              "flash_attention_bwd_dq": fa.dq_launches,
+              "flash_attention_bwd_dkv": fa.dkv_launches}
+    peak = torch.cuda.max_memory_allocated()
+    clocks = smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu")
+    steps = result["steps"]
+    layers = FLAGSHIP["n_layers"]
+    losses = [float(x) for x in record.loss]
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in executor.state.model.parameters())
+    warm = 5
+    window = 5
+    step_ms, issue_ms = [], []
+    for i in range(warm, steps - window + 1, window):
+        start = record.events[i][0]
+        end = record.events[i + window - 1][1]
+        step_ms.append(start.elapsed_time(end) / window)
+        issue_ms.append(float(np.mean(record.issue_ms[i:i + window])))
+    median = float(np.median(step_ms))
+    out = {
+        "model": "transformer flagship (bench_suite.py _TRANSFORMER_SIZES"
+                 "['transformer'], remat off, dropout 0), random weights, "
+                 f"seed {SEED}, Adam 1e-3",
+        "batch": TRAIN_BATCH, "seq": seq, "steps": steps,
+        "launches": counts, "launches_per_step": {
+            k: v / steps for k, v in counts.items()},
+        "step_ms": spread(step_ms), "issue_ms": spread(issue_ms),
+        "tokens_per_s": TRAIN_BATCH * seq / (median / 1e3),
+        "max_memory_allocated_bytes": peak,
+        "first_loss": losses[0], "last_loss": losses[-1],
+        "losses": losses, "params_finite": finite,
+        "clocks_after": clocks,
+    }
+    check(steps == TRAIN_STEPS, f"{steps} steps, not {TRAIN_STEPS}")
+    for name, n in counts.items():
+        check(n == layers * steps,
+              f"{name}: {n} launches in {steps} steps of {layers} layers")
+    check(finite, "a parameter is not finite after training")
+    check(all(np.isfinite(losses)), "non-finite loss")
+    check(losses[-1] < 0.9 * losses[0],
+          f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    return out, counts
+
+
 def main() -> int:
     import torch
 
@@ -393,17 +836,23 @@ def main() -> int:
     print(f"built {sorted(logs)} in {time.monotonic() - t0:.1f}s",
           flush=True)
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  {name}: {line.strip()}", flush=True)
+        for kernel_name, line in ptxas_lines(log):
+            print(f"  {name}: {kernel_name}: {line}", flush=True)
 
     kernel = kernel_phase(torch, fa)
+    bwd_rows, _ = bwd_kernel_phase(torch, fa)
     zoo_phase(torch, fa)
     with tempfile.TemporaryDirectory() as root:
         serving = serving_phase(torch, fa, root)
-    kernel["launches"] = serving["flash_launches"]
-    print(json.dumps({"kernels": [kernel]}))
+        twin_training_phase(torch, fa, root)
+        training, counts = training_phase(torch, fa, root)
+    kernel["launches"] = counts["flash_attention_fwd"]
+    kernel["launches_serving"] = serving["flash_launches"]
+    for row in bwd_rows:
+        row["launches"] = counts[row["name"]]
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"training": training}))
+    print(json.dumps({"kernels": [kernel] + bwd_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

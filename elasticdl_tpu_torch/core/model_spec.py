@@ -1,9 +1,32 @@
-"""Model-zoo module loading (the loader half of
-elasticdl_tpu/core/model_spec.py; the training contract comes with the
-training slice)."""
+"""The model-zoo user contract and its loader (port of
+elasticdl_tpu/core/model_spec.py).
+
+A user model is a Python module in the model-zoo directory defining, by
+name:
+
+- ``custom_model(device=None)`` -> a ``torch.nn.Module`` on ``device``
+  whose ``forward`` takes the feature tree (and, to use dropout, a
+  ``generator`` keyword: the train state's CPU generator);
+- ``loss(labels, predictions, mask)`` -> scalar tensor loss (``mask``
+  weights padded rows of the final partial batch; a 2-argument loss is
+  called without it);
+- ``optimizer(**kw)`` -> a factory ``params -> torch.optim.Optimizer``
+  (where the JAX contract returns an optax transformation: a torch
+  optimizer needs the parameters at construction);
+- ``dataset_fn(records, mode, metadata)`` -> ``(features, labels)``
+  numpy trees for a list of decoded records;
+- ``eval_metrics_fn()`` -> dict of metric name -> fn(labels, predictions),
+- optional: ``callbacks()``, ``custom_data_reader(**kwargs)``.
+
+The JAX contract's prediction processor and its mesh and sparse-runner
+extras are not ported yet.
+"""
 
 import importlib.util
+import inspect
 import os
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
 
 
 def load_module(module_file):
@@ -27,3 +50,76 @@ def load_model_zoo_module(model_zoo: str, model_def: str):
     if not os.path.exists(module_file):
         raise FileNotFoundError(f"No model module at {module_file}")
     return load_module(module_file), parts[-1]
+
+
+def _get_spec_value(module, name, required=False):
+    value = getattr(module, name, None)
+    if value is None and required:
+        raise ValueError(
+            f"Model zoo module is missing required symbol {name!r}"
+        )
+    return value
+
+
+def _build_model(model_fn: Callable, device):
+    """``model_fn(device=device)`` when it takes a device, else
+    ``model_fn().to(device)``."""
+    try:
+        takes_device = "device" in inspect.signature(model_fn).parameters
+    except (TypeError, ValueError):
+        takes_device = False
+    if takes_device:
+        return model_fn(device=device)
+    model = model_fn()
+    return model.to(device) if device is not None else model
+
+
+@dataclass
+class ModelSpec:
+    """Everything loaded from the user's model-zoo module."""
+
+    model: Any
+    model_fn_name: str
+    loss: Callable
+    optimizer_fn: Callable
+    dataset_fn: Callable
+    eval_metrics_fn: Optional[Callable] = None
+    callbacks_fn: Optional[Callable] = None
+    custom_data_reader: Optional[Callable] = None
+    module: Any = None
+
+    def make_optimizer(self, **kwargs) -> Callable:
+        """The zoo's optimizer factory: ``params -> Optimizer``."""
+        return self.optimizer_fn(**kwargs)
+
+
+def get_model_spec(
+    model_zoo: str,
+    model_def: str,
+    dataset_fn: str = "dataset_fn",
+    loss: str = "loss",
+    optimizer: str = "optimizer",
+    eval_metrics_fn: str = "eval_metrics_fn",
+    callbacks: str = "callbacks",
+    custom_data_reader: str = "custom_data_reader",
+    device=None,
+) -> ModelSpec:
+    """Load the user module, resolve the contract symbols by name and
+    build the model on ``device``."""
+    module, model_fn_name = load_model_zoo_module(model_zoo, model_def)
+    model_fn = getattr(module, model_fn_name, None)
+    if model_fn is None:
+        raise ValueError(
+            f"{model_def}: function {model_fn_name!r} not found in module"
+        )
+    return ModelSpec(
+        model=_build_model(model_fn, device),
+        model_fn_name=model_fn_name,
+        loss=_get_spec_value(module, loss, required=True),
+        optimizer_fn=_get_spec_value(module, optimizer, required=True),
+        dataset_fn=_get_spec_value(module, dataset_fn, required=True),
+        eval_metrics_fn=_get_spec_value(module, eval_metrics_fn),
+        callbacks_fn=_get_spec_value(module, callbacks),
+        custom_data_reader=_get_spec_value(module, custom_data_reader),
+        module=module,
+    )

@@ -1,5 +1,5 @@
 """Decoder-only transformer LM (port of elasticdl_tpu/models/transformer.py,
-single device, forward only).
+single device).
 
 Parameters are f32, as in the flax module; every product casts its
 input and weight to ``compute_dtype`` at use and rounds where flax
@@ -17,16 +17,29 @@ rounds:
 Attention takes ``flash_attention`` whenever its static gate accepts
 the shape (on either device; any sequence length, head dims 16, 32, 64
 and 128). Otherwise a CPU tensor takes ``dense_attention`` and a CUDA
-tensor raises: on the card attention runs the kernel or nothing. Not
-ported yet: MoE, KV-cache decode (``generate``), the fused head, the
-mesh paths, dropout and remat (training).
+tensor raises: on the card attention runs the kernel or nothing; its
+backward is the flash backward kernels.
+
+Training (``model.train()``): dropout after attention and after the
+MLP of each block, as flax ``Dropout`` does (keep where u >= rate,
+scale by 1/(1 - rate)), with u drawn on the tokens' device from a
+generator seeded per block from the caller's CPU ``torch.Generator``
+(``forward(tokens, generator=...)``): the train state's generator, so
+a run is reproducible from its seed. ``remat`` recomputes each block
+in the backward (``torch.utils.checkpoint``, non-reentrant); the
+block's seed is drawn outside the checkpointed function, so the
+recompute draws the same masks. Not ported yet: MoE, KV-cache decode
+(``generate``), the fused head, the mesh paths.
 """
 
 import dataclasses
 from dataclasses import dataclass
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from elasticdl_tpu_torch.common import dtypes
@@ -46,7 +59,9 @@ class TransformerConfig:
     n_layers: int = 2
     d_ff: int = 512
     max_len: int = 512
+    dropout_rate: float = 0.0
     moe_experts: int = 0        # > 0 is not ported yet
+    remat: bool = False
     compute_dtype: torch.dtype = torch.bfloat16
     fused_head: bool = False    # True is not ported yet
 
@@ -144,17 +159,36 @@ class Mlp(nn.Module):
         return self.wo(F.gelu(self.wi(x), approximate="tanh"))
 
 
+def dropout(x, rate: float, generator: torch.Generator):
+    """flax ``Dropout``: keep where u >= rate (u uniform on [0, 1) from
+    ``generator``, on x's device), scaled by 1/(1 - rate) in x's dtype."""
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return x * (u >= rate).to(x.dtype) / (1.0 - rate)
+
+
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
+        self.rate = cfg.dropout_rate
         self.ln1 = LayerNorm(cfg.d_model, cfg.compute_dtype)
         self.attn = SelfAttention(cfg)
         self.ln2 = LayerNorm(cfg.d_model, cfg.compute_dtype)
         self.mlp = Mlp(cfg)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+    def forward(self, x, seed: Optional[int] = None):
+        """``seed`` (training with dropout only) seeds this block's
+        masks, so a recompute under remat draws the same ones."""
+        gen = None
+        if seed is not None:
+            gen = torch.Generator(device=x.device).manual_seed(seed)
+        h = self.attn(self.ln1(x))
+        if gen is not None:
+            h = dropout(h, self.rate, gen)
+        x = x + h
+        h = self.mlp(self.ln2(x))
+        if gen is not None:
+            h = dropout(h, self.rate, gen)
+        return x + h
 
 
 class _LMHead(Dense):
@@ -192,7 +226,8 @@ class TransformerLM(nn.Module):
         self.lm_head = _LMHead(cfg.d_model, cfg.vocab_size,
                                cfg.compute_dtype)
 
-    def forward(self, tokens):
+    def forward(self, tokens, generator: Optional[torch.Generator] = None):
+        """``generator`` (a CPU generator) seeds dropout in training."""
         cfg = self.cfg
         if tokens.dim() != 2:
             raise ValueError(
@@ -210,6 +245,16 @@ class TransformerLM(nn.Module):
         dtype = cfg.compute_dtype
         x = self.token_embed(tokens).to(dtype)
         x = x + self.pos_embed[:s].to(dtype)[None]
+        use_dropout = self.training and cfg.dropout_rate > 0
+        if use_dropout and generator is None:
+            raise ValueError("dropout in training needs a generator")
         for block in self.blocks:
-            x = block(x)
+            seed = None
+            if use_dropout:
+                seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+            if self.training and cfg.remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    block, x, seed, use_reentrant=False)
+            else:
+                x = block(x, seed)
         return self.lm_head(self.ln_f(x)).float()

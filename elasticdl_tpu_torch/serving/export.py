@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from elasticdl_tpu_torch import bridge
+from elasticdl_tpu_torch.common import tensor_utils
 from elasticdl_tpu_torch.common.device import resolve_device
 from elasticdl_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -91,10 +92,7 @@ def export_serving_bundle(output_dir: str, model: torch.nn.Module,
 def _flax_ndarray(data: bytes) -> np.ndarray:
     """flax's ndarray ext payload: msgpack (shape, dtype name, bytes).
     bfloat16 widens to f32 (numpy has no bfloat16)."""
-    import msgpack
-
-    shape, dtype_name, buffer = msgpack.unpackb(data, raw=True)
-    name = dtype_name.decode()
+    shape, name, buffer = tensor_utils.unpackb(data)
     if name == "bfloat16":
         bits = np.frombuffer(buffer, np.uint16).astype(np.uint32) << 16
         arr = bits.view(np.float32)
@@ -127,13 +125,10 @@ def _unchunk(tree):
 
 def load_flax_params(path: str) -> dict:
     """Decode a flax ``serialization.to_bytes`` file into nested dicts of
-    numpy arrays, with ``msgpack`` and numpy alone."""
-    import msgpack
-
+    numpy arrays, with the port's own msgpack codec and numpy."""
     with open(path, "rb") as f:
         raw = f.read()
-    return _unchunk(msgpack.unpackb(raw, ext_hook=_flax_ext_hook,
-                                    raw=False, strict_map_key=False))
+    return _unchunk(tensor_utils.unpackb(raw, ext_hook=_flax_ext_hook))
 
 
 def load_model(bundle_dir: str, device=None,

@@ -211,3 +211,143 @@ def test_cuda_attention_raises_for_an_untemplated_head_dim():
     with pytest.raises(NotImplementedError, match="head dims"):
         with torch.inference_mode():
             model(torch.zeros((1, 8), dtype=torch.long, device="cuda"))
+
+
+# ---- training: gradients, dropout, remat -------------------------------
+
+def _jax_grads(jmodel, params, tokens, labels, mask):
+    from elasticdl_tpu.ops.losses import masked_next_token_cross_entropy
+
+    def loss(p):
+        logits = jmodel.apply({"params": p}, tokens, training=True)
+        return masked_next_token_cross_entropy(labels, logits, mask)
+
+    value, grads = jax.jit(jax.value_and_grad(loss))(params)
+    return float(value), bridge.state_dict_from_flax(
+        jax.tree.map(np.asarray, grads))
+
+
+def _port_grads(model, tokens, labels, mask):
+    from elasticdl_tpu_torch.ops.losses import (
+        masked_next_token_cross_entropy,
+    )
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss = masked_next_token_cross_entropy(
+        torch.from_numpy(labels), model(torch.from_numpy(tokens)),
+        torch.from_numpy(mask))
+    loss.backward()
+    return loss.item(), {name: p.grad for name, p in
+                         model.named_parameters()}
+
+
+def _lm_batch(seed):
+    tokens = _tokens(seed=seed)
+    labels = _tokens(seed=seed + 1)
+    mask = np.array([1.0, 0.0], np.float32)     # a padded row
+    return tokens, labels, mask
+
+
+def test_whole_model_grads_match_jax_f32():
+    """f32 at rtol 1e-4 / atol 2e-6, near the logits' 1e-4: the JAX side
+    differentiates dense_attention, the port its flash plain path, so
+    the f32 sums run in another order through two blocks and back."""
+    jmodel = _jax_model(128, 2, jnp.float32)
+    params = _params(128, 2)
+    tokens, labels, mask = _lm_batch(7)
+    want_loss, want = _jax_grads(jmodel, params, tokens, labels, mask)
+    got_loss, got = _port_grads(_port(params, torch.float32), tokens,
+                                labels, mask)
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-5)
+    assert set(got) == set(want)
+    for name in want:
+        np.testing.assert_allclose(got[name].numpy(), want[name].numpy(),
+                                   rtol=1e-4, atol=2e-6, err_msg=name)
+
+
+def test_whole_model_grads_match_jax_bf16():
+    """bf16: relative L2 error per parameter under 5e-2. Both sides round
+    to bf16 at every product and residual add, the JAX dense path also
+    rounds its scores; the backward adds as many rounding points again.
+    The key bias's true gradient is zero (a bias added to every key of a
+    row shifts its scores alike, which the softmax ignores), so both
+    sides give rounding noise there: it is held to a bound relative to
+    the key kernel's gradient instead."""
+    jmodel = _jax_model(128, 2, jnp.bfloat16)
+    params = _params(128, 2)
+    tokens, labels, mask = _lm_batch(8)
+    want_loss, want = _jax_grads(jmodel, params, tokens, labels, mask)
+    got_loss, got = _port_grads(_port(params, torch.bfloat16), tokens,
+                                labels, mask)
+    np.testing.assert_allclose(got_loss, want_loss, rtol=1e-2)
+    for name in want:
+        w, g = want[name].numpy(), got[name].float().numpy()
+        if name.endswith("attn.key.bias"):
+            ref = np.linalg.norm(want[name[:-4] + "weight"].numpy())
+            assert max(np.linalg.norm(g), np.linalg.norm(w)) < 1e-2 * ref
+            continue
+        rel = np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-12)
+        assert rel < 5e-2, (name, rel)
+
+
+def _dropout_model(rate, remat=False):
+    cfg = TransformerConfig(vocab_size=V, d_model=64, n_heads=2,
+                            n_layers=L, d_ff=F, max_len=MAX_LEN,
+                            dropout_rate=rate, remat=remat,
+                            compute_dtype=torch.float32)
+    model = TransformerLM(cfg)
+    model.load_state_dict(bridge.state_dict_from_flax(
+        bridge.init_flax_params(cfg, seed=0)))
+    return model
+
+
+def test_dropout_keep_share_scale_and_seed():
+    from elasticdl_tpu_torch.models.transformer import dropout
+
+    x = torch.ones(200, 500)
+    out = dropout(x, 0.3, torch.Generator().manual_seed(1))
+    kept = out != 0
+    assert abs(kept.float().mean().item() - 0.7) < 0.01
+    torch.testing.assert_close(out[kept], torch.full_like(out[kept],
+                                                          1 / 0.7))
+    again = dropout(x, 0.3, torch.Generator().manual_seed(1))
+    assert torch.equal(out, again)
+    other = dropout(x, 0.3, torch.Generator().manual_seed(2))
+    assert not torch.equal(out, other)
+
+
+def test_dropout_is_off_in_eval_and_at_rate_zero():
+    tokens = torch.from_numpy(_tokens(seed=2))
+    model = _dropout_model(0.5)
+    with torch.no_grad():
+        plain = _dropout_model(0.0)(tokens)
+        assert torch.equal(model.eval()(tokens), plain)
+        train0 = _dropout_model(0.0).train()(
+            tokens, generator=torch.Generator().manual_seed(0))
+        torch.testing.assert_close(train0, plain)
+        a = model.train()(tokens, generator=torch.Generator().manual_seed(3))
+        b = model.train()(tokens, generator=torch.Generator().manual_seed(3))
+        assert torch.equal(a, b) and not torch.allclose(a, plain)
+    with pytest.raises(ValueError, match="generator"):
+        model.train()(tokens)
+
+
+def test_remat_with_dropout_gives_the_same_grads():
+    tokens, labels, mask = _lm_batch(9)
+    grads = []
+    for remat in (False, True):
+        model = _dropout_model(0.2, remat=remat).train()
+        from elasticdl_tpu_torch.ops.losses import (
+            masked_next_token_cross_entropy,
+        )
+
+        logits = model(torch.from_numpy(tokens),
+                       generator=torch.Generator().manual_seed(5))
+        masked_next_token_cross_entropy(
+            torch.from_numpy(labels), logits,
+            torch.from_numpy(mask)).backward()
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    for name in grads[0]:
+        torch.testing.assert_close(grads[1][name], grads[0][name],
+                                   rtol=1e-6, atol=1e-7)
