@@ -5,9 +5,15 @@ elasticdl_tpu/api/local_executor.py).
 read shards directly, run the train step on the device (CUDA unless
 ``--device cpu``), evaluate periodically and at the end, export with
 ``--output``. ``callbacks`` adds Callback objects to the model spec's
-(their batch hooks run around every train step). Not ported yet:
-checkpointing (``--checkpoint_dir``, restore at init), TensorBoard,
-host-tier and sparse runners.
+(their batch hooks run around every train step).
+
+A zoo module with ``make_sparse_runner`` (device-tier sparse models)
+trains through that runner: its ``init_state`` builds the state at the
+first batch, and its ``train_step``/``eval_step`` replace the dense
+steps. Such a model cannot be exported with ``--output`` yet (the
+serving bundle of a sparse model waits for the serving slice). Not
+ported yet: checkpointing (``--checkpoint_dir``, restore at init),
+TensorBoard, host-tier runners.
 """
 
 import time
@@ -84,8 +90,17 @@ class LocalExecutor:
         self.state = None
         self.last_batch = None
         self.last_train_metrics = None
-        self._train_step = build_train_step(self._spec.loss)
-        self._eval_step = build_eval_step()
+        self._step_runner = (self._spec.make_sparse_runner()
+                             if self._spec.make_sparse_runner else None)
+        if self._step_runner is None:
+            self._train_step = build_train_step(self._spec.loss)
+            self._eval_step = build_eval_step()
+        elif args.output:
+            raise NotImplementedError(
+                "--output with a sparse runner: the serving bundle of a "
+                "device-tier sparse model waits for the serving slice of "
+                "the port"
+            )
         self._callbacks = ensure_saved_model_exporter(
             (self._spec.callbacks_fn() if self._spec.callbacks_fn else [])
             + list(callbacks or []),
@@ -125,15 +140,23 @@ class LocalExecutor:
                 reader.metadata,
             )
 
-    def _maybe_init_state(self):
+    def _maybe_init_state(self, batch):
         if self.state is None:
             make_optimizer = apply_callbacks_to_optimizer(
                 self._spec.make_optimizer(), self._callbacks
             )
-            self.state = init_train_state(
-                self._spec.model, make_optimizer,
+            if self._step_runner is None:
+                self.state = init_train_state(
+                    self._spec.model, make_optimizer,
+                    seed=self._args.random_seed,
+                )
+                return
+            self.state = self._step_runner.init_state(
+                self._spec.model, make_optimizer, batch,
                 seed=self._args.random_seed,
             )
+            self._train_step = self._step_runner.train_step(self._spec.loss)
+            self._eval_step = self._step_runner.eval_step()
 
     def train(self) -> dict:
         start_time = time.monotonic()
@@ -145,7 +168,7 @@ class LocalExecutor:
                 break
             for batch in self._task_batches(self._train_reader,
                                             Mode.TRAINING):
-                self._maybe_init_state()
+                self._maybe_init_state(batch)
                 self.last_batch = batch
                 for cb in self._callbacks:
                     cb.on_train_batch_begin(self)

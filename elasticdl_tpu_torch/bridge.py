@@ -14,6 +14,12 @@ dicts of numpy arrays, as ``flax.serialization.msgpack_restore`` or
 ``config_from_params`` reads the architecture off the shapes and
 ``init_flax_params`` makes a seeded numpy tree in the same layout (the
 flax initializers' scales, for random-weight runs).
+
+``sparse_state_from_flax`` carries a JAX ``SparseTrainState``'s dense
+params (the recsys ranker's ``Dense_k``) and its tables, slot tables and
+apply counts across, and ``load_sparse_state`` copies them into the
+port's ``SparseTrainState`` in place: the JAX tables come from
+``jax.random`` and cannot be redrawn in torch.
 """
 
 from typing import Dict
@@ -147,3 +153,40 @@ def init_flax_params(cfg: TransformerConfig, seed: int = 0) -> dict:
                     "wo": dense((f, d), f, (d,))},
         }
     return params
+
+
+def sparse_state_from_flax(params: dict, tables: dict, slot_tables: dict,
+                           table_steps: dict) -> dict:
+    """A JAX sparse train state's leaves (numpy) for the port:
+    ``{"model": state_dict, "tables": {name: (V, D)}, "slot_tables":
+    {name: {slot: (V, D)}}, "table_steps": {name: int}}``. Dense kernels
+    ``Dense_k`` (in, out) become ``layers.k.weight`` (out, in)."""
+    params = _params(params)
+    model = {}
+    k = 0
+    while f"Dense_{k}" in params:
+        for name, value in _dense(params[f"Dense_{k}"]).items():
+            model[f"layers.{k}.{name}"] = value
+        k += 1
+    return {
+        "model": model,
+        "tables": {name: _t(t) for name, t in tables.items()},
+        "slot_tables": {name: {slot: _t(v) for slot, v in slots.items()}
+                        for name, slots in slot_tables.items()},
+        "table_steps": {name: int(np.asarray(v))
+                        for name, v in table_steps.items()},
+    }
+
+
+def load_sparse_state(state, carried: dict):
+    """Copy ``sparse_state_from_flax``'s output into a port
+    ``SparseTrainState`` in place (the optimizer keeps its parameters)."""
+    state.model.load_state_dict(carried["model"])
+    with torch.no_grad():
+        for name, table in carried["tables"].items():
+            state.tables[name].copy_(table)
+        for name, slots in carried["slot_tables"].items():
+            for slot, value in slots.items():
+                state.slot_tables[name][slot].copy_(value)
+    state.table_steps.update(carried["table_steps"])
+    return state

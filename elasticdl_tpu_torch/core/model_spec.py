@@ -16,10 +16,13 @@ name:
 - ``dataset_fn(records, mode, metadata)`` -> ``(features, labels)``
   numpy trees for a list of decoded records;
 - ``eval_metrics_fn()`` -> dict of metric name -> fn(labels, predictions),
-- optional: ``callbacks()``, ``custom_data_reader(**kwargs)``.
+- optional: ``callbacks()``, ``custom_data_reader(**kwargs)``,
+  ``make_sparse_runner()`` -> an ``embedding.device_sparse
+  .DeviceSparseRunner`` for device-tier sparse models (the Local
+  executor then trains through the runner).
 
-The JAX contract's prediction processor and its mesh and sparse-runner
-extras are not ported yet.
+Not ported yet: the JAX contract's prediction processor, its mesh
+extras and ``make_host_runner`` (the host tier).
 """
 
 import importlib.util
@@ -87,6 +90,10 @@ class ModelSpec:
     callbacks_fn: Optional[Callable] = None
     custom_data_reader: Optional[Callable] = None
     module: Any = None
+    # Device-tier sparse models (embedding/device_sparse.py): factory
+    # returning a DeviceSparseRunner, which owns the HBM tables and
+    # their lookup and row-update kernels.
+    make_sparse_runner: Optional[Callable] = None
 
     def make_optimizer(self, **kwargs) -> Callable:
         """The zoo's optimizer factory: ``params -> Optimizer``."""
@@ -122,4 +129,5 @@ def get_model_spec(
         callbacks_fn=_get_spec_value(module, callbacks),
         custom_data_reader=_get_spec_value(module, custom_data_reader),
         module=module,
+        make_sparse_runner=_get_spec_value(module, "make_sparse_runner"),
     )

@@ -21,12 +21,18 @@ def masked_softmax_cross_entropy(labels, logits, mask):
 
 def masked_sigmoid_cross_entropy(labels, logits, mask):
     """Binary CE on logits, masked mean over real rows:
-    ``max(x, 0) - x*z + log1p(exp(-|x|))``."""
+    ``max(x, 0) - x*z + log1p(exp(-|x|))``.
+
+    At a logit of exactly 0 (zero biases on an empty embedding row) the
+    gradient takes JAX's conventions: ``max`` splits the tie (1/2) and
+    ``|x|`` has slope 1, as ``jnp.maximum`` and ``jnp.abs`` do."""
     x = logits
     z = labels.to(x.dtype)
     if x.dim() == z.dim() + 1 and x.shape[-1] == 1:
         x = x[..., 0]
-    per_example = x.clamp_min(0.0) - x * z + torch.log1p(torch.exp(-x.abs()))
+    abs_x = torch.where(x >= 0, x, -x)
+    per_example = (torch.maximum(x, torch.zeros_like(x)) - x * z
+                   + torch.log1p(torch.exp(-abs_x)))
     return masked_mean(per_example, mask)
 
 

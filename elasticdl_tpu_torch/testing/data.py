@@ -1,4 +1,4 @@
-"""Synthetic dataset fixtures of the port (the LM part of
+"""Synthetic dataset fixtures of the port (the LM and frappe parts of
 elasticdl_tpu/testing/data.py): the same seed writes the same bytes, so
 both packages train on one record file."""
 
@@ -8,6 +8,25 @@ import numpy as np
 
 from elasticdl_tpu_torch.common import tensor_utils
 from elasticdl_tpu_torch.data.record_file import RecordFileWriter
+
+
+def create_frappe_record_file(path, num_records, seed=0, input_length=10,
+                              max_id=5383):
+    """Frappe-style rows: ``input_length`` sparse feature ids in
+    [0, max_id) and a click label (the parity of their sum).
+    ``input_length=32, max_id=1_000_000`` gives the recsys ranker's
+    records."""
+    rng = np.random.RandomState(seed)
+    with RecordFileWriter(path) as writer:
+        for _ in range(num_records):
+            ids = rng.randint(0, max_id, size=(input_length,))
+            label = int(ids.sum() % 2)
+            writer.write(
+                tensor_utils.dumps(
+                    {"feature_ids": ids.astype(np.int64), "label": label}
+                )
+            )
+    return path
 
 
 def create_lm_record_file(path, num_records, seed=0, seq_len=32,

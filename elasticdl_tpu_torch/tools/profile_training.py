@@ -2,18 +2,26 @@
 
     python -m elasticdl_tpu_torch.tools.profile_training [--batch 8]
         [--seq 1024] [--iters 5]
+    python -m elasticdl_tpu_torch.tools.profile_training --model recsys
+        [--batch 512] [--iters 5]
 
-Builds the transformer-LM flagship (bench_suite.py
-``_TRANSFORMER_SIZES["transformer"]``, vocab 32768, bf16, remat off,
-dropout 0) with seeded random weights and the zoo twin's Adam 1e-3,
-runs ``core.step.build_train_step`` on seeded random token batches,
-times ``--iters`` steps with CUDA events beside the host's time to
-issue them, then runs ``--iters`` steps under ``torch.profiler`` and
-prints one JSON line: the device time per step (the union of kernel
-intervals; user annotations such as ``Optimizer.step`` are not kernels
-and are left out), its share of the unprofiled step time (the profiler
-slows the host, so its own window would understate the share), and the
-device time per step summed by kernel name (largest first).
+``--model transformer`` (the default) builds the transformer-LM
+flagship (bench_suite.py ``_TRANSFORMER_SIZES["transformer"]``, vocab
+32768, bf16, remat off, dropout 0) with seeded random weights and the
+zoo twin's Adam 1e-3 and runs ``core.step.build_train_step`` on seeded
+random token batches. ``--model recsys`` builds the recsys ranker twin
+at full width (1,000,000 x 256 table, 32 ids an example) and runs its
+sparse runner's step with the kernels pinned (``use_pallas="always"``)
+on seeded random id batches.
+
+Either way it times ``--iters`` steps with CUDA events beside the
+host's time to issue them, then runs ``--iters`` steps under
+``torch.profiler`` and prints one JSON line: the device time per step
+(the union of kernel intervals; user annotations such as
+``Optimizer.step`` are not kernels and are left out), its share of the
+unprofiled step time (the profiler slows the host, so its own window
+would understate the share), and the device time per step summed by
+kernel name (largest first).
 """
 
 import argparse
@@ -34,34 +42,66 @@ from elasticdl_tpu_torch.models.transformer import (
 from elasticdl_tpu_torch.tools.profile_serving import FLAGSHIP, _union_us
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser("profile_training")
-    parser.add_argument("--batch", type=int, default=8)
-    parser.add_argument("--seq", type=int, default=1024)
-    parser.add_argument("--iters", type=int, default=5)
-    parser.add_argument("--top", type=int, default=16)
-    args = parser.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise RuntimeError("profile_training needs a CUDA device")
+def _transformer(batch, seq):
     cfg = TransformerConfig(**FLAGSHIP, compute_dtype=torch.bfloat16)
     model = TransformerLM(cfg)
     model.load_state_dict(bridge.state_dict_from_flax(
         bridge.init_flax_params(cfg, seed=0)))
     state = init_train_state(model.cuda(), transformer_lm.optimizer(),
                              seed=0)
-    step = build_train_step(transformer_lm.loss)
     rng = np.random.default_rng(0)
     batches = []
     for _ in range(2):
         tokens = rng.integers(0, cfg.vocab_size,
-                              (args.batch, args.seq + 1)).astype(np.int32)
+                              (batch, seq + 1)).astype(np.int32)
         batches.append({"features": tokens[:, :-1],
                         "labels": tokens[:, 1:],
-                        "mask": np.ones(args.batch, np.float32)})
+                        "mask": np.ones(batch, np.float32)})
+    return state, build_train_step(transformer_lm.loss), batches
+
+
+def _recsys(batch):
+    from elasticdl_tpu_torch.model_zoo.recsys import recsys_sparse
+
+    torch.manual_seed(0)
+    runner = recsys_sparse.make_sparse_runner(use_pallas="always")
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(8):   # fresh ids each step, as a training stream has
+        ids = rng.integers(0, recsys_sparse.VOCAB,
+                           (batch, recsys_sparse.INPUT_LENGTH))
+        batches.append({"features": {recsys_sparse.FEATURE_KEY: ids},
+                        "labels": (ids.sum(axis=1) % 2).astype(np.int32),
+                        "mask": np.ones(batch, np.float32)})
+    state = runner.init_state(recsys_sparse.custom_model(device="cuda"),
+                              recsys_sparse.optimizer(), batches[0], seed=0)
+    return state, runner.train_step(recsys_sparse.loss), batches
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser("profile_training")
+    parser.add_argument("--model", choices=("transformer", "recsys"),
+                        default="transformer")
+    parser.add_argument("--batch", type=int, default=None,
+                        help="8 (transformer) or 512 (recsys)")
+    parser.add_argument("--seq", type=int, default=1024)
+    parser.add_argument("--iters", type=int, default=5)
+    parser.add_argument("--top", type=int, default=16)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_training needs a CUDA device")
+    if args.model == "recsys":
+        args.batch = args.batch or 512
+        state, step, batches = _recsys(args.batch)
+        shape = [args.batch, 32]
+    else:
+        args.batch = args.batch or 8
+        state, step, batches = _transformer(args.batch, args.seq)
+        shape = [args.batch, args.seq]
 
     def run(n):
         for i in range(n):
-            step(state, batches[i % 2])
+            step(state, batches[i % len(batches)])
 
     run(3)
     torch.cuda.synchronize()
@@ -94,7 +134,7 @@ def main(argv=None) -> int:
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "shape": [args.batch, args.seq], "step_ms": step_ms,
+        "model": args.model, "shape": shape, "step_ms": step_ms,
         "issue_ms": issue_ms,
         "device_events_per_step": len(intervals) / args.iters,
         "device_ms_per_step": busy_us / args.iters / 1e3,

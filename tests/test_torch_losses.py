@@ -77,3 +77,17 @@ def test_next_token_loss_takes_bf16_logits_in_f32():
 def test_fused_loss_waits_for_the_fused_head():
     with pytest.raises(NotImplementedError, match="fused LM head"):
         tl.fused_next_token_cross_entropy(None, None, None)
+
+
+def test_sigmoid_loss_gradient_at_zero_logits_matches_jax():
+    """A logit of exactly 0 (zero biases on an empty embedding row): the
+    subgradient follows jnp.maximum's split tie and jnp.abs's slope 1."""
+    logits = np.array([0.0, 0.0, 1.5, -2.0], np.float32)
+    labels = np.array([1, 0, 1, 0], np.int32)
+    mask = np.ones(4, np.float32)
+    want = jax.grad(lambda x: jl.masked_sigmoid_cross_entropy(
+        jnp.asarray(labels), x, jnp.asarray(mask)))(jnp.asarray(logits))
+    x = torch.from_numpy(logits).requires_grad_()
+    tl.masked_sigmoid_cross_entropy(torch.from_numpy(labels), x,
+                                    torch.from_numpy(mask)).backward()
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want), **TOL)
