@@ -82,11 +82,33 @@
 13. ``sparse sweep``: ``tools/bench_kernel_device_sweep.py``'s tiers
    (kernel, library and bound ms, a JSON line each), the path on which
    kernel #5's launches are counted.
-14. Prints a ``serving``, a ``training``, a ``sparse_training`` and a
-   ``kernels`` JSON line (the three flash kernels and the four embedding
-   kernels with their ms, plain ms, library ms, bound ms and launches;
-   the row kernels with a per-rule list) and, last,
-   ``{"ok": true, "device": {...}}``.
+14. ``chunk kernel check`` (after the backward checks): the ring's
+   chunk-update kernel (#2, ``flash_chunk_update``) against its plain
+   version folded over the kernel's 64-key tiles, and in one call over
+   the whole chunk: f32 and bf16, head dims 16-128, causal and not, a
+   diagonal, a past and a wholly future chunk, one that masks only the
+   first rows, Sq != Sk and ragged lengths, an initial carry and one
+   folded from an earlier chunk; bf16 cases also read the plain version
+   without the rounding of p, which must fail. Times the kernel at the
+   ring's local block (BH 4, 2048, D 128, bf16) for a past and a
+   diagonal chunk.
+15. ``ring check``: ``ring_attention`` over ``make_mesh((4,), ("sp",),
+   [cuda:0] * 4)`` against kernel #1 (and #3/#4) on the whole sequence,
+   output and dq, dk, dv, at B 1 x S 8192 and B 8 x S 1024 (bf16), and
+   f32 against the CPU plain ring; the whole ring forward at S 8192
+   timed beside #1 and SDPA.
+16. ``ring training``: the flagship's widths at max_len 8192 with remat,
+   B 1 x S 8192, 10 Adam steps through ``MeshRunner`` on the (4,) sp
+   mesh, and the same steps through ``core.step.build_train_step``
+   (#1) from the same weights and batches: losses agree; exact launch
+   counts (per step 256 chunk updates, 128 dq, 128 dk/dv; 128 chunk
+   updates an eval batch); step ms beside issue ms, tokens/s, peak
+   memory.
+17. Prints a ``serving``, a ``training``, a ``sparse_training``, a
+   ``ring_training`` and a ``kernels`` JSON line (the four flash kernels
+   and the four embedding kernels with their ms, plain ms, library ms,
+   bound ms and launches; the row kernels with a per-rule list) and,
+   last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero; without CUDA it
 exits 2 and prints no result.
@@ -227,6 +249,39 @@ SPARSE_TOL = dict(loss=1e-3, delta_l2=0.1)
 # change of the table and of every dense parameter (relative L2; Adam's
 # first step is lr * sign(g)).
 SMALL_TOL = dict(loss=2e-3, delta_l2=0.25)
+# Ring attention over an sp mesh of one card (slice 4): the long-context
+# row of tools/bench_long_context.py, (S 8192, B 1, remat), on the
+# flagship's widths, the sequence cut over RING_SP ranks (chunks of 2048).
+RING_SP = 4
+RING_SEQ = 8192
+RING_TRAIN_STEPS = 10
+# The chunk-update kernel (#2) against its plain version on the same
+# inputs, folded over the kernel's 64-key tiles (so both take p against
+# the same running maximum and round it to bf16 at the same points) and,
+# read beside it, in one call over the whole chunk. Per output (m, l,
+# acc): |g - w| <= elem * (|w| + median|w|) at every element and
+# ||g - w|| / ||w|| <= l2, as the backward checks. bf16: only an exp or
+# a product sum that differs in its last f32 bit flips a rounding, and
+# the plain version without the rounding of p (the "unrounded" reading)
+# must fail. f32: sums over 64 keys in another order.
+CHUNK_TOL = {"bfloat16": dict(elem=3e-2, l2=2e-4),
+             "float32": dict(elem=2e-5, l2=1e-6)}
+# The whole-chunk plain version rounds p against the chunk's final
+# maximum, the kernel against each tile's running one: a different bf16
+# rounding of every p (2^-9 relative) that passes through the sums.
+CHUNK_WHOLE_TOL = {"bfloat16": dict(elem=6e-2, l2=5e-3),
+                   "float32": dict(elem=2e-5, l2=1e-6)}
+# The ring on the card against kernel #1 (and #3/#4) over the whole
+# sequence, bf16: p rounded against other maxima (as CHUNK_WHOLE_TOL),
+# dq summed over the ring's chunks in f32 before its bf16 rounding.
+RING_TOL = {"bfloat16": dict(elem=6e-2, l2=5e-3),
+            "float32": dict(elem=2e-5, l2=2e-6)}
+# The flagship trained on the ring against the same steps through kernel
+# #1 on the whole sequence, from the same weights and batches: per-step
+# loss, relative. bf16 attention outputs that differ in their last bits
+# read 2.7e-5 over 4 steps on an H100 (80GB HBM3, 700 W); a ring that
+# folds a chunk at the wrong offset changes the attention of whole rows.
+RING_TRAIN_TOL = dict(loss=1e-3)
 # Served logits against the in-process predict / the CPU run of the same
 # bundle: relative L2 error. Both run the bf16 model; a different batch
 # size or device changes the matrix products' summation order, and a
@@ -731,6 +786,391 @@ def bwd_kernel_phase(torch, fa):
             "library_call": "SDPA backward (dq, dk and dv together)",
         })
     return rows, checks
+
+
+def unmasked_pairs(sq, sk, q_offset, k_offset, causal):
+    """The (query, key) pairs a chunk update must fold: keys at or before
+    each query's global position when causal."""
+    if not causal:
+        return sq * sk
+    rows = q_offset + np.arange(sq) - k_offset + 1
+    return int(np.clip(rows, 0, sk).sum())
+
+
+def chunk_bound(bh, sq, sk, d, dtype, causal, q_offset, k_offset):
+    """Least time for one chunk update on an H100: q, k, v read once,
+    the f32 carry (m, l, acc) read and written once, over the memory
+    rate; against both products over this chunk's unmasked pairs at the
+    peak rate."""
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = (bh * sq * d + 2 * bh * sk * d) * elt \
+        + 2 * (2 * bh * sq + bh * sq * d) * 4
+    ops = 2 * 2 * bh * unmasked_pairs(sq, sk, q_offset, k_offset,
+                                      causal) * d
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def chunk_tiled_reference(fa, q, k, v, m, l, acc, q_offset, k_offset,
+                          causal, scale, tile=64):
+    """The plain version folded over 64-key tiles, as the kernel walks
+    the chunk (a tile wholly after every query folds nothing)."""
+    state = (m, l, acc)
+    for lo in range(0, k.shape[1], tile):
+        state = fa.flash_chunk_update_reference(
+            q, k[:, lo:lo + tile], v[:, lo:lo + tile], *state, q_offset,
+            k_offset + lo, causal, scale)
+    return state
+
+
+# (name, bh, sq, sk, d, dtype, causal, q_offset, k_offset, carry). The
+# first two are the ring's local block at the slice's shape (BH 4, 2048,
+# D 128): its diagonal chunk and a past chunk.
+CHUNK_CASES = [
+    ("diagonal", 4, 2048, 2048, 128, "bfloat16", True, 2048, 2048,
+     "initial"),
+    ("past", 4, 2048, 2048, 128, "bfloat16", True, 4096, 0, "folded"),
+    # Every key after every query; Sq is ragged so that the last q tile
+    # is not skipped whole and its rows meet the mask.
+    ("future", 4, 200, 256, 128, "bfloat16", True, 0, 200, "initial"),
+    ("future", 4, 200, 256, 64, "float32", True, 0, 200, "folded"),
+    # Rows 0-43 (global 256-299) see no key of the chunk (keys from 300).
+    ("first_rows", 4, 256, 256, 64, "bfloat16", True, 256, 300, "initial"),
+    ("first_rows", 4, 256, 256, 32, "float32", True, 256, 300, "initial"),
+    ("full", 4, 256, 384, 16, "bfloat16", False, 0, 0, "initial"),
+    ("full", 4, 256, 384, 64, "float32", False, 0, 0, "folded"),
+    ("ragged", 4, 200, 333, 16, "bfloat16", True, 500, 100, "folded"),
+    ("ragged", 4, 130, 37, 32, "bfloat16", True, 37, 0, "initial"),
+    ("ragged", 4, 200, 333, 128, "float32", True, 300, 100, "initial"),
+    ("diagonal", 4, 512, 512, 64, "float32", True, 512, 512, "folded"),
+    ("diagonal", 4, 512, 512, 32, "bfloat16", True, 512, 512, "folded"),
+    ("past", 4, 512, 512, 16, "float32", True, 1024, 0, "initial"),
+]
+
+
+def chunk_kernel_phase(torch, fa, check=check, timed=True):
+    """Kernel #2 against its plain version on the card over CHUNK_CASES;
+    then its times at the slice's shape. ``check`` may record instead of
+    raise (tools/chunk_kernel_mutants.py)."""
+    rng = np.random.default_rng(SEED + 50)
+    checks = []
+    timing = {}
+    for (name, bh, sq, sk, d, dtype_name, causal, q_off, k_off,
+         carry) in CHUNK_CASES:
+        dtype = getattr(torch, dtype_name)
+
+        def randn(*shape):
+            return torch.from_numpy(rng.standard_normal(
+                shape, dtype=np.float32)).to(DEVICE, dtype)
+
+        q, k, v = randn(bh, sq, d), randn(bh, sk, d), randn(bh, sk, d)
+        scale = d ** -0.5
+        state = (torch.full((bh, sq, 1), -1e30, device=DEVICE),
+                 torch.zeros((bh, sq, 1), device=DEVICE),
+                 torch.zeros((bh, sq, d), device=DEVICE))
+        if carry == "folded":   # the carry an earlier (past) chunk leaves
+            state = fa.flash_chunk_update_reference(
+                q, randn(bh, 256, d), randn(bh, 256, d), *state, q_off,
+                -256, False, scale)
+        got = fa.flash_chunk_update_cuda(q, k, v, *state, q_off, k_off,
+                                         causal, scale)
+        torch.cuda.synchronize()
+        want = chunk_tiled_reference(fa, q, k, v, *state, q_off, k_off,
+                                     causal, scale)
+        whole = fa.flash_chunk_update_reference(q, k, v, *state, q_off,
+                                                k_off, causal, scale)
+        pairs = unmasked_pairs(sq, sk, q_off, k_off, causal)
+        unrounded = None
+        if dtype_name == "bfloat16" and pairs:
+            unrounded = chunk_tiled_reference(
+                fa, q.float(), k.float(), v.float(), *state, q_off, k_off,
+                causal, scale)
+        torch.cuda.synchronize()
+        tol = CHUNK_TOL[dtype_name]
+        res = {"case": name, "shape": [bh, sq, sk, d], "dtype": dtype_name,
+               "causal": causal, "q_offset": q_off, "k_offset": k_off,
+               "carry": carry, "pairs": pairs, "tol": tol,
+               "whole_tol": CHUNK_WHOLE_TOL[dtype_name]}
+        ok = True
+        for i, out in enumerate(("m", "l", "acc")):
+            res[out] = grad_readings(got[i], want[i])
+            res[f"{out}_whole"] = grad_readings(got[i], whole[i])
+            ok = ok and bool(torch.isfinite(got[i]).all()) \
+                and within(res[out], tol) \
+                and within(res[f"{out}_whole"],
+                           CHUNK_WHOLE_TOL[dtype_name])
+        if unrounded is not None:
+            res["acc_unrounded"] = grad_readings(unrounded[2], want[2])
+        if not pairs:          # nothing to fold: the carry comes back
+            res["carry_unchanged"] = all(torch.equal(g, s)
+                                         for g, s in zip(got, state))
+            ok = ok and res["carry_unchanged"]
+        print("chunk kernel check", json.dumps(res), flush=True)
+        label = f"{name}/{dtype_name}/D{d}/{carry}"
+        check(ok, f"chunk kernel {label} outside tolerance {res}")
+        if unrounded is not None:
+            check(not within(res["acc_unrounded"], tol),
+                  f"chunk kernel {label}: the unrounded plain version "
+                  f"passes the limits, which could not see a rounding "
+                  f"fault {res}")
+        checks.append(res)
+        if timed and (bh, sq, sk, d) == (4, 2048, 2048, 128):
+            timing[name] = (q, k, v, state, q_off, k_off, causal, scale)
+    if not timed:
+        return None, checks
+    return chunk_times(torch, fa, timing, checks), checks
+
+
+def chunk_times(torch, fa, timing, checks):
+    """Kernel #2 at the slice's shape (a past and a diagonal chunk)
+    through its C entry point (these launches are not counted), against
+    the plain version and the bound."""
+    lib = fa._chunk_library()
+    out = {}
+    for name, (q, k, v, state, q_off, k_off, causal, scale) in \
+            timing.items():
+        bh, sq, d = q.shape
+        outs = [torch.empty_like(t) for t in state]
+        ptrs = [t.data_ptr() for t in (q, k, v, *state, *outs)]
+
+        def launch():
+            err = lib.edl_flash_chunk_update(
+                *ptrs, bh, sq, k.shape[1], d, 1, q_off, k_off, scale,
+                int(causal), torch.cuda.current_stream().cuda_stream)
+            check(err == 0, f"chunk launch: CUDA error {err}")
+
+        device_ms, issue_ms = cuda_windows(launch, 50, 5)
+        bound_ms, bound_by = chunk_bound(bh, sq, k.shape[1], d, "bfloat16",
+                                         causal, q_off, k_off)
+        out[name] = {
+            "ms": float(np.median(device_ms)), "ms_windows": device_ms,
+            "issue_ms": float(np.median(issue_ms)),
+            "plain_ms": cuda_ms(lambda: fa.flash_chunk_update_reference(
+                q, k, v, *state, q_off, k_off, causal, scale), iters=5),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "pairs": unmasked_pairs(sq, k.shape[1], q_off, k_off, causal),
+        }
+    past = out["past"]
+    return {
+        "name": "flash_chunk_update", "route": "cuda",
+        "source": "elasticdl_tpu_torch/ops/csrc/flash_chunk_update.cu",
+        "replaces": "elasticdl_tpu/ops/flash_attention.py:277",
+        "shape": [4, 2048, 2048, 128], "dtype": "bfloat16",
+        "chunk": "past (the ring's step t > 0), folded carry",
+        "max_abs_err": max(max(c[o]["max_abs_err"] for o in ("m", "l",
+                                                            "acc"))
+                           for c in checks),
+        "ms": past["ms"], "plain_ms": past["plain_ms"],
+        "bound_ms": past["bound_ms"], "bound_by": past["bound_by"],
+        "library_ms": None,
+        "library_call": "none: no PyTorch call carries (m, l, acc)",
+        "chunks": out,
+    }
+
+
+def ring_mesh(torch, sp=RING_SP, device=None):
+    from elasticdl_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh((sp,), ("sp",), [torch.device(device or DEVICE)] * sp)
+
+
+def ring_check_phase(torch, fa, ra):
+    """ring_attention on an sp mesh of the card against kernel #1 (and
+    #3/#4) over the whole sequence, output and gradients, at the slice's
+    shape and the flagship's; f32 against the CPU plain ring; then the
+    whole ring forward timed beside #1 and SDPA."""
+    mesh = ring_mesh(torch)
+    rng = np.random.default_rng(SEED + 60)
+    checks = []
+    for b, s, dtype_name in ((1, RING_SEQ, "bfloat16"),
+                             (8, 1024, "bfloat16"), (1, 512, "float32")):
+        d = 128 if dtype_name == "bfloat16" else 64
+        arrays = [rng.standard_normal((b, s, 4, d), dtype=np.float32)
+                  for _ in range(4)]
+        dtype = getattr(torch, dtype_name)
+        runs = {}
+        for label in ("ring", "flash" if dtype_name == "bfloat16"
+                      else "cpu_ring"):
+            dev = "cpu" if label == "cpu_ring" else DEVICE
+            leaves = [torch.from_numpy(x).to(dev, dtype).requires_grad_()
+                      for x in arrays[:3]]
+            do = torch.from_numpy(arrays[3]).to(dev, dtype)
+            before = (fa.chunk_launches, fa.dq_launches, fa.launches)
+            if label == "flash":
+                out = fa.flash_attention(*leaves)
+            else:
+                out = ra.ring_attention(
+                    *leaves, mesh if dev == DEVICE else ring_mesh(
+                        torch, device="cpu"))
+            out.backward(do)
+            torch.cuda.synchronize()
+            runs[label] = [out.detach().float().cpu()] + [
+                x.grad.float().cpu() for x in leaves]
+            runs[label + "_launches"] = (fa.chunk_launches - before[0],
+                                         fa.dq_launches - before[1],
+                                         fa.launches - before[2])
+        ref = "flash" if dtype_name == "bfloat16" else "cpu_ring"
+        tol = RING_TOL[dtype_name]
+        res = {"shape": [b, s, 4, d], "dtype": dtype_name, "sp": RING_SP,
+               "against": ref, "tol": tol,
+               "ring_launches": runs["ring_launches"]}
+        for i, name in enumerate(("out", "dq", "dk", "dv")):
+            res[name] = grad_readings(runs["ring"][i], runs[ref][i])
+        print("ring check", json.dumps(res), flush=True)
+        check(runs["ring_launches"] == (RING_SP ** 2, RING_SP ** 2, 0),
+              f"ring launches (chunk, dq, fwd) {runs['ring_launches']}: "
+              f"{RING_SP ** 2} chunk updates and dq kernels a ring")
+        for name in ("out", "dq", "dk", "dv"):
+            check(within(res[name], tol), f"ring {name} vs {ref}: {res}")
+        checks.append(res)
+
+    # The whole forward at S 8192: the ring against #1 and SDPA.
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (1, RING_SEQ, 4, 128), dtype=np.float32)).to(DEVICE, torch.bfloat16)
+        for _ in range(3))
+    q4, k4, v4 = (x.transpose(1, 2) for x in (q, k, v))
+    with torch.inference_mode():
+        times = {
+            "ring_forward_ms": cuda_ms(
+                lambda: ra.ring_attention(q, k, v, mesh), iters=5),
+            "flash_forward_ms": cuda_ms(
+                lambda: fa.flash_attention(q, k, v), iters=10),
+            "sdpa_ms": cuda_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True), iters=10),
+        }
+    times["bound_ms"], times["bound_by"] = flash_bound(4, RING_SEQ, 128,
+                                                       "bfloat16", True)
+    times["shape"] = [1, RING_SEQ, 4, 128]
+    print("ring forward times", json.dumps(times), flush=True)
+    return checks, times
+
+
+def ring_training_phase(torch, fa):
+    """The flagship at S 8192 with remat trained on the ring: MeshRunner
+    on an sp mesh of the card, against the same steps through
+    core.step.build_train_step (kernel #1) from the same weights and
+    batches."""
+    from elasticdl_tpu_torch import bridge
+    from elasticdl_tpu_torch.core.step import build_train_step
+    from elasticdl_tpu_torch.core.train_state import init_train_state
+    from elasticdl_tpu_torch.model_zoo.transformer import transformer_lm
+    from elasticdl_tpu_torch.models.transformer import TransformerConfig
+    from elasticdl_tpu_torch.parallel.mesh_runner import MeshRunner
+
+    cfg = TransformerConfig(**dict(FLAGSHIP, max_len=RING_SEQ), remat=True,
+                            compute_dtype=torch.bfloat16)
+    weights = bridge.state_dict_from_flax(
+        bridge.init_flax_params(cfg, seed=SEED))
+    rng = np.random.default_rng(SEED + 70)
+    batches = []
+    for _ in range(RING_TRAIN_STEPS + 1):    # the last one is evaluated
+        start = rng.integers(0, cfg.vocab_size, (1, 1))
+        seq = (start + np.arange(RING_SEQ + 1)[None]) % cfg.vocab_size
+        batches.append({"features": seq[:, :-1].astype(np.int32),
+                        "labels": seq[:, 1:].astype(np.int32),
+                        "mask": np.ones(1, np.float32)})
+    layers = cfg.n_layers
+    runs = {}
+    for label in ("ring", "single"):
+        mesh = ring_mesh(torch) if label == "ring" else None
+        model = transformer_lm.custom_model(config=cfg, device=DEVICE,
+                                            mesh=mesh)
+        model.load_state_dict(weights)
+        if mesh is not None:
+            runner = MeshRunner(mesh)
+            state = runner.init_state(model, transformer_lm.optimizer(),
+                                      batches[0], seed=SEED)
+            step = runner.train_step(transformer_lm.loss)
+            eval_step = runner.eval_step()
+        else:
+            state = init_train_state(model, transformer_lm.optimizer(),
+                                     seed=SEED)
+            step = build_train_step(transformer_lm.loss)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events, issue, losses = [], [], []
+        fa.launches = fa.chunk_launches = 0     # the main path starts here
+        fa.dq_launches = fa.dkv_launches = 0
+        for batch in batches[:RING_TRAIN_STEPS]:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            state, metrics = step(state, batch)
+            end.record()
+            issue.append((time.perf_counter() - t0) * 1e3)
+            events.append((start, end))
+            losses.append(metrics["loss"])
+        counts = {"flash_chunk_update": fa.chunk_launches,  # ... ends here
+                  "flash_attention_bwd_dq": fa.dq_launches,
+                  "flash_attention_bwd_dkv": fa.dkv_launches,
+                  "flash_attention_fwd": fa.launches}
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        step_ms, issue_ms = [], []
+        for i in range(2, RING_TRAIN_STEPS - 1, 2):
+            step_ms.append(events[i][0].elapsed_time(events[i + 1][1]) / 2)
+            issue_ms.append(float(np.mean(issue[i:i + 2])))
+        run = {"losses": [float(x) for x in losses],
+               "launches": counts, "step_ms": spread(step_ms),
+               "issue_ms": spread(issue_ms),
+               "tokens_per_s": RING_SEQ / (np.median(step_ms) / 1e3),
+               "max_memory_allocated_bytes": peak,
+               "params_finite": all(bool(torch.isfinite(p).all())
+                                    for p in state.model.parameters())}
+        if mesh is not None:
+            fa.chunk_launches = fa.dq_launches = 0   # one eval batch
+            logits = eval_step(state, batches[-1])
+            run["eval_launches"] = {"flash_chunk_update": fa.chunk_launches,
+                                    "flash_attention_bwd_dq":
+                                        fa.dq_launches}
+            run["eval_logits_finite"] = bool(torch.isfinite(logits).all())
+            run["eval_shape"] = list(logits.shape)
+        runs[label] = run
+        del state, step, model
+        torch.cuda.empty_cache()
+    ring, single = runs["ring"], runs["single"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(ring["losses"],
+                                               single["losses"])]
+    out = {
+        "model": "transformer flagship widths (bench_suite.py "
+                 "_TRANSFORMER_SIZES['transformer']) at max_len "
+                 f"{RING_SEQ}, remat on, dropout 0, random weights "
+                 f"seed {SEED}, the twin's Adam 1e-3",
+        "batch": 1, "seq": RING_SEQ, "sp": RING_SP,
+        "steps": RING_TRAIN_STEPS, "ring": ring, "single_device": single,
+        "loss_max_rel_diff": max(rel), "tol": RING_TRAIN_TOL,
+        "clocks_after": smi("clocks.sm,clocks.max.sm,power.draw,"
+                            "temperature.gpu"),
+    }
+    print("ring training", json.dumps(out), flush=True)
+    per_pair = RING_TRAIN_STEPS * layers * RING_SP ** 2
+    check(ring["launches"] == {"flash_chunk_update": 2 * per_pair,
+                               "flash_attention_bwd_dq": per_pair,
+                               "flash_attention_bwd_dkv": per_pair,
+                               "flash_attention_fwd": 0},
+          f"ring launches {ring['launches']} in {RING_TRAIN_STEPS} steps: "
+          f"{2 * per_pair} chunk updates (remat recomputes the forward), "
+          f"{per_pair} dq and dk/dv, no #1")
+    check(ring["eval_launches"] == {
+        "flash_chunk_update": layers * RING_SP ** 2,
+        "flash_attention_bwd_dq": 0},
+        f"ring eval launches {ring['eval_launches']}")
+    check(single["launches"]["flash_attention_fwd"]
+          == 2 * RING_TRAIN_STEPS * layers
+          and single["launches"]["flash_chunk_update"] == 0,
+          f"single-device launches {single['launches']}")
+    check(ring["eval_logits_finite"] and ring["eval_shape"] == [
+        1, RING_SEQ, cfg.vocab_size], f"ring eval logits {ring}")
+    for run in (ring, single):
+        check(run["params_finite"] and all(np.isfinite(run["losses"])),
+              "non-finite parameters or losses")
+    check(max(rel) <= RING_TRAIN_TOL["loss"],
+          f"ring vs single-device losses: {rel}")
+    return out
 
 
 def path_ids(rng, vocab, batch, num_ids):
@@ -1559,6 +1999,7 @@ def main() -> int:
     from elasticdl_tpu_torch.ops import _build
     from elasticdl_tpu_torch.ops import flash_attention as fa
     from elasticdl_tpu_torch.ops import pallas_embedding as pe
+    from elasticdl_tpu_torch.ops import ring_attention as ra
 
     print(smi("name,power.limit"), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
@@ -1576,12 +2017,15 @@ def main() -> int:
 
     kernel = kernel_phase(torch, fa)
     bwd_rows, _ = bwd_kernel_phase(torch, fa)
+    chunk_row, _ = chunk_kernel_phase(torch, fa)
+    _, ring_times = ring_check_phase(torch, fa, ra)
     zoo_phase(torch, fa)
     emb_checks = embedding_kernel_phase(torch, pe)
     with tempfile.TemporaryDirectory() as root:
         serving = serving_phase(torch, fa, root)
         twin_training_phase(torch, fa, root)
         training, counts = training_phase(torch, fa, root)
+        ring_training = ring_training_phase(torch, fa)
         sparse = sparse_training_phase(torch, pe, root)
         small_twin_phase(torch, pe, root)
     fused = fused_path_phase(torch, pe)
@@ -1591,6 +2035,11 @@ def main() -> int:
     kernel["launches_serving"] = serving["flash_launches"]
     for row in bwd_rows:
         row["launches"] = counts[row["name"]]
+    chunk_row["launches"] = ring_training["ring"]["launches"][
+        "flash_chunk_update"]
+    chunk_row["launches_path"] = (f"ring training ({RING_TRAIN_STEPS} "
+                                  "train steps, remat)")
+    chunk_row["ring_forward_s8192"] = ring_times
     emb_rows = embedding_kernel_rows(
         emb_checks, emb_times,
         {**sparse["launches"],
@@ -1599,7 +2048,9 @@ def main() -> int:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"sparse_training": sparse}))
-    print(json.dumps({"kernels": [kernel] + bwd_rows + emb_rows}))
+    print(json.dumps({"ring_training": ring_training}))
+    print(json.dumps({"kernels": [kernel, chunk_row] + bwd_rows
+                      + emb_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

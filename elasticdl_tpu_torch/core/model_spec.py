@@ -6,7 +6,8 @@ name:
 
 - ``custom_model(device=None)`` -> a ``torch.nn.Module`` on ``device``
   whose ``forward`` takes the feature tree (and, to use dropout, a
-  ``generator`` keyword: the train state's CPU generator);
+  ``generator`` keyword: the train state's CPU generator); a mesh-aware
+  model also takes ``mesh`` (``ModelSpec.make_model``);
 - ``loss(labels, predictions, mask)`` -> scalar tensor loss (``mask``
   weights padded rows of the final partial batch; a 2-argument loss is
   called without it);
@@ -21,8 +22,9 @@ name:
   .DeviceSparseRunner`` for device-tier sparse models (the Local
   executor then trains through the runner).
 
-Not ported yet: the JAX contract's prediction processor, its mesh
-extras and ``make_host_runner`` (the host tier).
+Not ported yet: the JAX contract's prediction processor, its sharding
+extras (``param_sharding_rules``, ``batch_sharding_rule``: the parallel
+slice) and ``make_host_runner`` (the host tier).
 """
 
 import importlib.util
@@ -64,16 +66,19 @@ def _get_spec_value(module, name, required=False):
     return value
 
 
-def _build_model(model_fn: Callable, device):
-    """``model_fn(device=device)`` when it takes a device, else
-    ``model_fn().to(device)``."""
+def _takes(fn: Callable, name: str) -> bool:
     try:
-        takes_device = "device" in inspect.signature(model_fn).parameters
+        return name in inspect.signature(fn).parameters
     except (TypeError, ValueError):
-        takes_device = False
-    if takes_device:
-        return model_fn(device=device)
-    model = model_fn()
+        return False
+
+
+def _build_model(model_fn: Callable, device, **kwargs):
+    """``model_fn(device=device, **kwargs)`` when it takes a device, else
+    ``model_fn(**kwargs).to(device)``."""
+    if _takes(model_fn, "device"):
+        return model_fn(device=device, **kwargs)
+    model = model_fn(**kwargs)
     return model.to(device) if device is not None else model
 
 
@@ -94,10 +99,22 @@ class ModelSpec:
     # returning a DeviceSparseRunner, which owns the HBM tables and
     # their lookup and row-update kernels.
     make_sparse_runner: Optional[Callable] = None
+    model_fn: Optional[Callable] = None
+    device: Any = None
 
     def make_optimizer(self, **kwargs) -> Callable:
         """The zoo's optimizer factory: ``params -> Optimizer``."""
         return self.optimizer_fn(**kwargs)
+
+    def make_model(self, mesh=None):
+        """Build the model anew, passing the mesh when ``custom_model``
+        accepts a ``mesh`` keyword (mesh-aware models run ring attention;
+        others ignore the mesh). The device is passed as at load."""
+        if self.model_fn is None:
+            return self.model
+        if mesh is not None and _takes(self.model_fn, "mesh"):
+            return _build_model(self.model_fn, self.device, mesh=mesh)
+        return _build_model(self.model_fn, self.device)
 
 
 def get_model_spec(
@@ -130,4 +147,6 @@ def get_model_spec(
         custom_data_reader=_get_spec_value(module, custom_data_reader),
         module=module,
         make_sparse_runner=_get_spec_value(module, "make_sparse_runner"),
+        model_fn=model_fn,
+        device=device,
     )

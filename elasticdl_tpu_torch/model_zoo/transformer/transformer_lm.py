@@ -27,10 +27,14 @@ CONFIG = TransformerConfig(
 )
 
 
-def custom_model(config: TransformerConfig = CONFIG,
-                 device=None) -> torch.nn.Module:
-    """The model on ``device`` (CUDA unless "cpu" is asked for)."""
-    return TransformerLM(config).to(resolve_device(device)).eval()
+def custom_model(config: TransformerConfig = CONFIG, device=None,
+                 mesh=None) -> torch.nn.Module:
+    """The model on ``device`` (CUDA unless "cpu" is asked for; with a
+    ``mesh`` and no device, the mesh's device). With a mesh, attention
+    is the ring over its ``sp`` axis."""
+    if device is None and mesh is not None:
+        device = mesh.device
+    return TransformerLM(config, mesh=mesh).to(resolve_device(device)).eval()
 
 
 def loss(labels, predictions, mask):

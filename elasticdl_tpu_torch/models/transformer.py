@@ -1,5 +1,4 @@
-"""Decoder-only transformer LM (port of elasticdl_tpu/models/transformer.py,
-single device).
+"""Decoder-only transformer LM (port of elasticdl_tpu/models/transformer.py).
 
 Parameters are f32, as in the flax module; every product casts its
 input and weight to ``compute_dtype`` at use and rounds where flax
@@ -18,7 +17,11 @@ Attention takes ``flash_attention`` whenever its static gate accepts
 the shape (on either device; any sequence length, head dims 16, 32, 64
 and 128). Otherwise a CPU tensor takes ``dense_attention`` and a CUDA
 tensor raises: on the card attention runs the kernel or nothing; its
-backward is the flash backward kernels.
+backward is the flash backward kernels. Built with a mesh
+(``TransformerLM(cfg, mesh)``, ``parallel.mesh.Mesh``), attention is
+``ring_attention`` over the mesh's ``sp`` axis, as in the JAX module;
+its sharding constraints are no-ops on a one-device mesh and are not
+ported.
 
 Training (``model.train()``): dropout after attention and after the
 MLP of each block, as flax ``Dropout`` does (keep where u >= rate,
@@ -28,8 +31,9 @@ generator seeded per block from the caller's CPU ``torch.Generator``
 a run is reproducible from its seed. ``remat`` recomputes each block
 in the backward (``torch.utils.checkpoint``, non-reentrant); the
 block's seed is drawn outside the checkpointed function, so the
-recompute draws the same masks. Not ported yet: MoE, KV-cache decode
-(``generate``), the fused head, the mesh paths.
+recompute draws the same masks (and, with a mesh, recomputes the ring
+forward). Not ported yet: MoE, KV-cache decode (``generate``), the
+fused head.
 """
 
 import dataclasses
@@ -48,7 +52,10 @@ from elasticdl_tpu_torch.ops.flash_attention import (
     flash_attention,
     supports as flash_supports,
 )
-from elasticdl_tpu_torch.ops.ring_attention import dense_attention
+from elasticdl_tpu_torch.ops.ring_attention import (
+    dense_attention,
+    ring_attention,
+)
 
 
 @dataclass(frozen=True)
@@ -115,13 +122,15 @@ class LayerNorm(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, decode: bool = False):
+    def __init__(self, cfg: TransformerConfig, mesh=None,
+                 decode: bool = False):
         super().__init__()
         if decode:
             raise NotImplementedError(
                 "KV-cache decode (generate) not yet ported"
             )
         self.cfg = cfg
+        self.mesh = mesh
         inner = cfg.n_heads * cfg.head_dim
         self.query = Dense(cfg.d_model, inner, cfg.compute_dtype)
         self.key = Dense(cfg.d_model, inner, cfg.compute_dtype)
@@ -136,7 +145,9 @@ class SelfAttention(nn.Module):
         k = self.key(x).view(heads)
         v = self.value(x).view(heads)
         scale = cfg.head_dim ** -0.5
-        if flash_supports(q.shape, q.dtype):
+        if self.mesh is not None:
+            o = ring_attention(q, k, v, self.mesh, causal=True, scale=scale)
+        elif flash_supports(q.shape, q.dtype):
             o = flash_attention(q, k, v, causal=True, scale=scale)
         elif q.device.type == "cpu":
             o = dense_attention(q, k, v, causal=True, scale=scale)
@@ -167,11 +178,11 @@ def dropout(x, rate: float, generator: torch.Generator):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
         self.rate = cfg.dropout_rate
         self.ln1 = LayerNorm(cfg.d_model, cfg.compute_dtype)
-        self.attn = SelfAttention(cfg)
+        self.attn = SelfAttention(cfg, mesh)
         self.ln2 = LayerNorm(cfg.d_model, cfg.compute_dtype)
         self.mlp = Mlp(cfg)
 
@@ -204,9 +215,11 @@ def check_token_ids(tokens, vocab_size: int):
 
 
 class TransformerLM(nn.Module):
-    """``tokens`` = integer ids (B, S) → f32 logits (B, S, V)."""
+    """``tokens`` = integer ids (B, S) → f32 logits (B, S, V). With a
+    ``mesh``, attention is the ring over its ``sp`` axis."""
 
-    def __init__(self, cfg: TransformerConfig, decode: bool = False):
+    def __init__(self, cfg: TransformerConfig, mesh=None,
+                 decode: bool = False):
         super().__init__()
         if cfg.moe_experts > 0:
             raise NotImplementedError("MoE blocks not yet ported")
@@ -221,7 +234,8 @@ class TransformerLM(nn.Module):
         self.pos_embed = nn.Parameter(
             torch.randn(cfg.max_len, cfg.d_model) * 0.02
         )
-        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(Block(cfg, mesh)
+                                    for _ in range(cfg.n_layers))
         self.ln_f = LayerNorm(cfg.d_model, cfg.compute_dtype)
         self.lm_head = _LMHead(cfg.d_model, cfg.vocab_size,
                                cfg.compute_dtype)

@@ -6,19 +6,23 @@ Port of elasticdl_tpu/ops/flash_attention.py:
   here ``flash_forward`` over ``csrc/flash_attention_fwd.cu``;
 - backward: ``_flash_bwd`` → ``flash_chunk_grads`` → ``_dq_kernel`` and
   ``_dkv_kernel``, here ``flash_chunk_grads`` over the two kernels of
-  ``csrc/flash_attention_bwd.cu``.
+  ``csrc/flash_attention_bwd.cu``;
+- the ring's chunk step: ``flash_chunk_update`` → ``_chunk_kernel``,
+  here ``flash_chunk_update`` over ``csrc/flash_chunk_update.cu``.
 
 The kernels are built by ``_build`` at first use and called through
 ``ctypes``. Beside each wrapper is the plain PyTorch version with the
 same contract (``flash_forward_reference``,
-``flash_chunk_grads_reference``: materialized f32 scores). A wrapper
+``flash_chunk_grads_reference``, ``flash_chunk_update_reference``:
+materialized f32 scores). A wrapper
 takes the plain version for a tensor on the CPU and launches its kernel
 for a CUDA tensor, or raises: there is no fallback from one to the
 other.
 
 Numerics follow the TPU kernels: products take the input dtype with f32
 accumulation, the scale is applied in f32 after the product, softmax
-state is f32; p is cast to v's dtype before PV (forward) and to dO's
+state is f32; p is cast to v's dtype before PV (forward and chunk
+update) and to dO's
 before PᵀdO, ds to k's dtype before dS·K and to q's before dSᵀ·Q
 (backward).
 """
@@ -33,14 +37,17 @@ HEAD_DIMS = (16, 32, 64, 128)   # the kernel's template instances
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = "flash_attention_fwd.cu"
 _BWD_SOURCE = "flash_attention_bwd.cu"
+_CHUNK_SOURCE = "flash_chunk_update.cu"
 
 # Kernel launches since the last reset: ``launches`` counts the forward
 # (one per transformer layer per forward), ``dq_launches`` and
 # ``dkv_launches`` the two backward kernels (one each per layer per
-# backward).
+# backward, or per chunk pairing on the ring), ``chunk_launches`` the
+# ring's chunk update (one per chunk pairing per ring forward).
 launches = 0
 dq_launches = 0
 dkv_launches = 0
+chunk_launches = 0
 
 
 def supports(q_shape, dtype=torch.bfloat16) -> bool:
@@ -282,6 +289,128 @@ def flash_chunk_grads(q, k, v, do, lse, delta, q_offset: int = 0,
                                            scale)
     return flash_chunk_grads_cuda(q, k, v, do, lse, delta, q_offset,
                                   k_offset, causal, scale)
+
+
+def flash_chunk_update_reference(q, k, v, m, l, acc, q_offset: int = 0,
+                                 k_offset: int = 0, causal: bool = True,
+                                 scale: Optional[float] = None):
+    """Plain version of ``flash_chunk_update``: the whole (Sq, Sk) score
+    matrix in f32, the same rounding points (p cast to v's dtype before
+    PV). Returns the updated (m, l, acc), f32."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    if causal:
+        qpos = q_offset + torch.arange(q.shape[1], device=q.device)
+        kpos = k_offset + torch.arange(k.shape[1], device=q.device)
+        keep = qpos[:, None] >= kpos[None, :]
+        s = torch.where(keep, s, _NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+    p = torch.exp(s - m_new)
+    if causal:
+        # Zeroed, not left to underflow: a row whose keys are all masked
+        # while its m is still -1e30 has exp(0) = 1 here.
+        p = torch.where(keep, p, 0.0)
+    alpha = torch.exp(m - m_new)
+    l_new = l * alpha + p.sum(dim=-1, keepdim=True)
+    acc_new = acc * alpha + torch.matmul(p.to(v.dtype).float(), v.float())
+    return m_new, l_new, acc_new
+
+
+def _check_chunk(q, k, v, m, l, acc):
+    tensors = (q, k, v, m, l, acc)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("flash_chunk_update: inputs on different devices")
+    if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(
+            f"flash_chunk_update: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
+            "the kernel takes matching bfloat16 or float32"
+        )
+    if not all(t.dtype == torch.float32 for t in (m, l, acc)):
+        raise ValueError("flash_chunk_update: m, l and acc must be float32")
+    if q.dim() != 3 or k.dim() != 3:
+        raise ValueError("flash_chunk_update: q, k must be (BH, S, D)")
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if not (v.shape == k.shape and k.shape[0] == bh and k.shape[2] == d
+            and m.shape == l.shape == (bh, sq, 1) and acc.shape == q.shape):
+        raise ValueError(
+            f"flash_chunk_update: shapes q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}, v {tuple(v.shape)}, m {tuple(m.shape)}, "
+            f"l {tuple(l.shape)}, acc {tuple(acc.shape)}; the kernel takes "
+            "q/acc (BH, Sq, D), k/v (BH, Sk, D), m/l (BH, Sq, 1)"
+        )
+    if d not in HEAD_DIMS or sq == 0 or sk == 0 or bh > 65535:
+        raise ValueError(
+            f"flash_chunk_update: (BH, Sq, Sk, D) = {(bh, sq, sk, d)}; the "
+            f"kernel takes D in {HEAD_DIMS}, Sq, Sk >= 1, BH <= 65535"
+        )
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("flash_chunk_update: inputs must be contiguous")
+
+
+def _chunk_library():
+    from elasticdl_tpu_torch.ops import _build
+
+    lib = _build.load(_CHUNK_SOURCE)
+    fn = lib.edl_flash_chunk_update
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        lib.edl_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.edl_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_chunk_update_cuda(q, k, v, m, l, acc, q_offset: int,
+                            k_offset: int, causal: bool, scale: float):
+    """Launch the chunk-update kernel on q's current stream; returns new
+    (m, l, acc) tensors (the inputs are left as they are)."""
+    global chunk_launches
+    _check_chunk(q, k, v, m, l, acc)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_chunk_update_cuda: tensors on {q.device}")
+    lib = _chunk_library()
+    bh, sq, d = q.shape
+    outs = (torch.empty_like(m), torch.empty_like(l), torch.empty_like(acc))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.edl_flash_chunk_update(
+            *(t.data_ptr() for t in (q, k, v, m, l, acc, *outs)),
+            bh, sq, k.shape[1], d, _DTYPE_CODES[q.dtype], int(q_offset),
+            int(k_offset), float(scale), int(bool(causal)), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            "flash chunk-update kernel launch failed: CUDA error "
+            f"{err} ({lib.edl_cuda_error_string(err).decode()})"
+        )
+    chunk_launches += 1
+    return outs
+
+
+def flash_chunk_update(q, k_chunk, v_chunk, m, l, acc, q_offset: int = 0,
+                       k_offset: int = 0, causal: bool = True,
+                       scale: Optional[float] = None):
+    """Fold one K/V chunk into running flash accumulators.
+
+    q: (BH, Sq, D); k_chunk/v_chunk: (BH, Sk, D); m, l: (BH, Sq, 1) f32;
+    acc: (BH, Sq, D) f32; q_offset/k_offset: host ints, the global
+    positions of q[:, 0] and k_chunk[:, 0]. Returns the updated
+    (m, l, acc), not normalised: callers finish with acc / max(l, 1e-30)
+    after the last chunk. A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel or raises."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        _check_chunk(q, k_chunk, v_chunk, m, l, acc)
+        return flash_chunk_update_reference(q, k_chunk, v_chunk, m, l, acc,
+                                            q_offset, k_offset, causal,
+                                            scale)
+    return flash_chunk_update_cuda(q, k_chunk, v_chunk, m, l, acc, q_offset,
+                                   k_offset, causal, scale)
 
 
 class _Flash(torch.autograd.Function):

@@ -1,7 +1,7 @@
 """Where a Local train step spends its device time, on one GPU.
 
     python -m elasticdl_tpu_torch.tools.profile_training [--batch 8]
-        [--seq 1024] [--iters 5]
+        [--seq 1024] [--iters 5] [--sp N] [--remat]
     python -m elasticdl_tpu_torch.tools.profile_training --model recsys
         [--batch 512] [--iters 5]
 
@@ -9,7 +9,12 @@
 flagship (bench_suite.py ``_TRANSFORMER_SIZES["transformer"]``, vocab
 32768, bf16, remat off, dropout 0) with seeded random weights and the
 zoo twin's Adam 1e-3 and runs ``core.step.build_train_step`` on seeded
-random token batches. ``--model recsys`` builds the recsys ranker twin
+random token batches. With ``--sp N`` (N > 1) the model is built on an
+``sp`` mesh of N entries of the card and the step is
+``parallel.mesh_runner.MeshRunner``'s: attention is the ring over
+chunk-update kernel #2 (chunks of seq / N). ``--remat`` recomputes
+each block in the backward; ``max_len`` grows to ``--seq`` when it is
+longer. ``--model recsys`` builds the recsys ranker twin
 at full width (1,000,000 x 256 table, 32 ids an example) and runs its
 sparse runner's step with the kernels pinned (``use_pallas="always"``)
 on seeded random id batches.
@@ -21,7 +26,8 @@ host's time to issue them, then runs ``--iters`` steps under
 ``Optimizer.step`` are not kernels and are left out), its share of the
 unprofiled step time (the profiler slows the host, so its own window
 would understate the share), and the device time per step summed by
-kernel name (largest first).
+kernel name (largest first), with the attention kernels (#1 forward,
+#2 chunk update, #3/#4 backward) also listed by name.
 """
 
 import argparse
@@ -39,16 +45,38 @@ from elasticdl_tpu_torch.models.transformer import (
     TransformerConfig,
     TransformerLM,
 )
+from elasticdl_tpu_torch.parallel.mesh import make_mesh
+from elasticdl_tpu_torch.parallel.mesh_runner import MeshRunner
 from elasticdl_tpu_torch.tools.profile_serving import FLAGSHIP, _union_us
 
+# Name stems of the attention kernels, as they appear in the profiler's
+# (demangled) kernel names.
+ATTENTION_KERNELS = {
+    "flash_fwd": "#1 flash_attention_fwd",
+    "flash_chunk": "#2 flash_chunk_update",
+    "flash_bwd_dq": "#3 flash_attention_bwd_dq",
+    "flash_bwd_dkv": "#4 flash_attention_bwd_dkv",
+}
 
-def _transformer(batch, seq):
-    cfg = TransformerConfig(**FLAGSHIP, compute_dtype=torch.bfloat16)
-    model = TransformerLM(cfg)
+
+def _transformer(batch, seq, sp=1, remat=False):
+    cfg = TransformerConfig(**dict(FLAGSHIP, max_len=max(
+        seq, FLAGSHIP["max_len"])), remat=remat,
+        compute_dtype=torch.bfloat16)
+    mesh = None
+    if sp > 1:
+        mesh = make_mesh((sp,), ("sp",), [torch.device("cuda:0")] * sp)
+    model = TransformerLM(cfg, mesh=mesh)
     model.load_state_dict(bridge.state_dict_from_flax(
         bridge.init_flax_params(cfg, seed=0)))
-    state = init_train_state(model.cuda(), transformer_lm.optimizer(),
-                             seed=0)
+    if mesh is not None:
+        runner = MeshRunner(mesh)
+        state = runner.init_state(model, transformer_lm.optimizer(), seed=0)
+        step = runner.train_step(transformer_lm.loss)
+    else:
+        state = init_train_state(model.cuda(), transformer_lm.optimizer(),
+                                 seed=0)
+        step = build_train_step(transformer_lm.loss)
     rng = np.random.default_rng(0)
     batches = []
     for _ in range(2):
@@ -57,7 +85,7 @@ def _transformer(batch, seq):
         batches.append({"features": tokens[:, :-1],
                         "labels": tokens[:, 1:],
                         "mask": np.ones(batch, np.float32)})
-    return state, build_train_step(transformer_lm.loss), batches
+    return state, step, batches
 
 
 def _recsys(batch):
@@ -87,6 +115,12 @@ def main(argv=None) -> int:
     parser.add_argument("--seq", type=int, default=1024)
     parser.add_argument("--iters", type=int, default=5)
     parser.add_argument("--top", type=int, default=16)
+    parser.add_argument("--sp", type=int, default=1,
+                        help="transformer: ring attention over an sp mesh "
+                             "of this many entries of the card")
+    parser.add_argument("--remat", action="store_true",
+                        help="transformer: recompute each block in the "
+                             "backward")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_training needs a CUDA device")
@@ -96,7 +130,8 @@ def main(argv=None) -> int:
         shape = [args.batch, 32]
     else:
         args.batch = args.batch or 8
-        state, step, batches = _transformer(args.batch, args.seq)
+        state, step, batches = _transformer(args.batch, args.seq, args.sp,
+                                            args.remat)
         shape = [args.batch, args.seq]
 
     def run(n):
@@ -132,9 +167,15 @@ def main(argv=None) -> int:
         kernels[evt.name] = kernels.get(evt.name, 0.0) + span[1] - span[0]
     busy_us = _union_us(intervals)
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
+    attention = {}
+    for name, us in kernels.items():
+        for stem, label in ATTENTION_KERNELS.items():
+            if stem in name:
+                attention[label] = attention.get(label, 0.0) + us
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "model": args.model, "shape": shape, "step_ms": step_ms,
+        "model": args.model, "shape": shape, "sp": args.sp,
+        "remat": args.remat, "step_ms": step_ms,
         "issue_ms": issue_ms,
         "device_events_per_step": len(intervals) / args.iters,
         "device_ms_per_step": busy_us / args.iters / 1e3,
@@ -144,6 +185,9 @@ def main(argv=None) -> int:
              "share": us / busy_us if busy_us else None}
             for name, us in ranked[:args.top]
         ],
+        "attention_kernels_ms_per_step": {
+            label: us / args.iters / 1e3
+            for label, us in sorted(attention.items())},
     }))
     return 0
 
