@@ -3,7 +3,9 @@
 Port of elasticdl_tpu/ops/flash_attention.py:
 
 - forward: ``flash_attention`` → ``_flash_forward`` → ``_fwd_kernel``,
-  here ``flash_forward`` over ``csrc/flash_attention_fwd.cu``;
+  here ``flash_forward`` over ``csrc/flash_attention_fwd.cu`` (a wgmma
+  kernel for bf16 head dims 64 and 128, an mma.sync one for 16 and 32,
+  chosen by head dim; ``forward_block_k`` gives each one's key tile);
 - backward: ``_flash_bwd`` → ``flash_chunk_grads`` → ``_dq_kernel`` and
   ``_dkv_kernel``, here ``flash_chunk_grads`` over the two kernels of
   ``csrc/flash_attention_bwd.cu``;
@@ -59,12 +61,33 @@ def supports(q_shape, dtype=torch.bfloat16) -> bool:
     return s_len > 0 and d in HEAD_DIMS and dtype in _DTYPE_CODES
 
 
+def forward_block_k(head_dim: int, dtype) -> int:
+    """The key-tile width over which the forward kernel folds keys, and
+    so rounds p against each tile's running max: 128 where bf16 head dims
+    64 and 128 take the wgmma kernel (the dispatch by head dim in
+    csrc/flash_attention_fwd.cu), 64 on the others."""
+    if dtype == torch.bfloat16 and head_dim >= 64:
+        return 128
+    return 64
+
+
 def flash_forward_reference(q, k, v, causal: bool = True,
-                            scale: Optional[float] = None):
+                            scale: Optional[float] = None,
+                            block_k: Optional[int] = None):
     """Plain version: q, k, v (BH, S, D) → (o (BH, S, D) in q's dtype,
-    lse (BH, S) f32), with the whole score matrix in f32."""
+    lse (BH, S) f32).
+
+    ``block_k=None`` takes the whole score matrix in f32. An int folds
+    ``flash_chunk_update_reference`` over key tiles of that width, in
+    order, then normalises: p is rounded to v's dtype against each
+    tile's running max, as the kernels and the TPU kernel round it. A
+    causal tile is folded into the rows of its own q tile (of the same
+    width) and later ones only: no kernel loads a tile wholly above a q
+    tile's diagonal."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if block_k is not None:
+        return _tiled_forward_reference(q, k, v, causal, scale, block_k)
     s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
     if causal:
         s_len = q.shape[1]
@@ -78,6 +101,22 @@ def flash_forward_reference(q, k, v, causal: bool = True,
     l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     o = torch.matmul(p.to(v.dtype).float(), v.float()) / l_safe
     return o.to(q.dtype), (m + torch.log(l_safe)).squeeze(-1)
+
+
+def _tiled_forward_reference(q, k, v, causal, scale, block_k):
+    bh, s_len, d = q.shape
+    m = torch.full((bh, s_len, 1), _NEG_INF, device=q.device)
+    l = torch.zeros((bh, s_len, 1), device=q.device)
+    acc = torch.zeros((bh, s_len, d), device=q.device)
+    for lo in range(0, s_len, block_k):
+        rows = lo if causal else 0
+        m[:, rows:], l[:, rows:], acc[:, rows:] = \
+            flash_chunk_update_reference(
+                q[:, rows:], k[:, lo:lo + block_k], v[:, lo:lo + block_k],
+                m[:, rows:], l[:, rows:], acc[:, rows:], rows, lo, causal,
+                scale)
+    l_safe = l.clamp_min(1e-30)
+    return (acc / l_safe).to(q.dtype), (m + torch.log(l_safe)).squeeze(-1)
 
 
 def _check(q, k, v):
@@ -126,6 +165,9 @@ def flash_forward_cuda(q, k, v, causal: bool, scale: float):
     _check(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"flash_forward_cuda: tensors on {q.device}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_forward_cuda: q, k, v must start 16-byte "
+                         "aligned (the kernels copy 16-byte rows)")
     lib = _library()
     bh, s_len, d = q.shape
     o = torch.empty_like(q)

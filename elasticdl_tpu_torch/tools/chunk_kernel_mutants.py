@@ -7,10 +7,13 @@ For the sound source and for each mutant below, copies the repository
 into a temporary directory, edits ``flash_chunk_update.cu`` there (the
 bf16 kernel, the one the ring runs), builds it and runs
 ``chip_smoke.chunk_kernel_phase`` with a check that records instead of
-raising. Prints one JSON line per source: the cases that failed, with their
-readings (elem and relative L2 of m, l and acc). Exits
-non-zero if the sound source fails a case or a mutant fails none. The
-checkout itself is never edited.
+raising, then ``chip_smoke.ring_check_phase`` (the ring, which runs the
+kernel, against #1/#3/#4 on the whole sequence) the same way. Prints
+one JSON line per source: the chunk cases that failed, with their
+readings (elem and relative L2 of m, l and acc), and every ring case's
+readings (elem and L2 of out, dq, dk, dv, and whether it kept
+chip_smoke.RING_TOL). Exits non-zero if the sound source fails a case
+or a mutant fails no chunk case. The checkout itself is never edited.
 
 Mutants:
 - ``p_not_zeroed``: masked probabilities left to underflow (a row whose
@@ -62,6 +65,7 @@ sys.path.insert(0, ".")
 import torch
 import chip_smoke
 from elasticdl_tpu_torch.ops import flash_attention as fa
+from elasticdl_tpu_torch.ops import ring_attention as ra
 
 failed = set()
 def record(cond, message):
@@ -78,6 +82,14 @@ for c in checks:
             o: {"elem": c[o]["elem"], "l2": c[o]["l2"]}
             for o in ("m", "l", "acc")}})
 print("FAILED", json.dumps(out))
+ring, _ = chip_smoke.ring_check_phase(torch, fa, ra,
+                                      check=lambda c, m: None, timed=False)
+names = ("out", "dq", "dk", "dv")
+print("RING", json.dumps([
+    {"shape": c["shape"], "dtype": c["dtype"],
+     "ok": all(chip_smoke.within(c[n], c["tol"]) for n in names),
+     **{n: {"elem": c[n]["elem"], "l2": c[n]["l2"]} for n in names}}
+    for c in ring]))
 """
 
 
@@ -89,7 +101,8 @@ def mutate(source: str, edits) -> str:
     return source
 
 
-def run(name: str, edits) -> list:
+def run(name: str, edits):
+    """(the chunk cases the source fails, its ring readings)."""
     with tempfile.TemporaryDirectory() as tmp:
         copy = os.path.join(tmp, "repo")
         shutil.copytree(REPO, copy, ignore=shutil.ignore_patterns(
@@ -102,21 +115,26 @@ def run(name: str, edits) -> list:
             f.write(mutate(text, edits))
         proc = subprocess.run([sys.executable, "-c", RUNNER], cwd=copy,
                               capture_output=True, text=True)
-    lines = [line for line in proc.stdout.splitlines()
-             if line.startswith("FAILED ")]
-    if proc.returncode != 0 or not lines:
+    found = {}
+    for line in proc.stdout.splitlines():
+        tag, _, rest = line.partition(" ")
+        if tag in ("FAILED", "RING"):
+            found[tag] = json.loads(rest)
+    if proc.returncode != 0 or len(found) < 2:
         raise RuntimeError(f"{name}: the check run failed\n"
                            f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
-    return json.loads(lines[-1][len("FAILED "):])
+    return found["FAILED"], found["RING"]
 
 
 def main() -> int:
     bad = []
     for name, edits in [("sound", [])] + list(MUTANTS.items()):
-        failed = run(name, edits)
-        print(json.dumps({"source": name, "failed_cases": failed}),
-              flush=True)
-        if (name == "sound") == bool(failed):
+        failed, ring = run(name, edits)
+        print(json.dumps({"source": name, "failed_cases": failed,
+                          "ring": ring}), flush=True)
+        if name == "sound" and not all(case["ok"] for case in ring):
+            bad.append(name)
+        elif (name == "sound") == bool(failed):
             bad.append(name)
     if bad:
         print(f"chunk_kernel_mutants: not separated: {bad}",

@@ -28,7 +28,17 @@ inputs (``CUDA_BWD_TOL``, as in chip_smoke.py): per tensor,
 a rare flipped rounding differs (about 2^-8 of an element that sums few
 terms, which sets elem); dropping the roundings altogether differs by
 about 2^-9 at every term, above l2.
+
+The plain forward folded over key tiles (``block_k``) against the JAX
+kernel with the same tile width (``TILED_TOL``, the limits chip_smoke.py
+holds the card's kernel to): both take p against each tile's running
+max and round it to bf16 there, so only an exp or an f32 sum that
+differs in its last bit flips a rounding of p or o (about 2^-8 of one
+element, which sets elem, and rarely, which keeps L2 small); f32 sums
+over at most 128 keys in another order.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +50,8 @@ from elasticdl_tpu.ops import flash_attention as jfa
 from elasticdl_tpu.ops.ring_attention import dense_attention as jdense
 from elasticdl_tpu_torch.ops import flash_attention as tfa
 from elasticdl_tpu_torch.ops.ring_attention import dense_attention as tdense
+from elasticdl_tpu_torch.tools import chunk_kernel_mutants
+from elasticdl_tpu_torch.tools import flash_fwd_mutants
 
 B, S, H = 2, 128, 2
 BLOCK = 64
@@ -47,6 +59,9 @@ F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = 2e-2
 CUDA_BWD_TOL = {torch.bfloat16: dict(elem=3e-2, l2=2e-4),
                 torch.float32: dict(elem=2e-5, l2=1e-6)}
+TILED_TOL = {torch.bfloat16: dict(elem=3e-2, l2=5e-4, lse=1e-5),
+             torch.float32: dict(elem=2e-5, l2=1e-6, lse=1e-5)}
+CSRC = os.path.join(os.path.dirname(tfa.__file__), "csrc")
 
 
 def _qkv(shape, seed=0, scale=1.0):
@@ -346,3 +361,110 @@ def test_cuda_bwd_kernels_match_plain(bh, sq, sk, d, dtype, causal,
         err, size = (g - w).abs(), w.abs()
         assert bool((err <= tol["elem"] * (size + size.median())).all())
         assert (err.norm() / w.norm()).item() <= tol["l2"]
+
+
+def _readings(got, want):
+    """elem = max |g - w| / (|w| + median|w|) and l2 = ||g - w|| / ||w||."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = np.abs(got - want)
+    elem = (err / (np.abs(want) + max(np.median(np.abs(want)), 1e-30))).max()
+    return elem, np.linalg.norm(got - want) / np.linalg.norm(want)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block_k", [64, 128])
+def test_tiled_reference_matches_jax_flash(block_k, dtype, causal):
+    """S 256 tiles by both widths (JAX's rule, flash_attention.py:160)."""
+    s_len, d = 256, 64
+    arrays = _qkv((B, s_len, H, d), seed=block_k + causal)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = jfa.flash_attention(*_jax(arrays, jdt), causal=causal,
+                               block_q=block_k, block_k=block_k,
+                               interpret=True)
+    bh = [np.ascontiguousarray(a.transpose(0, 2, 1, 3).reshape(
+        B * H, s_len, d)) for a in arrays]
+    _, want_lse = jfa._flash_forward(*_jax(bh, jdt), causal, d ** -0.5,
+                                     block_k, block_k, True)
+    o, lse = tfa.flash_forward_reference(*_torch(bh, tdt), causal,
+                                         d ** -0.5, block_k=block_k)
+    assert o.dtype == tdt and lse.dtype == torch.float32
+    got = _np(o).reshape(B, H, s_len, d).transpose(0, 2, 1, 3)
+    tol = TILED_TOL[tdt]
+    elem, l2 = _readings(got, np.asarray(want.astype(jnp.float32)))
+    assert elem <= tol["elem"] and l2 <= tol["l2"], (elem, l2)
+    np.testing.assert_allclose(_np(lse), np.asarray(want_lse)[..., 0],
+                               rtol=0, atol=tol["lse"])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s_len", [200, 256])
+def test_tiled_reference_matches_whole_in_f32(causal, s_len):
+    """Without bf16 roundings the tile width changes only the order of
+    the f32 sums."""
+    q, k, v = _torch(_qkv((4, s_len, 32), seed=s_len), torch.float32)
+    whole = tfa.flash_forward_reference(q, k, v, causal, block_k=None)
+    tiled = tfa.flash_forward_reference(q, k, v, causal, block_k=64)
+    for got, want in zip(tiled, whole):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("d,dtype,block_k", [
+    (128, torch.bfloat16, 128), (64, torch.bfloat16, 128),
+    (32, torch.bfloat16, 64), (16, torch.bfloat16, 64),
+    (128, torch.float32, 64), (16, torch.float32, 64),
+])
+def test_forward_block_k_follows_the_kernel_route(d, dtype, block_k):
+    assert tfa.forward_block_k(d, dtype) == block_k
+
+
+def _kernel_span(source, kernel):
+    """[start, end) of a kernel's definition in a .cu source."""
+    start = source.index(f"\n{kernel}(")
+    return start, source.index("\n}\n", start)
+
+
+@pytest.mark.parametrize("name", sorted(flash_fwd_mutants.MUTANTS))
+def test_flash_fwd_mutant_texts_land_in_their_kernel(name):
+    """Each edit's text occurs in the sound source, and its first
+    occurrence (the one the tool replaces) lies in the kernel the mutant
+    means."""
+    with open(os.path.join(CSRC, "flash_attention_fwd.cu")) as f:
+        source = f.read()
+    kernel, edits = flash_fwd_mutants.MUTANTS[name]
+    start, end = _kernel_span(source, kernel)
+    for old, new in edits:
+        assert old != new
+        assert start < source.find(old) < end, (name, old)
+    assert flash_fwd_mutants.mutate(source, edits) != source
+
+
+@pytest.mark.parametrize("name", sorted(chunk_kernel_mutants.MUTANTS))
+def test_chunk_mutant_texts_land_in_the_bf16_kernel(name):
+    with open(os.path.join(CSRC, "flash_chunk_update.cu")) as f:
+        source = f.read()
+    start, end = _kernel_span(source, "flash_chunk_bf16_kernel")
+    edits = chunk_kernel_mutants.MUTANTS[name]
+    for old, new in edits:
+        assert old != new
+        assert start < source.find(old) < end, (name, old)
+    assert chunk_kernel_mutants.mutate(source, edits) != source
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_tiled_plain_at_the_flagship_shape():
+    """B 8 x H 4 x S 1024 x D 128, causal, bf16: the wgmma kernel against
+    the plain version folded over its 128-key tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    q, k, v = (x.to("cuda", torch.bfloat16)
+               for x in _torch(_qkv((32, 1024, 128), seed=4), torch.float32))
+    o, lse = tfa.flash_forward(q, k, v, True)
+    torch.cuda.synchronize()
+    want, want_lse = tfa.flash_forward_reference(
+        q, k, v, True, block_k=tfa.forward_block_k(128, torch.bfloat16))
+    tol = TILED_TOL[torch.bfloat16]
+    elem, l2 = _readings(_np(o.cpu()), _np(want.cpu()))
+    assert elem <= tol["elem"] and l2 <= tol["l2"], (elem, l2)
+    assert ((lse - want_lse).abs() / (1 + want_lse.abs())).max().item() \
+        <= tol["lse"]
