@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                # every phase below
     python3 chip_smoke.py --phase fwd    # kernel #1 alone: build, check, time
+    python3 chip_smoke.py --phase bwd    # kernels #3 and #4 alone
 
 1. Prints the card (``nvidia-smi`` name and power limit) and versions.
 2. Builds every CUDA kernel of the port from ``elasticdl_tpu_torch/ops/csrc``.
@@ -38,15 +39,21 @@
    issue each window and the card's clocks after), and the host clock
    around ``ServedModel.predict``.
 7. Holds the backward kernels (dq and dk/dv, ``flash_chunk_grads``)
-   against their plain version on the card: the flagship's shape (BH 32,
-   S 1024, D 128) bf16 causal and not and f32 causal, ragged lengths and
-   every head dim, a ring chunk (Sq 512 of Sk 1024 at q_offset 512), the
-   zoo twin's training shape, and gradients through ``flash_attention``
-   against the CPU plain path. Each check prints its readings (largest
-   error, median and largest |w|, relative L2) and, for bf16, the same
-   readings of the plain version without its bf16 roundings, which must
-   fall outside the limits. Times each kernel, the plain version and
-   SDPA's backward (a yardstick only) at the flagship shape.
+   against their plain version on the card, launched through their C
+   entry points into outputs filled with NaN: the flagship's shape (BH
+   32, S 1024, D 128) bf16 causal and not and f32 causal, ragged lengths
+   and every head dim, a ring chunk (Sq 512 of Sk 1024 at q_offset 512),
+   the zoo twin's training shape, keys beyond every causal query (their
+   k tiles must store zeros), and the ring's local block (BH 4, 2048,
+   D 128) as a past and as the diagonal chunk; then gradients through
+   ``flash_attention`` against the CPU plain path. Each check prints its
+   readings (largest error, median and largest |w|, relative L2) and,
+   for bf16, the same readings of the plain version without its bf16
+   roundings, which must fall outside the limits. Times each kernel's
+   device time (a CUDA graph of 50 launches) beside its bound and SDPA's
+   flash backward op on the same work, measured the same way (a
+   yardstick only), at the flagship shape and the ring's two chunks,
+   and the plain version at the flagship shape.
 8. Trains the zoo twin for 5 steps through ``LocalExecutor`` on the card
    and on the CPU from the same seed: the losses, the first step's
    gradients and every parameter's change agree, and the ``--output``
@@ -380,7 +387,8 @@ def flash_bound(bh, s, d, dtype, causal):
 
 def ptxas_lines(log):
     """(kernel, "registers / spills / shared memory") per compiled
-    kernel in an nvcc -Xptxas -v log."""
+    kernel in an nvcc -Xptxas -v log, and each warning (ptxas says so
+    where it must serialize wgmma instructions)."""
     import re
 
     name, out = "?", []
@@ -391,7 +399,8 @@ def ptxas_lines(log):
             targs = re.findall(r"Li(\d+)|Lb(\d)|(float4|float)",
                                entry.group(2))
             name = f"{entry.group(1)}<{','.join(''.join(t) for t in targs)}>"
-        elif "spill" in line or "registers" in line or "error" in line:
+        elif any(word in line for word in ("spill", "registers", "error",
+                                           "warning", "Performance")):
             out.append((name, line.split(":", 1)[-1].strip()))
     return out
 
@@ -788,15 +797,18 @@ def serving_phase(torch, fa, bundle_root):
     }
 
 
-def bwd_bound(bh, sq, sk, d, dtype, causal, products, outputs):
-    """Least time for one backward kernel on an H100: q, k, v, dO read
-    once, lse and delta once, ``outputs`` f32 (BH, S, D) tensors written
-    once, over the memory rate; against ``products`` products over the
-    unmasked pairs at the peak rate."""
+def bwd_bound(bh, sq, sk, d, dtype, causal, products, outputs,
+              q_offset=0, k_offset=0):
+    """Least time for one backward kernel on an H100: q, dO (BH, Sq, D),
+    k, v (BH, Sk, D), lse and delta read once, ``outputs`` f32 gradients
+    written once (dq: (BH, Sq, D); dk, dv: (BH, Sk, D)), over the memory
+    rate; against ``products`` products over the pairs the mask leaves at
+    these offsets, at the peak rate."""
     elt = 2 if dtype == "bfloat16" else 4
+    rows = sq if outputs == 1 else sk
     nbytes = (2 * bh * sq * d + 2 * bh * sk * d) * elt + 2 * bh * sq * 4 \
-        + outputs * bh * sk * d * 4
-    pairs = sq * (sq + 1) // 2 if causal else sq * sk
+        + outputs * bh * rows * d * 4
+    pairs = unmasked_pairs(sq, sk, q_offset, k_offset, causal)
     ops = 2 * products * bh * pairs * d
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[dtype]
@@ -825,26 +837,69 @@ def chunk_inputs(torch, rng, bh, sq, sk, d, dtype, causal, q_offset):
     return q, k, v, do, lse.contiguous(), delta.contiguous()
 
 
-def bwd_kernel_phase(torch, fa):
-    """The backward kernels against their plain version, then timed."""
+# The backward kernels' cases: (name, bh, sq, sk, d, dtype, causal,
+# q_offset), k_offset 0. "beyond": keys 384-511 come after every query,
+# so their k tiles meet no query and must store exact zeros (the C entry
+# points' outputs are filled with NaN before each launch); fewer than
+# half the rows are zero, so that median |w|, elem's floor, is not 0.
+# "ring_past" and "ring_diagonal" are the ring's local block at sp 4
+# (BH 4, 2048, D 128): a past chunk, every pair unmasked, and the
+# diagonal chunk; they and "flagship" are timed.
+BWD_CASES = [
+    ("flagship", 32, 1024, 1024, 128, "bfloat16", True, 0),
+    ("full", 32, 1024, 1024, 128, "bfloat16", False, 0),
+    ("flagship", 32, 1024, 1024, 128, "float32", True, 0),
+    ("ragged", 8, 100, 100, 128, "bfloat16", True, 0),
+    ("ragged", 8, 37, 37, 16, "bfloat16", False, 0),
+    ("ragged", 8, 130, 130, 32, "float32", True, 0),
+    ("ragged", 8, 200, 200, 64, "float32", False, 0),
+    ("chunk", 8, 512, 1024, 128, "bfloat16", True, 512),
+    ("twin", 64, 127, 127, 16, "bfloat16", True, 0),
+    ("beyond", 8, 384, 512, 128, "bfloat16", True, 0),
+    ("beyond", 8, 384, 512, 32, "bfloat16", True, 0),
+    ("beyond", 8, 384, 512, 64, "float32", True, 0),
+    ("ring_past", 4, 2048, 2048, 128, "bfloat16", True, 2048),
+    ("ring_diagonal", 4, 2048, 2048, 128, "bfloat16", True, 0),
+]
+BWD_TIMED = ("flagship", "ring_past", "ring_diagonal")
+
+
+def bwd_launcher(fa, lib, args, outs, q_offset, causal):
+    """Launches of the dq and dk/dv kernels of ``lib`` through their C
+    entry points (not counted), writing into ``outs`` = (dq, dk, dv)."""
+    scale = args[0].shape[-1] ** -0.5
+
+    def launch(name):
+        targets = outs[:1] if name == "dq" else outs[1:]
+        err = fa._bwd_launch(lib, name, args, targets, q_offset, 0, causal,
+                             scale)
+        check(err == 0, f"{name} launch: CUDA error {err}")
+
+    return launch
+
+
+def bwd_kernel_phase(torch, fa, check=check, timed=True):
+    """The backward kernels against their plain version over BWD_CASES,
+    through the wrapper every caller uses (flash_chunk_grads_cuda), and
+    launched again through their C entry points into outputs filled with
+    NaN (a row left unstored shows), which must equal the wrapper's bit
+    for bit (the kernels sum in a fixed order); then their device times.
+    ``check`` may record instead of raise (tools/flash_bwd_mutants.py);
+    each case's "ok" says whether it passed."""
+    lib = fa._bwd_library()
     rng = np.random.default_rng(SEED + 10)
-    cases = [  # (bh, sq, sk, d, dtype, causal, q_offset)
-        (32, 1024, 1024, 128, "bfloat16", True, 0),   # the flagship step
-        (32, 1024, 1024, 128, "bfloat16", False, 0),
-        (32, 1024, 1024, 128, "float32", True, 0),
-        (8, 100, 100, 128, "bfloat16", True, 0),      # ragged last tiles
-        (8, 37, 37, 16, "bfloat16", False, 0),
-        (8, 130, 130, 32, "float32", True, 0),
-        (8, 200, 200, 64, "float32", False, 0),
-        (8, 512, 1024, 128, "bfloat16", True, 512),   # a ring chunk
-        (64, 127, 127, 16, "bfloat16", True, 0),      # the zoo twin's step
-    ]
-    checks = []
-    for bh, sq, sk, d, dtype_name, causal, q_offset in cases:
-        args = chunk_inputs(torch, rng, bh, sq, sk, d,
-                            getattr(torch, dtype_name), causal, q_offset)
+    checks, timing = [], {}
+    for name, bh, sq, sk, d, dtype_name, causal, q_offset in BWD_CASES:
+        dtype = getattr(torch, dtype_name)
+        args = chunk_inputs(torch, rng, bh, sq, sk, d, dtype, causal,
+                            q_offset)
         got = fa.flash_chunk_grads_cuda(*args, q_offset, 0, causal,
                                         d ** -0.5)
+        raw = tuple(torch.full((bh, rows, d), float("nan"), device=DEVICE)
+                    for rows in (sq, sk, sk))
+        launch = bwd_launcher(fa, lib, args, raw, q_offset, causal)
+        launch("dq")
+        launch("dkv")
         torch.cuda.synchronize()
         want = fa.flash_chunk_grads_reference(*args, q_offset, 0, causal,
                                               d ** -0.5)
@@ -855,25 +910,135 @@ def bwd_kernel_phase(torch, fa):
                 causal, d ** -0.5)
         torch.cuda.synchronize()
         tol = BWD_TOL[dtype_name]
-        res = {"shape": [bh, sq, sk, d], "dtype": dtype_name,
-               "causal": causal, "q_offset": q_offset, "tol": tol}
-        for i, (name, g, w) in enumerate(zip(("dq", "dk", "dv"), got, want)):
+        res = {"case": name, "shape": [bh, sq, sk, d], "dtype": dtype_name,
+               "causal": causal, "q_offset": q_offset, "tol": tol,
+               "c_entry_bit_equal": all(bool(torch.equal(g, r))
+                                        for g, r in zip(got, raw))}
+        ok = res["c_entry_bit_equal"]
+        for i, (grad, g, w) in enumerate(zip(("dq", "dk", "dv"), got,
+                                             want)):
             reading = grad_readings(g, w)
-            res[f"{name}_max_abs_err"] = reading["max_abs_err"]
-            res[name] = reading
+            res[f"{grad}_max_abs_err"] = reading["max_abs_err"]
+            res[grad] = reading
+            ok = ok and bool(torch.isfinite(g).all()) and within(reading,
+                                                                 tol)
             if unrounded is not None:
-                res[f"{name}_unrounded"] = grad_readings(unrounded[i], w)
+                res[f"{grad}_unrounded"] = grad_readings(unrounded[i], w)
+        beyond = q_offset + sq - 1   # keys after it meet no query
+        if causal and sk - 1 > beyond:
+            res["beyond_zero"] = all(bool((g[:, beyond + 1:] == 0).all())
+                                     for g in raw[1:])
+            ok = ok and res["beyond_zero"]
+        res["ok"] = ok
         print("bwd kernel check", json.dumps(res), flush=True)
-        for name, g in zip(("dq", "dk", "dv"), got):
-            check(bool(torch.isfinite(g).all()), f"non-finite {name} {res}")
-            check(within(res[name], tol), f"{name} outside tolerance {res}")
-            if unrounded is not None:
-                check(not within(res[f"{name}_unrounded"], tol),
-                      f"{name}: the unrounded plain version passes the "
-                      f"limits, which could not see a rounding fault {res}")
+        label = f"{name}/{dtype_name}/D{d}/Sq{sq}/Sk{sk}"
+        check(ok, f"bwd kernel {label}: non-finite or outside tolerance "
+                  f"{res}")
+        if unrounded is not None:
+            for grad in ("dq", "dk", "dv"):
+                check(not within(res[f"{grad}_unrounded"], tol),
+                      f"bwd kernel {label}: {grad}'s unrounded plain "
+                      f"version passes the limits, which could not see a "
+                      f"rounding fault {res}")
         checks.append(res)
+        if timed and name in BWD_TIMED and dtype_name == "bfloat16":
+            timing[name] = (args, q_offset, causal)
+    if not timed:
+        return None, checks
+    times = {name: bwd_times(torch, fa, lib, *value)
+             for name, value in timing.items()}
+    errs = {"dq": max(c["dq_max_abs_err"] for c in checks),
+            "dkv": max(max(c["dk_max_abs_err"], c["dv_max_abs_err"])
+                       for c in checks)}
+    rows = []
+    for name, replaces in (
+            ("flash_attention_bwd_dq",
+             "elasticdl_tpu/ops/flash_attention.py:493"),
+            ("flash_attention_bwd_dkv",
+             "elasticdl_tpu/ops/flash_attention.py:528")):
+        kind = name.rsplit("_", 1)[1]
+        flagship = times["flagship"]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "elasticdl_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            "replaces": replaces, "shape": flagship["shape"],
+            "dtype": "bfloat16", "causal": True, "max_abs_err": errs[kind],
+            "ms": flagship[kind]["ms"],
+            "ms_replays": flagship[kind]["ms_replays"],
+            "ms_source": "CUDA graph of 50 launches, replayed, CUDA events",
+            "plain_ms": flagship["plain_ms"],
+            "plain_computes": "dq, dk and dv",
+            "bound_ms": flagship[kind]["bound_ms"],
+            "bound_by": flagship[kind]["bound_by"],
+            "library_ms": flagship["library_ms"],
+            "library_call": "SDPA's flash backward op (dq, dk and dv "
+                            "together), device time the same way",
+            "ring": {shape: {key: times[shape][kind][key]
+                             for key in ("ms", "bound_ms", "bound_by")}
+                     | {"library_ms": times[shape]["library_ms"],
+                        "library_causal": times[shape]["library_causal"]}
+                     for shape in ("ring_past", "ring_diagonal")},
+        })
+    return rows, checks
 
-    # Gradients through flash_attention: card (kernels) vs CPU (plain).
+
+def sdpa_backward(torch, q, k, v, do, causal, heads):
+    """SDPA's flash backward op alone (no autograd), given its forward's
+    saved outputs, on (B, H, S, D) views of the (BH, S, D) inputs."""
+    b = q.shape[0] // heads
+    q4, k4, v4, do4 = (x.view(b, heads, *x.shape[1:])
+                       for x in (q, k, v, do))
+    scale = q.shape[-1] ** -0.5
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+        q4, k4, v4, 0.0, causal, False, scale=scale)
+    out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
+
+    def backward():
+        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            do4, q4, k4, v4, out, lse, cum_q, cum_k, max_q, max_k, 0.0,
+            causal, seed, offset, scale=scale)
+
+    return backward
+
+
+def bwd_times(torch, fa, lib, args, q_offset, causal):
+    """#3's and #4's device times (CUDA graphs of 50 launches through
+    the C entry points: not counted), each beside its bound, and SDPA's
+    backward op on the same work measured the same way (a past ring
+    chunk, all pairs unmasked, against a non-causal SDPA backward); the
+    plain version at the flagship shape."""
+    q, k, v, do = args[:4]
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    outs = tuple(torch.empty((bh, rows, d), device=DEVICE)
+                 for rows in (sq, sk, sk))
+    launch = bwd_launcher(fa, lib, args, outs, q_offset, causal)
+    out = {"shape": [bh, sq, sk, d], "q_offset": q_offset}
+    for kind, products, outputs in (("dq", 3, 1), ("dkv", 4, 2)):
+        replays = graph_ms(torch, lambda: launch(kind))
+        bound_ms, bound_by = bwd_bound(bh, sq, sk, d, "bfloat16", causal,
+                                       products, outputs, q_offset)
+        out[kind] = {"ms": float(np.median(replays)), "ms_replays": replays,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+    # SDPA has no offsets: its causal mask is the diagonal chunk's, and a
+    # chunk with every pair unmasked is its non-causal backward.
+    lib_causal = causal and unmasked_pairs(sq, sk, q_offset, 0, True) \
+        < sq * sk
+    heads = FLAGSHIP["n_heads"]
+    library = graph_ms(torch, sdpa_backward(torch, q, k, v, do, lib_causal,
+                                            heads))
+    out["library_ms"] = float(np.median(library))
+    out["library_ms_replays"] = library
+    out["library_causal"] = lib_causal
+    if (bh, sq) == (32, 1024):
+        out["plain_ms"] = cuda_ms(lambda: fa.flash_chunk_grads_reference(
+            *args, q_offset, 0, causal, d ** -0.5), iters=5)
+    return out
+
+
+def bwd_autograd_phase(torch, fa):
+    """Gradients through flash_attention: card (kernels) vs CPU (plain)."""
+    rng = np.random.default_rng(SEED + 11)
     q, k, v = (torch.from_numpy(rng.standard_normal((2, 256, 4, 128),
                                                     dtype=np.float32))
                .to(torch.bfloat16) for _ in range(3))
@@ -892,60 +1057,6 @@ def bwd_kernel_phase(torch, fa):
     for name, reading in readings.items():
         check(within(reading, GRAD_TOL),
               f"flash_attention {name} vs CPU plain: {reading}")
-
-    # Times at the flagship's shape: each kernel alone, through the C
-    # entry points (these launches are not counted), the plain version
-    # and SDPA's backward for the pair.
-    bh, s, d = 32, 1024, 128
-    args = chunk_inputs(torch, rng, bh, s, s, d, torch.bfloat16, True, 0)
-    lib = fa._bwd_library()
-    q, k, v, do, lse, delta = args
-    dq = torch.empty(q.shape, dtype=torch.float32, device="cuda")
-    dk, dv = torch.empty_like(dq), torch.empty_like(dq)
-    ptrs = [t.data_ptr() for t in args]
-    tail = (bh, s, s, d, 1, 0, 0, d ** -0.5, 1)
-
-    def launch(name, outs):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, f"edl_flash_attention_bwd_{name}")(
-            *ptrs, *(t.data_ptr() for t in outs), *tail, stream)
-        check(err == 0, f"{name} launch: CUDA error {err}")
-
-    dq_windows = cuda_windows(lambda: launch("dq", (dq,)), 50, 5)[0]
-    dkv_windows = cuda_windows(lambda: launch("dkv", (dk, dv)), 50, 5)[0]
-    plain_ms = cuda_ms(lambda: fa.flash_chunk_grads_reference(
-        *args, 0, 0, True, d ** -0.5), iters=5)
-    q4, k4, v4 = (x.view(8, 4, s, d).detach().requires_grad_()
-                  for x in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True, scale=d ** -0.5)
-    do4 = do.view(8, 4, s, d)
-    library_ms = cuda_ms(lambda: torch.autograd.grad(
-        out, (q4, k4, v4), do4, retain_graph=True), iters=50)
-    errs = {"dq": max(c["dq_max_abs_err"] for c in checks),
-            "dkv": max(max(c["dk_max_abs_err"], c["dv_max_abs_err"])
-                       for c in checks)}
-    rows = []
-    for name, replaces, windows, products, outputs in (
-            ("flash_attention_bwd_dq",
-             "elasticdl_tpu/ops/flash_attention.py:493", dq_windows, 3, 1),
-            ("flash_attention_bwd_dkv",
-             "elasticdl_tpu/ops/flash_attention.py:528", dkv_windows, 4, 2)):
-        bound_ms, bound_by = bwd_bound(bh, s, s, d, "bfloat16", True,
-                                       products, outputs)
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "elasticdl_tpu_torch/ops/csrc/flash_attention_bwd.cu",
-            "replaces": replaces, "shape": [bh, s, d], "dtype": "bfloat16",
-            "causal": True,
-            "max_abs_err": errs[name.rsplit("_", 1)[1]],
-            "ms": float(np.median(windows)), "ms_windows": windows,
-            "plain_ms": plain_ms, "plain_computes": "dq, dk and dv",
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
-            "library_call": "SDPA backward (dq, dk and dv together)",
-        })
-    return rows, checks
 
 
 def unmasked_pairs(sq, sk, q_offset, k_offset, causal):
@@ -2157,9 +2268,10 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
-        "--phase", choices=("all", "fwd"), default="all",
+        "--phase", choices=("all", "fwd", "bwd"), default="all",
         help="fwd: build flash_attention_fwd.cu alone, then run kernel "
-             "#1's checks and times and print its kernels row")
+             "#1's checks and times and print its kernels row; bwd: the "
+             "same for flash_attention_bwd.cu (#3 and #4)")
     args = parser.parse_args(argv)
     import torch
 
@@ -2179,18 +2291,24 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.monotonic()
-    logs = _build.build_all([fa._SOURCE] if args.phase == "fwd" else None)
+    alone = {"fwd": [fa._SOURCE], "bwd": [fa._BWD_SOURCE]}
+    logs = _build.build_all(alone.get(args.phase))
     print(f"built {sorted(logs)} in {time.monotonic() - t0:.1f}s",
           flush=True)
     for name, log in logs.items():
         for kernel_name, line in ptxas_lines(log):
             print(f"  {name}: {kernel_name}: {line}", flush=True)
 
+    if args.phase == "bwd":
+        bwd_rows, _ = bwd_kernel_phase(torch, fa)
+        print(json.dumps({"kernels": bwd_rows}))
+        return 0
     kernel, _ = kernel_phase(torch, fa)
     if args.phase == "fwd":
         print(json.dumps({"kernels": [kernel]}))
         return 0
     bwd_rows, _ = bwd_kernel_phase(torch, fa)
+    bwd_autograd_phase(torch, fa)
     chunk_row, _ = chunk_kernel_phase(torch, fa)
     _, ring_times = ring_check_phase(torch, fa, ra)
     zoo_phase(torch, fa)

@@ -18,36 +18,71 @@
 // at 3.35 TB/s, against 3 products x 4.30 GFLOP = 12.9 GFLOP, 13.0 us
 // at 989 TFLOP/s. dk/dv reads the same and writes dk and dv in f32
 // (33.6 MB): 67.4 MB, 20.1 us, against 4 x 4.30 = 17.2 GFLOP, 17.4 us.
-// Both are memory bound, barely: the products must run on the tensor
-// cores and the (S x S) probabilities must never reach device memory.
+// Both are memory bound, barely, at that shape. At the ring's local
+// block (BH 4, Sq = Sk = 2048, D 128) a past chunk has every pair
+// unmasked, and dk/dv is bound by its 17.2 GFLOP of products. The
+// products must run on the tensor cores and the (S x S) probabilities
+// must never reach device memory.
 //
-// Design (bf16). The TPU grids' sequential axes become loops inside a
-// block. dq: one block per (bh, 64-row q tile) loops over the K/V tiles
-// that the causal mask leaves reachable (heaviest q tiles first). dk/dv:
-// one block per (bh, 64-row k tile) loops over the q tiles at or below
-// the diagonal. Four warps own 16 rows each and run every product with
-// mma.sync m16n8k16 (bf16 in, f32 accumulate), as the forward kernel
-// does. Because lse is known, a probability needs no row max: keys (dq)
-// or queries (dk/dv) are taken 16 at a time, so a warp holds only a
-// 16 x 16 piece of S and of dP; its accumulator fragment is repacked in
-// registers as the A operand of the next product (dS K for dq; P^T dO
-// and dS^T Q for dk/dv, where computing S^T = K Q^T puts P^T and dS^T in
-// that layout directly). Tiles sit in shared memory with rows padded by
-// 16 bytes (no bank conflicts on fragment loads).
+// Because lse is known, a probability needs no running max and its bf16
+// rounding is elementwise: the tile widths below do not change the
+// results. The TPU grids' sequential axes become loops inside a block.
 //
-// Registers (D 128): dq keeps the Q and dO A fragments (32 + 32) and the
-// dq accumulator (64) in registers; dk/dv keeps both accumulators
-// (64 + 64) and reloads the K and V A fragments from shared memory for
-// each 16-query piece, which keeps it clear of the 255-register cap.
-// Both bf16 kernels are built for two blocks per SM: ptxas gives each
-// 210 registers a thread at D 128 with no spills (128 and 178 at D 64),
-// and a block takes 70,144 bytes of shared memory, so two blocks share
-// an SM. ptxas -v prints the counts at every build.
-// Not yet done: wgmma, TMA or cp.async pipelining of the streamed tiles.
+// dq: one block per (bh, 64-row q tile) loops over the K/V tiles that the
+// causal mask leaves reachable (heaviest q tiles first). Four warps own 16
+// rows each and run every product with mma.sync m16n8k16 (bf16 in, f32
+// accumulate); keys are taken 16 at a time, so a warp holds a 16 x 16
+// piece of S and dP, whose accumulator fragment is repacked in registers
+// as the A operand of dS K. Tiles are loaded through registers. Two
+// blocks an SM.
 //
-// Any Sq and Sk: rows past the end of a ragged last tile load as zeros,
-// keys past Sk (dq) and queries past Sq (dk/dv) are masked like keys
-// above the diagonal, and rows past the end are not stored.
+// dk/dv: one block per (bh, 64-key tile) loops over the 64-query tiles
+// at or below the diagonal. The grid is read heads fastest, so every
+// head's first k tile (under the causal mask the heaviest: it meets
+// every query) starts before any head's next one. Computing S^T = K Q^T
+// puts P^T and dS^T in the accumulator layout that is the A operand of
+// the next products, so p and ds never leave registers. bf16 takes one
+// of two kernels, by head dim:
+//
+// - D 64 and 128: `flash_bwd_dkv_wgmma_kernel`. Two consumer warpgroups
+//   share the block's 64 keys and take alternate q tiles. A producer
+//   warpgroup loads K and V once by TMA, then streams each Q and dO tile
+//   by TMA into a four-slot ring (two slots a consumer) under full and
+//   empty mbarriers, while another of its warps writes the tile's lse
+//   (in log2 units) and delta into the slot: the next tiles' copies run
+//   under this tile's products. A consumer computes S^T and dP^T with
+//   wgmma m64n64k16 from shared memory (K, V, Q and dO K-major in the
+//   128-byte swizzle TMA writes), takes p = 2^(s scale log2(e) -
+//   lse log2(e)) and dS^T on the accumulators, packs both to bf16 in
+//   place, and adds dV += P^T dO and dK += dS^T Q with wgmma reading dO
+//   and Q as MN-major operands (the transpose bit); its dK and dV sums
+//   stay in registers across the loop, and at the end the second
+//   consumer's sums reach the first through the idle ring. ptxas sizes
+//   the 384-thread block at 168 registers a thread; the producer gives
+//   registers back with setmaxnreg (24) and the consumers take 240, which
+//   hold both sums (128), S^T and dP^T (64) and the packed P^T and dS^T
+//   without spilling. 163 KB of shared memory at D 128: one block an SM.
+//   On an H100 two consumers on alternate q tiles ran 15-28% faster than
+//   one consumer a block (both shapes); issuing the next tile's scores
+//   before waiting for this tile's dV and dK products, or each consumer
+//   storing one of the two sums, ran no faster (PERF.md). The tensor maps are 3-D (D, S, BH): a ragged tile's rows
+//   past Sq arrive as zeros, and their p is set to 0 all the same.
+// - D 16 and 32: `flash_bwd_dkv_ring_kernel`, mma.sync. Four warps own 16
+//   keys each. K and V, and each Q/dO tile with its lse and delta, are
+//   copied by cp.async, Q/dO through a two-slot ring, so tile t+1's copy
+//   runs under tile t's products; fragments come from ldmatrix (x4, and
+//   .trans for the dO and Q operands of P^T dO and dS^T Q) over rows
+//   padded by 16 bytes, free of bank conflicts. A ragged q tile's rows
+//   past Sq repeat row Sq - 1 (the copy stays inside the tensor, and no
+//   row is left to chance) and the mask zeroes their p, which keeps them
+//   out of dK and dV.
+//
+// ptxas -v prints every kernel's registers, spills and shared memory at
+// each build (chip_smoke.py shows them; PERF.md keeps them).
+//
+// Any Sq and Sk: rows past the end of a ragged last tile are masked (dq:
+// keys past Sk like keys above the diagonal; dk/dv: queries past Sq) and
+// not stored. A k tile that no query reaches stores zeros.
 //
 // Rounding points follow the TPU kernel: S and dP accumulate in f32, the
 // scale multiplies S in f32 after the product, ds is cast to k's dtype
@@ -64,6 +99,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "hopper.cuh"  // cp.async, ldmatrix, mbarriers, TMA, wgmma
+
 namespace {
 
 constexpr int kBlock = 64;              // rows per block, rows per tile
@@ -71,6 +108,7 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kWarpRows = kBlock / kWarps;  // 16
 constexpr int kBf16BlocksPerSm = 2;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // ---- shared helpers --------------------------------------------------
 
@@ -98,6 +136,18 @@ __device__ __forceinline__ int dkv_first_tile(int k_first, int q_offset,
   return need <= 0 ? 0 : (need + kBlock - 1) / kBlock;
 }
 
+// A bf16 dK/dV grid is (k tiles, BH). Blocks start in the order of their
+// linear index, so the index is read heads fastest: every head's first k
+// tile (the heaviest under the causal mask) starts before any head's
+// next one.
+__device__ __forceinline__ int heads_fastest_tile() {
+  return (blockIdx.x + gridDim.x * blockIdx.y) / gridDim.y;
+}
+
+__device__ __forceinline__ int heads_fastest_head() {
+  return (blockIdx.x + gridDim.x * blockIdx.y) % gridDim.y;
+}
+
 // ---- bf16: tensor-core fragments in registers ------------------------
 
 template <int D>
@@ -107,20 +157,6 @@ struct Bf16Tiles {
   static constexpr size_t bytes =
       4 * tile * sizeof(__nv_bfloat16) + 2 * kBlock * sizeof(float);
 };
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 __device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -310,9 +346,59 @@ flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---- bf16 dK/dV, D 16 and 32: mma.sync over a cp.async Q/dO ring -------
+
+constexpr int kSlotsA = 2;  // Q/dO ring slots
+
+// Shared memory: K, V (64 padded rows each), then the ring's slots, each
+// Q, dO (64 padded rows each) and the tile's lse and delta (64 f32 each).
+template <int D>
+struct DkvRingLayout {
+  static constexpr int ld = D + 8;  // padded row stride (elements)
+  static constexpr int tile = kBlock * ld;
+  static constexpr size_t ring = 2 * tile * sizeof(__nv_bfloat16);
+  static constexpr size_t stats = 2 * tile * sizeof(__nv_bfloat16);
+  static constexpr size_t slot = stats + 2 * kBlock * sizeof(float);
+  static constexpr size_t bytes = ring + kSlotsA * slot;
+};
+
+// Starts the copy of a 64-row tile of a contiguous (.., D) tensor into
+// padded shared rows. Rows at or past `valid` repeat row valid - 1: the
+// copy never leaves the tensor, and the kernel masks those rows.
+template <int D>
+__device__ __forceinline__ void copy_rows_async(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                int valid) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < kBlock * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int c = i % kChunks;
+    cp_async_16(dst + r * DkvRingLayout<D>::ld + c * 8,
+                src + min(r, valid - 1) * D + c * 8, 16);
+  }
+}
+
+// Starts the copy of a q tile into a ring slot: Q, dO, and lse, delta
+// (thread i < 64 copies lse row i, the others delta row i - 64).
+template <int D>
+__device__ __forceinline__ void copy_q_tile_async(
+    unsigned char* slot, const __nv_bfloat16* q, const __nv_bfloat16* dout,
+    const float* lse, const float* delta, int bh, int sq, int q_start) {
+  using L = DkvRingLayout<D>;
+  const int valid = tile_rows(q_start, sq);
+  const size_t at = (static_cast<size_t>(bh) * sq + q_start);
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(slot);
+  copy_rows_async<D>(qs, q + at * D, valid);
+  copy_rows_async<D>(qs + L::tile, dout + at * D, valid);
+  float* stats = reinterpret_cast<float*>(slot + L::stats);
+  const int r = threadIdx.x & (kBlock - 1);
+  cp_async_4(stats + threadIdx.x,
+             (threadIdx.x < kBlock ? lse : delta) + at + min(r, valid - 1));
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads, kBf16BlocksPerSm)
-flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+flash_bwd_dkv_ring_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           const __nv_bfloat16* __restrict__ dout,
@@ -321,23 +407,19 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           float* __restrict__ dk, float* __restrict__ dv,
                           int sq, int sk, int q_offset, int k_offset,
                           float scale, int causal) {
-  using T = Bf16Tiles<D>;
-  constexpr int ld = T::ld;
+  using L = DkvRingLayout<D>;
+  constexpr int ld = L::ld;
   constexpr int kSteps = D / 16;
   constexpr int kOutBlocks = D / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* vs = ks + T::tile;
-  __nv_bfloat16* qs = vs + T::tile;
-  __nv_bfloat16* dos = qs + T::tile;
-  float* lse_s = reinterpret_cast<float*>(dos + T::tile);
-  float* dl_s = lse_s + kBlock;
+  __nv_bfloat16* vs = ks + L::tile;
+  unsigned char* ring = smem + L::ring;
 
-  const int k_tile = blockIdx.x;  // causal: the first k tiles are heaviest
-  const int bh = blockIdx.y;
+  const int k_tile = heads_fastest_tile();
+  const int bh = heads_fastest_head();
   const int k_start = k_tile * kBlock;
   const int k_rows = tile_rows(k_start, sk);
-  const size_t qhead = static_cast<size_t>(bh) * sq * D;
   const size_t khead = static_cast<size_t>(bh) * sk * D;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -346,9 +428,19 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int row0 = warp * kWarpRows + g;  // this lane's key rows
   const int gk0 = k_offset + k_start + row0;
   const int gk1 = gk0 + 8;
+  const int num_q_tiles = (sq + kBlock - 1) / kBlock;
+  const int first = dkv_first_tile(k_offset + k_start, q_offset, causal);
+  const int count = num_q_tiles - first;  // <= 0: no query reaches it
 
-  load_tile_bf16<D>(ks, k + khead + static_cast<size_t>(k_start) * D, k_rows);
-  load_tile_bf16<D>(vs, v + khead + static_cast<size_t>(k_start) * D, k_rows);
+  // K, V and the first q tile in flight together.
+  if (count > 0) {
+    copy_rows_async<D>(ks, k + khead + static_cast<size_t>(k_start) * D,
+                       k_rows);
+    copy_rows_async<D>(vs, v + khead + static_cast<size_t>(k_start) * D,
+                       k_rows);
+    copy_q_tile_async<D>(ring, q, dout, lse, delta, bh, sq, first * kBlock);
+  }
+  cp_async_commit();
 
   float dka[kOutBlocks][4], dva[kOutBlocks][4];
   #pragma unroll
@@ -357,62 +449,69 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     dva[nb][0] = dva[nb][1] = dva[nb][2] = dva[nb][3] = 0.f;
   }
 
-  const int num_q_tiles = (sq + kBlock - 1) / kBlock;
-  for (int tile = dkv_first_tile(k_offset + k_start, q_offset, causal);
-       tile < num_q_tiles; ++tile) {
-    const int q_start = tile * kBlock;
+  for (int i = 0; i < count; ++i) {
+    const int q_start = (first + i) * kBlock;
+    if (i + 1 < count) {  // tile i + 1's copy runs under this tile
+      copy_q_tile_async<D>(ring + ((i + 1) % kSlotsA) * L::slot, q, dout,
+                           lse, delta, bh, sq, q_start + kBlock);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies have landed
+    __syncthreads();
+    const int slot = i % kSlotsA;
+    const __nv_bfloat16* qs =
+        reinterpret_cast<const __nv_bfloat16*>(ring + slot * L::slot);
+    const __nv_bfloat16* dos = qs + L::tile;
+    const float* lse_s =
+        reinterpret_cast<const float*>(ring + slot * L::slot + L::stats);
+    const float* dl_s = lse_s + kBlock;
     const int q_rows = tile_rows(q_start, sq);
+    // Only tiles that cross the diagonal or end ragged hold masked pairs.
     const bool masked_tile =
         (causal && q_offset + q_start < k_offset + k_start + kBlock - 1) ||
         q_rows < kBlock;
-    __syncthreads();  // every warp is done with the previous q tile
-    load_tile_bf16<D>(qs, q + qhead + static_cast<size_t>(q_start) * D,
-                      q_rows);
-    load_tile_bf16<D>(dos, dout + qhead + static_cast<size_t>(q_start) * D,
-                      q_rows);
-    const size_t rows_at = static_cast<size_t>(bh) * sq + q_start;
-    load_rows_f32(lse_s, lse + rows_at, q_rows);
-    load_rows_f32(dl_s, delta + rows_at, q_rows);
-    __syncthreads();
 
     #pragma unroll 1
     for (int qc = 0; qc < kBlock / 16; ++qc) {
-      // S^T = K Q^T and dP^T = V dO^T for 16 keys x 16 queries.
+      // S^T = K Q^T and dP^T = V dO^T for 16 keys x 16 queries: K and V
+      // give A fragments, Q and dO rows the B fragments of two 8-query
+      // blocks, one ldmatrix.x4 each.
       float st[2][4], dpt[2][4];
       #pragma unroll
       for (int h = 0; h < 2; ++h) {
         st[h][0] = st[h][1] = st[h][2] = st[h][3] = 0.f;
         dpt[h][0] = dpt[h][1] = dpt[h][2] = dpt[h][3] = 0.f;
       }
+      const int a_at = (warp * kWarpRows + (lane & 15)) * ld + (lane >> 4) * 8;
+      const int b_at = (qc * 16 + (lane & 7) + (lane >> 4) * 8) * ld +
+                       ((lane >> 3) & 1) * 8;
       #pragma unroll
       for (int kk = 0; kk < kSteps; ++kk) {
-        uint32_t ka[4], va[4];
-        load_a<ld>(ka, ks + row0 * ld + kk * 16 + 2 * t);
-        load_a<ld>(va, vs + row0 * ld + kk * 16 + 2 * t);
-        #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int query = qc * 16 + h * 8 + g;
-          const __nv_bfloat16* qr = qs + query * ld + kk * 16 + 2 * t;
-          const __nv_bfloat16* dr = dos + query * ld + kk * 16 + 2 * t;
-          mma_bf16(st[h], ka, load_u32(qr), load_u32(qr + 8));
-          mma_bf16(dpt[h], va, load_u32(dr), load_u32(dr + 8));
-        }
+        uint32_t ka[4], va[4], qb[4], db[4];
+        ldmatrix_x4(ka, ks + a_at + kk * 16);
+        ldmatrix_x4(va, vs + a_at + kk * 16);
+        ldmatrix_x4(qb, qs + b_at + kk * 16);
+        ldmatrix_x4(db, dos + b_at + kk * 16);
+        mma_bf16(st[0], ka, qb[0], qb[1]);
+        mma_bf16(st[1], ka, qb[2], qb[3]);
+        mma_bf16(dpt[0], va, db[0], db[1]);
+        mma_bf16(dpt[1], va, db[2], db[3]);
       }
       // P^T and dS^T = P^T o (dP^T - delta[col]).
       #pragma unroll
       for (int h = 0; h < 2; ++h) {
         #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int c = qc * 16 + h * 8 + 2 * t + (i & 1);  // query in tile
-          const bool hi = i >= 2;
-          float p = expf(st[h][i] * scale - lse_s[c]);
+        for (int e = 0; e < 4; ++e) {
+          const int c = qc * 16 + h * 8 + 2 * t + (e & 1);  // query in tile
+          const bool hi = e >= 2;
+          float p = expf(st[h][e] * scale - lse_s[c]);
           if (masked_tile &&
               (c >= q_rows ||
                (causal && q_offset + q_start + c < (hi ? gk1 : gk0)))) {
             p = 0.f;
           }
-          dpt[h][i] = p * (dpt[h][i] - dl_s[c]);
-          st[h][i] = p;
+          dpt[h][e] = p * (dpt[h][e] - dl_s[c]);
+          st[h][e] = p;
         }
       }
       const uint32_t pa[4] = {
@@ -423,21 +522,24 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
           pack_bf16(dpt[0][0], dpt[0][1]), pack_bf16(dpt[0][2], dpt[0][3]),
           pack_bf16(dpt[1][0], dpt[1][1]), pack_bf16(dpt[1][2], dpt[1][3]),
       };
-      // dV += P^T dO and dK += dS^T Q over these 16 queries.
-      const __nv_bfloat16* dr = dos + (qc * 16 + 2 * t) * ld + g;
-      const __nv_bfloat16* qr = qs + (qc * 16 + 2 * t) * ld + g;
+      // dV += P^T dO and dK += dS^T Q over these 16 queries: one
+      // ldmatrix.x4.trans gives the B fragments of two 8-column blocks.
+      const int t_at = (qc * 16 + (lane & 15)) * ld + (lane >> 4) * 8;
       #pragma unroll
-      for (int nb = 0; nb < kOutBlocks; ++nb) {
-        const __nv_bfloat16* dcol = dr + nb * 8;
-        mma_bf16(dva[nb], pa, pack_raw(dcol, dcol + ld),
-                 pack_raw(dcol + 8 * ld, dcol + 9 * ld));
-        const __nv_bfloat16* qcol = qr + nb * 8;
-        mma_bf16(dka[nb], dsa, pack_raw(qcol, qcol + ld),
-                 pack_raw(qcol + 8 * ld, qcol + 9 * ld));
+      for (int nb = 0; nb < kOutBlocks; nb += 2) {
+        uint32_t db[4], qb[4];
+        ldmatrix_x4_trans(db, dos + t_at + nb * 8);
+        ldmatrix_x4_trans(qb, qs + t_at + nb * 8);
+        mma_bf16(dva[nb], pa, db[0], db[1]);
+        mma_bf16(dva[nb + 1], pa, db[2], db[3]);
+        mma_bf16(dka[nb], dsa, qb[0], qb[1]);
+        mma_bf16(dka[nb + 1], dsa, qb[2], qb[3]);
       }
     }
+    __syncthreads();  // every warp is done with this slot: refill it
   }
 
+  // dK (scaled once, in f32) and dV; zeros where no query reached.
   const size_t at0 = khead + static_cast<size_t>(k_start + row0) * D + 2 * t;
   const size_t at1 = at0 + 8 * D;
   if (row0 < k_rows) {
@@ -456,6 +558,270 @@ flash_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
           make_float2(dka[nb][2] * scale, dka[nb][3] * scale);
       *reinterpret_cast<float2*>(dv + at1 + nb * 8) =
           make_float2(dva[nb][2], dva[nb][3]);
+    }
+  }
+}
+
+// ---- bf16 dK/dV, D 64 and 128: wgmma over a TMA Q/dO ring --------------
+
+constexpr int kConsumersB = 2;   // consumer warpgroups, on alternate q tiles
+constexpr int kSlotsB = 4;       // Q/dO ring slots, two a consumer warpgroup
+constexpr int kThreadsB = (kConsumersB + 1) * 128;  // + a producer warpgroup
+constexpr int kTmaWarp = kConsumersB * 4;  // the producer warp issuing TMA
+constexpr int kStatsWarp = kTmaWarp + 1;   // the one writing lse, delta
+constexpr int kProducerRegs = 24;  // setmaxnreg: the producer gives its
+constexpr int kConsumerRegs = 240;  // registers to the consumers
+
+// The consumer warpgroups alone meet here (named barrier 1).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kConsumersB * 128) : "memory");
+}
+
+// Shared memory, every tile 1024-byte aligned (the 128-byte swizzle's
+// period), each a 64-row tile as D/64 column blocks of 64 rows x 128
+// bytes: K, V, then the ring's slots (Q, then dO), then each slot's lse
+// (log2 units) and delta, 64 f32 each, then the mbarriers. After the
+// loop the ring carries the second consumer warpgroup's sums to the
+// first.
+template <int D>
+struct DkvTmaLayout {
+  static constexpr uint32_t block = kBlock * kSwizzleRow;
+  static constexpr uint32_t tile = D / 64 * block;
+  static constexpr uint32_t v = tile;
+  static constexpr uint32_t ring = 2 * tile;
+  static constexpr uint32_t slot = 2 * tile;
+  static constexpr uint32_t stats = ring + kSlotsB * slot;
+  static constexpr uint32_t barriers = stats + kSlotsB * 2 * kBlock * 4;
+  static constexpr size_t bytes = barriers + 64 + 1024;  // + alignment
+  static_assert(2 * D / 2 * 128 * 4 <= kSlotsB * slot, "sums fit the ring");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsB, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dk, float* __restrict__ dv,
+                           int sq, int sk, int q_offset, int k_offset,
+                           float scale, int causal) {
+  using L = DkvTmaLayout<D>;
+  constexpr int kColBlocks = D / 64;
+  constexpr int kOut = D / 2;  // accumulator floats a thread (64 x D)
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* aligned = smem_raw + (base - raw);
+  float* stats = reinterpret_cast<float*>(aligned + L::stats);
+  const uint32_t full_bar = base + L::barriers;       // [slot]
+  const uint32_t empty_bar = full_bar + 8 * kSlotsB;  // [slot]
+  const uint32_t kv_bar = empty_bar + 8 * kSlotsB;
+
+  const int k_tile = heads_fastest_tile();
+  const int bh = heads_fastest_head();
+  const int k_start = k_tile * kBlock;
+  const int num_q_tiles = (sq + kBlock - 1) / kBlock;
+  const int first_tile =
+      dkv_first_tile(k_offset + k_start, q_offset, causal);
+  const int count = num_q_tiles - first_tile;  // <= 0: no query reaches it
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlotsB; ++s) {
+      // The TMA lane's arrive (with the bytes) and the stats warp's 32.
+      mbar_init(full_bar + 8 * s, 1 + 32);
+      mbar_init(empty_bar + 8 * s, 4);  // the consuming warpgroup's warps
+    }
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kTmaWarp) {  // the producer warpgroup
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kTmaWarp && lane == 0 && count > 0) {
+      mbar_expect_tx(kv_bar, 2 * L::tile);
+      for (int c = 0; c < kColBlocks; ++c) {
+        tma_load(base + c * L::block, &tm_k, kv_bar, c * 64, k_start, bh);
+        tma_load(base + L::v + c * L::block, &tm_v, kv_bar, c * 64,
+                 k_start, bh);
+      }
+      for (int i = 0; i < count; ++i) {
+        const int s = i % kSlotsB;
+        if (i >= kSlotsB) {  // the consumers released tile i - kSlotsB
+          mbar_wait(empty_bar + 8 * s, (i / kSlotsB - 1) & 1);
+        }
+        const uint32_t at = base + L::ring + s * L::slot;
+        const int q_start = (first_tile + i) * kBlock;
+        mbar_expect_tx(full_bar + 8 * s, 2 * L::tile);
+        for (int c = 0; c < kColBlocks; ++c) {
+          tma_load(at + c * L::block, &tm_q, full_bar + 8 * s, c * 64,
+                   q_start, bh);
+          tma_load(at + L::tile + c * L::block, &tm_do, full_bar + 8 * s,
+                   c * 64, q_start, bh);
+        }
+      }
+    } else if (warp == kStatsWarp) {  // lse (log2 units), delta: 2 rows a lane
+      for (int i = 0; i < count; ++i) {
+        const int s = i % kSlotsB;
+        if (i >= kSlotsB) {
+          mbar_wait(empty_bar + 8 * s, (i / kSlotsB - 1) & 1);
+        }
+        const int q_start = (first_tile + i) * kBlock;
+        const size_t at = static_cast<size_t>(bh) * sq + q_start;
+        float* out = stats + s * 2 * kBlock;
+        for (int r = lane; r < kBlock; r += 32) {
+          const bool in = q_start + r < sq;
+          out[r] = in ? lse[at + r] * kLog2e : 0.f;
+          out[kBlock + r] = in ? delta[at + r] : 0.f;
+        }
+        mbar_arrive(full_bar + 8 * s);  // release: the stores are seen
+      }
+    }
+    return;
+  }
+
+  // The consumers: warpgroup wg takes q tiles wg, wg + 2, ...; in each,
+  // warp w holds keys 16 (w % 4) ... 16 (w % 4) + 15.
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp >> 2;
+  const int g = lane >> 2;  // fragment row group
+  const int t = lane & 3;   // thread in group: column pair
+  const int row0 = (warp & 3) * 16 + g;  // this lane's keys: row0, row0 + 8
+  const int gk0 = k_offset + k_start + row0;
+  const int gk1 = gk0 + 8;
+  const float scale_log2 = scale * kLog2e;
+  float dka[kOut], dva[kOut];
+  #pragma unroll
+  for (int i = 0; i < kOut; ++i) dka[i] = dva[i] = 0.f;
+  if (count > 0) mbar_wait(kv_bar, 0);
+
+  for (int i = wg; i < count; i += kConsumersB) {
+    const int slot = i % kSlotsB;
+    mbar_wait(full_bar + 8 * slot, (i / kSlotsB) & 1);
+    const uint32_t q_tile = base + L::ring + slot * L::slot;
+    const uint32_t do_tile = q_tile + L::tile;
+    const float* lse_s = stats + slot * 2 * kBlock;
+    const float* dl_s = lse_s + kBlock;
+    const int q_start = (first_tile + i) * kBlock;
+    // Only tiles that cross the diagonal or end ragged hold masked pairs.
+    const bool edge =
+        (causal && q_offset + q_start < k_offset + k_start + kBlock - 1) ||
+        q_start + kBlock > sq;
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, 16 columns of
+    // D a step. Inside a 128-byte swizzled row a step moves the start by
+    // 32 bytes; past 64 columns it moves to the next column block.
+    float st[32], dpt[32];
+    wgmma_fence();
+    #pragma unroll
+    for (int kstep = 0; kstep < D / 16; ++kstep) {
+      const uint32_t step = (kstep / 4) * L::block + (kstep % 4) * 32;
+      wgmma_ss(st, gmma_desc(base + step, 16), gmma_desc(q_tile + step, 16),
+               kstep > 0);
+      wgmma_ss(dpt, gmma_desc(base + L::v + step, 16),
+               gmma_desc(do_tile + step, 16), kstep > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(st);
+    hold(dpt);
+
+    // P^T and dS^T = P^T o (dP^T - delta); st[4 j + e] is key e < 2 ?
+    // row0 : row0 + 8, query 8 j + 2 t + (e & 1) of the tile.
+    #pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1);
+        float p = ex2_ftz(fmaf(st[4 * j + e], scale_log2, -lse_s[c]));
+        if (edge && (q_start + c >= sq ||
+                     (causal && q_offset + q_start + c < (e < 2 ? gk0 : gk1)))) {
+          p = 0.f;
+        }
+        dpt[4 * j + e] = p * (dpt[4 * j + e] - dl_s[c]);
+        st[4 * j + e] = p;
+      }
+    }
+    // Packed to bf16 in the register-A layout, 16 queries a k-step.
+    uint32_t pa[4][4], da[4][4];
+    #pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      #pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[kk][r] = pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+        da[kk][r] = pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q: dO's and Q's 16 query rows start
+    // 16 x 128 bytes further each k-step; their column blocks lie one
+    // block apart.
+    hold(dva);
+    hold(dka);
+    wgmma_fence();
+    #pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs(dva, pa[kk], gmma_desc(do_tile + kk * 16 * kSwizzleRow,
+                                      L::block));
+      wgmma_rs(dka, da[kk], gmma_desc(q_tile + kk * 16 * kSwizzleRow,
+                                      L::block));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(dva);
+    hold(dka);
+    hold(pa);
+    hold(da);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_bar + 8 * slot);  // slot free
+  }
+
+  // The second warpgroup's sums meet the first's through the idle ring:
+  // thread i of each holds the same elements.
+  float* sums = reinterpret_cast<float*>(aligned + L::ring);
+  const int tid = threadIdx.x & 127;
+  consumers_sync();  // every product of both warpgroups has completed
+  if (wg == 1) {
+    #pragma unroll
+    for (int j = 0; j < kOut; ++j) {
+      sums[j * 128 + tid] = dka[j];
+      sums[(kOut + j) * 128 + tid] = dva[j];
+    }
+  }
+  consumers_sync();
+  if (wg == 1) return;
+  #pragma unroll
+  for (int j = 0; j < kOut; ++j) {
+    dka[j] += sums[j * 128 + tid];
+    dva[j] += sums[(kOut + j) * 128 + tid];
+  }
+
+  // dK (scaled once, in f32) and dV, rows past Sk not stored; zeros where
+  // no query reached. dka[4 j + e] is key e < 2 ? row0 : row0 + 8,
+  // column 8 j + 2 t + (e & 1).
+  const size_t head = static_cast<size_t>(bh) * sk * D;
+  const size_t at0 = head + static_cast<size_t>(k_start + row0) * D + 2 * t;
+  const size_t at1 = at0 + 8 * D;
+  if (k_start + row0 < sk) {
+    #pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(dk + at0 + 8 * j) =
+          make_float2(dka[4 * j] * scale, dka[4 * j + 1] * scale);
+      *reinterpret_cast<float2*>(dv + at0 + 8 * j) =
+          make_float2(dva[4 * j], dva[4 * j + 1]);
+    }
+  }
+  if (k_start + row0 + 8 < sk) {
+    #pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(dk + at1 + 8 * j) =
+          make_float2(dka[4 * j + 2] * scale, dka[4 * j + 3] * scale);
+      *reinterpret_cast<float2*>(dv + at1 + 8 * j) =
+          make_float2(dva[4 * j + 2], dva[4 * j + 3]);
     }
   }
 }
@@ -715,20 +1081,50 @@ cudaError_t launch_dq(const Args& a, int dtype, float* dq) {
 }
 
 template <int D>
+cudaError_t launch_dkv_wgmma(const Args& a, float* dk, float* dv) {
+  static bool configured = false;
+  const size_t smem = DkvTmaLayout<D>::bytes;
+  cudaError_t err =
+      configure(flash_bwd_dkv_wgmma_kernel<D>, smem, &configured);
+  if (err != cudaSuccess) return err;
+  EncodeTiled encode = nullptr;
+  err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  CUtensorMap maps[4];
+  const void* data[4] = {a.q, a.k, a.v, a.dout};
+  const int rows[4] = {a.sq, a.sk, a.sk, a.sq};
+  for (int i = 0; i < 4; ++i) {
+    err = make_map(encode, &maps[i], data[i], a.bh, rows[i], D, kBlock);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((a.sk + kBlock - 1) / kBlock, a.bh);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, kThreadsB, smem, a.stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a.lse, a.delta, dk, dv, a.sq,
+      a.sk, a.q_offset, a.k_offset, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+// bf16 head dims 64 and 128 take the wgmma kernel, 16 and 32 the
+// mma.sync one; f32 the scalar kernel.
+template <int D>
 cudaError_t launch_dkv(const Args& a, int dtype, float* dk, float* dv) {
   const dim3 grid((a.sk + kBlock - 1) / kBlock, a.bh);
   if (dtype == 1) {
-    static bool configured = false;
-    const size_t smem = Bf16Tiles<D>::bytes;
-    cudaError_t err =
-        configure(flash_bwd_dkv_bf16_kernel<D>, smem, &configured);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkv_bf16_kernel<D><<<grid, kThreads, smem, a.stream>>>(
-        static_cast<const __nv_bfloat16*>(a.q),
-        static_cast<const __nv_bfloat16*>(a.k),
-        static_cast<const __nv_bfloat16*>(a.v),
-        static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.delta, dk, dv,
-        a.sq, a.sk, a.q_offset, a.k_offset, a.scale, a.causal);
+    if constexpr (D >= 64) {
+      return launch_dkv_wgmma<D>(a, dk, dv);
+    } else {
+      static bool configured = false;
+      const size_t smem = DkvRingLayout<D>::bytes;
+      cudaError_t err =
+          configure(flash_bwd_dkv_ring_kernel<D>, smem, &configured);
+      if (err != cudaSuccess) return err;
+      flash_bwd_dkv_ring_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+          static_cast<const __nv_bfloat16*>(a.q),
+          static_cast<const __nv_bfloat16*>(a.k),
+          static_cast<const __nv_bfloat16*>(a.v),
+          static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.delta, dk,
+          dv, a.sq, a.sk, a.q_offset, a.k_offset, a.scale, a.causal);
+    }
   } else {
     static bool configured = false;
     const size_t smem = F32DkvLayout<D>::bytes;

@@ -258,23 +258,42 @@ def _check_grads(q, k, v, do, lse, delta):
         raise ValueError("flash_chunk_grads: inputs must be contiguous")
 
 
+def _bind_bwd(lib):
+    """Set the ctypes signatures of a flash_attention_bwd.cu build."""
+    tail = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+                                 ctypes.c_void_p]
+    lib.edl_flash_attention_bwd_dq.argtypes = [ctypes.c_void_p] * 7 + tail
+    lib.edl_flash_attention_bwd_dkv.argtypes = [ctypes.c_void_p] * 8 + tail
+    for fn in (lib.edl_flash_attention_bwd_dq,
+               lib.edl_flash_attention_bwd_dkv):
+        fn.restype = ctypes.c_int
+    lib.edl_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.edl_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _bwd_library():
     from elasticdl_tpu_torch.ops import _build
 
     lib = _build.load(_BWD_SOURCE)
     if lib.edl_flash_attention_bwd_dq.argtypes is None:
-        tail = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
-                                     ctypes.c_void_p]
-        lib.edl_flash_attention_bwd_dq.argtypes = (
-            [ctypes.c_void_p] * 7 + tail)
-        lib.edl_flash_attention_bwd_dkv.argtypes = (
-            [ctypes.c_void_p] * 8 + tail)
-        for fn in (lib.edl_flash_attention_bwd_dq,
-                   lib.edl_flash_attention_bwd_dkv):
-            fn.restype = ctypes.c_int
-        lib.edl_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.edl_cuda_error_string.restype = ctypes.c_char_p
+        _bind_bwd(lib)
     return lib
+
+
+def _bwd_launch(lib, name, inputs, outputs, q_offset, k_offset, causal,
+                scale):
+    """One launch of the dq ("dq", outputs (dq,)) or the dk/dv ("dkv",
+    outputs (dk, dv)) kernel of ``lib`` on the current stream, through
+    its C entry point, not counted; inputs = (q, k, v, do, lse, delta).
+    Returns the CUDA error code."""
+    q, k = inputs[0], inputs[1]
+    bh, sq, d = q.shape
+    tail = (bh, sq, k.shape[1], d, _DTYPE_CODES[q.dtype], int(q_offset),
+            int(k_offset), float(scale), int(bool(causal)))
+    fn = getattr(lib, f"edl_flash_attention_bwd_{name}")
+    return fn(*(t.data_ptr() for t in (*inputs, *outputs)), *tail,
+              torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def flash_chunk_grads_cuda(q, k, v, do, lse, delta, q_offset: int,
@@ -286,20 +305,14 @@ def flash_chunk_grads_cuda(q, k, v, do, lse, delta, q_offset: int,
     if q.device.type != "cuda":
         raise ValueError(f"flash_chunk_grads_cuda: tensors on {q.device}")
     lib = _bwd_library()
-    bh, sq, d = q.shape
-    sk = k.shape[1]
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
-    inputs = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
-    tail = (bh, sq, sk, d, _DTYPE_CODES[q.dtype], int(q_offset),
-            int(k_offset), float(scale), int(bool(causal)))
+    inputs = (q, k, v, do, lse, delta)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         for name, outputs in (("dq", (dq,)), ("dkv", (dk, dv))):
-            fn = getattr(lib, f"edl_flash_attention_bwd_{name}")
-            err = fn(*inputs, *(t.data_ptr() for t in outputs), *tail,
-                     stream)
+            err = _bwd_launch(lib, name, inputs, outputs, q_offset,
+                              k_offset, causal, scale)
             if err != 0:
                 raise RuntimeError(
                     f"flash attention {name} kernel launch failed: CUDA "

@@ -38,14 +38,16 @@ SHAPES = [(8, 4, 1024, 128), (1, 4, 8192, 128),   # (b, h, s, d), causal
 
 
 def build(variants, out_dir):
-    """{name: (library path, nvcc log)}, compiled in parallel."""
+    """{name: (library path, nvcc log)}, compiled in parallel; a source
+    outside csrc/ finds the headers there (hopper.cuh)."""
     from elasticdl_tpu_torch.ops import _build
 
     procs = {}
     for name, source in variants.items():
         out = os.path.join(out_dir, f"lib{name}.so")
         procs[name] = (out, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", out, source],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC_DIR,
+             "-o", out, source],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     built = {}
     for name, (out, proc) in procs.items():

@@ -51,6 +51,7 @@ from elasticdl_tpu.ops.ring_attention import dense_attention as jdense
 from elasticdl_tpu_torch.ops import flash_attention as tfa
 from elasticdl_tpu_torch.ops.ring_attention import dense_attention as tdense
 from elasticdl_tpu_torch.tools import chunk_kernel_mutants
+from elasticdl_tpu_torch.tools import flash_bwd_mutants
 from elasticdl_tpu_torch.tools import flash_fwd_mutants
 
 B, S, H = 2, 128, 2
@@ -214,6 +215,7 @@ def _chunk_inputs(bh, sq, sk, d, seed):
     (128, 128, 128, 0, 0, False),
     (64, 128, 64, 64, 0, True),        # ring-like: the second q chunk
     (64, 128, 32, 0, 128, True),       # a chunk wholly above the diagonal
+    (64, 128, 64, 0, 0, True),         # keys 64-127 after every query
 ])
 def test_chunk_grads_reference_matches_jax(dtype, sq, sk, d, q_offset,
                                            k_offset, causal):
@@ -236,6 +238,11 @@ def test_chunk_grads_reference_matches_jax(dtype, sq, sk, d, q_offset,
                           <= BF16_TOL * np.maximum(1.0, np.abs(w)))
         if k_offset > q_offset + sq:
             assert not np.any(_np(g))
+    if causal:   # keys after every query: dk and dv are 0 on both sides
+        beyond = k_offset + np.arange(sk) > q_offset + sq - 1
+        for g, w in zip(got[1:], want[1:]):
+            assert not np.any(_np(g)[:, beyond])
+            assert not np.any(np.asarray(w)[:, beyond])
     assert tfa.dq_launches == tfa.dkv_launches == 0
 
 
@@ -340,6 +347,11 @@ def test_cuda_kernel_matches_plain(bh, s_len, d, dtype, causal):
     (8, 200, 200, 64, torch.float32, False, 0),
     (8, 512, 1024, 128, torch.bfloat16, True, 512),  # a ring chunk
     (64, 127, 127, 16, torch.bfloat16, True, 0),     # the zoo twin's step
+    (8, 384, 512, 128, torch.bfloat16, True, 0),     # keys beyond every query
+    (8, 384, 512, 32, torch.bfloat16, True, 0),
+    (8, 384, 512, 64, torch.float32, True, 0),
+    (4, 2048, 2048, 128, torch.bfloat16, True, 2048),  # the ring: past chunk
+    (4, 2048, 2048, 128, torch.bfloat16, True, 0),     # diagonal chunk
 ])
 def test_cuda_bwd_kernels_match_plain(bh, sq, sk, d, dtype, causal,
                                       q_offset):
@@ -437,6 +449,22 @@ def test_flash_fwd_mutant_texts_land_in_their_kernel(name):
         assert old != new
         assert start < source.find(old) < end, (name, old)
     assert flash_fwd_mutants.mutate(source, edits) != source
+
+
+@pytest.mark.parametrize("name", sorted(flash_bwd_mutants.MUTANTS))
+def test_flash_bwd_mutant_texts_land_in_the_dkv_kernel(name):
+    """Each edit's text occurs once in the sound source, inside the dk/dv
+    kernel the mutant means."""
+    with open(os.path.join(CSRC, "flash_attention_bwd.cu")) as f:
+        source = f.read()
+    kernel, edits = flash_bwd_mutants.MUTANTS[name]
+    assert kernel.startswith("flash_bwd_dkv_")
+    start, end = _kernel_span(source, kernel)
+    for old, new in edits:
+        assert old != new
+        assert source.count(old) == 1, (name, old)
+        assert start < source.find(old) < end, (name, old)
+    assert flash_bwd_mutants.mutate(source, edits) != source
 
 
 @pytest.mark.parametrize("name", sorted(chunk_kernel_mutants.MUTANTS))
