@@ -44,16 +44,20 @@
    32, S 1024, D 128) bf16 causal and not and f32 causal, ragged lengths
    and every head dim, a ring chunk (Sq 512 of Sk 1024 at q_offset 512),
    the zoo twin's training shape, keys beyond every causal query (their
-   k tiles must store zeros), and the ring's local block (BH 4, 2048,
-   D 128) as a past and as the diagonal chunk; then gradients through
-   ``flash_attention`` against the CPU plain path. Each check prints its
-   readings (largest error, median and largest |w|, relative L2) and,
-   for bf16, the same readings of the plain version without its bf16
-   roundings, which must fall outside the limits. Times each kernel's
-   device time (a CUDA graph of 50 launches) beside its bound and SDPA's
-   flash backward op on the same work, measured the same way (a
-   yardstick only), at the flagship shape and the ring's two chunks,
-   and the plain version at the flagship shape.
+   k tiles must store zeros), q rows before every key (k_offset 128:
+   their dq rows must be zeros, at D 128 and 32, both dq routes), the
+   ring's wholly future pair (every gradient zero), and the ring's local
+   block (BH 4, 2048, D 128) as a past and as the diagonal chunk; then
+   gradients through ``flash_attention`` against the CPU plain path.
+   Each check prints its readings (largest error, median and largest
+   |w|, relative L2) and, for bf16, the same readings of the plain
+   version without its bf16 roundings, which must fall outside the
+   limits. Prints the dq kernels' ptxas lines (registers, spills, shared
+   memory, wgmma serialization). Times each kernel's device time (a CUDA
+   graph of 50 launches) beside its bound and SDPA's flash backward op
+   on the same work, measured the same way (a yardstick only), and the
+   pair's sum, at the flagship shape and the ring's two chunks, and the
+   plain version at the flagship shape.
 8. Trains the zoo twin for 5 steps through ``LocalExecutor`` on the card
    and on the CPU from the same seed: the losses, the first step's
    gradients and every parameter's change agree, and the ``--output``
@@ -393,12 +397,18 @@ def ptxas_lines(log):
 
     name, out = "?", []
     for line in log.splitlines():
-        entry = re.search(r"Compiling entry function '_Z\w*?\d"
-                          r"([a-z][a-z0-9_]*_kernel)I(\w*?)EE", line)
+        entry = re.search(r"Compiling entry function '(_Z\w*)'", line)
+        # The mangled name's kernel is the <length><name> pair whose
+        # length matches (an anonymous namespace's hash may precede it).
+        found = entry and next(
+            (m for m in re.finditer(r"(?=(\d+)([a-z][a-z0-9_]*?_kernel)I"
+                                    r"(\w*?)EE)", entry.group(1))
+             if int(m.group(1)) == len(m.group(2))), None)
         if entry:
             targs = re.findall(r"Li(\d+)|Lb(\d)|(float4|float)",
-                               entry.group(2))
-            name = f"{entry.group(1)}<{','.join(''.join(t) for t in targs)}>"
+                               found.group(3)) if found else []
+            name = (f"{found.group(2)}<{','.join(''.join(t) for t in targs)}>"
+                    if found else "?")
         elif any(word in line for word in ("spill", "registers", "error",
                                            "warning", "Performance")):
             out.append((name, line.split(":", 1)[-1].strip()))
@@ -816,9 +826,11 @@ def bwd_bound(bh, sq, sk, d, dtype, causal, products, outputs,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def chunk_inputs(torch, rng, bh, sq, sk, d, dtype, causal, q_offset):
+def chunk_inputs(torch, rng, bh, sq, sk, d, dtype, causal, q_offset,
+                 k_offset=0):
     """q, k, v, dO on the card and lse (the scores' logsumexp under the
-    mask) and delta = rowsum(dO o o) as the forward would give them."""
+    mask at these global offsets) and delta = rowsum(dO o o) as the
+    forward would give them. A row that no key reaches has lse -1e30."""
     q, do = (torch.from_numpy(rng.standard_normal((bh, sq, d),
                                                   dtype=np.float32))
              .to("cuda", dtype) for _ in range(2))
@@ -828,7 +840,7 @@ def chunk_inputs(torch, rng, bh, sq, sk, d, dtype, causal, q_offset):
     s = torch.matmul(q.float(), k.float().transpose(1, 2)) * d ** -0.5
     if causal:
         qpos = q_offset + torch.arange(sq, device="cuda")
-        kpos = torch.arange(sk, device="cuda")
+        kpos = k_offset + torch.arange(sk, device="cuda")
         s = s.masked_fill(qpos[:, None] < kpos[None, :], -1e30)
     lse = torch.logsumexp(s, dim=-1, keepdim=True)
     p = torch.exp(s - lse)
@@ -838,44 +850,71 @@ def chunk_inputs(torch, rng, bh, sq, sk, d, dtype, causal, q_offset):
 
 
 # The backward kernels' cases: (name, bh, sq, sk, d, dtype, causal,
-# q_offset), k_offset 0. "beyond": keys 384-511 come after every query,
-# so their k tiles meet no query and must store exact zeros (the C entry
-# points' outputs are filled with NaN before each launch); fewer than
-# half the rows are zero, so that median |w|, elem's floor, is not 0.
-# "ring_past" and "ring_diagonal" are the ring's local block at sp 4
-# (BH 4, 2048, D 128): a past chunk, every pair unmasked, and the
-# diagonal chunk; they and "flagship" are timed.
+# q_offset, k_offset). The C entry points' outputs are filled with NaN
+# before each launch, so a row left unstored shows. "beyond": keys
+# 384-511 come after every query, so their k tiles meet no query and
+# must store exact zeros; fewer than half the rows are zero, so that
+# median |w|, elem's floor, is not 0. "before": keys start at 128, so
+# the first 128 q rows (two q tiles) reach no key and their dq rows must
+# be exact zeros, again fewer than half; at D 128 and 32, both dq
+# routes. "future" is the ring's wholly future pair at sp 4: no query
+# reaches any key, and dq, dk and dv must be exact zeros. Every gradient
+# there is 0 (the plain version without its roundings too), so elem and
+# L2 say nothing, and elem's floor would be 0: the case is held by its
+# zeros alone. "ring_past" and "ring_diagonal" are the ring's local
+# block at sp 4 (BH 4, 2048, D 128): a past chunk, every pair unmasked,
+# and the diagonal chunk; they and "flagship" are timed. The bf16 D 64
+# "ragged" case holds both wgmma kernels' D 64 instances. The cases draw
+# their inputs in turn from one seeded generator, so new cases are
+# appended: each earlier case keeps its inputs.
 BWD_CASES = [
-    ("flagship", 32, 1024, 1024, 128, "bfloat16", True, 0),
-    ("full", 32, 1024, 1024, 128, "bfloat16", False, 0),
-    ("flagship", 32, 1024, 1024, 128, "float32", True, 0),
-    ("ragged", 8, 100, 100, 128, "bfloat16", True, 0),
-    ("ragged", 8, 37, 37, 16, "bfloat16", False, 0),
-    ("ragged", 8, 130, 130, 32, "float32", True, 0),
-    ("ragged", 8, 200, 200, 64, "float32", False, 0),
-    ("chunk", 8, 512, 1024, 128, "bfloat16", True, 512),
-    ("twin", 64, 127, 127, 16, "bfloat16", True, 0),
-    ("beyond", 8, 384, 512, 128, "bfloat16", True, 0),
-    ("beyond", 8, 384, 512, 32, "bfloat16", True, 0),
-    ("beyond", 8, 384, 512, 64, "float32", True, 0),
-    ("ring_past", 4, 2048, 2048, 128, "bfloat16", True, 2048),
-    ("ring_diagonal", 4, 2048, 2048, 128, "bfloat16", True, 0),
+    ("flagship", 32, 1024, 1024, 128, "bfloat16", True, 0, 0),
+    ("full", 32, 1024, 1024, 128, "bfloat16", False, 0, 0),
+    ("flagship", 32, 1024, 1024, 128, "float32", True, 0, 0),
+    ("ragged", 8, 100, 100, 128, "bfloat16", True, 0, 0),
+    ("ragged", 8, 37, 37, 16, "bfloat16", False, 0, 0),
+    ("ragged", 8, 130, 130, 32, "float32", True, 0, 0),
+    ("ragged", 8, 200, 200, 64, "float32", False, 0, 0),
+    ("chunk", 8, 512, 1024, 128, "bfloat16", True, 512, 0),
+    ("twin", 64, 127, 127, 16, "bfloat16", True, 0, 0),
+    ("beyond", 8, 384, 512, 128, "bfloat16", True, 0, 0),
+    ("beyond", 8, 384, 512, 32, "bfloat16", True, 0, 0),
+    ("beyond", 8, 384, 512, 64, "float32", True, 0, 0),
+    ("ring_past", 4, 2048, 2048, 128, "bfloat16", True, 2048, 0),
+    ("ring_diagonal", 4, 2048, 2048, 128, "bfloat16", True, 0, 0),
+    ("ragged", 8, 200, 200, 64, "bfloat16", True, 0, 0),
+    ("before", 8, 384, 256, 128, "bfloat16", True, 0, 128),
+    ("before", 8, 384, 256, 32, "bfloat16", True, 0, 128),
+    ("future", 4, 2048, 2048, 128, "bfloat16", True, 0, 2048),
 ]
 BWD_TIMED = ("flagship", "ring_past", "ring_diagonal")
 
 
-def bwd_launcher(fa, lib, args, outs, q_offset, causal):
+def bwd_launcher(fa, lib, args, outs, q_offset, causal, k_offset=0):
     """Launches of the dq and dk/dv kernels of ``lib`` through their C
     entry points (not counted), writing into ``outs`` = (dq, dk, dv)."""
     scale = args[0].shape[-1] ** -0.5
 
     def launch(name):
         targets = outs[:1] if name == "dq" else outs[1:]
-        err = fa._bwd_launch(lib, name, args, targets, q_offset, 0, causal,
-                             scale)
+        err = fa._bwd_launch(lib, name, args, targets, q_offset, k_offset,
+                             causal, scale)
         check(err == 0, f"{name} launch: CUDA error {err}")
 
     return launch
+
+
+def dq_ptxas(log):
+    """ptxas's lines about the dq kernels in a flash_attention_bwd.cu
+    build log: registers, spills and shared memory of each instance, and
+    any warning that names one (C7512/C7518: wgmma serialized)."""
+    lines = [f"{kernel}: {line}" for kernel, line in ptxas_lines(log)
+             if kernel.startswith("flash_bwd_dq_")
+             and "Performance" not in line]
+    lines += [line.strip() for line in log.splitlines()
+              if "flash_bwd_dq_" in line and ("warning" in line
+                                              or "C75" in line)]
+    return lines
 
 
 def bwd_kernel_phase(torch, fa, check=check, timed=True):
@@ -883,35 +922,42 @@ def bwd_kernel_phase(torch, fa, check=check, timed=True):
     through the wrapper every caller uses (flash_chunk_grads_cuda), and
     launched again through their C entry points into outputs filled with
     NaN (a row left unstored shows), which must equal the wrapper's bit
-    for bit (the kernels sum in a fixed order); then their device times.
-    ``check`` may record instead of raise (tools/flash_bwd_mutants.py);
-    each case's "ok" says whether it passed."""
+    for bit (the kernels sum in a fixed order); rows that no key or no
+    query reaches must be exact zeros there. Then the dq kernels' ptxas
+    lines and the device times. ``check`` may record instead of raise
+    (tools/flash_bwd_mutants.py); each case's "ok" says whether it
+    passed."""
     lib = fa._bwd_library()
     rng = np.random.default_rng(SEED + 10)
     checks, timing = [], {}
-    for name, bh, sq, sk, d, dtype_name, causal, q_offset in BWD_CASES:
+    for (name, bh, sq, sk, d, dtype_name, causal, q_offset,
+         k_offset) in BWD_CASES:
         dtype = getattr(torch, dtype_name)
         args = chunk_inputs(torch, rng, bh, sq, sk, d, dtype, causal,
-                            q_offset)
-        got = fa.flash_chunk_grads_cuda(*args, q_offset, 0, causal,
+                            q_offset, k_offset)
+        got = fa.flash_chunk_grads_cuda(*args, q_offset, k_offset, causal,
                                         d ** -0.5)
         raw = tuple(torch.full((bh, rows, d), float("nan"), device=DEVICE)
                     for rows in (sq, sk, sk))
-        launch = bwd_launcher(fa, lib, args, raw, q_offset, causal)
+        launch = bwd_launcher(fa, lib, args, raw, q_offset, causal,
+                              k_offset)
         launch("dq")
         launch("dkv")
         torch.cuda.synchronize()
-        want = fa.flash_chunk_grads_reference(*args, q_offset, 0, causal,
-                                              d ** -0.5)
+        want = fa.flash_chunk_grads_reference(*args, q_offset, k_offset,
+                                              causal, d ** -0.5)
+        zeros_only = name == "future"   # held by its zeros alone (above)
         unrounded = None
-        if dtype_name == "bfloat16":   # the same sums without the roundings
+        if dtype_name == "bfloat16" and not zeros_only:
+            # the same sums without the roundings
             unrounded = fa.flash_chunk_grads_reference(
-                *(x.float() for x in args[:4]), *args[4:], q_offset, 0,
-                causal, d ** -0.5)
+                *(x.float() for x in args[:4]), *args[4:], q_offset,
+                k_offset, causal, d ** -0.5)
         torch.cuda.synchronize()
         tol = BWD_TOL[dtype_name]
         res = {"case": name, "shape": [bh, sq, sk, d], "dtype": dtype_name,
-               "causal": causal, "q_offset": q_offset, "tol": tol,
+               "causal": causal, "q_offset": q_offset,
+               "k_offset": k_offset, "tol": tol,
                "c_entry_bit_equal": all(bool(torch.equal(g, r))
                                         for g, r in zip(got, raw))}
         ok = res["c_entry_bit_equal"]
@@ -920,20 +966,32 @@ def bwd_kernel_phase(torch, fa, check=check, timed=True):
             reading = grad_readings(g, w)
             res[f"{grad}_max_abs_err"] = reading["max_abs_err"]
             res[grad] = reading
-            ok = ok and bool(torch.isfinite(g).all()) and within(reading,
-                                                                 tol)
+            ok = ok and bool(torch.isfinite(g).all())
+            if not zeros_only:
+                ok = ok and within(reading, tol)
             if unrounded is not None:
                 res[f"{grad}_unrounded"] = grad_readings(unrounded[i], w)
-        beyond = q_offset + sq - 1   # keys after it meet no query
-        if causal and sk - 1 > beyond:
-            res["beyond_zero"] = all(bool((g[:, beyond + 1:] == 0).all())
-                                     for g in raw[1:])
-            ok = ok and res["beyond_zero"]
+        if causal:
+            # q rows before the first key reach none; keys after the last
+            # query meet none: exact zeros in the NaN-filled launch.
+            no_key = min(max(k_offset - q_offset, 0), sq)
+            no_query = min(max(q_offset + sq - k_offset, 0), sk)
+            if no_key:
+                res["no_key_rows_zero"] = bool((raw[0][:, :no_key] == 0)
+                                               .all())
+                ok = ok and res["no_key_rows_zero"]
+            if no_query < sk:
+                res["beyond_zero"] = all(bool((g[:, no_query:] == 0).all())
+                                         for g in raw[1:])
+                ok = ok and res["beyond_zero"]
+        if zeros_only:
+            res["all_zero"] = all(bool((g == 0).all()) for g in got + raw)
+            ok = ok and res["all_zero"]
         res["ok"] = ok
         print("bwd kernel check", json.dumps(res), flush=True)
         label = f"{name}/{dtype_name}/D{d}/Sq{sq}/Sk{sk}"
-        check(ok, f"bwd kernel {label}: non-finite or outside tolerance "
-                  f"{res}")
+        check(ok, f"bwd kernel {label}: non-finite, outside tolerance or "
+                  f"not zero where nothing is reached {res}")
         if unrounded is not None:
             for grad in ("dq", "dk", "dv"):
                 check(not within(res[f"{grad}_unrounded"], tol),
@@ -945,6 +1003,11 @@ def bwd_kernel_phase(torch, fa, check=check, timed=True):
             timing[name] = (args, q_offset, causal)
     if not timed:
         return None, checks
+    from elasticdl_tpu_torch.ops import _build
+
+    ptxas = dq_ptxas(_build.build_all([fa._BWD_SOURCE])[fa._BWD_SOURCE])
+    for line in ptxas:
+        print(f"dq ptxas: {line}", flush=True)
     times = {name: bwd_times(torch, fa, lib, *value)
              for name, value in timing.items()}
     errs = {"dq": max(c["dq_max_abs_err"] for c in checks),
@@ -971,14 +1034,18 @@ def bwd_kernel_phase(torch, fa, check=check, timed=True):
             "bound_ms": flagship[kind]["bound_ms"],
             "bound_by": flagship[kind]["bound_by"],
             "library_ms": flagship["library_ms"],
+            "pair_ms": flagship["pair_ms"],
             "library_call": "SDPA's flash backward op (dq, dk and dv "
-                            "together), device time the same way",
+                            "together), device time the same way; "
+                            "pair_ms: dq + dk/dv, the same function",
             "ring": {shape: {key: times[shape][kind][key]
                              for key in ("ms", "bound_ms", "bound_by")}
-                     | {"library_ms": times[shape]["library_ms"],
-                        "library_causal": times[shape]["library_causal"]}
+                     | {key: times[shape][key]
+                        for key in ("library_ms", "library_causal",
+                                    "pair_ms")}
                      for shape in ("ring_past", "ring_diagonal")},
         })
+    rows[0]["ptxas"] = ptxas
     return rows, checks
 
 
@@ -1020,6 +1087,7 @@ def bwd_times(torch, fa, lib, args, q_offset, causal):
                                        products, outputs, q_offset)
         out[kind] = {"ms": float(np.median(replays)), "ms_replays": replays,
                      "bound_ms": bound_ms, "bound_by": bound_by}
+    out["pair_ms"] = out["dq"]["ms"] + out["dkv"]["ms"]
     # SDPA has no offsets: its causal mask is the diagonal chunk's, and a
     # chunk with every pair unmasked is its non-causal backward.
     lib_causal = causal and unmasked_pairs(sq, sk, q_offset, 0, True) \

@@ -28,13 +28,39 @@
 // rounding is elementwise: the tile widths below do not change the
 // results. The TPU grids' sequential axes become loops inside a block.
 //
-// dq: one block per (bh, 64-row q tile) loops over the K/V tiles that the
-// causal mask leaves reachable (heaviest q tiles first). Four warps own 16
-// rows each and run every product with mma.sync m16n8k16 (bf16 in, f32
-// accumulate); keys are taken 16 at a time, so a warp holds a 16 x 16
-// piece of S and dP, whose accumulator fragment is repacked in registers
-// as the A operand of dS K. Tiles are loaded through registers. Two
-// blocks an SM.
+// dq: one block per (bh, 64-row q tile) loops over the 64-key K/V tiles
+// that the causal mask leaves reachable. The grid is read heads fastest
+// from the last q tile down, so every head's heaviest q tile starts
+// first. A probability and dS stay in registers: S's accumulator
+// fragment, with P and dS taken on it, is repacked in place as the A
+// operand of dS K. bf16 takes one of two kernels, by head dim:
+//
+// - D 64 and 128: `flash_bwd_dq_wgmma_kernel`, #4's design turned round
+//   (the q tile stays, the keys stream). Two consumer warpgroups share
+//   the block's 64 q rows and take alternate key tiles. A producer
+//   warpgroup loads Q and dO once by TMA, then streams each K and V tile
+//   by TMA into a four-slot ring (two slots a consumer) under full and
+//   empty mbarriers. A consumer computes S and dP with wgmma m64n64k16
+//   from shared memory (Q, K, dO, V K-major in the 128-byte swizzle TMA
+//   writes), takes p = 2^(s scale log2(e) - lse log2(e)) and dS on the
+//   accumulators (each thread's rows' lse and delta sit in registers,
+//   read once), packs dS to bf16 in place and adds dq += dS K with wgmma
+//   reading the same K tile MN-major (the transpose bit); its dq sum
+//   stays in registers across the loop, and at the end the second
+//   consumer's sum reaches the first through the idle ring, always in
+//   that order. The producer gives registers back with setmaxnreg (24)
+//   and the consumers take 240: the sum (64 at D 128), S and dP (64) and
+//   the packed dS (16). 161 KB of shared memory at D 128: one block an
+//   SM, and the ring's local block (BH 4 x 2048) is 128 blocks, one wave.
+//   A q tile that no key reaches issues no TMA and stores zeros.
+// - D 16 and 32: `flash_bwd_dq_ring_kernel`, mma.sync. Four warps own 16
+//   q rows each. Q and dO are copied once by cp.async and held as A
+//   fragments; K and V stream through a two-slot cp.async ring, so tile
+//   t+1's copy runs under tile t's products; fragments come from ldmatrix
+//   (x4, and .trans for K as the B operand of dS K) over rows padded by
+//   16 bytes, free of bank conflicts. A ragged key tile's rows past Sk
+//   repeat row Sk - 1 (the copy stays inside the tensor) and the mask
+//   zeroes their p, which keeps them out of dq.
 //
 // dk/dv: one block per (bh, 64-key tile) loops over the 64-query tiles
 // at or below the diagonal. The grid is read heads fastest, so every
@@ -148,202 +174,11 @@ __device__ __forceinline__ int heads_fastest_head() {
   return (blockIdx.x + gridDim.x * blockIdx.y) % gridDim.y;
 }
 
-// ---- bf16: tensor-core fragments in registers ------------------------
-
-template <int D>
-struct Bf16Tiles {
-  static constexpr int ld = D + 8;  // padded row stride (elements)
-  static constexpr size_t tile = static_cast<size_t>(kBlock) * ld;
-  static constexpr size_t bytes =
-      4 * tile * sizeof(__nv_bfloat16) + 2 * kBlock * sizeof(float);
-};
-
-__device__ __forceinline__ uint32_t load_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(const __nv_bfloat16* lo,
-                                             const __nv_bfloat16* hi) {
-  const uint32_t l = *reinterpret_cast<const uint16_t*>(lo);
-  const uint32_t h = *reinterpret_cast<const uint16_t*>(hi);
-  return l | (h << 16);
-}
-
-// A fragment (16 rows x 16 columns at `base`, row stride ld).
-template <int ld>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* base) {
-  a[0] = load_u32(base);
-  a[1] = load_u32(base + 8 * ld);
-  a[2] = load_u32(base + 8);
-  a[3] = load_u32(base + 8 * ld + 8);
-}
-
-// Copies the first `rows` rows of a contiguous 64 x D global tile into
-// padded shared rows; rows past the end are zeroed.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               int rows) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kBlock * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = i % kChunks;
-    uint4 chunk = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) {
-      chunk = *reinterpret_cast<const uint4*>(src + r * D + c * 8);
-    }
-    *reinterpret_cast<uint4*>(dst + r * Bf16Tiles<D>::ld + c * 8) = chunk;
-  }
-}
-
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
-                                              int rows) {
-  for (int i = threadIdx.x; i < kBlock; i += kThreads) {
-    dst[i] = i < rows ? src[i] : 0.f;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads, kBf16BlocksPerSm)
-flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         float* __restrict__ dq, int sq, int sk,
-                         int q_offset, int k_offset, float scale,
-                         int causal) {
-  using T = Bf16Tiles<D>;
-  constexpr int ld = T::ld;
-  constexpr int kSteps = D / 16;     // k-steps over D
-  constexpr int kOutBlocks = D / 8;  // n-blocks of dS K
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* dos = qs + T::tile;
-  __nv_bfloat16* ks = dos + T::tile;
-  __nv_bfloat16* vs = ks + T::tile;
-
-  const int q_tile = gridDim.x - 1 - blockIdx.x;  // heaviest tiles first
-  const int bh = blockIdx.y;
-  const int q_start = q_tile * kBlock;
-  const int q_rows = tile_rows(q_start, sq);
-  const size_t qhead = static_cast<size_t>(bh) * sq * D;
-  const size_t khead = static_cast<size_t>(bh) * sk * D;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row0 = warp * kWarpRows + g;  // this lane's rows: row0, row0+8
-  const int gq0 = q_offset + q_start + row0;  // global positions
-  const int gq1 = gq0 + 8;
-
-  load_tile_bf16<D>(qs, q + qhead + static_cast<size_t>(q_start) * D, q_rows);
-  load_tile_bf16<D>(dos, dout + qhead + static_cast<size_t>(q_start) * D,
-                    q_rows);
-  __syncthreads();
-  uint32_t qa[kSteps][4], da[kSteps][4];
-  #pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk) {
-    load_a<ld>(qa[kk], qs + row0 * ld + kk * 16 + 2 * t);
-    load_a<ld>(da[kk], dos + row0 * ld + kk * 16 + 2 * t);
-  }
-  const float* lrow = lse + static_cast<size_t>(bh) * sq + q_start;
-  const float* drow = delta + static_cast<size_t>(bh) * sq + q_start;
-  const float lse0 = row0 < q_rows ? lrow[row0] : 0.f;
-  const float lse1 = row0 + 8 < q_rows ? lrow[row0 + 8] : 0.f;
-  const float dl0 = row0 < q_rows ? drow[row0] : 0.f;
-  const float dl1 = row0 + 8 < q_rows ? drow[row0 + 8] : 0.f;
-
-  float acc[kOutBlocks][4];
-  #pragma unroll
-  for (int nb = 0; nb < kOutBlocks; ++nb) {
-    acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
-  }
-
-  const int num_tiles =
-      dq_num_tiles(q_offset + q_start, k_offset, sk, causal);
-  for (int tile = 0; tile < num_tiles; ++tile) {
-    const int k_start = tile * kBlock;
-    const int k_rows = tile_rows(k_start, sk);
-    // Only tiles that cross the diagonal or end ragged hold masked keys.
-    const bool masked_tile =
-        (causal && k_offset + k_start + kBlock - 1 > q_offset + q_start) ||
-        k_rows < kBlock;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_bf16<D>(ks, k + khead + static_cast<size_t>(k_start) * D,
-                      k_rows);
-    load_tile_bf16<D>(vs, v + khead + static_cast<size_t>(k_start) * D,
-                      k_rows);
-    __syncthreads();
-
-    #pragma unroll 1
-    for (int kc = 0; kc < kBlock / 16; ++kc) {
-      // S and dP for 16 rows x 16 keys: two n-blocks of 8 keys.
-      float s[2][4], dp[2][4];
-      #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        s[h][0] = s[h][1] = s[h][2] = s[h][3] = 0.f;
-        dp[h][0] = dp[h][1] = dp[h][2] = dp[h][3] = 0.f;
-        const int key = kc * 16 + h * 8 + g;
-        const __nv_bfloat16* kr = ks + key * ld + 2 * t;
-        const __nv_bfloat16* vr = vs + key * ld + 2 * t;
-        #pragma unroll
-        for (int kk = 0; kk < kSteps; ++kk) {
-          mma_bf16(s[h], qa[kk], load_u32(kr + kk * 16),
-                   load_u32(kr + kk * 16 + 8));
-          mma_bf16(dp[h], da[kk], load_u32(vr + kk * 16),
-                   load_u32(vr + kk * 16 + 8));
-        }
-      }
-      // dS = P o (dP - delta), P = exp(S * scale - lse).
-      float ds[2][4];
-      #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int kl = k_start + kc * 16 + h * 8 + 2 * t + (i & 1);
-          const bool hi = i >= 2;
-          float p = expf(s[h][i] * scale - (hi ? lse1 : lse0));
-          if (masked_tile &&
-              (kl >= sk || (causal && (hi ? gq1 : gq0) < k_offset + kl))) {
-            p = 0.f;
-          }
-          ds[h][i] = p * (dp[h][i] - (hi ? dl1 : dl0));
-        }
-      }
-      // dq += dS (in k's dtype) K: dS's accumulators are the A fragment.
-      const uint32_t dsa[4] = {
-          pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
-          pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3]),
-      };
-      const __nv_bfloat16* kr = ks + (kc * 16 + 2 * t) * ld + g;
-      #pragma unroll
-      for (int nb = 0; nb < kOutBlocks; ++nb) {
-        const __nv_bfloat16* col = kr + nb * 8;
-        mma_bf16(acc[nb], dsa, pack_raw(col, col + ld),
-                 pack_raw(col + 8 * ld, col + 9 * ld));
-      }
-    }
-  }
-
-  float* out0 = dq + qhead + static_cast<size_t>(q_start + row0) * D + 2 * t;
-  float* out1 = out0 + 8 * D;
-  if (row0 < q_rows) {
-    #pragma unroll
-    for (int nb = 0; nb < kOutBlocks; ++nb) {
-      *reinterpret_cast<float2*>(out0 + nb * 8) =
-          make_float2(acc[nb][0] * scale, acc[nb][1] * scale);
-    }
-  }
-  if (row0 + 8 < q_rows) {
-    #pragma unroll
-    for (int nb = 0; nb < kOutBlocks; ++nb) {
-      *reinterpret_cast<float2*>(out1 + nb * 8) =
-          make_float2(acc[nb][2] * scale, acc[nb][3] * scale);
-    }
-  }
+// A bf16 dq grid is (q tiles, BH), read heads fastest from the last q tile
+// down: under the causal mask the last q tile meets the most keys, so
+// every head's heaviest tile starts before any head's next one.
+__device__ __forceinline__ int heaviest_first_tile() {
+  return gridDim.x - 1 - heads_fastest_tile();
 }
 
 // ---- bf16 dK/dV, D 16 and 32: mma.sync over a cp.async Q/dO ring -------
@@ -826,6 +661,408 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// ---- bf16 dq, D 16 and 32: mma.sync over a cp.async K/V ring -----------
+
+// Shared memory: Q, dO (64 padded rows each), then the ring's slots, each
+// a K and a V tile (64 padded rows each).
+template <int D>
+struct DqRingLayout {
+  static constexpr int ld = DkvRingLayout<D>::ld;  // copy_rows_async's
+  static constexpr int tile = kBlock * ld;
+  static constexpr int slot = 2 * tile;
+  static constexpr size_t bytes =
+      static_cast<size_t>(2 * tile + kSlotsA * slot) * sizeof(bf16);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, kBf16BlocksPerSm)
+flash_bwd_dq_ring_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dq, int sq, int sk,
+                         int q_offset, int k_offset, float scale,
+                         int causal) {
+  using L = DqRingLayout<D>;
+  constexpr int ld = L::ld;
+  constexpr int kSteps = D / 16;
+  constexpr int kOutBlocks = D / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* dos = qs + L::tile;
+  bf16* ring = dos + L::tile;
+
+  const int q_tile = heaviest_first_tile();
+  const int bh = heads_fastest_head();
+  const int q_start = q_tile * kBlock;
+  const int q_rows = tile_rows(q_start, sq);
+  const size_t qhead = static_cast<size_t>(bh) * sq * D;
+  const size_t khead = static_cast<size_t>(bh) * sk * D;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row0 = warp * kWarpRows + g;  // this lane's rows: row0, row0+8
+  const int gq0 = q_offset + q_start + row0;  // global positions
+  const int gq1 = gq0 + 8;
+  const int count = dq_num_tiles(q_offset + q_start, k_offset, sk, causal);
+  // Starts the copy of key tile i into its slot: rows past Sk repeat row
+  // Sk - 1 (the copy stays inside the tensor) and the mask keeps them out.
+  auto copy_kv = [&](int i) {
+    bf16* slot = ring + (i % kSlotsA) * L::slot;
+    const int valid = tile_rows(i * kBlock, sk);
+    const size_t at = khead + static_cast<size_t>(i) * kBlock * D;
+    copy_rows_async<D>(slot, k + at, valid);
+    copy_rows_async<D>(slot + L::tile, v + at, valid);
+  };
+
+  // Q and dO, then the first K/V tile, in flight together; a q tile that
+  // no key reaches copies nothing and stores zeros.
+  if (count > 0) {
+    copy_rows_async<D>(qs, q + qhead + static_cast<size_t>(q_start) * D,
+                       q_rows);
+    copy_rows_async<D>(dos, dout + qhead + static_cast<size_t>(q_start) * D,
+                       q_rows);
+  }
+  cp_async_commit();
+  if (count > 0) copy_kv(0);
+  cp_async_commit();
+
+  // This lane's rows' lse (log2 units) and delta; rows past Sq read 0.
+  const float* lrow = lse + static_cast<size_t>(bh) * sq + q_start;
+  const float* drow = delta + static_cast<size_t>(bh) * sq + q_start;
+  const float lse0 = row0 < q_rows ? lrow[row0] * kLog2e : 0.f;
+  const float lse1 = row0 + 8 < q_rows ? lrow[row0 + 8] * kLog2e : 0.f;
+  const float dl0 = row0 < q_rows ? drow[row0] : 0.f;
+  const float dl1 = row0 + 8 < q_rows ? drow[row0 + 8] : 0.f;
+  const float scale_log2 = scale * kLog2e;
+
+  float acc[kOutBlocks][4];
+  #pragma unroll
+  for (int nb = 0; nb < kOutBlocks; ++nb) {
+    acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
+  }
+  // Q's and dO's A fragments stay in registers (16 at D 32).
+  uint32_t qa[kSteps][4], da[kSteps][4];
+  if (count > 0) {
+    cp_async_wait<1>();  // Q and dO have landed
+    __syncthreads();
+    const int a_at = (warp * kWarpRows + (lane & 15)) * ld + (lane >> 4) * 8;
+    #pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      ldmatrix_x4(qa[kk], qs + a_at + kk * 16);
+      ldmatrix_x4(da[kk], dos + a_at + kk * 16);
+    }
+  }
+
+  for (int i = 0; i < count; ++i) {
+    const int k_start = i * kBlock;
+    if (i + 1 < count) copy_kv(i + 1);  // runs under this tile's products
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies have landed
+    __syncthreads();
+    const bf16* ks = ring + (i % kSlotsA) * L::slot;
+    const bf16* vs = ks + L::tile;
+    // Only tiles that cross the diagonal or end ragged hold masked keys.
+    const bool masked_tile =
+        (causal && k_offset + k_start + kBlock - 1 > q_offset + q_start) ||
+        k_start + kBlock > sk;
+
+    #pragma unroll 1
+    for (int kc = 0; kc < kBlock / 16; ++kc) {
+      // S = Q K^T and dP = dO V^T for 16 rows x 16 keys: K and V rows
+      // give the B fragments of two 8-key blocks, one ldmatrix.x4 each.
+      float s[2][4], dp[2][4];
+      #pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        s[h][0] = s[h][1] = s[h][2] = s[h][3] = 0.f;
+        dp[h][0] = dp[h][1] = dp[h][2] = dp[h][3] = 0.f;
+      }
+      const int b_at = (kc * 16 + (lane & 7) + (lane >> 4) * 8) * ld +
+                       ((lane >> 3) & 1) * 8;
+      #pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        uint32_t kb[4], vb[4];
+        ldmatrix_x4(kb, ks + b_at + kk * 16);
+        ldmatrix_x4(vb, vs + b_at + kk * 16);
+        mma_bf16(s[0], qa[kk], kb[0], kb[1]);
+        mma_bf16(s[1], qa[kk], kb[2], kb[3]);
+        mma_bf16(dp[0], da[kk], vb[0], vb[1]);
+        mma_bf16(dp[1], da[kk], vb[2], vb[3]);
+      }
+      // dS = P o (dP - delta), P = 2^(S scale log2(e) - lse log2(e)).
+      float ds[2][4];
+      #pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        #pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kl = k_start + kc * 16 + h * 8 + 2 * t + (e & 1);
+          const bool hi = e >= 2;
+          float p = ex2_ftz(fmaf(s[h][e], scale_log2, -(hi ? lse1 : lse0)));
+          if (masked_tile &&
+              (kl >= sk || (causal && (hi ? gq1 : gq0) < k_offset + kl))) {
+            p = 0.f;
+          }
+          ds[h][e] = p * (dp[h][e] - (hi ? dl1 : dl0));
+        }
+      }
+      // dq += dS (in k's dtype) K: dS's accumulators are the A fragment;
+      // one ldmatrix.x4.trans of K gives the B fragments of two 8-column
+      // blocks.
+      const uint32_t dsa[4] = {
+          pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], ds[0][3]),
+          pack_bf16(ds[1][0], ds[1][1]), pack_bf16(ds[1][2], ds[1][3]),
+      };
+      const int t_at = (kc * 16 + (lane & 15)) * ld + (lane >> 4) * 8;
+      #pragma unroll
+      for (int nb = 0; nb < kOutBlocks; nb += 2) {
+        uint32_t kb[4];
+        ldmatrix_x4_trans(kb, ks + t_at + nb * 8);
+        mma_bf16(acc[nb], dsa, kb[0], kb[1]);
+        mma_bf16(acc[nb + 1], dsa, kb[2], kb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this slot: refill it
+  }
+
+  // dq, scaled once in f32; zeros where no key reached.
+  float* out0 = dq + qhead + static_cast<size_t>(q_start + row0) * D + 2 * t;
+  float* out1 = out0 + 8 * D;
+  if (row0 < q_rows) {
+    #pragma unroll
+    for (int nb = 0; nb < kOutBlocks; ++nb) {
+      *reinterpret_cast<float2*>(out0 + nb * 8) =
+          make_float2(acc[nb][0] * scale, acc[nb][1] * scale);
+    }
+  }
+  if (row0 + 8 < q_rows) {
+    #pragma unroll
+    for (int nb = 0; nb < kOutBlocks; ++nb) {
+      *reinterpret_cast<float2*>(out1 + nb * 8) =
+          make_float2(acc[nb][2] * scale, acc[nb][3] * scale);
+    }
+  }
+}
+
+// ---- bf16 dq, D 64 and 128: wgmma over a TMA K/V ring ------------------
+
+// Shared memory, every tile 1024-byte aligned, each a 64-row tile as D/64
+// column blocks of 64 rows x 128 bytes: Q, dO, then the ring's slots (K,
+// then V), then the mbarriers. After the loop the ring carries the second
+// consumer warpgroup's sum to the first.
+template <int D>
+struct DqTmaLayout {
+  static constexpr uint32_t block = kBlock * kSwizzleRow;
+  static constexpr uint32_t tile = D / 64 * block;
+  static constexpr uint32_t dout = tile;
+  static constexpr uint32_t ring = 2 * tile;
+  static constexpr uint32_t slot = 2 * tile;
+  static constexpr uint32_t barriers = ring + kSlotsB * slot;
+  static constexpr size_t bytes = barriers + 128 + 1024;  // + alignment
+  static_assert(D / 2 * 128 * 4 <= kSlotsB * slot, "the sum fits the ring");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsB, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dq, int sq, int sk,
+                          int q_offset, int k_offset, float scale,
+                          int causal) {
+  using L = DqTmaLayout<D>;
+  constexpr int kColBlocks = D / 64;
+  constexpr int kOut = D / 2;  // accumulator floats a thread (64 x D)
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* aligned = smem_raw + (base - raw);
+  const uint32_t full_bar = base + L::barriers;       // [slot]
+  const uint32_t empty_bar = full_bar + 8 * kSlotsB;  // [slot]
+  const uint32_t qdo_bar = empty_bar + 8 * kSlotsB;
+
+  const int q_tile = heaviest_first_tile();
+  const int bh = heads_fastest_head();
+  const int q_start = q_tile * kBlock;
+  const int count = dq_num_tiles(q_offset + q_start, k_offset, sk, causal);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSlotsB; ++s) {
+      mbar_init(full_bar + 8 * s, 1);   // the TMA lane's arrive, with bytes
+      mbar_init(empty_bar + 8 * s, 4);  // the consuming warpgroup's warps
+    }
+    mbar_init(qdo_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kTmaWarp) {  // the producer warpgroup: one lane issues TMA
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp == kTmaWarp && lane == 0 && count > 0) {
+      mbar_expect_tx(qdo_bar, 2 * L::tile);
+      for (int c = 0; c < kColBlocks; ++c) {
+        tma_load(base + c * L::block, &tm_q, qdo_bar, c * 64, q_start, bh);
+        tma_load(base + L::dout + c * L::block, &tm_do, qdo_bar, c * 64,
+                 q_start, bh);
+      }
+      for (int i = 0; i < count; ++i) {
+        const int s = i % kSlotsB;
+        if (i >= kSlotsB) {  // the consumer released tile i - kSlotsB
+          mbar_wait(empty_bar + 8 * s, (i / kSlotsB - 1) & 1);
+        }
+        const uint32_t at = base + L::ring + s * L::slot;
+        mbar_expect_tx(full_bar + 8 * s, 2 * L::tile);
+        for (int c = 0; c < kColBlocks; ++c) {
+          tma_load(at + c * L::block, &tm_k, full_bar + 8 * s, c * 64,
+                   i * kBlock, bh);
+          tma_load(at + L::tile + c * L::block, &tm_v, full_bar + 8 * s,
+                   c * 64, i * kBlock, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumers: warpgroup wg takes key tiles wg, wg + 2, ...; in each,
+  // warp w holds q rows 16 (w % 4) ... 16 (w % 4) + 15.
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp >> 2;
+  const int g = lane >> 2;  // fragment row group
+  const int t = lane & 3;   // thread in group: column pair
+  const int row0 = (warp & 3) * 16 + g;  // this lane's rows: row0, row0 + 8
+  const int gq0 = q_offset + q_start + row0;
+  const int gq1 = gq0 + 8;
+  const float scale_log2 = scale * kLog2e;
+  // The rows' lse (log2 units) and delta, read once; rows past Sq read 0.
+  const size_t rows_at = static_cast<size_t>(bh) * sq + q_start;
+  const bool in0 = q_start + row0 < sq;
+  const bool in1 = q_start + row0 + 8 < sq;
+  const float lse0 = in0 ? lse[rows_at + row0] * kLog2e : 0.f;
+  const float lse1 = in1 ? lse[rows_at + row0 + 8] * kLog2e : 0.f;
+  const float dl0 = in0 ? delta[rows_at + row0] : 0.f;
+  const float dl1 = in1 ? delta[rows_at + row0 + 8] : 0.f;
+  float dqa[kOut];
+  #pragma unroll
+  for (int i = 0; i < kOut; ++i) dqa[i] = 0.f;
+  if (wg < count) mbar_wait(qdo_bar, 0);  // no tile: wait on nothing
+
+  for (int i = wg; i < count; i += kConsumersB) {
+    const int slot = i % kSlotsB;
+    mbar_wait(full_bar + 8 * slot, (i / kSlotsB) & 1);
+    const uint32_t k_tile = base + L::ring + slot * L::slot;
+    const uint32_t v_tile = k_tile + L::tile;
+    const int k_start = i * kBlock;
+    // Only tiles that cross the diagonal or end ragged hold masked keys.
+    const bool edge =
+        (causal && k_offset + k_start + kBlock - 1 > q_offset + q_start) ||
+        k_start + kBlock > sk;
+
+    // S = Q K^T and dP = dO V^T: 64 rows x 64 keys, 16 columns of D a
+    // step. Inside a 128-byte swizzled row a step moves the start by 32
+    // bytes; past 64 columns it moves to the next column block.
+    float s[32], dp[32];
+    wgmma_fence();
+    #pragma unroll
+    for (int kstep = 0; kstep < D / 16; ++kstep) {
+      const uint32_t step = (kstep / 4) * L::block + (kstep % 4) * 32;
+      wgmma_ss(s, gmma_desc(base + step, 16), gmma_desc(k_tile + step, 16),
+               kstep > 0);
+      wgmma_ss(dp, gmma_desc(base + L::dout + step, 16),
+               gmma_desc(v_tile + step, 16), kstep > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(s);
+    hold(dp);
+
+    // dS = P o (dP - delta); s[4 j + e] is row e < 2 ? row0 : row0 + 8,
+    // key 8 j + 2 t + (e & 1) of the tile. The mask is a select, so a
+    // row no key reaches (lse -1e30: 2^(...) is inf) gets p = 0, not NaN.
+    #pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kl = k_start + 8 * j + 2 * t + (e & 1);
+        float p = ex2_ftz(fmaf(s[4 * j + e], scale_log2,
+                               -(e < 2 ? lse0 : lse1)));
+        if (edge && (kl >= sk ||
+                     (causal && (e < 2 ? gq0 : gq1) < k_offset + kl))) {
+          p = 0.f;
+        }
+        dp[4 * j + e] = p * (dp[4 * j + e] - (e < 2 ? dl0 : dl1));
+      }
+    }
+    // dS packed to bf16 (k's dtype) in the register-A layout, 16 keys a
+    // k-step.
+    uint32_t da[4][4];
+    #pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      #pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+      }
+    }
+
+    // dq += dS K: K's 16 key rows start 16 x 128 bytes further each
+    // k-step, read MN-major (the transpose bit); its column blocks lie one
+    // block apart.
+    hold(dqa);
+    wgmma_fence();
+    #pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs(dqa, da[kk], gmma_desc(k_tile + kk * 16 * kSwizzleRow,
+                                      L::block));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    hold(dqa);
+    hold(da);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_bar + 8 * slot);  // slot free
+  }
+
+  // The second warpgroup's sum meets the first's through the idle ring:
+  // thread i of each holds the same elements, added in this order.
+  float* sums = reinterpret_cast<float*>(aligned + L::ring);
+  const int tid = threadIdx.x & 127;
+  consumers_sync();  // every product of both warpgroups has completed
+  if (wg == 1) {
+    #pragma unroll
+    for (int j = 0; j < kOut; ++j) sums[j * 128 + tid] = dqa[j];
+  }
+  consumers_sync();
+  if (wg == 1) return;
+  #pragma unroll
+  for (int j = 0; j < kOut; ++j) dqa[j] += sums[j * 128 + tid];
+
+  // dq, scaled once in f32; rows past Sq not stored; zeros where no key
+  // reached. dqa[4 j + e] is row e < 2 ? row0 : row0 + 8, column
+  // 8 j + 2 t + (e & 1).
+  const size_t at0 = (rows_at + row0) * D + 2 * t;
+  const size_t at1 = at0 + 8 * D;
+  if (in0) {
+    #pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(dq + at0 + 8 * j) =
+          make_float2(dqa[4 * j] * scale, dqa[4 * j + 1] * scale);
+    }
+  }
+  if (in1) {
+    #pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(dq + at1 + 8 * j) =
+          make_float2(dqa[4 * j + 2] * scale, dqa[4 * j + 3] * scale);
+    }
+  }
+}
+
 // ---- f32: scalar FMAs, two lanes per row ------------------------------
 
 template <int D>
@@ -852,6 +1089,13 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
   float4* to = reinterpret_cast<float4*>(dst);
   for (int i = threadIdx.x; i < kVecs; i += kThreads) {
     to[i] = i < valid ? from[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
+                                              int rows) {
+  for (int i = threadIdx.x; i < kBlock; i += kThreads) {
+    dst[i] = i < rows ? src[i] : 0.f;
   }
 }
 
@@ -1052,20 +1296,49 @@ struct Args {
 };
 
 template <int D>
+cudaError_t launch_dq_wgmma(const Args& a, float* dq) {
+  static bool configured = false;
+  const size_t smem = DqTmaLayout<D>::bytes;
+  cudaError_t err =
+      configure(flash_bwd_dq_wgmma_kernel<D>, smem, &configured);
+  if (err != cudaSuccess) return err;
+  EncodeTiled encode = nullptr;
+  err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  CUtensorMap maps[4];
+  const void* data[4] = {a.q, a.k, a.v, a.dout};
+  const int rows[4] = {a.sq, a.sk, a.sk, a.sq};
+  for (int i = 0; i < 4; ++i) {
+    err = make_map(encode, &maps[i], data[i], a.bh, rows[i], D, kBlock);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((a.sq + kBlock - 1) / kBlock, a.bh);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, kThreadsB, smem, a.stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a.lse, a.delta, dq, a.sq, a.sk,
+      a.q_offset, a.k_offset, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+// bf16 head dims 64 and 128 take the wgmma kernel, 16 and 32 the
+// mma.sync one; f32 the scalar kernel.
+template <int D>
 cudaError_t launch_dq(const Args& a, int dtype, float* dq) {
   const dim3 grid((a.sq + kBlock - 1) / kBlock, a.bh);
   if (dtype == 1) {
-    static bool configured = false;
-    const size_t smem = Bf16Tiles<D>::bytes;
-    cudaError_t err =
-        configure(flash_bwd_dq_bf16_kernel<D>, smem, &configured);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_bf16_kernel<D><<<grid, kThreads, smem, a.stream>>>(
-        static_cast<const __nv_bfloat16*>(a.q),
-        static_cast<const __nv_bfloat16*>(a.k),
-        static_cast<const __nv_bfloat16*>(a.v),
-        static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.delta, dq, a.sq,
-        a.sk, a.q_offset, a.k_offset, a.scale, a.causal);
+    if constexpr (D >= 64) {
+      return launch_dq_wgmma<D>(a, dq);
+    } else {
+      static bool configured = false;
+      const size_t smem = DqRingLayout<D>::bytes;
+      cudaError_t err =
+          configure(flash_bwd_dq_ring_kernel<D>, smem, &configured);
+      if (err != cudaSuccess) return err;
+      flash_bwd_dq_ring_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+          static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+          static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+          a.lse, a.delta, dq, a.sq, a.sk, a.q_offset, a.k_offset, a.scale,
+          a.causal);
+    }
   } else {
     static bool configured = false;
     const size_t smem = F32DqLayout<D>::bytes;

@@ -1,5 +1,6 @@
-"""Mutants of the flash-attention dk/dv backward (#4) against
-chip_smoke.py's ``bwd kernel check``, on one GPU.
+"""Mutants of the flash-attention backward, dk/dv (#4, ``MUTANTS``) and
+dq (#3, ``DQ_MUTANTS``), against chip_smoke.py's ``bwd kernel check``,
+on one GPU.
 
     python -m elasticdl_tpu_torch.tools.flash_bwd_mutants
 
@@ -32,6 +33,34 @@ The wgmma kernel has no ragged-rows mutant: TMA fills a ragged tile's
 rows past Sq with zeros, so q, dO, lse and delta are 0 there, p = 1 and
 dS = 0, and those rows add nothing to dK or dV with or without their
 mask; dropping it would be an equivalent mutant.
+
+``DQ_MUTANTS``: ``wgmma_dq_*`` edit the dq wgmma kernel (bf16 D 64 and
+128), ``ring_dq_*`` the dq mma.sync kernel (bf16 D 16 and 32):
+- ``*_slot_off_by_one``: the products read K and V from another ring
+  slot than the one filled for this key tile;
+- ``*_last_tile_dropped``: the key-tile count is one short (a q tile
+  that needs one tile gets none);
+- ``*_diagonal_mask_off_by_one``: the key on a row's own position is
+  masked too;
+- ``*_lse_not_log2``: lse taken in natural-log units against scores in
+  log2 units;
+- ``*_scale_dropped``: dq stored without its scale (first rows);
+- ``*_ds_truncated``: dS cut to bf16 toward zero, not rounded to the
+  nearest;
+- ``*_no_key_tile_unstored``: a q tile that no key reaches returns
+  without storing its zeros (the "before" and "future" cases, whose
+  outputs start as NaN);
+- ``wgmma_dq_second_sum_dropped``: the first consumer warpgroup stores
+  its own sum without the second's;
+- ``ring_dq_ragged_keys_unmasked``: a ragged key tile's rows past Sk
+  (copies of row Sk - 1) not masked.
+
+The dq wgmma kernel has no ragged-keys mutant: TMA fills a ragged key
+tile's rows past Sk with zeros, so K = V = 0 there, s = 0 and p =
+2^(-lse); dS may be non-zero there, but dS K adds dS x 0 = 0 to dq. A
+row whose lse is -1e30 (p = inf at those keys) reaches no key at all, so
+the causal mask zeroes their p all the same. Dropping the mask would be
+an equivalent mutant; it stays in the kernel.
 """
 
 import json
@@ -105,6 +134,85 @@ MUTANTS = {
         "  const size_t head = static_cast<size_t>(bh) * sk * D;\n")]),
 }
 
+_RING_DQ_MASK = ("              (kl >= sk || (causal && (hi ? gq1 : gq0) "
+                 "< k_offset + kl))) {\n")
+_WGMMA_DQ_MASK = ("                     (causal && (e < 2 ? gq0 : gq1) < "
+                  "k_offset + kl))) {\n")
+
+
+def _truncated(lo, hi):
+    """C text of two floats cut to a bf16 pair toward zero (the upper
+    halves of their bits), in pack_bf16's order."""
+    return (f"(__float_as_uint({lo}) >> 16) |\n"
+            f"              (__float_as_uint({hi}) & 0xffff0000u)")
+
+
+# The dq kernels' mutants, as MUTANTS.
+DQ_MUTANTS = {
+    "ring_dq_slot_off_by_one": ("flash_bwd_dq_ring_kernel", [(
+        "    const bf16* ks = ring + (i % kSlotsA) * L::slot;\n",
+        "    const bf16* ks = ring + ((i + 1) % kSlotsA) * L::slot;\n")]),
+    "ring_dq_last_tile_dropped": ("flash_bwd_dq_ring_kernel", [(
+        "  const int count = dq_num_tiles(q_offset + q_start, k_offset, sk, "
+        "causal);\n  // Starts the copy",
+        "  const int count =\n      dq_num_tiles(q_offset + q_start, "
+        "k_offset, sk, causal) - 1;\n  // Starts the copy")]),
+    "ring_dq_diagonal_mask_off_by_one": ("flash_bwd_dq_ring_kernel", [(
+        _RING_DQ_MASK, _RING_DQ_MASK.replace("< k_offset", "<= k_offset"))]),
+    "ring_dq_ragged_keys_unmasked": ("flash_bwd_dq_ring_kernel", [(
+        _RING_DQ_MASK, _RING_DQ_MASK.replace("(kl >= sk ||", "(false ||"))]),
+    "ring_dq_lse_not_log2": ("flash_bwd_dq_ring_kernel", [(
+        "  const float lse0 = row0 < q_rows ? lrow[row0] * kLog2e : 0.f;\n"
+        "  const float lse1 = row0 + 8 < q_rows ? lrow[row0 + 8] * kLog2e "
+        ": 0.f;\n",
+        "  const float lse0 = row0 < q_rows ? lrow[row0] : 0.f;\n"
+        "  const float lse1 = row0 + 8 < q_rows ? lrow[row0 + 8] : 0.f;\n")]),
+    "ring_dq_scale_dropped": ("flash_bwd_dq_ring_kernel", [(
+        "          make_float2(acc[nb][0] * scale, acc[nb][1] * scale);\n",
+        "          make_float2(acc[nb][0], acc[nb][1]);\n")]),
+    "ring_dq_ds_truncated": ("flash_bwd_dq_ring_kernel", [(
+        "          pack_bf16(ds[0][0], ds[0][1]), pack_bf16(ds[0][2], "
+        "ds[0][3]),\n          pack_bf16(ds[1][0], ds[1][1]), "
+        "pack_bf16(ds[1][2], ds[1][3]),\n",
+        "".join(f"          {_truncated(f'ds[{h}][{e}]', f'ds[{h}][{e + 1}]')}"
+                ",\n" for h in (0, 1) for e in (0, 2)))]),
+    "ring_dq_no_key_tile_unstored": ("flash_bwd_dq_ring_kernel", [(
+        "  // dq, scaled once in f32; zeros where no key reached.\n",
+        "  if (count <= 0) return;\n")]),
+    "wgmma_dq_slot_off_by_one": ("flash_bwd_dq_wgmma_kernel", [(
+        "    const uint32_t k_tile = base + L::ring + slot * L::slot;\n",
+        "    const uint32_t k_tile =\n"
+        "        base + L::ring + ((slot + 1) % kSlotsB) * L::slot;\n")]),
+    "wgmma_dq_last_tile_dropped": ("flash_bwd_dq_wgmma_kernel", [(
+        "  const int count = dq_num_tiles(q_offset + q_start, k_offset, sk, "
+        "causal);\n  const int warp",
+        "  const int count =\n      dq_num_tiles(q_offset + q_start, "
+        "k_offset, sk, causal) - 1;\n  const int warp")]),
+    "wgmma_dq_diagonal_mask_off_by_one": ("flash_bwd_dq_wgmma_kernel", [(
+        _WGMMA_DQ_MASK, _WGMMA_DQ_MASK.replace("< k_offset", "<= k_offset"))]),
+    "wgmma_dq_lse_not_log2": ("flash_bwd_dq_wgmma_kernel", [(
+        "  const float lse0 = in0 ? lse[rows_at + row0] * kLog2e : 0.f;\n"
+        "  const float lse1 = in1 ? lse[rows_at + row0 + 8] * kLog2e : "
+        "0.f;\n",
+        "  const float lse0 = in0 ? lse[rows_at + row0] : 0.f;\n"
+        "  const float lse1 = in1 ? lse[rows_at + row0 + 8] : 0.f;\n")]),
+    "wgmma_dq_scale_dropped": ("flash_bwd_dq_wgmma_kernel", [(
+        "          make_float2(dqa[4 * j] * scale, dqa[4 * j + 1] * scale);\n",
+        "          make_float2(dqa[4 * j], dqa[4 * j + 1]);\n")]),
+    "wgmma_dq_ds_truncated": ("flash_bwd_dq_wgmma_kernel", [(
+        "        da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], "
+        "dp[8 * kk + 2 * r + 1]);\n",
+        "        da[kk][r] = " + _truncated("dp[8 * kk + 2 * r]",
+                                        "dp[8 * kk + 2 * r + 1]") + ";\n")]),
+    "wgmma_dq_second_sum_dropped": ("flash_bwd_dq_wgmma_kernel", [(
+        "  for (int j = 0; j < kOut; ++j) dqa[j] += sums[j * 128 + tid];\n",
+        "  for (int j = 0; j < kOut; ++j) dqa[j] += 0.f;\n")]),
+    "wgmma_dq_no_key_tile_unstored": ("flash_bwd_dq_wgmma_kernel", [(
+        "  const size_t at0 = (rows_at + row0) * D + 2 * t;\n",
+        "  if (count <= 0) return;\n"
+        "  const size_t at0 = (rows_at + row0) * D + 2 * t;\n")]),
+}
+
 RUNNER = """
 import json, sys
 sys.path.insert(0, ".")
@@ -117,6 +225,7 @@ _, checks = chip_smoke.bwd_kernel_phase(torch, fa, check=lambda c, m: None,
                                         timed=False)
 print("FAILED", json.dumps([
     {"case": c["case"], "shape": c["shape"], "dtype": c["dtype"],
+     "k_offset": c["k_offset"],
      **{g: {"elem": c[g]["elem"], "l2": c[g]["l2"]}
         for g in ("dq", "dk", "dv")}}
     for c in checks if not c["ok"]]))
@@ -153,8 +262,9 @@ def run(name: str, edits):
 
 
 def main() -> int:
-    sources = [("sound", [])] + [(name, edits)
-                                 for name, (_, edits) in MUTANTS.items()]
+    sources = [("sound", [])] + [
+        (name, edits) for table in (MUTANTS, DQ_MUTANTS)
+        for name, (_, edits) in table.items()]
     with ThreadPoolExecutor(4) as pool:
         results = list(pool.map(lambda item: run(*item), sources))
     bad = []

@@ -216,6 +216,7 @@ def _chunk_inputs(bh, sq, sk, d, seed):
     (64, 128, 64, 64, 0, True),        # ring-like: the second q chunk
     (64, 128, 32, 0, 128, True),       # a chunk wholly above the diagonal
     (64, 128, 64, 0, 0, True),         # keys 64-127 after every query
+    (192, 128, 64, 0, 64, True),       # q rows 0-63 before every key
 ])
 def test_chunk_grads_reference_matches_jax(dtype, sq, sk, d, q_offset,
                                            k_offset, causal):
@@ -337,24 +338,27 @@ def test_cuda_kernel_matches_plain(bh, s_len, d, dtype, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bh,sq,sk,d,dtype,causal,q_offset", [
-    (32, 1024, 1024, 128, torch.bfloat16, True, 0),
-    (32, 1024, 1024, 128, torch.bfloat16, False, 0),
-    (32, 1024, 1024, 128, torch.float32, True, 0),
-    (8, 100, 100, 128, torch.bfloat16, True, 0),     # ragged last tiles
-    (8, 37, 37, 16, torch.bfloat16, False, 0),
-    (8, 130, 130, 32, torch.float32, True, 0),
-    (8, 200, 200, 64, torch.float32, False, 0),
-    (8, 512, 1024, 128, torch.bfloat16, True, 512),  # a ring chunk
-    (64, 127, 127, 16, torch.bfloat16, True, 0),     # the zoo twin's step
-    (8, 384, 512, 128, torch.bfloat16, True, 0),     # keys beyond every query
-    (8, 384, 512, 32, torch.bfloat16, True, 0),
-    (8, 384, 512, 64, torch.float32, True, 0),
-    (4, 2048, 2048, 128, torch.bfloat16, True, 2048),  # the ring: past chunk
-    (4, 2048, 2048, 128, torch.bfloat16, True, 0),     # diagonal chunk
+@pytest.mark.parametrize("bh,sq,sk,d,dtype,causal,q_offset,k_offset", [
+    (32, 1024, 1024, 128, torch.bfloat16, True, 0, 0),
+    (32, 1024, 1024, 128, torch.bfloat16, False, 0, 0),
+    (32, 1024, 1024, 128, torch.float32, True, 0, 0),
+    (8, 100, 100, 128, torch.bfloat16, True, 0, 0),     # ragged last tiles
+    (8, 37, 37, 16, torch.bfloat16, False, 0, 0),
+    (8, 130, 130, 32, torch.float32, True, 0, 0),
+    (8, 200, 200, 64, torch.float32, False, 0, 0),
+    (8, 200, 200, 64, torch.bfloat16, True, 0, 0),
+    (8, 512, 1024, 128, torch.bfloat16, True, 512, 0),  # a ring chunk
+    (64, 127, 127, 16, torch.bfloat16, True, 0, 0),     # the zoo twin's step
+    (8, 384, 512, 128, torch.bfloat16, True, 0, 0),  # keys beyond every query
+    (8, 384, 512, 32, torch.bfloat16, True, 0, 0),
+    (8, 384, 512, 64, torch.float32, True, 0, 0),
+    (8, 384, 256, 128, torch.bfloat16, True, 0, 128),  # rows before every key
+    (8, 384, 256, 32, torch.bfloat16, True, 0, 128),
+    (4, 2048, 2048, 128, torch.bfloat16, True, 2048, 0),  # ring: past chunk
+    (4, 2048, 2048, 128, torch.bfloat16, True, 0, 0),     # diagonal chunk
 ])
 def test_cuda_bwd_kernels_match_plain(bh, sq, sk, d, dtype, causal,
-                                      q_offset):
+                                      q_offset, k_offset):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
     inputs = _chunk_inputs(bh, sq, sk, d, seed=2)
@@ -362,17 +366,20 @@ def test_cuda_bwd_kernels_match_plain(bh, sq, sk, d, dtype, causal,
                    for x in inputs[:4])
     lse, delta = (torch.from_numpy(x).cuda() for x in inputs[4:])
     before = (tfa.dq_launches, tfa.dkv_launches)
-    got = tfa.flash_chunk_grads(q, k, v, do, lse, delta, q_offset, 0, causal)
+    got = tfa.flash_chunk_grads(q, k, v, do, lse, delta, q_offset, k_offset,
+                                causal)
     torch.cuda.synchronize()
     assert (tfa.dq_launches, tfa.dkv_launches) == (before[0] + 1,
                                                    before[1] + 1)
     want = tfa.flash_chunk_grads_reference(q, k, v, do, lse, delta,
-                                           q_offset, 0, causal)
+                                           q_offset, k_offset, causal)
     tol = CUDA_BWD_TOL[dtype]
     for g, w in zip(got, want):
         err, size = (g - w).abs(), w.abs()
         assert bool((err <= tol["elem"] * (size + size.median())).all())
         assert (err.norm() / w.norm()).item() <= tol["l2"]
+    no_key = max(k_offset - q_offset, 0)   # dq rows that reach no key
+    assert bool((got[0][:, :no_key] == 0).all())
 
 
 def _readings(got, want):
@@ -459,6 +466,22 @@ def test_flash_bwd_mutant_texts_land_in_the_dkv_kernel(name):
         source = f.read()
     kernel, edits = flash_bwd_mutants.MUTANTS[name]
     assert kernel.startswith("flash_bwd_dkv_")
+    start, end = _kernel_span(source, kernel)
+    for old, new in edits:
+        assert old != new
+        assert source.count(old) == 1, (name, old)
+        assert start < source.find(old) < end, (name, old)
+    assert flash_bwd_mutants.mutate(source, edits) != source
+
+
+@pytest.mark.parametrize("name", sorted(flash_bwd_mutants.DQ_MUTANTS))
+def test_flash_bwd_dq_mutant_texts_land_in_the_dq_kernel(name):
+    """Each edit's text occurs once in the sound source, inside the dq
+    kernel the mutant means."""
+    with open(os.path.join(CSRC, "flash_attention_bwd.cu")) as f:
+        source = f.read()
+    kernel, edits = flash_bwd_mutants.DQ_MUTANTS[name]
+    assert kernel.startswith("flash_bwd_dq_")
     start, end = _kernel_span(source, kernel)
     for old, new in edits:
         assert old != new
