@@ -4,6 +4,7 @@
     python3 chip_smoke.py                # every phase below
     python3 chip_smoke.py --phase fwd    # kernel #1 alone: build, check, time
     python3 chip_smoke.py --phase bwd    # kernels #3 and #4 alone
+    python3 chip_smoke.py --phase chunk  # kernel #2 alone
 
 1. Prints the card (``nvidia-smi`` name and power limit) and versions.
 2. Builds every CUDA kernel of the port from ``elasticdl_tpu_torch/ops/csrc``.
@@ -102,14 +103,23 @@
    kernel #5's launches are counted.
 14. ``chunk kernel check`` (after the backward checks): the ring's
    chunk-update kernel (#2, ``flash_chunk_update``) against its plain
-   version folded over the kernel's 64-key tiles, and in one call over
-   the whole chunk: f32 and bf16, head dims 16-128, causal and not, a
-   diagonal, a past and a wholly future chunk, one that masks only the
-   first rows, Sq != Sk and ragged lengths, an initial carry and one
-   folded from an earlier chunk; bf16 cases also read the plain version
-   without the rounding of p, which must fail. Times the kernel at the
-   ring's local block (BH 4, 2048, D 128, bf16) for a past and a
-   diagonal chunk.
+   version folded in the kernel's own order (64-key tiles; on the wgmma
+   route even tiles into the carry, odd ones into an empty state, then
+   merged), and in one call over the whole chunk: f32 and bf16, head
+   dims 16-128 (both bf16 routes), causal and not, a diagonal, a past
+   and a wholly future chunk, one that masks only the first rows, one
+   key tile and an odd number of them, Sq != Sk and ragged lengths, an
+   initial carry and one folded from an earlier chunk; bf16 cases also
+   read the plain version without the rounding of p, which must fail.
+   Each case launches again through the C entry point into outputs
+   filled with NaN and with the outputs aliasing a copy of the carry:
+   both must equal the wrapper's bit for bit. Prints the kernels' ptxas
+   lines. Times the kernel's device time (a CUDA graph of 50 launches)
+   beside its event windows and issue time at the ring's local block
+   (BH 4, 2048, bf16) for a past and a diagonal chunk at D 128 and 64,
+   each beside its bound, the plain version and SDPA's flash forward
+   with logsumexp over the same chunk (a yardstick: the chunk's products
+   without the carry).
 15. ``ring check``: ``ring_attention`` over ``make_mesh((4,), ("sp",),
    [cuda:0] * 4)`` against kernel #1 (and #3/#4) on the whole sequence,
    output and dq, dk, dv, at B 1 x S 8192 and B 8 x S 1024 (bf16), and
@@ -904,16 +914,15 @@ def bwd_launcher(fa, lib, args, outs, q_offset, causal, k_offset=0):
     return launch
 
 
-def dq_ptxas(log):
-    """ptxas's lines about the dq kernels in a flash_attention_bwd.cu
-    build log: registers, spills and shared memory of each instance, and
-    any warning that names one (C7512/C7518: wgmma serialized)."""
+def kernel_ptxas(log, prefix):
+    """ptxas's lines about the kernels whose names start with ``prefix``
+    in a build log: registers, spills and shared memory of each
+    instance, and any warning that names one (C7512/C7518: wgmma
+    serialized)."""
     lines = [f"{kernel}: {line}" for kernel, line in ptxas_lines(log)
-             if kernel.startswith("flash_bwd_dq_")
-             and "Performance" not in line]
+             if kernel.startswith(prefix) and "Performance" not in line]
     lines += [line.strip() for line in log.splitlines()
-              if "flash_bwd_dq_" in line and ("warning" in line
-                                              or "C75" in line)]
+              if prefix in line and ("warning" in line or "C75" in line)]
     return lines
 
 
@@ -1005,7 +1014,8 @@ def bwd_kernel_phase(torch, fa, check=check, timed=True):
         return None, checks
     from elasticdl_tpu_torch.ops import _build
 
-    ptxas = dq_ptxas(_build.build_all([fa._BWD_SOURCE])[fa._BWD_SOURCE])
+    ptxas = kernel_ptxas(_build.build_all([fa._BWD_SOURCE])[fa._BWD_SOURCE],
+                         "flash_bwd_dq_")
     for line in ptxas:
         print(f"dq ptxas: {line}", flush=True)
     times = {name: bwd_times(torch, fa, lib, *value)
@@ -1153,20 +1163,27 @@ def chunk_bound(bh, sq, sk, d, dtype, causal, q_offset, k_offset):
 
 
 def chunk_tiled_reference(fa, q, k, v, m, l, acc, q_offset, k_offset,
-                          causal, scale, tile=64):
-    """The plain version folded over 64-key tiles, as the kernel walks
-    the chunk (a tile wholly after every query folds nothing)."""
-    state = (m, l, acc)
-    for lo in range(0, k.shape[1], tile):
-        state = fa.flash_chunk_update_reference(
-            q, k[:, lo:lo + tile], v[:, lo:lo + tile], *state, q_offset,
-            k_offset + lo, causal, scale)
-    return state
+                          causal, scale, dtype=None):
+    """The plain version folded in the kernel's own order: over the key
+    tiles of the route that ``dtype`` (q's by default) takes, into one
+    running state or, on the wgmma route, into two merged at the end."""
+    d = q.shape[-1]
+    dtype = dtype or q.dtype
+    return fa.flash_chunk_update_reference(
+        q, k, v, m, l, acc, q_offset, k_offset, causal, scale,
+        block_k=fa.chunk_block_k(d, dtype),
+        consumers=fa.chunk_consumers(d, dtype))
 
 
 # (name, bh, sq, sk, d, dtype, causal, q_offset, k_offset, carry). The
 # first two are the ring's local block at the slice's shape (BH 4, 2048,
-# D 128): its diagonal chunk and a past chunk.
+# D 128): its diagonal chunk and a past chunk. bf16 D 64 and 128 take the
+# wgmma kernel, bf16 D 16 and 32 the mma.sync one. Every case also
+# launches through the C entry point into NaN-filled outputs and with the
+# outputs aliasing the carry (a copy of it), which must equal the
+# wrapper's launch bit for bit. The cases draw their inputs in turn from
+# one seeded generator, so new cases are appended: each earlier case
+# keeps its inputs.
 CHUNK_CASES = [
     ("diagonal", 4, 2048, 2048, 128, "bfloat16", True, 2048, 2048,
      "initial"),
@@ -1186,13 +1203,34 @@ CHUNK_CASES = [
     ("diagonal", 4, 512, 512, 64, "float32", True, 512, 512, "folded"),
     ("diagonal", 4, 512, 512, 32, "bfloat16", True, 512, 512, "folded"),
     ("past", 4, 512, 512, 16, "float32", True, 1024, 0, "initial"),
+    # The wgmma kernel's edges: one key tile (the second consumer has
+    # none), an odd number of them, a ragged Sk (333) and Sq (200) across
+    # the diagonal, rows that see no key, and the ring's chunks at D 64.
+    ("one_tile", 4, 256, 64, 128, "bfloat16", True, 1024, 0, "folded"),
+    ("odd_tiles", 4, 256, 320, 128, "bfloat16", True, 1024, 0, "folded"),
+    ("ragged", 4, 200, 333, 128, "bfloat16", True, 300, 100, "folded"),
+    ("first_rows", 4, 256, 256, 128, "bfloat16", True, 256, 300, "initial"),
+    ("past", 4, 2048, 2048, 64, "bfloat16", True, 4096, 0, "folded"),
+    ("diagonal", 4, 2048, 2048, 64, "bfloat16", True, 2048, 2048,
+     "initial"),
+    # Rows that see no key on the mma.sync route (D 64 went to wgmma).
+    ("first_rows", 4, 256, 256, 32, "bfloat16", True, 256, 300, "initial"),
 ]
+# Timed: the ring's chunks (BH 4 x 2048 x 2048) at D 128 and 64.
+CHUNK_TIMED = ("past", "diagonal")
 
 
 def chunk_kernel_phase(torch, fa, check=check, timed=True):
-    """Kernel #2 against its plain version on the card over CHUNK_CASES;
-    then its times at the slice's shape. ``check`` may record instead of
-    raise (tools/chunk_kernel_mutants.py)."""
+    """Kernel #2 against its plain version on the card over CHUNK_CASES,
+    through the wrapper every caller uses (flash_chunk_update_cuda), and
+    launched again through its C entry point into outputs filled with
+    NaN (a row left unstored shows) and with the outputs aliasing a copy
+    of the carry: both must equal the wrapper's bit for bit (the kernel
+    sums in a fixed order). Then its ptxas lines and its times at the
+    slice's shape. ``check`` may record instead of raise
+    (tools/chunk_kernel_mutants.py); each case's "ok" says whether it
+    passed."""
+    lib = fa._chunk_library()
     rng = np.random.default_rng(SEED + 50)
     checks = []
     timing = {}
@@ -1215,6 +1253,12 @@ def chunk_kernel_phase(torch, fa, check=check, timed=True):
                 -256, False, scale)
         got = fa.flash_chunk_update_cuda(q, k, v, *state, q_off, k_off,
                                          causal, scale)
+        raw = tuple(torch.full_like(t, float("nan")) for t in state)
+        aliased = tuple(t.clone() for t in state)
+        for carry_in, outs in ((state, raw), (aliased, aliased)):
+            err = fa._chunk_launch(lib, (q, k, v, *carry_in), outs, q_off,
+                                   k_off, causal, scale)
+            check(err == 0, f"chunk launch: CUDA error {err}")
         torch.cuda.synchronize()
         want = chunk_tiled_reference(fa, q, k, v, *state, q_off, k_off,
                                      causal, scale)
@@ -1225,14 +1269,19 @@ def chunk_kernel_phase(torch, fa, check=check, timed=True):
         if dtype_name == "bfloat16" and pairs:
             unrounded = chunk_tiled_reference(
                 fa, q.float(), k.float(), v.float(), *state, q_off, k_off,
-                causal, scale)
+                causal, scale, dtype)
         torch.cuda.synchronize()
         tol = CHUNK_TOL[dtype_name]
         res = {"case": name, "shape": [bh, sq, sk, d], "dtype": dtype_name,
                "causal": causal, "q_offset": q_off, "k_offset": k_off,
                "carry": carry, "pairs": pairs, "tol": tol,
-               "whole_tol": CHUNK_WHOLE_TOL[dtype_name]}
-        ok = True
+               "whole_tol": CHUNK_WHOLE_TOL[dtype_name],
+               "consumers": fa.chunk_consumers(d, dtype),
+               "c_entry_bit_equal": all(bool(torch.equal(g, r))
+                                        for g, r in zip(got, raw)),
+               "aliased_bit_equal": all(bool(torch.equal(g, a))
+                                        for g, a in zip(got, aliased))}
+        ok = res["c_entry_bit_equal"] and res["aliased_bit_equal"]
         for i, out in enumerate(("m", "l", "acc")):
             res[out] = grad_readings(got[i], want[i])
             res[f"{out}_whole"] = grad_readings(got[i], whole[i])
@@ -1246,65 +1295,105 @@ def chunk_kernel_phase(torch, fa, check=check, timed=True):
             res["carry_unchanged"] = all(torch.equal(g, s)
                                          for g, s in zip(got, state))
             ok = ok and res["carry_unchanged"]
+        res["ok"] = ok
         print("chunk kernel check", json.dumps(res), flush=True)
         label = f"{name}/{dtype_name}/D{d}/{carry}"
-        check(ok, f"chunk kernel {label} outside tolerance {res}")
+        check(ok, f"chunk kernel {label} outside tolerance or not "
+                  f"bit-equal {res}")
         if unrounded is not None:
             check(not within(res["acc_unrounded"], tol),
                   f"chunk kernel {label}: the unrounded plain version "
                   f"passes the limits, which could not see a rounding "
                   f"fault {res}")
         checks.append(res)
-        if timed and (bh, sq, sk, d) == (4, 2048, 2048, 128):
-            timing[name] = (q, k, v, state, q_off, k_off, causal, scale)
+        if timed and name in CHUNK_TIMED and (bh, sq, sk) == (4, 2048, 2048):
+            timing[f"{name}_d{d}"] = (q, k, v, state, q_off, k_off, causal,
+                                      scale)
     if not timed:
         return None, checks
-    return chunk_times(torch, fa, timing, checks), checks
+    from elasticdl_tpu_torch.ops import _build
+
+    ptxas = kernel_ptxas(
+        _build.build_all([fa._CHUNK_SOURCE])[fa._CHUNK_SOURCE],
+        "flash_chunk_")
+    for line in ptxas:
+        print(f"chunk ptxas: {line}", flush=True)
+    row = chunk_times(torch, fa, lib, timing, checks)
+    row["ptxas"] = ptxas
+    return row, checks
 
 
-def chunk_times(torch, fa, timing, checks):
-    """Kernel #2 at the slice's shape (a past and a diagonal chunk)
-    through its C entry point (these launches are not counted), against
-    the plain version and the bound."""
-    lib = fa._chunk_library()
+def sdpa_forward(torch, q, k, v, causal, heads):
+    """SDPA's flash forward op with its logsumexp on (B, H, S, D) views
+    of (BH, S, D) inputs: the chunk's two products and softmax without
+    the carry, a yardstick for #2."""
+    b = q.shape[0] // heads
+    q4, k4, v4 = (x.view(b, heads, *x.shape[1:]) for x in (q, k, v))
+    scale = q.shape[-1] ** -0.5
+    return lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+        q4, k4, v4, 0.0, causal, False, scale=scale)
+
+
+def chunk_times(torch, fa, lib, timing, checks):
+    """Kernel #2 at the slice's shape (past and diagonal chunks, D 128 and
+    64) through its C entry point (these launches are not counted):
+    device ms from a CUDA graph of 50 launches, beside the event windows
+    of 50 calls and the host's issue time, the plain version, the bound
+    and the yardstick (SDPA's forward over the same chunk: non-causal for
+    a past chunk, causal for the diagonal)."""
     out = {}
-    for name, (q, k, v, state, q_off, k_off, causal, scale) in \
+    for key, (q, k, v, state, q_off, k_off, causal, scale) in \
             timing.items():
         bh, sq, d = q.shape
         outs = [torch.empty_like(t) for t in state]
-        ptrs = [t.data_ptr() for t in (q, k, v, *state, *outs)]
 
         def launch():
-            err = lib.edl_flash_chunk_update(
-                *ptrs, bh, sq, k.shape[1], d, 1, q_off, k_off, scale,
-                int(causal), torch.cuda.current_stream().cuda_stream)
+            err = fa._chunk_launch(lib, (q, k, v, *state), outs, q_off,
+                                   k_off, causal, scale)
             check(err == 0, f"chunk launch: CUDA error {err}")
 
-        device_ms, issue_ms = cuda_windows(launch, 50, 5)
+        replays = graph_ms(torch, launch)
+        window_ms, issue_ms = cuda_windows(launch, 50, 5)
         bound_ms, bound_by = chunk_bound(bh, sq, k.shape[1], d, "bfloat16",
                                          causal, q_off, k_off)
-        out[name] = {
-            "ms": float(np.median(device_ms)), "ms_windows": device_ms,
+        lib_causal = causal and q_off == k_off
+        yardstick = graph_ms(torch, sdpa_forward(
+            torch, q, k, v, lib_causal, FLAGSHIP["n_heads"]))
+        out[key] = {
+            "shape": [bh, sq, k.shape[1], d], "q_offset": q_off,
+            "k_offset": k_off,
+            "ms": float(np.median(replays)), "ms_replays": replays,
+            "window_ms": float(np.median(window_ms)),
             "issue_ms": float(np.median(issue_ms)),
             "plain_ms": cuda_ms(lambda: fa.flash_chunk_update_reference(
                 q, k, v, *state, q_off, k_off, causal, scale), iters=5),
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "yardstick_ms": float(np.median(yardstick)),
+            "yardstick_causal": lib_causal,
             "pairs": unmasked_pairs(sq, k.shape[1], q_off, k_off, causal),
         }
-    past = out["past"]
+    past = out["past_d128"]
     return {
         "name": "flash_chunk_update", "route": "cuda",
         "source": "elasticdl_tpu_torch/ops/csrc/flash_chunk_update.cu",
         "replaces": "elasticdl_tpu/ops/flash_attention.py:277",
-        "shape": [4, 2048, 2048, 128], "dtype": "bfloat16",
+        "shape": past["shape"], "dtype": "bfloat16",
         "chunk": "past (the ring's step t > 0), folded carry",
         "max_abs_err": max(max(c[o]["max_abs_err"] for o in ("m", "l",
                                                             "acc"))
                            for c in checks),
-        "ms": past["ms"], "plain_ms": past["plain_ms"],
+        "ms": past["ms"], "ms_replays": past["ms_replays"],
+        "ms_source": "CUDA graph of 50 launches, replayed, CUDA events",
+        "window_ms": past["window_ms"], "issue_ms": past["issue_ms"],
+        "plain_ms": past["plain_ms"],
         "bound_ms": past["bound_ms"], "bound_by": past["bound_by"],
         "library_ms": None,
         "library_call": "none: no PyTorch call carries (m, l, acc)",
+        "yardstick_ms": past["yardstick_ms"],
+        "yardstick": "SDPA's flash forward with logsumexp over the same "
+                     "chunk (non-causal past, causal diagonal), device "
+                     "time the same way: the chunk's products without "
+                     "the carry fold, not the same function",
         "chunks": out,
     }
 
@@ -2336,10 +2425,11 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
-        "--phase", choices=("all", "fwd", "bwd"), default="all",
+        "--phase", choices=("all", "fwd", "bwd", "chunk"), default="all",
         help="fwd: build flash_attention_fwd.cu alone, then run kernel "
              "#1's checks and times and print its kernels row; bwd: the "
-             "same for flash_attention_bwd.cu (#3 and #4)")
+             "same for flash_attention_bwd.cu (#3 and #4); chunk: the "
+             "same for flash_chunk_update.cu (#2)")
     args = parser.parse_args(argv)
     import torch
 
@@ -2359,7 +2449,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.monotonic()
-    alone = {"fwd": [fa._SOURCE], "bwd": [fa._BWD_SOURCE]}
+    alone = {"fwd": [fa._SOURCE], "bwd": [fa._BWD_SOURCE],
+             "chunk": [fa._CHUNK_SOURCE]}
     logs = _build.build_all(alone.get(args.phase))
     print(f"built {sorted(logs)} in {time.monotonic() - t0:.1f}s",
           flush=True)
@@ -2370,6 +2461,10 @@ def main(argv=None) -> int:
     if args.phase == "bwd":
         bwd_rows, _ = bwd_kernel_phase(torch, fa)
         print(json.dumps({"kernels": bwd_rows}))
+        return 0
+    if args.phase == "chunk":
+        chunk_row, _ = chunk_kernel_phase(torch, fa)
+        print(json.dumps({"kernels": [chunk_row]}))
         return 0
     kernel, _ = kernel_phase(torch, fa)
     if args.phase == "fwd":

@@ -10,7 +10,10 @@ Port of elasticdl_tpu/ops/flash_attention.py:
   ``_dkv_kernel``, here ``flash_chunk_grads`` over the two kernels of
   ``csrc/flash_attention_bwd.cu``;
 - the ring's chunk step: ``flash_chunk_update`` → ``_chunk_kernel``,
-  here ``flash_chunk_update`` over ``csrc/flash_chunk_update.cu``.
+  here ``flash_chunk_update`` over ``csrc/flash_chunk_update.cu`` (a
+  wgmma kernel with two consumer warpgroups for bf16 head dims 64 and
+  128, an mma.sync one for 16 and 32; ``chunk_block_k`` and
+  ``chunk_consumers`` give the order each one folds the keys in).
 
 The kernels are built by ``_build`` at first use and called through
 ``ctypes``. Beside each wrapper is the plain PyTorch version with the
@@ -69,6 +72,24 @@ def forward_block_k(head_dim: int, dtype) -> int:
     if dtype == torch.bfloat16 and head_dim >= 64:
         return 128
     return 64
+
+
+def chunk_block_k(head_dim: int, dtype) -> int:
+    """The key-tile width over which the chunk-update kernel folds a
+    chunk: 64 on every route (csrc/flash_chunk_update.cu)."""
+    del head_dim, dtype
+    return 64
+
+
+def chunk_consumers(head_dim: int, dtype) -> int:
+    """How many running states the chunk-update kernel folds the key
+    tiles into: 2 where bf16 head dims 64 and 128 take the wgmma kernel
+    (even tiles into the carry, odd ones into an empty state, merged at
+    the end; the dispatch by head dim in csrc/flash_chunk_update.cu), 1
+    (every tile into the carry, in turn) on the others."""
+    if dtype == torch.bfloat16 and head_dim >= 64:
+        return 2
+    return 1
 
 
 def flash_forward_reference(q, k, v, causal: bool = True,
@@ -348,12 +369,35 @@ def flash_chunk_grads(q, k, v, do, lse, delta, q_offset: int = 0,
 
 def flash_chunk_update_reference(q, k, v, m, l, acc, q_offset: int = 0,
                                  k_offset: int = 0, causal: bool = True,
-                                 scale: Optional[float] = None):
-    """Plain version of ``flash_chunk_update``: the whole (Sq, Sk) score
-    matrix in f32, the same rounding points (p cast to v's dtype before
-    PV). Returns the updated (m, l, acc), f32."""
+                                 scale: Optional[float] = None,
+                                 block_k: Optional[int] = None,
+                                 consumers: int = 1):
+    """Plain version of ``flash_chunk_update``: the same rounding points
+    (p cast to v's dtype before PV). Returns the updated (m, l, acc), f32.
+
+    ``block_k=None`` takes the whole (Sq, Sk) score matrix in f32. An int
+    folds key tiles of that width in the kernel's order, so that p is
+    rounded against the same running maxima: with ``consumers=1`` every
+    tile into the carry in turn; with ``consumers=2`` the even tiles into
+    the carry and the odd ones into an empty state (m -1e30, l 0, acc
+    0), then the two merged as the wgmma kernel merges them
+    (``chunk_block_k`` and ``chunk_consumers`` name each route's)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if block_k is not None:
+        states = [(m, l, acc), (torch.full_like(m, _NEG_INF),
+                                torch.zeros_like(l), torch.zeros_like(acc))]
+        for i, lo in enumerate(range(0, k.shape[1], block_k)):
+            c = i % consumers
+            states[c] = flash_chunk_update_reference(
+                q, k[:, lo:lo + block_k], v[:, lo:lo + block_k], *states[c],
+                q_offset, k_offset + lo, causal, scale)
+        if consumers == 1:
+            return states[0]
+        (m0, l0, acc0), (m1, l1, acc1) = states
+        m_new = torch.maximum(m0, m1)
+        a0, a1 = torch.exp(m0 - m_new), torch.exp(m1 - m_new)
+        return m_new, l0 * a0 + l1 * a1, acc0 * a0 + acc1 * a1
     s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
     if causal:
         qpos = q_offset + torch.arange(q.shape[1], device=q.device)
@@ -404,19 +448,38 @@ def _check_chunk(q, k, v, m, l, acc):
         raise ValueError("flash_chunk_update: inputs must be contiguous")
 
 
+def _bind_chunk(lib):
+    """Set the ctypes signature of a flash_chunk_update.cu build."""
+    fn = lib.edl_flash_chunk_update
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    lib.edl_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.edl_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _chunk_library():
     from elasticdl_tpu_torch.ops import _build
 
     lib = _build.load(_CHUNK_SOURCE)
-    fn = lib.edl_flash_chunk_update
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        lib.edl_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.edl_cuda_error_string.restype = ctypes.c_char_p
+    if lib.edl_flash_chunk_update.argtypes is None:
+        _bind_chunk(lib)
     return lib
+
+
+def _chunk_launch(lib, inputs, outputs, q_offset, k_offset, causal, scale):
+    """One launch of the chunk-update kernel of ``lib`` on the current
+    stream, through its C entry point, not counted; inputs = (q, k, v, m,
+    l, acc), outputs = (m, l, acc), which may be the inputs' own carry.
+    Returns the CUDA error code."""
+    q, k = inputs[0], inputs[1]
+    bh, sq, d = q.shape
+    return lib.edl_flash_chunk_update(
+        *(t.data_ptr() for t in (*inputs, *outputs)), bh, sq, k.shape[1], d,
+        _DTYPE_CODES[q.dtype], int(q_offset), int(k_offset), float(scale),
+        int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def flash_chunk_update_cuda(q, k, v, m, l, acc, q_offset: int,
@@ -428,15 +491,10 @@ def flash_chunk_update_cuda(q, k, v, m, l, acc, q_offset: int,
     if q.device.type != "cuda":
         raise ValueError(f"flash_chunk_update_cuda: tensors on {q.device}")
     lib = _chunk_library()
-    bh, sq, d = q.shape
     outs = (torch.empty_like(m), torch.empty_like(l), torch.empty_like(acc))
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.edl_flash_chunk_update(
-            *(t.data_ptr() for t in (q, k, v, m, l, acc, *outs)),
-            bh, sq, k.shape[1], d, _DTYPE_CODES[q.dtype], int(q_offset),
-            int(k_offset), float(scale), int(bool(causal)), stream,
-        )
+        err = _chunk_launch(lib, (q, k, v, m, l, acc), outs, q_offset,
+                            k_offset, causal, scale)
     if err != 0:
         raise RuntimeError(
             "flash chunk-update kernel launch failed: CUDA error "

@@ -4,23 +4,40 @@
     python -m elasticdl_tpu_torch.tools.chunk_kernel_mutants
 
 For the sound source and for each mutant below, copies the repository
-into a temporary directory, edits ``flash_chunk_update.cu`` there (the
-bf16 kernel, the one the ring runs), builds it and runs
-``chip_smoke.chunk_kernel_phase`` with a check that records instead of
-raising, then ``chip_smoke.ring_check_phase`` (the ring, which runs the
-kernel, against #1/#3/#4 on the whole sequence) the same way. Prints
-one JSON line per source: the chunk cases that failed, with their
-readings (elem and relative L2 of m, l and acc), and every ring case's
-readings (elem and L2 of out, dq, dk, dv, and whether it kept
-chip_smoke.RING_TOL). Exits non-zero if the sound source fails a case
-or a mutant fails no chunk case. The checkout itself is never edited.
+into a temporary directory, edits ``flash_chunk_update.cu`` there, builds
+it and runs ``chip_smoke.chunk_kernel_phase`` with a check that records
+instead of raising, then ``chip_smoke.ring_check_phase`` (the ring, which
+runs the kernel, against #1/#3/#4 on the whole sequence) the same way,
+four copies at a time. Prints one JSON line per source: the chunk cases
+that failed, with their readings (elem and relative L2 of m, l and acc,
+and whether the C entry's NaN-filled and aliased launches were
+bit-equal to the wrapper's), and every ring case's readings (elem and L2
+of out, dq, dk, dv, and whether it kept chip_smoke.RING_TOL). A run that
+dies (a CUDA fault) counts as failing every case. Exits non-zero if the
+sound source fails a case or a ring case, or a mutant fails no chunk
+case. The checkout itself is never edited.
 
-Mutants:
+``MUTANTS`` edit the mma.sync kernel (bf16 D 16 and 32):
 - ``p_not_zeroed``: masked probabilities left to underflow (a row whose
   keys are all masked while its m is -1e30 then adds exp(0) = 1);
 - ``alpha_dropped``: the accumulator not rescaled when the max grows;
 - ``carry_ignored``: (m, l, acc) initialised instead of read;
 - ``k_offset_ignored``: the chunk's keys taken to start at position 0.
+
+``WGMMA_MUTANTS`` edit the wgmma kernel (bf16 D 64 and 128):
+- ``wgmma_p_not_zeroed``, ``wgmma_alpha_dropped``,
+  ``wgmma_carry_ignored``, ``wgmma_k_offset_ignored``: as above;
+- ``wgmma_second_state_dropped``: the merge takes consumer 0's state
+  alone (consumer 1's m read as -1e30);
+- ``wgmma_second_acc_unscaled``: consumer 1's acc added without its
+  factor 2^(m1 - m);
+- ``wgmma_slot_off_by_one``: the products read K and V from another ring
+  slot than the one filled for this key tile;
+- ``wgmma_last_tile_dropped``: the key-tile count is one short;
+- ``wgmma_ragged_keys_unmasked``: keys past Sk (zero-filled rows, whose
+  scores are 0) not masked;
+- ``wgmma_no_key_tile_uncopied``: a q tile that no key reaches returns
+  without copying its carry to the outputs.
 """
 
 import json
@@ -29,6 +46,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -36,7 +54,7 @@ SOURCE = os.path.join("elasticdl_tpu_torch", "ops", "csrc",
                       "flash_chunk_update.cu")
 
 # name -> [(text of the sound source, replacement)]; each text must occur,
-# and only its first occurrence (the bf16 kernel's) is replaced.
+# and only its first occurrence (the mma.sync kernel's) is replaced.
 MUTANTS = {
     "p_not_zeroed": [(
         "        if (masked_tile && key_masked(qpos, kl, k_offset, sk, "
@@ -59,6 +77,50 @@ MUTANTS = {
         "  const int q_start = q_offset + q_local;\n  k_offset = 0;\n")],
 }
 
+# The same for the wgmma kernel; each text occurs once in the sound
+# source, inside flash_chunk_wgmma_kernel
+# (tests/test_torch_flash_attention.py).
+WGMMA_MUTANTS = {
+    "wgmma_p_not_zeroed": [(
+        "        if ((dead >> (4 * j + e)) & 1u) p = 0.f;\n", "")],
+    "wgmma_alpha_dropped": [(
+        "      acc[4 * j] *= alpha0;\n      acc[4 * j + 1] *= alpha0;\n"
+        "      acc[4 * j + 2] *= alpha1;\n      acc[4 * j + 3] *= alpha1;\n",
+        "")],
+    "wgmma_carry_ignored": [(
+        "  if (wg == 0) {\n    if (in0) {\n",
+        "  if (false) {\n    if (in0) {\n")],
+    "wgmma_k_offset_ignored": [(
+        "  const int q_start = q_tile * kBlock;  // local position of the "
+        "tile's row 0\n",
+        "  const int q_start = q_tile * kBlock;\n  k_offset = 0;\n")],
+    "wgmma_second_state_dropped": [(
+        "    const float om0 = other[kOut * 128 + tid];\n"
+        "    const float om1 = other[(kOut + 1) * 128 + tid];\n",
+        "    const float om0 = kNegInfLog2;\n"
+        "    const float om1 = kNegInfLog2;\n")],
+    "wgmma_second_acc_unscaled": [(
+        "other[i * 128 + tid] * (hi ? b1 : b0);\n",
+        "other[i * 128 + tid];\n")],
+    "wgmma_slot_off_by_one": [(
+        "    const uint32_t k_tile = base + L::ring + slot * L::slot;\n",
+        "    const uint32_t k_tile =\n"
+        "        base + L::ring + ((slot + 1) % kSlots) * L::slot;\n")],
+    "wgmma_last_tile_dropped": [(
+        "  const int count = chunk_num_tiles(q_offset + q_start, k_offset, "
+        "sk, causal);\n",
+        "  const int count =\n      chunk_num_tiles(q_offset + q_start, "
+        "k_offset, sk, causal) - 1;\n")],
+    "wgmma_ragged_keys_unmasked": [(
+        "          if (kl >= sk || (causal && (e < 2 ? gq0 : gq1) < "
+        "k_offset + kl)) {\n",
+        "          if (false || (causal && (e < 2 ? gq0 : gq1) < "
+        "k_offset + kl)) {\n")],
+    "wgmma_no_key_tile_uncopied": [(
+        "    copy_carry<D>(m_in, l_in, acc_in, m_out, l_out, acc_out, "
+        "rows_at,\n                  tile_rows(q_start, sq));\n", "")],
+}
+
 RUNNER = """
 import json, sys
 sys.path.insert(0, ".")
@@ -67,21 +129,17 @@ import chip_smoke
 from elasticdl_tpu_torch.ops import flash_attention as fa
 from elasticdl_tpu_torch.ops import ring_attention as ra
 
-failed = set()
-def record(cond, message):
-    if not cond:
-        failed.add(message.split(" outside")[0].split(":")[0])
-_, checks = chip_smoke.chunk_kernel_phase(torch, fa, check=record,
+torch.backends.cuda.matmul.allow_tf32 = False
+_, checks = chip_smoke.chunk_kernel_phase(torch, fa, check=lambda c, m: None,
                                           timed=False)
-out = []
-for c in checks:
-    label = "chunk kernel {}/{}/D{}/{}".format(
-        c["case"], c["dtype"], c["shape"][3], c["carry"])
-    if label in failed:
-        out.append({"case": label[len("chunk kernel "):], **{
-            o: {"elem": c[o]["elem"], "l2": c[o]["l2"]}
-            for o in ("m", "l", "acc")}})
-print("FAILED", json.dumps(out))
+print("FAILED", json.dumps([
+    {"case": "{}/{}/D{}/{}".format(c["case"], c["dtype"], c["shape"][3],
+                                   c["carry"]),
+     "c_entry_bit_equal": c["c_entry_bit_equal"],
+     "aliased_bit_equal": c["aliased_bit_equal"],
+     **{o: {"elem": c[o]["elem"], "l2": c[o]["l2"]}
+        for o in ("m", "l", "acc")}}
+    for c in checks if not c["ok"]]))
 ring, _ = chip_smoke.ring_check_phase(torch, fa, ra,
                                       check=lambda c, m: None, timed=False)
 names = ("out", "dq", "dk", "dv")
@@ -102,7 +160,8 @@ def mutate(source: str, edits) -> str:
 
 
 def run(name: str, edits):
-    """(the chunk cases the source fails, its ring readings)."""
+    """(the chunk cases the source fails, its ring readings), or (the
+    tail of the output of a run that died, None)."""
     with tempfile.TemporaryDirectory() as tmp:
         copy = os.path.join(tmp, "repo")
         shutil.copytree(REPO, copy, ignore=shutil.ignore_patterns(
@@ -113,28 +172,38 @@ def run(name: str, edits):
             text = f.read()
         with open(path, "w") as f:
             f.write(mutate(text, edits))
-        proc = subprocess.run([sys.executable, "-c", RUNNER], cwd=copy,
-                              capture_output=True, text=True)
+        try:
+            proc = subprocess.run([sys.executable, "-c", RUNNER], cwd=copy,
+                                  capture_output=True, text=True,
+                                  timeout=600)
+        except subprocess.TimeoutExpired as exc:
+            return f"timed out after {exc.timeout} s", None
     found = {}
     for line in proc.stdout.splitlines():
         tag, _, rest = line.partition(" ")
         if tag in ("FAILED", "RING"):
             found[tag] = json.loads(rest)
-    if proc.returncode != 0 or len(found) < 2:
-        raise RuntimeError(f"{name}: the check run failed\n"
-                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
-    return found["FAILED"], found["RING"]
+    if proc.returncode != 0 or "FAILED" not in found:
+        return f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}", None
+    return found["FAILED"], found.get("RING")
 
 
 def main() -> int:
+    sources = [("sound", [])] + list(MUTANTS.items()) + list(
+        WGMMA_MUTANTS.items())
+    with ThreadPoolExecutor(4) as pool:
+        results = list(pool.map(lambda item: run(*item), sources))
     bad = []
-    for name, edits in [("sound", [])] + list(MUTANTS.items()):
-        failed, ring = run(name, edits)
-        print(json.dumps({"source": name, "failed_cases": failed,
-                          "ring": ring}), flush=True)
-        if name == "sound" and not all(case["ok"] for case in ring):
-            bad.append(name)
-        elif (name == "sound") == bool(failed):
+    for (name, _), (failed, ring) in zip(sources, results):
+        died = isinstance(failed, str)
+        print(json.dumps({"source": name, "died": died,
+                          "failed_cases": failed, "ring": ring}),
+              flush=True)
+        if name == "sound":
+            if died or failed or ring is None \
+                    or not all(case["ok"] for case in ring):
+                bad.append(name)
+        elif not died and not failed:
             bad.append(name)
     if bad:
         print(f"chunk_kernel_mutants: not separated: {bad}",

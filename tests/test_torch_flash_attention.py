@@ -502,6 +502,21 @@ def test_chunk_mutant_texts_land_in_the_bf16_kernel(name):
     assert chunk_kernel_mutants.mutate(source, edits) != source
 
 
+@pytest.mark.parametrize("name", sorted(chunk_kernel_mutants.WGMMA_MUTANTS))
+def test_chunk_wgmma_mutant_texts_land_in_the_wgmma_kernel(name):
+    """Each edit's text occurs once in the sound source, inside the wgmma
+    kernel (bf16 D 64 and 128)."""
+    with open(os.path.join(CSRC, "flash_chunk_update.cu")) as f:
+        source = f.read()
+    start, end = _kernel_span(source, "flash_chunk_wgmma_kernel")
+    for old, new in chunk_kernel_mutants.WGMMA_MUTANTS[name]:
+        assert old != new
+        assert source.count(old) == 1, (name, old)
+        assert start < source.find(old) < end, (name, old)
+    assert chunk_kernel_mutants.mutate(
+        source, chunk_kernel_mutants.WGMMA_MUTANTS[name]) != source
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_tiled_plain_at_the_flagship_shape():
     """B 8 x H 4 x S 1024 x D 128, causal, bf16: the wgmma kernel against

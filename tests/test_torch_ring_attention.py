@@ -12,12 +12,18 @@ chip_smoke.py.
 
 Tolerances:
 - chunk update, f32: |got - want| <= 2e-5 * (1 + |want|) for m, l and
-  acc (f32 sums over at most 37 keys in another order). JAX's default
-  blocks take a whole small chunk as one tile, so both sides take p
-  against the same maximum; bf16 rounds p once on both sides, and an
-  exp that differs in the last f32 bit can flip that rounding: acc at
-  2e-2 * max(1, |want|), as the flash forward's bf16 test; m exact in
-  the maximum's inputs (2e-5), l at 1e-4 relative.
+  acc (f32 sums over at most 37 keys in another order), for the
+  whole-chunk plain version and for the one folded in the wgmma
+  kernel's order (key tiles of 8 or 64, two running states merged).
+  JAX's default blocks take a whole small chunk as one tile, so both
+  sides take p against the same maximum; bf16 rounds p once on both
+  sides, and an exp that differs in the last f32 bit can flip that
+  rounding: acc at 2e-2 * max(1, |want|), as the flash forward's bf16
+  test; m exact in the maximum's inputs (2e-5), l at 1e-4 relative.
+- chunk update, bf16, folded in the kernel's order against the whole
+  chunk: p rounded against other maxima, held to chip_smoke.py's
+  CHUNK_WHOLE_TOL (elem 6e-2, L2 5e-3; elem = max |g - w| / (|w| +
+  median|w|)).
 - rings, f32 (values 2e-5, gradients rtol 2e-4 / atol 2e-5): the JAX
   ring tests' own tolerances (tests/test_ring_attention.py).
 """
@@ -89,11 +95,10 @@ def _initial(bh, sq, d):
             np.zeros((bh, sq, d), np.float32))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("carry", ["initial", "folded"])
-@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
-def test_chunk_update_reference_matches_jax(case, carry, dtype):
-    sq, sk, q_off, k_off, causal = CHUNK_CASES[case]
+def _chunk_inputs(case, carry):
+    """The chunk-update test's inputs for a CHUNK_CASES entry, as numpy
+    (q, k, v) and carry (m, l, acc)."""
+    sq, sk, q_off, _, _ = CHUNK_CASES[case]
     bh, d = 4, 16
     rng = np.random.default_rng(sq + sk + q_off)
     q = rng.standard_normal((bh, sq, d), dtype=np.float32)
@@ -101,6 +106,15 @@ def test_chunk_update_reference_matches_jax(case, carry, dtype):
             for _ in range(2))
     state = (_initial(bh, sq, d) if carry == "initial"
              else _carry(bh, sq, d, seed=sk))
+    return (q, k, v), state
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("carry", ["initial", "folded"])
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_chunk_update_reference_matches_jax(case, carry, dtype):
+    sq, sk, q_off, k_off, causal = CHUNK_CASES[case]
+    (q, k, v), state = _chunk_inputs(case, carry)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     want = jfa.flash_chunk_update(
         *(jnp.asarray(x, jdt) for x in (q, k, v)),
@@ -129,6 +143,81 @@ def test_chunk_update_reference_matches_jax(case, carry, dtype):
         assert np.all(_np(got[0])[:, :4] == NEG)
         assert not np.any(_np(got[1])[:, :4])
         assert not np.any(_np(got[2])[:, :4])
+
+
+@pytest.mark.parametrize("block_k", [8, 64])
+@pytest.mark.parametrize("carry", ["initial", "folded"])
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_chunk_update_tiled_reference_matches_jax(case, carry, block_k):
+    """The plain version folded in the wgmma kernel's order (even key
+    tiles into the carry, odd ones into an empty state, merged) against
+    JAX's kernel in interpret mode, f32."""
+    _, _, q_off, k_off, causal = CHUNK_CASES[case]
+    qkv, state = _chunk_inputs(case, carry)
+    want = jfa.flash_chunk_update(
+        *(jnp.asarray(x) for x in qkv + state), q_off, k_off,
+        causal=causal, interpret=True)
+    got = tfa.flash_chunk_update_reference(
+        *(torch.from_numpy(x) for x in qkv + state), q_off, k_off, causal,
+        block_k=block_k, consumers=2)
+    for name, g, w in zip(("m", "l", "acc"), got, want):
+        g, w = _np(g), np.asarray(w)
+        assert np.all(np.abs(g - w) <= 2e-5 * (1 + np.abs(w))), (
+            name, np.abs(g - w).max())
+
+
+@pytest.mark.parametrize("carry", ["initial", "folded"])
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_chunk_update_tiled_reference_bf16_near_whole(case, carry):
+    """bf16: the plain version folded over 8-key tiles into two merged
+    states (p rounded against their running maxima) stays within
+    CHUNK_WHOLE_TOL of the whole-chunk one."""
+    _, _, q_off, k_off, causal = CHUNK_CASES[case]
+    qkv, state = _chunk_inputs(case, carry)
+    args = [torch.from_numpy(x).to(torch.bfloat16) for x in qkv] + [
+        torch.from_numpy(x) for x in state]
+    got = tfa.flash_chunk_update_reference(*args, q_off, k_off, causal,
+                                           block_k=8, consumers=2)
+    want = tfa.flash_chunk_update_reference(*args, q_off, k_off, causal)
+    for name, g, w in zip(("m", "l", "acc"), got, want):
+        g, w = _np(g).astype(np.float64), _np(w).astype(np.float64)
+        # Rows that saw no key keep m -1e30, l 0 and acc 0 exactly.
+        seen = (np.abs(w) < 1e29) & (w != 0)
+        assert np.array_equal(g[~seen], w[~seen]), name
+        if seen.any():
+            err = np.abs(g - w)[seen]
+            floor = np.median(np.abs(w[seen]))
+            elem = (err / (np.abs(w[seen]) + floor)).max()
+            l2 = np.linalg.norm(err) / np.linalg.norm(w[seen])
+            assert elem <= 6e-2 and l2 <= 5e-3, (name, elem, l2)
+
+
+@pytest.mark.parametrize("block_k", [8, 64])
+@pytest.mark.parametrize("carry", ["initial", "folded"])
+def test_chunk_with_nothing_to_fold_returns_its_carry(carry, block_k):
+    """A wholly future chunk through the two merged states: the carry
+    comes back bit for bit (the empty state merges to nothing)."""
+    _, _, q_off, k_off, causal = CHUNK_CASES["future"]
+    qkv, state = _chunk_inputs("future", carry)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = tfa.flash_chunk_update_reference(
+            *(torch.from_numpy(x).to(dtype) for x in qkv),
+            *(torch.from_numpy(x) for x in state), q_off, k_off, causal,
+            block_k=block_k, consumers=2)
+        for g, s in zip(got, state):
+            np.testing.assert_array_equal(_np(g), s)
+
+
+@pytest.mark.parametrize("d,dtype,consumers", [
+    (128, torch.bfloat16, 2), (64, torch.bfloat16, 2),
+    (32, torch.bfloat16, 1), (16, torch.bfloat16, 1),
+    (128, torch.float32, 1), (64, torch.float32, 1),
+])
+def test_chunk_fold_order_follows_the_kernel_route(d, dtype, consumers):
+    """bf16 D 64 and 128 take the wgmma kernel (two states); the others
+    fold every 64-key tile into the carry in turn."""
+    assert tfa.chunk_block_k(d, dtype) == 64
+    assert tfa.chunk_consumers(d, dtype) == consumers
 
 
 def test_chunk_update_folds_like_one_pass():
@@ -361,6 +450,29 @@ def test_cuda_chunk_kernel_matches_plain(case, dtype):
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     for g, w in zip(got, want):
         assert bool(((g - w).abs() <= tol * (1 + w.abs())).all())
+
+
+@pytest.mark.cuda
+def test_cuda_chunk_kernel_matches_plain_at_the_ring_past_chunk():
+    """BH 4 x 2048 x 2048, D 128, bf16, a past chunk (q_offset 4096) with
+    a folded carry: the wgmma kernel against the plain version folded in
+    its own order, at chip_smoke.py's CHUNK_TOL (elem 3e-2, L2 2e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    q, k, v = (torch.from_numpy(x).to("cuda", torch.bfloat16)
+               for x in _qkv((4, 2048, 128), seed=6, scale=1.0))
+    state = [torch.from_numpy(x).cuda() for x in _carry(4, 2048, 128, 7)]
+    got = tfa.flash_chunk_update(q, k, v, *state, 4096, 0, True)
+    torch.cuda.synchronize()
+    want = tfa.flash_chunk_update_reference(
+        q, k, v, *state, 4096, 0, True,
+        block_k=tfa.chunk_block_k(128, torch.bfloat16),
+        consumers=tfa.chunk_consumers(128, torch.bfloat16))
+    for g, w in zip(got, want):
+        err = (g - w).abs()
+        floor = w.abs().median()
+        assert (err / (w.abs() + floor)).max().item() <= 3e-2
+        assert (err.norm() / w.norm()).item() <= 2e-4
 
 
 @pytest.mark.cuda
