@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase fwd    # kernel #1 alone: build, check, time
     python3 chip_smoke.py --phase bwd    # kernels #3 and #4 alone
     python3 chip_smoke.py --phase chunk  # kernel #2 alone
+    python3 chip_smoke.py --phase lookup # kernels #5 and #6 alone
 
 1. Prints the card (``nvidia-smi`` name and power limit) and versions.
 2. Builds every CUDA kernel of the port from ``elasticdl_tpu_torch/ops/csrc``.
@@ -76,7 +77,15 @@
    lookups (#6 ``lookup_combine``, #5 ``lookup_combine_aligned``) at the
    recsys step's shape (1M x 256, B 512, L 32) and at odd batches,
    widths 16 to 2000 (130: not a multiple of 4), zero-weight rows under
-   mean and sqrtn and ids outside the table; the row kernel (#7) under
+   mean and sqrtn and ids outside the table, and cases that reach #5's
+   ring and grid (ids outside the table on reused ring slots at L 96,
+   rows split into column strips at B 1 and 64, D 4, and a table viewed
+   at a 4-byte offset, #5's 4-byte instance; #5's lines name its
+   instance and ring), each launched again through its C entry point
+   into a NaN-filled output that must equal the wrapper's bit for bit
+   (``--phase lookup`` runs these cases alone, then times #5, #6,
+   ``embedding_bag`` and the bound at the sweep's four tiers, and prints
+   the two lookup kernels' rows); the row kernel (#7) under
    SGD, Momentum, Adagrad, Adam and AMSGrad and the fused one (#8, SGD
    and Momentum) at the step's 1M x 256 shape and at odd n, Adam at
    steps 1 and 7, Nesterov on and off, cases where eps matters, with
@@ -135,7 +144,8 @@
 17. Prints a ``serving``, a ``training``, a ``sparse_training``, a
    ``ring_training`` and a ``kernels`` JSON line (the four flash kernels
    and the four embedding kernels with their ms, plain ms, library ms,
-   bound ms and launches; the row kernels with a per-rule list) and,
+   bound ms and launches; #5 with its times at the sweep's tiers, the
+   row kernels with a per-rule list) and,
    last, ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero; without CUDA it
@@ -1622,59 +1632,112 @@ def emb_within(reading, tol):
     return (np.isfinite(reading["max_abs_err"]) and within(reading, tol))
 
 
-def lookup_checks(torch, pe, rng, gen):
-    """Both lookup kernels against the plain version: the recsys step's
-    shape and the edge cases (odd batches, widths 16-2000 with one not
-    a multiple of 4, zero-weight rows under mean and sqrtn, ids outside
-    the table)."""
-    cases = [  # (vocab, dim, batch, num_ids, combiner, weights)
-        (EMB_VOCAB, EMB_DIM, EMB_BATCH, EMB_IDS, "sum", "ones"),
-        (4096, 16, 37, 5, "mean", "zero_rows"),
-        (4096, 128, 37, 9, "sqrtn", "zero_rows"),
-        (4096, 256, 37, 32, "sqrtn", "random"),
-        (4096, 512, 64, 64, "sum", "random"),
-        (4096, 130, 37, 7, "mean", "zero_rows"),     # D % 4 != 0
-        (4096, 2000, 9, 3, "sqrtn", "random"),       # two column tiles
-        (4096, 64, 16, 6, "mean", "out_of_range"),
-    ]
+# Cases of lookup_checks: (vocab, dim, batch, num_ids, combiner, weights,
+# table). The first eight draw from the phase's generators; the rest,
+# appended to reach kernel #5's ring and grid, from their own (SEED + 21),
+# so the earlier cases' inputs and the row checks' after them stay as
+# they were: ids outside the table late in L 96 (past the ring's 32
+# slots, so they land on reused slots), B 1 and B 64 at D 256 (rows split
+# into column strips), D 4 (one 16-byte strip) and a table viewed at a
+# 4-byte offset (#5's 4-byte instance).
+LOOKUP_CASES = [
+    (EMB_VOCAB, EMB_DIM, EMB_BATCH, EMB_IDS, "sum", "ones", "plain"),
+    (4096, 16, 37, 5, "mean", "zero_rows", "plain"),
+    (4096, 128, 37, 9, "sqrtn", "zero_rows", "plain"),
+    (4096, 256, 37, 32, "sqrtn", "random", "plain"),
+    (4096, 512, 64, 64, "sum", "random", "plain"),
+    (4096, 130, 37, 7, "mean", "zero_rows", "plain"),     # D % 4 != 0
+    (4096, 2000, 9, 3, "sqrtn", "random", "plain"),       # two column tiles
+    (4096, 64, 16, 6, "mean", "out_of_range", "plain"),
+]
+LOOKUP_CASES_LATER = [
+    (4096, 256, 37, 96, "mean", "late_out_of_range", "plain"),
+    (4096, 256, 1, 32, "sqrtn", "random", "plain"),
+    (4096, 256, 64, 32, "sum", "random", "plain"),
+    (4096, 4, 37, 40, "mean", "zero_rows", "plain"),
+    (4096, 256, 37, 32, "sqrtn", "random", "offset4"),
+]
+
+
+def lookup_case_inputs(torch, rng, gen, case, tables):
+    """A case's table (kept in ``tables`` while the next case shares its
+    shape), ids and weights on the card."""
+    vocab, dim, batch, num_ids, _, kind, layout = case
+    key = (vocab, dim, layout)
+    if key not in tables:
+        tables.clear()
+        if layout == "offset4":      # a view 4 bytes into its storage
+            flat = torch.empty(vocab * dim + 1, device="cuda").uniform_(
+                -dim ** -0.5, dim ** -0.5, generator=gen)
+            tables[key] = flat[1:].view(vocab, dim)
+        else:
+            tables[key] = uniform_table(torch, vocab, dim, dim ** -0.5, gen)
+    ids = rng.integers(0, vocab, (batch, num_ids)).astype(np.int32)
+    w = (np.ones((batch, num_ids), np.float32) if kind == "ones"
+         else rng.random((batch, num_ids), dtype=np.float32))
+    if kind == "zero_rows":
+        w[::3] = 0.0
+        w[1, num_ids // 2:] = 0.0
+    if kind == "out_of_range":
+        ids[::2, 0] = vocab
+        ids[1::2, -1] = -1
+    if kind == "late_out_of_range":
+        ids[::2, 70] = vocab
+        ids[1::2, 90] = -1
+        ids[::5, -1] = vocab
+    return (tables[key], torch.from_numpy(ids).cuda(),
+            torch.from_numpy(w).cuda())
+
+
+def lookup_checks(torch, pe, rng, gen, check=check):
+    """Both lookup kernels against the plain version (``LOOKUP_CASES``
+    and ``LOOKUP_CASES_LATER``): the recsys step's shape and the edge
+    cases. Each kernel launches through its wrapper and again through
+    its C entry point into an output filled with NaN, which must equal
+    the wrapper's bit for bit (a strip left unstored shows); #5's lines
+    name its instance and ring (``pe.aligned_plan``)."""
+    lib = pe._lookup_library()
     checks = []
     tables = {}
-    for vocab, dim, batch, num_ids, combiner, kind in cases:
-        key = (vocab, dim)
-        if key not in tables:
-            tables = {key: uniform_table(torch, vocab, dim, dim ** -0.5,
-                                         gen)}
-        table = tables[key]
-        ids = rng.integers(0, vocab, (batch, num_ids)).astype(np.int32)
-        w = (np.ones((batch, num_ids), np.float32) if kind == "ones"
-             else rng.random((batch, num_ids), dtype=np.float32))
-        if kind == "zero_rows":
-            w[::3] = 0.0
-            w[1, num_ids // 2:] = 0.0
-        if kind == "out_of_range":
-            ids[::2, 0] = vocab
-            ids[1::2, -1] = -1
-        ids_t = torch.from_numpy(ids).cuda()
-        w_t = torch.from_numpy(w).cuda()
+    later = (np.random.default_rng(SEED + 21),
+             torch.Generator(device="cuda").manual_seed(SEED + 21))
+    for case in LOOKUP_CASES + LOOKUP_CASES_LATER:
+        vocab, dim, batch, num_ids, combiner, kind, layout = case
+        draw = (rng, gen) if case in LOOKUP_CASES else later
+        table, ids_t, w_t = lookup_case_inputs(torch, *draw, case, tables)
         want = pe.lookup_combine_reference(table, ids_t, w_t, combiner)
         for name, fn in (("lookup_combine", pe.lookup_combine_pallas),
                          ("lookup_combine_aligned",
                           pe.lookup_combine_aligned)):
+            aligned = name == "lookup_combine_aligned"
             got = fn(table, ids_t, w_t, combiner)
+            nan_out = torch.full_like(got, float("nan"))
+            err = pe._lookup_launch(lib, aligned, table, ids_t, w_t,
+                                    nan_out, combiner)
+            check(err == 0, f"{name} C entry: CUDA error {err}")
             torch.cuda.synchronize()
             reading = grad_readings(got, want)
             res = {"kernel": name, "vocab": vocab, "dim": dim,
                    "batch": batch, "num_ids": num_ids,
-                   "combiner": combiner, "weights": kind, **reading,
-                   "tol": EMB_TOL["lookup"]}
+                   "combiner": combiner, "weights": kind,
+                   "table_layout": layout,
+                   **reading, "tol": EMB_TOL["lookup"],
+                   "c_entry_bit_equal": torch.equal(
+                       nan_out.view(torch.int32), got.view(torch.int32))}
+            if aligned:
+                res["plan"] = pe.aligned_plan(table, ids_t, got)
+            res["ok"] = (bool(torch.isfinite(got).all())
+                         and emb_within(reading, EMB_TOL["lookup"])
+                         and res["c_entry_bit_equal"])
             print("embedding kernel check", json.dumps(res), flush=True)
             check(bool(torch.isfinite(got).all()), f"non-finite {res}")
             check(emb_within(reading, EMB_TOL["lookup"]),
                   f"{name} outside tolerance {res}")
+            check(res["c_entry_bit_equal"],
+                  f"{name}: the C entry's launch differs {res}")
             checks.append(res)
     try:
-        pe.lookup_combine_aligned(tables[(4096, 64)][:4095],
-                                  ids_t, w_t, "mean")
+        pe.lookup_combine_aligned(table[:4095], ids_t, w_t, "mean")
         check(False, "aligned lookup took a vocab that is not a multiple "
                      "of 8")
     except ValueError:
@@ -2081,6 +2144,29 @@ def fused_path_phase(torch, pe):
     return out
 
 
+def lookup_phase(torch, pe):
+    """Kernel #5 alone (``--phase lookup``): every lookup check case of
+    #5 and #6, then #5, #6, ``embedding_bag`` and the bound at the sweep
+    tool's four tiers (its inputs, from the same seed), and the two
+    lookup kernels' rows of the kernels line, launches counted over the
+    tiers."""
+    from elasticdl_tpu_torch.tools import bench_kernel_device_sweep as tool
+
+    checks = lookup_checks(
+        torch, pe, np.random.default_rng(SEED + 20),
+        torch.Generator(device="cuda").manual_seed(SEED + 20))
+    pe.reset_launches()
+    tiers = tool.lookup_rows(
+        pe, torch.Generator(device="cuda").manual_seed(SEED), iters=20,
+        windows=5)
+    launches = {"lookup_combine": (pe.lookup_launches, "lookup tiers"),
+                "lookup_combine_aligned": (pe.aligned_launches,
+                                           "lookup tiers")}
+    lookup = lookup_times(
+        torch, pe, torch.Generator(device="cuda").manual_seed(SEED + 40))
+    return lookup_kernel_rows(checks, lookup, launches, tiers)
+
+
 def sweep_phase(torch, pe):
     """The ported sweep tool's tiers; the lookup tiers are the path on
     which kernel #5 runs (its launches are counted here)."""
@@ -2097,16 +2183,12 @@ def sweep_phase(torch, pe):
     return result, counts
 
 
-def embedding_times(torch, pe):
-    """Each embedding kernel at the recsys step's shape (B 512, L 32,
-    D 256 over 1M rows; the step's ~16,250 distinct ids), its plain
-    version, the library call or route, and the bound."""
-    from elasticdl_tpu_torch.embedding.optimizer import Adagrad, Momentum
-    from elasticdl_tpu_torch.embedding.optimizer import sparse_apply
+def lookup_times(torch, pe, gen):
+    """Both lookup kernels at the recsys step's shape (B 512, L 32, D 256
+    over 1M rows; the step's ~16,250 distinct ids), their plain version,
+    the library call and route, and the bound."""
     from elasticdl_tpu_torch.tools import bench_kernel_device_sweep as tool
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
-    rng = np.random.RandomState(SEED + 40)
     table = uniform_table(torch, EMB_VOCAB, EMB_DIM, EMB_DIM ** -0.5, gen)
     sets, distinct = tool.lookup_inputs(EMB_BATCH, EMB_IDS, EMB_DIM, gen)
 
@@ -2131,6 +2213,20 @@ def embedding_times(torch, pe):
     }
     del table, sets
     torch.cuda.empty_cache()
+    return lookup
+
+
+def embedding_times(torch, pe):
+    """Each embedding kernel at the recsys step's shape (``lookup_times``;
+    the row kernels at the step's 16,384 ids), its plain version, the
+    library call or route, and the bound."""
+    from elasticdl_tpu_torch.embedding.optimizer import Adagrad, Momentum
+    from elasticdl_tpu_torch.embedding.optimizer import sparse_apply
+    from elasticdl_tpu_torch.tools import bench_kernel_device_sweep as tool
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    rng = np.random.RandomState(SEED + 40)
+    lookup = lookup_times(torch, pe, gen)
     n = EMB_BATCH * EMB_IDS
     usets, real = tool.apply_inputs(n, EMB_DIM, rng)
 
@@ -2179,39 +2275,63 @@ def embedding_times(torch, pe):
     return lookup, rows
 
 
-def embedding_kernel_rows(checks, times, counts, sweep_counts):
-    """The kernels-line entries of the four embedding kernels."""
-    lookup, rows = times
-    source = "elasticdl_tpu_torch/ops/csrc/"
+def kernel_errors(checks):
+    """The largest error of each kernel's check cases."""
     err = {}
     for c in checks:
         reading = max(c.get(k, {}).get("max_abs_err", 0.0)
                       for k in ("table", "slot0", "slot1", "slot2")) \
             if "table" in c else c["max_abs_err"]
         err[c["kernel"]] = max(err.get(c["kernel"], 0.0), reading)
+    return err
+
+
+def lookup_kernel_rows(checks, lookup, launches, tiers):
+    """The kernels-line entries of the two lookup kernels; ``launches``
+    maps each to (count, the path it was counted on); ``tiers`` are the
+    sweep tool's lookup rows (#5's times at each tier)."""
+    err = kernel_errors(checks)
     bound_ms, bound_by = lookup["bound"]
     shape = {"vocab": EMB_VOCAB, "dim": EMB_DIM, "batch": EMB_BATCH,
              "num_ids": EMB_IDS, "combiner": "sum"}
     out = []
-    for name, replaces, launches, path in (
-            ("lookup_combine", "elasticdl_tpu/ops/pallas_embedding.py:286",
-             counts["lookup_combine"], "sparse training (train steps + "
-             "eval batches)"),
+    for name, replaces in (
+            ("lookup_combine", "elasticdl_tpu/ops/pallas_embedding.py:286"),
             ("lookup_combine_aligned",
-             "elasticdl_tpu/ops/pallas_embedding.py:242",
-             sweep_counts["lookup_combine_aligned"], "sparse sweep")):
-        out.append({
+             "elasticdl_tpu/ops/pallas_embedding.py:242")):
+        row = {
             "name": name, "route": "cuda",
-            "source": source + "embedding_lookup.cu", "replaces": replaces,
-            **shape, "distinct_rows": lookup["distinct_rows"],
-            "launches": launches, "launches_path": path,
+            "source": "elasticdl_tpu_torch/ops/csrc/embedding_lookup.cu",
+            "replaces": replaces, **shape,
+            "distinct_rows": lookup["distinct_rows"],
+            "launches": launches[name][0], "launches_path": launches[name][1],
             "max_abs_err": err[name], "ms": lookup[name],
             "plain_ms": lookup["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": lookup["library_ms"],
             "library_call": "torch.nn.functional.embedding_bag(mode='sum', "
                             "per_sample_weights)",
             "route_ms": lookup["route_ms"],
-        })
+        }
+        if name == "lookup_combine_aligned":
+            row["tiers"] = [
+                {k: t[k] for k in ("dim", "L", "batch", "aligned_ms",
+                                   "kernel_ms", "embedding_bag_ms",
+                                   "bound_ms", "aligned_plan")}
+                for t in tiers]
+        out.append(row)
+    return out
+
+
+def embedding_kernel_rows(checks, times, counts, sweep_counts, tiers):
+    """The kernels-line entries of the four embedding kernels."""
+    lookup, rows = times
+    source = "elasticdl_tpu_torch/ops/csrc/"
+    err = kernel_errors(checks)
+    out = lookup_kernel_rows(checks, lookup, {
+        "lookup_combine": (counts["lookup_combine"], "sparse training "
+                           "(train steps + eval batches)"),
+        "lookup_combine_aligned": (sweep_counts["lookup_combine_aligned"],
+                                   "sparse sweep")}, tiers)
     by_rule = {r["rule"]: r for r in rows["rules"]}
     fused = {r["rule"]: r for r in rows["fused"]}
     route_note = ("sparse_apply(use_pallas='never'): gather, apply_rows, "
@@ -2425,11 +2545,13 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
-        "--phase", choices=("all", "fwd", "bwd", "chunk"), default="all",
+        "--phase", choices=("all", "fwd", "bwd", "chunk", "lookup"),
+        default="all",
         help="fwd: build flash_attention_fwd.cu alone, then run kernel "
              "#1's checks and times and print its kernels row; bwd: the "
              "same for flash_attention_bwd.cu (#3 and #4); chunk: the "
-             "same for flash_chunk_update.cu (#2)")
+             "same for flash_chunk_update.cu (#2); lookup: the same for "
+             "embedding_lookup.cu (#5 and #6, timed at the sweep's tiers)")
     args = parser.parse_args(argv)
     import torch
 
@@ -2450,7 +2572,7 @@ def main(argv=None) -> int:
 
     t0 = time.monotonic()
     alone = {"fwd": [fa._SOURCE], "bwd": [fa._BWD_SOURCE],
-             "chunk": [fa._CHUNK_SOURCE]}
+             "chunk": [fa._CHUNK_SOURCE], "lookup": [pe._LOOKUP_SOURCE]}
     logs = _build.build_all(alone.get(args.phase))
     print(f"built {sorted(logs)} in {time.monotonic() - t0:.1f}s",
           flush=True)
@@ -2465,6 +2587,9 @@ def main(argv=None) -> int:
     if args.phase == "chunk":
         chunk_row, _ = chunk_kernel_phase(torch, fa)
         print(json.dumps({"kernels": [chunk_row]}))
+        return 0
+    if args.phase == "lookup":
+        print(json.dumps({"kernels": lookup_phase(torch, pe)}))
         return 0
     kernel, _ = kernel_phase(torch, fa)
     if args.phase == "fwd":
@@ -2484,7 +2609,7 @@ def main(argv=None) -> int:
         sparse = sparse_training_phase(torch, pe, root)
         small_twin_phase(torch, pe, root)
     fused = fused_path_phase(torch, pe)
-    _, sweep_counts = sweep_phase(torch, pe)
+    sweep, sweep_counts = sweep_phase(torch, pe)
     emb_times = embedding_times(torch, pe)
     kernel["launches"] = counts["flash_attention_fwd"]
     kernel["launches_serving"] = serving["flash_launches"]
@@ -2499,7 +2624,7 @@ def main(argv=None) -> int:
         emb_checks, emb_times,
         {**sparse["launches"],
          "fused_row_update": fused["launches"]["fused_row_update"]},
-        sweep_counts)
+        sweep_counts, sweep["lookup"])
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"sparse_training": sparse}))

@@ -1,9 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the port's flash kernels:
+// Hopper (sm_90a) building blocks shared by the port's kernels:
 // cp.async and ldmatrix for the mma.sync kernels; mbarriers, TMA loads
 // through 3-D tensor maps, wgmma descriptors and instructions for the
-// wgmma kernels; and the tensor-map encoder. Included by
-// flash_attention_fwd.cu and flash_attention_bwd.cu; each source is its
-// own library, so everything here has internal linkage.
+// wgmma kernels; and the tensor-map encoder. Included by the flash
+// sources and embedding_lookup.cu (its mbarrier ring); each source is
+// its own library, so everything here has internal linkage.
 
 #pragma once
 

@@ -10,8 +10,10 @@ through ``ctypes``:
   → ``lookup_kernel`` in ``csrc/embedding_lookup.cu``: fused gather +
   sum/mean/sqrtn combine, one warp per output row;
 - ``lookup_combine_aligned`` (``_lookup_aligned_kernel``, #5) →
-  ``lookup_aligned_kernel`` in the same file: the same contract, rows
-  staged through shared memory with ``cp.async``;
+  ``lookup_aligned_kernel`` in the same file: the same contract, row
+  strips brought into a deep mbarrier ring in shared memory by TMA bulk
+  copies (per-lane 4-byte ``cp.async`` where a bulk copy cannot take
+  the rows), on a grid that splits a small batch's rows into strips;
 - ``sparse_{sgd,momentum,adagrad,adam,adam_amsgrad}_update``
   (``_inplace_row_update``, #7) → ``row_update_kernel`` in
   ``csrc/embedding_row_update.cu``, one kernel templated on the rule;
@@ -146,19 +148,64 @@ def lookup_combine_reference(table, ids, weights, combiner: str):
                        0.0)
 
 
+def _bind_lookup(lib):
+    """Set the ctypes signatures of an embedding_lookup.cu build (an
+    older build has no ``edl_embedding_lookup_aligned_plan``)."""
+    for fn in (lib.edl_embedding_lookup, lib.edl_embedding_lookup_aligned):
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    if hasattr(lib, "edl_embedding_lookup_aligned_plan"):
+        plan = lib.edl_embedding_lookup_aligned_plan
+        plan.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)]
+        plan.restype = ctypes.c_int
+    lib.edl_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.edl_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _lookup_library():
     from elasticdl_tpu_torch.ops import _build
 
     lib = _build.load(_LOOKUP_SOURCE)
     if lib.edl_embedding_lookup.argtypes is None:
-        for fn in (lib.edl_embedding_lookup,
-                   lib.edl_embedding_lookup_aligned):
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.edl_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.edl_cuda_error_string.restype = ctypes.c_char_p
+        _bind_lookup(lib)
     return lib
+
+
+def _lookup_launch(lib, aligned: bool, table, ids, weights, out,
+                   combiner: str) -> int:
+    """One launch of a lookup kernel of ``lib`` through its C entry point
+    on the current stream, not counted: a contiguous f32 (V, D) table,
+    contiguous int32 ids and f32 weights (B, L), into ``out`` (B, D).
+    Returns the CUDA error code."""
+    fn = (lib.edl_embedding_lookup_aligned if aligned
+          else lib.edl_embedding_lookup)
+    (batch, num_ids), (vocab, dim) = ids.shape, table.shape
+    return fn(table.data_ptr(), ids.data_ptr(), weights.data_ptr(),
+              out.data_ptr(), batch, num_ids, vocab, dim,
+              _COMBINER_ID[combiner],
+              torch.cuda.current_stream(table.device).cuda_stream)
+
+
+def aligned_plan(table, ids, out, lib=None) -> dict:
+    """How kernel #5 (of ``lib``, a bound build; this tree's by default)
+    launches for these tensors on their card: its instance ("bulk": TMA
+    bulk copies; "4-byte": per-lane cp.async), the strip width in
+    columns, strips a row, ring slots a warp in ``stages`` of ``stage``
+    slots under one barrier each, blocks and shared memory a block
+    (bytes)."""
+    lib = lib or _lookup_library()
+    plan = (ctypes.c_int * 7)()
+    with torch.cuda.device(table.device):
+        err = lib.edl_embedding_lookup_aligned_plan(
+            table.data_ptr(), out.data_ptr(), ids.shape[0], ids.shape[1],
+            table.shape[1], plan)
+    _raise_on(err, lib, "aligned lookup plan")
+    return {"instance": "bulk" if plan[0] else "4-byte", "cols": plan[1],
+            "strips": plan[2], "stage": plan[3], "stages": plan[4],
+            "slots": plan[3] * plan[4], "blocks": plan[5], "smem": plan[6]}
 
 
 def _lookup_cuda(aligned: bool, table, ids, weights, combiner: str):
@@ -171,18 +218,14 @@ def _lookup_cuda(aligned: bool, table, ids, weights, combiner: str):
     ids = ids.to(torch.int32).contiguous()
     weights = weights.to(torch.float32).contiguous()
     batch, num_ids = ids.shape
-    vocab, dim = table.shape
+    dim = table.shape[1]
     out = torch.empty((batch, dim), dtype=torch.float32, device=table.device)
     if batch == 0 or num_ids == 0 or dim == 0:
         return out.zero_()           # nothing to gather: no launch
     lib = _lookup_library()
-    fn = (lib.edl_embedding_lookup_aligned if aligned
-          else lib.edl_embedding_lookup)
     with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = fn(table.data_ptr(), ids.data_ptr(), weights.data_ptr(),
-                 out.data_ptr(), batch, num_ids, vocab, dim,
-                 _COMBINER_ID[combiner], stream)
+        err = _lookup_launch(lib, aligned, table, ids, weights, out,
+                             combiner)
     _raise_on(err, lib, "embedding lookup")
     if aligned:
         aligned_launches += 1
@@ -203,7 +246,8 @@ def lookup_combine_pallas(table, ids, weights, combiner: str):
 
 def lookup_combine_aligned(table, ids, weights, combiner: str):
     """The contract of ``lookup_combine_pallas`` for V % 8 == 0 (kernel
-    #5, rows staged through shared memory); raises on V % 8 != 0."""
+    #5, row strips through an mbarrier ring in shared memory); raises on
+    V % 8 != 0."""
     if table.shape[0] % _ALIGNED_SUB:
         raise ValueError(
             f"aligned lookup needs vocab % {_ALIGNED_SUB} == 0, got "

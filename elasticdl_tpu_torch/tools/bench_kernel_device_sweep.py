@@ -164,7 +164,10 @@ def lookup_rows(pe, gen, iters: int, windows: int) -> List[dict]:
         bound_ms, bound_by = lookup_bound(batch, num_ids, dim, distinct)
         row = {"dim": dim, "L": num_ids, "batch": batch, "vocab": VOCAB,
                "distinct_rows": distinct, "id_sets": len(sets), **times,
-               "bound_ms": bound_ms, "bound_by": bound_by}
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "aligned_plan": pe.aligned_plan(
+                   table, sets[0][0],
+                   torch.empty(batch, dim, device="cuda"))}
         print(json.dumps({"lookup": row}), flush=True)
         rows.append(row)
         del table, sets

@@ -64,6 +64,64 @@ def test_aligned_lookup_matches_pallas_interpret(dim, combiner):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def _late_out_of_range(ids):
+    """Ids outside the table late in a long row, where the kernel's ring
+    has been refilled (the ring holds at most 24 strips)."""
+    ids[::2, -26] = V
+    ids[1::2, -6] = -1
+    ids[::3, -1] = V
+    return ids
+
+
+@pytest.mark.parametrize("dim,batch,num_ids,combiner", [
+    (256, 8, 96, "mean"),     # the ring refilled three times
+    (128, 1, 32, "sqrtn"),    # one row: its columns split over warps
+    (256, 64, 32, "sum"),     # a batch below a warp an SM: split too
+])
+def test_aligned_lookup_new_shapes_match_pallas_interpret(dim, batch,
+                                                          num_ids,
+                                                          combiner):
+    rng = np.random.RandomState(10 + batch)
+    table = rng.randn(V, dim).astype(np.float32)
+    ids = rng.randint(0, V, (batch, num_ids)).astype(np.int32)
+    weights = rng.rand(batch, num_ids).astype(np.float32)
+    weights[batch // 2, ::3] = 0.0
+    want = jpe.lookup_combine_aligned(jnp.asarray(table), jnp.asarray(ids),
+                                      jnp.asarray(weights), combiner,
+                                      interpret=True)
+    got = pe.lookup_combine_aligned(*_t(table, ids, weights), combiner)
+    assert got.shape == (batch, dim)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("dim,kind", [
+    (128, "late_out_of_range"),   # the TPU kernel reads row id // 8 * 8
+    (256, "late_out_of_range"),
+    (4, "plain"),                 # D % 128 != 0: the TPU kernel refuses
+    (130, "late_out_of_range"),
+])
+def test_aligned_lookup_matches_combine_where_tpu_kernel_is_undefined(
+        dim, kind):
+    """Where ``jpe.lookup_combine_aligned`` defines no result (ids
+    outside the table, D not a multiple of 128), the contract is the JAX
+    package's ``combine`` over a gather with zero rows for those ids."""
+    rng = np.random.RandomState(20 + dim)
+    table = rng.randn(V, dim).astype(np.float32)
+    ids = rng.randint(0, V, (37, 40)).astype(np.int32)
+    weights = rng.rand(37, 40).astype(np.float32)
+    weights[5] = 0.0
+    if kind == "late_out_of_range":
+        ids = _late_out_of_range(ids)
+    valid = (ids >= 0) & (ids < V)
+    rows = np.where(valid[..., None], table[np.clip(ids, 0, V - 1)], 0.0)
+    for combiner in ("sum", "mean", "sqrtn"):
+        want = jax_combine(jnp.asarray(rows), jnp.asarray(weights),
+                           combiner)
+        got = pe.lookup_combine_aligned(*_t(table, ids, weights), combiner)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        assert not torch.isnan(got).any()
+
+
 def test_aligned_lookup_rejects_unaligned_vocab():
     table, ids, weights = _t(*_lookup_inputs(128))
     with pytest.raises(ValueError, match="vocab % 8"):
@@ -285,21 +343,59 @@ def test_fused_apply_is_autodiff_exempt():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dim", [16, 130, 256])
-def test_cuda_kernels_match_plain(dim):
+@pytest.mark.parametrize("dim,batch,num_ids,layout", [
+    pytest.param(16, 37, L, "plain", id="16"),
+    pytest.param(130, 37, L, "plain", id="130"),
+    pytest.param(256, 37, L, "plain", id="256"),
+    pytest.param(256, 37, 96, "late_out_of_range", id="L96"),
+    pytest.param(256, 1, 32, "plain", id="B1"),
+    pytest.param(256, 64, 32, "plain", id="B64"),
+    pytest.param(4, 37, 40, "plain", id="D4"),
+    pytest.param(256, 37, 32, "offset4", id="offset4"),
+])
+def test_cuda_kernels_match_plain(dim, batch, num_ids, layout):
+    """Both lookups (and, at the first three widths, the row kernels)
+    against their plain versions on the card; each lookup again through
+    its C entry point into a NaN-filled output, bit-equal to the
+    wrapper's. ``offset4`` views the table 4 bytes into its storage
+    (#5's 4-byte instance)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
-    table, ids, weights = _lookup_inputs(dim, seed=7, batch=37)
-    t, i, w = (x.cuda() for x in _t(table, ids, weights))
+    rng = np.random.RandomState(7)   # as _lookup_inputs(dim, seed=7)
+    table = rng.randn(V, dim).astype(np.float32)
+    ids = rng.randint(0, V, (batch, num_ids)).astype(np.int32)
+    weights = rng.rand(batch, num_ids).astype(np.float32)
+    if batch > 3:
+        weights[2] = 0.0        # an empty row: zeros, not NaN
+        weights[3, 2:] = 0.0    # a padded row
+    if layout == "late_out_of_range":
+        ids = _late_out_of_range(ids)
+    if layout == "offset4":
+        flat = torch.zeros(V * dim + 1, device="cuda")
+        flat[1:] = torch.from_numpy(table.ravel()).cuda()
+        t = flat[1:].view(V, dim)
+        assert t.data_ptr() % 16 == 4
+    else:
+        t = torch.from_numpy(table).cuda()
+    i, w = (x.cuda() for x in _t(ids, weights))
+    lib = pe._lookup_library()
     for fn, counter in ((pe.lookup_combine_pallas, "lookup_launches"),
                         (pe.lookup_combine_aligned, "aligned_launches")):
         for combiner in ("sum", "mean", "sqrtn"):
             before = getattr(pe, counter)
             got = fn(t, i, w, combiner)
+            nan_out = torch.full_like(got, float("nan"))
+            err = pe._lookup_launch(lib, counter == "aligned_launches", t, i,
+                                    w, nan_out, combiner)
             torch.cuda.synchronize()
+            assert err == 0
             assert getattr(pe, counter) == before + 1
             want = pe.lookup_combine_reference(t, i, w, combiner)
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+            assert torch.equal(nan_out.view(torch.int32),
+                               got.view(torch.int32))
+    if layout != "plain" or num_ids != L:
+        return
     for rule in ("sgd", "momentum", "adagrad", "adam", "amsgrad"):
         tables, uids, grads, real = _row_inputs(rule, dim=dim, seed=8)
         for fused in ((False, True) if rule in ("sgd", "momentum")
@@ -340,3 +436,51 @@ def test_sweep_bounds_count_each_byte_once():
         ms * 3 / 5, rel=1e-3)                         # SGD: 3 KB a row
     assert tool.sets_for(16.8e6) == 7 and tool.sets_for(1e9) == 2
     assert tool.sets_for(1e3) == 64
+
+
+def _lookup_source():
+    import os
+
+    from elasticdl_tpu_torch.ops import _build
+
+    with open(os.path.join(_build.CSRC_DIR, "embedding_lookup.cu")) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("name", sorted(
+    __import__("elasticdl_tpu_torch.tools.lookup_mutants",
+               fromlist=["MUTANTS"]).MUTANTS))
+def test_lookup_mutant_texts_occur_once_in_the_aligned_kernel(name):
+    """Each mutant's text occurs once in the sound source, inside
+    ``lookup_aligned_kernel`` or the helpers above it that only it calls
+    (the zero-denominator guard: in the normalisation it shares with
+    #6)."""
+    from elasticdl_tpu_torch.tools import lookup_mutants
+
+    source = _lookup_source()
+    start = source.index("// ---- the aligned kernel (#5)")
+    end = source.index("\n}\n", source.index(
+        "lookup_aligned_kernel(const float*"))
+    for old, new in lookup_mutants.MUTANTS[name]:
+        assert old != new
+        assert source.count(old) == 1, (name, old)
+        if name != "zero_denominator_guard_dropped":
+            assert start < source.find(old) < end, (name, old)
+    assert lookup_mutants.mutate(source, lookup_mutants.MUTANTS[name]) \
+        != source
+
+
+def test_lookup_ab_variants_and_timeline_probes_apply():
+    """lookup_ab's variants each change one constant the source has
+    once; lookup_timeline's probes each land once, the store probe
+    after the aligned kernel's last store."""
+    from elasticdl_tpu_torch.tools import lookup_ab, lookup_timeline
+
+    source = _lookup_source()
+    for name, (old, new) in lookup_ab.VARIANTS.items():
+        assert source.count(old) == 1, name
+        assert old.split("=")[0] == new.split("=")[0] and old != new
+    probed = lookup_timeline.probed(source)
+    assert probed.count("probe_ns()") == 6
+    assert probed.index("t_done = probe_ns()") > probed.index(
+        "out_row[c] = normalise(acc[k], d);")
