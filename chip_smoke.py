@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phase bwd    # kernels #3 and #4 alone
     python3 chip_smoke.py --phase chunk  # kernel #2 alone
     python3 chip_smoke.py --phase lookup # kernels #5 and #6 alone
+    python3 chip_smoke.py --phase host   # the host tier alone, no kernel build
 
 1. Prints the card (``nvidia-smi`` name and power limit) and versions.
 2. Builds every CUDA kernel of the port from ``elasticdl_tpu_torch/ops/csrc``.
@@ -104,6 +105,23 @@
    falls; step ms (CUDA events) beside issue ms, examples/s, peak memory.
    Then the twin at 100,000 x 64 for 5 steps with the kernels, on the
    card and on the CPU (plain versions), agreeing.
+11b. ``host training`` (the host tier; ``--phase host`` runs it alone):
+   2048 frappe records (10 ids in [0, 5500)), the deepfm_host twin
+   through ``LocalExecutor`` at B 512 for 4 epochs, once on the card and
+   once on the CPU from the same seed, through a zoo module written to a
+   temp dir whose runner applies rows synchronously: per-step losses and
+   the touched rows' change agree, the table holds exactly the touched
+   ids, untouched ids read their lazy initial rows, the loss falls, the
+   table is the native store (``g++``-built at first use; its build
+   seconds printed), and no kernel launches. Then the zoo's own runner
+   (async apply) on the card for 8 epochs: finite parameters, a falling
+   loss, step ms (CUDA events) beside issue ms and examples/s. Then the
+   host engine alone at the recsys shape (a native 1,000,000 x 256 f32
+   table, lazily materialised, 16,384 ids a batch, Adagrad rows): median
+   ms of dedup, row pull, pad, the whole prepare, device placement and
+   apply. Then deepfm_functional (BASELINE #4) for 5 Local steps on the
+   card and on the CPU: losses, first-step gradients and every
+   parameter's change within the zoo twin's limits, no kernel launches.
 12. ``fused path``: ``DeviceSparseRunner`` over the recsys table with
    Momentum (Nesterov) and ``use_pallas="fused"`` for 10 steps against
    "never": one fused-kernel launch a step.
@@ -142,11 +160,12 @@
    updates an eval batch); step ms beside issue ms, tokens/s, peak
    memory.
 17. Prints a ``serving``, a ``training``, a ``sparse_training``, a
-   ``ring_training`` and a ``kernels`` JSON line (the four flash kernels
-   and the four embedding kernels with their ms, plain ms, library ms,
-   bound ms and launches; #5 with its times at the sweep's tiers, the
-   row kernels with a per-rule list) and,
-   last, ``{"ok": true, "device": {...}}``.
+   ``ring_training``, a ``host_training`` and a ``kernels`` JSON line
+   (the four flash kernels and the four embedding kernels with their
+   ms, plain ms, library ms, bound ms and launches, and their launches
+   on the host path, ``launches_host_training``; #5 with its times at
+   the sweep's tiers, the row kernels with a per-rule list) and, last,
+   ``{"ok": true, "device": {...}}``.
 
 Any failed phase raises, so the script exits non-zero; without CUDA it
 exits 2 and prints no result.
@@ -301,6 +320,48 @@ SPARSE_TOL = dict(loss=1e-3, delta_l2=0.1)
 # change of the table and of every dense parameter (relative L2; Adam's
 # first step is lr * sign(g)).
 SMALL_TOL = dict(loss=2e-3, delta_l2=0.25)
+# The host tier: the deepfm_host twin at its widths (a
+# 5500-id table of 16, 10 ids an example, bf16 MLP 64-32-1, SGD rows at
+# 0.05, Adam 1e-3) through LocalExecutor at bench_suite's deepfm batch,
+# card against CPU with a synchronous runner; then the zoo's own
+# (asynchronous) runner on the card, timed over HOST_TIMED_EPOCHS.
+HOST_RECORDS, HOST_BATCH, HOST_EPOCHS, HOST_TIMED_EPOCHS = 2048, 512, 4, 8
+HOST_IDS, HOST_MAX_ID = 10, 5500
+# Card vs CPU: per-step losses (relative) and the change of the touched
+# rows (relative L2). The MLP computes in bf16 on both, with other
+# summation orders (cuBLAS against the CPU's GEMM), so bf16 roundings
+# flip; the rows' SGD steps follow d_emb through that MLP.
+HOST_TOL = dict(loss=2e-2, delta_l2=2e-2)
+# The sync runner's zoo module: the twin with async_apply off, so the
+# card and CPU runs apply every step's rows before the next pull.
+HOST_ZOO = """
+from elasticdl_tpu_torch.embedding.host_engine import HostStepRunner
+from elasticdl_tpu_torch.model_zoo.deepfm import deepfm_host as twin
+from elasticdl_tpu_torch.model_zoo.deepfm.deepfm_host import (  # noqa
+    custom_model, dataset_fn, eval_metrics_fn, loss, optimizer)
+
+
+def make_host_runner():
+    return HostStepRunner(twin.make_host_runner().engine, async_apply=False)
+"""
+# The zoo's asynchronous runner on the card against a synchronous one,
+# over HOST_DISJOINT_BATCHES batches each drawing its ids from a span of
+# the id range of its own: no pull reads a row that an apply still in
+# flight writes, so losses and the table must be bit-equal. This holds
+# the paths that run only on the card: the row gradients' copy on a side
+# stream into pinned memory, and the pull-ahead's pinned placement.
+HOST_DISJOINT_BATCHES = 8
+# The host engine alone at the recsys table's shape: a native
+# EMB_VOCAB x EMB_DIM f32 table, materialised lazily, EMB_IDS ids an
+# example at EMB_BATCH, uniform ids as the recsys records draw them,
+# Adagrad rows (the recsys rule). Cold: HOST_ENGINE_BATCHES fresh
+# batches, nearly every id a first touch. Warm: the same batches again,
+# every row resident. The first HOST_ENGINE_SKIP batches of each pass
+# are not counted.
+HOST_ENGINE_BATCHES, HOST_ENGINE_SKIP = 12, 2
+# deepfm_functional (BASELINE #4), card vs CPU for this many Local steps
+# at HOST_BATCH, held to TRAJ_TOL as the transformer twin is.
+DEEPFM_STEPS = 5
 # Ring attention over an sp mesh of one card (slice 4): the long-context
 # row of tools/bench_long_context.py, (S 8192, B 1, remat), on the
 # flagship's widths, the sequence cut over RING_SP ranks (chunks of 2048).
@@ -2075,6 +2136,356 @@ def small_twin_phase(torch, pe, root):
     return out
 
 
+def kernel_launch_counts(fa, pe):
+    """Every kernel's launch counter, by its ``kernels`` row name."""
+    return {"flash_attention_fwd": fa.launches,
+            "flash_chunk_update": fa.chunk_launches,
+            "flash_attention_bwd_dq": fa.dq_launches,
+            "flash_attention_bwd_dkv": fa.dkv_launches,
+            "lookup_combine": pe.lookup_launches,
+            "lookup_combine_aligned": pe.aligned_launches,
+            "row_update": pe.row_update_launches,
+            "fused_row_update": pe.fused_launches}
+
+
+def reset_kernel_launches(fa, pe):
+    fa.launches = fa.dq_launches = fa.dkv_launches = fa.chunk_launches = 0
+    pe.reset_launches()
+
+
+def host_twin_run(torch, fa, pe, zoo, model_def, records, device, epochs):
+    """One LocalExecutor run of a deepfm_host zoo module; kernel launch
+    counts are zeroed just before it and read just after."""
+    from elasticdl_tpu_torch.api.local_executor import LocalExecutor
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    args = tdata.make_local_args(
+        zoo, model_def, records, minibatch_size=HOST_BATCH,
+        num_epochs=epochs,
+        extra=["--device", device, "--random_seed", str(SEED)])
+    record = step_recorder(torch)
+    executor = LocalExecutor(args, callbacks=[record])
+    reset_kernel_launches(fa, pe)             # the host path starts here
+    result = executor.run()
+    counts = kernel_launch_counts(fa, pe)     # ... and ends
+    return executor, record, result, counts
+
+
+def host_training_phase(torch, fa, pe, root):
+    """The deepfm_host twin through LocalExecutor: card against CPU with
+    a synchronous runner (losses, touched rows, untouched rows, the
+    native store), then the zoo's own runner on the card, timed, and
+    against a synchronous runner on batches of disjoint ids; the host
+    engine alone at the recsys shape, cold and warm; deepfm_functional
+    card against CPU."""
+    from elasticdl_tpu_torch import native
+    from elasticdl_tpu_torch.model_zoo.deepfm import deepfm_host as twin
+    from elasticdl_tpu_torch.native.row_store import NativeEmbeddingTable
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    records = tdata.create_frappe_record_file(
+        os.path.join(root, "host.rec"), HOST_RECORDS, seed=SEED,
+        input_length=HOST_IDS, max_id=HOST_MAX_ID)
+    zoo = write_zoo(root, "host_sync", HOST_ZOO)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        executor, record, result, counts = host_twin_run(
+            torch, fa, pe, zoo, "host_sync.rec.custom_model", records, dev,
+            HOST_EPOCHS)
+        table = executor._step_runner.engine.tables[twin.TABLE_NAME]
+        ids, rows = table.to_arrays()
+        runs[dev] = dict(loss=[float(x) for x in record.loss],
+                         counts=counts, table=table, ids=ids, rows=rows,
+                         initial=record.initial, steps=result["steps"])
+    card, cpu = runs["cuda"], runs["cpu"]
+    touched = np.unique(frappe_ids(HOST_RECORDS, HOST_IDS, HOST_MAX_ID,
+                                   SEED))
+    check(all(np.array_equal(r["ids"], touched) for r in runs.values()),
+          "the host table's rows are not the ids the batches touched")
+    lazy = NativeEmbeddingTable(twin.TABLE_NAME, twin.EMBEDDING_DIM)
+    initial = lazy.get(touched)
+    rel = [abs(x - y) / abs(y) for x, y in zip(card["loss"], cpu["loss"])]
+    delta_l2 = rel_err(card["rows"] - initial, cpu["rows"] - initial)
+    rows_l2 = rel_err(card["rows"], cpu["rows"])
+    untouched = np.setdiff1d(np.arange(HOST_MAX_ID), touched)[:64]
+    untouched_equal = all(
+        np.array_equal(r["table"].get(untouched), lazy.get(untouched))
+        for r in runs.values())
+    per_epoch = HOST_RECORDS // HOST_BATCH
+    epoch_loss = [float(np.mean(card["loss"][i:i + per_epoch]))
+                  for i in range(0, card["steps"], per_epoch)]
+    same_start = all(torch.equal(card["initial"][n], cpu["initial"][n])
+                     for n in cpu["initial"])
+
+    # The zoo's own runner (async apply) on the card, timed.
+    executor, record, result, async_counts = host_twin_run(
+        torch, fa, pe, tdata.model_zoo_dir(),
+        "deepfm.deepfm_host.custom_model", records, "cuda",
+        HOST_TIMED_EPOCHS)
+    async_loss = [float(x) for x in record.loss]
+    async_epochs = [float(np.mean(async_loss[i:i + per_epoch]))
+                    for i in range(0, len(async_loss), per_epoch)]
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in executor.state.model.parameters())
+    step_ms, issue_ms = window_ms(record, warm=per_epoch, window=per_epoch)
+    median = float(np.median(step_ms))
+    async_check = host_async_check(torch, fa, pe)
+    engine = host_engine_times(torch)
+    functional = deepfm_functional_phase(torch, fa, pe, root)
+    out = {
+        "model": "deepfm_host twin (model_zoo/deepfm/deepfm_host.py: "
+                 "5500 x 16 host table, 10 ids an example, SGD rows lr "
+                 "0.05, MLP 160-64-32-1 bf16, Adam 1e-3), random weights, "
+                 f"seed {SEED}",
+        "batch": HOST_BATCH, "steps": card["steps"],
+        "native_store": all(isinstance(r["table"], NativeEmbeddingTable)
+                            for r in runs.values()),
+        "native_library": os.path.relpath(native.library_path()),
+        "native_build_s": native.build_seconds,
+        "launches_card": card["counts"], "launches_cpu": cpu["counts"],
+        "launches_async": async_counts,
+        "losses_card": card["loss"], "losses_cpu": cpu["loss"],
+        "loss_max_rel_diff": max(rel), "touched_rows": int(touched.size),
+        "rows_delta_l2": delta_l2, "rows_l2": rows_l2,
+        "untouched_bit_equal": untouched_equal,
+        "epoch_mean_loss": epoch_loss, "same_initial_weights": same_start,
+        "tol": HOST_TOL,
+        "async": {"steps": result["steps"], "epoch_mean_loss": async_epochs,
+                  "params_finite": finite,
+                  "step_ms": spread(step_ms), "issue_ms": spread(issue_ms),
+                  "examples_per_s": HOST_BATCH / (median / 1e3),
+                  "clocks_after": smi("clocks.sm,clocks.max.sm,power.draw,"
+                                      "temperature.gpu")},
+        "async_vs_sync": async_check,
+        "engine": engine, "deepfm_functional": functional,
+    }
+    print("host training", json.dumps(out), flush=True)
+    check(out["native_store"], "the host table is not the native store")
+    check(card["steps"] == HOST_EPOCHS * per_epoch
+          and cpu["steps"] == card["steps"], f"{card['steps']} host steps")
+    for name, counts in (("card", card["counts"]), ("cpu", cpu["counts"]),
+                         ("async", async_counts)):
+        check(not any(counts.values()),
+              f"the host path ({name}) launched kernels: {counts}")
+    check(same_start, "card and CPU start from other weights")
+    check(untouched_equal, "an untouched row is not its lazy initial value")
+    check(all(np.isfinite(card["loss"])), "non-finite loss")
+    check(epoch_loss[-1] < epoch_loss[0],
+          f"the loss did not fall: {epoch_loss}")
+    check(max(rel) <= HOST_TOL["loss"], f"card vs CPU losses {out}")
+    check(delta_l2 <= HOST_TOL["delta_l2"], f"card vs CPU rows {out}")
+    check(result["steps"] == HOST_TIMED_EPOCHS * per_epoch and finite
+          and async_epochs[-1] < async_epochs[0],
+          f"async run: {result['steps']} steps, finite {finite}, "
+          f"{async_epochs}")
+    return out
+
+
+def host_engine_times(torch):
+    """Per-batch median ms of the host engine's phases at the recsys
+    table's shape: dedup, row pull, pad (each as the engine calls it, on
+    one batch), the whole ``prepare_batch`` (on a second batch), device
+    placement (pinned copy + transfer, synchronised) and the Adagrad
+    apply of that batch's row gradients; a cold pass over fresh batches
+    (the pull and the apply materialise rows and accumulators), then a
+    warm pass over the same batches."""
+    from elasticdl_tpu_torch.embedding.host_engine import (
+        HostEmbeddingEngine,
+        PreparedBatch,
+        dedup_ids,
+        pad_rows,
+    )
+    from elasticdl_tpu_torch.embedding.optimizer import Adagrad
+    from elasticdl_tpu_torch.native.row_store import (
+        NativeEmbeddingTable,
+        make_host_optimizer,
+    )
+
+    table = NativeEmbeddingTable(RECSYS_TABLE, EMB_DIM)
+    engine = HostEmbeddingEngine(
+        {RECSYS_TABLE: table}, make_host_optimizer(Adagrad(lr=0.05)),
+        id_keys={RECSYS_TABLE: "ids"})
+    rng = np.random.RandomState(SEED + 4)
+
+    def fresh():
+        return {"features": {"ids": rng.randint(
+                    0, EMB_VOCAB, (EMB_BATCH, EMB_IDS)).astype(np.int64)},
+                "labels": np.zeros((EMB_BATCH,), np.int32),
+                "mask": np.ones((EMB_BATCH,), np.float32)}
+
+    batches = [(fresh(), fresh()) for _ in range(HOST_ENGINE_BATCHES)]
+
+    def run_pass():
+        phases = {k: [] for k in ("dedup", "row_pull", "pad",
+                                  "prepare_batch", "device_placement",
+                                  "apply")}
+        uniques = []
+
+        def timed(name, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            phases[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        for first, batch in batches:
+            uniq, _ = timed("dedup", dedup_ids, first["features"]["ids"])
+            pulled = timed("row_pull", table.get, uniq)
+            timed("pad", pad_rows, pulled, EMB_DIM)
+            prepared = PreparedBatch(batch, *timed(
+                "prepare_batch", engine.prepare_batch, batch))
+
+            def place():
+                placed = engine.place_on_device(prepared, "cuda")
+                torch.cuda.synchronize()
+                return placed
+
+            timed("device_placement", place)
+            u = prepared.uniques[RECSYS_TABLE][1]
+            uniques.append(u)
+            grads = {RECSYS_TABLE: rng.standard_normal(
+                (u, EMB_DIM)).astype(np.float32) * 1e-3}
+            timed("apply", engine.apply_row_grads, grads, prepared.uniques)
+        return {"rows_resident_after": table.num_rows,
+                "unique_ids_median": int(np.median(uniques)),
+                "ms_median": {k: float(np.median(v[HOST_ENGINE_SKIP:]))
+                              for k, v in phases.items()},
+                "ms_range": {k: [float(min(v[HOST_ENGINE_SKIP:])),
+                                 float(max(v[HOST_ENGINE_SKIP:]))]
+                             for k, v in phases.items()}}
+
+    cold = run_pass()
+    warm = run_pass()
+    return {"table": f"{EMB_VOCAB} x {EMB_DIM} f32, native, lazy",
+            "batch": EMB_BATCH, "ids": EMB_BATCH * EMB_IDS,
+            "batches": HOST_ENGINE_BATCHES, "skipped": HOST_ENGINE_SKIP,
+            "cold": cold, "warm": warm}
+
+
+def host_async_check(torch, fa, pe):
+    """The zoo's deepfm_host runner (async apply) on the card, inline and
+    with pull-ahead (``iter_prepared``: rows pulled on a thread and
+    placed on the card from pinned memory), against a synchronous runner
+    over the same HOST_DISJOINT_BATCHES batches of disjoint ids: losses
+    and the host table bit-equal, no kernel launched. Losses stay on the
+    card until the run ends, so no step waits for the one before."""
+    from elasticdl_tpu_torch.embedding.host_engine import HostStepRunner
+    from elasticdl_tpu_torch.model_zoo.deepfm import deepfm_host as twin
+
+    span = HOST_MAX_ID // HOST_DISJOINT_BATCHES
+    rng = np.random.RandomState(SEED + 6)
+    batches = []
+    for b in range(HOST_DISJOINT_BATCHES):
+        ids = b * span + rng.randint(0, span, (HOST_BATCH, HOST_IDS))
+        batches.append({"features": {twin.FEATURE_KEY: ids.astype(np.int64)},
+                        "labels": (ids.sum(1) % 2).astype(np.int32),
+                        "mask": np.ones((HOST_BATCH,), np.float32)})
+
+    def run(mode):
+        runner = twin.make_host_runner()
+        if mode == "sync":
+            runner = HostStepRunner(runner.engine, async_apply=False)
+        torch.manual_seed(SEED)
+        model = twin.custom_model("cuda")
+        reset_kernel_launches(fa, pe)
+        state = runner.init_state(model, twin.optimizer(), batches[0],
+                                  seed=SEED)
+        step = runner.train_step(twin.loss)
+        losses = []
+        if mode == "pull_ahead":
+            with runner.iter_prepared(iter(batches)) as prepared:
+                for pb in prepared:
+                    state, metrics = step(state, pb)
+                    losses.append(metrics["loss"])
+        else:
+            for batch in batches:
+                state, metrics = step(state, batch)
+                losses.append(metrics["loss"])
+        runner.flush()
+        counts = kernel_launch_counts(fa, pe)
+        ids, rows = runner.engine.tables[twin.TABLE_NAME].to_arrays()
+        return dict(losses=[float(x) for x in losses], ids=ids, rows=rows,
+                    counts=counts)
+
+    runs = {mode: run(mode) for mode in ("sync", "async", "pull_ahead")}
+    sync = runs["sync"]
+    out = {"batches": HOST_DISJOINT_BATCHES, "id_span": span,
+           "rows": int(sync["ids"].size), "losses_sync": sync["losses"]}
+    for mode in ("async", "pull_ahead"):
+        r = runs[mode]
+        out[mode] = {
+            "losses_bit_equal": r["losses"] == sync["losses"],
+            "ids_equal": bool(np.array_equal(r["ids"], sync["ids"])),
+            "rows_bit_equal": bool(r["rows"].shape == sync["rows"].shape
+                                   and np.array_equal(r["rows"],
+                                                      sync["rows"])),
+            "rows_max_abs_diff": (float(np.abs(r["rows"] - sync["rows"]).max())
+                                  if r["rows"].shape == sync["rows"].shape
+                                  else None),
+            "launches": r["counts"]}
+    print("host async vs sync", json.dumps(out), flush=True)
+    for mode in ("sync", "async", "pull_ahead"):
+        check(not any(runs[mode]["counts"].values()),
+              f"the host path ({mode}) launched kernels: "
+              f"{runs[mode]['counts']}")
+    for mode in ("async", "pull_ahead"):
+        check(out[mode]["losses_bit_equal"] and out[mode]["ids_equal"]
+              and out[mode]["rows_bit_equal"],
+              f"{mode} apply on the card is not the sync apply: {out}")
+    return out
+
+
+def deepfm_functional_phase(torch, fa, pe, root):
+    """deepfm_functional, DEEPFM_STEPS Local steps on the card and on the
+    CPU from the same seed: losses, first-step gradients and every
+    parameter's change agree (TRAJ_TOL); no kernel launches."""
+    from elasticdl_tpu_torch.api.local_executor import LocalExecutor
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    records = tdata.create_frappe_record_file(
+        os.path.join(root, "deepfm.rec"), DEEPFM_STEPS * HOST_BATCH,
+        seed=SEED + 5, input_length=HOST_IDS, max_id=HOST_MAX_ID)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        args = tdata.make_local_args(
+            tdata.model_zoo_dir(), "deepfm.deepfm_functional.custom_model",
+            records, minibatch_size=HOST_BATCH,
+            extra=["--device", dev, "--random_seed", str(SEED)])
+        record = step_recorder(torch)
+        executor = LocalExecutor(args, callbacks=[record])
+        reset_kernel_launches(fa, pe)
+        executor.run()
+        record.counts = kernel_launch_counts(fa, pe)
+        record.final = {name: p.detach().float().cpu()
+                        for name, p in executor.state.model.named_parameters()}
+        runs[dev] = record
+    card, cpu = runs["cuda"], runs["cpu"]
+    losses = {dev: [float(x) for x in r.loss] for dev, r in runs.items()}
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                               losses["cpu"])]
+    grad_l2 = {n: rel_err(card.first_grads[n].numpy(),
+                          cpu.first_grads[n].numpy()) for n in cpu.initial}
+    delta_l2 = {n: rel_err((card.final[n] - card.initial[n]).numpy(),
+                           (cpu.final[n] - cpu.initial[n]).numpy())
+                for n in cpu.initial}
+    out = {"steps": len(rel), "batch": HOST_BATCH,
+           "losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"],
+           "loss_max_rel_diff": max(rel), "grad_l2": grad_l2,
+           "delta_l2": delta_l2, "launches_card": card.counts,
+           "launches_cpu": cpu.counts, "tol": TRAJ_TOL}
+    print("deepfm_functional card vs cpu", json.dumps(out), flush=True)
+    check(len(rel) == DEEPFM_STEPS, f"{len(rel)} deepfm_functional steps")
+    check(all(torch.equal(card.initial[n], cpu.initial[n])
+              for n in cpu.initial), "deepfm: other initial weights")
+    check(not any(card.counts.values()) and not any(cpu.counts.values()),
+          f"deepfm_functional launched kernels: {card.counts}")
+    check(max(rel) <= TRAJ_TOL["loss"], f"deepfm card vs CPU losses {out}")
+    check(max(grad_l2.values()) <= TRAJ_TOL["grad_l2"],
+          f"deepfm card vs CPU first-step gradients {grad_l2}")
+    check(max(delta_l2.values()) <= TRAJ_TOL["delta_l2"],
+          f"deepfm card vs CPU parameter changes {delta_l2}")
+    return out
+
+
 def fused_path_phase(torch, pe):
     """DeviceSparseRunner(recsys TABLE_SPECS, Momentum(lr 0.05, Nesterov),
     use_pallas="fused") on the twin for FUSED_STEPS steps, against the
@@ -2545,13 +2956,14 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
-        "--phase", choices=("all", "fwd", "bwd", "chunk", "lookup"),
+        "--phase", choices=("all", "fwd", "bwd", "chunk", "lookup", "host"),
         default="all",
         help="fwd: build flash_attention_fwd.cu alone, then run kernel "
              "#1's checks and times and print its kernels row; bwd: the "
              "same for flash_attention_bwd.cu (#3 and #4); chunk: the "
              "same for flash_chunk_update.cu (#2); lookup: the same for "
-             "embedding_lookup.cu (#5 and #6, timed at the sweep's tiers)")
+             "embedding_lookup.cu (#5 and #6, timed at the sweep's tiers); "
+             "host: the host training phase alone (no kernel build)")
     args = parser.parse_args(argv)
     import torch
 
@@ -2570,6 +2982,14 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    if args.phase == "host":
+        with tempfile.TemporaryDirectory() as root:
+            host = host_training_phase(torch, fa, pe, root)
+        print(json.dumps({"host_training": host}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     t0 = time.monotonic()
     alone = {"fwd": [fa._SOURCE], "bwd": [fa._BWD_SOURCE],
              "chunk": [fa._CHUNK_SOURCE], "lookup": [pe._LOOKUP_SOURCE]}
@@ -2608,6 +3028,7 @@ def main(argv=None) -> int:
         ring_training = ring_training_phase(torch, fa)
         sparse = sparse_training_phase(torch, pe, root)
         small_twin_phase(torch, pe, root)
+        host = host_training_phase(torch, fa, pe, root)
     fused = fused_path_phase(torch, pe)
     sweep, sweep_counts = sweep_phase(torch, pe)
     emb_times = embedding_times(torch, pe)
@@ -2625,10 +3046,13 @@ def main(argv=None) -> int:
         {**sparse["launches"],
          "fused_row_update": fused["launches"]["fused_row_update"]},
         sweep_counts, sweep["lookup"])
+    for row in [kernel, chunk_row] + bwd_rows + emb_rows:
+        row["launches_host_training"] = host["launches_card"][row["name"]]
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"sparse_training": sparse}))
     print(json.dumps({"ring_training": ring_training}))
+    print(json.dumps({"host_training": host}))
     print(json.dumps({"kernels": [kernel, chunk_row] + bwd_rows
                       + emb_rows}))
     print(json.dumps({"ok": True, "device": {

@@ -7,13 +7,14 @@ read shards directly, run the train step on the device (CUDA unless
 ``--output``. ``callbacks`` adds Callback objects to the model spec's
 (their batch hooks run around every train step).
 
-A zoo module with ``make_sparse_runner`` (device-tier sparse models)
-trains through that runner: its ``init_state`` builds the state at the
+A zoo module with ``make_host_runner`` (host-tier models) or
+``make_sparse_runner`` (device-tier sparse models) trains through that
+runner, a host runner first: its ``init_state`` builds the state at the
 first batch, and its ``train_step``/``eval_step`` replace the dense
-steps. Such a model cannot be exported with ``--output`` yet (the
-serving bundle of a sparse model waits for the serving slice). Not
-ported yet: checkpointing (``--checkpoint_dir``, restore at init),
-TensorBoard, host-tier runners.
+steps. A host runner's pending row applies are flushed before training
+returns. Such models cannot be exported with ``--output`` yet (their
+bundles wait for the rest of serving). Not ported yet: checkpointing
+(``--checkpoint_dir``, restore at init), TensorBoard.
 """
 
 import time
@@ -90,11 +91,21 @@ class LocalExecutor:
         self.state = None
         self.last_batch = None
         self.last_train_metrics = None
-        self._step_runner = (self._spec.make_sparse_runner()
-                             if self._spec.make_sparse_runner else None)
+        if self._spec.make_host_runner:
+            self._step_runner = self._spec.make_host_runner()
+        elif self._spec.make_sparse_runner:
+            self._step_runner = self._spec.make_sparse_runner()
+        else:
+            self._step_runner = None
         if self._step_runner is None:
             self._train_step = build_train_step(self._spec.loss)
             self._eval_step = build_eval_step()
+        elif args.output and self._spec.make_host_runner:
+            raise NotImplementedError(
+                "--output with a host runner: the serving bundle of a "
+                "host-tier model (its host tables materialised dense) "
+                "waits for the rest of serving (ROADMAP Queue 1, item 5)"
+            )
         elif args.output:
             raise NotImplementedError(
                 "--output with a sparse runner: the serving bundle of a "
@@ -195,6 +206,9 @@ class LocalExecutor:
                 f"Training data {self._args.training_data!r} produced no "
                 "batches; nothing was trained"
             )
+        flush = getattr(self._step_runner, "flush", None)
+        if flush is not None:
+            flush()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         elapsed = time.monotonic() - start_time

@@ -20,6 +20,14 @@ params (the recsys ranker's ``Dense_k``) and its tables, slot tables and
 apply counts across, and ``load_sparse_state`` copies them into the
 port's ``SparseTrainState`` in place: the JAX tables come from
 ``jax.random`` and cannot be redrawn in torch.
+
+``deepfm_state_dict_from_flax`` maps the DeepFM zoo models' flax params
+onto the twins' ``state_dict``: ``Dense_k`` → ``deep.layers.k`` (kernel
+transposed), the embedding tables (``fm_embedding``, ``fm_linear``) →
+``<name>.embedding`` (the port's ``Embedding``) or ``<name>.weight``
+(``nn.Embedding``). ``copy_host_table`` carries a host table's rows,
+``(ids, rows)`` through ``to_arrays``/``set``, from a JAX
+``EmbeddingTable`` or ``NativeEmbeddingTable`` into the port's.
 """
 
 from typing import Dict
@@ -161,21 +169,53 @@ def sparse_state_from_flax(params: dict, tables: dict, slot_tables: dict,
     ``{"model": state_dict, "tables": {name: (V, D)}, "slot_tables":
     {name: {slot: (V, D)}}, "table_steps": {name: int}}``. Dense kernels
     ``Dense_k`` (in, out) become ``layers.k.weight`` (out, in)."""
-    params = _params(params)
-    model = {}
-    k = 0
-    while f"Dense_{k}" in params:
-        for name, value in _dense(params[f"Dense_{k}"]).items():
-            model[f"layers.{k}.{name}"] = value
-        k += 1
     return {
-        "model": model,
+        "model": _dense_layers(_params(params), "layers"),
         "tables": {name: _t(t) for name, t in tables.items()},
         "slot_tables": {name: {slot: _t(v) for slot, v in slots.items()}
                         for name, slots in slot_tables.items()},
         "table_steps": {name: int(np.asarray(v))
                         for name, v in table_steps.items()},
     }
+
+
+def _dense_layers(params: dict, prefix: str) -> Dict[str, torch.Tensor]:
+    """flax ``Dense_k`` (in, out) → ``{prefix}.k.weight`` (out, in) and
+    ``{prefix}.k.bias``."""
+    out = {}
+    k = 0
+    while f"Dense_{k}" in params:
+        for name, value in _dense(params[f"Dense_{k}"]).items():
+            out[f"{prefix}.{k}.{name}"] = value
+        k += 1
+    return out
+
+
+def deepfm_state_dict_from_flax(params: dict,
+                                embed_param: str = "embedding"
+                                ) -> Dict[str, torch.Tensor]:
+    """A DeepFM twin's ``state_dict`` for the JAX model's params: the
+    deep tower's ``Dense_k`` and every top-level table (a module holding
+    ``embedding``) as ``<name>.<embed_param>`` ("embedding" for the
+    port's ``Embedding`` layer, "weight" for ``nn.Embedding``). A host
+    model has no table among its params: its rows cross with
+    ``copy_host_table``."""
+    params = _params(params)
+    out = _dense_layers(params, "deep.layers")
+    for name, node in params.items():
+        if isinstance(node, dict) and "embedding" in node:
+            out[f"{name}.{embed_param}"] = _t(node["embedding"])
+    return out
+
+
+def copy_host_table(src, dst):
+    """Set every row of host table ``src`` into ``dst`` (any pair of the
+    two packages' ``EmbeddingTable``/``NativeEmbeddingTable``); returns
+    ``dst``."""
+    ids, rows = src.to_arrays()
+    if len(ids):
+        dst.set(np.asarray(ids, np.int64), np.asarray(rows, np.float32))
+    return dst
 
 
 def load_sparse_state(state, carried: dict):

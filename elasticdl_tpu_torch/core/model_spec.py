@@ -18,13 +18,15 @@ name:
   numpy trees for a list of decoded records;
 - ``eval_metrics_fn()`` -> dict of metric name -> fn(labels, predictions),
 - optional: ``callbacks()``, ``custom_data_reader(**kwargs)``,
-  ``make_sparse_runner()`` -> an ``embedding.device_sparse
-  .DeviceSparseRunner`` for device-tier sparse models (the Local
-  executor then trains through the runner).
+  ``make_host_runner()`` -> an ``embedding.host_engine.HostStepRunner``
+  for host-tier models, ``make_sparse_runner()`` -> an
+  ``embedding.device_sparse.DeviceSparseRunner`` for device-tier sparse
+  models (the Local executor then trains through the runner, a host
+  runner first).
 
-Not ported yet: the JAX contract's prediction processor, its sharding
-extras (``param_sharding_rules``, ``batch_sharding_rule``: the parallel
-slice) and ``make_host_runner`` (the host tier).
+Not ported yet: the JAX contract's prediction processor and its
+sharding extras (``param_sharding_rules``, ``batch_sharding_rule``: the
+parallel slice).
 """
 
 import importlib.util
@@ -95,6 +97,10 @@ class ModelSpec:
     callbacks_fn: Optional[Callable] = None
     custom_data_reader: Optional[Callable] = None
     module: Any = None
+    # Host-tier models (embedding/host_engine.py): factory returning a
+    # HostStepRunner, which holds the host tables and pulls and applies
+    # their rows around each step.
+    make_host_runner: Optional[Callable] = None
     # Device-tier sparse models (embedding/device_sparse.py): factory
     # returning a DeviceSparseRunner, which owns the HBM tables and
     # their lookup and row-update kernels.
@@ -146,6 +152,7 @@ def get_model_spec(
         callbacks_fn=_get_spec_value(module, callbacks),
         custom_data_reader=_get_spec_value(module, custom_data_reader),
         module=module,
+        make_host_runner=_get_spec_value(module, "make_host_runner"),
         make_sparse_runner=_get_spec_value(module, "make_sparse_runner"),
         model_fn=model_fn,
         device=device,

@@ -1,28 +1,38 @@
 """Background batch prefetch: overlap host IO/decode with device steps
-(port of elasticdl_tpu/data/prefetch.py, without its chained stages,
-which only the host-tier sparse path uses).
+(port of elasticdl_tpu/data/prefetch.py).
 
 While the device executes step N, a bounded background thread reads
-records and runs the user ``dataset_fn`` for step N+1. Producer
-exceptions re-raise in the consumer (a bad record must fail the task,
-not hang it). ``close()`` stops the producer even mid-queue, so an
-abandoned iterator does not leak a blocked thread; iterators are
+records and runs the user ``dataset_fn`` for step N+1.
+
+Stages chain: ``staged(upstream, fn)`` runs ``fn`` over an upstream
+iterator on its own thread, so a pipeline like prepare → device-place
+keeps every stage busy (the host tier's row pull and placement,
+``embedding/host_engine.prepared_batches``). Closing a downstream stage
+closes the whole chain.
+
+Producer exceptions re-raise in the consumer (a bad record must fail
+the task, not hang it). ``close()`` stops the producer even mid-queue,
+so an abandoned iterator does not leak a blocked thread; iterators are
 context managers so abandonment is explicit.
 """
 
 import queue
 import threading
-from typing import Iterator
+from typing import Callable, Iterator, Optional
 
 _SENTINEL = object()
 
 
 class PrefetchIterator:
-    def __init__(self, source: Iterator, depth: int = 2):
+    def __init__(self, source: Iterator, depth: int = 2,
+                 upstream: Optional["PrefetchIterator"] = None):
+        # ``upstream``: a previous pipeline stage this iterator consumes
+        # (through ``source``); close() cascades to it.
         self._queue: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
         self._stop = threading.Event()
         self._error = None
         self._done = False
+        self._upstream = upstream
         self._thread = threading.Thread(
             target=self._produce, args=(source,), daemon=True
         )
@@ -68,6 +78,11 @@ class PrefetchIterator:
 
     def close(self):
         self._stop.set()
+        # Tear down the chain upstream-first: our producer may be
+        # blocked in the upstream's __next__, and the upstream's close
+        # releases it (the sentinel below).
+        if self._upstream is not None:
+            self._upstream.close()
         # Unblock a producer waiting on a full queue, then wait for it to
         # exit: a producer mid-read outliving its task would race the
         # next task's producer on the shared (non-thread-safe) reader.
@@ -77,6 +92,13 @@ class PrefetchIterator:
         except queue.Empty:
             pass
         self._thread.join(timeout=30.0)
+        # Release a consumer blocked in __next__ on the drained queue:
+        # when this iterator feeds a later stage, that consumer is the
+        # downstream producer thread.
+        try:
+            self._queue.put_nowait(_SENTINEL)
+        except queue.Full:
+            pass
 
     def __enter__(self):
         return self
@@ -87,3 +109,14 @@ class PrefetchIterator:
 
 def prefetch(source: Iterator, depth: int = 2) -> PrefetchIterator:
     return PrefetchIterator(source, depth)
+
+
+def staged(upstream: PrefetchIterator, fn: Callable,
+           depth: int = 1) -> PrefetchIterator:
+    """A further pipeline stage: ``fn`` over each item of ``upstream`` on
+    a thread of its own, ``depth`` items ahead of the consumer, in
+    order. Closing the returned iterator closes ``upstream`` too; an
+    ``fn`` failure re-raises in the consumer."""
+    return PrefetchIterator(
+        (fn(item) for item in upstream), depth=depth, upstream=upstream
+    )

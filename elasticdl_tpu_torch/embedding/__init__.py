@@ -1,7 +1,8 @@
-"""The device-tier sparse embedding plane of the port: ragged ids and
-combiners, the row optimizers, the ``Embedding`` layer and the
-single-device ``DeviceSparseRunner``. The host tier waits for its
-slice."""
+"""The sparse embedding plane of the port: ragged ids and combiners,
+the row optimizers, the ``Embedding`` layer, the single-device
+``DeviceSparseRunner`` (device tier) and the host tier (lazy host
+tables, ``HostEmbeddingEngine``, ``HostStepRunner``). The row service
+waits for the worker's slice."""
 
 from elasticdl_tpu_torch.embedding.combiner import (  # noqa: F401
     COMBINERS,
@@ -18,12 +19,25 @@ from elasticdl_tpu_torch.embedding.device_sparse import (  # noqa: F401
     init_sparse_state,
     sparse_template,
 )
+from elasticdl_tpu_torch.embedding.host_engine import (  # noqa: F401
+    MIN_BUCKET,
+    HostEmbedding,
+    HostEmbeddingEngine,
+    HostStepRunner,
+    PreparedBatch,
+    bucket_size,
+    build_host_eval_step,
+    build_host_train_step,
+    host_rows_template,
+    locked_checkpoint_tables,
+)
 from elasticdl_tpu_torch.embedding.layer import Embedding  # noqa: F401
 from elasticdl_tpu_torch.embedding.optimizer import (  # noqa: F401
     SGD,
     Adagrad,
     Adam,
     AdamAmsgrad,
+    HostOptimizerWrapper,
     Momentum,
     RowOptimizer,
     init_slot_tables,
@@ -33,7 +47,12 @@ from elasticdl_tpu_torch.embedding.optimizer import (  # noqa: F401
     sparse_apply_packed,
     unique_pad,
     unpack_table,
+    wrapper_state_tables,
 )
 from elasticdl_tpu_torch.embedding.partition import (  # noqa: F401
     DEFAULT_PARTITION_THRESHOLD_BYTES,
+)
+from elasticdl_tpu_torch.embedding.table import (  # noqa: F401
+    EmbeddingTable,
+    get_slot_table_name,
 )

@@ -1,21 +1,33 @@
 """Row optimizers: sparse updates of only the looked-up rows (port of
-the device path of elasticdl_tpu/embedding/optimizer.py).
+elasticdl_tpu/embedding/optimizer.py).
 
 The update rules (SGD, Momentum with Nesterov, Adam with bias
 correction, AMSGrad, Adagrad) follow the reference's parameter-server
-kernels. ``sparse_apply`` updates the unique looked-up rows of an
-HBM-resident (V, D) table and its slot tables IN PLACE and returns the
-same tensors: through the hand-written row kernels
-(``ops/pallas_embedding``) where ``use_pallas`` pins them, else through
-the library route (gather, ``apply_rows``, scatter). The host tier's
-``HostOptimizerWrapper`` and the checkpoint adapters wait for the
-host-tier slice.
+kernels. ``apply_rows`` takes tensors or numpy rows, as the JAX rules
+switch on ``xp``, so the same rules serve
+
+- the **device path**: ``sparse_apply`` updates the unique looked-up
+  rows of a card-resident (V, D) table and its slot tables IN PLACE and
+  returns the same tensors: through the hand-written row kernels
+  (``ops/pallas_embedding``) where ``use_pallas`` pins them, else
+  through the library route (gather, ``apply_rows``, scatter);
+- the **host path**: ``HostOptimizerWrapper`` applies them to numpy
+  rows pulled from a lazy ``EmbeddingTable`` and writes rows and slots
+  back (the native store's fused C++ updates are
+  ``native/row_store.NativeOptimizerWrapper``); ``wrapper_state_tables``
+  gives a checkpoint the slot tables and per-table step counters.
 """
 
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
+
+from elasticdl_tpu_torch.embedding.table import (
+    EmbeddingTable,
+    get_slot_table_name,
+)
 
 
 @dataclass(frozen=True)
@@ -34,8 +46,9 @@ class RowOptimizer:
     slot_names: Tuple[str, ...] = ()
 
     def apply_rows(self, rows, grads, slots: Dict[str, torch.Tensor], step):
-        """(rows, slots) -> (new_rows, new_slots); ``step`` is the 1-based
-        apply count used for Adam's bias correction."""
+        """(rows, slots) -> (new_rows, new_slots) for tensors or numpy
+        arrays (numpy rows stay numpy); ``step`` is the 1-based apply
+        count used for Adam's bias correction."""
         raise NotImplementedError
 
 
@@ -76,21 +89,29 @@ class Adam(RowOptimizer):
             )
 
     def apply_rows(self, rows, grads, slots, step):
-        from elasticdl_tpu_torch.ops.pallas_embedding import (
-            bias_corrections,
-        )
-
         m = self.beta1 * slots["m"] + (1.0 - self.beta1) * grads
         v = self.beta2 * slots["v"] + (1.0 - self.beta2) * grads * grads
         new_slots = {"m": m, "v": v}
-        bc1, bc2 = bias_corrections(self.beta1, self.beta2, step)
-        m_hat = m / bc1
-        v_hat = v / bc2
+        if isinstance(rows, np.ndarray):
+            # The JAX rule's numpy branch, expression for expression.
+            xp = np
+            step = np.asarray(step, rows.dtype)
+            m_hat = m / (1.0 - self.beta1**step)
+            v_hat = v / (1.0 - self.beta2**step)
+        else:
+            from elasticdl_tpu_torch.ops.pallas_embedding import (
+                bias_corrections,
+            )
+
+            xp = torch
+            bc1, bc2 = bias_corrections(self.beta1, self.beta2, step)
+            m_hat = m / bc1
+            v_hat = v / bc2
         if self.amsgrad:
-            vmax = torch.maximum(slots["max_v"], v_hat)
+            vmax = xp.maximum(slots["max_v"], v_hat)
             new_slots["max_v"] = vmax
             v_hat = vmax
-        new_rows = rows - self.lr * m_hat / (torch.sqrt(v_hat) + self.epsilon)
+        new_rows = rows - self.lr * m_hat / (xp.sqrt(v_hat) + self.epsilon)
         return new_rows, new_slots
 
 
@@ -107,8 +128,9 @@ class Adagrad(RowOptimizer):
     initial_accumulator: float = 0.1
 
     def apply_rows(self, rows, grads, slots, step):
+        xp = np if isinstance(rows, np.ndarray) else torch
         acc = slots["accumulator"] + grads * grads
-        new_rows = rows - self.lr * grads / (torch.sqrt(acc) + self.epsilon)
+        new_rows = rows - self.lr * grads / (xp.sqrt(acc) + self.epsilon)
         return new_rows, {"accumulator": acc}
 
 
@@ -356,3 +378,116 @@ def unique_pad(ids, fill_id: int):
     inverse = torch.empty_like(slot)
     inverse[order] = slot
     return uniq, inverse.reshape(ids.shape)
+
+
+# ---- host path: apply to lazy EmbeddingTables -----------------------------
+
+
+class HostOptimizerWrapper:
+    """Apply row updates to host-tier lazy tables (the reference's
+    ``OptimizerWrapper.apply_gradients``: look up rows, create slots
+    lazily, apply, write rows and slots back), in numpy."""
+
+    def __init__(self, opt: RowOptimizer):
+        self.opt = opt
+        self._slot_tables: Dict[str, EmbeddingTable] = {}
+        # Per-table apply counts: one wrapper serves many tables, and
+        # Adam's bias correction needs each table's own step.
+        self._steps: Dict[str, int] = {}
+
+    def _slot_table(self, table, slot_name: str):
+        key = get_slot_table_name(table.name, slot_name)
+        if key not in self._slot_tables:
+            st = EmbeddingTable(
+                key,
+                table.dim,
+                is_slot=True,
+                slot_init_value=slot_init_value(self.opt, slot_name),
+                dtype=table.dtype,
+            )
+            if getattr(table, "supports_dirty_rows", False):
+                # A slot created after checkpointing was configured
+                # inherits tracking from its main table.
+                st.enable_dirty_tracking()
+            self._slot_tables[key] = st
+        return self._slot_tables[key]
+
+    def apply_gradients(self, table, ids, grads):
+        """ids must be unique; grads is (len(ids), dim)."""
+        ids = [int(i) for i in ids]
+        if len(set(ids)) != len(ids):
+            raise ValueError("ids must be deduplicated before apply")
+        step = self._steps.get(table.name, 0) + 1
+        self._steps[table.name] = step
+        rows = table.get(ids)
+        slots = {name: self._slot_table(table, name).get(ids)
+                 for name in self.opt.slot_names}
+        new_rows, new_slots = self.opt.apply_rows(
+            rows, np.asarray(grads, table.dtype), slots, step)
+        table.set(ids, np.asarray(new_rows))
+        for name in self.opt.slot_names:
+            self._slot_table(table, name).set(ids,
+                                              np.asarray(new_slots[name]))
+        return table
+
+    def state_tables(self, main_tables: Dict) -> Dict:
+        """Slot tables + step counters for checkpointing (see
+        ``wrapper_state_tables``)."""
+        return wrapper_state_tables(self, main_tables)
+
+
+# ---- checkpoint integration -----------------------------------------------
+
+STEPS_TABLE_NAME = "__row_optimizer_steps__"
+
+
+class _StepCountersTable:
+    """Checkpoint adapter persisting a wrapper's per-table apply counts
+    as a dim-1 table (row id = crc32 of the main table's name), with the
+    ``to_arrays``/``set`` surface of a table, so step counts ride the
+    embeddings payload (Adam's bias correction must not restart at 1
+    after a relaunch)."""
+
+    dim = 1
+
+    def __init__(self, wrapper, table_names):
+        import zlib
+
+        self._wrapper = wrapper
+        self._name_of = {
+            zlib.crc32(name.encode("utf-8")): name for name in table_names
+        }
+        if len(self._name_of) < len(list(table_names)):
+            raise ValueError(
+                f"table-name hash collision among {list(table_names)}"
+            )
+
+    def to_arrays(self):
+        items = sorted(
+            (tid, self._wrapper._steps[name])
+            for tid, name in self._name_of.items()
+            if self._wrapper._steps.get(name)
+        )
+        ids = np.array([t for t, _ in items], np.int64)
+        rows = np.array([[s] for _, s in items], np.float64).reshape(-1, 1)
+        return ids, rows
+
+    def set(self, ids, values):
+        values = np.asarray(values).reshape(len(list(ids)), -1)
+        for tid, row in zip(ids, values):
+            name = self._name_of.get(int(tid))
+            if name is not None:
+                self._wrapper._steps[name] = int(round(float(row[0])))
+
+
+def wrapper_state_tables(wrapper, main_tables: Dict) -> Dict:
+    """Slot tables + step counters of a host or native optimizer
+    wrapper, keyed for a checkpoint's embeddings payload. Creates every
+    slot table of ``main_tables`` first, so a fresh wrapper (a relaunch)
+    has live objects for a restore to refill."""
+    for table in main_tables.values():
+        for slot in wrapper.opt.slot_names:
+            wrapper._slot_table(table, slot)
+    out = dict(wrapper._slot_tables)
+    out[STEPS_TABLE_NAME] = _StepCountersTable(wrapper, list(main_tables))
+    return out

@@ -1,0 +1,109 @@
+"""DeepFM with its embedding table on the HOST tier — zoo twin of
+model_zoo/deepfm/deepfm_host.py, at its widths.
+
+The reference's deepfm_edl_embedding kept its table on parameter-server
+pods; this is that deployment in one process: the table lives in host
+RAM (the C++ row store when it builds), each batch's rows are pulled as
+a bucket-padded block and their gradients applied back
+(``embedding/host_engine.py``). The executor picks ``make_host_runner``
+up by name. Rows train with SGD at lr 0.05, the MLP with Adam at 1e-3,
+bf16 compute.
+
+Records are frappe payloads {"feature_ids": [INPUT_LENGTH ints in
+[0, MAX_ID)], "label": 0 or 1} (``testing.data.create_frappe_record_file``).
+"""
+
+import numpy as np
+import torch
+from torch import nn
+
+from elasticdl_tpu_torch.common.constants import Mode
+from elasticdl_tpu_torch.common.device import resolve_device
+from elasticdl_tpu_torch.embedding.host_engine import (
+    HostEmbedding,
+    HostEmbeddingEngine,
+    HostStepRunner,
+)
+from elasticdl_tpu_torch.embedding.optimizer import SGD
+from elasticdl_tpu_torch.model_zoo.deepfm.fm_layers import (
+    DeepTower,
+    fm_second_order,
+    read_frappe,
+    sign_agreement,
+)
+from elasticdl_tpu_torch.ops.losses import masked_sigmoid_cross_entropy
+
+INPUT_LENGTH = 10
+MAX_ID = 5500
+EMBEDDING_DIM = 16
+TABLE_NAME = "deepfm_host_embedding"
+FEATURE_KEY = "feature_ids"
+_REMOTE = ("a remote row service (remote_addr) waits for the RPC wire "
+           "of the port (ROADMAP Queue 1, item 4)")
+
+
+class HostDeepFM(nn.Module):
+    """The (B, fields, D) rows from the host block, cast to
+    ``compute_dtype``; FM second order + the deep tower, summed in f32."""
+
+    def __init__(self, embedding_dim: int = EMBEDDING_DIM,
+                 hidden=(64, 32), compute_dtype=torch.bfloat16,
+                 fields: int = INPUT_LENGTH):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.emb = HostEmbedding(TABLE_NAME, embedding_dim)
+        self.deep = DeepTower(fields * embedding_dim, hidden, compute_dtype)
+
+    def forward(self, features, host_rows=None):
+        emb = self.emb(features[FEATURE_KEY], host_rows)
+        emb = emb.to(self.compute_dtype)
+        deep = self.deep(emb.reshape(emb.shape[0], -1))
+        logits = fm_second_order(emb).float() + deep.float()
+        return logits[..., 0]
+
+
+def custom_model(device=None):
+    return HostDeepFM().to(resolve_device(device))
+
+
+def make_host_runner(row_lr: float = 0.05,
+                     remote_addr: str = "") -> HostStepRunner:
+    """The runner holding the host table (native when it builds), its
+    rows trained by SGD at ``row_lr``."""
+    if remote_addr:
+        raise NotImplementedError(_REMOTE)
+    from elasticdl_tpu_torch.native.row_store import (
+        make_host_optimizer,
+        make_host_table,
+    )
+
+    engine = HostEmbeddingEngine(
+        {TABLE_NAME: make_host_table(TABLE_NAME, EMBEDDING_DIM)},
+        make_host_optimizer(SGD(lr=row_lr)),
+        id_keys={TABLE_NAME: FEATURE_KEY},
+    )
+    return HostStepRunner(engine)
+
+
+def make_row_service():
+    raise NotImplementedError(_REMOTE)
+
+
+def loss(labels, predictions, mask):
+    return masked_sigmoid_cross_entropy(labels, predictions, mask)
+
+
+def optimizer(lr=0.001):
+    return lambda params: torch.optim.Adam(params, lr=lr)
+
+
+def dataset_fn(records, mode, metadata):
+    ids, labels = read_frappe(records)
+    features = {FEATURE_KEY: ids}
+    if mode == Mode.PREDICTION:
+        return features, np.zeros_like(labels)
+    return features, labels
+
+
+def eval_metrics_fn():
+    return {"auc_proxy": sign_agreement}

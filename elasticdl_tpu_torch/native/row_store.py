@@ -1,0 +1,289 @@
+"""ctypes wrappers of the C++ row store: ``NativeEmbeddingTable`` and
+``NativeOptimizerWrapper`` (port of elasticdl_tpu/native/row_store.py).
+
+Drop-in replacements for the pure-Python host tier
+(``embedding/table.EmbeddingTable``,
+``embedding/optimizer.HostOptimizerWrapper``) with the row map, lazy
+init and fused optimizer updates in C++ (``native/row_store.cc``, the
+same source as the JAX package's, so both give bit-equal lazy rows for
+the same name and ids). ``make_host_table`` / ``make_host_optimizer``
+pick the native implementation when the library loaded, else fall
+back, so call sites never branch.
+
+Init determinism: each implementation is deterministic per (name, id),
+but the two hash differently; a table must not move between them
+mid-job without a checkpoint (``set`` rows round-trip exactly either
+way). The JAX package's tiered-storage hooks wait for the port of
+``storage/``.
+"""
+
+import ctypes
+from typing import Dict, Iterable
+
+import numpy as np
+
+from elasticdl_tpu_torch.embedding.layer import EMBEDDING_INIT_SCALE
+from elasticdl_tpu_torch.embedding.optimizer import (
+    SGD,
+    Adagrad,
+    Adam,
+    AdamAmsgrad,
+    HostOptimizerWrapper,
+    Momentum,
+    RowOptimizer,
+    slot_init_value,
+    wrapper_state_tables,
+)
+from elasticdl_tpu_torch.embedding.table import (
+    EmbeddingTable,
+    get_slot_table_name,
+)
+from elasticdl_tpu_torch.native import get_lib, native_available
+
+
+def _seed(name: str) -> int:
+    import zlib
+
+    return zlib.crc32(name.encode("utf-8"))
+
+
+def _ids_arr(ids) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(list(ids), np.int64))
+
+
+def _i64p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def _f32p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+class NativeEmbeddingTable:
+    """``EmbeddingTable``'s surface, C++-backed, float32 only.
+
+    Dirty-row tracking lives on the Python side (a set of ids): the C++
+    arena does not report which rows a ``get`` materialised, so a
+    ``get`` that grew the store marks every requested id. The fused
+    optimizer kernels bypass ``set``, so ``NativeOptimizerWrapper``
+    marks the applied ids itself. Tracking is OFF until a checkpoint
+    consumer enables it.
+    """
+
+    def __init__(
+        self,
+        name: str,
+        dim: int,
+        initializer: str = "uniform",
+        is_slot: bool = False,
+        slot_init_value: float = 0.0,
+        dtype=np.float32,
+    ):
+        if np.dtype(dtype) != np.float32:
+            raise TypeError("NativeEmbeddingTable is float32-only")
+        if not (is_slot or initializer in ("uniform", "zeros")):
+            raise ValueError(
+                f"NativeEmbeddingTable has no {initializer!r} initializer "
+                "(uniform/zeros only); use the Python EmbeddingTable"
+            )
+        self._lib = get_lib()
+        if self._lib is None:
+            raise RuntimeError("native library unavailable")
+        self.name = name
+        self.dim = int(dim)
+        self.initializer = initializer
+        self.is_slot = is_slot
+        self.slot_init_value = float(slot_init_value)
+        self.dtype = np.dtype(np.float32)
+        const_init = is_slot or initializer == "zeros"
+        self._h = self._lib.rs_create(
+            self.dim,
+            _seed(name),
+            1 if const_init else 0,
+            EMBEDDING_INIT_SCALE,
+            self.slot_init_value if const_init else 0.0,
+        )
+        self._dirty: set = set()
+        self._track_dirty = False
+
+    def __del__(self):
+        lib, h = getattr(self, "_lib", None), getattr(self, "_h", None)
+        if lib is not None and h:
+            lib.rs_destroy(h)
+            self._h = None
+
+    def get(self, ids: Iterable[int]) -> np.ndarray:
+        ids = _ids_arr(ids)
+        out = np.empty((ids.size, self.dim), np.float32)
+        before = self.created_count
+        self._lib.rs_get(self._h, _i64p(ids), ids.size, _f32p(out))
+        if self._track_dirty and self.created_count != before:
+            # At least one requested row materialised; which ones is
+            # invisible from here, so mark them all.
+            self._dirty.update(ids.tolist())
+        return out
+
+    def set(self, ids: Iterable[int], values: np.ndarray) -> None:
+        ids = _ids_arr(ids)
+        values = np.ascontiguousarray(values, np.float32)
+        self._lib.rs_set(self._h, _i64p(ids), ids.size, _f32p(values))
+        if self._track_dirty:
+            self._dirty.update(ids.tolist())
+
+    @property
+    def num_rows(self) -> int:
+        """Rows in the store."""
+        return int(self._lib.rs_num_rows(self._h))
+
+    @property
+    def created_count(self) -> int:
+        """Monotonic count of row materialisations."""
+        return int(self._lib.rs_created_count(self._h))
+
+    def to_arrays(self):
+        n = self.num_rows
+        ids = np.empty((n,), np.int64)
+        rows = np.empty((n, self.dim), np.float32)
+        if n:
+            self._lib.rs_export(self._h, _i64p(ids), _f32p(rows))
+            order = np.argsort(ids, kind="stable")
+            ids, rows = ids[order], rows[order]
+        return ids, rows
+
+    @classmethod
+    def from_arrays(cls, name, ids, rows, **kwargs):
+        table = cls(name, rows.shape[1] if rows.ndim == 2 else 0, **kwargs)
+        if len(ids):
+            table.set(ids, rows)
+        return table
+
+    # ---- dirty-row tracking (incremental checkpoints) -----------------
+
+    @property
+    def supports_dirty_rows(self) -> bool:
+        return self._track_dirty
+
+    def enable_dirty_tracking(self) -> None:
+        self._track_dirty = True
+
+    @property
+    def dirty_count(self) -> int:
+        return len(self._dirty)
+
+    def dirty_arrays(self):
+        """(ids, rows) touched since the last drain, sorted; clears the
+        set."""
+        if not self._dirty:
+            return (np.zeros((0,), np.int64),
+                    np.zeros((0, self.dim), np.float32))
+        ids = np.array(sorted(self._dirty), np.int64)
+        self._dirty.clear()
+        out = np.empty((ids.size, self.dim), np.float32)
+        self._lib.rs_get(self._h, _i64p(ids), ids.size, _f32p(out))
+        return ids, out
+
+    def mark_dirty(self, ids) -> None:
+        if self._track_dirty:
+            self._dirty.update(int(i) for i in np.asarray(ids).ravel())
+
+    def clear_dirty(self) -> None:
+        self._dirty.clear()
+
+
+class NativeOptimizerWrapper:
+    """``HostOptimizerWrapper``'s twin calling the fused C++ row
+    updates."""
+
+    def __init__(self, opt: RowOptimizer):
+        self.opt = opt
+        self._lib = get_lib()
+        if self._lib is None:
+            raise RuntimeError("native library unavailable")
+        self._slot_tables: Dict[str, NativeEmbeddingTable] = {}
+        self._steps: Dict[str, int] = {}
+
+    def _slot_table(self, table, slot_name: str):
+        key = get_slot_table_name(table.name, slot_name)
+        if key not in self._slot_tables:
+            st = NativeEmbeddingTable(
+                key,
+                table.dim,
+                is_slot=True,
+                slot_init_value=slot_init_value(self.opt, slot_name),
+            )
+            if getattr(table, "supports_dirty_rows", False):
+                st.enable_dirty_tracking()
+            self._slot_tables[key] = st
+        return self._slot_tables[key]
+
+    def apply_gradients(self, table, ids, grads):
+        ids = _ids_arr(ids)
+        if np.unique(ids).size != ids.size:
+            raise ValueError("ids must be deduplicated before apply")
+        if not isinstance(table, NativeEmbeddingTable):
+            raise TypeError(
+                "NativeOptimizerWrapper needs a NativeEmbeddingTable"
+            )
+        grads = np.ascontiguousarray(grads, np.float32)
+        step = self._steps.get(table.name, 0) + 1
+        self._steps[table.name] = step
+        opt, lib, n = self.opt, self._lib, ids.size
+        slots = {name: self._slot_table(table, name)
+                 for name in opt.slot_names}
+        ip, gp = _i64p(ids), _f32p(grads)
+        if isinstance(opt, Momentum):
+            lib.rs_momentum(
+                table._h, slots["momentum"]._h,
+                ip, n, gp, opt.lr, opt.momentum, int(opt.nesterov),
+            )
+        elif isinstance(opt, (Adam, AdamAmsgrad)):
+            max_h = slots["max_v"]._h if opt.amsgrad else None
+            lib.rs_adam(
+                table._h, slots["m"]._h, slots["v"]._h,
+                max_h, ip, n, gp,
+                opt.lr, opt.beta1, opt.beta2, opt.epsilon, step,
+            )
+        elif isinstance(opt, Adagrad):
+            lib.rs_adagrad(
+                table._h, slots["accumulator"]._h,
+                ip, n, gp, opt.lr, opt.epsilon,
+            )
+        elif isinstance(opt, SGD):
+            lib.rs_sgd(table._h, ip, n, gp, opt.lr)
+        else:
+            raise ValueError(f"No native kernel for {opt.name}")
+        # The fused kernels write rows and slots inside C++, bypassing
+        # set(): mark the applied ids so delta checkpoints see them.
+        if table.supports_dirty_rows:
+            table.mark_dirty(ids)
+            for slot in slots.values():
+                slot.mark_dirty(ids)
+        return table
+
+    def state_tables(self, main_tables: Dict) -> Dict:
+        """Slot tables + step counters for checkpointing (shared with
+        the Python wrapper)."""
+        return wrapper_state_tables(self, main_tables)
+
+
+def make_host_table(name: str, dim: int, dtype=np.float32, **kwargs):
+    """Native table when available + float32 + a supported initializer
+    (uniform/zeros/slot-constant), else the Python one."""
+    supported_init = kwargs.get("is_slot", False) or kwargs.get(
+        "initializer", "uniform"
+    ) in ("uniform", "zeros")
+    if (
+        native_available()
+        and np.dtype(dtype) == np.float32
+        and supported_init
+    ):
+        return NativeEmbeddingTable(name, dim, dtype=dtype, **kwargs)
+    return EmbeddingTable(name, dim, dtype=dtype, **kwargs)
+
+
+def make_host_optimizer(opt: RowOptimizer):
+    if native_available() and type(opt) in (
+        SGD, Momentum, Adam, AdamAmsgrad, Adagrad,
+    ):
+        return NativeOptimizerWrapper(opt)
+    return HostOptimizerWrapper(opt)

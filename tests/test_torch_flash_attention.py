@@ -4,8 +4,8 @@ package's.
 Inputs are made with numpy from a seed and fed to both frameworks. The
 JAX side runs the Pallas kernel in interpret mode, as
 tests/test_flash_attention.py does; the port's CPU side runs the plain
-version (the CUDA kernel is held against it on the card, in the
-``cuda``-marked case and in chip_smoke.py).
+version (the CUDA kernel is held against it on the card, in
+tests/test_torch_cuda_kernels.py and in chip_smoke.py).
 
 Tolerances: f32 at rtol/atol 2e-5 (f32 sums over at most 128 keys in
 another order). bf16 at 2e-2 relative to max(1, |o|): o is rounded to
@@ -310,78 +310,6 @@ def test_chunk_grads_wrapper_rejects_what_the_kernels_do_not_take():
                                    0.125)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bh,s_len,d,dtype,causal", [
-    (32, 1024, 128, torch.bfloat16, True),
-    (32, 1024, 128, torch.bfloat16, False),
-    (32, 1024, 128, torch.float32, True),
-    (8, 100, 128, torch.bfloat16, True),     # ragged last tiles
-    (8, 37, 16, torch.bfloat16, False),
-    (8, 130, 32, torch.float32, True),
-    (8, 200, 64, torch.float32, False),
-])
-def test_cuda_kernel_matches_plain(bh, s_len, d, dtype, causal):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the card)")
-    arrays = _qkv((bh, s_len, d), seed=1)
-    q, k, v = (x.to("cuda", dtype) for x in _torch(arrays, torch.float32))
-    before = tfa.launches
-    o, lse = tfa.flash_forward(q, k, v, causal, d ** -0.5)
-    torch.cuda.synchronize()
-    assert tfa.launches == before + 1
-    o_ref, lse_ref = tfa.flash_forward_reference(q, k, v, causal,
-                                                 d ** -0.5)
-    tol = BF16_TOL if dtype == torch.bfloat16 else 2e-5
-    err = (o.float() - o_ref.float()).abs()
-    assert bool((err <= tol * (1 + o_ref.float().abs())).all())
-    torch.testing.assert_close(lse, lse_ref, rtol=1e-4, atol=1e-3)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("bh,sq,sk,d,dtype,causal,q_offset,k_offset", [
-    (32, 1024, 1024, 128, torch.bfloat16, True, 0, 0),
-    (32, 1024, 1024, 128, torch.bfloat16, False, 0, 0),
-    (32, 1024, 1024, 128, torch.float32, True, 0, 0),
-    (8, 100, 100, 128, torch.bfloat16, True, 0, 0),     # ragged last tiles
-    (8, 37, 37, 16, torch.bfloat16, False, 0, 0),
-    (8, 130, 130, 32, torch.float32, True, 0, 0),
-    (8, 200, 200, 64, torch.float32, False, 0, 0),
-    (8, 200, 200, 64, torch.bfloat16, True, 0, 0),
-    (8, 512, 1024, 128, torch.bfloat16, True, 512, 0),  # a ring chunk
-    (64, 127, 127, 16, torch.bfloat16, True, 0, 0),     # the zoo twin's step
-    (8, 384, 512, 128, torch.bfloat16, True, 0, 0),  # keys beyond every query
-    (8, 384, 512, 32, torch.bfloat16, True, 0, 0),
-    (8, 384, 512, 64, torch.float32, True, 0, 0),
-    (8, 384, 256, 128, torch.bfloat16, True, 0, 128),  # rows before every key
-    (8, 384, 256, 32, torch.bfloat16, True, 0, 128),
-    (4, 2048, 2048, 128, torch.bfloat16, True, 2048, 0),  # ring: past chunk
-    (4, 2048, 2048, 128, torch.bfloat16, True, 0, 0),     # diagonal chunk
-])
-def test_cuda_bwd_kernels_match_plain(bh, sq, sk, d, dtype, causal,
-                                      q_offset, k_offset):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the card)")
-    inputs = _chunk_inputs(bh, sq, sk, d, seed=2)
-    q, k, v, do = (torch.from_numpy(x).to("cuda", dtype)
-                   for x in inputs[:4])
-    lse, delta = (torch.from_numpy(x).cuda() for x in inputs[4:])
-    before = (tfa.dq_launches, tfa.dkv_launches)
-    got = tfa.flash_chunk_grads(q, k, v, do, lse, delta, q_offset, k_offset,
-                                causal)
-    torch.cuda.synchronize()
-    assert (tfa.dq_launches, tfa.dkv_launches) == (before[0] + 1,
-                                                   before[1] + 1)
-    want = tfa.flash_chunk_grads_reference(q, k, v, do, lse, delta,
-                                           q_offset, k_offset, causal)
-    tol = CUDA_BWD_TOL[dtype]
-    for g, w in zip(got, want):
-        err, size = (g - w).abs(), w.abs()
-        assert bool((err <= tol["elem"] * (size + size.median())).all())
-        assert (err.norm() / w.norm()).item() <= tol["l2"]
-    no_key = max(k_offset - q_offset, 0)   # dq rows that reach no key
-    assert bool((got[0][:, :no_key] == 0).all())
-
-
 def _readings(got, want):
     """elem = max |g - w| / (|w| + median|w|) and l2 = ||g - w|| / ||w||."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
@@ -515,22 +443,3 @@ def test_chunk_wgmma_mutant_texts_land_in_the_wgmma_kernel(name):
         assert start < source.find(old) < end, (name, old)
     assert chunk_kernel_mutants.mutate(
         source, chunk_kernel_mutants.WGMMA_MUTANTS[name]) != source
-
-
-@pytest.mark.cuda
-def test_cuda_kernel_matches_tiled_plain_at_the_flagship_shape():
-    """B 8 x H 4 x S 1024 x D 128, causal, bf16: the wgmma kernel against
-    the plain version folded over its 128-key tiles."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the card)")
-    q, k, v = (x.to("cuda", torch.bfloat16)
-               for x in _torch(_qkv((32, 1024, 128), seed=4), torch.float32))
-    o, lse = tfa.flash_forward(q, k, v, True)
-    torch.cuda.synchronize()
-    want, want_lse = tfa.flash_forward_reference(
-        q, k, v, True, block_k=tfa.forward_block_k(128, torch.bfloat16))
-    tol = TILED_TOL[torch.bfloat16]
-    elem, l2 = _readings(_np(o.cpu()), _np(want.cpu()))
-    assert elem <= tol["elem"] and l2 <= tol["l2"], (elem, l2)
-    assert ((lse - want_lse).abs() / (1 + want_lse.abs())).max().item() \
-        <= tol["lse"]

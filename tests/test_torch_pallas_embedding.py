@@ -3,7 +3,7 @@ against the JAX package's Pallas kernels in interpret mode, on the same
 numpy-seeded inputs, mirroring tests/test_pallas_embedding.py and
 tests/test_sparse_path.py's fused cases. On the CPU each wrapper runs
 its plain version; the CUDA kernels are held against the plain versions
-on the card in the ``cuda``-marked test and in chip_smoke.py.
+on the card in tests/test_torch_cuda_kernels.py and in chip_smoke.py.
 
 Tolerances (f32): lookups at rtol 1e-5 / atol 1e-6 (both sum the L rows
 in id order; XLA may fuse a multiply-add where torch rounds the
@@ -337,86 +337,6 @@ def test_fused_apply_is_autodiff_exempt():
     out = pe.fused_sgd_scatter_apply(t, i, g, lr=0.1)
     with pytest.raises(ValueError, match="autodiff-exempt"):
         out.sum().backward()
-
-
-# ---- on the card -----------------------------------------------------------
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dim,batch,num_ids,layout", [
-    pytest.param(16, 37, L, "plain", id="16"),
-    pytest.param(130, 37, L, "plain", id="130"),
-    pytest.param(256, 37, L, "plain", id="256"),
-    pytest.param(256, 37, 96, "late_out_of_range", id="L96"),
-    pytest.param(256, 1, 32, "plain", id="B1"),
-    pytest.param(256, 64, 32, "plain", id="B64"),
-    pytest.param(4, 37, 40, "plain", id="D4"),
-    pytest.param(256, 37, 32, "offset4", id="offset4"),
-])
-def test_cuda_kernels_match_plain(dim, batch, num_ids, layout):
-    """Both lookups (and, at the first three widths, the row kernels)
-    against their plain versions on the card; each lookup again through
-    its C entry point into a NaN-filled output, bit-equal to the
-    wrapper's. ``offset4`` views the table 4 bytes into its storage
-    (#5's 4-byte instance)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the card)")
-    rng = np.random.RandomState(7)   # as _lookup_inputs(dim, seed=7)
-    table = rng.randn(V, dim).astype(np.float32)
-    ids = rng.randint(0, V, (batch, num_ids)).astype(np.int32)
-    weights = rng.rand(batch, num_ids).astype(np.float32)
-    if batch > 3:
-        weights[2] = 0.0        # an empty row: zeros, not NaN
-        weights[3, 2:] = 0.0    # a padded row
-    if layout == "late_out_of_range":
-        ids = _late_out_of_range(ids)
-    if layout == "offset4":
-        flat = torch.zeros(V * dim + 1, device="cuda")
-        flat[1:] = torch.from_numpy(table.ravel()).cuda()
-        t = flat[1:].view(V, dim)
-        assert t.data_ptr() % 16 == 4
-    else:
-        t = torch.from_numpy(table).cuda()
-    i, w = (x.cuda() for x in _t(ids, weights))
-    lib = pe._lookup_library()
-    for fn, counter in ((pe.lookup_combine_pallas, "lookup_launches"),
-                        (pe.lookup_combine_aligned, "aligned_launches")):
-        for combiner in ("sum", "mean", "sqrtn"):
-            before = getattr(pe, counter)
-            got = fn(t, i, w, combiner)
-            nan_out = torch.full_like(got, float("nan"))
-            err = pe._lookup_launch(lib, counter == "aligned_launches", t, i,
-                                    w, nan_out, combiner)
-            torch.cuda.synchronize()
-            assert err == 0
-            assert getattr(pe, counter) == before + 1
-            want = pe.lookup_combine_reference(t, i, w, combiner)
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-            assert torch.equal(nan_out.view(torch.int32),
-                               got.view(torch.int32))
-    if layout != "plain" or num_ids != L:
-        return
-    for rule in ("sgd", "momentum", "adagrad", "adam", "amsgrad"):
-        tables, uids, grads, real = _row_inputs(rule, dim=dim, seed=8)
-        for fused in ((False, True) if rule in ("sgd", "momentum")
-                      else (False,)):
-            got = [torch.from_numpy(x).cuda() for x in tables]
-            want = [x.clone() for x in got]
-            i, g = (x.cuda() for x in _t(uids, grads))
-            pe.row_update(rule, i, g, got, fused=fused, lr=0.05,
-                          momentum=0.9, nesterov=True, eps=1e-8,
-                          beta1=0.9, beta2=0.999, step=3)
-            pe.row_update_reference(rule, i, g, want, lr=0.05, momentum=0.9,
-                                    nesterov=True, eps=1e-8, beta1=0.9,
-                                    beta2=0.999,
-                                    bc=pe.bias_corrections(0.9, 0.999, 3))
-            torch.cuda.synchronize()
-            for a, b, before in zip(got, want, tables):
-                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
-                untouched = np.ones(V, bool)
-                untouched[real] = False
-                assert np.array_equal(a.cpu().numpy()[untouched],
-                                      before[untouched])
 
 
 def test_sweep_bounds_count_each_byte_once():

@@ -7,8 +7,8 @@ mode on the virtual CPU devices (tests/conftest.py), as
 tests/test_ring_attention.py does; the port's CPU side runs the kernels'
 plain versions on a mesh of the CPU repeated (``[cpu] * n``: one
 controller, every entry one device). The CUDA kernel is held against
-the plain version on the card in the ``cuda``-marked cases and in
-chip_smoke.py.
+the plain version on the card in tests/test_torch_cuda_kernels.py and
+in chip_smoke.py.
 
 Tolerances:
 - chunk update, f32: |got - want| <= 2e-5 * (1 + |want|) for m, l and
@@ -421,75 +421,3 @@ def test_default_mesh_takes_the_cuda_devices():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tmesh.make_mesh()
-
-
-# ---- on the card ----------------------------------------------------------
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
-def test_cuda_chunk_kernel_matches_plain(case, dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the card)")
-    sq, sk, q_off, k_off, causal = CHUNK_CASES[case]
-    rng = np.random.default_rng(3)
-    q = torch.from_numpy(rng.standard_normal((8, sq * 8, 64),
-                                             dtype=np.float32))
-    k, v = (torch.from_numpy(rng.standard_normal((8, sk * 8, 64),
-                                                 dtype=np.float32))
-            for _ in range(2))
-    args = [x.to("cuda", dtype) for x in (q, k, v)] + [
-        torch.from_numpy(x).cuda() for x in _carry(8, sq * 8, 64, 5)]
-    before = tfa.chunk_launches
-    got = tfa.flash_chunk_update(*args, q_off * 8, k_off * 8, causal)
-    torch.cuda.synchronize()
-    assert tfa.chunk_launches == before + 1
-    want = tfa.flash_chunk_update_reference(*args, q_off * 8, k_off * 8,
-                                            causal)
-    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
-    for g, w in zip(got, want):
-        assert bool(((g - w).abs() <= tol * (1 + w.abs())).all())
-
-
-@pytest.mark.cuda
-def test_cuda_chunk_kernel_matches_plain_at_the_ring_past_chunk():
-    """BH 4 x 2048 x 2048, D 128, bf16, a past chunk (q_offset 4096) with
-    a folded carry: the wgmma kernel against the plain version folded in
-    its own order, at chip_smoke.py's CHUNK_TOL (elem 3e-2, L2 2e-4)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the card)")
-    q, k, v = (torch.from_numpy(x).to("cuda", torch.bfloat16)
-               for x in _qkv((4, 2048, 128), seed=6, scale=1.0))
-    state = [torch.from_numpy(x).cuda() for x in _carry(4, 2048, 128, 7)]
-    got = tfa.flash_chunk_update(q, k, v, *state, 4096, 0, True)
-    torch.cuda.synchronize()
-    want = tfa.flash_chunk_update_reference(
-        q, k, v, *state, 4096, 0, True,
-        block_k=tfa.chunk_block_k(128, torch.bfloat16),
-        consumers=tfa.chunk_consumers(128, torch.bfloat16))
-    for g, w in zip(got, want):
-        err = (g - w).abs()
-        floor = w.abs().median()
-        assert (err / (w.abs() + floor)).max().item() <= 3e-2
-        assert (err.norm() / w.norm()).item() <= 2e-4
-
-
-@pytest.mark.cuda
-def test_cuda_ring_matches_flash_and_raises_off_the_kernels():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the card)")
-    mesh = tmesh.make_mesh((4,), ("sp",), [torch.device("cuda:0")] * 4)
-    q, k, v = (torch.from_numpy(x).to("cuda", torch.bfloat16)
-               for x in _qkv((1, 1024, 4, 128), seed=2, scale=1.0))
-    before = tfa.chunk_launches
-    got = tra.ring_attention(q, k, v, mesh)
-    assert tfa.chunk_launches == before + 16
-    want = tfa.flash_attention(q, k, v)
-    err = (got.float() - want.float()).norm() / want.float().norm()
-    assert err.item() <= 1e-2
-    with pytest.raises(NotImplementedError, match="head dims"):
-        tra.ring_attention(q, k, v, mesh, use_pallas=False)
-    q48 = q[..., :48].contiguous()
-    with pytest.raises(NotImplementedError, match="head dims"):
-        tra.ring_attention(q48, q48, q48, mesh)

@@ -335,10 +335,12 @@ def test_cli_dispatch():
 
 
 def test_port_imports_nothing_of_jax():
-    """No file of the port (nor chip_smoke.py) imports jax, flax, optax
-    or elasticdl_tpu; the package imports no framework at import."""
+    """No file of the port (nor chip_smoke.py, nor the kernel tests that
+    run on the card) imports jax, flax, optax or elasticdl_tpu; the
+    package imports no framework at import."""
     banned = ("jax", "flax", "optax", "elasticdl_tpu")
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "test_torch_cuda_kernels.py")]
     for dirpath, _, names in os.walk(os.path.join(REPO,
                                                   "elasticdl_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names

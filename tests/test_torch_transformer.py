@@ -201,18 +201,6 @@ def test_zoo_twin_builds_on_cpu_and_needs_cuda_otherwise():
             getattr(module, fn)()
 
 
-@pytest.mark.cuda
-def test_cuda_attention_raises_for_an_untemplated_head_dim():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (run on the card)")
-    model = TransformerLM(TransformerConfig(
-        vocab_size=V, d_model=96, n_heads=2, n_layers=1, d_ff=64,
-        max_len=MAX_LEN)).cuda().eval()
-    with pytest.raises(NotImplementedError, match="head dims"):
-        with torch.inference_mode():
-            model(torch.zeros((1, 8), dtype=torch.long, device="cuda"))
-
-
 # ---- training: gradients, dropout, remat -------------------------------
 
 def _jax_grads(jmodel, params, tokens, labels, mask):
