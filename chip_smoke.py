@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phase chunk  # kernel #2 alone
     python3 chip_smoke.py --phase lookup # kernels #5 and #6 alone
     python3 chip_smoke.py --phase host   # the host tier alone, no kernel build
+    python3 chip_smoke.py --phase vision # the vision zoo alone, no build
 
 1. Prints the card (``nvidia-smi`` name and power limit) and versions.
 2. Builds every CUDA kernel of the port from ``elasticdl_tpu_torch/ops/csrc``.
@@ -122,6 +123,20 @@
    apply. Then deepfm_functional (BASELINE #4) for 5 Local steps on the
    card and on the CPU: losses, first-step gradients and every
    parameter's change within the zoo twin's limits, no kernel launches.
+11c. ``vision`` (BatchNorm and the vision zoo; ``--phase vision`` runs
+   it alone): mnist_functional through ``LocalExecutor`` at B 512 for 5
+   steps on the learnable mnist records, on the card and on the CPU from
+   the same seed: losses, first-step gradients, every parameter's
+   change (TRAJ_TOL) and the running statistics agree; the card's
+   ``--output`` bundle served on the card (``load_served_model``)
+   answers as the trained model's eval forward; on the card a full batch
+   moves the statistics and a batch with padded rows leaves them
+   bit-equal, from a host mask and from a batch already on the card.
+   Then the resnet50 twin (``custom_model()``: s2d stem, 10 classes) at
+   B 128 x 224 x 224 through the executor's train step on bench_suite's
+   synthetic batches, 3 untimed and 10 timed steps: step ms (CUDA
+   events) beside issue ms, examples/s, peak memory; a finite loss and
+   every statistic moved. Every kernel counter reads 0 on these paths.
 12. ``fused path``: ``DeviceSparseRunner`` over the recsys table with
    Momentum (Nesterov) and ``use_pallas="fused"`` for 10 steps against
    "never": one fused-kernel launch a step.
@@ -160,10 +175,11 @@
    updates an eval batch); step ms beside issue ms, tokens/s, peak
    memory.
 17. Prints a ``serving``, a ``training``, a ``sparse_training``, a
-   ``ring_training``, a ``host_training`` and a ``kernels`` JSON line
-   (the four flash kernels and the four embedding kernels with their
-   ms, plain ms, library ms, bound ms and launches, and their launches
-   on the host path, ``launches_host_training``; #5 with its times at
+   ``ring_training``, a ``host_training``, a ``vision`` and a
+   ``kernels`` JSON line (the four flash kernels and the four embedding
+   kernels with their ms, plain ms, library ms, bound ms and launches,
+   and their launches on the host and vision paths,
+   ``launches_host_training``, ``launches_vision``; #5 with its times at
    the sweep's tiers, the row kernels with a per-rule list) and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -362,6 +378,23 @@ HOST_ENGINE_BATCHES, HOST_ENGINE_SKIP = 12, 2
 # deepfm_functional (BASELINE #4), card vs CPU for this many Local steps
 # at HOST_BATCH, held to TRAJ_TOL as the transformer twin is.
 DEEPFM_STEPS = 5
+# The vision zoo (bench_suite.py CONFIGS: mnist at B 512, resnet50 at
+# B 128 x 224 x 224). mnist_functional runs VISION_STEPS Local steps on
+# the card and on the CPU from the same seed, on the learnable mnist
+# records (testing.data: the label's block of pixels brightened), held
+# to TRAJ_TOL: the loss, the first step's gradients and each parameter's
+# change; the running statistics after the run at VISION_STATS_TOL
+# (relative L2): they average bf16 activations that cuDNN's and
+# oneDNN's convolutions sum in other orders, as the gradients do. Then
+# the padded-batch guard on the card, and the --output bundle served on
+# the card against the trained model's eval forward (LOGITS_REL_TOL).
+# resnet50 (the zoo's custom_model(): s2d stem, 10 classes) takes
+# VISION_WARM untimed and VISION_TIMED timed steps at RESNET_BATCH on
+# bench_suite's synthetic batches (uniform [0, 1) images).
+VISION_BATCH, VISION_STEPS = 512, 5
+VISION_STATS_TOL = 2e-2
+RESNET_BATCH, RESNET_HW = 128, 224
+VISION_WARM, VISION_TIMED = 3, 10
 # Ring attention over an sp mesh of one card (slice 4): the long-context
 # row of tools/bench_long_context.py, (S 8192, B 1, remat), on the
 # flagship's widths, the sequence cut over RING_SP ranks (chunks of 2048).
@@ -2486,6 +2519,216 @@ def deepfm_functional_phase(torch, fa, pe, root):
     return out
 
 
+def vision_phase(torch, fa, pe, root):
+    """The vision zoo on the card: mnist_functional through
+    LocalExecutor (card vs CPU, the padded-batch guard, the bundle
+    served), resnet50 at full width timed; every kernel counter 0."""
+    mnist = mnist_phase(torch, fa, pe, root)
+    resnet = resnet50_phase(torch, fa, pe)
+    out = {"mnist_functional": mnist, "resnet50": resnet}
+    print("vision", json.dumps(out), flush=True)
+    return out
+
+
+def mnist_phase(torch, fa, pe, root):
+    from elasticdl_tpu_torch.api.local_executor import LocalExecutor
+    from elasticdl_tpu_torch.model_zoo.mnist import mnist_functional as twin
+    from elasticdl_tpu_torch.serving.model_store import load_served_model
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    records = tdata.create_mnist_record_file(
+        os.path.join(root, "mnist.rec"), VISION_STEPS * VISION_BATCH,
+        seed=SEED)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(root, f"mnist_{dev}")
+        args = tdata.make_local_args(
+            tdata.model_zoo_dir(), "mnist.mnist_functional.custom_model",
+            records, minibatch_size=VISION_BATCH,
+            extra=["--device", dev, "--random_seed", str(SEED),
+                   "--output", out])
+        record = step_recorder(torch)
+        executor = LocalExecutor(args, callbacks=[record])
+        reset_kernel_launches(fa, pe)          # the vision path starts here
+        executor.run()
+        record.counts = kernel_launch_counts(fa, pe)    # ... and ends
+        record.final = {name: p.detach().float().cpu()
+                        for name, p in executor.state.model.named_parameters()}
+        record.stats = {name: b.cpu().clone()
+                        for name, b in executor.state.batch_stats.items()}
+        record.executor, record.bundle = executor, out
+        runs[dev] = record
+    card, cpu = runs["cuda"], runs["cpu"]
+    losses = {dev: [float(x) for x in r.loss] for dev, r in runs.items()}
+    # After the first step the learnable records' loss reaches 0 on both.
+    rel = [abs(a - b) / max(abs(b), 1e-30)
+           for a, b in zip(losses["cuda"], losses["cpu"])]
+    grad_l2 = {n: rel_err(card.first_grads[n].numpy(),
+                          cpu.first_grads[n].numpy())
+               for n in cpu.initial if np.any(cpu.first_grads[n].numpy())}
+    delta_l2 = {n: rel_err((card.final[n] - card.initial[n]).numpy(),
+                           (cpu.final[n] - cpu.initial[n]).numpy())
+                for n in cpu.initial}
+    stats_l2 = {n: rel_err(card.stats[n].numpy(), cpu.stats[n].numpy())
+                for n in cpu.stats}
+    # The card's bundle served on the card, against the trained model's
+    # eval forward on the same batch; then the guard, which trains on.
+    served = load_served_model(
+        card.bundle, device="cuda",
+        model_fn=lambda: twin.custom_model(device="cuda"))
+    features = card.executor.last_batch["features"]
+    with torch.no_grad():
+        want = card.executor.state.model.eval()(
+            torch.from_numpy(features).cuda()).cpu().numpy()
+    reset_kernel_launches(fa, pe)
+    got = served.predict(features)
+    serve_counts = kernel_launch_counts(fa, pe)
+    serve_l2 = rel_err(got, want)
+    guard = padded_guard_check(torch, card.executor.state, twin)
+    out = {"model": "mnist_functional twin (model_zoo/mnist/"
+                    "mnist_functional.py, bf16, SGD 0.1 momentum 0.9), "
+                    f"random weights, seed {SEED}",
+           "batch": VISION_BATCH, "steps": len(rel),
+           "losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"],
+           "loss_max_rel_diff": max(rel), "grad_l2": grad_l2,
+           "delta_l2": delta_l2, "stats_l2": stats_l2,
+           "launches_card": card.counts, "launches_cpu": cpu.counts,
+           "launches_served": serve_counts, "padded_guard": guard,
+           "served_vs_eval_l2": serve_l2,
+           "tol": dict(TRAJ_TOL, stats_l2=VISION_STATS_TOL,
+                       served=LOGITS_REL_TOL)}
+    print("mnist_functional card vs cpu", json.dumps(out), flush=True)
+    check(len(rel) == VISION_STEPS, f"{len(rel)} mnist steps")
+    check(all(torch.equal(card.initial[n], cpu.initial[n])
+              for n in cpu.initial), "mnist: other initial weights")
+    for counts in (card.counts, cpu.counts, serve_counts):
+        check(not any(counts.values()),
+              f"the vision path launched kernels: {counts}")
+    check(all(np.isfinite(losses["cuda"])), "mnist: non-finite loss")
+    check(losses["cuda"][-1] < losses["cuda"][0],
+          f"mnist: the loss did not fall: {losses['cuda']}")
+    check(max(rel) <= TRAJ_TOL["loss"], f"mnist card vs CPU losses {out}")
+    check(grad_l2 and max(grad_l2.values()) <= TRAJ_TOL["grad_l2"],
+          f"mnist card vs CPU first-step gradients {grad_l2}")
+    check(max(delta_l2.values()) <= TRAJ_TOL["delta_l2"],
+          f"mnist card vs CPU parameter changes {delta_l2}")
+    check(max(stats_l2.values()) <= VISION_STATS_TOL,
+          f"mnist card vs CPU statistics {stats_l2}")
+    check(all(guard.values()), f"the padded-batch guard on the card: {guard}")
+    check(serve_l2 <= LOGITS_REL_TOL, f"served vs eval forward {serve_l2}")
+    return out
+
+
+def padded_guard_check(torch, state, twin):
+    """On the card: a full batch moves the statistics; a batch with
+    padded rows leaves them bit-equal, from a host mask and from a batch
+    already on the card (torch.where, no read-back); the step still
+    trains."""
+    from elasticdl_tpu_torch.core.step import build_train_step
+    from elasticdl_tpu_torch.data.batcher import pad_batch, tree_map
+
+    rng = np.random.default_rng(SEED + 40)
+
+    def batch(real, placed=False):
+        b = pad_batch(rng.random((real, 28, 28), dtype=np.float32),
+                      rng.integers(0, 10, real).astype(np.int32), real,
+                      VISION_BATCH)
+        return tree_map(lambda x: torch.from_numpy(x).cuda(), b) \
+            if placed else b
+
+    def stats():
+        return [b.clone() for b in state.batch_stats.values()]
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    step = build_train_step(twin.loss)
+    out = {}
+    before = stats()
+    step(state, batch(VISION_BATCH))
+    out["full_moves"] = not same(before, stats())
+    for placed in (False, True):
+        before = stats()
+        weight = state.model.Dense_0.weight.detach().clone()
+        step(state, batch(VISION_BATCH // 2, placed))
+        key = "placed" if placed else "host"
+        out[f"padded_{key}_bit_equal"] = same(before, stats())
+        out[f"padded_{key}_trains"] = not torch.equal(
+            weight, state.model.Dense_0.weight)
+    torch.cuda.synchronize()
+    return out
+
+
+def resnet50_phase(torch, fa, pe):
+    """The resnet50 zoo twin (custom_model(): s2d stem, 10 classes, bf16)
+    at RESNET_BATCH x RESNET_HW^2 through the executor's train step,
+    timed: step ms (CUDA events) beside issue ms, examples/s, peak
+    memory; a finite loss and moved statistics; no kernel launches."""
+    from elasticdl_tpu_torch.core.model_spec import get_model_spec
+    from elasticdl_tpu_torch.core.step import build_train_step
+    from elasticdl_tpu_torch.core.train_state import init_train_state
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    torch.manual_seed(SEED)
+    spec = get_model_spec(tdata.model_zoo_dir(),
+                          "resnet50.resnet50.custom_model", device="cuda")
+    state = init_train_state(spec.model, spec.make_optimizer(), seed=SEED)
+    step = build_train_step(spec.loss)
+    rng = np.random.RandomState(SEED)      # bench_suite._make_batch's
+    batches = [{"features": rng.rand(RESNET_BATCH, RESNET_HW, RESNET_HW,
+                                     3).astype(np.float32),
+                "labels": rng.randint(0, 10, RESNET_BATCH).astype(np.int32),
+                "mask": np.ones(RESNET_BATCH, np.float32)}
+               for _ in range(2)]
+    initial_stats = {k: v.clone() for k, v in state.batch_stats.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches(fa, pe)            # the resnet path starts here
+    events, issue_ms, losses = [], [], []
+    for i in range(VISION_WARM + VISION_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, metrics = step(state, batches[i % 2])
+        end.record()
+        issue_ms.append((time.perf_counter() - t0) * 1e3)
+        events.append((start, end))
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    counts = kernel_launch_counts(fa, pe)    # ... and ends
+    peak = torch.cuda.max_memory_allocated()
+    clocks = smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu")
+    step_ms = [s.elapsed_time(e) for s, e in events[VISION_WARM:]]
+    timed_issue = issue_ms[VISION_WARM:]
+    losses = [float(x) for x in losses]
+    moved = {k: not torch.equal(v, initial_stats[k])
+             for k, v in state.batch_stats.items()}
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in state.model.parameters())
+    median = float(np.median(step_ms))
+    out = {"model": "resnet50 twin (model_zoo/resnet50/resnet50.py "
+                    "custom_model(): s2d stem, bottleneck v1.5 (3, 4, 6, "
+                    "3), 10 classes, bf16, SGD 0.02 Nesterov), random "
+                    f"weights, seed {SEED}",
+           "batch": RESNET_BATCH, "image_hw": RESNET_HW,
+           "warm_steps": VISION_WARM, "timed_steps": VISION_TIMED,
+           "step_ms": spread(step_ms), "issue_ms": spread(timed_issue),
+           "examples_per_s": RESNET_BATCH / (median / 1e3),
+           "max_memory_allocated_bytes": peak, "losses": losses,
+           "params_finite": finite, "statistics": len(moved),
+           "statistics_moved": sum(moved.values()), "launches": counts,
+           "card": smi("name,power.limit"), "clocks_after": clocks}
+    print("resnet50 training", json.dumps(out), flush=True)
+    check(all(np.isfinite(losses)) and finite,
+          f"resnet50: non-finite loss or weights: {losses}")
+    check(moved and all(moved.values()),
+          f"resnet50: statistics that did not move: "
+          f"{[k for k, v in moved.items() if not v]}")
+    check(not any(counts.values()), f"resnet50 launched kernels: {counts}")
+    return out
+
+
 def fused_path_phase(torch, pe):
     """DeviceSparseRunner(recsys TABLE_SPECS, Momentum(lr 0.05, Nesterov),
     use_pallas="fused") on the twin for FUSED_STEPS steps, against the
@@ -2956,14 +3199,16 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
-        "--phase", choices=("all", "fwd", "bwd", "chunk", "lookup", "host"),
+        "--phase", choices=("all", "fwd", "bwd", "chunk", "lookup", "host",
+                            "vision"),
         default="all",
         help="fwd: build flash_attention_fwd.cu alone, then run kernel "
              "#1's checks and times and print its kernels row; bwd: the "
              "same for flash_attention_bwd.cu (#3 and #4); chunk: the "
              "same for flash_chunk_update.cu (#2); lookup: the same for "
              "embedding_lookup.cu (#5 and #6, timed at the sweep's tiers); "
-             "host: the host training phase alone (no kernel build)")
+             "host: the host training phase alone (no kernel build); "
+             "vision: the vision phase alone (no kernel build)")
     args = parser.parse_args(argv)
     import torch
 
@@ -2982,10 +3227,14 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    if args.phase == "host":
+    if args.phase in ("host", "vision"):
         with tempfile.TemporaryDirectory() as root:
-            host = host_training_phase(torch, fa, pe, root)
-        print(json.dumps({"host_training": host}))
+            if args.phase == "host":
+                line = {"host_training": host_training_phase(torch, fa, pe,
+                                                             root)}
+            else:
+                line = {"vision": vision_phase(torch, fa, pe, root)}
+        print(json.dumps(line))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -3029,6 +3278,7 @@ def main(argv=None) -> int:
         sparse = sparse_training_phase(torch, pe, root)
         small_twin_phase(torch, pe, root)
         host = host_training_phase(torch, fa, pe, root)
+        vision = vision_phase(torch, fa, pe, root)
     fused = fused_path_phase(torch, pe)
     sweep, sweep_counts = sweep_phase(torch, pe)
     emb_times = embedding_times(torch, pe)
@@ -3048,11 +3298,15 @@ def main(argv=None) -> int:
         sweep_counts, sweep["lookup"])
     for row in [kernel, chunk_row] + bwd_rows + emb_rows:
         row["launches_host_training"] = host["launches_card"][row["name"]]
+        row["launches_vision"] = (
+            vision["mnist_functional"]["launches_card"][row["name"]]
+            + vision["resnet50"]["launches"][row["name"]])
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"sparse_training": sparse}))
     print(json.dumps({"ring_training": ring_training}))
     print(json.dumps({"host_training": host}))
+    print(json.dumps({"vision": vision}))
     print(json.dumps({"kernels": [kernel, chunk_row] + bwd_rows
                       + emb_rows}))
     print(json.dumps({"ok": True, "device": {

@@ -28,9 +28,19 @@ transposed), the embedding tables (``fm_embedding``, ``fm_linear``) →
 (``nn.Embedding``). ``copy_host_table`` carries a host table's rows,
 ``(ids, rows)`` through ``to_arrays``/``set``, from a JAX
 ``EmbeddingTable`` or ``NativeEmbeddingTable`` into the port's.
+
+``vision_state_dict_from_flax`` carries a flax vision model's
+``params`` and ``batch_stats`` into its zoo twin's ``state_dict`` by
+module path: the twins name their submodules as flax does (``Conv_0``,
+``BatchNorm_0``, ``Dense_0``, and the named ones: ``norm1``,
+``norm_proj``, ``proj``, ``stem``, ``stage{s}_block{b}``,
+``final_norm``, ``head``, ...), so ``A/B/leaf`` becomes ``A.B.leaf``.
+Conv kernels (kh, kw, in, out) become ``weight`` (out, in, kh, kw),
+Dense kernels (in, out) ``weight`` (out, in); BatchNorm's ``scale`` and
+``bias`` and its statistics ``mean`` and ``var`` keep their names.
 """
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -230,3 +240,34 @@ def load_sparse_state(state, carried: dict):
                 state.slot_tables[name][slot].copy_(value)
     state.table_steps.update(carried["table_steps"])
     return state
+
+
+def vision_state_dict_from_flax(params: dict,
+                                batch_stats: Optional[dict] = None
+                                ) -> Dict[str, torch.Tensor]:
+    """A vision twin's ``state_dict`` for a flax model's ``params`` (or
+    its whole variables dict, ``{"params", "batch_stats"}``) and
+    ``batch_stats``, nested dicts of numpy arrays, each tensor in its
+    array's dtype. A gradient tree (the params' shape) maps the same
+    way."""
+    if "params" in params:
+        batch_stats = params.get("batch_stats", batch_stats)
+        params = params["params"]
+    out = {}
+
+    def walk(node, prefix):
+        for name, value in node.items():
+            if isinstance(value, dict):
+                walk(value, f"{prefix}{name}.")
+                continue
+            value = np.asarray(value)
+            if name == "kernel":
+                value = (value.transpose(3, 2, 0, 1) if value.ndim == 4
+                         else value.T)
+                name = "weight"
+            out[f"{prefix}{name}"] = torch.from_numpy(
+                np.array(value, copy=True))
+
+    walk(params, "")
+    walk(batch_stats or {}, "")
+    return out

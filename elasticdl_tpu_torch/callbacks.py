@@ -1,7 +1,8 @@
 """User-facing callbacks (port of elasticdl_tpu/callbacks.py).
 
 - ``SavedModelExporter`` exports a serving bundle of the trained module
-  when training ends (the port's ``serving/export.export_serving_bundle``).
+  when training ends (the port's ``serving/export.export_serving_bundle``:
+  its ``state_dict``, BatchNorm statistics included).
 - ``Callback.on_train_batch_begin``/``on_train_batch_end`` run around
   every train step (after the state exists), so a caller can time or
   record steps without reaching into the executor.
@@ -59,10 +60,13 @@ class SavedModelExporter(Callback):
         batch_example = (self._batch_example
                          if self._batch_example is not None
                          else getattr(owner, "last_batch", None))
+        # The whole ``--model_def`` (``pkg.module.fn``) where the owner
+        # has one, so ``serve --model_zoo`` can rebuild the module.
+        model_def = (getattr(getattr(owner, "_args", None), "model_def", "")
+                     or getattr(spec, "model_fn_name", ""))
         export_serving_bundle(
             self._output_dir, state.model, batch_example=batch_example,
-            model_def=getattr(spec, "model_fn_name", ""),
-            version=state.step,
+            model_def=model_def, version=state.step,
         )
         logger.info("Exported serving bundle to %s", self._output_dir)
 

@@ -3,9 +3,17 @@
 Where the JAX package jits one XLA program per step, here each step
 runs eagerly on the model's device: forward, backward, optimizer apply.
 Batches come from data/batcher.py as numpy trees padded to a static
-shape with a ``mask``; the step moves them to the device. Nothing on a
-step reads a value back from the card: ``metrics["loss"]`` stays a
-device tensor, and callers read it where they need the number.
+shape with a ``mask``; the step moves them to the device (a batch
+already placed there, torch tensors, passes through). Nothing on a step
+reads a value back from the card: ``metrics["loss"]`` stays a device
+tensor, and callers read it where they need the number.
+
+BatchNorm statistics (the state's ``batch_stats``) move with every
+training forward, as the JAX step's mutable ``batch_stats`` do, and
+keep their old values where the JAX step keeps them: after a batch with
+any padded row (the train, multi-step and accumulating steps), and
+after a gradient-only step (``build_grad_step``). The eval step
+normalises with the running statistics (``model.eval()``).
 """
 
 import inspect
@@ -31,8 +39,37 @@ def _call_loss(loss_fn) -> Callable:
 
 
 def _to_device(tree, device):
-    return tree_map(lambda x: torch.as_tensor(np.asarray(x), device=device),
+    return tree_map(lambda x: x.to(device) if isinstance(x, torch.Tensor)
+                    else torch.as_tensor(np.asarray(x), device=device),
                     tree)
+
+
+def _stats_keeper(state, mask, update_stats: bool) -> Callable[[], None]:
+    """A function to call after the forward that gives the statistic
+    buffers back their values from before it where the JAX step keeps
+    the old ``batch_stats``: always when ``update_stats`` is False, else
+    when a row of the batch is padding (the padding, copies of row 0,
+    would move the running averages; the normalisation inside the batch
+    still uses it, as in flax). A host mask (numpy: the batch not yet
+    placed) is read on the host, and a full batch copies nothing. A mask
+    already on the device is not read back: there every buffer takes
+    ``torch.where(all rows real, new, old)``."""
+    stats = state.batch_stats
+    full = False
+    if stats and update_stats:
+        if isinstance(mask, torch.Tensor):
+            full = (mask.to(state.device) > 0).all()
+        elif np.all(np.asarray(mask) > 0):
+            stats = {}
+    saved = {name: buf.clone() for name, buf in stats.items()}
+
+    def keep():
+        with torch.no_grad():
+            for name, buf in stats.items():
+                buf.copy_(saved[name] if full is False
+                          else torch.where(full, buf, saved[name]))
+
+    return keep
 
 
 def _apply_model(state, features, training: bool):
@@ -43,8 +80,10 @@ def _apply_model(state, features, training: bool):
     return model(features)
 
 
-def _loss_and_grads(call_loss: Callable, state, batch):
+def _loss_and_grads(call_loss: Callable, state, batch,
+                    update_stats: bool = True):
     dev = state.device
+    keep_stats = _stats_keeper(state, batch["mask"], update_stats)
     features = _to_device(batch["features"], dev)
     labels = _to_device(batch["labels"], dev)
     mask = torch.as_tensor(batch["mask"], device=dev)
@@ -52,6 +91,7 @@ def _loss_and_grads(call_loss: Callable, state, batch):
     preds = _apply_model(state, features, training=True)
     loss = call_loss(labels, preds, mask)
     loss.backward()
+    keep_stats()
     return loss.detach()
 
 
@@ -103,19 +143,26 @@ def stack_batches(batches):
     return np.stack(batches)
 
 
+def _take_grads(state) -> Dict[str, torch.Tensor]:
+    """{parameter name: gradient} of the last backward, the optimizer's
+    gradients cleared."""
+    grads = {name: p.grad.detach().clone()
+             for name, p in state.model.named_parameters()
+             if p.grad is not None}
+    state.optimizer.zero_grad(set_to_none=True)
+    return grads
+
+
 def build_grad_step(loss_fn: Callable) -> Callable:
     """``(state, batch) -> (grads, metrics)`` without applying: grads
-    are {parameter name: tensor}."""
+    are {parameter name: tensor}. The statistics keep their values, as
+    the JAX grad step's do."""
 
     call_loss = _call_loss(loss_fn)
 
     def grad_step(state, batch):
-        loss = _loss_and_grads(call_loss, state, batch)
-        grads = {name: p.grad.detach().clone()
-                 for name, p in state.model.named_parameters()
-                 if p.grad is not None}
-        state.optimizer.zero_grad(set_to_none=True)
-        return grads, {"loss": loss}
+        loss = _loss_and_grads(call_loss, state, batch, update_stats=False)
+        return _take_grads(state), {"loss": loss}
 
     return grad_step
 

@@ -10,11 +10,19 @@ the model, which draws each block's dropout seed from it (this
 replaces the JAX state's ``rng`` and ``next_rng``);
 ``model_takes_generator`` says whether the model's ``forward`` takes
 it, read once when the state is built.
+
+``batch_stats`` are the model's statistic buffers, by name: the
+buffers that a training forward rewrites (the JAX state's
+``batch_stats`` collection), read off the modules when the state is
+built: a module's ``STATISTICS`` names them (``models/batch_norm.py``:
+``mean`` and ``var``), and ``torch.nn`` BatchNorms have their running
+statistics. The train step keeps their old values where the JAX step
+keeps the old ``batch_stats`` (``core/step.py``).
 """
 
 import inspect
-from dataclasses import dataclass
-from typing import Callable
+from dataclasses import dataclass, field
+from typing import Callable, Dict
 
 import torch
 from torch import nn
@@ -27,6 +35,7 @@ class TrainState:
     generator: torch.Generator
     model_takes_generator: bool = False
     step: int = 0
+    batch_stats: Dict[str, torch.Tensor] = field(default_factory=dict)
 
     @property
     def version(self) -> int:
@@ -38,17 +47,26 @@ class TrainState:
         return next(self.model.parameters()).device
 
 
+def statistic_buffers(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """{buffer name: buffer} of every statistic a training forward of
+    ``model`` rewrites."""
+    out = {}
+    for prefix, module in model.named_modules():
+        names = getattr(module, "STATISTICS", ())
+        if isinstance(module, nn.modules.batchnorm._BatchNorm):
+            names = ("running_mean", "running_var", "num_batches_tracked")
+        for name in names:
+            buf = getattr(module, name, None)
+            if isinstance(buf, torch.Tensor):
+                out[f"{prefix}.{name}" if prefix else name] = buf
+    return out
+
+
 def init_train_state(model: nn.Module,
                      make_optimizer: Callable[..., torch.optim.Optimizer],
                      seed: int = 0) -> TrainState:
     """The state around ``model`` (already built and on its device) with
-    the optimizer ``make_optimizer(params)``. Models with BatchNorm
-    statistics wait for the slice that ports them."""
-    if any(isinstance(m, nn.modules.batchnorm._BatchNorm)
-           for m in model.modules()):
-        raise NotImplementedError(
-            "BatchNorm statistics (batch_stats) are not ported yet"
-        )
+    the optimizer ``make_optimizer(params)``."""
     generator = torch.Generator().manual_seed(int(seed))
     try:
         takes = "generator" in inspect.signature(model.forward).parameters
@@ -56,4 +74,5 @@ def init_train_state(model: nn.Module,
         takes = False
     return TrainState(model=model,
                       optimizer=make_optimizer(model.parameters()),
-                      generator=generator, model_takes_generator=takes)
+                      generator=generator, model_takes_generator=takes,
+                      batch_stats=statistic_buffers(model))

@@ -71,10 +71,13 @@
 // lane fences (fence.proxy.async) and the warp syncs before the copies
 // issue. No copy is in flight when the warp exits.
 //
-// Numerics: acc = acc + w * x is contracted to one fused multiply-add by
-// nvcc (the plain version rounds the product first), so the sums differ
-// from the plain version in the last bits; the normalisation divides
-// (IEEE, no fast math).
+// Numerics: each step of a sum is acc + w * x with the product rounded
+// to f32 before the add (`__fmul_rn`, then `__fadd_rn`: intrinsics that
+// nvcc never contracts into a fused multiply-add), in id order, as the
+// plain version computes it (`lookup_combine_reference`); so are the
+// weight sums. The normalisation divides and takes the square root
+// correctly rounded (IEEE, no fast math). The kernels therefore give
+// the plain version's result bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -202,9 +205,11 @@ lookup_kernel(const float* __restrict__ table, const int* __restrict__ ids,
       for (int u = 0; u < U; ++u) {
         if (k + u < n) {           // in id order
 #pragma unroll
-          for (int j = 0; j < kCols; ++j) acc[j] = acc[j] + ws[u] * vals[u][j];
+          for (int j = 0; j < kCols; ++j) {
+            acc[j] = __fadd_rn(acc[j], __fmul_rn(ws[u], vals[u][j]));
+          }
           sum_w = sum_w + ws[u];
-          sum_w2 = sum_w2 + ws[u] * ws[u];
+          sum_w2 = __fadd_rn(sum_w2, __fmul_rn(ws[u], ws[u]));
         }
       }
     }
@@ -226,9 +231,11 @@ __device__ __forceinline__ bool in_table(int id, int vocab) {
   return static_cast<unsigned>(id) < static_cast<unsigned>(vocab);
 }
 
-// acc += w * x, one step of a column's sum in id order.
+// acc += w * x, one step of a sum in id order: the product rounded
+// before the add, never one fused multiply-add (the plain version's
+// arithmetic, as #6's loop writes it).
 __device__ __forceinline__ void fold(float& acc, float w, float x) {
-  acc = acc + w * x;
+  acc = __fadd_rn(acc, __fmul_rn(w, x));
 }
 
 // `bytes` (a multiple of 16) from global to shared memory by the TMA
@@ -398,7 +405,7 @@ lookup_aligned_kernel(const float* __restrict__ table,
         }
       }
       sum_w = sum_w + w;
-      sum_w2 = sum_w2 + w * w;
+      fold(sum_w2, w, w);
     };
     if (stage == kStageSlots) {
 #pragma unroll

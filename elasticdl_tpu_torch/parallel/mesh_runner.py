@@ -16,6 +16,11 @@ sync semantics (SURVEY.md §2.7):
   microbatch j of a window of k is weighted 1/(k - j), normalised by the
   harmonic sum (the reference's lr/staleness).
 
+BatchNorm statistics move with every microbatch of an accumulation
+window, independently of the delayed optimizer apply, and keep their
+old values after a batch with padded rows, as in the JAX runner
+(``core/step.py``'s guard).
+
 Steps are memoised per (kind, loss function). Nothing reads a value
 back from the card: the accumulation window's count is a host int.
 Waiting for the parallel slice: the data axis, ``resize``,
@@ -78,12 +83,15 @@ class MeshRunner:
             def weight_of(count):
                 return 1.0
             norm = float(accum_steps)
-        grad_step = step_lib.build_grad_step(loss_fn)
+        call_loss = step_lib._call_loss(loss_fn)
         apply = step_lib.build_apply_gradients()
         window = {"grads": None, "count": 0}
 
         def micro_step(state, batch):
-            grads, metrics = grad_step(state, batch)
+            # The statistics move with the microbatch (guarded), the
+            # weights at the window's apply.
+            loss = step_lib._loss_and_grads(call_loss, state, batch)
+            grads = step_lib._take_grads(state)
             w = weight_of(window["count"])
             acc = window["grads"]
             window["grads"] = (
@@ -94,7 +102,7 @@ class MeshRunner:
                 mean = {k: g / norm for k, g in window["grads"].items()}
                 state = apply(state, mean, 1.0)
                 window["grads"], window["count"] = None, 0
-            return state, metrics
+            return state, {"loss": loss}
 
         return micro_step
 

@@ -1,6 +1,6 @@
-"""Synthetic dataset fixtures of the port (the LM and frappe parts of
-elasticdl_tpu/testing/data.py): the same seed writes the same bytes, so
-both packages train on one record file."""
+"""Synthetic dataset fixtures of the port (the mnist, cifar, LM and
+frappe parts of elasticdl_tpu/testing/data.py): the same seed writes the
+same bytes, so both packages train on one record file."""
 
 import os
 
@@ -8,6 +8,42 @@ import numpy as np
 
 from elasticdl_tpu_torch.common import tensor_utils
 from elasticdl_tpu_torch.data.record_file import RecordFileWriter
+
+
+def create_mnist_record_file(path, num_records, seed=0, image_hw=28,
+                             num_classes=10, learnable=True):
+    """MNIST-shaped records. If ``learnable``, the label's block of pixels is
+    brightened (orthogonal class signals) so tests can assert the model
+    actually learns."""
+    rng = np.random.RandomState(seed)
+    with RecordFileWriter(path) as writer:
+        for _ in range(num_records):
+            label = int(rng.randint(num_classes))
+            image = rng.rand(image_hw * image_hw) * 32.0
+            if learnable:
+                block = image.shape[0] // num_classes
+                image[label * block:(label + 1) * block] += 192.0
+            image = image.reshape(image_hw, image_hw)
+            writer.write(
+                tensor_utils.dumps(
+                    {"image": image.astype(np.float32), "label": label}
+                )
+            )
+    return path
+
+
+def create_cifar_record_file(path, num_records, seed=0):
+    """CIFAR-shaped (32, 32, 3) records whose brightness grows with the
+    label."""
+    rng = np.random.RandomState(seed)
+    with RecordFileWriter(path) as writer:
+        for _ in range(num_records):
+            label = int(rng.randint(10))
+            image = (rng.rand(32, 32, 3) * 127 + label * 12).astype(np.float32)
+            writer.write(
+                tensor_utils.dumps({"image": image, "label": label})
+            )
+    return path
 
 
 def create_frappe_record_file(path, num_records, seed=0, input_length=10,

@@ -1,7 +1,8 @@
 """Mutants of the chunk-update kernel (#2) against chip_smoke.py's
 ``chunk kernel check``, on one GPU.
 
-    python -m elasticdl_tpu_torch.tools.chunk_kernel_mutants
+    python -m elasticdl_tpu_torch.tools.chunk_kernel_mutants [--tests
+        [--test-file PATH]]
 
 For the sound source and for each mutant below, copies the repository
 into a temporary directory, edits ``flash_chunk_update.cu`` there, builds
@@ -16,6 +17,15 @@ of out, dq, dk, dv, and whether it kept chip_smoke.RING_TOL). A run that
 dies (a CUDA fault) counts as failing every case. Exits non-zero if the
 sound source fails a case or a ring case, or a mutant fails no chunk
 case. The checkout itself is never edited.
+
+``--tests`` runs, instead, the sound source and each of
+``WGMMA_MUTANTS`` (the route of bf16 D 64, which the test's cases take)
+through ``tests/test_torch_cuda_kernels.py::
+test_cuda_chunk_kernel_matches_plain`` (pytest, the ``cuda`` marker) and
+prints each source's passed and failed cases; it exits non-zero if the
+sound source fails a case or a mutant fails none. ``--test-file`` runs
+that test (its ``test_cuda_chunk_kernel_matches_plain``) from another
+file, an earlier commit's say, against the same builds.
 
 ``MUTANTS`` edit the mma.sync kernel (bf16 D 16 and 32):
 - ``p_not_zeroed``: masked probabilities left to underflow (a row whose
@@ -42,6 +52,7 @@ case. The checkout itself is never edited.
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -159,9 +170,20 @@ def mutate(source: str, edits) -> str:
     return source
 
 
-def run(name: str, edits):
-    """(the chunk cases the source fails, its ring readings), or (the
-    tail of the output of a run that died, None)."""
+TEST_FILE = os.path.join("tests", "test_torch_cuda_kernels.py")
+
+
+def pytest_cmd(test_file: str):
+    return [sys.executable, "-m", "pytest", "--noconftest", "-o",
+            "markers=cuda", "-m", "cuda", "-q", "-p", "no:cacheprovider",
+            test_file, "-k",
+            "test_cuda_chunk_kernel_matches_plain and not ring_past"]
+
+
+def _in_copy(edits, cmd):
+    """``cmd`` run in a temporary copy of the repository whose chunk
+    source carries ``edits``: the CompletedProcess, or the message of a
+    run that timed out."""
     with tempfile.TemporaryDirectory() as tmp:
         copy = os.path.join(tmp, "repo")
         shutil.copytree(REPO, copy, ignore=shutil.ignore_patterns(
@@ -173,11 +195,18 @@ def run(name: str, edits):
         with open(path, "w") as f:
             f.write(mutate(text, edits))
         try:
-            proc = subprocess.run([sys.executable, "-c", RUNNER], cwd=copy,
-                                  capture_output=True, text=True,
-                                  timeout=600)
+            return subprocess.run(cmd, cwd=copy, capture_output=True,
+                                  text=True, timeout=600)
         except subprocess.TimeoutExpired as exc:
-            return f"timed out after {exc.timeout} s", None
+            return f"timed out after {exc.timeout} s"
+
+
+def run(name: str, edits):
+    """(the chunk cases the source fails, its ring readings), or (the
+    tail of the output of a run that died, None)."""
+    proc = _in_copy(edits, [sys.executable, "-c", RUNNER])
+    if isinstance(proc, str):
+        return proc, None
     found = {}
     for line in proc.stdout.splitlines():
         tag, _, rest = line.partition(" ")
@@ -188,7 +217,46 @@ def run(name: str, edits):
     return found["FAILED"], found.get("RING")
 
 
+def run_tests(edits, test_file: str):
+    """{"passed", "failed"}: pytest's counts for the chunk test on this
+    source (cases that errored count as failed; a run that timed out
+    reads ``failed`` None)."""
+    proc = _in_copy(edits, pytest_cmd(test_file))
+    if isinstance(proc, str):
+        return {"passed": 0, "failed": None, "note": proc}
+    counts = {word: sum(int(n) for n in re.findall(rf"(\d+) {word}",
+                                                   proc.stdout[-400:]))
+              for word in ("passed", "failed", "error")}
+    return {"passed": counts["passed"],
+            "failed": counts["failed"] + counts["error"]}
+
+
+def main_tests(test_file: str) -> int:
+    sources = [("sound", [])] + list(WGMMA_MUTANTS.items())
+    with ThreadPoolExecutor(4) as pool:
+        results = list(pool.map(lambda item: run_tests(item[1], test_file),
+                                sources))
+    bad = []
+    for (name, _), counts in zip(sources, results):
+        print(json.dumps({"source": name, "test_file": test_file,
+                          **counts}), flush=True)
+        sound = counts["failed"] == 0 and counts["passed"] > 0
+        if sound != (name == "sound"):
+            bad.append(name)
+    if bad:
+        print(f"chunk_kernel_mutants --tests: not separated: {bad}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def main() -> int:
+    argv = sys.argv[1:]
+    if "--tests" in argv:
+        test_file = TEST_FILE
+        if "--test-file" in argv:
+            test_file = os.path.abspath(argv[argv.index("--test-file") + 1])
+        return main_tests(test_file)
     sources = [("sound", [])] + list(MUTANTS.items()) + list(
         WGMMA_MUTANTS.items())
     with ThreadPoolExecutor(4) as pool:

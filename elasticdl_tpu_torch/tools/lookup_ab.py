@@ -1,4 +1,4 @@
-"""Times builds of the aligned embedding lookup (#5) against each other in
+"""Times builds of the embedding lookups (#5 and #6) against each other in
 one call, on one GPU.
 
     python -m elasticdl_tpu_torch.tools.lookup_ab [--old NAME=PATH ...]
@@ -17,8 +17,9 @@ same seed, rotated past the L2) each build's #5 is launched through its
 C entry point into an output filled with NaN and held to the plain
 version (chip_smoke.EMB_TOL), then timed: device ms a call off
 ``torch.profiler`` (``bench_kernel_device_sweep.device_ms``), the builds
-in list order and then reversed, beside this tree's #6,
-``embedding_bag`` and the bound in the same call. Prints the card, each
+in list order and then reversed. Each build's #6 is held and timed the
+same way (``lookup_ms``), beside ``embedding_bag`` and the bound in the
+same call. Prints the card, each
 build's ptxas lines for the aligned kernel, and one JSON line per build
 and tier (with this tree's launch plan: instance, strip width, strips,
 ring slots, blocks, shared memory).
@@ -98,18 +99,25 @@ def main(argv=None) -> int:
             out = torch.empty(batch, dim, device="cuda")
             rows = {}
             for name, lib in libs.items():
-                out.fill_(float("nan"))
-                err = pe._lookup_launch(lib, True, table, ids, w, out, "sum")
-                cs.check(err == 0, f"{name}: CUDA error {err}")
-                torch.cuda.synchronize()
-                reading = cs.grad_readings(out, want)
-                good = (bool(torch.isfinite(out).all())
-                        and cs.emb_within(reading, cs.EMB_TOL["lookup"]))
+                readings, good = {}, True
+                for aligned in (True, False):
+                    out.fill_(float("nan"))
+                    err = pe._lookup_launch(lib, aligned, table, ids, w, out,
+                                            "sum")
+                    cs.check(err == 0, f"{name}: CUDA error {err}")
+                    torch.cuda.synchronize()
+                    readings[aligned] = cs.grad_readings(out, want)
+                    good = (good and bool(torch.isfinite(out).all())
+                            and cs.emb_within(readings[aligned],
+                                              cs.EMB_TOL["lookup"]))
                 ok = ok and good
                 rows[name] = {"variant": name, "dim": dim, "L": num_ids,
                               "batch": batch, "vocab": tool.VOCAB,
-                              "distinct_rows": distinct, **reading,
-                              "ok": good, "ms_windows": []}
+                              "distinct_rows": distinct, **readings[True],
+                              "lookup_max_abs_err":
+                                  readings[False]["max_abs_err"],
+                              "ok": good, "ms_windows": [],
+                              "lookup_ms_windows": []}
 
             def timed(fn):
                 return tool.device_ms(tool.cycling(fn, sets), args.iters,
@@ -117,12 +125,12 @@ def main(argv=None) -> int:
 
             for name in order:
                 lib = libs[name]
-                rows[name]["ms_windows"].append(timed(
-                    lambda i, w: pe._lookup_launch(lib, True, table, i, w,
-                                                   out, "sum"))[0])
+                for aligned, key in ((True, "ms_windows"),
+                                     (False, "lookup_ms_windows")):
+                    rows[name][key].append(timed(
+                        lambda i, w: pe._lookup_launch(
+                            lib, aligned, table, i, w, out, "sum"))[0])
             same_call = {
-                "lookup_ms": timed(lambda i, w: pe._lookup_launch(
-                    libs["tree"], False, table, i, w, out, "sum"))[0],
                 "embedding_bag_ms": timed(
                     lambda i, w: torch.nn.functional.embedding_bag(
                         i, table, per_sample_weights=w, mode="sum"))[0],
@@ -132,6 +140,8 @@ def main(argv=None) -> int:
             plan = pe.aligned_plan(table, ids, out, libs["tree"])
             for row in rows.values():
                 row.update(ms=float(np.median(row["ms_windows"])),
+                           lookup_ms=float(np.median(
+                               row["lookup_ms_windows"])),
                            bound_ms=bound_ms, bound_by=bound_by,
                            tree_plan=plan, **same_call)
                 print(json.dumps(row), flush=True)

@@ -71,7 +71,8 @@ MUTANTS = {
     "strip_offset_wrong": [(
         "  const float* src = table + col0;\n",
         "  const float* src = table;\n")],
-    "weights_ignored": [("  acc = acc + w * x;\n", "  acc = acc + x;\n")],
+    "weights_ignored": [("  acc = __fadd_rn(acc, __fmul_rn(w, x));\n",
+                         "  acc = __fadd_rn(acc, x);\n")],
     "zero_denominator_guard_dropped": [(
         "  return positive ? acc / (positive ? d : 1.f) : 0.f;\n",
         "  return acc / d;\n")],

@@ -36,14 +36,14 @@ ROW_W = ("  const float* row_w = weights + static_cast<size_t>(row) * "
 # [(text of the sound source, replacement)]; each text occurs once
 # (tests/test_torch_pallas_embedding.py).
 PROBES = [
-    ("// acc += w * x, one step of a column's sum in id order.\n",
+    ("// acc += w * x, one step of a sum in id order: the product rounded\n",
      "__device__ __forceinline__ unsigned long long probe_ns() {\n"
      "  unsigned long long t;\n"
      "  asm volatile(\"mov.u64 %0, %globaltimer;\" : \"=l\"(t) :: "
      "\"memory\");\n"
      "  return t;\n"
      "}\n\n"
-     "// acc += w * x, one step of a column's sum in id order.\n"),
+     "// acc += w * x, one step of a sum in id order: the product rounded\n"),
     (ROW_W + "\n  // Ids and weights 32 at a time",
      ROW_W + "  const unsigned long long t0 = probe_ns();\n"
      "  unsigned long long t_landed = 0, waited = 0;\n"

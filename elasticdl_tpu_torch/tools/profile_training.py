@@ -4,6 +4,8 @@
         [--seq 1024] [--iters 5] [--sp N] [--remat]
     python -m elasticdl_tpu_torch.tools.profile_training --model recsys
         [--batch 512] [--iters 5]
+    python -m elasticdl_tpu_torch.tools.profile_training --model resnet50
+        [--batch 128] [--iters 5]
 
 ``--model transformer`` (the default) builds the transformer-LM
 flagship (bench_suite.py ``_TRANSFORMER_SIZES["transformer"]``, vocab
@@ -17,7 +19,10 @@ each block in the backward; ``max_len`` grows to ``--seq`` when it is
 longer. ``--model recsys`` builds the recsys ranker twin
 at full width (1,000,000 x 256 table, 32 ids an example) and runs its
 sparse runner's step with the kernels pinned (``use_pallas="always"``)
-on seeded random id batches.
+on seeded random id batches. ``--model resnet50`` builds the resnet50
+zoo twin (``custom_model()``: s2d stem, 10 classes, bf16) with seeded
+random weights and runs ``core.step.build_train_step`` on bench_suite's
+synthetic batches (uniform [0, 1) images, 224 x 224 x 3).
 
 Either way it times ``--iters`` steps with CUDA events beside the
 host's time to issue them, then runs ``--iters`` steps under
@@ -27,7 +32,9 @@ host's time to issue them, then runs ``--iters`` steps under
 unprofiled step time (the profiler slows the host, so its own window
 would understate the share), and the device time per step summed by
 kernel name (largest first), with the attention kernels (#1 forward,
-#2 chunk update, #3/#4 backward) also listed by name.
+#2 chunk update, #3/#4 backward) also listed by name, and the device
+time per step by family (``FAMILIES``: matrix products and
+convolutions, reductions, elementwise passes, copies, the rest).
 """
 
 import argparse
@@ -57,6 +64,37 @@ ATTENTION_KERNELS = {
     "flash_bwd_dq": "#3 flash_attention_bwd_dq",
     "flash_bwd_dkv": "#4 flash_attention_bwd_dkv",
 }
+
+
+# (family, name stems) in the order a kernel name is tested against them.
+FAMILIES = (
+    ("products and convolutions", ("gemm", "conv", "xmma", "cutlass",
+                                   "cudnn", "wgrad", "dgrad", "flash")),
+    ("reductions", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+    ("copies", ("copy", "memcpy", "memset", "cat")),
+)
+
+
+def family(name: str) -> str:
+    lower = name.lower()
+    for label, stems in FAMILIES:
+        if any(stem in lower for stem in stems):
+            return label
+    return "other"
+
+
+def _resnet50(batch):
+    from elasticdl_tpu_torch.model_zoo.resnet50 import resnet50
+
+    torch.manual_seed(0)
+    model = resnet50.custom_model(device="cuda")
+    state = init_train_state(model, resnet50.optimizer(), seed=0)
+    rng = np.random.RandomState(0)
+    batches = [{"features": rng.rand(batch, 224, 224, 3).astype(np.float32),
+                "labels": rng.randint(0, 10, batch).astype(np.int32),
+                "mask": np.ones(batch, np.float32)} for _ in range(2)]
+    return state, build_train_step(resnet50.loss), batches
 
 
 def _transformer(batch, seq, sp=1, remat=False):
@@ -108,10 +146,12 @@ def _recsys(batch):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser("profile_training")
-    parser.add_argument("--model", choices=("transformer", "recsys"),
+    parser.add_argument("--model",
+                        choices=("transformer", "recsys", "resnet50"),
                         default="transformer")
     parser.add_argument("--batch", type=int, default=None,
-                        help="8 (transformer) or 512 (recsys)")
+                        help="8 (transformer), 512 (recsys) or 128 "
+                             "(resnet50)")
     parser.add_argument("--seq", type=int, default=1024)
     parser.add_argument("--iters", type=int, default=5)
     parser.add_argument("--top", type=int, default=16)
@@ -128,6 +168,10 @@ def main(argv=None) -> int:
         args.batch = args.batch or 512
         state, step, batches = _recsys(args.batch)
         shape = [args.batch, 32]
+    elif args.model == "resnet50":
+        args.batch = args.batch or 128
+        state, step, batches = _resnet50(args.batch)
+        shape = [args.batch, 224, 224, 3]
     else:
         args.batch = args.batch or 8
         state, step, batches = _transformer(args.batch, args.seq, args.sp,
@@ -156,7 +200,7 @@ def main(argv=None) -> int:
         run(args.iters)
         torch.cuda.synchronize()
 
-    kernels = {}
+    kernels, families = {}, {}
     intervals = []
     for evt in prof.events():
         if (evt.device_type != torch.autograd.DeviceType.CUDA
@@ -165,6 +209,8 @@ def main(argv=None) -> int:
         span = (evt.time_range.start, evt.time_range.end)
         intervals.append(span)
         kernels[evt.name] = kernels.get(evt.name, 0.0) + span[1] - span[0]
+        label = family(evt.name)
+        families[label] = families.get(label, 0.0) + span[1] - span[0]
     busy_us = _union_us(intervals)
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1])
     attention = {}
@@ -185,6 +231,9 @@ def main(argv=None) -> int:
              "share": us / busy_us if busy_us else None}
             for name, us in ranked[:args.top]
         ],
+        "families_ms_per_step": {
+            label: us / args.iters / 1e3
+            for label, us in sorted(families.items(), key=lambda kv: -kv[1])},
         "attention_kernels_ms_per_step": {
             label: us / args.iters / 1e3
             for label, us in sorted(attention.items())},

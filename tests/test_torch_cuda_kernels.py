@@ -29,9 +29,10 @@ bf16, 2e-5 in f32, lse at rtol 1e-4 / atol 1e-3, and folded over the
 kernel's own key tiles at ``TILED_TOL``; the backward at ``CUDA_BWD_TOL``
 (|g - w| <= elem * (|w| + median|w|) at every element, ||g - w|| / ||w||
 <= l2); the chunk update against the plain version folded in its own
-order and against the whole-chunk plain version, each at 2e-2 (bf16) /
-2e-5 (f32) relative to (1 + |w|), and at the ring's past chunk at elem
-3e-2, L2 2e-4; the lookups and row updates at rtol 1e-5 / atol 1e-6,
+order at 2e-2 (bf16) / 2e-5 (f32) relative to (1 + |w|), against the
+whole-chunk plain version at 2e-5 (f32) and at ``CHUNK_WHOLE_TOL`` (bf16;
+the test derives it), and at the ring's past chunk at elem 3e-2, L2
+2e-4; the lookups and row updates at rtol 1e-5 / atol 1e-6,
 untouched rows bit-equal.
 """
 
@@ -51,6 +52,10 @@ from elasticdl_tpu_torch.parallel import mesh as tmesh
 BF16_TOL = 2e-2
 CUDA_BWD_TOL = {torch.bfloat16: dict(elem=3e-2, l2=2e-4),
                 torch.float32: dict(elem=2e-5, l2=1e-6)}
+# chip_smoke.py's CHUNK_WHOLE_TOL["bfloat16"]: the chunk update (bf16)
+# against the whole-chunk plain version (test_cuda_chunk_kernel_matches_plain
+# derives it).
+CHUNK_WHOLE_TOL = dict(elem=6e-2, l2=5e-3)
 TILED_TOL = {torch.bfloat16: dict(elem=3e-2, l2=5e-4, lse=1e-5),
              torch.float32: dict(elem=2e-5, l2=1e-6, lse=1e-5)}
 V, L = 64, 5            # the embedding kernels' table rows, ids a row
@@ -246,6 +251,32 @@ def test_cuda_kernel_matches_tiled_plain_at_the_flagship_shape():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("case", sorted(CHUNK_CASES))
 def test_cuda_chunk_kernel_matches_plain(case, dtype):
+    """The chunk update against its plain version folded in the kernel's
+    own order (64-key tiles; on the bf16 D 64 route, even tiles into the
+    carry and odd ones into an empty state, merged at the end), at 2e-2
+    (bf16) / 2e-5 (f32) relative to (1 + |w|): the tight check of the
+    kernel's arithmetic. Then against the plain version over the whole
+    chunk: in f32 at the same 2e-5; in bf16 at ``CHUNK_WHOLE_TOL``.
+
+    That limit, derived: both plain versions round every p to bf16
+    (relative error at most 2^-9), the whole-chunk one as exp(s - m)
+    against the row's maximum over the chunk, the own-order one against
+    its state's running maximum, and the two states' maxima differ from
+    the chunk's (and from each other). So each p may be rounded two ways
+    and differ by up to 2^-8 relative, and acc = sum_j p_j v_j (l sums p
+    in f32, unrounded) differs by sum_j d_j p_j v_j over the Sk keys,
+    |d_j| <= 2^-8. The d_j are independent roundings (each the difference
+    of two uniform errors of half-width 2^-9: rms 2^-9 sqrt(2/3)), so
+    they add as a random walk: ||d acc|| / ||acc|| is at most about
+    2^-9 sqrt(2/3) = 1.6e-3 when every p is rounded two ways and the
+    carry adds nothing, and per element, with the floor median|acc| and
+    the largest of 8 x 128 x 64 normal deviates (~4.4 sd), about 1e-2.
+    ``CHUNK_WHOLE_TOL`` (chip_smoke.py's limit for the same comparison:
+    elem 6e-2, L2 5e-3, in ``_readings``' form) sits 3-6x above those,
+    and the whole-chunk reading of the own-order plain version in the
+    "full" case (Sk 192, no mask) is elem 1.41e-2, L2 1.52e-3 (2.17e-2
+    relative to 1 + |w| on one element of acc, past 2e-2: the reason the
+    bf16 whole-chunk comparison takes this form)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
     sq, sk, q_off, k_off, causal = CHUNK_CASES[case]
@@ -262,10 +293,6 @@ def test_cuda_chunk_kernel_matches_plain(case, dtype):
     torch.cuda.synchronize()
     assert tfa.chunk_launches == before + 1
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
-    # Against the plain version folded in the kernel's own order (64-key
-    # tiles; on the bf16 D 64 route, two running states merged at the
-    # end), then, as before, against the whole-chunk one (one tile, so p
-    # is rounded against the row's maximum over the whole chunk).
     own = tfa.flash_chunk_update_reference(
         *args, q_off * 8, k_off * 8, causal,
         block_k=tfa.chunk_block_k(64, dtype),
@@ -274,7 +301,12 @@ def test_cuda_chunk_kernel_matches_plain(case, dtype):
                                             causal)
     for g, o, w in zip(got, own, want):
         assert bool(((g - o).abs() <= tol * (1 + o.abs())).all())
-        assert bool(((g - w).abs() <= tol * (1 + w.abs())).all())
+        if dtype == torch.float32:
+            assert bool(((g - w).abs() <= tol * (1 + w.abs())).all())
+        else:
+            elem, l2 = _readings(_np(g.cpu()), _np(w.cpu()))
+            assert (elem <= CHUNK_WHOLE_TOL["elem"]
+                    and l2 <= CHUNK_WHOLE_TOL["l2"]), (elem, l2)
 
 
 @pytest.mark.cuda

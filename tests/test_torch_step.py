@@ -202,7 +202,15 @@ def test_learning_rate_scheduler_matches_the_jax_chain(jax_state):
 
 
 def test_batch_norm_models_wait_for_their_slice():
+    """A model with BatchNorms gets a train state, which holds their
+    statistic buffers (the port's BatchNorm's ``mean``/``var``, torch's
+    running statistics), by name."""
+    from elasticdl_tpu_torch.models.batch_norm import BatchNorm
+
     model = torch.nn.Sequential(torch.nn.Linear(2, 2),
-                                torch.nn.BatchNorm1d(2))
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        init_train_state(model, lambda p: torch.optim.SGD(p, lr=0.1))
+                                torch.nn.BatchNorm1d(2), BatchNorm(2))
+    state = init_train_state(model, lambda p: torch.optim.SGD(p, lr=0.1))
+    assert sorted(state.batch_stats) == [
+        "1.num_batches_tracked", "1.running_mean", "1.running_var",
+        "2.mean", "2.var"]
+    assert state.batch_stats["2.var"] is model[2].var
