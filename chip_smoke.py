@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phase lookup # kernels #5 and #6 alone
     python3 chip_smoke.py --phase host   # the host tier alone, no kernel build
     python3 chip_smoke.py --phase vision # the vision zoo alone, no build
+    python3 chip_smoke.py --phase tabular # the tabular zoo alone, no build
 
 1. Prints the card (``nvidia-smi`` name and power limit) and versions.
 2. Builds every CUDA kernel of the port from ``elasticdl_tpu_torch/ops/csrc``.
@@ -137,6 +138,19 @@
    synthetic batches, 3 untimed and 10 timed steps: step ms (CUDA
    events) beside issue ms, examples/s, peak memory; a finite loss and
    every statistic moved. Every kernel counter reads 0 on these paths.
+11d. ``tabular`` (the preprocessing package and the tabular zoo;
+   ``--phase tabular`` runs it alone): census_wide_deep (BASELINE #5),
+   census_dnn, census_feature_columns, census_sqlflow and heart on
+   their generators' records, iris from a CSV, each through
+   ``LocalExecutor`` at B 512 for 5 steps on the card and on the CPU
+   from the same seed: losses, first-step gradients and every
+   parameter's change (TRAJ_TOL). Then census_wide_deep on 4096 records
+   for 3 epochs on the card, evaluated on 1024 at the end: step ms (CUDA
+   events) beside issue ms, examples/s, peak memory, and its
+   ``dataset_fn`` on one batch on the host; its card run's ``--output``
+   bundle served by ``InferenceServer`` on the card answers a JSON
+   predict of dict features as the trained model's eval forward. Every
+   kernel counter is zeroed before the phase and reads 0 after it.
 12. ``fused path``: ``DeviceSparseRunner`` over the recsys table with
    Momentum (Nesterov) and ``use_pallas="fused"`` for 10 steps against
    "never": one fused-kernel launch a step.
@@ -175,11 +189,12 @@
    updates an eval batch); step ms beside issue ms, tokens/s, peak
    memory.
 17. Prints a ``serving``, a ``training``, a ``sparse_training``, a
-   ``ring_training``, a ``host_training``, a ``vision`` and a
-   ``kernels`` JSON line (the four flash kernels and the four embedding
-   kernels with their ms, plain ms, library ms, bound ms and launches,
-   and their launches on the host and vision paths,
-   ``launches_host_training``, ``launches_vision``; #5 with its times at
+   ``ring_training``, a ``host_training``, a ``vision``, a ``tabular``
+   and a ``kernels`` JSON line (the four flash kernels and the four
+   embedding kernels with their ms, plain ms, library ms, bound ms and
+   launches, and their launches on the host, vision and tabular paths,
+   ``launches_host_training``, ``launches_vision``,
+   ``launches_tabular``; #5 with its times at
    the sweep's tiers, the row kernels with a per-rule list) and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -395,6 +410,31 @@ VISION_BATCH, VISION_STEPS = 512, 5
 VISION_STATS_TOL = 2e-2
 RESNET_BATCH, RESNET_HW = 128, 224
 VISION_WARM, VISION_TIMED = 3, 10
+# The tabular zoo (bench_suite.py CONFIGS["census"] at B 512).
+# Each twin runs TABULAR_STEPS Local steps on the card and on the CPU
+# from the same seed, held to TRAJ_TOL: census_wide_deep (BASELINE #5),
+# census_dnn, census_feature_columns and census_sqlflow on
+# CENSUS_RECORDS census records, heart on its records, iris from a CSV.
+# Then census_wide_deep through the executor on the card for
+# TABULAR_TIMED_EPOCHS over the census records, the first TABULAR_WARM
+# steps untimed, evaluated on CENSUS_EVAL_RECORDS at the end; its
+# dataset_fn alone on one batch of records on the host, TABULAR_DECODES
+# times; and the card run's --output bundle served by InferenceServer
+# on the card: one JSON predict of dict features ({"ids", "dense"})
+# against the trained model's eval forward (LOGITS_REL_TOL).
+TABULAR_BATCH, TABULAR_STEPS = 512, 5
+CENSUS_RECORDS, CENSUS_EVAL_RECORDS, TABULAR_RECORDS = 4096, 1024, 2560
+TABULAR_TIMED_EPOCHS, TABULAR_WARM, TABULAR_DECODES = 3, 4, 10
+TABULAR_SERVED_ROWS = 8
+# (model_def, records: "census", "heart" or "iris")
+TABULAR_TWINS = (
+    ("census.census_wide_deep.custom_model", "census"),
+    ("census.census_dnn.custom_model", "census"),
+    ("census.census_feature_columns.custom_model", "census"),
+    ("census.census_sqlflow.custom_model", "census"),
+    ("heart.heart.custom_model", "heart"),
+    ("iris.iris_dnn.custom_model", "iris"),
+)
 # Ring attention over an sp mesh of one card (slice 4): the long-context
 # row of tools/bench_long_context.py, (S 8192, B 1, remat), on the
 # flagship's widths, the sequence cut over RING_SP ranks (chunks of 2048).
@@ -2186,6 +2226,12 @@ def reset_kernel_launches(fa, pe):
     pe.reset_launches()
 
 
+def launches_since(fa, pe, before):
+    """Each kernel's launches since ``before`` (a kernel_launch_counts
+    reading)."""
+    return {k: v - before[k] for k, v in kernel_launch_counts(fa, pe).items()}
+
+
 def host_twin_run(torch, fa, pe, zoo, model_def, records, device, epochs):
     """One LocalExecutor run of a deepfm_host zoo module; kernel launch
     counts are zeroed just before it and read just after."""
@@ -2729,6 +2775,214 @@ def resnet50_phase(torch, fa, pe):
     return out
 
 
+def tabular_records(root):
+    """{kind: path} of the phase's records, from the port's generators
+    (the JAX generators' bytes for the same seed)."""
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    return {
+        "census": tdata.create_census_record_file(
+            os.path.join(root, "census.rec"), CENSUS_RECORDS, seed=SEED),
+        "census_eval": tdata.create_census_record_file(
+            os.path.join(root, "census_eval.rec"), CENSUS_EVAL_RECORDS,
+            seed=SEED + 1),
+        "heart": tdata.create_heart_record_file(
+            os.path.join(root, "heart.rec"), TABULAR_RECORDS, seed=SEED),
+        "iris": tdata.create_iris_csv(
+            os.path.join(root, "iris.csv"), TABULAR_RECORDS, seed=SEED),
+    }
+
+
+def tabular_twin_phase(torch, fa, pe, root, model_def, records):
+    """One tabular twin, TABULAR_STEPS Local steps at TABULAR_BATCH on
+    the card and on the CPU from the same seed: losses, first-step
+    gradients and every parameter's change within TRAJ_TOL; no kernel
+    launches. The card run exports its --output bundle."""
+    from elasticdl_tpu_torch.api.local_executor import LocalExecutor
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    name = model_def.split(".")[1]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        extra = ["--device", dev, "--random_seed", str(SEED),
+                 "--max_steps", str(TABULAR_STEPS)]
+        if dev == "cuda":
+            extra += ["--output", os.path.join(root, f"{name}_bundles",
+                                               "v1")]
+        args = tdata.make_local_args(
+            tdata.model_zoo_dir(), model_def, records,
+            minibatch_size=TABULAR_BATCH, extra=extra)
+        record = step_recorder(torch)
+        executor = LocalExecutor(args, callbacks=[record])
+        before = kernel_launch_counts(fa, pe)
+        executor.run()
+        record.counts = launches_since(fa, pe, before)
+        record.final = {n: p.detach().float().cpu()
+                        for n, p in executor.state.model.named_parameters()}
+        record.executor = executor
+        runs[dev] = record
+    card, cpu = runs["cuda"], runs["cpu"]
+    losses = {dev: [float(x) for x in r.loss] for dev, r in runs.items()}
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                               losses["cpu"])]
+    grad_l2 = {n: rel_err(card.first_grads[n].numpy(),
+                          cpu.first_grads[n].numpy()) for n in cpu.initial}
+    delta_l2 = {n: rel_err((card.final[n] - card.initial[n]).numpy(),
+                           (cpu.final[n] - cpu.initial[n]).numpy())
+                for n in cpu.initial}
+    out = {"steps": len(rel), "batch": TABULAR_BATCH,
+           "losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"],
+           "loss_max_rel_diff": max(rel), "grad_l2": grad_l2,
+           "delta_l2": delta_l2, "launches_card": card.counts,
+           "launches_cpu": cpu.counts, "tol": TRAJ_TOL}
+    print(f"{name} card vs cpu", json.dumps(out), flush=True)
+    check(len(rel) == TABULAR_STEPS, f"{len(rel)} {name} steps")
+    check(all(torch.equal(card.initial[n], cpu.initial[n])
+              for n in cpu.initial), f"{name}: other initial weights")
+    check(not any(card.counts.values()) and not any(cpu.counts.values()),
+          f"{name} launched kernels: {card.counts}")
+    check(all(np.isfinite(losses["cuda"])), f"{name}: non-finite loss")
+    check(max(rel) <= TRAJ_TOL["loss"], f"{name} card vs CPU losses {out}")
+    check(max(grad_l2.values()) <= TRAJ_TOL["grad_l2"],
+          f"{name} card vs CPU first-step gradients {grad_l2}")
+    check(max(delta_l2.values()) <= TRAJ_TOL["delta_l2"],
+          f"{name} card vs CPU parameter changes {delta_l2}")
+    return out, card.executor
+
+
+def census_timed_phase(torch, fa, pe, records, eval_records):
+    """census_wide_deep through LocalExecutor on the card for
+    TABULAR_TIMED_EPOCHS, evaluated at the end: step ms (CUDA events)
+    beside issue ms, examples/s, peak memory; its dataset_fn on one
+    batch on the host."""
+    from elasticdl_tpu_torch.api.local_executor import LocalExecutor
+    from elasticdl_tpu_torch.common.constants import Mode
+    from elasticdl_tpu_torch.data.record_file import RecordFileScanner
+    from elasticdl_tpu_torch.model_zoo.census import census_wide_deep as twin
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    args = tdata.make_local_args(
+        tdata.model_zoo_dir(), "census.census_wide_deep.custom_model",
+        records, validation_data=eval_records,
+        minibatch_size=TABULAR_BATCH, num_epochs=TABULAR_TIMED_EPOCHS,
+        extra=["--device", "cuda", "--random_seed", str(SEED)])
+    record = step_recorder(torch)
+    executor = LocalExecutor(args, callbacks=[record])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = kernel_launch_counts(fa, pe)
+    result = executor.run()
+    counts = launches_since(fa, pe, before)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [s.elapsed_time(e) for s, e in record.events[TABULAR_WARM:]]
+    issue = record.issue_ms[TABULAR_WARM:]
+    losses = [float(x) for x in record.loss]
+    with RecordFileScanner(records, 0, TABULAR_BATCH) as scanner:
+        batch = list(scanner)
+    decode_ms = []
+    for _ in range(TABULAR_DECODES):
+        t0 = time.perf_counter()
+        twin.dataset_fn(batch, Mode.TRAINING, None)
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    median = float(np.median(step_ms))
+    out = {"model": "census_wide_deep twin (model_zoo/census/"
+                    "census_wide_deep.py: 22 x 1 wide and 22 x 8 deep "
+                    "tables, bf16 MLP 34-16-8-1, Adam 1e-3 x 0.3), random "
+                    f"weights, seed {SEED}",
+           "batch": TABULAR_BATCH, "records": CENSUS_RECORDS,
+           "steps": len(losses), "warm_steps": TABULAR_WARM,
+           "step_ms": spread(step_ms), "issue_ms": spread(issue),
+           "examples_per_s": TABULAR_BATCH / (median / 1e3),
+           "executor_examples_per_s": result["examples_per_sec"],
+           "dataset_fn_ms": spread(decode_ms),
+           "max_memory_allocated_bytes": peak,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "eval_metrics": result["eval_metrics"], "launches": counts,
+           "card": smi("name,power.limit"),
+           "clocks_after": smi("clocks.sm,clocks.max.sm,power.draw,"
+                               "temperature.gpu")}
+    print("census_wide_deep timed", json.dumps(out), flush=True)
+    check(all(np.isfinite(losses)), f"census timed: non-finite {losses}")
+    check(result["eval_metrics"] is not None
+          and 0.0 <= result["eval_metrics"]["accuracy"] <= 1.0,
+          f"census timed: eval metrics {result['eval_metrics']}")
+    check(not any(counts.values()), f"census timed launched {counts}")
+    return out
+
+
+def census_serving_check(torch, fa, pe, executor, bundles):
+    """The card run's bundle (the one version under ``bundles``) through
+    ModelStore and InferenceServer on the card: one JSON predict of dict
+    features against the trained model's eval forward on the same
+    rows."""
+    from elasticdl_tpu_torch.model_zoo.census import census_wide_deep as twin
+    from elasticdl_tpu_torch.serving.model_store import ModelStore
+    from elasticdl_tpu_torch.serving.server import InferenceServer
+
+    features = {k: v[:TABULAR_SERVED_ROWS]
+                for k, v in executor.last_batch["features"].items()}
+    with torch.no_grad():
+        want = executor.state.model.eval()(
+            {k: torch.from_numpy(v).cuda() for k, v in features.items()}
+        ).cpu().numpy()
+    store = ModelStore(bundles, device="cuda",
+                       model_fn=lambda: twin.custom_model(device="cuda"))
+    store.load_initial()
+    server = InferenceServer(store, port=0, batch_deadline_ms=1).start()
+    before = kernel_launch_counts(fa, pe)
+    try:
+        body = json.dumps({"features": {k: v.tolist()
+                                        for k, v in features.items()}})
+        request = urllib.request.Request(
+            f"http://localhost:{server.port}/v1/predict",
+            data=body.encode("utf-8"),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(request, timeout=600) as resp:
+            status, reply = resp.status, json.loads(resp.read())
+    finally:
+        server.stop()
+        store.stop()
+    counts = launches_since(fa, pe, before)
+    got = np.asarray(reply["predictions"], np.float32)
+    out = {"status": status, "rows": TABULAR_SERVED_ROWS,
+           "model_version": reply["model_version"],
+           "served_vs_eval_l2": rel_err(got, want), "launches": counts,
+           "tol": LOGITS_REL_TOL}
+    print("census_wide_deep served", json.dumps(out), flush=True)
+    check(status == 200 and got.shape == want.shape,
+          f"census served: {status} {got.shape}")
+    check(out["served_vs_eval_l2"] <= LOGITS_REL_TOL,
+          f"census served vs eval forward {out}")
+    check(not any(counts.values()), f"census serving launched {counts}")
+    return out
+
+
+def tabular_phase(torch, fa, pe, root):
+    """The tabular zoo on the card: each twin card vs CPU, census wide &
+    deep timed and served; every kernel counter 0 over the phase."""
+    records = tabular_records(root)
+    twins, executors = {}, {}
+    reset_kernel_launches(fa, pe)              # the tabular path starts here
+    for model_def, kind in TABULAR_TWINS:
+        name = model_def.split(".")[1]
+        twins[name], executors[name] = tabular_twin_phase(
+            torch, fa, pe, root, model_def, records[kind])
+    timed = census_timed_phase(torch, fa, pe, records["census"],
+                               records["census_eval"])
+    served = census_serving_check(
+        torch, fa, pe, executors["census_wide_deep"],
+        os.path.join(root, "census_wide_deep_bundles"))
+    launches = kernel_launch_counts(fa, pe)    # ... and ends
+    out = {"twins": twins, "census_wide_deep": timed, "served": served,
+           "launches": launches, "card": smi("name,power.limit")}
+    print("tabular", json.dumps({k: out[k] for k in
+                                 ("census_wide_deep", "served",
+                                  "launches")}), flush=True)
+    check(not any(launches.values()),
+          f"the tabular path launched kernels: {launches}")
+    return out
+
+
 def fused_path_phase(torch, pe):
     """DeviceSparseRunner(recsys TABLE_SPECS, Momentum(lr 0.05, Nesterov),
     use_pallas="fused") on the twin for FUSED_STEPS steps, against the
@@ -3200,7 +3454,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--phase", choices=("all", "fwd", "bwd", "chunk", "lookup", "host",
-                            "vision"),
+                            "vision", "tabular"),
         default="all",
         help="fwd: build flash_attention_fwd.cu alone, then run kernel "
              "#1's checks and times and print its kernels row; bwd: the "
@@ -3208,7 +3462,8 @@ def main(argv=None) -> int:
              "same for flash_chunk_update.cu (#2); lookup: the same for "
              "embedding_lookup.cu (#5 and #6, timed at the sweep's tiers); "
              "host: the host training phase alone (no kernel build); "
-             "vision: the vision phase alone (no kernel build)")
+             "vision: the vision phase alone (no kernel build); "
+             "tabular: the tabular phase alone (no kernel build)")
     args = parser.parse_args(argv)
     import torch
 
@@ -3227,13 +3482,15 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    if args.phase in ("host", "vision"):
+    if args.phase in ("host", "vision", "tabular"):
         with tempfile.TemporaryDirectory() as root:
             if args.phase == "host":
                 line = {"host_training": host_training_phase(torch, fa, pe,
                                                              root)}
-            else:
+            elif args.phase == "vision":
                 line = {"vision": vision_phase(torch, fa, pe, root)}
+            else:
+                line = {"tabular": tabular_phase(torch, fa, pe, root)}
         print(json.dumps(line))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3279,6 +3536,7 @@ def main(argv=None) -> int:
         small_twin_phase(torch, pe, root)
         host = host_training_phase(torch, fa, pe, root)
         vision = vision_phase(torch, fa, pe, root)
+        tabular = tabular_phase(torch, fa, pe, root)
     fused = fused_path_phase(torch, pe)
     sweep, sweep_counts = sweep_phase(torch, pe)
     emb_times = embedding_times(torch, pe)
@@ -3301,12 +3559,14 @@ def main(argv=None) -> int:
         row["launches_vision"] = (
             vision["mnist_functional"]["launches_card"][row["name"]]
             + vision["resnet50"]["launches"][row["name"]])
+        row["launches_tabular"] = tabular["launches"][row["name"]]
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"sparse_training": sparse}))
     print(json.dumps({"ring_training": ring_training}))
     print(json.dumps({"host_training": host}))
     print(json.dumps({"vision": vision}))
+    print(json.dumps({"tabular": tabular}))
     print(json.dumps({"kernels": [kernel, chunk_row] + bwd_rows
                       + emb_rows}))
     print(json.dumps({"ok": True, "device": {

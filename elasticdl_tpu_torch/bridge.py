@@ -29,15 +29,17 @@ transposed), the embedding tables (``fm_embedding``, ``fm_linear``) →
 ``(ids, rows)`` through ``to_arrays``/``set``, from a JAX
 ``EmbeddingTable`` or ``NativeEmbeddingTable`` into the port's.
 
-``vision_state_dict_from_flax`` carries a flax vision model's
-``params`` and ``batch_stats`` into its zoo twin's ``state_dict`` by
-module path: the twins name their submodules as flax does (``Conv_0``,
-``BatchNorm_0``, ``Dense_0``, and the named ones: ``norm1``,
-``norm_proj``, ``proj``, ``stem``, ``stage{s}_block{b}``,
-``final_norm``, ``head``, ...), so ``A/B/leaf`` becomes ``A.B.leaf``.
-Conv kernels (kh, kw, in, out) become ``weight`` (out, in, kh, kw),
-Dense kernels (in, out) ``weight`` (out, in); BatchNorm's ``scale`` and
-``bias`` and its statistics ``mean`` and ``var`` keep their names.
+``flax_state_dict`` carries a flax model's ``params`` (and
+``batch_stats``) into a zoo twin's ``state_dict`` by module path: the
+vision and tabular twins name their submodules as flax does
+(``Conv_0``, ``BatchNorm_0``, ``Dense_0``, and the named ones:
+``norm1``, ``stage{s}_block{b}``, ``head``, ``wide_weights``,
+``deep_embedding``, ``features/education_embedding``, ...), so
+``A/B/leaf`` becomes ``A.B.leaf``. Conv kernels (kh, kw, in, out)
+become ``weight`` (out, in, kh, kw), Dense kernels (in, out) ``weight``
+(out, in); every other leaf keeps its name (BatchNorm's ``scale``,
+``bias``, ``mean`` and ``var``, a table's ``embedding``, a top-level
+parameter such as ``wide_weights``).
 """
 
 from typing import Dict, Optional
@@ -242,10 +244,9 @@ def load_sparse_state(state, carried: dict):
     return state
 
 
-def vision_state_dict_from_flax(params: dict,
-                                batch_stats: Optional[dict] = None
-                                ) -> Dict[str, torch.Tensor]:
-    """A vision twin's ``state_dict`` for a flax model's ``params`` (or
+def flax_state_dict(params: dict, batch_stats: Optional[dict] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """A zoo twin's ``state_dict`` for a flax model's ``params`` (or
     its whole variables dict, ``{"params", "batch_stats"}``) and
     ``batch_stats``, nested dicts of numpy arrays, each tensor in its
     array's dtype. A gradient tree (the params' shape) maps the same

@@ -51,6 +51,8 @@ from elasticdl_tpu_torch.embedding.optimizer import (  # noqa: F401
 )
 from elasticdl_tpu_torch.embedding.partition import (  # noqa: F401
     DEFAULT_PARTITION_THRESHOLD_BYTES,
+    embedding_partition_rule,
+    partition_specs,
 )
 from elasticdl_tpu_torch.embedding.table import (  # noqa: F401
     EmbeddingTable,

@@ -1,10 +1,47 @@
-"""Auto-partition threshold (port of the constant of
+"""Auto-partition pass: which tables a mesh would row-shard (port of
 elasticdl_tpu/embedding/partition.py).
 
-Tables over the threshold are the ones a mesh runner row-shards; the
-single-device runner reads it only to keep the JAX runner's signature.
-The partition pass itself waits for the parallel slice.
+``embedding_partition_rule`` is the JAX rule over the port's parameter
+names: a parameter is a shardable table iff its name ends in the
+``Embedding`` layer's table name (``embedding``), it is 2-D, its row
+count divides the mesh axis, and it exceeds the threshold. The rule
+gives a partition spec as a tuple: ``(axis, None)`` for a table sharded
+by rows, ``()`` for a replicated parameter (the JAX ``PartitionSpec``'s
+entries). The single-device runners read only the threshold; placing
+parameters by these specs waits for the mesh over several cards.
 """
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from elasticdl_tpu_torch.embedding.layer import EMBEDDING_PARAM_NAME
 
 # The reference's 2 MB rule (model_handler.py:85-89).
 DEFAULT_PARTITION_THRESHOLD_BYTES = 2 * 1024 * 1024
+
+
+def embedding_partition_rule(
+    threshold_bytes: int = DEFAULT_PARTITION_THRESHOLD_BYTES,
+    axis: str = "dp",
+    axis_size: Optional[int] = None,
+) -> Callable[[str, torch.Tensor], tuple]:
+    """A ``(parameter name, tensor) -> spec`` rule."""
+
+    def rule(name: str, tensor: torch.Tensor) -> tuple:
+        shape = tuple(tensor.shape)
+        if (
+            name.split(".")[-1] == EMBEDDING_PARAM_NAME
+            and len(shape) == 2
+            and tensor.numel() * tensor.element_size() > threshold_bytes
+            and (axis_size is None or shape[0] % axis_size == 0)
+        ):
+            return (axis, None)
+        return ()
+
+    return rule
+
+
+def partition_specs(model: torch.nn.Module, rule) -> Dict[str, tuple]:
+    """``{parameter name: rule(name, parameter)}`` over ``model``."""
+    return {name: rule(name, p) for name, p in model.named_parameters()}

@@ -21,7 +21,7 @@ take as it is) and views its output back. ``place`` puts a model's
 
 Weights are drawn as flax draws them (truncated-normal lecun for
 kernels, zero biases); parity tests carry the JAX weights across with
-``bridge.vision_state_dict_from_flax``.
+``bridge.flax_state_dict``.
 """
 
 import math

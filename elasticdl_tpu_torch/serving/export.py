@@ -24,6 +24,7 @@ import torch
 from elasticdl_tpu_torch import bridge
 from elasticdl_tpu_torch.common import tensor_utils
 from elasticdl_tpu_torch.common.device import resolve_device
+from elasticdl_tpu_torch.data.batcher import tree_map
 from elasticdl_tpu_torch.models.transformer import (
     TransformerConfig,
     TransformerLM,
@@ -172,14 +173,19 @@ def load_predictor(bundle_dir: str, device=None,
     dev = next(model.parameters()).device
     cfg = getattr(model, "cfg", None)
 
+    def place(x):
+        return torch.as_tensor(np.asarray(x), device=dev)
+
     def predict(features):
-        tokens = np.asarray(features)
         if isinstance(cfg, TransformerConfig):
             # Checked here, on the host array: on the card the model
             # does not read its ids back.
-            check_token_ids(tokens, cfg.vocab_size)
-        tokens = torch.as_tensor(tokens, device=dev)
+            check_token_ids(np.asarray(features), cfg.vocab_size)
+        # A dict of features (the tabular twins' {"ids", "dense"})
+        # moves leaf by leaf.
+        inputs = (tree_map(place, features) if isinstance(features, dict)
+                  else place(features))
         with torch.inference_mode():
-            return model(tokens).cpu().numpy()
+            return model(inputs).cpu().numpy()
 
     return predict

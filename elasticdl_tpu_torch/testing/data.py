@@ -1,7 +1,9 @@
-"""Synthetic dataset fixtures of the port (the mnist, cifar, LM and
-frappe parts of elasticdl_tpu/testing/data.py): the same seed writes the
-same bytes, so both packages train on one record file."""
+"""Synthetic dataset fixtures of the port (the mnist, cifar, LM,
+frappe, census, heart and iris parts of elasticdl_tpu/testing/data.py):
+the same seed writes the same bytes, so both packages train on one
+record file."""
 
+import csv
 import os
 
 import numpy as np
@@ -78,6 +80,79 @@ def create_lm_record_file(path, num_records, seed=0, seq_len=32,
             writer.write(
                 tensor_utils.dumps({"tokens": tokens.astype(np.int64)})
             )
+    return path
+
+
+def create_census_record_file(path, num_records, seed=0):
+    """Census-style mixed dense+categorical rows (wide&deep workload)."""
+    rng = np.random.RandomState(seed)
+    education = ["Bachelors", "HS-grad", "Masters", "Doctorate",
+                 "Some-college"]
+    workclass = ["Private", "Self-emp", "Federal-gov", "Local-gov"]
+    with RecordFileWriter(path) as writer:
+        for _ in range(num_records):
+            age = float(rng.randint(17, 90))
+            hours = float(rng.randint(1, 99))
+            edu = education[rng.randint(len(education))]
+            work = workclass[rng.randint(len(workclass))]
+            label = int((age > 40) ^ (edu in ("Masters", "Doctorate")))
+            writer.write(
+                tensor_utils.dumps(
+                    {
+                        "age": age,
+                        "hours_per_week": hours,
+                        "education": edu,
+                        "workclass": work,
+                        "label": label,
+                    }
+                )
+            )
+    return path
+
+
+def create_heart_record_file(path, num_records, seed=0):
+    """Heart-disease-style mixed rows (reference heart_functional_api
+    feature schema: numerics + age + string thal + binary target)."""
+    rng = np.random.RandomState(seed)
+    thal_values = ["fixed", "normal", "reversible"]
+    with RecordFileWriter(path) as writer:
+        for _ in range(num_records):
+            thal = thal_values[rng.randint(len(thal_values))]
+            age = float(rng.randint(29, 77))
+            oldpeak = float(rng.rand() * 4)
+            label = int((age > 55) ^ (thal == "normal"))
+            writer.write(
+                tensor_utils.dumps(
+                    {
+                        "age": age,
+                        "trestbps": float(rng.randint(94, 200)),
+                        "chol": float(rng.randint(126, 400)),
+                        "thalach": float(rng.randint(71, 202)),
+                        "oldpeak": oldpeak,
+                        "slope": float(rng.randint(1, 4)),
+                        "ca": float(rng.randint(0, 4)),
+                        "thal": thal,
+                        "target": label,
+                    }
+                )
+            )
+    return path
+
+
+def create_iris_csv(path, num_records, seed=0):
+    """Iris-style CSV: a header, four features near the class index and
+    the class (0, 1 or 2)."""
+    rng = np.random.RandomState(seed)
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(
+            ["sepal_length", "sepal_width", "petal_length", "petal_width",
+             "class"]
+        )
+        for _ in range(num_records):
+            label = int(rng.randint(3))
+            row = (rng.rand(4) + label).round(3)
+            writer.writerow(list(row) + [label])
     return path
 
 

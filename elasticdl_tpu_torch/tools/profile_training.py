@@ -6,6 +6,8 @@
         [--batch 512] [--iters 5]
     python -m elasticdl_tpu_torch.tools.profile_training --model resnet50
         [--batch 128] [--iters 5]
+    python -m elasticdl_tpu_torch.tools.profile_training --model census
+        [--batch 512] [--iters 5]
 
 ``--model transformer`` (the default) builds the transformer-LM
 flagship (bench_suite.py ``_TRANSFORMER_SIZES["transformer"]``, vocab
@@ -22,7 +24,14 @@ sparse runner's step with the kernels pinned (``use_pallas="always"``)
 on seeded random id batches. ``--model resnet50`` builds the resnet50
 zoo twin (``custom_model()``: s2d stem, 10 classes, bf16) with seeded
 random weights and runs ``core.step.build_train_step`` on bench_suite's
-synthetic batches (uniform [0, 1) images, 224 x 224 x 3).
+synthetic batches (uniform [0, 1) images, 224 x 224 x 3). ``--model
+census`` builds census_wide_deep (BASELINE #5, bench_suite.py's
+``census`` config) with seeded random weights and its Adam under the
+zoo's schedule, and runs ``core.step.build_train_step`` on batches its
+``dataset_fn`` makes of ``testing.data.create_census_record_file``'s
+records (seed 0, written to a temporary directory); it also prints the
+host's ms for ``dataset_fn`` on one batch (the median of ``--iters``
+calls), the decode the executor's prefetch thread runs beside the step.
 
 Either way it times ``--iters`` steps with CUDA events beside the
 host's time to issue them, then runs ``--iters`` steps under
@@ -97,6 +106,44 @@ def _resnet50(batch):
     return state, build_train_step(resnet50.loss), batches
 
 
+def _census(batch, iters):
+    """(state, step, batches, dataset_fn ms: the median of ``iters``
+    decodes of one batch)."""
+    import os
+    import tempfile
+
+    from elasticdl_tpu_torch.callbacks import apply_callbacks_to_optimizer
+    from elasticdl_tpu_torch.common.constants import Mode
+    from elasticdl_tpu_torch.data.record_file import RecordFileScanner
+    from elasticdl_tpu_torch.model_zoo.census import census_wide_deep as twin
+    from elasticdl_tpu_torch.testing.data import create_census_record_file
+
+    torch.manual_seed(0)
+    make_optimizer = apply_callbacks_to_optimizer(twin.optimizer(),
+                                                  twin.callbacks())
+    state = init_train_state(twin.custom_model(device="cuda"),
+                             make_optimizer, seed=0)
+    with tempfile.TemporaryDirectory() as root:
+        path = create_census_record_file(os.path.join(root, "census.rec"),
+                                         2 * batch, seed=0)
+        with RecordFileScanner(path, 0, 2 * batch) as scanner:
+            records = list(scanner)
+
+    def decode(i):
+        features, labels = twin.dataset_fn(
+            records[i * batch:(i + 1) * batch], Mode.TRAINING, None)
+        return {"features": features, "labels": labels,
+                "mask": np.ones(batch, np.float32)}
+
+    decode_ms = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        decode(0)
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+    return (state, build_train_step(twin.loss), [decode(0), decode(1)],
+            float(np.median(decode_ms)))
+
+
 def _transformer(batch, seq, sp=1, remat=False):
     cfg = TransformerConfig(**dict(FLAGSHIP, max_len=max(
         seq, FLAGSHIP["max_len"])), remat=remat,
@@ -147,11 +194,12 @@ def _recsys(batch):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser("profile_training")
     parser.add_argument("--model",
-                        choices=("transformer", "recsys", "resnet50"),
+                        choices=("transformer", "recsys", "resnet50",
+                                 "census"),
                         default="transformer")
     parser.add_argument("--batch", type=int, default=None,
-                        help="8 (transformer), 512 (recsys) or 128 "
-                             "(resnet50)")
+                        help="8 (transformer), 512 (recsys, census) or "
+                             "128 (resnet50)")
     parser.add_argument("--seq", type=int, default=1024)
     parser.add_argument("--iters", type=int, default=5)
     parser.add_argument("--top", type=int, default=16)
@@ -164,7 +212,13 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_training needs a CUDA device")
-    if args.model == "recsys":
+    extra = {}
+    if args.model == "census":
+        args.batch = args.batch or 512
+        state, step, batches, decode_ms = _census(args.batch, args.iters)
+        shape = [args.batch, 4]
+        extra["dataset_fn_ms"] = decode_ms
+    elif args.model == "recsys":
         args.batch = args.batch or 512
         state, step, batches = _recsys(args.batch)
         shape = [args.batch, 32]
@@ -237,6 +291,7 @@ def main(argv=None) -> int:
         "attention_kernels_ms_per_step": {
             label: us / args.iters / 1e3
             for label, us in sorted(attention.items())},
+        **extra,
     }))
     return 0
 

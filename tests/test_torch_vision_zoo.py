@@ -4,7 +4,7 @@ statistics through the steps, and their runs through the Local executor,
 on the CPU.
 
 Weights and statistics cross from flax through
-``bridge.vision_state_dict_from_flax``; inputs come from numpy seeds.
+``bridge.flax_state_dict``; inputs come from numpy seeds.
 resnet50 and v2 run shallow (one block a stage) at 32×32, B 4; the JAX
 v2 through a ``monkeypatch`` of its module's ``STAGES``. cifar10's
 dropout is patched to the identity on both sides (the twin's dropout has
@@ -200,7 +200,7 @@ def _jitter(variables, seed):
 
 
 def _stats(variables):
-    return bridge.vision_state_dict_from_flax(
+    return bridge.flax_state_dict(
         {"params": {}, "batch_stats": variables["batch_stats"]})
 
 
@@ -216,7 +216,7 @@ def test_vision_twin_forward_matches_jax(name, dtype, jax_zoo, no_dropout):
     x = _features(shape, 0)
     variables = _jitter(_init(name, jax_zoo), 1)
     model = make_port(tdt)
-    model.load_state_dict(bridge.vision_state_dict_from_flax(variables))
+    model.load_state_dict(bridge.flax_state_dict(variables))
     want = jmodel.apply(variables, jnp.asarray(x), training=False)
     with torch.no_grad():
         got = model.eval()(torch.from_numpy(x))
@@ -257,7 +257,7 @@ def test_same_padding_is_flax_asymmetric_padding():
         variables = flax_conv.init(jax.random.PRNGKey(0), jnp.asarray(x))
         want = np.asarray(flax_conv.apply(variables, jnp.asarray(x)))
         conv = Conv(cin, cout, k, s, use_bias=False)
-        conv.load_state_dict(bridge.vision_state_dict_from_flax(
+        conv.load_state_dict(bridge.flax_state_dict(
             jax.tree.map(np.asarray, variables)))
         with torch.no_grad():
             got = conv(torch.from_numpy(x))
@@ -342,14 +342,14 @@ def test_vision_twin_local_steps_match_jax_in_float64(name, jax_zoo,
         jtrain = jax_step.build_train_step(jmod.loss)
         jgrad = jax_step.build_grad_step(jmod.loss)
         model = _float64_twin(make_port(torch.float64))
-        model.load_state_dict(bridge.vision_state_dict_from_flax(variables))
+        model.load_state_dict(bridge.flax_state_dict(variables))
         state = init_train_state(model, twin.optimizer())
         train = port_step.build_train_step(twin.loss)
         grad = port_step.build_grad_step(twin.loss)
         for batch in batches:
             want_grads, _ = jgrad(jstate, batch, jax.random.PRNGKey(0))
             got_grads, _ = grad(state, batch)
-            _grads_close(got_grads, bridge.vision_state_dict_from_flax(
+            _grads_close(got_grads, bridge.flax_state_dict(
                 jax.tree.map(np.asarray, want_grads)))
             jstate, jmetrics = jtrain(jstate, batch)
             state, metrics = train(state, batch)
@@ -360,10 +360,10 @@ def test_vision_twin_local_steps_match_jax_in_float64(name, jax_zoo,
             assert sorted(state.batch_stats) == sorted(want_stats)
             for key, value in want_stats.items():
                 assert rel(state.batch_stats[key], value) <= F64_TOL, key
-        want = bridge.vision_state_dict_from_flax(
+        want = bridge.flax_state_dict(
             jax.tree.map(np.asarray, jstate.params))
         got = model.state_dict()
-        start = bridge.vision_state_dict_from_flax(variables)
+        start = bridge.flax_state_dict(variables)
         _grads_close({k: got[k] - start[k] for k in want},
                      {k: want[k] - start[k] for k in want})
 
@@ -535,7 +535,7 @@ def test_mnist_executor_losses_match_jax_executor(tmp_path):
         def on_train_batch_begin(self, owner=None):
             if owner.state.step == 0:
                 owner.state.model.load_state_dict(
-                    bridge.vision_state_dict_from_flax(start["variables"]))
+                    bridge.flax_state_dict(start["variables"]))
 
         def on_train_batch_end(self, owner=None, metrics=None):
             losses.append(float(metrics["loss"]))
