@@ -9,6 +9,8 @@
     python3 chip_smoke.py --phase host   # the host tier alone, no kernel build
     python3 chip_smoke.py --phase vision # the vision zoo alone, no build
     python3 chip_smoke.py --phase tabular # the tabular zoo alone, no build
+    python3 chip_smoke.py --phase checkpoint # checkpoints and the jobs
+                                             # alone (embedding kernels)
 
 1. Prints the card (``nvidia-smi`` name and power limit) and versions.
 2. Builds every CUDA kernel of the port from ``elasticdl_tpu_torch/ops/csrc``.
@@ -151,6 +153,30 @@
    bundle served by ``InferenceServer`` on the card answers a JSON
    predict of dict features as the trained model's eval forward. Every
    kernel counter is zeroed before the phase and reads 0 after it.
+11e. ``checkpoint`` (checkpoints, resume and the evaluate/predict
+   jobs; ``--phase checkpoint`` runs it alone and builds only the
+   embedding kernels): (a) the recsys twin at full width with the
+   kernels pinned, a straight run of 8 steps over records A then B
+   against a split run, A with ``--checkpoint_steps 4`` and a new
+   executor restored by ``--checkpoint_dir_for_init`` over B, each run
+   evaluated on one batch: the restored state (table, accumulator,
+   dense parameters, Adam slots, step, generator, table steps) equals
+   the saved one bit for bit; the resumed losses, the touched rows'
+   change and accumulator within SPARSE_TOL of the straight run;
+   untouched rows bit-equal; launches exactly lookup = steps + eval
+   batches and Adagrad row updates = steps on each run; the save's
+   stall, seconds, bytes and GB/s and the restore's seconds from the
+   port's registry, the card's peak memory and the host's RSS. (b)
+   deepfm_host, a base and two deltas (``--checkpoint_delta_chain 2``)
+   resumed from the chain: host rows and slots bit-equal after the
+   restore, losses and rows within HOST_TOL of a straight run, no
+   kernel launch. (c) census_wide_deep with its schedule compressed in
+   versions: the split run's learning rate at each version equals the
+   straight run's; ``python -m elasticdl_tpu_torch evaluate`` and
+   ``predict`` in subprocesses on the card from the checkpoint: metrics
+   equal to the training executor's final eval, predictions (the zoo
+   module's ``PredictionOutputsProcessor``) bit-equal to its eval
+   forward; TensorBoard's scalars carry the eval metrics.
 12. ``fused path``: ``DeviceSparseRunner`` over the recsys table with
    Momentum (Nesterov) and ``use_pallas="fused"`` for 10 steps against
    "never": one fused-kernel launch a step.
@@ -189,12 +215,13 @@
    updates an eval batch); step ms beside issue ms, tokens/s, peak
    memory.
 17. Prints a ``serving``, a ``training``, a ``sparse_training``, a
-   ``ring_training``, a ``host_training``, a ``vision``, a ``tabular``
-   and a ``kernels`` JSON line (the four flash kernels and the four
-   embedding kernels with their ms, plain ms, library ms, bound ms and
-   launches, and their launches on the host, vision and tabular paths,
-   ``launches_host_training``, ``launches_vision``,
-   ``launches_tabular``; #5 with its times at
+   ``ring_training``, a ``host_training``, a ``vision``, a ``tabular``,
+   a ``checkpoint`` and a ``kernels`` JSON line (the four flash kernels
+   and the four embedding kernels with their ms, plain ms, library ms,
+   bound ms and launches, and their launches on the host, vision,
+   tabular and checkpoint paths, ``launches_host_training``,
+   ``launches_vision``, ``launches_tabular``, ``launches_checkpoint``
+   (the straight, first and resumed recsys runs); #5 with its times at
    the sweep's tiers, the row kernels with a per-rule list) and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -435,6 +462,60 @@ TABULAR_TWINS = (
     ("heart.heart.custom_model", "heart"),
     ("iris.iris_dnn.custom_model", "iris"),
 )
+# Checkpoints, resume and the evaluate/predict jobs (slice 14; ``--phase
+# checkpoint`` runs it alone). (a) The recsys twin at full width, its
+# kernels pinned (RECSYS_ZOO "always"): a straight run over records A
+# then B (CKPT_RECORDS each: 4 steps at EMB_BATCH), against a split run:
+# A with --checkpoint_steps CKPT_STEPS, then a new executor restored
+# from it over B; each run evaluated on CKPT_EVAL_RECORDS (one batch).
+# The restored state equals the saved one bit for bit; the resumed
+# losses and the touched rows' change and accumulator follow the
+# straight run within SPARSE_TOL (the row gradients' index_add uses
+# atomics on the card, so two runs differ by rounding).
+CKPT_RECORDS, CKPT_EVAL_RECORDS, CKPT_STEPS = 2048, 512, 4
+# (b) deepfm_host (HOST_ZOO, synchronous rows) at HOST_BATCH: A of
+# HOST_CKPT_A records (6 steps) saved every 2 versions as a base and two
+# deltas (--checkpoint_delta_chain 2), resumed over B (HOST_CKPT_B, 2
+# steps), against a straight run, within HOST_TOL.
+HOST_CKPT_A, HOST_CKPT_B = 3072, 1024
+# (c) census_wide_deep (BASELINE #5) with its schedule read at
+# CENSUS_LR_SCALE times the version, so the schedule's steps (versions
+# 5000 and 12000) fall at versions 2 and 5 of a run of 8 steps at
+# TABULAR_BATCH (records A and B, CKPT_RECORDS each); split at
+# CKPT_STEPS. Then `python -m elasticdl_tpu_torch evaluate` and
+# `predict` in subprocesses on the card from the straight run's
+# checkpoint, on CENSUS_EVAL_RECORDS: the metrics equal the training
+# executor's final eval and the predictions its eval forward, bit for
+# bit (the same card, kernels and shapes).
+CENSUS_LR_SCALE = 2500
+CKPT_ZOO_CENSUS = f"""
+import os
+
+import numpy as np
+
+from elasticdl_tpu_torch.callbacks import LearningRateScheduler
+from elasticdl_tpu_torch.model_zoo.census import census_wide_deep as twin
+from elasticdl_tpu_torch.model_zoo.census.census_wide_deep import (  # noqa
+    custom_model, dataset_fn, eval_metrics_fn, loss, optimizer)
+
+
+def callbacks():
+    return [LearningRateScheduler(
+        lambda v: twin.lr_multiplier({CENSUS_LR_SCALE} * v))]
+
+
+class PredictionOutputsProcessor:
+    \"\"\"Saves each batch of predictions beside this module.\"\"\"
+
+    def __init__(self):
+        self.batches = 0
+
+    def process(self, predictions, worker_id):
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            f"predictions-{{self.batches:04d}}.npy")
+        np.save(path, predictions)
+        self.batches += 1
+"""
 # Ring attention over an sp mesh of one card (slice 4): the long-context
 # row of tools/bench_long_context.py, (S 8192, B 1, remat), on the
 # flagship's widths, the sequence cut over RING_SP ranks (chunks of 2048).
@@ -2983,6 +3064,462 @@ def tabular_phase(torch, fa, pe, root):
     return out
 
 
+def bit_equal(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and np.array_equal(a.reshape(-1).view(np.uint8),
+                               b.reshape(-1).view(np.uint8)))
+
+
+def unequal_leaves(got, want):
+    """Names of the leaves of ``want`` that ``got`` lacks or holds with
+    other bits."""
+    return [n for n in want if n not in got or not bit_equal(got[n], want[n])]
+
+
+def checkpoint_registry():
+    """The port's registry's ``checkpoint_*`` series: histograms as
+    (count, sum), counters and gauges as their value."""
+    from elasticdl_tpu_torch.observability import default_registry
+
+    out = {}
+    for family in default_registry().snapshot()["families"]:
+        if "_checkpoint_" not in family["name"]:
+            continue
+        name = family["name"].split("_checkpoint_", 1)[1]
+        for series in family["series"]:
+            key = name + "".join(f"[{v}]" for v in series["labels"])
+            out[key] = ((series["count"], series["sum"])
+                        if "count" in series else series["value"])
+    return out
+
+
+def registry_since(before):
+    """Each checkpoint series' change since ``before``: histograms as
+    {count, sum}, counters as their increase."""
+    out = {}
+    for key, value in checkpoint_registry().items():
+        old = before.get(key)
+        if isinstance(value, tuple):
+            old = old or (0, 0.0)
+            out[key] = {"count": value[0] - old[0], "sum": value[1] - old[1]}
+        else:
+            out[key] = value - (old or 0.0)
+    return out
+
+
+def host_rss():
+    """(current, peak) resident bytes of this process."""
+    import resource
+
+    with open("/proc/self/statm") as f:
+        pages = int(f.read().split()[1])
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    return pages * os.sysconf("SC_PAGE_SIZE"), peak
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def ckpt_run(torch, fa, pe, zoo, model_def, data, batch, extra,
+             callbacks=(), validation=""):
+    """One LocalExecutor run on the card; every kernel counter is zeroed
+    just before it and read just after."""
+    from elasticdl_tpu_torch.api.local_executor import LocalExecutor
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    args = tdata.make_local_args(
+        zoo, model_def, data, validation_data=validation,
+        minibatch_size=batch,
+        extra=["--device", DEVICE, "--random_seed", str(SEED)] + extra)
+    record = step_recorder(torch)
+    executor = LocalExecutor(args, callbacks=[record, *callbacks])
+    reset_kernel_launches(fa, pe)             # the path starts here
+    result = executor.run()
+    counts = kernel_launch_counts(fa, pe)     # ... and ends
+    counts["row_update_adagrad"] = pe.row_update_rule_launches["adagrad"]
+    return executor, [float(x) for x in record.loss], result, counts
+
+
+def restored_check(torch, want_leaves, want_tables=None):
+    """A Callback that, at the first batch of a resumed run (after the
+    restore, before the first step), reads the state's leaves and the
+    runner's host tables against the saved ones, bit for bit."""
+    from elasticdl_tpu_torch.callbacks import Callback
+    from elasticdl_tpu_torch.checkpoint import named_leaves_from_state
+
+    class RestoredCheck(Callback):
+        reading = None
+
+        def on_train_batch_begin(self, owner=None):
+            if self.reading is not None:
+                return
+            got = named_leaves_from_state(owner.state)
+            bad = unequal_leaves(got, want_leaves)
+            extra = sorted(set(got) - set(want_leaves))
+            tables_bad = []
+            for name, (ids, rows) in (want_tables or {}).items():
+                got_ids, got_rows = \
+                    owner._step_runner.host_tables[name].to_arrays()
+                if not (bit_equal(got_ids, ids) and bit_equal(got_rows,
+                                                              rows)):
+                    tables_bad.append(name)
+            self.reading = {"step": owner.state.step,
+                            "leaves": len(want_leaves), "unequal": bad,
+                            "unexpected": extra,
+                            "host_tables": sorted(want_tables or {}),
+                            "host_tables_unequal": tables_bad}
+
+    return RestoredCheck()
+
+
+def loss_rel(got, want):
+    return max(abs(x - y) / abs(y) for x, y in zip(got, want))
+
+
+def checkpoint_recsys_part(torch, fa, pe, root):
+    """(a) The recsys twin at full width: straight against split, the
+    restored state against the saved one, the save and restore read
+    from the port's registry."""
+    from elasticdl_tpu_torch.checkpoint import named_leaves_from_state
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    both = os.path.join(root, "ckpt_recsys_ab")
+    os.makedirs(both)
+    files = [tdata.create_frappe_record_file(
+        os.path.join(both, f"{part}.rec"), CKPT_RECORDS, seed=seed,
+        input_length=EMB_IDS, max_id=EMB_VOCAB)
+        for part, seed in (("a", SEED + 10), ("b", SEED + 11))]
+    evalf = tdata.create_frappe_record_file(
+        os.path.join(root, "ckpt_recsys_eval.rec"), CKPT_EVAL_RECORDS,
+        seed=SEED + 12, input_length=EMB_IDS, max_id=EMB_VOCAB)
+    zoo = write_zoo(root, "ckpt_recsys", RECSYS_ZOO.format(mode="always"))
+    model_def = "ckpt_recsys.rec.custom_model"
+    ckpt = os.path.join(root, "ckpt_recsys")
+
+    def run(data, extra, callbacks=()):
+        return ckpt_run(torch, fa, pe, zoo, model_def, data, EMB_BATCH,
+                        extra, callbacks, validation=evalf)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rss_before = host_rss()[0]
+    snap = table_snapshot(torch)
+    straight, s_loss, _, s_counts = run(both, [], [snap])
+    initial = snap.initial[RECSYS_TABLE]
+    s_table = straight.state.tables[RECSYS_TABLE]
+    s_acc = straight.state.slot_tables[RECSYS_TABLE]["accumulator"]
+    del straight
+    before = checkpoint_registry()
+    first, f_loss, _, f_counts = run(files[0], [
+        "--checkpoint_dir", ckpt, "--checkpoint_steps", str(CKPT_STEPS)])
+    saved_registry = registry_since(before)
+    saved_files = sorted(os.listdir(ckpt))
+    saved_bytes = dir_bytes(ckpt)
+    t0 = time.monotonic()
+    saved = named_leaves_from_state(first.state)   # the state at the save
+    host_copy_s = time.monotonic() - t0
+    del first
+    torch.cuda.empty_cache()
+    before = checkpoint_registry()
+    restored = restored_check(torch, saved)
+    resumed, r_loss, _, r_counts = run(files[1], [
+        "--checkpoint_dir_for_init", ckpt], [restored])
+    restore_registry = registry_since(before)
+    peak = torch.cuda.max_memory_allocated()
+    rss_after, rss_peak = host_rss()
+    del saved
+    r_table = resumed.state.tables[RECSYS_TABLE]
+    r_acc = resumed.state.slot_tables[RECSYS_TABLE]["accumulator"]
+    ids = np.concatenate([frappe_ids(CKPT_RECORDS, EMB_IDS, EMB_VOCAB, s)
+                          for s in (SEED + 10, SEED + 11)])
+    touched = torch.zeros(initial.shape[0], dtype=torch.bool,
+                          device=initial.device)
+    touched[torch.from_numpy(np.unique(ids)).to(initial.device)] = True
+    untouched = ~touched
+    delta_r = (r_table[touched] - initial[touched]).cpu().numpy()
+    delta_s = (s_table[touched] - initial[touched]).cpu().numpy()
+    save_s = saved_registry["save_seconds"]["sum"]
+    stall = saved_registry["stall_seconds"]
+    restore_s = restore_registry["restore_seconds"]["sum"]
+    eval_batches = -(-CKPT_EVAL_RECORDS // EMB_BATCH)
+    out = {
+        "model": "recsys ranker twin, 1,000,000 x 256 f32 table, Adagrad "
+                 "rows, bf16 MLP, Adam; kernels pinned",
+        "steps": {"straight": len(s_loss), "first": len(f_loss),
+                  "resumed": len(r_loss)},
+        "resumed_step": resumed.state.step,
+        "launches": {"straight": s_counts, "first": f_counts,
+                     "resumed": r_counts},
+        "restored": restored.reading,
+        "saved_files": saved_files, "saved_dir_bytes": saved_bytes,
+        "losses_straight": s_loss, "losses_split": f_loss + r_loss,
+        "loss_max_rel_diff": loss_rel(f_loss + r_loss, s_loss),
+        "table_delta_l2": rel_err(delta_r, delta_s),
+        "table_delta_max_abs_err": float(np.abs(delta_r - delta_s).max()),
+        "accumulator_l2": rel_err(r_acc[touched].cpu().numpy(),
+                                  s_acc[touched].cpu().numpy()),
+        "touched_rows": int(touched.sum()),
+        "untouched_bit_equal": bool(
+            torch.equal(r_table[untouched], initial[untouched])
+            and bool((r_acc[untouched] == 0.1).all())),
+        "stall_s": stall, "save_s": save_s,
+        "saved_bytes": saved_registry["saved_bytes_total"],
+        "save_gb_per_s": saved_registry["saved_bytes_total"] / save_s / 1e9,
+        "restore_s": restore_s,
+        "restore_gb_per_s": saved_bytes / restore_s / 1e9,
+        "host_copy_s": host_copy_s,
+        "registry_save": saved_registry, "registry_restore": restore_registry,
+        "max_memory_allocated_bytes": peak,
+        "host_rss_bytes": {"before": rss_before, "after": rss_after,
+                           "peak": rss_peak},
+        "tol": SPARSE_TOL,
+    }
+    print("checkpoint recsys", json.dumps(out), flush=True)
+    reading = restored.reading or {}
+    check(reading.get("step") == CKPT_STEPS and not reading.get("unequal")
+          and not reading.get("unexpected"),
+          f"the restored state is not the saved one: {reading}")
+    check(resumed.state.step == 2 * CKPT_STEPS,
+          f"resumed at step {resumed.state.step}")
+    for name, counts, steps in (("straight", s_counts, 2 * CKPT_STEPS),
+                                ("first", f_counts, CKPT_STEPS),
+                                ("resumed", r_counts, CKPT_STEPS)):
+        want = {k: 0 for k in counts}
+        want.update(lookup_combine=steps + eval_batches, row_update=steps,
+                    row_update_adagrad=steps)
+        check(counts == want, f"{name} run launches {counts}, not {want}")
+    check(out["loss_max_rel_diff"] <= SPARSE_TOL["loss"],
+          f"resumed vs straight losses {out}")
+    check(out["table_delta_l2"] <= SPARSE_TOL["delta_l2"]
+          and out["accumulator_l2"] <= SPARSE_TOL["delta_l2"],
+          f"resumed vs straight rows {out}")
+    check(out["untouched_bit_equal"], "an untouched row or accumulator moved")
+    check(saved_files == [f"version-{CKPT_STEPS}"]
+          and saved_registry["saves_total"] == 1
+          and stall["count"] == 1
+          and restore_registry["restore_seconds"]["count"] == 1,
+          f"saves {saved_files}, registry {saved_registry}")
+    return out
+
+
+def checkpoint_host_part(torch, fa, pe, root):
+    """(b) deepfm_host on the host tier: a base and two deltas, resumed
+    from the chain against a straight run (synchronous rows)."""
+    from elasticdl_tpu_torch.checkpoint import named_leaves_from_state
+    from elasticdl_tpu_torch.model_zoo.deepfm import deepfm_host as twin
+    from elasticdl_tpu_torch.native.row_store import NativeEmbeddingTable
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    both = os.path.join(root, "ckpt_host_ab")
+    os.makedirs(both)
+    files = [tdata.create_frappe_record_file(
+        os.path.join(both, f"{part}.rec"), n, seed=seed,
+        input_length=HOST_IDS, max_id=HOST_MAX_ID)
+        for part, n, seed in (("a", HOST_CKPT_A, SEED + 20),
+                              ("b", HOST_CKPT_B, SEED + 21))]
+    zoo = write_zoo(root, "ckpt_host", HOST_ZOO)
+    model_def = "ckpt_host.rec.custom_model"
+    ckpt = os.path.join(root, "ckpt_host")
+
+    def run(data, extra, callbacks=()):
+        return ckpt_run(torch, fa, pe, zoo, model_def, data, HOST_BATCH,
+                        extra, callbacks)
+
+    def main_rows(executor):
+        return executor._step_runner.engine.tables[
+            twin.TABLE_NAME].to_arrays()
+
+    straight, s_loss, _, s_counts = run(both, [])
+    s_ids, s_rows = main_rows(straight)
+    first, f_loss, _, f_counts = run(files[0], [
+        "--checkpoint_dir", ckpt, "--checkpoint_steps", "2",
+        "--checkpoint_delta_chain", "2"])
+    layout = sorted(os.listdir(ckpt))
+    tables = {n: t.to_arrays()
+              for n, t in first._step_runner.host_tables.items()}
+    restored = restored_check(torch, named_leaves_from_state(first.state),
+                              tables)
+    resumed, r_loss, _, r_counts = run(files[1], [
+        "--checkpoint_dir_for_init", ckpt], [restored])
+    r_ids, r_rows = main_rows(resumed)
+    initial = NativeEmbeddingTable(twin.TABLE_NAME,
+                                   twin.EMBEDDING_DIM).get(s_ids)
+    same_ids = bool(np.array_equal(r_ids, s_ids))
+    out = {"model": "deepfm_host twin, 5500 x 16 host table, SGD rows, "
+                    "synchronous runner",
+           "layout": layout, "restored": restored.reading,
+           "resumed_step": resumed.state.step,
+           "launches": {"straight": s_counts, "first": f_counts,
+                        "resumed": r_counts},
+           "losses_straight": s_loss, "losses_split": f_loss + r_loss,
+           "loss_max_rel_diff": loss_rel(f_loss + r_loss, s_loss),
+           "same_ids": same_ids,
+           "rows_delta_l2": (rel_err(r_rows - initial, s_rows - initial)
+                             if same_ids else None),
+           "tol": HOST_TOL}
+    print("checkpoint host", json.dumps(out), flush=True)
+    reading = restored.reading or {}
+    check(layout == ["delta-4", "delta-6", "version-2"],
+          f"host checkpoint layout {layout}")
+    check(reading.get("step") == 6 and not reading.get("unequal")
+          and not reading.get("host_tables_unequal")
+          and len(reading.get("host_tables", [])) >= 2,
+          f"the restored host state is not the saved one: {reading}")
+    check(resumed.state.step == 8, f"resumed at {resumed.state.step}")
+    for name, counts in (("straight", s_counts), ("first", f_counts),
+                         ("resumed", r_counts)):
+        check(not any(counts.values()),
+              f"the host path ({name}) launched kernels: {counts}")
+    check(out["loss_max_rel_diff"] <= HOST_TOL["loss"],
+          f"resumed vs straight host losses {out}")
+    check(same_ids and out["rows_delta_l2"] <= HOST_TOL["delta_l2"],
+          f"resumed vs straight host rows {out}")
+    return out
+
+
+def lr_recorder():
+    from elasticdl_tpu_torch.callbacks import Callback
+
+    class LrRecorder(Callback):
+        def __init__(self):
+            self.lrs = []
+
+        def on_train_batch_begin(self, owner=None):
+            self.lrs.append(owner.state.optimizer.param_groups[0]["lr"])
+
+    return LrRecorder()
+
+
+def job_subprocess(role, zoo, model_def, data_flag, data, ckpt):
+    """``python -m elasticdl_tpu_torch <role>`` on the card; its result
+    from its log."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (here, env.get("PYTHONPATH", "")) if p)
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "elasticdl_tpu_torch", role,
+         "--model_zoo", zoo, "--model_def", model_def, data_flag, data,
+         "--checkpoint_dir_for_init", ckpt,
+         "--minibatch_size", str(TABULAR_BATCH), "--device", DEVICE],
+        env=env, cwd=os.path.dirname(zoo), capture_output=True, text=True,
+        timeout=600)
+    seconds = time.monotonic() - t0
+    check(proc.returncode == 0,
+          f"{role} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    marker = f"{role} finished: "
+    line = [x for x in proc.stderr.splitlines() if marker in x]
+    check(len(line) == 1, f"{role}: no result line in {proc.stderr[-2000:]}")
+    return json.loads(line[0].split(marker, 1)[1]), seconds
+
+
+def checkpoint_jobs_part(torch, fa, pe, root):
+    """(c) census_wide_deep: the schedule through a split run, then the
+    evaluate and predict jobs in subprocesses from the checkpoint."""
+    from elasticdl_tpu_torch.common.constants import Mode
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    both = os.path.join(root, "ckpt_census_ab")
+    os.makedirs(both)
+    files = [tdata.create_census_record_file(
+        os.path.join(both, f"{part}.rec"), CKPT_RECORDS, seed=seed)
+        for part, seed in (("a", SEED + 30), ("b", SEED + 31))]
+    evalf = tdata.create_census_record_file(
+        os.path.join(root, "ckpt_census_eval.rec"), CENSUS_EVAL_RECORDS,
+        seed=SEED + 32)
+    zoo = write_zoo(root, "ckpt_census", CKPT_ZOO_CENSUS)
+    model_def = "ckpt_census.rec.custom_model"
+    ckpt, split_ckpt = (os.path.join(root, "ckpt_census"),
+                        os.path.join(root, "ckpt_census_split"))
+    tb = os.path.join(root, "ckpt_census_tb")
+
+    def run(data, extra, validation=""):
+        lrs = lr_recorder()
+        executor, losses, result, counts = ckpt_run(
+            torch, fa, pe, zoo, model_def, data, TABULAR_BATCH, extra,
+            [lrs], validation=validation)
+        return executor, losses, result, counts, lrs.lrs
+
+    straight, s_loss, s_res, s_counts, s_lrs = run(
+        both, ["--checkpoint_dir", ckpt, "--tensorboard_log_dir", tb],
+        validation=evalf)
+    _, f_loss, _, f_counts, f_lrs = run(files[0], [
+        "--checkpoint_dir", split_ckpt, "--checkpoint_steps",
+        str(CKPT_STEPS)])
+    resumed, r_loss, _, r_counts, r_lrs = run(files[1], [
+        "--checkpoint_dir_for_init", split_ckpt])
+    metrics, eval_s = job_subprocess("evaluate", zoo, model_def,
+                                     "--validation_data", evalf, ckpt)
+    summary, predict_s = job_subprocess("predict", zoo, model_def,
+                                        "--prediction_data", evalf, ckpt)
+    pred_dir = os.path.join(zoo, "ckpt_census")
+    preds = np.concatenate([
+        np.load(os.path.join(pred_dir, name))
+        for name in sorted(os.listdir(pred_dir)) if name.endswith(".npy")])
+    want = []
+    with torch.no_grad():
+        for batch in straight._task_batches_raw(straight._eval_reader,
+                                                Mode.PREDICTION):
+            real = int(np.sum(batch["mask"]))
+            out_b = straight._eval_step(straight.state, batch)
+            want.append(out_b.float().cpu().numpy()[:real])
+    want = np.concatenate(want)
+    with open(os.path.join(tb, "scalars.jsonl")) as f:
+        summaries = [json.loads(line) for line in f]
+    out = {"model": "census_wide_deep twin, its schedule at "
+                    f"{CENSUS_LR_SCALE}x the version",
+           "lrs_straight": s_lrs, "lrs_split": f_lrs + r_lrs,
+           "losses_straight": s_loss, "losses_split": f_loss + r_loss,
+           "loss_max_rel_diff": loss_rel(f_loss + r_loss, s_loss),
+           "resumed_step": resumed.state.step,
+           "eval_metrics_training": s_res["eval_metrics"],
+           "eval_metrics_job": metrics, "predict_job": summary,
+           "predictions": list(preds.shape),
+           "predictions_bit_equal": bit_equal(preds, want),
+           "predictions_max_abs_err": float(np.abs(preds - want).max()),
+           "job_seconds": {"evaluate": eval_s, "predict": predict_s},
+           "tensorboard": summaries,
+           "launches": {"straight": s_counts, "first": f_counts,
+                        "resumed": r_counts}}
+    print("checkpoint jobs", json.dumps(out), flush=True)
+    check(f_lrs + r_lrs == s_lrs and len(set(s_lrs)) == 3,
+          f"split run's learning rates {f_lrs + r_lrs} vs {s_lrs}")
+    check(resumed.state.step == 2 * CKPT_STEPS,
+          f"census resumed at {resumed.state.step}")
+    check(out["loss_max_rel_diff"] <= TRAJ_TOL["loss"],
+          f"census resumed vs straight losses {out}")
+    check(metrics == s_res["eval_metrics"],
+          f"evaluate job {metrics} vs training {s_res['eval_metrics']}")
+    check(summary == {"batches": -(-CENSUS_EVAL_RECORDS // TABULAR_BATCH)}
+          and out["predictions_bit_equal"],
+          f"predict job vs eval forward {out}")
+    check(summaries and summaries[-1].get("eval/accuracy")
+          == s_res["eval_metrics"]["accuracy"],
+          f"TensorBoard scalars {summaries}")
+    for name, counts in out["launches"].items():
+        counts = {k: v for k, v in counts.items()}
+        check(not any(counts.values()),
+              f"census ({name}) launched kernels: {counts}")
+    return out
+
+
+def checkpoint_phase(torch, fa, pe, root):
+    """Checkpoints and resume on the card: the recsys twin at full width,
+    deepfm_host's delta chain, census and the evaluate/predict jobs."""
+    t0 = time.monotonic()
+    out = {"recsys": checkpoint_recsys_part(torch, fa, pe, root)}
+    torch.cuda.empty_cache()
+    out["host"] = checkpoint_host_part(torch, fa, pe, root)
+    out["jobs"] = checkpoint_jobs_part(torch, fa, pe, root)
+    out["seconds"] = time.monotonic() - t0
+    out["card"] = smi("name,power.limit")
+    return out
+
+
 def fused_path_phase(torch, pe):
     """DeviceSparseRunner(recsys TABLE_SPECS, Momentum(lr 0.05, Nesterov),
     use_pallas="fused") on the twin for FUSED_STEPS steps, against the
@@ -3454,7 +3991,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--phase", choices=("all", "fwd", "bwd", "chunk", "lookup", "host",
-                            "vision", "tabular"),
+                            "vision", "tabular", "checkpoint"),
         default="all",
         help="fwd: build flash_attention_fwd.cu alone, then run kernel "
              "#1's checks and times and print its kernels row; bwd: the "
@@ -3463,7 +4000,9 @@ def main(argv=None) -> int:
              "embedding_lookup.cu (#5 and #6, timed at the sweep's tiers); "
              "host: the host training phase alone (no kernel build); "
              "vision: the vision phase alone (no kernel build); "
-             "tabular: the tabular phase alone (no kernel build)")
+             "tabular: the tabular phase alone (no kernel build); "
+             "checkpoint: the checkpoint phase alone (the embedding "
+             "kernels only)")
     args = parser.parse_args(argv)
     import torch
 
@@ -3498,7 +4037,8 @@ def main(argv=None) -> int:
         return 0
     t0 = time.monotonic()
     alone = {"fwd": [fa._SOURCE], "bwd": [fa._BWD_SOURCE],
-             "chunk": [fa._CHUNK_SOURCE], "lookup": [pe._LOOKUP_SOURCE]}
+             "chunk": [fa._CHUNK_SOURCE], "lookup": [pe._LOOKUP_SOURCE],
+             "checkpoint": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE]}
     logs = _build.build_all(alone.get(args.phase))
     print(f"built {sorted(logs)} in {time.monotonic() - t0:.1f}s",
           flush=True)
@@ -3516,6 +4056,14 @@ def main(argv=None) -> int:
         return 0
     if args.phase == "lookup":
         print(json.dumps({"kernels": lookup_phase(torch, pe)}))
+        return 0
+    if args.phase == "checkpoint":
+        with tempfile.TemporaryDirectory() as root:
+            line = {"checkpoint": checkpoint_phase(torch, fa, pe, root)}
+        print(json.dumps(line))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
         return 0
     kernel, _ = kernel_phase(torch, fa)
     if args.phase == "fwd":
@@ -3537,6 +4085,7 @@ def main(argv=None) -> int:
         host = host_training_phase(torch, fa, pe, root)
         vision = vision_phase(torch, fa, pe, root)
         tabular = tabular_phase(torch, fa, pe, root)
+        checkpoint = checkpoint_phase(torch, fa, pe, root)
     fused = fused_path_phase(torch, pe)
     sweep, sweep_counts = sweep_phase(torch, pe)
     emb_times = embedding_times(torch, pe)
@@ -3560,6 +4109,9 @@ def main(argv=None) -> int:
             vision["mnist_functional"]["launches_card"][row["name"]]
             + vision["resnet50"]["launches"][row["name"]])
         row["launches_tabular"] = tabular["launches"][row["name"]]
+        row["launches_checkpoint"] = {
+            run: counts[row["name"]] for run, counts in
+            checkpoint["recsys"]["launches"].items()}
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"sparse_training": sparse}))
@@ -3567,6 +4119,7 @@ def main(argv=None) -> int:
     print(json.dumps({"host_training": host}))
     print(json.dumps({"vision": vision}))
     print(json.dumps({"tabular": tabular}))
+    print(json.dumps({"checkpoint": checkpoint}))
     print(json.dumps({"kernels": [kernel, chunk_row] + bwd_rows
                       + emb_rows}))
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,18 @@ runner, a host runner first: its ``init_state`` builds the state at the
 first batch, and its ``train_step``/``eval_step`` replace the dense
 steps. A host runner's pending row applies are flushed before training
 returns. Such models cannot be exported with ``--output`` yet (their
-bundles wait for the rest of serving). Not ported yet: checkpointing
-(``--checkpoint_dir``, restore at init), TensorBoard.
+bundles wait for the rest of serving).
+
+Checkpoints (``checkpoint/``): with ``--checkpoint_dir`` and
+``--checkpoint_steps N`` the state is saved every N versions and at the
+end (``--checkpoint_shards``, ``--keep_checkpoint_max``,
+``--checkpoint_delta_chain``; a host runner's ``host_tables`` ride the
+same versions, as deltas where a chain is asked for);
+``--checkpoint_dir_for_init`` restores the latest valid version into
+the state when it is built, at the first batch (the data is read from
+its start: Local has no task fast-forward). ``--tensorboard_log_dir``
+writes ``train/loss`` every 100 steps, where the loss is read anyway,
+and the final eval metrics.
 """
 
 import time
@@ -30,6 +40,7 @@ from elasticdl_tpu_torch.callbacks import (
     find_callback,
     set_callback_parameters,
 )
+from elasticdl_tpu_torch.checkpoint import CheckpointHook, restore_from_dir
 from elasticdl_tpu_torch.common.constants import Mode
 from elasticdl_tpu_torch.common.device import resolve_device
 from elasticdl_tpu_torch.common.log_utils import get_logger
@@ -124,6 +135,28 @@ class LocalExecutor:
         max_steps_cb = find_callback(self._callbacks, MaxStepsStopping)
         if max_steps_cb is not None and not self._max_steps:
             self._max_steps = max_steps_cb.max_steps
+        # Checkpointing (reference save inside push_gradients every
+        # checkpoint_steps versions, ps/servicer.py:242-257; restore at
+        # init from --checkpoint_dir_for_init,
+        # ps/parameter_server.py:49-66).
+        self._checkpoint = CheckpointHook(
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_steps=args.checkpoint_steps,
+            num_shards=args.checkpoint_shards,
+            # 0 is a legal explicit value meaning "keep everything"
+            # (CheckpointSaver.gc).
+            keep_max=args.keep_checkpoint_max,
+            host_tables=getattr(self._step_runner, "host_tables", None),
+            delta_chain_max=args.checkpoint_delta_chain,
+        )
+        self._init_checkpoint_dir = args.checkpoint_dir_for_init
+        self._tb_service = None
+        if args.tensorboard_log_dir:
+            from elasticdl_tpu_torch.master.tensorboard_service import (
+                TensorboardService,
+            )
+
+            self._tb_service = TensorboardService(args.tensorboard_log_dir)
 
     def _task_batches(self, reader, mode):
         gen = self._task_batches_raw(reader, mode)
@@ -161,13 +194,21 @@ class LocalExecutor:
                     self._spec.model, make_optimizer,
                     seed=self._args.random_seed,
                 )
-                return
-            self.state = self._step_runner.init_state(
-                self._spec.model, make_optimizer, batch,
-                seed=self._args.random_seed,
-            )
-            self._train_step = self._step_runner.train_step(self._spec.loss)
-            self._eval_step = self._step_runner.eval_step()
+            else:
+                self.state = self._step_runner.init_state(
+                    self._spec.model, make_optimizer, batch,
+                    seed=self._args.random_seed,
+                )
+                self._train_step = self._step_runner.train_step(
+                    self._spec.loss)
+                self._eval_step = self._step_runner.eval_step()
+            if self._init_checkpoint_dir:
+                self.state = restore_from_dir(
+                    self.state, self._init_checkpoint_dir,
+                    host_tables=getattr(self._step_runner, "host_tables",
+                                        None),
+                )
+                self._checkpoint.note_version(self.state.step)
 
     def train(self) -> dict:
         start_time = time.monotonic()
@@ -190,10 +231,14 @@ class LocalExecutor:
                 self.last_train_metrics = metrics
                 steps += 1
                 examples += int(np.sum(batch["mask"]))
+                with self._timing.record("checkpoint"):
+                    self._checkpoint.maybe_save(self.state)
                 if steps % 100 == 0:
-                    self._logger.info(
-                        "step=%d loss=%.5f", steps, float(metrics["loss"])
-                    )
+                    loss = float(metrics["loss"])
+                    self._logger.info("step=%d loss=%.5f", steps, loss)
+                    if self._tb_service is not None:
+                        self._tb_service.write_dict_to_summary(
+                            {"train/loss": loss}, steps)
                 if self._evaluation_steps and (
                     steps % self._evaluation_steps == 0
                 ):
@@ -211,10 +256,15 @@ class LocalExecutor:
             flush()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self._checkpoint.save_final(self.state)
         elapsed = time.monotonic() - start_time
         eval_result = self.evaluate() if self._eval_reader else None
+        if eval_result and self._tb_service is not None:
+            self._tb_service.write_eval_metrics(steps, eval_result)
         for cb in self._callbacks:
             cb.on_train_end(self)
+        if self._tb_service is not None:
+            self._tb_service.close()
         self._timing.report_timing()
         return {
             "steps": steps,

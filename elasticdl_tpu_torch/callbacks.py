@@ -12,7 +12,8 @@
   learning rate. The JAX package chains ``optax.scale_by_schedule``
   after the user optimizer; here a ``LambdaLR`` over the optimizer is
   stepped after every optimizer step (a step post-hook), so step t
-  takes schedule(t) as there. Several schedulers multiply.
+  takes schedule(t) as there. Several schedulers multiply. A restore
+  stands it at the restored version (``seek_lr_schedule``).
 """
 
 from typing import Callable, List, Optional
@@ -100,9 +101,28 @@ def _scheduled(make_optimizer: Callable, schedules: List[Callable]):
         scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, multiplier)
         optimizer.register_step_post_hook(
             lambda opt, args, kwargs: scheduler.step())
+        optimizer._lr_scheduler = scheduler
         return optimizer
 
     return build
+
+
+def seek_lr_schedule(optimizer, version: int):
+    """Stand the LearningRateScheduler folded into ``optimizer`` (if any)
+    at ``version``: the rate and position it has after ``version``
+    optimizer steps from 0, computed as ``LambdaLR`` computes them. A
+    checkpoint restore calls this, since the schedule's position is not
+    in the optimizer's state (the JAX package restores the optax
+    schedule's count with ``opt_state``)."""
+    scheduler = getattr(optimizer, "_lr_scheduler", None)
+    if scheduler is None:
+        return
+    version = int(version)
+    scheduler.last_epoch = version
+    for group, base, fn in zip(optimizer.param_groups, scheduler.base_lrs,
+                               scheduler.lr_lambdas):
+        group["lr"] = base * fn(version)
+    scheduler._last_lr = [group["lr"] for group in optimizer.param_groups]
 
 
 def find_callback(callbacks: Optional[List[Callback]], cls):

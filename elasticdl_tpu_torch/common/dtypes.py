@@ -2,7 +2,11 @@
 
 Torch edition of elasticdl_tpu/common/dtypes.py, keyed on the same
 canonical names. numpy has no bfloat16, so ``np_dtype("bfloat16")``
-raises; bfloat16 lives only on the torch side (``torch_dtype``).
+raises; bfloat16 lives on the torch side (``torch_dtype``). A bf16
+tensor crosses to numpy as its 16 bits in ``BFLOAT16_BITS``, a
+structured dtype whose canonical name is "bfloat16": the codec writes
+such an array under that name with the tensor's raw bytes, as the JAX
+package writes a bfloat16 array (``bf16_to_numpy``/``bf16_from_numpy``).
 """
 
 import numpy as np
@@ -25,7 +29,10 @@ _DTYPES = {
     "float64": (np.dtype(np.float64), torch.float64),
 }
 
+BFLOAT16_BITS = np.dtype([("bfloat16", "<u2")])
+
 _NP_TO_NAME = {v[0]: k for k, v in _DTYPES.items() if v[0] is not None}
+_NP_TO_NAME[BFLOAT16_BITS] = "bfloat16"
 _TORCH_TO_NAME = {v[1]: k for k, v in _DTYPES.items()}
 
 
@@ -47,3 +54,16 @@ def dtype_name(dtype) -> str:
     if isinstance(dtype, torch.dtype):
         return _TORCH_TO_NAME[dtype]
     return _NP_TO_NAME[np.dtype(dtype)]
+
+
+def bf16_to_numpy(tensor: torch.Tensor) -> np.ndarray:
+    """The bits of a CPU bfloat16 tensor as a ``BFLOAT16_BITS`` array
+    (shares the tensor's memory)."""
+    return tensor.view(torch.int16).numpy().view(BFLOAT16_BITS)
+
+
+def bf16_from_numpy(bits: np.ndarray) -> torch.Tensor:
+    """The bfloat16 tensor of a ``BFLOAT16_BITS`` array, bit for bit
+    (shares the array's memory)."""
+    return torch.from_numpy(np.asarray(bits, order="C").view(np.int16)).view(
+        torch.bfloat16)

@@ -11,9 +11,16 @@ package, and where one is installed it writes the same bytes as
 ``msgpack.packb(tree, default=..., use_bin_type=True)``: each value
 takes the shortest form, Python floats go out as float64, tuples as
 arrays.
+
+``IndexedSlices`` (a table's rows by id, the checkpoint's embeddings
+payload) encodes as ``{"__is__": {"values": ..., "ids": ...}}``, as
+in the JAX codec; a bf16 array (``dtypes.BFLOAT16_BITS``, the bits of a
+bfloat16 tensor) under the dtype name "bfloat16", as the JAX codec
+writes a bfloat16 array.
 """
 
 import struct
+from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -238,6 +245,15 @@ def unpackb(data, object_hook: Optional[Callable] = None,
     return value
 
 
+@dataclass
+class IndexedSlices:
+    """A sparse update: ``values[i]`` applies to row ``ids[i]`` of a table
+    (host-side container, as in the JAX package)."""
+
+    values: np.ndarray  # (n, dim)
+    ids: np.ndarray  # (n,)
+
+
 def serialize_ndarray(arr: np.ndarray) -> dict:
     # np.ascontiguousarray would promote 0-d arrays to 1-d; asarray with
     # order="C" keeps scalar shape () intact.
@@ -250,7 +266,11 @@ def serialize_ndarray(arr: np.ndarray) -> dict:
 
 
 def deserialize_ndarray(obj: dict) -> np.ndarray:
-    arr = np.frombuffer(obj["data"], dtype=dtypes.np_dtype(obj["dtype"]))
+    """A "bfloat16" array decodes to its bits (``dtypes.BFLOAT16_BITS``;
+    ``dtypes.bf16_from_numpy`` makes the tensor)."""
+    dtype = (dtypes.BFLOAT16_BITS if obj["dtype"] == "bfloat16"
+             else dtypes.np_dtype(obj["dtype"]))
+    arr = np.frombuffer(obj["data"], dtype=dtype)
     return arr.reshape(obj["shape"]).copy()
 
 
@@ -261,12 +281,24 @@ def _encode(obj):
         return int(obj)
     if isinstance(obj, np.floating):
         return float(obj)
+    if isinstance(obj, IndexedSlices):
+        return {
+            "__is__": {
+                "values": serialize_ndarray(obj.values),
+                "ids": serialize_ndarray(obj.ids),
+            }
+        }
     raise TypeError(f"Cannot serialize {type(obj)}")
 
 
 def _decode(obj):
     if "__nd__" in obj:
         return deserialize_ndarray(obj["__nd__"])
+    if "__is__" in obj:
+        return IndexedSlices(
+            values=deserialize_ndarray(obj["__is__"]["values"]),
+            ids=deserialize_ndarray(obj["__is__"]["ids"]),
+        )
     return obj
 
 

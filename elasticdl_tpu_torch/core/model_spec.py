@@ -22,11 +22,13 @@ name:
   for host-tier models, ``make_sparse_runner()`` -> an
   ``embedding.device_sparse.DeviceSparseRunner`` for device-tier sparse
   models (the Local executor then trains through the runner, a host
-  runner first).
+  runner first), ``PredictionOutputsProcessor``: a class (a
+  ``worker.prediction_outputs_processor.BasePredictionOutputsProcessor``)
+  whose instance, ``ModelSpec.prediction_outputs_processor``, the
+  ``predict`` job hands each batch of predictions.
 
-Not ported yet: the JAX contract's prediction processor and its
-sharding extras (``param_sharding_rules``, ``batch_sharding_rule``: the
-parallel slice).
+Not ported yet: the JAX contract's sharding extras
+(``param_sharding_rules``, ``batch_sharding_rule``: the parallel slice).
 """
 
 import importlib.util
@@ -96,6 +98,7 @@ class ModelSpec:
     eval_metrics_fn: Optional[Callable] = None
     callbacks_fn: Optional[Callable] = None
     custom_data_reader: Optional[Callable] = None
+    prediction_outputs_processor: Any = None
     module: Any = None
     # Host-tier models (embedding/host_engine.py): factory returning a
     # HostStepRunner, which holds the host tables and pulls and applies
@@ -133,6 +136,7 @@ def get_model_spec(
     callbacks: str = "callbacks",
     custom_data_reader: str = "custom_data_reader",
     device=None,
+    prediction_outputs_processor: str = "PredictionOutputsProcessor",
 ) -> ModelSpec:
     """Load the user module, resolve the contract symbols by name and
     build the model on ``device``."""
@@ -142,6 +146,7 @@ def get_model_spec(
         raise ValueError(
             f"{model_def}: function {model_fn_name!r} not found in module"
         )
+    processor_cls = getattr(module, prediction_outputs_processor, None)
     return ModelSpec(
         model=_build_model(model_fn, device),
         model_fn_name=model_fn_name,
@@ -151,6 +156,9 @@ def get_model_spec(
         eval_metrics_fn=_get_spec_value(module, eval_metrics_fn),
         callbacks_fn=_get_spec_value(module, callbacks),
         custom_data_reader=_get_spec_value(module, custom_data_reader),
+        prediction_outputs_processor=(
+            processor_cls() if processor_cls is not None else None
+        ),
         module=module,
         make_host_runner=_get_spec_value(module, "make_host_runner"),
         make_sparse_runner=_get_spec_value(module, "make_sparse_runner"),
