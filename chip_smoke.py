@@ -11,8 +11,11 @@
     python3 chip_smoke.py --phase tabular # the tabular zoo alone, no build
     python3 chip_smoke.py --phase checkpoint # checkpoints and the jobs
                                              # alone (embedding kernels)
+    python3 chip_smoke.py --phase worker # the master's task plane and the
+                                         # worker alone (embedding kernels)
 
-1. Prints the card (``nvidia-smi`` name and power limit) and versions.
+1. Prints the card (``nvidia-smi`` name and power limit), versions, and
+   whether ``grpc`` can be imported.
 2. Builds every CUDA kernel of the port from ``elasticdl_tpu_torch/ops/csrc``.
 3. Holds each kernel against its plain PyTorch version on the card:
    flash-attention forward (#1) folded over the kernel's own key tiles
@@ -173,10 +176,41 @@
    kernel launch. (c) census_wide_deep with its schedule compressed in
    versions: the split run's learning rate at each version equals the
    straight run's; ``python -m elasticdl_tpu_torch evaluate`` and
-   ``predict`` in subprocesses on the card from the checkpoint: metrics
+   ``predict`` in two subprocesses side by side on the card from the
+   checkpoint: metrics
    equal to the training executor's final eval, predictions (the zoo
    module's ``PredictionOutputsProcessor``) bit-equal to its eval
    forward; TensorBoard's scalars carry the eval metrics.
+11f. ``worker`` (the master's task plane and the worker; ``--phase
+   worker`` runs it alone and builds only the embedding kernels): the
+   recsys twin at full width, kernels pinned, 8192 records (16 steps at
+   B 512) in tasks of 4 minibatches, one epoch, no shuffle, the master
+   evaluating 1024 records every 8 versions. (a) The port's
+   ``MiniCluster`` (one worker on the card, ``InProcessMaster``) against
+   ``LocalExecutor`` on the same records and seed: per-step losses, the
+   table and the accumulator bit-equal, untouched rows bit-equal to the
+   initial table, launches exactly lookup = 16 steps + eval batches and
+   Adagrad row updates = 16 (every other counter 0, zeroed just before
+   the run and read just after), the master's accuracy at version 16
+   equal to the Local run's final eval, the dispatcher's counters at
+   8192 training records; step ms (CUDA events) beside issue ms and
+   examples/s for the worker and the Local run, and the RPCs a step.
+   (b) The same job with the zoo's ``dataset_fn`` raising once at the
+   first batch of task 2: the task is re-queued at the front, the job
+   drains, the run is bit-equal to (a) with (a)'s launches. (c)
+   deepfm_host through the worker at B 512 for 8 steps (tasks of 4,
+   each ending with the runner's ``flush``), a synchronous runner on
+   the card against the CPU within HOST_TOL, untouched ids bit-equal,
+   then the zoo's asynchronous runner (the worker's row pull-ahead) on
+   the card; every kernel counter 0. (d) The port's ``Master`` on
+   localhost:0 in this process and ``python -m
+   elasticdl_tpu_torch.worker.main`` on the card in a subprocess, over
+   gRPC, on (a)'s records laid out so that the master's seeded shuffle
+   hands them out in (a)'s order; the subprocess starts after (a) and
+   runs while (b) and (c) run here: the worker exits 0, the job drains,
+   the master's accuracy equals (a)'s at each round; its wall time, the
+   time from its first task and examples/s over it. Without a ``grpc``
+   module (and only then) (d) prints that it did not run.
 12. ``fused path``: ``DeviceSparseRunner`` over the recsys table with
    Momentum (Nesterov) and ``use_pallas="fused"`` for 10 steps against
    "never": one fused-kernel launch a step.
@@ -216,12 +250,13 @@
    memory.
 17. Prints a ``serving``, a ``training``, a ``sparse_training``, a
    ``ring_training``, a ``host_training``, a ``vision``, a ``tabular``,
-   a ``checkpoint`` and a ``kernels`` JSON line (the four flash kernels
+   a ``checkpoint``, a ``worker`` and a ``kernels`` JSON line (the four flash kernels
    and the four embedding kernels with their ms, plain ms, library ms,
    bound ms and launches, and their launches on the host, vision,
-   tabular and checkpoint paths, ``launches_host_training``,
+   tabular, checkpoint and worker paths, ``launches_host_training``,
    ``launches_vision``, ``launches_tabular``, ``launches_checkpoint``
-   (the straight, first and resumed recsys runs); #5 with its times at
+   (the straight, first and resumed recsys runs), ``launches_worker``
+   (the in-process and failed-task runs); #5 with its times at
    the sweep's tiers, the row kernels with a per-rule list) and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -483,7 +518,8 @@ HOST_CKPT_A, HOST_CKPT_B = 3072, 1024
 # 5000 and 12000) fall at versions 2 and 5 of a run of 8 steps at
 # TABULAR_BATCH (records A and B, CKPT_RECORDS each); split at
 # CKPT_STEPS. Then `python -m elasticdl_tpu_torch evaluate` and
-# `predict` in subprocesses on the card from the straight run's
+# `predict` in two subprocesses side by side on the card from the
+# straight run's
 # checkpoint, on CENSUS_EVAL_RECORDS: the metrics equal the training
 # executor's final eval and the predictions its eval forward, bit for
 # bit (the same card, kernels and shapes).
@@ -516,6 +552,33 @@ class PredictionOutputsProcessor:
         np.save(path, predictions)
         self.batches += 1
 """
+# The task plane (slice 15; ``--phase worker`` runs it alone and builds
+# only the embedding kernels): the recsys twin at full width, kernels
+# pinned (RECSYS_ZOO "always"), trained by the port's worker on the
+# port's master over WORKER_RECORDS records (16 steps at EMB_BATCH) in
+# tasks of WORKER_TASK_BATCHES minibatches, one epoch, no shuffle, the
+# master evaluating WORKER_EVAL_RECORDS every WORKER_EVAL_STEPS versions.
+# (a) In process, against the Local executor on the same records and
+# seed: the same batches in the same order on the same kernels, so the
+# per-step losses, the tables and the accumulators are bit-equal. (b)
+# The same job with the zoo's dataset_fn raising once, at the first
+# batch of task 2 (batch WORKER_FAIL_AT_BATCH of the job): the task is
+# re-queued at the front and the run stays bit-equal to (a). (c)
+# deepfm_host (HOST_ZOO, synchronous rows) on WORKER_HOST_RECORDS
+# records (8 steps at HOST_BATCH, tasks of 4) through the worker, card
+# against CPU within HOST_TOL; then the zoo's own runner (asynchronous
+# rows, so the worker pulls rows ahead) on the card. (d) The port's
+# Master on localhost:0 in this process and `python -m
+# elasticdl_tpu_torch.worker.main` on the card in a subprocess (started
+# after (a), running beside (b) and (c)), over gRPC, on (a)'s records
+# laid out so the master's seeded shuffle hands them out in (a)'s order:
+# the master's accuracy equals (a)'s.
+WORKER_RECORDS, WORKER_EVAL_RECORDS = 8192, 1024
+WORKER_TASK_BATCHES, WORKER_EVAL_STEPS = 4, 8
+WORKER_FAIL_AT_BATCH = WORKER_TASK_BATCHES + 1
+WORKER_HOST_RECORDS = 4096
+WORKER_RPCS = ("get_task", "report_task_result", "report_version",
+               "report_evaluation_metrics", "report_metrics")
 # Ring attention over an sp mesh of one card (slice 4): the long-context
 # row of tools/bench_long_context.py, (S 8192, B 1, remat), on the
 # flagship's widths, the sequence cut over RING_SP ranks (chunks of 2048).
@@ -3393,28 +3456,46 @@ def lr_recorder():
     return LrRecorder()
 
 
-def job_subprocess(role, zoo, model_def, data_flag, data, ckpt):
-    """``python -m elasticdl_tpu_torch <role>`` on the card; its result
-    from its log."""
+def job_subprocesses(jobs):
+    """``python -m elasticdl_tpu_torch <role>`` on the card for each
+    (role, zoo, model_def, data_flag, data, ckpt) of ``jobs``, side by
+    side; each one's result from its log and its seconds."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (here, env.get("PYTHONPATH", "")) if p)
+    logs = [tempfile.TemporaryFile("w+") for _ in jobs]
     t0 = time.monotonic()
-    proc = subprocess.run(
+    procs = [subprocess.Popen(
         [sys.executable, "-m", "elasticdl_tpu_torch", role,
          "--model_zoo", zoo, "--model_def", model_def, data_flag, data,
          "--checkpoint_dir_for_init", ckpt,
          "--minibatch_size", str(TABULAR_BATCH), "--device", DEVICE],
-        env=env, cwd=os.path.dirname(zoo), capture_output=True, text=True,
-        timeout=600)
-    seconds = time.monotonic() - t0
-    check(proc.returncode == 0,
-          f"{role} exited {proc.returncode}: {proc.stderr[-3000:]}")
-    marker = f"{role} finished: "
-    line = [x for x in proc.stderr.splitlines() if marker in x]
-    check(len(line) == 1, f"{role}: no result line in {proc.stderr[-2000:]}")
-    return json.loads(line[0].split(marker, 1)[1]), seconds
+        env=env, cwd=os.path.dirname(zoo), stdout=log,
+        stderr=subprocess.STDOUT)
+        for (role, zoo, model_def, data_flag, data, ckpt), log
+        in zip(jobs, logs)]
+    out = []
+    try:
+        for (role, *_), proc, log in zip(jobs, procs, logs):
+            proc.wait(timeout=600)
+            seconds = time.monotonic() - t0
+            log.seek(0)
+            stderr = log.read()
+            check(proc.returncode == 0,
+                  f"{role} exited {proc.returncode}: {stderr[-3000:]}")
+            marker = f"{role} finished: "
+            line = [x for x in stderr.splitlines() if marker in x]
+            check(len(line) == 1,
+                  f"{role}: no result line in {stderr[-2000:]}")
+            out.append((json.loads(line[0].split(marker, 1)[1]), seconds))
+    finally:
+        for proc, log in zip(procs, logs):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    return out
 
 
 def checkpoint_jobs_part(torch, fa, pe, root):
@@ -3452,10 +3533,9 @@ def checkpoint_jobs_part(torch, fa, pe, root):
         str(CKPT_STEPS)])
     resumed, r_loss, _, r_counts, r_lrs = run(files[1], [
         "--checkpoint_dir_for_init", split_ckpt])
-    metrics, eval_s = job_subprocess("evaluate", zoo, model_def,
-                                     "--validation_data", evalf, ckpt)
-    summary, predict_s = job_subprocess("predict", zoo, model_def,
-                                        "--prediction_data", evalf, ckpt)
+    (metrics, eval_s), (summary, predict_s) = job_subprocesses([
+        ("evaluate", zoo, model_def, "--validation_data", evalf, ckpt),
+        ("predict", zoo, model_def, "--prediction_data", evalf, ckpt)])
     pred_dir = os.path.join(zoo, "ckpt_census")
     preds = np.concatenate([
         np.load(os.path.join(pred_dir, name))
@@ -3515,6 +3595,483 @@ def checkpoint_phase(torch, fa, pe, root):
     torch.cuda.empty_cache()
     out["host"] = checkpoint_host_part(torch, fa, pe, root)
     out["jobs"] = checkpoint_jobs_part(torch, fa, pe, root)
+    out["seconds"] = time.monotonic() - t0
+    out["card"] = smi("name,power.limit")
+    return out
+
+
+class RecordingRunner:
+    """A step runner that delegates to ``inner`` and keeps, per train
+    step, the loss tensor, CUDA events around the step (on the card) and
+    the host's ms to issue it, and a copy of the sparse tables as they
+    stand before the first step."""
+
+    def __init__(self, torch, inner):
+        self._torch = torch
+        self._inner = inner
+        self.loss, self.events, self.issue_ms = [], [], []
+        self.initial = None
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def train_step(self, loss_fn):
+        step = self._inner.train_step(loss_fn)
+        torch = self._torch
+
+        def recorded(state, batch):
+            if self.initial is None:
+                self.initial = {n: t.clone() for n, t in
+                                getattr(state, "tables", {}).items()}
+            start = None
+            if state.device.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            self.issue_ms.append((time.perf_counter() - t0) * 1e3)
+            if start is not None:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                self.events.append((start, end))
+            self.loss.append(metrics["loss"])
+            return state, metrics
+
+        return recorded
+
+
+def worker_cluster_run(torch, fa, pe, zoo, model_def, train, evalf, device,
+                       batch, dataset_fn=None):
+    """The port's MiniCluster (one worker, InProcessMaster, no shuffle)
+    over ``train``; the worker's runner records its steps, its master
+    client the tasks it pulls, and every RPC is counted. Each kernel
+    counter is zeroed just before the run and read just after."""
+    from elasticdl_tpu_torch.testing.cluster import MiniCluster
+
+    rpcs = {name: 0 for name in WORKER_RPCS}
+
+    def counter(name):
+        def count(request):
+            rpcs[name] += 1
+        return count
+
+    cluster = MiniCluster(
+        zoo, model_def, training_data=train, validation_data=evalf,
+        minibatch_size=batch, num_minibatches_per_task=WORKER_TASK_BATCHES,
+        eval_steps=WORKER_EVAL_STEPS if evalf else 0, device=device,
+        random_seed=SEED,
+        worker_callbacks={name: counter(name) for name in WORKER_RPCS})
+    worker = cluster.workers[0]
+    record = RecordingRunner(torch, worker._step_runner)
+    worker._step_runner = record
+    if dataset_fn is not None:
+        worker._task_data._dataset_fn = dataset_fn
+    tasks = []
+    client = worker._master
+    pull = client.get_task
+
+    def get_task(metrics=None):
+        task, finished = pull(metrics=metrics)
+        tasks.append(None if task is None else task.to_dict())
+        return task, finished
+
+    client.get_task = get_task
+    if device == "cuda":
+        torch.cuda.synchronize()
+    reset_kernel_launches(fa, pe)             # the worker's path starts
+    t0 = time.monotonic()
+    result = cluster.run()[0]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = kernel_launch_counts(fa, pe)     # ... and ends
+    counts["row_update_adagrad"] = pe.row_update_rule_launches["adagrad"]
+    return dict(cluster=cluster, worker=worker, record=record,
+                result=result, counts=counts, rpcs=rpcs, wall_s=wall,
+                tasks=tasks, loss=[float(x) for x in record.loss])
+
+
+def step_times(record, batch, window):
+    """Median step ms (CUDA events, windows of ``window`` steps after the
+    first) beside issue ms, and examples/s at the median."""
+    step_ms, issue_ms = window_ms(record, warm=window, window=window)
+    median = float(np.median(step_ms))
+    return {"step_ms": spread(step_ms), "issue_ms": spread(issue_ms),
+            "examples_per_s": batch / (median / 1e3)}
+
+
+def worker_recsys_part(torch, fa, pe, root):
+    """(a) In process against the Local executor; returns its readings
+    and what (b) and (d) compare with."""
+    from elasticdl_tpu_torch.api.local_executor import LocalExecutor
+    from elasticdl_tpu_torch.common.constants import TaskType
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    train = tdata.create_frappe_record_file(
+        os.path.join(root, "worker_train.rec"), WORKER_RECORDS,
+        seed=SEED + 30, input_length=EMB_IDS, max_id=EMB_VOCAB)
+    evalf = tdata.create_frappe_record_file(
+        os.path.join(root, "worker_eval.rec"), WORKER_EVAL_RECORDS,
+        seed=SEED + 31, input_length=EMB_IDS, max_id=EMB_VOCAB)
+    zoo = write_zoo(root, "worker_recsys", RECSYS_ZOO.format(mode="always"))
+    model_def = "worker_recsys.rec.custom_model"
+    steps = WORKER_RECORDS // EMB_BATCH
+    eval_batches = -(-WORKER_EVAL_RECORDS // EMB_BATCH)
+    rounds = steps // WORKER_EVAL_STEPS
+
+    # The Local executor on the same records and seed.
+    args = tdata.make_local_args(
+        zoo, model_def, train, validation_data=evalf,
+        minibatch_size=EMB_BATCH,
+        extra=["--device", DEVICE, "--random_seed", str(SEED)])
+    local_record = step_recorder(torch)
+    local = LocalExecutor(args, callbacks=[local_record])
+    torch.cuda.synchronize()
+    reset_kernel_launches(fa, pe)             # the Local path starts
+    t0 = time.monotonic()
+    local_result = local.run()
+    torch.cuda.synchronize()
+    local_wall = time.monotonic() - t0
+    local_counts = kernel_launch_counts(fa, pe)   # ... and ends
+    local_loss = [float(x) for x in local_record.loss]
+    l_table = local.state.tables[RECSYS_TABLE]
+    l_acc = local.state.slot_tables[RECSYS_TABLE]["accumulator"]
+    local_times = step_times(local_record, EMB_BATCH, WORKER_TASK_BATCHES)
+    del local
+
+    a = worker_cluster_run(torch, fa, pe, zoo, model_def, train, evalf,
+                           DEVICE, EMB_BATCH)
+    state = a["worker"].state
+    table = state.tables[RECSYS_TABLE]
+    acc = state.slot_tables[RECSYS_TABLE]["accumulator"]
+    initial = a["record"].initial[RECSYS_TABLE]
+    ids = frappe_ids(WORKER_RECORDS, EMB_IDS, EMB_VOCAB, SEED + 30)
+    touched = touched_rows(torch, ids, EMB_VOCAB)
+    untouched = ~touched
+    results = a["cluster"].eval_service.completed_results
+    counters = a["cluster"].dispatcher.counters
+    rpcs_total = sum(a["rpcs"].values())
+    worker_times = step_times(a["record"], EMB_BATCH, WORKER_TASK_BATCHES)
+    out_a = {
+        "model": "recsys ranker twin, 1,000,000 x 256 f32 table, Adagrad "
+                 "rows, bf16 MLP, Adam; kernels pinned",
+        "steps": len(a["loss"]), "tasks_pulled": a["tasks"],
+        "launches_worker": a["counts"], "launches_local": local_counts,
+        "losses_worker": a["loss"], "losses_local": local_loss,
+        "losses_bit_equal": a["loss"] == local_loss,
+        "table_bit_equal": bool(torch.equal(table, l_table)),
+        "accumulator_bit_equal": bool(torch.equal(acc, l_acc)),
+        "touched_rows": int(touched.sum()),
+        "untouched_bit_equal": bool(
+            torch.equal(table[untouched], initial[untouched])
+            and bool((acc[untouched] == 0.1).all())),
+        "eval_results": {str(k): v for k, v in results.items()},
+        "local_eval": local_result["eval_metrics"],
+        "records": dict(counters.total_records),
+        "failed_records": dict(counters.failed_records),
+        "rpcs": a["rpcs"], "rpcs_per_step": rpcs_total / max(1, steps),
+        "worker": {**worker_times, "job_wall_s": a["wall_s"],
+                   "job_examples_per_s": WORKER_RECORDS / a["wall_s"]},
+        "local": {**local_times, "job_wall_s": local_wall,
+                  "executor_examples_per_s":
+                      local_result["examples_per_sec"]},
+    }
+    print("worker in process", json.dumps(out_a), flush=True)
+    want = {k: 0 for k in a["counts"]}
+    want.update(lookup_combine=steps + rounds * eval_batches,
+                row_update=steps, row_update_adagrad=steps)
+    check(a["counts"] == want,
+          f"worker launches {a['counts']}, not {want}")
+    check(out_a["steps"] == steps and out_a["losses_bit_equal"],
+          "worker vs Local losses differ: "
+          f"{a['loss']} against {local_loss}")
+    check(out_a["table_bit_equal"] and out_a["accumulator_bit_equal"],
+          "worker vs Local tables differ")
+    check(out_a["untouched_bit_equal"], "an untouched row or slot moved")
+    check(sorted(results) == [WORKER_EVAL_STEPS * (i + 1)
+                              for i in range(rounds)]
+          and results[steps] == local_result["eval_metrics"],
+          f"master eval {results} against Local "
+          f"{local_result['eval_metrics']}")
+    check(out_a["records"] == {
+        TaskType.TRAINING: WORKER_RECORDS,
+        TaskType.EVALUATION: rounds * WORKER_EVAL_RECORDS}
+        and not out_a["failed_records"],
+        f"dispatcher counters {out_a['records']}")
+    del l_table, l_acc
+    a_job = dict(zoo=zoo, model_def=model_def, train=train, evalf=evalf,
+                 results=results, loss=a["loss"], counts=a["counts"],
+                 tasks=[t for t in a["tasks"]
+                        if t and t["type"] == "training"],
+                 table=table, acc=acc, out=out_a,
+                 dataset_fn=a["cluster"].spec.dataset_fn)
+    return out_a, a_job
+
+
+def worker_failed_task_part(torch, fa, pe, a_job):
+    """(b) (a)'s job with the first batch of task 2 failing once."""
+    spec_dataset_fn = a_job["dataset_fn"]
+    calls = {"n": 0}
+
+    def flaky(records, mode, metadata):
+        if mode == "training":
+            calls["n"] += 1
+            if calls["n"] == WORKER_FAIL_AT_BATCH:
+                raise RuntimeError("injected dataset_fn failure")
+        return spec_dataset_fn(records, mode, metadata)
+
+    a_loss, a_counts, a_tasks = (a_job["loss"], a_job["counts"],
+                                 a_job["tasks"])
+    table, acc, out_a = a_job["table"], a_job["acc"], a_job["out"]
+    b = worker_cluster_run(torch, fa, pe, a_job["zoo"], a_job["model_def"],
+                           a_job["train"], a_job["evalf"], DEVICE,
+                           EMB_BATCH, dataset_fn=flaky)
+    b_state = b["worker"].state
+    b_train = [t for t in b["tasks"] if t and t["type"] == "training"]
+    span = [(t["start"], t["end"]) for t in b_train]
+    b_counters = b["cluster"].dispatcher.counters
+    out_b = {
+        "tasks_pulled": b["tasks"], "launches": b["counts"],
+        "losses_bit_equal": b["loss"] == a_loss,
+        "table_bit_equal": bool(torch.equal(
+            b_state.tables[RECSYS_TABLE], table)),
+        "accumulator_bit_equal": bool(torch.equal(
+            b_state.slot_tables[RECSYS_TABLE]["accumulator"], acc)),
+        "records": dict(b_counters.total_records),
+        "eval_results": {str(k): v for k, v in
+                         b["cluster"].eval_service.completed_results.items()},
+    }
+    print("worker failed task", json.dumps(out_b), flush=True)
+    # Task 2 was pulled, failed, and came back next, at the front.
+    check(len(b_train) == len(a_tasks) + 1 and span[1] == span[2]
+          and [s for i, s in enumerate(span) if i != 1]
+          == [(t["start"], t["end"]) for t in a_tasks],
+          f"failed task not re-queued at the front: {span}")
+    check(out_b["losses_bit_equal"] and out_b["table_bit_equal"]
+          and out_b["accumulator_bit_equal"],
+          "the run with a failed task is not bit-equal to (a)")
+    check(b["counts"] == a_counts,
+          f"launches {b['counts']} against (a)'s {a_counts}")
+    check(out_b["records"] == out_a["records"],
+          f"dispatcher counters {out_b['records']}")
+    check(out_b["eval_results"] == out_a["eval_results"],
+          f"master eval {out_b['eval_results']}")
+    return out_b
+
+
+def worker_host_part(torch, fa, pe, root):
+    """(c) deepfm_host through the worker: card against CPU with a
+    synchronous runner, then the zoo's asynchronous runner on the
+    card."""
+    from elasticdl_tpu_torch.model_zoo.deepfm import deepfm_host as twin
+    from elasticdl_tpu_torch.native.row_store import NativeEmbeddingTable
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    records = tdata.create_frappe_record_file(
+        os.path.join(root, "worker_host.rec"), WORKER_HOST_RECORDS,
+        seed=SEED + 32, input_length=HOST_IDS, max_id=HOST_MAX_ID)
+    zoo = write_zoo(root, "worker_host_sync", HOST_ZOO)
+    runs = {}
+    for dev in ("card", "cpu"):
+        run = worker_cluster_run(torch, fa, pe, zoo,
+                                 "worker_host_sync.rec.custom_model",
+                                 records, "", DEVICE if dev == "card"
+                                 else "cpu", HOST_BATCH)
+        table = run["worker"]._step_runner.engine.tables[twin.TABLE_NAME]
+        ids, rows = table.to_arrays()
+        runs[dev] = dict(loss=run["loss"], counts=run["counts"],
+                         table=table, ids=ids, rows=rows,
+                         pull_ahead=run["worker"]._step_runner.pull_ahead)
+    card, cpu = runs["card"], runs["cpu"]
+    touched = np.unique(frappe_ids(WORKER_HOST_RECORDS, HOST_IDS,
+                                   HOST_MAX_ID, SEED + 32))
+    lazy = NativeEmbeddingTable(twin.TABLE_NAME, twin.EMBEDDING_DIM)
+    initial = lazy.get(touched)
+    rel = [abs(x - y) / abs(y) for x, y in zip(card["loss"], cpu["loss"])]
+    delta_l2 = rel_err(card["rows"] - initial, cpu["rows"] - initial)
+    untouched = np.setdiff1d(np.arange(HOST_MAX_ID), touched)[:64]
+    untouched_equal = all(
+        np.array_equal(r["table"].get(untouched), lazy.get(untouched))
+        for r in runs.values())
+    zoo_run = worker_cluster_run(
+        torch, fa, pe, tdata.model_zoo_dir(),
+        "deepfm.deepfm_host.custom_model", records, "", DEVICE, HOST_BATCH)
+    steps = WORKER_HOST_RECORDS // HOST_BATCH
+    out = {
+        "model": "deepfm_host twin (5500 x 16 host table, SGD rows, bf16 "
+                 "MLP, Adam), synchronous rows",
+        "steps": len(card["loss"]),
+        "losses_card": card["loss"], "losses_cpu": cpu["loss"],
+        "loss_max_rel_diff": max(rel), "rows_delta_l2": delta_l2,
+        "touched_rows": int(touched.size),
+        "untouched_bit_equal": untouched_equal,
+        "launches_card": card["counts"], "launches_cpu": cpu["counts"],
+        "async": {"pull_ahead": zoo_run["worker"]._step_runner.pull_ahead,
+                  "losses": zoo_run["loss"],
+                  "launches": zoo_run["counts"],
+                  "records": dict(zoo_run["cluster"].dispatcher
+                                  .counters.total_records)},
+        "tol": HOST_TOL,
+    }
+    print("worker host tier", json.dumps(out), flush=True)
+    check(len(card["loss"]) == len(cpu["loss"]) == steps,
+          f"{len(card['loss'])} / {len(cpu['loss'])} host steps")
+    check(not card["pull_ahead"] and not cpu["pull_ahead"],
+          "the synchronous runner pulled ahead")
+    check(all(np.array_equal(r["ids"], touched) for r in runs.values()),
+          "the host table's rows are not the ids the batches touched")
+    check(untouched_equal, "an untouched row is not its lazy initial value")
+    check(max(rel) <= HOST_TOL["loss"], f"card vs CPU losses {out}")
+    check(delta_l2 <= HOST_TOL["delta_l2"], f"card vs CPU rows {out}")
+    for name, counts in (("card", card["counts"]), ("cpu", cpu["counts"]),
+                         ("async", zoo_run["counts"])):
+        check(not any(v for k, v in counts.items()),
+              f"the host path ({name}) launched kernels: {counts}")
+    check(out["async"]["pull_ahead"] and len(zoo_run["loss"]) == steps
+          and all(np.isfinite(zoo_run["loss"]))
+          and out["async"]["records"] == {"training": WORKER_HOST_RECORDS},
+          f"the asynchronous runner through the worker: {out['async']}")
+    return out
+
+
+def worker_wire_start(root, a_job):
+    """(d), first half: the port's Master in this process over (a)'s
+    records, and the port's worker.main started in a subprocess on the
+    card, over localhost gRPC; None (and a line saying so) when there is
+    no grpc module. The subprocess starts while (b) and (c) run here."""
+    import importlib.util
+
+    if importlib.util.find_spec("grpc") is None:
+        print("worker wire: not run, no grpc module on this machine",
+              flush=True)
+        return None
+    from elasticdl_tpu_torch.common.args import build_parser
+    from elasticdl_tpu_torch.common.constants import TaskType
+    from elasticdl_tpu_torch.data.record_file import (
+        RecordFileScanner,
+        RecordFileWriter,
+    )
+    from elasticdl_tpu_torch.master.main import Master
+
+    with RecordFileScanner(a_job["train"]) as scanner:
+        payloads = list(scanner)
+    wire_train = os.path.join(root, "worker_wire_train.rec")
+    with RecordFileWriter(wire_train) as writer:
+        for payload in payloads:
+            writer.write(payload)
+    flags = ["--model_zoo", a_job["zoo"], "--model_def", a_job["model_def"],
+             "--training_data", wire_train,
+             "--validation_data", a_job["evalf"],
+             "--minibatch_size", str(EMB_BATCH),
+             "--num_minibatches_per_task", str(WORKER_TASK_BATCHES),
+             "--random_seed", str(SEED)]
+    master = Master(build_parser("master").parse_args(
+        flags + ["--evaluation_steps", str(WORKER_EVAL_STEPS),
+                 "--master_addr", "localhost:0"]))
+    # The master's dispatcher shuffles its tasks (seed 0): lay the
+    # records out so that the i-th task it hands out reads (a)'s i-th
+    # span of records.
+    order = [t for t in master.task_dispatcher.export_state()["todo"]
+             if t["type"] == TaskType.TRAINING]
+    per_task = EMB_BATCH * WORKER_TASK_BATCHES
+    layout = [None] * len(payloads)
+    for i, task in enumerate(order):
+        layout[task["start"]:task["end"]] = \
+            payloads[i * per_task:(i + 1) * per_task]
+    with RecordFileWriter(wire_train) as writer:
+        for payload in layout:
+            writer.write(payload)
+    # The first task the worker pulls starts its training clock.
+    pulls = []
+    get_task = master.servicer.get_task
+
+    def timed_get_task(request):
+        pulls.append(time.monotonic())
+        return get_task(request)
+
+    master.servicer.get_task = timed_get_task
+    master.prepare()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (here, env.get("PYTHONPATH", "")) if p)
+    log = open(os.path.join(root, "worker_wire.log"), "w+")
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "elasticdl_tpu_torch.worker.main",
+         "--worker_id", "0", "--master_addr", f"localhost:{master.port}",
+         "--device", DEVICE] + flags,
+        env=env, cwd=root, stdout=log, stderr=subprocess.STDOUT)
+    return dict(master=master, proc=proc, log=log, t0=t0, order=order,
+                pulls=pulls)
+
+
+def worker_wire_finish(wire, want, failed=False):
+    """(d), second half: wait for the worker, stop the master, hold the
+    master's eval results to (a)'s. With ``failed`` (a part in between
+    raised) it only stops both."""
+    from elasticdl_tpu_torch.common.constants import TaskType
+
+    if wire is None:
+        return {"run": False, "reason": "no grpc module"}
+    master, proc = wire["master"], wire["proc"]
+    try:
+        if failed:
+            proc.kill()
+        proc.wait(timeout=300)
+        wall = time.monotonic() - wire["t0"]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        master.stop()
+        wire["log"].seek(0)
+        output = wire["log"].read()
+        wire["log"].close()
+    if failed:
+        return None
+    results = master.evaluation_service.completed_results
+    pulls = wire["pulls"]
+    train_s = wall - (pulls[0] - wire["t0"]) if pulls else None
+    out = {
+        "run": True, "task_order": [(t["start"], t["end"])
+                                    for t in wire["order"]],
+        "worker_exit": proc.returncode,
+        "wall_s": wall, "from_first_task_s": train_s,
+        "examples_per_s_from_first_task": (
+            WORKER_RECORDS / train_s if train_s else None),
+        "get_task_calls": len(pulls),
+        "finished": master.task_dispatcher.finished(),
+        "records": dict(master.task_dispatcher.counters.total_records),
+        "eval_results": {str(k): v for k, v in results.items()},
+    }
+    print("worker wire", json.dumps(out), flush=True)
+    check(proc.returncode == 0,
+          f"worker.main exited {proc.returncode}: {output[-3000:]}")
+    check(out["finished"] and out["records"][TaskType.TRAINING]
+          == WORKER_RECORDS, f"the wire job did not drain: {out}")
+    check(results == want,
+          f"master eval over the wire {results} against (a)'s {want}")
+    return out
+
+
+def worker_phase(torch, fa, pe, root):
+    """The task plane on the card: the recsys twin through the worker
+    in process against Local, a failed task, deepfm_host through the
+    worker, and the worker over gRPC (its subprocess started after (a),
+    while (b) and (c) run here)."""
+    t0 = time.monotonic()
+    out_a, a_job = worker_recsys_part(torch, fa, pe, root)
+    out = {"in_process": out_a}
+    torch.cuda.empty_cache()
+    wire = worker_wire_start(root, a_job)
+    try:
+        out["failed_task"] = worker_failed_task_part(torch, fa, pe, a_job)
+        out["host"] = worker_host_part(torch, fa, pe, root)
+    except BaseException:
+        worker_wire_finish(wire, None, failed=True)
+        raise
+    out["wire"] = worker_wire_finish(wire, a_job["results"])
     out["seconds"] = time.monotonic() - t0
     out["card"] = smi("name,power.limit")
     return out
@@ -3991,7 +4548,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--phase", choices=("all", "fwd", "bwd", "chunk", "lookup", "host",
-                            "vision", "tabular", "checkpoint"),
+                            "vision", "tabular", "checkpoint", "worker"),
         default="all",
         help="fwd: build flash_attention_fwd.cu alone, then run kernel "
              "#1's checks and times and print its kernels row; bwd: the "
@@ -4002,7 +4559,8 @@ def main(argv=None) -> int:
              "vision: the vision phase alone (no kernel build); "
              "tabular: the tabular phase alone (no kernel build); "
              "checkpoint: the checkpoint phase alone (the embedding "
-             "kernels only)")
+             "kernels only); worker: the worker phase alone (the "
+             "embedding kernels only)")
     args = parser.parse_args(argv)
     import torch
 
@@ -4018,6 +4576,12 @@ def main(argv=None) -> int:
     print(smi("name,power.limit"), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python "
           f"{sys.version.split()[0]}", flush=True)
+    try:
+        import grpc
+
+        print(f"grpc {grpc.__version__} importable", flush=True)
+    except ImportError as exc:
+        print(f"grpc not importable: {exc}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4038,7 +4602,8 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     alone = {"fwd": [fa._SOURCE], "bwd": [fa._BWD_SOURCE],
              "chunk": [fa._CHUNK_SOURCE], "lookup": [pe._LOOKUP_SOURCE],
-             "checkpoint": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE]}
+             "checkpoint": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
+             "worker": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE]}
     logs = _build.build_all(alone.get(args.phase))
     print(f"built {sorted(logs)} in {time.monotonic() - t0:.1f}s",
           flush=True)
@@ -4057,9 +4622,11 @@ def main(argv=None) -> int:
     if args.phase == "lookup":
         print(json.dumps({"kernels": lookup_phase(torch, pe)}))
         return 0
-    if args.phase == "checkpoint":
+    if args.phase in ("checkpoint", "worker"):
+        phase = checkpoint_phase if args.phase == "checkpoint" else \
+            worker_phase
         with tempfile.TemporaryDirectory() as root:
-            line = {"checkpoint": checkpoint_phase(torch, fa, pe, root)}
+            line = {args.phase: phase(torch, fa, pe, root)}
         print(json.dumps(line))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4086,6 +4653,7 @@ def main(argv=None) -> int:
         vision = vision_phase(torch, fa, pe, root)
         tabular = tabular_phase(torch, fa, pe, root)
         checkpoint = checkpoint_phase(torch, fa, pe, root)
+        worker = worker_phase(torch, fa, pe, root)
     fused = fused_path_phase(torch, pe)
     sweep, sweep_counts = sweep_phase(torch, pe)
     emb_times = embedding_times(torch, pe)
@@ -4112,6 +4680,10 @@ def main(argv=None) -> int:
         row["launches_checkpoint"] = {
             run: counts[row["name"]] for run, counts in
             checkpoint["recsys"]["launches"].items()}
+        row["launches_worker"] = {
+            "in_process": worker["in_process"]["launches_worker"][
+                row["name"]],
+            "failed_task": worker["failed_task"]["launches"][row["name"]]}
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"sparse_training": sparse}))
@@ -4120,6 +4692,7 @@ def main(argv=None) -> int:
     print(json.dumps({"vision": vision}))
     print(json.dumps({"tabular": tabular}))
     print(json.dumps({"checkpoint": checkpoint}))
+    print(json.dumps({"worker": worker}))
     print(json.dumps({"kernels": [kernel, chunk_row] + bwd_rows
                       + emb_rows}))
     print(json.dumps({"ok": True, "device": {

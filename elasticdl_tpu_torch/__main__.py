@@ -9,9 +9,15 @@
   hands the predictions over ``--prediction_data`` to the zoo module's
   ``PredictionOutputsProcessor`` (``api/eval_predict_executor``).
 
-Each runs on CUDA unless ``--device cpu``. Other strategies, and the JAX
-CLI's other subcommands (route, chaos, trace, clean), are not ported
-yet.
+Each runs on CUDA unless ``--device cpu``.
+
+The task plane (a master that hands out dynamic data shards, workers
+that pull them) runs as two entry points, started by hand:
+``python -m elasticdl_tpu_torch.master.main`` and ``python -m
+elasticdl_tpu_torch.worker.main --master_addr HOST:PORT``. ``train``
+with another strategy than Local would launch a master pod on k8s, and
+k8s is not ported yet, nor are the JAX CLI's other subcommands (route,
+chaos, trace, clean).
 """
 
 import json
@@ -29,8 +35,11 @@ def _run_local(role: str, argv) -> int:
         return int(exc.code or 0)
     if args.distribution_strategy != "Local":
         raise NotImplementedError(
-            f"--distribution_strategy {args.distribution_strategy} is not "
-            "ported yet (ported: Local)"
+            f"train --distribution_strategy {args.distribution_strategy} "
+            "launches a master pod on k8s, which is not ported yet "
+            "(ported: Local); start the task plane with python -m "
+            "elasticdl_tpu_torch.master.main and python -m "
+            "elasticdl_tpu_torch.worker.main --master_addr HOST:PORT"
         )
     from elasticdl_tpu_torch.common.log_utils import get_logger
 

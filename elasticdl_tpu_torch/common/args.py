@@ -1,9 +1,18 @@
-"""The flags of the ``train``, ``evaluate`` and ``predict`` roles (the
-subset of elasticdl_tpu/common/args.py that ``api/local_executor.py``
-and ``api/eval_predict_executor.py`` read, with the same names and
-defaults), plus ``--device``."""
+"""The flags of the ``train``, ``evaluate``, ``predict``, ``master`` and
+``worker`` roles (the subset of elasticdl_tpu/common/args.py that the
+port's executors, ``master/main.py`` and ``worker/main.py`` read, with
+the same names and defaults), plus ``--device``;
+``build_arguments_from_parsed_result`` re-serializes parsed args into a
+command line, as there.
+
+The master's and worker's flags for parts that are not ported yet
+(k8s, the journal and hot standby, the autoscaler, row resharding, the
+gang scheduler, streams, the prober, the row service) are parsed so
+that asking for one raises with the ROADMAP item that holds it.
+"""
 
 import argparse
+from itertools import chain
 
 
 def pos_int(value):
@@ -18,6 +27,30 @@ def non_neg_int(value):
     if res < 0:
         raise ValueError(f"Non-negative integer required, got {value}")
     return res
+
+
+def pos_float(value):
+    res = float(value)
+    if res <= 0:
+        raise ValueError(f"Positive float required, got {value}")
+    return res
+
+
+def str2bool(value):
+    if isinstance(value, bool):
+        return value
+    if value.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if value.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError(f"Boolean value expected, got {value!r}")
+
+
+def add_bool_param(parser, name, default, help_msg):
+    parser.add_argument(
+        name, type=str2bool, nargs="?", const=True, default=default,
+        help=help_msg
+    )
 
 
 def add_common_params(parser):
@@ -95,18 +128,140 @@ def add_predict_params(parser):
     parser.add_argument("--num_minibatches_per_task", type=pos_int, default=2)
 
 
+def add_task_plane_params(parser):
+    """The master's and worker's flags beyond ``add_train_params``."""
+    parser.add_argument("--job_name", default="elasticdl-tpu-job")
+    parser.add_argument("--num_workers", type=pos_int, default=1)
+    parser.add_argument("--master_addr", default="localhost:50001")
+    parser.add_argument("--prediction_data", default="")
+    parser.add_argument("--num_minibatches_per_task", type=pos_int, default=2)
+    parser.add_argument("--evaluation_start_delay_secs", type=pos_int,
+                        default=100)
+    parser.add_argument("--evaluation_throttle_secs", type=non_neg_int,
+                        default=0)
+    parser.add_argument("--grads_to_wait", type=pos_int, default=1,
+                        help="Gradient accumulation steps before an "
+                             "apply under MeshStrategy")
+    add_bool_param(parser, "--use_async", False,
+                   "Async apply (staleness-modulated LR) instead of sync")
+    parser.add_argument("--lr_staleness_modulation", type=str2bool,
+                        nargs="?", const=True, default=False)
+    parser.add_argument("--get_model_steps", type=pos_int, default=1,
+                        help="Report every N-th model version to the "
+                             "master")
+    parser.add_argument("--mesh_shape", default="",
+                        help="e.g. '4' or '2,2'; empty = every device "
+                             "on the first axis")
+    parser.add_argument("--mesh_axes", default="dp")
+    parser.add_argument("--host_prefetch_depth", type=pos_int, default=2,
+                        help="Host-tier row pull-ahead depth; must be "
+                             ">= 1")
+    add_bool_param(parser, "--fuse_task_steps", False,
+                   "Run all of a task's minibatches in one multi-step "
+                   "call")
+    parser.add_argument("--task_timeout_secs", type=pos_float,
+                        default=300.0)
+    parser.add_argument("--master_reattach_grace", type=pos_float,
+                        default=60.0,
+                        help="Seconds a worker rides out an unreachable "
+                             "master")
+    parser.add_argument("--metrics_port", type=int, default=-1,
+                        help="Master /metrics port; 0 = ephemeral, -1 "
+                             "(default) disables")
+    parser.add_argument("--flight_recorder", type=int, default=0,
+                        help="Spans kept in the tracing ring; 0 = "
+                             "tracing off")
+    parser.add_argument("--metrics_report_secs", type=pos_float,
+                        default=15.0,
+                        help="Seconds between the worker's registry "
+                             "snapshots on master RPCs")
+    parser.add_argument("--metrics_ttl_secs", type=pos_float, default=None,
+                        help="Age-out of a silent worker's metrics; "
+                             "default 2 x task_timeout_secs")
+    parser.add_argument("--master_admission_limit", type=int, default=0,
+                        help="Concurrent master handlers before "
+                             "priority shedding; 0 (default) = off")
+    parser.add_argument("--usage_max_jobs", type=non_neg_int, default=0)
+    # Not ported yet: each raises when asked for (master/main.py,
+    # worker/main.py).
+    parser.add_argument("--image_name", default="",
+                        help="k8s: not ported yet")
+    parser.add_argument("--row_service_addr", default="",
+                        help="The row service: not ported yet")
+    parser.add_argument("--journal_dir", default="",
+                        help="The master's journal: not ported yet")
+    add_bool_param(parser, "--standby", False,
+                   "Hot-standby master: not ported yet")
+    add_bool_param(parser, "--autoscale", False,
+                   "Autoscaling: not ported yet")
+    add_bool_param(parser, "--row_reshard", False,
+                   "Row resharding: not ported yet")
+    add_bool_param(parser, "--sched", False,
+                   "The gang scheduler: not ported yet")
+    parser.add_argument("--stream_dir", default="",
+                        help="Streaming ingestion: not ported yet")
+    add_bool_param(parser, "--probes", False,
+                   "Synthetic probing: not ported yet")
+
+
+def add_worker_params(parser):
+    parser.add_argument("--worker_id", type=non_neg_int, required=True)
+
+
+def _master_params(parser):
+    add_train_params(parser)
+    add_task_plane_params(parser)
+
+
+def _worker_params(parser):
+    _master_params(parser)
+    add_worker_params(parser)
+
+
 _ROLES = {"train": add_train_params, "evaluate": add_evaluate_params,
-          "predict": add_predict_params}
+          "predict": add_predict_params, "master": _master_params,
+          "worker": _worker_params}
 
 
 def build_parser(role: str = "train") -> argparse.ArgumentParser:
     if role not in _ROLES:
         raise ValueError(
             f"role {role!r} not ported yet (ported: {', '.join(_ROLES)}; "
-            "the master, worker and clean roles wait for the worker's "
-            "slice)")
+            "the clean role waits for k8s, ROADMAP Queue 1, item 8)")
     parser = argparse.ArgumentParser(prog=f"elasticdl_tpu_torch-{role}",
                                      allow_abbrev=False)
     add_common_params(parser)
     _ROLES[role](parser)
     return parser
+
+
+def parse_master_args(args=None):
+    return build_parser("master").parse_args(args=args)
+
+
+def parse_worker_args(args=None):
+    return build_parser("worker").parse_args(args=args)
+
+
+def build_arguments_from_parsed_result(args, filter_args=None):
+    """Reserialize parsed args back into a CLI list for spawning child
+    processes (reference args.py build_arguments_from_parsed_result).
+
+    None-valued optionals are SKIPPED, not stringified: an unset
+    ``--metrics_ttl_secs`` (default None = "derive from
+    task_timeout_secs") would otherwise re-serialize as the literal
+    string "None", which the worker parser's ``pos_float`` rejects —
+    omitting the flag reproduces the default-deriving behavior in the
+    child process."""
+    items = vars(args).items()
+    if filter_args:
+        items = filter(lambda kv: kv[0] not in filter_args, items)
+
+    def _to_pair(key, value):
+        if value is None:
+            return []
+        if isinstance(value, bool):
+            return [f"--{key}", "true" if value else "false"]
+        return [f"--{key}", str(value)]
+
+    return list(chain.from_iterable(_to_pair(k, v) for k, v in items))

@@ -1,6 +1,8 @@
-"""Per-phase wall-clock accumulators (port of elasticdl_tpu/common/timing.py,
-without its metrics-registry hook: the observability plane is not
-ported yet)."""
+"""Per-phase wall-clock accumulators (port of elasticdl_tpu/common/timing.py).
+
+``publish(registry)`` wires the accumulators into a metrics registry:
+every phase duration then also lands in the
+``edl_tpu_worker_phase_seconds{phase=...}`` histogram."""
 
 import contextlib
 import time
@@ -11,6 +13,7 @@ class Timing:
     def __init__(self, enabled: bool = False, logger=None):
         self.enabled = enabled
         self._logger = logger
+        self._phase_hist = None
         self.reset()
 
     def reset(self):
@@ -19,6 +22,19 @@ class Timing:
         self._mins = {}
         self._maxs = {}
         self._starts = {}
+
+    def publish(self, registry) -> "Timing":
+        """Land phase durations in ``registry`` as histograms
+        (``edl_tpu_worker_phase_seconds{phase=...}``) from now on.
+        Publishing enables timing — asking for metrics means asking for
+        the data; the per-phase cost is two monotonic reads."""
+        self._phase_hist = registry.histogram(
+            "worker_phase_seconds",
+            "Wall-clock duration of worker host phases",
+            ["phase"],
+        )
+        self.enabled = True
+        return self
 
     def start_record_time(self, phase: str):
         if self.enabled:
@@ -33,6 +49,8 @@ class Timing:
                 self._mins[phase] = elapsed
             if phase not in self._maxs or elapsed > self._maxs[phase]:
                 self._maxs[phase] = elapsed
+            if self._phase_hist is not None:
+                self._phase_hist.labels(phase).observe(elapsed)
 
     @contextlib.contextmanager
     def record(self, phase: str):

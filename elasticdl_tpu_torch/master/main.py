@@ -1,0 +1,335 @@
+"""Master process entry point (port of elasticdl_tpu/master/main.py).
+
+``python -m elasticdl_tpu_torch.master.main <flags>`` builds the control
+plane: model-spec load → reader shards → TaskDispatcher →
+EvaluationService (+ TensorBoard) → MasterServicer → gRPC RpcServer —
+then the run loop sleeps until the dispatcher drains, checking
+straggler timeouts each tick (reference master.py:218-238, :487-509).
+Workers are started by hand (``python -m elasticdl_tpu_torch.worker.main
+--master_addr ...``).
+
+``Master`` is also constructible in-process for tests. The master runs
+no model: it imports the zoo module for its dataset shards, callbacks
+and metric functions, and builds the module's model on the CPU.
+
+Not ported yet, and raising when asked for: the k8s instance manager
+(``--image_name``), the journal and crash recovery (``--journal_dir``),
+the hot standby (``--standby``), the autoscaler (``--autoscale``), row
+resharding (``--row_reshard``), the gang scheduler (``--sched``),
+streaming ingestion (``--stream_dir``) and the prober (``--probes``):
+ROADMAP Queue 1, item 8; the row service, item 4b.
+"""
+
+import sys
+import time
+
+from elasticdl_tpu_torch.common.args import parse_master_args
+from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.core.model_spec import get_model_spec
+from elasticdl_tpu_torch.data.factory import (
+    create_data_reader,
+    parse_data_reader_params,
+)
+from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
+from elasticdl_tpu_torch.master.servicer import SERVICE_NAME, MasterServicer
+from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+
+logger = get_logger("master")
+
+# Flag -> what it asks for, for the parts of the JAX master that are not
+# ported yet.
+_NOT_PORTED = {
+    "image_name": "the k8s instance manager (worker pods)",
+    "journal_dir": "the master's journal and crash recovery",
+    "standby": "the hot-standby master",
+    "autoscale": "the autoscaler",
+    "row_reshard": "row-service resharding",
+    "sched": "the gang scheduler",
+    "stream_dir": "streaming ingestion",
+    "probes": "the synthetic prober",
+}
+
+
+def _refuse_unported(args):
+    for flag, what in _NOT_PORTED.items():
+        if getattr(args, flag, None):
+            raise NotImplementedError(
+                f"--{flag}: {what} is not ported yet (ROADMAP Queue 1, "
+                "item 8)"
+            )
+
+
+def build_dispatcher(args, spec) -> TaskDispatcher:
+    """The job's TaskDispatcher from its parsed args + model spec —
+    shards, sizing, deferred train-end callback, max-steps bounds."""
+    reader_params = parse_data_reader_params(
+        getattr(args, "data_reader_params", "")
+    )
+    reader_of = lambda origin: create_data_reader(  # noqa: E731
+        data_origin=origin,
+        custom_reader=spec.custom_data_reader,
+        **reader_params,
+    )
+    training_data = getattr(args, "training_data", "")
+    validation_data = getattr(args, "validation_data", "")
+    prediction_data = getattr(args, "prediction_data", "")
+    dispatcher = TaskDispatcher(
+        training_shards=(
+            reader_of(training_data).create_shards()
+            if training_data else {}
+        ),
+        evaluation_shards=(
+            reader_of(validation_data).create_shards()
+            if validation_data else {}
+        ),
+        prediction_shards=(
+            reader_of(prediction_data).create_shards()
+            if prediction_data else {}
+        ),
+        records_per_task=(
+            args.minibatch_size * args.num_minibatches_per_task
+        ),
+        num_epochs=getattr(args, "num_epochs", 1),
+    )
+    if training_data:
+        # Queue the train-end callback task when the job drains so a
+        # worker runs on_train_end (SavedModelExporter etc. — reference
+        # task_dispatcher.py:206-241).
+        dispatcher.add_deferred_callback(
+            dispatcher.create_train_end_callback_task
+        )
+    if getattr(args, "max_steps", 0):
+        dispatcher.set_max_steps(args.max_steps, args.minibatch_size)
+    # MaxStepsStopping callback also bounds dispatch
+    # (reference callbacks.py:57-98).
+    from elasticdl_tpu_torch.callbacks import MaxStepsStopping, find_callback
+
+    cbs = spec.callbacks_fn() if spec.callbacks_fn else []
+    ms = find_callback(cbs, MaxStepsStopping)
+    # CLI --max_steps wins over the callback (same precedence as
+    # LocalExecutor).
+    if ms is not None and not getattr(args, "max_steps", 0):
+        dispatcher.set_max_steps(ms.max_steps, args.minibatch_size)
+    return dispatcher
+
+
+class Master:
+    def __init__(self, args):
+        _refuse_unported(args)
+        self._args = args
+        # The master trains nothing: the zoo's model is built on the CPU.
+        self._spec = get_model_spec(
+            model_zoo=args.model_zoo,
+            model_def=args.model_def,
+            dataset_fn=args.dataset_fn,
+            loss=args.loss,
+            optimizer=args.optimizer,
+            eval_metrics_fn=args.eval_metrics_fn,
+            callbacks=args.callbacks,
+            custom_data_reader=args.custom_data_reader,
+            device="cpu",
+        )
+        validation_data = getattr(args, "validation_data", "")
+        training_data = getattr(args, "training_data", "")
+        self.task_dispatcher = build_dispatcher(args, self._spec)
+        tb_service = None
+        if getattr(args, "tensorboard_log_dir", ""):
+            from elasticdl_tpu_torch.master.tensorboard_service import (
+                TensorboardService,
+            )
+
+            tb_service = TensorboardService(args.tensorboard_log_dir)
+        self.tb_service = tb_service
+        metrics_fns = (
+            self._spec.eval_metrics_fn()
+            if self._spec.eval_metrics_fn else {}
+        )
+        self.evaluation_service = EvaluationService(
+            self.task_dispatcher,
+            metrics_fns,
+            eval_steps=getattr(args, "evaluation_steps", 0),
+            start_delay_secs=getattr(
+                args, "evaluation_start_delay_secs", 0
+            ),
+            throttle_secs=getattr(args, "evaluation_throttle_secs", 0),
+            eval_only=bool(validation_data and not training_data),
+            summary_writer=tb_service,
+        )
+        # Telemetry plane: master-local registry (dispatcher gauges,
+        # straggler counter) + worker snapshot aggregation + /metrics;
+        # selected aggregates mirror into TensorBoard each run tick.
+        from elasticdl_tpu_torch.observability import MetricsPlane
+
+        metrics_ttl = getattr(args, "metrics_ttl_secs", None)
+        if metrics_ttl is None:
+            # Documented default: 2x the straggler deadline, so a worker
+            # that is merely slow (silent for one whole task) is never
+            # aged out of the cluster view.
+            metrics_ttl = 2.0 * getattr(args, "task_timeout_secs", 300.0)
+        self.metrics_plane = MetricsPlane(
+            ttl_secs=metrics_ttl,
+            summary_writer=tb_service,
+        )
+        # Workload attribution (observability/principal.py): the
+        # master's own outbound RPCs are control-plane by definition.
+        from elasticdl_tpu_torch.observability import principal as _principal
+
+        _principal.set_process_principal(
+            job=str(getattr(args, "job_name", "") or ""),
+            component="master", purpose="control",
+        )
+        # Distributed tracing (observability/tracing.py): with a
+        # recorder installed, dispatch spans + collected worker spans
+        # serve on /traces next to /metrics.
+        recorder_spans = int(getattr(args, "flight_recorder", 0) or 0)
+        if recorder_spans > 0:
+            from elasticdl_tpu_torch.observability import tracing
+
+            tracing.set_process_role("master")
+            tracing.install_recorder(
+                tracing.FlightRecorder(recorder_spans)
+            )
+        # Usage-plane tenant cap (observability/usage.py).
+        from elasticdl_tpu_torch.observability import usage as _usage
+
+        _usage.set_max_jobs(
+            int(getattr(args, "usage_max_jobs", 0) or 0) or None
+        )
+        self.servicer = MasterServicer(
+            self.task_dispatcher,
+            self.evaluation_service,
+            task_timeout_secs=getattr(args, "task_timeout_secs", 300.0),
+            metrics_plane=self.metrics_plane,
+        )
+        self._server = None
+        # SIGTERM grace path (main() installs the handler): the run
+        # loop exits at the next poll tick and stop() tears the job
+        # down in order.
+        self._stop_requested = False
+
+    # ---- assembly -------------------------------------------------------
+
+    def _master_port(self) -> int:
+        addr = getattr(self._args, "master_addr", "") or ":50001"
+        try:
+            return int(addr.rsplit(":", 1)[1])
+        except (IndexError, ValueError):
+            return 50001
+
+    def prepare(self):
+        """Start services: eval trigger, RPC server (reference
+        Master.prepare, master.py:184-216)."""
+        from elasticdl_tpu_torch.comm.rpc import RpcServer
+
+        self.evaluation_service.start_time_trigger()
+        admission = None
+        admission_limit = int(getattr(
+            self._args, "master_admission_limit", 0
+        ))
+        if admission_limit > 0:
+            from elasticdl_tpu_torch.comm import overload
+
+            # One gate for every master handler: the thing being
+            # protected (the servicer lock, the worker pool) is
+            # per-server.
+            admission = overload.AdmissionController(
+                admission_limit, tag="master",
+            )
+        self._server = RpcServer(
+            f"[::]:{self._master_port()}",
+            {SERVICE_NAME: self.servicer.handlers()},
+            admission=admission,
+        ).start()
+        logger.info("Master RPC serving on port %d", self._server.port)
+        metrics_port = int(getattr(self._args, "metrics_port", -1))
+        if metrics_port >= 0:
+            self.metrics_plane.serve(port=metrics_port)
+        if self.tb_service is not None:
+            self.tb_service.start()
+
+    def request_stop(self):
+        """Ask the run loop to exit at the next tick (SIGTERM path).
+        Signal-handler safe: sets a flag, no locks, no teardown here."""
+        self._stop_requested = True
+
+    def run(self, poll_secs: float = 5.0):
+        """Sleep until the dispatcher drains (reference master.py:218-238);
+        each tick, recover stragglers' tasks (3× mean task time,
+        :487-509)."""
+        try:
+            while not self.task_dispatcher.finished():
+                if self._stop_requested:
+                    logger.warning(
+                        "stop requested (SIGTERM); tearing the job "
+                        "down gracefully with tasks still pending"
+                    )
+                    break
+                time.sleep(poll_secs)
+                for task_id, worker_id in self.servicer.find_timeout_tasks():
+                    logger.warning(
+                        "Task %d on worker %d timed out; recovering",
+                        task_id, worker_id,
+                    )
+                    self.task_dispatcher.recover_tasks(worker_id)
+                    # A relaunch comes back under a NEW worker id —
+                    # drop the dead id's series now, not at the TTL.
+                    self.servicer.remove_worker_metrics(worker_id)
+                # Resize-barrier upkeep: refresh membership from the
+                # live fleet so a worker that died mid-barrier cannot
+                # wedge it.
+                if self.servicer.resize_status() is not None:
+                    self.servicer.maybe_complete_resize(
+                        list(self.servicer.worker_liveness())
+                    )
+                self.metrics_plane.publish_tensorboard(
+                    self.servicer.model_version
+                )
+        finally:
+            # The last tasks finish during the final poll sleep; flush
+            # that interval's aggregates to TensorBoard before stop()
+            # tears down the plane, or the tfevents tail under-counts.
+            self.metrics_plane.publish_tensorboard(
+                self.servicer.model_version
+            )
+            self.stop()
+        return 0
+
+    def stop(self):
+        self.metrics_plane.stop()
+        self.evaluation_service.stop()
+        if self._server is not None:
+            self._server.stop(grace=2.0)
+
+    @property
+    def port(self):
+        return self._server.port if self._server else None
+
+
+def main(argv=None):
+    args = parse_master_args(argv)
+    master = Master(args)
+    master.prepare()
+    # Graceful eviction: with a handler, run() exits at the next tick
+    # and stop() tears the job down inside the grace period.
+    import signal
+
+    try:
+        signal.signal(
+            signal.SIGTERM, lambda *_: master.request_stop()
+        )
+    except ValueError:
+        pass  # not the main thread (embedded use)
+    code = master.run()
+    if master.tb_service is not None:
+        # The post-training TensorBoard keep-alive must not outlive a
+        # SIGTERM: the handler swallows further signals, so looping
+        # here would burn the whole grace period and end in SIGKILL.
+        while (not master._stop_requested
+               and master.tb_service.keep_running()):
+            time.sleep(10)
+        master.tb_service.close()
+    return code
+
+
+if __name__ == "__main__":
+    sys.exit(main())

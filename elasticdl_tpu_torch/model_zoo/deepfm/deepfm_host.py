@@ -38,8 +38,8 @@ MAX_ID = 5500
 EMBEDDING_DIM = 16
 TABLE_NAME = "deepfm_host_embedding"
 FEATURE_KEY = "feature_ids"
-_REMOTE = ("a remote row service (remote_addr) waits for the RPC wire "
-           "of the port (ROADMAP Queue 1, item 4)")
+_REMOTE = ("a remote row service (remote_addr) waits for the row service "
+           "of the port (ROADMAP Queue 1, item 4b)")
 
 
 class HostDeepFM(nn.Module):

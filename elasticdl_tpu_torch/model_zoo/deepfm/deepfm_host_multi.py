@@ -35,8 +35,8 @@ FIELD_GROUPS = {
     "host_emb_item": ("ids_item", (4, 7)),
     "host_emb_ctx": ("ids_ctx", (7, 10)),
 }
-_REMOTE = ("a remote row service (remote_addr) waits for the RPC wire "
-           "of the port (ROADMAP Queue 1, item 4)")
+_REMOTE = ("a remote row service (remote_addr) waits for the row service "
+           "of the port (ROADMAP Queue 1, item 4b)")
 
 
 class HostDeepFMMulti(nn.Module):

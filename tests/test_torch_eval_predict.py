@@ -327,4 +327,4 @@ def test_jobs_need_a_checkpoint_and_data(tmp_path):
             ["--model_zoo", zoo, "--model_def", "x.y", "--minibatch_size",
              "4", "--checkpoint_dir_for_init", empty])
     with pytest.raises(ValueError, match="not ported yet"):
-        build_parser("master")
+        build_parser("clean")
