@@ -13,6 +13,8 @@
                                              # alone (embedding kernels)
     python3 chip_smoke.py --phase worker # the master's task plane and the
                                          # worker alone (embedding kernels)
+    python3 chip_smoke.py --phase rowservice # the row service alone, no
+                                             # build, with its timings
 
 1. Prints the card (``nvidia-smi`` name and power limit), versions, and
    whether ``grpc`` can be imported.
@@ -211,6 +213,40 @@
    the master's accuracy equals (a)'s at each round; its wall time, the
    time from its first task and examples/s over it. Without a ``grpc``
    module (and only then) (d) prints that it did not run.
+11g. ``rowservice`` (the row service; ``--phase rowservice`` runs it
+   alone, with no kernel build): deepfm_host's 5500 x 16 native table
+   behind the port's ``HostRowService`` over localhost gRPC, 2048 frappe
+   records at B 512 in tasks of 4 minibatches. (a) One worker on the
+   card with a synchronous remote runner (``HostStepRunner(
+   make_remote_engine(addr, ...), async_apply=False)``) against one
+   in-process service, held to the same job with the in-process
+   synchronous runner: per-step losses, and the service's rows and step
+   counters bit-equal; untouched ids read their lazy rows; the remote
+   runner's ``host_tables`` is None. (b) The same job against two
+   services: every row on its ``ShardMap.bootstrap`` home, the rows of
+   both shards equal to (a)'s, the two-shard ``export_dense`` equal to
+   the one-shard one. (c) ``python -m
+   elasticdl_tpu_torch.embedding.row_service`` in a subprocess
+   (``--checkpoint_steps 4 --shard_id 0 --num_shards 1``; in the whole
+   smoke it is started before the worker phase and boots while that
+   runs) shared by two workers on the card (``MiniCluster``, the zoo's
+   async runner) over 2560 records, run first: the job drains (5
+   pushes), losses finite; after SIGTERM the newest valid checkpoint
+   version equals the push count, and a relaunch (booting while (a) and
+   (b) run) restores it and answers a pull with the saved rows bit for
+   bit. Step
+   ms (CUDA events) beside issue ms for (a)'s and (c)'s workers. Every
+   kernel counter is zeroed just before each run and reads 0 after it.
+   (d) ``--phase rowservice`` only: pull and push at the recsys shape
+   (a native 1,000,000 x 256 table, Adagrad rows, 16,384 unique ids a
+   batch) over localhost gRPC to the service's main in a subprocess,
+   beside the in-process table's pull and apply: median ms and MB/s,
+   cold and warm; the host engine's phases at that shape in the same
+   call. (e) ``--phase rowservice`` only: deepfm_host's step through one
+   worker on the card over 40 batches at B 512, the rows in process or
+   on the service's main in a subprocess, with a synchronous and the
+   zoo's asynchronous runner: step ms (CUDA events, one-step windows)
+   beside issue ms; every kernel counter 0.
 12. ``fused path``: ``DeviceSparseRunner`` over the recsys table with
    Momentum (Nesterov) and ``use_pallas="fused"`` for 10 steps against
    "never": one fused-kernel launch a step.
@@ -250,13 +286,15 @@
    memory.
 17. Prints a ``serving``, a ``training``, a ``sparse_training``, a
    ``ring_training``, a ``host_training``, a ``vision``, a ``tabular``,
-   a ``checkpoint``, a ``worker`` and a ``kernels`` JSON line (the four flash kernels
-   and the four embedding kernels with their ms, plain ms, library ms,
-   bound ms and launches, and their launches on the host, vision,
-   tabular, checkpoint and worker paths, ``launches_host_training``,
-   ``launches_vision``, ``launches_tabular``, ``launches_checkpoint``
-   (the straight, first and resumed recsys runs), ``launches_worker``
-   (the in-process and failed-task runs); #5 with its times at
+   a ``checkpoint``, a ``worker``, a ``rowservice`` and a ``kernels``
+   JSON line (the four flash kernels and the four embedding kernels
+   with their ms, plain ms, library ms, bound ms and launches, and their
+   launches on the host, vision, tabular, checkpoint, worker and row
+   service paths, ``launches_host_training``, ``launches_vision``,
+   ``launches_tabular``, ``launches_checkpoint`` (the straight, first
+   and resumed recsys runs), ``launches_worker`` (the in-process and
+   failed-task runs), ``launches_rowservice`` ((a)'s two runs, (b),
+   (c)); #5 with its times at
    the sweep's tiers, the row kernels with a per-rule list) and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -579,6 +617,48 @@ WORKER_FAIL_AT_BATCH = WORKER_TASK_BATCHES + 1
 WORKER_HOST_RECORDS = 4096
 WORKER_RPCS = ("get_task", "report_task_result", "report_version",
                "report_evaluation_metrics", "report_metrics")
+# The row service (slice 16; ``--phase rowservice`` runs it alone, with
+# no kernel build): deepfm_host (5500 x 16 native table, SGD rows)
+# behind the port's HostRowService over localhost gRPC, on ROWSVC_RECORDS
+# frappe records at HOST_BATCH in tasks of WORKER_TASK_BATCHES. (a) One
+# worker, synchronous remote runner, against the same job with the
+# in-process synchronous runner: the same native store, the same SGD on
+# the same unique ids in the same order, and the row gradients cross the
+# wire as f32 bytes, so losses, rows and step counters are bit-equal.
+# (b) The same job against two shards: every row on its bootstrap home,
+# the rows gathered from both equal to (a)'s, and so the export. (c) The
+# service's own main in a subprocess (``--checkpoint_steps``
+# ROWSVC_CKPT_STEPS) shared by two workers with the zoo's async runner
+# over ROWSVC_C_RECORDS records (two tasks, 5 pushes: an interval
+# checkpoint at 4, the SIGTERM drain at 5); a relaunch restores the
+# drained version and answers a pull with the saved rows bit for bit.
+# Each start imports torch (~8 s on the chip machine), so the first is
+# started ahead and the relaunch boots while (a) and (b) run.
+# (d) ``--phase rowservice`` only: pull and push at the recsys shape
+# (EMB_VOCAB x EMB_DIM native table, Adagrad rows, ROWSVC_TIMED_IDS
+# unique ids a batch) over localhost gRPC to the service's main in a
+# subprocess, beside the in-process table's pull and apply, cold and
+# warm, over HOST_ENGINE_BATCHES batches (HOST_ENGINE_SKIP not counted).
+# (e) ``--phase rowservice`` only: deepfm_host's step through one
+# worker over ROWSVC_STEP_BATCHES batches, the rows in process or on the
+# service's main in a subprocess, each with a synchronous and the zoo's
+# asynchronous runner; and the host engine's phases at the recsys shape
+# (``host_engine_times``) in the same call as (d).
+ROWSVC_RECORDS, ROWSVC_C_RECORDS, ROWSVC_CKPT_STEPS = 2048, 2560, 4
+ROWSVC_TIMED_IDS = 16384
+ROWSVC_STEP_BATCHES = 40
+ROWSVC_BENCH_ZOO = f"""
+from elasticdl_tpu_torch.embedding.optimizer import Adagrad
+from elasticdl_tpu_torch.embedding.row_service import HostRowService
+from elasticdl_tpu_torch.native.row_store import (
+    make_host_optimizer, make_host_table)
+
+
+def make_row_service():
+    return HostRowService(
+        {{{RECSYS_TABLE!r}: make_host_table({RECSYS_TABLE!r}, {EMB_DIM})}},
+        make_host_optimizer(Adagrad(lr=0.05)))
+"""
 # Ring attention over an sp mesh of one card (slice 4): the long-context
 # row of tools/bench_long_context.py, (S 8192, B 1, remat), on the
 # flagship's widths, the sequence cut over RING_SP ranks (chunks of 2048).
@@ -3641,11 +3721,12 @@ class RecordingRunner:
 
 
 def worker_cluster_run(torch, fa, pe, zoo, model_def, train, evalf, device,
-                       batch, dataset_fn=None):
+                       batch, dataset_fn=None, runner_factory=None):
     """The port's MiniCluster (one worker, InProcessMaster, no shuffle)
-    over ``train``; the worker's runner records its steps, its master
-    client the tasks it pulls, and every RPC is counted. Each kernel
-    counter is zeroed just before the run and read just after."""
+    over ``train``; the worker's runner (``runner_factory()`` when
+    given) records its steps, its master client the tasks it pulls, and
+    every RPC is counted. Each kernel counter is zeroed just before the
+    run and read just after."""
     from elasticdl_tpu_torch.testing.cluster import MiniCluster
 
     rpcs = {name: 0 for name in WORKER_RPCS}
@@ -3659,7 +3740,7 @@ def worker_cluster_run(torch, fa, pe, zoo, model_def, train, evalf, device,
         zoo, model_def, training_data=train, validation_data=evalf,
         minibatch_size=batch, num_minibatches_per_task=WORKER_TASK_BATCHES,
         eval_steps=WORKER_EVAL_STEPS if evalf else 0, device=device,
-        random_seed=SEED,
+        random_seed=SEED, step_runner_factory=runner_factory,
         worker_callbacks={name: counter(name) for name in WORKER_RPCS})
     worker = cluster.workers[0]
     record = RecordingRunner(torch, worker._step_runner)
@@ -4073,6 +4154,484 @@ def worker_phase(torch, fa, pe, root):
         raise
     out["wire"] = worker_wire_finish(wire, a_job["results"])
     out["seconds"] = time.monotonic() - t0
+    out["card"] = smi("name,power.limit")
+    return out
+
+
+def remote_sync_runner(addr):
+    """A runner factory: the zoo's deepfm_host rows behind the row
+    service at ``addr`` (one address or a comma list of shards), applied
+    synchronously."""
+    from elasticdl_tpu_torch.embedding.host_engine import HostStepRunner
+    from elasticdl_tpu_torch.embedding.row_service import make_remote_engine
+    from elasticdl_tpu_torch.model_zoo.deepfm import deepfm_host as twin
+
+    return lambda: HostStepRunner(make_remote_engine(
+        addr, id_keys={twin.TABLE_NAME: twin.FEATURE_KEY}),
+        async_apply=False)
+
+
+def row_service_main(root, zoo, model_def, log_name, extra=()):
+    """``python -m elasticdl_tpu_torch.embedding.row_service`` in a
+    subprocess on localhost:0: (process, log file). ``service_port``
+    waits for the port it logs."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (here, env.get("PYTHONPATH", "")) if p)
+    log = open(os.path.join(root, log_name), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "elasticdl_tpu_torch.embedding.row_service",
+         "--model_zoo", zoo, "--model_def", model_def,
+         "--addr", "localhost:0", *extra],
+        env=env, cwd=root, stdout=log, stderr=subprocess.STDOUT)
+    return proc, log
+
+
+def service_port(proc, log, timeout=120.0):
+    """The port a row-service subprocess logged, and its log so far."""
+    import re
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        log.seek(0)
+        text = log.read()
+        found = re.search(r"Row service on port (\d+)", text)
+        if found:
+            return int(found.group(1)), text
+        check(proc.poll() is None, f"the row service exited: {text[-3000:]}")
+        time.sleep(0.05)
+    raise AssertionError("the row service did not report its port")
+
+
+def stop_service(proc, log):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    log.close()
+
+
+def card_steps(record):
+    """A row-service run's step ms (CUDA events, one-step windows after
+    the first step) beside issue ms; None for a run of fewer than three
+    steps or off the card."""
+    if len(record.events) < 3:
+        return None
+    return step_times(record, HOST_BATCH, 1)
+
+
+def rowservice_one_shard(torch, fa, pe, root, records):
+    """(a) One worker on the card against one in-process service, held
+    to the in-process synchronous runner on the same job."""
+    from elasticdl_tpu_torch.model_zoo.deepfm import deepfm_host as twin
+    from elasticdl_tpu_torch.native.row_store import NativeEmbeddingTable
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    zoo = write_zoo(root, "rowsvc_sync", HOST_ZOO)
+    local = worker_cluster_run(torch, fa, pe, zoo,
+                               "rowsvc_sync.rec.custom_model", records, "",
+                               DEVICE, HOST_BATCH)
+    svc = twin.make_row_service().start("localhost:0")
+    addr = f"localhost:{svc.port}"
+    remote = worker_cluster_run(
+        torch, fa, pe, tdata.model_zoo_dir(), "deepfm.deepfm_host."
+        "custom_model", records, "", DEVICE, HOST_BATCH,
+        runner_factory=remote_sync_runner(addr))
+    runner = remote["worker"]._step_runner
+    local_tables = local["worker"]._step_runner.host_tables
+    served = {n: v.to_arrays() for n, v in svc.host_tables.items()}
+    unequal = [n for n, v in local_tables.items()
+               if not all(np.array_equal(a, b) for a, b in
+                          zip(v.to_arrays(), served[n]))]
+    touched = np.unique(frappe_ids(ROWSVC_RECORDS, HOST_IDS, HOST_MAX_ID,
+                                   SEED + 48))
+    lazy = NativeEmbeddingTable(twin.TABLE_NAME, twin.EMBEDDING_DIM)
+    untouched = np.setdiff1d(np.arange(HOST_MAX_ID), touched)[:64]
+    untouched_equal = np.array_equal(
+        runner.engine.tables[twin.TABLE_NAME].get(untouched),
+        lazy.get(untouched))
+    out = {
+        "service": addr, "steps": len(remote["loss"]),
+        "losses_service": remote["loss"], "losses_in_process": local["loss"],
+        "losses_bit_equal": remote["loss"] == local["loss"],
+        "tables_compared": sorted(local_tables),
+        "tables_unequal": unequal,
+        "touched_rows": int(touched.size),
+        "service_rows": int(served[twin.TABLE_NAME][0].size),
+        "untouched_bit_equal": untouched_equal,
+        "remote_host_tables_none": runner.host_tables is None,
+        "launches_service": remote["counts"],
+        "launches_in_process": local["counts"],
+        "worker_step": card_steps(remote["record"]),
+        "in_process_step": card_steps(local["record"]),
+        "wall_s": {"service": remote["wall_s"], "in_process": local["wall_s"]},
+    }
+    print("rowservice one shard", json.dumps(out), flush=True)
+    check(len(local["loss"]) == ROWSVC_RECORDS // HOST_BATCH,
+          f"{len(local['loss'])} steps")
+    check(out["losses_bit_equal"], f"losses over the wire {out}")
+    check(not unequal, f"the service's tables differ: {unequal}")
+    check(np.array_equal(served[twin.TABLE_NAME][0], touched),
+          "the service's rows are not the ids the batches touched")
+    check(untouched_equal, "an untouched row is not its lazy initial value")
+    check(out["remote_host_tables_none"],
+          "the remote runner claims the service's rows")
+    for name, counts in (("service", remote["counts"]),
+                         ("in process", local["counts"])):
+        check(not any(counts.values()),
+              f"the row-service path ({name}) launched kernels: {counts}")
+    return out, svc, served[twin.TABLE_NAME], remote["loss"]
+
+
+def rowservice_two_shards(torch, fa, pe, records, one_svc, one_rows,
+                          one_loss):
+    """(b) The same job against two in-process shards."""
+    from elasticdl_tpu_torch.embedding.row_service import make_remote_engine
+    from elasticdl_tpu_torch.embedding.shard_map import ShardMap
+    from elasticdl_tpu_torch.model_zoo.deepfm import deepfm_host as twin
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    shards = [twin.make_row_service().start("localhost:0")
+              for _ in range(2)]
+    try:
+        addrs = [f"localhost:{s.port}" for s in shards]
+        run = worker_cluster_run(
+            torch, fa, pe, tdata.model_zoo_dir(), "deepfm.deepfm_host."
+            "custom_model", records, "", DEVICE, HOST_BATCH,
+            runner_factory=remote_sync_runner(",".join(addrs)))
+        smap = ShardMap.bootstrap(addrs)
+        per_shard = [s.host_tables[twin.TABLE_NAME].to_arrays()
+                     for s in shards]
+        placed = all(ids.size and (smap.home_of_ids(ids) == k).all()
+                     for k, (ids, _) in enumerate(per_shard))
+        ids = np.concatenate([i for i, _ in per_shard])
+        rows = np.concatenate([r for _, r in per_shard])
+        order = np.argsort(ids)
+        gathered_equal = (np.array_equal(ids[order], one_rows[0])
+                          and np.array_equal(rows[order], one_rows[1]))
+        keys = {twin.TABLE_NAME: twin.FEATURE_KEY}
+        t0 = time.monotonic()
+        export_two = make_remote_engine(",".join(addrs), keys).tables[
+            twin.TABLE_NAME].export_dense(HOST_MAX_ID)
+        export_s = time.monotonic() - t0
+        export_one = make_remote_engine(
+            f"localhost:{one_svc.port}", keys).tables[
+            twin.TABLE_NAME].export_dense(HOST_MAX_ID)
+    finally:
+        for s in shards:
+            s.stop(0)
+    out = {"shards": addrs, "rows_per_shard": [int(i.size)
+                                               for i, _ in per_shard],
+           "placed_by_map": bool(placed), "rows_equal_one_shard":
+           gathered_equal, "losses_equal_one_shard": run["loss"] == one_loss,
+           "export_equal_one_shard": bool(np.array_equal(export_two,
+                                                         export_one)),
+           "export_shape": list(export_two.shape), "export_s": export_s,
+           "launches": run["counts"]}
+    print("rowservice two shards", json.dumps(out), flush=True)
+    check(placed, f"a row off its map home: {out}")
+    check(gathered_equal and out["losses_equal_one_shard"],
+          f"two shards against one: {out}")
+    check(out["export_equal_one_shard"], "the two-shard export differs")
+    check(not any(run["counts"].values()),
+          f"the two-shard path launched kernels: {run['counts']}")
+    return out
+
+
+def rowservice_flags(ckpt):
+    return ["--checkpoint_dir", ckpt, "--checkpoint_steps",
+            str(ROWSVC_CKPT_STEPS), "--shard_id", "0", "--num_shards", "1"]
+
+
+def rowservice_start(root):
+    """(c)'s service main, started in a subprocess ahead of its use: it
+    boots (the import of torch) while earlier work runs."""
+    from elasticdl_tpu_torch import native
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    native.get_lib()  # built here once, before the subprocess loads it
+    ckpt = os.path.join(root, "rowsvc_ckpt")
+    proc, log = row_service_main(
+        root, tdata.model_zoo_dir(), "deepfm.deepfm_host.custom_model",
+        "rowsvc_main.log", rowservice_flags(ckpt))
+    return dict(proc=proc, log=log, ckpt=ckpt)
+
+
+def rowservice_shared_run(torch, fa, pe, root, records, service):
+    """(c), first half: the started service shared by two workers on the
+    card with the zoo's async runner, then SIGTERM, the drained version,
+    and the relaunch started (it boots while (a) and (b) run)."""
+    import signal
+
+    from elasticdl_tpu_torch.checkpoint.saver import CheckpointSaver
+    from elasticdl_tpu_torch.embedding.row_service import make_remote_engine
+    from elasticdl_tpu_torch.model_zoo.deepfm import deepfm_host as twin
+    from elasticdl_tpu_torch.testing import data as tdata
+    from elasticdl_tpu_torch.testing.cluster import MiniCluster
+
+    proc, log = service["proc"], service["log"]
+    port, _ = service_port(proc, log)
+    addr = f"localhost:{port}"
+    cluster = MiniCluster(
+        tdata.model_zoo_dir(), "deepfm.deepfm_host.custom_model",
+        training_data=records, minibatch_size=HOST_BATCH,
+        num_minibatches_per_task=WORKER_TASK_BATCHES, num_workers=2,
+        step_runner_factory=lambda: twin.make_host_runner(
+            remote_addr=addr),
+        device=DEVICE, random_seed=SEED)
+    recorders = []
+    for worker in cluster.workers:
+        recorders.append(RecordingRunner(torch, worker._step_runner))
+        worker._step_runner = recorders[-1]
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    reset_kernel_launches(fa, pe)             # the shared job starts
+    t0 = time.monotonic()
+    results = cluster.run()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = kernel_launch_counts(fa, pe)     # ... and ends
+    table = make_remote_engine(
+        addr, {twin.TABLE_NAME: twin.FEATURE_KEY}).tables[twin.TABLE_NAME]
+    pushes = table.pull_version()
+    touched = np.unique(frappe_ids(ROWSVC_C_RECORDS, HOST_IDS, HOST_MAX_ID,
+                                   SEED + 64))
+    live = table.get(touched)
+    proc.send_signal(signal.SIGTERM)
+    exit_code = proc.wait(timeout=120)
+    stop_service(proc, log)
+    saved = CheckpointSaver(service["ckpt"]).get_valid_latest_version()
+    proc, log = row_service_main(
+        root, tdata.model_zoo_dir(), "deepfm.deepfm_host.custom_model",
+        "rowsvc_relaunch.log", rowservice_flags(service["ckpt"]))
+    out = {
+        "service": addr, "workers": len(results),
+        "trained_batches": [r["trained_batches"] for r in results],
+        "records": dict(cluster.dispatcher.counters.total_records),
+        "finished": cluster.finished,
+        "losses": [float(x) for r in recorders for x in r.loss],
+        "pushes": pushes, "touched_rows": int(touched.size),
+        "sigterm_exit": exit_code, "saved_version": saved,
+        "launches": counts, "wall_s": wall,
+        "worker_steps": [card_steps(r) for r in recorders],
+    }
+    return out, dict(proc=proc, log=log, ckpt=service["ckpt"],
+                     touched=touched, live=live)
+
+
+def rowservice_relaunch_check(out, relaunch):
+    """(c), second half: the relaunched service restored the drained
+    version and answers a pull with the saved rows bit for bit."""
+    from elasticdl_tpu_torch.checkpoint.saver import CheckpointSaver
+    from elasticdl_tpu_torch.embedding.row_service import make_remote_engine
+    from elasticdl_tpu_torch.model_zoo.deepfm import deepfm_host as twin
+
+    touched, live = relaunch["touched"], relaunch["live"]
+    _, _, embeddings = CheckpointSaver(relaunch["ckpt"]).restore()
+    ids, rows = embeddings[twin.TABLE_NAME].to_arrays()
+    t0 = time.monotonic()
+    port, text = service_port(relaunch["proc"], relaunch["log"])
+    again = make_remote_engine(
+        f"localhost:{port}", {twin.TABLE_NAME: twin.FEATURE_KEY}).tables[
+        twin.TABLE_NAME].get(touched)
+    out.update({
+        "relaunch_wait_s": time.monotonic() - t0,
+        "restored_line": (f"Row service restored version "
+                          f"{out['saved_version']}" in text),
+        "checkpoint_rows_equal_live": bool(
+            np.array_equal(ids, touched) and np.array_equal(rows, live)),
+        "relaunch_pull_bit_equal": bool(np.array_equal(again, live)),
+    })
+    print("rowservice subprocess", json.dumps(out), flush=True)
+    steps = -(-ROWSVC_C_RECORDS // HOST_BATCH)
+    check(out["finished"] and sum(out["trained_batches"]) == steps
+          and out["records"] == {"training": ROWSVC_C_RECORDS},
+          f"the shared job did not drain: {out}")
+    check(all(n > 0 for n in out["trained_batches"]),
+          f"a worker took no task: {out['trained_batches']}")
+    check(all(np.isfinite(out["losses"])), "non-finite loss")
+    check(out["pushes"] == steps and touched.size > 0,
+          f"{out['pushes']} pushes, {touched.size} rows on the service")
+    check(out["sigterm_exit"] == 0 and out["saved_version"] == steps,
+          f"SIGTERM exit {out['sigterm_exit']}, newest version "
+          f"{out['saved_version']}, {out['pushes']} pushes")
+    check(out["restored_line"] and out["checkpoint_rows_equal_live"]
+          and out["relaunch_pull_bit_equal"],
+          f"the relaunch did not restore the drained rows: {out}")
+    check(not any(out["launches"].values()),
+          f"the shared job launched kernels: {out['launches']}")
+    return out
+
+
+def rowservice_times(torch, root):
+    """(d) Pull and push at the recsys shape over localhost gRPC to the
+    service's main in a subprocess, beside the in-process table's pull
+    and apply on the same batches: median ms and MB/s, cold then warm.
+    The in-process passes run once while the service boots (its import
+    of torch beside them) and once on a fresh table after it has booted;
+    the second is the one compared."""
+    from elasticdl_tpu_torch.embedding.optimizer import Adagrad
+    from elasticdl_tpu_torch.embedding.row_service import make_remote_engine
+    from elasticdl_tpu_torch.native.row_store import (
+        NativeEmbeddingTable,
+        make_host_optimizer,
+    )
+
+    zoo = write_zoo(root, "rowsvc_bench", ROWSVC_BENCH_ZOO)
+    proc, log = row_service_main(root, zoo, "rowsvc_bench.rec.custom_model",
+                                 "rowsvc_bench.log")
+    try:
+        rng = np.random.RandomState(SEED + 5)
+        batches = [
+            (np.sort(rng.permutation(EMB_VOCAB)[:ROWSVC_TIMED_IDS]),
+             (rng.standard_normal((ROWSVC_TIMED_IDS, EMB_DIM)) * 1e-3)
+             .astype(np.float32))
+            for _ in range(HOST_ENGINE_BATCHES)]
+        mb = ROWSVC_TIMED_IDS * EMB_DIM * 4 / 1e6
+
+        def run_pass(pull, push):
+            ms = {"pull": [], "push": []}
+            for ids, grads in batches:
+                for name, fn, args in (("pull", pull, (ids,)),
+                                       ("push", push, (ids, grads))):
+                    t0 = time.perf_counter()
+                    fn(*args)
+                    ms[name].append((time.perf_counter() - t0) * 1e3)
+            out = {}
+            for name, values in ms.items():
+                kept = values[HOST_ENGINE_SKIP:]
+                median = float(np.median(kept))
+                out[name] = {"ms_median": median,
+                             "ms_range": [min(kept), max(kept)],
+                             "mb_per_s": mb / (median / 1e3)}
+            return out
+
+        def in_process_passes():
+            table = NativeEmbeddingTable(RECSYS_TABLE, EMB_DIM)
+            opt = make_host_optimizer(Adagrad(lr=0.05))
+
+            def push(ids, grads):
+                opt.apply_gradients(table, ids, grads)
+
+            return {"cold": run_pass(table.get, push),
+                    "warm": run_pass(table.get, push)}
+
+        during_boot = in_process_passes()
+        port, _ = service_port(proc, log)
+        in_process = in_process_passes()
+        engine = make_remote_engine(f"localhost:{port}",
+                                    {RECSYS_TABLE: "ids"})
+        remote = engine.tables[RECSYS_TABLE]
+        remote_push = lambda ids, g: engine.optimizer.apply_gradients(  # noqa: E731
+            remote, ids, g)
+        over_grpc = {"cold": run_pass(remote.get, remote_push),
+                     "warm": run_pass(remote.get, remote_push)}
+    finally:
+        stop_service(proc, log)
+    out = {"table": f"{EMB_VOCAB} x {EMB_DIM} f32, native, lazy, "
+                    "Adagrad rows",
+           "unique_ids": ROWSVC_TIMED_IDS, "mb_a_batch": mb,
+           "batches": HOST_ENGINE_BATCHES, "skipped": HOST_ENGINE_SKIP,
+           "over_grpc": over_grpc, "in_process": in_process,
+           "in_process_during_boot": during_boot,
+           "card": smi("name,power.limit")}
+    print("rowservice times", json.dumps(out), flush=True)
+    return out
+
+
+def rowservice_step_times(torch, fa, pe, root, service):
+    """(e) deepfm_host's step through one worker on the card over
+    ROWSVC_STEP_BATCHES batches at HOST_BATCH: the rows in process or on
+    ``service`` (the service's main in a subprocess), each with a
+    synchronous and the zoo's asynchronous runner. Step ms (CUDA events,
+    one-step windows after the first) beside issue ms."""
+    from elasticdl_tpu_torch.model_zoo.deepfm import deepfm_host as twin
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    records = tdata.create_frappe_record_file(
+        os.path.join(root, "rowsvc_steps.rec"),
+        ROWSVC_STEP_BATCHES * HOST_BATCH, seed=SEED + 80,
+        input_length=HOST_IDS, max_id=HOST_MAX_ID)
+    sync_zoo = write_zoo(root, "rowsvc_sync", HOST_ZOO)
+    port, _ = service_port(service["proc"], service["log"])
+    addr = f"localhost:{port}"
+    zoo, model_def = tdata.model_zoo_dir(), "deepfm.deepfm_host.custom_model"
+    runs = {
+        "in_process_sync": (sync_zoo, "rowsvc_sync.rec.custom_model", None),
+        "in_process_async": (zoo, model_def, None),
+        "service_sync": (zoo, model_def, remote_sync_runner(addr)),
+        "service_async": (zoo, model_def,
+                          lambda: twin.make_host_runner(remote_addr=addr)),
+    }
+    out = {"steps": ROWSVC_STEP_BATCHES, "batch": HOST_BATCH,
+           "service": addr}
+    for name, (run_zoo, run_def, factory) in runs.items():
+        run = worker_cluster_run(torch, fa, pe, run_zoo, run_def, records,
+                                 "", DEVICE, HOST_BATCH,
+                                 runner_factory=factory)
+        check(len(run["loss"]) == ROWSVC_STEP_BATCHES
+              and all(np.isfinite(run["loss"])),
+              f"{name}: {len(run['loss'])} steps, losses {run['loss']}")
+        check(not any(run["counts"].values()),
+              f"{name} launched kernels: {run['counts']}")
+        out[name] = dict(card_steps(run["record"]), wall_s=run["wall_s"])
+    print("rowservice step times", json.dumps(out), flush=True)
+    return out
+
+
+def rowservice_phase(torch, fa, pe, root, service=None, timed=False):
+    """The row service on the card: the service's main in a subprocess
+    (``service``, from ``rowservice_start``, or started here) shared by
+    two workers, SIGTERM and a relaunch that boots while one in-process
+    shard is held to the in-process runner and two shards to one; with
+    ``timed`` the pull and push at the recsys shape beside the host
+    engine's phases, and the worker's step over the service and in
+    process."""
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    t0 = time.monotonic()
+    service = service or rowservice_start(root)
+    relaunch = one_svc = steps_svc = None
+    try:
+        if timed:
+            # (e)'s service boots while (a)-(d) run.
+            proc, log = row_service_main(
+                root, tdata.model_zoo_dir(),
+                "deepfm.deepfm_host.custom_model", "rowsvc_steps.log")
+            steps_svc = dict(proc=proc, log=log)
+        try:
+            records = tdata.create_frappe_record_file(
+                os.path.join(root, "rowsvc.rec"), ROWSVC_RECORDS,
+                seed=SEED + 48, input_length=HOST_IDS, max_id=HOST_MAX_ID)
+            shared = tdata.create_frappe_record_file(
+                os.path.join(root, "rowsvc_shared.rec"), ROWSVC_C_RECORDS,
+                seed=SEED + 64, input_length=HOST_IDS, max_id=HOST_MAX_ID)
+            out_c, relaunch = rowservice_shared_run(torch, fa, pe, root,
+                                                    shared, service)
+            out_a, one_svc, one_rows, one_loss = rowservice_one_shard(
+                torch, fa, pe, root, records)
+            out = {"one_shard": out_a,
+                   "two_shards": rowservice_two_shards(
+                       torch, fa, pe, records, one_svc, one_rows, one_loss),
+                   "subprocess": rowservice_relaunch_check(out_c, relaunch)}
+        finally:
+            if one_svc is not None:
+                one_svc.stop(0)
+            stop_service(service["proc"], service["log"])
+            if relaunch is not None:
+                stop_service(relaunch["proc"], relaunch["log"])
+        out["seconds"] = time.monotonic() - t0
+        if timed:
+            out["times"] = rowservice_times(torch, root)
+            out["engine"] = host_engine_times(torch)
+            print("rowservice engine", json.dumps(out["engine"]),
+                  flush=True)
+            out["step_times"] = rowservice_step_times(torch, fa, pe, root,
+                                                      steps_svc)
+    finally:
+        if steps_svc is not None:
+            stop_service(steps_svc["proc"], steps_svc["log"])
     out["card"] = smi("name,power.limit")
     return out
 
@@ -4548,7 +5107,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--phase", choices=("all", "fwd", "bwd", "chunk", "lookup", "host",
-                            "vision", "tabular", "checkpoint", "worker"),
+                            "vision", "tabular", "checkpoint", "worker",
+                            "rowservice"),
         default="all",
         help="fwd: build flash_attention_fwd.cu alone, then run kernel "
              "#1's checks and times and print its kernels row; bwd: the "
@@ -4560,7 +5120,8 @@ def main(argv=None) -> int:
              "tabular: the tabular phase alone (no kernel build); "
              "checkpoint: the checkpoint phase alone (the embedding "
              "kernels only); worker: the worker phase alone (the "
-             "embedding kernels only)")
+             "embedding kernels only); rowservice: the row-service "
+             "phase alone with its 1M x 256 timings (no kernel build)")
     args = parser.parse_args(argv)
     import torch
 
@@ -4585,11 +5146,14 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    if args.phase in ("host", "vision", "tabular"):
+    if args.phase in ("host", "vision", "tabular", "rowservice"):
         with tempfile.TemporaryDirectory() as root:
             if args.phase == "host":
                 line = {"host_training": host_training_phase(torch, fa, pe,
                                                              root)}
+            elif args.phase == "rowservice":
+                line = {"rowservice": rowservice_phase(torch, fa, pe, root,
+                                                       timed=True)}
             elif args.phase == "vision":
                 line = {"vision": vision_phase(torch, fa, pe, root)}
             else:
@@ -4653,7 +5217,16 @@ def main(argv=None) -> int:
         vision = vision_phase(torch, fa, pe, root)
         tabular = tabular_phase(torch, fa, pe, root)
         checkpoint = checkpoint_phase(torch, fa, pe, root)
-        worker = worker_phase(torch, fa, pe, root)
+        # The row service's main boots in a subprocess while the worker
+        # phase runs.
+        row_service = rowservice_start(root)
+        try:
+            worker = worker_phase(torch, fa, pe, root)
+        except BaseException:
+            stop_service(row_service["proc"], row_service["log"])
+            raise
+        rowservice = rowservice_phase(torch, fa, pe, root,
+                                      service=row_service)
     fused = fused_path_phase(torch, pe)
     sweep, sweep_counts = sweep_phase(torch, pe)
     emb_times = embedding_times(torch, pe)
@@ -4684,6 +5257,13 @@ def main(argv=None) -> int:
             "in_process": worker["in_process"]["launches_worker"][
                 row["name"]],
             "failed_task": worker["failed_task"]["launches"][row["name"]]}
+        row["launches_rowservice"] = {
+            "one_shard": rowservice["one_shard"]["launches_service"][
+                row["name"]],
+            "in_process": rowservice["one_shard"]["launches_in_process"][
+                row["name"]],
+            "two_shards": rowservice["two_shards"]["launches"][row["name"]],
+            "shared": rowservice["subprocess"]["launches"][row["name"]]}
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"sparse_training": sparse}))
@@ -4693,6 +5273,7 @@ def main(argv=None) -> int:
     print(json.dumps({"tabular": tabular}))
     print(json.dumps({"checkpoint": checkpoint}))
     print(json.dumps({"worker": worker}))
+    print(json.dumps({"rowservice": rowservice}))
     print(json.dumps({"kernels": [kernel, chunk_row] + bwd_rows
                       + emb_rows}))
     print(json.dumps({"ok": True, "device": {

@@ -182,12 +182,14 @@ def add_task_plane_params(parser):
                         help="Concurrent master handlers before "
                              "priority shedding; 0 (default) = off")
     parser.add_argument("--usage_max_jobs", type=non_neg_int, default=0)
-    # Not ported yet: each raises when asked for (master/main.py,
-    # worker/main.py).
+    parser.add_argument("--row_service_addr", default="",
+                        help="Host-tier models: address (or comma list "
+                             "of shard addresses) of the shared row "
+                             "service (embedding/row_service.py); "
+                             "needed with --num_workers > 1")
+    # Not ported yet: each raises when asked for (master/main.py).
     parser.add_argument("--image_name", default="",
                         help="k8s: not ported yet")
-    parser.add_argument("--row_service_addr", default="",
-                        help="The row service: not ported yet")
     parser.add_argument("--journal_dir", default="",
                         help="The master's journal: not ported yet")
     add_bool_param(parser, "--standby", False,

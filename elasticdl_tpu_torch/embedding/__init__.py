@@ -1,8 +1,9 @@
 """The sparse embedding plane of the port: ragged ids and combiners,
 the row optimizers, the ``Embedding`` layer, the single-device
 ``DeviceSparseRunner`` (device tier) and the host tier (lazy host
-tables, ``HostEmbeddingEngine``, ``HostStepRunner``). The row service
-waits for the worker's slice."""
+tables, ``HostEmbeddingEngine``, ``HostStepRunner``), and the row
+service that shares the host tier across worker processes
+(``HostRowService``, ``make_remote_engine``)."""
 
 from elasticdl_tpu_torch.embedding.combiner import (  # noqa: F401
     COMBINERS,
@@ -53,6 +54,10 @@ from elasticdl_tpu_torch.embedding.partition import (  # noqa: F401
     DEFAULT_PARTITION_THRESHOLD_BYTES,
     embedding_partition_rule,
     partition_specs,
+)
+from elasticdl_tpu_torch.embedding.row_service import (  # noqa: F401
+    HostRowService,
+    make_remote_engine,
 )
 from elasticdl_tpu_torch.embedding.table import (  # noqa: F401
     EmbeddingTable,

@@ -29,9 +29,16 @@ read a shared id one apply behind (the reference's asynchronous
 parameter-server window); ``async_apply=False`` applies inside the step
 and is exact.
 
-The JAX engine's telemetry (histograms, counters, tracing spans) waits
-for the port of ``observability/``; the remote engine (a row service
-over RPC) for the port of the worker.
+The remote engine is ``embedding/row_service.make_remote_engine``: its
+tables pull rows from a shared row service over RPC and its optimizer
+pushes the row gradients back. Both declare ``concurrent_safe``, so
+pulls and pushes skip the engine lock and a multi-table batch fans its
+tables out on a pool; ``HostStepRunner.host_tables`` is None on it,
+because the service checkpoints its own rows.
+
+The JAX engine's telemetry (its lookup, pull, pad and update histograms
+and its dedup spans) is not ported yet (ROADMAP Queue 1, item 8): a
+``metrics_registry`` raises.
 """
 
 import queue
@@ -227,14 +234,25 @@ class HostEmbeddingEngine:
     ``id_keys``:   {table_name: feature_key}: the feature carrying each
                    table's raw ids; ``prepare_batch`` replaces it with
                    the inverse map.
+
+    Over concurrent-safe stores (the row service) a multi-table batch
+    pulls and applies its tables on a pool, so it pays the slowest
+    table, not their sum; other stores take the serial loop.
     """
 
-    def __init__(self, tables: Dict, optimizer, id_keys: Dict[str, str]):
+    def __init__(self, tables: Dict, optimizer, id_keys: Dict[str, str],
+                 metrics_registry=None):
+        if metrics_registry is not None:
+            raise NotImplementedError(
+                "metrics_registry: the host engine's telemetry is not "
+                "ported yet (ROADMAP Queue 1, item 8)")
         # Serialises host-side table access: neither the dict table nor
         # the C++ open-addressing map (which rehashes on growth) is safe
         # under concurrent mutation, and the applier thread writes while
         # the caller pulls. Stores that are safe under concurrent IO
-        # declare ``concurrent_safe = True`` and skip the lock.
+        # (the row service's tables, whose server serialises row access)
+        # declare ``concurrent_safe = True`` and skip the lock, so a
+        # pull-ahead pull can be in flight while the applier pushes.
         self.lock = threading.RLock()
         self.concurrent_io = (
             all(getattr(t, "concurrent_safe", False)
@@ -255,8 +273,14 @@ class HostEmbeddingEngine:
         self.tables = tables
         self.optimizer = optimizer
         self.id_keys = id_keys
+        # Set by make_remote_engine: the service owns the rows'
+        # checkpoints (HostStepRunner.host_tables is None).
+        self.remote = False
         # Per-table fan-out pool (lazy; only for multi-table engines over
         # concurrent-safe stores): a batch pays max(table pull), not sum.
+        # It is distinct from the sharded client's pool: a table task
+        # waiting on its own shard sub-tasks in one bounded pool could
+        # deadlock it.
         self._table_pool = None
         self._table_pool_lock = threading.Lock()
 
@@ -534,7 +558,10 @@ class HostStepRunner:
         """Everything a checkpoint must carry: the main tables plus the
         row optimizer's slot tables and per-table step counters, each
         behind a view that drains pending applies and takes the engine's
-        lock."""
+        lock. None for a remote engine: the row service checkpoints its
+        rows, as the reference's parameter server did."""
+        if self.engine.remote:
+            return None
         return locked_checkpoint_tables(
             self.engine.tables, self.engine.optimizer, self.engine.lock,
             flush=self.flush,

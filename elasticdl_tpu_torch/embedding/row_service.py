@@ -1,0 +1,1513 @@
+"""Shared row service: the host tier served over RPC (port of
+elasticdl_tpu/embedding/row_service.py).
+
+The one parameter-server role a single process cannot absorb: several
+worker processes training one table larger than the card need a shared
+row plane. The reference serves it with the Pserver gRPC service
+(``pull_embedding_vectors`` / ``push_gradients``); here the same
+contract rides the framework's msgpack RPC (``comm/rpc.py``), with the
+JAX package's wire fields, so a port client trains against a JAX
+service and the reverse:
+
+- **Server** (``HostRowService``): owns the tables (Python or C++ row
+  store, in host RAM; the service touches no CUDA) and the row
+  optimizer; applies pushed gradients under a lock (asynchronous
+  parameter-server semantics: concurrent workers interleave), drops a
+  retried push by its ``(client, seq)``, checkpoints rows, optimizer
+  slots, step counters and the seq map every N pushes through the
+  port's ``CheckpointSaver``, and restores the newest version at start.
+- **Client** (``make_remote_engine``): a ``HostEmbeddingEngine`` whose
+  tables pull rows over RPC and whose optimizer pushes the gradients
+  back. ``HostStepRunner`` works unchanged on top of it; its
+  ``host_tables`` is None (the service checkpoints its rows).
+
+Placement is a versioned ``ShardMap`` (``embedding/shard_map.py``)
+that the client routes through and the server enforces: a pull or push
+for buckets a shard does not own under its installed map returns a
+retryable REDIRECT carrying the newer map. One address is a one-shard
+map; a comma list bootstraps an even split of the bucket space.
+
+Not ported yet (ROADMAP Queue 1, item 8): live range migration
+(``migrate_out``, ``begin_ingest``/``end_ingest``/``ingest_rows``/
+``ingest_steps``), hot-row read replicas (``pull_replica_rows``,
+``replica_refresh``, hot-id tracking), ``shard_stats``, the hot/cold
+tiers, the write-ahead push log and the chaos hooks. Their handlers
+stay registered and answer with an error that names item 8; their
+flags of ``main`` raise.
+"""
+
+import itertools
+import threading
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+
+from elasticdl_tpu_torch.comm import deadline as wl_deadline
+from elasticdl_tpu_torch.comm import overload as wl_overload
+from elasticdl_tpu_torch.comm.rpc import (
+    EXPIRED_DETAIL,
+    InvalidRequest,
+    RpcError,
+    RpcServer,
+    RpcStub,
+    decorrelated_jitter,
+)
+from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.embedding.host_engine import HostEmbeddingEngine
+from elasticdl_tpu_torch.embedding.shard_map import (
+    ClientShardMap,
+    ShardMap,
+)
+from elasticdl_tpu_torch.embedding.table import get_slot_table_name
+from elasticdl_tpu_torch.observability import principal as wl_principal
+from elasticdl_tpu_torch.observability import tracing
+from elasticdl_tpu_torch.observability import usage as wl_usage
+
+logger = get_logger("row_service")
+
+SERVICE_NAME = "RowService"
+SEQS_TABLE_NAME = "__row_service_seqs__"
+_ITEM_8 = "is not ported yet (ROADMAP Queue 1, item 8)"
+
+
+def _all_ids(table) -> np.ndarray:
+    """Every materialised row id of a table-like, without reading row
+    bytes where the store can avoid it (the fallback pays a full
+    ``to_arrays``)."""
+    fn = getattr(table, "all_ids", None)
+    if fn is not None:
+        return np.asarray(fn(), np.int64)
+    return np.asarray(table.to_arrays()[0], np.int64)
+
+
+def _client_key(client: str) -> int:
+    """Stable 63-bit key for a client id string (blake2b, as the JAX
+    service keys it, so both packages' seq tables hold the same ids)."""
+    import hashlib
+
+    return int.from_bytes(
+        hashlib.blake2b(client.encode("utf-8"), digest_size=8).digest(),
+        "big",
+    ) >> 1
+
+
+class _SeqTable:
+    """Checkpoint adapter persisting the push-dedup map ({client key:
+    last applied seq}) as a dim-1 table: a relaunch restores the map
+    with the rows it belongs to, so a push applied just before the
+    checkpoint and retried after the relaunch is not applied twice."""
+
+    dim = 1
+
+    def __init__(self, service: "HostRowService"):
+        self._service = service
+
+    def to_arrays(self):
+        items = sorted(self._service._applied_seq.items())
+        ids = np.array([k for k, _ in items], np.int64)
+        rows = np.array(
+            [[v] for _, v in items], np.float64
+        ).reshape(-1, 1)
+        return ids, rows
+
+    def set(self, ids, values):
+        values = np.asarray(values).reshape(len(list(ids)), -1)
+        for key, row in zip(ids, values):
+            self._service._applied_seq[int(key)] = int(round(float(row[0])))
+
+
+def _clone_empty(table):
+    """A fresh table of the same type and configuration: its lazy init
+    for untouched ids matches the live table's exactly."""
+    return type(table)(
+        table.name,
+        table.dim,
+        initializer=getattr(table, "initializer", "uniform"),
+        is_slot=getattr(table, "is_slot", False),
+        slot_init_value=getattr(table, "slot_init_value", 0.0),
+        dtype=getattr(table, "dtype", np.float32),
+    )
+
+
+class HostRowService:
+    """Server side of the shared host tier.
+
+    ``checkpoint_dir``/``checkpoint_steps``: save rows + optimizer state
+    every N gradient pushes (the reference parameter server checkpoints
+    inside ``push_gradients`` every checkpoint_steps versions); the push
+    count is the service's version. At start the newest valid version
+    is restored, so a relaunched service resumes without loss.
+    """
+
+    def __init__(self, tables: Dict, optimizer, checkpoint_dir: str = "",
+                 checkpoint_steps: int = 0, keep_max: int = 3,
+                 metrics_registry=None):
+        self._tables = tables
+        self._optimizer = optimizer
+        from elasticdl_tpu_torch.observability import default_registry
+
+        registry = metrics_registry or default_registry()
+        # Slow pulls and pushes stamp their span's trace id onto the
+        # observation, so a latency breach names concrete traces.
+        self._m_pull = registry.histogram(
+            "row_service_pull_seconds", "pull_rows handler latency",
+            exemplars=True,
+        )
+        self._m_push = registry.histogram(
+            "row_service_push_seconds", "push_row_grads handler latency",
+            exemplars=True,
+        )
+        self._m_pulled = registry.counter(
+            "row_service_pulled_rows_total", "Rows served to pulls",
+        )
+        self._m_pushed = registry.counter(
+            "row_service_pushed_rows_total",
+            "Row gradients applied from pushes",
+        )
+        self._m_dup = registry.counter(
+            "row_service_duplicate_pushes_total",
+            "Retried pushes dropped by (client, seq) dedup",
+        )
+        self._m_stall = registry.histogram(
+            "checkpoint_stall_seconds",
+            "Step/push-path time spent capturing + enqueuing a "
+            "checkpoint (the part the hot path actually waits on)",
+            exemplars=True,
+        )
+        self._m_map_version = registry.gauge(
+            "row_shard_map_version",
+            "Installed shard-map epoch (0 = static legacy topology)",
+        )
+        self._m_redirects = registry.counter(
+            "row_redirects_total",
+            "Pulls/pushes redirected because this shard does not own "
+            "their buckets under the installed map",
+        )
+        self._lock = threading.RLock()
+        # Placement (mutated under self._lock): the installed map and
+        # this shard's index in it. The JAX service's write fences come
+        # with live migration, which alone sets them (item 8).
+        self._shard_map: Optional[ShardMap] = None
+        self._shard_id = 0
+        self._server: Optional[RpcServer] = None
+        self._push_count = 0
+        # Per-table update counters, bumped under the lock on every
+        # APPLIED push (duplicates changed nothing): the serving cache's
+        # invalidation probe (``table_versions``). Not persisted: a
+        # restarted service reports 0 again, which a cache comparing by
+        # != reads as "changed".
+        self._table_versions: Dict[str, int] = {
+            name: 0 for name in tables
+        }
+        # Wall-clock stamp of the last applied push per table (pulls
+        # return it; readers in other processes turn it into row
+        # freshness, so it is wall clock, not monotonic).
+        self._applied_at: Dict[str, float] = {}
+        self._checkpoint_steps = 0
+        self._saver = None
+        self._ckpt_writer = None
+        self._ckpt_planner = None
+        # Serialises plan/capture/submit: two pushes at consecutive
+        # checkpoint versions must not interleave in the planner, or two
+        # deltas name the same prev and the chain walk drops the second.
+        # An overlapping interval trigger skips; the drain path waits.
+        self._ckpt_trigger = threading.Lock()
+        # Push dedup: {client key: last applied seq}, persisted with the
+        # checkpoint (_SeqTable).
+        self._applied_seq: Dict[int, int] = {}
+        if checkpoint_dir:
+            self.configure_checkpoint(
+                checkpoint_dir, checkpoint_steps, keep_max
+            )
+
+    # ---- RPC handlers --------------------------------------------------
+
+    def handlers(self):
+        return {
+            "table_info": self._table_info,
+            "table_versions": self._table_versions_handler,
+            "pull_rows": self._pull_rows,
+            "push_row_grads": self._push_row_grads,
+            "export_rows": self._export_rows,
+            "get_shard_map": self._get_shard_map,
+            "set_shard_map": self._set_shard_map,
+            "shard_stats": self._not_ported("shard_stats"),
+            "migrate_out": self._not_ported("migrate_out"),
+            "begin_ingest": self._not_ported("begin_ingest"),
+            "end_ingest": self._not_ported("end_ingest"),
+            "ingest_rows": self._not_ported("ingest_rows"),
+            "ingest_steps": self._not_ported("ingest_steps"),
+            "pull_replica_rows": self._not_ported("pull_replica_rows"),
+            "replica_refresh": self._not_ported("replica_refresh"),
+        }
+
+    @staticmethod
+    def _not_ported(method: str) -> Callable[[dict], dict]:
+        def handler(request: dict) -> dict:
+            raise NotImplementedError(f"RowService.{method} {_ITEM_8}")
+
+        return handler
+
+    def _table_info(self, request: dict) -> dict:
+        return {
+            "tables": {
+                name: {"dim": int(table.dim)}
+                for name, table in self._tables.items()
+            }
+        }
+
+    def _table_versions_handler(self, request: dict) -> dict:
+        """Per-table update counters and last-apply stamps: one small
+        reply, far cheaper for a cache to poll than re-pulling rows."""
+        with self._lock:
+            return {"versions": dict(self._table_versions),
+                    "applied_at": dict(self._applied_at)}
+
+    # ---- request validation --------------------------------------------
+    #
+    # The native apply kernels trust the (n_ids, dim) shape they are
+    # handed: a wrong-dim or wrong-count grad block would read past the
+    # arena and kill the process. Every inbound block is validated
+    # before it can reach an apply; InvalidRequest surfaces as
+    # INVALID_ARGUMENT to the client.
+
+    def _validated_table(self, request: dict):
+        name = request.get("table")
+        table = self._tables.get(name) if isinstance(name, str) else None
+        if table is None:
+            raise InvalidRequest(
+                f"unknown table {name!r} (serving "
+                f"{sorted(self._tables)})"
+            )
+        return name, table
+
+    @staticmethod
+    def _validated_ids(request: dict) -> np.ndarray:
+        raw = request.get("ids")
+        if raw is None:
+            raise InvalidRequest("ids missing")
+        try:
+            ids = np.asarray(raw, np.int64)
+        except (ValueError, TypeError, OverflowError) as exc:
+            raise InvalidRequest(f"ids not an int64 vector: {exc}")
+        if ids.ndim != 1:
+            raise InvalidRequest(
+                f"ids must be 1-D, got shape {ids.shape}"
+            )
+        return ids
+
+    @staticmethod
+    def _validated_grads(request: dict, ids: np.ndarray, table,
+                         table_name: str) -> np.ndarray:
+        if np.unique(ids).size != ids.size:
+            # One update per id: the native path would silently apply
+            # a repeated id twice.
+            raise InvalidRequest("ids must be unique per push")
+        raw = request.get("grads")
+        if raw is None:
+            raise InvalidRequest("grads missing")
+        try:
+            grads = np.asarray(raw, np.float32)
+        except (ValueError, TypeError) as exc:
+            raise InvalidRequest(f"grads not a float32 block: {exc}")
+        if grads.ndim != 2:
+            raise InvalidRequest(
+                f"grads must be 2-D (n_ids, dim), got shape "
+                f"{grads.shape}"
+            )
+        expected = (int(ids.size), int(table.dim))
+        if tuple(grads.shape) != expected:
+            raise InvalidRequest(
+                f"grads shape {tuple(grads.shape)} != "
+                f"(len(ids), dim) = {expected} for table "
+                f"{table_name!r}"
+            )
+        return grads
+
+    def _pull_rows(self, request: dict) -> dict:
+        t0 = time.monotonic()
+        who = wl_principal.current()
+        table_name, table = self._validated_table(request)
+        ids = self._validated_ids(request)
+        # Nests under the RPC server span, so lock wait + store time is
+        # told apart from wire time; kept by name past its exit for the
+        # latency exemplar below.
+        pull_span = tracing.span("row_pull", table=table_name,
+                                 rows=int(ids.size),
+                                 **wl_principal.span_attrs(who))
+        with pull_span:
+            # Explicit acquire/release: the lock-hold meter counts from
+            # acquisition, not from the wait.
+            self._lock.acquire()
+            hold_t0 = time.monotonic()
+            try:
+                reject = self._reshard_reject_locked(ids)
+                if reject is not None:
+                    return reject
+                rows = table.get(ids)
+                applied_at = self._applied_at.get(table_name, 0.0)
+                map_version = 0
+                if self._shard_map is not None:
+                    map_version = self._shard_map.version
+            finally:
+                self._lock.release()
+                wl_usage.meter_lock_hold(
+                    who, time.monotonic() - hold_t0
+                )
+        rows = np.asarray(rows, np.float32)
+        self._m_pulled.inc(ids.size)
+        wl_usage.meter_rows(who, "pull_rows", rows=int(ids.size),
+                            nbytes=int(rows.nbytes))
+        self._m_pull.observe(time.monotonic() - t0,
+                             trace_id=pull_span.trace_id)
+        # applied_at rides every pull (0.0 = never pushed), and so does
+        # the installed map's version (0 = none), which tells a client
+        # about an epoch that moved no row of its own.
+        return {"rows": rows,
+                "applied_at": applied_at,
+                "map_version": map_version}
+
+    def _export_rows(self, request: dict) -> dict:
+        """Dense rows for a serving export without inflating the live
+        table: trained rows overlay a throwaway table's lazy init.
+        ``ids`` (map-routed export, what the port's client sends) asks
+        for exactly the ids this shard owns, and redirects like a pull;
+        else the range ``lo+offset, lo+offset+stride, ... < hi`` (the
+        request of the JAX ``_RemoteTable.export_range``)."""
+        table = self._tables[request["table"]]
+        if "ids" in request:
+            want = np.asarray(request["ids"], np.int64)
+            with self._lock:
+                reject = self._reshard_reject_locked(want)
+                if reject is not None:
+                    return reject
+                ids, rows = table.to_arrays()
+            dense = np.asarray(_clone_empty(table).get(want))
+            pos = {int(i): k for k, i in enumerate(want.tolist())}
+            for i, row in zip(ids.tolist(), rows):
+                at = pos.get(int(i))
+                if at is not None:
+                    dense[at] = row
+            return {"rows": dense.astype(np.float32)}
+        lo, hi = int(request["lo"]), int(request["hi"])
+        stride = int(request.get("stride", 1))
+        offset = int(request.get("offset", 0))
+        want = np.arange(lo + offset, hi, stride)
+        with self._lock:
+            ids, rows = table.to_arrays()
+        dense = np.asarray(_clone_empty(table).get(want))
+        keep = (ids >= lo + offset) & (ids < hi)
+        if stride != 1:
+            keep &= (ids - lo - offset) % stride == 0
+        dense[(ids[keep] - lo - offset) // stride] = rows[keep]
+        return {"rows": dense.astype(np.float32)}
+
+    def _push_row_grads(self, request: dict) -> dict:
+        """validate → reject → drop a duplicate (client, seq)
+        → apply → bump the table's version and applied_at → record the
+        seq (only after a successful apply) → at every
+        ``checkpoint_steps`` push, an interval checkpoint."""
+        t0 = time.monotonic()
+        who = wl_principal.current()
+        table_name, table = self._validated_table(request)
+        client = request.get("client", "")
+        seq = int(request.get("seq", -1))
+        ids = self._validated_ids(request)
+        # Shape-gate the grad block before any lock or apply.
+        grads = self._validated_grads(request, ids, table, table_name)
+        push_span = tracing.span("row_push", table=table_name,
+                                 rows=int(ids.size),
+                                 **wl_principal.span_attrs(who))
+        with push_span:
+            duplicate = False
+            self._lock.acquire()
+            hold_t0 = time.monotonic()
+            try:
+                # Ownership check before any mutation: a redirected
+                # push applies nothing, so the client's retry is the
+                # first and only apply.
+                reject = self._reshard_reject_locked(ids)
+                if reject is not None:
+                    return reject
+                if client and seq >= 0:
+                    key = _client_key(client)
+                    if seq <= self._applied_seq.get(key, -1):
+                        # A retry whose first attempt applied before its
+                        # reply was lost.
+                        self._m_dup.inc()
+                        duplicate = True
+                if not duplicate:
+                    self._optimizer.apply_gradients(table, ids, grads)
+                    self._table_versions[table_name] += 1
+                    self._applied_at[table_name] = time.time()
+                    if client and seq >= 0:
+                        # Only after the apply succeeded: a failed apply
+                        # leaves the seq unburned, so the retry applies.
+                        self._applied_seq[_client_key(client)] = seq
+                    self._push_count += 1
+                    version = self._push_count
+            finally:
+                self._lock.release()
+                wl_usage.meter_lock_hold(
+                    who, time.monotonic() - hold_t0
+                )
+            if duplicate:
+                return {"duplicate": True}
+        self._m_pushed.inc(ids.size)
+        wl_usage.meter_rows(who, "push_row_grads", rows=int(ids.size),
+                            nbytes=int(grads.nbytes))
+        self._m_push.observe(time.monotonic() - t0,
+                             trace_id=push_span.trace_id)
+        if (
+            self._saver is not None and self._checkpoint_steps
+            and version % self._checkpoint_steps == 0
+        ):
+            self._checkpoint(version)
+        m = self._shard_map
+        return {"map_version": m.version if m is not None else 0}
+
+    # ---- shard map: enforcement ----------------------------------------
+
+    def _reshard_reject_locked(self, ids: np.ndarray) -> Optional[dict]:
+        """REDIRECT verdict for ids this shard does not own under the
+        installed map (None: all owned, or no map installed). The
+        carried map is how a stale client converges."""
+        m = self._shard_map
+        if m is None:
+            return None
+        if m.owns(self._shard_id, ids).all():
+            return None
+        self._m_redirects.inc()
+        return {"reshard": {"reason": "not_owner", "map": m.to_json()}}
+
+    # ---- shard map: install --------------------------------------------
+
+    def install_shard_map(self, shard_map: ShardMap, shard_id: int):
+        """In-process map install (the RPC handler's body)."""
+        return self._set_shard_map({
+            "map": shard_map.to_json(), "shard_id": int(shard_id),
+        })
+
+    def _get_shard_map(self, request: dict) -> dict:
+        with self._lock:
+            m = self._shard_map
+            return {
+                "map": m.to_json() if m is not None else None,
+                "shard_id": self._shard_id,
+            }
+
+    def _set_shard_map(self, request: dict) -> dict:
+        """Install a newer map epoch (idempotent at the same version;
+        an older one is refused: the monotonic version is the fence).
+        A new epoch erases the rows this shard no longer owns."""
+        fresh = ShardMap.from_json(request["map"])
+        shard_id = int(request.get("shard_id", -1))
+        with self._lock:
+            cur = self._shard_map
+            if cur is not None and fresh.version < cur.version:
+                return {"accepted": False, "version": cur.version}
+            if shard_id >= 0:
+                self._shard_id = shard_id
+            already = cur is not None and fresh.version == cur.version
+            self._shard_map = fresh
+            self._m_map_version.set(float(fresh.version))
+            erased = 0
+            if not already:
+                erased = self._erase_unowned_locked()
+        return {"accepted": True, "version": fresh.version,
+                "erased_rows": erased}
+
+    def _erase_unowned_locked(self) -> int:
+        """Drop rows (and their optimizer slots) whose bucket this shard
+        no longer owns: every row has one home."""
+        m = self._shard_map
+        if m is None:
+            return 0
+        erased = 0
+        for group in self._migration_views().values():
+            for table in group.values():
+                ids = _all_ids(table)
+                if not ids.size:
+                    continue
+                drop = m.home_of_ids(ids) != self._shard_id
+                if drop.any():
+                    erased += int(table.erase(ids[drop]))
+        return erased
+
+    def _migration_views(self) -> Dict[str, Dict[str, object]]:
+        """{primary table: {view name: raw table}}: each table with its
+        optimizer slot tables, which move (and are erased) in lockstep.
+        Step counters and the seq map are this process's bookkeeping,
+        not row state."""
+        out = {}
+        for name, table in self._tables.items():
+            group = {name: table}
+            for slot in getattr(self._optimizer.opt, "slot_names", ()):
+                group[get_slot_table_name(name, slot)] = (
+                    self._optimizer._slot_table(table, slot)
+                )
+            out[name] = group
+        return out
+
+    # ---- checkpoint ----------------------------------------------------
+
+    def configure_checkpoint(self, checkpoint_dir: str,
+                             checkpoint_steps: int = 0, keep_max: int = 3,
+                             delta_chain_max: int = 8,
+                             async_write: bool = True):
+        """Attach (or re-point) the checkpoint saver and restore the
+        newest valid version (chain-aware).
+
+        ``delta_chain_max`` > 0: interval saves write deltas (the rows
+        and slots dirtied since the previous save), with a periodic full
+        base. ``async_write``: the push handler pays only the capture
+        and an enqueue; serialisation and IO run on the bounded
+        background writer (``CheckpointWriter``)."""
+        from elasticdl_tpu_torch.checkpoint.saver import (
+            ChainPlanner,
+            CheckpointSaver,
+        )
+        from elasticdl_tpu_torch.checkpoint.writer import CheckpointWriter
+
+        if self._ckpt_writer is not None:
+            # Land (and surface) anything queued on the old writer.
+            self._ckpt_writer.close()
+        self._saver = CheckpointSaver(
+            checkpoint_dir, keep_max=keep_max,
+            delta_chain_max=delta_chain_max,
+        )
+        self._ckpt_writer = CheckpointWriter(
+            max_pending=1, sync=not async_write
+        )
+        self._ckpt_planner = ChainPlanner(delta_chain_max)
+        self._checkpoint_steps = int(checkpoint_steps)
+        for view in self.host_tables.values():
+            # Dirty tracking on now that a consumer drains it (tables
+            # start with it off: the set would grow without bound on a
+            # service that never checkpoints).
+            enable = getattr(view, "enable_dirty_tracking", None)
+            if enable is not None:
+                enable()
+        self._restore_latest()
+        return self
+
+    def _checkpoint(self, version: int, blocking: bool = False) -> bool:
+        """Capture under ONE lock acquisition (rows, slots, step
+        counters and the seq map at the same version), then hand the
+        write to the background writer. An interval trigger that finds
+        the writer busy skips (its rows stay dirty and ride the next
+        save); the drain path (``checkpoint_now``) waits for its turn.
+        Returns whether a write was enqueued."""
+        if not self._ckpt_trigger.acquire(blocking=blocking):
+            return False
+        try:
+            # Checkpoint work, not the triggering push's.
+            with wl_principal.pushed(purpose="checkpoint"):
+                return self._checkpoint_locked(version, blocking)
+        finally:
+            self._ckpt_trigger.release()
+
+    def _checkpoint_locked(self, version: int, blocking: bool) -> bool:
+        if not blocking and self._ckpt_writer.busy:
+            return False
+        from elasticdl_tpu_torch.checkpoint.saver import (
+            CorruptCheckpointError,
+            capture_tables,
+            remark_dirty,
+        )
+
+        t0 = time.monotonic()
+        plan, base, prev = self._ckpt_planner.plan(version)
+        with self._lock:
+            # The shard map snapshots with the rows: a restored shard
+            # comes back owning exactly the rows the checkpoint holds.
+            captured, dirty_ids = capture_tables(
+                self.host_tables, delta=plan == "delta"
+            )
+            meta = {}
+            if self._shard_map is not None:
+                meta = {
+                    "shard_map": self._shard_map.to_json(),
+                    "shard_id": self._shard_id,
+                }
+
+        def remark():
+            remark_dirty(self.host_tables, dirty_ids)
+
+        def write():
+            try:
+                if plan == "delta":
+                    if not self._saver.element_exists(prev):
+                        # The predecessor's write failed ahead of us: a
+                        # delta on it could not be restored.
+                        raise CorruptCheckpointError(
+                            f"delta {version}: predecessor {prev} "
+                            "never became durable; restarting chain"
+                        )
+                    self._saver.save_delta(
+                        version, {}, captured, base, prev, meta=meta
+                    )
+                else:
+                    self._saver.save(
+                        version, {}, embeddings=captured, meta=meta
+                    )
+            except BaseException:
+                # Put the drained rows back and restart the chain from a
+                # fresh base.
+                remark()
+                self._ckpt_planner.reset()
+                raise
+
+        def write_tagged():
+            with wl_principal.pushed(purpose="checkpoint"):
+                write()
+
+        try:
+            ok = self._ckpt_writer.submit(
+                write_tagged, label=f"rows-v{version}-{plan}",
+                block=blocking
+            )
+        except RuntimeError:
+            # The writer closed under us (stop() racing a push across an
+            # interval): the push applied; skip the save.
+            ok = False
+        if not ok:
+            remark()
+            self._ckpt_planner.reset()
+        self._m_stall.observe(time.monotonic() - t0)
+        return ok
+
+    def checkpoint_now(self) -> bool:
+        """A durable checkpoint at the current push count (the SIGTERM
+        drain): waits for its writer turn and flushes before returning.
+        False when no saver is configured."""
+        if self._saver is None:
+            return False
+        # Land queued writes first: the disk's tip lags the queue.
+        self._ckpt_writer.flush()
+        with self._lock:
+            version = self._push_count
+        if self._saver.get_valid_latest_version() == version:
+            return True
+        ok = self._checkpoint(version, blocking=True)
+        self._ckpt_writer.flush()
+        return ok
+
+    def _restore_latest(self):
+        try:
+            version, _, embeddings = self._saver.restore()
+        except FileNotFoundError:
+            return
+        targets = self.host_tables
+        missing = [n for n in targets if n not in embeddings]
+        if missing:
+            raise ValueError(
+                "row-service checkpoint lacks payload for "
+                f"{sorted(missing)}; different optimizer or tables?"
+            )
+        for name, view in targets.items():
+            ids, rows = embeddings[name].to_arrays()
+            if ids.size:
+                view.set(ids, rows)
+            if getattr(view, "supports_dirty_rows", False):
+                # The disk already holds the restored rows.
+                view.clear_dirty()
+        self._push_count = int(version)
+        # The map rides the checkpoint meta: a relaunched shard routes
+        # and enforces the epoch it was saved under.
+        map_json = self._saver.last_restored_meta.get("shard_map")
+        if map_json and self._shard_map is None:
+            self._shard_map = ShardMap.from_json(map_json)
+            self._shard_id = int(
+                self._saver.last_restored_meta.get("shard_id", 0))
+            self._m_map_version.set(float(self._shard_map.version))
+        logger.info(
+            "Row service restored version %d (%d tables)",
+            version, len(targets),
+        )
+
+    # ---- lifecycle -----------------------------------------------------
+
+    def start(self, addr: str = "localhost:0",
+              tag: str = "", max_workers: int = 64,
+              admission_limit: int = 0) -> "HostRowService":
+        """``tag`` names this shard to chaos fault plans
+        (``rowservice/0``); ``max_workers`` bounds handler concurrency;
+        ``admission_limit`` > 0 installs priority admission control
+        (``comm/overload.py``) in front of every handler."""
+        admission = None
+        if admission_limit > 0:
+            admission = wl_overload.AdmissionController(
+                admission_limit, tag=tag or SERVICE_NAME,
+            )
+        self._server = RpcServer(
+            addr, {SERVICE_NAME: self.handlers()}, tag=tag,
+            max_workers=max_workers, admission=admission,
+        ).start()
+        logger.info("Row service on port %d", self._server.port)
+        return self
+
+    @property
+    def port(self) -> int:
+        return self._server.port
+
+    def stop(self, grace: Optional[float] = None):
+        if self._server is not None:
+            # Drain in-flight handlers before closing the writer: a push
+            # crossing an interval must not meet a closed writer.
+            ev = self._server.stop(grace)
+            if ev is not None:
+                ev.wait((grace or 0) + 30.0)
+        if self._ckpt_writer is not None:
+            try:
+                self._ckpt_writer.close()
+            except BaseException as exc:
+                logger.error(
+                    "checkpoint flush on stop failed: %s", exc
+                )
+
+    def wait(self):
+        """Block until the server stops (process-main lifetime)."""
+        self._server.wait()
+
+    @property
+    def host_tables(self) -> Dict:
+        """Rows + optimizer slots + step counters + the push-dedup map,
+        lock-guarded: what the service's checkpoints carry."""
+        from elasticdl_tpu_torch.embedding.host_engine import (
+            _LockedTable,
+            locked_checkpoint_tables,
+        )
+
+        out = locked_checkpoint_tables(
+            self._tables, self._optimizer, self._lock
+        )
+        out[SEQS_TABLE_NAME] = _LockedTable(_SeqTable(self), self._lock)
+        return out
+
+
+# CANCELLED is transient too: a GOAWAY during service shutdown cancels
+# calls in flight, and every method here is safe to retry (pulls are
+# idempotent; pushes dedup by (client, seq)). RESOURCE_EXHAUSTED is an
+# admission shed with a retry-after hint in its detail.
+_TRANSIENT_CODES = ("UNAVAILABLE", "DEADLINE_EXCEEDED", "CANCELLED",
+                    "RESOURCE_EXHAUSTED")
+
+
+class ReshardRedirect(Exception):
+    """The shard does not own the requested buckets under its map:
+    retry against the carried (newer) map. Nothing was applied."""
+
+    def __init__(self, map_json):
+        super().__init__("row home moved (stale shard-map epoch)")
+        self.map_json = map_json
+
+
+class ReshardFenced(Exception):
+    """Writes to the range are briefly fenced (a JAX service migrating
+    it answers so): back off and retry."""
+
+
+def _check_reshard(resp: dict):
+    info = resp.get("reshard") if isinstance(resp, dict) else None
+    if not info:
+        return
+    if info.get("reason") == "fenced":
+        raise ReshardFenced()
+    raise ReshardRedirect(info.get("map"))
+
+
+def _call_with_retry(stub: RpcStub, method: str, retries: int,
+                     backoff_secs: float, **fields):
+    """Ride out a service relaunch: bounded decorrelated-jitter backoff
+    on transport codes only (INTERNAL, a handler's error, surfaces at
+    once).
+
+    Every retry spends a token of the shared ``RowService:rideout``
+    budget (``comm/overload.py``); a denied spend waits for the refill
+    rather than abandon the ride-out. A shed's retry-after hint
+    overrides the local backoff, and an expired deadline ends the
+    ride-out."""
+    delay = backoff_secs
+    budget = None
+    if wl_overload.controls_enabled():
+        budget = wl_overload.retry_budget_for("RowService:rideout")
+    for attempt in range(retries + 1):
+        try:
+            resp = stub.call(method, **fields)
+            if budget is not None:
+                budget.on_success()
+            return resp
+        except RpcError as exc:
+            if (exc.code not in _TRANSIENT_CODES
+                    or attempt == retries
+                    or EXPIRED_DETAIL in str(exc)
+                    or wl_deadline.expired()):
+                raise
+            while budget is not None and not budget.try_spend():
+                if wl_deadline.expired():
+                    raise
+                time.sleep(0.25)
+            hint = None
+            if exc.code == "RESOURCE_EXHAUSTED":
+                hint = wl_overload.parse_retry_after(str(exc))
+            sleep_for = delay if hint is None else hint
+            left = wl_deadline.remaining()
+            if left is not None:
+                sleep_for = min(sleep_for, max(left, 0.0))
+            logger.warning(
+                "row service %s failed (attempt %d/%d); retrying in %.1fs",
+                method, attempt + 1, retries, sleep_for,
+            )
+            time.sleep(sleep_for)
+            # A fresh channel per retry: a channel whose connects were
+            # refused while the service restarted can wedge for good.
+            stub.reconnect()
+            delay = decorrelated_jitter(delay, base=backoff_secs,
+                                        cap=30.0)
+
+
+class _RemoteTable:
+    """Table-like view pulling rows over RPC (writes happen on the
+    server through the optimizer's push). ``concurrent_safe``: the stub
+    is thread-safe and the server serialises row access."""
+
+    concurrent_safe = True
+
+    def __init__(self, stub: RpcStub, name: str, dim: int,
+                 retries: int = 12, backoff_secs: float = 0.5):
+        self._stub = stub
+        self.name = name
+        self.dim = dim
+        self._retries = retries
+        self._backoff = backoff_secs
+        # The service's last-apply stamp as of our newest pull.
+        self.last_applied_at = 0.0
+        # The newest map epoch piggybacked on this shard's replies.
+        self.last_map_version = 0
+
+    def get(self, ids) -> np.ndarray:
+        resp = _call_with_retry(
+            self._stub, "pull_rows", self._retries, self._backoff,
+            table=self.name, ids=np.asarray(ids, np.int64),
+        )
+        _check_reshard(resp)
+        self.last_applied_at = float(resp.get("applied_at", 0.0) or 0.0)
+        self.last_map_version = int(resp.get("map_version", 0) or 0)
+        return np.asarray(resp["rows"], np.float32)
+
+    def fetch_map(self) -> Optional[dict]:
+        return _call_with_retry(
+            self._stub, "get_shard_map", self._retries, self._backoff,
+        ).get("map")
+
+    def export_ids(self, ids) -> np.ndarray:
+        """Dense rows for explicit ids (trained rows over lazy init);
+        redirects like a pull."""
+        resp = _call_with_retry(
+            self._stub, "export_rows", self._retries, self._backoff,
+            table=self.name, ids=np.asarray(ids, np.int64),
+        )
+        _check_reshard(resp)
+        return np.asarray(resp["rows"], np.float32)
+
+    def pull_version(self) -> int:
+        """This table's update counter on the service."""
+        resp = _call_with_retry(
+            self._stub, "table_versions", self._retries, self._backoff,
+        )
+        return int(resp["versions"][self.name])
+
+
+class _RemoteOptimizer:
+    """Optimizer-like view pushing row gradients over RPC; the server
+    applies them.
+
+    Each pushing thread gets its own client id (a fresh counter, never a
+    thread ident, which is reused after a thread dies): the server drops
+    any seq <= the client's last applied, so two threads sharing one
+    stream would lose whichever concurrent push arrived second. Within a
+    thread, seqs rise, so a retried push after a lost reply dedups."""
+
+    concurrent_safe = True
+
+    def __init__(self, stub: RpcStub, retries: int = 12,
+                 backoff_secs: float = 0.5):
+        import uuid
+
+        self._stub = stub
+        self._retries = retries
+        self._backoff = backoff_secs
+        self._client_base = uuid.uuid4().hex
+        self._local = threading.local()
+        self._client_counter = itertools.count()
+        self._counter_lock = threading.Lock()
+
+    def apply_gradients(self, table, ids, grads):
+        if not hasattr(self._local, "client"):
+            with self._counter_lock:
+                n = next(self._client_counter)
+            self._local.client = f"{self._client_base}-{n}"
+            self._local.seq = 0
+        self._local.seq += 1
+        resp = _call_with_retry(
+            self._stub, "push_row_grads", self._retries, self._backoff,
+            table=table.name,
+            ids=np.asarray(ids, np.int64),
+            grads=np.asarray(grads, np.float32),
+            client=self._local.client, seq=self._local.seq,
+        )
+        # A redirected or fenced push applied nothing; the burned seq is
+        # harmless (dedup needs only monotonic seqs).
+        _check_reshard(resp)
+        return table
+
+
+_RESHARD_ATTEMPTS = 20
+_FENCE_BACKOFF_SECS = 0.02
+
+
+def _run_jobs(pool, jobs):
+    """Run job thunks, on the pool only when there is real fan-out (a
+    one-shard wave stays inline). Each job is bound to the submitting
+    thread's deadline (``comm/deadline.py``), so a wave spends one
+    budget across its shard legs."""
+    if pool is None or len(jobs) == 1:
+        for job in jobs:
+            job()
+        return
+    futures = [pool.submit(wl_deadline.bind(job)) for job in jobs]
+    for f in futures:
+        f.result()
+
+
+class _ShardRegistry:
+    """One stub / remote table / remote optimizer per shard address,
+    made lazily (a map learned from a REDIRECT can name an address the
+    engine was never given), plus the fan-out pool. Shared by every
+    table and the optimizer of one engine."""
+
+    def __init__(self, retries: int, backoff_secs: float):
+        self._retries = retries
+        self._backoff = backoff_secs
+        self._lock = threading.Lock()
+        self._stubs: Dict[str, RpcStub] = {}
+        self._tables: Dict = {}
+        self._optimizers: Dict = {}
+        self._pool = None
+
+    def stub(self, addr: str) -> RpcStub:
+        with self._lock:
+            stub = self._stubs.get(addr)
+            if stub is None:
+                # max_retries=0: _call_with_retry owns the retry budget.
+                stub = RpcStub(addr, SERVICE_NAME, max_retries=0)
+                self._stubs[addr] = stub
+            return stub
+
+    def table(self, addr: str, name: str, dim: int) -> "_RemoteTable":
+        key = (addr, name)
+        with self._lock:
+            table = self._tables.get(key)
+        if table is None:
+            table = _RemoteTable(
+                self.stub(addr), name, dim, self._retries, self._backoff,
+            )
+            with self._lock:
+                table = self._tables.setdefault(key, table)
+        return table
+
+    def tables_named(self, name: str):
+        with self._lock:
+            return [t for (_a, n), t in self._tables.items()
+                    if n == name]
+
+    def optimizer(self, addr: str) -> "_RemoteOptimizer":
+        with self._lock:
+            opt = self._optimizers.get(addr)
+        if opt is None:
+            opt = _RemoteOptimizer(
+                self.stub(addr), self._retries, self._backoff
+            )
+            with self._lock:
+                opt = self._optimizers.setdefault(addr, opt)
+        return opt
+
+    @property
+    def pool(self):
+        with self._lock:
+            if self._pool is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                self._pool = ThreadPoolExecutor(
+                    max_workers=16, thread_name_prefix="row-shard",
+                )
+            return self._pool
+
+
+def _adopt_redirect(outcome, olock, positions, exc: ReshardRedirect):
+    """Keep the newest map a wave's redirects carried, and mark the
+    redirected positions for the next wave."""
+    with olock:
+        cur = outcome["map"]
+        if cur is None or (
+            exc.map_json and exc.map_json["version"] > cur["version"]
+        ):
+            outcome["map"] = exc.map_json
+        outcome["unresolved"].extend(positions.tolist())
+
+
+class _ShardedTable:
+    """Client-side scatter/gather over the shard fleet, routed through
+    the shared ``ClientShardMap``: a row's home is the shard that owns
+    its bucket under the newest epoch this client has seen. A stale
+    epoch surfaces as a REDIRECT carrying the newer map; the holder
+    adopts it and only the unresolved ids retry."""
+
+    concurrent_safe = True
+
+    def __init__(self, name: str, dim: int, cmap: ClientShardMap,
+                 registry: _ShardRegistry):
+        self.name = name
+        self.dim = int(dim)
+        self._cmap = cmap
+        self._reg = registry
+
+    def _remote(self, m: ShardMap, shard: int) -> "_RemoteTable":
+        return self._reg.table(m.shards[shard], self.name, self.dim)
+
+    def get(self, ids) -> np.ndarray:
+        ids = np.ascontiguousarray(np.asarray(ids, np.int64).ravel())
+        out = np.empty((ids.size, self.dim), np.float32)
+        pending = np.arange(ids.size, dtype=np.intp)
+        delay = _FENCE_BACKOFF_SECS
+        for _attempt in range(_RESHARD_ATTEMPTS):
+            m = self._cmap.get()
+            if m.replicas.get(self.name):
+                raise NotImplementedError(
+                    f"hot-row replica reads for table {self.name!r} "
+                    f"(shard map v{m.version}) {_ITEM_8}")
+            home = m.home_of_ids(ids[pending])
+            outcome = {"map": None, "unresolved": [], "refresh": None}
+            olock = threading.Lock()
+            jobs = [
+                self._pull_job(m, int(s), pending[home == s], ids, out,
+                               outcome, olock)
+                for s in sorted(set(home.tolist()))
+            ]
+            _run_jobs(
+                self._reg.pool if len(jobs) > 1 else None, jobs
+            )
+            if outcome["refresh"] is not None:
+                # A shard piggybacked a newer epoch without redirecting:
+                # fetch it so the next pulls route by it.
+                try:
+                    fresh = outcome["refresh"].fetch_map()
+                    if fresh:
+                        self._cmap.update(fresh)
+                except RpcError:
+                    pass  # opportunistic; the next pull asks again
+            progressed = (outcome["map"] is not None
+                          and self._cmap.update(outcome["map"]))
+            if not outcome["unresolved"]:
+                return out
+            pending = np.asarray(sorted(outcome["unresolved"]),
+                                 np.intp)
+            if not progressed:
+                # No newer map: wait out the server's transition.
+                time.sleep(delay)
+                delay = min(delay * 2, 4.0)
+        raise RuntimeError(
+            f"row pulls for table {self.name!r} kept redirecting "
+            f"after {_RESHARD_ATTEMPTS} attempts (shard-map churn?)"
+        )
+
+    def _pull_job(self, m, shard, positions, ids, out, outcome, olock):
+        def job():
+            remote = self._remote(m, shard)
+            try:
+                out[positions] = remote.get(ids[positions])
+                if remote.last_map_version > m.version:
+                    with olock:
+                        outcome["refresh"] = remote
+            except ReshardRedirect as exc:
+                _adopt_redirect(outcome, olock, positions, exc)
+        return job
+
+    def pull_version(self) -> int:
+        """Sum of the fleet's update counters under the current map: a
+        push on any shard changes it."""
+        m = self._cmap.get()
+        return sum(
+            self._remote(m, s).pull_version()
+            for s in range(len(m.shards))
+        )
+
+    @property
+    def last_applied_at(self) -> float:
+        """The OLDEST last-apply stamp among shards that reported one
+        (the conservative freshness bound: max() would let healthy
+        shards hide one whose pushes stalled)."""
+        stamps = [
+            t.last_applied_at
+            for t in self._reg.tables_named(self.name)
+            if t.last_applied_at > 0
+        ]
+        return min(stamps) if stamps else 0.0
+
+    def export_dense(self, vocab: int, chunk: int = 65536) -> np.ndarray:
+        """Each shard exports only the ids it owns under the current map
+        (explicit-id ``export_rows``), merged here; redirects retry like
+        pulls."""
+        parts = []
+        for lo in range(0, int(vocab), chunk):
+            want = np.arange(lo, min(lo + chunk, int(vocab)),
+                             dtype=np.int64)
+            out = np.empty((want.size, self.dim), np.float32)
+            pending = np.arange(want.size, dtype=np.intp)
+            for _attempt in range(_RESHARD_ATTEMPTS):
+                m = self._cmap.get()
+                home = m.home_of_ids(want[pending])
+                outcome = {"map": None, "unresolved": []}
+                olock = threading.Lock()
+                jobs = [
+                    self._export_job(m, int(s), pending[home == s],
+                                     want, out, outcome, olock)
+                    for s in sorted(set(home.tolist()))
+                ]
+                _run_jobs(
+                    self._reg.pool if len(jobs) > 1 else None, jobs
+                )
+                if outcome["map"] is not None:
+                    self._cmap.update(outcome["map"])
+                if not outcome["unresolved"]:
+                    break
+                pending = np.asarray(sorted(outcome["unresolved"]),
+                                     np.intp)
+            else:
+                raise RuntimeError(
+                    f"export for table {self.name!r} kept redirecting"
+                )
+            parts.append(out)
+        return np.concatenate(parts, axis=0)
+
+    def _export_job(self, m, shard, positions, want, out, outcome,
+                    olock):
+        def job():
+            try:
+                out[positions] = self._remote(m, shard).export_ids(
+                    want[positions]
+                )
+            except ReshardRedirect as exc:
+                _adopt_redirect(outcome, olock, positions, exc)
+        return job
+
+
+class _ShardedOptimizer:
+    """Push scatter over the fleet, routed through the same map: each
+    shard receives only the row gradients it homes. A sub-push either
+    applies whole or is refused whole (the server checks ownership and
+    fences first), so a redirect retries only its own ids under the
+    newer map, and nothing applies twice."""
+
+    concurrent_safe = True
+
+    def __init__(self, cmap: ClientShardMap, registry: _ShardRegistry):
+        self._cmap = cmap
+        self._reg = registry
+
+    def apply_gradients(self, table, ids, grads):
+        ids = np.ascontiguousarray(np.asarray(ids, np.int64).ravel())
+        grads = np.asarray(grads, np.float32)
+        pending = np.arange(ids.size, dtype=np.intp)
+        delay = _FENCE_BACKOFF_SECS
+        for _attempt in range(_RESHARD_ATTEMPTS):
+            m = self._cmap.get()
+            home = m.home_of_ids(ids[pending])
+            outcome = {"map": None, "fenced": False, "unresolved": []}
+            olock = threading.Lock()
+            jobs = [
+                self._push_job(m, int(s), table, ids, grads,
+                               pending[home == s], outcome, olock)
+                for s in sorted(set(home.tolist()))
+            ]
+            _run_jobs(
+                self._reg.pool if len(jobs) > 1 else None, jobs
+            )
+            progressed = (outcome["map"] is not None
+                          and self._cmap.update(outcome["map"]))
+            if not outcome["unresolved"]:
+                return table
+            pending = np.asarray(sorted(outcome["unresolved"]),
+                                 np.intp)
+            if outcome["fenced"] or not progressed:
+                time.sleep(delay)
+                delay = min(delay * 2, 4.0)
+        raise RuntimeError(
+            "row pushes kept redirecting/fenced after "
+            f"{_RESHARD_ATTEMPTS} attempts (shard-map churn?)"
+        )
+
+    def _push_job(self, m, shard, table, ids, grads, positions,
+                  outcome, olock):
+        def job():
+            opt = self._reg.optimizer(m.shards[shard])
+            try:
+                opt.apply_gradients(
+                    table, ids[positions], grads[positions]
+                )
+            except ReshardRedirect as exc:
+                _adopt_redirect(outcome, olock, positions, exc)
+            except ReshardFenced:
+                with olock:
+                    outcome["fenced"] = True
+                    outcome["unresolved"].extend(positions.tolist())
+        return job
+
+
+def make_remote_engine(
+    addr: str, id_keys: Dict[str, str],
+    retries: int = 12, backoff_secs: float = 0.5,
+) -> HostEmbeddingEngine:
+    """Client-side engine over running ``HostRowService`` shard(s).
+
+    ``addr`` is one address or a comma list: the bootstrap fleet. The
+    engine adopts the newest map any listed shard has installed, or
+    builds the bootstrap map over the listed addresses (the servers
+    then never redirect). A topology change under a live engine
+    surfaces as a retryable REDIRECT carrying the newer map. Pulls and
+    pushes retry across a shard relaunch (0.5 s doubling, capped at
+    30 s, 12 retries: about 4 minutes). The JAX engine's ``hedge_reads``
+    (hedged pulls, which no caller of either package sets) is not
+    ported."""
+    addrs = [a.strip() for a in addr.split(",") if a.strip()]
+    if not addrs:
+        raise ValueError("empty row-service address")
+    registry = _ShardRegistry(retries, backoff_secs)
+    stubs = [registry.stub(a) for a in addrs]
+    infos = [
+        _call_with_retry(stub, "table_info", retries, backoff_secs)[
+            "tables"
+        ]
+        for stub in stubs
+    ]
+    for a, info in zip(addrs[1:], infos[1:]):
+        if info != infos[0]:
+            raise ValueError(
+                f"row-service shard {a} serves different tables "
+                f"({sorted(info)}) than shard {addrs[0]} "
+                f"({sorted(infos[0])}); all shards must run the same "
+                "model module"
+            )
+    best = None
+    for stub in stubs:
+        try:
+            resp = _call_with_retry(
+                stub, "get_shard_map", retries, backoff_secs
+            )
+        except RpcError:
+            continue
+        map_json = resp.get("map")
+        if map_json and (
+            best is None or map_json["version"] > best["version"]
+        ):
+            best = map_json
+    cmap = ClientShardMap(
+        ShardMap.from_json(best) if best is not None
+        else ShardMap.bootstrap(addrs)
+    )
+    tables = {
+        name: _ShardedTable(name, meta["dim"], cmap, registry)
+        for name, meta in infos[0].items()
+    }
+    optimizer = _ShardedOptimizer(cmap, registry)
+    engine = HostEmbeddingEngine(tables, optimizer, id_keys=id_keys)
+    engine.remote = True  # the service owns checkpointing
+    engine.shard_map = cmap  # routing-epoch introspection (tests)
+    return engine
+
+
+# Placement scheme recorded in shard_layout.json: bucket-range shard
+# maps. A marker without the field predates the map (the id % N era).
+PLACEMENT_SCHEME = "bucket-range-v1"
+
+
+def validate_shard_layout(checkpoint_dir: str, shard: int,
+                          num_shards: int):
+    """Refuse to restore a checkpoint written under another static
+    shard layout or placement scheme: the rows whose home moved would
+    silently come back as lazy inits. ``shard_layout.json`` records the
+    layout; a directory holding versions but no marker is the one-shard
+    layout."""
+    import json
+    import os
+
+    marker = os.path.join(checkpoint_dir, "shard_layout.json")
+    if os.path.exists(marker):
+        with open(marker) as fh:
+            recorded = json.load(fh)
+    else:
+        from elasticdl_tpu_torch.checkpoint.saver import CheckpointSaver
+
+        has_versions = bool(
+            os.path.isdir(checkpoint_dir)
+            and CheckpointSaver(checkpoint_dir).list_versions()
+        )
+        if not has_versions:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            with open(marker, "w") as fh:
+                json.dump({"shard": shard, "num_shards": num_shards,
+                           "placement": PLACEMENT_SCHEME}, fh)
+            return
+        recorded = {"shard": 0, "num_shards": 1}  # pre-shard layout
+    recorded_placement = recorded.get(
+        "placement",
+        # One shard owns everything under every scheme.
+        PLACEMENT_SCHEME if int(recorded.get("num_shards", 1)) == 1
+        else "id-mod-n",
+    )
+    if (
+        int(recorded.get("num_shards", 1)) != num_shards
+        or int(recorded.get("shard", 0)) != shard
+        or recorded_placement != PLACEMENT_SCHEME
+    ):
+        raise SystemExit(
+            f"checkpoint {checkpoint_dir} was written as shard "
+            f"{recorded.get('shard', 0)}/{recorded.get('num_shards', 1)}"
+            f" (placement {recorded_placement}) but this process is "
+            f"shard {shard}/{num_shards} (placement "
+            f"{PLACEMENT_SCHEME}); changing the static shard layout "
+            "across a restore would silently lose the rows whose home "
+            "moved. Start a fresh checkpoint dir (or repartition "
+            "offline via checkpoint.saver)."
+        )
+
+
+# main's flags whose JAX code is not ported yet: they raise when given.
+_NOT_PORTED_FLAGS = {
+    "push_log_dir": "the write-ahead push log",
+    "push_log_group_ms": "the write-ahead push log",
+    "push_log_ack": "the write-ahead push log",
+    "push_durable_wait_secs": "the write-ahead push log",
+    "hot_budget_rows": "the hot/cold row tiers",
+    "cold_dir": "the hot/cold row tiers",
+    "cold_segment_mb": "the hot/cold row tiers",
+    "cold_compact_live_fraction": "the hot/cold row tiers",
+    "profile_hz": "the sampling profiler",
+    "profile_window_secs": "the sampling profiler",
+    "master_addr": "the metrics reporter to the master",
+    "metrics_report_secs": "the metrics reporter to the master",
+}
+
+
+def main(argv=None):
+    """Process entry: ``python -m elasticdl_tpu_torch.embedding.row_service
+    --model_zoo ... --model_def ... [--addr :6100] [--checkpoint_dir ...]``.
+    The zoo module supplies ``make_row_service()``. The service keeps its
+    tables in host RAM and touches no CUDA. ``--shard_id/--num_shards``
+    record the shard layout, so a relaunch under another layout fails
+    loudly (``validate_shard_layout``)."""
+    import argparse
+    import signal
+
+    from elasticdl_tpu_torch.core.model_spec import load_model_zoo_module
+
+    parser = argparse.ArgumentParser("elasticdl_tpu_torch-row-service")
+    parser.add_argument("--model_zoo", required=True)
+    parser.add_argument("--model_def", required=True)
+    parser.add_argument("--addr", default="[::]:6100")
+    parser.add_argument("--checkpoint_dir", default="")
+    parser.add_argument("--checkpoint_steps", type=int, default=0)
+    parser.add_argument("--keep_checkpoint_max", type=int, default=3)
+    parser.add_argument("--checkpoint_delta_chain", type=int, default=8,
+                        help="Max delta checkpoints riding one full base "
+                             "before a save compacts into a fresh base; "
+                             "0 = full snapshots only")
+    parser.add_argument("--checkpoint_sync", action="store_true",
+                        help="Write checkpoints inline on the push "
+                             "handler instead of the background writer")
+    parser.add_argument("--admission_limit", type=int, default=0,
+                        help="Priority admission control: bound on "
+                             "concurrently admitted handlers; beyond "
+                             "it, requests shed lowest-priority-first "
+                             "with a retryable RESOURCE_EXHAUSTED. "
+                             "0 (default) = off")
+    parser.add_argument("--shard_id", type=int, default=0)
+    parser.add_argument("--num_shards", type=int, default=1)
+    parser.add_argument("--metrics_port", type=int, default=-1,
+                        help="Serve this process's registry as "
+                             "Prometheus /metrics; 0 = ephemeral, -1 "
+                             "(default) = disabled")
+    parser.add_argument("--flight_recorder", type=int, default=0,
+                        help="Install a span flight recorder of this "
+                             "many entries (served on /traces next to "
+                             "/metrics); 0 (default) = tracing off")
+    for flag in _NOT_PORTED_FLAGS:
+        parser.add_argument(f"--{flag}", default=None,
+                            help=f"Not ported yet (ROADMAP Queue 1, "
+                                 f"item 8): {_NOT_PORTED_FLAGS[flag]}")
+    args = parser.parse_args(argv)
+    for flag, what in _NOT_PORTED_FLAGS.items():
+        if getattr(args, flag) is not None:
+            raise NotImplementedError(f"--{flag}: {what} {_ITEM_8}")
+
+    module, _ = load_model_zoo_module(args.model_zoo, args.model_def)
+    factory = getattr(module, "make_row_service", None)
+    if factory is None:
+        raise SystemExit(
+            f"{args.model_def}: module defines no make_row_service()"
+        )
+    service = factory()
+    if args.checkpoint_dir:
+        validate_shard_layout(
+            args.checkpoint_dir, args.shard_id, args.num_shards
+        )
+        service.configure_checkpoint(
+            args.checkpoint_dir, args.checkpoint_steps,
+            args.keep_checkpoint_max,
+            delta_chain_max=args.checkpoint_delta_chain,
+            async_write=not args.checkpoint_sync,
+        )
+    service.start(args.addr, tag=f"rowservice/{args.shard_id}",
+                  admission_limit=args.admission_limit)
+    logger.info("Row service serving on %s", args.addr)
+
+    def _graceful(_sig, _frame):
+        # Planned eviction: land a durable checkpoint, then drain.
+        logger.warning("SIGTERM: draining row service (checkpoint)")
+        try:
+            service.checkpoint_now()
+        except BaseException as exc:
+            logger.error("drain checkpoint failed: %s", exc)
+        service.stop(grace=5.0)
+
+    try:
+        signal.signal(signal.SIGTERM, _graceful)
+    except ValueError:
+        pass  # not the main thread (embedded use)
+    if args.flight_recorder > 0:
+        tracing.set_process_role("rowservice", str(args.shard_id))
+        tracing.install_recorder(
+            tracing.FlightRecorder(args.flight_recorder)
+        )
+    if args.metrics_port >= 0:
+        from elasticdl_tpu_torch.observability import (
+            MetricsHTTPServer,
+            default_registry,
+            render_prometheus,
+        )
+
+        MetricsHTTPServer(
+            lambda: render_prometheus(default_registry().snapshot()),
+            port=args.metrics_port,
+            traces=lambda: {"spans": tracing.recorder_spans()},
+            render_openmetrics=lambda: render_prometheus(
+                default_registry().snapshot(), exemplars=True
+            ),
+        ).start()
+    service.wait()
+
+
+if __name__ == "__main__":
+    main()

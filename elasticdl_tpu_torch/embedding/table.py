@@ -103,6 +103,27 @@ class EmbeddingTable:
             if self._track_dirty:
                 self._dirty.add(int(row_id))
 
+    def erase(self, ids) -> int:
+        """Drop rows; absent ids are ignored. Returns the number erased.
+        Erased ids leave the dirty set: their bytes are gone, and a
+        later dirty drain re-reading them through ``get`` would bring
+        them back as fresh lazy rows."""
+        erased = 0
+        for row_id in ids:
+            if self.vectors.pop(int(row_id), None) is not None:
+                erased += 1
+            self._dirty.discard(int(row_id))
+        return erased
+
+    def contains(self, ids) -> np.ndarray:
+        """Bool membership mask, without materialising anything."""
+        return np.array([int(i) in self.vectors for i in ids], bool)
+
+    def all_ids(self) -> np.ndarray:
+        """Every materialised id, sorted, without reading row bytes (the
+        row service's erase sweep after a new shard map)."""
+        return np.array(sorted(self.vectors), np.int64)
+
     @property
     def num_rows(self) -> int:
         return len(self.vectors)

@@ -17,7 +17,10 @@ Not ported yet, and raising when asked for: the k8s instance manager
 the hot standby (``--standby``), the autoscaler (``--autoscale``), row
 resharding (``--row_reshard``), the gang scheduler (``--sched``),
 streaming ingestion (``--stream_dir``) and the prober (``--probes``):
-ROADMAP Queue 1, item 8; the row service, item 4b.
+ROADMAP Queue 1, item 8. Row-service pods are not launched by the port's
+master either (that comes with the instance manager, item 8): start
+``python -m elasticdl_tpu_torch.embedding.row_service`` by hand and give
+the workers ``--row_service_addr``.
 """
 
 import sys

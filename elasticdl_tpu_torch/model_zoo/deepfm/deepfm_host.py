@@ -6,7 +6,8 @@ pods; this is that deployment in one process: the table lives in host
 RAM (the C++ row store when it builds), each batch's rows are pulled as
 a bucket-padded block and their gradients applied back
 (``embedding/host_engine.py``). The executor picks ``make_host_runner``
-up by name. Rows train with SGD at lr 0.05, the MLP with Adam at 1e-3,
+up by name. Several worker processes share one table through a row
+service (``make_row_service``, ``make_host_runner(remote_addr=...)``). Rows train with SGD at lr 0.05, the MLP with Adam at 1e-3,
 bf16 compute.
 
 Records are frappe payloads {"feature_ids": [INPUT_LENGTH ints in
@@ -38,8 +39,6 @@ MAX_ID = 5500
 EMBEDDING_DIM = 16
 TABLE_NAME = "deepfm_host_embedding"
 FEATURE_KEY = "feature_ids"
-_REMOTE = ("a remote row service (remote_addr) waits for the row service "
-           "of the port (ROADMAP Queue 1, item 4b)")
 
 
 class HostDeepFM(nn.Module):
@@ -69,9 +68,17 @@ def custom_model(device=None):
 def make_host_runner(row_lr: float = 0.05,
                      remote_addr: str = "") -> HostStepRunner:
     """The runner holding the host table (native when it builds), its
-    rows trained by SGD at ``row_lr``."""
+    rows trained by SGD at ``row_lr``. ``remote_addr`` points at a
+    shared ``HostRowService`` for multi-process jobs
+    (``--row_service_addr``); the service then owns the rows and their
+    checkpoints."""
     if remote_addr:
-        raise NotImplementedError(_REMOTE)
+        from elasticdl_tpu_torch.embedding.row_service import (
+            make_remote_engine,
+        )
+
+        return HostStepRunner(make_remote_engine(
+            remote_addr, id_keys={TABLE_NAME: FEATURE_KEY}))
     from elasticdl_tpu_torch.native.row_store import (
         make_host_optimizer,
         make_host_table,
@@ -86,7 +93,20 @@ def make_host_runner(row_lr: float = 0.05,
 
 
 def make_row_service():
-    raise NotImplementedError(_REMOTE)
+    """The server side of a multi-process job: run it in its own process
+    (``python -m elasticdl_tpu_torch.embedding.row_service``) or
+    ``.start(addr)`` it. Its table sits in host RAM; rows train with SGD
+    at 0.05."""
+    from elasticdl_tpu_torch.embedding.row_service import HostRowService
+    from elasticdl_tpu_torch.native.row_store import (
+        make_host_optimizer,
+        make_host_table,
+    )
+
+    return HostRowService(
+        {TABLE_NAME: make_host_table(TABLE_NAME, EMBEDDING_DIM)},
+        make_host_optimizer(SGD(lr=0.05)),
+    )
 
 
 def loss(labels, predictions, mask):

@@ -35,8 +35,6 @@ FIELD_GROUPS = {
     "host_emb_item": ("ids_item", (4, 7)),
     "host_emb_ctx": ("ids_ctx", (7, 10)),
 }
-_REMOTE = ("a remote row service (remote_addr) waits for the row service "
-           "of the port (ROADMAP Queue 1, item 4b)")
 
 
 class HostDeepFMMulti(nn.Module):
@@ -63,25 +61,41 @@ def custom_model(device=None):
     return HostDeepFMMulti().to(resolve_device(device))
 
 
+def _make_tables():
+    from elasticdl_tpu_torch.native.row_store import make_host_table
+
+    return {name: make_host_table(name, EMBEDDING_DIM)
+            for name in FIELD_GROUPS}
+
+
 def make_host_runner(row_lr: float = 0.05,
                      remote_addr: str = "") -> HostStepRunner:
+    """The three host tables in this process, or (``remote_addr``) on a
+    shared row service."""
+    id_keys = {name: key for name, (key, _) in FIELD_GROUPS.items()}
     if remote_addr:
-        raise NotImplementedError(_REMOTE)
-    from elasticdl_tpu_torch.native.row_store import (
-        make_host_optimizer,
-        make_host_table,
-    )
+        from elasticdl_tpu_torch.embedding.row_service import (
+            make_remote_engine,
+        )
+
+        return HostStepRunner(make_remote_engine(remote_addr,
+                                                 id_keys=id_keys))
+    from elasticdl_tpu_torch.native.row_store import make_host_optimizer
 
     engine = HostEmbeddingEngine(
-        {name: make_host_table(name, EMBEDDING_DIM) for name in FIELD_GROUPS},
-        make_host_optimizer(SGD(lr=row_lr)),
-        id_keys={name: key for name, (key, _) in FIELD_GROUPS.items()},
+        _make_tables(), make_host_optimizer(SGD(lr=row_lr)),
+        id_keys=id_keys,
     )
     return HostStepRunner(engine)
 
 
 def make_row_service():
-    raise NotImplementedError(_REMOTE)
+    """The server side of a multi-process job: the three tables and SGD
+    rows at 0.05."""
+    from elasticdl_tpu_torch.embedding.row_service import HostRowService
+    from elasticdl_tpu_torch.native.row_store import make_host_optimizer
+
+    return HostRowService(_make_tables(), make_host_optimizer(SGD(lr=0.05)))
 
 
 def loss(labels, predictions, mask):

@@ -137,8 +137,34 @@ class NativeEmbeddingTable:
 
     @property
     def created_count(self) -> int:
-        """Monotonic count of row materialisations."""
+        """Monotonic count of row materialisations: unlike ``num_rows``
+        it never falls, so it stays exact when ``erase`` frees slots
+        that a later ``get`` reuses."""
         return int(self._lib.rs_created_count(self._h))
+
+    def erase(self, ids) -> int:
+        """Drop rows; absent ids are ignored. Returns the number erased
+        (see ``EmbeddingTable.erase``)."""
+        ids = _ids_arr(ids)
+        erased = int(self._lib.rs_erase(self._h, _i64p(ids), ids.size))
+        if self._dirty:
+            self._dirty.difference_update(ids.tolist())
+        return erased
+
+    def contains(self, ids) -> np.ndarray:
+        """Bool membership mask, without materialising anything."""
+        ids = _ids_arr(ids)
+        out = np.zeros((ids.size,), np.uint8)
+        self._lib.rs_contains(
+            self._h, _i64p(ids), ids.size,
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        )
+        return out.astype(bool)
+
+    def all_ids(self) -> np.ndarray:
+        """Every materialised id, sorted (the C++ store exports ids with
+        their rows, so this reads the rows too)."""
+        return self.to_arrays()[0]
 
     def to_arrays(self):
         n = self.num_rows

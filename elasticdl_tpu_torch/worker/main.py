@@ -7,9 +7,12 @@ H:P <flags>``: connect the master channel with retries, build the Worker
 drains. It runs on CUDA unless ``--device cpu``; without a card and
 without that flag it raises.
 
+A host-tier model (``make_host_runner``) with ``--row_service_addr``
+pulls and pushes its rows through a shared row service
+(``embedding/row_service.py``); with ``--num_workers`` > 1 it needs one.
+
 Not ported: multi-host (``jax.distributed``), the XLA compilation cache
-and the step profiler have no flag here; ``--row_service_addr`` raises
-(the row service is ROADMAP Queue 1, item 4b).
+and the step profiler have no flag here.
 """
 
 import os
@@ -34,11 +37,6 @@ logger = get_logger("worker_main")
 
 def build_worker(args, master_client=None) -> Worker:
     """Assemble a Worker from parsed args (shared with tests)."""
-    if getattr(args, "row_service_addr", ""):
-        raise NotImplementedError(
-            "--row_service_addr: the row service and the remote tables "
-            "are not ported yet (ROADMAP Queue 1, item 4b)"
-        )
     device = resolve_device(getattr(args, "device", None))
     # The model's initial weights come from --random_seed, as in the
     # Local executor: a worker and a Local run of the same records start
@@ -122,15 +120,34 @@ def build_worker(args, master_client=None) -> Worker:
                 "host-tier models (make_host_runner) do not combine "
                 "with MeshStrategy; use the default strategy"
             )
-        if getattr(args, "num_workers", 1) > 1:
-            # Per-process tables would silently fork: each process would
-            # train (and lose) its own rows.
-            raise ValueError(
-                "host-tier models with num_workers > 1 need a shared "
-                "row service (--row_service_addr), which is not ported "
-                "yet (ROADMAP Queue 1, item 4b)"
+        row_addr = getattr(args, "row_service_addr", "")
+        if row_addr:
+            # Rows live behind the shared row service. Check the
+            # signature up front: catching TypeError around the call
+            # would also swallow TypeErrors raised inside the factory.
+            import inspect
+
+            params = inspect.signature(spec.make_host_runner).parameters
+            accepts_remote = "remote_addr" in params or any(
+                p.kind is inspect.Parameter.VAR_KEYWORD
+                for p in params.values()
             )
-        step_runner = spec.make_host_runner()
+            if not accepts_remote:
+                raise ValueError(
+                    f"{args.model_def}: make_host_runner must accept "
+                    "remote_addr=... to run against --row_service_addr"
+                )
+            step_runner = spec.make_host_runner(remote_addr=row_addr)
+        else:
+            if getattr(args, "num_workers", 1) > 1:
+                # Per-process tables would silently fork: each process
+                # would train (and lose) its own rows.
+                raise ValueError(
+                    "host-tier models with num_workers > 1 need a shared "
+                    "row service: start embedding.row_service and pass "
+                    "--row_service_addr"
+                )
+            step_runner = spec.make_host_runner()
     if step_runner is None and spec.make_sparse_runner is not None:
         # Device-tier sparse model under the default strategy: the
         # single-device runner (tables on the card next to the model),

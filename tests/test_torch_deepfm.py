@@ -367,8 +367,22 @@ def test_train_cli_runs_each_twin_on_the_cpu(name, tmp_path):
 
 
 def test_remote_row_service_waits_for_the_rpc_wire():
+    """Each host twin's row service answers over the RPC wire, and its
+    ``make_host_runner(remote_addr=...)`` builds a runner whose tables
+    are that service's: concurrent-safe remote tables, no local
+    checkpoint duty, and the service's lazy rows."""
     for module in (deepfm_host, deepfm_host_multi):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            module.make_host_runner(remote_addr="localhost:1")
-        with pytest.raises(NotImplementedError, match="item 4"):
-            module.make_row_service()
+        svc = module.make_row_service().start()
+        try:
+            runner = module.make_host_runner(
+                remote_addr=f"localhost:{svc.port}")
+            engine = runner.engine
+            assert engine.remote and engine.concurrent_io
+            assert runner.host_tables is None
+            assert sorted(engine.tables) == sorted(svc._tables)
+            for name, table in engine.tables.items():
+                ids = np.array([0, 7, 5499], np.int64)
+                np.testing.assert_array_equal(
+                    table.get(ids), svc._tables[name].get(ids))
+        finally:
+            svc.stop(0)

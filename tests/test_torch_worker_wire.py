@@ -140,8 +140,11 @@ def test_worker_main_needs_cuda_unless_cpu_is_asked_for(records):
         "--worker_id", "0", "--master_addr", "localhost:1"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         worker_main(argv)
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        worker_main(argv + ["--device", "cpu", "--row_service_addr", "x:1"])
+    # --row_service_addr is the host tier's; a dense model builds with it.
+    worker = build_worker(parse_worker_args(
+        argv + ["--device", "cpu", "--row_service_addr", "x:1"]),
+        master_client=object())
+    assert worker._step_runner is None
     for flag in (["--journal_dir", "/j"], ["--image_name", "img"]):
         with pytest.raises(NotImplementedError, match="item 8"):
             Master(build_parser("master").parse_args(
