@@ -15,6 +15,8 @@
                                          # worker alone (embedding kernels)
     python3 chip_smoke.py --phase rowservice # the row service alone, no
                                              # build, with its timings
+    python3 chip_smoke.py --phase fleet  # the rest of serving alone
+                                         # (kernel #1 only), with timings
 
 1. Prints the card (``nvidia-smi`` name and power limit), versions, and
    whether ``grpc`` can be imported.
@@ -247,6 +249,39 @@
    on the service's main in a subprocess, with a synchronous and the
    zoo's asynchronous runner: step ms (CUDA events, one-step windows)
    beside issue ms; every kernel counter 0.
+11h. ``fleet`` (the rest of serving; ``--phase fleet`` runs it alone,
+   builds only ``flash_attention_fwd.cu`` and exports the flagship
+   bundle itself). Every kernel counter is zeroed just before each part
+   and read just after. (a) deepfm_host through ``LocalExecutor`` on the
+   card, 2048 frappe records (10 ids in [0, 5500)) at B 512 for one
+   epoch, with ``--output``: the bundle holds the 5500 x 16 table
+   materialised dense (trained rows bit-equal to the engine's, untouched
+   rows their lazy initial values, the live table's row count unchanged
+   by the export); ``ModelStore`` and ``InferenceServer`` on the card
+   answer a msgpack and a JSON request of 64 examples (one id training
+   never read) bit-equal to the trained module's forward on the card
+   over the engine's rows, and the same bundle on the CPU within
+   HOST_TOL; no kernel launches. (b) The trained module exported with
+   ``host_id_keys``, served over a port ``HostRowService`` in process
+   over localhost gRPC holding the trained rows, with a cache of 4096
+   rows probed every request, over one shard and then two (a comma
+   list): the answer equals (a)'s bit for bit, a repeat is served from
+   the cache (hits = unique ids, no pull on any shard), and after a push
+   the answer moves and equals the module's forward over the pushed
+   rows; no kernel launches. (c) The flagship bundle of step 4 from two
+   ``InferenceServer`` replicas on the card behind a ``RouterServer``
+   (least loaded, hedging on): 16 msgpack requests of 128 tokens from 4
+   threads, then 8 more under which replica 0 is stopped as a dead
+   process stops (listener and open connections cut): every reply is
+   200 and matches ``ServedModel.predict`` within LOGITS_REL_TOL,
+   kernel #1 launches exactly 8 times the batches the two replicas'
+   ``serving_batch_flushes_total`` count and no other kernel launches,
+   the router marks replica 0 unhealthy and counts a failover, and the
+   router's and the replicas' ``/metrics`` render their families. (d)
+   ``--phase fleet`` only: the flagship's 128-token request latency, p50
+   and p99 on the host clock, at concurrency 1 and 8, direct to a
+   replica and through the router, with each replica's batch occupancy;
+   the row-service bundle's resolve at B 512, cold and warm.
 12. ``fused path``: ``DeviceSparseRunner`` over the recsys table with
    Momentum (Nesterov) and ``use_pallas="fused"`` for 10 steps against
    "never": one fused-kernel launch a step.
@@ -286,15 +321,16 @@
    memory.
 17. Prints a ``serving``, a ``training``, a ``sparse_training``, a
    ``ring_training``, a ``host_training``, a ``vision``, a ``tabular``,
-   a ``checkpoint``, a ``worker``, a ``rowservice`` and a ``kernels``
-   JSON line (the four flash kernels and the four embedding kernels
+   a ``checkpoint``, a ``worker``, a ``rowservice``, a ``fleet`` and a
+   ``kernels`` JSON line (the four flash kernels and the four embedding kernels
    with their ms, plain ms, library ms, bound ms and launches, and their
    launches on the host, vision, tabular, checkpoint, worker and row
    service paths, ``launches_host_training``, ``launches_vision``,
    ``launches_tabular``, ``launches_checkpoint`` (the straight, first
    and resumed recsys runs), ``launches_worker`` (the in-process and
    failed-task runs), ``launches_rowservice`` ((a)'s two runs, (b),
-   (c)); #5 with its times at
+   (c)), ``launches_fleet`` ((a), (b) over one and two shards, (c));
+   #5 with its times at
    the sweep's tiers, the row kernels with a per-rule list) and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -309,6 +345,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -659,6 +696,29 @@ def make_row_service():
         {{{RECSYS_TABLE!r}: make_host_table({RECSYS_TABLE!r}, {EMB_DIM})}},
         make_host_optimizer(Adagrad(lr=0.05)))
 """
+# The fleet phase (the rest of serving). (a) deepfm_host through
+# LocalExecutor on the card, FLEET_RECORDS frappe records at HOST_BATCH
+# for one epoch, with --output: its dense bundle served on the card (a
+# request of FLEET_QUERY examples, msgpack and JSON). (b) The same
+# trained module exported in row-service mode, served over a port
+# HostRowService in process (one shard, then two) through a cache of
+# FLEET_CACHE_ROWS rows probed on every request. (c) The flagship bundle
+# from two replicas behind a RouterServer (least loaded, hedging on with
+# a floor of FLEET_HEDGE_MIN_MS): FLEET_REQUESTS requests of
+# SERVE_TOKENS tokens from FLEET_THREADS threads, then
+# FLEET_FAILOVER_REQUESTS more while one replica is stopped under them.
+# (d) ``--phase fleet`` only: request latency at concurrency 1 and 8
+# (FLEET_LATENCY requests), direct and routed, beside the replicas' own
+# request and batch times; one request's predict, reply encode and
+# decode alone (FLEET_ALONE_REPS); and the row-service bundle's resolve
+# at B HOST_BATCH, cold and warm (FLEET_RESOLVE_REPS).
+FLEET_RECORDS, FLEET_EPOCHS, FLEET_QUERY = 2048, 1, 64
+FLEET_CACHE_ROWS = 4096
+FLEET_REQUESTS, FLEET_THREADS, FLEET_FAILOVER_REQUESTS = 16, 4, 8
+FLEET_HEDGE_MIN_MS = 200.0
+FLEET_LATENCY = {1: 400, 8: 400}
+FLEET_ALONE_REPS = 20
+FLEET_RESOLVE_REPS = 10
 # Ring attention over an sp mesh of one card (slice 4): the long-context
 # row of tools/bench_long_context.py, (S 8192, B 1, remat), on the
 # flagship's widths, the sequence cut over RING_SP ranks (chunks of 2048).
@@ -1060,30 +1120,36 @@ def zoo_phase(torch, fa):
     check(err <= LOGITS_REL_TOL, f"zoo twin != CPU plain: {err}")
 
 
-def serving_phase(torch, fa, bundle_root):
+def export_flagship_bundle(torch, bundle):
+    """The flagship (random weights from SEED) exported to ``bundle``;
+    returns its config."""
     from elasticdl_tpu_torch import bridge
     from elasticdl_tpu_torch.models.transformer import (
         TransformerConfig,
         TransformerLM,
     )
-    from elasticdl_tpu_torch.serving.export import (
-        export_serving_bundle,
-        load_model,
-    )
-    from elasticdl_tpu_torch.serving.model_store import ModelStore
-    from elasticdl_tpu_torch.serving.server import InferenceServer
+    from elasticdl_tpu_torch.serving.export import export_serving_bundle
 
     cfg = TransformerConfig(**FLAGSHIP, compute_dtype=torch.bfloat16)
     model = TransformerLM(cfg)
     model.load_state_dict(bridge.state_dict_from_flax(
         bridge.init_flax_params(cfg, seed=SEED)))
-    bundle = os.path.join(bundle_root, "v1")
-    rng = np.random.default_rng(SEED + 1)
     export_serving_bundle(
         bundle, model,
         batch_example=np.zeros((1, SERVE_TOKENS), np.int32),
         model_def="transformer.transformer_lm.custom_model", version=1,
     )
+    return cfg
+
+
+def serving_phase(torch, fa, bundle_root):
+    from elasticdl_tpu_torch.serving.export import load_model
+    from elasticdl_tpu_torch.serving.model_store import ModelStore
+    from elasticdl_tpu_torch.serving.server import InferenceServer
+
+    bundle = os.path.join(bundle_root, "v1")
+    cfg = export_flagship_bundle(torch, bundle)
+    rng = np.random.default_rng(SEED + 1)
     store = ModelStore(bundle_root, device=DEVICE)
     served = store.load_initial()
     server = InferenceServer(store, max_batch_size=8,
@@ -4636,6 +4702,604 @@ def rowservice_phase(torch, fa, pe, root, service=None, timed=False):
     return out
 
 
+def post_msgpack(port, features, headers=None):
+    """(status, decoded body) of a msgpack predict; an HTTP error answers
+    with its code and None."""
+    from elasticdl_tpu_torch.common import tensor_utils
+
+    request = urllib.request.Request(
+        f"http://localhost:{port}/v1/predict",
+        data=tensor_utils.dumps({"features": features}),
+        headers={"Content-Type": "application/x-msgpack", **(headers or {})})
+    try:
+        with urllib.request.urlopen(request, timeout=600) as resp:
+            return resp.status, tensor_utils.loads(resp.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, None
+
+
+def post_json_features(port, features):
+    body = json.dumps({"features": features}).encode("utf-8")
+    request = urllib.request.Request(
+        f"http://localhost:{port}/v1/predict", data=body,
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(request, timeout=600) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def get_text(port, path):
+    with urllib.request.urlopen(f"http://localhost:{port}{path}",
+                                timeout=60) as resp:
+        return resp.read().decode("utf-8")
+
+
+def family_total(registry, name):
+    """The sum of a registry family's series values (0 when absent)."""
+    for family in registry.snapshot()["families"]:
+        if family["name"] == name:
+            return sum(s.get("value", s.get("count", 0))
+                       for s in family["series"])
+    return 0.0
+
+
+def host_forward(torch, model, rows_of, query):
+    """The trained host module's forward on the card over ``rows_of``'s
+    rows for ``query``'s raw ids, as the training engine feeds it: the
+    inverse map and the bucket-padded row block."""
+    from elasticdl_tpu_torch.embedding.host_engine import bucket_size
+    from elasticdl_tpu_torch.model_zoo.deepfm import deepfm_host as twin
+
+    uniq, inverse = np.unique(query, return_inverse=True)
+    block = np.zeros((bucket_size(len(uniq)), twin.EMBEDDING_DIM),
+                     np.float32)
+    block[:len(uniq)] = rows_of(uniq)
+    with torch.inference_mode():
+        return model(
+            {twin.FEATURE_KEY: torch.from_numpy(inverse.reshape(
+                query.shape).astype(np.int32)).to(DEVICE)},
+            host_rows={twin.TABLE_NAME: torch.from_numpy(block).to(DEVICE)},
+        ).cpu().numpy()
+
+
+def fleet_host_part(torch, fa, pe, root):
+    """(a) deepfm_host trained through LocalExecutor on the card with
+    --output; the dense bundle served on the card and on the CPU."""
+    from elasticdl_tpu_torch.api.local_executor import LocalExecutor
+    from elasticdl_tpu_torch.callbacks import Callback
+    from elasticdl_tpu_torch.model_zoo.deepfm import deepfm_host as twin
+    from elasticdl_tpu_torch.native.row_store import NativeEmbeddingTable
+    from elasticdl_tpu_torch.observability import MetricsRegistry
+    from elasticdl_tpu_torch.serving.export import HOST_ROWS_FILE
+    from elasticdl_tpu_torch.serving.model_store import (
+        ModelStore,
+        load_served_model,
+    )
+    from elasticdl_tpu_torch.serving.server import InferenceServer
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    t0 = time.monotonic()
+    records = tdata.create_frappe_record_file(
+        os.path.join(root, "fleet.rec"), FLEET_RECORDS, seed=SEED,
+        input_length=HOST_IDS, max_id=HOST_MAX_ID)
+    bundle = os.path.join(root, "fleet_host", "v1")
+    rows_before_export = {}
+
+    class RowCount(Callback):
+        """Runs before the exporter (which the executor appends last)."""
+
+        def on_train_end(self, owner=None):
+            rows_before_export["n"] = owner._step_runner.engine.tables[
+                twin.TABLE_NAME].num_rows
+
+    args = tdata.make_local_args(
+        tdata.model_zoo_dir(), "deepfm.deepfm_host.custom_model", records,
+        minibatch_size=HOST_BATCH, num_epochs=FLEET_EPOCHS,
+        extra=["--device", DEVICE, "--random_seed", str(SEED),
+               "--output", bundle])
+    executor = LocalExecutor(args, callbacks=[RowCount()])
+    reset_kernel_launches(fa, pe)             # (a) starts here
+    result = executor.run()
+    table = executor._step_runner.engine.tables[twin.TABLE_NAME]
+    rows_after_export = table.num_rows
+    touched = np.unique(frappe_ids(FLEET_RECORDS, HOST_IDS, HOST_MAX_ID,
+                                   SEED))
+    untouched = np.setdiff1d(np.arange(HOST_MAX_ID), touched)
+    query = np.random.default_rng(SEED + 60).choice(
+        touched, (FLEET_QUERY, HOST_IDS)).astype(np.int32)
+    query[-1, 0] = untouched[0]               # a row training never read
+    registry = MetricsRegistry()
+    store = ModelStore(bundle, device=DEVICE, metrics_registry=registry,
+                       model_fn=lambda: twin.custom_model(device="cpu"))
+    store.load_initial()
+    server = InferenceServer(store, max_batch_size=FLEET_QUERY,
+                             batch_deadline_ms=1.0, port=0,
+                             metrics_registry=registry).start()
+    try:
+        status_m, body_m = post_msgpack(server.port,
+                                        {twin.FEATURE_KEY: query})
+        status_j, body_j = post_json_features(
+            server.port, {twin.FEATURE_KEY: query.tolist()})
+    finally:
+        server.stop()
+    counts = kernel_launch_counts(fa, pe)     # ... and ends
+    seconds = time.monotonic() - t0
+    ids, trained = table.to_arrays()
+    dense = torch.load(os.path.join(bundle, HOST_ROWS_FILE))[
+        twin.TABLE_NAME].numpy()
+    lazy = NativeEmbeddingTable(twin.TABLE_NAME, twin.EMBEDDING_DIM)
+    model = executor.state.model.eval()
+    served = np.asarray(body_m["predictions"], np.float32)
+    # The engine's table reads the untouched id lazily here, after the
+    # row counts were taken.
+    want = host_forward(torch, model, table.get, query)
+    on_cpu = load_served_model(
+        bundle, device="cpu",
+        model_fn=lambda: twin.custom_model(device="cpu")).predict(
+        {twin.FEATURE_KEY: query})
+    out = {
+        "model": "deepfm_host twin (5500 x 16 host table, SGD rows, MLP "
+                 "160-64-32-1 bf16), trained 1 epoch on the card",
+        "steps": result["steps"], "bundle_version": store.current().version,
+        "statuses": [status_m, status_j],
+        "table_shape": list(dense.shape),
+        "trained_rows_bit_equal": bool(np.array_equal(dense[ids], trained)),
+        "untouched_rows_lazy": bool(np.array_equal(
+            dense[untouched[:64]], lazy.get(untouched[:64]))),
+        "live_rows_before_export": rows_before_export["n"],
+        "live_rows_after_export": rows_after_export,
+        "served_bit_equal_to_module": bool(np.array_equal(served, want)),
+        "served_max_abs_err_vs_module": float(np.abs(served - want).max()),
+        "json_equals_msgpack": bool(np.array_equal(
+            np.asarray(body_j["predictions"], np.float32), served)),
+        "rel_err_vs_cpu": rel_err(on_cpu, served),
+        "launches": counts, "seconds": seconds,
+    }
+    print("fleet host bundle", json.dumps(out), flush=True)
+    check(out["statuses"] == [200, 200], f"statuses {out['statuses']}")
+    check(out["table_shape"] == [HOST_MAX_ID, twin.EMBEDDING_DIM],
+          f"dense table {out['table_shape']}")
+    check(out["trained_rows_bit_equal"], "the bundle's trained rows differ")
+    check(out["untouched_rows_lazy"],
+          "an untouched row in the bundle is not its lazy initial value")
+    check(rows_before_export["n"] == rows_after_export == touched.size,
+          f"the export grew the live table: {out}")
+    check(out["served_bit_equal_to_module"],
+          f"served != the module's forward over the engine's rows: {out}")
+    check(out["json_equals_msgpack"], "the JSON answer differs")
+    check(out["rel_err_vs_cpu"] <= HOST_TOL["delta_l2"],
+          f"card vs CPU bundle {out['rel_err_vs_cpu']}")
+    check(not any(counts.values()), f"(a) launched kernels: {counts}")
+    return out, dict(executor=executor, model=model, table=table,
+                     query=query, served=served)
+
+
+def fleet_rows_part(torch, fa, pe, root, host, timed):
+    """(b) The trained module exported in row-service mode, served over
+    port HostRowServices in process (one shard, then two) through the
+    hot-row cache."""
+    from elasticdl_tpu_torch import bridge
+    from elasticdl_tpu_torch.embedding.optimizer import SGD
+    from elasticdl_tpu_torch.embedding.row_service import (
+        HostRowService,
+        make_remote_engine,
+    )
+    from elasticdl_tpu_torch.model_zoo.deepfm import deepfm_host as twin
+    from elasticdl_tpu_torch.native.row_store import (
+        make_host_optimizer,
+        make_host_table,
+    )
+    from elasticdl_tpu_torch.observability import MetricsRegistry
+    from elasticdl_tpu_torch.serving.export import export_serving_bundle
+    from elasticdl_tpu_torch.serving.model_store import ModelStore
+    from elasticdl_tpu_torch.serving.server import InferenceServer
+
+    executor, model, query = host["executor"], host["model"], host["query"]
+    key, name = twin.FEATURE_KEY, twin.TABLE_NAME
+    bundle = os.path.join(root, "fleet_rows", "v1")
+    export_serving_bundle(
+        bundle, model, batch_example=executor.last_batch,
+        model_def="deepfm.deepfm_host.custom_model",
+        version=executor.state.step, host_id_keys={name: key})
+    unique = np.unique(query)
+    out = {}
+    for shards in (1, 2):
+        t0 = time.monotonic()
+        reset_kernel_launches(fa, pe)         # (b) starts here
+        service_registries = [MetricsRegistry() for _ in range(shards)]
+        services = []
+        for service_registry in service_registries:
+            table = make_host_table(name, twin.EMBEDDING_DIM)
+            bridge.copy_host_table(host["table"], table)
+            services.append(HostRowService(
+                {name: table}, make_host_optimizer(SGD(lr=0.05)),
+                metrics_registry=service_registry).start("localhost:0"))
+        addr = ",".join(f"localhost:{s.port}" for s in services)
+
+        def pulls():
+            return sum(family_total(r, "edl_tpu_row_service_pull_seconds")
+                       for r in service_registries)
+
+        registry = MetricsRegistry()
+        store = ModelStore(bundle, device=DEVICE, row_service_addr=addr,
+                           model_fn=lambda: twin.custom_model(device="cpu"),
+                           row_cache_capacity=FLEET_CACHE_ROWS,
+                           row_cache_version_check_secs=0,
+                           metrics_registry=registry)
+        store.load_initial()
+        server = InferenceServer(store, max_batch_size=FLEET_QUERY,
+                                 batch_deadline_ms=1.0, port=0,
+                                 metrics_registry=registry).start()
+        client = make_remote_engine(addr, id_keys={name: key})
+        try:
+            status_1, body_1 = post_msgpack(server.port, {key: query})
+            hits0 = family_total(registry,
+                                 "edl_tpu_serving_row_cache_hits_total")
+            pulls0 = pulls()
+            status_2, body_2 = post_msgpack(server.port, {key: query})
+            repeat_hits = family_total(
+                registry, "edl_tpu_serving_row_cache_hits_total") - hits0
+            repeat_pulls = pulls() - pulls0
+            pushed = unique[:8].astype(np.int64)
+            client.optimizer.apply_gradients(
+                client.tables[name], pushed,
+                np.full((len(pushed), twin.EMBEDDING_DIM), 1.0, np.float32))
+            status_3, body_3 = post_msgpack(server.port, {key: query})
+            times = fleet_resolve_times(store, query.shape[1]) \
+                if timed and shards == 1 else None
+        finally:
+            server.stop()
+        counts = kernel_launch_counts(fa, pe)     # ... and ends
+        seconds = time.monotonic() - t0
+        first = np.asarray(body_1["predictions"], np.float32)
+        after = np.asarray(body_3["predictions"], np.float32)
+        want_after = host_forward(torch, model, client.tables[name].get,
+                                  query)
+        for s in services:
+            s.stop(0)
+        part = {
+            "shards": shards, "statuses": [status_1, status_2, status_3],
+            "equals_host_bundle": bool(np.array_equal(first,
+                                                      host["served"])),
+            "repeat_equal": bool(np.array_equal(
+                np.asarray(body_2["predictions"], np.float32), first)),
+            "unique_ids": int(unique.size), "repeat_cache_hits": repeat_hits,
+            "repeat_pulls": repeat_pulls,
+            "push_moved_answer": bool(not np.array_equal(after, first)),
+            "after_push_bit_equal_to_module": bool(np.array_equal(
+                after, want_after)),
+            "after_push_max_abs_err": float(np.abs(after - want_after).max()),
+            "launches": counts, "seconds": seconds,
+        }
+        if times is not None:
+            part["resolve_ms_b512"] = times
+        print(f"fleet row-service bundle, {shards} shard(s)",
+              json.dumps(part), flush=True)
+        check(part["statuses"] == [200, 200, 200],
+              f"statuses {part['statuses']}")
+        check(part["equals_host_bundle"],
+              f"{shards} shard(s): the row-service answer != (a)'s")
+        check(part["repeat_equal"], "the cached repeat answered otherwise")
+        check(repeat_hits == unique.size and repeat_pulls == 0,
+              f"the repeat was not served from the cache: {part}")
+        check(part["push_moved_answer"] and
+              part["after_push_bit_equal_to_module"],
+              f"the answer did not follow the push: {part}")
+        check(not any(counts.values()), f"(b) launched kernels: {counts}")
+        out["one_shard" if shards == 1 else "two_shards"] = part
+    return out
+
+
+def fleet_resolve_times(store, width):
+    """(d) Median ms of the row-service bundle's resolve of a B
+    HOST_BATCH batch through a cache probed every resolve (the served
+    configuration): cold, each from an empty cache, and warm, every id
+    a hit."""
+    from elasticdl_tpu_torch.model_zoo.deepfm import deepfm_host as twin
+    from elasticdl_tpu_torch.observability import MetricsRegistry
+    from elasticdl_tpu_torch.serving.model_store import (
+        HostRowResolver,
+        HotRowCache,
+    )
+
+    served = store.current()
+    tables = served._resolver._tables
+    rng = np.random.default_rng(SEED + 61)
+    batch = {twin.FEATURE_KEY: rng.integers(
+        0, HOST_MAX_ID, (HOST_BATCH, width)).astype(np.int32)}
+
+    def resolver(cache):
+        return HostRowResolver(served.meta["host_serving"], tables,
+                               feature_signature=served.meta.get(
+                                   "feature_signature"),
+                               row_cache=cache,
+                               metrics_registry=MetricsRegistry())
+
+    cold, warm = [], []
+    for _ in range(FLEET_RESOLVE_REPS):
+        r = resolver(HotRowCache(FLEET_CACHE_ROWS, version_check_secs=0,
+                                 metrics_registry=MetricsRegistry()))
+        t0 = time.monotonic()
+        r.resolve(dict(batch))
+        cold.append((time.monotonic() - t0) * 1e3)
+    for _ in range(FLEET_RESOLVE_REPS):
+        t0 = time.monotonic()
+        r.resolve(dict(batch))
+        warm.append((time.monotonic() - t0) * 1e3)
+    return {"batch": HOST_BATCH,
+            "unique_ids": int(np.unique(batch[twin.FEATURE_KEY]).size),
+            "cold_ms": float(np.median(cold)),
+            "warm_ms": float(np.median(warm)),
+            "cold_spread_ms": spread(cold), "warm_spread_ms": spread(warm)}
+
+
+def routed_wave(port, requests, threads):
+    """Send ``requests`` (token arrays) as msgpack from ``threads``
+    threads; returns [(status, predictions or None)] in request order."""
+    replies = [None] * len(requests)
+
+    def send(indices):
+        for i in indices:
+            status, body = post_msgpack(port, requests[i])
+            replies[i] = (status, None if body is None else np.asarray(
+                body["predictions"], np.float32))
+
+    workers = [threading.Thread(target=send,
+                                args=(range(t, len(requests), threads),))
+               for t in range(threads)]
+    for w in workers:
+        w.start()
+    return workers, replies
+
+
+def fleet_latency(port, requests, concurrency, count):
+    """Host-clock ms of each of ``count`` requests sent from
+    ``concurrency`` threads."""
+    samples = []
+    lock = threading.Lock()
+
+    def send(indices):
+        for i in indices:
+            t0 = time.monotonic()
+            status, _ = post_msgpack(port, requests[i % len(requests)])
+            with lock:
+                samples.append((time.monotonic() - t0) * 1e3)
+            check(status == 200, f"latency request answered {status}")
+
+    workers = [threading.Thread(target=send,
+                                args=(range(t, count, concurrency),))
+               for t in range(concurrency)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    return {"requests": count, "p50_ms": float(np.percentile(samples, 50)),
+            "p99_ms": float(np.percentile(samples, 99)),
+            "max_ms": float(max(samples)),
+            "mean_ms": float(np.mean(samples))}
+
+
+def histogram_sum_count(registry, name):
+    """(sum, count) over a registry histogram's series ((0, 0) when
+    absent)."""
+    for family in registry.snapshot()["families"]:
+        if family["name"] == name:
+            return (sum(s["sum"] for s in family["series"]),
+                    sum(s["count"] for s in family["series"]))
+    return 0.0, 0
+
+
+def fleet_timings(replicas, registries, router_port, requests):
+    """(d) The flagship's 128-token request on the host clock, direct
+    and routed at each concurrency of FLEET_LATENCY, beside what each
+    replica measured of the same requests: the mean of its
+    ``serving_request_seconds`` (submit to answer: the queue wait and
+    the batch) and of its ``serving_batch_seconds`` (the predict call),
+    and its batch occupancy."""
+    families = {"replica_request_ms": "edl_tpu_serving_request_seconds",
+                "replica_batch_ms": "edl_tpu_serving_batch_seconds"}
+    times = {}
+    for c, count in FLEET_LATENCY.items():
+        for target, port in (("direct", replicas[0].port),
+                             ("routed", router_port)):
+            occupancy = [dict(r.predictor.batch_occupancy)
+                         for r in replicas]
+            before = [{k: histogram_sum_count(reg, f)
+                       for k, f in families.items()} for reg in registries]
+            reading = fleet_latency(port, requests, c, count)
+            for key, family in families.items():
+                reading[key] = []
+                for reg, b in zip(registries, before):
+                    total, n = histogram_sum_count(reg, family)
+                    n -= b[key][1]
+                    reading[key].append(
+                        (total - b[key][0]) / n * 1e3 if n else None)
+            reading["batch_occupancy"] = [
+                {str(k): v - b.get(k, 0) for k, v in
+                 r.predictor.batch_occupancy.items() if v - b.get(k, 0)}
+                for r, b in zip(replicas, occupancy)]
+            times[f"{target}_c{c}"] = reading
+    return times
+
+
+def fleet_alone_times(served, tokens):
+    """(d) One request alone, FLEET_ALONE_REPS times, on the host clock:
+    ``ServedModel.predict`` (tokens in, forward, logits to the host) and
+    the reply's msgpack encode and decode."""
+    from elasticdl_tpu_torch.common import tensor_utils
+
+    predict, encode, decode = [], [], []
+    for _ in range(FLEET_ALONE_REPS):
+        t0 = time.monotonic()
+        out = served.predict(tokens)
+        t1 = time.monotonic()
+        body = tensor_utils.dumps({"predictions": out,
+                                   "model_version": served.version})
+        t2 = time.monotonic()
+        tensor_utils.loads(body)
+        t3 = time.monotonic()
+        predict.append((t1 - t0) * 1e3)
+        encode.append((t2 - t1) * 1e3)
+        decode.append((t3 - t2) * 1e3)
+
+    def spread(xs):
+        return {"median": float(np.median(xs)), "min": float(min(xs)),
+                "max": float(max(xs))}
+
+    return {"reps": FLEET_ALONE_REPS, "reply_bytes": len(body),
+            "predict_ms": spread(predict), "encode_ms": spread(encode),
+            "decode_ms": spread(decode)}
+
+
+def fleet_router_part(torch, fa, pe, bundle, timed):
+    """(c) The flagship bundle from two replicas on the card behind a
+    RouterServer; one replica stopped under load."""
+    from elasticdl_tpu_torch.observability import (
+        MetricsRegistry,
+        render_prometheus,
+    )
+    from elasticdl_tpu_torch.serving.model_store import ModelStore
+    from elasticdl_tpu_torch.serving.router import RouterServer
+    from elasticdl_tpu_torch.serving.server import InferenceServer
+
+    t0 = time.monotonic()
+    registries = [MetricsRegistry(), MetricsRegistry()]
+    stores = [ModelStore(bundle, device=DEVICE, metrics_registry=r)
+              for r in registries]
+    for store in stores:
+        store.load_initial()
+    replicas = [InferenceServer(store, max_batch_size=8,
+                                batch_deadline_ms=5.0, port=0,
+                                request_timeout=20.0,
+                                metrics_registry=r).start()
+                for store, r in zip(stores, registries)]
+    router_registry = MetricsRegistry()
+    router = RouterServer(
+        [f"localhost:{r.port}" for r in replicas], port=0,
+        policy="least_loaded", hedge=True, hedge_min_ms=FLEET_HEDGE_MIN_MS,
+        replica_timeout=120.0, metrics_registry=router_registry).start()
+    vocab = FLAGSHIP["vocab_size"]
+    rng = np.random.default_rng(SEED + 70)
+    requests = [rng.integers(0, vocab, (1, SERVE_TOKENS)).astype(np.int32)
+                for _ in range(FLEET_REQUESTS + FLEET_FAILOVER_REQUESTS)]
+    wave, tail = requests[:FLEET_REQUESTS], requests[FLEET_REQUESTS:]
+    times = None
+    killed = False
+    try:
+        reset_kernel_launches(fa, pe)         # (c) starts here
+        workers, replies = routed_wave(router.port, wave, FLEET_THREADS)
+        for w in workers:
+            w.join()
+        metrics = {"router": get_text(router.port, "/metrics"),
+                   "replica_0": get_text(replicas[0].port, "/metrics")}
+        if timed:
+            times = fleet_timings(replicas, registries, router.port, wave)
+        # Stop replica 0 under the tail's requests.
+        workers, tail_replies = routed_wave(router.port, tail,
+                                            FLEET_THREADS)
+        deadline = time.monotonic() + 60
+        while (router.core.replicas[0].inflight == 0
+               and any(w.is_alive() for w in workers)
+               and time.monotonic() < deadline):
+            time.sleep(0.0005)
+        inflight_at_kill = router.core.replicas[0].inflight
+        # stop() closes the listener and cuts the open connections, as
+        # the replica's process dying would.
+        replicas[0].stop()
+        killed = True
+        for w in workers:
+            w.join()
+        metrics["replica_1"] = get_text(replicas[1].port, "/metrics")
+        states = router.core.states()
+        counts = kernel_launch_counts(fa, pe)     # ... and ends
+        flushes = [family_total(r, "edl_tpu_serving_batch_flushes_total")
+                   for r in registries]
+        failovers = family_total(router_registry,
+                                 "edl_tpu_router_failovers_total")
+    finally:
+        router.stop()
+        for i, r in enumerate(replicas):
+            if i or not killed:
+                r.stop()
+    seconds = time.monotonic() - t0
+    served = stores[1].current()
+    answers = replies + tail_replies
+    errs = [rel_err(body, served.predict(tokens))
+            for (status, body), tokens in zip(answers, requests)
+            if body is not None]
+    statuses = [status for status, _ in answers]
+    replica_families = ("edl_tpu_serving_requests_total",
+                        "edl_tpu_serving_batch_occupancy",
+                        "edl_tpu_serving_batch_flushes_total",
+                        "edl_tpu_serving_queue_depth",
+                        "edl_tpu_serving_model_version")
+    router_families = ("edl_tpu_router_requests_total",
+                       "edl_tpu_router_attempts_total",
+                       "edl_tpu_router_failovers_total",
+                       "edl_tpu_router_replica_unhealthy_total",
+                       "edl_tpu_router_replicas_healthy")
+    missing = sorted(
+        [f for f in router_families if f not in metrics["router"]]
+        + [f"{name}:{f}" for name in ("replica_0", "replica_1")
+           for f in replica_families if f not in metrics[name]])
+    out = {
+        "model": "transformer flagship bundle from the serving phase, "
+                 "two replicas on one card; the clients, the router and "
+                 "both replicas share this one process",
+        "requests": len(answers), "statuses": statuses,
+        "batch_flushes": flushes, "flash_launches": counts[
+            "flash_attention_fwd"],
+        "rel_err_vs_served_model": max(errs) if errs else None,
+        "inflight_at_kill": inflight_at_kill,
+        "replica_health": [s["healthy"] for s in states],
+        "failovers": failovers,
+        "router_render": len(render_prometheus(router_registry.snapshot())),
+        "missing_families": missing,
+        "launches": counts, "seconds": seconds,
+    }
+    if times is not None:
+        # After the counts: these launches are no routed batch's.
+        times["alone"] = fleet_alone_times(served, wave[0])
+        out["latency"] = times
+    print("fleet router", json.dumps(out), flush=True)
+    check(statuses == [200] * len(answers), f"statuses {statuses}")
+    check(len(errs) == len(answers)
+          and max(errs) <= LOGITS_REL_TOL, f"routed != served: {errs}")
+    check(counts["flash_attention_fwd"]
+          == FLAGSHIP["n_layers"] * int(sum(flushes)),
+          f"{counts['flash_attention_fwd']} flash launches for "
+          f"{flushes} batches of {FLAGSHIP['n_layers']} layers")
+    check(all(v == 0 for k, v in counts.items()
+              if k != "flash_attention_fwd"),
+          f"(c) launched another kernel: {counts}")
+    check(out["replica_health"] == [False, True],
+          f"replica health after the stop: {out['replica_health']}")
+    check(failovers > 0, "no failover after the replica stopped")
+    check(not missing, f"families missing from /metrics: {missing}")
+    return out
+
+
+def fleet_phase(torch, fa, pe, root, flagship_bundle, timed=False):
+    """The rest of serving: (a) a host-tier bundle, (b) a row-service
+    bundle over one shard and two, (c) the flagship behind the router;
+    (d) with ``timed``."""
+    host, host_state = fleet_host_part(torch, fa, pe, root)
+    rows = fleet_rows_part(torch, fa, pe, root, host_state, timed)
+    router = fleet_router_part(torch, fa, pe, flagship_bundle, timed)
+    return {
+        "host_bundle": host, "row_service": rows, "router": router,
+        "launches": {"host_bundle": host["launches"],
+                     "row_service_one_shard":
+                         rows["one_shard"]["launches"],
+                     "row_service_two_shards":
+                         rows["two_shards"]["launches"],
+                     "router": router["launches"]},
+        "seconds": {"host_bundle": host["seconds"],
+                    "row_service": rows["one_shard"]["seconds"]
+                    + rows["two_shards"]["seconds"],
+                    "router": router["seconds"]},
+    }
+
+
 def fused_path_phase(torch, pe):
     """DeviceSparseRunner(recsys TABLE_SPECS, Momentum(lr 0.05, Nesterov),
     use_pallas="fused") on the twin for FUSED_STEPS steps, against the
@@ -5108,7 +5772,7 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--phase", choices=("all", "fwd", "bwd", "chunk", "lookup", "host",
                             "vision", "tabular", "checkpoint", "worker",
-                            "rowservice"),
+                            "rowservice", "fleet"),
         default="all",
         help="fwd: build flash_attention_fwd.cu alone, then run kernel "
              "#1's checks and times and print its kernels row; bwd: the "
@@ -5121,7 +5785,9 @@ def main(argv=None) -> int:
              "checkpoint: the checkpoint phase alone (the embedding "
              "kernels only); worker: the worker phase alone (the "
              "embedding kernels only); rowservice: the row-service "
-             "phase alone with its 1M x 256 timings (no kernel build)")
+             "phase alone with its 1M x 256 timings (no kernel build); "
+             "fleet: the fleet phase alone with its timings "
+             "(flash_attention_fwd.cu only)")
     args = parser.parse_args(argv)
     import torch
 
@@ -5167,7 +5833,8 @@ def main(argv=None) -> int:
     alone = {"fwd": [fa._SOURCE], "bwd": [fa._BWD_SOURCE],
              "chunk": [fa._CHUNK_SOURCE], "lookup": [pe._LOOKUP_SOURCE],
              "checkpoint": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
-             "worker": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE]}
+             "worker": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
+             "fleet": [fa._SOURCE]}
     logs = _build.build_all(alone.get(args.phase))
     print(f"built {sorted(logs)} in {time.monotonic() - t0:.1f}s",
           flush=True)
@@ -5186,11 +5853,17 @@ def main(argv=None) -> int:
     if args.phase == "lookup":
         print(json.dumps({"kernels": lookup_phase(torch, pe)}))
         return 0
-    if args.phase in ("checkpoint", "worker"):
-        phase = checkpoint_phase if args.phase == "checkpoint" else \
-            worker_phase
+    if args.phase in ("checkpoint", "worker", "fleet"):
         with tempfile.TemporaryDirectory() as root:
-            line = {args.phase: phase(torch, fa, pe, root)}
+            if args.phase == "fleet":
+                bundle = os.path.join(root, "v1")
+                export_flagship_bundle(torch, bundle)
+                line = {"fleet": fleet_phase(torch, fa, pe, root, bundle,
+                                             timed=True)}
+            else:
+                phase = checkpoint_phase if args.phase == "checkpoint" \
+                    else worker_phase
+                line = {args.phase: phase(torch, fa, pe, root)}
         print(json.dumps(line))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5227,6 +5900,7 @@ def main(argv=None) -> int:
             raise
         rowservice = rowservice_phase(torch, fa, pe, root,
                                       service=row_service)
+        fleet = fleet_phase(torch, fa, pe, root, os.path.join(root, "v1"))
     fused = fused_path_phase(torch, pe)
     sweep, sweep_counts = sweep_phase(torch, pe)
     emb_times = embedding_times(torch, pe)
@@ -5264,6 +5938,9 @@ def main(argv=None) -> int:
                 row["name"]],
             "two_shards": rowservice["two_shards"]["launches"][row["name"]],
             "shared": rowservice["subprocess"]["launches"][row["name"]]}
+        row["launches_fleet"] = {
+            part: counts[row["name"]]
+            for part, counts in fleet["launches"].items()}
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"sparse_training": sparse}))
@@ -5274,6 +5951,7 @@ def main(argv=None) -> int:
     print(json.dumps({"checkpoint": checkpoint}))
     print(json.dumps({"worker": worker}))
     print(json.dumps({"rowservice": rowservice}))
+    print(json.dumps({"fleet": fleet}))
     print(json.dumps({"kernels": [kernel, chunk_row] + bwd_rows
                       + emb_rows}))
     print(json.dumps({"ok": True, "device": {

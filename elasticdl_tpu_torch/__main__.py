@@ -1,6 +1,8 @@
-"""``python -m elasticdl_tpu_torch {serve,train,evaluate,predict} ...``.
+"""``python -m elasticdl_tpu_torch {serve,route,train,evaluate,predict} ...``.
 
 - ``serve``: the online inference server (serving/server.py).
+- ``route``: the serving fleet's router (serving/router.py), in front of
+  ``serve`` replicas of either package.
 - ``train``: a training job with ``--distribution_strategy Local``, run
   in-process by ``api/local_executor.LocalExecutor``; ``--checkpoint_dir``
   saves it, ``--checkpoint_dir_for_init`` resumes from a checkpoint.
@@ -16,14 +18,14 @@ that pull them) runs as two entry points, started by hand:
 ``python -m elasticdl_tpu_torch.master.main`` and ``python -m
 elasticdl_tpu_torch.worker.main --master_addr HOST:PORT``. ``train``
 with another strategy than Local would launch a master pod on k8s, and
-k8s is not ported yet, nor are the JAX CLI's other subcommands (route,
-chaos, trace, clean).
+k8s is not ported yet, nor are the JAX CLI's other subcommands (chaos,
+trace, clean).
 """
 
 import json
 import sys
 
-_PORTED = ("serve", "train", "evaluate", "predict")
+_PORTED = ("serve", "route", "train", "evaluate", "predict")
 
 
 def _run_local(role: str, argv) -> int:
@@ -72,6 +74,10 @@ def main(argv=None) -> int:
         from elasticdl_tpu_torch.serving.server import main as serve_main
 
         return serve_main(rest)
+    if command == "route":
+        from elasticdl_tpu_torch.serving.router import main as route_main
+
+        return route_main(rest)
     if command in ("train", "evaluate", "predict"):
         return _run_local(command, rest)
     print(f"elasticdl_tpu_torch: subcommand {command!r} not yet ported "

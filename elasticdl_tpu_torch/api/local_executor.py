@@ -12,8 +12,11 @@ A zoo module with ``make_host_runner`` (host-tier models) or
 runner, a host runner first: its ``init_state`` builds the state at the
 first batch, and its ``train_step``/``eval_step`` replace the dense
 steps. A host runner's pending row applies are flushed before training
-returns. Such models cannot be exported with ``--output`` yet (their
-bundles wait for the rest of serving).
+returns, so ``--output`` exports a host model with its tables
+materialised dense up to the zoo's ``host_serving_vocab``
+(``callbacks.SavedModelExporter``). A device-tier sparse model has no
+serving bundle: ``--output`` raises for it, as the JAX export cannot
+trace a ``SparseEmbed`` model from its ``params`` alone.
 
 Checkpoints (``checkpoint/``): with ``--checkpoint_dir`` and
 ``--checkpoint_steps N`` the state is saved every N versions and at the
@@ -111,17 +114,12 @@ class LocalExecutor:
         if self._step_runner is None:
             self._train_step = build_train_step(self._spec.loss)
             self._eval_step = build_eval_step()
-        elif args.output and self._spec.make_host_runner:
+        elif args.output and not self._spec.make_host_runner:
             raise NotImplementedError(
-                "--output with a host runner: the serving bundle of a "
-                "host-tier model (its host tables materialised dense) "
-                "waits for the rest of serving (ROADMAP Queue 1, item 5)"
-            )
-        elif args.output:
-            raise NotImplementedError(
-                "--output with a sparse runner: the serving bundle of a "
-                "device-tier sparse model waits for the serving slice of "
-                "the port"
+                "--output with a sparse runner: the JAX package has no "
+                "serving bundle of a device-tier sparse model (its export "
+                "passes only params and batch_stats, so a SparseEmbed "
+                "model cannot be traced), and the port adds none"
             )
         self._callbacks = ensure_saved_model_exporter(
             (self._spec.callbacks_fn() if self._spec.callbacks_fn else [])

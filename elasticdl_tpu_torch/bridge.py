@@ -272,3 +272,24 @@ def flax_state_dict(params: dict, batch_stats: Optional[dict] = None
     walk(params, "")
     walk(batch_stats or {}, "")
     return out
+
+
+def state_dict_for(model: torch.nn.Module, variables: dict
+                   ) -> Dict[str, torch.Tensor]:
+    """``model``'s ``state_dict`` for a flax bundle's variables
+    (``{"params", "batch_stats", ...}``), by the map of the twin that
+    ``model`` is: the transformer LM's, the DeepFM twins' (a ``deep``
+    tower; the tables' leaf is ``weight`` where the twin holds an
+    ``nn.Embedding``), else ``flax_state_dict`` by module path (the
+    vision and tabular twins)."""
+    from elasticdl_tpu_torch.model_zoo.deepfm.fm_layers import DeepTower
+    from elasticdl_tpu_torch.models.transformer import TransformerLM
+
+    if isinstance(model, TransformerLM):
+        return state_dict_from_flax(variables)
+    if isinstance(getattr(model, "deep", None), DeepTower):
+        embed_param = ("weight" if any(
+            isinstance(m, torch.nn.Embedding) for m in model.children())
+            else "embedding")
+        return deepfm_state_dict_from_flax(variables, embed_param)
+    return flax_state_dict(variables)

@@ -2,7 +2,10 @@
 
 - ``SavedModelExporter`` exports a serving bundle of the trained module
   when training ends (the port's ``serving/export.export_serving_bundle``:
-  its ``state_dict``, BatchNorm statistics included).
+  its ``state_dict``, BatchNorm statistics included). A host-tier model
+  also gets its tables materialised dense up to the zoo module's
+  ``host_serving_vocab``; with no vocab, or a vocab that does not fit
+  the model, the bundle degrades to params only, with a warning.
 - ``Callback.on_train_batch_begin``/``on_train_batch_end`` run around
   every train step (after the state exists), so a caller can time or
   record steps without reaching into the executor.
@@ -65,10 +68,44 @@ class SavedModelExporter(Callback):
         # has one, so ``serve --model_zoo`` can rebuild the module.
         model_def = (getattr(getattr(owner, "_args", None), "model_def", "")
                      or getattr(spec, "model_fn_name", ""))
-        export_serving_bundle(
-            self._output_dir, state.model, batch_example=batch_example,
-            model_def=model_def, version=state.step,
-        )
+        # Host-tier models: the tables materialised dense into the
+        # bundle, up to the zoo module's host_serving_vocab.
+        host_tables = host_vocab = host_lock = None
+        runner = getattr(owner, "_step_runner", None)
+        engine = getattr(runner, "engine", None)
+        if engine is not None and spec is not None:
+            host_vocab = getattr(spec.module, "host_serving_vocab", None)
+            if host_vocab:
+                host_tables = engine.tables
+                host_lock = engine.lock
+            else:
+                # No vocab, no dense tables: the host model cannot
+                # serve them, so the bundle degrades to params only.
+                logger.warning(
+                    "SavedModelExporter: host-tier model without "
+                    "host_serving_vocab — exporting params-only bundle"
+                )
+                batch_example = None
+        try:
+            export_serving_bundle(
+                self._output_dir, state.model, batch_example=batch_example,
+                model_def=model_def, version=state.step,
+                host_tables=host_tables, host_vocab=host_vocab,
+                host_lock=host_lock,
+            )
+        except ValueError as exc:
+            if host_tables is None:
+                raise
+            # A misconfigured host_serving_vocab must not lose the whole
+            # export at the end of a run.
+            logger.warning(
+                "SavedModelExporter: %s — falling back to a params-only "
+                "bundle", exc,
+            )
+            export_serving_bundle(
+                self._output_dir, state.model, batch_example=None,
+                model_def=model_def, version=state.step,
+            )
         logger.info("Exported serving bundle to %s", self._output_dir)
 
 

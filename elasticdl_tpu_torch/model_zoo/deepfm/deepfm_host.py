@@ -7,8 +7,11 @@ RAM (the C++ row store when it builds), each batch's rows are pulled as
 a bucket-padded block and their gradients applied back
 (``embedding/host_engine.py``). The executor picks ``make_host_runner``
 up by name. Several worker processes share one table through a row
-service (``make_row_service``, ``make_host_runner(remote_addr=...)``). Rows train with SGD at lr 0.05, the MLP with Adam at 1e-3,
-bf16 compute.
+service (``make_row_service``, ``make_host_runner(remote_addr=...)``).
+Rows train with SGD at lr 0.05, the MLP with Adam at 1e-3, bf16
+compute. ``--output`` bundles the table dense up to
+``host_serving_vocab``; ``export_serving_bundle(host_id_keys=...)``
+bundles it for serving from a row service instead.
 
 Records are frappe payloads {"feature_ids": [INPUT_LENGTH ints in
 [0, MAX_ID)], "label": 0 or 1} (``testing.data.create_frappe_record_file``).
@@ -39,6 +42,9 @@ MAX_ID = 5500
 EMBEDDING_DIM = 16
 TABLE_NAME = "deepfm_host_embedding"
 FEATURE_KEY = "feature_ids"
+# The serving export materialises the host table dense up to this vocab
+# (``SavedModelExporter``); a served batch's raw ids index it.
+host_serving_vocab = {TABLE_NAME: MAX_ID}
 
 
 class HostDeepFM(nn.Module):

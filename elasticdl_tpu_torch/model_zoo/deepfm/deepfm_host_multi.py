@@ -35,6 +35,8 @@ FIELD_GROUPS = {
     "host_emb_item": ("ids_item", (4, 7)),
     "host_emb_ctx": ("ids_ctx", (7, 10)),
 }
+# The serving export materialises each table dense up to this vocab.
+host_serving_vocab = {name: MAX_ID for name in FIELD_GROUPS}
 
 
 class HostDeepFMMulti(nn.Module):

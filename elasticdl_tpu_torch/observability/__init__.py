@@ -1,5 +1,5 @@
 """Telemetry plane of the port (the part of elasticdl_tpu/observability
-that the checkpoint slice and the master's task plane need).
+that the checkpoint slice, the master's task plane and serving need).
 
 - ``registry``: process-local counters, gauges and histograms (labeled
   families, thread-safe) that the checkpoint saver, writer and hook,
@@ -11,7 +11,9 @@ that the checkpoint slice and the master's task plane need).
 - ``exposition``: Prometheus text over a stdlib HTTP endpoint
   (``/metrics``, ``/healthz``, ``/traces``);
 - ``principal`` and ``usage``: the workload principal that rides every
-  RPC and the per-principal metering of each request.
+  RPC and the per-principal metering of each request;
+- ``slo``: only ``RollingWindow``, the serving router's per-replica
+  SLO window.
 
 The SLO engine, the time-series store, the profiler and the prober of
 the JAX package's plane are not ported yet. Metric names follow

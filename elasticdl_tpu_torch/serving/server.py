@@ -15,27 +15,81 @@ model sees one predict at a time.
   ``batch_deadline_ms``.
 - **Bucketed shapes**: the combined batch pads to a power-of-two
   bucket (clamped to ``max_batch_size``) by repeating row 0.
-- **Backpressure**: a full queue sheds new requests with 429.
+- **Tiered backpressure**: the bounded queue sheds with 429 and a
+  ``Retry-After``, cheapest traffic first: hedged attempts
+  (``X-Hedge: 1``, a router's speculative second try) past
+  ``hedge_shed_frac`` of the queue, ``X-Priority: low`` past
+  ``low_shed_frac``, everything at a full queue or while draining or
+  stopped. The 429 carries its tier in ``X-Shed-Tier``.
+- **Stop**: ``InferenceServer.stop()`` tears down as a dead process
+  would: it closes the listener and cuts the open connections, and
+  requests still queued answer 429 (tier ``draining``). ``drain()`` is
+  the graceful SIGTERM path.
+- **Telemetry**: the ``serving_*`` families on ``GET /metrics`` (the
+  process registry, Prometheus text); with a flight recorder installed
+  (``--flight_recorder N``) the ``request``, ``queue_wait``,
+  ``batch_assembly`` and ``predict`` spans on ``GET /traces``.
 
-Not ported yet: ``/metrics``, tracing and the profiler, the
-``X-Priority`` / ``X-Hedge`` shed tiers, row-service bundles and the
-master telemetry reporter.
+Not ported yet (ROADMAP Queue 1, item 8): the master telemetry reporter
+(``--master_addr``, ``--metrics_report_secs``) and the sampling profiler
+(``--profile_hz``, ``--profile_window_secs``), and ``--replica_id``,
+which only those two read; each flag raises when set.
 """
 
 import collections
 import json
+import socket
+import sys
 import threading
 import time
+import weakref
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import List, Optional
 
 import numpy as np
 
 from elasticdl_tpu_torch.common.log_utils import get_logger
+from elasticdl_tpu_torch.observability import (
+    default_registry,
+    render_prometheus,
+    tracing,
+)
 
 logger = get_logger("serving")
 
 MSGPACK_CONTENT_TYPE = "application/x-msgpack"
+
+# Batch-occupancy buckets: powers of two up to the largest batch any
+# config uses (the registry's default buckets are latency-shaped).
+_BATCH_BUCKETS = tuple(float(2 ** i) for i in range(13))
+
+_ITEM_8 = "is not ported yet (ROADMAP Queue 1, item 8)"
+
+
+def not_ported_flags(id_flag: str) -> dict:
+    """Flags of JAX code that is not ported, each of which raises when
+    set: the reporter's and the profiler's, and the process's id
+    (``replica_id`` or ``router_id``), which only those two read."""
+    return {
+        "master_addr": "the metrics reporter to the master",
+        "metrics_report_secs": "the metrics reporter to the master",
+        "profile_hz": "the sampling profiler",
+        "profile_window_secs": "the sampling profiler",
+        id_flag: "the process id the reporter and the profiler read",
+    }
+
+
+def add_not_ported_flags(parser, flags: dict):
+    for flag, what in flags.items():
+        parser.add_argument(f"--{flag}", default=None,
+                            help=f"Not ported yet (ROADMAP Queue 1, "
+                                 f"item 8): {what}")
+
+
+def raise_on_not_ported_flags(args, flags: dict):
+    for flag, what in flags.items():
+        if getattr(args, flag) is not None:
+            raise NotImplementedError(f"--{flag}: {what} {_ITEM_8}")
 
 
 # ---- trees: dicts / lists / tuples of arrays --------------------------
@@ -123,7 +177,7 @@ def _coerce_signature(features, signature):
 
 class _Request:
     __slots__ = ("features", "n", "event", "outputs", "error",
-                 "version", "enqueued_at", "cancelled")
+                 "version", "enqueued_at", "cancelled", "trace_ctx")
 
     def __init__(self, features, n: int):
         self.features = features
@@ -136,6 +190,10 @@ class _Request:
         # Set when the submitting handler gave up (timeout): the batcher
         # drops it instead of computing dead work.
         self.cancelled = False
+        # (trace_id, span_id) of the handler's request span when tracing
+        # is on: the batcher retro-records queue-wait and batch spans
+        # against it.
+        self.trace_ctx = None
 
 
 class BatchingPredictor:
@@ -143,20 +201,35 @@ class BatchingPredictor:
     calling handler thread until its slice of a flushed batch returns;
     ``QueueFullError`` is the load-shed signal (HTTP 429).
 
-    ``batch_occupancy`` counts flushed batches by real examples (before
-    padding), ``statuses`` HTTP replies by code."""
+    ``batch_occupancy`` counts flushed batches by each real example
+    count (before padding), which the ``serving_batch_occupancy``
+    histogram's power-of-two buckets cannot tell apart."""
 
     class QueueFullError(RuntimeError):
-        def __init__(self, message: str, retry_after: float = 1.0):
+        """Load-shed signal (HTTP 429): ``retry_after`` is the suggested
+        backoff in seconds, ``tier`` the shed tier that fired."""
+
+        def __init__(self, message: str, tier: str = "capacity",
+                     retry_after: float = 1.0):
             super().__init__(message)
+            self.tier = tier
             self.retry_after = float(retry_after)
 
     def __init__(self, store, max_batch_size: int = 64,
-                 batch_deadline_ms: float = 5.0, max_queue: int = 256):
+                 batch_deadline_ms: float = 5.0, max_queue: int = 256,
+                 hedge_shed_frac: float = 0.5,
+                 low_shed_frac: float = 0.75,
+                 metrics_registry=None):
         self._store = store
+        self._tracer = tracing.Tracer("serving")
         self.max_batch_size = int(max_batch_size)
         self.batch_deadline = float(batch_deadline_ms) / 1e3
         self.max_queue = int(max_queue)
+        # Shed tiers, fractions of max_queue: hedged attempts first (the
+        # primary is in flight elsewhere), then low priority, then, at a
+        # full queue, everything.
+        self.hedge_shed_frac = float(hedge_shed_frac)
+        self.low_shed_frac = float(low_shed_frac)
         self._queue: List[_Request] = []
         self._cond = threading.Condition()
         self._stop = False
@@ -167,12 +240,81 @@ class BatchingPredictor:
         self._busy = False
         self._thread: Optional[threading.Thread] = None
         self.batch_occupancy = collections.Counter()
-        self.statuses = collections.Counter()
+
+        registry = metrics_registry or default_registry()
+        self._m_requests = registry.counter(
+            "serving_requests_total", "Predict requests by HTTP status code",
+            labelnames=("code",),
+        )
+        self._m_latency = registry.histogram(
+            "serving_request_seconds",
+            "End-to-end predict latency (enqueue to reply)",
+            exemplars=True,
+        )
+        self._m_batch_seconds = registry.histogram(
+            "serving_batch_seconds", "Predict-call latency per flushed batch",
+        )
+        self._m_batch_size = registry.histogram(
+            "serving_batch_occupancy",
+            "Real examples per flushed batch (pre-padding)",
+            buckets=_BATCH_BUCKETS,
+        )
+        self._m_flushes = registry.counter(
+            "serving_batch_flushes_total", "Batch flushes by trigger",
+            labelnames=("reason",),
+        )
+        self._m_shed = registry.counter(
+            "serving_load_shed_total",
+            "Requests shed with 429, by tier (hedge < low < capacity)",
+            labelnames=("tier",),
+        )
+        self._m_padded = registry.counter(
+            "serving_padded_examples_total",
+            "Padding examples added to reach the shape bucket",
+        )
+        self._m_errors = registry.counter(
+            "serving_batch_errors_total", "Batches whose predict call raised",
+        )
+        # A weak reference: the registry outlives predictors, and a
+        # strong closure would pin every resident model's weights.
+        self_ref = weakref.ref(self)
+        registry.gauge(
+            "serving_queue_depth", "Requests waiting for a batch slot",
+        ).set_function(
+            lambda: float(len(self_ref()._queue)) if self_ref() else 0.0
+        )
 
     # ---- client side ---------------------------------------------------
 
-    def submit(self, features, timeout: float = 30.0):
-        """Enqueue one request; returns (outputs, model_version)."""
+    def _shed_locked(self, priority: str, hedge: bool):
+        """Raise QueueFullError when the queue's depth crosses the tier
+        this request belongs to. Called under ``_cond``."""
+        depth = len(self._queue)
+        if self._draining or self._stop:
+            raise self.QueueFullError("server draining or stopped",
+                                      tier="draining", retry_after=2.0)
+        if depth >= self.max_queue:
+            raise self.QueueFullError(
+                f"queue full ({self.max_queue} requests waiting)",
+                tier="capacity", retry_after=2.0,
+            )
+        if hedge and depth >= self.hedge_shed_frac * self.max_queue:
+            raise self.QueueFullError(
+                f"hedge shed at queue depth {depth}", tier="hedge",
+                retry_after=1.0,
+            )
+        if priority == "low" and depth >= self.low_shed_frac * self.max_queue:
+            raise self.QueueFullError(
+                f"low-priority shed at queue depth {depth}", tier="low",
+                retry_after=1.0,
+            )
+
+    def submit(self, features, timeout: float = 30.0,
+               priority: str = "normal", hedge: bool = False):
+        """Enqueue one request; returns (outputs, model_version).
+
+        ``priority`` ("high"/"normal"/"low") and ``hedge`` select the
+        shed tier."""
         model = self._store.current()
         if model is None:
             raise RuntimeError("no model loaded")
@@ -184,23 +326,24 @@ class BatchingPredictor:
                 f"size {limit}; split the request"
             )
         request = _Request(features, n)
-        with self._cond:
-            if self._draining:
-                raise self.QueueFullError("server draining (SIGTERM)",
-                                          retry_after=2.0)
-            if len(self._queue) >= self.max_queue:
-                raise self.QueueFullError(
-                    f"queue full ({self.max_queue} requests waiting)",
-                    retry_after=2.0,
-                )
-            self._queue.append(request)
-            self._cond.notify_all()
-        if not request.event.wait(timeout):
-            request.cancelled = True
-            raise TimeoutError("predict timed out")
-        if request.error is not None:
-            raise request.error
-        return request.outputs, request.version
+        with self._tracer.span("request", n=n) as req_span:
+            if req_span.span_id is not None:
+                request.trace_ctx = (req_span.trace_id, req_span.span_id)
+            with self._cond:
+                try:
+                    self._shed_locked(priority, hedge)
+                except self.QueueFullError as exc:
+                    self._m_shed.labels(tier=exc.tier).inc()
+                    raise
+                self._queue.append(request)
+                self._cond.notify_all()
+            if not request.event.wait(timeout):
+                request.cancelled = True
+                raise TimeoutError("predict timed out")
+            self._m_latency.observe(time.monotonic() - request.enqueued_at)
+            if request.error is not None:
+                raise request.error
+            return request.outputs, request.version
 
     # ---- batcher side --------------------------------------------------
 
@@ -215,8 +358,8 @@ class BatchingPredictor:
 
     def _take_batch(self) -> List[_Request]:
         """Block until a flushable batch exists, then pop it: flush when
-        the queued examples reach the limit or the oldest request has
-        waited batch_deadline."""
+        the queued examples reach the limit or the oldest has waited
+        batch_deadline."""
         with self._cond:
             while True:
                 if self._stop:
@@ -248,6 +391,8 @@ class BatchingPredictor:
                     # Atomic with the pop: drain waits on (queue empty
                     # and not busy).
                     self._busy = True
+                    self._m_flushes.labels(
+                        reason="size" if full else "deadline").inc()
                     return batch
                 self._cond.wait(timeout=deadline - now)
 
@@ -260,10 +405,34 @@ class BatchingPredictor:
             bucket *= 2
         return min(bucket, max(limit, n))
 
-    def _run_batch(self, batch: List[_Request]):
+    def _trace_batch(self, batch: List[_Request], record_wait: bool):
+        """Retro-record each request's queue-wait span (enqueue to pop)
+        and return the context the shared batch spans hang off (the
+        head request's); None when tracing is off."""
+        if not tracing.enabled():
+            return None
+        now = time.monotonic()
+        head_ctx = None
+        for request in batch:
+            if request.trace_ctx is None:
+                continue
+            trace_id, span_id = request.trace_ctx
+            if head_ctx is None:
+                head_ctx = request.trace_ctx
+            if record_wait:
+                tracing.record_span(
+                    "queue_wait", request.enqueued_at,
+                    now - request.enqueued_at,
+                    trace_id=trace_id, parent_id=span_id, role="serving",
+                )
+        return head_ctx
+
+    def _run_batch(self, batch: List[_Request], _record_wait=True):
         model = self._store.current()
         total = sum(r.n for r in batch)
+        head_ctx = self._trace_batch(batch, _record_wait)
         try:
+            assembly_t0 = time.monotonic()
             structure = _tree_structure(batch[0].features)
             for request in batch[1:]:
                 if _tree_structure(request.features) != structure:
@@ -276,7 +445,27 @@ class BatchingPredictor:
                 target = model.static_batch_size
             else:
                 target = self.bucket_batch(total, self._effective_limit())
-            outputs = model.predict(_pad_tree(features, target, total))
+            features = _pad_tree(features, target, total)
+            self._m_padded.inc(target - total)
+            t0 = time.monotonic()
+            if head_ctx is not None:
+                tracing.record_span(
+                    "batch_assembly", assembly_t0, t0 - assembly_t0,
+                    trace_id=head_ctx[0], parent_id=head_ctx[1],
+                    role="serving", requests=len(batch),
+                    examples=int(total), bucket=int(target),
+                )
+            outputs = model.predict(features)
+            predict_dur = time.monotonic() - t0
+            if head_ctx is not None:
+                tracing.record_span(
+                    "predict", t0, predict_dur,
+                    trace_id=head_ctx[0], parent_id=head_ctx[1],
+                    role="serving", requests=len(batch),
+                    examples=int(total), bucket=int(target),
+                )
+            self._m_batch_seconds.observe(predict_dur)
+            self._m_batch_size.observe(total)
             self.batch_occupancy[total] += 1
             lo = 0
             for request in batch:
@@ -284,11 +473,13 @@ class BatchingPredictor:
                 request.version = model.version
                 lo += request.n
         except Exception as exc:
+            self._m_errors.inc()
             if len(batch) > 1:
                 # Isolate the poison request: one bad payload must not
-                # fail the innocent requests sharing its flush.
+                # fail the innocent requests sharing its flush (their
+                # queue-wait is already recorded).
                 for request in batch:
-                    self._run_batch([request])
+                    self._run_batch([request], _record_wait=False)
                 return
             batch[0].error = exc
         finally:
@@ -318,10 +509,17 @@ class BatchingPredictor:
 
     def stop(self, join_timeout: float = 5.0) -> bool:
         """Stop the batcher; False if its thread (an in-flight predict)
-        outlived ``join_timeout``."""
+        outlived ``join_timeout``. Requests still queued, and any
+        submitted later, answer QueueFullError (tier "draining")."""
         with self._cond:
             self._stop = True
+            stranded, self._queue = self._queue, []
             self._cond.notify_all()
+        for request in stranded:
+            self._m_shed.labels(tier="draining").inc()
+            request.error = self.QueueFullError(
+                "server stopped", tier="draining", retry_after=2.0)
+            request.event.set()
         thread, self._thread = self._thread, None
         if thread is not None:
             thread.join(timeout=join_timeout)
@@ -350,7 +548,7 @@ class BatchingPredictor:
         return self.stop(join_timeout=remaining) and drained
 
     def record_status(self, code: int):
-        self.statuses[code] += 1
+        self._m_requests.labels(code=str(code)).inc()
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -387,7 +585,15 @@ class _Handler(BaseHTTPRequestHandler):
     def do_GET(self):  # noqa: N802 (BaseHTTPRequestHandler API)
         srv = type(self).server_ref
         path = self.path.split("?", 1)[0]
-        if path == "/healthz":
+        if path == "/metrics":
+            body = render_prometheus(srv.registry.snapshot())
+            self._reply(200, body.encode("utf-8"),
+                        "text/plain; version=0.0.4; charset=utf-8")
+        elif path == "/traces":
+            # The flight recorder's spans; empty until the server runs
+            # with --flight_recorder N.
+            self._reply_json(200, {"spans": tracing.recorder_spans()})
+        elif path == "/healthz":
             ok = srv.store.current() is not None
             self._reply(200 if ok else 503,
                         b"ok\n" if ok else b"no model\n",
@@ -400,7 +606,7 @@ class _Handler(BaseHTTPRequestHandler):
                 "meta": current.meta if current else None,
             })
         else:
-            self.send_error(404, "try /v1/predict, /v1/models, /healthz")
+            self.send_error(404, "try /v1/predict, /v1/models, /metrics")
 
     def do_POST(self):  # noqa: N802
         srv = type(self).server_ref
@@ -438,15 +644,23 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply_error(400, f"bad request: {exc}",
                               as_msgpack=as_msgpack)
             return
+        # Router-set scheduling hints: X-Priority selects the shed tier,
+        # X-Hedge marks a speculative second attempt (shed first).
+        priority = self.headers.get("X-Priority", "normal").lower()
+        if priority not in ("high", "normal", "low"):
+            priority = "normal"
+        hedge = self.headers.get("X-Hedge", "") == "1"
         try:
             outputs, version = srv.predictor.submit(
-                features, timeout=srv.request_timeout
+                features, timeout=srv.request_timeout,
+                priority=priority, hedge=hedge,
             )
         except BatchingPredictor.QueueFullError as exc:
             self._reply_error(
                 429, str(exc), as_msgpack=as_msgpack,
                 headers=(("Retry-After",
-                          str(max(1, int(round(exc.retry_after))))),),
+                          str(max(1, int(round(exc.retry_after))))),
+                         ("X-Shed-Tier", exc.tier)),
             )
             return
         except TimeoutError as exc:
@@ -482,6 +696,47 @@ class _Handler(BaseHTTPRequestHandler):
         logger.debug("serving http: " + fmt, *args)
 
 
+class _ServingHTTPServer(ThreadingHTTPServer):
+    """Keeps its open connections, so ``cut_connections`` can end them
+    as a dead process's would end."""
+
+    daemon_threads = True
+    # socketserver's default listen backlog (5) SYN-drops a client fleet
+    # connecting at once.
+    request_queue_size = 128
+
+    def __init__(self, *args, **kwargs):
+        self._conns = set()
+        self._conns_lock = threading.Lock()
+        super().__init__(*args, **kwargs)
+
+    def process_request(self, request, client_address):
+        with self._conns_lock:
+            self._conns.add(request)
+        super().process_request(request, client_address)
+
+    def shutdown_request(self, request):
+        with self._conns_lock:
+            self._conns.discard(request)
+        super().shutdown_request(request)
+
+    def cut_connections(self):
+        """Refuse new connections and end the open ones, at once."""
+        with self._conns_lock:
+            conns = list(self._conns)
+        for conn in [self.socket] + conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+
+    def handle_error(self, request, client_address):
+        # A handler answering into a connection that stop() cut.
+        if isinstance(sys.exc_info()[1], ConnectionError):
+            return
+        super().handle_error(request, client_address)
+
+
 class InferenceServer:
     """The assembled serving process: store + batcher + HTTP front.
 
@@ -491,11 +746,17 @@ class InferenceServer:
     def __init__(self, store, max_batch_size: int = 64,
                  batch_deadline_ms: float = 5.0, max_queue: int = 256,
                  port: int = 8500, host: str = "",
-                 request_timeout: float = 30.0):
+                 request_timeout: float = 30.0,
+                 hedge_shed_frac: float = 0.5,
+                 low_shed_frac: float = 0.75,
+                 metrics_registry=None):
         self.store = store
+        self.registry = metrics_registry or default_registry()
         self.predictor = BatchingPredictor(
             store, max_batch_size=max_batch_size,
             batch_deadline_ms=batch_deadline_ms, max_queue=max_queue,
+            hedge_shed_frac=hedge_shed_frac, low_shed_frac=low_shed_frac,
+            metrics_registry=self.registry,
         )
         self.request_timeout = float(request_timeout)
         self._host = host
@@ -510,16 +771,8 @@ class InferenceServer:
     def start(self) -> "InferenceServer":
         self.predictor.start()
         handler = type("_BoundHandler", (_Handler,), {"server_ref": self})
-        self._httpd = ThreadingHTTPServer(
-            (self._host, self._requested_port), handler,
-            bind_and_activate=False,
-        )
-        # socketserver's default listen backlog (5) SYN-drops a client
-        # fleet connecting at once.
-        self._httpd.request_queue_size = 128
-        self._httpd.server_bind()
-        self._httpd.server_activate()
-        self._httpd.daemon_threads = True
+        self._httpd = _ServingHTTPServer(
+            (self._host, self._requested_port), handler)
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, daemon=True,
             name="serving-http",
@@ -532,7 +785,11 @@ class InferenceServer:
         self._thread.join()
 
     def stop(self):
+        """Tear down now, as a dead process would: the listener and the
+        open connections close (a request in flight fails at its
+        client), then the batcher stops."""
         if self._httpd is not None:
+            self._httpd.cut_connections()
             self._httpd.shutdown()
             self._httpd.server_close()
             self._httpd = None
@@ -550,12 +807,17 @@ class InferenceServer:
             self._httpd.server_close()
             self._httpd = None
         self.store.stop()
+        logger.info(
+            "inference server drained (%s)",
+            "clean" if drained else "grace expired with queued work",
+        )
         return drained
 
 
 def main(argv=None) -> int:
     """``elasticdl_tpu_torch serve`` entry: serve an export directory."""
     import argparse
+    import os
     import signal
 
     parser = argparse.ArgumentParser("elasticdl_tpu_torch-serve")
@@ -574,6 +836,11 @@ def main(argv=None) -> int:
     parser.add_argument("--max_queue", type=int, default=256,
                         help="Queued requests beyond this shed with 429")
     parser.add_argument(
+        "--row_service_addr", default="",
+        help="Comma list of HostRowService shard addresses: required "
+             "for bundles exported in row-service mode (host_id_keys)",
+    )
+    parser.add_argument(
         "--model_zoo", default="",
         help="Zoo directory: build the module from the bundle's "
              "model_def there instead of from its recorded config",
@@ -582,21 +849,58 @@ def main(argv=None) -> int:
     parser.add_argument("--retain_versions", type=int, default=1)
     parser.add_argument("--request_timeout", type=float, default=30.0)
     parser.add_argument(
+        "--row_cache_capacity", type=int, default=0,
+        help="Hot-row LRU size (rows) for row-service bundles; 0 "
+             "(default) = no cache",
+    )
+    parser.add_argument(
+        "--row_cache_version_check_ms", type=float, default=50.0,
+        help="How often the cache re-reads the row service's per-table "
+             "update counters. 0 = every request (read-your-writes); "
+             "negative = never (immutable tables)",
+    )
+    parser.add_argument(
+        "--hedge_shed_frac", type=float, default=0.5,
+        help="Queue fraction past which hedged requests shed with 429",
+    )
+    parser.add_argument(
+        "--low_shed_frac", type=float, default=0.75,
+        help="Queue fraction past which low-priority requests shed "
+             "with 429",
+    )
+    parser.add_argument(
         "--drain_grace", type=float, default=25.0,
         help="SIGTERM drain budget for in-flight micro-batches",
+    )
+    parser.add_argument(
+        "--flight_recorder", type=int, default=0,
+        help="Install a span flight recorder of this many entries "
+             "(request / queue-wait / batch-assembly / predict spans, "
+             "served on /traces). 0 (default) = off",
     )
     parser.add_argument(
         "--device", default=None,
         help="cuda (default) or cpu; with no GPU the default raises",
     )
+    unported = not_ported_flags("replica_id")
+    add_not_ported_flags(parser, unported)
     args = parser.parse_args(argv)
+    raise_on_not_ported_flags(args, unported)
 
+    from elasticdl_tpu_torch.observability import principal
     from elasticdl_tpu_torch.serving.model_store import ModelStore
 
+    # This replica's row pulls meter as serving reads at the row tier.
+    principal.set_process_principal(
+        job=os.environ.get("ELASTICDL_JOB_NAME", ""),
+        component="serving", purpose="serving_read",
+    )
+    if args.flight_recorder > 0:
+        tracing.set_process_role("serving")
+        tracing.install_recorder(
+            tracing.FlightRecorder(args.flight_recorder))
     model_fn = None
     if args.model_zoo:
-        import os
-
         from elasticdl_tpu_torch.core.model_spec import load_model_zoo_module
         from elasticdl_tpu_torch.serving.export import META_FILE
 
@@ -613,7 +917,12 @@ def main(argv=None) -> int:
                 return getattr(module, fn_name)(device="cpu")
     store = ModelStore(
         args.model_dir, device=args.device, model_fn=model_fn,
+        row_service_addr=args.row_service_addr,
         retain=args.retain_versions, poll_seconds=args.poll_seconds,
+        row_cache_capacity=args.row_cache_capacity,
+        row_cache_version_check_secs=(
+            args.row_cache_version_check_ms / 1e3
+            if args.row_cache_version_check_ms >= 0 else -1.0),
     )
     store.load_initial()
     store.start_polling()
@@ -622,6 +931,8 @@ def main(argv=None) -> int:
         batch_deadline_ms=args.batch_deadline_ms,
         max_queue=args.max_queue, port=args.port,
         request_timeout=args.request_timeout,
+        hedge_shed_frac=args.hedge_shed_frac,
+        low_shed_frac=args.low_shed_frac,
     ).start()
     logger.info(
         "Serving %s on :%d (device=%s, max_batch=%d, deadline=%.1fms)",

@@ -335,17 +335,50 @@ def test_executor_takes_the_host_runner_first(tmp_path):
         deepfm_host.TABLE_NAME].num_rows > 0
 
 
-def test_output_with_a_host_runner_raises(tmp_path):
+@pytest.mark.parametrize("name", ["deepfm_host", "deepfm_host_multi"])
+def test_output_with_a_host_runner_exports_a_host_bundle(name, tmp_path):
+    """``--output`` with a host runner: the tables materialised dense up
+    to ``host_serving_vocab`` (touched rows as trained, the rest their
+    lazy rows, the live tables not grown), and the bundle serves the
+    trained module's forward on the same raw ids, bit for bit."""
     from elasticdl_tpu_torch.api.local_executor import LocalExecutor
+    from elasticdl_tpu_torch.common import tensor_utils
+    from elasticdl_tpu_torch.serving.export import HOST_ROWS_FILE
+    from elasticdl_tpu_torch.serving.model_store import load_served_model
     from elasticdl_tpu_torch.testing import data as tdata
 
-    train = tdata.create_frappe_record_file(str(tmp_path / "t.rec"), 8)
+    module = TWINS[name][0]
+    train = tdata.create_frappe_record_file(str(tmp_path / "t.rec"), 64,
+                                            input_length=10, max_id=5500)
+    out = str(tmp_path / "out")
     args = tdata.make_local_args(
-        tdata.model_zoo_dir(), "deepfm.deepfm_host.custom_model", train,
-        minibatch_size=4, extra=["--device", "cpu", "--output",
-                                 str(tmp_path / "out")])
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        LocalExecutor(args)
+        tdata.model_zoo_dir(), f"deepfm.{name}.custom_model", train,
+        minibatch_size=32, extra=["--device", "cpu", "--output", out])
+    executor = LocalExecutor(args)
+    executor.run()
+    engine = executor._step_runner.engine
+    sizes = {n: t.num_rows for n, t in engine.tables.items()}
+    rows = torch.load(os.path.join(out, HOST_ROWS_FILE))
+    assert sorted(rows) == sorted(module.host_serving_vocab)
+    for table_name, table in engine.tables.items():
+        assert tuple(rows[table_name].shape) == (5500, 16)
+        ids, trained = table.to_arrays()
+        np.testing.assert_array_equal(rows[table_name].numpy()[ids],
+                                      trained)
+        assert table.num_rows == sizes[table_name]
+    served = load_served_model(out, device="cpu", model_fn=lambda: (
+        module.custom_model(device="cpu")))
+    query = np.random.default_rng(3).integers(0, 5500, (5, 10)).astype(
+        np.int32)
+    features, _ = module.dataset_fn(
+        [tensor_utils.dumps({"feature_ids": q, "label": 0})
+         for q in query], None, None)
+    dense = {n: torch.from_numpy(r.numpy()) for n, r in rows.items()}
+    with torch.inference_mode():
+        want = executor.state.model.eval()(
+            {k: torch.from_numpy(v) for k, v in features.items()},
+            host_rows=dense).numpy()
+    np.testing.assert_array_equal(served.predict(features), want)
 
 
 @pytest.mark.parametrize("name", sorted(TWINS))

@@ -487,5 +487,5 @@ def test_local_executor_refuses_output_for_a_sparse_model(tmp_path):
         tdata.model_zoo_dir(), "recsys.recsys_sparse.custom_model", train,
         minibatch_size=4, extra=["--device", "cpu", "--output",
                                  os.path.join(str(tmp_path), "out")])
-    with pytest.raises(NotImplementedError, match="serving slice"):
+    with pytest.raises(NotImplementedError, match="no serving bundle"):
         LocalExecutor(args)

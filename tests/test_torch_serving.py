@@ -265,15 +265,22 @@ def test_hot_reload_and_rollback(tmp_path):
 
 
 def test_full_queue_sheds_with_429(tmp_path):
+    from elasticdl_tpu_torch.observability import MetricsRegistry
+
     _port_bundle(str(tmp_path), version=1, seed=1)
     store = ModelStore(str(tmp_path), device="cpu")
     store.load_initial()
-    srv = InferenceServer(store, port=0, max_queue=0).start()
+    registry = MetricsRegistry()
+    srv = InferenceServer(store, port=0, max_queue=0,
+                          metrics_registry=registry).start()
     try:
         status, body = _request(srv.port, "/v1/predict",
                                 {"features": _tokens(5).tolist()})
         assert status == 429 and "queue full" in body["error"]
-        assert srv.predictor.statuses[429] == 1
+        (family,) = [f for f in registry.snapshot()["families"]
+                     if f["name"] == "edl_tpu_serving_requests_total"]
+        assert [(s["labels"], s["value"]) for s in family["series"]] == [
+            (["429"], 1.0)]
     finally:
         srv.stop()
 
@@ -309,9 +316,11 @@ def test_bucket_batch(n, limit, bucket):
 
 
 def test_row_service_bundle_is_refused(tmp_path):
+    """A row-service bundle with no row source is refused, as the JAX
+    store refuses it: no --row_service_addr."""
     with open(tmp_path / "metadata.json", "w") as f:
         json.dump({"model_version": 1, "host_serving": {"id_keys": {}}}, f)
-    with pytest.raises(NotImplementedError, match="row-service"):
+    with pytest.raises(ValueError, match="row_service_addr"):
         load_served_model(str(tmp_path), device="cpu")
 
 
