@@ -17,6 +17,9 @@
                                              # build, with its timings
     python3 chip_smoke.py --phase fleet  # the rest of serving alone
                                          # (kernel #1 only), with timings
+    python3 chip_smoke.py --phase parallel # data parallel over the
+                                           # one-card mesh alone
+                                           # (embedding kernels)
 
 1. Prints the card (``nvidia-smi`` name and power limit), versions, and
    whether ``grpc`` can be imported.
@@ -187,17 +190,17 @@
    forward; TensorBoard's scalars carry the eval metrics.
 11f. ``worker`` (the master's task plane and the worker; ``--phase
    worker`` runs it alone and builds only the embedding kernels): the
-   recsys twin at full width, kernels pinned, 8192 records (16 steps at
+   recsys twin at full width, kernels pinned, 4096 records (8 steps at
    B 512) in tasks of 4 minibatches, one epoch, no shuffle, the master
    evaluating 1024 records every 8 versions. (a) The port's
    ``MiniCluster`` (one worker on the card, ``InProcessMaster``) against
    ``LocalExecutor`` on the same records and seed: per-step losses, the
    table and the accumulator bit-equal, untouched rows bit-equal to the
-   initial table, launches exactly lookup = 16 steps + eval batches and
-   Adagrad row updates = 16 (every other counter 0, zeroed just before
-   the run and read just after), the master's accuracy at version 16
+   initial table, launches exactly lookup = 8 steps + eval batches and
+   Adagrad row updates = 8 (every other counter 0, zeroed just before
+   the run and read just after), the master's accuracy at version 8
    equal to the Local run's final eval, the dispatcher's counters at
-   8192 training records; step ms (CUDA events) beside issue ms and
+   4096 training records; step ms (CUDA events) beside issue ms and
    examples/s for the worker and the Local run, and the RPCs a step.
    (b) The same job with the zoo's ``dataset_fn`` raising once at the
    first batch of task 2: the task is re-queued at the front, the job
@@ -282,6 +285,31 @@
    and p99 on the host clock, at concurrency 1 and 8, direct to a
    replica and through the router, with each replica's batch occupancy;
    the row-service bundle's resolve at B 512, cold and warm.
+11i. ``parallel`` (data parallel over a (4,) ``dp`` mesh of the one
+   card; ``--phase parallel`` runs it alone and builds only the
+   embedding sources). (c)'s first half runs first, then (a) and (b)
+   while its checkpoint is written, then (c)'s second half. (a)
+   cifar10_functional at B 256 through ``make_runner_for_spec`` with
+   its LR schedule, dp4 against dp1 from the same weights, 8 steps:
+   losses and every checkpoint leaf bit-equal (cuDNN deterministic),
+   each entry holding 1/4 of the split slots' bytes, no launches. (b)
+   resnet50 at B 128 x 224^2 through ``MiniCluster(mesh=dp4)`` in tasks
+   of 2 steps, the master's barrier taking it to dp2 at the first report
+   and back to dp4 once applied, against an unresized dp4 run over the
+   same records: the meshes of the steps, both resizes applied and
+   acked with their ``worker_resize_seconds``, losses and parameters
+   bit-equal; then its step ms at dp4, dp2 and dp1 (CUDA events). (c)
+   the recsys ranker at 1M x 256, B 512, through the zoo's
+   ``make_sparse_runner(mesh=)`` with kernels pinned, its table and
+   accumulator split 4 x 250,000: 8 steps against the unsharded runner
+   (SPARSE_TOL), launches exactly #6 = #7 = 4 a step, others 0; every
+   shard's #6 and #7 on the next batch's local ids against the plain
+   version of the same shard (EMB_TOL, untouched rows bit-equal); a dp4
+   checkpoint, a live resize to dp2 that keeps every byte, 4 more steps
+   (#6 = #7 = 2 a step); the checkpoint restored into the unsharded
+   state and placed at dp2, bit-equal to the state it saved; that state
+   placed on dp4 takes one fused SGD step: #8 = 4, each shard's #8
+   against its plain version.
 12. ``fused path``: ``DeviceSparseRunner`` over the recsys table with
    Momentum (Nesterov) and ``use_pallas="fused"`` for 10 steps against
    "never": one fused-kernel launch a step.
@@ -321,7 +349,8 @@
    memory.
 17. Prints a ``serving``, a ``training``, a ``sparse_training``, a
    ``ring_training``, a ``host_training``, a ``vision``, a ``tabular``,
-   a ``checkpoint``, a ``worker``, a ``rowservice``, a ``fleet`` and a
+   a ``checkpoint``, a ``worker``, a ``rowservice``, a ``fleet``, a
+   ``parallel``, a ``phase_s`` (each phase's seconds) and a
    ``kernels`` JSON line (the four flash kernels and the four embedding kernels
    with their ms, plain ms, library ms, bound ms and launches, and their
    launches on the host, vision, tabular, checkpoint, worker and row
@@ -329,7 +358,8 @@
    ``launches_tabular``, ``launches_checkpoint`` (the straight, first
    and resumed recsys runs), ``launches_worker`` (the in-process and
    failed-task runs), ``launches_rowservice`` ((a)'s two runs, (b),
-   (c)), ``launches_fleet`` ((a), (b) over one and two shards, (c));
+   (c)), ``launches_fleet`` ((a), (b) over one and two shards, (c)),
+   ``launches_parallel`` ((a), (b), (c) at dp4 and dp2, the fused step);
    #5 with its times at
    the sweep's tiers, the row kernels with a per-rule list) and, last,
    ``{"ok": true, "device": {...}}``.
@@ -630,7 +660,7 @@ class PredictionOutputsProcessor:
 # The task plane (slice 15; ``--phase worker`` runs it alone and builds
 # only the embedding kernels): the recsys twin at full width, kernels
 # pinned (RECSYS_ZOO "always"), trained by the port's worker on the
-# port's master over WORKER_RECORDS records (16 steps at EMB_BATCH) in
+# port's master over WORKER_RECORDS records (8 steps at EMB_BATCH) in
 # tasks of WORKER_TASK_BATCHES minibatches, one epoch, no shuffle, the
 # master evaluating WORKER_EVAL_RECORDS every WORKER_EVAL_STEPS versions.
 # (a) In process, against the Local executor on the same records and
@@ -648,7 +678,7 @@ class PredictionOutputsProcessor:
 # after (a), running beside (b) and (c)), over gRPC, on (a)'s records
 # laid out so the master's seeded shuffle hands them out in (a)'s order:
 # the master's accuracy equals (a)'s.
-WORKER_RECORDS, WORKER_EVAL_RECORDS = 8192, 1024
+WORKER_RECORDS, WORKER_EVAL_RECORDS = 4096, 1024
 WORKER_TASK_BATCHES, WORKER_EVAL_STEPS = 4, 8
 WORKER_FAIL_AT_BATCH = WORKER_TASK_BATCHES + 1
 WORKER_HOST_RECORDS = 4096
@@ -5398,7 +5428,9 @@ def sweep_phase(torch, pe):
     from elasticdl_tpu_torch.tools import bench_kernel_device_sweep as tool
 
     pe.reset_launches()                       # the sweep path starts here
-    result = tool.sweep(seed=SEED)            # prints a JSON line a tier
+    # Three windows a tier (the tool's default is five): the whole smoke
+    # stays within its 240 s.
+    result = tool.sweep(windows=3, seed=SEED)  # prints a JSON line a tier
     counts = {"lookup_combine_aligned": pe.aligned_launches,   # ... ends
               "lookup_combine": pe.lookup_launches,
               "row_update": pe.row_update_launches,
@@ -5765,6 +5797,620 @@ def training_phase(torch, fa, root):
     return out, counts
 
 
+
+# Data parallel over the one-card mesh (``--phase parallel`` runs it
+# alone and builds only the two embedding sources). (a) cifar10 at B 256
+# through make_runner_for_spec, dp4 against dp1 from the same weights;
+# (b) resnet50 at B 128 x 224^2 through MiniCluster + InProcessMaster in
+# tasks of PAR_TASK_STEPS steps, the master's resize barrier taking it
+# dp4 -> dp2 -> dp4, against an unresized dp4 run over the same records,
+# and its step ms at dp4, dp2 and dp1; (c) the recsys ranker at 1M x 256,
+# B 512, its table and accumulator row-split 4 x 250,000 through the
+# zoo's make_sparse_runner(mesh=), kernels pinned: against the unsharded
+# runner, a live dp4 -> dp2 resize, a dp4 checkpoint restored at dp2,
+# every shard's kernel launch held against its plain version, and one
+# fused SGD step (#8 once a shard).
+PAR_N = 4
+PAR_CIFAR_BATCH, PAR_CIFAR_STEPS = 256, 8
+PAR_TASK_STEPS, PAR_TASKS = 2, 4
+PAR_WARM, PAR_TIMED = 1, 4
+PAR_RECSYS_STEPS, PAR_RECSYS_MORE = 8, 4
+
+
+def card_mesh(torch, n, axis="dp"):
+    from elasticdl_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh((n,), (axis,), [torch.device("cuda:0")] * n)
+
+
+class Deterministic:
+    """cuDNN's deterministic algorithms for a comparison that must be
+    bit-equal (its default convolution backward sums with atomics)."""
+
+    def __init__(self, torch):
+        self.backends = torch.backends.cudnn
+
+    def __enter__(self):
+        self.saved = (self.backends.deterministic, self.backends.benchmark)
+        self.backends.deterministic, self.backends.benchmark = True, False
+
+    def __exit__(self, *exc):
+        self.backends.deterministic, self.backends.benchmark = self.saved
+
+
+def slot_bytes(optimizer):
+    """Bytes of optimizer state each entry holds (its slices of the split
+    slots), and the bytes of the slots held whole."""
+    from elasticdl_tpu_torch.parallel.mesh import ShardedTensor
+
+    entries, replicated = [0] * optimizer.num_entries, 0
+    for _, _, value in optimizer.named_slots():
+        if isinstance(value, ShardedTensor):
+            for e, shard in enumerate(value.shards):
+                entries[e] += shard.numel() * shard.element_size()
+        elif hasattr(value, "dim") and value.dim():
+            replicated += value.numel() * value.element_size()
+    return {"entries": entries, "replicated": replicated}
+
+
+def parallel_cifar10_part(torch, fa, pe):
+    """(a) cifar10_functional at B 256 through make_runner_for_spec with
+    its LR schedule folded in, dp4 against dp1 from the same weights,
+    PAR_CIFAR_STEPS steps: bit-equal losses, parameters and slots."""
+    from elasticdl_tpu_torch.callbacks import apply_callbacks_to_optimizer
+    from elasticdl_tpu_torch.checkpoint import state_io
+    from elasticdl_tpu_torch.core.model_spec import get_model_spec
+    from elasticdl_tpu_torch.parallel.mesh_runner import make_runner_for_spec
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    rng = np.random.default_rng(SEED + 60)
+    batches = [{"features": rng.random((PAR_CIFAR_BATCH, 32, 32, 3),
+                                       dtype=np.float32),
+                "labels": rng.integers(0, 10, PAR_CIFAR_BATCH).astype(
+                    np.int32),
+                "mask": np.ones(PAR_CIFAR_BATCH, np.float32)}
+               for _ in range(PAR_CIFAR_STEPS)]
+    runs = {}
+    for n in (PAR_N, 1):
+        torch.manual_seed(SEED)
+        spec = get_model_spec(tdata.model_zoo_dir(),
+                              "cifar10.cifar10_functional.custom_model",
+                              device="cuda")
+        mesh = card_mesh(torch, n)
+        runner = make_runner_for_spec(spec, mesh)
+        tx = apply_callbacks_to_optimizer(
+            spec.make_optimizer(),
+            spec.callbacks_fn() if spec.callbacks_fn else [])
+        state = runner.init_state(spec.model, tx, seed=SEED)
+        step = runner.train_step(spec.loss)
+        with Deterministic(torch):
+            torch.cuda.synchronize()
+            reset_kernel_launches(fa, pe)        # the dp path starts here
+            losses = [step(state, b)[1]["loss"] for b in batches]
+            torch.cuda.synchronize()
+            counts = kernel_launch_counts(fa, pe)   # ... and ends
+        runs[n] = dict(losses=torch.stack(losses).cpu(), counts=counts,
+                       leaves=state_io.named_leaves_from_state(state),
+                       slots=slot_bytes(state.optimizer),
+                       entries=state.optimizer.num_entries)
+    a, b = runs[PAR_N], runs[1]
+    unequal = [k for k in b["leaves"]
+               if not np.array_equal(a["leaves"][k], b["leaves"][k])]
+    out = {"model": "cifar10_functional twin (zoo LR schedule, SGD 0.1 "
+                    f"momentum 0.9), random weights, seed {SEED}",
+           "batch": PAR_CIFAR_BATCH, "steps": PAR_CIFAR_STEPS,
+           "losses_dp4": a["losses"].tolist(),
+           "losses_dp1": b["losses"].tolist(),
+           "leaves": len(b["leaves"]), "unequal_leaves": unequal,
+           "slot_bytes_dp4": a["slots"], "slot_bytes_dp1": b["slots"],
+           "launches": a["counts"]}
+    print("parallel cifar10", json.dumps(out), flush=True)
+    check(a["entries"] == PAR_N and b["entries"] == 1,
+          f"cifar10 entries {a['entries']} / {b['entries']}")
+    check(torch.equal(a["losses"], b["losses"]),
+          f"cifar10 dp4 vs dp1 losses {out}")
+    check(not unequal, f"cifar10 dp4 vs dp1 leaves differ: {unequal}")
+    split = a["slots"]["entries"]
+    check(len(set(split)) == 1 and split[0] > 0
+          and PAR_N * split[0] + a["slots"]["replicated"]
+          == b["slots"]["replicated"],
+          f"cifar10 slot bytes {a['slots']} vs {b['slots']}")
+    check(not any(a["counts"].values()), f"cifar10 launched {a['counts']}")
+    check(all(np.isfinite(out["losses_dp4"])), "cifar10 non-finite loss")
+    return out, a["counts"]
+
+
+def write_resnet_records(path, num, seed):
+    from elasticdl_tpu_torch.common import tensor_utils
+    from elasticdl_tpu_torch.data.record_file import RecordFileWriter
+
+    rng = np.random.default_rng(seed)
+    with RecordFileWriter(path) as writer:
+        for _ in range(num):
+            image = rng.integers(0, 256, (RESNET_HW, RESNET_HW, 3),
+                                 dtype=np.uint8)
+            writer.write(tensor_utils.dumps(
+                {"image": image, "label": int(rng.integers(10))}))
+    return path
+
+
+def resnet_cluster_run(torch, fa, pe, records, resize):
+    """resnet50 through MiniCluster(mesh=dp4): the worker's runner
+    records each step's loss and mesh; with ``resize`` the master's
+    barrier is opened for dp2 at the first report and for dp4 at the
+    first report after the worker has applied it."""
+    from elasticdl_tpu_torch.testing import data as tdata
+    from elasticdl_tpu_torch.testing.cluster import MiniCluster
+
+    box = {"rids": [], "seconds": []}
+
+    def on_report(request):
+        if not resize:
+            return
+        worker = box["cluster"].workers[0]
+        dp = worker._step_runner.mesh.shape["dp"]
+        pending = box["cluster"].servicer.resize_status() is not None
+        if not box["rids"]:
+            box["rids"].append(box["cluster"].begin_resize(
+                card_mesh(torch, 2), direction="shrink"))
+        elif len(box["rids"]) == 1 and dp == 2 and not pending:
+            box["rids"].append(box["cluster"].begin_resize(
+                card_mesh(torch, PAR_N), direction="grow"))
+
+    cluster = MiniCluster(
+        tdata.model_zoo_dir(), "resnet50.resnet50.custom_model",
+        training_data=records, minibatch_size=RESNET_BATCH,
+        num_minibatches_per_task=PAR_TASK_STEPS, device="cuda",
+        random_seed=SEED, mesh=card_mesh(torch, PAR_N),
+        worker_callbacks={"report_task_result": on_report})
+    box["cluster"] = cluster
+    worker = cluster.workers[0]
+    record = RecordingRunner(torch, worker._step_runner)
+    meshes = []
+    inner_step = record.train_step
+
+    def train_step(loss_fn):
+        step = inner_step(loss_fn)
+
+        def stepped(state, batch):
+            meshes.append(record._inner.mesh.shape["dp"])
+            return step(state, batch)
+
+        return stepped
+
+    record.train_step = train_step
+    worker._step_runner = record
+    observe = worker._m_resize.observe
+
+    def observed(seconds, *args, **kwargs):
+        box["seconds"].append(seconds)
+        return observe(seconds, *args, **kwargs)
+
+    worker._m_resize.observe = observed
+    with Deterministic(torch):
+        torch.cuda.synchronize()
+        reset_kernel_launches(fa, pe)          # the worker's path starts
+        result = cluster.run()[0]
+        torch.cuda.synchronize()
+        counts = kernel_launch_counts(fa, pe)  # ... and ends
+    return dict(cluster=cluster, worker=worker, result=result,
+                losses=torch.stack(record.loss).float().cpu(),
+                meshes=meshes, counts=counts, rids=box["rids"],
+                resize_seconds=box["seconds"],
+                params={k: v.detach().clone() for k, v in
+                        worker.state.model.named_parameters()})
+
+
+def resnet_step_ms(torch):
+    """resnet50's step (CUDA events) at dp4, dp2 and dp1 on one model:
+    each mesh's MeshRunner with its own ZeRO optimizer."""
+    from elasticdl_tpu_torch.core.model_spec import get_model_spec
+    from elasticdl_tpu_torch.parallel.mesh_runner import MeshRunner
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    torch.manual_seed(SEED)
+    spec = get_model_spec(tdata.model_zoo_dir(),
+                          "resnet50.resnet50.custom_model", device="cuda")
+    rng = np.random.RandomState(SEED)
+    batches = [{"features": rng.rand(RESNET_BATCH, RESNET_HW, RESNET_HW,
+                                     3).astype(np.float32),
+                "labels": rng.randint(0, 10, RESNET_BATCH).astype(np.int32),
+                "mask": np.ones(RESNET_BATCH, np.float32)}
+               for _ in range(2)]
+    out = {}
+    for n in (PAR_N, 2, 1):
+        runner = MeshRunner(card_mesh(torch, n))
+        state = runner.init_state(spec.model, spec.make_optimizer(),
+                                  seed=SEED)
+        step = runner.train_step(spec.loss)
+        events, issue = [], []
+        for i in range(PAR_WARM + PAR_TIMED):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            state, _ = step(state, batches[i % 2])
+            end.record()
+            issue.append((time.perf_counter() - t0) * 1e3)
+            events.append((start, end))
+        torch.cuda.synchronize()
+        out[f"dp{n}"] = {
+            "step_ms": spread([s.elapsed_time(e)
+                               for s, e in events[PAR_WARM:]]),
+            "issue_ms": spread(issue[PAR_WARM:]),
+            "slot_bytes": slot_bytes(state.optimizer)}
+        del state, runner, step
+    return out
+
+
+def parallel_resnet50_part(torch, fa, pe, root):
+    """(b) resnet50 at B 128 x 224^2 through MiniCluster on dp4, resized
+    live dp4 -> dp2 -> dp4 by the master's barrier, against an
+    unresized dp4 run over the same records: bit-equal losses and
+    parameters (cuDNN deterministic in both). Its step ms at dp4, dp2
+    and dp1 (``resnet_step_ms``) is taken apart, with no writer thread
+    beside it."""
+    records = write_resnet_records(
+        os.path.join(root, "resnet.rec"),
+        PAR_TASKS * PAR_TASK_STEPS * RESNET_BATCH, SEED + 61)
+    resized = resnet_cluster_run(torch, fa, pe, records, resize=True)
+    straight = resnet_cluster_run(torch, fa, pe, records, resize=False)
+    worker = resized["worker"]
+    unequal = [k for k, v in straight["params"].items()
+               if not torch.equal(v, resized["params"][k])]
+    out = {"model": "resnet50 twin (s2d stem, bf16, SGD 0.02 Nesterov), "
+                    f"random weights, seed {SEED}",
+           "batch": RESNET_BATCH, "image_hw": RESNET_HW,
+           "task_steps": PAR_TASK_STEPS,
+           "meshes": resized["meshes"], "resize_ids": resized["rids"],
+           "worker_resize_seconds": resized["resize_seconds"],
+           "losses_resized": resized["losses"].tolist(),
+           "losses_straight": straight["losses"].tolist(),
+           "unequal_params": unequal, "launches": resized["counts"],
+           "card": smi("name,power.limit")}
+    print("parallel resnet50", json.dumps(out), flush=True)
+    meshes = resized["meshes"]
+    check(resized["cluster"].finished and straight["cluster"].finished,
+          "a resnet50 job did not drain")
+    check(len(resized["rids"]) == 2
+          and worker._applied_resize_id == resized["rids"][-1]
+          and len(resized["resize_seconds"]) == 2,
+          f"resnet50 resizes {out}")
+    first2 = meshes.index(2) if 2 in meshes else -1
+    check(first2 > 0 and meshes[0] == PAR_N and meshes[-1] == PAR_N
+          and PAR_N in meshes[first2:],
+          f"resnet50 meshes per step {meshes}")
+    check(set(straight["meshes"]) == {PAR_N},
+          f"straight run meshes {straight['meshes']}")
+    check(worker.state.optimizer.num_entries == PAR_N,
+          "resnet50 ends off dp4")
+    check(len(meshes) == PAR_TASKS * PAR_TASK_STEPS,
+          f"resnet50 {len(meshes)} steps")
+    check(torch.equal(resized["losses"], straight["losses"]),
+          f"resized vs straight losses {out}")
+    check(not unequal, f"resized vs straight parameters differ: {unequal}")
+    check(all(np.isfinite(out["losses_resized"])), "resnet50 non-finite")
+    check(not any(resized["counts"].values()),
+          f"resnet50 launched {resized['counts']}")
+    return out, resized["counts"]
+
+
+def shard_kernel_checks(torch, pe, shards, slot_shards, ids, weights, uids,
+                        grads, opt):
+    """Each shard's launches of #6 and #7 (and #8 for SGD) on the local
+    ids the sharded step gives it, against the plain version of the same
+    shard on the card (outside every counted window)."""
+    from elasticdl_tpu_torch.embedding import optimizer as topt
+
+    rows = int(shards[0].shape[0])
+    out = []
+    for i, shard in enumerate(shards):
+        local = ids - i * rows
+        in_range = (local >= 0) & (local < rows)
+        w_local = torch.where(in_range, weights, 0.0)
+        local_c = local.clamp(0, rows - 1)
+        got = pe.lookup_combine_pallas(shard, local_c, w_local, "sum")
+        want = pe.lookup_combine_reference(shard, local_c, w_local, "sum")
+        lookup = grad_readings(got, want)
+        lu = uids - i * rows
+        lu = torch.where((lu >= 0) & (lu < rows), lu, rows).to(torch.int32)
+        tables = [shard.clone()] + [s.clone() for s in slot_shards[i]]
+        plain = [t.clone() for t in tables]
+        if slot_shards[i]:
+            topt._pallas_sparse_apply(
+                opt, tables[0], {"accumulator": tables[1]}, lu, grads, 1)
+            pe.row_update_reference("adagrad", lu, grads, plain, lr=opt.lr,
+                                    eps=opt.epsilon)
+        else:
+            pe.fused_sgd_scatter_apply(tables[0], lu, grads, lr=opt.lr)
+            pe.row_update_reference("sgd", lu, grads, plain, lr=opt.lr)
+        touched = lu[lu < rows].long()
+        res = {"shard": i, "rows": int(touched.numel()),
+               "lookup": lookup,
+               "table": grad_readings(tables[0][touched] - shard[touched],
+                                      plain[0][touched] - shard[touched])}
+        if slot_shards[i]:
+            res["accumulator"] = grad_readings(tables[1][touched],
+                                               plain[1][touched])
+        keep = torch.ones(rows, dtype=torch.bool, device=shard.device)
+        keep[touched] = False
+        res["untouched_bit_equal"] = bool(
+            torch.equal(tables[0][keep], shard[keep]))
+        out.append(res)
+        del tables, plain
+    return out
+
+
+def parallel_recsys_start(torch, fa, pe, root):
+    """(c), first half: the recsys ranker at 1M x 256, B 512, row-sharded
+    over dp4 through the zoo's make_sparse_runner(mesh=),
+    use_pallas="always", against the unsharded runner from the same
+    seed; each dp4 shard's kernels against their plain version; a dp4
+    checkpoint started (its writer thread runs on while (a) and (b)
+    run); the live resize to dp2 and 4 more steps. Returns what the
+    second half needs."""
+    from elasticdl_tpu_torch.checkpoint import CheckpointHook
+    from elasticdl_tpu_torch.core.model_spec import get_model_spec
+    from elasticdl_tpu_torch.embedding.device_sparse import _unique_pad
+    from elasticdl_tpu_torch.parallel.mesh import ShardedTensor
+
+    zoo = write_zoo(root, "recsys_par", RECSYS_ZOO.format(mode="always"))
+    model_def = "recsys_par.rec.custom_model"
+    rng = np.random.default_rng(SEED + 62)
+    batches = []
+    for _ in range(PAR_RECSYS_STEPS + PAR_RECSYS_MORE + 1):
+        ids = rng.integers(0, EMB_VOCAB, (EMB_BATCH, EMB_IDS))
+        batches.append({"features": {"ids": ids},
+                        "labels": (ids.sum(axis=1) % 2).astype(np.int32),
+                        "mask": np.ones(EMB_BATCH, np.float32)})
+    runs = {}
+    for name, n in (("dp4", PAR_N), ("whole", None)):
+        torch.manual_seed(SEED)
+        spec = get_model_spec(zoo, model_def, device="cuda")
+        runner = spec.make_sparse_runner(
+            mesh=card_mesh(torch, n) if n else None)
+        state = runner.init_state(spec.model, spec.make_optimizer(),
+                                  batches[0], seed=SEED)
+        runs[name] = dict(spec=spec, runner=runner, state=state,
+                          step=runner.train_step(spec.loss))
+    sharded, whole = runs["dp4"], runs["whole"]
+    table0 = whole["state"].tables[RECSYS_TABLE].clone()
+    t4 = sharded["state"].tables[RECSYS_TABLE]
+    check(isinstance(t4, ShardedTensor) and len(t4.shards) == PAR_N
+          and t4.shards[0].shape == (EMB_VOCAB // PAR_N, EMB_DIM)
+          and torch.equal(t4.gather(), table0),
+          "the sharded table does not start as the whole one")
+
+    def train(run, part):
+        losses = []
+        for b in part:
+            run["state"], m = run["step"](run["state"], b)
+            losses.append(m["loss"])
+        return losses
+
+    torch.cuda.synchronize()
+    reset_kernel_launches(fa, pe)              # the dp4 path starts here
+    loss4 = train(sharded, batches[:PAR_RECSYS_STEPS])
+    torch.cuda.synchronize()
+    counts_dp4 = kernel_launch_counts(fa, pe)  # ... and ends
+    counts_dp4["row_update_adagrad"] = pe.row_update_rule_launches["adagrad"]
+    loss1 = train(whole, batches[:PAR_RECSYS_STEPS])
+    state4 = sharded["state"]
+    # Every dp4 shard's kernels against their plain version on the next
+    # batch's ids (outside the counted windows).
+    nxt = batches[-1]["features"]["ids"]
+    ids = torch.from_numpy(nxt).to("cuda", torch.int32)
+    weights = torch.ones(ids.shape, device="cuda")
+    uids, _ = _unique_pad(ids.reshape(-1), EMB_VOCAB)
+    grads = torch.from_numpy(np.random.default_rng(SEED + 63).standard_normal(
+        (uids.numel(), EMB_DIM), dtype=np.float32)).cuda()
+    shard_checks = shard_kernel_checks(
+        torch, pe, state4.tables[RECSYS_TABLE].shards,
+        [[a] for a in state4.slot_tables[RECSYS_TABLE][
+            "accumulator"].shards], ids, weights, uids, grads,
+        sharded["runner"].row_opt)
+    # The dp4 state at step 8, gathered on the card, and its checkpoint
+    # (written in the background while the resize runs).
+    saved = {"table": state4.tables[RECSYS_TABLE].gather(),
+             "accumulator": state4.slot_tables[RECSYS_TABLE][
+                 "accumulator"].gather(),
+             "params": {k: v.detach().clone() for k, v in
+                        state4.model.named_parameters()}}
+    ckpt = os.path.join(root, "par_ckpt")
+    hook = CheckpointHook(checkpoint_dir=ckpt,
+                          checkpoint_steps=PAR_RECSYS_STEPS)
+    check(hook.maybe_save(state4), "the dp4 checkpoint was not written")
+    t0 = time.monotonic()
+    state4 = sharded["runner"].resize(card_mesh(torch, 2), state4)
+    torch.cuda.synchronize()
+    resize_s = time.monotonic() - t0
+    sharded["state"] = state4
+    sharded["step"] = sharded["runner"].train_step(sharded["spec"].loss)
+    kept = (torch.equal(state4.tables[RECSYS_TABLE].gather(),
+                        saved["table"])
+            and torch.equal(state4.slot_tables[RECSYS_TABLE][
+                "accumulator"].gather(), saved["accumulator"]))
+    shards2 = len(state4.tables[RECSYS_TABLE].shards)
+    reset_kernel_launches(fa, pe)              # the dp2 path starts here
+    loss4 += train(sharded, batches[PAR_RECSYS_STEPS:-1])
+    torch.cuda.synchronize()
+    counts_dp2 = kernel_launch_counts(fa, pe)  # ... and ends
+    loss1 += train(whole, batches[PAR_RECSYS_STEPS:-1])
+    # The readings against the unsharded run, before its state is
+    # reused for the restore.
+    loss4 = [float(x) for x in loss4]
+    loss1 = [float(x) for x in loss1]
+    touched = touched_rows(torch, np.stack(
+        [b["features"]["ids"] for b in batches[:-1]]), EMB_VOCAB)
+    final4 = state4.tables[RECSYS_TABLE].gather()
+    acc4 = state4.slot_tables[RECSYS_TABLE]["accumulator"].gather()
+    final1 = whole["state"].tables[RECSYS_TABLE]
+    acc1 = whole["state"].slot_tables[RECSYS_TABLE]["accumulator"]
+    delta4 = (final4[touched] - table0[touched]).cpu().numpy()
+    delta1 = (final1[touched] - table0[touched]).cpu().numpy()
+    acc_l2 = rel_err(acc4[touched].cpu().numpy(),
+                     acc1[touched].cpu().numpy())
+    untouched = ~touched
+    untouched_equal = bool(torch.equal(final4[untouched], table0[untouched])
+                           and bool((acc4[untouched] == 0.1).all()))
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(loss4, loss1))
+    del final4, acc4, final1, acc1, state4, table0
+    sharded.clear()
+    return dict(whole=whole, hook=hook, ckpt=ckpt, saved=saved,
+                batches=batches, probe=(ids, weights, uids, grads),
+                counts_dp4=counts_dp4, counts_dp2=counts_dp2,
+                out={"batch": EMB_BATCH, "steps_dp4": PAR_RECSYS_STEPS,
+                     "steps_dp2": PAR_RECSYS_MORE,
+                     "losses_sharded": loss4, "losses_whole": loss1,
+                     "loss_max_rel_diff": loss_rel,
+                     "table_delta_l2": rel_err(delta4, delta1),
+                     "accumulator_l2": acc_l2,
+                     "untouched_bit_equal": untouched_equal,
+                     "resize_kept_state": kept, "resize_shards": shards2,
+                     "resize_s": resize_s, "shard_checks": shard_checks})
+
+
+def parallel_recsys_finish(torch, fa, pe, started):
+    """(c), second half: the dp4 checkpoint restored into the unsharded
+    state (a restore lands whole) and placed by a dp2 runner, bit-equal
+    to the state it saved; then that state placed on dp4 takes one fused
+    SGD step (#8 once a shard), each shard's #8 held to its plain
+    version. Checks the whole of (c)."""
+    from elasticdl_tpu_torch.checkpoint import restore_from_dir
+    from elasticdl_tpu_torch.embedding.device_sparse import (
+        DeviceSparseRunner,
+        build_sparse_train_step,
+        sparse_template,
+    )
+    from elasticdl_tpu_torch.embedding.optimizer import SGD
+    from elasticdl_tpu_torch.model_zoo.recsys import recsys_sparse as twin
+
+    whole, saved = started["whole"], started["saved"]
+    counts_dp4, counts_dp2 = started["counts_dp4"], started["counts_dp2"]
+    batches, out = started["batches"], started["out"]
+    ids, weights, uids, grads = started["probe"]
+    started["hook"].flush()
+    runner2 = whole["spec"].make_sparse_runner(mesh=card_mesh(torch, 2))
+    t0 = time.monotonic()
+    restored = restore_from_dir(whole["state"], started["ckpt"])
+    restored = runner2.place_state(restored)
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    restored_equal = {
+        "table": torch.equal(restored.tables[RECSYS_TABLE].gather(),
+                             saved["table"]),
+        "accumulator": torch.equal(restored.slot_tables[RECSYS_TABLE][
+            "accumulator"].gather(), saved["accumulator"]),
+        "params": all(torch.equal(v, saved["params"][k]) for k, v in
+                      restored.model.named_parameters()),
+        "step": restored.step == PAR_RECSYS_STEPS,
+        "shards": len(restored.tables[RECSYS_TABLE].shards) == 2}
+    del saved
+    whole.clear()
+    started.clear()
+    # One fused SGD step on that state placed on dp4: #8 once a shard.
+    opt = SGD(lr=0.05)
+    fused_runner = DeviceSparseRunner(twin.TABLE_SPECS, opt,
+                                      use_pallas="fused",
+                                      mesh=card_mesh(torch, PAR_N))
+    fstate = fused_runner.place_state(restored)
+    fstep = build_sparse_train_step(
+        twin.loss, fused_runner.specs, opt, sparse_template(fstate.model),
+        use_pallas="fused", mesh=fused_runner.mesh,
+        sharded_tables=fused_runner.sharded_tables)
+    before = fstate.tables[RECSYS_TABLE].gather()
+    torch.cuda.synchronize()
+    reset_kernel_launches(fa, pe)              # the fused path starts here
+    fstate, fm = fstep(fstate, batches[0])
+    torch.cuda.synchronize()
+    counts_fused = kernel_launch_counts(fa, pe)  # ... and ends
+    fused_moved = int((fstate.tables[RECSYS_TABLE].gather() != before)
+                      .any(dim=1).sum())
+    fused_checks = shard_kernel_checks(
+        torch, pe, fstate.tables[RECSYS_TABLE].shards, [[]] * PAR_N, ids,
+        weights, uids, grads, opt)
+    fused_loss = float(fm["loss"])
+    del fstate, restored, fused_runner, before
+    torch.cuda.empty_cache()
+    out = {"model": "recsys ranker twin (1,000,000 x 256 f32 table "
+                    "row-split 4 x 250,000, 32 ids an example, Adagrad "
+                    "rows lr 0.05, bf16 MLP, Adam 1e-3), random weights, "
+                    f"seed {SEED}", **out,
+           "launches_dp4": counts_dp4, "launches_dp2": counts_dp2,
+           "launches_fused": counts_fused,
+           "restore_s": restore_s, "restored_equal": restored_equal,
+           "fused_checks": fused_checks,
+           "fused_rows_moved": fused_moved, "fused_loss": fused_loss,
+           "tol": SPARSE_TOL, "kernel_tol": EMB_TOL}
+    print("parallel recsys", json.dumps(out), flush=True)
+    steps4, steps2 = PAR_RECSYS_STEPS, PAR_RECSYS_MORE
+    check(counts_dp4["lookup_combine"] == PAR_N * steps4
+          and counts_dp4["row_update"] == PAR_N * steps4
+          and counts_dp4["row_update_adagrad"] == PAR_N * steps4
+          and not any(v for k, v in counts_dp4.items()
+                      if k not in ("lookup_combine", "row_update",
+                                   "row_update_adagrad")),
+          f"dp4 launches {counts_dp4} for {steps4} steps of {PAR_N} shards")
+    check(counts_dp2["lookup_combine"] == 2 * steps2
+          and counts_dp2["row_update"] == 2 * steps2
+          and not any(v for k, v in counts_dp2.items()
+                      if k not in ("lookup_combine", "row_update")),
+          f"dp2 launches {counts_dp2} for {steps2} steps of 2 shards")
+    check(counts_fused["fused_row_update"] == PAR_N
+          and not any(v for k, v in counts_fused.items()
+                      if k != "fused_row_update"),
+          f"fused launches {counts_fused}")
+    check(out["resize_kept_state"] and out["resize_shards"] == 2,
+          "the live resize changed the state")
+    check(all(restored_equal.values()),
+          f"the dp4 checkpoint restored at dp2: {restored_equal}")
+    check(out["untouched_bit_equal"], "an untouched row or accumulator moved")
+    check(all(np.isfinite(out["losses_sharded"])), "non-finite sharded loss")
+    check(out["loss_max_rel_diff"] <= SPARSE_TOL["loss"],
+          f"sharded vs whole losses {out}")
+    check(out["table_delta_l2"] <= SPARSE_TOL["delta_l2"]
+          and out["accumulator_l2"] <= SPARSE_TOL["delta_l2"],
+          f"sharded vs whole rows {out}")
+    for res in out["shard_checks"] + fused_checks:
+        check(emb_within(res["lookup"], EMB_TOL["lookup"]),
+              f"shard lookup outside tolerance {res}")
+        check(emb_within(res["table"], EMB_TOL["rows"])
+              and ("accumulator" not in res
+                   or emb_within(res["accumulator"], EMB_TOL["rows"])),
+              f"shard row update outside tolerance {res}")
+        check(res["untouched_bit_equal"],
+              f"a shard's untouched row moved {res}")
+    check(fused_moved > 0 and np.isfinite(fused_loss),
+          f"the fused step moved {fused_moved} rows")
+    return out, counts_dp4, counts_dp2, counts_fused
+
+
+def parallel_phase(torch, fa, pe, root):
+    """(c)'s first half, then (a) and (b) while (c)'s checkpoint is
+    written, (c)'s second half, then resnet50's step times; returns the
+    phase's line and its launches by part."""
+    marks = [time.monotonic()]
+    started = parallel_recsys_start(torch, fa, pe, root)
+    marks.append(time.monotonic())
+    cifar, cifar_counts = parallel_cifar10_part(torch, fa, pe)
+    marks.append(time.monotonic())
+    resnet, resnet_counts = parallel_resnet50_part(torch, fa, pe, root)
+    marks.append(time.monotonic())
+    recsys, dp4, dp2, fused = parallel_recsys_finish(torch, fa, pe, started)
+    marks.append(time.monotonic())
+    resnet["step"] = resnet_step_ms(torch)
+    marks.append(time.monotonic())
+    part_s = dict(zip(("recsys_start", "cifar10", "resnet50",
+                       "recsys_finish", "resnet50_step_ms"),
+                      np.diff(marks).tolist()))
+    print("parallel step ms", json.dumps(resnet["step"]), flush=True)
+    return {"cifar10": cifar, "resnet50": resnet, "recsys": recsys,
+            "part_s": part_s,
+            "launches": {"cifar10": cifar_counts, "resnet50": resnet_counts,
+                         "recsys_dp4": dp4, "recsys_dp2": dp2,
+                         "fused": fused}}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5772,7 +6418,7 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--phase", choices=("all", "fwd", "bwd", "chunk", "lookup", "host",
                             "vision", "tabular", "checkpoint", "worker",
-                            "rowservice", "fleet"),
+                            "rowservice", "fleet", "parallel"),
         default="all",
         help="fwd: build flash_attention_fwd.cu alone, then run kernel "
              "#1's checks and times and print its kernels row; bwd: the "
@@ -5787,7 +6433,9 @@ def main(argv=None) -> int:
              "embedding kernels only); rowservice: the row-service "
              "phase alone with its 1M x 256 timings (no kernel build); "
              "fleet: the fleet phase alone with its timings "
-             "(flash_attention_fwd.cu only)")
+             "(flash_attention_fwd.cu only); parallel: data parallel "
+             "over the one-card mesh alone (the embedding kernels "
+             "only)")
     args = parser.parse_args(argv)
     import torch
 
@@ -5834,6 +6482,7 @@ def main(argv=None) -> int:
              "chunk": [fa._CHUNK_SOURCE], "lookup": [pe._LOOKUP_SOURCE],
              "checkpoint": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
              "worker": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
+             "parallel": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
              "fleet": [fa._SOURCE]}
     logs = _build.build_all(alone.get(args.phase))
     print(f"built {sorted(logs)} in {time.monotonic() - t0:.1f}s",
@@ -5853,13 +6502,15 @@ def main(argv=None) -> int:
     if args.phase == "lookup":
         print(json.dumps({"kernels": lookup_phase(torch, pe)}))
         return 0
-    if args.phase in ("checkpoint", "worker", "fleet"):
+    if args.phase in ("checkpoint", "worker", "fleet", "parallel"):
         with tempfile.TemporaryDirectory() as root:
             if args.phase == "fleet":
                 bundle = os.path.join(root, "v1")
                 export_flagship_bundle(torch, bundle)
                 line = {"fleet": fleet_phase(torch, fa, pe, root, bundle,
                                              timed=True)}
+            elif args.phase == "parallel":
+                line = {"parallel": parallel_phase(torch, fa, pe, root)}
             else:
                 phase = checkpoint_phase if args.phase == "checkpoint" \
                     else worker_phase
@@ -5869,6 +6520,15 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    marks = {"builds": round(time.monotonic() - t0, 2)}
+    last = [time.monotonic()]
+
+    def mark(name):
+        """Seconds of the phase that just ended (the smoke's budget)."""
+        now = time.monotonic()
+        marks[name] = round(now - last[0], 2)
+        last[0] = now
+
     kernel, _ = kernel_phase(torch, fa)
     if args.phase == "fwd":
         print(json.dumps({"kernels": [kernel]}))
@@ -5878,18 +6538,28 @@ def main(argv=None) -> int:
     chunk_row, _ = chunk_kernel_phase(torch, fa)
     _, ring_times = ring_check_phase(torch, fa, ra)
     zoo_phase(torch, fa)
+    mark("kernel_checks")
     emb_checks = embedding_kernel_phase(torch, pe)
+    mark("embedding_checks")
     with tempfile.TemporaryDirectory() as root:
         serving = serving_phase(torch, fa, root)
+        mark("serving")
         twin_training_phase(torch, fa, root)
         training, counts = training_phase(torch, fa, root)
+        mark("training")
         ring_training = ring_training_phase(torch, fa)
+        mark("ring_training")
         sparse = sparse_training_phase(torch, pe, root)
         small_twin_phase(torch, pe, root)
+        mark("sparse_training")
         host = host_training_phase(torch, fa, pe, root)
+        mark("host")
         vision = vision_phase(torch, fa, pe, root)
+        mark("vision")
         tabular = tabular_phase(torch, fa, pe, root)
+        mark("tabular")
         checkpoint = checkpoint_phase(torch, fa, pe, root)
+        mark("checkpoint")
         # The row service's main boots in a subprocess while the worker
         # phase runs.
         row_service = rowservice_start(root)
@@ -5898,12 +6568,18 @@ def main(argv=None) -> int:
         except BaseException:
             stop_service(row_service["proc"], row_service["log"])
             raise
+        mark("worker")
         rowservice = rowservice_phase(torch, fa, pe, root,
                                       service=row_service)
+        mark("rowservice")
         fleet = fleet_phase(torch, fa, pe, root, os.path.join(root, "v1"))
+        mark("fleet")
+        parallel = parallel_phase(torch, fa, pe, root)
+        mark("parallel")
     fused = fused_path_phase(torch, pe)
     sweep, sweep_counts = sweep_phase(torch, pe)
     emb_times = embedding_times(torch, pe)
+    mark("fused_sweep_times")
     kernel["launches"] = counts["flash_attention_fwd"]
     kernel["launches_serving"] = serving["flash_launches"]
     for row in bwd_rows:
@@ -5941,6 +6617,9 @@ def main(argv=None) -> int:
         row["launches_fleet"] = {
             part: counts[row["name"]]
             for part, counts in fleet["launches"].items()}
+        row["launches_parallel"] = {
+            part: counts[row["name"]]
+            for part, counts in parallel["launches"].items()}
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"sparse_training": sparse}))
@@ -5952,6 +6631,8 @@ def main(argv=None) -> int:
     print(json.dumps({"worker": worker}))
     print(json.dumps({"rowservice": rowservice}))
     print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"phase_s": marks}))
     print(json.dumps({"kernels": [kernel, chunk_row] + bwd_rows
                       + emb_rows}))
     print(json.dumps({"ok": True, "device": {

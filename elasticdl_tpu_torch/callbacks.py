@@ -150,7 +150,9 @@ def seek_lr_schedule(optimizer, version: int):
     optimizer steps from 0, computed as ``LambdaLR`` computes them. A
     checkpoint restore calls this, since the schedule's position is not
     in the optimizer's state (the JAX package restores the optax
-    schedule's count with ``opt_state``)."""
+    schedule's count with ``opt_state``). A ZeRO optimizer
+    (``parallel/zero.py``) holds the schedule on its ``inner`` one."""
+    optimizer = getattr(optimizer, "inner", optimizer)
     scheduler = getattr(optimizer, "_lr_scheduler", None)
     if scheduler is None:
         return

@@ -20,6 +20,11 @@ by the JAX state's field, then the torch name:
   device-tier sparse plane (its tables, their row-optimizer slots and
   the per-table apply counts).
 
+State placed on a mesh (``parallel/``) saves the same leaves as the
+same state on one entry: a row-sharded table (a ``ShardedTensor``) and
+a ZeRO optimizer's slots (``parallel/zero.ZeroOptimizer``) are gathered
+whole, and a restore splits each leaf back into the live shards.
+
 The fields are discovered from the state's dataclass, as in the JAX
 module: a field this module has no rule for raises instead of being
 silently left out of every checkpoint. bf16 tensors travel as their
@@ -51,6 +56,8 @@ import numpy as np
 import torch
 
 from elasticdl_tpu_torch.common import dtypes
+from elasticdl_tpu_torch.parallel.mesh import ShardedTensor, whole
+from elasticdl_tpu_torch.parallel.zero import ZeroOptimizer
 
 
 class CorruptCheckpointError(RuntimeError):
@@ -137,10 +144,11 @@ def validate_shard_payload(payload, path: str = ""):
 # ---- tensors <-> host arrays ---------------------------------------------
 
 
-def _host(tensor: torch.Tensor) -> np.ndarray:
+def _host(tensor) -> np.ndarray:
     """A host copy of ``tensor`` (always a copy, also of a CPU tensor:
-    the live one moves on with the next step)."""
-    tensor = tensor.detach().to("cpu", copy=True)
+    the live one moves on with the next step); a ``ShardedTensor``'s
+    shards are gathered."""
+    tensor = whole(tensor).detach().to("cpu", copy=True)
     if tensor.dtype == torch.bfloat16:
         return dtypes.bf16_to_numpy(tensor)
     return tensor.numpy()
@@ -169,6 +177,11 @@ def _copy_into(target: torch.Tensor, value, name: str):
 
 def _opt_leaves(state):
     optimizer = state.optimizer
+    if isinstance(optimizer, ZeroOptimizer):
+        # The entries' slices gathered: the same leaves as at dp1.
+        for name, slot, value in optimizer.named_slots():
+            yield f"opt_state.{name}.{slot}", value
+        return
     names = {p: name for name, p in state.model.named_parameters()}
     for p in optimizer.state:
         if p not in names:
@@ -195,16 +208,28 @@ def _group_of(optimizer, p):
 
 def _restore_opt(state, named, strict: bool):
     """Copy each slot into the live optimizer state, creating the slots a
-    fresh optimizer does not have yet."""
+    fresh optimizer does not have yet. A ZeRO optimizer's whole slots
+    are split for each of its inner optimizers first."""
     optimizer = state.optimizer
     saved: Dict[str, Dict[str, np.ndarray]] = {}
     for key, value in named.items():
         if key.startswith("opt_state."):
             pname, slot = key[len("opt_state."):].rsplit(".", 1)
             saved.setdefault(pname, {})[slot] = value
-    for pname, p in state.model.named_parameters():
+    if isinstance(optimizer, ZeroOptimizer):
+        _restore_slots(optimizer.inner, optimizer.restore_plan(saved),
+                       strict)
+        return
+    _restore_slots(optimizer, ((n, p, saved.get(n, {}))
+                               for n, p in state.model.named_parameters()),
+                   strict)
+
+
+def _restore_slots(optimizer, plan, strict: bool):
+    """``plan``: ``(parameter name, the tensor the optimizer keys,
+    {slot: saved value})`` for each tensor."""
+    for pname, p, slots in plan:
         live = optimizer.state[p] if p in optimizer.state else {}
-        slots = saved.get(pname, {})
         missing = [s for s in live if s not in slots]
         if missing and strict:
             raise KeyError(
@@ -275,15 +300,20 @@ def _state_fields(state):
             yield field.name
 
 
+def named_leaves(state):
+    """``(leaf name, live leaf)`` over ``state``, nothing copied: a
+    tensor, a ``ShardedTensor`` or a host value."""
+    for field in _state_fields(state):
+        yield from _FIELDS[field](state)
+
+
 def named_leaves_from_state(state) -> Dict[str, np.ndarray]:
     """Flatten state into {leaf name: host ndarray} (synchronous host
     copies)."""
-    out = {}
-    for field in _state_fields(state):
-        for name, leaf in _FIELDS[field](state):
-            out[name] = (_host(leaf) if isinstance(leaf, torch.Tensor)
-                         else leaf)
-    return out
+    return {name: (_host(leaf)
+                   if isinstance(leaf, (torch.Tensor, ShardedTensor))
+                   else leaf)
+            for name, leaf in named_leaves(state)}
 
 
 def restore_state_from_named_leaves(state, named: Dict[str, np.ndarray],

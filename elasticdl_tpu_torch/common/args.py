@@ -7,8 +7,9 @@ command line, as there.
 
 The master's and worker's flags for parts that are not ported yet
 (k8s, the journal and hot standby, the autoscaler, row resharding, the
-gang scheduler, streams, the prober, the row service) are parsed so
-that asking for one raises with the ROADMAP item that holds it.
+gang scheduler, streams, the prober, the row service, the multi-host
+mesh) are parsed so that asking for one raises with the ROADMAP item
+that holds it.
 """
 
 import argparse
@@ -208,6 +209,13 @@ def add_task_plane_params(parser):
 
 def add_worker_params(parser):
     parser.add_argument("--worker_id", type=non_neg_int, required=True)
+    # Multi-host meshes: not ported yet (worker/main.py raises).
+    parser.add_argument("--num_jax_processes", type=pos_int, default=1,
+                        help="Multi-host mesh: not ported yet")
+    parser.add_argument("--coordinator_addr", default="",
+                        help="Multi-host mesh: not ported yet")
+    parser.add_argument("--jax_process_id", type=int, default=-1,
+                        help="Multi-host mesh: not ported yet")
 
 
 def _master_params(parser):

@@ -25,10 +25,10 @@ name:
   runner first), ``PredictionOutputsProcessor``: a class (a
   ``worker.prediction_outputs_processor.BasePredictionOutputsProcessor``)
   whose instance, ``ModelSpec.prediction_outputs_processor``, the
-  ``predict`` job hands each batch of predictions.
-
-Not ported yet: the JAX contract's sharding extras
-(``param_sharding_rules``, ``batch_sharding_rule``: the parallel slice).
+  ``predict`` job hands each batch of predictions,
+  ``param_sharding_rules()`` -> ``(name_regex, PartitionSpec)`` pairs and
+  ``batch_sharding_rule(path, leaf) -> PartitionSpec``: the layout
+  extras ``parallel/mesh_runner.make_runner_for_spec`` reads.
 """
 
 import importlib.util
@@ -108,12 +108,22 @@ class ModelSpec:
     # returning a DeviceSparseRunner, which owns the HBM tables and
     # their lookup and row-update kernels.
     make_sparse_runner: Optional[Callable] = None
+    # Layout extras for the MeshRunner (parallel/mesh_runner.py);
+    # dp-only models need neither.
+    param_sharding_rules: Optional[Callable] = None
+    batch_sharding_rule: Optional[Callable] = None
     model_fn: Optional[Callable] = None
     device: Any = None
 
     def make_optimizer(self, **kwargs) -> Callable:
         """The zoo's optimizer factory: ``params -> Optimizer``."""
         return self.optimizer_fn(**kwargs)
+
+    @property
+    def mesh_aware(self) -> bool:
+        """Whether ``custom_model`` takes a ``mesh`` (``make_model``
+        then builds a model for that mesh)."""
+        return self.model_fn is not None and _takes(self.model_fn, "mesh")
 
     def make_model(self, mesh=None):
         """Build the model anew, passing the mesh when ``custom_model``
@@ -162,6 +172,9 @@ def get_model_spec(
         module=module,
         make_host_runner=_get_spec_value(module, "make_host_runner"),
         make_sparse_runner=_get_spec_value(module, "make_sparse_runner"),
+        param_sharding_rules=_get_spec_value(
+            module, "param_sharding_rules"),
+        batch_sharding_rule=_get_spec_value(module, "batch_sharding_rule"),
         model_fn=model_fn,
         device=device,
     )

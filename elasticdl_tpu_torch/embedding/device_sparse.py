@@ -1,6 +1,5 @@
 """Device-tier sparse embedding training: the parameter server's hot
-path in HBM (port of elasticdl_tpu/embedding/device_sparse.py, single
-device).
+path in HBM (port of elasticdl_tpu/embedding/device_sparse.py).
 
 The reference trains big embedding tables on parameter-server pods:
 pull rows, compute, push row gradients, C++ kernels apply them. When the
@@ -25,8 +24,17 @@ bias correction), so nothing on a step reads a value back from the card.
 Models read each table's (B, D) combined embedding through
 ``SparseEmbed``, from the ``sparse_emb={table: tensor}`` keyword of their
 forward, which takes the place of flax's ``sparse_emb`` collection.
-Row-sharded tables (``mesh=``, ``sharded_tables``, ``resize``,
-``place_state``) wait for the parallel slice.
+
+With a mesh (``DeviceSparseRunner(mesh=, axis=)``), each table over the
+size threshold whose vocab the axis divides is ROW-SHARDED: entry i
+holds rows [i·V/n, (i+1)·V/n) of the table and of its slot tables as
+tensors of its own (``parallel.mesh.ShardedTensor``). The JAX step's
+``shard_map`` bodies run shard by shard: the lookup through
+``ops/pallas_embedding.lookup_combine_sharded`` (kernel #6 once a
+shard), the update through ``sparse_apply_sharded`` (kernel #7, or #8
+under "fused", once a shard) on the globally deduplicated ids. The
+dense model runs the global batch once, its optimizer replicated, as
+in the JAX runner.
 """
 
 from dataclasses import dataclass, field
@@ -51,9 +59,12 @@ from elasticdl_tpu_torch.embedding.optimizer import (
 from elasticdl_tpu_torch.embedding.partition import (
     DEFAULT_PARTITION_THRESHOLD_BYTES,
 )
-
-_PARALLEL = ("waits for the parallel slice of the port (row-sharded "
-             "tables over torch.distributed)")
+from elasticdl_tpu_torch.parallel.mesh import (
+    NamedSharding,
+    ShardedTensor,
+    whole,
+)
+from elasticdl_tpu_torch.parallel.rules import PartitionSpec
 
 
 @dataclass(frozen=True)
@@ -180,9 +191,12 @@ def _row_grads(d_emb, uids, inverse, ragged: RaggedIds, combiner: str):
 
 
 def _lookups(state, features, specs, use_pallas: str, packed_slots: bool):
-    """Each table's (B, D) combined embedding from the live table, and
-    its ragged ids."""
-    from elasticdl_tpu_torch.ops.pallas_embedding import lookup_combine
+    """Each table's (B, D) combined embedding from the live table (a
+    row-sharded one shard by shard), and its ragged ids."""
+    from elasticdl_tpu_torch.ops.pallas_embedding import (
+        lookup_combine,
+        lookup_combine_sharded,
+    )
 
     embs, raggeds = {}, {}
     with torch.no_grad():
@@ -194,6 +208,11 @@ def _lookups(state, features, specs, use_pallas: str, packed_slots: bool):
                 rows = table[ragged.ids.long()][..., :spec.dim]
                 embs[spec.name] = combine(rows, ragged.weights,
                                           spec.combiner)
+            elif isinstance(table, ShardedTensor):
+                embs[spec.name] = lookup_combine_sharded(
+                    table.shards, ragged.ids, ragged.weights, spec.combiner,
+                    force_pallas=use_pallas == "always",
+                    force_xla=use_pallas == "never")
             else:
                 embs[spec.name] = lookup_combine(
                     table, ragged.ids, ragged.weights, spec.combiner,
@@ -212,6 +231,31 @@ def _apply_model(state, features, sparse_emb, training: bool):
     return model(features, sparse_emb=sparse_emb)
 
 
+def sparse_apply_sharded(opt: RowOptimizer, table: ShardedTensor,
+                         slot_tables: Dict[str, ShardedTensor], unique_ids,
+                         row_grads, step, use_pallas: str = "auto"):
+    """``sparse_apply`` over a ROW-SHARDED table, shard by shard: entry i
+    owns rows [i·V/n, (i+1)·V/n) and applies only the updates whose id
+    lands in its range (contiguous row ranges, where the reference sends
+    id % N to N parameter servers). Ids out of the local range, the
+    global pad sentinel V among them, map to the local sentinel V/n,
+    which ``sparse_apply`` skips, so remote ids and pads cost a shard
+    nothing. ``unique_ids`` must be deduplicated globally
+    (``_unique_pad`` over the global batch): each real id then updates
+    exactly one shard exactly once. In place; returns ``(table,
+    slot_tables)``."""
+    shard_rows = int(table.shards[0].shape[0])
+    ids = unique_ids.to(torch.int32)
+    for i, shard in enumerate(table.shards):
+        local = ids - i * shard_rows
+        in_range = (local >= 0) & (local < shard_rows)
+        local = torch.where(in_range, local, shard_rows)
+        sparse_apply(opt, shard,
+                     {n: t.shards[i] for n, t in slot_tables.items()},
+                     local, row_grads, step=step, use_pallas=use_pallas)
+    return table, slot_tables
+
+
 def build_sparse_train_step(
     loss_fn: Callable,
     specs: Tuple[TableSpec, ...],
@@ -226,12 +270,23 @@ def build_sparse_train_step(
     forward and backward, the sparse row update and the dense optimizer
     step, all in place. ``template`` is the model's ``sparse_template``.
 
+    With ``mesh``, the tables in ``sharded_tables`` are row-sharded
+    (``ShardedTensor`` leaves, which carry their placement): lookup through
+    ``lookup_combine_sharded``, update through ``sparse_apply_sharded``;
+    the same math partitioned by row range. Dedup and the dense model
+    stay in the global view.
+
     ``packed_slots``: the slot tables live inside the main table's rows
     ((V, D*(1+n_slots)), ``optimizer.pack_table``), so the apply is one
-    gather and one scatter (``sparse_apply_packed``); library route
-    only."""
-    if mesh is not None or sharded_tables:
-        raise NotImplementedError(f"mesh= / sharded_tables {_PARALLEL}")
+    gather and one scatter (``sparse_apply_packed``); library route and
+    single mesh only."""
+    if sharded_tables and mesh is None:
+        raise ValueError("sharded_tables requires a mesh")
+    if packed_slots and (mesh is not None or sharded_tables):
+        raise ValueError(
+            "packed_slots is single-mesh only (the row-sharded path "
+            "keeps split tables)"
+        )
     if packed_slots and use_pallas in ("always", "fused"):
         raise ValueError(
             "packed_slots uses the library gather/scatter route; the row "
@@ -264,6 +319,11 @@ def build_sparse_train_step(
                 if packed_slots:
                     sparse_apply_packed(row_opt, state.tables[spec.name],
                                         uids, rows_ct, step_count, spec.dim)
+                elif spec.name in sharded_tables:
+                    sparse_apply_sharded(row_opt, state.tables[spec.name],
+                                         state.slot_tables[spec.name], uids,
+                                         rows_ct, step_count,
+                                         use_pallas=use_pallas)
                 else:
                     sparse_apply(row_opt, state.tables[spec.name],
                                  state.slot_tables[spec.name], uids,
@@ -286,7 +346,8 @@ def build_sparse_multi_step(loss_fn, specs, row_opt, template,
     sparse steps in a loop (the JAX package's ``lax.scan``)."""
     step = build_sparse_train_step(
         loss_fn, specs, row_opt, template, use_pallas=use_pallas,
-        mesh=mesh, sharded_tables=sharded_tables, packed_slots=packed_slots,
+        mesh=mesh, sharded_tables=sharded_tables,
+        packed_slots=packed_slots,
     )
 
     def multi_step(state, batches):
@@ -350,22 +411,34 @@ def init_sparse_state(
 
 class DeviceSparseRunner:
     """Step runner (``init_state``/``train_step``/``train_multi_step``/
-    ``eval_step``) for device-tier sparse models on one card: what the
-    Local executor drives for a zoo module with ``make_sparse_runner``.
+    ``eval_step``) for device-tier sparse models: what the Local
+    executor and the worker drive for a zoo module with
+    ``make_sparse_runner``.
 
     ``use_pallas``: "auto" and "never" take the library routes; "always"
     pins the lookup kernel and the row kernel (kernel #7) on every train
     and eval step; "fused" keeps the library lookup and takes the fused
     row kernel (#8) where it exists. ``packed_slots``: the slot tables
-    ride inside the table's rows (library route only)."""
+    ride inside the table's rows (library route, single mesh only).
+
+    With ``mesh``, every table over ``partition_threshold_bytes`` whose
+    vocab divides the ``axis`` size is row-sharded over the mesh, its
+    slot tables with it (the reference co-locates slots with their
+    table, ``ps/parameters.py:156``); the dense parameters and their
+    optimizer stay whole (replicated). This is the N-parameter-server
+    sparse plane (``docs/designs/parameter_server.md``, "Model
+    Parameter Partition") with row ranges in place of id % N."""
 
     def __init__(self, specs: Tuple[TableSpec, ...], row_opt: RowOptimizer,
-                 use_pallas: str = "auto", mesh=None,
+                 use_pallas: str = "auto", mesh=None, axis: str = "dp",
                  partition_threshold_bytes: int =
                  DEFAULT_PARTITION_THRESHOLD_BYTES,
                  packed_slots: bool = False):
-        if mesh is not None:
-            raise NotImplementedError(f"DeviceSparseRunner(mesh=) {_PARALLEL}")
+        if packed_slots and mesh is not None:
+            raise ValueError(
+                "packed_slots is single-mesh only (row-sharded tables "
+                "keep the split layout)"
+            )
         if use_pallas not in ("auto", "never", "always", "fused"):
             raise ValueError(f"use_pallas={use_pallas!r}")
         if packed_slots and use_pallas in ("always", "fused"):
@@ -378,20 +451,116 @@ class DeviceSparseRunner:
         self.use_pallas = use_pallas
         self.partition_threshold_bytes = int(partition_threshold_bytes)
         self.packed_slots = bool(packed_slots)
+        self.mesh = mesh
+        self.axis = axis
+        self.sharded_tables = self._sharded_tables_for(mesh)
         self._template = None
 
+    def _sharded_tables_for(self, mesh) -> frozenset:
+        """Which tables row-shard on ``mesh``: the vocab divides the axis
+        and the table clears the size threshold. Re-derived on resize: a
+        table that divides dp4 may not divide dp3."""
+        if mesh is None:
+            return frozenset()
+        n = mesh.shape[self.axis]
+        return frozenset(
+            s.name for s in self.specs
+            if s.vocab % n == 0
+            and s.vocab * s.dim * 4 > self.partition_threshold_bytes
+        )
+
+    def _table_sharding(self, name) -> NamedSharding:
+        spec = (PartitionSpec(self.axis, None)
+                if name in self.sharded_tables else PartitionSpec())
+        return NamedSharding(self.mesh, spec)
+
+    def state_shardings(self, state) -> Dict[str, NamedSharding]:
+        """{checkpoint leaf name: NamedSharding}: ``tables.<t>`` and
+        ``slot_tables.<t>.<slot>`` on ``P(axis, None)`` for a sharded
+        table, every other leaf replicated."""
+        from elasticdl_tpu_torch.checkpoint.state_io import named_leaves
+
+        rep = NamedSharding(self.mesh, PartitionSpec())
+        out = {}
+        for name, _ in named_leaves(state):
+            field, _, rest = name.partition(".")
+            table = rest.split(".")[0]
+            out[name] = (self._table_sharding(table)
+                         if field in ("tables", "slot_tables") else rep)
+        return out
+
     def init_state(self, model, make_optimizer, batch, seed: int = 0):
+        if self.mesh is not None:
+            model = model.to(self.mesh.device)
         state, self._template = init_sparse_state(
             model, make_optimizer, batch, self.specs, self.row_opt,
             seed=seed, packed_slots=self.packed_slots,
         )
+        return self.place_state(state)
+
+    def _placed(self, name, leaf, device):
+        if self.mesh is None:
+            return whole(leaf).to(device)
+        sharding = self._table_sharding(name)
+        if isinstance(leaf, ShardedTensor) and leaf.sharding == sharding:
+            return leaf
+        value = whole(leaf)
+        if sharding.is_replicated:
+            return value.to(device)
+        return ShardedTensor.from_whole(sharding, value)
+
+    def place_state(self, state):
+        """Place ``state`` on the runner's mesh, in place: each table and
+        slot table whole or row-sharded as the mesh says (a restored or
+        resharded leaf is gathered and split again, one leaf at a time,
+        so the card holds at most one extra table). No mesh: every leaf
+        whole, on the model's device."""
+        if self.mesh is not None:
+            state.model.to(self.mesh.device)
+        device = state.device
+        for name in list(state.tables):
+            state.tables[name] = self._placed(name, state.tables[name],
+                                              device)
+            slots = state.slot_tables.get(name, {})
+            for slot in list(slots):
+                slots[slot] = self._placed(name, slots[slot], device)
         return state
+
+    def resize(self, new_mesh, state=None):
+        """Move to ``new_mesh`` without a disk round trip
+        (``parallel/reshard.live_reshard``): each row-sharded table's
+        row ranges change (dp4 -> dp2 doubles each shard) and its slot
+        tables move with it. On a failure the runner and the state stay
+        on the old mesh and the error is raised. Returns the state (None
+        before ``init_state``). Steps built before must be rebuilt."""
+        from elasticdl_tpu_torch.parallel import reshard as reshard_lib
+
+        old_mesh = self.mesh
+
+        def bind(mesh):
+            self.mesh = mesh
+            self.sharded_tables = self._sharded_tables_for(mesh)
+
+        def undo(s):
+            bind(old_mesh)
+            self.place_state(s)
+
+        try:
+            bind(new_mesh)
+            if state is None:
+                return None
+            return reshard_lib.live_reshard(state, self.state_shardings,
+                                            self.place_state, undo)
+        except Exception:
+            bind(old_mesh)
+            raise
 
     def _step_args(self):
         if self._template is None:
             raise RuntimeError("init_state() before building a step")
         return dict(specs=self.specs, row_opt=self.row_opt,
                     template=self._template, use_pallas=self.use_pallas,
+                    mesh=self.mesh, sharded_tables=self.sharded_tables,
                     packed_slots=self.packed_slots)
 
     def train_step(self, loss_fn):
@@ -413,10 +582,3 @@ class DeviceSparseRunner:
                                     training=False)
 
         return step
-
-    def resize(self, new_mesh, state=None):
-        raise NotImplementedError(f"DeviceSparseRunner.resize {_PARALLEL}")
-
-    def place_state(self, state):
-        raise NotImplementedError(
-            f"DeviceSparseRunner.place_state {_PARALLEL}")

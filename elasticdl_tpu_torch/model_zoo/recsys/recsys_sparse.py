@@ -114,15 +114,19 @@ def optimizer(lr=0.001):
     return lambda params: torch.optim.Adam(params, lr=lr)
 
 
-def make_sparse_runner(use_pallas: str = "auto",
+def make_sparse_runner(use_pallas: str = "auto", mesh=None,
+                       axis: str = "dp",
                        packed_slots: bool = False) -> DeviceSparseRunner:
     """Step-runner factory: Adagrad rows at lr 0.05 (the reference
     parameter server's canonical sparse optimizer). ``use_pallas``
-    "always" pins the lookup and row-update kernels on every step;
-    ``packed_slots`` keeps the accumulator inside the table's rows."""
+    "always" pins the lookup and row-update kernels on every step; with
+    ``mesh`` the 1M x 256 table and its accumulator row-shard over
+    ``axis`` (far over the 2 MB partition threshold);
+    ``packed_slots`` (single mesh only) keeps the accumulator inside the
+    table's rows."""
     return DeviceSparseRunner(
-        TABLE_SPECS, Adagrad(lr=0.05), use_pallas=use_pallas,
-        packed_slots=packed_slots,
+        TABLE_SPECS, Adagrad(lr=0.05), use_pallas=use_pallas, mesh=mesh,
+        axis=axis, packed_slots=packed_slots,
     )
 
 

@@ -14,8 +14,10 @@ from elasticdl_tpu_torch.common.device import resolve_device
 from elasticdl_tpu_torch.models.transformer import (
     TransformerConfig,
     TransformerLM,
+    transformer_sharding_rules,
 )
 from elasticdl_tpu_torch.ops.losses import masked_next_token_cross_entropy
+from elasticdl_tpu_torch.parallel import rules as rules_lib
 
 CONFIG = TransformerConfig(
     vocab_size=256,
@@ -35,6 +37,19 @@ def custom_model(config: TransformerConfig = CONFIG, device=None,
     if device is None and mesh is not None:
         device = mesh.device
     return TransformerLM(config, mesh=mesh).to(resolve_device(device)).eval()
+
+
+def param_sharding_rules():
+    return transformer_sharding_rules()
+
+
+def batch_sharding_rule(path, leaf):
+    """Token ids/labels (B, S) shard over dp×sp; the row mask (B,) over
+    dp."""
+    name = rules_lib.path_str(path)
+    if name in ("features", "labels") and getattr(leaf, "ndim", 0) == 2:
+        return rules_lib.PartitionSpec("dp", "sp")
+    return rules_lib.PartitionSpec("dp")
 
 
 def loss(labels, predictions, mask):

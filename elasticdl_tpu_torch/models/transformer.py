@@ -58,6 +58,29 @@ from elasticdl_tpu_torch.ops.ring_attention import (
 )
 
 
+def transformer_sharding_rules():
+    """Name regex -> PartitionSpec, in priority order (first match
+    wins), as the JAX module's rules: Megatron column/row-parallel
+    attention and MLP, vocab over ``tp``. Written for the port's
+    layouts (a torch ``Linear`` weight is (out, in), where flax's kernel
+    is (in, out) or (d, H, Dh)), so each places the same dim as the JAX
+    rule. ``regex_param_rule`` fits them to the mesh: on a dp-only mesh
+    every parameter replicates."""
+    from elasticdl_tpu_torch.parallel.rules import PartitionSpec as P
+
+    return (
+        (r"attn/(query|key|value)/weight", P("tp", None)),
+        (r"attn/(query|key|value)/bias", P("tp")),
+        (r"attn/out/weight", P(None, "tp")),
+        (r"mlp/wi/weight", P("tp", None)),
+        (r"mlp/wi/bias", P("tp")),
+        (r"mlp/wo/weight", P(None, "tp")),
+        (r"token_embed/weight", P("tp", None)),
+        (r"lm_head/weight", P("tp", None)),
+        (r"lm_head/bias", P("tp")),
+    )
+
+
 @dataclass(frozen=True)
 class TransformerConfig:
     vocab_size: int = 256

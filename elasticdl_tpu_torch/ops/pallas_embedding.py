@@ -309,15 +309,50 @@ def lookup_combine(table, ids, weights, combiner: str,
     return combine(table[ids.long()], weights, combiner)
 
 
-def lookup_combine_sharded(table, ids, weights, combiner: str, mesh,
-                           axis: str, force_pallas: bool = False,
+def lookup_combine_sharded(shards: Sequence[torch.Tensor], ids, weights,
+                           combiner: str, force_pallas: bool = False,
                            force_xla: bool = False):
-    """Per-shard lookup over a row-sharded table: waits for the
-    parallel slice of the port."""
-    raise NotImplementedError(
-        "lookup_combine_sharded (row-sharded tables) waits for the "
-        "parallel slice of the port (torch.distributed)"
-    )
+    """Gather + combine over a ROW-SHARDED table: ``shards`` are the
+    entries' row blocks in order (``ShardedTensor.shards``: entry i owns
+    rows [i·V/n, (i+1)·V/n)), ``ids``/``weights`` the global (B, L)
+    batch. The JAX ``shard_map`` body, run shard by shard: each shard
+    takes the ids minus its offset, clipped to [0, V/n), with the weights
+    of ids outside its range zeroed, and gives its "sum" partial through
+    ``lookup_combine`` (kernel #6 under ``force_pallas``: one launch a
+    shard); the partials are summed (the psum), then mean/sqrtn
+    renormalise with the replicated weights. The route is decided once,
+    for every shard. Differentiable in the shards and the weights (the
+    dense path)."""
+    if combiner not in COMBINERS:
+        raise ValueError(f"combiner must be one of {COMBINERS}")
+    if force_pallas and force_xla:
+        raise ValueError("force_pallas and force_xla are exclusive")
+    shard_rows = int(shards[0].shape[0])
+    if any(int(t.shape[0]) != shard_rows for t in shards):
+        raise ValueError("row shards of unequal sizes")
+    use_kernel = force_pallas or (
+        not force_xla and use_pallas_lookup(shards[0].shape[1],
+                                            ids.shape[1]))
+    ids = ids.to(torch.int32)
+    weights = weights.to(torch.float32)
+    out = None
+    for i, shard in enumerate(shards):
+        local = ids - i * shard_rows
+        in_range = (local >= 0) & (local < shard_rows)
+        part = lookup_combine(
+            shard, local.clamp(0, shard_rows - 1),
+            torch.where(in_range, weights, 0.0), "sum",
+            force_pallas=use_kernel, force_xla=not use_kernel)
+        out = part if out is None else out + part
+    if combiner == "sum":
+        return out
+    if combiner == "mean":
+        denom = weights.sum(dim=-1, keepdim=True)
+    else:
+        denom = torch.sqrt((weights * weights).sum(dim=-1, keepdim=True))
+    positive = denom > 0
+    return torch.where(positive, out / torch.where(positive, denom, 1.0),
+                       0.0)
 
 
 # ---- in-place row updates --------------------------------------------------

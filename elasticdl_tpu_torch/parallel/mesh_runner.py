@@ -1,13 +1,38 @@
-"""MeshRunner: train/eval steps over a device mesh (port of
-elasticdl_tpu/parallel/mesh_runner.py, one-device meshes).
+"""MeshRunner: data-parallel train/eval steps over a device mesh (port
+of elasticdl_tpu/parallel/mesh_runner.py, single controller).
 
-The JAX runner jits one SPMD program per step with the batch sharded
-over ``dp`` and the optimizer state ZeRO-sharded. In this slice every
-entry of the mesh is one device (``parallel/mesh.py``), so the state
-lives whole on that device and the steps are ``core/step.py``'s, run on
-the model the mesh was built into (a ``TransformerLM(cfg, mesh)`` runs
-ring attention over ``sp``). What the runner adds is the reference's
-sync semantics (SURVEY.md §2.7):
+The JAX runner jits one global program per step: the batch sharded over
+the data axis, parameters placed by rules (replicated unless a rule
+places them), the optimizer state ZeRO-sharded, and GSPMD partitions
+that program over the mesh. Its numbers are the global program's, so a
+dp-N run equals dp-1 up to reduction order.
+
+Every entry of the port's mesh names one device (``parallel/mesh.py``).
+The runner therefore
+
+1. runs the dense forward and backward once, over the global batch, on
+   that device: GSPMD's partitioned program for one device. That keeps
+   JAX's semantics where running each entry's batch shard in turn would
+   not: BatchNorm statistics are the global batch's (GSPMD all-reduces
+   them inside the forward), the masked loss is ``sum(l·m)/sum(m)``
+   over the global batch (not a mean of per-shard means, which differ
+   when the padded rows fall in the last shard), and dropout masks are
+   drawn for the global batch. The per-entry forward with a statistics
+   all-reduce (the SyncBatchNorm idiom) belongs to the multi-process
+   mesh (ROADMAP Queue 1, item 6b), where each entry is a process;
+2. holds as separate per-entry tensors what the JAX runner places per
+   device: each optimizer slot ZeRO-split by ``state_shardings``
+   (``parallel/zero.ZeroOptimizer``: one torch optimizer over every
+   entry's slice of every split parameter, a slot tensor a slice);
+   ``NamedSharding`` is the one place data crosses between entries;
+3. runs the update on the shards: entry e takes its slice of the global
+   gradient (the reduce-scatter's result), applies the zoo's optimizer
+   with its own slots and writes its slice of the replicated parameter
+   in place (the all-gather); parameters whose slots no dim splits are
+   updated once. A learning-rate schedule reaches every entry through
+   the one optimizer.
+
+Beside it, the reference's sync semantics (SURVEY.md §2.7):
 
 - sync SGD ``grads_to_wait`` → ``accum_steps`` gradient accumulation:
   the optimizer applies every ``accum_steps`` calls, with the mean of
@@ -21,48 +46,263 @@ window, independently of the delayed optimizer apply, and keep their
 old values after a batch with padded rows, as in the JAX runner
 (``core/step.py``'s guard).
 
-Steps are memoised per (kind, loss function). Nothing reads a value
-back from the card: the accumulation window's count is a host int.
-Waiting for the parallel slice: the data axis, ``resize``,
-``place_state``, ZeRO placement of the optimizer state, the sharding
-rules and multi-host.
+``resize`` moves the state to another mesh without a disk round trip
+(``parallel/reshard.py``). Steps are memoised per (kind, loss function,
+mesh), so a runner back on a mesh it has trained on reuses its steps.
+Nothing reads a value back from the card: the accumulation window's
+count is a host int.
+
+A rule that splits a parameter over an axis of size > 1 raises: tensor
+and expert parallelism (``tp``, ``mp``, ``ep``) and tables row-split as
+parameters of the dense model (an ``Embedding`` or ``DenseFeatures``
+table over the 2 MB threshold) are ROADMAP Queue 1 item 6b. A mesh
+without the data axis (the ``sp`` ring's) keeps every slot whole; on a
+dp × sp mesh the ring runs over the global batch and the slots split
+over dp, as in JAX (``tests/test_torch_mesh_runner.py`` holds the two
+runners' losses together there).
 """
 
 from typing import Callable, Dict, Optional
 
+from elasticdl_tpu_torch.callbacks import seek_lr_schedule
 from elasticdl_tpu_torch.core import step as step_lib
-from elasticdl_tpu_torch.core.train_state import TrainState, init_train_state
+from elasticdl_tpu_torch.core.train_state import (
+    TrainState,
+    init_train_state,
+    statistic_buffers,
+)
+from elasticdl_tpu_torch.embedding import partition as partition_lib
 from elasticdl_tpu_torch.parallel import mesh as mesh_lib
+from elasticdl_tpu_torch.parallel import rules as rules_lib
+from elasticdl_tpu_torch.parallel.zero import ZeroOptimizer, whole_slots
+
+
+def _default_rule_factory(data_axis: str):
+    def factory(m):
+        return partition_lib.embedding_partition_rule(
+            axis=data_axis, axis_size=m.shape.get(data_axis, 1))
+
+    return factory
+
+
+def _tree_with_path(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _tree_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree)
 
 
 class MeshRunner:
-    """The Worker ``step_runner`` interface over a one-device Mesh."""
+    """The Worker ``step_runner`` interface over a Mesh."""
 
     def __init__(self, mesh: Optional[mesh_lib.Mesh] = None,
-                 accum_steps: int = 1, staleness_modulation: bool = False):
+                 data_axis: str = "dp", accum_steps: int = 1,
+                 param_rule=None, batch_rule=None,
+                 staleness_modulation: bool = False,
+                 param_rule_factory=None):
         self.mesh = mesh if mesh is not None else mesh_lib.make_mesh()
+        self.data_axis = data_axis
         self.accum_steps = accum_steps
         self.staleness_modulation = staleness_modulation
+        # Optional (path, leaf) -> PartitionSpec for batch leaves; the
+        # default is the leading dim over the data axis.
+        self.batch_rule = batch_rule
+        # Rules bake the mesh (axis sizes decide what divides), so
+        # resize re-derives them from a factory; a bare param_rule is
+        # kept as it is across resizes.
+        if param_rule_factory is None and param_rule is None:
+            param_rule_factory = _default_rule_factory(data_axis)
+        self._param_rule_factory = param_rule_factory
+        self.param_rule = param_rule
+        self._bind(self.mesh)
+        self._make_optimizer = None
         # Keyed on the loss function OBJECT (the memo pins it alive; an
-        # id() could be recycled). The accumulation path is not memoised:
-        # it carries a window across calls.
+        # id() could be recycled) and the mesh. The accumulation path is
+        # not memoised: it carries a window across calls.
         self._step_memo: Dict = {}
 
     def _memoized(self, kind, fn_key, builder):
-        key = (kind, fn_key)
+        key = (kind, fn_key, self.mesh)
         step = self._step_memo.get(key)
         if step is None:
             step = builder()
             self._step_memo[key] = step
         return step
 
+    # ---- sharding rules ------------------------------------------------
+
+    def _slot_sharding(self, name, leaf) -> mesh_lib.NamedSharding:
+        """A parameter's slots: its rule's spec where that places it and
+        fits, else ZeRO over the data axis (replicated on a mesh without
+        one)."""
+        spec = self.param_rule(name, leaf)
+        if (any(a is not None for a in spec)
+                and rules_lib.spec_fits(spec, leaf, self.mesh)):
+            return mesh_lib.NamedSharding(self.mesh, spec)
+        if self.data_axis not in self.mesh.shape:
+            return mesh_lib.replicated(self.mesh)
+        return mesh_lib.shard_leaf_over_axis(self.mesh, leaf, self.data_axis)
+
+    def _check_placement(self, shardings):
+        """Refuse what item 6b holds: a parameter split over entries (a
+        ``tp``/``ep`` rule, or an embedding or ``DenseFeatures`` table
+        over the 2 MB threshold row-split over the data axis: the dense
+        forward reads parameters whole) and slots on any axis but the
+        data axis."""
+        for name, sharding in shardings.items():
+            for entry in sharding.spec:
+                for axis in (entry if isinstance(entry, tuple) else (entry,)):
+                    if axis is None or self.mesh.shape.get(axis, 1) == 1:
+                        continue
+                    if name.startswith("params.") or axis != self.data_axis:
+                        raise NotImplementedError(
+                            f"{name} placed on mesh axis {axis!r} of size "
+                            f"{self.mesh.shape[axis]}: a parameter split "
+                            f"over entries {mesh_lib.WAITS_FOR_6B}")
+
+    def state_shardings(self, state) -> Dict[str, mesh_lib.NamedSharding]:
+        """{checkpoint leaf name: NamedSharding}: ``params.<n>`` by the
+        rule (replicated unless a rule places it), ``opt_state.<n>``
+        (every slot of parameter n) by the rule where it places n, else
+        ZeRO over the data axis;
+        ``batch_stats``, ``step`` and ``rng`` replicated. The forward
+        reads each parameter whole from the one device."""
+        rep = mesh_lib.replicated(self.mesh)
+        named = dict(state.model.named_parameters())
+        out = {"step": rep, "rng": rep}
+        params = partition_lib.tree_shardings(named, self.mesh,
+                                              self.param_rule)
+        out.update({f"params.{n}": s for n, s in params.items()})
+        out.update({f"batch_stats.{n}": rep for n in state.batch_stats})
+        out.update({f"opt_state.{n}": self._slot_sharding(n, p)
+                    for n, p in named.items()})
+        self._check_placement(out)
+        return out
+
+    def _slot_shardings(self, model):
+        shardings = self.state_shardings(
+            TrainState(model=model, optimizer=None, generator=None,
+                       batch_stats=statistic_buffers(model)))
+        return {n: shardings[f"opt_state.{n}"]
+                for n, _ in model.named_parameters()}
+
+    def _zero(self, model, slots=None) -> ZeroOptimizer:
+        return ZeroOptimizer(dict(model.named_parameters()),
+                             self._make_optimizer, self._slot_shardings(model),
+                             slots=slots)
+
+    def batch_shardings(self, batch):
+        """The batch tree's NamedShardings: ``batch_rule`` fitted per
+        leaf where the runner has one, else the leading dim over the
+        data axis (where it divides)."""
+        mesh = self.mesh
+
+        def sharding(path, leaf):
+            spec = (self.batch_rule(path, leaf) if self.batch_rule
+                    else rules_lib.PartitionSpec(self.data_axis))
+            return mesh_lib.NamedSharding(
+                mesh, rules_lib.fit_spec(spec, leaf, mesh))
+
+        return _tree_with_path(sharding, batch)
+
+    # ---- runner interface ---------------------------------------------
+
     def init_state(self, model, tx, example_batch=None,
                    seed: int = 0) -> TrainState:
         """The train state of ``model`` (moved to the mesh's device) with
-        the optimizer ``tx(params)``. ``example_batch`` is accepted for
-        the JAX signature: a torch module already has its shapes."""
+        the optimizer ``tx`` ZeRO-placed on the mesh. ``example_batch``
+        is accepted for the JAX signature: a torch module already has
+        its shapes."""
         model = model.to(self.mesh.device)
-        return init_train_state(model, tx, seed=seed)
+        self._make_optimizer = tx
+        return init_train_state(model, lambda _: self._zero(model),
+                                seed=seed)
+
+    def place_batch(self, batch):
+        """The global batch on the mesh's device (the dense step runs it
+        there whole; ``batch_shardings`` says how JAX lays it out)."""
+        return step_lib._to_device(batch, self.mesh.device)
+
+    def place_task(self, batches):
+        """A stacked task ({k: (T, B, ...)}) on the mesh's device."""
+        return step_lib._to_device(batches, self.mesh.device)
+
+    def place_state(self, state):
+        """Re-place ``state`` onto this runner's mesh, in place: its model
+        on the mesh's device, its optimizer's slots (whole, as a restore
+        into a plain optimizer lands them, or split for another mesh)
+        split for this one. A state already placed here is returned as
+        it is."""
+        if self._make_optimizer is None:
+            raise RuntimeError(
+                "MeshRunner.init_state must run before place_state")
+        state.model.to(self.mesh.device)
+        shardings = self._slot_shardings(state.model)
+        optimizer = state.optimizer
+        if (isinstance(optimizer, ZeroOptimizer)
+                and optimizer.shardings == shardings):
+            return state
+        state.optimizer = self._zero(state.model,
+                                     whole_slots(optimizer, state.model))
+        seek_lr_schedule(state.optimizer, state.step)
+        return state
+
+    def _bind(self, mesh: mesh_lib.Mesh):
+        """Point the runner at ``mesh``, its rules re-derived for it."""
+        self.mesh = mesh
+        if self._param_rule_factory is not None:
+            self.param_rule = self._param_rule_factory(mesh)
+
+    def _adopt(self, model):
+        """``place_fn`` of a resize that rebuilds the model: ``model``
+        (built for the new mesh) takes the state's parameters, buffers
+        and slots; the state changes only once all of that is built."""
+        def place(state):
+            slots = whole_slots(state.optimizer, state.model)
+            model.to(self.mesh.device).load_state_dict(
+                state.model.state_dict())
+            optimizer = self._zero(model, slots)
+            state.model, state.optimizer = model, optimizer
+            state.batch_stats = statistic_buffers(model)
+            seek_lr_schedule(optimizer, state.step)
+            return state
+
+        return place
+
+    def resize(self, new_mesh: mesh_lib.Mesh, state=None, model=None):
+        """Move to ``new_mesh`` without a disk round trip
+        (``parallel/reshard.live_reshard``): the rules re-derived for
+        the new mesh and checked, then the slots gathered from the old
+        entries and split for the new ones on the device. ``model``: the
+        model rebuilt for the new mesh (a mesh-aware model,
+        ``ModelSpec.make_model``); it takes the state's parameters and
+        buffers. On a failure the runner and the state stay on the old
+        mesh and the error is raised. Returns the state, or None when
+        called before ``init_state`` (which then lands on the new mesh).
+        Steps built for the old mesh must be rebuilt (the memo keeps
+        each mesh's); a partial accumulation window does not survive.
+        Call at a step boundary."""
+        from elasticdl_tpu_torch.parallel import reshard as reshard_lib
+
+        old_mesh = self.mesh
+        try:
+            self._bind(new_mesh)
+            if state is None:
+                return None
+
+            def check(s):
+                self._slot_shardings(model if model is not None
+                                     else s.model)
+
+            def undo(s):
+                self._bind(old_mesh)
+                self.place_state(s)
+
+            place = self.place_state if model is None else self._adopt(model)
+            return reshard_lib.live_reshard(state, check, place, undo)
+        except Exception:
+            self._bind(old_mesh)
+            raise
 
     def train_step(self, loss_fn: Callable) -> Callable:
         """``(state, batch) -> (state, metrics)``; with ``accum_steps``
@@ -115,18 +355,26 @@ class MeshRunner:
     def eval_step(self) -> Callable:
         return self._memoized("eval", None, step_lib.build_eval_step)
 
-    def place_state(self, state):
-        raise NotImplementedError(
-            "MeshRunner.place_state waits for the parallel slice")
-
-    def resize(self, new_mesh, state=None):
-        raise NotImplementedError(
-            "MeshRunner.resize waits for the parallel slice")
-
 
 def make_runner_for_spec(spec, mesh: Optional[mesh_lib.Mesh] = None,
-                         accum_steps: int = 1, **kwargs) -> MeshRunner:
-    """A MeshRunner for a ModelSpec. The JAX version wires the spec's
-    sharding extras and data axis, which wait for the parallel slice."""
-    del spec
-    return MeshRunner(mesh=mesh, accum_steps=accum_steps, **kwargs)
+                         data_axis: str = "dp", accum_steps: int = 1,
+                         **kwargs) -> MeshRunner:
+    """A MeshRunner wired to a ModelSpec's layout extras: the zoo
+    module's ``param_sharding_rules()`` regexes (fitted to each mesh,
+    with the 2 MB embedding rule as the fallback) and its
+    ``batch_sharding_rule``. Modules without the extras get the plain
+    data-parallel layout."""
+    mesh = mesh if mesh is not None else mesh_lib.make_mesh()
+    param_rule_factory = None
+    if getattr(spec, "param_sharding_rules", None) is not None:
+        rules = spec.param_sharding_rules()
+        fallback_for = _default_rule_factory(data_axis)
+
+        def param_rule_factory(m, rules=rules):
+            return rules_lib.regex_param_rule(rules, mesh=m,
+                                              fallback=fallback_for(m))
+
+    return MeshRunner(
+        mesh=mesh, data_axis=data_axis, accum_steps=accum_steps,
+        param_rule_factory=param_rule_factory,
+        batch_rule=getattr(spec, "batch_sharding_rule", None), **kwargs)

@@ -7,10 +7,15 @@ direct in-process calls or over a real localhost gRPC server — and
 assert the job drains. Every worker runs on ``device`` (CUDA unless
 "cpu" is given).
 
+With ``mesh``, the workers train on it as ``worker/main.py`` wires
+MeshStrategy: a device-tier sparse model through its runner built with
+the mesh (row-sharded tables), any other model through a ``MeshRunner``
+of the zoo module's layout extras; ``begin_resize`` opens the master's
+live-resize barrier.
+
 Not ported yet: ``journal_dir``/``restart_master`` (the master's
-journal and crash recovery), ``begin_resize`` (live resize), the chaos
-``fault_injector``, a mesh and the ``/metrics`` endpoint (ROADMAP
-Queue 1, items 6 and 8).
+journal and crash recovery), the chaos ``fault_injector`` and the
+``/metrics`` endpoint (ROADMAP Queue 1, item 8).
 """
 
 import threading
@@ -55,6 +60,7 @@ class MiniCluster:
         version_report_steps: int = 1,
         device=None,
         random_seed: int = 0,
+        mesh=None,
     ):
         self.device = resolve_device(device)
         # The model's initial weights come from random_seed, as in the
@@ -63,6 +69,22 @@ class MiniCluster:
             torch.manual_seed(random_seed)
             self.spec = get_model_spec(model_zoo, model_def,
                                        device=self.device)
+        if mesh is not None and step_runner_factory is None:
+            # The same wiring as worker/main.py's MeshStrategy.
+            if self.spec.make_sparse_runner is not None:
+                sparse_runner = self.spec.make_sparse_runner(
+                    mesh=mesh, axis=mesh.axis_names[0])
+                step_runner_factory = lambda: sparse_runner  # noqa: E731
+            else:
+                from elasticdl_tpu_torch.parallel.mesh_runner import (
+                    make_runner_for_spec,
+                )
+
+                with torch.random.fork_rng(devices=[]):
+                    torch.manual_seed(random_seed)
+                    self.spec.model = self.spec.make_model(mesh)
+                step_runner_factory = lambda: make_runner_for_spec(  # noqa: E731
+                    self.spec, mesh)
         reader_of = lambda origin: create_data_reader(  # noqa: E731
             data_origin=origin, custom_reader=self.spec.custom_data_reader
         )
@@ -192,6 +214,15 @@ class MiniCluster:
                     random_seed=random_seed,
                 )
             )
+
+    def begin_resize(self, mesh, direction: str = "resize") -> int:
+        """Open a live-resize barrier offering ``mesh`` to every worker
+        (``master/servicer.py``; applied through the runner's ``resize``
+        at each worker's next task boundary)."""
+        from elasticdl_tpu_torch.parallel import reshard
+
+        return self.servicer.begin_resize(reshard.mesh_spec(mesh),
+                                          direction=direction)
 
     def run(self) -> List[dict]:
         """Run all workers (threads if >1) to completion."""

@@ -11,8 +11,11 @@ A host-tier model (``make_host_runner``) with ``--row_service_addr``
 pulls and pushes its rows through a shared row service
 (``embedding/row_service.py``); with ``--num_workers`` > 1 it needs one.
 
-Not ported: multi-host (``jax.distributed``), the XLA compilation cache
-and the step profiler have no flag here.
+Under MeshStrategy a device-tier sparse model gets its runner with the
+mesh (row-sharded tables), any other model a ``MeshRunner`` wired to its
+zoo module's layout extras. Not ported: a multi-host mesh (its flags
+raise: ROADMAP Queue 1, item 6b); the XLA compilation cache and the step
+profiler have no flag here.
 """
 
 import os
@@ -37,6 +40,14 @@ logger = get_logger("worker_main")
 
 def build_worker(args, master_client=None) -> Worker:
     """Assemble a Worker from parsed args (shared with tests)."""
+    if (getattr(args, "num_jax_processes", 1) > 1
+            or getattr(args, "coordinator_addr", "")
+            or getattr(args, "jax_process_id", -1) != -1):
+        raise NotImplementedError(
+            "a multi-host mesh (--num_jax_processes, --coordinator_addr, "
+            "--jax_process_id) "
+            "waits for ROADMAP Queue 1 item 6b (torch.distributed across "
+            "worker processes)")
     device = resolve_device(getattr(args, "device", None))
     # The model's initial weights come from --random_seed, as in the
     # Local executor: a worker and a Local run of the same records start
@@ -81,37 +92,56 @@ def build_worker(args, master_client=None) -> Worker:
         )
 
         shape, axes = parse_mesh_args(args.mesh_shape, args.mesh_axes)
-        # The port's mesh is one card (or the CPU) seen as every entry;
-        # a mesh over several cards raises in make_mesh.
-        devices = None
-        if device.type == "cpu":
-            size = 1
-            for n in shape or (1,):
-                size *= n
-            devices = [device] * size
-        mesh = make_mesh(shape, axes, devices)
+        # The port's mesh is one device (the card, or the CPU) seen as
+        # every entry; a mesh over several cards is item 6b.
+        size = 1
+        for n in shape or (1,):
+            size *= n
+        mesh = make_mesh(shape, axes, [device] * size)
         if spec.make_sparse_runner is not None:
-            raise NotImplementedError(
-                "device-tier sparse models under MeshStrategy: the "
-                "row-sharded sparse path is not ported yet (ROADMAP "
-                "Queue 1, item 6)"
-            )
-        # Rebuilt for the mesh from the same seed: the same weights.
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(args.random_seed)
-            spec.model = spec.make_model(mesh)
-        step_runner = make_runner_for_spec(
-            spec,
-            mesh,
-            # grads_to_wait maps onto gradient accumulation before the
-            # sync apply; async staleness LR modulation becomes
-            # per-microbatch 1/staleness weighting.
-            accum_steps=getattr(args, "grads_to_wait", 1),
-            staleness_modulation=(
+            # The device-tier sparse plane over the mesh: its tables
+            # (and slots) row-shard over the first mesh axis, the dense
+            # model runs the global batch with its optimizer replicated.
+            import inspect
+
+            params = inspect.signature(spec.make_sparse_runner).parameters
+            accepts_mesh = "mesh" in params or any(
+                p.kind is inspect.Parameter.VAR_KEYWORD
+                for p in params.values())
+            if not accepts_mesh:
+                raise ValueError(
+                    f"{args.model_def}: make_sparse_runner must accept "
+                    "mesh=... to run under MeshStrategy")
+            # The sparse step has no accumulation mode: refuse rather
+            # than silently change the effective batch.
+            if getattr(args, "grads_to_wait", 1) > 1 or (
                 getattr(args, "use_async", False)
                 and getattr(args, "lr_staleness_modulation", False)
-            ),
-        )
+            ):
+                raise ValueError(
+                    "device-tier sparse models do not support "
+                    "--grads_to_wait > 1 or async staleness LR "
+                    "modulation under MeshStrategy; the sparse step "
+                    "applies each batch's row grads directly")
+            step_runner = spec.make_sparse_runner(mesh=mesh, axis=axes[0])
+        else:
+            # Rebuilt for the mesh from the same seed: the same weights
+            # (a mesh-aware model runs ring attention over sp).
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(args.random_seed)
+                spec.model = spec.make_model(mesh)
+            step_runner = make_runner_for_spec(
+                spec,
+                mesh,
+                # grads_to_wait maps onto gradient accumulation before
+                # the sync apply; async staleness LR modulation becomes
+                # per-microbatch 1/staleness weighting.
+                accum_steps=getattr(args, "grads_to_wait", 1),
+                staleness_modulation=(
+                    getattr(args, "use_async", False)
+                    and getattr(args, "lr_staleness_modulation", False)
+                ),
+            )
     if spec.make_host_runner is not None:
         # Host-tier model (embedding/host_engine.py): the zoo module
         # supplies the runner holding its row stores.

@@ -25,9 +25,12 @@ Where the JAX worker differs by its platform:
 - Nothing reads back from the card per step: ``state.step`` is a Python
   int, an eval task's outputs stay on the card until the task ends and
   are copied once, and the final loss is read once, at the end.
-- Multi-host sync, live resize (``parallel/reshard``) and the profiler
-  are not ported (ROADMAP Queue 1, items 6 and 8): a resize directive
-  for a runner that can resize raises.
+- A resize directive (the master's barrier) is applied at a task
+  boundary through the runner's ``resize`` (``parallel/reshard``): a
+  mesh-aware model is rebuilt for the new mesh and takes the trained
+  parameters (torch modules hold their parameters, where the JAX worker
+  only re-binds ``apply_fn``). Multi-host sync (ROADMAP Queue 1, item
+  6b) and the profiler (item 8) are not ported.
 """
 
 import itertools
@@ -207,6 +210,10 @@ class Worker:
         self._applied_resize_id = -1
         self._in_task = False
         self._resizing = False
+        self._m_resize = self._metrics.histogram(
+            "worker_resize_seconds",
+            "Live reshard latency: gather + re-place + step rebuild",
+        )
         self._m_examples = self._metrics.counter(
             "worker_examples_total",
             "Examples processed", ["task_type"],
@@ -269,7 +276,7 @@ class Worker:
             from elasticdl_tpu_torch.checkpoint import restore_from_dir
 
             # In place: the restored leaves are copied into the live
-            # tensors on their device, so nothing is re-placed.
+            # tensors (a placed leaf split into its shards).
             self.state = restore_from_dir(
                 self.state, self._checkpoint_dir_for_init,
                 required=self._checkpoint_init_required,
@@ -277,6 +284,10 @@ class Worker:
                     self._step_runner, "host_tables", None
                 ),
             )
+            # The runner re-places what a restore may land whole (as
+            # the JAX worker re-places its host arrays).
+            if hasattr(self._step_runner, "place_state"):
+                self.state = self._step_runner.place_state(self.state)
             # The restored version is the save baseline — without this,
             # interval-crossing counts pre-restore steps and writes a
             # spurious checkpoint on the first post-restore step.
@@ -452,6 +463,8 @@ class Worker:
             )
 
         if resize_id == self._applied_resize_id:
+            # Re-offered (a recovered master's acks are volatile): the
+            # local apply already happened; re-join the barrier.
             send_ack("applied")
             return
         runner = self._step_runner
@@ -462,11 +475,62 @@ class Worker:
             self._applied_resize_id = resize_id
             send_ack("noop")
             return
-        raise NotImplementedError(
-            f"resize directive {resize_id} for {type(runner).__name__}: "
-            "live resize (parallel/reshard) is not ported yet (ROADMAP "
-            "Queue 1, item 6)"
+        from elasticdl_tpu_torch.parallel import reshard as reshard_lib
+
+        t0 = time.monotonic()
+        try:
+            with self._tracer.span("resize", resize_id=resize_id):
+                # The new mesh's entries all name this worker's device.
+                mesh = getattr(runner, "mesh", None)
+                device = (mesh.device if mesh is not None
+                          else self.state.device if self.state is not None
+                          else self._spec.device)
+                new_mesh = reshard_lib.mesh_from_spec(directive["spec"],
+                                                      device=device)
+                # A mesh-aware model is built for its mesh: rebuild it
+                # (from the run's seed, as worker/main.py builds it); the
+                # runner moves the trained values into it.
+                new_model, kwargs = None, {}
+                if self._spec.mesh_aware:
+                    with torch.random.fork_rng(devices=[]):
+                        torch.manual_seed(self._seed)
+                        new_model = self._spec.make_model(new_mesh)
+                    if self.state is not None:
+                        kwargs["model"] = new_model
+                state = runner.resize(new_mesh, self.state, **kwargs)
+                if new_model is not None:
+                    self._spec.model = new_model
+                if state is not None:
+                    self.state = state
+                    self._m_compiles.inc()
+                    self._train_step = runner.train_step(self._spec.loss)
+                    self._eval_step = runner.eval_step()
+                    if self._multi_step is not None and hasattr(
+                        runner, "train_multi_step"
+                    ):
+                        self._multi_step = runner.train_multi_step(
+                            self._spec.loss
+                        )
+        except Exception as exc:
+            # A failed apply must not wedge the fleet's barrier: ack
+            # "failed" and keep training on the old mesh. The id is
+            # deliberately NOT recorded, so a re-offered directive is
+            # tried again instead of short-circuiting with "applied".
+            logger.error(
+                "resize %d failed; staying on the current mesh: %s\n%s",
+                resize_id, exc, traceback.format_exc(),
+            )
+            send_ack("failed")
+            return
+        elapsed = time.monotonic() - t0
+        self._m_resize.observe(elapsed)
+        self._applied_resize_id = resize_id
+        logger.info(
+            "live reshard %d applied in %.3fs (mesh %s, state %s)",
+            resize_id, elapsed, directive["spec"],
+            "resharded" if self.state is not None else "pre-init",
         )
+        send_ack("applied")
 
     # ---- task processing ----------------------------------------------
 

@@ -288,13 +288,34 @@ def test_packed_slots_match_jax():
 
 def test_runner_contract():
     _, tspecs = _specs("sum")
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        tds.DeviceSparseRunner(tspecs, topt.SGD(), mesh=object())
+    # With a mesh (tests/test_torch_sparse_sharded.py): packed slots
+    # stay single-mesh, and sharded tables need a mesh, as JAX words it.
+    from elasticdl_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((2,), ("dp",), [torch.device("cpu")] * 2)
+    with pytest.raises(ValueError, match="packed_slots is single-mesh"):
+        tds.DeviceSparseRunner(tspecs, topt.SGD(), mesh=mesh,
+                               packed_slots=True)
     runner = tds.DeviceSparseRunner(tspecs, topt.SGD())
-    for call in (lambda: runner.resize(None), lambda: runner.place_state(None)):
-        with pytest.raises(NotImplementedError, match="parallel slice"):
-            call()
-    with pytest.raises(NotImplementedError, match="parallel slice"):
+    # No mesh: place_state makes every table whole on the state's device
+    # (what a failed resize from no mesh puts back), and a resize before
+    # init retargets.
+    from types import SimpleNamespace
+
+    from elasticdl_tpu_torch.parallel.mesh import NamedSharding, ShardedTensor
+    from elasticdl_tpu_torch.parallel.rules import PartitionSpec
+
+    table = torch.arange(8.0).reshape(4, 2)
+    state = SimpleNamespace(
+        model=torch.nn.Linear(1, 1), device=torch.device("cpu"),
+        tables={"items": ShardedTensor.from_whole(
+            NamedSharding(mesh, PartitionSpec("dp", None)), table)},
+        slot_tables={"items": {}})
+    assert runner.place_state(state) is state
+    assert torch.equal(state.tables["items"], table)
+    assert runner.resize(mesh) is None and runner.mesh is mesh
+    runner = tds.DeviceSparseRunner(tspecs, topt.SGD())
+    with pytest.raises(ValueError, match="requires a mesh"):
         tds.build_sparse_train_step(masked_sigmoid_cross_entropy, tspecs,
                                     topt.SGD(), {"items": DIM},
                                     sharded_tables=frozenset({"items"}))

@@ -351,13 +351,18 @@ def test_multi_step_and_memo(jax_sp_run):
 
 
 def test_parallel_slice_methods_raise():
+    """``resize`` and ``place_state`` exist now (tests/test_torch_reshard.py
+    holds them): ``place_state`` still raises before ``init_state``, and
+    what item 6b holds raises."""
     runner = make_runner_for_spec(None, tmesh.make_mesh(devices=[CPU]),
                                   accum_steps=3)
     assert runner.accum_steps == 3 and runner.mesh.device == CPU
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        runner.resize(runner.mesh)
-    with pytest.raises(NotImplementedError, match="parallel slice"):
+    with pytest.raises(RuntimeError, match="init_state"):
         runner.place_state(None)
+    assert runner.resize(tmesh.make_mesh((2,), ("dp",), [CPU] * 2)) is None
+    assert runner.mesh.shape == {"dp": 2}
+    with pytest.raises(NotImplementedError, match="item 6b"):
+        tmesh.make_mesh((2,), ("dp",), [CPU, torch.device("cuda:0")])
 
 
 # ---- ModelSpec.make_model -------------------------------------------------

@@ -163,8 +163,11 @@ def test_lookup_combine_dispatch_contract():
                           force_xla=True)
     with pytest.raises(ValueError, match="combiner"):
         pe.lookup_combine(table, ids, weights, "max")
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        pe.lookup_combine_sharded(table, ids, weights, "sum", None, "dp")
+    # The row-sharded lookup over one shard is the lookup itself
+    # (tests/test_torch_sparse_sharded.py holds it over several).
+    for kw in ({"force_xla": True}, {"force_pallas": True}):
+        got = pe.lookup_combine_sharded([table], ids, weights, "mean", **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("combiner", ["sum", "mean", "sqrtn"])

@@ -408,9 +408,11 @@ def test_mesh_shape_matches_jax(shape, axes, n):
 
 
 def test_mesh_of_distinct_devices_waits_for_the_parallel_slice():
-    with pytest.raises(NotImplementedError, match="parallel slice"):
+    """A mesh over distinct devices still raises, naming ROADMAP item 6b
+    (the multi-device half of the parallel slice)."""
+    with pytest.raises(NotImplementedError, match="item 6b"):
         tmesh.make_mesh((2,), ("sp",), [CPU, torch.device("cuda:0")])
-    with pytest.raises(NotImplementedError, match="parallel slice"):
+    with pytest.raises(NotImplementedError, match="item 6b"):
         tmesh.make_mesh((2,), ("sp",), ["cuda:0", "cuda:1"])
 
 
