@@ -20,6 +20,9 @@
     python3 chip_smoke.py --phase parallel # data parallel over the
                                            # one-card mesh alone
                                            # (embedding kernels)
+    python3 chip_smoke.py --phase multihost # data parallel across two
+                                            # processes on the card
+                                            # alone (embedding kernels)
 
 1. Prints the card (``nvidia-smi`` name and power limit), versions, and
    whether ``grpc`` can be imported.
@@ -310,6 +313,45 @@
    state and placed at dp2, bit-equal to the state it saved; that state
    placed on dp4 takes one fused SGD step: #8 = 4, each shard's #8
    against its plain version.
+11j. ``multihost`` (data parallel across two processes on the one card,
+   ``parallel/multihost.py``; ``--phase multihost`` runs it alone and
+   builds only the embedding sources). The two processes (this script
+   with ``--multihost-child``) start with the smoke, import and join
+   their process group (a ``FileStore``; the data group is gloo, both
+   drive ``cuda:0``) while the other phases run, and wait for a go
+   file: in the whole smoke it is written when the checkpoint phase's
+   evaluate/predict subprocesses start, and the processes set up and
+   train while those run (each draws the 1M x 256 table on the host,
+   ~9 s, and places its shard); their results are held to the
+   references after the parallel phase ((a)'s is that phase's dp4 run
+   at step 8). With ``--phase multihost`` the references run first
+   ((a)'s: PR 18's row-split runner at dp2), then the go file. Each
+   process: (a) the recsys ranker at 1M x 256 row-split
+   over the two processes (a 500,000-row shard each, its table and
+   accumulator 0.5 GB each), kernels pinned, 8 steps on its 256 rows of
+   each global B 512 batch: launches exactly #6 = #7 = 8 in each process
+   and 0 for the others (zeroed just before, read just after), its
+   shard's #6 and #7 against their plain version on the same shard
+   (EMB_TOL), the processes' losses equal and, with the touched rows
+   and accumulator, within SPARSE_TOL of PR 18's one-process row-split
+   runner at dp2 on the same batches; (b) mnist_functional at B 256
+   (128 a process), SGD 0.001, 8 steps against the one-process dp2 run:
+   losses and parameter changes within TRAJ_TOL, running statistics
+   within VISION_STATS_TOL, both processes' states equal. Beside it,
+   reported and not checked, the reduction order's own effect: the
+   one-process run on the same batches with their rows permuted (the
+   same sums in another order) against the one-process run, at 0.001
+   and at SGD 0.01, where the trajectory diverges, with the two
+   processes' run at 0.01 against one process, and both pairs at 0.01
+   again with f32 compute; (c) a job over
+   localhost gRPC, process 0 hosting the master (dispatcher, evaluation
+   service) beside its worker, each worker built by ``worker.main
+   .build_worker`` with ``--num_jax_processes 2``: 2048 mnist records
+   at B 128 a process in tasks of 512, an eval task every 4 versions;
+   both workers end at one version, every batch trained once, eval
+   metrics reported. Prints the data backend (and why), which gloo
+   collectives take CUDA tensors, and per step the step ms (CUDA
+   events), issue ms and the ms inside the data group's collectives.
 12. ``fused path``: ``DeviceSparseRunner`` over the recsys table with
    Momentum (Nesterov) and ``use_pallas="fused"`` for 10 steps against
    "never": one fused-kernel launch a step.
@@ -350,7 +392,8 @@
 17. Prints a ``serving``, a ``training``, a ``sparse_training``, a
    ``ring_training``, a ``host_training``, a ``vision``, a ``tabular``,
    a ``checkpoint``, a ``worker``, a ``rowservice``, a ``fleet``, a
-   ``parallel``, a ``phase_s`` (each phase's seconds) and a
+   ``parallel``, a ``multihost``, a ``phase_s`` (each phase's seconds)
+   and a
    ``kernels`` JSON line (the four flash kernels and the four embedding kernels
    with their ms, plain ms, library ms, bound ms and launches, and their
    launches on the host, vision, tabular, checkpoint, worker and row
@@ -359,7 +402,8 @@
    and resumed recsys runs), ``launches_worker`` (the in-process and
    failed-task runs), ``launches_rowservice`` ((a)'s two runs, (b),
    (c)), ``launches_fleet`` ((a), (b) over one and two shards, (c)),
-   ``launches_parallel`` ((a), (b), (c) at dp4 and dp2, the fused step);
+   ``launches_parallel`` ((a), (b), (c) at dp4 and dp2, the fused step),
+   ``launches_multihost`` ((a) in each process, (b), (c));
    #5 with its times at
    the sweep's tiers, the row kernels with a per-rule list) and, last,
    ``{"ok": true, "device": {...}}``.
@@ -3632,10 +3676,11 @@ def lr_recorder():
     return LrRecorder()
 
 
-def job_subprocesses(jobs):
+def job_subprocesses(jobs, while_running=None):
     """``python -m elasticdl_tpu_torch <role>`` on the card for each
     (role, zoo, model_def, data_flag, data, ckpt) of ``jobs``, side by
-    side; each one's result from its log and its seconds."""
+    side; each one's result from its log and its seconds.
+    ``while_running()`` is called once they are started."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
@@ -3651,6 +3696,8 @@ def job_subprocesses(jobs):
         stderr=subprocess.STDOUT)
         for (role, zoo, model_def, data_flag, data, ckpt), log
         in zip(jobs, logs)]
+    if while_running is not None:
+        while_running()
     out = []
     try:
         for (role, *_), proc, log in zip(jobs, procs, logs):
@@ -3674,7 +3721,7 @@ def job_subprocesses(jobs):
     return out
 
 
-def checkpoint_jobs_part(torch, fa, pe, root):
+def checkpoint_jobs_part(torch, fa, pe, root, while_jobs=None):
     """(c) census_wide_deep: the schedule through a split run, then the
     evaluate and predict jobs in subprocesses from the checkpoint."""
     from elasticdl_tpu_torch.common.constants import Mode
@@ -3711,7 +3758,8 @@ def checkpoint_jobs_part(torch, fa, pe, root):
         "--checkpoint_dir_for_init", split_ckpt])
     (metrics, eval_s), (summary, predict_s) = job_subprocesses([
         ("evaluate", zoo, model_def, "--validation_data", evalf, ckpt),
-        ("predict", zoo, model_def, "--prediction_data", evalf, ckpt)])
+        ("predict", zoo, model_def, "--prediction_data", evalf, ckpt)],
+        while_jobs)
     pred_dir = os.path.join(zoo, "ckpt_census")
     preds = np.concatenate([
         np.load(os.path.join(pred_dir, name))
@@ -3763,14 +3811,15 @@ def checkpoint_jobs_part(torch, fa, pe, root):
     return out
 
 
-def checkpoint_phase(torch, fa, pe, root):
+def checkpoint_phase(torch, fa, pe, root, while_jobs=None):
     """Checkpoints and resume on the card: the recsys twin at full width,
-    deepfm_host's delta chain, census and the evaluate/predict jobs."""
+    deepfm_host's delta chain, census and the evaluate/predict jobs
+    (``while_jobs()`` called once those subprocesses start)."""
     t0 = time.monotonic()
     out = {"recsys": checkpoint_recsys_part(torch, fa, pe, root)}
     torch.cuda.empty_cache()
     out["host"] = checkpoint_host_part(torch, fa, pe, root)
-    out["jobs"] = checkpoint_jobs_part(torch, fa, pe, root)
+    out["jobs"] = checkpoint_jobs_part(torch, fa, pe, root, while_jobs)
     out["seconds"] = time.monotonic() - t0
     out["card"] = smi("name,power.limit")
     return out
@@ -6096,15 +6145,16 @@ def parallel_resnet50_part(torch, fa, pe, root):
 
 
 def shard_kernel_checks(torch, pe, shards, slot_shards, ids, weights, uids,
-                        grads, opt):
+                        grads, opt, first=0):
     """Each shard's launches of #6 and #7 (and #8 for SGD) on the local
     ids the sharded step gives it, against the plain version of the same
-    shard on the card (outside every counted window)."""
+    shard on the card (outside every counted window). ``shards[0]`` is
+    shard ``first`` of the table (a process holds its own)."""
     from elasticdl_tpu_torch.embedding import optimizer as topt
 
     rows = int(shards[0].shape[0])
     out = []
-    for i, shard in enumerate(shards):
+    for i, shard in enumerate(shards, start=first):
         local = ids - i * rows
         in_range = (local >= 0) & (local < rows)
         w_local = torch.where(in_range, weights, 0.0)
@@ -6114,9 +6164,10 @@ def shard_kernel_checks(torch, pe, shards, slot_shards, ids, weights, uids,
         lookup = grad_readings(got, want)
         lu = uids - i * rows
         lu = torch.where((lu >= 0) & (lu < rows), lu, rows).to(torch.int32)
-        tables = [shard.clone()] + [s.clone() for s in slot_shards[i]]
+        slots = slot_shards[i - first]
+        tables = [shard.clone()] + [s.clone() for s in slots]
         plain = [t.clone() for t in tables]
-        if slot_shards[i]:
+        if slots:
             topt._pallas_sparse_apply(
                 opt, tables[0], {"accumulator": tables[1]}, lu, grads, 1)
             pe.row_update_reference("adagrad", lu, grads, plain, lr=opt.lr,
@@ -6129,7 +6180,7 @@ def shard_kernel_checks(torch, pe, shards, slot_shards, ids, weights, uids,
                "lookup": lookup,
                "table": grad_readings(tables[0][touched] - shard[touched],
                                       plain[0][touched] - shard[touched])}
-        if slot_shards[i]:
+        if slots:
             res["accumulator"] = grad_readings(tables[1][touched],
                                                plain[1][touched])
         keep = torch.ones(rows, dtype=torch.bool, device=shard.device)
@@ -6141,14 +6192,15 @@ def shard_kernel_checks(torch, pe, shards, slot_shards, ids, weights, uids,
     return out
 
 
-def parallel_recsys_start(torch, fa, pe, root):
+def parallel_recsys_start(torch, fa, pe, root, reuse=None):
     """(c), first half: the recsys ranker at 1M x 256, B 512, row-sharded
     over dp4 through the zoo's make_sparse_runner(mesh=),
     use_pallas="always", against the unsharded runner from the same
     seed; each dp4 shard's kernels against their plain version; a dp4
     checkpoint started (its writer thread runs on while (a) and (b)
     run); the live resize to dp2 and 4 more steps. Returns what the
-    second half needs."""
+    second half needs; fills ``reuse["recsys"]`` with the dp4 run at
+    step 8 for the multihost phase (``mh_recsys_reference``)."""
     from elasticdl_tpu_torch.checkpoint import CheckpointHook
     from elasticdl_tpu_torch.core.model_spec import get_model_spec
     from elasticdl_tpu_torch.embedding.device_sparse import _unique_pad
@@ -6216,6 +6268,11 @@ def parallel_recsys_start(torch, fa, pe, root):
                  "accumulator"].gather(),
              "params": {k: v.detach().clone() for k, v in
                         state4.model.named_parameters()}}
+    if reuse is not None:
+        reuse["recsys"] = mh_recsys_reference(
+            loss4, touched_rows(torch, np.stack(
+                [b["features"]["ids"] for b in batches[:MH_STEPS]]),
+                EMB_VOCAB), table0, saved["table"], saved["accumulator"])
     ckpt = os.path.join(root, "par_ckpt")
     hook = CheckpointHook(checkpoint_dir=ckpt,
                           checkpoint_steps=PAR_RECSYS_STEPS)
@@ -6385,12 +6442,12 @@ def parallel_recsys_finish(torch, fa, pe, started):
     return out, counts_dp4, counts_dp2, counts_fused
 
 
-def parallel_phase(torch, fa, pe, root):
+def parallel_phase(torch, fa, pe, root, reuse=None):
     """(c)'s first half, then (a) and (b) while (c)'s checkpoint is
     written, (c)'s second half, then resnet50's step times; returns the
     phase's line and its launches by part."""
     marks = [time.monotonic()]
-    started = parallel_recsys_start(torch, fa, pe, root)
+    started = parallel_recsys_start(torch, fa, pe, root, reuse)
     marks.append(time.monotonic())
     cifar, cifar_counts = parallel_cifar10_part(torch, fa, pe)
     marks.append(time.monotonic())
@@ -6411,14 +6468,678 @@ def parallel_phase(torch, fa, pe, root):
                          "fused": fused}}
 
 
+# ---- multihost: data parallel across two processes on the one card --------
+
+MH_PROCS = 2
+MH_STEPS = 8            # PAR_RECSYS_STEPS: the parallel phase's dp4 run
+MH_DENSE_BATCH, MH_LR = 256, 0.001
+# (b)'s divergent rate (loss 2.8 -> 72 in 8 steps): its gaps are
+# reported beside the checked run's, with the reordered control's.
+MH_LR_DIVERGENT = 0.01
+MH_JOB_RECORDS, MH_JOB_EVAL, MH_JOB_BATCH, MH_JOB_TASK = 2048, 256, 128, 512
+MH_WAIT_S = 900         # the go file, and the processes' run after it
+
+
+def multihost_start(torch):
+    """Start the phase's two processes (this script with
+    ``--multihost-child``) at the smoke's start, so that their imports
+    and their process group overlap the earlier phases; they set up and
+    train once ``multihost_go`` writes their go file."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_mh_")
+    procs, logs = [], []
+    for pid in range(MH_PROCS):
+        log = open(os.path.join(root, f"child{pid}.log"), "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multihost-child",
+             str(pid), root], stdout=log, stderr=subprocess.STDOUT))
+        logs.append(log)
+    return {"root": root, "procs": procs, "logs": logs}
+
+
+def multihost_stop(started):
+    """Kill the phase's processes if they still run, and remove their
+    directory."""
+    import shutil
+
+    for proc in started["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    for log in started["logs"]:
+        log.close()
+    shutil.rmtree(started["root"], ignore_errors=True)
+
+
+def mh_recsys_batches():
+    """The global batches of (a): B EMB_BATCH x L EMB_IDS over the full
+    vocab, one more than MH_STEPS for the shard checks; the first are
+    those of ``parallel_recsys_start``, whose dp4 run at step MH_STEPS
+    is (a)'s reference in the whole smoke."""
+    rng = np.random.default_rng(SEED + 62)
+    out = []
+    for _ in range(MH_STEPS + 1):
+        ids = rng.integers(0, EMB_VOCAB, (EMB_BATCH, EMB_IDS))
+        out.append({"features": {"ids": ids},
+                    "labels": (ids.sum(axis=1) % 2).astype(np.int32),
+                    "mask": np.ones(EMB_BATCH, np.float32)})
+    return out
+
+
+def mh_dense_batches():
+    rng = np.random.default_rng(SEED + 71)
+    return [{"features": rng.standard_normal((MH_DENSE_BATCH, 28, 28),
+                                             dtype=np.float32),
+             "labels": rng.integers(0, 10, MH_DENSE_BATCH).astype(np.int32),
+             "mask": np.ones(MH_DENSE_BATCH, np.float32)}
+            for _ in range(MH_STEPS)]
+
+
+def mh_local(batch, pid):
+    """Process ``pid``'s rows of a global batch."""
+    if isinstance(batch, dict):
+        return {k: mh_local(v, pid) for k, v in batch.items()}
+    rows = batch.shape[0] // MH_PROCS
+    return batch[pid * rows:(pid + 1) * rows]
+
+
+def mh_dense_spec(torch, mesh, lr=MH_LR, dtype=None):
+    """mnist_functional from the seed, its MeshRunner and SGD at
+    ``lr``; ``dtype``: its compute dtype in place of the zoo's bf16."""
+    from elasticdl_tpu_torch.core.model_spec import get_model_spec
+    from elasticdl_tpu_torch.model_zoo.mnist import mnist_functional as twin
+    from elasticdl_tpu_torch.models.vision import place
+    from elasticdl_tpu_torch.parallel.mesh_runner import make_runner_for_spec
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    torch.manual_seed(SEED)
+    spec = get_model_spec(tdata.model_zoo_dir(),
+                          "mnist.mnist_functional.custom_model",
+                          device="cuda")
+    model = spec.model
+    if dtype is not None:
+        torch.manual_seed(SEED)
+        model = place(twin.MnistModel(dtype), "cuda")
+    runner = make_runner_for_spec(spec, mesh)
+    state = runner.init_state(model, twin.optimizer(lr=lr), seed=SEED)
+    return spec, runner, state
+
+
+def mh_dense_leaves(state):
+    return {k: v.detach().float().cpu() for k, v in
+            state.model.state_dict().items()}
+
+
+class CollectiveClock:
+    """Host ms inside the data group's collectives (the card synchronised
+    at entry and exit), patched over ``multihost``'s helpers."""
+
+    def __init__(self, torch, multihost):
+        self.ms, self.calls = 0.0, 0
+        self.ms_by_name = {"all_reduce_": 0.0, "all_gather": 0.0}
+        self.mh, self.saved = multihost, {}
+        for name in ("all_reduce_", "all_gather"):
+            fn = getattr(multihost, name)
+            self.saved[name] = fn
+            setattr(multihost, name, self._timed(torch, name, fn))
+
+    def _timed(self, torch, name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            self.ms += ms
+            self.ms_by_name[name] += ms
+            self.calls += 1
+            return out
+        return call
+
+    def restore(self):
+        for name, fn in self.saved.items():
+            setattr(self.mh, name, fn)
+
+
+def mh_timed_steps(torch, step, state, batches, clock):
+    """Train ``batches``; per step: CUDA-event ms, issue ms (the host's
+    time in ``step``) and collective ms."""
+    losses, step_ms, issue_ms, coll_ms = [], [], [], []
+    for b in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        before = clock.ms
+        t0 = time.perf_counter()
+        start.record()
+        state, m = step(state, b)
+        end.record()
+        issue_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        coll_ms.append(clock.ms - before)
+        losses.append(float(m["loss"]))
+    return state, losses, {"step_ms": step_ms, "issue_ms": issue_ms,
+                           "collective_ms": coll_ms}
+
+
+def mh_child_recsys(torch, fa, pe, pid, root, out):
+    """(a) in process ``pid``: the recsys ranker row-split over the two
+    processes (one shard each, its table drawn whole on the host),
+    kernels pinned, MH_STEPS steps on its rows of the global batches;
+    exact launches; its shard's #6 and #7 against their plain version;
+    its touched rows saved."""
+    from elasticdl_tpu_torch.core.model_spec import get_model_spec
+    from elasticdl_tpu_torch.embedding.device_sparse import _unique_pad
+    from elasticdl_tpu_torch.parallel import multihost
+    from elasticdl_tpu_torch.parallel.mesh import make_mesh
+
+    zoo = write_zoo(root, f"recsys_mh{pid}", RECSYS_ZOO.format(mode="always"))
+    batches = mh_recsys_batches()
+    torch.manual_seed(SEED)
+    spec = get_model_spec(zoo, f"recsys_mh{pid}.rec.custom_model",
+                          device="cuda")
+    mesh = make_mesh((MH_PROCS,), ("dp",), [torch.device("cuda:0")])
+    t0 = time.monotonic()
+    runner = spec.make_sparse_runner(mesh=mesh)
+    state = runner.init_state(spec.model, spec.make_optimizer(),
+                              mh_local(batches[0], pid), seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    table = state.tables[RECSYS_TABLE]
+    acc = state.slot_tables[RECSYS_TABLE]["accumulator"]
+    step = runner.train_step(spec.loss)
+    clock = CollectiveClock(torch, multihost)
+    torch.cuda.synchronize()
+    reset_kernel_launches(fa, pe)              # the multihost path starts
+    torch.cuda.reset_peak_memory_stats()
+    state, losses, times = mh_timed_steps(
+        torch, step, state, [mh_local(b, pid) for b in batches[:MH_STEPS]],
+        clock)
+    torch.cuda.synchronize()
+    counts = kernel_launch_counts(fa, pe)      # ... and ends
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts["row_update_adagrad"] = pe.row_update_rule_launches["adagrad"]
+    clock.restore()
+    first = table.sharding.local_shards[0]
+    ids = torch.from_numpy(batches[-1]["features"]["ids"]).to(
+        "cuda", torch.int32)
+    weights = torch.ones(ids.shape, device="cuda")
+    uids, _ = _unique_pad(ids.reshape(-1), EMB_VOCAB)
+    grads = torch.from_numpy(np.random.default_rng(SEED + 72)
+                             .standard_normal((uids.numel(), EMB_DIM),
+                                              dtype=np.float32)).cuda()
+    checks = shard_kernel_checks(torch, pe, table.shards,
+                                 [[a] for a in acc.shards], ids, weights,
+                                 uids, grads, runner.row_opt, first=first)
+    rows = int(table.shards[0].shape[0])
+    touched = touched_rows(torch, np.stack(
+        [b["features"]["ids"] for b in batches[:MH_STEPS]]),
+        EMB_VOCAB)[first * rows:(first + len(table.shards)) * rows]
+    local_table = torch.cat(table.shards)
+    local_acc = torch.cat(acc.shards)
+    np.save(os.path.join(root, f"rows{pid}.npy"),
+            local_table[touched].cpu().numpy())
+    np.save(os.path.join(root, f"acc{pid}.npy"),
+            local_acc[touched].cpu().numpy())
+    out["recsys"] = {
+        "losses": losses, **times, "init_s": init_s, "launches": counts,
+        "shards": table.sharding.local_shards, "shard_rows": rows,
+        "table_bytes": sum(t.numel() * 4 for t in table.shards),
+        "accumulator_bytes": sum(t.numel() * 4 for t in acc.shards),
+        "collective_calls": clock.calls, "shard_checks": checks,
+        "collective_ms_by_name": clock.ms_by_name,
+        "peak_gb_steps": peak_gb}
+    del state, table, acc, local_table, local_acc
+    torch.cuda.empty_cache()
+
+
+def mh_child_dense(torch, fa, pe, pid, root, out):
+    """(b) in process ``pid``: mnist_functional over the two processes,
+    its rows of the global batches, MH_STEPS steps."""
+    from elasticdl_tpu_torch.model_zoo.mnist import mnist_functional as twin
+    from elasticdl_tpu_torch.parallel import multihost
+    from elasticdl_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((MH_PROCS,), ("dp",), [torch.device("cuda:0")])
+    _, runner, state = mh_dense_spec(torch, mesh)
+    step = runner.train_step(twin.loss)
+    clock = CollectiveClock(torch, multihost)
+    with Deterministic(torch):
+        torch.cuda.synchronize()
+        reset_kernel_launches(fa, pe)
+        state, losses, times = mh_timed_steps(
+            torch, step, state, [mh_local(b, pid) for b in
+                                 mh_dense_batches()], clock)
+        torch.cuda.synchronize()
+        counts = kernel_launch_counts(fa, pe)
+    clock.restore()
+    torch.save(mh_dense_leaves(state), os.path.join(root, f"dense{pid}.pt"))
+    out["dense"] = {"losses": losses, **times, "launches": counts,
+                    "collective_calls": clock.calls,
+                    "collective_ms_by_name": clock.ms_by_name,
+                    "zero_local_entries": state.optimizer.num_local,
+                    "zero_entries": state.optimizer.num_entries}
+    for name, dtype in (("", None), ("_f32", torch.float32)):
+        _, runner, state = mh_dense_spec(torch, mesh, MH_LR_DIVERGENT, dtype)
+        step = runner.train_step(twin.loss)
+        with Deterministic(torch):
+            out["dense"]["losses_divergent" + name] = [
+                float(step(state, mh_local(b, pid))[1]["loss"])
+                for b in mh_dense_batches()]
+
+
+def mh_child_job(torch, fa, pe, pid, root, out):
+    """(c) in process ``pid``: a port worker through ``build_worker``
+    with the multi-host flags; process 0 also hosts the master (the
+    dispatcher and the evaluation service over localhost gRPC)."""
+    from elasticdl_tpu_torch.common.args import parse_worker_args
+    from elasticdl_tpu_torch.testing import data as tdata
+    from elasticdl_tpu_torch.worker.main import build_worker
+
+    zoo = tdata.model_zoo_dir()
+    model_def = "mnist.mnist_functional.custom_model"
+    train = os.path.join(root, "train.rec")
+    port_file = os.path.join(root, "master_port")
+    server = None
+    if pid == 0:
+        from elasticdl_tpu_torch.comm.rpc import RpcServer
+        from elasticdl_tpu_torch.core.model_spec import get_model_spec
+        from elasticdl_tpu_torch.data.factory import create_data_reader
+        from elasticdl_tpu_torch.master.evaluation_service import (
+            EvaluationService,
+        )
+        from elasticdl_tpu_torch.master.servicer import (
+            SERVICE_NAME,
+            MasterServicer,
+        )
+        from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
+
+        evalf = os.path.join(root, "eval.rec")
+        tdata.create_mnist_record_file(train, MH_JOB_RECORDS, seed=1)
+        tdata.create_mnist_record_file(evalf, MH_JOB_EVAL, seed=2)
+        spec = get_model_spec(zoo, model_def, device="cuda")
+        dispatcher = TaskDispatcher(
+            training_shards=create_data_reader(train).create_shards(),
+            evaluation_shards=create_data_reader(evalf).create_shards(),
+            records_per_task=MH_JOB_TASK, num_epochs=1)
+        evals = EvaluationService(dispatcher, spec.eval_metrics_fn(),
+                                  eval_steps=MH_JOB_RECORDS
+                                  // MH_JOB_BATCH // 4)
+        server = RpcServer("localhost:0", {SERVICE_NAME: MasterServicer(
+            dispatcher, evals).handlers()}).start()
+        with open(port_file + ".tmp", "w") as f:
+            f.write(str(server.port))
+        os.replace(port_file + ".tmp", port_file)
+    deadline = time.monotonic() + 120
+    while not os.path.exists(port_file):
+        check(time.monotonic() < deadline, "no master port")
+        time.sleep(0.05)
+    with open(port_file) as f:
+        master_port = f.read()
+    args = parse_worker_args([
+        "--worker_id", str(pid), "--model_zoo", zoo, "--model_def",
+        model_def, "--training_data", train, "--minibatch_size",
+        str(MH_JOB_BATCH), "--master_addr", f"localhost:{master_port}",
+        "--distribution_strategy", "MeshStrategy", "--mesh_shape",
+        str(MH_PROCS), "--mesh_axes", "dp", "--num_jax_processes",
+        str(MH_PROCS), "--coordinator_addr", f"file://{root}/store",
+        "--jax_process_id", str(pid)])
+    t0 = time.monotonic()
+    reset_kernel_launches(fa, pe)
+    worker = build_worker(args)
+    result = worker.run()
+    torch.cuda.synchronize()
+    job = {"version": result["final_version"],
+           "batches": result["trained_batches"],
+           "loss": result["final_loss"], "wall_s": time.monotonic() - t0,
+           "launches": kernel_launch_counts(fa, pe)}
+    if pid == 0:
+        deadline = time.monotonic() + 60
+        while not dispatcher.finished() and time.monotonic() < deadline:
+            time.sleep(0.1)
+        job["finished"] = dispatcher.finished()
+        job["evals"] = {str(v): r for v, r in
+                        evals.completed_results.items()}
+        server.stop(0)
+    out["job"] = job
+
+
+def mh_gloo_probe(torch):
+    """Which gloo collectives take CUDA tensors here (a throwaway gloo
+    group; the port stages CUDA tensors through the host either way)."""
+    import torch.distributed as dist
+
+    group = dist.new_group(backend="gloo")
+    x = torch.ones(4, device="cuda")
+    probes = {
+        "all_reduce": lambda: dist.all_reduce(x.clone(), group=group),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0, group=group),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(MH_PROCS)], x, group=group),
+        "reduce_scatter": lambda: dist.reduce_scatter(
+            torch.empty(2, device="cuda"),
+            [torch.ones(2, device="cuda")] * MH_PROCS, group=group)}
+    out = {}
+    for name, fn in probes.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as exc:
+            out[name] = f"{type(exc).__name__}: {str(exc)[:120]}"
+    return out
+
+
+def multihost_go(started):
+    """Let the phase's processes run (a), (b) and (c)."""
+    open(os.path.join(started["root"], "go"), "w").close()
+
+
+def multihost_child(pid, root):
+    """One of the phase's two processes: wire the process group (CPU
+    only), wait for the go file, run (a), (b) and (c), write the result."""
+    import torch
+
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.ops import pallas_embedding as pe
+    from elasticdl_tpu_torch.parallel import multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"pid": pid}
+    multihost.initialize_multihost(f"file://{root}/store", MH_PROCS, pid,
+                                   device="cuda:0")
+    out["data_backend"] = multihost.data_backend()
+    go = os.path.join(root, "go")
+    deadline = time.monotonic() + MH_WAIT_S
+    while not os.path.exists(go):
+        check(time.monotonic() < deadline, "no go file")
+        time.sleep(0.05)
+    marks = [time.monotonic()]
+    for part in (mh_child_recsys, mh_child_dense, mh_child_job):
+        part(torch, fa, pe, pid, root, out)
+        marks.append(time.monotonic())
+        print(f"multihost process {pid}: {part.__name__} done", flush=True)
+    out["part_s"] = dict(zip(("recsys", "dense", "job"),
+                             np.diff(marks).tolist()))
+    out["gloo_cuda"] = mh_gloo_probe(torch)
+    with open(os.path.join(root, f"result{pid}.json.tmp"), "w") as f:
+        json.dump(out, f)
+    os.replace(os.path.join(root, f"result{pid}.json.tmp"),
+               os.path.join(root, f"result{pid}.json"))
+    multihost.shutdown()
+    return 0
+
+
+def mh_recsys_reference(losses, touched, table0, final, acc):
+    """(a)'s reference from a one-process row-split run at step
+    MH_STEPS on ``mh_recsys_batches``: its losses, the touched-row mask
+    and the touched rows of the initial table, the final table and its
+    accumulator."""
+    return {"losses": [float(x) for x in losses[:MH_STEPS]],
+            "touched": touched, "table0": table0[touched].clone(),
+            "final": final[touched].clone(), "acc": acc[touched].clone()}
+
+
+def mh_reference(torch, fa, pe, root, recsys=None):
+    """The one-process runs the processes are held to, from the same
+    seeds: (a) PR 18's row-split runner on the global batches (at dp2
+    here, unless the parallel phase's dp4 run is passed), (b)
+    mnist_functional at dp2 on the global batches."""
+    from elasticdl_tpu_torch.core.model_spec import get_model_spec
+    from elasticdl_tpu_torch.model_zoo.mnist import mnist_functional as twin
+
+    if recsys is None:
+        zoo = write_zoo(root, "recsys_mh", RECSYS_ZOO.format(mode="always"))
+        batches = mh_recsys_batches()
+        torch.manual_seed(SEED)
+        spec = get_model_spec(zoo, "recsys_mh.rec.custom_model",
+                              device="cuda")
+        runner = spec.make_sparse_runner(mesh=card_mesh(torch, MH_PROCS))
+        state = runner.init_state(spec.model, spec.make_optimizer(),
+                                  batches[0], seed=SEED)
+        table0 = state.tables[RECSYS_TABLE].gather().clone()
+        step = runner.train_step(spec.loss)
+        losses = [step(state, b)[1]["loss"] for b in batches[:MH_STEPS]]
+        recsys = mh_recsys_reference(
+            losses, touched_rows(torch, np.stack(
+                [b["features"]["ids"] for b in batches[:MH_STEPS]]),
+                EMB_VOCAB), table0, state.tables[RECSYS_TABLE].gather(),
+            state.slot_tables[RECSYS_TABLE]["accumulator"].gather())
+        del state, runner, table0
+        torch.cuda.empty_cache()
+    order = np.random.default_rng(SEED + 72).permutation(MH_DENSE_BATCH)
+    dense = {}
+    f32 = torch.float32
+    for name, lr, rows, dtype in (
+            ("", MH_LR, None, None),
+            ("_reordered", MH_LR, order, None),
+            ("_divergent", MH_LR_DIVERGENT, None, None),
+            ("_divergent_reordered", MH_LR_DIVERGENT, order, None),
+            ("_divergent_f32", MH_LR_DIVERGENT, None, f32),
+            ("_divergent_f32_reordered", MH_LR_DIVERGENT, order, f32)):
+        _, runner, state = mh_dense_spec(torch, card_mesh(torch, MH_PROCS),
+                                         lr, dtype)
+        dense.setdefault("start", mh_dense_leaves(state))
+        step = runner.train_step(twin.loss)
+        batches = mh_dense_batches()
+        if rows is not None:
+            batches = [{k: v[rows] for k, v in b.items()} for b in batches]
+        with Deterministic(torch):
+            dense["losses" + name] = [float(step(state, b)[1]["loss"])
+                                      for b in batches]
+        dense["leaves" + name] = mh_dense_leaves(state)
+    return recsys, dense
+
+
+def mh_wait(started):
+    """Wait for both children (a failed one ends the other: its peer
+    would wait in a collective); their results."""
+    procs = started["procs"]
+    deadline = time.monotonic() + MH_WAIT_S
+    while any(p.poll() is None for p in procs):
+        if (time.monotonic() > deadline
+                or any(p.poll() not in (None, 0) for p in procs)):
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            break
+        time.sleep(0.1)
+    for p in procs:
+        p.wait()
+    results = {}
+    paths = [os.path.join(started["root"], f"result{pid}.json")
+             for pid in range(MH_PROCS)]
+    if any(p.returncode != 0 for p in procs) or not all(
+            map(os.path.exists, paths)):
+        tails = []
+        for pid, p in enumerate(procs):
+            with open(os.path.join(started["root"], f"child{pid}.log")) as f:
+                tails.append(f"process {pid} exit {p.returncode}:\n"
+                             + f.read()[-6000:])
+        raise AssertionError("multihost processes failed\n"
+                             + "\n".join(tails))
+    for pid, path in enumerate(paths):
+        with open(path) as f:
+            results[pid] = json.load(f)
+    return results
+
+
+def multihost_phase(torch, fa, pe, root, started, recsys_ref=None,
+                    res=None):
+    """The references here (``recsys_ref``: the parallel phase's dp4 run,
+    ``mh_recsys_reference``), then the go file: (a), (b), (c) in the two
+    processes, unless their results ``res`` are given (the whole smoke
+    runs them earlier, ``multihost_go``). Returns the phase's line and
+    its launches by part."""
+    marks = [time.monotonic()]
+    recsys_ref, dense_ref = mh_reference(torch, fa, pe, root, recsys_ref)
+    marks.append(time.monotonic())
+    if res is None:
+        multihost_go(started)
+        res = mh_wait(started)
+    marks.append(time.monotonic())
+    rec = {pid: res[pid]["recsys"] for pid in res}
+    table0 = recsys_ref["table0"].cpu().numpy()
+    got = np.concatenate([np.load(os.path.join(
+        started["root"], f"rows{pid}.npy")) for pid in sorted(res)])
+    acc = np.concatenate([np.load(os.path.join(
+        started["root"], f"acc{pid}.npy")) for pid in sorted(res)])
+    table_l2 = rel_err(got - table0,
+                       recsys_ref["final"].cpu().numpy() - table0)
+    acc_l2 = rel_err(acc, recsys_ref["acc"].cpu().numpy())
+    loss_rel = max(abs(x - y) / abs(y) for x, y in
+                   zip(rec[0]["losses"], recsys_ref["losses"]))
+    dense = {pid: res[pid]["dense"] for pid in res}
+    got = [torch.load(os.path.join(started["root"], f"dense{pid}.pt"))
+           for pid in res]
+    start, want = dense_ref["start"], dense_ref["leaves"]
+    stat_keys = [k for k in want if k.endswith(("mean", "var"))]
+    par_keys = [k for k in want if k not in stat_keys]
+
+    def flat(tree, keys, base=None):
+        return np.concatenate([(tree[k] - (base[k] if base else 0))
+                               .numpy().ravel() for k in keys])
+
+    dense_delta = rel_err(flat(got[0], par_keys, start),
+                          flat(want, par_keys, start))
+    dense_stats = rel_err(flat(got[0], stat_keys), flat(want, stat_keys))
+    def loss_gap(got_losses, want_losses):
+        return max(abs(x - y) / max(abs(y), 1e-6) for x, y in
+                   zip(got_losses, want_losses))
+
+    dense_loss = loss_gap(dense[0]["losses"], dense_ref["losses"])
+    # The reduction order's own effect: the one-process run on permuted
+    # rows against the one-process run, at the checked rate and at the
+    # divergent one, beside the two processes' run at the divergent one.
+    reorder = {
+        "lr": MH_LR,
+        "loss_max_rel_diff": loss_gap(dense_ref["losses_reordered"],
+                                      dense_ref["losses"]),
+        "delta_l2": rel_err(flat(dense_ref["leaves_reordered"], par_keys,
+                                 start), flat(want, par_keys, start))}
+    divergent = {
+        "lr": MH_LR_DIVERGENT,
+        "losses_one_process": dense_ref["losses_divergent"],
+        "two_processes_loss_max_rel_diff": loss_gap(
+            dense[0]["losses_divergent"], dense_ref["losses_divergent"]),
+        "reordered_loss_max_rel_diff": loss_gap(
+            dense_ref["losses_divergent_reordered"],
+            dense_ref["losses_divergent"]),
+        "reordered_delta_l2": rel_err(
+            flat(dense_ref["leaves_divergent_reordered"], par_keys, start),
+            flat(dense_ref["leaves_divergent"], par_keys, start)),
+        # The same pair with f32 compute: each process's weight
+        # gradients are then not rounded to bf16 before their sum.
+        "f32": {
+            "losses_one_process": dense_ref["losses_divergent_f32"],
+            "two_processes_loss_max_rel_diff": loss_gap(
+                dense[0]["losses_divergent_f32"],
+                dense_ref["losses_divergent_f32"]),
+            "reordered_loss_max_rel_diff": loss_gap(
+                dense_ref["losses_divergent_f32_reordered"],
+                dense_ref["losses_divergent_f32"])}}
+    job = {pid: res[pid]["job"] for pid in res}
+    out = {
+        "data_backend": res[0]["data_backend"],
+        "why": "both processes drive cuda:0; NCCL refuses two ranks on "
+               "one device, so the data group is gloo, CUDA tensors staged "
+               "through the host",
+        "gloo_cuda": res[0]["gloo_cuda"],
+        "recsys": {
+            "model": "recsys ranker twin (1,000,000 x 256 f32 table "
+                     "row-split over 2 processes, 500,000 rows each, 32 ids "
+                     "an example, Adagrad rows lr 0.05, bf16 MLP, Adam "
+                     f"1e-3), random weights, seed {SEED}",
+            "batch": EMB_BATCH, "steps": MH_STEPS,
+            "losses": {pid: rec[pid]["losses"] for pid in rec},
+            "losses_one_process": recsys_ref["losses"],
+            "loss_max_rel_diff": loss_rel, "table_delta_l2": table_l2,
+            "accumulator_l2": acc_l2,
+            **{f"p{pid}": {k: rec[pid][k] for k in (
+                "step_ms", "issue_ms", "collective_ms", "collective_calls",
+                "collective_ms_by_name", "init_s", "launches", "shards",
+                "table_bytes", "accumulator_bytes", "peak_gb_steps",
+                "shard_checks")}
+               for pid in rec}},
+        "dense": {
+            "model": "mnist_functional twin (bf16, SGD lr 0.001 momentum "
+                     f"0.9), B {MH_DENSE_BATCH} over 2 processes vs one "
+                     f"process at dp2, random weights, seed {SEED}",
+            "losses": {pid: dense[pid]["losses"] for pid in dense},
+            "losses_one_process": dense_ref["losses"],
+            "loss_max_rel_diff": dense_loss, "delta_l2": dense_delta,
+            "stats_l2": dense_stats, "reordered_one_process": reorder,
+            "divergent": divergent,
+            "equal_across_processes": all(
+                torch.equal(got[0][k], got[1][k]) for k in want),
+            **{f"p{pid}": {k: dense[pid][k] for k in (
+                "step_ms", "issue_ms", "collective_ms", "collective_calls",
+                "collective_ms_by_name", "launches", "zero_local_entries",
+                "zero_entries")}
+               for pid in dense}},
+        "job": job,
+        "part_s": {"reference": marks[1] - marks[0],
+                   "children": marks[2] - marks[1],
+                   "child_parts": {pid: res[pid]["part_s"] for pid in res}},
+        "tol": {"sparse": SPARSE_TOL, "kernel": EMB_TOL, "dense": TRAJ_TOL,
+                "stats": VISION_STATS_TOL}}
+    print("multihost", json.dumps(out), flush=True)
+    for pid in rec:
+        c = rec[pid]["launches"]
+        check(c["lookup_combine"] == MH_STEPS and c["row_update"] == MH_STEPS
+              and c["row_update_adagrad"] == MH_STEPS
+              and not any(v for k, v in c.items() if k not in (
+                  "lookup_combine", "row_update", "row_update_adagrad")),
+              f"process {pid} launches {c} for {MH_STEPS} steps of 1 shard")
+        check(rec[pid]["table_bytes"] == rec[pid]["accumulator_bytes"]
+              == EMB_VOCAB // MH_PROCS * EMB_DIM * 4,
+              f"process {pid} holds {rec[pid]['table_bytes']} table and "
+              f"{rec[pid]['accumulator_bytes']} accumulator bytes")
+        for r in rec[pid]["shard_checks"]:
+            check(emb_within(r["lookup"], EMB_TOL["lookup"])
+                  and emb_within(r["table"], EMB_TOL["rows"])
+                  and emb_within(r["accumulator"], EMB_TOL["rows"])
+                  and r["untouched_bit_equal"],
+                  f"process {pid} shard check {r}")
+        check(not any(dense[pid]["launches"].values())
+              and not any(job[pid]["launches"].values()),
+              f"process {pid} launched on the dense path")
+    check(rec[0]["losses"] == rec[1]["losses"],
+          f"the processes' recsys losses differ {out['recsys']['losses']}")
+    check(all(np.isfinite(rec[0]["losses"])), "non-finite recsys loss")
+    check(loss_rel <= SPARSE_TOL["loss"] and table_l2 <= SPARSE_TOL[
+        "delta_l2"] and acc_l2 <= SPARSE_TOL["delta_l2"],
+        f"recsys over processes vs one process {out['recsys']}")
+    check(dense[0]["losses"] == dense[1]["losses"]
+          and out["dense"]["equal_across_processes"],
+          "the processes' dense states differ")
+    check(dense_loss <= TRAJ_TOL["loss"]
+          and dense_delta <= TRAJ_TOL["delta_l2"]
+          and dense_stats <= VISION_STATS_TOL,
+          f"dense over processes vs one process {out['dense']}")
+    check(job[0]["version"] == job[1]["version"] > 0
+          and job[0]["finished"] and job[0]["evals"]
+          and job[0]["batches"] + job[1]["batches"]
+          == MH_JOB_RECORDS // MH_JOB_BATCH
+          and np.isfinite(job[0]["loss"]) and np.isfinite(job[1]["loss"]),
+          f"the two-process job {job}")
+    launches = {"recsys_p0": rec[0]["launches"],
+                "recsys_p1": rec[1]["launches"],
+                "dense": dense[0]["launches"], "job": job[0]["launches"]}
+    return out, launches
+
+
 def main(argv=None) -> int:
     import argparse
 
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--multihost-child"]:
+        return multihost_child(int(argv[1]), argv[2])
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--phase", choices=("all", "fwd", "bwd", "chunk", "lookup", "host",
                             "vision", "tabular", "checkpoint", "worker",
-                            "rowservice", "fleet", "parallel"),
+                            "rowservice", "fleet", "parallel", "multihost"),
         default="all",
         help="fwd: build flash_attention_fwd.cu alone, then run kernel "
              "#1's checks and times and print its kernels row; bwd: the "
@@ -6435,7 +7156,8 @@ def main(argv=None) -> int:
              "fleet: the fleet phase alone with its timings "
              "(flash_attention_fwd.cu only); parallel: data parallel "
              "over the one-card mesh alone (the embedding kernels "
-             "only)")
+             "only); multihost: data parallel across two processes on "
+             "the card alone (the embedding kernels only)")
     args = parser.parse_args(argv)
     import torch
 
@@ -6443,6 +7165,19 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
+    # The multihost phase's processes start first, so that their imports
+    # overlap the earlier phases.
+    mh = (multihost_start(torch) if args.phase in ("all", "multihost")
+          else None)
+    try:
+        return run(args, torch, mh)
+    finally:
+        if mh is not None:
+            multihost_stop(mh)
+
+
+def run(args, torch, mh) -> int:
+    """The phases ``args.phase`` names, on the card."""
     from elasticdl_tpu_torch.ops import _build
     from elasticdl_tpu_torch.ops import flash_attention as fa
     from elasticdl_tpu_torch.ops import pallas_embedding as pe
@@ -6483,6 +7218,7 @@ def main(argv=None) -> int:
              "checkpoint": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
              "worker": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
              "parallel": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
+             "multihost": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
              "fleet": [fa._SOURCE]}
     logs = _build.build_all(alone.get(args.phase))
     print(f"built {sorted(logs)} in {time.monotonic() - t0:.1f}s",
@@ -6502,9 +7238,16 @@ def main(argv=None) -> int:
     if args.phase == "lookup":
         print(json.dumps({"kernels": lookup_phase(torch, pe)}))
         return 0
-    if args.phase in ("checkpoint", "worker", "fleet", "parallel"):
+    if args.phase in ("checkpoint", "worker", "fleet", "parallel",
+                      "multihost"):
         with tempfile.TemporaryDirectory() as root:
-            if args.phase == "fleet":
+            if args.phase == "multihost":
+                t1 = time.monotonic()
+                line, _ = multihost_phase(torch, fa, pe, root, mh)
+                line = {"multihost": line}
+                print(json.dumps({"phase_s": {
+                    "multihost": round(time.monotonic() - t1, 2)}}))
+            elif args.phase == "fleet":
                 bundle = os.path.join(root, "v1")
                 export_flagship_bundle(torch, bundle)
                 line = {"fleet": fleet_phase(torch, fa, pe, root, bundle,
@@ -6558,8 +7301,14 @@ def main(argv=None) -> int:
         mark("vision")
         tabular = tabular_phase(torch, fa, pe, root)
         mark("tabular")
-        checkpoint = checkpoint_phase(torch, fa, pe, root)
+        # The multihost processes set up and train while the checkpoint
+        # phase's evaluate/predict subprocesses run; their results are
+        # held to the parallel phase's dp4 recsys run below.
+        checkpoint = checkpoint_phase(torch, fa, pe, root,
+                                      lambda: multihost_go(mh))
         mark("checkpoint")
+        mh_results = mh_wait(mh)
+        mark("multihost_wait")
         # The row service's main boots in a subprocess while the worker
         # phase runs.
         row_service = rowservice_start(root)
@@ -6574,8 +7323,12 @@ def main(argv=None) -> int:
         mark("rowservice")
         fleet = fleet_phase(torch, fa, pe, root, os.path.join(root, "v1"))
         mark("fleet")
-        parallel = parallel_phase(torch, fa, pe, root)
+        reuse = {}
+        parallel = parallel_phase(torch, fa, pe, root, reuse)
         mark("parallel")
+        multihost, multihost_counts = multihost_phase(
+            torch, fa, pe, root, mh, reuse.pop("recsys"), mh_results)
+        mark("multihost")
     fused = fused_path_phase(torch, pe)
     sweep, sweep_counts = sweep_phase(torch, pe)
     emb_times = embedding_times(torch, pe)
@@ -6620,6 +7373,9 @@ def main(argv=None) -> int:
         row["launches_parallel"] = {
             part: counts[row["name"]]
             for part, counts in parallel["launches"].items()}
+        row["launches_multihost"] = {
+            part: counts[row["name"]]
+            for part, counts in multihost_counts.items()}
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"sparse_training": sparse}))
@@ -6632,6 +7388,7 @@ def main(argv=None) -> int:
     print(json.dumps({"rowservice": rowservice}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"multihost": multihost}))
     print(json.dumps({"phase_s": marks}))
     print(json.dumps({"kernels": [kernel, chunk_row] + bwd_rows
                       + emb_rows}))

@@ -276,6 +276,7 @@ _FIELDS = {
     "optimizer": _opt_leaves,
     "generator": lambda s: (("rng", s.generator.get_state()),),
     "model_takes_generator": None,
+    "global_batch": None,
     "step": lambda s: (("step", np.asarray(s.step, np.int64)),),
     "batch_stats": lambda s: (
         (f"batch_stats.{n}", b) for n, b in s.batch_stats.items()),

@@ -14,6 +14,16 @@ keep their old values where the JAX step keeps them: after a batch with
 any padded row (the train, multi-step and accumulating steps), and
 after a gradient-only step (``build_grad_step``). The eval step
 normalises with the running statistics (``model.eval()``).
+
+Where the state carries a ``global_batch`` (a runner over a mesh that
+spans processes gives it one, ``parallel/multihost.attach``) the batch
+is this process's rows of the global batch, and the step gives the
+global batch's loss and gradients: the mask counts are summed first,
+each process weighs its loss by its share of the global count
+(``_loss_share``), and the weighted losses and the gradients are
+all-reduced in one collective
+(``_sum_over_processes``); the statistics keep their old values when
+any process's rows hold padding.
 """
 
 import inspect
@@ -53,14 +63,24 @@ def _stats_keeper(state, mask, update_stats: bool) -> Callable[[], None]:
     still uses it, as in flax). A host mask (numpy: the batch not yet
     placed) is read on the host, and a full batch copies nothing. A mask
     already on the device is not read back: there every buffer takes
-    ``torch.where(all rows real, new, old)``."""
+    ``torch.where(all rows real, new, old)``. Over a global batch
+    (``state.global_batch``) a padded row of any process's keeps them
+    (the global batch's rule): the host counts are summed over the CPU
+    group, the device flags over the data group."""
+    global_batch = state.global_batch
     stats = state.batch_stats
     full = False
     if stats and update_stats:
         if isinstance(mask, torch.Tensor):
             full = (mask.to(state.device) > 0).all()
-        elif np.all(np.asarray(mask) > 0):
-            stats = {}
+            if global_batch is not None:
+                full = global_batch.sum((~full).to(torch.float32)) == 0
+        else:
+            padded = float(np.any(np.asarray(mask) <= 0))
+            if global_batch is not None:
+                padded = global_batch.host_sum(padded)
+            if padded == 0:
+                stats = {}
     saved = {name: buf.clone() for name, buf in stats.items()}
 
     def keep():
@@ -90,9 +110,46 @@ def _loss_and_grads(call_loss: Callable, state, batch,
     state.optimizer.zero_grad(set_to_none=True)
     preds = _apply_model(state, features, training=True)
     loss = call_loss(labels, preds, mask)
+    share = _loss_share(state.global_batch, batch["mask"], dev)
+    if share is not None:
+        loss = loss * share
     loss.backward()
     keep_stats()
+    if share is not None:
+        return _sum_over_processes(state, loss.detach())
     return loss.detach()
+
+
+def _loss_share(global_batch, mask, device):
+    """Over a global batch, the factor that takes this process's masked
+    loss to its share of the global batch's; None without one. A masked
+    loss is ``S_p / max(M_p, 1)`` over the local rows (S the masked sum,
+    M the mask count), the global one ``sum S_p / max(M, 1)`` with ``M =
+    sum M_p``, so the share is ``max(M_p, 1) / max(M, 1)``. It weighs
+    the loss before the backward, so every path to the parameters, those
+    through another process's BatchNorm statistics among them, carries
+    its process's weight. A host mask is counted on the host and summed
+    over the CPU group (a float), a placed one over the data group
+    (nothing read back from the card). A process whose rows are all
+    padding has ``S_p = 0``."""
+    if global_batch is None:
+        return None
+    if isinstance(mask, torch.Tensor):
+        count = mask.to(device=device, dtype=torch.float32).sum()
+        total = global_batch.sum(count)
+        return count.clamp_min(1.0) / total.clamp_min(1.0)
+    count = float(np.sum(np.asarray(mask, np.float64)))
+    return max(count, 1.0) / max(global_batch.host_sum(count), 1.0)
+
+
+def _sum_over_processes(state, loss):
+    """The global batch's loss and gradients: each process's weighted
+    loss (``_loss_share``) and gradients summed over the data group in
+    one all-reduce a dtype. Returns the global loss."""
+    grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+    total = loss.float().reshape(1).clone()
+    state.global_batch.sum_(grads + [total])
+    return total[0]
 
 
 def _train_step_body(call_loss: Callable, state, batch):

@@ -9,7 +9,10 @@ optimizer apply = one version). ``generator`` is an explicit CPU
 the model, which draws each block's dropout seed from it (this
 replaces the JAX state's ``rng`` and ``next_rng``);
 ``model_takes_generator`` says whether the model's ``forward`` takes
-it, read once when the state is built.
+it, read once when the state is built. ``global_batch``: None, or,
+over a mesh that spans processes, the hook through which the step reads
+the global batch whose rows this process's batch is (set by the runner,
+``parallel/multihost.attach``; not saved).
 
 ``batch_stats`` are the model's statistic buffers, by name: the
 buffers that a training forward rewrites (the JAX state's
@@ -22,7 +25,7 @@ keeps the old ``batch_stats`` (``core/step.py``).
 
 import inspect
 from dataclasses import dataclass, field
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -36,6 +39,7 @@ class TrainState:
     model_takes_generator: bool = False
     step: int = 0
     batch_stats: Dict[str, torch.Tensor] = field(default_factory=dict)
+    global_batch: Optional[object] = None
 
     @property
     def version(self) -> int:

@@ -35,6 +35,20 @@ shard), the update through ``sparse_apply_sharded`` (kernel #7, or #8
 under "fused", once a shard) on the globally deduplicated ids. The
 dense model runs the global batch once, its optimizer replicated, as
 in the JAX runner.
+
+Over a mesh that spans processes (``parallel/multihost.py``) a process
+holds only its entries' shards; its rows, drawn from the seed's whole
+table on the host, are the same rows a single process draws. A step
+all-gathers the processes' ids and weights, so every process launches
+#6 once for each of its shards over the global batch's ids; the
+partials are all-reduced over the data group and each process keeps
+its rows. The loss is weighed by the process's share of the global
+mask count before the backward (``core/step._loss_share``); after it
+the dense gradients and the loss are all-reduced, the embeddings'
+gradients (B_local x D, the smallest of the step's cotangents)
+all-gathered, and every process derives the row gradients of the
+global unique ids and launches #7 (or #8) once a shard on the ids of
+its range.
 """
 
 from dataclasses import dataclass, field
@@ -44,7 +58,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from elasticdl_tpu_torch.core.step import _call_loss
+from elasticdl_tpu_torch.core.step import (
+    _call_loss,
+    _loss_share,
+    _sum_over_processes,
+)
 from elasticdl_tpu_torch.core.train_state import TrainState, init_train_state
 from elasticdl_tpu_torch.data.batcher import tree_map
 from elasticdl_tpu_torch.embedding.combiner import COMBINERS, RaggedIds, combine
@@ -59,6 +77,7 @@ from elasticdl_tpu_torch.embedding.optimizer import (
 from elasticdl_tpu_torch.embedding.partition import (
     DEFAULT_PARTITION_THRESHOLD_BYTES,
 )
+from elasticdl_tpu_torch.parallel import multihost
 from elasticdl_tpu_torch.parallel.mesh import (
     NamedSharding,
     ShardedTensor,
@@ -192,16 +211,26 @@ def _row_grads(d_emb, uids, inverse, ragged: RaggedIds, combiner: str):
 
 def _lookups(state, features, specs, use_pallas: str, packed_slots: bool):
     """Each table's (B, D) combined embedding from the live table (a
-    row-sharded one shard by shard), and its ragged ids."""
+    row-sharded one shard by shard), and its ragged ids. Over a global
+    batch (``state.global_batch``, a mesh across processes): the ids and
+    weights are the global batch's, all-gathered; a sharded table's
+    partials are all-reduced, and the embeddings keep this process's
+    rows; the ragged ids stay global."""
     from elasticdl_tpu_torch.ops.pallas_embedding import (
         lookup_combine,
         lookup_combine_sharded,
     )
 
+    global_batch = state.global_batch
     embs, raggeds = {}, {}
     with torch.no_grad():
         for spec in specs:
             ragged = _ragged(features[spec.feature_key], state.device)
+            local_rows = int(ragged.ids.shape[0])
+            if global_batch is not None:
+                ragged = RaggedIds(ids=global_batch.gather(ragged.ids),
+                                   weights=global_batch.gather(
+                                       ragged.weights))
             table = state.tables[spec.name]
             if packed_slots:
                 # The packed rows narrowed to their first D columns.
@@ -212,12 +241,18 @@ def _lookups(state, features, specs, use_pallas: str, packed_slots: bool):
                 embs[spec.name] = lookup_combine_sharded(
                     table.shards, ragged.ids, ragged.weights, spec.combiner,
                     force_pallas=use_pallas == "always",
-                    force_xla=use_pallas == "never")
+                    force_xla=use_pallas == "never",
+                    first_shard=table.sharding.local_shards[0],
+                    reduce=None if global_batch is None
+                    else global_batch.sum)
             else:
                 embs[spec.name] = lookup_combine(
                     table, ragged.ids, ragged.weights, spec.combiner,
                     force_pallas=use_pallas == "always",
                     force_xla=use_pallas == "never")
+            if global_batch is not None:
+                start = global_batch.rows(local_rows)[1]
+                embs[spec.name] = embs[spec.name][start:start + local_rows]
             raggeds[spec.name] = ragged
     return embs, raggeds
 
@@ -246,12 +281,13 @@ def sparse_apply_sharded(opt: RowOptimizer, table: ShardedTensor,
     slot_tables)``."""
     shard_rows = int(table.shards[0].shape[0])
     ids = unique_ids.to(torch.int32)
-    for i, shard in enumerate(table.shards):
+    for i, shard in zip(table.sharding.local_shards, table.shards):
         local = ids - i * shard_rows
         in_range = (local >= 0) & (local < shard_rows)
         local = torch.where(in_range, local, shard_rows)
         sparse_apply(opt, shard,
-                     {n: t.shards[i] for n, t in slot_tables.items()},
+                     {n: t.shards[i - table.sharding.local_shards[0]]
+                      for n, t in slot_tables.items()},
                      local, row_grads, step=step, use_pallas=use_pallas)
     return table, slot_tables
 
@@ -307,14 +343,22 @@ def build_sparse_train_step(
         preds = _apply_model(state, features, _nest_rows(template, embs),
                              training=True)
         loss = call_loss(labels, preds, mask)
+        share = _loss_share(state.global_batch, batch["mask"], dev)
+        if share is not None:
+            loss = loss * share
         loss.backward()
+        if share is not None:
+            loss = _sum_over_processes(state, loss.detach())
         with torch.no_grad():
             for spec in specs:
                 ragged = raggeds[spec.name]
+                d_emb = embs[spec.name].grad
+                if state.global_batch is not None:
+                    d_emb = state.global_batch.gather(d_emb)
                 uids, inverse = _unique_pad(ragged.ids.reshape(-1),
                                             spec.vocab)
-                rows_ct = _row_grads(embs[spec.name].grad, uids, inverse,
-                                     ragged, spec.combiner)
+                rows_ct = _row_grads(d_emb, uids, inverse, ragged,
+                                     spec.combiner)
                 step_count = state.table_steps[spec.name] + 1
                 if packed_slots:
                     sparse_apply_packed(row_opt, state.tables[spec.name],
@@ -364,12 +408,15 @@ def init_sparse_state(
     model: nn.Module, make_optimizer: Callable, example_batch,
     specs: Tuple[TableSpec, ...], row_opt: RowOptimizer, seed: int = 0,
     table_dtype=torch.float32, packed_slots: bool = False,
+    host_tables: FrozenSet[str] = frozenset(),
 ) -> Tuple[SparseTrainState, Dict[str, int]]:
     """The train state around ``model`` (built, on its device) plus the
     tables on the same device: each uniform in ±1/√D, drawn on the CPU
     from a generator seeded from ``seed`` and the table's index (so the
     card and the CPU start from the same tables), slots at their initial
-    values. Returns ``(state, template)``. With
+    values. Tables named in ``host_tables`` (and their slots) stay on
+    the CPU, for the caller to place (a row-sharded table's shards).
+    Returns ``(state, template)``. With
     ``packed_slots`` each table is the (V, D*(1+n_slots)) packed store
     and ``slot_tables`` entries are empty."""
     template = sparse_template(model)
@@ -389,10 +436,11 @@ def init_sparse_state(
     for i, spec in enumerate(specs):
         gen = torch.Generator().manual_seed(int(seed) * 1_000_003 + i)
         scale = 1.0 / np.sqrt(spec.dim)
+        place = torch.device("cpu") if spec.name in host_tables else device
         main = torch.empty((spec.vocab, spec.dim), dtype=table_dtype).uniform_(
-            -scale, scale, generator=gen).to(device)
+            -scale, scale, generator=gen).to(place)
         slots = init_slot_tables(row_opt, spec.vocab, spec.dim,
-                                 dtype=table_dtype, device=device)
+                                 dtype=table_dtype, device=place)
         if packed_slots:
             tables[spec.name] = pack_table(main, slots, row_opt)
             slot_tables[spec.name] = {}
@@ -492,9 +540,12 @@ class DeviceSparseRunner:
     def init_state(self, model, make_optimizer, batch, seed: int = 0):
         if self.mesh is not None:
             model = model.to(self.mesh.device)
+        # A row-sharded table is drawn whole on the host and only its
+        # local shards reach the card.
         state, self._template = init_sparse_state(
             model, make_optimizer, batch, self.specs, self.row_opt,
             seed=seed, packed_slots=self.packed_slots,
+            host_tables=self.sharded_tables,
         )
         return self.place_state(state)
 
@@ -514,9 +565,11 @@ class DeviceSparseRunner:
         slot table whole or row-sharded as the mesh says (a restored or
         resharded leaf is gathered and split again, one leaf at a time,
         so the card holds at most one extra table). No mesh: every leaf
-        whole, on the model's device."""
+        whole, on the model's device. The state and its model carry the
+        mesh's ``multihost.GlobalBatch`` (``multihost.attach``)."""
         if self.mesh is not None:
             state.model.to(self.mesh.device)
+        multihost.attach(state, self.mesh)
         device = state.device
         for name in list(state.tables):
             state.tables[name] = self._placed(name, state.tables[name],
@@ -534,7 +587,11 @@ class DeviceSparseRunner:
         on the old mesh and the error is raised. Returns the state (None
         before ``init_state``). Steps built before must be rebuilt."""
         from elasticdl_tpu_torch.parallel import reshard as reshard_lib
+        from elasticdl_tpu_torch.parallel.mesh_runner import (
+            refuse_process_resize,
+        )
 
+        refuse_process_resize(self.mesh, new_mesh)
         old_mesh = self.mesh
 
         def bind(mesh):

@@ -54,6 +54,8 @@ class Cifar10Model(nn.Module):
                 width_in, k = width, k + 1
         self.Dense_0 = Dense(8 * 8 * width_in, 512, compute_dtype)
         self.Dense_1 = Dense(512, num_classes, compute_dtype)
+        # The dropout draws' hook over processes (parallel/multihost.attach).
+        self.global_batch = None
 
     def forward(self, features, generator: Optional[torch.Generator] = None):
         x = torch.as_tensor(features).to(self.compute_dtype)
@@ -71,11 +73,11 @@ class Cifar10Model(nn.Module):
                 k += 1
             x = max_pool(x, 2, 2)
             if gen is not None:
-                x = dropout(x, rate, gen)
+                x = dropout(x, rate, gen, self.global_batch)
         x = x.reshape(x.shape[0], -1)
         x = torch.relu(self.Dense_0(x))
         if gen is not None:
-            x = dropout(x, 0.5, gen)
+            x = dropout(x, 0.5, gen, self.global_batch)
         return self.Dense_1(x).float()
 
 

@@ -22,6 +22,13 @@ casts to ``dtype``. ``TpuBatchNorm`` folds the per-channel constants
 first, ``a = scale · rsqrt(var + eps)``, ``b = bias − mean · a`` (f32),
 and computes ``x·a + b`` in ``dtype`` (bf16 by default, momentum 0.9).
 
+``global_batch`` is None, or the hook a runner over a mesh that spans
+processes gives the layer (``parallel/multihost.attach``), as
+``SyncBatchNorm`` carries its process group: with one, the batch
+statistics are the global batch's, as under GSPMD: each process's sums
+of x and x² are summed over the processes in the forward, a sum whose
+backward sums the gradients. With none nothing changes.
+
 A training forward updates the running averages in place; what keeps
 them (a padded batch, a gradient-only step) is the train step's
 business (``core/step.py``), as in the JAX package, where the step
@@ -50,6 +57,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.global_batch = None
 
     def statistics(self, x):
         """(mean, var) to normalise ``x`` with: the batch's in training
@@ -59,8 +67,15 @@ class BatchNorm(nn.Module):
             return self.mean, self.var
         axes = tuple(range(x.dim() - 1))
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(axes)
-        var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+        if self.global_batch is not None:
+            count = (x.numel() // x.shape[-1]) * self.global_batch.count
+            sums = self.global_batch.sum(
+                torch.stack([xf.sum(axes), (xf * xf).sum(axes)]))
+            mean = sums[0] / count
+            var = (sums[1] / count - mean * mean).clamp_min(0.0)
+        else:
+            mean = xf.mean(axes)
+            var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
         m = self.momentum
         with torch.no_grad():
             self.mean.copy_(m * self.mean + (1 - m) * mean)

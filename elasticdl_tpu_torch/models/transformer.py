@@ -193,10 +193,19 @@ class Mlp(nn.Module):
         return self.wo(F.gelu(self.wi(x), approximate="tanh"))
 
 
-def dropout(x, rate: float, generator: torch.Generator):
+def dropout(x, rate: float, generator: torch.Generator, global_batch=None):
     """flax ``Dropout``: keep where u >= rate (u uniform on [0, 1) from
-    ``generator``, on x's device), scaled by 1/(1 - rate) in x's dtype."""
-    u = torch.rand(x.shape, generator=generator, device=x.device)
+    ``generator``, on x's device), scaled by 1/(1 - rate) in x's dtype.
+    With a ``global_batch`` (the caller's hook over processes,
+    ``parallel/multihost.attach``) the draw is the global batch's
+    (batch-leading x) and this process keeps its rows, so the masks are
+    those of the one-process run."""
+    rows = None if global_batch is None else global_batch.rows(x.shape[0])
+    if rows is None:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        u = torch.rand((rows[0],) + tuple(x.shape[1:]), generator=generator,
+                       device=x.device)[rows[1]:rows[1] + x.shape[0]]
     return x * (u >= rate).to(x.dtype) / (1.0 - rate)
 
 
@@ -208,6 +217,7 @@ class Block(nn.Module):
         self.attn = SelfAttention(cfg, mesh)
         self.ln2 = LayerNorm(cfg.d_model, cfg.compute_dtype)
         self.mlp = Mlp(cfg)
+        self.global_batch = None
 
     def forward(self, x, seed: Optional[int] = None):
         """``seed`` (training with dropout only) seeds this block's
@@ -217,11 +227,11 @@ class Block(nn.Module):
             gen = torch.Generator(device=x.device).manual_seed(seed)
         h = self.attn(self.ln1(x))
         if gen is not None:
-            h = dropout(h, self.rate, gen)
+            h = dropout(h, self.rate, gen, self.global_batch)
         x = x + h
         h = self.mlp(self.ln2(x))
         if gen is not None:
-            h = dropout(h, self.rate, gen)
+            h = dropout(h, self.rate, gen, self.global_batch)
         return x + h
 
 

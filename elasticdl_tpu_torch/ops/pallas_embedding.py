@@ -311,18 +311,21 @@ def lookup_combine(table, ids, weights, combiner: str,
 
 def lookup_combine_sharded(shards: Sequence[torch.Tensor], ids, weights,
                            combiner: str, force_pallas: bool = False,
-                           force_xla: bool = False):
+                           force_xla: bool = False, first_shard: int = 0,
+                           reduce=None):
     """Gather + combine over a ROW-SHARDED table: ``shards`` are the
-    entries' row blocks in order (``ShardedTensor.shards``: entry i owns
-    rows [i·V/n, (i+1)·V/n)), ``ids``/``weights`` the global (B, L)
-    batch. The JAX ``shard_map`` body, run shard by shard: each shard
-    takes the ids minus its offset, clipped to [0, V/n), with the weights
-    of ids outside its range zeroed, and gives its "sum" partial through
-    ``lookup_combine`` (kernel #6 under ``force_pallas``: one launch a
-    shard); the partials are summed (the psum), then mean/sqrtn
-    renormalise with the replicated weights. The route is decided once,
-    for every shard. Differentiable in the shards and the weights (the
-    dense path)."""
+    entries' row blocks in order (``ShardedTensor.shards``: shard i owns
+    rows [i·V/n, (i+1)·V/n); ``shards[0]`` is shard ``first_shard``,
+    where a process holds only its own), ``ids``/``weights`` the global
+    (B, L) batch. The JAX ``shard_map`` body, run shard by shard: each
+    shard takes the ids minus its offset, clipped to [0, V/n), with the
+    weights of ids outside its range zeroed, and gives its "sum" partial
+    through ``lookup_combine`` (kernel #6 under ``force_pallas``: one
+    launch a shard); the partials are summed (the psum; ``reduce``, e.g.
+    ``multihost.all_reduce_sum``, then sums the processes' partials),
+    then mean/sqrtn renormalise with the replicated weights. The route
+    is decided once, for every shard. Differentiable in the shards and
+    the weights (the dense path)."""
     if combiner not in COMBINERS:
         raise ValueError(f"combiner must be one of {COMBINERS}")
     if force_pallas and force_xla:
@@ -336,7 +339,7 @@ def lookup_combine_sharded(shards: Sequence[torch.Tensor], ids, weights,
     ids = ids.to(torch.int32)
     weights = weights.to(torch.float32)
     out = None
-    for i, shard in enumerate(shards):
+    for i, shard in enumerate(shards, start=first_shard):
         local = ids - i * shard_rows
         in_range = (local >= 0) & (local < shard_rows)
         part = lookup_combine(
@@ -344,6 +347,8 @@ def lookup_combine_sharded(shards: Sequence[torch.Tensor], ids, weights,
             torch.where(in_range, weights, 0.0), "sum",
             force_pallas=use_kernel, force_xla=not use_kernel)
         out = part if out is None else out + part
+    if reduce is not None:
+        out = reduce(out)
     if combiner == "sum":
         return out
     if combiner == "mean":

@@ -1,5 +1,5 @@
 """MeshRunner: data-parallel train/eval steps over a device mesh (port
-of elasticdl_tpu/parallel/mesh_runner.py, single controller).
+of elasticdl_tpu/parallel/mesh_runner.py).
 
 The JAX runner jits one global program per step: the batch sharded over
 the data axis, parameters placed by rules (replicated unless a rule
@@ -7,8 +7,8 @@ places them), the optimizer state ZeRO-sharded, and GSPMD partitions
 that program over the mesh. Its numbers are the global program's, so a
 dp-N run equals dp-1 up to reduction order.
 
-Every entry of the port's mesh names one device (``parallel/mesh.py``).
-The runner therefore
+Within a process every entry of the port's mesh names one device
+(``parallel/mesh.py``). The runner therefore
 
 1. runs the dense forward and backward once, over the global batch, on
    that device: GSPMD's partitioned program for one device. That keeps
@@ -17,9 +17,7 @@ The runner therefore
    them inside the forward), the masked loss is ``sum(l·m)/sum(m)``
    over the global batch (not a mean of per-shard means, which differ
    when the padded rows fall in the last shard), and dropout masks are
-   drawn for the global batch. The per-entry forward with a statistics
-   all-reduce (the SyncBatchNorm idiom) belongs to the multi-process
-   mesh (ROADMAP Queue 1, item 6b), where each entry is a process;
+   drawn for the global batch;
 2. holds as separate per-entry tensors what the JAX runner places per
    device: each optimizer slot ZeRO-split by ``state_shardings``
    (``parallel/zero.ZeroOptimizer``: one torch optimizer over every
@@ -31,6 +29,20 @@ The runner therefore
    in place (the all-gather); parameters whose slots no dim splits are
    updated once. A learning-rate schedule reaches every entry through
    the one optimizer.
+
+Over a mesh that spans processes (``parallel/multihost.py``, one process
+per card), each process's batch is its rows of the global batch
+(``place_batch`` through ``multihost.make_global_batch``), and the state
+and the model's layers it makes or places carry the mesh's
+``multihost.GlobalBatch`` (``multihost.attach``): the forward and
+backward run on the process's rows, BatchNorm's statistics are
+all-reduced in the forward, each process's masked loss is weighed by its
+share of the global mask count and the weighted losses and the gradients
+are all-reduced before the apply (``core/step.py``), so every process
+applies the same update, and each process steps its own entries' ZeRO
+slices, all-gathered after the apply (``parallel/zero.py``). A resize
+over such a mesh raises: the JAX package's answer there is a gang
+restart from a checkpoint (ROADMAP item 8).
 
 Beside it, the reference's sync semantics (SURVEY.md §2.7):
 
@@ -55,7 +67,8 @@ count is a host int.
 A rule that splits a parameter over an axis of size > 1 raises: tensor
 and expert parallelism (``tp``, ``mp``, ``ep``) and tables row-split as
 parameters of the dense model (an ``Embedding`` or ``DenseFeatures``
-table over the 2 MB threshold) are ROADMAP Queue 1 item 6b. A mesh
+table over the 2 MB threshold) are ROADMAP Queue 1 item 6b, steps 3-4.
+A mesh
 without the data axis (the ``sp`` ring's) keeps every slot whole; on a
 dp × sp mesh the ring runs over the global batch and the slots split
 over dp, as in JAX (``tests/test_torch_mesh_runner.py`` holds the two
@@ -73,6 +86,7 @@ from elasticdl_tpu_torch.core.train_state import (
 )
 from elasticdl_tpu_torch.embedding import partition as partition_lib
 from elasticdl_tpu_torch.parallel import mesh as mesh_lib
+from elasticdl_tpu_torch.parallel import multihost
 from elasticdl_tpu_torch.parallel import rules as rules_lib
 from elasticdl_tpu_torch.parallel.zero import ZeroOptimizer, whole_slots
 
@@ -215,17 +229,20 @@ class MeshRunner:
         its shapes."""
         model = model.to(self.mesh.device)
         self._make_optimizer = tx
-        return init_train_state(model, lambda _: self._zero(model),
-                                seed=seed)
+        return multihost.attach(
+            init_train_state(model, lambda _: self._zero(model), seed=seed),
+            self.mesh)
 
     def place_batch(self, batch):
-        """The global batch on the mesh's device (the dense step runs it
-        there whole; ``batch_shardings`` says how JAX lays it out)."""
-        return step_lib._to_device(batch, self.mesh.device)
+        """This process's rows of the global batch on the mesh's device
+        (``multihost.make_global_batch``: the whole global batch for one
+        process, whose dense step runs it there whole;
+        ``batch_shardings`` says how JAX lays it out)."""
+        return multihost.make_global_batch(batch, self.mesh)
 
     def place_task(self, batches):
         """A stacked task ({k: (T, B, ...)}) on the mesh's device."""
-        return step_lib._to_device(batches, self.mesh.device)
+        return multihost.make_global_batch(batches, self.mesh)
 
     def place_state(self, state):
         """Re-place ``state`` onto this runner's mesh, in place: its model
@@ -237,6 +254,7 @@ class MeshRunner:
             raise RuntimeError(
                 "MeshRunner.init_state must run before place_state")
         state.model.to(self.mesh.device)
+        multihost.attach(state, self.mesh)
         shardings = self._slot_shardings(state.model)
         optimizer = state.optimizer
         if (isinstance(optimizer, ZeroOptimizer)
@@ -284,6 +302,7 @@ class MeshRunner:
         Call at a step boundary."""
         from elasticdl_tpu_torch.parallel import reshard as reshard_lib
 
+        refuse_process_resize(self.mesh, new_mesh)
         old_mesh = self.mesh
         try:
             self._bind(new_mesh)
@@ -354,6 +373,19 @@ class MeshRunner:
 
     def eval_step(self) -> Callable:
         return self._memoized("eval", None, step_lib.build_eval_step)
+
+
+def refuse_process_resize(old_mesh, new_mesh):
+    """A live resize to or from a mesh that spans processes raises: the
+    JAX package's multi-host jobs resize by a gang restart from a
+    checkpoint (ROADMAP item 8), its workers ack the barrier as a
+    no-op."""
+    if (getattr(old_mesh, "spans_processes", False)
+            or getattr(new_mesh, "spans_processes", False)):
+        raise NotImplementedError(
+            "a live resize of a mesh that spans processes: multi-host jobs "
+            "resize by a gang restart from a checkpoint, which waits for "
+            "ROADMAP item 8 (torch.distributed.checkpoint)")
 
 
 def make_runner_for_spec(spec, mesh: Optional[mesh_lib.Mesh] = None,

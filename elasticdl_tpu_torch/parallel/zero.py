@@ -25,6 +25,13 @@ here a global-norm clip per entry would not. A
 ``callbacks.LearningRateScheduler`` folded into ``make_optimizer``
 reaches every entry through the one optimizer it builds.
 
+Across processes (a mesh that spans them, ``parallel/multihost.py``)
+each process holds and steps only its own entries' slices, with the
+all-reduced global gradient; then the updated slices are all-gathered
+over the data group in one collective a dtype, so every process holds
+the same replicated parameters. Parameters no dim splits are updated
+whole in every process, from the same gradient and slots.
+
 The checkpoint names the slots as it names a plain optimizer's:
 ``opt_state.<parameter name>.<slot>``, the entries' slices gathered
 (``named_slots``), so a dp4 state saves the leaves of the same state at
@@ -70,14 +77,19 @@ class ZeroOptimizer:
                 f"slots split {sorted(counts)} ways: one mesh axis places "
                 "every split slot")
         self.num_entries = counts.pop() if counts else 1
-        # Entry e's slice of each split parameter, a view of it.
+        # Local entry e's slice of each split parameter, a view of it.
         self._views = {n: self.shardings[n].views(self.params[n].detach())
                        for n in split}
+        self.num_local = (len(next(iter(self._views.values())))
+                          if self._views else 1)
+        self.spans_processes = any(
+            len(self.shardings[n].local_shards) < self.num_entries
+            for n in split)
         whole = [p for n, p in self.params.items() if n not in self._views]
-        # The inner optimizer over each entry's views in turn, then the
-        # whole parameters.
+        # The inner optimizer over each local entry's views in turn, then
+        # the whole parameters.
         self.inner = make_optimizer(
-            [views[e] for e in range(self.num_entries)
+            [views[e] for e in range(self.num_local)
              for views in self._views.values()] + whole)
         if split and not isinstance(self.inner, ELEMENTWISE):
             raise NotImplementedError(
@@ -98,6 +110,37 @@ class ZeroOptimizer:
             for view, g in zip(views, grads):
                 view.grad = g
         self.inner.step()
+        if self.spans_processes:
+            self._gather_slices()
+
+    def _gather_slices(self):
+        """Every process's updated slices into the replicated
+        parameters: its block of each split parameter (its entries'
+        slices, adjacent along the split dim) flattened, one all-gather
+        a dtype, the other processes' blocks copied in place."""
+        from elasticdl_tpu_torch.parallel import multihost
+
+        by_dtype = {}
+        for name, views in self._views.items():
+            by_dtype.setdefault(views[0].dtype, []).append(name)
+        rank = multihost.process_index()
+        with torch.no_grad():
+            for names in by_dtype.values():
+                blocks = {n: torch.cat(self._views[n], self.shardings[n].dim)
+                          .movedim(self.shardings[n].dim, 0) for n in names}
+                flat = torch.cat([b.reshape(-1) for b in blocks.values()])
+                gathered = multihost.all_gather(flat).view(-1, flat.numel())
+                for q in range(gathered.shape[0]):
+                    if q == rank:
+                        continue
+                    offset = 0
+                    for n, block in blocks.items():
+                        dim, rows = self.shardings[n].dim, block.shape[0]
+                        part = gathered[q, offset:offset + block.numel()]
+                        offset += block.numel()
+                        self.params[n].detach().narrow(
+                            dim, q * rows, rows).copy_(
+                            part.view(block.shape).movedim(0, dim))
 
     def zero_grad(self, set_to_none: bool = True):
         self.inner.zero_grad(set_to_none=set_to_none)
@@ -144,7 +187,7 @@ class ZeroOptimizer:
                 yield name, p, slots
                 continue
             sharding = self.shardings[name]
-            for e, view in enumerate(self._views[name]):
+            for e, view in zip(sharding.local_shards, self._views[name]):
                 yield name, view, {
                     slot: (np.split(np.asarray(value), sharding.num_shards,
                                     axis=sharding.dim)[e]

@@ -13,9 +13,18 @@ pulls and pushes its rows through a shared row service
 
 Under MeshStrategy a device-tier sparse model gets its runner with the
 mesh (row-sharded tables), any other model a ``MeshRunner`` wired to its
-zoo module's layout extras. Not ported: a multi-host mesh (its flags
-raise: ROADMAP Queue 1, item 6b); the XLA compilation cache and the step
-profiler have no flag here.
+zoo module's layout extras.
+
+Several processes, one a card: ``--num_jax_processes N
+--coordinator_addr host:port [--jax_process_id i]`` (the id defaults
+to ``--worker_id``) wires ``torch.distributed`` before the zoo module is
+imported (``parallel/multihost.py``); the process drives ``cuda:<i mod
+cards>`` (``cuda:0`` where the host has one card), and the mesh of
+``--mesh_shape`` spans the processes, each giving its share of the
+entries. Such a job needs MeshStrategy, and ``--checkpoint_dir`` or
+``--checkpoint_dir_for_init`` raise: multi-host checkpoints and the gang
+restart are ROADMAP item 8 (``torch.distributed.checkpoint``). The XLA
+compilation cache and the step profiler have no flag here.
 """
 
 import os
@@ -38,17 +47,50 @@ from elasticdl_tpu_torch.worker.worker import Worker
 logger = get_logger("worker_main")
 
 
+def _init_multihost(args, device: torch.device) -> torch.device:
+    """Wire ``torch.distributed`` for ``--num_jax_processes`` > 1 (the
+    JAX worker's wiring, ``elasticdl_tpu/worker/main.py:55-71``) and
+    return this process's device: ``cuda:<process id mod cards>``."""
+    num_procs = getattr(args, "num_jax_processes", 1)
+    if num_procs <= 1:
+        return device
+    from elasticdl_tpu_torch.parallel import multihost
+
+    # The process id must be stable across relaunches (membership
+    # changes restart the whole job from a checkpoint).
+    process_id = getattr(args, "jax_process_id", -1)
+    if process_id < 0:
+        process_id = args.worker_id
+    if process_id >= num_procs:
+        raise ValueError(
+            f"process id {process_id} out of range for {num_procs} "
+            "processes: relaunches of a multi-host job must reuse the "
+            "dead worker's process id (pass --jax_process_id)"
+        )
+    coordinator = multihost.coordinator_from_args(args)
+    if args.distribution_strategy != DistributionStrategy.MESH:
+        raise ValueError(
+            "--num_jax_processes > 1 needs --distribution_strategy "
+            "MeshStrategy: the processes train one model over one mesh")
+    for flag in ("checkpoint_dir", "checkpoint_dir_for_init"):
+        if getattr(args, flag, ""):
+            raise NotImplementedError(
+                f"--{flag} with --num_jax_processes > 1: multi-host "
+                "checkpoints and the gang restart wait for ROADMAP item 8 "
+                "(torch.distributed.checkpoint)")
+    if device.type == "cuda":
+        device = torch.device("cuda", process_id % torch.cuda.device_count())
+    multihost.initialize_multihost(coordinator, num_procs, process_id,
+                                   device=device)
+    return device
+
+
 def build_worker(args, master_client=None) -> Worker:
     """Assemble a Worker from parsed args (shared with tests)."""
-    if (getattr(args, "num_jax_processes", 1) > 1
-            or getattr(args, "coordinator_addr", "")
-            or getattr(args, "jax_process_id", -1) != -1):
-        raise NotImplementedError(
-            "a multi-host mesh (--num_jax_processes, --coordinator_addr, "
-            "--jax_process_id) "
-            "waits for ROADMAP Queue 1 item 6b (torch.distributed across "
-            "worker processes)")
-    device = resolve_device(getattr(args, "device", None))
+    # Multi-host: wire torch.distributed BEFORE the user's zoo module is
+    # imported below (it may build tensors at import time).
+    device = _init_multihost(args,
+                             resolve_device(getattr(args, "device", None)))
     # The model's initial weights come from --random_seed, as in the
     # Local executor: a worker and a Local run of the same records start
     # from the same weights. The draw leaves the caller's default
@@ -91,13 +133,17 @@ def build_worker(args, master_client=None) -> Worker:
             make_runner_for_spec,
         )
 
+        from elasticdl_tpu_torch.parallel import multihost
+
         shape, axes = parse_mesh_args(args.mesh_shape, args.mesh_axes)
-        # The port's mesh is one device (the card, or the CPU) seen as
-        # every entry; a mesh over several cards is item 6b.
+        # A process's entries are one device (its card, or the CPU) seen
+        # as each of them; with several processes each gives its share
+        # of the global shape.
         size = 1
         for n in shape or (1,):
             size *= n
-        mesh = make_mesh(shape, axes, [device] * size)
+        mesh = make_mesh(shape, axes,
+                         [device] * max(1, size // multihost.process_count()))
         if spec.make_sparse_runner is not None:
             # The device-tier sparse plane over the mesh: its tables
             # (and slots) row-shard over the first mesh axis, the dense
@@ -299,6 +345,9 @@ def main(argv=None):
     )
     result = worker.run()
     logger.info("Worker %d done: %s", args.worker_id, result)
+    from elasticdl_tpu_torch.parallel import multihost
+
+    multihost.shutdown()
     return 0
 
 

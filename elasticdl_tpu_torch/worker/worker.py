@@ -29,8 +29,21 @@ Where the JAX worker differs by its platform:
   boundary through the runner's ``resize`` (``parallel/reshard``): a
   mesh-aware model is rebuilt for the new mesh and takes the trained
   parameters (torch modules hold their parameters, where the JAX worker
-  only re-binds ``apply_fn``). Multi-host sync (ROADMAP Queue 1, item
-  6b) and the profiler (item 8) are not ported.
+  only re-binds ``apply_fn``). The profiler (item 8) is not ported.
+
+Multi-host sync: when the runner's mesh spans worker processes
+(``parallel/multihost.py``), every process must run the same steps the
+same number of times (their collectives span the processes), while
+each pulls its own tasks. Per tick every process announces a step code
+(train, forward, idle, done) over the CPU group; the max wins and a
+process with nothing of that kind feeds a zero-mask dummy through the
+winning step (``_await_turn``). An idle worker keeps ticking while it
+waits for tasks, and at the end every process drains the barrier until
+all are done (``_drain_multihost``). Under sync, task fusion and the
+host tier's pull-ahead are off, a resize directive is acked as a
+no-op (multi-host jobs resize by a gang restart from a checkpoint,
+ROADMAP item 8), and a failed step is fatal: a process that left the
+tick would hang its peers inside a collective.
 """
 
 import itertools
@@ -170,6 +183,9 @@ class Worker:
         # >= 1 (0 would disable the pull-ahead the runner's pull_ahead
         # property promised).
         self._host_prefetch_depth = max(1, int(host_prefetch_depth))
+        # Multi-host step-alignment barrier (see the module docstring);
+        # set at init from the runner's mesh.
+        self._multihost_sync = False
         # Graceful preemption (k8s SIGTERM before the KILL): a stop
         # request checkpoints the freshest state and hands the current
         # task back before the pod dies (worker/main.py installs the
@@ -245,6 +261,15 @@ class Worker:
             self._spec.make_optimizer(), self._callbacks
         )
         if self._step_runner is not None:
+            mesh = getattr(self._step_runner, "mesh", None)
+            self._multihost_sync = bool(getattr(mesh, "spans_processes",
+                                                False))
+            if self._multihost_sync and self._fuse_task_steps:
+                logger.warning(
+                    "fuse_task_steps disabled under multi-host sync "
+                    "(unequal task sizes would desync step counts)"
+                )
+                self._fuse_task_steps = False
             self.state = self._step_runner.init_state(
                 self._spec.model, make_optimizer, batch, seed=self._seed
             )
@@ -468,10 +493,12 @@ class Worker:
             send_ack("applied")
             return
         runner = self._step_runner
-        if runner is None or not hasattr(runner, "resize"):
+        if (runner is None or not hasattr(runner, "resize")
+                or self._multihost_sync):
             # Nothing mesh-resident to reshard: the plain steps and the
-            # host-tier runner keep their state on one device. Join the
-            # barrier as a no-op so it cannot hang on us.
+            # host-tier runner keep their state on one device; a
+            # multi-host job resizes by a gang restart. Join the barrier
+            # as a no-op so it cannot hang on us.
             self._applied_resize_id = resize_id
             send_ack("noop")
             return
@@ -535,7 +562,11 @@ class Worker:
     # ---- task processing ----------------------------------------------
 
     def _wait_tick(self, wait_secs: float = 2.0):
-        """While WAITing for tasks (queue empty, job unfinished)."""
+        """While WAITing for tasks (queue empty, job unfinished). Under
+        multi-host sync an idle worker keeps joining barrier ticks as
+        IDLE (a process that only slept would strand its peers inside a
+        collective), for up to half a second of its peers' steps before
+        it returns to get_task."""
         if self._stop_requested:
             # Idle worker: nothing to hand back; exit the task loop
             # (the post-loop path checkpoints whatever was trained).
@@ -544,11 +575,53 @@ class Worker:
             # An idle worker must still join a resize barrier (WAIT
             # responses carry the directive).
             self._maybe_apply_resize()
+        if (self._multihost_sync and self.state is not None
+                and self.last_batch is not None):
+            from elasticdl_tpu_torch.parallel import multihost
+
+            deadline = time.monotonic() + min(wait_secs, 0.5)
+            while True:
+                won = multihost.exchange_code(self._step_runner.mesh,
+                                              multihost.STEP_IDLE)
+                if won > multihost.STEP_IDLE:
+                    self._feed_dummy(won)
+                    if time.monotonic() < deadline:
+                        continue  # keep ticking before re-polling
+                    return
+                time.sleep(0.05)
+                return
         time.sleep(wait_secs)
+
+    def _await_turn(self, code):
+        """Barrier protocol: announce the step we want; while a
+        higher-priority step wins the tick, take part in it with a
+        zero-mask dummy, then retry. Returns when it is our turn."""
+        from elasticdl_tpu_torch.parallel import multihost
+
+        mesh = self._step_runner.mesh
+        while True:
+            won = multihost.exchange_code(mesh, code)
+            if won == code:
+                return
+            self._feed_dummy(won)
+
+    def _feed_dummy(self, code):
+        """Take part in another process's step with zero loss weight."""
+        from elasticdl_tpu_torch.parallel import multihost
+
+        dummy = multihost.zero_mask_like(self.last_batch)
+        if code == multihost.STEP_TRAIN:
+            self.state, _ = self._train_step(self.state, dummy)
+        elif code == multihost.STEP_FORWARD:
+            self._eval_step(self.state, dummy)
 
     def _process_train_batch(self, batch):
         # One attempt: see the module docstring for why a failed step
         # is not retried here.
+        if self._multihost_sync:
+            from elasticdl_tpu_torch.parallel import multihost
+
+            self._await_turn(multihost.STEP_TRAIN)
         self.state, metrics = self._train_step(self.state, batch)
         self.last_metrics = metrics
 
@@ -578,6 +651,7 @@ class Worker:
         if (
             self._step_runner is not None
             and getattr(self._step_runner, "pull_ahead", False)
+            and not self._multihost_sync
         ):
             first = next(batches, None)
             if first is None:
@@ -680,14 +754,27 @@ class Worker:
         for batch in batches:
             self._maybe_init(batch)
             self.last_batch = batch
+            if self._multihost_sync:
+                from elasticdl_tpu_torch.parallel import multihost
+
+                self._await_turn(multihost.STEP_FORWARD)
             step_t0 = time.monotonic()
             with self._tracer.span("device_step", kind=kind):
-                preds = self._eval_step(self.state, batch)
+                preds = self._local_rows(self._eval_step(self.state, batch))
             self._observe_step(kind, time.monotonic() - step_t0)
             real = int(np.sum(batch["mask"]))
             self._m_examples.labels(task.type).inc(real)
             self._m_h2d_bytes.inc(_nbytes(batch))
             yield batch, preds, real
+
+    def _local_rows(self, preds):
+        """This process's rows of the step's outputs (its rows of the
+        global batch under multi-host sync)."""
+        if self._multihost_sync:
+            from elasticdl_tpu_torch.parallel import multihost
+
+            return multihost.host_local_slice(preds)
+        return preds
 
     def _process_eval_task(self, task, batches):
         outputs_acc, labels_acc = [], []
@@ -839,6 +926,17 @@ class Worker:
                 self._report_task(task.task_id)
             except Exception as exc:
                 self._in_task = False
+                if self._multihost_sync:
+                    # A failed step after winning a barrier tick leaves
+                    # peers inside a collective this process never
+                    # joined: report-and-continue would desync the tick
+                    # count and hang the job. Die; the master re-queues
+                    # the task when the worker is gone.
+                    logger.error(
+                        "Fatal under multi-host sync: task %d: %s",
+                        task.task_id, exc,
+                    )
+                    raise
                 logger.error(
                     "Task %d failed: %s\n%s",
                     task.task_id, exc, traceback.format_exc(),
@@ -851,4 +949,29 @@ class Worker:
                     task.task_id,
                     err_reason=f"{type(exc).__name__}: {exc}",
                 )
+        if not self._stop_requested:
+            # A stopping worker must not drain: the barrier drains only
+            # when every process is done.
+            self._drain_multihost()
         return trained_batches
+
+    def _drain_multihost(self):
+        """Drain barrier: keep taking part in other processes' steps
+        (train or forward) until every process reports done, so no one
+        is left blocking in a collective."""
+        if (not self._multihost_sync or self.state is None
+                or self.last_batch is None):
+            return
+        from elasticdl_tpu_torch.parallel import multihost
+
+        while True:
+            won = multihost.exchange_code(self._step_runner.mesh,
+                                          multihost.STEP_DONE)
+            if won == multihost.STEP_DONE:
+                return
+            if won == multihost.STEP_IDLE:
+                # A peer is idle but its master link still lives: keep
+                # ticking (it may yet pick up a requeued task).
+                time.sleep(0.05)
+                continue
+            self._feed_dummy(won)

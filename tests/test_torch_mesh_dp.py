@@ -102,7 +102,7 @@ def no_dropout(monkeypatch):
     monkeypatch.setattr(fnn.Dropout, "__call__",
                         lambda self, x, *args, **kwargs: x)
     monkeypatch.setattr(cifar10_functional, "dropout",
-                        lambda x, rate, generator: x)
+                        lambda x, rate, generator, global_batch=None: x)
 
 
 def _jax_module(name):

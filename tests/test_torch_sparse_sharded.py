@@ -638,8 +638,10 @@ def test_worker_main_mesh_strategy_row_shards_the_sparse_model(tmp_path):
     """``worker.main`` under MeshStrategy gives a device-tier sparse
     model its runner with the mesh (worker/main.py:120-156 of the JAX
     package): the table row-shards over the first axis, and the job
-    drains through it. ``--grads_to_wait`` > 1 and the multi-host flags
-    are refused."""
+    drains through it. ``--grads_to_wait`` > 1 is refused, and so are
+    the multi-host flags where they cannot start a job: no coordinator,
+    a process id out of range, no MeshStrategy, a checkpoint directory
+    (item 8)."""
     from elasticdl_tpu_torch.common.args import parse_worker_args
     from elasticdl_tpu_torch.master.evaluation_service import (
         EvaluationService,
@@ -675,10 +677,15 @@ def test_worker_main_mesh_strategy_row_shards_the_sparse_model(tmp_path):
         build_worker(parse_worker_args(_worker_argv(
             str(tmp_path / "zoo"), train, *mesh_flags,
             "--grads_to_wait", "2")), master_client=InProcessMaster(servicer))
-    for flag, value in (("--num_jax_processes", "2"),
-                        ("--coordinator_addr", "localhost:1234"),
-                        ("--jax_process_id", "0")):
-        with pytest.raises(NotImplementedError, match="item 6b"):
+    multi = ("--num_jax_processes", "2", "--coordinator_addr",
+             "localhost:1234")
+    for flags, error, match in (
+            (multi[:2], ValueError, "coordinator_addr"),
+            (multi + ("--jax_process_id", "5"), ValueError, "out of range"),
+            (multi, ValueError, "MeshStrategy"),
+            (multi + mesh_flags + ("--checkpoint_dir", str(tmp_path)),
+             NotImplementedError, "item 8")):
+        with pytest.raises(error, match=match):
             build_worker(parse_worker_args(_worker_argv(
-                str(tmp_path / "zoo"), train, flag, value)),
+                str(tmp_path / "zoo"), train, *flags)),
                 master_client=InProcessMaster(servicer))

@@ -145,7 +145,7 @@ def jax_zoo(monkeypatch):
 @pytest.fixture
 def no_dropout(monkeypatch):
     monkeypatch.setattr(cifar10_functional, "dropout",
-                        lambda x, rate, generator: x)
+                        lambda x, rate, generator, global_batch=None: x)
 
 
 def _features(shape, seed):
