@@ -17,12 +17,18 @@
                                              # build, with its timings
     python3 chip_smoke.py --phase fleet  # the rest of serving alone
                                          # (kernel #1 only), with timings
-    python3 chip_smoke.py --phase parallel # data parallel over the
-                                           # one-card mesh alone
-                                           # (embedding kernels)
-    python3 chip_smoke.py --phase multihost # data parallel across two
+    python3 chip_smoke.py --phase parallel # data and tensor parallel
+                                           # over the one-card mesh
+                                           # alone (embedding and
+                                           # flash kernels)
+    python3 chip_smoke.py --phase multihost # data, tensor and sequence
+                                            # parallel across two
                                             # processes on the card
-                                            # alone (embedding kernels)
+                                            # alone (embedding and
+                                            # flash kernels)
+    python3 chip_smoke.py --phase tpfault # 11i (d) sound and with a
+                                          # planted tp fault: the gaps
+                                          # TP_TOL must separate
 
 1. Prints the card (``nvidia-smi`` name and power limit), versions, and
    whether ``grpc`` can be imported.
@@ -289,9 +295,10 @@
    replica and through the router, with each replica's batch occupancy;
    the row-service bundle's resolve at B 512, cold and warm.
 11i. ``parallel`` (data parallel over a (4,) ``dp`` mesh of the one
-   card; ``--phase parallel`` runs it alone and builds only the
-   embedding sources). (c)'s first half runs first, then (a) and (b)
-   while its checkpoint is written, then (c)'s second half. (a)
+   card, and (d) tensor parallel; ``--phase parallel`` runs it alone
+   and builds the embedding and flash sources). (c)'s first half runs
+   first, then (a) and (b) while its checkpoint is written, then (c)'s
+   second half, then (d). (a)
    cifar10_functional at B 256 through ``make_runner_for_spec`` with
    its LR schedule, dp4 against dp1 from the same weights, 8 steps:
    losses and every checkpoint leaf bit-equal (cuDNN deterministic),
@@ -312,17 +319,30 @@
    (#6 = #7 = 2 a step); the checkpoint restored into the unsharded
    state and placed at dp2, bit-equal to the state it saved; that state
    placed on dp4 takes one fused SGD step: #8 = 4, each shard's #8
-   against its plain version.
-11j. ``multihost`` (data parallel across two processes on the one card,
-   ``parallel/multihost.py``; ``--phase multihost`` runs it alone and
-   builds only the embedding sources). The two processes (this script
+   against its plain version. (d) tensor parallel in one process: the
+   flagship at full width (2 layers, B 2 x S 512, bf16, weights from the
+   seed through bridge) through the zoo twin's rules on a (1, 2, 2)
+   dp/sp/tp mesh, 3 steps, against the unsharded run (#1) on the same
+   batches: TP_TOL, launches exact (per step and layer each of the two
+   tp entries folds 4 chunk pairs: #2 = #3 = #4 = 48, #1 0), step ms;
+   and its probe (one step of SGD at lr 1 from the seed's weights with
+   every bias drawn N(0, 0.05): the gradients) against the unsharded
+   probe's, within TP_TOL's ``probe``. ``--phase tpfault`` runs (d) and
+   its probe sound and with a planted fault (each row-parallel bias
+   added once a tp entry, or not at all) and fails unless TP_TOL passes
+   the first and refuses both faults.
+11j. ``multihost`` (data, tensor and sequence parallel across two
+   processes on the one card, ``parallel/multihost.py``; ``--phase
+   multihost`` runs it alone and builds the embedding and flash
+   sources). The two processes (this script
    with ``--multihost-child``) start with the smoke, import and join
    their process group (a ``FileStore``; the data group is gloo, both
    drive ``cuda:0``) while the other phases run, and wait for a go
    file: in the whole smoke it is written when the checkpoint phase's
    evaluate/predict subprocesses start, and the processes set up and
    train while those run (each draws the 1M x 256 table on the host,
-   ~9 s, and places its shard); their results are held to the
+   ~9 s, and places its shard) and while the worker phase runs ((d)-(f)),
+   after which the smoke waits for them; their results are held to the
    references after the parallel phase ((a)'s is that phase's dp4 run
    at step 8). With ``--phase multihost`` the references run first
    ((a)'s: PR 18's row-split runner at dp2), then the go file. Each
@@ -349,9 +369,25 @@
    .build_worker`` with ``--num_jax_processes 2``: 2048 mnist records
    at B 128 a process in tasks of 512, an eval task every 4 versions;
    both workers end at one version, every batch trained once, eval
-   metrics reported. Prints the data backend (and why), which gloo
-   collectives take CUDA tensors, and per step the step ms (CUDA
-   events), issue ms and the ms inside the data group's collectives.
+   metrics reported. (d) the flagship of 11i (d) with ``tp`` across the
+   processes (``(1, 2, 2)`` over ``("dp", "tp", "sp")``: half of each
+   placed kernel, two heads, half of the vocabulary a process; the ring
+   local), and (d') one step on ``(1, 2)`` over ``("dp", "tp")``, where
+   attention does not ring and #1 takes each process's two heads; (e)
+   ``sp`` across them (``("dp", "sp", "tp")``: each process its half
+   of every sequence, K/V chunks and their gradients by send/recv);
+   each against 11i (d)'s one-process run (d' against the unsharded
+   run's first step) within TP_TOL, (d) and (e) with their probes
+   against 11i (d)'s unsharded probe, the processes' losses and whole
+   parameters equal, launches exact, and one launch of each kernel
+   (#2 of a chunk from the other rank, #3/#4 of a past chunk or the
+   diagonal, #1 in d') held to its plain version on the same inputs.
+   (f) tests/test_feature_column.py:238's model, its 4 MB table split
+   over the processes (16,384 rows each), against the one-process dp2
+   run: TABLE_TOL, the processes equal. Prints the data backend (and
+   why), which gloo collectives take CUDA tensors, and per step the
+   step ms (CUDA events), issue ms and the ms inside the collectives
+   (the all-reduces, the all-gathers, the ring's send/recv).
 12. ``fused path``: ``DeviceSparseRunner`` over the recsys table with
    Momentum (Nesterov) and ``use_pallas="fused"`` for 10 steps against
    "never": one fused-kernel launch a step.
@@ -402,8 +438,9 @@
    and resumed recsys runs), ``launches_worker`` (the in-process and
    failed-task runs), ``launches_rowservice`` ((a)'s two runs, (b),
    (c)), ``launches_fleet`` ((a), (b) over one and two shards, (c)),
-   ``launches_parallel`` ((a), (b), (c) at dp4 and dp2, the fused step),
-   ``launches_multihost`` ((a) in each process, (b), (c));
+   ``launches_parallel`` ((a), (b), (c) at dp4 and dp2, the fused step,
+   (d)), ``launches_multihost`` ((a) in each process, (b), (c), (d),
+   (d') and (e) in each process);
    #5 with its times at
    the sweep's tiers, the row kernels with a per-rule list) and, last,
    ``{"ok": true, "device": {...}}``.
@@ -430,6 +467,10 @@ SERVE_TOKENS = 128
 RAGGED_TOKENS = 100   # a served length that is not a multiple of the tile
 SEED = 0
 DEVICE = "cuda"
+# The whole smoke's aim in seconds (after the builds start), printed
+# beside its total in the phase_s line (the script must end within
+# 1200 s, the builds included).
+SMOKE_AIM_S = 240
 # bench_suite.py _TRANSFORMER_SIZES["transformer"] at the bench's
 # vocab and context.
 FLAGSHIP = dict(vocab_size=32768, d_model=512, n_heads=4, n_layers=8,
@@ -6444,8 +6485,10 @@ def parallel_recsys_finish(torch, fa, pe, started):
 
 def parallel_phase(torch, fa, pe, root, reuse=None):
     """(c)'s first half, then (a) and (b) while (c)'s checkpoint is
-    written, (c)'s second half, then resnet50's step times; returns the
-    phase's line and its launches by part."""
+    written, (c)'s second half, then resnet50's step times, then (d) the
+    flagship on a one-process (1, 2, 2) dp/sp/tp mesh
+    (``parallel_tp_part``, kept in ``reuse`` for the multihost phase);
+    returns the phase's line and its launches by part."""
     marks = [time.monotonic()]
     started = parallel_recsys_start(torch, fa, pe, root, reuse)
     marks.append(time.monotonic())
@@ -6457,15 +6500,551 @@ def parallel_phase(torch, fa, pe, root, reuse=None):
     marks.append(time.monotonic())
     resnet["step"] = resnet_step_ms(torch)
     marks.append(time.monotonic())
+    tp, tp_counts, tp_ref = parallel_tp_part(torch, fa, pe, root)
+    if reuse is not None:
+        reuse["tp"] = tp_ref
+    marks.append(time.monotonic())
     part_s = dict(zip(("recsys_start", "cifar10", "resnet50",
-                       "recsys_finish", "resnet50_step_ms"),
+                       "recsys_finish", "resnet50_step_ms", "tp"),
                       np.diff(marks).tolist()))
     print("parallel step ms", json.dumps(resnet["step"]), flush=True)
     return {"cifar10": cifar, "resnet50": resnet, "recsys": recsys,
-            "part_s": part_s,
+            "tp": tp, "part_s": part_s,
             "launches": {"cifar10": cifar_counts, "resnet50": resnet_counts,
                          "recsys_dp4": dp4, "recsys_dp2": dp2,
-                         "fused": fused}}
+                         "fused": fused, "tp_one_process": tp_counts}}
+
+
+# ---- tensor parallel and the ring across processes (item 6b, 2b-4) -------
+#
+# The flagship at full width (vocab 32768, d_model 512, 4 heads of 128,
+# d_ff 2048, bf16) through the zoo twin's rules and make_runner_for_spec,
+# weights from the seed through bridge.py. Depth 2 and B 2 x S 512: the
+# logits cross the processes as f32 (B x S x 32768, 128 MB at this size,
+# gathered over tp through the host by gloo), and the parts run beside
+# the checkpoint jobs; 512 positions give every ring chunk 256 rows, two
+# of #2's 128-row q tiles. The parallel phase runs it on a one-process
+# (1, 2, 2) dp/sp/tp mesh against the unsharded run (the reference of
+# the processes' (d) and (e) too); the processes run (d) tp across them
+# (with (d') one step on a (1, 2) dp/tp mesh, where attention does not
+# ring and #1 takes each entry's two heads), (e) sp across them and (f)
+# the 4 MB table split over them.
+TP_LAYERS, TP_SEQ, TP_BATCH, TP_STEPS = 2, 512, 2, 3
+TP_ZOO = f"""
+import torch
+
+from elasticdl_tpu_torch.model_zoo.transformer import transformer_lm as twin
+from elasticdl_tpu_torch.model_zoo.transformer.transformer_lm import (
+    batch_sharding_rule, dataset_fn, eval_metrics_fn, loss, optimizer,
+    param_sharding_rules)
+from elasticdl_tpu_torch.models.transformer import TransformerConfig
+
+CONFIG = TransformerConfig(vocab_size=32768, d_model=512, n_heads=4,
+                           n_layers={TP_LAYERS}, d_ff=2048,
+                           max_len={TP_SEQ}, compute_dtype=torch.bfloat16)
+
+
+def custom_model(device=None, mesh=None):
+    return twin.custom_model(config=CONFIG, device=device, mesh=mesh)
+"""
+TP_LAYOUTS = {"one": ((1, 2, 2), ("dp", "sp", "tp")),
+              "tp": ((1, 2, 2), ("dp", "tp", "sp")),
+              "sp": ((1, 2, 2), ("dp", "sp", "tp")),
+              "tp_only": ((1, 2), ("dp", "tp"))}
+# The (1, 2, 2) run against the unsharded one (the ring's chunks and the
+# row-parallel layers' partial sums in bf16 against #1 over the whole
+# sequence), and the processes' runs against the one-process (1, 2, 2)
+# run (each process's weight gradients rounded to bf16 before their
+# sum): the largest sound readings on the H100 are 2.83e-5 on the loss
+# and 3.75e-2 on the changes, so the limits are 3.5x and 2.7x those.
+# They bound the drift and cannot tell a misplaced bias: planted (the
+# ``tpfault`` phase) it reads 4.3e-5 and 3.9e-2. The probe's gradients
+# can: sound 8.2e-3 (one process, tp across, sp across), the bias added
+# once an entry 0.299, dropped 0.374; its limit lies between.
+TP_TOL = dict(loss=1e-4, delta_l2=1e-1, probe=5e-2)
+# The probe: one step of SGD at lr 1 (the parameters' changes are the
+# gradients, summed over the processes by the step) from the seed's
+# weights with every bias drawn N(0, TP_PROBE_BIAS): Adam's first steps
+# read only the gradients' signs and the seed's biases are zero, so the
+# runs above cannot see a bias added in the wrong place or a gradient
+# summed the wrong number of times; the probe's gradients can.
+TP_PROBE_BIAS = 0.05
+# (f): DenseFeatures over an identity column of 32768 ids x 32 (f32,
+# 4 MB: split P("dp", None) over the processes) and a Dense(1), SGD 0.1,
+# the global B 8 (4 a process); against the one-process dp2 run: f32
+# sums of two halves against the whole batch's.
+TABLE_STEPS, TABLE_BATCH, TABLE_TOL = 3, 8, dict(loss=1e-5, param=1e-6)
+_TP_WEIGHTS = {}
+_TP_SPECS = {}      # the zoo module's spec, built once a process and root
+
+
+def tp_weights(cfg):
+    """The seed's flagship weights through bridge (drawn once a
+    process)."""
+    from elasticdl_tpu_torch import bridge
+
+    if not _TP_WEIGHTS:
+        _TP_WEIGHTS.update(bridge.state_dict_from_flax(
+            bridge.init_flax_params(cfg, seed=SEED)))
+    return _TP_WEIGHTS
+
+
+def tp_probe_weights(torch, cfg):
+    """The probe's weights: the seed's, every bias drawn N(0,
+    TP_PROBE_BIAS) from the seed."""
+    rng = np.random.default_rng(SEED + 82)
+    return {k: torch.from_numpy(rng.normal(0.0, TP_PROBE_BIAS, tuple(
+                v.shape)).astype(np.float32)) if k.endswith(".bias") else v
+            for k, v in tp_weights(cfg).items()}
+
+
+def tp_batches():
+    rng = np.random.default_rng(SEED + 80)
+    vocab = FLAGSHIP["vocab_size"]
+    out = []
+    for _ in range(TP_STEPS):
+        start = rng.integers(0, vocab, (TP_BATCH, 1))
+        seq = (start + np.arange(TP_SEQ + 1)[None]) % vocab
+        out.append({"features": seq[:, :-1].astype(np.int32),
+                    "labels": seq[:, 1:].astype(np.int32),
+                    "mask": np.ones(TP_BATCH, np.float32)})
+    return out
+
+
+def tp_block(batch, lo, hi):
+    """A process's block of the sequence, positions lo to hi."""
+    return {k: v[:, lo:hi] if v.ndim == 2 else v for k, v in batch.items()}
+
+
+def whole_params(runner, state):
+    """Every parameter whole on the host in f32: a placed one's blocks
+    gathered over its group."""
+    shardings = runner.param_shardings(state.model) if runner else {}
+    out = {}
+    for name, p in state.model.named_parameters():
+        s = shardings.get(name)
+        value = (s.gather_block(p.detach())
+                 if s is not None and s.spans_processes else p.detach())
+        out[name] = value.float().cpu()
+    return out
+
+
+def tp_run(torch, fa, pe, root, layout, clock, steps=TP_STEPS, seq=None,
+           probe=False):
+    """The flagship zoo module on ``layout``'s mesh (None: unsharded,
+    ``core.step``), ``steps`` steps of tp_batches (``seq``: this
+    process's positions); flash launches zeroed just before and read
+    just after; ``probe``: one step of the probe (TP_PROBE_BIAS).
+    Returns its record and its whole parameters."""
+    from elasticdl_tpu_torch.core.model_spec import get_model_spec
+    from elasticdl_tpu_torch.core.step import build_train_step
+    from elasticdl_tpu_torch.core.train_state import init_train_state
+    from elasticdl_tpu_torch.parallel.mesh import make_mesh
+    from elasticdl_tpu_torch.parallel.mesh_runner import make_runner_for_spec
+
+    from elasticdl_tpu_torch.parallel import multihost
+
+    name = f"tp_lm{multihost.process_index()}"
+    spec = _TP_SPECS.get(root)
+    if spec is None:
+        zoo = write_zoo(root, name, TP_ZOO)
+        spec = _TP_SPECS[root] = get_model_spec(
+            zoo, f"{name}.rec.custom_model", device=DEVICE)
+    runner = None
+    weights = tp_probe_weights if probe else (lambda _, cfg: tp_weights(cfg))
+    tx = ((lambda p: torch.optim.SGD(p, lr=1.0)) if probe
+          else spec.make_optimizer())
+    steps = 1 if probe else steps
+    if layout is None:
+        model = spec.make_model()
+        model.load_state_dict(weights(torch, model.cfg))
+        state = init_train_state(model, tx, seed=SEED)
+        step = build_train_step(spec.loss)
+    else:
+        shape, axes = TP_LAYOUTS[layout]
+        per = int(np.prod(shape)) // multihost.process_count()
+        mesh = make_mesh(shape, axes, [torch.device(DEVICE)] * per)
+        model = spec.make_model(mesh)
+        model.load_state_dict(weights(torch, model.cfg))
+        runner = make_runner_for_spec(spec, mesh)
+        state = runner.init_state(model, tx, seed=SEED)
+        step = runner.train_step(spec.loss)
+    batches = tp_batches()[:steps]
+    if seq is not None:
+        batches = [tp_block(b, *seq) for b in batches]
+    if runner is not None:
+        batches = [runner.place_batch(b) for b in batches]
+    torch.cuda.synchronize()
+    reset_kernel_launches(fa, pe)              # the path starts here
+    state, losses, times = mh_timed_steps(torch, step, state, batches,
+                                          clock)
+    torch.cuda.synchronize()
+    counts = kernel_launch_counts(fa, pe)      # ... and ends here
+    held = {n: list(p.shape) for n, p in state.model.named_parameters()
+            if n in ("blocks.0.attn.query.weight", "token_embed.weight",
+                     "lm_head.weight", "blocks.0.mlp.wo.weight")}
+    record = {"losses": losses, **times, "launches": counts,
+              "held_shapes": held}
+    params = whole_params(runner, state)
+    del state, model
+    torch.cuda.empty_cache()
+    return record, params
+
+
+def tp_gaps(got, want, start, got_losses, want_losses):
+    """Loss (largest relative gap a step) and parameter changes
+    (relative L2 over every parameter but the key biases, whose true
+    gradient is 0 and which Adam steps by noise)."""
+    keys = [k for k in want if not k.endswith("attn.key.bias")]
+
+    def flat(tree):
+        return np.concatenate([(tree[k] - start[k]).numpy().ravel()
+                               for k in keys])
+
+    return {"loss_max_rel_diff": max(abs(a - b) / abs(b) for a, b in
+                                     zip(got_losses, want_losses)),
+            "delta_l2": rel_err(flat(got), flat(want))}
+
+
+def tp_probe_gap(torch, got, want, cfg):
+    """The probe's gradients (its one step's changes) against the
+    unsharded probe's: relative L2 over every parameter."""
+    start = {k: v.float() for k, v in tp_probe_weights(torch, cfg).items()}
+    return tp_gaps(got, want, start, [1.0], [1.0])["delta_l2"]
+
+
+def tp_within(gaps):
+    """Whether a run's gaps lie within TP_TOL: its losses and changes,
+    and its probe's gradients where it has a probe."""
+    return (gaps["loss_max_rel_diff"] <= TP_TOL["loss"]
+            and gaps.get("delta_l2", 0.0) <= TP_TOL["delta_l2"]
+            and gaps.get("probe_delta_l2", 0.0) <= TP_TOL["probe"])
+
+
+def tp_expected_launches(layout, steps=TP_STEPS):
+    """Exact launches of a run: per layer and step, each local tp entry
+    folds its local sp ranks' chunks (all n of them) through #2 in the
+    forward and their pairs through #3 and #4 in the backward; without
+    a ring, #1 once and #3/#4 once an entry."""
+    shape, axes = TP_LAYOUTS[layout]
+    size = dict(zip(axes, shape))
+    across = {"one": {}, "tp": {"tp": 2}, "sp": {"sp": 2},
+              "tp_only": {"tp": 2}}[layout]
+    tp_local = size.get("tp", 1) // across.get("tp", 1)
+    sp, sp_local = size.get("sp", 1), size.get("sp", 1) // across.get(
+        "sp", 1)
+    per = steps * TP_LAYERS * tp_local
+    out = dict.fromkeys(("lookup_combine", "lookup_combine_aligned",
+                         "row_update", "fused_row_update"), 0)
+    if sp > 1:
+        pairs = per * sp_local * sp
+        return {**out, "flash_attention_fwd": 0, "flash_chunk_update": pairs,
+                "flash_attention_bwd_dq": pairs,
+                "flash_attention_bwd_dkv": pairs}
+    return {**out, "flash_attention_fwd": per, "flash_chunk_update": 0,
+            "flash_attention_bwd_dq": per, "flash_attention_bwd_dkv": per}
+
+
+def plant_bias_fault(times):
+    """A planted fault of the tensor-parallel layers (the ``tpfault``
+    phase's): each row-parallel layer's bias (attention's ``out``, the
+    MLP's ``wo``) added ``times(dense)`` times instead of once, by
+    wrapping the layers' forwards. Returns the undo."""
+    from elasticdl_tpu_torch.models import transformer as tm
+
+    saved = {tm.SelfAttention: ("out", tm.SelfAttention.forward),
+             tm.Mlp: ("wo", tm.Mlp.forward)}
+
+    def wrap(forward, last):
+        def faulty(self, x):
+            dense = getattr(self, last)
+            extra = (times(dense) - 1) * dense.bias.to(dense.compute_dtype)
+            return forward(self, x) + extra
+
+        return faulty
+
+    for cls, (last, forward) in saved.items():
+        cls.forward = wrap(forward, last)
+
+    def undo():
+        for cls, (_, forward) in saved.items():
+            cls.forward = forward
+
+    return undo
+
+
+def tp_fault_phase(torch, fa, pe, root):
+    """11i (d)'s (1, 2, 2) run and its probe against the unsharded
+    ones, sound and with a planted fault: the row-parallel bias added
+    once per tp entry (the fault Megatron's layout invites: twice here)
+    and not at all. Prints the gaps beside TP_TOL and fails unless
+    TP_TOL passes the sound run and refuses both faults."""
+    from elasticdl_tpu_torch.models.transformer import TransformerConfig
+    from elasticdl_tpu_torch.parallel import multihost
+    from elasticdl_tpu_torch.parallel.tensor_parallel import placement
+
+    faults = {"sound": None,
+              "bias_per_entry": lambda d: placement(d, "weight").num_shards,
+              "bias_dropped": lambda d: 0}
+    clock = CollectiveClock(torch, multihost)
+    try:
+        plain, plain_params = tp_run(torch, fa, pe, root, None, clock)
+        _, plain_probe = tp_run(torch, fa, pe, root, None, clock,
+                                probe=True)
+        runs = {}
+        for name, times in faults.items():
+            undo = plant_bias_fault(times) if times else (lambda: None)
+            try:
+                runs[name] = (
+                    tp_run(torch, fa, pe, root, "one", clock),
+                    tp_run(torch, fa, pe, root, "one", clock, probe=True)[1])
+            finally:
+                undo()
+    finally:
+        clock.restore()
+    cfg = TransformerConfig(**dict(FLAGSHIP, n_layers=TP_LAYERS,
+                                   max_len=TP_SEQ))
+    start = {k: v.float().cpu() for k, v in tp_weights(cfg).items()}
+    gaps = {name: {**tp_gaps(params, plain_params, start, rec["losses"],
+                             plain["losses"]),
+                   "probe_delta_l2": tp_probe_gap(torch, probe, plain_probe,
+                                                  cfg)}
+            for name, ((rec, params), probe) in runs.items()}
+    out = {"gaps": gaps, "tol": TP_TOL,
+           "losses": {"unsharded": plain["losses"],
+                      **{n: r[0][0]["losses"] for n, r in runs.items()}}}
+    print("tpfault", json.dumps(out), flush=True)
+    check(tp_within(gaps["sound"]), f"sound run outside TP_TOL: {gaps}")
+    check(not tp_within(gaps["bias_per_entry"])
+          and not tp_within(gaps["bias_dropped"]),
+          f"a planted fault inside TP_TOL: {gaps}")
+    return out
+
+
+def parallel_tp_part(torch, fa, pe, root):
+    """The flagship on a one-process (1, 2, 2) dp/sp/tp mesh with the
+    transformer rules, TP_STEPS steps, against the unsharded run on the
+    same batches from the same weights. Returns the line, the launches,
+    and the (1, 2, 2) run (the processes' reference)."""
+    from elasticdl_tpu_torch.models.transformer import TransformerConfig
+    from elasticdl_tpu_torch.parallel import multihost
+
+    clock = CollectiveClock(torch, multihost)
+    try:
+        one, one_params = tp_run(torch, fa, pe, root, "one", clock)
+        plain, plain_params = tp_run(torch, fa, pe, root, None, clock)
+        _, one_probe = tp_run(torch, fa, pe, root, "one", clock,
+                              probe=True)
+        _, plain_probe = tp_run(torch, fa, pe, root, None, clock,
+                                probe=True)
+    finally:
+        clock.restore()
+    cfg = TransformerConfig(**dict(FLAGSHIP, n_layers=TP_LAYERS,
+                                   max_len=TP_SEQ))
+    start = {k: v.float().cpu() for k, v in tp_weights(cfg).items()}
+    gaps = tp_gaps(one_params, plain_params, start, one["losses"],
+                   plain["losses"])
+    gaps["probe_delta_l2"] = tp_probe_gap(torch, one_probe, plain_probe, cfg)
+    out = {"model": f"transformer flagship widths, {TP_LAYERS} layers, "
+                    f"B {TP_BATCH} x S {TP_SEQ}, bf16, Adam 1e-3, random "
+                    f"weights seed {SEED} (bridge)",
+           "mesh": "(1, 2, 2) over (dp, sp, tp), one process",
+           "one_process_tp": one, "unsharded": plain, **gaps,
+           "tol": TP_TOL}
+    print("parallel tp", json.dumps(out), flush=True)
+    check(one["launches"] == tp_expected_launches("one"),
+          f"(1, 2, 2) launches {one['launches']}, want "
+          f"{tp_expected_launches('one')}")
+    check(plain["launches"]["flash_attention_fwd"] == TP_STEPS * TP_LAYERS,
+          f"unsharded launches {plain['launches']}")
+    check(all(np.isfinite(one["losses"])) and tp_within(gaps),
+          f"(1, 2, 2) vs unsharded: {gaps}")
+    return out, one["launches"], {"losses": one["losses"],
+                                  "params": one_params, "start": start,
+                                  "plain_losses": plain["losses"],
+                                  "probe": plain_probe, "cfg": cfg}
+
+
+class KernelCapture:
+    """The inputs of one launch of each flash kernel on a path (clones),
+    patched over the wrappers that launch them: #1's first; #2's first
+    whose chunk is another rank's (k_offset != q_offset); #3/#4's first
+    of a past chunk, else of the diagonal."""
+
+    def __init__(self, torch, fa):
+        self.torch, self.fa, self.saved, self.args = torch, fa, {}, {}
+        for name in ("flash_forward_cuda", "flash_chunk_update_cuda",
+                     "flash_chunk_grads_cuda"):
+            fn = getattr(fa, name)
+            self.saved[name] = fn
+            setattr(fa, name, self._wrap(name, fn))
+
+    def _wanted(self, name, args):
+        have = self.args.get(name)
+        if name == "flash_forward_cuda":
+            return have is None
+        q_off, k_off = args[6], args[7]
+        if name == "flash_chunk_update_cuda":
+            return have is None and k_off != q_off
+        return k_off <= q_off and (have is None or (
+            k_off < q_off and have[7] == have[6]))
+
+    def _wrap(self, name, fn):
+        def call(*args):
+            if self._wanted(name, args):
+                self.args[name] = [a.clone() if isinstance(
+                    a, self.torch.Tensor) else a for a in args]
+            return fn(*args)
+        return call
+
+    def restore(self):
+        for name, fn in self.saved.items():
+            setattr(self.fa, name, fn)
+
+    def checks(self):
+        """Each captured launch again against its plain version on the
+        same inputs (after the path's counts are read)."""
+        fa, out = self.fa, {}
+        if "flash_forward_cuda" in self.args:
+            q, k, v, causal, scale = self.args["flash_forward_cuda"]
+            o, lse = fa.flash_forward_cuda(q, k, v, causal, scale)
+            want_o, want_lse = fa.flash_forward_reference(
+                q, k, v, causal, scale,
+                block_k=fa.forward_block_k(q.shape[-1], q.dtype))
+            tol = FWD_TOL[str(q.dtype).split(".")[-1]]
+            r = {"shape": list(q.shape), "o": grad_readings(o, want_o),
+                 "lse": lse_reading(lse, want_lse)}
+            r["ok"] = within(r["o"], tol) and r["lse"] <= tol["lse"]
+            out["flash_attention_fwd"] = r
+        if "flash_chunk_update_cuda" in self.args:
+            args = self.args["flash_chunk_update_cuda"]
+            got = fa.flash_chunk_update_cuda(*args)
+            want = chunk_tiled_reference(fa, *args)
+            tol = CHUNK_TOL[str(args[0].dtype).split(".")[-1]]
+            r = {"shape": list(args[0].shape), "q_offset": args[6],
+                 "k_offset": args[7]}
+            for i, name in enumerate(("m", "l", "acc")):
+                r[name] = grad_readings(got[i], want[i])
+            r["ok"] = all(within(r[n], tol) for n in ("m", "l", "acc"))
+            out["flash_chunk_update"] = r
+        if "flash_chunk_grads_cuda" in self.args:
+            args = self.args["flash_chunk_grads_cuda"]
+            got = fa.flash_chunk_grads_cuda(*args)
+            want = fa.flash_chunk_grads_reference(*args)
+            tol = BWD_TOL[str(args[0].dtype).split(".")[-1]]
+            r = {"shape": list(args[0].shape), "q_offset": args[6],
+                 "k_offset": args[7]}
+            for i, name in enumerate(("dq", "dk", "dv")):
+                r[name] = grad_readings(got[i], want[i])
+            r["ok"] = all(within(r[n], tol) for n in ("dq", "dk", "dv"))
+            out["flash_attention_bwd"] = r
+        self.torch.cuda.synchronize()
+        return out
+
+
+def mh_child_tp(torch, fa, pe, pid, root, out):
+    """(d) tp across the processes, (d') one step with no ring, (e) sp
+    across them: the flagship, its block of each batch; each path's
+    launches, one launch of each kernel held to its plain version, the
+    whole parameters saved."""
+    from elasticdl_tpu_torch.parallel import multihost
+
+    res = {}
+    for part, layout, seq in (("d", "tp", None),
+                              ("d_tp_only", "tp_only", None),
+                              ("e", "sp", (pid * TP_SEQ // MH_PROCS,
+                                           (pid + 1) * TP_SEQ // MH_PROCS))):
+        clock = CollectiveClock(torch, multihost)
+        capture = KernelCapture(torch, fa)
+        try:
+            record, params = tp_run(
+                torch, fa, pe, root, layout, clock,
+                steps=1 if layout == "tp_only" else TP_STEPS, seq=seq)
+        finally:
+            capture.restore()
+            clock.restore()
+        record["kernel_checks"] = capture.checks()
+        record["collective_calls"] = clock.calls
+        record["collective_ms_by_name"] = clock.ms_by_name
+        torch.save(params, os.path.join(root, f"tp_{part}_{pid}.pt"))
+        if layout != "tp_only":
+            clock = CollectiveClock(torch, multihost)
+            try:
+                _, probe = tp_run(torch, fa, pe, root, layout, clock,
+                                  seq=seq, probe=True)
+            finally:
+                clock.restore()
+            torch.save(probe, os.path.join(root,
+                                           f"tp_{part}_probe_{pid}.pt"))
+        res[part] = record
+    out["tp"] = res
+
+
+def table_model(torch):
+    from elasticdl_tpu_torch.preprocessing import feature_column as fc
+
+    class Model(torch.nn.Module):
+        """tests/test_feature_column.py:238's model."""
+
+        def __init__(self):
+            super().__init__()
+            self.features = fc.DenseFeatures([
+                fc.numeric_column("x"),
+                fc.embedding_column(fc.categorical_column_with_identity(
+                    "c", 1 << 15), 32)])
+            self.Dense_0 = torch.nn.Linear(33, 1)
+
+        def forward(self, features):
+            return self.Dense_0(self.features(features))[..., 0]
+
+    torch.manual_seed(SEED)
+    return Model().to(DEVICE)
+
+
+def table_batches():
+    rng = np.random.default_rng(SEED + 81)
+    return [{"features": {"x": rng.random((TABLE_BATCH, 1), np.float32),
+                          "c": rng.integers(0, 1 << 15, (TABLE_BATCH, 2))
+                          .astype(np.int32)},
+             "labels": rng.random(TABLE_BATCH, np.float32),
+             "mask": np.ones(TABLE_BATCH, np.float32)}
+            for _ in range(TABLE_STEPS)]
+
+
+def table_run(torch, per, pid=None):
+    """(f)'s model on a (2,) dp mesh of ``per`` entries a process, SGD
+    0.1, TABLE_STEPS steps of table_batches (``pid``: its rows)."""
+    from elasticdl_tpu_torch.parallel.mesh import make_mesh
+    from elasticdl_tpu_torch.parallel.mesh_runner import MeshRunner
+
+    def loss(labels, preds, mask):
+        return torch.mean(torch.square(preds - labels) * mask)
+
+    runner = MeshRunner(make_mesh((2,), ("dp",),
+                                  [torch.device(DEVICE)] * per))
+    state = runner.init_state(table_model(torch),
+                              lambda p: torch.optim.SGD(p, lr=0.1))
+    step = runner.train_step(loss)
+    losses = []
+    for b in table_batches():
+        if pid is not None:
+            b = mh_local(b, pid)
+        state, m = step(state, runner.place_batch(b))
+        losses.append(float(m["loss"]))
+    spec = runner.state_shardings(state)[
+        "params.features.c_embedding.embedding"]
+    rows = int(state.model.features.c_embedding.embedding.shape[0])
+    return ({"losses": losses, "table_spec": str(spec.spec),
+             "table_rows_held": rows},
+            whole_params(runner, state))
+
+
+def mh_child_table(torch, fa, pe, pid, root, out):
+    """(f) in process ``pid``: its rows of each batch, the table split
+    over the processes."""
+    record, params = table_run(torch, 1, pid)
+    torch.save(params, os.path.join(root, f"table_{pid}.pt"))
+    out["table"] = record
 
 
 # ---- multihost: data parallel across two processes on the one card --------
@@ -6570,14 +7149,18 @@ def mh_dense_leaves(state):
 
 
 class CollectiveClock:
-    """Host ms inside the data group's collectives (the card synchronised
-    at entry and exit), patched over ``multihost``'s helpers."""
+    """Host ms inside the processes' collectives (the card synchronised
+    at entry and exit), patched over ``multihost``'s helpers: the
+    all-reduces (the gradients, tp's ``reduce_from`` and ``copy_to``),
+    the all-gathers (ZeRO's slices, the logits over tp, a split table's
+    ids) and the ring's send/recv."""
 
     def __init__(self, torch, multihost):
         self.ms, self.calls = 0.0, 0
-        self.ms_by_name = {"all_reduce_": 0.0, "all_gather": 0.0}
+        names = ("all_reduce_", "all_gather", "ring_shift")
+        self.ms_by_name = dict.fromkeys(names, 0.0)
         self.mh, self.saved = multihost, {}
-        for name in ("all_reduce_", "all_gather"):
+        for name in names:
             fn = getattr(multihost, name)
             self.saved[name] = fn
             setattr(multihost, name, self._timed(torch, name, fn))
@@ -6855,11 +7438,12 @@ def multihost_child(pid, root):
         check(time.monotonic() < deadline, "no go file")
         time.sleep(0.05)
     marks = [time.monotonic()]
-    for part in (mh_child_recsys, mh_child_dense, mh_child_job):
+    for part in (mh_child_recsys, mh_child_dense, mh_child_job,
+                 mh_child_tp, mh_child_table):
         part(torch, fa, pe, pid, root, out)
         marks.append(time.monotonic())
         print(f"multihost process {pid}: {part.__name__} done", flush=True)
-    out["part_s"] = dict(zip(("recsys", "dense", "job"),
+    out["part_s"] = dict(zip(("recsys", "dense", "job", "tp", "table"),
                              np.diff(marks).tolist()))
     out["gloo_cuda"] = mh_gloo_probe(torch)
     with open(os.path.join(root, f"result{pid}.json.tmp"), "w") as f:
@@ -6965,7 +7549,7 @@ def mh_wait(started):
 
 
 def multihost_phase(torch, fa, pe, root, started, recsys_ref=None,
-                    res=None):
+                    res=None, tp_ref=None):
     """The references here (``recsys_ref``: the parallel phase's dp4 run,
     ``mh_recsys_reference``), then the go file: (a), (b), (c) in the two
     processes, unless their results ``res`` are given (the whole smoke
@@ -6973,6 +7557,9 @@ def multihost_phase(torch, fa, pe, root, started, recsys_ref=None,
     its launches by part."""
     marks = [time.monotonic()]
     recsys_ref, dense_ref = mh_reference(torch, fa, pe, root, recsys_ref)
+    if tp_ref is None:
+        _, _, tp_ref = parallel_tp_part(torch, fa, pe, root)
+    table_ref, table_params = table_run(torch, 2)
     marks.append(time.monotonic())
     if res is None:
         multihost_go(started)
@@ -7039,6 +7626,9 @@ def multihost_phase(torch, fa, pe, root, started, recsys_ref=None,
                 dense_ref["losses_divergent_f32_reordered"],
                 dense_ref["losses_divergent_f32"])}}
     job = {pid: res[pid]["job"] for pid in res}
+    tp_out, tp_launches = mh_tp_results(torch, started["root"], res, tp_ref)
+    table_out = mh_table_results(torch, started["root"], res, table_ref,
+                                 table_params)
     out = {
         "data_backend": res[0]["data_backend"],
         "why": "both processes drive cuda:0; NCCL refuses two ranks on "
@@ -7077,7 +7667,7 @@ def multihost_phase(torch, fa, pe, root, started, recsys_ref=None,
                 "collective_ms_by_name", "launches", "zero_local_entries",
                 "zero_entries")}
                for pid in dense}},
-        "job": job,
+        "job": job, "tp": tp_out, "table": table_out,
         "part_s": {"reference": marks[1] - marks[0],
                    "children": marks[2] - marks[1],
                    "child_parts": {pid: res[pid]["part_s"] for pid in res}},
@@ -7125,8 +7715,95 @@ def multihost_phase(torch, fa, pe, root, started, recsys_ref=None,
           f"the two-process job {job}")
     launches = {"recsys_p0": rec[0]["launches"],
                 "recsys_p1": rec[1]["launches"],
-                "dense": dense[0]["launches"], "job": job[0]["launches"]}
+                "dense": dense[0]["launches"], "job": job[0]["launches"],
+                **tp_launches}
     return out, launches
+
+
+def mh_tp_results(torch, root, res, ref):
+    """(d), (d') and (e) of both processes against the one-process
+    (1, 2, 2) run ``ref`` (the unsharded run's first loss for (d')):
+    losses and parameter changes within TP_TOL, the processes' losses
+    and whole parameters equal, exact launches, each captured launch
+    within its plain version's limits. Returns the line and the
+    launches by part and process."""
+    out, launches, seen = {}, {}, set()
+    for part, layout in (("d", "tp"), ("d_tp_only", "tp_only"),
+                         ("e", "sp")):
+        rec = {pid: res[pid]["tp"][part] for pid in res}
+        params = [torch.load(os.path.join(root, f"tp_{part}_{pid}.pt"))
+                  for pid in sorted(res)]
+        equal = all(torch.equal(params[0][k], params[1][k])
+                    for k in params[0])
+        if layout == "tp_only":
+            gaps = {"loss_max_rel_diff": abs(
+                rec[0]["losses"][0] - ref["plain_losses"][0])
+                / abs(ref["plain_losses"][0])}
+            want = tp_expected_launches(layout, steps=1)
+        else:
+            gaps = tp_gaps(params[0], ref["params"], ref["start"],
+                           rec[0]["losses"], ref["losses"])
+            probes = [torch.load(os.path.join(root,
+                                              f"tp_{part}_probe_{pid}.pt"))
+                      for pid in sorted(res)]
+            gaps["probe_delta_l2"] = tp_probe_gap(torch, probes[0],
+                                                  ref["probe"], ref["cfg"])
+            equal = equal and all(torch.equal(probes[0][k], probes[1][k])
+                                  for k in probes[0])
+            want = tp_expected_launches(layout)
+        out[part] = {"mesh": str(TP_LAYOUTS[layout]), **gaps,
+                     "losses": {p: rec[p]["losses"] for p in rec},
+                     "params_equal_across_processes": equal,
+                     **{f"p{p}": rec[p] for p in rec}}
+        for pid in rec:
+            launches[f"tp_{part}_p{pid}"] = rec[pid]["launches"]
+            check(rec[pid]["launches"] == want,
+                  f"({part}) process {pid} launches {rec[pid]['launches']}"
+                  f", want {want}")
+            for name, r in rec[pid]["kernel_checks"].items():
+                seen.add(name)
+                check(r["ok"], f"({part}) process {pid} {name} vs its "
+                               f"plain version: {r}")
+        check(rec[0]["losses"] == rec[1]["losses"] and equal
+              and all(np.isfinite(rec[0]["losses"])),
+              f"({part}) the processes differ: {out[part]['losses']}")
+        check(tp_within(gaps), f"({part}) vs one process: {gaps}")
+    check(seen == {"flash_attention_fwd", "flash_chunk_update",
+                   "flash_attention_bwd"},
+          f"kernels held to their plain versions across processes: {seen}")
+    out["tol"] = TP_TOL
+    return out, launches
+
+
+def mh_table_results(torch, root, res, ref, ref_params):
+    """(f) of both processes against the one-process dp2 run."""
+    rec = {pid: res[pid]["table"] for pid in res}
+    params = [torch.load(os.path.join(root, f"table_{pid}.pt"))
+              for pid in sorted(res)]
+    loss = max(abs(a - b) / abs(b) for a, b in
+               zip(rec[0]["losses"], ref["losses"]))
+    param = max((params[0][k] - v).abs().max().item()
+                for k, v in ref_params.items())
+    equal = all(torch.equal(params[0][k], params[1][k]) for k in params[0])
+    out = {"model": "tests/test_feature_column.py:238's: DenseFeatures "
+                    "(x, an identity column of 32768 ids x 32, f32) and "
+                    f"Dense(1), SGD 0.1, global B {TABLE_BATCH}, "
+                    f"{TABLE_STEPS} steps",
+           "losses": {p: rec[p]["losses"] for p in rec},
+           "losses_one_process": ref["losses"],
+           "loss_max_rel_diff": loss, "param_max_abs_diff": param,
+           "params_equal_across_processes": equal,
+           "table_spec": rec[0]["table_spec"],
+           "table_rows_held": {p: rec[p]["table_rows_held"] for p in rec},
+           "tol": TABLE_TOL}
+    check(all(rec[p]["table_rows_held"] == (1 << 15) // MH_PROCS
+              for p in rec)
+          and rec[0]["table_spec"] == "PartitionSpec('dp', None)",
+          f"(f) the table is not split over the processes: {out}")
+    check(equal and rec[0]["losses"] == rec[1]["losses"]
+          and loss <= TABLE_TOL["loss"] and param <= TABLE_TOL["param"],
+          f"(f) across processes vs one process: {out}")
+    return out
 
 
 def main(argv=None) -> int:
@@ -7139,7 +7816,8 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--phase", choices=("all", "fwd", "bwd", "chunk", "lookup", "host",
                             "vision", "tabular", "checkpoint", "worker",
-                            "rowservice", "fleet", "parallel", "multihost"),
+                            "rowservice", "fleet", "parallel", "multihost",
+                            "tpfault"),
         default="all",
         help="fwd: build flash_attention_fwd.cu alone, then run kernel "
              "#1's checks and times and print its kernels row; bwd: the "
@@ -7154,10 +7832,13 @@ def main(argv=None) -> int:
              "embedding kernels only); rowservice: the row-service "
              "phase alone with its 1M x 256 timings (no kernel build); "
              "fleet: the fleet phase alone with its timings "
-             "(flash_attention_fwd.cu only); parallel: data parallel "
-             "over the one-card mesh alone (the embedding kernels "
-             "only); multihost: data parallel across two processes on "
-             "the card alone (the embedding kernels only)")
+             "(flash_attention_fwd.cu only); parallel: data and tensor "
+             "parallel over the one-card mesh alone (the embedding and "
+             "flash kernels); multihost: data, tensor and sequence "
+             "parallel across two processes on the card alone (the "
+             "embedding and flash kernels); tpfault: the one-process "
+             "tensor-parallel run sound and with a planted fault, "
+             "against TP_TOL (the flash kernels)")
     args = parser.parse_args(argv)
     import torch
 
@@ -7217,9 +7898,12 @@ def run(args, torch, mh) -> int:
              "chunk": [fa._CHUNK_SOURCE], "lookup": [pe._LOOKUP_SOURCE],
              "checkpoint": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
              "worker": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
-             "parallel": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
-             "multihost": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
-             "fleet": [fa._SOURCE]}
+             "parallel": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE,
+                          fa._CHUNK_SOURCE, fa._BWD_SOURCE, fa._SOURCE],
+             "multihost": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE,
+                           fa._CHUNK_SOURCE, fa._BWD_SOURCE, fa._SOURCE],
+             "fleet": [fa._SOURCE],
+             "tpfault": [fa._CHUNK_SOURCE, fa._BWD_SOURCE, fa._SOURCE]}
     logs = _build.build_all(alone.get(args.phase))
     print(f"built {sorted(logs)} in {time.monotonic() - t0:.1f}s",
           flush=True)
@@ -7239,7 +7923,7 @@ def run(args, torch, mh) -> int:
         print(json.dumps({"kernels": lookup_phase(torch, pe)}))
         return 0
     if args.phase in ("checkpoint", "worker", "fleet", "parallel",
-                      "multihost"):
+                      "multihost", "tpfault"):
         with tempfile.TemporaryDirectory() as root:
             if args.phase == "multihost":
                 t1 = time.monotonic()
@@ -7254,6 +7938,8 @@ def run(args, torch, mh) -> int:
                                              timed=True)}
             elif args.phase == "parallel":
                 line = {"parallel": parallel_phase(torch, fa, pe, root)}
+            elif args.phase == "tpfault":
+                line = {"tpfault": tp_fault_phase(torch, fa, pe, root)}
             else:
                 phase = checkpoint_phase if args.phase == "checkpoint" \
                     else worker_phase
@@ -7302,13 +7988,12 @@ def run(args, torch, mh) -> int:
         tabular = tabular_phase(torch, fa, pe, root)
         mark("tabular")
         # The multihost processes set up and train while the checkpoint
-        # phase's evaluate/predict subprocesses run; their results are
-        # held to the parallel phase's dp4 recsys run below.
+        # phase's evaluate/predict subprocesses run and, for their
+        # tensor- and sequence-parallel parts, the worker phase; their
+        # results are held to the parallel phase's runs below.
         checkpoint = checkpoint_phase(torch, fa, pe, root,
                                       lambda: multihost_go(mh))
         mark("checkpoint")
-        mh_results = mh_wait(mh)
-        mark("multihost_wait")
         # The row service's main boots in a subprocess while the worker
         # phase runs.
         row_service = rowservice_start(root)
@@ -7318,6 +8003,8 @@ def run(args, torch, mh) -> int:
             stop_service(row_service["proc"], row_service["log"])
             raise
         mark("worker")
+        mh_results = mh_wait(mh)
+        mark("multihost_wait")
         rowservice = rowservice_phase(torch, fa, pe, root,
                                       service=row_service)
         mark("rowservice")
@@ -7327,7 +8014,8 @@ def run(args, torch, mh) -> int:
         parallel = parallel_phase(torch, fa, pe, root, reuse)
         mark("parallel")
         multihost, multihost_counts = multihost_phase(
-            torch, fa, pe, root, mh, reuse.pop("recsys"), mh_results)
+            torch, fa, pe, root, mh, reuse.pop("recsys"), mh_results,
+            reuse.pop("tp"))
         mark("multihost")
     fused = fused_path_phase(torch, pe)
     sweep, sweep_counts = sweep_phase(torch, pe)
@@ -7389,6 +8077,8 @@ def run(args, torch, mh) -> int:
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"multihost": multihost}))
+    marks["total"] = round(time.monotonic() - t0, 2)
+    marks["aim"] = SMOKE_AIM_S
     print(json.dumps({"phase_s": marks}))
     print(json.dumps({"kernels": [kernel, chunk_row] + bwd_rows
                       + emb_rows}))

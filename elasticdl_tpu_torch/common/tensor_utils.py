@@ -291,15 +291,24 @@ def _encode(obj):
     raise TypeError(f"Cannot serialize {type(obj)}")
 
 
+# The maps ``_encode`` writes: a tag and the keys of the map under it.
+_TAGGED = {"__nd__": {"dtype", "shape", "data"}, "__is__": {"values", "ids"}}
+
+
 def _decode(obj):
-    if "__nd__" in obj:
-        return deserialize_ndarray(obj["__nd__"])
-    if "__is__" in obj:
-        return IndexedSlices(
-            values=deserialize_ndarray(obj["__is__"]["values"]),
-            ids=deserialize_ndarray(obj["__is__"]["ids"]),
-        )
-    return obj
+    """A tagged map as ``_encode`` writes it (one key, ``__nd__`` or
+    ``__is__``, over a map of its keys) back to its array; any other
+    map, a user's map that holds a tag as a key among them, as it is."""
+    if len(obj) != 1:
+        return obj
+    (tag, value), = obj.items()
+    if tag not in _TAGGED or not (isinstance(value, dict)
+                                  and set(value) == _TAGGED[tag]):
+        return obj
+    if tag == "__nd__":
+        return deserialize_ndarray(value)
+    return IndexedSlices(values=deserialize_ndarray(value["values"]),
+                         ids=deserialize_ndarray(value["ids"]))
 
 
 def dumps(tree: Any) -> bytes:

@@ -145,10 +145,27 @@ def _loss_share(global_batch, mask, device):
 def _sum_over_processes(state, loss):
     """The global batch's loss and gradients: each process's weighted
     loss (``_loss_share``) and gradients summed over the data group in
-    one all-reduce a dtype. Returns the global loss."""
-    grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+    one all-reduce a dtype. Where the runner gave each parameter its own
+    group (``GlobalBatch.grad_groups``: a placed parameter's gradient
+    is summed over the processes that hold its shard and read other
+    data), one all-reduce a group and dtype. Returns the global loss."""
+    global_batch = state.global_batch
     total = loss.float().reshape(1).clone()
-    state.global_batch.sum_(grads + [total])
+    groups = getattr(global_batch, "grad_groups", None)
+    if groups is None:
+        grads = [p.grad for p in state.model.parameters()
+                 if p.grad is not None]
+        global_batch.sum_(grads + [total])
+        return total[0]
+    from elasticdl_tpu_torch.parallel import multihost
+
+    by_group = {global_batch.group.ranks: (global_batch.group, [total])}
+    for name, p in state.model.named_parameters():
+        if p.grad is not None:
+            group = groups[name]
+            by_group.setdefault(group.ranks, (group, []))[1].append(p.grad)
+    for group, tensors in by_group.values():
+        multihost.all_reduce_(tensors, group=group)
     return total[0]
 
 

@@ -569,7 +569,7 @@ class DeviceSparseRunner:
         mesh's ``multihost.GlobalBatch`` (``multihost.attach``)."""
         if self.mesh is not None:
             state.model.to(self.mesh.device)
-        multihost.attach(state, self.mesh)
+        multihost.attach(state, self.mesh, (self.axis, "sp"))
         device = state.device
         for name in list(state.tables):
             state.tables[name] = self._placed(name, state.tables[name],

@@ -8,6 +8,10 @@ One module owns its (input_dim, output_dim) table as a parameter.
 - ``RaggedIds`` + ``combiner`` -> (batch, output_dim) combined rows:
   the lookup kernel (#6, through its autograd function) with
   ``pallas=True``, the library gather + ``combine`` otherwise.
+- A table that a ``MeshRunner`` split by rows (over the 2 MB
+  threshold, ``partition.embedding_partition_rule``) is read over its
+  shards (``partition.lookup_rows``), then combined; no kernel lies on
+  that path in either package.
 """
 
 from typing import Callable, Optional
@@ -16,6 +20,7 @@ import torch
 from torch import nn
 
 from elasticdl_tpu_torch.embedding.combiner import RaggedIds, combine
+from elasticdl_tpu_torch.parallel.tensor_parallel import WHOLE, placement
 
 # Keras Embedding's default init, RandomUniform(-0.05, 0.05), as the
 # reference's parameter server initialises rows.
@@ -42,6 +47,8 @@ class Embedding(nn.Module):
     False the library route.
     """
 
+    reads_placed = True
+
     def __init__(self, input_dim: int, output_dim: int,
                  combiner: Optional[str] = None,
                  initializer: Optional[Callable] = None,
@@ -64,20 +71,30 @@ class Embedding(nn.Module):
             return self.pallas
         return use_pallas_lookup(table.shape[1], ids.shape[1])
 
+    def _rows(self, ids, split):
+        """The table's rows of ``ids``: a gather, or, where a runner split
+        the table over a mesh axis (``split``: a table over 2 MB), the
+        lookup over its row shards (``partition.lookup_rows``)."""
+        if split is WHOLE:
+            return self.embedding[ids.long()]
+        from elasticdl_tpu_torch.embedding.partition import lookup_rows
+
+        return lookup_rows(self.embedding, split, ids)
+
     def forward(self, ids):
         table = self.embedding
+        split = placement(self, EMBEDDING_PARAM_NAME)
         if isinstance(ids, RaggedIds):
             if self.combiner is None:
                 raise ValueError("RaggedIds input requires a combiner")
             ragged = ids.to(table.device)
-            if self._use_pallas(table, ragged.ids):
+            if split is WHOLE and self._use_pallas(table, ragged.ids):
                 from elasticdl_tpu_torch.ops.pallas_embedding import (
                     lookup_combine,
                 )
 
                 return lookup_combine(table, ragged.ids, ragged.weights,
                                       self.combiner, force_pallas=True)
-            rows = table[ragged.ids.long()]
-            return combine(rows, ragged.weights, self.combiner)
-        ids = torch.as_tensor(ids, device=table.device)
-        return table[ids.long()]
+            return combine(self._rows(ragged.ids, split), ragged.weights,
+                           self.combiner)
+        return self._rows(torch.as_tensor(ids, device=table.device), split)

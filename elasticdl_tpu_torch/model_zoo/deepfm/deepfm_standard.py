@@ -1,6 +1,8 @@
 """DeepFM with standard (unsharded) embedding tables — zoo twin of
-model_zoo/deepfm/deepfm_standard.py: ``nn.Embedding`` for flax's
-``nn.Embed``, initialised as flax's default (truncated normal, standard
+model_zoo/deepfm/deepfm_standard.py: ``PlacedEmbedding`` (an
+``nn.Embedding`` whose table a ``MeshRunner`` may split by rows, as
+JAX's partitions a table over 2 MB) for flax's ``nn.Embed``,
+initialised as flax's default (truncated normal, standard
 deviation 1/sqrt(width)). The first-order sum, the FM term and the deep
 tower add in ``compute_dtype``; the logit is cast to f32 at the end.
 """
@@ -19,16 +21,17 @@ from elasticdl_tpu_torch.model_zoo.deepfm.fm_layers import (
     read_frappe,
 )
 from elasticdl_tpu_torch.ops.losses import masked_sigmoid_cross_entropy
+from elasticdl_tpu_torch.parallel.tensor_parallel import PlacedEmbedding
 
 INPUT_LENGTH = 10
 MAX_ID = 5500
 EMBEDDING_DIM = 16
 
 
-def _embed(vocab: int, width: int) -> nn.Embedding:
+def _embed(vocab: int, width: int) -> PlacedEmbedding:
     """flax's ``default_embed_init``: variance_scaling(1, fan_in,
     truncated normal) over a (vocab, width) table, fan_in = width."""
-    table = nn.Embedding(vocab, width)
+    table = PlacedEmbedding(vocab, width)
     std = math.sqrt(1.0 / width) / 0.87962566103423978
     nn.init.trunc_normal_(table.weight, std=std, a=-2 * std, b=2 * std)
     return table

@@ -20,8 +20,24 @@ tensor raises: on the card attention runs the kernel or nothing; its
 backward is the flash backward kernels. Built with a mesh
 (``TransformerLM(cfg, mesh)``, ``parallel.mesh.Mesh``), attention is
 ``ring_attention`` over the mesh's ``sp`` axis, as in the JAX module;
-its sharding constraints are no-ops on a one-device mesh and are not
-ported.
+its sharding constraints are not ported: placement is the runner's.
+Where the mesh's ``sp`` spans processes, a process's tokens are its
+block of the sequence, so its positions start at the block's offset.
+
+Tensor parallel (``transformer_sharding_rules`` through a
+``MeshRunner``, which records each placement on its module,
+``parallel/tensor_parallel.placement``): Q/K/V and ``wi`` are
+column-parallel, ``out`` and ``wo`` row-parallel (Megatron), the token
+embedding and ``lm_head`` split over the vocabulary. A layer computes
+each local ``tp`` entry's share in turn (an unplaced layer is one
+entry, ``tensor_parallel.WHOLE``): entry e takes the
+e-th block of whole heads (``n_heads % tp == 0``) through attention
+(the flash kernels, or the ring per entry), the entries' partial
+products of a row-parallel layer are summed and then all-reduced over
+the ``tp`` group, and its bias is added once, after the sum. Inputs of
+column-parallel layers pass ``copy_to``, the vocabulary-split logits are
+gathered over ``tp`` (``gather_last``) so the zoo's loss reads them
+whole. On one process the collectives are the identity.
 
 Training (``model.train()``): dropout after attention and after the
 MLP of each block, as flax ``Dropout`` does (keep where u >= rate,
@@ -56,6 +72,7 @@ from elasticdl_tpu_torch.ops.ring_attention import (
     dense_attention,
     ring_attention,
 )
+from elasticdl_tpu_torch.parallel import tensor_parallel as tp
 
 
 def transformer_sharding_rules():
@@ -113,18 +130,30 @@ class TransformerConfig:
         return cls(**raw)
 
 
+def _linear(x, weight, bias, dtype):
+    """flax ``Dense``'s rounding: x and W in ``dtype``, then the bias
+    (where given) added in ``dtype``; over a whole weight or one entry's
+    shard of it."""
+    y = F.linear(x.to(dtype), weight.to(dtype))
+    return y if bias is None else y + bias.to(dtype)
+
+
 class Dense(nn.Linear):
-    """``nn.Linear`` with flax's rounding: x and W in ``dtype``, then the
-    bias added in ``dtype``."""
+    """``nn.Linear`` with flax's rounding (``_linear``)."""
 
     def __init__(self, in_features, out_features, dtype):
         super().__init__(in_features, out_features)
         self.compute_dtype = dtype
 
     def forward(self, x):
-        y = F.linear(x.to(self.compute_dtype),
-                     self.weight.to(self.compute_dtype))
-        return y + self.bias.to(self.compute_dtype)
+        return _linear(x, self.weight, self.bias, self.compute_dtype)
+
+
+class _PlacedDense(Dense):
+    """A ``Dense`` of a tensor-parallel layer: the layer reads its
+    placement (``tensor_parallel.entry_views``), not its forward."""
+
+    reads_placed = True
 
 
 class LayerNorm(nn.Module):
@@ -144,6 +173,25 @@ class LayerNorm(nn.Module):
         return ((xf - mean) * mul + self.bias).to(self.compute_dtype)
 
 
+def _column_row(first, last):
+    """The ``tp`` placement of a column-parallel ``first`` feeding a
+    row-parallel ``last`` (Megatron: ``first``'s weight rows and bias
+    split, ``last``'s weight columns split alike, its bias whole), or
+    ``WHOLE`` where the runner placed neither. A half-placed pair
+    raises."""
+    col = tp.split_over(first, "weight", 0)
+    row = tp.split_over(last, "weight", 1)
+    bias = tp.split_over(first, "bias", 0)
+    if (col is None or row is None or bias is None
+            or not col.axes_of(0) == bias.axes_of(0) == row.axes_of(1)
+            or tp.placement(last, "bias") is not tp.WHOLE):
+        raise NotImplementedError(
+            "a tensor-parallel pair needs its first weight split by rows "
+            "(and its bias), its second by columns over the same axis, "
+            f"and the second's bias whole: got {col}, {bias}, {row}")
+    return col
+
+
 class SelfAttention(nn.Module):
     def __init__(self, cfg: TransformerConfig, mesh=None,
                  decode: bool = False):
@@ -155,42 +203,74 @@ class SelfAttention(nn.Module):
         self.cfg = cfg
         self.mesh = mesh
         inner = cfg.n_heads * cfg.head_dim
-        self.query = Dense(cfg.d_model, inner, cfg.compute_dtype)
-        self.key = Dense(cfg.d_model, inner, cfg.compute_dtype)
-        self.value = Dense(cfg.d_model, inner, cfg.compute_dtype)
-        self.out = Dense(inner, cfg.d_model, cfg.compute_dtype)
+        self.query = _PlacedDense(cfg.d_model, inner, cfg.compute_dtype)
+        self.key = _PlacedDense(cfg.d_model, inner, cfg.compute_dtype)
+        self.value = _PlacedDense(cfg.d_model, inner, cfg.compute_dtype)
+        self.out = _PlacedDense(inner, cfg.d_model, cfg.compute_dtype)
+
+    def _attend(self, q, k, v):
+        scale = self.cfg.head_dim ** -0.5
+        if self.mesh is not None:
+            return ring_attention(q, k, v, self.mesh, causal=True,
+                                  scale=scale)
+        if flash_supports(q.shape, q.dtype):
+            return flash_attention(q, k, v, causal=True, scale=scale)
+        if q.device.type == "cpu":
+            return dense_attention(q, k, v, causal=True, scale=scale)
+        raise NotImplementedError(
+            f"attention on {q.device}: the flash kernel takes head "
+            f"dims {HEAD_DIMS} in bfloat16 or float32, got "
+            f"{self.cfg.head_dim} in {q.dtype}"
+        )
 
     def forward(self, x):
         cfg = self.cfg
         b, s, _ = x.shape
-        heads = (b, s, cfg.n_heads, cfg.head_dim)
-        q = self.query(x).view(heads)
-        k = self.key(x).view(heads)
-        v = self.value(x).view(heads)
-        scale = cfg.head_dim ** -0.5
-        if self.mesh is not None:
-            o = ring_attention(q, k, v, self.mesh, causal=True, scale=scale)
-        elif flash_supports(q.shape, q.dtype):
-            o = flash_attention(q, k, v, causal=True, scale=scale)
-        elif q.device.type == "cpu":
-            o = dense_attention(q, k, v, causal=True, scale=scale)
-        else:
+        split = _column_row(self.query, self.out)
+        if cfg.n_heads % split.num_shards:
+            raise ValueError(
+                f"{cfg.n_heads} heads over {split.num_shards} tp entries: "
+                "heads split whole")
+        if any(_column_row(dense, self.out) != split
+               for dense in (self.key, self.value)):
             raise NotImplementedError(
-                f"attention on {q.device}: the flash kernel takes head "
-                f"dims {HEAD_DIMS} in bfloat16 or float32, got "
-                f"{cfg.head_dim} in {q.dtype}"
-            )
-        return self.out(o.reshape(b, s, cfg.n_heads * cfg.head_dim))
+                "query, key and value are placed alike or not at all")
+        group = split.group()
+        x = tp.copy_to(x, group)
+        heads = cfg.n_heads // split.num_shards
+        shape = (b, s, heads, cfg.head_dim)
+        dt = cfg.compute_dtype
+        qkv = [(tp.entry_views(d, "weight"), tp.entry_views(d, "bias"))
+               for d in (self.query, self.key, self.value)]
+        outs = tp.entry_views(self.out, "weight")
+        y = None
+        for e, w_out in enumerate(outs):
+            q, k, v = (_linear(x, w[e], bias[e], dt).view(shape)
+                       for w, bias in qkv)
+            o = self._attend(q, k, v).reshape(b, s, heads * cfg.head_dim)
+            part = _linear(o, w_out, None, dt)
+            y = part if y is None else y + part
+        return tp.reduce_from(y, group) + self.out.bias.to(dt)
 
 
 class Mlp(nn.Module):
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
-        self.wi = Dense(cfg.d_model, cfg.d_ff, cfg.compute_dtype)
-        self.wo = Dense(cfg.d_ff, cfg.d_model, cfg.compute_dtype)
+        self.wi = _PlacedDense(cfg.d_model, cfg.d_ff, cfg.compute_dtype)
+        self.wo = _PlacedDense(cfg.d_ff, cfg.d_model, cfg.compute_dtype)
 
     def forward(self, x):
-        return self.wo(F.gelu(self.wi(x), approximate="tanh"))
+        group = _column_row(self.wi, self.wo).group()
+        x = tp.copy_to(x, group)
+        dt = self.wo.compute_dtype
+        y = None
+        for w_in, b_in, w_out in zip(tp.entry_views(self.wi, "weight"),
+                                     tp.entry_views(self.wi, "bias"),
+                                     tp.entry_views(self.wo, "weight")):
+            h = F.gelu(_linear(x, w_in, b_in, dt), approximate="tanh")
+            part = _linear(h, w_out, None, dt)
+            y = part if y is None else y + part
+        return tp.reduce_from(y, group) + self.wo.bias.to(dt)
 
 
 def dropout(x, rate: float, generator: torch.Generator, global_batch=None):
@@ -198,14 +278,21 @@ def dropout(x, rate: float, generator: torch.Generator, global_batch=None):
     ``generator``, on x's device), scaled by 1/(1 - rate) in x's dtype.
     With a ``global_batch`` (the caller's hook over processes,
     ``parallel/multihost.attach``) the draw is the global batch's
-    (batch-leading x) and this process keeps its rows, so the masks are
-    those of the one-process run."""
-    rows = None if global_batch is None else global_batch.rows(x.shape[0])
-    if rows is None:
+    (batch-leading x; a 3-D x's dim 1 is its sequence) and this process
+    keeps its block of it, so the masks are those of the one-process
+    run: ``tp`` peers draw the same mask, an ``sp`` process its slice of
+    the sequence."""
+    if global_batch is None:
         u = torch.rand(x.shape, generator=generator, device=x.device)
     else:
-        u = torch.rand((rows[0],) + tuple(x.shape[1:]), generator=generator,
-                       device=x.device)[rows[1]:rows[1] + x.shape[0]]
+        shape, index = list(x.shape), []
+        shape[0], start = global_batch.rows(x.shape[0])
+        index.append(slice(start, start + x.shape[0]))
+        if x.dim() >= 3:
+            shape[1], start = global_batch.seq(x.shape[1])
+            index.append(slice(start, start + x.shape[1]))
+        u = torch.rand(shape, generator=generator,
+                       device=x.device)[tuple(index)]
     return x * (u >= rate).to(x.dtype) / (1.0 - rate)
 
 
@@ -235,9 +322,27 @@ class Block(nn.Module):
         return x + h
 
 
-class _LMHead(Dense):
+class _LMHead(_PlacedDense):
     """The output projection (flax ``lm_head``: bf16 logits plus a bf16
-    bias, returned as f32 by the model)."""
+    bias, returned as f32 by the model). Split over the vocabulary
+    (``lm_head`` rows over ``tp``), each entry computes its block of
+    the logits from ``copy_to``'s input, and the blocks are joined, over
+    the processes by ``gather_last``, whose backward takes this
+    process's slice: the loss reads whole logits."""
+
+    def forward(self, x):
+        split = tp.split_over(self, "weight", 0)
+        if split is None or tp.split_over(self, "bias", 0) != split:
+            raise NotImplementedError(
+                "lm_head's weight and bias are split alike, by rows, or "
+                f"not at all: got {tp.placement(self, 'weight')}, "
+                f"{tp.placement(self, 'bias')}")
+        group = split.group()
+        x = tp.copy_to(x, group)
+        blocks = [_linear(x, w, b, self.compute_dtype) for w, b in zip(
+            tp.entry_views(self, "weight"), tp.entry_views(self, "bias"))]
+        logits = blocks[0] if len(blocks) == 1 else torch.cat(blocks, -1)
+        return tp.gather_last(logits, group)
 
 
 def check_token_ids(tokens, vocab_size: int):
@@ -263,7 +368,8 @@ class TransformerLM(nn.Module):
                 "KV-cache decode (generate) not yet ported"
             )
         self.cfg = cfg
-        self.token_embed = nn.Embedding(cfg.vocab_size, cfg.d_model)
+        self.mesh = mesh
+        self.token_embed = tp.PlacedEmbedding(cfg.vocab_size, cfg.d_model)
         self.pos_embed = nn.Parameter(
             torch.randn(cfg.max_len, cfg.d_model) * 0.02
         )
@@ -281,8 +387,10 @@ class TransformerLM(nn.Module):
                 f"tokens must be (batch, seq), got {tuple(tokens.shape)}"
             )
         s = tokens.shape[1]
-        if s > cfg.max_len:
-            raise ValueError(f"sequence length {s} > max_len {cfg.max_len}")
+        offset = self._position_offset(s)
+        if offset + s > cfg.max_len:
+            raise ValueError(
+                f"sequence length {offset + s} > max_len {cfg.max_len}")
         tokens = tokens.long()
         # On the card the ids are not read back (that would stall the
         # queue every forward): the serving layer checks them on the
@@ -291,7 +399,7 @@ class TransformerLM(nn.Module):
             check_token_ids(tokens.numpy(), cfg.vocab_size)
         dtype = cfg.compute_dtype
         x = self.token_embed(tokens).to(dtype)
-        x = x + self.pos_embed[:s].to(dtype)[None]
+        x = x + self.pos_embed[offset:offset + s].to(dtype)[None]
         use_dropout = self.training and cfg.dropout_rate > 0
         if use_dropout and generator is None:
             raise ValueError("dropout in training needs a generator")
@@ -305,3 +413,14 @@ class TransformerLM(nn.Module):
             else:
                 x = block(x, seed)
         return self.lm_head(self.ln_f(x)).float()
+
+    def _position_offset(self, s: int) -> int:
+        """The global position of this process's first token: 0 unless
+        the mesh's ``sp`` spans processes, where the tokens are the
+        process's block of the sequence."""
+        mesh = self.mesh
+        if (mesh is None or not mesh.spans_processes
+                or "sp" not in mesh.shape):
+            return 0
+        lo, hi = mesh.axis_block("sp")
+        return lo * (s // (hi - lo))

@@ -5,11 +5,15 @@ The sequence dimension is cut into ``n`` blocks over the ``sp`` axis of
 a ``parallel.mesh.Mesh``. Rank ``idx`` keeps query block ``idx``; K/V
 blocks go round the ring, and at step ``t`` rank ``idx`` folds chunk
 ``(idx - t) mod n`` into its running online-softmax state at global
-positions ``q_off = idx * s_loc`` and ``k_off = chunk * s_loc``. The
-mesh is single-controller with every entry on one device (see
-``parallel/mesh.py``), so where JAX's ``ppermute`` rotates the chunks,
-here each rank reads the chunk it would hold at that step: the same
-schedule, the same calls and the same summation order, on one card.
+positions ``q_off = idx * s_loc`` and ``k_off = chunk * s_loc``. A
+process holds a run of the ring's ranks (all of them on one process,
+every entry on one device, see ``parallel/mesh.py``), each with the
+chunk it holds at that step: where JAX's ``ppermute`` rotates the
+chunks, each local rank takes its left neighbour's, and the first takes
+the previous process's last over the ``sp`` group
+(``multihost.ring_shift``, send/recv; a list shift within a process).
+The same schedule, the same calls and the same summation order, on one
+card or across processes.
 
 Two flavours, as in the JAX package:
 
@@ -22,9 +26,10 @@ Two flavours, as in the JAX package:
   (``_ring_local_bwd``). It runs on the CPU only.
 
 In the backward, the dK/dV of a chunk sum their contributions in ring
-order (rank ``c``, then ``c + 1``, ...), as the accumulator that travels
-round JAX's ring does. Fully masked (rank, chunk) pairs are called like
-any other: the kernels skip their tiles.
+order (rank ``c``, then ``c + 1``, ...): the accumulator travels round
+the ring with its chunk, as in JAX's, and one more step takes it home.
+Fully masked (rank, chunk) pairs are called like any other: the kernels
+skip their tiles.
 
 ``dense_attention`` is the single-device reference and the fallback.
 """
@@ -40,6 +45,7 @@ from elasticdl_tpu_torch.ops.flash_attention import (
     flash_chunk_update,
     supports as flash_supports,
 )
+from elasticdl_tpu_torch.parallel import multihost
 from elasticdl_tpu_torch.parallel.mesh import same_device
 
 _NEG_INF = -1e30
@@ -74,12 +80,41 @@ def dense_attention(q, k, v, causal: bool = True,
     return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
 
 
-def _ring_steps(n):
-    """(rank, chunk) pairs in ring order: at step t every rank idx folds
-    chunk (idx - t) mod n."""
-    for t in range(n):
-        for idx in range(n):
-            yield idx, (idx - t) % n
+class RingPlan:
+    """The ``sp`` ring as a process sees it: ``n`` ranks, its own from
+    ``first`` to ``first + local - 1`` (every rank on one process), and
+    the ``group`` of processes that hold the others, in ring order."""
+
+    def __init__(self, n: int, first: int = 0, local: Optional[int] = None,
+                 group=None):
+        self.n, self.first = n, first
+        self.local = n if local is None else local
+        self.group = group
+
+    @classmethod
+    def of(cls, mesh, sp_axis: str) -> "RingPlan":
+        n = mesh.shape[sp_axis]
+        if not mesh.spans_processes:
+            return cls(n)
+        lo, hi = mesh.axis_block(sp_axis)
+        return cls(n, lo, hi - lo, mesh.group([sp_axis]))
+
+    def steps(self):
+        """``(t, slot, rank, chunk)``: at step t every local rank folds
+        the chunk its slot holds, chunk (rank - t) mod n."""
+        for t in range(self.n):
+            for i in range(self.local):
+                idx = self.first + i
+                yield t, i, idx, (idx - t) % self.n
+
+    def rotate(self, held):
+        """One step of the ring over the slots' tuples of tensors: slot
+        i takes slot i - 1's; slot 0 takes the previous process's last
+        (its own last slot on one process)."""
+        last = held[-1]
+        if self.group is not None and self.group.size > 1:
+            last = tuple(multihost.ring_shift(list(last), self.group))
+        return [last] + held[:-1]
 
 
 def _positions(idx, length, device):
@@ -110,20 +145,35 @@ def _block_update(carry, q, k, v, qpos, kpos, causal, scale):
     return m_new, l, o
 
 
-def _ring_attention_local(qs, ks, vs, causal, scale):
-    """Every rank's forward: lists of (B, s_loc, H, D) blocks → lists of
-    outputs (q's dtype) and logsumexps (B, H, s_loc, 1)."""
-    n = len(qs)
+def _fold_ring(plan, held, fold):
+    """Run ``fold(slot, rank, chunk, held tuple) -> new held tuple``
+    over the ring's steps, rotating the held tuples between steps;
+    returns the held tuples after the last step."""
+    for t, i, idx, c in plan.steps():
+        held[i] = fold(i, idx, c, held[i])
+        if i == plan.local - 1 and t < plan.n - 1:
+            held = plan.rotate(held)
+    return held
+
+
+def _ring_attention_local(qs, ks, vs, causal, scale, plan=None):
+    """Every local rank's forward: lists of (B, s_loc, H, D) blocks →
+    lists of outputs (q's dtype) and logsumexps (B, H, s_loc, 1)."""
+    plan = plan or RingPlan(len(qs))
     b, s_loc, h, d = qs[0].shape
     dev = qs[0].device
     carries = [(torch.full((b, h, s_loc), _NEG_INF, device=dev),
                 torch.zeros((b, h, s_loc), device=dev),
                 torch.zeros((b, s_loc, h, d), device=dev))
-               for _ in range(n)]
-    for idx, c in _ring_steps(n):
-        carries[idx] = _block_update(
-            carries[idx], qs[idx], ks[c], vs[c], _positions(idx, s_loc, dev),
+               for _ in qs]
+
+    def fold(i, idx, c, kv):
+        carries[i] = _block_update(
+            carries[i], qs[i], kv[0], kv[1], _positions(idx, s_loc, dev),
             _positions(c, s_loc, dev), causal, scale)
+        return kv
+
+    _fold_ring(plan, list(zip(ks, vs)), fold)
     outs, lses = [], []
     for m, l, o in carries:
         l = l.clamp_min(1e-30)  # fully masked rows (none in a causal LM)
@@ -132,62 +182,70 @@ def _ring_attention_local(qs, ks, vs, causal, scale):
     return outs, lses
 
 
-def _ring_local_bwd(qs, ks, vs, outs, lses, dos, causal, scale):
+def _ring_local_bwd(qs, ks, vs, outs, lses, dos, causal, scale,
+                    plan=None):
     """The fused reverse ring from the saved logsumexp, f32:
 
         P = exp(QKᵀ·scale − lse);  Δ = rowsum(dO ∘ O)
         dS = P ∘ (dO·Vᵀ − Δ);  dQ += dS·K·scale
         dK += dSᵀ·Q·scale;     dV += Pᵀ·dO
+
+    dK and dV travel with their chunk and go home after the last step.
     """
-    n = len(qs)
+    plan = plan or RingPlan(len(qs))
     b, s_loc, h, d = qs[0].shape
     dev = qs[0].device
     qf = [q.float() for q in qs]
-    kf = [k.float() for k in ks]
-    vf = [v.float() for v in vs]
     dof = [g.float() for g in dos]
     delta = [(g * o.float()).sum(dim=-1) for g, o in zip(dof, outs)]
     zeros = lambda: torch.zeros((b, s_loc, h, d), device=dev)  # noqa: E731
-    dq = [zeros() for _ in range(n)]
-    dk = [zeros() for _ in range(n)]
-    dv = [zeros() for _ in range(n)]
-    for idx, c in _ring_steps(n):
-        s = torch.einsum("bqhd,bkhd->bhqk", qf[idx], kf[c]) * scale
-        p = torch.exp(s - lses[idx])
+    dq = [zeros() for _ in qs]
+
+    def fold(i, idx, c, held):
+        kf, vf, dk, dv = held
+        s = torch.einsum("bqhd,bkhd->bhqk", qf[i], kf) * scale
+        p = torch.exp(s - lses[i])
         if causal:
             mask = (_positions(idx, s_loc, dev)[:, None]
                     >= _positions(c, s_loc, dev)[None, :])
             p = torch.where(mask, p, 0.0)
-        dp = torch.einsum("bqhd,bkhd->bhqk", dof[idx], vf[c])
-        ds = p * (dp - delta[idx].transpose(1, 2)[..., None])
-        dq[idx] = dq[idx] + torch.einsum("bhqk,bkhd->bqhd", ds,
-                                         kf[c]) * scale
-        dk[c] = dk[c] + torch.einsum("bhqk,bqhd->bkhd", ds, qf[idx]) * scale
-        dv[c] = dv[c] + torch.einsum("bhqk,bqhd->bkhd", p, dof[idx])
-    return dq, dk, dv
+        dp = torch.einsum("bqhd,bkhd->bhqk", dof[i], vf)
+        ds = p * (dp - delta[i].transpose(1, 2)[..., None])
+        dq[i] = dq[i] + torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+        return (kf, vf,
+                dk + torch.einsum("bhqk,bqhd->bkhd", ds, qf[i]) * scale,
+                dv + torch.einsum("bhqk,bqhd->bkhd", p, dof[i]))
+
+    held = _fold_ring(plan, [(k.float(), v.float(), zeros(), zeros())
+                             for k, v in zip(ks, vs)], fold)
+    home = plan.rotate([(dk, dv) for _, _, dk, dv in held])
+    return dq, [x[0] for x in home], [x[1] for x in home]
 
 
 # ---- kernel flavour -------------------------------------------------------
 
 
-def _ring_local_kernel_fwd(qs, ks, vs, causal, scale):
-    """Every rank's forward through ``flash_chunk_update``: lists of
-    (B, s_loc, H, D) blocks → outputs (q's dtype) and logsumexps
+def _ring_local_kernel_fwd(qs, ks, vs, causal, scale, plan=None):
+    """Every local rank's forward through ``flash_chunk_update``: lists
+    of (B, s_loc, H, D) blocks → outputs (q's dtype) and logsumexps
     (B, H, s_loc, 1)."""
-    n = len(qs)
+    plan = plan or RingPlan(len(qs))
     b, s_loc, h, d = qs[0].shape
     dev = qs[0].device
     qb = [_to_bh(x) for x in qs]
-    kb = [_to_bh(x) for x in ks]
-    vb = [_to_bh(x) for x in vs]
     carries = [(torch.full((b * h, s_loc, 1), _NEG_INF, device=dev),
                 torch.zeros((b * h, s_loc, 1), device=dev),
                 torch.zeros((b * h, s_loc, d), device=dev))
-               for _ in range(n)]
-    for idx, c in _ring_steps(n):
-        carries[idx] = flash_chunk_update(
-            qb[idx], kb[c], vb[c], *carries[idx], idx * s_loc, c * s_loc,
+               for _ in qs]
+
+    def fold(i, idx, c, kv):
+        carries[i] = flash_chunk_update(
+            qb[i], kv[0], kv[1], *carries[i], idx * s_loc, c * s_loc,
             causal=causal, scale=scale)
+        return kv
+
+    _fold_ring(plan, [(_to_bh(k), _to_bh(v)) for k, v in zip(ks, vs)],
+               fold)
     outs, lses = [], []
     for m, l, acc in carries:
         l_safe = l.clamp_min(1e-30)
@@ -196,28 +254,34 @@ def _ring_local_kernel_fwd(qs, ks, vs, causal, scale):
     return outs, lses
 
 
-def _ring_local_kernel_bwd(qs, ks, vs, outs, lses, dos, causal, scale):
+def _ring_local_kernel_bwd(qs, ks, vs, outs, lses, dos, causal, scale,
+                           plan=None):
     """The reverse ring over ``flash_chunk_grads`` (kernels #3/#4 on the
-    card); returns f32 (B*H, s_loc, D) lists dq, dk, dv."""
-    n = len(qs)
+    card); returns f32 (B, s_loc, H, D) lists dq, dk, dv."""
+    plan = plan or RingPlan(len(qs))
     b, s_loc, h, d = qs[0].shape
     qb = [_to_bh(x) for x in qs]
-    kb = [_to_bh(x) for x in ks]
-    vb = [_to_bh(x) for x in vs]
     dob = [_to_bh(x) for x in dos]
     lse_b = [x.reshape(b * h, s_loc, 1) for x in lses]
     delta = [(g.float() * _to_bh(o).float()).sum(dim=-1, keepdim=True)
              for g, o in zip(dob, outs)]
-    dq, dk, dv = ([None] * n for _ in range(3))
-    for idx, c in _ring_steps(n):
+    dq = [None] * len(qs)
+
+    def fold(i, idx, c, held):
+        k, v, dk, dv = held
         dq_p, dk_c, dv_c = flash_chunk_grads(
-            qb[idx], kb[c], vb[c], dob[idx], lse_b[idx], delta[idx],
-            idx * s_loc, c * s_loc, causal=causal, scale=scale)
+            qb[i], k, v, dob[i], lse_b[i], delta[i], idx * s_loc,
+            c * s_loc, causal=causal, scale=scale)
         # 0 + x is x: starting from the first term is the zero-seeded sum.
-        dq[idx] = dq_p if dq[idx] is None else dq[idx] + dq_p
-        dk[c] = dk_c if dk[c] is None else dk[c] + dk_c
-        dv[c] = dv_c if dv[c] is None else dv[c] + dv_c
-    return ([_from_bh(x, b, h) for x in grads] for grads in (dq, dk, dv))
+        dq[i] = dq_p if dq[i] is None else dq[i] + dq_p
+        return (k, v, dk_c if dk is None else dk + dk_c,
+                dv_c if dv is None else dv + dv_c)
+
+    held = _fold_ring(plan, [(_to_bh(k), _to_bh(v), None, None)
+                             for k, v in zip(ks, vs)], fold)
+    home = plan.rotate([(dk, dv) for _, _, dk, dv in held])
+    return ([_from_bh(x, b, h) for x in grads] for grads in (
+        dq, [x[0] for x in home], [x[1] for x in home]))
 
 
 # flavour -> (forward, backward): "kernel" is ``_make_ring_local_pallas``
@@ -230,28 +294,30 @@ _FLAVOURS = {
 
 
 class _Ring(torch.autograd.Function):
-    """Ring forward and its fused reverse-ring backward over ``n``
-    sequence blocks. Saves q, k, v, o and the logsumexp (nothing when no
-    input needs a gradient)."""
+    """Ring forward and its fused reverse-ring backward over the plan's
+    local sequence blocks (``RingPlan``). Saves q, k, v, o and the
+    logsumexp (nothing when no input needs a gradient)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, n, causal, scale, flavour):
+    def forward(ctx, q, k, v, plan, causal, scale, flavour):
+        n = plan.local
         blocks = [x.chunk(n, dim=1) for x in (q, k, v)]
-        outs, lses = _FLAVOURS[flavour][0](*blocks, causal, scale)
+        outs, lses = _FLAVOURS[flavour][0](*blocks, causal, scale, plan)
         out = torch.cat(outs, dim=1)
         if any(ctx.needs_input_grad[:3]):
             ctx.save_for_backward(q, k, v, out, torch.cat(lses, dim=2))
-        ctx.config = (n, causal, scale, flavour)
+        ctx.config = (plan, causal, scale, flavour)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         q, k, v, out, lse = ctx.saved_tensors
-        n, causal, scale, flavour = ctx.config
+        plan, causal, scale, flavour = ctx.config
+        n = plan.local
         blocks = [x.chunk(n, dim=1) for x in (q, k, v, out, grad)]
         lses = [x.contiguous() for x in lse.chunk(n, dim=2)]
         dq, dk, dv = _FLAVOURS[flavour][1](*blocks[:4], lses, blocks[4],
-                                           causal, scale)
+                                           causal, scale, plan)
         return (torch.cat(dq, dim=1).to(q.dtype),
                 torch.cat(dk, dim=1).to(k.dtype),
                 torch.cat(dv, dim=1).to(v.dtype), None, None, None, None)
@@ -271,7 +337,9 @@ def ring_attention(q, k, v, mesh, sp_axis: str = "sp",
                    use_pallas: Optional[bool] = None):
     """Exact attention with the sequence dim cut over ``sp_axis``.
 
-    q, k, v: (B, S, H, D) on the mesh's device; returns (B, S, H, D).
+    q, k, v: (B, S, H, D) on the mesh's device, S this process's block of
+    the sequence (the whole of it on one process); returns
+    (B, S, H, D).
     ``dp_axis`` and ``tp_axis`` are accepted and change nothing on a
     one-device mesh (JAX replicates an axis that does not divide).
 
@@ -291,7 +359,13 @@ def ring_attention(q, k, v, mesh, sp_axis: str = "sp",
     b, s, h, d = q.shape
     n = mesh.shape.get(sp_axis, 1)
     on_cpu = q.device.type == "cpu"
-    if n == 1 or s % n != 0:
+    plan = RingPlan.of(mesh, sp_axis) if n > 1 else None
+    if plan is not None and plan.local < n:
+        if s % plan.local:
+            raise ValueError(
+                f"a sequence block of {s} over {plan.local} local sp ranks")
+        n = plan.local
+    if plan is None or (plan.local == n and s % n != 0):
         if on_cpu:
             return dense_attention(q, k, v, causal=causal, scale=scale)
         if not flash_supports(q.shape, q.dtype):
@@ -301,5 +375,5 @@ def ring_attention(q, k, v, mesh, sp_axis: str = "sp",
         use_pallas = flash_supports((b, s // n, h, d), q.dtype)
     if not use_pallas and not on_cpu:
         raise _unsupported(q)
-    return _Ring.apply(q, k, v, n, causal, float(scale),
+    return _Ring.apply(q, k, v, plan, causal, float(scale),
                        "kernel" if use_pallas else "einsum")

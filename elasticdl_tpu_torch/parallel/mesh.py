@@ -14,18 +14,27 @@ real schedule on that device, shard by shard, and a leaf that JAX
 places per device is held as one tensor per entry (``ShardedTensor``).
 
 Across processes (``parallel/multihost.py``, one process per card) the
-mesh spans the job: process p contributes its local entries, which
-follow those of processes 0..p-1 in the grid, and every entry knows its
-process (``Mesh.processes``). Processes split the first axis, the data
-axis. A process addresses only its own entries' shards, as JAX's
-``addressable_shards``.
+mesh spans the job as JAX's ``make_mesh`` lays it out: the entries in
+process order, reshaped row-major, so process p owns the p-th block of
+``size / processes`` consecutive entries of the grid, and every entry
+knows its process (``Mesh.processes``). A block must be a box of the
+grid (whole rows of the inner axes, then a run of one axis), so along
+every axis a process owns a run of coordinates (``axis_block``): on two
+processes ``(1, 2, 2)`` over ``("dp", "sp", "tp")`` puts ``sp`` across
+them, over ``("dp", "tp", "sp")`` ``tp``. ``Mesh.group(axes)`` is the
+``multihost.Group`` of the processes that share this process's block on
+every other axis: those its collectives over ``axes`` run with. The
+mesh makes every such group when it is made, in one order in every
+process (``new_group`` is collective). A process addresses only its own
+entries' shards, as JAX's ``addressable_shards``.
 
 ``NamedSharding(mesh, spec)`` is where data crosses between entries,
 and the only place: ``views`` gives each local entry its slice of a
-whole tensor, ``split`` copies the slices into tensors of their own,
-and ``gather`` joins them. Within a process these are ``narrow``,
-``narrow`` + ``clone`` and ``cat``; across processes ``gather`` is an
-all-gather over the data group. One process naming distinct local
+whole tensor (or of the process's block of it, ``local_block``),
+``split`` copies the slices into tensors of their own, and ``gather``
+joins them. Within a process these are ``narrow``, ``narrow`` +
+``clone`` and ``cat``; across processes ``gather`` is an all-gather
+over the group of the split's axes. One process naming distinct local
 cards still raises: the port runs one process per card.
 """
 
@@ -36,8 +45,8 @@ import torch
 
 from elasticdl_tpu_torch.parallel.rules import PartitionSpec
 
-WAITS_FOR_6B = ("waits for ROADMAP Queue 1 item 6b, steps 3-4 (tensor- and "
-                "expert-parallel placement, tables split as parameters)")
+WAITS_FOR_ITEM_7 = ("waits for ROADMAP Queue 1 item 7 (expert-parallel "
+                    "placement lands with MoE)")
 
 
 def parse_mesh_args(mesh_shape: str, mesh_axes: str) -> Tuple[
@@ -83,6 +92,9 @@ class Mesh:
                              f"for devices of shape {devices.shape}")
         self.process_index = rank
         self.process_count = len(np.unique(self.processes))
+        self._groups = {}
+        if self.spans_processes:
+            self._make_groups()
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -105,6 +117,62 @@ class Mesh:
     @property
     def size(self) -> int:
         return int(self.devices.size)
+
+    def _box(self, process: int) -> Tuple[Tuple[int, int], ...]:
+        """``(first, last + 1)`` of ``process``'s coordinates along each
+        axis."""
+        where = np.argwhere(self.processes == process)
+        return tuple((int(lo), int(hi) + 1)
+                     for lo, hi in zip(where.min(0), where.max(0)))
+
+    def axis_block(self, axis: str) -> Tuple[int, int]:
+        """``(first, last + 1)``: this process's run of coordinates along
+        ``axis``."""
+        return self._box(self.process_index)[self.axis_names.index(axis)]
+
+    def block_of(self, axis: str) -> Tuple[int, int]:
+        """``(blocks, this process's block)`` along ``axis``: the axis
+        cut into runs as long as this process's; ``(1, 0)`` where the
+        mesh has no such axis."""
+        if axis not in self.axis_names:
+            return 1, 0
+        lo, hi = self.axis_block(axis)
+        return self.shape[axis] // (hi - lo), lo // (hi - lo)
+
+    def _make_groups(self):
+        """Every axis set's groups, in one order in every process: the
+        processes that share their block on every axis outside the set
+        form a group."""
+        from itertools import combinations
+
+        from elasticdl_tpu_torch.parallel import multihost
+
+        boxes = {q: self._box(q) for q in range(self.process_count)}
+        dims = range(len(self.axis_names))
+        for k in range(1, len(self.axis_names) + 1):
+            for subset in combinations(dims, k):
+                keep = [d for d in dims if d not in subset]
+                parts = {}
+                for q, box in boxes.items():
+                    parts.setdefault(tuple(box[d] for d in keep),
+                                     []).append(q)
+                for ranks in sorted(parts.values()):
+                    group = multihost.make_group(ranks)
+                    if self.process_index in ranks:
+                        self._groups[subset] = group
+
+    def group(self, axes: Sequence[str]):
+        """The ``multihost.Group`` of the processes whose entries differ
+        from this process's only along ``axes`` (a group of this process
+        alone on a mesh of one process, or where no axis of ``axes``
+        spans processes)."""
+        from elasticdl_tpu_torch.parallel import multihost
+
+        subset = tuple(sorted(self.axis_names.index(a) for a in set(axes)
+                              if a in self.axis_names))
+        if not subset or not self.spans_processes:
+            return multihost.Group((self.process_index,))
+        return self._groups[subset]
 
     def __eq__(self, other):
         return (isinstance(other, Mesh)
@@ -155,9 +223,10 @@ def make_mesh(
     device, RuntimeError with none). Entries may repeat a device; they
     must all be the same one (NotImplementedError otherwise: one process
     per card). Several processes: ``shape`` is the global mesh, each
-    process gives ``size / processes`` entries, and the processes split
-    the first axis; ``shape=None`` puts every entry on the first
-    axis."""
+    process gives ``size / processes`` entries and owns the block of the
+    row-major grid in its place (as JAX's ``make_mesh`` reshapes the
+    process-ordered devices), which must be a box; ``shape=None`` puts
+    every entry on the first axis."""
     from elasticdl_tpu_torch.parallel import multihost
 
     devices = [torch.device(d) for d in (
@@ -182,13 +251,14 @@ def make_mesh(
             f"have {len(devices)}"
             + (f" in each of {count} processes" if count > 1 else "")
         )
-    if count > 1 and shape[0] % count:
-        raise NotImplementedError(
-            f"mesh shape {tuple(shape)} over {count} processes: the "
-            f"processes split the first axis, which {count} must divide "
-            f"(an inner axis across processes {WAITS_FOR_6B})")
-    grid = np.empty(size, dtype=object)
     per = len(devices)
+    if count > 1 and not _blocks_are_boxes(tuple(shape), per):
+        raise ValueError(
+            f"mesh shape {tuple(shape)} over {count} processes of {per} "
+            "entries: a process's block of the row-major grid must be a "
+            "box (whole runs of the inner axes, then a run along one "
+            "axis)")
+    grid = np.empty(size, dtype=object)
     owners = np.repeat(np.arange(count), per)
     remote = multihost.process_devices() or [devices[0]] * count
     for q in range(count):
@@ -196,6 +266,19 @@ def make_mesh(
                                        else [remote[q]] * per)
     return Mesh(grid.reshape(tuple(shape)), tuple(axes),
                 owners.reshape(tuple(shape)))
+
+
+def _blocks_are_boxes(shape: Tuple[int, ...], per: int) -> bool:
+    """Whether runs of ``per`` consecutive entries of a row-major grid
+    of ``shape`` are boxes: the trailing axes whole, then a run along
+    one axis that its size divides."""
+    inner = 1
+    for size in reversed(shape):
+        if per % (inner * size) == 0:
+            inner *= size
+            continue
+        return size % (per // inner) == 0 if per % inner == 0 else False
+    return True
 
 
 # ---- shardings ---------------------------------------------------------
@@ -207,38 +290,36 @@ def _axes(entry) -> tuple:
 
 class NamedSharding:
     """A leaf's placement on ``mesh`` by ``spec`` (as
-    ``jax.sharding.NamedSharding``). At most one dim may be split: the
-    rules of this port (rows of a table, ZeRO's first divisible dim)
-    split one."""
+    ``jax.sharding.NamedSharding``). Each split dim's shard of an entry
+    is its coordinates along that dim's axes, row-major; a process's
+    shards along a dim are a run (its block). The parameter rules of
+    this port split one dim (rows of a table, ZeRO's first divisible
+    dim, a ``tp`` rule); the batch's token ids split two
+    (``P("dp", "sp")``). ``dim``, ``num_shards`` and ``local_shards``
+    describe a split of one dim; ``dims`` lists every split dim."""
 
     def __init__(self, mesh: Mesh, spec: PartitionSpec = PartitionSpec()):
         self.mesh = mesh
         self.spec = PartitionSpec(*spec)
-        split = [(d, e) for d, e in enumerate(self.spec) if e is not None]
-        if len(split) > 1:
-            raise NotImplementedError(
-                f"spec {self.spec} splits {len(split)} dims: a leaf split "
-                f"over two axes {WAITS_FOR_6B}")
-        self.dim = split[0][0] if split else None
-        # Each entry's shard: its coordinates along the split axes,
-        # row-major; the local shards are those of this process's
-        # entries, in order.
-        shard_of = np.zeros(mesh.devices.shape, dtype=np.int64)
+        self.splits = [(d, _axes(e)) for d, e in enumerate(self.spec)
+                       if e is not None]
+        self.dims = [d for d, _ in self.splits]
         coords = np.indices(mesh.devices.shape)
-        self.num_shards = 1
-        for a in (_axes(split[0][1]) if split else ()):
-            self.num_shards *= mesh.shape[a]
-            shard_of = (shard_of * mesh.shape[a]
-                        + coords[mesh.axis_names.index(a)])
-        self.local_shards = sorted(set(
-            shard_of.ravel()[mesh.local_entries].tolist()))
-        k = len(self.local_shards)
-        if k < self.num_shards and self.local_shards != list(
-                range(mesh.process_index * k, (mesh.process_index + 1) * k)):
-            raise NotImplementedError(
-                f"spec {self.spec} gives process {mesh.process_index} the "
-                f"shards {self.local_shards}: a split that is not the "
-                f"processes' own block of the first axis {WAITS_FOR_6B}")
+        local = mesh.local_entries
+        self.counts, self.locals = {}, {}
+        for d, axes in self.splits:
+            shard_of = np.zeros(mesh.devices.shape, dtype=np.int64)
+            count = 1
+            for a in axes:
+                count *= mesh.shape[a]
+                shard_of = (shard_of * mesh.shape[a]
+                            + coords[mesh.axis_names.index(a)])
+            self.counts[d] = count
+            self.locals[d] = sorted(set(shard_of.ravel()[local].tolist()))
+        self.num_shards = int(np.prod(list(self.counts.values()) or [1]))
+        self.dim = self.dims[0] if len(self.dims) == 1 else None
+        self.local_shards = (self.locals[self.dim] if self.dim is not None
+                             else [0] if not self.dims else None)
 
     def __eq__(self, other):
         return (isinstance(other, NamedSharding) and self.mesh == other.mesh
@@ -251,27 +332,60 @@ class NamedSharding:
     def is_replicated(self) -> bool:
         return self.num_shards == 1
 
+    @property
+    def spans_processes(self) -> bool:
+        """Whether a process holds only some of the shards (its block)."""
+        return any(len(self.locals[d]) < self.counts[d] for d in self.dims)
+
+    def axes_of(self, dim: int) -> tuple:
+        return dict(self.splits)[dim]
+
+    def group(self):
+        """The processes that hold the other blocks of the leaf (those
+        whose entries differ only along the split axes)."""
+        return self.mesh.group([a for _, axes in self.splits for a in axes])
+
     def shard_shape(self, shape) -> tuple:
-        shape = tuple(shape)
-        if self.is_replicated:
-            return shape
-        if shape[self.dim] % self.num_shards:
-            raise ValueError(f"dim {self.dim} of {shape} does not split "
-                             f"into {self.num_shards}")
         out = list(shape)
-        out[self.dim] //= self.num_shards
+        for d in self.dims:
+            if out[d] % self.counts[d]:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                                 f"into {self.counts[d]}")
+            out[d] //= self.counts[d]
         return tuple(out)
+
+    def local_block(self, tensor: torch.Tensor) -> torch.Tensor:
+        """The process's block of a whole ``tensor`` (a view): the run
+        of its shards along every split dim; the tensor itself where the
+        process holds every shard."""
+        for d in self.dims:
+            k = len(self.locals[d])
+            if k == self.counts[d]:
+                continue
+            rows = tensor.shape[d] // self.counts[d]
+            tensor = tensor.narrow(d, self.locals[d][0] * rows, k * rows)
+        return tensor
 
     def views(self, tensor: torch.Tensor) -> List[torch.Tensor]:
         """Each local shard's slice of a whole ``tensor``, as views (the
         reduce-scatter of a gradient, an entry's slice of a replicated
-        parameter). Entries that differ only along axes the spec does
-        not name share a shard."""
+        parameter), in row-major order over the split dims. Entries
+        that differ only along axes the spec does not name share a
+        shard."""
+        return self.block_views(self.local_block(tensor))
+
+    def block_views(self, block: torch.Tensor) -> List[torch.Tensor]:
+        """Each local shard's slice of the process's ``block`` of a leaf
+        (``local_block``; a parameter placed across processes is held as
+        its block), as views."""
         if self.is_replicated:
-            return [tensor]
-        rows = self.shard_shape(tensor.shape)[self.dim]
-        return [tensor.narrow(self.dim, i * rows, rows)
-                for i in self.local_shards]
+            return [block]
+        out = [block]
+        for d in self.dims:
+            rows = block.shape[d] // len(self.locals[d])
+            out = [v.narrow(d, i * rows, rows) for v in out
+                   for i in range(len(self.locals[d]))]
+        return out
 
     def split(self, tensor: torch.Tensor) -> List[torch.Tensor]:
         """The local shards of a whole ``tensor`` as tensors of their
@@ -281,17 +395,26 @@ class NamedSharding:
                 for v in self.views(tensor)]
 
     def gather(self, shards: Sequence[torch.Tensor]) -> torch.Tensor:
-        """The whole tensor from the local shards (the all-gather: over
-        the data group where other processes hold the rest)."""
+        """The whole tensor from the local shards of a one-dim split
+        (the all-gather over the split's group where other processes
+        hold the rest)."""
         if self.is_replicated:
             return shards[0]
-        local = torch.cat(list(shards), dim=self.dim)
-        if len(self.local_shards) == self.num_shards:
-            return local
+        if self.dim is None:
+            raise NotImplementedError(
+                f"gathering a leaf split over two dims ({self.spec}) "
+                f"{WAITS_FOR_ITEM_7}")
+        return self.gather_block(torch.cat(list(shards), dim=self.dim))
+
+    def gather_block(self, block: torch.Tensor) -> torch.Tensor:
+        """The whole tensor from this process's block of a one-dim split
+        (its shards joined): the blocks of the split's group, in order."""
+        if not self.spans_processes:
+            return block
         from elasticdl_tpu_torch.parallel import multihost
 
-        return multihost.all_gather(local.movedim(self.dim, 0)).movedim(
-            0, self.dim)
+        return multihost.all_gather(block.movedim(self.dim, 0),
+                                    group=self.group()).movedim(0, self.dim)
 
 
 class ShardedTensor:
@@ -303,6 +426,10 @@ class ShardedTensor:
     rebinds a tensor)."""
 
     def __init__(self, sharding: NamedSharding, shards: List[torch.Tensor]):
+        if len(sharding.dims) > 1:
+            raise NotImplementedError(
+                f"a leaf held split over two dims ({sharding.spec}) "
+                f"{WAITS_FOR_ITEM_7}")
         if len(shards) != len(sharding.local_shards):
             raise ValueError(f"{len(shards)} shards for {sharding}")
         self.sharding = sharding

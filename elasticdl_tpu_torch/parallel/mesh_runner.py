@@ -64,18 +64,31 @@ mesh), so a runner back on a mesh it has trained on reuses its steps.
 Nothing reads a value back from the card: the accumulation window's
 count is a host int.
 
-A rule that splits a parameter over an axis of size > 1 raises: tensor
-and expert parallelism (``tp``, ``mp``, ``ep``) and tables row-split as
-parameters of the dense model (an ``Embedding`` or ``DenseFeatures``
-table over the 2 MB threshold) are ROADMAP Queue 1 item 6b, steps 3-4.
-A mesh
-without the data axis (the ``sp`` ring's) keeps every slot whole; on a
-dp × sp mesh the ring runs over the global batch and the slots split
-over dp, as in JAX (``tests/test_torch_mesh_runner.py`` holds the two
-runners' losses together there).
+A rule that splits a parameter (a ``tp``/``mp`` rule, or a table over
+the 2 MB threshold row-split over the data axis: an ``Embedding``'s, a
+``DenseFeatures``' or an ``nn.Embedding``'s) places it: the runner
+records the sharding on the parameter's module (``_placed``, read by
+``parallel/tensor_parallel``), the parameter holds the process's block
+of it (the whole tensor on one process), and its slots are placed
+alike. The layers that read a placed parameter compute each local
+entry's share (the transformer's Megatron layers, the vocabulary- and
+row-split lookups); a split across processes of a parameter whose
+module does not read its placement raises (a plain ``nn.Embedding``
+reads its table whole: a model builds such a table as a
+``tensor_parallel.PlacedEmbedding``), as does a leaf split over
+two dims (``ep`` placement lands with MoE, item 7). Over processes, a
+gradient is summed over the processes that read other data and hold
+the same shard of its parameter: the data axes (every axis but ``tp``,
+``mp``, ``ep``) that its spec does not name. A mesh without the data
+axis (the ``sp`` ring's) keeps every slot whole; on a dp × sp mesh the
+ring runs over the global batch and the slots split over dp, as in JAX
+(``tests/test_torch_mesh_runner.py`` holds the two runners together
+there).
 """
 
 from typing import Callable, Dict, Optional
+
+import torch
 
 from elasticdl_tpu_torch.callbacks import seek_lr_schedule
 from elasticdl_tpu_torch.core import step as step_lib
@@ -88,15 +101,9 @@ from elasticdl_tpu_torch.embedding import partition as partition_lib
 from elasticdl_tpu_torch.parallel import mesh as mesh_lib
 from elasticdl_tpu_torch.parallel import multihost
 from elasticdl_tpu_torch.parallel import rules as rules_lib
+from elasticdl_tpu_torch.parallel import tensor_parallel
 from elasticdl_tpu_torch.parallel.zero import ZeroOptimizer, whole_slots
 
-
-def _default_rule_factory(data_axis: str):
-    def factory(m):
-        return partition_lib.embedding_partition_rule(
-            axis=data_axis, axis_size=m.shape.get(data_axis, 1))
-
-    return factory
 
 
 def _tree_with_path(fn, tree, path=()):
@@ -124,8 +131,11 @@ class MeshRunner:
         # Rules bake the mesh (axis sizes decide what divides), so
         # resize re-derives them from a factory; a bare param_rule is
         # kept as it is across resizes.
+        # The ``nn.Embedding`` table names of the runner's model
+        # (``partition.table_names``), set when it meets the model.
+        self._tables = frozenset()
         if param_rule_factory is None and param_rule is None:
-            param_rule_factory = _default_rule_factory(data_axis)
+            param_rule_factory = self._table_rule
         self._param_rule_factory = param_rule_factory
         self.param_rule = param_rule
         self._bind(self.mesh)
@@ -145,6 +155,21 @@ class MeshRunner:
 
     # ---- sharding rules ------------------------------------------------
 
+    def _table_rule(self, mesh):
+        """The default rule on ``mesh``: the 2 MB table rule over the
+        data axis, for the tables of the runner's model."""
+        return partition_lib.embedding_partition_rule(
+            axis=self.data_axis, axis_size=mesh.shape.get(self.data_axis, 1),
+            tables=self._tables)
+
+    def _meet(self, model):
+        """Take ``model`` as the runner's: its table names, the rule
+        re-derived for them where they changed."""
+        tables = partition_lib.table_names(model)
+        if tables != self._tables:
+            self._tables = tables
+            self._bind(self.mesh)
+
     def _slot_sharding(self, name, leaf) -> mesh_lib.NamedSharding:
         """A parameter's slots: its rule's spec where that places it and
         fits, else ZeRO over the data axis (replicated on a mesh without
@@ -157,22 +182,48 @@ class MeshRunner:
             return mesh_lib.replicated(self.mesh)
         return mesh_lib.shard_leaf_over_axis(self.mesh, leaf, self.data_axis)
 
-    def _check_placement(self, shardings):
-        """Refuse what item 6b holds: a parameter split over entries (a
-        ``tp``/``ep`` rule, or an embedding or ``DenseFeatures`` table
-        over the 2 MB threshold row-split over the data axis: the dense
-        forward reads parameters whole) and slots on any axis but the
-        data axis."""
+    def _check_placement(self, shardings, model=None):
+        """Refuse what the port does not run: a leaf split over two dims
+        (item 7), slots of an unplaced parameter on any axis but the
+        data axis, and a parameter split across processes whose module
+        does not read its placement (it would read its block as the
+        whole)."""
+        modules = dict(model.named_modules()) if model is not None else {}
         for name, sharding in shardings.items():
-            for entry in sharding.spec:
-                for axis in (entry if isinstance(entry, tuple) else (entry,)):
-                    if axis is None or self.mesh.shape.get(axis, 1) == 1:
-                        continue
-                    if name.startswith("params.") or axis != self.data_axis:
-                        raise NotImplementedError(
-                            f"{name} placed on mesh axis {axis!r} of size "
-                            f"{self.mesh.shape[axis]}: a parameter split "
-                            f"over entries {mesh_lib.WAITS_FOR_6B}")
+            if len(sharding.dims) > 1:
+                raise NotImplementedError(
+                    f"{name} placed by {sharding.spec}: a leaf split over "
+                    f"two axes {mesh_lib.WAITS_FOR_ITEM_7}")
+            if sharding.is_replicated:
+                continue
+            if name.startswith("opt_state."):
+                param = shardings.get("params." + name[len("opt_state."):])
+                if (param is None or param.is_replicated) and any(
+                        a != self.data_axis
+                        for a in sharding.axes_of(sharding.dim)):
+                    raise NotImplementedError(
+                        f"{name} split over {sharding.spec}: ZeRO splits "
+                        f"slots over the data axis {self.data_axis!r}")
+            elif name.startswith("params.") and sharding.spans_processes:
+                owner = modules.get(name[len("params."):].rpartition(".")[0])
+                if not getattr(owner, "reads_placed", False):
+                    raise NotImplementedError(
+                        f"{name} split across processes by "
+                        f"{sharding.spec}: its module "
+                        f"{type(owner).__name__} reads it whole (build "
+                        "a table as tensor_parallel.PlacedEmbedding)")
+
+    def param_shardings(self, model) -> Dict[str, mesh_lib.NamedSharding]:
+        """{parameter name: NamedSharding} by the rule, fitted to the
+        mesh (an axis it lacks, or one that does not divide, replicates
+        that dim) and read off the parameters' whole shapes (a placed
+        parameter holds its block)."""
+        def rule(name, leaf):
+            return rules_lib.fit_spec(self.param_rule(name, leaf), leaf,
+                                      self.mesh)
+
+        return partition_lib.tree_shardings(_whole_params(model), self.mesh,
+                                            rule)
 
     def state_shardings(self, state) -> Dict[str, mesh_lib.NamedSharding]:
         """{checkpoint leaf name: NamedSharding}: ``params.<n>`` by the
@@ -182,15 +233,14 @@ class MeshRunner:
         ``batch_stats``, ``step`` and ``rng`` replicated. The forward
         reads each parameter whole from the one device."""
         rep = mesh_lib.replicated(self.mesh)
-        named = dict(state.model.named_parameters())
+        named = _whole_params(state.model)
         out = {"step": rep, "rng": rep}
-        params = partition_lib.tree_shardings(named, self.mesh,
-                                              self.param_rule)
+        params = self.param_shardings(state.model)
         out.update({f"params.{n}": s for n, s in params.items()})
         out.update({f"batch_stats.{n}": rep for n in state.batch_stats})
         out.update({f"opt_state.{n}": self._slot_sharding(n, p)
                     for n, p in named.items()})
-        self._check_placement(out)
+        self._check_placement(out, state.model)
         return out
 
     def _slot_shardings(self, model):
@@ -203,7 +253,47 @@ class MeshRunner:
     def _zero(self, model, slots=None) -> ZeroOptimizer:
         return ZeroOptimizer(dict(model.named_parameters()),
                              self._make_optimizer, self._slot_shardings(model),
-                             slots=slots)
+                             slots=slots, placed=_placed_names(model))
+
+    def _place_params(self, model):
+        """Record each parameter's placement on its module and hold a
+        parameter split across processes as the process's block; a
+        parameter no rule splits is whole (back from another mesh's
+        placement on one process), after the placement is checked.
+        Returns the shardings."""
+        self._slot_shardings(model)
+        shardings = self.param_shardings(model)
+        modules = dict(model.named_modules())
+        for name, sharding in shardings.items():
+            owner, _, leaf = name.rpartition(".")
+            module = modules[owner]
+            placed = getattr(module, "_placed", None)
+            if placed is None:
+                placed = module._placed = {}
+            if sharding.is_replicated:
+                placed.pop(leaf, None)
+                continue
+            placed[leaf] = sharding
+            param = getattr(module, leaf)
+            if sharding.spans_processes and tuple(param.shape) == tuple(
+                    module._whole_shapes[leaf]):
+                setattr(module, leaf, torch.nn.Parameter(
+                    sharding.local_block(param.detach()).clone(),
+                    requires_grad=param.requires_grad))
+        return shardings
+
+    def _attach(self, state, shardings):
+        """``multihost.attach``, and the group each gradient is summed
+        over: the data axes its parameter's spec does not name."""
+        multihost.attach(state, self.mesh, (self.data_axis, "sp"))
+        if state.global_batch is not None:
+            data = [a for a in self.mesh.axis_names
+                    if a not in tensor_parallel.MODEL_AXES]
+            state.global_batch.grad_groups = {
+                name: self.mesh.group([a for a in data if a not in {
+                    x for d in s.dims for x in s.axes_of(d)}])
+                for name, s in shardings.items()}
+        return state
 
     def batch_shardings(self, batch):
         """The batch tree's NamedShardings: ``batch_rule`` fitted per
@@ -229,9 +319,12 @@ class MeshRunner:
         its shapes."""
         model = model.to(self.mesh.device)
         self._make_optimizer = tx
-        return multihost.attach(
+        self._meet(model)
+        _note_whole_shapes(model)
+        shardings = self._place_params(model)
+        return self._attach(
             init_train_state(model, lambda _: self._zero(model), seed=seed),
-            self.mesh)
+            shardings)
 
     def place_batch(self, batch):
         """This process's rows of the global batch on the mesh's device
@@ -254,7 +347,9 @@ class MeshRunner:
             raise RuntimeError(
                 "MeshRunner.init_state must run before place_state")
         state.model.to(self.mesh.device)
-        multihost.attach(state, self.mesh)
+        self._meet(state.model)
+        _note_whole_shapes(state.model)
+        self._attach(state, self._place_params(state.model))
         shardings = self._slot_shardings(state.model)
         optimizer = state.optimizer
         if (isinstance(optimizer, ZeroOptimizer)
@@ -279,9 +374,13 @@ class MeshRunner:
             slots = whole_slots(state.optimizer, state.model)
             model.to(self.mesh.device).load_state_dict(
                 state.model.state_dict())
+            self._meet(model)
+            _note_whole_shapes(model)
+            shardings = self._place_params(model)
             optimizer = self._zero(model, slots)
             state.model, state.optimizer = model, optimizer
             state.batch_stats = statistic_buffers(model)
+            self._attach(state, shardings)
             seek_lr_schedule(optimizer, state.step)
             return state
 
@@ -397,16 +496,49 @@ def make_runner_for_spec(spec, mesh: Optional[mesh_lib.Mesh] = None,
     ``batch_sharding_rule``. Modules without the extras get the plain
     data-parallel layout."""
     mesh = mesh if mesh is not None else mesh_lib.make_mesh()
-    param_rule_factory = None
+    runner = MeshRunner(
+        mesh=mesh, data_axis=data_axis, accum_steps=accum_steps,
+        batch_rule=getattr(spec, "batch_sharding_rule", None), **kwargs)
     if getattr(spec, "param_sharding_rules", None) is not None:
         rules = spec.param_sharding_rules()
-        fallback_for = _default_rule_factory(data_axis)
+        fallback_for = runner._table_rule
 
         def param_rule_factory(m, rules=rules):
             return rules_lib.regex_param_rule(rules, mesh=m,
                                               fallback=fallback_for(m))
 
-    return MeshRunner(
-        mesh=mesh, data_axis=data_axis, accum_steps=accum_steps,
-        param_rule_factory=param_rule_factory,
-        batch_rule=getattr(spec, "batch_sharding_rule", None), **kwargs)
+        runner._param_rule_factory = param_rule_factory
+        runner._bind(mesh)
+    return runner
+
+
+def _note_whole_shapes(model):
+    """Each module's parameters' whole shapes, kept where a parameter
+    is later held as its block (``_whole_shapes``)."""
+    for module in model.modules():
+        shapes = module.__dict__.setdefault("_whole_shapes", {})
+        for leaf, param in module.named_parameters(recurse=False):
+            placed = getattr(module, "_placed", {}).get(leaf)
+            if placed is None or not placed.spans_processes:
+                shapes[leaf] = tuple(param.shape)
+
+
+def _whole_params(model) -> Dict[str, torch.Tensor]:
+    """``{name: parameter}``, a parameter held as its block stood in for
+    by a meta tensor of its whole shape (what the rules read)."""
+    out = {}
+    for prefix, module in model.named_modules():
+        shapes = getattr(module, "_whole_shapes", {})
+        for leaf, param in module.named_parameters(recurse=False):
+            name = f"{prefix}.{leaf}" if prefix else leaf
+            shape = shapes.get(leaf, tuple(param.shape))
+            out[name] = (param if shape == tuple(param.shape) else
+                         torch.empty(shape, dtype=param.dtype, device="meta"))
+    return out
+
+
+def _placed_names(model) -> set:
+    """The names of the parameters a runner placed split."""
+    return {f"{prefix}.{leaf}" if prefix else leaf
+            for prefix, module in model.named_modules()
+            for leaf in getattr(module, "_placed", {})}

@@ -20,6 +20,15 @@ the steps that need them (``core/step.py``, ``parallel/zero.py``,
   and is never changed afterwards; a failed collective fails its step.
   Under gloo, CUDA tensors are staged through the host by these
   helpers (one copy each way).
+- **Groups per mesh axis:** a mesh that spans processes
+  (``parallel/mesh.py``) makes a ``Group`` for every set of its axes:
+  the processes that share this one's block on every other axis, NCCL
+  or gloo by their topology as the data group is chosen. The helpers
+  below take one (default: the data group): the gradients' sums, the
+  ``tp`` layers' all-reduces and logits gather
+  (``parallel/tensor_parallel.py``), the ring's ``ring_shift``
+  (send/recv), ZeRO's all-gather over the data axis, a split table's
+  ids and rows.
 - **Data plane:** each worker keeps pulling its own tasks from the
   master. Its task batch is its process-local shard of the global
   batch along ``dp`` (``make_global_batch``): the global row count is
@@ -58,7 +67,12 @@ logger = get_logger("multihost")
 # rank, its device, every process's device, the data group and its
 # backend.
 _world = {"initialized": False, "count": 1, "index": 0, "device": None,
-          "devices": None, "data_group": None, "data_backend": None}
+          "devices": None, "topology": None, "data_group": None,
+          "data_backend": None}
+# Every process group made so far, by (member ranks, backend): a mesh
+# asks for each group once, in the same order in every process
+# (``Mesh`` builds its axis groups when it is made).
+_groups = {}
 # How long the process group's set-up and a collective wait for a peer
 # before they fail (torch's default for the gloo and NCCL groups).
 TIMEOUT = datetime.timedelta(minutes=30)
@@ -103,11 +117,12 @@ def initialize_multihost(
     distinct = len(set(topology)) == num_processes
     backend = ("nccl" if distinct and all(
         dev.startswith("cuda") for _, dev in topology) else "gloo")
+    data_group = dist.new_group(backend=backend, timeout=TIMEOUT)
     _world.update(
         initialized=True, count=num_processes, index=process_id,
         device=device, devices=[torch.device(d) for _, d in topology],
-        data_backend=backend,
-        data_group=dist.new_group(backend=backend, timeout=TIMEOUT))
+        topology=topology, data_backend=backend, data_group=data_group)
+    _groups[(tuple(range(num_processes)), backend)] = data_group
     logger.info(
         "torch.distributed initialized: process %d/%d on %s via %s; data "
         "group %s (%s)", process_id, num_processes, device,
@@ -123,7 +138,9 @@ def shutdown():
     if _world["initialized"]:
         dist.destroy_process_group()
     _world.update(initialized=False, count=1, index=0, device=None,
-                  devices=None, data_group=None, data_backend=None)
+                  devices=None, topology=None, data_group=None,
+                  data_backend=None)
+    _groups.clear()
 
 
 def coordinator_from_args(args) -> str:
@@ -164,47 +181,132 @@ def data_backend() -> Optional[str]:
     return _world["data_backend"]
 
 
+# ---- process groups --------------------------------------------------------
+
+
+class Group:
+    """Processes that run collectives together: ``ranks`` ascending
+    (which is their order along the mesh axes the group spans: a process
+    owns a block of the row-major grid, so a later block along an axis
+    is a later process), the torch process group ``pg`` and its
+    ``backend``, and ``cpu``, a gloo group over the same ranks for host
+    values. A group of one process runs no collective."""
+
+    def __init__(self, ranks, pg=None, backend="gloo", cpu=None):
+        self.ranks = tuple(ranks)
+        self.pg, self.backend, self.cpu = pg, backend, cpu
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    @property
+    def position(self) -> int:
+        """This process's place in the group."""
+        return self.ranks.index(process_index())
+
+    def __repr__(self):
+        return f"Group({list(self.ranks)}, {self.backend})"
+
+
+def _backend_for(ranks) -> str:
+    """``nccl`` where every member holds a CUDA device of its own, else
+    gloo: the data group's choice, per group."""
+    topology = [_world["topology"][r] for r in ranks]
+    distinct = len(set(topology)) == len(topology)
+    return ("nccl" if distinct and all(d.startswith("cuda")
+                                       for _, d in topology) else "gloo")
+
+
+def _process_group(ranks, backend):
+    key = (ranks, backend)
+    if key not in _groups:
+        _groups[key] = dist.new_group(ranks=list(ranks), backend=backend,
+                                      timeout=TIMEOUT)
+    return _groups[key]
+
+
+def make_group(ranks) -> Group:
+    """The group of ``ranks``. Collective where it has two or more
+    members: every process of the job makes the same groups in the same
+    order (a process that skips or reorders one deadlocks the job), so
+    ``Mesh`` makes all of its axis groups at once, when it is made; a
+    group made before is reused."""
+    ranks = tuple(sorted(int(r) for r in ranks))
+    if len(ranks) < 2:
+        return Group(ranks)
+    backend = _backend_for(ranks)
+    pg = _process_group(ranks, backend)
+    cpu = pg if backend == "gloo" else _process_group(ranks, "gloo")
+    return Group(ranks, pg, backend, cpu)
+
+
+def data_group() -> Group:
+    """Every process of the job: the default of the helpers below."""
+    ranks = tuple(range(process_count()))
+    if len(ranks) < 2:
+        return Group(ranks)
+    return Group(ranks, _world["data_group"], _world["data_backend"],
+                 None)
+
+
 # ---- the data-parallel step ------------------------------------------------
 
 
 class GlobalBatch:
     """What a process-spanning step reads of the global batch, whose
-    rows this process's batch is: its row count and this process's
-    first row, and sums over the processes. A runner hands one to the
-    train state and to the model's layers that read the global batch
-    (``attach``); everything else sees None and stays local."""
+    block this process's batch is: along the rows (the data axis) its
+    block count and index, along the sequence (``sp``) the same, and
+    sums over ``group``, the processes whose data differ (those that
+    share every other axis's block: ``tp`` peers read the same data).
+    A runner hands one to the train state and to the model's layers that
+    read the global batch (``attach``); everything else sees None and
+    stays local."""
 
-    def __init__(self):
+    # The sequence's blocks: one unless the mesh splits it over
+    # processes.
+    seq_count, seq_index = 1, 0
+
+    def __init__(self, mesh=None, data_axes=("dp", "sp")):
         self.count, self.index = process_count(), process_index()
+        self.group = None
+        if not hasattr(mesh, "block_of"):
+            return
+        rows_axis, seq_axis = data_axes
+        self.count, self.index = mesh.block_of(rows_axis)
+        self.seq_count, self.seq_index = mesh.block_of(seq_axis)
+        self.group = mesh.group([a for a in data_axes if a in mesh.shape])
 
     def rows(self, local_rows: int):
         """``(global rows, this process's first row)`` of a
         batch-leading tensor of ``local_rows`` rows."""
         return local_rows * self.count, local_rows * self.index
 
-    @staticmethod
-    def sum(tensor: torch.Tensor) -> torch.Tensor:
+    def seq(self, local_len: int):
+        """``(global length, this process's first position)`` of a
+        sequence of ``local_len`` positions."""
+        return local_len * self.seq_count, local_len * self.seq_index
+
+    def sum(self, tensor: torch.Tensor) -> torch.Tensor:
         """The sum over the data group, differentiable
         (``AllReduceSum``)."""
-        return AllReduceSum.apply(tensor)
+        return AllReduceSum.apply(tensor, self.group)
 
-    @staticmethod
-    def sum_(tensors: Sequence[torch.Tensor]):
+    def sum_(self, tensors: Sequence[torch.Tensor]):
         """``all_reduce_``: summed in place, one collective a dtype."""
-        return all_reduce_(tensors)
+        return all_reduce_(tensors, group=self.group)
 
-    @staticmethod
-    def gather(tensor: torch.Tensor) -> torch.Tensor:
+    def gather(self, tensor: torch.Tensor) -> torch.Tensor:
         """``all_gather``: every process's rows, in process order."""
-        return all_gather(tensor)
+        return all_gather(tensor, group=self.group)
 
-    @staticmethod
-    def host_sum(value: float) -> float:
-        """The sum of a host number over the CPU group."""
-        return host_sum(value)
+    def host_sum(self, value: float) -> float:
+        """The sum of a host number over the data group (its gloo
+        twin)."""
+        return host_sum(value, group=self.group)
 
 
-def attach(state, mesh):
+def attach(state, mesh, data_axes=("dp", "sp")):
     """Give ``state`` and every module of its model with a
     ``global_batch`` attribute (BatchNorm, the dropout blocks) a
     ``GlobalBatch`` where ``mesh`` spans processes, else None. The
@@ -212,8 +314,8 @@ def attach(state, mesh):
     place the decision is made. Returns ``state``. A ``torch.nn``
     BatchNorm, which has no such attribute and would normalise with its
     process's rows alone, raises where the mesh spans processes."""
-    hook = (GlobalBatch() if getattr(mesh, "spans_processes", False)
-            else None)
+    hook = (GlobalBatch(mesh, data_axes)
+            if getattr(mesh, "spans_processes", False) else None)
     for module in state.model.modules():
         if hook is not None and isinstance(
                 module, torch.nn.modules.batchnorm._BatchNorm):
@@ -228,71 +330,114 @@ def attach(state, mesh):
     return state
 
 
-def _staged(tensor: torch.Tensor) -> bool:
-    return tensor.is_cuda and _world["data_backend"] == "gloo"
+def _staged(tensor: torch.Tensor, group: Group) -> bool:
+    return tensor.is_cuda and group.backend == "gloo"
 
 
-def all_reduce_(tensors: Sequence[torch.Tensor], op=dist.ReduceOp.SUM):
-    """All-reduce ``tensors`` in place over the data group: one
-    collective per dtype, over a flat copy of them."""
+def all_reduce_(tensors: Sequence[torch.Tensor], op=dist.ReduceOp.SUM,
+                group: Optional[Group] = None):
+    """All-reduce ``tensors`` in place over ``group`` (default: the data
+    group, every process): one collective per dtype, over a flat copy of
+    them. Nothing happens on a group of one."""
+    group = group or data_group()
+    if group.size < 2:
+        return tensors
     by_dtype = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    for group in by_dtype.values():
-        flat = torch.cat([t.reshape(-1) for t in group])
-        buf = flat.cpu() if _staged(flat) else flat
-        dist.all_reduce(buf, op=op, group=_world["data_group"])
+    for same in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in same])
+        buf = flat.cpu() if _staged(flat, group) else flat
+        dist.all_reduce(buf, op=op, group=group.pg)
         if buf is not flat:
             flat.copy_(buf)
         offset = 0
-        for t in group:
+        for t in same:
             n = t.numel()
             t.copy_(flat[offset:offset + n].view_as(t))
             offset += n
     return tensors
 
 
-def all_reduce_sum(tensor: torch.Tensor) -> torch.Tensor:
-    """The sum of ``tensor`` over the data group (a new tensor)."""
+def all_reduce_sum(tensor: torch.Tensor,
+                   group: Optional[Group] = None) -> torch.Tensor:
+    """The sum of ``tensor`` over ``group`` (a new tensor)."""
     out = tensor.clone()
-    all_reduce_([out])
+    all_reduce_([out], group=group)
     return out
 
 
-def all_gather(tensor: torch.Tensor) -> torch.Tensor:
-    """Every process's ``tensor`` concatenated along dim 0, in process
-    order."""
+def all_gather(tensor: torch.Tensor,
+               group: Optional[Group] = None) -> torch.Tensor:
+    """Every member's ``tensor`` concatenated along dim 0, in the
+    group's order (default: the data group, process order)."""
+    group = group or data_group()
+    if group.size < 2:
+        return tensor
     src = tensor.contiguous()
-    buf = src.cpu() if _staged(src) else src
-    parts = [torch.empty_like(buf) for _ in range(process_count())]
-    dist.all_gather(parts, buf, group=_world["data_group"])
+    buf = src.cpu() if _staged(src, group) else src
+    parts = [torch.empty_like(buf) for _ in range(group.size)]
+    dist.all_gather(parts, buf, group=group.pg)
     return torch.cat(parts).to(tensor.device)
 
 
+def ring_shift(tensors: Sequence[torch.Tensor], group: Group
+               ) -> List[torch.Tensor]:
+    """Send ``tensors`` to the next member of ``group`` (in its order,
+    round) and return those the previous member sent: one step of the
+    ``sp`` ring across processes. NCCL groups take
+    ``batch_isend_irecv``; gloo groups stage CUDA tensors through the
+    host and pair an ``isend`` with an ``irecv`` a tensor, each under
+    its own tag."""
+    n, pos = group.size, group.position
+    nxt, prv = group.ranks[(pos + 1) % n], group.ranks[(pos - 1) % n]
+    staged = [t.cpu() if _staged(t, group) else t.contiguous()
+              for t in tensors]
+    got = [torch.empty_like(t) for t in staged]
+    if group.backend == "nccl":
+        ops = ([dist.P2POp(dist.isend, t, nxt, group.pg) for t in staged]
+               + [dist.P2POp(dist.irecv, t, prv, group.pg) for t in got])
+        requests = dist.batch_isend_irecv(ops)
+    else:
+        requests = []
+        for tag, (out, into) in enumerate(zip(staged, got)):
+            requests.append(dist.isend(out, nxt, group=group.pg, tag=tag))
+            requests.append(dist.irecv(into, prv, group=group.pg, tag=tag))
+    for request in requests:
+        request.wait()
+    return [g.to(t.device) for g, t in zip(got, tensors)]
+
+
 class AllReduceSum(torch.autograd.Function):
-    """The sum over the data group, differentiable: each process's
-    output reads every process's input, so the gradient of an input is
-    the sum of the outputs' gradients (the SyncBatchNorm idiom)."""
+    """The sum over a group (default: the data group), differentiable:
+    each process's output reads every member's input, so the gradient
+    of an input is the sum of the outputs' gradients (the SyncBatchNorm
+    idiom)."""
 
     @staticmethod
-    def forward(ctx, tensor):
-        return all_reduce_sum(tensor)
+    def forward(ctx, tensor, group=None):
+        ctx.group = group
+        return all_reduce_sum(tensor, group)
 
     @staticmethod
     def backward(ctx, grad):
-        return all_reduce_sum(grad)
+        return all_reduce_sum(grad, ctx.group), None
 
 
 # ---- batches ---------------------------------------------------------------
 
 
 def make_global_batch(batch, mesh):
-    """This process's batch as its rows of the global batch along the
-    data axis (the leading dim), placed on the mesh's device, where the
-    step reads it. With one process this is the batch on the device;
-    with N the global row count is the local one times N
-    (``global_batch_size``). JAX's version takes the batch's shardings
-    too; the port's steps assume the leading dim over the data axis."""
+    """This process's block of the global batch, placed on the mesh's
+    device, where the step reads it: as in JAX, each local leaf is the
+    process's shard under its sharding (``MeshRunner.batch_shardings``;
+    JAX's version takes them to build global arrays, the port's steps
+    read the blocks through ``GlobalBatch``). With one process this is
+    the batch on the device. With several, a leaf split over axes that
+    span processes is the process's block of them: token ids under
+    ``P("dp", "sp")`` are its rows and its sequence block, and the
+    global shape is the local one times the blocks along each split
+    dim (``GlobalBatch.rows`` and ``seq``)."""
     from elasticdl_tpu_torch.core.step import _to_device
 
     return _to_device(batch, mesh.device)
@@ -348,12 +493,19 @@ def exchange_code(mesh, code: int) -> int:
     return int(value[0])
 
 
-def host_sum(value: float) -> float:
-    """The sum of a host number over the processes (the CPU group)."""
-    if process_count() <= 1:
+def host_sum(value: float, group: Optional[Group] = None) -> float:
+    """The sum of a host number over ``group``'s gloo twin (default:
+    every process, the CPU group)."""
+    if group is None:
+        if process_count() <= 1:
+            return float(value)
+        pg = None
+    elif group.size < 2:
         return float(value)
+    else:
+        pg = group.cpu
     total = torch.tensor([float(value)], dtype=torch.float64)
-    dist.all_reduce(total)
+    dist.all_reduce(total, group=pg)
     return float(total[0])
 
 

@@ -28,9 +28,17 @@ reaches every entry through the one optimizer it builds.
 Across processes (a mesh that spans them, ``parallel/multihost.py``)
 each process holds and steps only its own entries' slices, with the
 all-reduced global gradient; then the updated slices are all-gathered
-over the data group in one collective a dtype, so every process holds
-the same replicated parameters. Parameters no dim splits are updated
-whole in every process, from the same gradient and slots.
+over the group of the slots' axis (the data axis) in one collective a
+dtype, so every process holds the same replicated parameters.
+Parameters no dim splits are updated whole in every process, from the
+same gradient and slots.
+
+A parameter that a rule places (``placed``: a ``tp`` rule, a table over
+2 MB) has its slots placed alike, as JAX reuses the rule over the optax
+tree (``mu`` of ``wi`` on the same spec); the parameter holds the
+process's block of it, its views are the local entries' shards of that
+block, and nothing is gathered after the step: the parameter stays
+split.
 
 The checkpoint names the slots as it names a plain optimizer's:
 ``opt_state.<parameter name>.<slot>``, the entries' slices gathered
@@ -62,35 +70,38 @@ class ZeroOptimizer:
     parameters the forward reads); ``shardings``: each name's slot
     placement (``MeshRunner.state_shardings``); ``slots``: whole slot
     values by name (``{name: {slot: tensor}}``) to start from, e.g. the
-    gathered state of another mesh."""
+    gathered state of another mesh; ``placed``: the names of the
+    parameters a rule splits (held as the process's block, their slots
+    placed by the same sharding)."""
 
     def __init__(self, named_params: Dict[str, torch.nn.Parameter],
                  make_optimizer: Callable, shardings: Dict[str, NamedSharding],
-                 slots: Optional[Dict[str, Dict[str, torch.Tensor]]] = None):
+                 slots: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+                 placed=()):
         self.params = dict(named_params)
         self.shardings = {n: shardings[n] for n in self.params}
+        self.placed = frozenset(placed)
         split = [n for n in self.params
                  if not self.shardings[n].is_replicated]
-        counts = {self.shardings[n].num_shards for n in split}
-        if len(counts) > 1:
-            raise NotImplementedError(
-                f"slots split {sorted(counts)} ways: one mesh axis places "
-                "every split slot")
-        self.num_entries = counts.pop() if counts else 1
-        # Local entry e's slice of each split parameter, a view of it.
-        self._views = {n: self.shardings[n].views(self.params[n].detach())
-                       for n in split}
-        self.num_local = (len(next(iter(self._views.values())))
-                          if self._views else 1)
-        self.spans_processes = any(
-            len(self.shardings[n].local_shards) < self.num_entries
-            for n in split)
+        self.num_entries = max(
+            [self.shardings[n].num_shards for n in split] or [1])
+        # Local entry e's slice of each split parameter, a view of it
+        # (of its block where it is placed).
+        self._views = {
+            n: (self.shardings[n].block_views(self.params[n].detach())
+                if n in self.placed
+                else self.shardings[n].views(self.params[n].detach()))
+            for n in split}
+        self.num_local = max([len(v) for v in self._views.values()] or [1])
+        # The ZeRO-split parameters whose slices other processes step.
+        self._gathered = [n for n in split if n not in self.placed
+                          and self.shardings[n].spans_processes]
         whole = [p for n, p in self.params.items() if n not in self._views]
         # The inner optimizer over each local entry's views in turn, then
         # the whole parameters.
         self.inner = make_optimizer(
             [views[e] for e in range(self.num_local)
-             for views in self._views.values()] + whole)
+             for views in self._views.values() if e < len(views)] + whole)
         if split and not isinstance(self.inner, ELEMENTWISE):
             raise NotImplementedError(
                 f"ZeRO placement of {type(self.inner).__name__}'s state: "
@@ -105,33 +116,38 @@ class ZeroOptimizer:
             raise ValueError("ZeroOptimizer.step takes no closure")
         for name, views in self._views.items():
             grad = self.params[name].grad
-            grads = (self.shardings[name].views(grad) if grad is not None
-                     else [None] * len(views))
+            sharding = self.shardings[name]
+            grads = ([None] * len(views) if grad is None
+                     else sharding.block_views(grad) if name in self.placed
+                     else sharding.views(grad))
             for view, g in zip(views, grads):
                 view.grad = g
         self.inner.step()
-        if self.spans_processes:
+        if self._gathered:
             self._gather_slices()
 
     def _gather_slices(self):
         """Every process's updated slices into the replicated
-        parameters: its block of each split parameter (its entries'
+        parameters: its block of each ZeRO-split parameter (its entries'
         slices, adjacent along the split dim) flattened, one all-gather
-        a dtype, the other processes' blocks copied in place."""
+        a dtype over the slots' group, the other members' blocks copied
+        in place."""
         from elasticdl_tpu_torch.parallel import multihost
 
-        by_dtype = {}
-        for name, views in self._views.items():
-            by_dtype.setdefault(views[0].dtype, []).append(name)
-        rank = multihost.process_index()
+        by_key = {}
+        for name in self._gathered:
+            group = self.shardings[name].group()
+            by_key.setdefault((self._views[name][0].dtype, group.ranks),
+                              (group, []))[1].append(name)
         with torch.no_grad():
-            for names in by_dtype.values():
+            for group, names in by_key.values():
                 blocks = {n: torch.cat(self._views[n], self.shardings[n].dim)
                           .movedim(self.shardings[n].dim, 0) for n in names}
                 flat = torch.cat([b.reshape(-1) for b in blocks.values()])
-                gathered = multihost.all_gather(flat).view(-1, flat.numel())
+                gathered = multihost.all_gather(flat, group).view(
+                    -1, flat.numel())
                 for q in range(gathered.shape[0]):
-                    if q == rank:
+                    if q == group.position:
                         continue
                     offset = 0
                     for n, block in blocks.items():

@@ -47,6 +47,26 @@ from elasticdl_tpu_torch.worker.worker import Worker
 logger = get_logger("worker_main")
 
 
+def refuse_shared_data(mesh, data_axis: str):
+    """Raise where two processes of ``mesh`` share a coordinate of the
+    data axis (``tp`` or ``sp`` across them): each worker pulls its own
+    tasks from the master, so their halves of one global batch would be
+    different tasks' records. The JAX worker assumes they are equal
+    (``make_array_from_process_local_data``) and does nothing to make
+    them so; the port refuses. Such a mesh runs through a
+    ``MeshRunner`` fed the global batch's blocks (``place_batch``)."""
+    if not getattr(mesh, "spans_processes", False):
+        return
+    blocks, _ = mesh.block_of(data_axis)
+    if blocks < mesh.process_count:
+        raise NotImplementedError(
+            f"mesh {dict(mesh.shape)} over {mesh.process_count} processes "
+            f"has {blocks} block(s) of the data axis {data_axis!r}: "
+            "processes that share a data coordinate would pull different "
+            "tasks into one batch (ROADMAP item 8); run tp or sp across "
+            "processes through a MeshRunner fed the global batch")
+
+
 def _init_multihost(args, device: torch.device) -> torch.device:
     """Wire ``torch.distributed`` for ``--num_jax_processes`` > 1 (the
     JAX worker's wiring, ``elasticdl_tpu/worker/main.py:55-71``) and
@@ -144,6 +164,7 @@ def build_worker(args, master_client=None) -> Worker:
             size *= n
         mesh = make_mesh(shape, axes,
                          [device] * max(1, size // multihost.process_count()))
+        refuse_shared_data(mesh, "dp" if "dp" in mesh.shape else axes[0])
         if spec.make_sparse_runner is not None:
             # The device-tier sparse plane over the mesh: its tables
             # (and slots) row-shard over the first mesh axis, the dense

@@ -59,6 +59,7 @@ from elasticdl_tpu_torch.parallel.mesh_runner import (
     MeshRunner,
     make_runner_for_spec,
 )
+from elasticdl_tpu_torch.parallel.rules import PartitionSpec as TP
 from elasticdl_tpu_torch.parallel.zero import ZeroOptimizer
 from elasticdl_tpu_torch.testing.data import model_zoo_dir
 
@@ -348,32 +349,53 @@ def test_transformer_rules_on_a_dp_mesh_match_jax():
 @pytest.mark.parametrize("shape,axes", [((2, 2, 2), ("dp", "sp", "tp")),
                                         ((2, 2), ("dp", "tp"))])
 def test_a_placing_tp_axis_waits_for_6b(shape, axes):
+    """Item 6b's step 3 has landed: the transformer's rules place its
+    kernels over ``tp`` (the Megatron layout), their slots alike, each
+    module records its placement, and a step runs."""
     spec = get_model_spec(model_zoo_dir(),
                           "transformer.transformer_lm.custom_model",
                           device="cpu")
     mesh = tmesh.make_mesh(shape, axes, [CPU] * int(np.prod(shape)))
     runner = make_runner_for_spec(spec, mesh)
-    with pytest.raises(NotImplementedError, match="6b"):
-        runner.init_state(spec.make_model(mesh),
-                          lambda p: torch.optim.Adam(p, lr=1e-3))
+    state = runner.init_state(spec.make_model(mesh),
+                              lambda p: torch.optim.Adam(p, lr=1e-3))
+    got = runner.state_shardings(state)
+    for name in ("blocks.0.mlp.wi.weight", "blocks.0.attn.query.weight",
+                 "lm_head.weight", "token_embed.weight"):
+        assert got[f"params.{name}"].spec == TP("tp", None)
+        assert got[f"opt_state.{name}"].spec == TP("tp", None)
+    assert got["params.blocks.0.attn.out.weight"].spec == TP(None, "tp")
+    assert got["params.blocks.0.attn.out.bias"].is_replicated
+    assert state.model.blocks[0].mlp.wi._placed["weight"] == got[
+        "params.blocks.0.mlp.wi.weight"]
+    batch = {"features": np.zeros((4, 16), np.int32),
+             "labels": np.ones((4, 16), np.int32),
+             "mask": np.ones((4,), np.float32)}
+    _, metrics = runner.train_step(spec.loss)(state, batch)
+    assert np.isfinite(metrics["loss"].item())
 
 
 def test_a_row_split_dense_parameter_waits_for_6b():
-    """A table over the 2 MB threshold as a parameter of the dense model
-    (an Embedding's or a DenseFeatures' ``embedding``) would be held
-    split over the entries, which item 6b ports."""
+    """Item 6b's step 4 has landed: a table over the 2 MB threshold as a
+    parameter of the dense model (an Embedding's or a DenseFeatures'
+    ``embedding``) is placed split over the data axis, its slots
+    alike."""
 
     class Table(torch.nn.Module):
         def __init__(self):
             super().__init__()
             self.embedding = torch.nn.Parameter(torch.zeros(1024, 1024))
 
-    with pytest.raises(NotImplementedError, match="6b"):
-        MeshRunner(_tmesh(4)).init_state(
-            Table(), lambda p: torch.optim.SGD(p, lr=0.1))
+    runner = MeshRunner(_tmesh(4))
+    state = runner.init_state(Table(), lambda p: torch.optim.SGD(p, lr=0.1))
+    got = runner.state_shardings(state)
+    assert got["params.embedding"].spec == TP("dp", None)
+    assert got["opt_state.embedding"].spec == TP("dp", None)
+    assert state.model._placed["embedding"] == got["params.embedding"]
     # On a dp1 mesh nothing is split.
-    MeshRunner(_tmesh(1)).init_state(Table(),
-                                     lambda p: torch.optim.SGD(p, lr=0.1))
+    runner = MeshRunner(_tmesh(1))
+    state = runner.init_state(Table(), lambda p: torch.optim.SGD(p, lr=0.1))
+    assert runner.state_shardings(state)["params.embedding"].is_replicated
 
 
 def test_a_non_elementwise_optimizer_is_refused():

@@ -159,7 +159,14 @@ def test_sharding_equality_and_two_split_dims():
     assert (tmesh.NamedSharding(tm, TP("dp"))
             != tmesh.NamedSharding(tm, TP(None, "dp")))
     assert tmesh.NamedSharding(tm, TP(("dp", "tp"))).num_shards == 8
-    with pytest.raises(NotImplementedError, match="6b"):
-        tmesh.NamedSharding(tm, TP("dp", "tp"))
+    # Two split dims (the batch's P("dp", "sp")) place by dims; a leaf
+    # held split over two dims waits for expert placement (item 7).
+    two = tmesh.NamedSharding(tm, TP("dp", "tp"))
+    assert two.num_shards == 8 and two.dims == [0, 1]
+    value = torch.arange(32.0).reshape(8, 4)
+    assert [tuple(v.shape) for v in two.views(value)] == [(2, 2)] * 8
+    assert torch.equal(two.views(value)[1], value[:2, 2:])
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tmesh.ShardedTensor.from_whole(two, value)
     assert tmesh.replicated(tm).is_replicated
     assert tmesh.batch_sharding(tm).spec == TP("dp")

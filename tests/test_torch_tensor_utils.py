@@ -85,6 +85,19 @@ def test_malformed_input_raises_value_error(raw, match):
         tu.unpackb(raw)
 
 
+@pytest.mark.parametrize("tree", [
+    {"__is__": None}, {"__nd__": 1, "x": 2}, {"__is__": {"a": 1}},
+    {"__nd__": {"dtype": "float32"}}, {"k": {"__is__": [1, 2]}},
+])
+def test_maps_holding_a_tag_as_a_key_decode_as_maps(tree):
+    """Only the tagged maps the encoder writes (one key over a map of
+    the tag's keys) decode to arrays; a user's map that holds
+    ``__nd__`` or ``__is__`` as a key round-trips as a map."""
+    assert tu.loads(tu.dumps(tree)) == tree
+    arr = np.arange(3, dtype=np.float32)
+    np.testing.assert_array_equal(tu.loads(tu.dumps({"a": arr}))["a"], arr)
+
+
 def test_unknown_types_raise_type_error():
     with pytest.raises(TypeError, match="Cannot serialize"):
         tu.dumps({"x": object()})
