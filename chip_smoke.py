@@ -29,6 +29,9 @@
     python3 chip_smoke.py --phase tpfault # 11i (d) sound and with a
                                           # planted tp fault: the gaps
                                           # TP_TOL must separate
+    python3 chip_smoke.py --phase moe    # MoE, the fused head and
+                                         # generate alone (the flash
+                                         # forward and backward kernels)
 
 1. Prints the card (``nvidia-smi`` name and power limit), versions, and
    whether ``grpc`` can be imported.
@@ -388,6 +391,27 @@
    why), which gloo collectives take CUDA tensors, and per step the
    step ms (CUDA events), issue ms and the ms inside the collectives
    (the all-reduces, the all-gathers, the ring's send/recv).
+11k. ``moe`` (the rest of the flagship transformer; ``--phase moe`` runs
+   it alone): (a) bench_suite.py's moe config (8 experts in every
+   second block, top-1, scatter, capacity factor 1.25) at full width
+   through the zoo module and ``core.step``, 12 steps of B 8 x S 1024
+   from the twin's own seeded init: the loss falls, #1 = #3 = #4 = 8
+   launches a step exactly, step ms beside issue ms, tokens/s, peak
+   memory, the dropped share; (b) with (a)'s weights the scatter at
+   capacity factor E (drop-free) against the dense dispatch, one
+   forward and backward (MOE_DISPATCH_TOL); (c) the zoo twin's CONFIG
+   with 4 experts in block 1, 5 steps card vs CPU: the tokens routed
+   differently, the losses within TRAJ_TOL; (d) the flagship's fused
+   head against the materialised one at B 8 x S 1024: loss, lm_head's
+   gradients (FUSED_TOL), launches, peak memory (the fused lower); (e)
+   ``generate``, B 8, a 128-token prompt, 64 greedy tokens: ms a token,
+   no launch while decoding, each token within GEN_MARGIN_ULPS bf16
+   steps of the full forward's top logit; (f) in the multihost
+   processes, MoE with ``ep`` across them and the scatter under ``dp``
+   across them, each against the one-process run (MOE_MH_TOL, drops,
+   launches, the processes equal). In the whole smoke (a)-(e) and (f)'s
+   references run while the checkpoint phase's evaluate/predict
+   subprocesses run, and (f) after the multihost phase.
 12. ``fused path``: ``DeviceSparseRunner`` over the recsys table with
    Momentum (Nesterov) and ``use_pallas="fused"`` for 10 steps against
    "never": one fused-kernel launch a step.
@@ -428,7 +452,8 @@
 17. Prints a ``serving``, a ``training``, a ``sparse_training``, a
    ``ring_training``, a ``host_training``, a ``vision``, a ``tabular``,
    a ``checkpoint``, a ``worker``, a ``rowservice``, a ``fleet``, a
-   ``parallel``, a ``multihost``, a ``phase_s`` (each phase's seconds)
+   ``parallel``, a ``multihost``, a ``moe``, a ``phase_s`` (each
+   phase's seconds)
    and a
    ``kernels`` JSON line (the four flash kernels and the four embedding kernels
    with their ms, plain ms, library ms, bound ms and launches, and their
@@ -440,7 +465,8 @@
    (c)), ``launches_fleet`` ((a), (b) over one and two shards, (c)),
    ``launches_parallel`` ((a), (b), (c) at dp4 and dp2, the fused step,
    (d)), ``launches_multihost`` ((a) in each process, (b), (c), (d),
-   (d') and (e) in each process);
+   (d') and (e) in each process), ``launches_moe`` ((a), (d) fused and
+   materialised, (e) decoding, (f) in each process);
    #5 with its times at
    the sweep's tiers, the row kernels with a per-rule list) and, last,
    ``{"ok": true, "device": {...}}``.
@@ -449,6 +475,7 @@ Any failed phase raises, so the script exits non-zero; without CUDA it
 exits 2 and prints no result.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -3737,10 +3764,10 @@ def job_subprocesses(jobs, while_running=None):
         stderr=subprocess.STDOUT)
         for (role, zoo, model_def, data_flag, data, ckpt), log
         in zip(jobs, logs)]
-    if while_running is not None:
-        while_running()
     out = []
     try:
+        if while_running is not None:
+            while_running()
         for (role, *_), proc, log in zip(jobs, procs, logs):
             proc.wait(timeout=600)
             seconds = time.monotonic() - t0
@@ -7412,9 +7439,14 @@ def mh_gloo_probe(torch):
     return out
 
 
-def multihost_go(started):
-    """Let the phase's processes run (a), (b) and (c)."""
-    open(os.path.join(started["root"], "go"), "w").close()
+def multihost_go(started, parts="all"):
+    """Let the phase's processes run: ``parts`` "all" (the whole smoke:
+    the multihost phase's parts, then the moe phase's (f)), "multihost"
+    or "moe" (``--phase``)."""
+    path = os.path.join(started["root"], "go")
+    with open(path + ".tmp", "w") as f:
+        f.write(parts)
+    os.replace(path + ".tmp", path)
 
 
 def multihost_child(pid, root):
@@ -7437,14 +7469,19 @@ def multihost_child(pid, root):
     while not os.path.exists(go):
         check(time.monotonic() < deadline, "no go file")
         time.sleep(0.05)
+    with open(go) as f:
+        wanted = f.read().strip()
+    parts = {"recsys": mh_child_recsys, "dense": mh_child_dense,
+             "job": mh_child_job, "tp": mh_child_tp,
+             "table": mh_child_table, "moe": mh_child_moe}
+    names = {"moe": ["moe"], "multihost": list(parts)[:-1]}.get(
+        wanted, list(parts))
     marks = [time.monotonic()]
-    for part in (mh_child_recsys, mh_child_dense, mh_child_job,
-                 mh_child_tp, mh_child_table):
-        part(torch, fa, pe, pid, root, out)
+    for name in names:
+        parts[name](torch, fa, pe, pid, root, out)
         marks.append(time.monotonic())
-        print(f"multihost process {pid}: {part.__name__} done", flush=True)
-    out["part_s"] = dict(zip(("recsys", "dense", "job", "tp", "table"),
-                             np.diff(marks).tolist()))
+        print(f"multihost process {pid}: {name} done", flush=True)
+    out["part_s"] = dict(zip(names, np.diff(marks).tolist()))
     out["gloo_cuda"] = mh_gloo_probe(torch)
     with open(os.path.join(root, f"result{pid}.json.tmp"), "w") as f:
         json.dump(out, f)
@@ -7562,7 +7599,7 @@ def multihost_phase(torch, fa, pe, root, started, recsys_ref=None,
     table_ref, table_params = table_run(torch, 2)
     marks.append(time.monotonic())
     if res is None:
-        multihost_go(started)
+        multihost_go(started, "multihost")
         res = mh_wait(started)
     marks.append(time.monotonic())
     rec = {pid: res[pid]["recsys"] for pid in res}
@@ -7806,6 +7843,684 @@ def mh_table_results(torch, root, res, ref, ref_params):
     return out
 
 
+# The rest of the flagship transformer (``--phase moe`` runs it alone
+# and builds the flash forward and backward sources; its (f) runs in the
+# multihost phase's two processes): (a) bench_suite.py's "moe" config
+# (bench_suite.py:124-126) at full width trained through the zoo twin's
+# module and the port's train step; (b) its scatter dispatch against the
+# dense one at a capacity that drops nothing; (c) a small MoE twin, card
+# against CPU; (d) the fused head at the flagship width against the
+# materialised head; (e) ``generate`` at the flagship width; (f) MoE with
+# ``ep`` across the two processes, and the scatter under ``dp`` across
+# them, each against one process.
+MOE = dict(FLAGSHIP, moe_experts=8, moe_every=2, moe_top_k=1,
+           moe_dispatch="scatter", moe_capacity_factor=1.25)
+MOE_ZOO = f"""
+import torch
+
+from elasticdl_tpu_torch.model_zoo.transformer import transformer_lm as twin
+from elasticdl_tpu_torch.model_zoo.transformer.transformer_lm import (
+    batch_sharding_rule, dataset_fn, eval_metrics_fn, loss, optimizer,
+    param_sharding_rules)
+from elasticdl_tpu_torch.models.transformer import TransformerConfig
+
+CONFIG = TransformerConfig(compute_dtype=torch.bfloat16, **{MOE!r})
+
+
+def custom_model(device=None, mesh=None):
+    return twin.custom_model(config=CONFIG, device=device, mesh=mesh)
+"""
+MOE_STEPS, MOE_BATCH = 12, 8
+# (b) scatter (capacity factor E: C = T, nothing dropped) against dense
+# dispatch, one forward and backward at full width. Both run each
+# token through the same expert with the same gate; the products differ
+# only in shape ((E, C) slots against (B, E, S) rows), so cuBLAS sums
+# them in another order and a bf16 rounding flips now and then, as the
+# card against the CPU: the logits within LOGITS_REL_TOL, the loss 1e-3
+# relative, every gradient within 5e-2 relative L2 (the port's bf16
+# whole-model gradient limit, tests/test_torch_transformer.py), the key
+# biases left out (true gradient 0: both are noise).
+MOE_DISPATCH_TOL = dict(logits=LOGITS_REL_TOL, loss=1e-3, grad_l2=5e-2)
+# (d) the fused head against the materialised one at B 8 x S 1024: the
+# materialised head rounds the logits and their gradient to bf16
+# (2^-9 relative an element), the fused one sums f32 logits from the
+# bf16 operands and rounds each 128-token chunk's kernel gradient to
+# bf16, summed over 8 chunks in bf16 (as JAX's scan): the loss 1e-3
+# relative, lm_head's weight and bias gradients 2e-2 relative L2.
+FUSED_TOL = dict(loss=1e-3, grad_l2=2e-2)
+# (e) generate: B 8, a 128-token prompt, 64 greedy tokens. Decoding
+# takes dense attention over the cache, the full forward #1: the two
+# bf16 paths differ by a rounding now and then, and each rounds its
+# logits to bf16. Each generated token's full-forward logit must lie
+# within GEN_MARGIN_ULPS bf16 steps (2^-7·|top| each) of that
+# position's top logit: the argmax, or at a near-tie a logit that
+# ties it within the margin.
+GEN_BATCH, GEN_PROMPT, GEN_NEW, GEN_MARGIN_ULPS = 8, 128, 64, 2
+# (f): the "moe" config cut to 2 layers (block 1 MoE), B 2 x S 512 (as
+# the tp parts), 3 steps; ``ep`` across the processes on (1, 2,
+# 2) over (dp, ep, tp) and ``dp`` across them on (2, 2) over (dp, ep)
+# with top-2 at capacity factor 0.5 (choices dropped), each against the
+# one-process run of its mesh. With ``ep`` across, both processes read
+# the whole batch and add the same partial outputs (bit-equal to one
+# process on the CPU): TP_TOL's loss and change limits. With ``dp``
+# across, each process's weight gradients are bf16 sums over its own
+# rows, added across the processes (1.3e-4 on the loss at a small width
+# on the CPU, as the multihost phase's mnist reads 1.64e-4): TRAJ_TOL's.
+MOE_MH_TOL = {"ep": dict(loss=TP_TOL["loss"], delta_l2=TP_TOL["delta_l2"]),
+              "dp": dict(loss=TRAJ_TOL["loss"],
+                         delta_l2=TRAJ_TOL["delta_l2"])}
+MOE_MH_LAYERS, MOE_MH_STEPS = 2, 3
+MOE_MH_DROP_SLACK = 0.01
+MOE_MH_LAYOUTS = {"ep": ((1, 2, 2), ("dp", "ep", "tp"), {}),
+                  "dp": ((2, 2), ("dp", "ep"),
+                         dict(moe_top_k=2, moe_capacity_factor=0.5))}
+_MOE_WEIGHTS = {}
+
+
+def moe_weights(cfg):
+    """The seed's weights of ``cfg`` through bridge (drawn once a
+    process and architecture: the MoE routing options are not in the
+    parameters)."""
+    from elasticdl_tpu_torch import bridge
+
+    key = (cfg.n_layers, cfg.moe_experts, cfg.max_len, cfg.d_model)
+    if key not in _MOE_WEIGHTS:
+        _MOE_WEIGHTS[key] = bridge.state_dict_from_flax(
+            bridge.init_flax_params(cfg, seed=SEED))
+    return _MOE_WEIGHTS[key]
+
+
+def chain_batches(n, batch, seq, vocab, seed):
+    """Learnable +1-chain token batches (the JAX tests' ``_batch``)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        start = rng.integers(0, vocab, (batch, 1))
+        tokens = (start + np.arange(seq + 1)[None]) % vocab
+        out.append({"features": tokens[:, :-1].astype(np.int32),
+                    "labels": tokens[:, 1:].astype(np.int32),
+                    "mask": np.ones(batch, np.float32)})
+    return out
+
+
+def moe_dropped(model):
+    """(dropped, choices) of the last forward over the MoE blocks (a
+    device scalar, an int)."""
+    moes = [b.moe for b in model.blocks if hasattr(b, "moe")]
+    return (sum(m.dropped for m in moes), sum(m.choices for m in moes))
+
+
+FLASH_PATH = ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv")
+
+
+def moe_training_part(torch, fa, pe, root):
+    """(a) the "moe" config through the zoo module and ``core.step``'s
+    train step: MOE_STEPS steps of B 8 x S 1024; the loss falls, #1 = #3
+    = #4 = 8 launches a step exactly (0 for the others), step ms beside
+    issue ms, tokens/s, peak memory and the share of dropped choices."""
+    from elasticdl_tpu_torch.core.model_spec import get_model_spec
+    from elasticdl_tpu_torch.core.step import build_train_step
+    from elasticdl_tpu_torch.core.train_state import init_train_state
+
+    zoo = write_zoo(root, "moe_lm", MOE_ZOO)
+    spec = get_model_spec(zoo, "moe_lm.rec.custom_model", device=DEVICE)
+    # The twin's own initialisation (torch's defaults), as the flagship's
+    # training phase: from flax's (bridge.init_flax_params) the router
+    # sent 43-84% of the choices past capacity and the loss did not
+    # fall in 12 steps on the H100 (PERF.md §6).
+    torch.manual_seed(SEED)
+    with torch.device(DEVICE):
+        model = spec.make_model()
+    model.train()
+    state = init_train_state(model, spec.make_optimizer(), seed=SEED)
+    step = build_train_step(spec.loss)
+    batches = chain_batches(MOE_STEPS, MOE_BATCH, MOE["max_len"],
+                            MOE["vocab_size"], SEED + 90)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches(fa, pe)                # the moe path starts
+    losses, events, issue_ms, dropped = [], [], [], []
+    for b in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, m = step(state, b)
+        end.record()
+        issue_ms.append((time.perf_counter() - t0) * 1e3)
+        events.append((start, end))
+        losses.append(m["loss"])
+        dropped.append(moe_dropped(state.model)[0])
+    torch.cuda.synchronize()
+    counts = kernel_launch_counts(fa, pe)        # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    choices = moe_dropped(state.model)[1]
+    losses = [float(x) for x in losses]
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    shares = [int(d) / choices for d in dropped]
+    warm = step_ms[2:]
+    seq = MOE["max_len"]
+    out = {"model": "bench_suite.py's moe config (8 experts in every "
+                    "second block, top-1, scatter, capacity factor 1.25) "
+                    "at full width, the twin's own random weights, seed "
+                    f"{SEED}, Adam 1e-3", "batch": MOE_BATCH, "seq": seq,
+           "steps": len(batches), "losses": losses,
+           "launches": counts, "step_ms": spread(warm),
+           "issue_ms": spread(issue_ms[2:]),
+           "first_step_ms": step_ms[0],
+           "tokens_per_s": MOE_BATCH * seq / (np.median(warm) / 1e3),
+           "max_memory_allocated_bytes": peak,
+           "dropped_share": shares, "choices_a_step": choices}
+    print("moe training", json.dumps(out), flush=True)
+    layers = MOE["n_layers"]
+    for name in FLASH_PATH:
+        check(counts[name] == layers * len(batches),
+              f"(a) {name}: {counts[name]} launches in {len(batches)} "
+              f"steps of {layers} layers")
+    check(not any(v for k, v in counts.items() if k not in FLASH_PATH),
+          f"(a) other kernels: {counts}")
+    check(all(np.isfinite(losses)), f"(a) non-finite loss {losses}")
+    check(losses[-1] < 0.9 * losses[0],
+          f"(a) the loss did not fall: {losses}")
+    check(0.0 <= min(shares) and max(shares) < 1.0, f"(a) drops {shares}")
+    model = state.model
+    del state, step
+    torch.cuda.empty_cache()
+    return out, counts, model
+
+
+def moe_grads(torch, model, batch, loss_fn):
+    """One training forward and backward: the loss, the logits (None for
+    the fused triple) and every parameter's gradient, in f32 on the
+    card."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    features = torch.as_tensor(batch["features"], device=DEVICE)
+    labels = torch.as_tensor(batch["labels"], device=DEVICE)
+    mask = torch.as_tensor(batch["mask"], device=DEVICE)
+    out = model(features)
+    loss = loss_fn(labels, out, mask)
+    loss.backward()
+    grads = {n: p.grad.float() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    logits = None if isinstance(out, tuple) else out.detach().float()
+    return float(loss), logits, grads
+
+
+def rel_l2(got, want):
+    """||got - want|| / ||want|| of two tensors on one device."""
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def grad_gaps(got, want):
+    """Relative L2 of each gradient (the key biases, true gradient 0,
+    left out)."""
+    return {n: rel_l2(got[n], w) for n, w in want.items()
+            if not n.endswith("attn.key.bias")}
+
+
+def with_cfg(model, cfg):
+    """Point ``model`` and its MoE layers at ``cfg`` (the dispatch, the
+    capacity and the head are read at each forward; the parameters do
+    not depend on them). Returns the old config."""
+    old = model.cfg
+    model.cfg = cfg
+    for block in model.blocks:
+        if hasattr(block, "moe"):
+            block.moe.cfg = cfg
+    return old
+
+
+def moe_dispatch_part(torch, fa, pe, model):
+    """(b) the "moe" config's scatter dispatch at capacity factor E
+    (C = T: drop-free) against the dense dispatch, one forward and its
+    gradients on the same batch, with (a)'s trained weights
+    (MOE_DISPATCH_TOL)."""
+    from elasticdl_tpu_torch.model_zoo.transformer import (
+        transformer_lm as zoo,
+    )
+
+    cfg = model.cfg
+    batch = chain_batches(1, MOE_BATCH, MOE["max_len"], MOE["vocab_size"],
+                          SEED + 91)[0]
+    runs = {}
+    try:
+        for name, changes in (("scatter", dict(
+                moe_capacity_factor=float(MOE["moe_experts"]))),
+                ("dense", dict(moe_dispatch="dense"))):
+            with_cfg(model, dataclasses.replace(cfg, **changes))
+            runs[name] = moe_grads(torch, model, batch, zoo.loss)
+            if name == "scatter":
+                dropped = int(moe_dropped(model)[0])
+    finally:
+        with_cfg(model, cfg)
+    (s_loss, s_logits, s_grads), (d_loss, d_logits, d_grads) = (
+        runs["scatter"], runs["dense"])
+    gaps = grad_gaps(s_grads, d_grads)
+    worst = max(gaps.items(), key=lambda kv: kv[1])
+    out = {"capacity_factor": float(MOE["moe_experts"]), "dropped": dropped,
+           "loss_scatter": s_loss, "loss_dense": d_loss,
+           "loss_rel_diff": abs(s_loss - d_loss) / abs(d_loss),
+           "logits_rel_l2": rel_l2(s_logits, d_logits),
+           "grad_l2_worst": worst,
+           "grad_l2_median": float(np.median(list(gaps.values()))),
+           "tol": MOE_DISPATCH_TOL}
+    print("moe dispatch", json.dumps(out), flush=True)
+    check(dropped == 0, f"(b) the drop-free scatter dropped {dropped}")
+    check(out["logits_rel_l2"] <= MOE_DISPATCH_TOL["logits"]
+          and out["loss_rel_diff"] <= MOE_DISPATCH_TOL["loss"]
+          and worst[1] <= MOE_DISPATCH_TOL["grad_l2"],
+          f"(b) scatter vs dense: {out}")
+    return out
+
+
+def moe_twin_part(torch, fa, pe):
+    """(c) the zoo twin's CONFIG with 4 experts in block 1 (top-1,
+    scatter, capacity factor 1.25, bf16), 5 Adam steps on the card and
+    on the CPU from the same weights and batches: the tokens whose
+    expert differs at the first step (the router's strict-f32 product on
+    each side's own input), and the losses within TRAJ_TOL."""
+    from elasticdl_tpu_torch.core.step import build_train_step
+    from elasticdl_tpu_torch.core.train_state import init_train_state
+    from elasticdl_tpu_torch.model_zoo.transformer import (
+        transformer_lm as zoo,
+    )
+    from elasticdl_tpu_torch.models.transformer import TransformerLM
+
+    cfg = dataclasses.replace(zoo.CONFIG, moe_experts=4, moe_every=2,
+                              moe_dispatch="scatter")
+    batches = chain_batches(5, 8, cfg.max_len, cfg.vocab_size, SEED + 92)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = TransformerLM(cfg).to(dev)
+        model.load_state_dict(moe_weights(cfg))
+        model.train()
+        routed = []
+
+        def hook(module, args, routed=routed):
+            if not routed:
+                with torch.no_grad():
+                    routed.append(module.route(args[0])[0].cpu())
+
+        handle = model.blocks[1].moe.register_forward_pre_hook(hook)
+        state = init_train_state(model, zoo.optimizer(), seed=SEED)
+        step = build_train_step(zoo.loss)
+        before = kernel_launch_counts(fa, pe)
+        losses, dropped = [], []
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            dropped.append(int(moe_dropped(state.model)[0]))
+        handle.remove()
+        runs[dev] = (losses, routed[0], dropped,
+                     launches_since(fa, pe, before))
+    card, cpu = runs["cuda"], runs["cpu"]
+    flips = int((card[1] != cpu[1]).any(-1).sum())
+    rel = [abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0])]
+    out = {"config": "the zoo twin's CONFIG (vocab 256, d 128, 8 heads, "
+                     "2 layers, d_ff 256) with 4 experts in block 1, "
+                     "top-1, scatter 1.25, bf16",
+           "losses_cuda": card[0], "losses_cpu": cpu[0],
+           "loss_max_rel_diff": max(rel), "tokens": int(card[1].shape[0]
+                                                        * card[1].shape[1]),
+           "tokens_routed_differently": flips,
+           "dropped_cuda": card[2], "dropped_cpu": cpu[2],
+           "launches_cuda": card[3], "tol": TRAJ_TOL["loss"]}
+    print("moe twin", json.dumps(out), flush=True)
+    check(all(v == (cfg.n_layers * len(batches) if k in FLASH_PATH else 0)
+              for k, v in card[3].items()), f"(c) card launches {card[3]}")
+    check(max(rel) <= TRAJ_TOL["loss"], f"(c) card vs CPU losses: {out}")
+    check(card[0][-1] < card[0][0], f"(c) the loss did not fall: {out}")
+    return out
+
+
+def flagship_on_card(torch):
+    """The flagship (FLAGSHIP, bf16) built on the card with the twin's
+    own seeded initialisation."""
+    from elasticdl_tpu_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+    )
+
+    torch.manual_seed(SEED)
+    with torch.device(DEVICE):
+        return TransformerLM(TransformerConfig(**FLAGSHIP))
+
+
+def fused_head_part(torch, fa, pe, model):
+    """(d) the flagship with the fused head against the materialised
+    head at B 8 x S 1024 on the card, one training forward and backward
+    each with the same weights: the loss and lm_head's gradients
+    (FUSED_TOL), #1 = #3 = #4 = 8 launches each, and the peak memory of
+    each step above what was allocated before it (the fused one must be
+    lower)."""
+    from elasticdl_tpu_torch.model_zoo.transformer import (
+        transformer_lm as zoo,
+    )
+
+    cfg = model.cfg
+    batch = chain_batches(1, TRAIN_BATCH, FLAGSHIP["max_len"],
+                          FLAGSHIP["vocab_size"], SEED + 93)[0]
+    runs = {}
+    try:
+        for fused in (True, False):
+            with_cfg(model, dataclasses.replace(cfg, fused_head=fused))
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = kernel_launch_counts(fa, pe)
+            loss, _, grads = moe_grads(torch, model, batch, zoo.loss)
+            counts = launches_since(fa, pe, before)
+            peak = torch.cuda.max_memory_allocated() - base
+            runs[fused] = (loss, {n: grads[n] for n in (
+                "lm_head.weight", "lm_head.bias")}, peak, counts)
+            del grads
+    finally:
+        with_cfg(model, cfg)
+    (f_loss, f_grads, f_peak, f_counts), (p_loss, p_grads, p_peak,
+                                          p_counts) = runs[True], runs[False]
+    gaps = {n: rel_l2(f_grads[n], p_grads[n]) for n in f_grads}
+    out = {"batch": TRAIN_BATCH, "seq": FLAGSHIP["max_len"],
+           "loss_fused": f_loss, "loss_plain": p_loss,
+           "loss_rel_diff": abs(f_loss - p_loss) / abs(p_loss),
+           "lm_head_grad_l2": gaps,
+           "peak_bytes_above_start": {"fused": f_peak, "plain": p_peak},
+           "launches": {"fused": f_counts, "plain": p_counts},
+           "tol": FUSED_TOL}
+    print("fused head", json.dumps(out), flush=True)
+    for counts in (f_counts, p_counts):
+        check(all(v == (cfg.n_layers if k in FLASH_PATH else 0)
+                  for k, v in counts.items()), f"(d) launches {counts}")
+    check(out["loss_rel_diff"] <= FUSED_TOL["loss"]
+          and max(gaps.values()) <= FUSED_TOL["grad_l2"],
+          f"(d) fused vs materialised head: {out}")
+    check(f_peak < p_peak, f"(d) the fused head's peak is not lower: {out}")
+    return out
+
+
+def generate_part(torch, fa, pe, model):
+    """(e) ``generate`` with the flagship (d)'s weights: B 8, a 128-token
+    prompt, 64 greedy tokens; ms a token (CUDA events over the whole
+    call, and the host's wall); no kernel launches while decoding
+    (dense attention over the cache, as JAX's decode); then the full
+    forward (#1) over prompt + generated: each token its argmax, or at a
+    near-tie (GEN_MARGIN_ULPS) one of its top two."""
+    from elasticdl_tpu_torch.models.transformer import generate
+
+    cfg = model.cfg
+    prompt = np.random.default_rng(SEED + 94).integers(
+        0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT)).astype(np.int32)
+    generate(cfg, model, prompt[:, :8], 2)                # warm
+    torch.cuda.synchronize()
+    before = kernel_launch_counts(fa, pe)                 # decoding starts
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    tokens = generate(cfg, model, prompt, GEN_NEW)
+    end.record()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    decode_counts = launches_since(fa, pe, before)        # ... and ends
+    device_ms = start.elapsed_time(end)
+    tokens = tokens.cpu().numpy()
+    full = np.concatenate([prompt, tokens], axis=1)[:, :-1]
+    before = kernel_launch_counts(fa, pe)
+    with torch.inference_mode():
+        logits = model.eval()(torch.as_tensor(full, device=DEVICE))[
+            :, GEN_PROMPT - 1:].float()
+    forward_counts = launches_since(fa, pe, before)
+    top2 = logits.topk(2, dim=-1)
+    top, second = top2.values[..., 0], top2.values[..., 1]
+    margin = GEN_MARGIN_ULPS * torch.exp2(
+        torch.floor(torch.log2(top.abs().clamp_min(1e-30))) - 7)
+    near = ((top - second) <= margin).cpu().numpy()
+    chosen = logits.gather(-1, torch.as_tensor(
+        tokens, device=logits.device).long()[..., None])[..., 0]
+    within_margin = ((top - chosen) <= margin).cpu().numpy()
+    first = top2.indices[..., 0].cpu().numpy() == tokens
+    out = {"batch": GEN_BATCH, "prompt": GEN_PROMPT, "new": GEN_NEW,
+           "ms_per_token": device_ms / GEN_NEW,
+           "wall_ms_per_token": wall_ms / GEN_NEW,
+           "issue_ms_per_token": issue_ms / GEN_NEW,
+           "tokens_per_s": GEN_BATCH * GEN_NEW / (wall_ms / 1e3),
+           "decode_launches": decode_counts,
+           "forward_launches": forward_counts,
+           "positions": int(near.size), "near_ties": int(near.sum()),
+           "margin_bf16_steps": GEN_MARGIN_ULPS,
+           "argmax_equal": int(first.sum()),
+           "other_token_within_margin": int((~first & within_margin).sum()),
+           "outside_margin": int((~within_margin).sum()),
+           "min_top2_gap": float((top - second).min())}
+    print("generate", json.dumps(out), flush=True)
+    check(tokens.shape == (GEN_BATCH, GEN_NEW), f"(e) shape {tokens.shape}")
+    check(not any(decode_counts.values()),
+          f"(e) decoding launched {decode_counts}")
+    check(all(v == (cfg.n_layers if k == "flash_attention_fwd" else 0)
+              for k, v in forward_counts.items()),
+          f"(e) the full forward's launches {forward_counts}")
+    check(out["outside_margin"] == 0,
+          f"(e) generated tokens vs the full forward: {out}")
+    return out
+
+
+def moe_mh_config():
+    from elasticdl_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(**dict(MOE, n_layers=MOE_MH_LAYERS,
+                                    max_len=TP_SEQ))
+
+
+def moe_mh_run(torch, fa, pe, layout, pid=None):
+    """(f)'s run of ``layout`` (MOE_MH_LAYOUTS) through MeshRunner with
+    the transformer's rules: in process ``pid`` its block of the batches
+    (None: the one-process run, every entry here). Returns its record
+    and its whole parameters."""
+    from elasticdl_tpu_torch.model_zoo.transformer import (
+        transformer_lm as zoo,
+    )
+    from elasticdl_tpu_torch.models.transformer import (
+        TransformerLM,
+        transformer_sharding_rules,
+    )
+    from elasticdl_tpu_torch.parallel import multihost
+    from elasticdl_tpu_torch.parallel import rules
+    from elasticdl_tpu_torch.parallel.mesh import make_mesh
+    from elasticdl_tpu_torch.parallel.mesh_runner import MeshRunner
+
+    shape, axes, changes = MOE_MH_LAYOUTS[layout]
+    base = moe_mh_config()
+    cfg = dataclasses.replace(base, **changes)
+    per = int(np.prod(shape)) // (1 if pid is None else MH_PROCS)
+    mesh = make_mesh(shape, axes, [torch.device(DEVICE)] * per)
+    model = TransformerLM(cfg, mesh=mesh).to(DEVICE)
+    model.load_state_dict(moe_weights(base))
+    runner = MeshRunner(mesh, param_rule=rules.regex_param_rule(
+        transformer_sharding_rules(), mesh=mesh),
+        batch_rule=zoo.batch_sharding_rule)
+    state = runner.init_state(
+        model, lambda params: torch.optim.Adam(params, lr=1e-3), seed=SEED)
+    step = runner.train_step(zoo.loss)
+    batches = chain_batches(MOE_MH_STEPS, TP_BATCH, TP_SEQ,
+                            cfg.vocab_size, SEED + 95)
+    if pid is not None and "dp" in layout:
+        rows = TP_BATCH // MH_PROCS
+        batches = [{k: v[pid * rows:(pid + 1) * rows] for k, v in b.items()}
+                   for b in batches]
+    batches = [runner.place_batch(b) for b in batches]
+    clock = CollectiveClock(torch, multihost)
+    try:
+        torch.cuda.synchronize()
+        reset_kernel_launches(fa, pe)             # the path starts here
+        dropped = []
+        losses, times = [], {"step_ms": [], "issue_ms": [],
+                             "collective_ms": []}
+        for b in batches:
+            state, ls, t = mh_timed_steps(torch, step, state, [b], clock)
+            losses += ls
+            for k in times:
+                times[k] += t[k]
+            dropped.append(int(state.model.blocks[1].moe.dropped)
+                           if cfg.moe_dispatch == "scatter" else None)
+        torch.cuda.synchronize()
+        counts = kernel_launch_counts(fa, pe)     # ... and ends here
+    finally:
+        clock.restore()
+    held = list(state.model.blocks[1].moe.wi.shape)
+    record = {"losses": losses, **times, "launches": counts,
+              "dropped": dropped, "wi_held": held,
+              "collective_ms_by_name": clock.ms_by_name}
+    params = whole_params(runner, state)
+    del state, model
+    torch.cuda.empty_cache()
+    return record, params
+
+
+def mh_child_moe(torch, fa, pe, pid, root, out):
+    """(f) in process ``pid``: ``ep`` across the processes, then the
+    scatter under ``dp`` across them; the whole parameters saved."""
+    res = {}
+    for layout in MOE_MH_LAYOUTS:
+        record, params = moe_mh_run(torch, fa, pe, layout, pid)
+        torch.save(params, os.path.join(root, f"moe_{layout}_{pid}.pt"))
+        res[layout] = record
+    out["moe"] = res
+
+
+def moe_mh_references(torch, fa, pe):
+    """(f)'s one-process runs, every entry here: per layout its record
+    and whole parameters."""
+    return {layout: moe_mh_run(torch, fa, pe, layout)
+            for layout in MOE_MH_LAYOUTS}
+
+
+def moe_mh_results(torch, root, res, refs):
+    """(f) of both processes against the one-process runs ``refs``:
+    losses and changes within MOE_MH_TOL, the processes' losses and
+    whole parameters equal, the dropped choices the one-process run's
+    (MOE_MH_DROP_SLACK after the first step), the experts held a half a
+    process under ``ep``, launches as one process's. Returns the line
+    and the launches by part and process."""
+    out, launches = {}, {}
+    start = {k: v.float() for k, v in moe_weights(moe_mh_config()).items()}
+    for layout in MOE_MH_LAYOUTS:
+        ref, ref_params = refs[layout]
+        rec = {pid: res[pid]["moe"][layout] for pid in res}
+        params = [torch.load(os.path.join(root, f"moe_{layout}_{pid}.pt"))
+                  for pid in sorted(res)]
+        equal = all(torch.equal(params[0][k], params[1][k])
+                    for k in params[0])
+        gaps = tp_gaps(params[0], ref_params, start, rec[0]["losses"],
+                       ref["losses"])
+        if layout == "ep":
+            dropped = rec[0]["dropped"]
+            split = (rec[0]["wi_held"][0] * MH_PROCS == ref["wi_held"][0]
+                     == MOE["moe_experts"])
+        else:
+            dropped = [a + b for a, b in zip(rec[0]["dropped"],
+                                             rec[1]["dropped"])]
+            split = rec[0]["wi_held"] == ref["wi_held"]
+        out[layout] = {"mesh": str(MOE_MH_LAYOUTS[layout][:2]), **gaps,
+                       "losses": {p: rec[p]["losses"] for p in rec},
+                       "losses_one_process": ref["losses"],
+                       "dropped": dropped, "dropped_one_process":
+                       ref["dropped"], "params_equal_across_processes":
+                       equal, "one_process": ref,
+                       **{f"p{p}": rec[p] for p in rec}}
+        for pid in rec:
+            launches[f"moe_{layout}_p{pid}"] = rec[pid]["launches"]
+            check(rec[pid]["launches"] == ref["launches"]
+                  and ref["launches"]["flash_attention_fwd"] > 0,
+                  f"(f) {layout} process {pid} launches "
+                  f"{rec[pid]['launches']}, one process {ref['launches']}")
+        check(split, f"(f) {layout}: the experts held {rec[0]['wi_held']}")
+        check(rec[0]["losses"] == rec[1]["losses"] and equal
+              and all(np.isfinite(rec[0]["losses"])),
+              f"(f) {layout}: the processes differ {out[layout]['losses']}")
+        # The first step starts from the same weights: the processes
+        # drop the one-process run's choices (ranked locally, each would
+        # fill the slots from 0 and drop hundreds fewer). Later steps
+        # start from weights a bf16 rounding apart, where a near-tie
+        # may route a token elsewhere: within MOE_MH_DROP_SLACK.
+        check(dropped[0] == ref["dropped"][0] and all(
+            abs(d - r) <= MOE_MH_DROP_SLACK * r
+            for d, r in zip(dropped, ref["dropped"])),
+            f"(f) {layout}: dropped {dropped}, one process "
+            f"{ref['dropped']}")
+        check(layout != "dp" or min(ref["dropped"]) > 0,
+              f"(f) dp: nothing dropped {ref['dropped']}")
+        tol = MOE_MH_TOL[layout]
+        check(gaps["loss_max_rel_diff"] <= tol["loss"]
+              and gaps["delta_l2"] <= tol["delta_l2"],
+              f"(f) {layout} vs one process: {gaps}, limits {tol}")
+    out["tol"] = MOE_MH_TOL
+    return out, launches
+
+
+def moe_local_parts(torch, fa, pe, root):
+    """(a)-(e) and (f)'s one-process references: what the phase runs in
+    this process. In the whole smoke it runs while the checkpoint
+    phase's evaluate/predict subprocesses do (its step times then share
+    the host with them and with the multihost processes; ``--phase
+    moe`` gives them the host alone)."""
+    marks, out = {}, {}
+    t = time.monotonic()
+    out["training"], counts, model = moe_training_part(torch, fa, pe, root)
+    marks["a"] = time.monotonic() - t
+    t = time.monotonic()
+    out["dispatch"] = moe_dispatch_part(torch, fa, pe, model)
+    del model
+    torch.cuda.empty_cache()
+    marks["b"] = time.monotonic() - t
+    t = time.monotonic()
+    out["twin"] = moe_twin_part(torch, fa, pe)
+    marks["c"] = time.monotonic() - t
+    t = time.monotonic()
+    model = flagship_on_card(torch)
+    out["fused_head"] = fused_head_part(torch, fa, pe, model)
+    marks["d"] = time.monotonic() - t
+    t = time.monotonic()
+    out["generate"] = generate_part(torch, fa, pe, model)
+    del model
+    torch.cuda.empty_cache()
+    marks["e"] = time.monotonic() - t
+    t = time.monotonic()
+    refs = moe_mh_references(torch, fa, pe)
+    marks["f_references"] = time.monotonic() - t
+    launches = {"training": counts,
+                "fused_head": out["fused_head"]["launches"]["fused"],
+                "plain_head": out["fused_head"]["launches"]["plain"],
+                "generate": out["generate"]["decode_launches"]}
+    return {"out": out, "launches": launches, "refs": refs,
+            "part_s": marks}
+
+
+def moe_phase(torch, fa, pe, root, started, local=None, res=None):
+    """(a)-(e) here (``local``: ``moe_local_parts``' result where the
+    whole smoke ran them already); (f) from the multihost processes'
+    results ``res`` (``--phase moe`` writes the go file for their moe
+    part alone and waits for them). Returns the phase's line and its
+    launches by part."""
+    if res is None:
+        multihost_go(started, "moe")
+    if local is None:
+        local = moe_local_parts(torch, fa, pe, root)
+    marks = dict(local["part_s"])
+    t = time.monotonic()
+    if res is None:
+        res = mh_wait(started)
+    marks["f_wait"] = time.monotonic() - t
+    t = time.monotonic()
+    mh, mh_launches = moe_mh_results(torch, started["root"], res,
+                                     local["refs"])
+    marks["f"] = time.monotonic() - t
+    out = {**local["out"], "multihost": mh,
+           "part_s": {k: round(v, 2) for k, v in marks.items()}}
+    return out, {**local["launches"], **mh_launches}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -7817,7 +8532,7 @@ def main(argv=None) -> int:
         "--phase", choices=("all", "fwd", "bwd", "chunk", "lookup", "host",
                             "vision", "tabular", "checkpoint", "worker",
                             "rowservice", "fleet", "parallel", "multihost",
-                            "tpfault"),
+                            "tpfault", "moe"),
         default="all",
         help="fwd: build flash_attention_fwd.cu alone, then run kernel "
              "#1's checks and times and print its kernels row; bwd: the "
@@ -7838,7 +8553,10 @@ def main(argv=None) -> int:
              "parallel across two processes on the card alone (the "
              "embedding and flash kernels); tpfault: the one-process "
              "tensor-parallel run sound and with a planted fault, "
-             "against TP_TOL (the flash kernels)")
+             "against TP_TOL (the flash kernels); moe: the moe config "
+             "trained, scatter vs dense, the MoE twin card vs CPU, the "
+             "fused head, generate, and MoE across the two processes "
+             "(the flash forward and backward kernels)")
     args = parser.parse_args(argv)
     import torch
 
@@ -7848,8 +8566,8 @@ def main(argv=None) -> int:
         return 2
     # The multihost phase's processes start first, so that their imports
     # overlap the earlier phases.
-    mh = (multihost_start(torch) if args.phase in ("all", "multihost")
-          else None)
+    mh = (multihost_start(torch)
+          if args.phase in ("all", "multihost", "moe") else None)
     try:
         return run(args, torch, mh)
     finally:
@@ -7903,7 +8621,8 @@ def run(args, torch, mh) -> int:
              "multihost": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE,
                            fa._CHUNK_SOURCE, fa._BWD_SOURCE, fa._SOURCE],
              "fleet": [fa._SOURCE],
-             "tpfault": [fa._CHUNK_SOURCE, fa._BWD_SOURCE, fa._SOURCE]}
+             "tpfault": [fa._CHUNK_SOURCE, fa._BWD_SOURCE, fa._SOURCE],
+             "moe": [fa._BWD_SOURCE, fa._SOURCE]}
     logs = _build.build_all(alone.get(args.phase))
     print(f"built {sorted(logs)} in {time.monotonic() - t0:.1f}s",
           flush=True)
@@ -7923,9 +8642,15 @@ def run(args, torch, mh) -> int:
         print(json.dumps({"kernels": lookup_phase(torch, pe)}))
         return 0
     if args.phase in ("checkpoint", "worker", "fleet", "parallel",
-                      "multihost", "tpfault"):
+                      "multihost", "tpfault", "moe"):
         with tempfile.TemporaryDirectory() as root:
-            if args.phase == "multihost":
+            if args.phase == "moe":
+                t1 = time.monotonic()
+                line, _ = moe_phase(torch, fa, pe, root, mh)
+                line = {"moe": line}
+                print(json.dumps({"phase_s": {
+                    "moe": round(time.monotonic() - t1, 2)}}))
+            elif args.phase == "multihost":
                 t1 = time.monotonic()
                 line, _ = multihost_phase(torch, fa, pe, root, mh)
                 line = {"multihost": line}
@@ -7991,8 +8716,16 @@ def run(args, torch, mh) -> int:
         # phase's evaluate/predict subprocesses run and, for their
         # tensor- and sequence-parallel parts, the worker phase; their
         # results are held to the parallel phase's runs below.
-        checkpoint = checkpoint_phase(torch, fa, pe, root,
-                                      lambda: multihost_go(mh))
+        # While the checkpoint phase's evaluate/predict subprocesses
+        # run: the multihost processes set up and train, and the moe
+        # phase's parts in this process run.
+        moe_local = {}
+
+        def while_jobs():
+            multihost_go(mh, "all")
+            moe_local.update(moe_local_parts(torch, fa, pe, root))
+
+        checkpoint = checkpoint_phase(torch, fa, pe, root, while_jobs)
         mark("checkpoint")
         # The row service's main boots in a subprocess while the worker
         # phase runs.
@@ -8017,6 +8750,9 @@ def run(args, torch, mh) -> int:
             torch, fa, pe, root, mh, reuse.pop("recsys"), mh_results,
             reuse.pop("tp"))
         mark("multihost")
+        moe, moe_counts = moe_phase(torch, fa, pe, root, mh, moe_local,
+                                    mh_results)
+        mark("moe")
     fused = fused_path_phase(torch, pe)
     sweep, sweep_counts = sweep_phase(torch, pe)
     emb_times = embedding_times(torch, pe)
@@ -8064,6 +8800,9 @@ def run(args, torch, mh) -> int:
         row["launches_multihost"] = {
             part: counts[row["name"]]
             for part, counts in multihost_counts.items()}
+        row["launches_moe"] = {
+            part: counts[row["name"]]
+            for part, counts in moe_counts.items()}
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"sparse_training": sparse}))
@@ -8077,6 +8816,7 @@ def run(args, torch, mh) -> int:
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"multihost": multihost}))
+    print(json.dumps({"moe": moe}))
     marks["total"] = round(time.monotonic() - t0, 2)
     marks["aim"] = SMOKE_AIM_S
     print(json.dumps({"phase_s": marks}))

@@ -18,8 +18,18 @@ _LAZY = {
                       "TransformerLM"),
     "TransformerConfig": ("elasticdl_tpu_torch.models.transformer",
                           "TransformerConfig"),
+    "generate": ("elasticdl_tpu_torch.models.transformer", "generate"),
     "flash_attention": ("elasticdl_tpu_torch.ops.flash_attention",
                         "flash_attention"),
+    "get_model_spec": ("elasticdl_tpu_torch.core.model_spec",
+                       "get_model_spec"),
+    "ModelSpec": ("elasticdl_tpu_torch.core.model_spec", "ModelSpec"),
+    "TrainState": ("elasticdl_tpu_torch.core.train_state", "TrainState"),
+    "MeshRunner": ("elasticdl_tpu_torch.parallel.mesh_runner",
+                   "MeshRunner"),
+    "make_mesh": ("elasticdl_tpu_torch.parallel.mesh", "make_mesh"),
+    "LocalExecutor": ("elasticdl_tpu_torch.api.local_executor",
+                      "LocalExecutor"),
 }
 
 

@@ -9,11 +9,16 @@ dicts of numpy arrays, as ``flax.serialization.msgpack_restore`` or
 - DenseGeneral q/k/v kernels (d, H, Dh) → (H·Dh, d), biases (H, Dh) →
   (H·Dh,); the out kernel (H, Dh, d) → (d, H·Dh);
 - LayerNorm ``scale`` → ``weight``;
-- ``token_embed/embedding`` → ``token_embed.weight``; ``pos_embed`` as is.
+- ``token_embed/embedding`` → ``token_embed.weight``; ``pos_embed`` as is;
+- an MoE block's ``moe/router`` as a Dense, its experts ``moe/wi``
+  (E, d, F) and ``moe/wo`` (E, F, d) as they are (the port keeps
+  flax's layout for them).
 
-``config_from_params`` reads the architecture off the shapes and
-``init_flax_params`` makes a seeded numpy tree in the same layout (the
-flax initializers' scales, for random-weight runs).
+``config_from_params`` reads the architecture off the shapes (which
+blocks hold ``moe`` gives ``moe_every``) and ``init_flax_params`` makes
+a seeded numpy tree in the same layout (the flax initializers' scales,
+for random-weight runs). The MoE routing options are not in the
+parameters: a caller names them, or ``config_from_params`` raises.
 
 ``sparse_state_from_flax`` carries a JAX ``SparseTrainState``'s dense
 params (the recsys ranker's ``Dense_k``) and its tables, slot tables and
@@ -69,23 +74,45 @@ def _n_layers(params: dict) -> int:
     return n
 
 
-def config_from_params(params: dict,
-                       compute_dtype=torch.bfloat16) -> TransformerConfig:
-    """The TransformerConfig whose module has these parameter shapes."""
+MOE_OPTIONS = ("moe_top_k", "moe_dispatch", "moe_capacity_factor")
+
+
+def config_from_params(params: dict, compute_dtype=torch.bfloat16,
+                       **moe) -> TransformerConfig:
+    """The TransformerConfig whose module has these parameter shapes.
+    MoE parameters fix ``moe_experts`` and ``moe_every`` (the first MoE
+    block is block ``moe_every - 1``, and every ``moe_every``-th after
+    it); ``moe_top_k``, ``moe_dispatch`` and ``moe_capacity_factor`` are
+    not in them, so for MoE parameters each must be passed in ``moe``
+    (ValueError names the missing ones; nothing is guessed)."""
     params = _params(params)
     vocab, d_model = np.shape(params["token_embed"]["embedding"])
     block = params["block_0"]
     _, n_heads, head_dim = np.shape(block["attn"]["query"]["kernel"])
-    moe = [params[f"block_{i}"]["moe"] for i in range(_n_layers(params))
-           if "moe" in params[f"block_{i}"]]
+    n_layers = _n_layers(params)
+    moe_blocks = [i for i in range(n_layers)
+                  if "moe" in params[f"block_{i}"]]
+    moe_params = [params[f"block_{i}"]["moe"] for i in moe_blocks]
     d_ff = (np.shape(block["mlp"]["wi"]["kernel"])[1] if "mlp" in block
-            else np.shape(moe[0]["wi"])[2])
+            else np.shape(moe_params[0]["wi"])[2])
+    extra = {}
+    if moe_blocks:
+        every = moe_blocks[0] + 1
+        if moe_blocks != [i for i in range(n_layers) if (i + 1) % every == 0]:
+            raise ValueError(
+                f"MoE in blocks {moe_blocks}: not every k-th block")
+        missing = [name for name in MOE_OPTIONS if name not in moe]
+        if missing:
+            raise ValueError(
+                f"MoE parameters do not record {', '.join(missing)}: pass "
+                "them (e.g. from the zoo module that trained the model)")
+        extra = dict(moe_experts=int(np.shape(moe_params[0]["wi"])[0]),
+                     moe_every=every, **{n: moe[n] for n in MOE_OPTIONS})
     return TransformerConfig(
         vocab_size=int(vocab), d_model=int(d_model), n_heads=int(n_heads),
-        n_layers=_n_layers(params), d_ff=int(d_ff),
+        n_layers=n_layers, d_ff=int(d_ff),
         max_len=int(np.shape(params["pos_embed"])[0]),
-        moe_experts=int(np.shape(moe[0]["wi"])[0]) if moe else 0,
-        compute_dtype=compute_dtype,
+        compute_dtype=compute_dtype, **extra,
     )
 
 
@@ -119,16 +146,19 @@ def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
 
     for i in range(_n_layers(params)):
         block = params[f"block_{i}"]
-        if "mlp" not in block:
-            raise NotImplementedError("MoE blocks not yet ported")
         pre = f"blocks.{i}"
         put(f"{pre}.ln1", _layer_norm(block["ln1"]))
         put(f"{pre}.ln2", _layer_norm(block["ln2"]))
         for name in ("query", "key", "value"):
             put(f"{pre}.attn.{name}", _dense(block["attn"][name]))
         put(f"{pre}.attn.out", _out_dense(block["attn"]["out"]))
-        put(f"{pre}.mlp.wi", _dense(block["mlp"]["wi"]))
-        put(f"{pre}.mlp.wo", _dense(block["mlp"]["wo"]))
+        if "moe" in block:
+            moe = block["moe"]
+            put(f"{pre}.moe.router", _dense(moe["router"]))
+            put(f"{pre}.moe", {"wi": _t(moe["wi"]), "wo": _t(moe["wo"])})
+        else:
+            put(f"{pre}.mlp.wi", _dense(block["mlp"]["wi"]))
+            put(f"{pre}.mlp.wo", _dense(block["mlp"]["wo"]))
     put("ln_f", _layer_norm(params["ln_f"]))
     put("lm_head", _dense(params["lm_head"]))
     return out
@@ -161,17 +191,24 @@ def init_flax_params(cfg: TransformerConfig, seed: int = 0) -> dict:
         "ln_f": ln(),
         "lm_head": dense((d, cfg.vocab_size), d, (cfg.vocab_size,)),
     }
+    e = cfg.moe_experts
     for i in range(cfg.n_layers):
-        params[f"block_{i}"] = {
+        block = params[f"block_{i}"] = {
             "ln1": ln(), "ln2": ln(),
             "attn": {
                 **{name: dense((d, h, dh), d, (h, dh))
                    for name in ("query", "key", "value")},
                 "out": dense((h, dh, d), h * dh, (d,)),
             },
-            "mlp": {"wi": dense((d, f), d, (f,)),
-                    "wo": dense((f, d), f, (d,))},
         }
+        if e > 0 and (i + 1) % cfg.moe_every == 0:
+            # flax's lecun_normal fans over (E, in, out): fan_in in·E.
+            block["moe"] = {"router": dense((d, e), d, (e,)),
+                            "wi": normal((e, d, f), d * e),
+                            "wo": normal((e, f, d), f * e)}
+        else:
+            block["mlp"] = {"wi": dense((d, f), d, (f,)),
+                            "wo": dense((f, d), f, (d,))}
     return params
 
 

@@ -14,9 +14,13 @@ from elasticdl_tpu_torch.common.device import resolve_device
 from elasticdl_tpu_torch.models.transformer import (
     TransformerConfig,
     TransformerLM,
+    generate,
     transformer_sharding_rules,
 )
-from elasticdl_tpu_torch.ops.losses import masked_next_token_cross_entropy
+from elasticdl_tpu_torch.ops.losses import (
+    fused_next_token_cross_entropy,
+    masked_next_token_cross_entropy,
+)
 from elasticdl_tpu_torch.parallel import rules as rules_lib
 
 CONFIG = TransformerConfig(
@@ -39,6 +43,15 @@ def custom_model(config: TransformerConfig = CONFIG, device=None,
     return TransformerLM(config, mesh=mesh).to(resolve_device(device)).eval()
 
 
+def generate_text(model_or_state, prompt_tokens, max_new_tokens,
+                  temperature=0.0, generator=None,
+                  config: TransformerConfig = CONFIG):
+    """KV-cache decoding with the trained model (greedy by default;
+    sampled from ``generator``, a CPU ``torch.Generator``, above 0)."""
+    return generate(config, model_or_state, prompt_tokens, max_new_tokens,
+                    temperature=temperature, generator=generator)
+
+
 def param_sharding_rules():
     return transformer_sharding_rules()
 
@@ -54,7 +67,11 @@ def batch_sharding_rule(path, leaf):
 
 def loss(labels, predictions, mask):
     """Per-token next-token cross entropy; ``mask`` is the (B,) padded-row
-    mask from the batcher, broadcast over the token dim."""
+    mask from the batcher, broadcast over the token dim. A fused-head
+    model (``config.fused_head``) gives (hidden, kernel, bias) in
+    training, which takes the chunked loss that holds no logits."""
+    if isinstance(predictions, tuple):
+        return fused_next_token_cross_entropy(labels, predictions, mask)
     return masked_next_token_cross_entropy(labels, predictions, mask)
 
 

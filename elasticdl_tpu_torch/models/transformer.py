@@ -48,11 +48,21 @@ a run is reproducible from its seed. ``remat`` recomputes each block
 in the backward (``torch.utils.checkpoint``, non-reentrant); the
 block's seed is drawn outside the checkpointed function, so the
 recompute draws the same masks (and, with a mesh, recomputes the ring
-forward). Not ported yet: MoE, KV-cache decode (``generate``), the
-fused head.
+forward and routes each token as the forward did).
+
+Mixture of experts (``moe_experts > 0``): every ``moe_every``-th block
+holds ``MoE`` in place of ``Mlp``, routed top-k with a dense or a
+capacity-scatter dispatch, the experts placed over ``ep`` (and their
+hidden dim over ``tp``) by the rules. ``fused_head`` makes a training
+forward return ``(hidden, kernel, bias)`` for
+``ops.losses.fused_next_token_cross_entropy`` instead of the logits.
+``generate`` decodes with a ``KVCache``: the prompt in one pass, then
+one token a step.
 """
 
+import contextlib
 import dataclasses
+import math
 from dataclasses import dataclass
 
 from typing import Optional
@@ -92,6 +102,10 @@ def transformer_sharding_rules():
         (r"mlp/wi/weight", P("tp", None)),
         (r"mlp/wi/bias", P("tp")),
         (r"mlp/wo/weight", P(None, "tp")),
+        # The experts keep flax's layout, (E, d, F) and (E, F, d): the
+        # JAX rules apply unchanged.
+        (r"moe/wi", P("ep", None, "tp")),
+        (r"moe/wo", P("ep", "tp", None)),
         (r"token_embed/weight", P("tp", None)),
         (r"lm_head/weight", P("tp", None)),
         (r"lm_head/bias", P("tp")),
@@ -107,10 +121,16 @@ class TransformerConfig:
     d_ff: int = 512
     max_len: int = 512
     dropout_rate: float = 0.0
-    moe_experts: int = 0        # > 0 is not ported yet
+    moe_experts: int = 0        # 0 = dense MLP in every block
+    moe_top_k: int = 1          # experts combined per token (renormed)
+    moe_every: int = 2          # MoE replaces the MLP in every k-th block
+    moe_dispatch: str = "dense"     # or "scatter" (capacity-based)
+    moe_capacity_factor: float = 1.25
     remat: bool = False
     compute_dtype: torch.dtype = torch.bfloat16
-    fused_head: bool = False    # True is not ported yet
+    # A training forward returns (hidden, kernel, bias) for the chunked
+    # fused loss instead of the (B, S, V) logits.
+    fused_head: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -193,13 +213,8 @@ def _column_row(first, last):
 
 
 class SelfAttention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, mesh=None,
-                 decode: bool = False):
+    def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
-        if decode:
-            raise NotImplementedError(
-                "KV-cache decode (generate) not yet ported"
-            )
         self.cfg = cfg
         self.mesh = mesh
         inner = cfg.n_heads * cfg.head_dim
@@ -223,7 +238,11 @@ class SelfAttention(nn.Module):
             f"{self.cfg.head_dim} in {q.dtype}"
         )
 
-    def forward(self, x):
+    def forward(self, x, cache=None, layer: int = 0):
+        """``cache`` (a ``KVCache``): the decode step of layer
+        ``layer``."""
+        if cache is not None:
+            return self._decode_step(x, cache, layer)
         cfg = self.cfg
         b, s, _ = x.shape
         split = _column_row(self.query, self.out)
@@ -252,6 +271,33 @@ class SelfAttention(nn.Module):
             y = part if y is None else y + part
         return tp.reduce_from(y, group) + self.out.bias.to(dt)
 
+    def _decode_step(self, x, cache, layer):
+        """KV-cache decoding (JAX's ``_decode_step``): the new tokens'
+        K and V are written into the cache in place at its fill index,
+        and the queries attend over the whole cache through
+        ``dense_attention`` with ``q_offset`` at the fill index, whose
+        causal mask also hides the slots still empty. This is the JAX
+        package's own decode path, which reaches no Pallas kernel; it is
+        no fallback from the flash kernel. Runs unsharded."""
+        cfg = self.cfg
+        if self.mesh is not None or any(
+                tp.placement(d, "weight") is not tp.WHOLE
+                for d in (self.query, self.key, self.value, self.out)):
+            raise NotImplementedError(
+                "decode runs unsharded (as JAX's generate, mesh=None)")
+        b, t, _ = x.shape
+        idx = cache.index
+        cache.check_room(t)
+        shape = (b, t, cfg.n_heads, cfg.head_dim)
+        q, k, v = (d(x).view(shape)
+                   for d in (self.query, self.key, self.value))
+        cache_k, cache_v = cache.k[layer], cache.v[layer]
+        cache_k[:, idx:idx + t] = k
+        cache_v[:, idx:idx + t] = v
+        o = dense_attention(q, cache_k, cache_v, causal=True,
+                            scale=cfg.head_dim ** -0.5, q_offset=idx)
+        return self.out(o.reshape(b, t, cfg.n_heads * cfg.head_dim))
+
 
 class Mlp(nn.Module):
     def __init__(self, cfg: TransformerConfig):
@@ -271,6 +317,244 @@ class Mlp(nn.Module):
             part = _linear(h, w_out, None, dt)
             y = part if y is None else y + part
         return tp.reduce_from(y, group) + self.wo.bias.to(dt)
+
+
+@contextlib.contextmanager
+def _strict_f32():
+    """f32 products in full f32 precision (no TF32), whatever the
+    caller's setting."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+class _StrictLinear(torch.autograd.Function):
+    """``F.linear`` in f32 with TF32 off, forward and backward: the
+    router's logits decide each token's expert, and a TF32 product
+    could route a near-tie differently from the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        with _strict_f32():
+            return F.linear(x, weight, bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        flat = grad.reshape(-1, grad.shape[-1])
+        with _strict_f32():
+            grad_x = grad @ weight
+            grad_w = flat.t() @ x.reshape(-1, x.shape[-1])
+        return grad_x, grad_w, flat.sum(0)
+
+
+class Router(Dense):
+    """The MoE router: flax ``Dense(E, dtype=float32)`` on ``x`` in f32,
+    its product in strict f32 (``_StrictLinear``)."""
+
+    def __init__(self, in_features, out_features):
+        super().__init__(in_features, out_features, torch.float32)
+
+    def forward(self, x):
+        return _StrictLinear.apply(x.float(), self.weight, self.bias)
+
+
+def capacity(tokens: int, k: int, experts: int, factor: float) -> int:
+    """The scatter dispatch's slots an expert: ceil(T·k/E·cf), within
+    [1, T]."""
+    return max(min(int(math.ceil(tokens * k / experts * factor)), tokens), 1)
+
+
+def capacity_slots(top_idx, experts: int, cap: int, offsets=None):
+    """Each (token, choice)'s slot in its expert's buffer and whether it
+    is kept (slot < ``cap``), as JAX's ``_scatter_dispatch`` ranks them:
+    a cumsum of the one-hot over the (T·k, E) choices flattened token
+    by token, all k choices of a token before the next token's.
+    ``top_idx``: (B, S, k) expert ids; ``offsets``: (B, E) choices of
+    each expert that come before each row in the global token order
+    (default: the rows before it in this batch). Returns (pos, keep),
+    each (B, S, k)."""
+    b, s, k = top_idx.shape
+    onehot = F.one_hot(top_idx.reshape(b, s * k), experts)  # (B, S·k, E)
+    counts = onehot.sum(1)                                  # (B, E)
+    if offsets is None:
+        offsets = counts.cumsum(0) - counts
+    ranks = onehot.cumsum(1) - 1 + offsets[:, None, :]
+    pos = (ranks * onehot).sum(-1).reshape(b, s, k)
+    return pos, pos < cap
+
+
+class MoE(nn.Module):
+    """Routed mixture of experts (JAX's ``MoE``): a strict-f32 router,
+    softmax gates, top-k (k > 1 renormalises the kept gates by
+    max(sum, 1e-9); k = 1 keeps the raw gate), then the experts
+    ``wi`` (E, d, F) and ``wo`` (E, F, d), f32 parameters in flax's
+    layout applied in the compute dtype with the tanh GELU between, by
+    ``cfg.moe_dispatch``:
+
+    - ``dense``: every token through every expert, (B, E, S, F), the
+      outputs weighted by the one-hot combine;
+    - ``scatter``: each kept choice copied into its expert's slot of an
+      (E, C, d) buffer (``capacity_slots``; C = ``capacity`` of the
+      global batch's T tokens), the experts run over their slots, each
+      choice's row gathered back weighted by its gate; choices past C
+      are dropped (they add a zero row at slot 0, so the accumulating
+      index-put is exact in any order). A single-token decode step
+      takes the dense dispatch.
+
+    Placement (``tensor_parallel.placement``, set by the runner's rules
+    ``moe/wi`` ``P("ep", None, "tp")`` and ``moe/wo`` ``P("ep", "tp",
+    None)``): each local entry computes its block of experts over its
+    block of the hidden dim (an unplaced layer is one entry, ``WHOLE``);
+    under dense dispatch an entry's output is weighted by its experts'
+    combine columns, under scatter it takes its experts' rows of the
+    buffer and gathers back only the choices routed to them; the
+    entries' partial outputs are summed. The input and the gates pass
+    ``copy_to`` and the sum ``reduce_from`` over the group of the
+    ``ep`` and ``tp`` axes, so the router's gradient is whole on every
+    process. Where the data axes span processes (``global_batch``, set
+    by the runners), the scatter's capacity and ranks are the global
+    batch's: the processes exchange their rows' per-expert counts and
+    each ranks its choices after those of the tokens before its own.
+
+    ``dropped`` (a device scalar) counts the choices the last forward
+    dropped, of ``choices``."""
+
+    reads_placed = True
+
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        if cfg.moe_dispatch not in ("dense", "scatter"):
+            # A typo must not silently buy the E-times-dearer dense einsum.
+            raise ValueError(
+                f"moe_dispatch must be 'dense' or 'scatter', got "
+                f"{cfg.moe_dispatch!r}")
+        e, d, f = cfg.moe_experts, cfg.d_model, cfg.d_ff
+        self.cfg = cfg
+        self.router = Router(d, e)
+        # lecun-normal over flax's fans: fan_in = d·E for (E, d, F).
+        self.wi = nn.Parameter(torch.randn(e, d, f) / math.sqrt(d * e))
+        self.wo = nn.Parameter(torch.randn(e, f, d) / math.sqrt(f * e))
+        self.global_batch = None
+        self.dropped, self.choices = None, 0
+
+    def route(self, x):
+        """``(top_idx, top_vals)``, each (B, S, k): the experts each token
+        chose and their gates (f32)."""
+        gates = torch.softmax(self.router(x), dim=-1)
+        k = min(self.cfg.moe_top_k, self.cfg.moe_experts)
+        top_vals, top_idx = torch.topk(gates, k, dim=-1)
+        if k > 1:
+            top_vals = top_vals / top_vals.sum(
+                -1, keepdim=True).clamp_min(1e-9)
+        return top_idx, top_vals
+
+    def _entries(self):
+        """(group, [(wi view, wo view, first expert)]) of the local
+        entries."""
+        wi, wo = tp.placement(self, "wi"), tp.placement(self, "wo")
+        axes_in = {d: wi.axes_of(d) for d in wi.dims}
+        axes_out = {d: wo.axes_of(d) for d in wo.dims}
+        if (not set(axes_in) <= {0, 2} or not set(axes_out) <= {0, 1}
+                or axes_in.get(0) != axes_out.get(0)
+                or axes_in.get(2) != axes_out.get(1)):
+            raise NotImplementedError(
+                "the experts are placed by (ep, None, tp) and (ep, tp, "
+                f"None) alike or not at all: got {wi}, {wo}")
+        group = wi.group()
+        entries = list(zip(tp.entry_views(self, "wi"),
+                           tp.entry_views(self, "wo"),
+                           tp.entry_starts(self, "wi", 0)))
+        return group, entries
+
+    def forward(self, x, decode_step: bool = False):
+        cfg = self.cfg
+        dt = cfg.compute_dtype
+        top_idx, top_vals = self.route(x)
+        group, entries = self._entries()
+        x = tp.copy_to(x.to(dt), group)
+        if cfg.moe_dispatch == "scatter" and not decode_step:
+            out = self._scatter(x, top_idx, tp.copy_to(top_vals, group),
+                                entries)
+        else:
+            combine = (F.one_hot(top_idx, cfg.moe_experts).to(top_vals.dtype)
+                       * top_vals[..., None]).sum(-2)          # (B, S, E)
+            out = self._dense(x, tp.copy_to(combine, group), entries)
+        return tp.reduce_from(out, group)
+
+    def _dense(self, x, combine, entries):
+        dt = self.cfg.compute_dtype
+        out = None
+        for wi, wo, first in entries:
+            h = F.gelu(torch.einsum("bsd,edf->besf", x, wi.to(dt)),
+                       approximate="tanh")
+            y = torch.einsum("besf,efd->besd", h, wo.to(dt))
+            part = torch.einsum(
+                "besd,bse->bsd", y,
+                combine[..., first:first + wi.shape[0]].to(y.dtype))
+            out = part if out is None else out + part
+        return out
+
+    def _offsets(self, top_idx):
+        """(B, E): each expert's choices in the global batch before each
+        of this process's rows (token order: row by row, and within a
+        row the sequence blocks in order); None where the batch is this
+        process's alone."""
+        gb = self.global_batch
+        if gb is None or (gb.count == 1 and gb.seq_count == 1):
+            return None
+        b, s, k = top_idx.shape
+        e = self.cfg.moe_experts
+        counts = F.one_hot(top_idx.reshape(b, s * k), e).sum(1)   # (B, E)
+        where = torch.tensor([[gb.index, gb.seq_index]],
+                             device=counts.device)
+        blocks = gb.gather(where)                           # (Q, 2)
+        parts = gb.gather(counts).view(-1, b, e)            # (Q, B, E)
+        rows = blocks[:, :1] * b + torch.arange(b, device=counts.device)
+        table = counts.new_zeros(gb.count * b, gb.seq_count, e)
+        table[rows, blocks[:, 1:]] = parts
+        flat = table.reshape(-1, e)
+        before = (flat.cumsum(0) - flat).view(gb.count * b, gb.seq_count, e)
+        return before[gb.index * b:(gb.index + 1) * b, gb.seq_index]
+
+    def _scatter(self, x, top_idx, top_vals, entries):
+        cfg = self.cfg
+        dt = cfg.compute_dtype
+        e = cfg.moe_experts
+        b, s, dm = x.shape
+        k = top_idx.shape[-1]
+        gb = self.global_batch
+        total = b * s * (1 if gb is None else gb.count * gb.seq_count)
+        cap = capacity(total, k, e, cfg.moe_capacity_factor)
+        pos, keep = capacity_slots(top_idx, e, cap,
+                                   self._offsets(top_idx))
+        self.dropped = (~keep).sum().detach()
+        self.choices = keep.numel()
+        t = b * s
+        idx, pos, keep = (a.reshape(t, k) for a in (top_idx, pos, keep))
+        safe_pos = torch.where(keep, pos, 0)
+        tokens = x.reshape(t, dm)
+        contrib = tokens[:, None, :] * keep[..., None].to(dt)
+        buf = torch.zeros(e, cap, dm, dtype=dt, device=x.device).index_put(
+            (idx, safe_pos), contrib, accumulate=True)
+        vals = top_vals.reshape(t, k).to(dt)
+        out = None
+        for wi, wo, first in entries:
+            n = wi.shape[0]
+            h = F.gelu(torch.einsum("ecd,edf->ecf", buf[first:first + n],
+                                    wi.to(dt)), approximate="tanh")
+            y = torch.einsum("ecf,efd->ecd", h, wo.to(dt))
+            local = idx - first
+            inside = (local >= 0) & (local < n)
+            rows = y[torch.where(inside, local, 0), safe_pos]   # (T, k, d)
+            rows = rows * (vals * (keep & inside).to(dt))[..., None]
+            part = rows.sum(1)
+            out = part if out is None else out + part
+        return out.reshape(b, s, dm)
 
 
 def dropout(x, rate: float, generator: torch.Generator, global_batch=None):
@@ -297,26 +581,37 @@ def dropout(x, rate: float, generator: torch.Generator, global_batch=None):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, mesh=None):
+    def __init__(self, cfg: TransformerConfig, mesh=None,
+                 use_moe: bool = False):
         super().__init__()
         self.rate = cfg.dropout_rate
         self.ln1 = LayerNorm(cfg.d_model, cfg.compute_dtype)
         self.attn = SelfAttention(cfg, mesh)
         self.ln2 = LayerNorm(cfg.d_model, cfg.compute_dtype)
-        self.mlp = Mlp(cfg)
+        if use_moe:
+            self.moe = MoE(cfg)
+        else:
+            self.mlp = Mlp(cfg)
         self.global_batch = None
 
-    def forward(self, x, seed: Optional[int] = None):
+    def forward(self, x, seed: Optional[int] = None, cache=None,
+                layer: int = 0):
         """``seed`` (training with dropout only) seeds this block's
-        masks, so a recompute under remat draws the same ones."""
+        masks, so a recompute under remat draws the same ones;
+        ``cache`` (a ``KVCache``) makes it the decode step of layer
+        ``layer``."""
         gen = None
         if seed is not None:
             gen = torch.Generator(device=x.device).manual_seed(seed)
-        h = self.attn(self.ln1(x))
+        h = self.attn(self.ln1(x), cache, layer)
         if gen is not None:
             h = dropout(h, self.rate, gen, self.global_batch)
         x = x + h
-        h = self.mlp(self.ln2(x))
+        if hasattr(self, "moe"):
+            h = self.moe(self.ln2(x),
+                         decode_step=cache is not None and x.shape[1] == 1)
+        else:
+            h = self.mlp(self.ln2(x))
         if gen is not None:
             h = dropout(h, self.rate, gen, self.global_batch)
         return x + h
@@ -328,9 +623,17 @@ class _LMHead(_PlacedDense):
     (``lm_head`` rows over ``tp``), each entry computes its block of
     the logits from ``copy_to``'s input, and the blocks are joined, over
     the processes by ``gather_last``, whose backward takes this
-    process's slice: the loss reads whole logits."""
+    process's slice: the loss reads whole logits.
 
-    def forward(self, x):
+    ``fused=True`` (a training forward with ``cfg.fused_head``) returns
+    ``(x, kernel, bias)`` instead, as flax's ``_LMHead``: the kernel
+    (d, V) in the compute dtype and the f32 bias, each gathered whole
+    over ``tp`` (``gather_last``: the backward takes this process's
+    block), for ``fused_next_token_cross_entropy``. Every process of the
+    group then computes the whole loss, so ``x`` passes no ``copy_to``:
+    its gradient is already whole."""
+
+    def forward(self, x, fused: bool = False):
         split = tp.split_over(self, "weight", 0)
         if split is None or tp.split_over(self, "bias", 0) != split:
             raise NotImplementedError(
@@ -338,6 +641,10 @@ class _LMHead(_PlacedDense):
                 f"not at all: got {tp.placement(self, 'weight')}, "
                 f"{tp.placement(self, 'bias')}")
         group = split.group()
+        if fused:
+            kernel = self.weight.to(self.compute_dtype).t()
+            return (x, tp.gather_last(kernel, group),
+                    tp.gather_last(self.bias, group))
         x = tp.copy_to(x, group)
         blocks = [_linear(x, w, b, self.compute_dtype) for w, b in zip(
             tp.entry_views(self, "weight"), tp.entry_views(self, "bias"))]
@@ -352,34 +659,55 @@ def check_token_ids(tokens, vocab_size: int):
         raise ValueError(f"token ids must lie in [0, {vocab_size})")
 
 
-class TransformerLM(nn.Module):
-    """``tokens`` = integer ids (B, S) → f32 logits (B, S, V). With a
-    ``mesh``, attention is the ring over its ``sp`` axis."""
+class KVCache:
+    """The decode state of a ``TransformerLM``: per layer K and V of
+    shape (B, max_len, H, D) in the compute dtype on ``device``, written
+    in place, and the fill index, a host int (decoding reads nothing
+    back from the card)."""
 
-    def __init__(self, cfg: TransformerConfig, mesh=None,
-                 decode: bool = False):
+    def __init__(self, cfg: TransformerConfig, batch: int, device):
+        shape = (batch, cfg.max_len, cfg.n_heads, cfg.head_dim)
+        self.k = [torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+                  for _ in range(cfg.n_layers)]
+        self.v = [torch.zeros_like(k) for k in self.k]
+        self.max_len = cfg.max_len
+        self.index = 0
+
+    def check_room(self, tokens: int):
+        """Raise before a write past the cache's end (JAX's dynamic
+        slice would clamp it and return wrong tokens)."""
+        if self.index + tokens > self.max_len:
+            raise ValueError(
+                f"the KV cache holds {self.max_len} positions: "
+                f"{self.index} filled + {tokens} new overflows it")
+
+
+class TransformerLM(nn.Module):
+    """``tokens`` = integer ids (B, S) → f32 logits (B, S, V), or the
+    fused head's ``(hidden, kernel, bias)`` in training with
+    ``cfg.fused_head``. With a ``mesh``, attention is the ring over its
+    ``sp`` axis. With a ``cache`` (``KVCache``), the forward is a decode
+    step: the tokens sit at the cache's fill index, which moves on by
+    their count."""
+
+    def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
-        if cfg.moe_experts > 0:
-            raise NotImplementedError("MoE blocks not yet ported")
-        if cfg.fused_head:
-            raise NotImplementedError("fused LM head not yet ported")
-        if decode:
-            raise NotImplementedError(
-                "KV-cache decode (generate) not yet ported"
-            )
         self.cfg = cfg
         self.mesh = mesh
         self.token_embed = tp.PlacedEmbedding(cfg.vocab_size, cfg.d_model)
         self.pos_embed = nn.Parameter(
             torch.randn(cfg.max_len, cfg.d_model) * 0.02
         )
-        self.blocks = nn.ModuleList(Block(cfg, mesh)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(
+            Block(cfg, mesh, use_moe=(cfg.moe_experts > 0
+                                      and (i + 1) % cfg.moe_every == 0))
+            for i in range(cfg.n_layers))
         self.ln_f = LayerNorm(cfg.d_model, cfg.compute_dtype)
         self.lm_head = _LMHead(cfg.d_model, cfg.vocab_size,
                                cfg.compute_dtype)
 
-    def forward(self, tokens, generator: Optional[torch.Generator] = None):
+    def forward(self, tokens, generator: Optional[torch.Generator] = None,
+                cache: Optional[KVCache] = None):
         """``generator`` (a CPU generator) seeds dropout in training."""
         cfg = self.cfg
         if tokens.dim() != 2:
@@ -387,7 +715,10 @@ class TransformerLM(nn.Module):
                 f"tokens must be (batch, seq), got {tuple(tokens.shape)}"
             )
         s = tokens.shape[1]
-        offset = self._position_offset(s)
+        if cache is not None:
+            cache.check_room(s)
+        offset = (self._position_offset(s) if cache is None
+                  else cache.index)
         if offset + s > cfg.max_len:
             raise ValueError(
                 f"sequence length {offset + s} > max_len {cfg.max_len}")
@@ -400,19 +731,27 @@ class TransformerLM(nn.Module):
         dtype = cfg.compute_dtype
         x = self.token_embed(tokens).to(dtype)
         x = x + self.pos_embed[offset:offset + s].to(dtype)[None]
-        use_dropout = self.training and cfg.dropout_rate > 0
+        training = self.training and cache is None
+        use_dropout = training and cfg.dropout_rate > 0
         if use_dropout and generator is None:
             raise ValueError("dropout in training needs a generator")
-        for block in self.blocks:
+        for i, block in enumerate(self.blocks):
             seed = None
             if use_dropout:
                 seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
-            if self.training and cfg.remat:
+            if cache is not None:
+                x = block(x, None, cache, i)
+            elif training and cfg.remat:
                 x = torch.utils.checkpoint.checkpoint(
                     block, x, seed, use_reentrant=False)
             else:
                 x = block(x, seed)
-        return self.lm_head(self.ln_f(x)).float()
+        if cache is not None:
+            cache.index += s
+        x = self.ln_f(x)
+        if training and cfg.fused_head:
+            return self.lm_head(x, fused=True)
+        return self.lm_head(x).float()
 
     def _position_offset(self, s: int) -> int:
         """The global position of this process's first token: 0 unless
@@ -424,3 +763,80 @@ class TransformerLM(nn.Module):
             return 0
         lo, hi = mesh.axis_block("sp")
         return lo * (s // (hi - lo))
+
+
+def _decoder(cfg: TransformerConfig, model: TransformerLM) -> TransformerLM:
+    """``model`` where it runs ``cfg`` unsharded, else an unsharded
+    ``TransformerLM(cfg)`` holding its weights (as JAX's
+    ``_generate_fn`` builds ``TransformerLM(cfg, mesh=None)`` over the
+    params; the param tree does not depend on the dispatch or the
+    head). A parameter held as a process's block cannot be copied."""
+    placed = any(getattr(m, "_placed", None) for m in model.modules())
+    if model.cfg == cfg and model.mesh is None and not placed:
+        return model
+    state = model.state_dict()
+    for m in model.modules():
+        for leaf, sharding in getattr(m, "_placed", {}).items():
+            if sharding.spans_processes:
+                raise NotImplementedError(
+                    "generate from a model split across processes: its "
+                    f"{type(m).__name__}.{leaf} holds a block")
+    device = next(model.parameters()).device
+    decoder = TransformerLM(cfg).to(device)
+    decoder.load_state_dict(state)
+    return decoder
+
+
+def generate(cfg: TransformerConfig, model_or_state, prompt,
+             max_new_tokens: int, temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Autoregressive decoding with the KV cache (JAX's ``generate``):
+    the prompt (B, P) prefills the cache in one pass, then one token a
+    step, each fed back on the card (nothing is read back between
+    steps). Temperature 0 is greedy (argmax); above 0 each token is
+    drawn from softmax(logits / T) by inverse transform of a uniform
+    drawn on the CPU from ``generator`` (JAX's ``PRNGKey`` draws cannot
+    be reproduced here). ``model_or_state``: a ``TransformerLM`` or a
+    train state holding one; it decodes unsharded, on its parameters'
+    device, in eval mode. Returns (B, max_new_tokens) int32 tokens on
+    that device."""
+    model = getattr(model_or_state, "model", model_or_state)
+    if max_new_tokens < 1:
+        raise ValueError("max_new_tokens must be >= 1")
+    prompt = torch.as_tensor(prompt)
+    if prompt.dim() != 2:
+        raise ValueError(
+            f"prompt must be (batch, length), got {tuple(prompt.shape)}")
+    total = prompt.shape[1] + max_new_tokens
+    if total > cfg.max_len:
+        raise ValueError(
+            f"prompt ({prompt.shape[1]}) + max_new_tokens "
+            f"({max_new_tokens}) = {total} exceeds max_len {cfg.max_len}")
+    if prompt.numel():
+        check_token_ids(prompt.cpu().numpy(), cfg.vocab_size)
+    decoder = _decoder(cfg, model)
+    device = next(decoder.parameters()).device
+    prompt = prompt.to(device=device, dtype=torch.long)
+    cache = KVCache(cfg, prompt.shape[0], device)
+
+    def sample(logits):
+        if temperature == 0.0:
+            return logits.argmax(-1)
+        cdf = torch.softmax(logits / temperature, dim=-1).cumsum(-1)
+        u = torch.rand((logits.shape[0], 1), generator=generator)
+        picked = torch.searchsorted(cdf, u.to(device=device,
+                                              dtype=cdf.dtype))
+        return picked[:, 0].clamp_max(cfg.vocab_size - 1)
+
+    was_training = decoder.training
+    decoder.eval()
+    try:
+        with torch.no_grad():
+            token = sample(decoder(prompt, cache=cache)[:, -1])
+            out = [token]
+            for _ in range(max_new_tokens - 1):
+                token = sample(decoder(token[:, None], cache=cache)[:, -1])
+                out.append(token)
+    finally:
+        decoder.train(was_training)
+    return torch.stack(out, dim=1).to(torch.int32)

@@ -38,15 +38,13 @@ over the group of the split's axes. One process naming distinct local
 cards still raises: the port runs one process per card.
 """
 
+import itertools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from elasticdl_tpu_torch.parallel.rules import PartitionSpec
-
-WAITS_FOR_ITEM_7 = ("waits for ROADMAP Queue 1 item 7 (expert-parallel "
-                    "placement lands with MoE)")
 
 
 def parse_mesh_args(mesh_shape: str, mesh_axes: str) -> Tuple[
@@ -294,15 +292,21 @@ class NamedSharding:
     is its coordinates along that dim's axes, row-major; a process's
     shards along a dim are a run (its block). The parameter rules of
     this port split one dim (rows of a table, ZeRO's first divisible
-    dim, a ``tp`` rule); the batch's token ids split two
-    (``P("dp", "sp")``). ``dim``, ``num_shards`` and ``local_shards``
-    describe a split of one dim; ``dims`` lists every split dim."""
+    dim, a ``tp`` rule) or two (the experts' ``P("ep", None, "tp")``;
+    the batch's token ids ``P("dp", "sp")``). A process's shards are
+    ordered row-major over the split dims (``block_views``). ``dim``,
+    ``num_shards`` and ``local_shards`` describe a split of one dim;
+    ``dims`` lists every split dim."""
 
     def __init__(self, mesh: Mesh, spec: PartitionSpec = PartitionSpec()):
         self.mesh = mesh
         self.spec = PartitionSpec(*spec)
         self.splits = [(d, _axes(e)) for d, e in enumerate(self.spec)
                        if e is not None]
+        named = [a for _, axes in self.splits for a in axes]
+        if len(set(named)) < len(named):
+            # As jax.sharding.NamedSharding: an axis splits one dim.
+            raise ValueError(f"{self.spec} names a mesh axis twice")
         self.dims = [d for d, _ in self.splits]
         coords = np.indices(mesh.devices.shape)
         local = mesh.local_entries
@@ -377,7 +381,7 @@ class NamedSharding:
     def block_views(self, block: torch.Tensor) -> List[torch.Tensor]:
         """Each local shard's slice of the process's ``block`` of a leaf
         (``local_block``; a parameter placed across processes is held as
-        its block), as views."""
+        its block), as views, row-major over the split dims."""
         if self.is_replicated:
             return [block]
         out = [block]
@@ -385,6 +389,34 @@ class NamedSharding:
             rows = block.shape[d] // len(self.locals[d])
             out = [v.narrow(d, i * rows, rows) for v in out
                    for i in range(len(self.locals[d]))]
+        return out
+
+    def block_starts(self, dim: int, size: int) -> List[int]:
+        """Each local shard's first index along ``dim`` of the whole leaf
+        (``size`` long there), in ``block_views`` order: 0 for a dim the
+        spec does not split."""
+        if dim not in self.dims:
+            return [0] * len(self.block_views_index())
+        rows = size // self.counts[dim]
+        at = self.dims.index(dim)
+        return [combo[at] * rows for combo in self.block_views_index()]
+
+    def block_views_index(self) -> List[tuple]:
+        """The global shard index along each split dim of each local
+        shard, in ``block_views`` order."""
+        return list(itertools.product(*(self.locals[d] for d in self.dims)))
+
+    def whole_slices(self, shape) -> List[tuple]:
+        """Each local shard's slice of a whole leaf of ``shape`` (a tuple
+        of ``slice`` a dim), in ``block_views`` order: what ``views``
+        gives, for arrays that are not tensors (a saved slot)."""
+        out = []
+        for combo in self.block_views_index():
+            index = [slice(None)] * len(shape)
+            for d, i in zip(self.dims, combo):
+                rows = shape[d] // self.counts[d]
+                index[d] = slice(i * rows, (i + 1) * rows)
+            out.append(tuple(index))
         return out
 
     def split(self, tensor: torch.Tensor) -> List[torch.Tensor]:
@@ -395,26 +427,33 @@ class NamedSharding:
                 for v in self.views(tensor)]
 
     def gather(self, shards: Sequence[torch.Tensor]) -> torch.Tensor:
-        """The whole tensor from the local shards of a one-dim split
-        (the all-gather over the split's group where other processes
-        hold the rest)."""
+        """The whole tensor from the local shards (in ``block_views``
+        order; across processes the all-gathers of ``gather_block``)."""
         if self.is_replicated:
             return shards[0]
-        if self.dim is None:
-            raise NotImplementedError(
-                f"gathering a leaf split over two dims ({self.spec}) "
-                f"{WAITS_FOR_ITEM_7}")
-        return self.gather_block(torch.cat(list(shards), dim=self.dim))
+        parts = list(shards)
+        # Join the innermost split dim first: runs of its local count.
+        for d in reversed(self.dims):
+            n = len(self.locals[d])
+            parts = [torch.cat(parts[i:i + n], dim=d)
+                     for i in range(0, len(parts), n)]
+        return self.gather_block(parts[0])
 
     def gather_block(self, block: torch.Tensor) -> torch.Tensor:
-        """The whole tensor from this process's block of a one-dim split
-        (its shards joined): the blocks of the split's group, in order."""
+        """The whole tensor from this process's block (its shards
+        joined): along each split dim that spans processes, the blocks
+        of that dim's group, in order, one dim after the other."""
         if not self.spans_processes:
             return block
         from elasticdl_tpu_torch.parallel import multihost
 
-        return multihost.all_gather(block.movedim(self.dim, 0),
-                                    group=self.group()).movedim(0, self.dim)
+        for d in self.dims:
+            if len(self.locals[d]) == self.counts[d]:
+                continue
+            group = self.mesh.group(list(self.axes_of(d)))
+            block = multihost.all_gather(block.movedim(d, 0),
+                                         group=group).movedim(0, d)
+        return block
 
 
 class ShardedTensor:
@@ -426,11 +465,7 @@ class ShardedTensor:
     rebinds a tensor)."""
 
     def __init__(self, sharding: NamedSharding, shards: List[torch.Tensor]):
-        if len(sharding.dims) > 1:
-            raise NotImplementedError(
-                f"a leaf held split over two dims ({sharding.spec}) "
-                f"{WAITS_FOR_ITEM_7}")
-        if len(shards) != len(sharding.local_shards):
+        if len(shards) != len(sharding.block_views_index()):
             raise ValueError(f"{len(shards)} shards for {sharding}")
         self.sharding = sharding
         self.shards = list(shards)
@@ -442,8 +477,8 @@ class ShardedTensor:
     @property
     def shape(self) -> tuple:
         shape = list(self.shards[0].shape)
-        if self.sharding.dim is not None:
-            shape[self.sharding.dim] *= self.sharding.num_shards
+        for d in self.sharding.dims:
+            shape[d] *= self.sharding.counts[d]
         return tuple(shape)
 
     @property

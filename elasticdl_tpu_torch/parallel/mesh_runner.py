@@ -75,8 +75,9 @@ entry's share (the transformer's Megatron layers, the vocabulary- and
 row-split lookups); a split across processes of a parameter whose
 module does not read its placement raises (a plain ``nn.Embedding``
 reads its table whole: a model builds such a table as a
-``tensor_parallel.PlacedEmbedding``), as does a leaf split over
-two dims (``ep`` placement lands with MoE, item 7). Over processes, a
+``tensor_parallel.PlacedEmbedding``). A leaf may split two dims (the
+experts' ``P("ep", None, "tp")``): it is placed, gathered for a
+checkpoint and split again like a one-dim leaf. Over processes, a
 gradient is summed over the processes that read other data and hold
 the same shard of its parameter: the data axes (every axis but ``tp``,
 ``mp``, ``ep``) that its spec does not name. A mesh without the data
@@ -183,24 +184,19 @@ class MeshRunner:
         return mesh_lib.shard_leaf_over_axis(self.mesh, leaf, self.data_axis)
 
     def _check_placement(self, shardings, model=None):
-        """Refuse what the port does not run: a leaf split over two dims
-        (item 7), slots of an unplaced parameter on any axis but the
-        data axis, and a parameter split across processes whose module
-        does not read its placement (it would read its block as the
-        whole)."""
+        """Refuse what the port does not run: slots of an unplaced
+        parameter on any axis but the data axis, and a parameter split
+        across processes whose module does not read its placement (it
+        would read its block as the whole)."""
         modules = dict(model.named_modules()) if model is not None else {}
         for name, sharding in shardings.items():
-            if len(sharding.dims) > 1:
-                raise NotImplementedError(
-                    f"{name} placed by {sharding.spec}: a leaf split over "
-                    f"two axes {mesh_lib.WAITS_FOR_ITEM_7}")
             if sharding.is_replicated:
                 continue
             if name.startswith("opt_state."):
                 param = shardings.get("params." + name[len("opt_state."):])
                 if (param is None or param.is_replicated) and any(
-                        a != self.data_axis
-                        for a in sharding.axes_of(sharding.dim)):
+                        a != self.data_axis for d in sharding.dims
+                        for a in sharding.axes_of(d)):
                     raise NotImplementedError(
                         f"{name} split over {sharding.spec}: ZeRO splits "
                         f"slots over the data axis {self.data_axis!r}")

@@ -93,6 +93,9 @@ class _Whole:
     def block_views(self, tensor: torch.Tensor) -> List[torch.Tensor]:
         return [tensor]
 
+    def block_starts(self, dim: int, size: int) -> List[int]:
+        return [0]
+
     def group(self):
         return multihost.Group((multihost.process_index(),))
 
@@ -114,6 +117,16 @@ def entry_views(module: torch.nn.Module, name: str) -> List[torch.Tensor]:
     views of the parameter, which holds the process's block (the whole
     tensor on one process; the tensor itself where it is whole)."""
     return placement(module, name).block_views(getattr(module, name))
+
+
+def entry_starts(module: torch.nn.Module, name: str, dim: int
+                 ) -> List[int]:
+    """Each local entry's first index along ``dim`` of ``module``'s whole
+    parameter ``name``, in ``entry_views`` order (an expert block's first
+    expert)."""
+    size = getattr(module, "_whole_shapes", {}).get(
+        name, tuple(getattr(module, name).shape))[dim]
+    return placement(module, name).block_starts(dim, size)
 
 
 def split_over(module: torch.nn.Module, name: str, dim: int):

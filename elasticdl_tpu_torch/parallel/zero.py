@@ -203,11 +203,10 @@ class ZeroOptimizer:
                 yield name, p, slots
                 continue
             sharding = self.shardings[name]
-            for e, view in zip(sharding.local_shards, self._views[name]):
+            for e, view in enumerate(self._views[name]):
                 yield name, view, {
-                    slot: (np.split(np.asarray(value), sharding.num_shards,
-                                    axis=sharding.dim)[e]
-                           if np.ndim(value) else value)
+                    slot: (np.asarray(value)[sharding.whole_slices(
+                        np.shape(value))[e]] if np.ndim(value) else value)
                     for slot, value in slots.items()}
 
     def _load_whole(self, slots: Dict[str, Dict[str, torch.Tensor]]):

@@ -159,14 +159,23 @@ def test_sharding_equality_and_two_split_dims():
     assert (tmesh.NamedSharding(tm, TP("dp"))
             != tmesh.NamedSharding(tm, TP(None, "dp")))
     assert tmesh.NamedSharding(tm, TP(("dp", "tp"))).num_shards == 8
-    # Two split dims (the batch's P("dp", "sp")) place by dims; a leaf
-    # held split over two dims waits for expert placement (item 7).
+    # Two split dims (the batch's P("dp", "sp"), the experts'
+    # P("ep", None, "tp")) place by dims, row-major over them; a leaf
+    # held split over two dims gathers whole and copies back.
     two = tmesh.NamedSharding(tm, TP("dp", "tp"))
     assert two.num_shards == 8 and two.dims == [0, 1]
     value = torch.arange(32.0).reshape(8, 4)
     assert [tuple(v.shape) for v in two.views(value)] == [(2, 2)] * 8
     assert torch.equal(two.views(value)[1], value[:2, 2:])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tmesh.ShardedTensor.from_whole(two, value)
+    assert two.block_starts(0, 8) == [0, 0, 2, 2, 4, 4, 6, 6]
+    assert two.block_starts(1, 4) == [0, 2] * 4
+    assert two.whole_slices((8, 4))[1] == (slice(0, 2), slice(2, 4))
+    st = tmesh.ShardedTensor.from_whole(two, value)
+    assert st.shape == (8, 4) and torch.equal(st.gather(), value)
+    st.copy_(value * 3)
+    assert torch.equal(st.shards[1], value[:2, 2:] * 3)
+    assert torch.equal(tmesh.whole(st), value * 3)
+    with pytest.raises(ValueError, match="twice"):
+        tmesh.NamedSharding(tm, TP("tp", "tp"))
     assert tmesh.replicated(tm).is_replicated
     assert tmesh.batch_sharding(tm).spec == TP("dp")

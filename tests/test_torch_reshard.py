@@ -206,14 +206,14 @@ def test_failed_placement_puts_the_state_back(monkeypatch, error):
 
 
 def test_refused_placement_changes_nothing(monkeypatch):
-    """A new mesh whose rule splits a parameter over two axes (expert
-    placement, item 7) raises before anything moves: no placement, no
-    host bounce, the same optimizer object, the runner on its old
-    mesh."""
+    """A new mesh whose rule the port refuses (a spec naming one axis
+    twice, as JAX's NamedSharding refuses it) raises before anything
+    moves: no placement, no host bounce, the same optimizer object, the
+    runner on its old mesh."""
     def factory(m):
         def rule(name, leaf):
             if name == "hidden.weight" and "tp" in m.shape:
-                return rules_lib.PartitionSpec("tp", "dp")
+                return rules_lib.PartitionSpec("tp", "tp")
             return rules_lib.PartitionSpec()
         return rule
 
@@ -230,7 +230,7 @@ def test_refused_placement_changes_nothing(monkeypatch):
 
     monkeypatch.setattr(reshard, "gather_to_host", no_bounce)
     tp_mesh = tmesh.make_mesh((2, 2), ("dp", "tp"), [CPU] * 4)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="twice"):
         runner.resize(tp_mesh, state)
     assert state.optimizer is optimizer
     _assert_on_dp4_as_unresized(runner, state, want)

@@ -640,13 +640,3 @@ def test_shared_data_coordinate_is_refused_by_the_worker(monkeypatch):
     worker_main.refuse_shared_data(DataParallel(), "dp")
 
 
-def test_two_dim_leaf_placement_names_item_7():
-    mesh = tmesh.make_mesh((2, 2), ("dp", "tp"), [CPU] * 4)
-
-    def rule(name, leaf):
-        return TP("dp", "tp") if name == "weight" else TP()
-
-    runner = MeshRunner(mesh, param_rule=rule)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        runner.init_state(torch.nn.Linear(4, 4),
-                          lambda p: torch.optim.SGD(p, lr=0.1))

@@ -149,24 +149,6 @@ def test_init_flax_params_has_the_flax_layout():
     assert got == want
 
 
-def test_moe_params_are_recognised_and_refused():
-    params = _params(128, 2, moe_experts=2)
-    assert bridge.config_from_params(params).moe_experts == 2
-    with pytest.raises(NotImplementedError, match="MoE"):
-        bridge.state_dict_from_flax(params)
-
-
-@pytest.mark.parametrize("kwargs,flag,match", [
-    (dict(moe_experts=4), {}, "MoE"),
-    (dict(fused_head=True), {}, "fused LM head"),
-    ({}, dict(decode=True), "decode"),
-])
-def test_unported_options_raise(kwargs, flag, match):
-    cfg = TransformerConfig(vocab_size=V, **kwargs)
-    with pytest.raises(NotImplementedError, match=match):
-        TransformerLM(cfg, **flag)
-
-
 @pytest.mark.parametrize("tokens,match", [
     (np.full((1, 8), V, np.int64), "token ids"),
     (np.full((1, 8), -1, np.int64), "token ids"),
