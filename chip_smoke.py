@@ -29,6 +29,8 @@
     python3 chip_smoke.py --phase tpfault # 11i (d) sound and with a
                                           # planted tp fault: the gaps
                                           # TP_TOL must separate
+    python3 chip_smoke.py --phase pipeline # PipelineLM at the flagship's
+                                         # widths vs TransformerLM
     python3 chip_smoke.py --phase moe    # MoE, the fused head and
                                          # generate alone (the flash
                                          # forward and backward kernels)
@@ -387,10 +389,24 @@
    diagonal, #1 in d') held to its plain version on the same inputs.
    (f) tests/test_feature_column.py:238's model, its 4 MB table split
    over the processes (16,384 rows each), against the one-process dp2
-   run: TABLE_TOL, the processes equal. Prints the data backend (and
+   run: TABLE_TOL, the processes equal. (g) 11l's PipelineLM with `pp`
+   across the processes (each its stage, 4 of the 8 blocks, and the
+   ends whole) against 11l (a)'s one-process run (PIPE_MH_TOL), the
+   processes equal, #1 = #3 = #4 = 16 a process a step, one launch of
+   #1 and of #3/#4 held to its plain version. (h) after (d)'s steps,
+   both processes save through ``CheckpointHook(backend="orbax")``
+   (``torch.distributed.checkpoint``, each its parts) and restore into
+   a fresh state of (d)'s layout, bit-equal; process 0 restores the
+   same version onto the unsharded model, bit-equal to the gathered
+   state; the save's stall and seconds, its bytes, the restores'
+   seconds. (i) (c)'s job writes its checkpoints (``--checkpoint_dir``,
+   every 3 versions): its newest version is its final one, and a
+   second job in the same processes from ``--checkpoint_dir_for_init``
+   resumes there. Prints the data backend (and
    why), which gloo collectives take CUDA tensors, and per step the
    step ms (CUDA events), issue ms and the ms inside the collectives
-   (the all-reduces, the all-gathers, the ring's send/recv).
+   (the all-reduces, the all-gathers, the ring's and the pipeline's
+   send/recv, its broadcasts).
 11k. ``moe`` (the rest of the flagship transformer; ``--phase moe`` runs
    it alone): (a) bench_suite.py's moe config (8 experts in every
    second block, top-1, scatter, capacity factor 1.25) at full width
@@ -412,6 +428,18 @@
    launches, the processes equal). In the whole smoke (a)-(e) and (f)'s
    references run while the checkpoint phase's evaluate/predict
    subprocesses run, and (f) after the multihost phase.
+11l. ``pipeline`` (the GPipe pipeline; ``--phase pipeline`` runs (a)
+   alone and builds the flash forward and backward sources): (a)
+   PipelineLM at the flagship's widths (dropout 0) on a one-card (pp 2,
+   dp 2) mesh, 4 layers a stage, M 4, B 16 x S 1024, 3 Adam steps from
+   its own seeded weights, against TransformerLM on the same weights
+   (stage s, layer l as block 4s + l) and batches: each step's loss, the
+   first step's gradients and the 3 steps' changes per tensor within
+   PIPE_TOL; #1 = #3 = #4 = 32 a step exactly; step ms beside issue ms
+   and tokens/s at M 4 and M 8 (64 launches a step), beside the
+   flagship's. In the whole smoke it runs while the checkpoint phase's
+   evaluate/predict subprocesses run, after the moe phase's parts; its
+   run is (g)'s reference.
 12. ``fused path``: ``DeviceSparseRunner`` over the recsys table with
    Momentum (Nesterov) and ``use_pallas="fused"`` for 10 steps against
    "never": one fused-kernel launch a step.
@@ -452,8 +480,8 @@
 17. Prints a ``serving``, a ``training``, a ``sparse_training``, a
    ``ring_training``, a ``host_training``, a ``vision``, a ``tabular``,
    a ``checkpoint``, a ``worker``, a ``rowservice``, a ``fleet``, a
-   ``parallel``, a ``multihost``, a ``moe``, a ``phase_s`` (each
-   phase's seconds)
+   ``parallel``, a ``multihost``, a ``moe``, a ``pipeline``, a
+   ``phase_s`` (each phase's seconds)
    and a
    ``kernels`` JSON line (the four flash kernels and the four embedding kernels
    with their ms, plain ms, library ms, bound ms and launches, and their
@@ -465,8 +493,10 @@
    (c)), ``launches_fleet`` ((a), (b) over one and two shards, (c)),
    ``launches_parallel`` ((a), (b), (c) at dp4 and dp2, the fused step,
    (d)), ``launches_multihost`` ((a) in each process, (b), (c), (d),
-   (d') and (e) in each process), ``launches_moe`` ((a), (d) fused and
-   materialised, (e) decoding, (f) in each process);
+   (d'), (e) and (g) a step in each process), ``launches_moe`` ((a),
+   (d) fused and materialised, (e) decoding, (f) in each process),
+   ``launches_pipeline`` ((a)'s step at M 4, the timed steps at M 4
+   and M 8);
    #5 with its times at
    the sweep's tiers, the row kernels with a per-rule list) and, last,
    ``{"ok": true, "device": {...}}``.
@@ -5545,9 +5575,9 @@ def sweep_phase(torch, pe):
     from elasticdl_tpu_torch.tools import bench_kernel_device_sweep as tool
 
     pe.reset_launches()                       # the sweep path starts here
-    # Three windows a tier (the tool's default is five): the whole smoke
-    # stays within its 240 s.
-    result = tool.sweep(windows=3, seed=SEED)  # prints a JSON line a tier
+    # Three windows of ten calls a tier (the tool's default is five of
+    # twenty): the whole smoke stays within its 240 s.
+    result = tool.sweep(iters=10, windows=3, seed=SEED)  # a line a tier
     counts = {"lookup_combine_aligned": pe.aligned_launches,   # ... ends
               "lookup_combine": pe.lookup_launches,
               "row_update": pe.row_update_launches,
@@ -6657,12 +6687,14 @@ def whole_params(runner, state):
 
 
 def tp_run(torch, fa, pe, root, layout, clock, steps=TP_STEPS, seq=None,
-           probe=False):
+           probe=False, after=None):
     """The flagship zoo module on ``layout``'s mesh (None: unsharded,
     ``core.step``), ``steps`` steps of tp_batches (``seq``: this
     process's positions); flash launches zeroed just before and read
-    just after; ``probe``: one step of the probe (TP_PROBE_BIAS).
-    Returns its record and its whole parameters."""
+    just after; ``probe``: one step of the probe (TP_PROBE_BIAS);
+    ``after(runner, state, spec, mesh, tx)``: called on the trained
+    state, its result the record's ``after``. Returns its record and
+    its whole parameters."""
     from elasticdl_tpu_torch.core.model_spec import get_model_spec
     from elasticdl_tpu_torch.core.step import build_train_step
     from elasticdl_tpu_torch.core.train_state import init_train_state
@@ -6683,6 +6715,7 @@ def tp_run(torch, fa, pe, root, layout, clock, steps=TP_STEPS, seq=None,
           else spec.make_optimizer())
     steps = 1 if probe else steps
     if layout is None:
+        mesh = None
         model = spec.make_model()
         model.load_state_dict(weights(torch, model.cfg))
         state = init_train_state(model, tx, seed=SEED)
@@ -6713,6 +6746,8 @@ def tp_run(torch, fa, pe, root, layout, clock, steps=TP_STEPS, seq=None,
     record = {"losses": losses, **times, "launches": counts,
               "held_shapes": held}
     params = whole_params(runner, state)
+    if after is not None:
+        record["after"] = after(runner, state, spec, mesh, tx)
     del state, model
     torch.cuda.empty_cache()
     return record, params
@@ -6983,13 +7018,19 @@ def mh_child_tp(torch, fa, pe, pid, root, out):
                                            (pid + 1) * TP_SEQ // MH_PROCS))):
         clock = CollectiveClock(torch, multihost)
         capture = KernelCapture(torch, fa)
+        # (h): the multi-host checkpoint of (d)'s trained state.
+        after = (None if part != "d" else
+                 lambda *a: mh_checkpoint_part(torch, root, pid, *a))
         try:
             record, params = tp_run(
                 torch, fa, pe, root, layout, clock,
-                steps=1 if layout == "tp_only" else TP_STEPS, seq=seq)
+                steps=1 if layout == "tp_only" else TP_STEPS, seq=seq,
+                after=after)
         finally:
             capture.restore()
             clock.restore()
+        if after is not None:
+            out["checkpoint"] = record.pop("after")
         record["kernel_checks"] = capture.checks()
         record["collective_calls"] = clock.calls
         record["collective_ms_by_name"] = clock.ms_by_name
@@ -7083,6 +7124,10 @@ MH_DENSE_BATCH, MH_LR = 256, 0.001
 # reported beside the checked run's, with the reordered control's.
 MH_LR_DIVERGENT = 0.01
 MH_JOB_RECORDS, MH_JOB_EVAL, MH_JOB_BATCH, MH_JOB_TASK = 2048, 256, 128, 512
+# (i): the job's checkpoint interval (its 8 steps save at 3, 6 and the
+# final version) and the records of the job that resumes from it (two
+# tasks: one a process).
+MH_JOB_CKPT_STEPS, MH_JOB_RESUME_RECORDS = 3, 1024
 MH_WAIT_S = 900         # the go file, and the processes' run after it
 
 
@@ -7182,9 +7227,9 @@ class CollectiveClock:
     the all-gathers (ZeRO's slices, the logits over tp, a split table's
     ids) and the ring's send/recv."""
 
-    def __init__(self, torch, multihost):
+    def __init__(self, torch, multihost,
+                 names=("all_reduce_", "all_gather", "ring_shift")):
         self.ms, self.calls = 0.0, 0
-        names = ("all_reduce_", "all_gather", "ring_shift")
         self.ms_by_name = dict.fromkeys(names, 0.0)
         self.mh, self.saved = multihost, {}
         for name in names:
@@ -7340,15 +7385,47 @@ def mh_child_dense(torch, fa, pe, pid, root, out):
 def mh_child_job(torch, fa, pe, pid, root, out):
     """(c) in process ``pid``: a port worker through ``build_worker``
     with the multi-host flags; process 0 also hosts the master (the
-    dispatcher and the evaluation service over localhost gRPC)."""
+    dispatcher and the evaluation service over localhost gRPC). (i):
+    the job writes its multi-host checkpoints (``--checkpoint_dir``),
+    then a second job in the same processes, from
+    ``--checkpoint_dir_for_init``, resumes at the first's final
+    version."""
+    from elasticdl_tpu_torch.checkpoint.orbax_backend import OrbaxSaver
+
+    ckpt = os.path.join(root, "ckpt_i")
+    t0 = time.monotonic()
+    reset_kernel_launches(fa, pe)
+    job = mh_job_run(torch, pid, root, "train.rec", MH_JOB_RECORDS,
+                     ["--checkpoint_dir", ckpt, "--checkpoint_steps",
+                      str(MH_JOB_CKPT_STEPS)], evaluate=True)
+    torch.cuda.synchronize()
+    job["wall_s"] = time.monotonic() - t0
+    job["launches"] = kernel_launch_counts(fa, pe)
+    job["versions"] = OrbaxSaver(ckpt, collective=False).versions()
+    t0 = time.monotonic()
+    resumed = mh_job_run(torch, pid, root, "resume.rec",
+                         MH_JOB_RESUME_RECORDS,
+                         ["--checkpoint_dir_for_init", ckpt])
+    resumed["wall_s"] = time.monotonic() - t0
+    job["resumed"] = resumed
+    out["job"] = job
+
+
+def mh_job_run(torch, pid, root, records, num_records, extra,
+               evaluate=False):
+    """One job over localhost gRPC: process 0 writes ``records`` and
+    hosts the master (with an evaluation service where ``evaluate``),
+    each process runs a worker built by ``build_worker`` with the
+    multi-host flags and ``extra``. Returns the worker's record (and,
+    in process 0, the master's)."""
     from elasticdl_tpu_torch.common.args import parse_worker_args
     from elasticdl_tpu_torch.testing import data as tdata
     from elasticdl_tpu_torch.worker.main import build_worker
 
     zoo = tdata.model_zoo_dir()
     model_def = "mnist.mnist_functional.custom_model"
-    train = os.path.join(root, "train.rec")
-    port_file = os.path.join(root, "master_port")
+    train = os.path.join(root, records)
+    port_file = os.path.join(root, f"master_port_{records}")
     server = None
     if pid == 0:
         from elasticdl_tpu_torch.comm.rpc import RpcServer
@@ -7364,16 +7441,19 @@ def mh_child_job(torch, fa, pe, pid, root, out):
         from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
 
         evalf = os.path.join(root, "eval.rec")
-        tdata.create_mnist_record_file(train, MH_JOB_RECORDS, seed=1)
-        tdata.create_mnist_record_file(evalf, MH_JOB_EVAL, seed=2)
+        tdata.create_mnist_record_file(train, num_records, seed=1)
+        if evaluate:
+            tdata.create_mnist_record_file(evalf, MH_JOB_EVAL, seed=2)
         spec = get_model_spec(zoo, model_def, device="cuda")
         dispatcher = TaskDispatcher(
             training_shards=create_data_reader(train).create_shards(),
-            evaluation_shards=create_data_reader(evalf).create_shards(),
+            evaluation_shards=(create_data_reader(evalf).create_shards()
+                               if evaluate else {}),
             records_per_task=MH_JOB_TASK, num_epochs=1)
-        evals = EvaluationService(dispatcher, spec.eval_metrics_fn(),
-                                  eval_steps=MH_JOB_RECORDS
-                                  // MH_JOB_BATCH // 4)
+        evals = EvaluationService(
+            dispatcher, spec.eval_metrics_fn(),
+            eval_steps=MH_JOB_RECORDS // MH_JOB_BATCH // 4 if evaluate
+            else 0)
         server = RpcServer("localhost:0", {SERVICE_NAME: MasterServicer(
             dispatcher, evals).handlers()}).start()
         with open(port_file + ".tmp", "w") as f:
@@ -7392,16 +7472,12 @@ def mh_child_job(torch, fa, pe, pid, root, out):
         "--distribution_strategy", "MeshStrategy", "--mesh_shape",
         str(MH_PROCS), "--mesh_axes", "dp", "--num_jax_processes",
         str(MH_PROCS), "--coordinator_addr", f"file://{root}/store",
-        "--jax_process_id", str(pid)])
-    t0 = time.monotonic()
-    reset_kernel_launches(fa, pe)
+        "--jax_process_id", str(pid), *extra])
     worker = build_worker(args)
     result = worker.run()
-    torch.cuda.synchronize()
     job = {"version": result["final_version"],
            "batches": result["trained_batches"],
-           "loss": result["final_loss"], "wall_s": time.monotonic() - t0,
-           "launches": kernel_launch_counts(fa, pe)}
+           "loss": result["final_loss"]}
     if pid == 0:
         deadline = time.monotonic() + 60
         while not dispatcher.finished() and time.monotonic() < deadline:
@@ -7410,7 +7486,7 @@ def mh_child_job(torch, fa, pe, pid, root, out):
         job["evals"] = {str(v): r for v, r in
                         evals.completed_results.items()}
         server.stop(0)
-    out["job"] = job
+    return job
 
 
 def mh_gloo_probe(torch):
@@ -7451,7 +7527,8 @@ def multihost_go(started, parts="all"):
 
 def multihost_child(pid, root):
     """One of the phase's two processes: wire the process group (CPU
-    only), wait for the go file, run (a), (b) and (c), write the result."""
+    only), wait for the go file, run the parts it names ((a)-(i), then
+    the moe phase's (f)), write the result."""
     import torch
 
     from elasticdl_tpu_torch.ops import flash_attention as fa
@@ -7473,7 +7550,8 @@ def multihost_child(pid, root):
         wanted = f.read().strip()
     parts = {"recsys": mh_child_recsys, "dense": mh_child_dense,
              "job": mh_child_job, "tp": mh_child_tp,
-             "table": mh_child_table, "moe": mh_child_moe}
+             "table": mh_child_table, "pipe": mh_child_pipe,
+             "moe": mh_child_moe}
     names = {"moe": ["moe"], "multihost": list(parts)[:-1]}.get(
         wanted, list(parts))
     marks = [time.monotonic()]
@@ -7586,16 +7664,19 @@ def mh_wait(started):
 
 
 def multihost_phase(torch, fa, pe, root, started, recsys_ref=None,
-                    res=None, tp_ref=None):
+                    res=None, tp_ref=None, pipe_ref=None):
     """The references here (``recsys_ref``: the parallel phase's dp4 run,
-    ``mh_recsys_reference``), then the go file: (a), (b), (c) in the two
-    processes, unless their results ``res`` are given (the whole smoke
-    runs them earlier, ``multihost_go``). Returns the phase's line and
-    its launches by part."""
+    ``mh_recsys_reference``; ``pipe_ref``: the pipeline phase's run),
+    then the go file: (a)-(i) in the two processes, unless their
+    results ``res`` are given (the whole smoke runs them earlier,
+    ``multihost_go``). Returns the phase's line and its launches by
+    part."""
     marks = [time.monotonic()]
     recsys_ref, dense_ref = mh_reference(torch, fa, pe, root, recsys_ref)
     if tp_ref is None:
         _, _, tp_ref = parallel_tp_part(torch, fa, pe, root)
+    if pipe_ref is None:
+        _, _, pipe_ref = pipeline_phase(torch, fa, pe, root)
     table_ref, table_params = table_run(torch, 2)
     marks.append(time.monotonic())
     if res is None:
@@ -7666,6 +7747,9 @@ def multihost_phase(torch, fa, pe, root, started, recsys_ref=None,
     tp_out, tp_launches = mh_tp_results(torch, started["root"], res, tp_ref)
     table_out = mh_table_results(torch, started["root"], res, table_ref,
                                  table_params)
+    pipe_out, pipe_launches = mh_pipe_results(torch, started["root"], res,
+                                              pipe_ref)
+    ckpt_out = mh_checkpoint_results(res, job)
     out = {
         "data_backend": res[0]["data_backend"],
         "why": "both processes drive cuda:0; NCCL refuses two ranks on "
@@ -7705,6 +7789,7 @@ def multihost_phase(torch, fa, pe, root, started, recsys_ref=None,
                 "zero_entries")}
                for pid in dense}},
         "job": job, "tp": tp_out, "table": table_out,
+        "pipeline": pipe_out, "checkpoint": ckpt_out,
         "part_s": {"reference": marks[1] - marks[0],
                    "children": marks[2] - marks[1],
                    "child_parts": {pid: res[pid]["part_s"] for pid in res}},
@@ -7753,8 +7838,50 @@ def multihost_phase(torch, fa, pe, root, started, recsys_ref=None,
     launches = {"recsys_p0": rec[0]["launches"],
                 "recsys_p1": rec[1]["launches"],
                 "dense": dense[0]["launches"], "job": job[0]["launches"],
-                **tp_launches}
+                **tp_launches, **pipe_launches}
     return out, launches
+
+
+def mh_checkpoint_results(res, job):
+    """(h) and (i) of both processes: (h) each process's restore of (d)'s
+    checkpoint onto a fresh state of its layout bit-equal, process 0's
+    onto the unsharded model bit-equal, every process's parts written;
+    (i) the job's newest version is its final version in both processes,
+    and the job resumed from it starts there."""
+    ckpt = {pid: res[pid]["checkpoint"] for pid in res}
+    out = {"h": ckpt, "i": {
+        pid: {"versions": job[pid]["versions"],
+              "final_version": job[pid]["version"],
+              "resumed": job[pid]["resumed"]} for pid in job}}
+    print("multihost checkpoint", json.dumps(out), flush=True)
+    for pid, rec in ckpt.items():
+        check(not rec["unequal"] and rec["leaves"] > 0,
+              f"(h) process {pid} restored leaves differ: "
+              f"{rec['unequal'][:8]}")
+        check(len([f for f in rec["files"] if f.endswith(".distcp")])
+              == MH_PROCS and ".metadata" in rec["files"],
+              f"(h) process {pid} sees the files {rec['files']}")
+    check("unsharded_unequal" in ckpt[0]
+          and not ckpt[0]["unsharded_unequal"],
+          "(h) the unsharded restore differs: "
+          f"{ckpt[0].get('unsharded_unequal')}")
+    final = job[0]["version"]
+    for pid in job:
+        resumed = job[pid]["resumed"]
+        check(job[pid]["versions"] and job[pid]["versions"][-1] == final
+              and job[pid]["versions"][0] == MH_JOB_CKPT_STEPS,
+              f"(i) process {pid} versions {job[pid]['versions']}, final "
+              f"{final}")
+        # A fresh start ends at most at its batches' count (8 here);
+        # the resumed job ends past the first job's final version.
+        batches = resumed["batches"] + job[1 - pid]["resumed"]["batches"]
+        check(resumed["batches"] > 0
+              and final < resumed["version"] <= final + batches,
+              f"(i) process {pid} resumed at {resumed} from {final}")
+    check(job[0]["resumed"]["version"] == job[1]["resumed"]["version"]
+          and job[0]["resumed"]["finished"],
+          f"(i) the resumed job: {job[0]['resumed']}, {job[1]['resumed']}")
+    return out
 
 
 def mh_tp_results(torch, root, res, ref):
@@ -8521,6 +8648,428 @@ def moe_phase(torch, fa, pe, root, started, local=None, res=None):
     return out, {**local["launches"], **mh_launches}
 
 
+# The GPipe pipeline (``--phase pipeline`` runs (a) alone and builds the
+# flash forward and backward sources; (g) runs in the multihost phase's
+# two processes, with the multi-host checkpoints (h) and the job's (i)):
+# (a) PipelineLM at the flagship's widths (bench_suite.py:121, dropout 0)
+# on a one-card (pp 2, dp 2) mesh, 4 layers a stage, M 4, B 16 x S 1024,
+# 3 Adam steps, against the port's TransformerLM with the same weights
+# and batches; its step timed at M 4 and M 8.
+PIPE_MESH = ((2, 2), ("pp", "dp"))
+PIPE_STAGE_LAYERS, PIPE_M, PIPE_STEPS = 4, 4, 3
+PIPE_BATCH, PIPE_TIMED_M, PIPE_TIMED_STEPS = 16, (4, 8), 4
+# (a) against TransformerLM, TRAJ_TOL's readings per tensor: each
+# microbatch's forward is the flagship's on its rows (the same kernels
+# at a quarter of the rows), so the first loss agrees to the ulp; the
+# backward rounds each microbatch's weight gradients to bf16 before the
+# f32 sum over the microbatches, where the flagship rounds the whole
+# batch's once: the same effect as two processes' bf16 gradients summed
+# (mnist over two processes: 1.34e-5 in f32, 1.636e-4 in bf16), which
+# TRAJ_TOL bounds for the twin card vs CPU (loss 2e-4, first gradients 2e-2,
+# changes 0.25; Adam's first steps lr * sign(g) turn a sign flipped on a
+# near-zero gradient into a whole step). (g), the processes against (a):
+# TP_TOL (the stages' gradients summed over the microbatches in another
+# order, the ends' bit-equal by construction).
+PIPE_TOL = dict(TRAJ_TOL)
+PIPE_MH_TOL = dict(loss=TP_TOL["loss"], delta_l2=TP_TOL["delta_l2"])
+_PIPE_WEIGHTS = {}
+
+
+def pipe_config():
+    from elasticdl_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(**FLAGSHIP)
+
+
+def pipe_weights(torch):
+    """PipelineLM's own initialisation from SEED, whole, on the host
+    (drawn once a process, on a one-process CPU mesh of its shape)."""
+    from elasticdl_tpu_torch.models.pipeline_lm import PipelineLM
+    from elasticdl_tpu_torch.parallel.mesh import Mesh
+
+    if not _PIPE_WEIGHTS:
+        shape, axes = PIPE_MESH
+        mesh = Mesh(np.array([torch.device("cpu")] * int(np.prod(shape)),
+                             dtype=object).reshape(shape), axes)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED)
+            lm = PipelineLM(pipe_config(), mesh,
+                            layers_per_stage=PIPE_STAGE_LAYERS)
+        _PIPE_WEIGHTS.update({k: v.detach()
+                              for k, v in lm.state_dict().items()})
+    return _PIPE_WEIGHTS
+
+
+def pipe_model(torch, mesh, m=PIPE_M):
+    """PipelineLM on ``mesh`` with ``m`` microbatches and pipe_weights,
+    on the card."""
+    from elasticdl_tpu_torch.models.pipeline_lm import PipelineLM
+
+    with torch.device("meta"):
+        lm = PipelineLM(pipe_config(), mesh, num_microbatches=m,
+                        layers_per_stage=PIPE_STAGE_LAYERS)
+    lm = lm.to_empty(device=DEVICE)
+    lm.load_state_dict(pipe_weights(torch))
+    return lm
+
+
+def pipe_batches():
+    return chain_batches(PIPE_STEPS, PIPE_BATCH, FLAGSHIP["max_len"],
+                         FLAGSHIP["vocab_size"], SEED + 100)
+
+
+def pipe_expected(m, layers):
+    """Exact launches of one pipeline step: #1, #3 and #4 once a layer a
+    microbatch (each microbatch runs once over its dp rows)."""
+    return {**dict.fromkeys(("lookup_combine", "lookup_combine_aligned",
+                             "row_update", "fused_row_update",
+                             "flash_chunk_update"), 0),
+            **dict.fromkeys(FLASH_PATH, m * layers)}
+
+
+def pipe_steps(torch, fa, pe, lm, batches, clock=None, whole=None):
+    """``lm``'s train step (the zoo's loss, Adam 1e-3) on ``batches``:
+    per step the loss, CUDA-event ms, issue ms and launches (zeroed just
+    before each step, read just after), ms inside the collectives; the
+    first step's gradients and the final parameters, whole on the host
+    in f32 by the flagship's names (``whole``: a parameter's whole
+    value from what the process holds)."""
+    from elasticdl_tpu_torch.model_zoo.transformer import transformer_lm as zoo
+    from elasticdl_tpu_torch.models.pipeline_lm import sequential_state_dict
+
+    whole = whole or (lambda name, t: t)
+    step = lm.make_train_step(zoo.loss, zoo.optimizer())
+
+    def named(of):
+        return sequential_state_dict(
+            {n: whole(n, of(p).detach()).float().cpu().clone()
+             for n, p in lm.named_parameters()},
+            lm.pp_size, lm.layers_per_stage)
+
+    start = named(lambda p: p)
+    rec = {"losses": [], "step_ms": [], "issue_ms": [], "launches": [],
+           "collective_ms": []}
+    grads = None
+    for b in batches:
+        torch.cuda.synchronize()
+        reset_kernel_launches(fa, pe)            # the step starts here
+        before = clock.ms if clock else 0.0
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        begin.record()
+        loss = step(b)
+        end.record()
+        rec["issue_ms"].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        rec["launches"].append(kernel_launch_counts(fa, pe))  # ... ends
+        rec["step_ms"].append(begin.elapsed_time(end))
+        rec["collective_ms"].append((clock.ms if clock else 0.0) - before)
+        rec["losses"].append(float(loss))
+        if grads is None:
+            grads = named(lambda p: p.grad)
+    return rec, start, grads, named(lambda p: p)
+
+
+def pipe_flagship_steps(torch, fa, pe, batches):
+    """The port's TransformerLM on the same weights (stage s, layer l as
+    block s * 4 + l) and batches, Adam 1e-3, one card: its losses, step
+    ms, first gradients and final parameters."""
+    from elasticdl_tpu_torch.model_zoo.transformer import transformer_lm as zoo
+    from elasticdl_tpu_torch.models.pipeline_lm import sequential_state_dict
+    from elasticdl_tpu_torch.models.transformer import TransformerLM
+
+    with torch.device("meta"):
+        model = TransformerLM(pipe_config())
+    model = model.to_empty(device=DEVICE)
+    model.load_state_dict(sequential_state_dict(
+        pipe_weights(torch), PIPE_MESH[0][0], PIPE_STAGE_LAYERS))
+    model.train()
+    opt = zoo.optimizer()(model.parameters())
+    rec = {"losses": [], "step_ms": [], "issue_ms": []}
+    grads = None
+    for b in batches:
+        feats, labels, mask = (torch.as_tensor(b[k]).to(DEVICE) for k in (
+            "features", "labels", "mask"))
+        torch.cuda.synchronize()
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        begin.record()
+        opt.zero_grad(set_to_none=True)
+        loss = zoo.loss(labels, model(feats), mask)
+        loss.backward()
+        opt.step()
+        end.record()
+        rec["issue_ms"].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        rec["step_ms"].append(begin.elapsed_time(end))
+        rec["losses"].append(float(loss.detach()))
+        if grads is None:
+            grads = {n: p.grad.detach().float().cpu().clone()
+                     for n, p in model.named_parameters()}
+    final = {n: p.detach().float().cpu().clone()
+             for n, p in model.named_parameters()}
+    del model, opt
+    torch.cuda.empty_cache()
+    return rec, grads, final
+
+
+def pipe_tokens_per_s(rec):
+    warm = rec["step_ms"][1:] or rec["step_ms"]
+    return PIPE_BATCH * FLAGSHIP["max_len"] / (float(np.median(warm)) / 1e3)
+
+
+def pipeline_phase(torch, fa, pe, root):
+    """(a): PipelineLM on the one-card (pp 2, dp 2) mesh against the
+    flagship TransformerLM, launches exact, then the step timed at M 4
+    and M 8. Returns its line, its launches by part and the run's
+    record ((g)'s reference)."""
+    from elasticdl_tpu_torch.parallel.mesh import make_mesh
+
+    marks = [time.monotonic()]
+    shape, axes = PIPE_MESH
+    mesh = make_mesh(shape, axes, [torch.device(DEVICE)] * int(np.prod(
+        shape)))
+    batches = pipe_batches()
+    pipe_weights(torch)
+    weights_s = time.monotonic() - marks[0]
+    lm = pipe_model(torch, mesh)
+    rec, start, grads, final = pipe_steps(torch, fa, pe, lm, batches)
+    del lm
+    torch.cuda.empty_cache()
+    marks.append(time.monotonic())
+    flat, flat_grads, flat_final = pipe_flagship_steps(torch, fa, pe,
+                                                       batches)
+    marks.append(time.monotonic())
+    loss_gap = max(abs(a - b) / abs(b)
+                   for a, b in zip(rec["losses"], flat["losses"]))
+    grad = grad_gaps(grads, flat_grads)
+    delta = grad_gaps({n: final[n] - start[n] for n in final},
+                      {n: flat_final[n] - start[n] for n in flat_final})
+    timed = {}
+    for m in PIPE_TIMED_M:
+        lm = pipe_model(torch, mesh, m)
+        t_rec, _, _, _ = pipe_steps(torch, fa, pe, lm, chain_batches(
+            PIPE_TIMED_STEPS, PIPE_BATCH, FLAGSHIP["max_len"],
+            FLAGSHIP["vocab_size"], SEED + 101))
+        del lm
+        torch.cuda.empty_cache()
+        timed[f"M{m}"] = {
+            "step_ms": spread(t_rec["step_ms"][1:]),
+            "issue_ms": spread(t_rec["issue_ms"][1:]),
+            "first_step_ms": t_rec["step_ms"][0],
+            "tokens_per_s": pipe_tokens_per_s(t_rec),
+            "launches_a_step": t_rec["launches"][-1]}
+        for counts in t_rec["launches"]:
+            check(counts == pipe_expected(m, FLAGSHIP["n_layers"]),
+                  f"(a) M {m}: launches {counts} a step")
+    marks.append(time.monotonic())
+    worst = lambda gaps: max(gaps, key=gaps.get)  # noqa: E731
+    out = {"model": "PipelineLM at the flagship's widths (vocab 32768, d "
+                    "512, 4 heads of 128, 8 layers, d_ff 2048, bf16, "
+                    "dropout 0), PipelineLM's own random weights, seed "
+                    f"{SEED}, Adam 1e-3, against TransformerLM on the "
+                    "same weights",
+           "mesh": str(PIPE_MESH), "layers_per_stage": PIPE_STAGE_LAYERS,
+           "microbatches": PIPE_M, "batch": PIPE_BATCH,
+           "seq": FLAGSHIP["max_len"], "steps": PIPE_STEPS,
+           "losses": rec["losses"], "losses_flagship": flat["losses"],
+           "loss_max_rel_diff": loss_gap,
+           "grad_l2_max": grad[worst(grad)], "grad_l2_worst": worst(grad),
+           "grad_l2_median": float(np.median(list(grad.values()))),
+           "delta_l2_max": delta[worst(delta)],
+           "delta_l2_worst": worst(delta),
+           "delta_l2_median": float(np.median(list(delta.values()))),
+           "step_ms": rec["step_ms"], "issue_ms": rec["issue_ms"],
+           "flagship_step_ms": flat["step_ms"],
+           "flagship_issue_ms": flat["issue_ms"],
+           "flagship_tokens_per_s": pipe_tokens_per_s(flat),
+           "timed": timed, "launches_a_step": rec["launches"],
+           "part_s": {"weights": weights_s,
+                      "pipeline": marks[1] - marks[0],
+                      "flagship": marks[2] - marks[1],
+                      "timed": marks[3] - marks[2]},
+           "tol": PIPE_TOL}
+    print("pipeline", json.dumps(out), flush=True)
+    for counts in rec["launches"]:
+        check(counts == pipe_expected(PIPE_M, FLAGSHIP["n_layers"]),
+              f"(a) launches {counts} a step")
+    check(all(np.isfinite(rec["losses"])), f"(a) losses {rec['losses']}")
+    check(loss_gap <= PIPE_TOL["loss"]
+          and out["grad_l2_max"] <= PIPE_TOL["grad_l2"]
+          and out["delta_l2_max"] <= PIPE_TOL["delta_l2"],
+          f"(a) PipelineLM vs TransformerLM: loss {loss_gap}, gradient "
+          f"{out['grad_l2_max']} ({out['grad_l2_worst']}), change "
+          f"{out['delta_l2_max']} ({out['delta_l2_worst']})")
+    launches = {"a": rec["launches"][0],
+                **{f"a_{k}": v["launches_a_step"] for k, v in timed.items()}}
+    ref = {"losses": rec["losses"], "start": start, "final": final}
+    return out, launches, ref
+
+
+def mh_child_pipe(torch, fa, pe, pid, root, out):
+    """(g) in process ``pid``: PipelineLM with ``pp`` across the two
+    processes (this process's stage: 4 of the 8 blocks, the ends whole),
+    (a)'s weights and batches; launches exact; one launch of #1 and of
+    #3/#4 held to its plain version; the whole parameters saved."""
+    from elasticdl_tpu_torch.parallel import multihost
+    from elasticdl_tpu_torch.parallel.mesh import make_mesh
+
+    shape, axes = PIPE_MESH
+    mesh = make_mesh(shape, axes, [torch.device(DEVICE)] * (
+        int(np.prod(shape)) // multihost.process_count()))
+    lm = pipe_model(torch, mesh)
+    shardings = lm.param_shardings()
+    lm.place()
+    held = {n: list(p.shape) for n, p in lm.named_parameters()
+            if n in ("blocks.attn.query.weight", "ends.lm_head.weight")}
+    # The pipeline's send (the host copy and the start), recv (to the
+    # data's arrival: it waits for the previous stage) and broadcasts.
+    clock = CollectiveClock(torch, multihost, (
+        "all_reduce_", "all_gather", "send", "recv", "broadcast"))
+    capture = KernelCapture(torch, fa)
+
+    def whole(name, t):
+        s = shardings[name]
+        return s.gather_block(t) if s.spans_processes else t
+
+    try:
+        rec, start, _, final = pipe_steps(torch, fa, pe, lm, pipe_batches(),
+                                          clock, whole)
+    finally:
+        capture.restore()
+        clock.restore()
+    rec["kernel_checks"] = capture.checks()
+    rec["collective_calls"] = clock.calls
+    rec["collective_ms_by_name"] = clock.ms_by_name
+    rec["held_shapes"] = held
+    torch.save({"start": start, "final": final},
+               os.path.join(root, f"pipe_{pid}.pt"))
+    del lm
+    torch.cuda.empty_cache()
+    out["pipe"] = rec
+
+
+def mh_pipe_results(torch, root, res, ref):
+    """(g) of both processes against (a)'s one-process run: losses and
+    parameter changes within PIPE_MH_TOL, the processes' losses and
+    whole parameters equal, exact launches a step, the captured launches
+    within their plain versions' limits."""
+    rec = {pid: res[pid]["pipe"] for pid in res}
+    got = [torch.load(os.path.join(root, f"pipe_{pid}.pt"))
+           for pid in sorted(res)]
+    gaps = tp_gaps(got[0]["final"], ref["final"], ref["start"],
+                   rec[0]["losses"], ref["losses"])
+    equal = all(torch.equal(got[0]["final"][k], got[1]["final"][k])
+                for k in got[0]["final"])
+    want = pipe_expected(PIPE_M, PIPE_STAGE_LAYERS)
+    out = {"mesh": f"{PIPE_MESH} over 2 processes (pp across)", **gaps,
+           "losses": {p: rec[p]["losses"] for p in rec},
+           "losses_one_process": ref["losses"],
+           "params_equal_across_processes": equal,
+           **{f"p{p}": {k: rec[p][k] for k in (
+               "step_ms", "issue_ms", "collective_ms", "collective_calls",
+               "collective_ms_by_name", "kernel_checks", "held_shapes")}
+              for p in rec}, "tol": PIPE_MH_TOL}
+    print("multihost pipeline", json.dumps(out), flush=True)
+    launches = {}
+    for pid in rec:
+        launches[f"pipe_g_p{pid}"] = rec[pid]["launches"][0]
+        for counts in rec[pid]["launches"]:
+            check(counts == want, f"(g) process {pid} launches {counts} a "
+                                  f"step, want {want}")
+        checks = rec[pid]["kernel_checks"]
+        check(set(checks) == {"flash_attention_fwd", "flash_attention_bwd"}
+              and all(r["ok"] for r in checks.values()),
+              f"(g) process {pid} kernels vs their plain versions: "
+              f"{checks}")
+        check(rec[pid]["held_shapes"]["blocks.attn.query.weight"][0] == 1,
+              f"(g) process {pid} holds {rec[pid]['held_shapes']}")
+    check(rec[0]["losses"] == rec[1]["losses"] and equal
+          and all(np.isfinite(rec[0]["losses"])),
+          f"(g) the processes differ: {out['losses']}")
+    check(gaps["loss_max_rel_diff"] <= PIPE_MH_TOL["loss"]
+          and gaps["delta_l2"] <= PIPE_MH_TOL["delta_l2"],
+          f"(g) across processes vs one process: {gaps}")
+    return out, launches
+
+
+def mh_whole_leaves(torch, state):
+    """Every leaf of ``state`` whole on the host (the native capture,
+    each parameter held as its process's block gathered)."""
+    from elasticdl_tpu_torch.checkpoint.state_io import (
+        named_leaves_from_state,
+    )
+    from elasticdl_tpu_torch.common import dtypes
+
+    out = named_leaves_from_state(state)
+    for prefix, module in state.model.named_modules():
+        for leaf, sharding in module.__dict__.get("_placed", {}).items():
+            if sharding.spans_processes:
+                value = sharding.gather_block(
+                    getattr(module, leaf).detach()).cpu()
+                out[f"params.{prefix}.{leaf}" if prefix
+                    else f"params.{leaf}"] = (
+                    dtypes.bf16_to_numpy(value)
+                    if value.dtype == torch.bfloat16 else value.numpy())
+    return out
+
+
+def mh_checkpoint_part(torch, root, pid, runner, state, spec, mesh, tx):
+    """(h) after (d)'s tp-across steps: every process saves through
+    ``CheckpointHook(backend="orbax")`` and restores into a fresh state
+    of (d)'s layout (bit-equal); process 0 also restores the same
+    version onto the unsharded model, bit-equal to the gathered state.
+    The save's stall (the step thread's capture) and seconds (to the
+    version's rename), its bytes, the restores' seconds."""
+    from elasticdl_tpu_torch.checkpoint import CheckpointHook
+    from elasticdl_tpu_torch.checkpoint import restore_from_dir
+    from elasticdl_tpu_torch.checkpoint.orbax_backend import (
+        OrbaxSaver,
+        restore_state,
+    )
+    from elasticdl_tpu_torch.core.train_state import init_train_state
+    from elasticdl_tpu_torch.parallel.mesh_runner import make_runner_for_spec
+
+    ckpt = os.path.join(root, "ckpt_h")
+    want = mh_whole_leaves(torch, state)
+    hook = CheckpointHook(ckpt, checkpoint_steps=int(state.step),
+                          backend="orbax")
+    t0 = time.perf_counter()
+    check(hook.maybe_save(state), "(h) no save at the interval")
+    stall = time.perf_counter() - t0
+    hook.flush()
+    save_s = time.perf_counter() - t0
+    path = os.path.join(ckpt, f"orbax-{int(state.step)}")
+    rec = {"version": int(state.step), "stall_s": stall, "save_s": save_s,
+           "bytes": dir_bytes(path),
+           "files": sorted(os.listdir(path))}
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED + 7)
+        model = spec.make_model(mesh)
+    fresh = make_runner_for_spec(spec, mesh).init_state(model, tx,
+                                                        seed=SEED + 7)
+    t0 = time.perf_counter()
+    fresh = restore_from_dir(fresh, ckpt)
+    rec["restore_s"] = time.perf_counter() - t0
+    rec["unequal"] = unequal_leaves(mh_whole_leaves(torch, fresh), want)
+    rec["leaves"] = len(want)
+    del fresh, model
+    if pid == 0:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(SEED + 8)
+            plain = init_train_state(spec.make_model(), tx, seed=SEED + 8)
+        t0 = time.perf_counter()
+        plain = restore_state(OrbaxSaver(ckpt, collective=False), plain)
+        rec["unsharded_restore_s"] = time.perf_counter() - t0
+        rec["unsharded_unequal"] = unequal_leaves(
+            mh_whole_leaves(torch, plain), want)
+        del plain
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -8532,7 +9081,7 @@ def main(argv=None) -> int:
         "--phase", choices=("all", "fwd", "bwd", "chunk", "lookup", "host",
                             "vision", "tabular", "checkpoint", "worker",
                             "rowservice", "fleet", "parallel", "multihost",
-                            "tpfault", "moe"),
+                            "tpfault", "moe", "pipeline"),
         default="all",
         help="fwd: build flash_attention_fwd.cu alone, then run kernel "
              "#1's checks and times and print its kernels row; bwd: the "
@@ -8556,7 +9105,10 @@ def main(argv=None) -> int:
              "against TP_TOL (the flash kernels); moe: the moe config "
              "trained, scatter vs dense, the MoE twin card vs CPU, the "
              "fused head, generate, and MoE across the two processes "
-             "(the flash forward and backward kernels)")
+             "(the flash forward and backward kernels); pipeline: "
+             "PipelineLM at the flagship's widths on one card against "
+             "TransformerLM, timed at M 4 and M 8 (the flash forward and "
+             "backward kernels)")
     args = parser.parse_args(argv)
     import torch
 
@@ -8622,7 +9174,8 @@ def run(args, torch, mh) -> int:
                            fa._CHUNK_SOURCE, fa._BWD_SOURCE, fa._SOURCE],
              "fleet": [fa._SOURCE],
              "tpfault": [fa._CHUNK_SOURCE, fa._BWD_SOURCE, fa._SOURCE],
-             "moe": [fa._BWD_SOURCE, fa._SOURCE]}
+             "moe": [fa._BWD_SOURCE, fa._SOURCE],
+             "pipeline": [fa._BWD_SOURCE, fa._SOURCE]}
     logs = _build.build_all(alone.get(args.phase))
     print(f"built {sorted(logs)} in {time.monotonic() - t0:.1f}s",
           flush=True)
@@ -8642,9 +9195,15 @@ def run(args, torch, mh) -> int:
         print(json.dumps({"kernels": lookup_phase(torch, pe)}))
         return 0
     if args.phase in ("checkpoint", "worker", "fleet", "parallel",
-                      "multihost", "tpfault", "moe"):
+                      "multihost", "tpfault", "moe", "pipeline"):
         with tempfile.TemporaryDirectory() as root:
-            if args.phase == "moe":
+            if args.phase == "pipeline":
+                t1 = time.monotonic()
+                line, counts, _ = pipeline_phase(torch, fa, pe, root)
+                line = {"pipeline": {**line, "launches": counts}}
+                print(json.dumps({"phase_s": {
+                    "pipeline": round(time.monotonic() - t1, 2)}}))
+            elif args.phase == "moe":
                 t1 = time.monotonic()
                 line, _ = moe_phase(torch, fa, pe, root, mh)
                 line = {"moe": line}
@@ -8712,18 +9271,19 @@ def run(args, torch, mh) -> int:
         mark("vision")
         tabular = tabular_phase(torch, fa, pe, root)
         mark("tabular")
-        # The multihost processes set up and train while the checkpoint
-        # phase's evaluate/predict subprocesses run and, for their
-        # tensor- and sequence-parallel parts, the worker phase; their
-        # results are held to the parallel phase's runs below.
         # While the checkpoint phase's evaluate/predict subprocesses
-        # run: the multihost processes set up and train, and the moe
-        # phase's parts in this process run.
-        moe_local = {}
+        # run: the multihost processes set up and train (their results
+        # are held to the parallel phase's runs below), and the moe
+        # phase's parts and the pipeline phase in this process run.
+        moe_local, pipe = {}, {}
 
         def while_jobs():
             multihost_go(mh, "all")
             moe_local.update(moe_local_parts(torch, fa, pe, root))
+            t = time.monotonic()
+            (pipe["line"], pipe["launches"],
+             pipe["ref"]) = pipeline_phase(torch, fa, pe, root)
+            pipe["line"]["phase_s"] = round(time.monotonic() - t, 2)
 
         checkpoint = checkpoint_phase(torch, fa, pe, root, while_jobs)
         mark("checkpoint")
@@ -8748,7 +9308,7 @@ def run(args, torch, mh) -> int:
         mark("parallel")
         multihost, multihost_counts = multihost_phase(
             torch, fa, pe, root, mh, reuse.pop("recsys"), mh_results,
-            reuse.pop("tp"))
+            reuse.pop("tp"), pipe["ref"])
         mark("multihost")
         moe, moe_counts = moe_phase(torch, fa, pe, root, mh, moe_local,
                                     mh_results)
@@ -8803,6 +9363,9 @@ def run(args, torch, mh) -> int:
         row["launches_moe"] = {
             part: counts[row["name"]]
             for part, counts in moe_counts.items()}
+        row["launches_pipeline"] = {
+            part: counts[row["name"]]
+            for part, counts in pipe["launches"].items()}
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"sparse_training": sparse}))
@@ -8817,6 +9380,7 @@ def run(args, torch, mh) -> int:
     print(json.dumps({"parallel": parallel}))
     print(json.dumps({"multihost": multihost}))
     print(json.dumps({"moe": moe}))
+    print(json.dumps({"pipeline": pipe["line"]}))
     marks["total"] = round(time.monotonic() - t0, 2)
     marks["aim"] = SMOKE_AIM_S
     print(json.dumps({"phase_s": marks}))

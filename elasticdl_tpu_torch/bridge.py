@@ -14,6 +14,11 @@ dicts of numpy arrays, as ``flax.serialization.msgpack_restore`` or
   (E, d, F) and ``moe/wo`` (E, F, d) as they are (the port keeps
   flax's layout for them).
 
+``pipeline_state_dict_from_flax`` carries a JAX ``PipelineLM`` tree
+(``{"ends", "blocks"}``, the blocks' leaves stacked ``(pp, L, ...)``)
+into the port's ``PipelineLM``, each layer mapped as above and stacked
+again.
+
 ``config_from_params`` reads the architecture off the shapes (which
 blocks hold ``moe`` gives ``moe_every``) and ``init_flax_params`` makes
 a seeded numpy tree in the same layout (the flax initializers' scales,
@@ -140,28 +145,80 @@ def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
         "pos_embed": _t(params["pos_embed"]),
     }
 
-    def put(prefix, tensors):
-        for name, value in tensors.items():
-            out[f"{prefix}.{name}"] = value
-
     for i in range(_n_layers(params)):
-        block = params[f"block_{i}"]
-        pre = f"blocks.{i}"
-        put(f"{pre}.ln1", _layer_norm(block["ln1"]))
-        put(f"{pre}.ln2", _layer_norm(block["ln2"]))
-        for name in ("query", "key", "value"):
-            put(f"{pre}.attn.{name}", _dense(block["attn"][name]))
-        put(f"{pre}.attn.out", _out_dense(block["attn"]["out"]))
-        if "moe" in block:
-            moe = block["moe"]
-            put(f"{pre}.moe.router", _dense(moe["router"]))
-            put(f"{pre}.moe", {"wi": _t(moe["wi"]), "wo": _t(moe["wo"])})
-        else:
-            put(f"{pre}.mlp.wi", _dense(block["mlp"]["wi"]))
-            put(f"{pre}.mlp.wo", _dense(block["mlp"]["wo"]))
-    put("ln_f", _layer_norm(params["ln_f"]))
-    put("lm_head", _dense(params["lm_head"]))
+        for name, value in _block_state(params[f"block_{i}"]).items():
+            out[f"blocks.{i}.{name}"] = value
+    out.update(_prefixed("ln_f", _layer_norm(params["ln_f"])))
+    out.update(_prefixed("lm_head", _dense(params["lm_head"])))
     return out
+
+
+def _prefixed(prefix: str, tensors: dict) -> dict:
+    return {f"{prefix}.{name}": value for name, value in tensors.items()}
+
+
+def _block_state(block: dict) -> Dict[str, torch.Tensor]:
+    """One flax ``Block``'s params as the port's ``Block.state_dict()``."""
+    out = {}
+    out.update(_prefixed("ln1", _layer_norm(block["ln1"])))
+    out.update(_prefixed("ln2", _layer_norm(block["ln2"])))
+    for name in ("query", "key", "value"):
+        out.update(_prefixed(f"attn.{name}", _dense(block["attn"][name])))
+    out.update(_prefixed("attn.out", _out_dense(block["attn"]["out"])))
+    if "moe" in block:
+        moe = block["moe"]
+        out.update(_prefixed("moe.router", _dense(moe["router"])))
+        out.update({"moe.wi": _t(moe["wi"]), "moe.wo": _t(moe["wo"])})
+    else:
+        out.update(_prefixed("mlp.wi", _dense(block["mlp"]["wi"])))
+        out.update(_prefixed("mlp.wo", _dense(block["mlp"]["wo"])))
+    return out
+
+
+def _index_tree(tree, index):
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, index) for k, v in tree.items()}
+    return np.asarray(tree)[index]
+
+
+def pipeline_state_dict_from_flax(params: dict, pp: int,
+                                  layers_per_stage: Optional[int] = None
+                                  ) -> Dict[str, torch.Tensor]:
+    """A JAX ``PipelineLM`` params tree (``{"ends": {token_embed,
+    pos_embed, ln_f, lm_head}, "blocks": <Block tree, leaves (pp, L,
+    ...)>}``) as the port's ``PipelineLM.state_dict()`` (whole: every
+    stage). ``pp``: the stage count the port's model has; ValueError
+    where the tree's stage stack is not ``pp`` (or ``layers_per_stage``)
+    long, instead of carrying a wrong depth."""
+    ends, blocks = params["ends"], params["blocks"]
+    lead = {np.shape(leaf)[:2] for leaf in _leaves(blocks)}
+    want = (pp, layers_per_stage) if layers_per_stage else None
+    if len(lead) != 1 or next(iter(lead))[0] != pp or (
+            want and next(iter(lead)) != want):
+        raise ValueError(
+            f"PipelineLM blocks stacked as {sorted(lead)}, not "
+            f"({pp}, {layers_per_stage or 'L'}, ...): the stage count "
+            "differs")
+    _, depth = next(iter(lead))
+    layers = [[_block_state(_index_tree(blocks, (s, layer)))
+               for layer in range(depth)] for s in range(pp)]
+    out = {"ends.token_embed.weight": _t(ends["token_embed"]["embedding"]),
+           "ends.pos_embed": _t(ends["pos_embed"])}
+    out.update(_prefixed("ends.ln_f", _layer_norm(ends["ln_f"])))
+    out.update(_prefixed("ends.lm_head", _dense(ends["lm_head"])))
+    for name in layers[0][0]:
+        out[f"blocks.{name}"] = torch.stack([
+            torch.stack([layers[s][layer][name] for layer in range(depth)])
+            for s in range(pp)])
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for value in tree.values():
+            yield from _leaves(value)
+    else:
+        yield tree
 
 
 def init_flax_params(cfg: TransformerConfig, seed: int = 0) -> dict:

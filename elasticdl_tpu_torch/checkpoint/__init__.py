@@ -8,6 +8,7 @@ PS checkpoint (``elasticdl/pkg/ps/checkpoint.go``).
 
 from elasticdl_tpu_torch.checkpoint.hooks import (
     CheckpointHook,
+    has_valid_checkpoint,
     restore_from_dir,
 )
 from elasticdl_tpu_torch.checkpoint.saver import CheckpointSaver
@@ -23,6 +24,7 @@ __all__ = [
     "CheckpointSaver",
     "CheckpointWriter",
     "CorruptCheckpointError",
+    "has_valid_checkpoint",
     "named_leaves_from_state",
     "restore_from_dir",
     "restore_state_from_named_leaves",

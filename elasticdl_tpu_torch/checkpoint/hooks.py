@@ -1,12 +1,13 @@
-"""Shared checkpoint wiring for executors (port of
-elasticdl_tpu/checkpoint/hooks.py, native backend only).
+"""Shared checkpoint wiring for executors and workers (port of
+elasticdl_tpu/checkpoint/hooks.py).
 
 One implementation of "restore at init / save every N versions / final
 save" (reference spreads this across ps/parameter_server.py:49-66 and
-ps/servicer.py:242-257). The JAX package's orbax backend (multi-host
-jobs) is not ported: ``backend="orbax"``, and a directory holding
-``orbax-*`` versions, raise NotImplementedError (ROADMAP's tail item:
-``torch.distributed.checkpoint``).
+ps/servicer.py:242-257). Two backends, as in the JAX package: the
+native shard files (``saver.py``) and, for a job whose model spans
+processes, ``backend="orbax"`` (``orbax_backend.py``: the JAX names,
+``torch.distributed.checkpoint`` files in ``orbax-<version>``
+directories). A restore picks the backend from the directory.
 """
 
 import os
@@ -30,10 +31,6 @@ from elasticdl_tpu_torch.observability import default_registry
 
 logger = get_logger(__name__)
 
-_ORBAX = ("the orbax checkpoint backend is not ported (ROADMAP tail: "
-          "multi-host checkpoints through torch.distributed.checkpoint)")
-
-
 def _has_orbax_versions(checkpoint_dir: str) -> bool:
     # Finalized versions only — orbax's in-progress
     # *.orbax-checkpoint-tmp-* dirs must not route restore here.
@@ -47,13 +44,12 @@ def _has_orbax_versions(checkpoint_dir: str) -> bool:
 
 
 def has_valid_checkpoint(checkpoint_dir: str) -> bool:
-    """A restorable native version is here (the elastic-relaunch resume
-    decision). A directory of orbax versions raises: the port cannot
-    read them."""
+    """Either backend has a restorable version here (the elastic-relaunch
+    resume decision, worker/main.py)."""
     if not checkpoint_dir:
         return False
     if _has_orbax_versions(checkpoint_dir):
-        raise NotImplementedError(f"{checkpoint_dir}: {_ORBAX}")
+        return True
     try:
         return (
             CheckpointSaver(checkpoint_dir).get_valid_latest_version()
@@ -66,7 +62,12 @@ def has_valid_checkpoint(checkpoint_dir: str) -> bool:
 def restore_from_dir(state, checkpoint_dir: str, required: bool = True,
                      host_tables=None):
     """Restore a train state's leaves, in place, from the latest valid
-    version (base plus deltas) of the native shard files, and return it.
+    version, and return it. The backend is read off the directory:
+    ``orbax-<version>`` directories (multi-host jobs write those) restore
+    onto the state's own layout, each process reading the regions it
+    holds (``orbax_backend.restore_state``), collectively where the
+    state spans processes; otherwise the native shard files (base plus
+    deltas).
 
     ``required=False`` is the elastic-relaunch path: a replacement worker
     is pointed at the job's checkpoint dir, which legitimately has no
@@ -78,9 +79,10 @@ def restore_from_dir(state, checkpoint_dir: str, required: bool = True,
     took (read, decode and copy into the state) go to the registry's
     ``checkpoint_restore_seconds`` (a family of the port's own).
     """
-    if _has_orbax_versions(checkpoint_dir):
-        raise NotImplementedError(f"{checkpoint_dir}: {_ORBAX}")
     t0 = time.monotonic()
+    if _has_orbax_versions(checkpoint_dir):
+        return _restore_orbax(state, checkpoint_dir, required, host_tables,
+                              t0)
     try:
         _, dense, embeddings = CheckpointSaver(checkpoint_dir).restore()
     except FileNotFoundError:
@@ -121,6 +123,42 @@ def restore_from_dir(state, checkpoint_dir: str, required: bool = True,
     return state
 
 
+def _restore_orbax(state, checkpoint_dir, required, host_tables, t0):
+    if host_tables:
+        # Symmetric with CheckpointHook: these checkpoints carry no host
+        # rows; continuing would lazy-reinit every trained row.
+        raise ValueError(
+            "host_tables restore requires a native-backend "
+            f"checkpoint; {checkpoint_dir} is orbax-backed"
+        )
+    from elasticdl_tpu_torch.checkpoint.orbax_backend import (
+        OrbaxSaver,
+        restore_state,
+    )
+
+    saver = OrbaxSaver(checkpoint_dir, collective=getattr(
+        state, "global_batch", None) is not None)
+    try:
+        state = restore_state(saver, state)
+    except FileNotFoundError:
+        if required:
+            raise
+        logger.warning(
+            "No valid orbax checkpoint under %s; starting fresh",
+            checkpoint_dir,
+        )
+        return state
+    default_registry().histogram(
+        "checkpoint_restore_seconds",
+        "Checkpoint restore duration (read, decode, copy into the state)",
+    ).observe(time.monotonic() - t0)
+    logger.info(
+        "Restored state at version %d from %s (orbax)",
+        int(state.step), checkpoint_dir,
+    )
+    return state
+
+
 class CheckpointHook:
     """Periodic + final checkpoint writer. ``maybe_save`` is a no-op when
     no dir or no interval is configured; ``save_final`` always writes the
@@ -138,11 +176,15 @@ class CheckpointHook:
         host_tables=None,
         delta_chain_max: int = 0,
     ):
-        if backend != "native":
-            raise NotImplementedError(f"backend={backend!r}: {_ORBAX}")
+        if backend not in ("native", "orbax"):
+            raise ValueError(f"unknown checkpoint backend {backend!r}")
         # host_tables ({name: EmbeddingTable-like}): host-tier rows are
-        # saved alongside the state (the saver shards rows by id % N
-        # like the reference Go checkpoint).
+        # saved alongside the state (native backend; the saver shards
+        # rows by id % N like the reference Go checkpoint).
+        if host_tables and backend == "orbax":
+            raise ValueError(
+                "host_tables checkpointing requires the native backend"
+            )
         self._host_tables = host_tables or {}
         for view in self._host_tables.values():
             # Turn dirty tracking on now that a consumer drains it
@@ -151,7 +193,18 @@ class CheckpointHook:
             enable = getattr(view, "enable_dirty_tracking", None)
             if enable is not None:
                 enable()
-        self.saver = (
+        # "orbax": a job whose model spans processes (no process holds
+        # every leaf): every process writes its parts and restores onto
+        # any layout. The backend runs its own background writer.
+        self._orbax = None
+        if backend == "orbax" and checkpoint_dir:
+            from elasticdl_tpu_torch.checkpoint.orbax_backend import (
+                OrbaxSaver,
+            )
+
+            self._orbax = OrbaxSaver(checkpoint_dir, keep_max=keep_max,
+                                     async_save=async_save)
+        self.saver = self._orbax or (
             CheckpointSaver(checkpoint_dir, num_shards=num_shards,
                             keep_max=keep_max,
                             delta_chain_max=delta_chain_max)
@@ -188,6 +241,8 @@ class CheckpointHook:
     def flush(self):
         """Wait for in-flight async writes; raise a deferred failure
         (unless a newer write has since succeeded and superseded it)."""
+        if self._orbax is not None:
+            self._orbax.wait()
         self._writer.flush()
 
     def note_version(self, version: int):
@@ -244,6 +299,15 @@ class CheckpointHook:
         # spent HERE is the whole step-path checkpoint cost —
         # checkpoint_stall_seconds measures it.
         t0 = time.monotonic()
+        if self._orbax is not None:
+            from elasticdl_tpu_torch.checkpoint.orbax_backend import (
+                save_state,
+            )
+
+            save_state(self._orbax, state)
+            self._last_submitted = self._last_saved = version
+            self._m_stall.observe(time.monotonic() - t0)
+            return
         # Incremental plan: only when host tables exist (a dense-only
         # delta saves nothing — the dense leaves ARE the payload and
         # ride in full either way).

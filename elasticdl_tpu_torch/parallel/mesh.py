@@ -184,6 +184,11 @@ class Mesh:
                      tuple(map(str, self.devices.flat)),
                      tuple(self.processes.flat)))
 
+    def __deepcopy__(self, memo):
+        # A mesh names devices and process groups: a copy of a model
+        # built for it runs on the same mesh.
+        return self
+
     def __repr__(self):
         if self.spans_processes:
             return (f"Mesh({self.shape}, {self.process_count} processes, "
@@ -358,17 +363,23 @@ class NamedSharding:
             out[d] //= self.counts[d]
         return tuple(out)
 
-    def local_block(self, tensor: torch.Tensor) -> torch.Tensor:
-        """The process's block of a whole ``tensor`` (a view): the run
-        of its shards along every split dim; the tensor itself where the
-        process holds every shard."""
+    def block_slices(self, shape) -> tuple:
+        """The process's block of a whole leaf of ``shape`` (a ``slice``
+        a dim): the run of its shards along every split dim."""
+        index = [slice(0, n) for n in shape]
         for d in self.dims:
-            k = len(self.locals[d])
-            if k == self.counts[d]:
-                continue
-            rows = tensor.shape[d] // self.counts[d]
-            tensor = tensor.narrow(d, self.locals[d][0] * rows, k * rows)
-        return tensor
+            rows = shape[d] // self.counts[d]
+            first = self.locals[d][0] * rows
+            index[d] = slice(first, first + len(self.locals[d]) * rows)
+        return tuple(index)
+
+    def local_block(self, tensor: torch.Tensor) -> torch.Tensor:
+        """The process's block of a whole ``tensor`` (a view,
+        ``block_slices``); the tensor itself where the process holds
+        every shard."""
+        if not self.spans_processes:
+            return tensor
+        return tensor[self.block_slices(tensor.shape)]
 
     def views(self, tensor: torch.Tensor) -> List[torch.Tensor]:
         """Each local shard's slice of a whole ``tensor``, as views (the

@@ -27,7 +27,8 @@ the steps that need them (``core/step.py``, ``parallel/zero.py``,
   below take one (default: the data group): the gradients' sums, the
   ``tp`` layers' all-reduces and logits gather
   (``parallel/tensor_parallel.py``), the ring's ``ring_shift``
-  (send/recv), ZeRO's all-gather over the data axis, a split table's
+  (send/recv), the pipeline's ``send``/``recv``/``broadcast``
+  (``parallel/pipeline.py``), ZeRO's all-gather over the data axis, a split table's
   ids and rows.
 - **Data plane:** each worker keeps pulling its own tasks from the
   master. Its task batch is its process-local shard of the global
@@ -141,6 +142,17 @@ def shutdown():
                   devices=None, topology=None, data_group=None,
                   data_backend=None)
     _groups.clear()
+
+
+def side_group():
+    """A gloo group over every process that no training step's
+    collective uses (a background checkpoint write's), made by the
+    first call, which every process makes at the same point
+    (``new_group`` is collective), and kept until ``shutdown``."""
+    key = (tuple(range(_world["count"])), "gloo", "side")
+    if key not in _groups:
+        _groups[key] = dist.new_group(backend="gloo", timeout=TIMEOUT)
+    return _groups[key]
 
 
 def coordinator_from_args(args) -> str:
@@ -406,6 +418,50 @@ def ring_shift(tensors: Sequence[torch.Tensor], group: Group
     for request in requests:
         request.wait()
     return [g.to(t.device) for g, t in zip(got, tensors)]
+
+
+def send(tensor: torch.Tensor, dst: int, group: Group, tag: int = 0):
+    """Start sending ``tensor`` to process ``dst`` of ``group``; returns
+    a handle whose ``wait()`` the caller must call (a gloo group stages
+    a CUDA tensor through the host; the handle keeps that copy alive).
+    The pipeline's activations and their gradients travel so
+    (``parallel/pipeline.py``)."""
+    out = tensor.cpu() if _staged(tensor, group) else tensor.contiguous()
+    return _Pending(dist.isend(out, dst, group=group.pg, tag=tag), out)
+
+
+def recv(shape, dtype, device, src: int, group: Group,
+         tag: int = 0) -> torch.Tensor:
+    """The tensor process ``src`` of ``group`` sends (``send``), on
+    ``device``: blocks until it has arrived."""
+    staged = group.backend == "gloo" and torch.device(device).type == "cuda"
+    into = torch.empty(shape, dtype=dtype,
+                       device="cpu" if staged else device)
+    dist.recv(into, src, group=group.pg, tag=tag)
+    return into.to(device)
+
+
+def broadcast(tensor: torch.Tensor, src: int, group: Group) -> torch.Tensor:
+    """``tensor`` of process ``src`` on every member of ``group`` (the
+    others pass a tensor of the same shape and dtype to fill): a new
+    tensor on ``tensor``'s device."""
+    if group.size < 2:
+        return tensor
+    buf = (tensor.cpu() if _staged(tensor, group)
+           else tensor.contiguous().clone())
+    dist.broadcast(buf, src, group=group.pg)
+    return buf.to(tensor.device)
+
+
+class _Pending:
+    """A started ``send``: ``wait()`` ends it."""
+
+    def __init__(self, work, buffer):
+        self._work, self._buffer = work, buffer
+
+    def wait(self):
+        self._work.wait()
+        self._buffer = None
 
 
 class AllReduceSum(torch.autograd.Function):

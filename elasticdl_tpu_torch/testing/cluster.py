@@ -5,7 +5,11 @@ Assemble a real TaskDispatcher + EvaluationService + MasterServicer,
 then drive one or more of the port's Workers against it — either with
 direct in-process calls or over a real localhost gRPC server — and
 assert the job drains. Every worker runs on ``device`` (CUDA unless
-"cpu" is given).
+"cpu" is given). Each worker has a spec of its own and trains its own
+copy of the spec's model, made by ``run`` from ``cluster.spec.model``
+(the template no worker trains, so weights loaded into it before
+``run`` reach every worker); a host-tier model's runner, and so its
+rows, is shared, as on a parameter server.
 
 With ``mesh``, the workers train on it as ``worker/main.py`` wires
 MeshStrategy: a device-tier sparse model through its runner built with
@@ -18,6 +22,8 @@ journal and crash recovery), the chaos ``fault_injector`` and the
 ``/metrics`` endpoint (ROADMAP Queue 1, item 8).
 """
 
+import copy
+import dataclasses
 import threading
 from typing import Dict, List, Optional
 
@@ -160,6 +166,10 @@ class MiniCluster:
             self.train_reader or self.eval_reader or self.predict_reader
         )
         self.workers: List[Worker] = []
+        # A spec for each worker, so the model ``run`` copies in (or a
+        # resize builds) is that worker's alone.
+        self._worker_specs = [dataclasses.replace(self.spec)
+                              for _ in range(num_workers)]
         hook = None
         for wid in range(num_workers):
             if use_rpc:
@@ -192,7 +202,7 @@ class MiniCluster:
                 Worker(
                     worker_id=wid,
                     master_client=client,
-                    model_spec=self.spec,
+                    model_spec=self._worker_specs[wid],
                     data_reader=task_reader,
                     minibatch_size=minibatch_size,
                     step_runner=runner,
@@ -227,6 +237,13 @@ class MiniCluster:
     def run(self) -> List[dict]:
         """Run all workers (threads if >1) to completion."""
         results = [None] * len(self.workers)
+        for worker, spec in zip(self.workers, self._worker_specs):
+            if worker.state is None:
+                # Each worker trains its own copy of the template's
+                # weights as they stand now (as each JAX worker holds
+                # its own dense state from one seed), so no two
+                # optimizers step one set of parameters.
+                spec.model = copy.deepcopy(self.spec.model)
         if len(self.workers) == 1:
             results[0] = self.workers[0].run()
         else:

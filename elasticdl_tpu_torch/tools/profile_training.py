@@ -8,6 +8,8 @@
         [--batch 128] [--iters 5]
     python -m elasticdl_tpu_torch.tools.profile_training --model census
         [--batch 512] [--iters 5]
+    python -m elasticdl_tpu_torch.tools.profile_training --model pipeline
+        [--batch 16] [--microbatches 4] [--iters 5]
 
 ``--model transformer`` (the default) builds the transformer-LM
 flagship (bench_suite.py ``_TRANSFORMER_SIZES["transformer"]``, vocab
@@ -32,6 +34,11 @@ zoo's schedule, and runs ``core.step.build_train_step`` on batches its
 records (seed 0, written to a temporary directory); it also prints the
 host's ms for ``dataset_fn`` on one batch (the median of ``--iters``
 calls), the decode the executor's prefetch thread runs beside the step.
+``--model pipeline`` builds ``PipelineLM`` at the flagship's widths
+(dropout 0) on a one-card (pp 2, dp 2) mesh, 4 layers a stage, with its
+own seeded weights, and runs its ``make_train_step`` (the zoo twin's
+loss and Adam 1e-3) with ``--microbatches`` microbatches on seeded
+random token batches.
 
 Either way it times ``--iters`` steps with CUDA events beside the
 host's time to issue them, then runs ``--iters`` steps under
@@ -162,15 +169,7 @@ def _transformer(batch, seq, sp=1, remat=False):
         state = init_train_state(model.cuda(), transformer_lm.optimizer(),
                                  seed=0)
         step = build_train_step(transformer_lm.loss)
-    rng = np.random.default_rng(0)
-    batches = []
-    for _ in range(2):
-        tokens = rng.integers(0, cfg.vocab_size,
-                              (batch, seq + 1)).astype(np.int32)
-        batches.append({"features": tokens[:, :-1],
-                        "labels": tokens[:, 1:],
-                        "mask": np.ones(batch, np.float32)})
-    return state, step, batches
+    return state, step, _token_batches(cfg, batch, seq)
 
 
 def _recsys(batch):
@@ -191,15 +190,44 @@ def _recsys(batch):
     return state, runner.train_step(recsys_sparse.loss), batches
 
 
+def _pipeline(batch, seq, microbatches):
+    from elasticdl_tpu_torch.models.pipeline_lm import PipelineLM
+
+    cfg = TransformerConfig(**dict(FLAGSHIP, max_len=max(
+        seq, FLAGSHIP["max_len"])), compute_dtype=torch.bfloat16)
+    mesh = make_mesh((2, 2), ("pp", "dp"), [torch.device("cuda:0")] * 4)
+    torch.manual_seed(0)
+    model = PipelineLM(cfg, mesh, num_microbatches=microbatches,
+                       layers_per_stage=cfg.n_layers // 2).cuda()
+    train_step = model.make_train_step(transformer_lm.loss,
+                                       transformer_lm.optimizer())
+    return None, lambda state, b: train_step(b), _token_batches(
+        cfg, batch, seq)
+
+
+def _token_batches(cfg, batch, seq):
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(2):
+        tokens = rng.integers(0, cfg.vocab_size,
+                              (batch, seq + 1)).astype(np.int32)
+        batches.append({"features": tokens[:, :-1],
+                        "labels": tokens[:, 1:],
+                        "mask": np.ones(batch, np.float32)})
+    return batches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser("profile_training")
     parser.add_argument("--model",
                         choices=("transformer", "recsys", "resnet50",
-                                 "census"),
+                                 "census", "pipeline"),
                         default="transformer")
     parser.add_argument("--batch", type=int, default=None,
-                        help="8 (transformer), 512 (recsys, census) or "
-                             "128 (resnet50)")
+                        help="8 (transformer), 16 (pipeline), 512 "
+                             "(recsys, census) or 128 (resnet50)")
+    parser.add_argument("--microbatches", type=int, default=4,
+                        help="pipeline: microbatches a step")
     parser.add_argument("--seq", type=int, default=1024)
     parser.add_argument("--iters", type=int, default=5)
     parser.add_argument("--top", type=int, default=16)
@@ -226,6 +254,12 @@ def main(argv=None) -> int:
         args.batch = args.batch or 128
         state, step, batches = _resnet50(args.batch)
         shape = [args.batch, 224, 224, 3]
+    elif args.model == "pipeline":
+        args.batch = args.batch or 16
+        state, step, batches = _pipeline(args.batch, args.seq,
+                                         args.microbatches)
+        shape = [args.batch, args.seq]
+        extra["microbatches"] = args.microbatches
     else:
         args.batch = args.batch or 8
         state, step, batches = _transformer(args.batch, args.seq, args.sp,

@@ -21,10 +21,15 @@ to ``--worker_id``) wires ``torch.distributed`` before the zoo module is
 imported (``parallel/multihost.py``); the process drives ``cuda:<i mod
 cards>`` (``cuda:0`` where the host has one card), and the mesh of
 ``--mesh_shape`` spans the processes, each giving its share of the
-entries. Such a job needs MeshStrategy, and ``--checkpoint_dir`` or
-``--checkpoint_dir_for_init`` raise: multi-host checkpoints and the gang
-restart are ROADMAP item 8 (``torch.distributed.checkpoint``). The XLA
-compilation cache and the step profiler have no flag here.
+entries. Such a job needs MeshStrategy. With ``--checkpoint_dir`` every
+process holds a ``CheckpointHook(backend="orbax")``: the processes
+write each version together, each its parts of the state
+(``checkpoint/orbax_backend.py``, ``torch.distributed.checkpoint``),
+and ``--checkpoint_dir_for_init`` (or a rolling directory that holds a
+version) restores onto the job's layout. The gang restart that
+relaunches every process on a membership change is not ported (ROADMAP
+item 8d). The XLA compilation cache and the step profiler have no flag
+here.
 """
 
 import os
@@ -92,12 +97,6 @@ def _init_multihost(args, device: torch.device) -> torch.device:
         raise ValueError(
             "--num_jax_processes > 1 needs --distribution_strategy "
             "MeshStrategy: the processes train one model over one mesh")
-    for flag in ("checkpoint_dir", "checkpoint_dir_for_init"):
-        if getattr(args, flag, ""):
-            raise NotImplementedError(
-                f"--{flag} with --num_jax_processes > 1: multi-host "
-                "checkpoints and the gang restart wait for ROADMAP item 8 "
-                "(torch.distributed.checkpoint)")
     if device.type == "cuda":
         device = torch.device("cuda", process_id % torch.cuda.device_count())
     multihost.initialize_multihost(coordinator, num_procs, process_id,
@@ -276,8 +275,18 @@ def build_worker(args, master_client=None) -> Worker:
             tracing.FlightRecorder(recorder_spans)
         )
     checkpoint_hook = None
-    # One writer (worker 0) suffices: the state is the one job's.
-    if getattr(args, "checkpoint_dir", "") and args.worker_id == 0:
+    # Single-host: one writer (worker 0) suffices, the state is the one
+    # job's. Multi-host: EVERY process holds a hook; the orbax backend's
+    # saves are written by all processes together (the worker calls
+    # maybe_save at the same versions everywhere).
+    from elasticdl_tpu_torch.parallel import multihost
+
+    mesh_multihost = (
+        args.distribution_strategy == DistributionStrategy.MESH
+        and multihost.process_count() > 1
+    )
+    if getattr(args, "checkpoint_dir", "") and (
+            args.worker_id == 0 or mesh_multihost):
         from elasticdl_tpu_torch.checkpoint import CheckpointHook
 
         checkpoint_hook = CheckpointHook(
@@ -285,8 +294,14 @@ def build_worker(args, master_client=None) -> Worker:
             checkpoint_steps=getattr(args, "checkpoint_steps", 0),
             num_shards=getattr(args, "checkpoint_shards", 1) or 1,
             keep_max=getattr(args, "keep_checkpoint_max", 3),
+            # Mesh multi-host only: no process holds every leaf; each
+            # writes its parts. Other strategies keep the native saver.
+            backend="orbax" if mesh_multihost else "native",
             host_tables=getattr(step_runner, "host_tables", None),
-            delta_chain_max=getattr(args, "checkpoint_delta_chain", 0),
+            delta_chain_max=(
+                0 if mesh_multihost
+                else getattr(args, "checkpoint_delta_chain", 0)
+            ),
         )
     from elasticdl_tpu_torch.callbacks import (
         ensure_saved_model_exporter,

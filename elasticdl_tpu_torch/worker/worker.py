@@ -612,6 +612,9 @@ class Worker:
         dummy = multihost.zero_mask_like(self.last_batch)
         if code == multihost.STEP_TRAIN:
             self.state, _ = self._train_step(self.state, dummy)
+            # Every process saves at the same versions: a multi-host
+            # checkpoint is written by all of them together.
+            self._checkpoint.maybe_save(self.state)
         elif code == multihost.STEP_FORWARD:
             self._eval_step(self.state, dummy)
 
@@ -837,7 +840,11 @@ class Worker:
             # A directive that arrived WITH the finished response would
             # otherwise never be acked (the task loop is over).
             self._maybe_apply_resize()
-        if self.state is not None and trained_batches:
+        # Under multi-host sync every process took part in every step
+        # (its own or a peer's) and writes the final version with the
+        # others, whatever it trained itself.
+        if self.state is not None and (trained_batches
+                                       or self._multihost_sync):
             self._checkpoint.save_final(self.state)
         self._timing.report_timing()
         return {

@@ -17,8 +17,8 @@ the port's modules.
   metric; the hook's host-table deltas) against the port's modules.
 - The port's own: state leaves by name (bf16 bit-exact, Adam's lazy
   slots created at restore with torch's placement, strict restore),
-  the orbax backend refused, and an async hook writing each interval
-  version once.
+  and an async hook writing each interval version once. The orbax
+  backend's cases are tests/test_torch_orbax_backend*.py.
 """
 
 import json
@@ -634,16 +634,6 @@ def test_a_state_field_without_a_rule_raises():
                      generator=base.generator)
     with pytest.raises(NotImplementedError, match="ema"):
         named_leaves_from_state(state)
-
-
-def test_orbax_backend_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
-        CheckpointHook(str(tmp_path / "c"), backend="orbax")
-    (tmp_path / "o" / "orbax-3").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="orbax"):
-        restore_from_dir(_tiny_state(), str(tmp_path / "o"))
-    with pytest.raises(NotImplementedError, match="orbax"):
-        has_valid_checkpoint(str(tmp_path / "o"))
 
 
 def test_has_valid_checkpoint_and_the_relaunch_restore(tmp_path, dense):

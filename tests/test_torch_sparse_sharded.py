@@ -640,8 +640,9 @@ def test_worker_main_mesh_strategy_row_shards_the_sparse_model(tmp_path):
     package): the table row-shards over the first axis, and the job
     drains through it. ``--grads_to_wait`` > 1 is refused, and so are
     the multi-host flags where they cannot start a job: no coordinator,
-    a process id out of range, no MeshStrategy, a checkpoint directory
-    (item 8)."""
+    a process id out of range, no MeshStrategy. (A checkpoint directory
+    is no longer refused: tests/test_torch_orbax_backend_procs.py runs
+    such a job across two processes.)"""
     from elasticdl_tpu_torch.common.args import parse_worker_args
     from elasticdl_tpu_torch.master.evaluation_service import (
         EvaluationService,
@@ -682,9 +683,7 @@ def test_worker_main_mesh_strategy_row_shards_the_sparse_model(tmp_path):
     for flags, error, match in (
             (multi[:2], ValueError, "coordinator_addr"),
             (multi + ("--jax_process_id", "5"), ValueError, "out of range"),
-            (multi, ValueError, "MeshStrategy"),
-            (multi + mesh_flags + ("--checkpoint_dir", str(tmp_path)),
-             NotImplementedError, "item 8")):
+            (multi, ValueError, "MeshStrategy")):
         with pytest.raises(error, match=match):
             build_worker(parse_worker_args(_worker_argv(
                 str(tmp_path / "zoo"), train, *flags)),
