@@ -251,9 +251,20 @@
    runs) shared by two workers on the card (``MiniCluster``, the zoo's
    async runner) over 2560 records, run first: the job drains (5
    pushes), losses finite; after SIGTERM the newest valid checkpoint
-   version equals the push count, and a relaunch (booting while (a) and
-   (b) run) restores it and answers a pull with the saved rows bit for
-   bit. Step
+   version equals the push count, and a relaunch (restoring while (a)
+   and (b) run) restores it and answers a pull with the saved rows bit
+   for bit. The relaunch and (f)'s third incarnation are started with the
+   first and import while the worker phase runs; each runs the service's
+   main when its go file appears. The service of (c) and its relaunches are tiered and logged
+   (``--hot_budget_rows 512 --push_log_dir``, durable acks, 2 ms group
+   commit; the 5500 x 16 table is ~10x the budget): its ``row_tier_*``
+   readings from ``/metrics`` (``--metrics_port 0``) show at most 512 hot
+   rows, evictions and cold rows. (f) Through the relaunch, 2 more
+   durably acked pushes (versions 6 and 7, under the checkpoint
+   interval), the touched rows read, then SIGKILL: the port's
+   ``tools.check_pushlog`` finds the log clean, and the third incarnation
+   restores version 5, replays exactly 2 records and answers the pull
+   bit for bit. Step
    ms (CUDA events) beside issue ms for (a)'s and (c)'s workers. Every
    kernel counter is zeroed just before each run and reads 0 after it.
    (d) ``--phase rowservice`` only: pull and push at the recsys shape
@@ -265,7 +276,19 @@
    worker on the card over 40 batches at B 512, the rows in process or
    on the service's main in a subprocess, with a synchronous and the
    zoo's asynchronous runner: step ms (CUDA events, one-step windows)
-   beside issue ms; every kernel counter 0.
+   beside issue ms; every kernel counter 0. (g) ``--phase rowservice``
+   only: the tiered store at the recsys shape. (d)'s 1,000,000 x 256
+   Adagrad table on the service's main in six subprocesses, tiered
+   (``--hot_budget_rows 100000``) or not, each with a durable, an
+   applied or no push log; the whole vocabulary is pulled once (the
+   table 10x the budget), then 40 batches of 16,384 ids of a 65,536-row
+   working set plus 64 strangers, 4,096 rows of the set replaced every
+   5 batches (``tools/bench_tiered_store.py``'s schedule): pull and push
+   p50 and p99 ms of each, the tiered durable service's faults,
+   evictions, cold rows and bytes on disk; the final rows of all six
+   byte-equal. Then that service is SIGKILLed after its last acked push
+   and relaunched: the replay's records, seconds and MB/s, and a pull
+   bit-equal to the rows read before the kill.
 11h. ``fleet`` (the rest of serving; ``--phase fleet`` runs it alone,
    builds only ``flash_attention_fwd.cu`` and exports the flagship
    bundle itself). Every kernel counter is zeroed just before each part
@@ -841,8 +864,9 @@ WORKER_RPCS = ("get_task", "report_task_result", "report_version",
 # over ROWSVC_C_RECORDS records (two tasks, 5 pushes: an interval
 # checkpoint at 4, the SIGTERM drain at 5); a relaunch restores the
 # drained version and answers a pull with the saved rows bit for bit.
-# Each start imports torch (~8 s on the chip machine), so the first is
-# started ahead and the relaunch boots while (a) and (b) run.
+# Each start imports torch (~8 s on the chip machine), so all three
+# incarnations are started ahead (the later two behind go files) and
+# import while the worker phase runs.
 # (d) ``--phase rowservice`` only: pull and push at the recsys shape
 # (EMB_VOCAB x EMB_DIM native table, Adagrad rows, ROWSVC_TIMED_IDS
 # unique ids a batch) over localhost gRPC to the service's main in a
@@ -853,9 +877,31 @@ WORKER_RPCS = ("get_task", "report_task_result", "report_version",
 # service's main in a subprocess, each with a synchronous and the zoo's
 # asynchronous runner; and the host engine's phases at the recsys shape
 # (``host_engine_times``) in the same call as (d).
+# (c)'s service keeps ROWSVC_HOT_BUDGET rows of its table hot and logs
+# every push ahead of its checkpoints; (f) pushes ROWSVC_KILL_PUSHES
+# batches of ROWSVC_KILL_IDS ids through the relaunch, SIGKILLs it, and
+# a third incarnation restores and replays them.
+# (g) ``--phase rowservice`` only: the tiered store at the recsys shape,
+# (d)'s table behind a ROWSVC_G_BUDGET-row hot tier or none, with each
+# push-log ack mode (ROWSVC_G_SERVICES); ROWSVC_G_BATCHES batches of
+# ROWSVC_TIMED_IDS ids from a ROWSVC_G_WORKING-row working set plus
+# ROWSVC_G_STRANGERS strangers, ROWSVC_G_DRIFT rows of the set replaced
+# every ROWSVC_G_DRIFT_EVERY batches (tools/bench_tiered_store.py's
+# schedule at this shape).
 ROWSVC_RECORDS, ROWSVC_C_RECORDS, ROWSVC_CKPT_STEPS = 2048, 2560, 4
 ROWSVC_TIMED_IDS = 16384
 ROWSVC_STEP_BATCHES = 40
+ROWSVC_HOT_BUDGET = 512
+ROWSVC_KILL_PUSHES, ROWSVC_KILL_IDS = 2, 1024
+ROWSVC_G_BUDGET, ROWSVC_G_BATCHES = 100_000, 40
+ROWSVC_G_WORKING, ROWSVC_G_STRANGERS = 65_536, 64
+ROWSVC_G_DRIFT, ROWSVC_G_DRIFT_EVERY = 4096, 5
+# name: (tiered, push-log ack or None for no log)
+ROWSVC_G_SERVICES = {
+    "tiered_durable": (True, "durable"), "tiered_applied": (True, "applied"),
+    "tiered_no_log": (True, None), "untiered_durable": (False, "durable"),
+    "untiered_applied": (False, "applied"), "untiered_no_log": (False, None),
+}
 ROWSVC_BENCH_ZOO = f"""
 from elasticdl_tpu_torch.embedding.optimizer import Adagrad
 from elasticdl_tpu_torch.embedding.row_service import HostRowService
@@ -4414,21 +4460,41 @@ def remote_sync_runner(addr):
         async_apply=False)
 
 
-def row_service_main(root, zoo, model_def, log_name, extra=()):
+# The row service's main behind a go file: the process imports the
+# package (torch with it) at once and calls ``main`` when the file
+# appears, so a relaunch that must wait for its predecessor's death
+# boots while earlier work runs.
+WAITING_MAIN = (
+    "import os, sys, time\n"
+    "from elasticdl_tpu_torch.embedding import row_service\n"
+    "while not os.path.exists(sys.argv[1]):\n"
+    "    time.sleep(0.01)\n"
+    "row_service.main(sys.argv[2:])\n")
+
+
+def row_service_main(root, zoo, model_def, log_name, extra=(), go=None):
     """``python -m elasticdl_tpu_torch.embedding.row_service`` in a
     subprocess on localhost:0: (process, log file). ``service_port``
-    waits for the port it logs."""
+    waits for the port it logs. With ``go`` (a path) the process imports
+    the package now and runs ``main`` once the path exists."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (here, env.get("PYTHONPATH", "")) if p)
     log = open(os.path.join(root, log_name), "w+")
+    entry = (["-m", "elasticdl_tpu_torch.embedding.row_service"]
+             if go is None else ["-c", WAITING_MAIN, go])
     proc = subprocess.Popen(
-        [sys.executable, "-m", "elasticdl_tpu_torch.embedding.row_service",
+        [sys.executable, *entry,
          "--model_zoo", zoo, "--model_def", model_def,
          "--addr", "localhost:0", *extra],
         env=env, cwd=root, stdout=log, stderr=subprocess.STDOUT)
     return proc, log
+
+
+def go(path):
+    with open(path, "w"):
+        pass
 
 
 def service_port(proc, log, timeout=120.0):
@@ -4452,6 +4518,38 @@ def stop_service(proc, log):
         proc.kill()
         proc.wait()
     log.close()
+
+
+def log_text(log):
+    log.flush()
+    log.seek(0)
+    return log.read()
+
+
+def tier_readings(log):
+    """The ``row_tier_*`` and ``row_push_log_*`` counters and gauges of a
+    row-service subprocess started with ``--metrics_port 0``, read from
+    its ``/metrics`` (the port comes from its log)."""
+    import re
+
+    port = re.search(r"/metrics serving on port (\d+)", log_text(log))
+    check(port is not None, "the row service logged no /metrics port")
+    with urllib.request.urlopen(
+            f"http://localhost:{port.group(1)}/metrics", timeout=30) as r:
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        found = re.match(r"edl_tpu_(row_(?:tier|push_log)_\w+?)"
+                         r"(_sum|_count)? ([-+0-9.eE]+|NaN)$", line)
+        if found and not found.group(1).endswith("_bucket"):
+            out[found.group(1) + (found.group(2) or "")] = float(
+                found.group(3))
+    return out
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(base, f))
+               for base, _, files in os.walk(path) for f in files)
 
 
 def card_steps(record):
@@ -4581,29 +4679,52 @@ def rowservice_two_shards(torch, fa, pe, records, one_svc, one_rows,
     return out
 
 
-def rowservice_flags(ckpt):
-    return ["--checkpoint_dir", ckpt, "--checkpoint_steps",
-            str(ROWSVC_CKPT_STEPS), "--shard_id", "0", "--num_shards", "1"]
+def rowservice_flags(root):
+    """(c)'s service flags: checkpoints every ROWSVC_CKPT_STEPS pushes,
+    a ROWSVC_HOT_BUDGET-row hot tier (cold rows in ``<ckpt>_cold``), a
+    durably acked push log, and ``/metrics`` on an ephemeral port."""
+    return ["--checkpoint_dir", os.path.join(root, "rowsvc_ckpt"),
+            "--checkpoint_steps", str(ROWSVC_CKPT_STEPS),
+            "--shard_id", "0", "--num_shards", "1",
+            "--hot_budget_rows", str(ROWSVC_HOT_BUDGET),
+            "--push_log_dir", os.path.join(root, "rowsvc_wal"),
+            "--metrics_port", "0"]
 
 
 def rowservice_start(root):
-    """(c)'s service main, started in a subprocess ahead of its use: it
-    boots (the import of torch) while earlier work runs."""
+    """(c)'s service main and its two later incarnations, started in
+    subprocesses ahead of their use: the first boots (the import of
+    torch) while earlier work runs, the relaunch (after SIGTERM) and
+    (f)'s third incarnation (after SIGKILL) import too and run main once
+    their go files appear."""
     from elasticdl_tpu_torch import native
     from elasticdl_tpu_torch.testing import data as tdata
 
     native.get_lib()  # built here once, before the subprocess loads it
-    ckpt = os.path.join(root, "rowsvc_ckpt")
-    proc, log = row_service_main(
-        root, tdata.model_zoo_dir(), "deepfm.deepfm_host.custom_model",
-        "rowsvc_main.log", rowservice_flags(ckpt))
-    return dict(proc=proc, log=log, ckpt=ckpt)
+    out = dict(ckpt=os.path.join(root, "rowsvc_ckpt"),
+               wal=os.path.join(root, "rowsvc_wal"))
+    for name, log_name in (("first", "rowsvc_main.log"),
+                           ("relaunch", "rowsvc_relaunch.log"),
+                           ("third", "rowsvc_third.log")):
+        go_file = (None if name == "first"
+                   else os.path.join(root, f"rowsvc_{name}.go"))
+        proc, log = row_service_main(
+            root, tdata.model_zoo_dir(), "deepfm.deepfm_host.custom_model",
+            log_name, rowservice_flags(root), go=go_file)
+        out[name] = dict(proc=proc, log=log, go=go_file)
+    return out
+
+
+def rowservice_stop(service):
+    for name in ("first", "relaunch", "third"):
+        stop_service(service[name]["proc"], service[name]["log"])
 
 
 def rowservice_shared_run(torch, fa, pe, root, records, service):
     """(c), first half: the started service shared by two workers on the
-    card with the zoo's async runner, then SIGTERM, the drained version,
-    and the relaunch started (it boots while (a) and (b) run)."""
+    card with the zoo's async runner, its tier readings, then SIGTERM,
+    the drained version, and the relaunch's go file (it restores while
+    (a) and (b) run)."""
     import signal
 
     from elasticdl_tpu_torch.checkpoint.saver import CheckpointSaver
@@ -4612,7 +4733,7 @@ def rowservice_shared_run(torch, fa, pe, root, records, service):
     from elasticdl_tpu_torch.testing import data as tdata
     from elasticdl_tpu_torch.testing.cluster import MiniCluster
 
-    proc, log = service["proc"], service["log"]
+    proc, log = service["first"]["proc"], service["first"]["log"]
     port, _ = service_port(proc, log)
     addr = f"localhost:{port}"
     cluster = MiniCluster(
@@ -4641,13 +4762,12 @@ def rowservice_shared_run(torch, fa, pe, root, records, service):
     touched = np.unique(frappe_ids(ROWSVC_C_RECORDS, HOST_IDS, HOST_MAX_ID,
                                    SEED + 64))
     live = table.get(touched)
+    tiers = tier_readings(log)
     proc.send_signal(signal.SIGTERM)
     exit_code = proc.wait(timeout=120)
     stop_service(proc, log)
     saved = CheckpointSaver(service["ckpt"]).get_valid_latest_version()
-    proc, log = row_service_main(
-        root, tdata.model_zoo_dir(), "deepfm.deepfm_host.custom_model",
-        "rowsvc_relaunch.log", rowservice_flags(service["ckpt"]))
+    go(service["relaunch"]["go"])  # its imports are done
     out = {
         "service": addr, "workers": len(results),
         "trained_batches": [r["trained_batches"] for r in results],
@@ -4658,9 +4778,11 @@ def rowservice_shared_run(torch, fa, pe, root, records, service):
         "sigterm_exit": exit_code, "saved_version": saved,
         "launches": counts, "wall_s": wall,
         "worker_steps": [card_steps(r) for r in recorders],
+        "tiers": tiers, "hot_budget_rows": ROWSVC_HOT_BUDGET,
     }
-    return out, dict(proc=proc, log=log, ckpt=service["ckpt"],
-                     touched=touched, live=live)
+    return out, dict(service["relaunch"], ckpt=service["ckpt"],
+                     wal=service["wal"], touched=touched, live=live,
+                     third=service["third"])
 
 
 def rowservice_relaunch_check(out, relaunch):
@@ -4704,6 +4826,76 @@ def rowservice_relaunch_check(out, relaunch):
           f"the relaunch did not restore the drained rows: {out}")
     check(not any(out["launches"].values()),
           f"the shared job launched kernels: {out['launches']}")
+    tiers = out["tiers"]
+    check(tiers.get("row_tier_hot_rows", 1e9) <= ROWSVC_HOT_BUDGET
+          and tiers.get("row_tier_evictions_total", 0) > 0
+          and tiers.get("row_tier_cold_rows", 0) > 0,
+          f"the tiered service's readings: {tiers}")
+    check(tiers.get("row_push_log_group_size_count", 0) > 0,
+          f"the service logged no push: {tiers}")
+    return out
+
+
+def rowservice_kill_check(torch, fa, pe, relaunch):
+    """(f) Through the relaunched service: ROWSVC_KILL_PUSHES durably
+    acked pushes (versions 6 and 7), the touched rows read, SIGKILL; the
+    port's fsck over the log; the third incarnation restores version 5,
+    replays exactly those pushes and answers the pull bit for bit."""
+    import signal
+
+    from elasticdl_tpu_torch.embedding.row_service import make_remote_engine
+    from elasticdl_tpu_torch.model_zoo.deepfm import deepfm_host as twin
+    from elasticdl_tpu_torch.tools.check_pushlog import check_one_log
+
+    keys = {twin.TABLE_NAME: twin.FEATURE_KEY}
+    touched, third = relaunch["touched"], relaunch["third"]
+    port, _ = service_port(relaunch["proc"], relaunch["log"])
+    engine = make_remote_engine(f"localhost:{port}", keys)
+    table = engine.tables[twin.TABLE_NAME]
+    rng = np.random.RandomState(SEED + 96)
+    reset_kernel_launches(fa, pe)             # (f)'s pushes start
+    t0 = time.monotonic()
+    for _ in range(ROWSVC_KILL_PUSHES):
+        ids = np.sort(rng.choice(touched, ROWSVC_KILL_IDS, replace=False))
+        engine.optimizer.apply_gradients(
+            table, ids, (rng.standard_normal((ids.size, twin.EMBEDDING_DIM))
+                         * 1e-2).astype(np.float32))
+    push_s = time.monotonic() - t0
+    counts = kernel_launch_counts(fa, pe)     # ... and end
+    pushes = table.pull_version()
+    before = table.get(touched)
+    relaunch["proc"].send_signal(signal.SIGKILL)
+    relaunch["proc"].wait(timeout=60)
+    errors, report = check_one_log(relaunch["wal"], relaunch["ckpt"])
+    t0 = time.monotonic()
+    go(third["go"])
+    port, text = service_port(third["proc"], third["log"])
+    start_s = time.monotonic() - t0
+    again = make_remote_engine(f"localhost:{port}", keys).tables[
+        twin.TABLE_NAME].get(touched)
+    out = {
+        "pushes": pushes, "push_s": push_s, "launches": counts,
+        "fsck_errors": errors, "fsck": {k: report[k] for k in (
+            "records", "first_version", "last_version", "checkpoint_tip",
+            "torn_tail", "version_gaps")},
+        "third_start_s": start_s,
+        "restored_5": "Row service restored version 5" in text,
+        "replayed_2": (f"replayed {ROWSVC_KILL_PUSHES} record(s) past "
+                       f"checkpoint version 5") in text,
+        "pull_bit_equal": bool(np.array_equal(again, before)),
+        "changed_rows": int((before != relaunch["live"]).any(1).sum()),
+    }
+    print("rowservice sigkill", json.dumps(out), flush=True)
+    check(pushes == ROWSVC_KILL_PUSHES,
+          f"{pushes} pushes through the relaunch")
+    check(not errors and report["last_version"] == 5 + ROWSVC_KILL_PUSHES
+          and report["checkpoint_tip"] == 5,
+          f"the push log's fsck: {errors} {report}")
+    check(out["restored_5"] and out["replayed_2"],
+          f"the third incarnation's log: {text[-3000:]}")
+    check(out["pull_bit_equal"] and out["changed_rows"] > 0,
+          f"the third incarnation lost acked pushes: {out}")
+    check(not any(counts.values()), f"(f) launched kernels: {counts}")
     return out
 
 
@@ -4823,26 +5015,217 @@ def rowservice_step_times(torch, fa, pe, root, service):
     return out
 
 
+def tiered_schedule():
+    """(g)'s batches: ROWSVC_TIMED_IDS ids drawn from a working set of
+    ROWSVC_G_WORKING rows, ROWSVC_G_DRIFT of them replaced every
+    ROWSVC_G_DRIFT_EVERY batches, plus ROWSVC_G_STRANGERS strangers
+    (``tools/bench_tiered_store.py``'s schedule at the recsys shape)."""
+    rng = np.random.RandomState(SEED + 13)
+    working = rng.choice(EMB_VOCAB, ROWSVC_G_WORKING,
+                         replace=False).astype(np.int64)
+    out = []
+    for b in range(ROWSVC_G_BATCHES):
+        if b and b % ROWSVC_G_DRIFT_EVERY == 0:
+            gone = rng.choice(ROWSVC_G_WORKING, ROWSVC_G_DRIFT,
+                              replace=False)
+            working[gone] = rng.randint(0, EMB_VOCAB, ROWSVC_G_DRIFT)
+        take = rng.choice(working, ROWSVC_TIMED_IDS, replace=False)
+        strangers = rng.randint(0, EMB_VOCAB, ROWSVC_G_STRANGERS)
+        out.append(np.unique(np.concatenate([take, strangers]))
+                   .astype(np.int64))
+    return out
+
+
+def tiered_grads(b, n):
+    return (np.random.RandomState(SEED + 1000 + b).standard_normal(
+        (n, EMB_DIM)) * 1e-3).astype(np.float32)
+
+
+def rowservice_tiered_start(root):
+    """(g)'s services (ROWSVC_G_SERVICES) on the rowsvc_bench zoo, each
+    in its own directory, and the tiered durable one's relaunch behind a
+    go file: all boot while (a)-(e) run."""
+    zoo = write_zoo(root, "rowsvc_bench", ROWSVC_BENCH_ZOO)
+    model_def = "rowsvc_bench.rec.custom_model"
+    services = {}
+    for name, (tiered, ack) in ROWSVC_G_SERVICES.items():
+        base = os.path.join(root, f"rowsvc_g_{name}")
+        flags = ["--metrics_port", "0"]
+        if tiered:
+            flags += ["--hot_budget_rows", str(ROWSVC_G_BUDGET),
+                      "--cold_dir", os.path.join(base, "cold")]
+        if ack:
+            flags += ["--push_log_dir", os.path.join(base, "wal"),
+                      "--push_log_ack", ack]
+        proc, log = row_service_main(root, zoo, model_def,
+                                     f"rowsvc_g_{name}.log", flags)
+        services[name] = dict(proc=proc, log=log, base=base, flags=flags)
+    flags = services["tiered_durable"]["flags"]
+    go_file = os.path.join(root, "rowsvc_g_relaunch.go")
+    proc, log = row_service_main(root, zoo, model_def,
+                                 "rowsvc_g_relaunch.log", flags, go=go_file)
+    return dict(services=services,
+                relaunch=dict(proc=proc, log=log, go=go_file))
+
+
+def rowservice_tiered_stop(g):
+    for svc in list(g["services"].values()) + [g["relaunch"]]:
+        stop_service(svc["proc"], svc["log"])
+
+
+def _pull_all(table, ids, chunk=ROWSVC_TIMED_IDS):
+    return np.concatenate([table.get(ids[lo:lo + chunk])
+                           for lo in range(0, ids.size, chunk)])
+
+
+def _log_seconds(text, first, last):
+    """Seconds between the log lines holding ``first`` and ``last`` (the
+    service logs at millisecond resolution)."""
+    import datetime
+    import re
+
+    stamps = []
+    for marker in (first, last):
+        found = re.search(r"\[(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3})\][^\n]*"
+                          + re.escape(marker), text)
+        check(found is not None, f"no log line with {marker!r}")
+        stamps.append(datetime.datetime.strptime(found.group(1),
+                                                 "%Y-%m-%d %H:%M:%S,%f"))
+    return (stamps[1] - stamps[0]).total_seconds()
+
+
+def rowservice_tiered_times(torch, fa, pe, g):
+    """(g) The tiered store at the recsys shape: each service of
+    ROWSVC_G_SERVICES has the whole vocabulary pulled once (all six at
+    a time), then runs the schedule alone, a pull and a push a batch:
+    p50/p99 ms; all six end with byte-equal rows. The tiered durable
+    one's tier readings and bytes on disk, then SIGKILL after its last
+    acked push and a relaunch (imported ahead, behind a go file): the
+    replay's records, seconds and MB/s, and a pull bit-equal to the rows
+    read before the kill."""
+    import hashlib
+    import re
+    import shutil
+    import signal
+
+    from elasticdl_tpu_torch.embedding.row_service import make_remote_engine
+
+    schedule = tiered_schedule()
+    touched = np.unique(np.concatenate(schedule))
+    vocab = np.arange(EMB_VOCAB, dtype=np.int64)
+    services = g["services"]
+    keys = {RECSYS_TABLE: "ids"}
+    for svc in services.values():
+        port, _ = service_port(svc["proc"], svc["log"], timeout=300)
+        svc["engine"] = make_remote_engine(f"localhost:{port}", keys)
+        svc["table"] = svc["engine"].tables[RECSYS_TABLE]
+    reset_kernel_launches(fa, pe)             # (g)'s runs start
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=_pull_all, args=(svc["table"], vocab))
+               for svc in services.values()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    prefill_s = time.monotonic() - t0
+    out = {"table": f"{EMB_VOCAB} x {EMB_DIM} f32, native, Adagrad rows",
+           "hot_budget_rows": ROWSVC_G_BUDGET, "batches": len(schedule),
+           "ids_a_batch": [int(min(map(len, schedule))),
+                           int(max(map(len, schedule)))],
+           "touched_rows": int(touched.size), "prefill_s": prefill_s,
+           "services": {}}
+    digests = {}
+    for name, svc in services.items():
+        table, opt = svc["table"], svc["engine"].optimizer
+        pull_ms, push_ms = [], []
+        for b, ids in enumerate(schedule):
+            grads = tiered_grads(b, ids.size)
+            t1 = time.perf_counter()
+            table.get(ids)
+            t2 = time.perf_counter()
+            opt.apply_gradients(table, ids, grads)
+            t3 = time.perf_counter()
+            pull_ms.append((t2 - t1) * 1e3)
+            push_ms.append((t3 - t2) * 1e3)
+        final = _pull_all(table, touched)
+        digests[name] = hashlib.sha256(final.tobytes()).hexdigest()
+        row = {k: {"p50": float(np.percentile(v, 50)),
+                   "p99": float(np.percentile(v, 99)),
+                   "max": max(v)} for k, v in (("pull_ms", pull_ms),
+                                               ("push_ms", push_ms))}
+        row["tiers"] = tier_readings(svc["log"])
+        row["bytes_on_disk"] = dir_bytes(svc["base"])
+        out["services"][name] = row
+        if name == "tiered_durable":
+            before = final
+        else:
+            stop_service(svc["proc"], svc["log"])
+            shutil.rmtree(svc["base"], ignore_errors=True)
+    counts = kernel_launch_counts(fa, pe)     # ... and end
+    out["final_rows_sha256"] = digests
+    out["final_rows_equal"] = len(set(digests.values())) == 1
+    out["launches"] = counts
+    # SIGKILL the tiered durable service after its last acked push.
+    svc, relaunch = services["tiered_durable"], g["relaunch"]
+    svc["proc"].send_signal(signal.SIGKILL)
+    svc["proc"].wait(timeout=60)
+    wal = os.path.join(svc["base"], "wal")
+    wal_bytes = dir_bytes(wal)
+    t0 = time.monotonic()
+    go(relaunch["go"])
+    port, text = service_port(relaunch["proc"], relaunch["log"],
+                              timeout=600)
+    start_s = time.monotonic() - t0
+    replayed = re.search(r"replayed (\d+) record\(s\)", text)
+    replay_s = _log_seconds(text, "Row service tiering on",
+                            "Row service push log at")
+    again = _pull_all(make_remote_engine(f"localhost:{port}", keys).tables[
+        RECSYS_TABLE], touched)
+    out["sigkill"] = {
+        "wal_bytes": wal_bytes,
+        "replayed_records": int(replayed.group(1)) if replayed else None,
+        "replay_s": replay_s, "replay_mb_per_s": wal_bytes / 1e6 / replay_s,
+        "relaunch_to_serving_s": start_s,
+        "pull_bit_equal": bool(np.array_equal(again, before)),
+    }
+    out["card"] = smi("name,power.limit")
+    print("rowservice tiered", json.dumps(out), flush=True)
+    check(out["final_rows_equal"],
+          f"tiered and untiered final rows differ: {digests}")
+    check(not any(counts.values()), f"(g) launched kernels: {counts}")
+    tiers = out["services"]["tiered_durable"]["tiers"]
+    check(tiers.get("row_tier_hot_rows", 1e9) <= ROWSVC_G_BUDGET
+          and tiers.get("row_tier_evictions_total", 0) > 0
+          and tiers.get("row_tier_cold_rows", 0) > 0,
+          f"the tiered service's readings: {tiers}")
+    check(out["sigkill"]["replayed_records"] == ROWSVC_G_BATCHES
+          and out["sigkill"]["pull_bit_equal"],
+          f"the relaunch after SIGKILL: {out['sigkill']}")
+    return out
+
+
 def rowservice_phase(torch, fa, pe, root, service=None, timed=False):
     """The row service on the card: the service's main in a subprocess
-    (``service``, from ``rowservice_start``, or started here) shared by
-    two workers, SIGTERM and a relaunch that boots while one in-process
-    shard is held to the in-process runner and two shards to one; with
-    ``timed`` the pull and push at the recsys shape beside the host
-    engine's phases, and the worker's step over the service and in
-    process."""
+    (``service``, from ``rowservice_start``, or started here; tiered and
+    logged) shared by two workers, SIGTERM and a relaunch that restores
+    while one in-process shard is held to the in-process runner and two
+    shards to one, then (f)'s SIGKILL and replay; with ``timed`` the pull
+    and push at the recsys shape beside the host engine's phases, the
+    worker's step over the service and in process, and (g) the tiered
+    store at the recsys shape."""
     from elasticdl_tpu_torch.testing import data as tdata
 
     t0 = time.monotonic()
     service = service or rowservice_start(root)
-    relaunch = one_svc = steps_svc = None
+    one_svc = steps_svc = tiered = None
     try:
         if timed:
-            # (e)'s service boots while (a)-(d) run.
+            # (e)'s and (g)'s services boot while (a)-(d) run.
             proc, log = row_service_main(
                 root, tdata.model_zoo_dir(),
                 "deepfm.deepfm_host.custom_model", "rowsvc_steps.log")
             steps_svc = dict(proc=proc, log=log)
+            tiered = rowservice_tiered_start(root)
         try:
             records = tdata.create_frappe_record_file(
                 os.path.join(root, "rowsvc.rec"), ROWSVC_RECORDS,
@@ -4858,12 +5241,11 @@ def rowservice_phase(torch, fa, pe, root, service=None, timed=False):
                    "two_shards": rowservice_two_shards(
                        torch, fa, pe, records, one_svc, one_rows, one_loss),
                    "subprocess": rowservice_relaunch_check(out_c, relaunch)}
+            out["sigkill"] = rowservice_kill_check(torch, fa, pe, relaunch)
         finally:
             if one_svc is not None:
                 one_svc.stop(0)
-            stop_service(service["proc"], service["log"])
-            if relaunch is not None:
-                stop_service(relaunch["proc"], relaunch["log"])
+            rowservice_stop(service)
         out["seconds"] = time.monotonic() - t0
         if timed:
             out["times"] = rowservice_times(torch, root)
@@ -4872,9 +5254,13 @@ def rowservice_phase(torch, fa, pe, root, service=None, timed=False):
                   flush=True)
             out["step_times"] = rowservice_step_times(torch, fa, pe, root,
                                                       steps_svc)
+            stop_service(steps_svc["proc"], steps_svc["log"])
+            out["tiered"] = rowservice_tiered_times(torch, fa, pe, tiered)
     finally:
         if steps_svc is not None:
             stop_service(steps_svc["proc"], steps_svc["log"])
+        if tiered is not None:
+            rowservice_tiered_stop(tiered)
     out["card"] = smi("name,power.limit")
     return out
 
@@ -9094,7 +9480,8 @@ def main(argv=None) -> int:
              "checkpoint: the checkpoint phase alone (the embedding "
              "kernels only); worker: the worker phase alone (the "
              "embedding kernels only); rowservice: the row-service "
-             "phase alone with its 1M x 256 timings (no kernel build); "
+             "phase alone with its 1M x 256 timings and the tiered store "
+             "at that shape (no kernel build); "
              "fleet: the fleet phase alone with its timings "
              "(flash_attention_fwd.cu only); parallel: data and tensor "
              "parallel over the one-card mesh alone (the embedding and "
@@ -9293,7 +9680,7 @@ def run(args, torch, mh) -> int:
         try:
             worker = worker_phase(torch, fa, pe, root)
         except BaseException:
-            stop_service(row_service["proc"], row_service["log"])
+            rowservice_stop(row_service)
             raise
         mark("worker")
         mh_results = mh_wait(mh)

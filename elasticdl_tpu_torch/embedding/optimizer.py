@@ -398,6 +398,17 @@ class HostOptimizerWrapper:
     def _slot_table(self, table, slot_name: str):
         key = get_slot_table_name(table.name, slot_name)
         if key not in self._slot_tables:
+            make = getattr(table, "make_slot_table", None)
+            if make is not None:
+                # A tiered primary (storage/tiered.py) makes its slots
+                # in its own TierGroup: a demoted row takes its optimizer
+                # state with it and a fault brings it back, which holds
+                # only when the slot shares the primary's recency map
+                # and budget.
+                self._slot_tables[key] = make(
+                    key, slot_init_value(self.opt, slot_name)
+                )
+                return self._slot_tables[key]
             st = EmbeddingTable(
                 key,
                 table.dim,
@@ -419,15 +430,24 @@ class HostOptimizerWrapper:
             raise ValueError("ids must be deduplicated before apply")
         step = self._steps.get(table.name, 0) + 1
         self._steps[table.name] = step
-        rows = table.get(ids)
-        slots = {name: self._slot_table(table, name).get(ids)
+        # A tiered table: one budget sweep after the whole apply (or the
+        # row service's own after it releases its lock, when
+        # ``defer_apply_sweep`` is set), not one in each of these
+        # 2 + 2 * slots calls, which would write evictions to the cold
+        # tier inside whatever lock the caller holds.
+        tiered = hasattr(table, "maybe_sweep")
+        kw = {"_defer_sweep": True} if tiered else {}
+        rows = table.get(ids, **kw)
+        slots = {name: self._slot_table(table, name).get(ids, **kw)
                  for name in self.opt.slot_names}
         new_rows, new_slots = self.opt.apply_rows(
             rows, np.asarray(grads, table.dtype), slots, step)
-        table.set(ids, np.asarray(new_rows))
+        table.set(ids, np.asarray(new_rows), **kw)
         for name in self.opt.slot_names:
-            self._slot_table(table, name).set(ids,
-                                              np.asarray(new_slots[name]))
+            self._slot_table(table, name).set(
+                ids, np.asarray(new_slots[name]), **kw)
+        if tiered and not table.defer_apply_sweep:
+            table.maybe_sweep()
         return table
 
     def state_tables(self, main_tables: Dict) -> Dict:

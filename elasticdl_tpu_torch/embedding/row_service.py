@@ -27,13 +27,20 @@ for buckets a shard does not own under its installed map returns a
 retryable REDIRECT carrying the newer map. One address is a one-shard
 map; a comma list bootstraps an even split of the bucket space.
 
+Storage (``storage/``): ``configure_tiering`` re-houses every table
+behind a hot-row budget over CRC-framed cold segments, so a shard
+serves tables larger than host RAM; ``configure_push_log`` logs every
+applied push ahead of the checkpoints (group commit, ``durable`` or
+``applied`` acks) and replays the log's tail on relaunch, so a SIGKILL
+loses no acked push. Both write the JAX service's bytes.
+
 Not ported yet (ROADMAP Queue 1, item 8): live range migration
 (``migrate_out``, ``begin_ingest``/``end_ingest``/``ingest_rows``/
 ``ingest_steps``), hot-row read replicas (``pull_replica_rows``,
-``replica_refresh``, hot-id tracking), ``shard_stats``, the hot/cold
-tiers, the write-ahead push log and the chaos hooks. Their handlers
-stay registered and answer with an error that names item 8; their
-flags of ``main`` raise.
+``replica_refresh``, hot-id tracking), ``shard_stats`` and the chaos
+hooks. Their handlers stay registered and answer with an error that
+names item 8; the profiler and metrics-reporter flags of ``main``
+raise.
 """
 
 import itertools
@@ -119,7 +126,10 @@ class _SeqTable:
 
 def _clone_empty(table):
     """A fresh table of the same type and configuration: its lazy init
-    for untouched ids matches the live table's exactly."""
+    for untouched ids matches the live table's exactly. A tiered table
+    clones its hot tier (the inner table owns the lazy init; a throwaway
+    must not drag a cold store along)."""
+    table = getattr(table, "hot_inner", table)
     return type(table)(
         table.name,
         table.dim,
@@ -142,9 +152,14 @@ class HostRowService:
 
     def __init__(self, tables: Dict, optimizer, checkpoint_dir: str = "",
                  checkpoint_steps: int = 0, keep_max: int = 3,
-                 metrics_registry=None):
+                 metrics_registry=None,
+                 push_durable_wait_secs: float = 60.0):
         self._tables = tables
         self._optimizer = optimizer
+        # Ceiling on the durable-ack fsync wait; a propagated request
+        # deadline shrinks it per push (the record is queued and lands
+        # regardless; only the ack is abandoned).
+        self._push_durable_wait_secs = float(push_durable_wait_secs)
         from elasticdl_tpu_torch.observability import default_registry
 
         registry = metrics_registry or default_registry()
@@ -184,6 +199,12 @@ class HostRowService:
             "Pulls/pushes redirected because this shard does not own "
             "their buckets under the installed map",
         )
+        self._m_durable_wait_timeouts = registry.counter(
+            "row_push_durable_wait_timeouts_total",
+            "Durable-ack fsync waits abandoned (wait ceiling or the "
+            "propagated request deadline expired before the covering "
+            "group commit landed; the record itself still commits)",
+        )
         self._lock = threading.RLock()
         # Placement (mutated under self._lock): the installed map and
         # this shard's index in it. The JAX service's write fences come
@@ -208,6 +229,11 @@ class HostRowService:
         self._saver = None
         self._ckpt_writer = None
         self._ckpt_planner = None
+        # Write-ahead push log (storage/pushlog.py), None until
+        # configure_push_log: every applied push is queued for the group
+        # commit under the lock that applied it, so the log is a total
+        # order of this shard's applies.
+        self._push_log = None
         # Serialises plan/capture/submit: two pushes at consecutive
         # checkpoint versions must not interleave in the planner, or two
         # deltas name the same prev and the chain walk drops the second.
@@ -333,10 +359,16 @@ class HostRowService:
         # Nests under the RPC server span, so lock wait + store time is
         # told apart from wire time; kept by name past its exit for the
         # latency exemplar below.
+        tiered = hasattr(table, "prefault")
         pull_span = tracing.span("row_pull", table=table_name,
                                  rows=int(ids.size),
                                  **wl_principal.span_attrs(who))
         with pull_span:
+            if tiered:
+                # The cold reads of this pull run outside the service
+                # lock: concurrent pushes wait on the in-memory
+                # bookkeeping only.
+                table.prefault(ids)
             # Explicit acquire/release: the lock-hold meter counts from
             # acquisition, not from the wait.
             self._lock.acquire()
@@ -345,7 +377,8 @@ class HostRowService:
                 reject = self._reshard_reject_locked(ids)
                 if reject is not None:
                     return reject
-                rows = table.get(ids)
+                rows = (table.get(ids, _defer_sweep=True) if tiered
+                        else table.get(ids))
                 applied_at = self._applied_at.get(table_name, 0.0)
                 map_version = 0
                 if self._shard_map is not None:
@@ -355,6 +388,10 @@ class HostRowService:
                 wl_usage.meter_lock_hold(
                     who, time.monotonic() - hold_t0
                 )
+            if tiered:
+                # The budget sweep after the service lock is released:
+                # its cold writes stall no handler but this one.
+                table.maybe_sweep()
         rows = np.asarray(rows, np.float32)
         self._m_pulled.inc(ids.size)
         wl_usage.meter_rows(who, "pull_rows", rows=int(ids.size),
@@ -404,10 +441,12 @@ class HostRowService:
         return {"rows": dense.astype(np.float32)}
 
     def _push_row_grads(self, request: dict) -> dict:
-        """validate → reject → drop a duplicate (client, seq)
-        → apply → bump the table's version and applied_at → record the
-        seq (only after a successful apply) → at every
-        ``checkpoint_steps`` push, an interval checkpoint."""
+        """validate → fault cold rows (tiered) → reject → drop a
+        duplicate (client, seq) → apply → bump the table's version and
+        applied_at → record the seq (only after a successful apply) →
+        queue the WAL record → wait for its fsync (durable acks) → sweep
+        the hot budget (tiered) → at every ``checkpoint_steps`` push, an
+        interval checkpoint."""
         t0 = time.monotonic()
         who = wl_principal.current()
         table_name, table = self._validated_table(request)
@@ -416,11 +455,18 @@ class HostRowService:
         ids = self._validated_ids(request)
         # Shape-gate the grad block before any lock or apply.
         grads = self._validated_grads(request, ids, table, table_name)
+        prefault = getattr(table, "prefault_group", None)
         push_span = tracing.span("row_push", table=table_name,
                                  rows=int(ids.size),
                                  **wl_principal.span_attrs(who))
         with push_span:
+            if prefault is not None:
+                # Cold reads of evicted rows and their optimizer slots
+                # outside the service lock; a duplicate push merely
+                # promotes rows it would have touched anyway.
+                prefault(ids)
             duplicate = False
+            wal_ticket = None
             self._lock.acquire()
             hold_t0 = time.monotonic()
             try:
@@ -447,13 +493,50 @@ class HostRowService:
                         self._applied_seq[_client_key(client)] = seq
                     self._push_count += 1
                     version = self._push_count
+                    if self._push_log is not None:
+                        # Queued under the lock that applied: log order
+                        # == apply order == version order. The fsync
+                        # wait comes after the release.
+                        wal_ticket = self._push_log.append(
+                            version=version, client=client or "",
+                            seq=seq, table=table_name, ids=ids,
+                            grads=grads,
+                            applied_at=self._applied_at[table_name],
+                            map_version=(
+                                self._shard_map.version
+                                if self._shard_map is not None else 0
+                            ),
+                        )
             finally:
                 self._lock.release()
                 wl_usage.meter_lock_hold(
                     who, time.monotonic() - hold_t0
                 )
             if duplicate:
+                if (self._push_log is not None
+                        and self._push_log.ack == "durable"):
+                    # A duplicate ack is still an ack: it leaves only
+                    # once the first attempt's record is durable.
+                    fsync_t0 = time.monotonic()
+                    self._durable_wait(self._push_log.barrier)
+                    wl_usage.meter_fsync_wait(
+                        who, time.monotonic() - fsync_t0
+                    )
                 return {"duplicate": True}
+            if wal_ticket is not None and self._push_log.ack == "durable":
+                # The reply leaves only after the group commit covering
+                # this record fsyncs; a failed commit raises, so the
+                # client never takes the push for durable.
+                fsync_t0 = time.monotonic()
+                self._durable_wait(
+                    lambda budget: wal_ticket.wait(timeout=budget)
+                )
+                wl_usage.meter_fsync_wait(
+                    who, time.monotonic() - fsync_t0
+                )
+            if prefault is not None:
+                # The fused apply's budget sweep, with the lock released.
+                table.maybe_sweep()
         self._m_pushed.inc(ids.size)
         wl_usage.meter_rows(who, "push_row_grads", rows=int(ids.size),
                             nbytes=int(grads.nbytes))
@@ -466,6 +549,34 @@ class HostRowService:
             self._checkpoint(version)
         m = self._shard_map
         return {"map_version": m.version if m is not None else 0}
+
+    def configure_push_durable_wait(self, secs: float) -> None:
+        """Set the durable-ack fsync wait ceiling
+        (``--push_durable_wait_secs``; the zoo's factory builds the
+        service before the flags apply)."""
+        self._push_durable_wait_secs = float(secs)
+
+    def _durable_wait(self, waiter: Callable[[float], None]) -> None:
+        """One durable-ack fsync wait (``waiter(timeout_secs)``) under
+        the configured ceiling, shrunk by the propagated request deadline
+        when there is one. A wait that runs out counts in
+        ``row_push_durable_wait_timeouts_total`` and still raises: the
+        client must never learn "durable" from a wait that did not see
+        the fsync."""
+        from elasticdl_tpu_torch.storage.pushlog import PushLogError
+
+        budget = self._push_durable_wait_secs
+        left = wl_deadline.remaining()
+        if left is not None:
+            budget = min(budget, max(left, 1e-3))
+        try:
+            waiter(budget)
+        except PushLogError as exc:
+            # Only the ran-out-of-time shape is a timeout; a failed
+            # commit write (a broken WAL disk) must not hide here.
+            if "did not complete in time" in str(exc):
+                self._m_durable_wait_timeouts.inc()
+            raise
 
     # ---- shard map: enforcement ----------------------------------------
 
@@ -550,6 +661,59 @@ class HostRowService:
             out[name] = group
         return out
 
+    # ---- tiered storage ------------------------------------------------
+
+    def configure_tiering(self, cold_dir: str, hot_budget_rows: int,
+                          segment_max_bytes: int = 8 << 20,
+                          compact_live_fraction: float = 0.5,
+                          background_compact: bool = True):
+        """Re-house every table behind a two-tier store (a hot arena of
+        at most ``hot_budget_rows`` rows a table, colder rows in
+        CRC-framed segments under ``cold_dir``; ``storage/tiered.py``),
+        so this shard serves tables larger than host RAM as long as the
+        working set fits the budget.
+
+        Must run before ``configure_checkpoint``: that enables dirty
+        tracking on the table views it sees, and once tiering is on the
+        tier wrapper owns it (a row demoted while dirty must still ride
+        the next delta)."""
+        from elasticdl_tpu_torch.storage import TierPolicy, tier_host_tables
+
+        with self._lock:
+            if self._saver is not None:
+                raise RuntimeError(
+                    "configure_tiering must run before "
+                    "configure_checkpoint (dirty tracking moves to the "
+                    "tier wrapper)"
+                )
+            self._tables = tier_host_tables(
+                self._tables, cold_dir,
+                TierPolicy(
+                    hot_budget_rows,
+                    segment_max_bytes=segment_max_bytes,
+                    compact_live_fraction=compact_live_fraction,
+                    background_compact=background_compact,
+                ),
+            )
+            for table in self._tables.values():
+                # The handlers sweep after releasing the service lock
+                # (maybe_sweep); an apply must not also sweep inside it.
+                table.defer_apply_sweep = True
+        logger.info(
+            "Row service tiering on: hot budget %d rows/table, cold "
+            "tier at %s", hot_budget_rows, cold_dir,
+        )
+        return self
+
+    def tier_stats(self) -> Dict[str, dict]:
+        """Per-table tier occupancy and garbage."""
+        with self._lock:
+            return {
+                name: table.tier_stats()
+                for name, table in self._tables.items()
+                if hasattr(table, "tier_stats")
+            }
+
     # ---- checkpoint ----------------------------------------------------
 
     def configure_checkpoint(self, checkpoint_dir: str,
@@ -591,6 +755,124 @@ class HostRowService:
                 enable()
         self._restore_latest()
         return self
+
+    # ---- write-ahead push log ------------------------------------------
+
+    def configure_push_log(self, log_dir: str, group_ms: float = 2.0,
+                           ack: str = "durable",
+                           segment_max_bytes: int = 8 << 20):
+        """Attach the write-ahead push log (``storage/pushlog.py``) and
+        replay its tail: every record past the restored checkpoint
+        version is applied again through the normal apply path, where the
+        checkpointed (client, seq) map makes the replay idempotent and
+        the installed shard map filters ranges that moved away.
+
+        Must run after ``configure_checkpoint`` (the chain first, then
+        the log's tail) and after ``configure_tiering``. With no
+        checkpoint the whole log replays.
+
+        ``ack="durable"`` (default): a push's reply waits for the group
+        commit covering its record (RPO 0). ``ack="applied"``: replies
+        return after the in-memory apply (RPO one ``group_ms`` window).
+        """
+        from elasticdl_tpu_torch.observability import default_registry
+        from elasticdl_tpu_torch.storage.pushlog import PushLog
+
+        if self._push_log is not None:
+            self._push_log.close()
+        log = PushLog(
+            log_dir, group_ms=group_ms, ack=ack,
+            segment_max_bytes=segment_max_bytes,
+        )
+        m_replayed = default_registry().counter(
+            "row_push_log_replayed_records_total",
+            "Push-log records re-applied on relaunch (past the "
+            "restored checkpoint version)",
+        )
+        with self._lock:
+            restored = self._push_count
+        replayed = covered = 0
+        # The replay's cold faults and apply work meter as
+        # purpose=replay, never as the client traffic they once were.
+        with wl_principal.pushed(purpose="replay"):
+            for record in log.replay_records():
+                if self._replay_push_record(record):
+                    replayed += 1
+                else:
+                    covered += 1
+        if replayed:
+            m_replayed.inc(replayed)
+        for table in self._tables.values():
+            # The replay deferred every budget sweep: one a table brings
+            # the hot arena back under budget before serving starts.
+            sweep = getattr(table, "maybe_sweep", None)
+            if sweep is not None:
+                sweep()
+        # Sealed segments at or below the restored version are covered
+        # by the chain: reclaim them now rather than scan them at every
+        # relaunch.
+        log.truncate_through(restored)
+        self._push_log = log
+        logger.info(
+            "Row service push log at %s (ack=%s, group %.1fms): "
+            "replayed %d record(s) past checkpoint version %d "
+            "(%d already covered/filtered)",
+            log_dir, ack, group_ms, replayed, restored, covered,
+        )
+        return self
+
+    def _replay_push_record(self, record: dict) -> bool:
+        """Apply one logged push again on relaunch. Returns whether it
+        changed state (False: covered by the restored checkpoint,
+        deduped, or wholly moved away). The push version advances either
+        way: checkpoint versions keep counting from where the dead
+        process stopped."""
+        version = int(record["v"])
+        table_name = str(record["table"])
+        with self._lock:
+            if version <= self._push_count:
+                return False  # the restored chain holds it
+            applied = False
+            table = self._tables.get(table_name)
+            if table is None:
+                logger.warning(
+                    "push-log record v%d names unknown table %r; "
+                    "skipped (different model module?)",
+                    version, table_name,
+                )
+            else:
+                ids = np.asarray(record["ids"], np.int64)
+                grads = np.asarray(record["grads"], np.float32)
+                if self._shard_map is not None:
+                    # Ranges that moved away between the record and the
+                    # checkpointed map belong to another shard now.
+                    own = self._shard_map.owns(self._shard_id, ids)
+                    ids, grads = ids[own], grads[own]
+                client = str(record.get("client") or "")
+                seq = int(record.get("seq", -1))
+                dup = bool(
+                    client and seq >= 0
+                    and seq <= self._applied_seq.get(
+                        _client_key(client), -1
+                    )
+                )
+                if ids.size and not dup:
+                    prefault = getattr(table, "prefault_group", None)
+                    if prefault is not None:
+                        # Replay runs alone at startup: the cold reads
+                        # under the lock contend with nobody.
+                        prefault(ids)
+                    self._optimizer.apply_gradients(table, ids, grads)
+                    self._table_versions[table_name] += 1
+                    self._applied_at[table_name] = max(
+                        self._applied_at.get(table_name, 0.0),
+                        float(record.get("applied_at", 0.0)),
+                    )
+                    applied = True
+                if client and seq >= 0 and not dup:
+                    self._applied_seq[_client_key(client)] = seq
+            self._push_count = version
+        return applied
 
     def _checkpoint(self, version: int, blocking: bool = False) -> bool:
         """Capture under ONE lock acquisition (rows, slots, step
@@ -652,6 +934,13 @@ class HostRowService:
                     self._saver.save(
                         version, {}, embeddings=captured, meta=meta
                     )
+                log = self._push_log
+                if log is not None:
+                    # The version is durable now (the save fsyncs and
+                    # publishes before it returns): sealed log segments
+                    # it covers may go. Truncation runs only here, on
+                    # the writer, after the publish.
+                    log.truncate_through(int(version))
             except BaseException:
                 # Put the drained rows back and restart the chain from a
                 # fresh base.
@@ -759,6 +1048,14 @@ class HostRowService:
             ev = self._server.stop(grace)
             if ev is not None:
                 ev.wait((grace or 0) + 30.0)
+        if self._push_log is not None:
+            try:
+                # Drain the group-commit queue (one last fsync) after
+                # the handlers drained: every push the service applied
+                # is on disk before the process exits.
+                self._push_log.close()
+            except BaseException as exc:
+                logger.error("push-log drain on stop failed: %s", exc)
         if self._ckpt_writer is not None:
             try:
                 self._ckpt_writer.close()
@@ -766,6 +1063,16 @@ class HostRowService:
                 logger.error(
                     "checkpoint flush on stop failed: %s", exc
                 )
+        for table in self._tables.values():
+            # Tiered tables: flush the cold segments, stop the compactor
+            # and write the index snapshot (the clean-close marker that
+            # ``tools.check_store`` audits).
+            group = getattr(table, "tier_group", None)
+            if group is not None:
+                try:
+                    group.close()
+                except BaseException as exc:
+                    logger.error("cold-tier close failed: %s", exc)
 
     def wait(self):
         """Block until the server stops (process-main lifetime)."""
@@ -1386,14 +1693,6 @@ def validate_shard_layout(checkpoint_dir: str, shard: int,
 
 # main's flags whose JAX code is not ported yet: they raise when given.
 _NOT_PORTED_FLAGS = {
-    "push_log_dir": "the write-ahead push log",
-    "push_log_group_ms": "the write-ahead push log",
-    "push_log_ack": "the write-ahead push log",
-    "push_durable_wait_secs": "the write-ahead push log",
-    "hot_budget_rows": "the hot/cold row tiers",
-    "cold_dir": "the hot/cold row tiers",
-    "cold_segment_mb": "the hot/cold row tiers",
-    "cold_compact_live_fraction": "the hot/cold row tiers",
     "profile_hz": "the sampling profiler",
     "profile_window_secs": "the sampling profiler",
     "master_addr": "the metrics reporter to the master",
@@ -1405,9 +1704,13 @@ def main(argv=None):
     """Process entry: ``python -m elasticdl_tpu_torch.embedding.row_service
     --model_zoo ... --model_def ... [--addr :6100] [--checkpoint_dir ...]``.
     The zoo module supplies ``make_row_service()``. The service keeps its
-    tables in host RAM and touches no CUDA. ``--shard_id/--num_shards``
-    record the shard layout, so a relaunch under another layout fails
-    loudly (``validate_shard_layout``)."""
+    tables in host RAM (and, with ``--hot_budget_rows``, its colder rows
+    on disk) and touches no CUDA. ``--shard_id/--num_shards`` record the
+    shard layout, so a relaunch under another layout fails loudly
+    (``validate_shard_layout``). Tiering is configured before the
+    checkpoint (a restore streams through the budget), the push log
+    after it (the chain is restored first, then the log's tail
+    replayed)."""
     import argparse
     import signal
 
@@ -1427,12 +1730,51 @@ def main(argv=None):
     parser.add_argument("--checkpoint_sync", action="store_true",
                         help="Write checkpoints inline on the push "
                              "handler instead of the background writer")
+    parser.add_argument("--push_log_dir", default="",
+                        help="Write-ahead push log directory: every "
+                             "applied push is group-committed to disk "
+                             "and replayed on relaunch, so acked pushes "
+                             "survive SIGKILL independently of the "
+                             "checkpoint cadence. Empty (default) = off")
+    parser.add_argument("--push_log_group_ms", type=float, default=2.0,
+                        help="Group-commit window: one fsync covers "
+                             "every push landing within it")
+    parser.add_argument("--push_log_ack", default="durable",
+                        choices=["durable", "applied"],
+                        help="durable (default): push replies wait "
+                             "for the covering fsync (RPO=0). "
+                             "applied: reply after the in-memory "
+                             "apply (RPO = one group window)")
+    parser.add_argument("--push_durable_wait_secs", type=float,
+                        default=60.0,
+                        help="Ceiling on the durable-ack fsync wait "
+                             "in the push path; a propagated request "
+                             "deadline shrinks it per push. Abandoned "
+                             "waits count in "
+                             "row_push_durable_wait_timeouts_total")
     parser.add_argument("--admission_limit", type=int, default=0,
                         help="Priority admission control: bound on "
                              "concurrently admitted handlers; beyond "
                              "it, requests shed lowest-priority-first "
                              "with a retryable RESOURCE_EXHAUSTED. "
                              "0 (default) = off")
+    parser.add_argument("--hot_budget_rows", type=int, default=0,
+                        help="Tiered storage: max rows a table resident "
+                             "in the hot in-memory arena; colder rows "
+                             "spill to CRC-framed disk segments. "
+                             "0 (default) = everything in memory")
+    parser.add_argument("--cold_dir", default="",
+                        help="Cold-tier segment directory (a spill "
+                             "cache, wiped on start: checkpoints own "
+                             "durability). Default: <checkpoint_dir>_cold,"
+                             " or a tempdir when no checkpoint dir is "
+                             "set")
+    parser.add_argument("--cold_segment_mb", type=int, default=8,
+                        help="Cold-tier segment file size bound (MB)")
+    parser.add_argument("--cold_compact_live_fraction", type=float,
+                        default=0.5,
+                        help="Compact a cold segment when its live "
+                             "record fraction drops below this")
     parser.add_argument("--shard_id", type=int, default=0)
     parser.add_argument("--num_shards", type=int, default=1)
     parser.add_argument("--metrics_port", type=int, default=-1,
@@ -1459,6 +1801,23 @@ def main(argv=None):
             f"{args.model_def}: module defines no make_row_service()"
         )
     service = factory()
+    if args.hot_budget_rows > 0:
+        # Before the checkpoint: a restore streams through the tier (the
+        # budget holds from the first row), and dirty tracking lands on
+        # the tier wrapper.
+        cold_dir = args.cold_dir
+        if not cold_dir:
+            if args.checkpoint_dir:
+                cold_dir = args.checkpoint_dir.rstrip("/") + "_cold"
+            else:
+                import tempfile
+
+                cold_dir = tempfile.mkdtemp(prefix="edl_cold_")
+        service.configure_tiering(
+            cold_dir, args.hot_budget_rows,
+            segment_max_bytes=args.cold_segment_mb << 20,
+            compact_live_fraction=args.cold_compact_live_fraction,
+        )
     if args.checkpoint_dir:
         validate_shard_layout(
             args.checkpoint_dir, args.shard_id, args.num_shards
@@ -1469,13 +1828,25 @@ def main(argv=None):
             delta_chain_max=args.checkpoint_delta_chain,
             async_write=not args.checkpoint_sync,
         )
+    if args.push_log_dir:
+        # After the checkpoint: restore the chain, then replay the log's
+        # tail through the normal apply path.
+        service.configure_push_log(
+            args.push_log_dir, group_ms=args.push_log_group_ms,
+            ack=args.push_log_ack,
+        )
+    service.configure_push_durable_wait(args.push_durable_wait_secs)
     service.start(args.addr, tag=f"rowservice/{args.shard_id}",
                   admission_limit=args.admission_limit)
     logger.info("Row service serving on %s", args.addr)
 
     def _graceful(_sig, _frame):
-        # Planned eviction: land a durable checkpoint, then drain.
-        logger.warning("SIGTERM: draining row service (checkpoint)")
+        # Planned eviction: land a durable checkpoint, drain the
+        # handlers, flush the push-log queue.
+        logger.warning(
+            "SIGTERM: draining row service (checkpoint + push-log "
+            "flush)"
+        )
         try:
             service.checkpoint_now()
         except BaseException as exc:

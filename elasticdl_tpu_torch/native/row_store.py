@@ -13,10 +13,13 @@ back, so call sites never branch.
 Init determinism: each implementation is deterministic per (name, id),
 but the two hash differently; a table must not move between them
 mid-job without a checkpoint (``set`` rows round-trip exactly either
-way). The JAX package's tiered-storage hooks wait for the port of
-``storage/``.
+way). A tiered table (``storage/tiered.py``) wraps a native one as its
+hot tier: ``NativeOptimizerWrapper`` runs the fused kernels against
+``hot_inner`` between the tier group's ``fault_for_apply`` and
+``finish_apply``, and takes slot tables from the primary's group.
 """
 
+import contextlib
 import ctypes
 from typing import Dict, Iterable
 
@@ -231,6 +234,14 @@ class NativeOptimizerWrapper:
     def _slot_table(self, table, slot_name: str):
         key = get_slot_table_name(table.name, slot_name)
         if key not in self._slot_tables:
+            make = getattr(table, "make_slot_table", None)
+            if make is not None:
+                # A tiered primary makes its slots in its own TierGroup
+                # (lockstep demotion and faults; see HostOptimizerWrapper).
+                self._slot_tables[key] = make(
+                    key, slot_init_value(self.opt, slot_name)
+                )
+                return self._slot_tables[key]
             st = NativeEmbeddingTable(
                 key,
                 table.dim,
@@ -246,9 +257,17 @@ class NativeOptimizerWrapper:
         ids = _ids_arr(ids)
         if np.unique(ids).size != ids.size:
             raise ValueError("ids must be deduplicated before apply")
-        if not isinstance(table, NativeEmbeddingTable):
+        # A tiered table wraps the native arena as its hot tier: the
+        # fused kernels run against ``hot_inner`` after a fault has
+        # promoted every applied row and its slot rows hot (a kernel's
+        # lazy get-or-create on an evicted slot row would silently reset
+        # optimizer state to its init value).
+        tiered = hasattr(table, "fault_for_apply")
+        hot = table.hot_inner if tiered else table
+        if not isinstance(hot, NativeEmbeddingTable):
             raise TypeError(
-                "NativeOptimizerWrapper needs a NativeEmbeddingTable"
+                "NativeOptimizerWrapper needs a NativeEmbeddingTable "
+                "(or a TieredTable whose hot tier is one)"
             )
         grads = np.ascontiguousarray(grads, np.float32)
         step = self._steps.get(table.name, 0) + 1
@@ -256,34 +275,59 @@ class NativeOptimizerWrapper:
         opt, lib, n = self.opt, self._lib, ids.size
         slots = {name: self._slot_table(table, name)
                  for name in opt.slot_names}
-        ip, gp = _i64p(ids), _f32p(grads)
-        if isinstance(opt, Momentum):
-            lib.rs_momentum(
-                table._h, slots["momentum"]._h,
-                ip, n, gp, opt.lr, opt.momentum, int(opt.nesterov),
-            )
-        elif isinstance(opt, (Adam, AdamAmsgrad)):
-            max_h = slots["max_v"]._h if opt.amsgrad else None
-            lib.rs_adam(
-                table._h, slots["m"]._h, slots["v"]._h,
-                max_h, ip, n, gp,
-                opt.lr, opt.beta1, opt.beta2, opt.epsilon, step,
-            )
-        elif isinstance(opt, Adagrad):
-            lib.rs_adagrad(
-                table._h, slots["accumulator"]._h,
-                ip, n, gp, opt.lr, opt.epsilon,
-            )
-        elif isinstance(opt, SGD):
-            lib.rs_sgd(table._h, ip, n, gp, opt.lr)
-        else:
-            raise ValueError(f"No native kernel for {opt.name}")
-        # The fused kernels write rows and slots inside C++, bypassing
-        # set(): mark the applied ids so delta checkpoints see them.
-        if table.supports_dirty_rows:
-            table.mark_dirty(ids)
-            for slot in slots.values():
-                slot.mark_dirty(ids)
+        # The kernels write the hot arena with the GIL released (ctypes):
+        # the GROUP lock is held across fault, kernel and bookkeeping, or
+        # a concurrent handler's prefault or sweep could grow or erase
+        # the same open-addressed arena mid-kernel. The budget sweep runs
+        # after the release: no cold-tier write happens under this lock.
+        guard = (table.tier_group.lock if tiered
+                 else contextlib.nullcontext())
+        with guard:
+            if tiered:
+                table.fault_for_apply(
+                    ids, slot_tables=list(slots.values())
+                )
+
+            def _h(t):
+                return (t.hot_inner if tiered else t)._h
+
+            ip, gp = _i64p(ids), _f32p(grads)
+            if isinstance(opt, Momentum):
+                lib.rs_momentum(
+                    _h(table), _h(slots["momentum"]),
+                    ip, n, gp, opt.lr, opt.momentum, int(opt.nesterov),
+                )
+            elif isinstance(opt, (Adam, AdamAmsgrad)):
+                max_h = _h(slots["max_v"]) if opt.amsgrad else None
+                lib.rs_adam(
+                    _h(table), _h(slots["m"]), _h(slots["v"]),
+                    max_h, ip, n, gp,
+                    opt.lr, opt.beta1, opt.beta2, opt.epsilon, step,
+                )
+            elif isinstance(opt, Adagrad):
+                lib.rs_adagrad(
+                    _h(table), _h(slots["accumulator"]),
+                    ip, n, gp, opt.lr, opt.epsilon,
+                )
+            elif isinstance(opt, SGD):
+                lib.rs_sgd(_h(table), ip, n, gp, opt.lr)
+            else:
+                raise ValueError(f"No native kernel for {opt.name}")
+            if tiered:
+                # Applied ids are hot now and their cold records stale;
+                # the sweep waits until the lock is released.
+                table.finish_apply(
+                    ids, slot_tables=list(slots.values()), _sweep=False
+                )
+            # The fused kernels write rows and slots inside C++,
+            # bypassing set(): mark the applied ids so delta checkpoints
+            # see them.
+            if table.supports_dirty_rows:
+                table.mark_dirty(ids)
+                for slot in slots.values():
+                    slot.mark_dirty(ids)
+        if tiered and not table.defer_apply_sweep:
+            table.maybe_sweep()
         return table
 
     def state_tables(self, main_tables: Dict) -> Dict:

@@ -696,14 +696,100 @@ def test_unported_handlers_name_item_8(method):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--push_log_dir", "/w"], ["--push_log_group_ms", "2"],
-    ["--push_log_ack", "durable"], ["--hot_budget_rows", "64"],
-    ["--cold_dir", "/c"], ["--cold_segment_mb", "8"],
-    ["--cold_compact_live_fraction", "0.5"], ["--profile_hz", "20"],
-    ["--profile_window_secs", "10"], ["--master_addr", "localhost:1"],
-    ["--metrics_report_secs", "15"], ["--push_durable_wait_secs", "30"],
+    ["--profile_hz", "20"], ["--profile_window_secs", "10"],
+    ["--master_addr", "localhost:1"], ["--metrics_report_secs", "15"],
 ])
 def test_main_refuses_unported_flags(flag):
     with pytest.raises(NotImplementedError, match="item 8"):
         rs.main(["--model_zoo", model_zoo_dir(), "--model_def",
                  "deepfm.deepfm_host.custom_model"] + flag)
+
+
+def _tier_policy(svc):
+    return svc._tables[deepfm_host.TABLE_NAME].tier_group.policy
+
+
+def _cold_dir(svc):
+    return os.path.dirname(
+        svc._tables[deepfm_host.TABLE_NAME].tier_group.cold_dir)
+
+
+# (the flag under test and the flags it needs, what the service must
+# hold afterwards); every case also passes --checkpoint_dir <root>/ckpt.
+_STORAGE_FLAGS = {
+    "push_log_dir": (
+        ["--push_log_dir", "{root}/wal"],
+        lambda svc, root: (svc._push_log.log_dir == f"{root}/wal"
+                           and svc._push_log.ack == "durable"
+                           and svc._push_log._group_secs == 0.002)),
+    "push_log_group_ms": (
+        ["--push_log_dir", "{root}/wal", "--push_log_group_ms", "7"],
+        lambda svc, root: svc._push_log._group_secs == 0.007),
+    "push_log_ack": (
+        ["--push_log_dir", "{root}/wal", "--push_log_ack", "applied"],
+        lambda svc, root: svc._push_log.ack == "applied"),
+    "push_durable_wait_secs": (
+        ["--push_durable_wait_secs", "30"],
+        lambda svc, root: (svc._push_durable_wait_secs == 30.0
+                           and svc._push_log is None)),
+    "hot_budget_rows": (
+        ["--hot_budget_rows", "64"],
+        lambda svc, root: (_tier_policy(svc).hot_budget_rows == 64
+                           and _cold_dir(svc) == f"{root}/ckpt_cold"
+                           and _tier_policy(svc).segment_max_bytes
+                           == 8 << 20)),
+    "cold_dir": (
+        ["--hot_budget_rows", "64", "--cold_dir", "{root}/cold"],
+        lambda svc, root: _cold_dir(svc) == f"{root}/cold"),
+    "cold_segment_mb": (
+        ["--hot_budget_rows", "64", "--cold_segment_mb", "3"],
+        lambda svc, root: _tier_policy(svc).segment_max_bytes == 3 << 20),
+    "cold_compact_live_fraction": (
+        ["--hot_budget_rows", "64", "--cold_compact_live_fraction",
+         "0.25"],
+        lambda svc, root: _tier_policy(svc).compact_live_fraction == 0.25),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(_STORAGE_FLAGS))
+def test_main_takes_storage_flags(tmp_path, monkeypatch, flag):
+    """main's parser takes each of the storage flags, and the service
+    gets its configuration in the JAX main's order: tiering before the
+    checkpoint, the push log after it, the durable-wait ceiling last."""
+    import signal
+
+    root = str(tmp_path)
+    extra, holds = _STORAGE_FLAGS[flag]
+    calls, started = [], []
+
+    def recording(name):
+        real = getattr(HostRowService, name)
+
+        def wrapper(self, *args, **kwargs):
+            calls.append(name)
+            return real(self, *args, **kwargs)
+
+        return wrapper
+
+    for name in ("configure_tiering", "configure_checkpoint",
+                 "configure_push_log", "configure_push_durable_wait"):
+        monkeypatch.setattr(HostRowService, name, recording(name))
+    monkeypatch.setattr(HostRowService, "start",
+                        lambda self, *a, **k: started.append(self) or self)
+    monkeypatch.setattr(HostRowService, "wait", lambda self: None)
+    monkeypatch.setattr(signal, "signal", lambda *a: None)
+    rs.main(["--model_zoo", model_zoo_dir(), "--model_def",
+             "deepfm.deepfm_host.custom_model", "--checkpoint_dir",
+             f"{root}/ckpt"] + [f.format(root=root) for f in extra])
+    (svc,) = started
+    try:
+        want = ["configure_checkpoint", "configure_push_durable_wait"]
+        if "--hot_budget_rows" in extra:
+            want.insert(0, "configure_tiering")
+        if "--push_log_dir" in extra:
+            want.insert(-1, "configure_push_log")
+        assert calls == want
+        assert f"--{flag}" in extra
+        assert holds(svc, root)
+    finally:
+        svc.stop()
