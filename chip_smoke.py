@@ -288,7 +288,43 @@
    evictions, cold rows and bytes on disk; the final rows of all six
    byte-equal. Then that service is SIGKILLed after its last acked push
    and relaunched: the replay's records, seconds and MB/s, and a pull
-   bit-equal to the rows read before the kill.
+   bit-equal to the rows read before the kill. (h) Live resharding in
+   the whole smoke: (b)'s job on two in-process services under a port
+   ``ShardMapController`` (RPC transports, its state file in the smoke's
+   directory); after the worker's second push a thread runs ``split(0,
+   new_addr=<a third in-process service>)`` while the next push is in
+   flight (the migration's chunk hook holds the copy until that push
+   has applied on the source, so a catch-up round ships it): losses and
+   the ``export_dense`` over the final map bit-equal to (b)'s, every
+   materialised id on one shard (its home under map v3: bootstrap v1,
+   the added shard v2, the cutover v3), v3 on every service and, after
+   its next pull, on the worker's client, ``check_reshard`` clean with
+   no migration in flight, the move's rows, bytes, catch-up rounds and
+   seconds. Then ``update_replicas()`` (``replica_min_pulls=1``,
+   ``replica_count=1``) gives (b)'s most-pulled ids a replica each; once
+   the homes' warm-up refreshes land, a fresh client's reads of them go
+   through the replicas (``row_replica_reads_total`` rises, the
+   staleness histogram counts the refreshes) and equal the homes'
+   bytes. Every kernel counter reads 0. (i) ``--phase rowservice``
+   only: live resharding at the recsys shape. (d)'s 1,000,000 x 256
+   Adagrad table on the service's main in five subprocesses: a fleet of
+   two shards and an empty third (the target) and a twin fleet of two,
+   each under a bootstrap map; each fleet's whole vocabulary is filled
+   by a zero-gradient push (rows and their Adagrad slots, ~1 GB a
+   shard); one client a fleet runs 40 batches of 16,384 unique ids (64
+   hot ids pinned in every batch), a pull and a push a batch, and after
+   batch 10 the split fleet's controller splits shard 0 (~250,000 rows
+   and their slots, ~512 MB in 2048-row chunks) while the batches go on;
+   then its controller designates replicas from ``shard_stats``
+   (``update_replicas``) and both fleets run 8 more batches: pull and
+   push p50/p99 ms before, during and after the move, the move's
+   seconds, MB/s, rows and catch-up rounds, the fenced window (fence to
+   cutover, from the source's log), pushes retried after a fenced
+   reply, the replicas' share of hot-id reads, their staleness p50/p99
+   (bucket bounds), each shard's pulled rows a batch before and with
+   replicas, each subprocess's peak RSS; then SIGTERM drains a
+   checkpoint of every shard, and the two fleets' gathered rows and
+   slots (one sha256 each) must be byte-equal, every id on one home.
 11h. ``fleet`` (the rest of serving; ``--phase fleet`` runs it alone,
    builds only ``flash_attention_fwd.cu`` and exports the flagship
    bundle itself). Every kernel counter is zeroed just before each part
@@ -896,6 +932,33 @@ ROWSVC_KILL_PUSHES, ROWSVC_KILL_IDS = 2, 1024
 ROWSVC_G_BUDGET, ROWSVC_G_BATCHES = 100_000, 40
 ROWSVC_G_WORKING, ROWSVC_G_STRANGERS = 65_536, 64
 ROWSVC_G_DRIFT, ROWSVC_G_DRIFT_EVERY = 4096, 5
+# (h): (b)'s job through a live split after ROWSVC_H_SPLIT_AFTER pushes
+# (bootstrap v1, the third shard added v2, the cutover v3), then one read
+# replica for each of the ROWSVC_H_HOT most-pulled ids, read
+# ROWSVC_H_READS times by a fresh client (round robin: every other read
+# through the replica).
+ROWSVC_H_SPLIT_AFTER, ROWSVC_H_VERSION = 2, 3
+ROWSVC_H_HOT, ROWSVC_H_READS = 8, 4
+# (i) ``--phase rowservice`` only: live resharding at the recsys shape.
+# (d)'s table on the service's main in subprocesses: a fleet of two
+# shards plus an empty third (the split's target) and a twin fleet of
+# two. Each fleet's whole vocabulary is filled by a zero-gradient push
+# (a push materialises a row and its Adagrad slot; a pull only the row),
+# then one client a fleet runs ROWSVC_I_BATCHES batches of
+# ROWSVC_TIMED_IDS unique ids (ROWSVC_I_HOT of them pinned in every
+# batch), a pull and a push a batch; after ROWSVC_I_SPLIT_AFTER batches
+# the split fleet's controller splits shard 0 in a thread while the
+# batches go on. Then its controller designates replicas (policy
+# ROWSVC_I_POLICY) and both fleets run ROWSVC_I_REPLICA_BATCHES more.
+ROWSVC_I_BATCHES, ROWSVC_I_SPLIT_AFTER, ROWSVC_I_HOT = 40, 10, 64
+ROWSVC_I_REPLICA_BATCHES = 8
+# The split fleet's batches go on until ROWSVC_I_AFTER_MOVE of them ran
+# after the move (at most ROWSVC_I_MAX_BATCHES); the twin then runs as
+# many.
+ROWSVC_I_AFTER_MOVE, ROWSVC_I_MAX_BATCHES = 10, 200
+ROWSVC_I_POLICY = dict(replica_top_k=64, replica_min_pulls=8,
+                       replica_count=2)
+ROWSVC_I_FLEETS = {"split": 3, "twin": 2}
 # name: (tiered, push-log ack or None for no log)
 ROWSVC_G_SERVICES = {
     "tiered_durable": (True, "durable"), "tiered_applied": (True, "applied"),
@@ -4526,25 +4589,39 @@ def log_text(log):
     return log.read()
 
 
-def tier_readings(log):
-    """The ``row_tier_*`` and ``row_push_log_*`` counters and gauges of a
-    row-service subprocess started with ``--metrics_port 0``, read from
-    its ``/metrics`` (the port comes from its log)."""
+def service_metrics(log):
+    """A row-service subprocess's ``/metrics`` (``--metrics_port 0``):
+    {family: total} for counters and gauges, {family_bucket: {le:
+    count}} for histograms."""
     import re
 
     port = re.search(r"/metrics serving on port (\d+)", log_text(log))
     check(port is not None, "the row service logged no /metrics port")
     with urllib.request.urlopen(
-            f"http://localhost:{port.group(1)}/metrics", timeout=30) as r:
+            f"http://localhost:{port.group(1)}/metrics", timeout=60) as r:
         text = r.read().decode()
     out = {}
     for line in text.splitlines():
-        found = re.match(r"edl_tpu_(row_(?:tier|push_log)_\w+?)"
-                         r"(_sum|_count)? ([-+0-9.eE]+|NaN)$", line)
-        if found and not found.group(1).endswith("_bucket"):
-            out[found.group(1) + (found.group(2) or "")] = float(
-                found.group(3))
+        found = re.match(r'edl_tpu_(\w+?)(\{[^}]*\})? ([-+0-9.eE]+|NaN|'
+                         r'[+-]Inf)$', line)
+        if not found:
+            continue
+        name, labels, value = found.groups()
+        if name.endswith("_bucket"):
+            le = re.search(r'le="([^"]+)"', labels or "")
+            out.setdefault(name, {})[le.group(1)] = float(value)
+        else:
+            out[name] = out.get(name, 0.0) + float(value)
     return out
+
+
+def tier_readings(log):
+    """The ``row_tier_*`` and ``row_push_log_*`` counters and gauges (and
+    histogram sums and counts) of a row-service subprocess started with
+    ``--metrics_port 0``."""
+    return {k: v for k, v in service_metrics(log).items()
+            if k.startswith(("row_tier_", "row_push_log_"))
+            and not k.endswith("_bucket")}
 
 
 def dir_bytes(path):
@@ -4676,6 +4753,184 @@ def rowservice_two_shards(torch, fa, pe, records, one_svc, one_rows,
     check(out["export_equal_one_shard"], "the two-shard export differs")
     check(not any(run["counts"].values()),
           f"the two-shard path launched kernels: {run['counts']}")
+    return out, export_two
+
+
+def rowservice_live_split(torch, fa, pe, root, records, one_loss,
+                          export_two):
+    """(h) (b)'s job on two in-process shards under a port
+    ShardMapController (RPC transports, its state file under ``root``):
+    after the worker's ROWSVC_H_SPLIT_AFTER-th push a thread splits shard
+    0 onto a third service, and the worker's next step waits until the
+    first chunk has shipped; the migration's chunk hook then holds the
+    copy until that step's push has applied on the source, so a catch-up
+    round ships it. Then the most-pulled ids
+    get one read replica each and a fresh client reads them."""
+    from elasticdl_tpu_torch.embedding import row_service as rs
+    from elasticdl_tpu_torch.embedding.row_service import make_remote_engine
+    from elasticdl_tpu_torch.master.row_reshard import (
+        ReshardPolicy,
+        ShardMapController,
+    )
+    from elasticdl_tpu_torch.model_zoo.deepfm import deepfm_host as twin
+    from elasticdl_tpu_torch.observability import default_registry
+    from elasticdl_tpu_torch.testing import data as tdata
+    from elasticdl_tpu_torch.tools.check_reshard import check_reshard
+
+    t0 = time.monotonic()
+    registry = default_registry()
+    keys = {twin.TABLE_NAME: twin.FEATURE_KEY}
+    shards = [twin.make_row_service().start("localhost:0")
+              for _ in range(3)]
+    addrs = [f"localhost:{s.port}" for s in shards]
+    state = os.path.join(root, "rowsvc_h_shard_map.json")
+    ctrl = ShardMapController(state, policy=ReshardPolicy(
+        replica_top_k=ROWSVC_H_HOT, replica_min_pulls=1, replica_count=1))
+    pushes = {"n": 0}
+    pushed = threading.Condition()
+    split = {}
+    engines = []
+
+    def run_split():
+        try:
+            split["stats"] = ctrl.split(0, new_addr=addrs[2])
+        except BaseException as exc:  # noqa: BLE001 - checked below
+            split["error"] = repr(exc)
+
+    copying = threading.Event()
+
+    def on_push():
+        with pushed:
+            pushes["n"] += 1
+            pushed.notify_all()
+        if pushes["n"] == ROWSVC_H_SPLIT_AFTER:
+            split["thread"] = threading.Thread(target=run_split)
+            split["thread"].start()
+            # The worker's next step starts once the copy is under way.
+            copying.wait(timeout=60)
+
+    def hold_copy(_svc, _mig, _view, _chunk):
+        # The first bulk chunk has shipped: let the worker go on, and
+        # hold the copy until its next push has applied on the source,
+        # so a catch-up round has rows to ship.
+        if copying.is_set():
+            return
+        with pushed:
+            at = pushes["n"]
+            copying.set()
+            pushed.wait_for(lambda: pushes["n"] > at, timeout=60)
+
+    def factory():
+        runner = remote_sync_runner(",".join(addrs[:2]))()
+        opt = runner.engine.optimizer
+        apply = opt.apply_gradients
+
+        def counted(table, ids, grads):
+            out = apply(table, ids, grads)
+            on_push()
+            return out
+
+        opt.apply_gradients = counted
+        engines.append(runner.engine)
+        return runner
+
+    rs.set_reshard_chaos_hooks(mid_migrate=hold_copy)
+    try:
+        ctrl.bootstrap(addrs[:2])
+        reset_kernel_launches(fa, pe)         # (h) starts
+        run = worker_cluster_run(
+            torch, fa, pe, tdata.model_zoo_dir(), "deepfm.deepfm_host."
+            "custom_model", records, "", DEVICE, HOST_BATCH,
+            runner_factory=factory)
+        split["thread"].join(timeout=120)
+        stats = split.get("stats") or {}
+        m = ctrl.map
+        export = make_remote_engine(",".join(addrs), keys).tables[
+            twin.TABLE_NAME].export_dense(HOST_MAX_ID)
+        held = [s._tables[twin.TABLE_NAME].all_ids() for s in shards]
+        one_home = all((m.home_of_ids(ids) == k).all()
+                       for k, ids in enumerate(held))
+        all_ids = np.concatenate(held)
+        versions = [s._shard_map.version for s in shards]
+        # The worker's client learns the cutover on its next pull (a
+        # redirect, or the epoch piggybacked on the reply).
+        worker_pull = engines[0].tables[twin.TABLE_NAME].get(
+            np.sort(all_ids))
+        fsck_errors, fsck = check_reshard(state)
+        # Replicas for the most-pulled ids, then reads through them.
+        reads0 = family_total(registry, "edl_tpu_row_replica_reads_total")
+        stale0 = family_total(registry,
+                              "edl_tpu_row_replica_staleness_seconds")
+        designated = ctrl.update_replicas()
+        per = ctrl.map.replicas.get(twin.TABLE_NAME, {})
+        hot = np.array(sorted(per), np.int64)
+        deadline = time.monotonic() + 30
+        while not all(
+                i in shards[r]._replica_store.get(twin.TABLE_NAME, {})
+                for i, reps in per.items() for r in reps):
+            check(time.monotonic() < deadline, "the replicas never warmed")
+            time.sleep(0.005)
+        reader = make_remote_engine(",".join(addrs), keys).tables[
+            twin.TABLE_NAME]
+        homes = ctrl.map.home_of_ids(hot)
+        want = np.stack([shards[h]._tables[twin.TABLE_NAME].get([i])[0]
+                         for i, h in zip(hot.tolist(), homes.tolist())])
+        answers = [reader.get(hot) for _ in range(ROWSVC_H_READS)]
+        counts = kernel_launch_counts(fa, pe)     # ... and ends
+        replica_reads = family_total(
+            registry, "edl_tpu_row_replica_reads_total") - reads0
+        staleness = family_total(
+            registry, "edl_tpu_row_replica_staleness_seconds") - stale0
+    finally:
+        rs.set_reshard_chaos_hooks(mid_migrate=None)
+        ctrl.close()
+        for s in shards:
+            s.stop(0)
+    out = {
+        "shards": addrs, "split_after_push": ROWSVC_H_SPLIT_AFTER,
+        "pushes": pushes["n"], "split_error": split.get("error"),
+        "migration": stats, "map_version": m.version,
+        "ranges": [list(r) for r in m.ranges],
+        "service_versions": versions,
+        "client_version": engines[0].shard_map.version if engines else None,
+        "rows_per_shard": [int(i.size) for i in held],
+        "one_home_each": bool(one_home),
+        "unique_ids": bool(np.unique(all_ids).size == all_ids.size),
+        "losses_equal_two_shards": run["loss"] == one_loss,
+        "export_equal_two_shards": bool(np.array_equal(export, export_two)),
+        "worker_pull_equal_export": bool(np.array_equal(
+            worker_pull, export[np.sort(all_ids)])),
+        "fsck_errors": fsck_errors,
+        "migration_in_flight": fsck["migration_in_flight"],
+        "replicas_designated": bool(designated),
+        "replica_ids": hot.tolist(),
+        "replica_map_version": ctrl.map.version,
+        "replica_reads": replica_reads,
+        "replica_refreshes_observed": staleness,
+        "replica_answers_equal_home": all(
+            np.array_equal(a, want) for a in answers),
+        "launches": counts, "seconds": time.monotonic() - t0,
+    }
+    print("rowservice live split", json.dumps(out), flush=True)
+    check(out["split_error"] is None and stats.get("rows", 0) > 0,
+          f"the split: {out}")
+    check(stats.get("catchup_rounds", 0) >= 1,
+          f"no catch-up round shipped the racing push: {stats}")
+    check(out["losses_equal_two_shards"] and out["export_equal_two_shards"]
+          and out["worker_pull_equal_export"],
+          f"the job through a live split differs from (b): {out}")
+    check(one_home and out["unique_ids"],
+          f"an id off its home after the split: {out['rows_per_shard']}")
+    check(m.version == ROWSVC_H_VERSION
+          and versions == [ROWSVC_H_VERSION] * 3
+          and out["client_version"] == ROWSVC_H_VERSION,
+          f"map versions after the split: {out}")
+    check(not fsck_errors and not fsck["migration_in_flight"],
+          f"the authority's state file: {fsck_errors}")
+    check(designated and hot.size > 0 and replica_reads > 0
+          and staleness > 0 and out["replica_answers_equal_home"],
+          f"the replica reads: {out}")
+    check(not any(counts.values()), f"(h) launched kernels: {counts}")
     return out
 
 
@@ -5204,6 +5459,364 @@ def rowservice_tiered_times(torch, fa, pe, g):
     return out
 
 
+def rowservice_reshard_start(root):
+    """(i)'s services: the split fleet's three and the twin fleet's two
+    (ROWSVC_I_FLEETS), each the service's main on the rowsvc_bench zoo
+    with ``/metrics`` and a checkpoint directory (SIGTERM drains one):
+    they boot while (a)-(g) run."""
+    zoo = write_zoo(root, "rowsvc_bench", ROWSVC_BENCH_ZOO)
+    fleets = {}
+    for fleet, n in ROWSVC_I_FLEETS.items():
+        fleets[fleet] = []
+        for k in range(n):
+            ckpt = os.path.join(root, f"rowsvc_i_{fleet}{k}")
+            proc, log = row_service_main(
+                root, zoo, "rowsvc_bench.rec.custom_model",
+                f"rowsvc_i_{fleet}{k}.log",
+                ["--metrics_port", "0", "--checkpoint_dir", ckpt,
+                 "--shard_id", str(k), "--num_shards", str(n)])
+            fleets[fleet].append(dict(proc=proc, log=log, ckpt=ckpt))
+    return fleets
+
+
+def rowservice_reshard_stop(fleets):
+    for procs in fleets.values():
+        for svc in procs:
+            stop_service(svc["proc"], svc["log"])
+
+
+def rss_mb(pid):
+    """A live process's resident set (``/proc/<pid>/statm``), or None
+    where the file is not there."""
+    try:
+        with open(f"/proc/{pid}/statm") as fh:
+            pages = int(fh.read().split()[1])
+    except (OSError, IndexError, ValueError):
+        return None
+    return pages * os.sysconf("SC_PAGE_SIZE") / 2**20
+
+
+def bucket_quantile(buckets, q):
+    """The upper bound of the bucket that holds quantile ``q`` of a
+    cumulative histogram ({le: count}); None when it is empty."""
+    edges = sorted(((float(le), n) for le, n in buckets.items()),
+                   key=lambda e: e[0])
+    if not edges or edges[-1][1] <= 0:
+        return None
+    for le, n in edges:
+        if n >= q * edges[-1][1]:
+            return le
+    return edges[-1][0]
+
+
+def reshard_schedule():
+    """(i)'s hot ids and its batches, drawn as they are asked for: each
+    ROWSVC_TIMED_IDS unique ids of the vocabulary, the same ROWSVC_I_HOT
+    hot ids in every one, with their gradients."""
+    rng = np.random.RandomState(SEED + 21)
+    hot = rng.choice(EMB_VOCAB, ROWSVC_I_HOT, replace=False).astype(np.int64)
+    cold = np.setdiff1d(np.arange(EMB_VOCAB, dtype=np.int64), hot)
+    out = []
+
+    def batch(b):
+        while len(out) <= b:
+            rest = rng.choice(cold, ROWSVC_TIMED_IDS - ROWSVC_I_HOT,
+                              replace=False)
+            ids = np.sort(np.concatenate([hot, rest]))
+            out.append((ids, tiered_grads(len(out), ids.size)))
+        return out[b]
+
+    return hot, batch
+
+
+def rowservice_reshard_times(torch, fa, pe, root, fleets):
+    """(i) Live resharding at the recsys shape (ROWSVC_I_*): the split
+    and its twin, per-batch pull/push ms before, during and after the
+    move, the move's readings, replicas from ``shard_stats``; then
+    SIGTERM drains a checkpoint of every shard, and the two fleets'
+    gathered rows and slots must be byte-equal."""
+    import hashlib
+    import signal
+
+    from elasticdl_tpu_torch.checkpoint.saver import CheckpointSaver
+    from elasticdl_tpu_torch.comm.rpc import RpcStub
+    from elasticdl_tpu_torch.embedding import row_service as rs
+    from elasticdl_tpu_torch.embedding.row_service import make_remote_engine
+    from elasticdl_tpu_torch.embedding.table import get_slot_table_name
+    from elasticdl_tpu_torch.master.row_reshard import (
+        ReshardPolicy,
+        ShardMapController,
+    )
+    from elasticdl_tpu_torch.tools.check_reshard import check_reshard
+
+    t_phase = time.monotonic()
+    keys = {RECSYS_TABLE: "ids"}
+    hot, schedule = reshard_schedule()
+    runs = {}
+    for fleet, procs in fleets.items():
+        addrs = [f"localhost:{service_port(p['proc'], p['log'], 300)[0]}"
+                 for p in procs]
+        state = os.path.join(root, f"rowsvc_i_{fleet}_shard_map.json")
+        ctrl = ShardMapController(state,
+                                  policy=ReshardPolicy(**ROWSVC_I_POLICY))
+        ctrl.bootstrap(addrs[:2])
+        engine = make_remote_engine(",".join(addrs[:2]), keys)
+        runs[fleet] = dict(addrs=addrs, ctrl=ctrl, engine=engine,
+                           state=state, procs=procs,
+                           table=engine.tables[RECSYS_TABLE])
+    reset_kernel_launches(fa, pe)             # (i) starts
+
+    def fill(run):
+        t0 = time.monotonic()
+        zeros = np.zeros((ROWSVC_TIMED_IDS, EMB_DIM), np.float32)
+        for lo in range(0, EMB_VOCAB, ROWSVC_TIMED_IDS):
+            ids = np.arange(lo, min(lo + ROWSVC_TIMED_IDS, EMB_VOCAB),
+                            dtype=np.int64)
+            run["engine"].optimizer.apply_gradients(
+                run["table"], ids, zeros[:ids.size])
+        run["fill_s"] = time.monotonic() - t0
+
+    threads = [threading.Thread(target=fill, args=(r,))
+               for r in runs.values()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+
+    fenced = {"n": 0}
+    real_check = rs._check_reshard
+
+    def counting_check(resp):
+        info = resp.get("reshard") if isinstance(resp, dict) else None
+        if info and info.get("reason") == "fenced":
+            fenced["n"] += 1
+        return real_check(resp)
+
+    def batches(run, lo, hi, split_at=None):
+        """A pull and a push a batch: (batch, start, end, pull ms, push
+        ms); at ``split_at`` the split starts in a thread first."""
+        for b in range(lo, hi):
+            if b == split_at:
+                def go_split():
+                    run["split_t0"] = time.monotonic()
+                    run["split"] = run["ctrl"].split(
+                        0, new_addr=run["addrs"][2])
+                    run["split_t1"] = time.monotonic()
+                run["split_thread"] = threading.Thread(target=go_split)
+                run["split_thread"].start()
+            ids, grads = schedule(b)
+            t0 = time.monotonic()
+            t1 = time.perf_counter()
+            run["table"].get(ids)
+            t2 = time.perf_counter()
+            run["engine"].optimizer.apply_gradients(run["table"], ids,
+                                                    grads)
+            t3 = time.perf_counter()
+            run.setdefault("ms", []).append(
+                (b, t0, time.monotonic(), (t2 - t1) * 1e3,
+                 (t3 - t2) * 1e3))
+
+    split_run, twin_run = runs["split"], runs["twin"]
+    # The split fleet's batches go on past ROWSVC_I_BATCHES until
+    # ROWSVC_I_AFTER_MOVE of them started after the move ended.
+    rs._check_reshard = counting_check
+    try:
+        n_main = 0
+        while (n_main < ROWSVC_I_BATCHES or "split_t1" not in split_run
+               or sum(r[1] >= split_run["split_t1"]
+                      for r in split_run["ms"]) < ROWSVC_I_AFTER_MOVE):
+            check(n_main < ROWSVC_I_MAX_BATCHES,
+                  "the move did not end within the batches")
+            batches(split_run, n_main, n_main + 1, ROWSVC_I_SPLIT_AFTER)
+            n_main += 1
+        split_run["split_thread"].join(timeout=600)
+    finally:
+        rs._check_reshard = real_check
+    stats = split_run.get("split", {})
+    src_log = log_text(split_run["procs"][0]["log"])
+    fence_ms = _log_seconds(src_log, "write fence on buckets",
+                            "lifted by the cutover") * 1e3
+    ctrl = split_run["ctrl"]
+    # The last batch before the replicas, with the shards' pulled rows
+    # read around it, then the designation and its warm-up.
+    before = ctrl.poll_stats()
+    batches(split_run, n_main, n_main + 1)
+    after_one = ctrl.poll_stats()
+    home_pulled_before = [after_one[s]["pulled_rows"] - before[s][
+        "pulled_rows"] for s in sorted(before)]
+    designated = ctrl.update_replicas()
+    per = ctrl.map.replicas.get(RECSYS_TABLE, {})
+    stubs = {a: RpcStub(a, rs.SERVICE_NAME) for a in ctrl.map.shards}
+    warm_t0 = time.monotonic()
+    targets = {}
+    for i, reps in per.items():
+        for r in reps:
+            targets.setdefault(r, []).append(i)
+    while True:
+        missing = 0
+        for r, ids in targets.items():
+            found = stubs[ctrl.map.shards[r]].call(
+                "pull_replica_rows", table=RECSYS_TABLE,
+                ids=np.asarray(ids, np.int64))["found"]
+            missing += int((~np.asarray(found, bool)).sum())
+        if not missing:
+            break
+        check(time.monotonic() - warm_t0 < 60, "the replicas never warmed")
+        time.sleep(0.02)
+    warm_s = time.monotonic() - warm_t0
+    for stub in stubs.values():
+        stub.close()
+    m0 = [service_metrics(p["log"]) for p in split_run["procs"]]
+    p0 = ctrl.poll_stats()
+    n_total = n_main + 1 + ROWSVC_I_REPLICA_BATCHES
+    batches(split_run, n_main + 1, n_total)
+    p1 = ctrl.poll_stats()
+    m1 = [service_metrics(p["log"]) for p in split_run["procs"]]
+    batches(twin_run, 0, n_total)
+    home_pulled_after = [(p1[s]["pulled_rows"] - p0[s]["pulled_rows"])
+                         / ROWSVC_I_REPLICA_BATCHES for s in sorted(p0)]
+    replica_reads = sum(b.get("row_replica_reads_total", 0)
+                        - a.get("row_replica_reads_total", 0)
+                        for a, b in zip(m0, m1))
+    stale = {}
+    for m in m1:
+        for le, n in m.get("row_replica_staleness_seconds_bucket",
+                           {}).items():
+            stale[le] = stale.get(le, 0.0) + n
+    mig = {k: sum(m.get(f"row_migration_{k}_total", 0) for m in m1)
+           for k in ("rows", "bytes", "seconds")}
+    counts = kernel_launch_counts(fa, pe)     # ... and ends
+    fsck_errors, fsck = check_reshard(split_run["state"])
+    final_map = ctrl.map
+    for run in runs.values():
+        run["engine"].close()
+        run["ctrl"].close()
+    rss_now = {f"{fleet}{k}": rss_mb(p["proc"].pid)
+               for fleet, run in runs.items()
+               for k, p in enumerate(run["procs"])}
+    # SIGTERM drains a checkpoint of every shard; gather each fleet's
+    # views from them.
+    t_drain = time.monotonic()
+    for run in runs.values():
+        for p in run["procs"]:
+            p["proc"].send_signal(signal.SIGTERM)
+    rss = {}
+    for fleet, run in runs.items():
+        for k, p in enumerate(run["procs"]):
+            # The child's peak RSS (the drain's checkpoint included) from
+            # its rusage as it is reaped.
+            _pid, status, usage = os.wait4(p["proc"].pid, 0)
+            p["proc"].returncode = os.waitstatus_to_exitcode(status)
+            rss[f"{fleet}{k}"] = usage.ru_maxrss / 1024.0
+    drain_s = time.monotonic() - t_drain
+    views = (RECSYS_TABLE, get_slot_table_name(RECSYS_TABLE, "accumulator"))
+    digests, homes_ok, rows_by_fleet = {}, True, {}
+    for fleet, run in runs.items():
+        parts = {v: [] for v in views}
+        for k, p in enumerate(run["procs"]):
+            _, _, emb = CheckpointSaver(p["ckpt"]).restore()
+            for v in views:
+                ids, rows = emb[v].to_arrays()
+                parts[v].append((np.asarray(ids, np.int64),
+                                 np.asarray(rows, np.float32)))
+                if fleet == "split" and ids.size:
+                    homes_ok &= bool(
+                        (final_map.home_of_ids(ids) == k).all())
+            del emb
+        digests[fleet] = {}
+        for v in views:
+            ids = np.concatenate([i for i, _ in parts[v]])
+            rows = np.concatenate([r for _, r in parts[v]])
+            order = np.argsort(ids, kind="stable")
+            ids, rows = ids[order], rows[order]
+            h = hashlib.sha256(ids.tobytes())
+            h.update(rows.tobytes())
+            digests[fleet][v] = h.hexdigest()
+            if v == RECSYS_TABLE:
+                rows_by_fleet[fleet] = int(ids.size)
+                homes_ok &= bool(np.unique(ids).size == ids.size)
+        del parts
+
+    def stage(row):
+        """before, during or after the move, by the batch's interval."""
+        if row[2] <= split_run["split_t0"]:
+            return "before"
+        return "after" if row[1] >= split_run["split_t1"] else "during"
+
+    def stage_ms(name, col):
+        vals = [r[col] for r in split_run["ms"]
+                if r[0] < n_main and stage(r) == name]
+        if not vals:
+            return None
+        return {"n": len(vals), "p50": float(np.percentile(vals, 50)),
+                "p99": float(np.percentile(vals, 99)), "max": max(vals)}
+
+    out = {
+        "table": f"{EMB_VOCAB} x {EMB_DIM} f32, native, Adagrad rows",
+        "batches": ROWSVC_I_BATCHES, "ids_a_batch": ROWSVC_TIMED_IDS,
+        "hot_ids": ROWSVC_I_HOT, "split_after": ROWSVC_I_SPLIT_AFTER,
+        "fill_s": {f: r["fill_s"] for f, r in runs.items()},
+        "migration": stats,
+        "migration_mb_per_s": (stats.get("bytes", 0) / 1e6
+                               / max(stats.get("seconds", 0), 1e-9)),
+        "migration_metrics": mig,
+        "split_wall_s": split_run.get("split_t1", 0)
+        - split_run.get("split_t0", 0),
+        "fenced_window_ms": fence_ms,
+        "pushes_retried_after_fence": fenced["n"],
+        "map_version": final_map.version,
+        "ranges": [list(r) for r in final_map.ranges],
+        "pull_ms": {st: stage_ms(st, 3) for st in ("before", "during",
+                                                   "after")},
+        "push_ms": {st: stage_ms(st, 4) for st in ("before", "during",
+                                                   "after")},
+        "twin_ms": {name: {
+            "p50": float(np.percentile([r[col] for r in twin_run["ms"]],
+                                       50)),
+            "p99": float(np.percentile([r[col] for r in twin_run["ms"]],
+                                       99))}
+            for name, col in (("pull", 3), ("push", 4))},
+        "batches_during_move": [r[0] for r in split_run["ms"]
+                                if r[0] < n_main and stage(r) == "during"],
+        "batches_in_all": n_total,
+        "pull_ms_with_replicas": {
+            "p50": float(np.percentile([r[3] for r in split_run["ms"]
+                                        if r[0] > n_main], 50)),
+            "p99": float(np.percentile([r[3] for r in split_run["ms"]
+                                        if r[0] > n_main], 99))},
+        "replicas_designated": bool(designated),
+        "replica_ids": len(per), "replica_warm_s": warm_s,
+        "hot_reads_after": ROWSVC_I_HOT * ROWSVC_I_REPLICA_BATCHES,
+        "replica_reads": replica_reads,
+        "replica_share": replica_reads / float(
+            ROWSVC_I_HOT * ROWSVC_I_REPLICA_BATCHES),
+        "replica_staleness_s": {"p50_le": bucket_quantile(stale, 0.5),
+                                "p99_le": bucket_quantile(stale, 0.99),
+                                "count": max(stale.values(), default=0),
+                                "buckets": stale},
+        "pulled_rows_a_batch_before_replicas": home_pulled_before,
+        "pulled_rows_a_batch_with_replicas": home_pulled_after,
+        "rss_before_drain_mb": rss_now,
+        "peak_rss_mb_with_drain": rss, "drain_s": drain_s,
+        "rows": rows_by_fleet, "sha256": digests,
+        "fleets_byte_equal": digests["split"] == digests["twin"],
+        "one_home_each": homes_ok, "fsck_errors": fsck_errors,
+        "migration_in_flight": fsck["migration_in_flight"],
+        "launches": counts, "seconds": time.monotonic() - t_phase,
+        "card": smi("name,power.limit"),
+    }
+    print("rowservice reshard", json.dumps(out), flush=True)
+    check(out["fleets_byte_equal"],
+          f"the split fleet's rows or slots differ from the twin's: {out}")
+    check(homes_ok and rows_by_fleet["split"] == EMB_VOCAB,
+          f"an id off its one home: {rows_by_fleet}")
+    check(stats.get("rows", 0) > 0 and not fsck_errors
+          and not fsck["migration_in_flight"], f"the move: {stats}")
+    check(designated and replica_reads > 0, f"the replicas: {out}")
+    check(not any(counts.values()), f"(i) launched kernels: {counts}")
+    return out
+
+
 def rowservice_phase(torch, fa, pe, root, service=None, timed=False):
     """The row service on the card: the service's main in a subprocess
     (``service``, from ``rowservice_start``, or started here; tiered and
@@ -5217,7 +5830,7 @@ def rowservice_phase(torch, fa, pe, root, service=None, timed=False):
 
     t0 = time.monotonic()
     service = service or rowservice_start(root)
-    one_svc = steps_svc = tiered = None
+    one_svc = steps_svc = tiered = reshard = None
     try:
         if timed:
             # (e)'s and (g)'s services boot while (a)-(d) run.
@@ -5226,6 +5839,7 @@ def rowservice_phase(torch, fa, pe, root, service=None, timed=False):
                 "deepfm.deepfm_host.custom_model", "rowsvc_steps.log")
             steps_svc = dict(proc=proc, log=log)
             tiered = rowservice_tiered_start(root)
+            reshard = rowservice_reshard_start(root)
         try:
             records = tdata.create_frappe_record_file(
                 os.path.join(root, "rowsvc.rec"), ROWSVC_RECORDS,
@@ -5237,9 +5851,11 @@ def rowservice_phase(torch, fa, pe, root, service=None, timed=False):
                                                     shared, service)
             out_a, one_svc, one_rows, one_loss = rowservice_one_shard(
                 torch, fa, pe, root, records)
-            out = {"one_shard": out_a,
-                   "two_shards": rowservice_two_shards(
-                       torch, fa, pe, records, one_svc, one_rows, one_loss),
+            out_b, export_two = rowservice_two_shards(
+                torch, fa, pe, records, one_svc, one_rows, one_loss)
+            out = {"one_shard": out_a, "two_shards": out_b,
+                   "live_split": rowservice_live_split(
+                       torch, fa, pe, root, records, one_loss, export_two),
                    "subprocess": rowservice_relaunch_check(out_c, relaunch)}
             out["sigkill"] = rowservice_kill_check(torch, fa, pe, relaunch)
         finally:
@@ -5256,11 +5872,17 @@ def rowservice_phase(torch, fa, pe, root, service=None, timed=False):
                                                       steps_svc)
             stop_service(steps_svc["proc"], steps_svc["log"])
             out["tiered"] = rowservice_tiered_times(torch, fa, pe, tiered)
+            rowservice_tiered_stop(tiered)
+            tiered = None
+            out["reshard"] = rowservice_reshard_times(torch, fa, pe, root,
+                                                      reshard)
     finally:
         if steps_svc is not None:
             stop_service(steps_svc["proc"], steps_svc["log"])
         if tiered is not None:
             rowservice_tiered_stop(tiered)
+        if reshard is not None:
+            rowservice_reshard_stop(reshard)
     out["card"] = smi("name,power.limit")
     return out
 

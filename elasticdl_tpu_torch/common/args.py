@@ -197,8 +197,31 @@ def add_task_plane_params(parser):
                    "Hot-standby master: not ported yet")
     add_bool_param(parser, "--autoscale", False,
                    "Autoscaling: not ported yet")
+    # Row-plane elasticity (master/row_reshard.py): the master runs the
+    # shard-map authority over the --row_service_addr fleet.
     add_bool_param(parser, "--row_reshard", False,
-                   "Row resharding: not ported yet")
+                   "Run the row-service shard-map controller in the "
+                   "master tick (needs --row_service_addr and "
+                   "--row_reshard_state; live range rebalancing + "
+                   "hot-row read replicas)")
+    parser.add_argument("--row_reshard_state", default="",
+                        help="Shard-map authority state file (the JAX "
+                             "master's default under --journal_dir "
+                             "waits for the journal: required here)")
+    parser.add_argument("--row_reshard_cooldown_secs", type=pos_float,
+                        default=30.0,
+                        help="Quiet period between reshard actions "
+                             "(range moves / replica updates)")
+    parser.add_argument("--row_replica_top_k", type=pos_int, default=64,
+                        help="Hottest ids per table eligible for read "
+                             "replication")
+    parser.add_argument("--row_replica_count", type=non_neg_int,
+                        default=2,
+                        help="Read replicas per hot id (capped at "
+                             "fleet size - 1; 0 disables replication)")
+    add_bool_param(parser, "--row_pod_autoscale", False,
+                   "Row-service pods grown and drained with splits and "
+                   "merges: not ported yet")
     add_bool_param(parser, "--sched", False,
                    "The gang scheduler: not ported yet")
     parser.add_argument("--stream_dir", default="",

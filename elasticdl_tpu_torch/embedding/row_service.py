@@ -27,6 +27,20 @@ for buckets a shard does not own under its installed map returns a
 retryable REDIRECT carrying the newer map. One address is a one-shard
 map; a comma list bootstraps an even split of the bucket space.
 
+Live resharding and hot-row replicas: row ranges move between live
+shards through a generation-fenced migration (``migrate_out`` on the
+source, ``begin_ingest``/``ingest_rows``/``ingest_steps``/``end_ingest``
+on the target): a bulk copy in chunks (cold rows of a tiered table
+streamed by segment reads, never promoted through the hot budget), then
+catch-up deltas of the rows pushed meanwhile, then a brief write fence
+until the authority installs the flipped map. A fenced push answers
+"fenced" and the client retries it after the cutover. Each shard tracks
+its most-pulled ids (``shard_stats``); the authority designates read
+replicas for them, the home pushes refreshes after applied pushes
+(``replica_refresh``), and the client spreads hot-id reads over home and
+replicas (``pull_replica_rows``, falling back to the home on a miss),
+optionally hedged. The authority is ``master/row_reshard.py``.
+
 Storage (``storage/``): ``configure_tiering`` re-houses every table
 behind a hot-row budget over CRC-framed cold segments, so a shard
 serves tables larger than host RAM; ``configure_push_log`` logs every
@@ -34,18 +48,15 @@ applied push ahead of the checkpoints (group commit, ``durable`` or
 ``applied`` acks) and replays the log's tail on relaunch, so a SIGKILL
 loses no acked push. Both write the JAX service's bytes.
 
-Not ported yet (ROADMAP Queue 1, item 8): live range migration
-(``migrate_out``, ``begin_ingest``/``end_ingest``/``ingest_rows``/
-``ingest_steps``), hot-row read replicas (``pull_replica_rows``,
-``replica_refresh``, hot-id tracking), ``shard_stats`` and the chaos
-hooks. Their handlers stay registered and answer with an error that
-names item 8; the profiler and metrics-reporter flags of ``main``
-raise.
+Not ported yet: ``main``'s sampling-profiler and metrics-reporter flags
+(``--profile_hz``, ``--profile_window_secs``, ``--master_addr``,
+``--metrics_report_secs``) raise and name ROADMAP Queue 1, item 8f.
 """
 
 import itertools
 import threading
 import time
+from collections import Counter
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -65,6 +76,7 @@ from elasticdl_tpu_torch.embedding.host_engine import HostEmbeddingEngine
 from elasticdl_tpu_torch.embedding.shard_map import (
     ClientShardMap,
     ShardMap,
+    bucket_of,
 )
 from elasticdl_tpu_torch.embedding.table import get_slot_table_name
 from elasticdl_tpu_torch.observability import principal as wl_principal
@@ -75,7 +87,50 @@ logger = get_logger("row_service")
 
 SERVICE_NAME = "RowService"
 SEQS_TABLE_NAME = "__row_service_seqs__"
-_ITEM_8 = "is not ported yet (ROADMAP Queue 1, item 8)"
+_ITEM_8F = "is not ported yet (ROADMAP Queue 1, item 8f)"
+
+# Rows a migration chunk: bounds how long the service lock is held for
+# one read and how large each ingest RPC is.
+MIGRATE_CHUNK_ROWS = 2048
+# Catch-up rounds before the source fences writes to the moving range
+# and ships the final delta.
+MIGRATE_CATCHUP_ROUNDS = 4
+# A write fence lifts itself if the cutover never arrives (the authority
+# died mid-protocol and will re-run the whole move): better to accept
+# writes again, which the re-run copies, than to refuse the range for
+# good. It must exceed the worst final delta plus cutover distribution
+# (the authority's RideOutTransport retries span ~64 s against a flaky
+# shard): a fence lapsing mid-protocol would let a push apply on the
+# source after the final delta shipped, to be erased at the cutover.
+FENCE_TTL_SECS = 300.0
+# Hot-id pull tracking: a bounded counter a table (lossy: past the
+# bound the tail halves away), kept only once a shard map is installed.
+HOT_TRACK_MAX_IDS = 4096
+
+
+# ---- chaos seam ---------------------------------------------------------
+#
+# mid_migrate(service, migration_id, view_name, chunk_ids) runs after
+# each migrated chunk lands on the target; raising from it stands for the
+# source dying mid-copy (chaos/reshard_drill.py installs it).
+
+_mid_migrate_hook: Optional[Callable] = None
+
+
+def set_reshard_chaos_hooks(mid_migrate: Optional[Callable] = None):
+    global _mid_migrate_hook
+    _mid_migrate_hook = mid_migrate
+
+
+class DirectTransport:
+    """In-process transport to a ``HostRowService`` (tests, drills): the
+    ``.call`` surface of ``RpcStub`` without a socket."""
+
+    def __init__(self, service: "HostRowService"):
+        self._handlers = service.handlers()
+
+    def call(self, method: str, timeout=None, **fields):
+        return self._handlers[method](fields) or {}
 
 
 def _all_ids(table) -> np.ndarray:
@@ -86,6 +141,16 @@ def _all_ids(table) -> np.ndarray:
     if fn is not None:
         return np.asarray(fn(), np.int64)
     return np.asarray(table.to_arrays()[0], np.int64)
+
+
+def _peek_rows(table, ids: np.ndarray) -> np.ndarray:
+    """Rows of existing ids without promotion or recency side effects
+    where the store has ``peek`` (a tiered table reads cold ids straight
+    from its segments: a migrated cold range must not churn through the
+    hot budget); else ``get``."""
+    fn = getattr(table, "peek", None)
+    rows = fn(ids) if fn is not None else table.get(ids)
+    return np.asarray(rows, np.float32)
 
 
 def _client_key(client: str) -> int:
@@ -190,14 +255,32 @@ class HostRowService:
             "checkpoint (the part the hot path actually waits on)",
             exemplars=True,
         )
+        # The reshard plane's families, in the JAX service's order.
         self._m_map_version = registry.gauge(
             "row_shard_map_version",
             "Installed shard-map epoch (0 = static legacy topology)",
+        )
+        self._m_mig_rows = registry.counter(
+            "row_migration_rows_total",
+            "Rows streamed out by live range migrations",
+        )
+        self._m_mig_bytes = registry.counter(
+            "row_migration_bytes_total",
+            "Row bytes streamed out by live range migrations",
+        )
+        self._m_mig_secs = registry.counter(
+            "row_migration_seconds_total",
+            "Wall seconds spent inside migrate_out (copy + catch-up "
+            "+ fence window)",
         )
         self._m_redirects = registry.counter(
             "row_redirects_total",
             "Pulls/pushes redirected because this shard does not own "
             "their buckets under the installed map",
+        )
+        self._m_replica_reads = registry.counter(
+            "row_replica_reads_total",
+            "Rows served from this shard's hot-row replica store",
         )
         self._m_durable_wait_timeouts = registry.counter(
             "row_push_durable_wait_timeouts_total",
@@ -205,12 +288,46 @@ class HostRowService:
             "propagated request deadline expired before the covering "
             "group commit landed; the record itself still commits)",
         )
+        self._m_replica_stale = registry.histogram(
+            "row_replica_staleness_seconds",
+            "Replication lag observed at refresh receipt (home "
+            "read-time to replica apply-time, wall clock)",
+        )
         self._lock = threading.RLock()
-        # Placement (mutated under self._lock): the installed map and
-        # this shard's index in it. The JAX service's write fences come
-        # with live migration, which alone sets them (item 8).
+        # ---- placement and resharding (mutated under self._lock) ----
         self._shard_map: Optional[ShardMap] = None
         self._shard_id = 0
+        # The outbound migration: {"id", "lo", "hi", "touched": {table:
+        # set(ids)}}. The push handler records the applied ids that land
+        # in the moving range, so catch-up ships exactly the delta (the
+        # checkpoint's own dirty sets stay untouched).
+        self._out_migration: Optional[dict] = None
+        # Inbound migrations this shard agreed to ingest (the generation
+        # fence: ingest_rows for an unregistered id is refused).
+        self._ingests: Dict[str, dict] = {}
+        # Write fences, [(lo, hi, monotonic deadline)]: a push to a
+        # fenced bucket answers "fenced" between a migration's final
+        # delta and the cutover's map install.
+        self._fences = []
+        # Hot-id pull tracking (only once a map is installed), under a
+        # lock of its own: the counting is advisory and must never
+        # serialise the handlers on the service lock.
+        self._hot_lock = threading.Lock()
+        self._hot_counts: Dict[str, Counter] = {}
+        self._hot_track_pulls = 0
+        # This shard's own load counters for shard_stats (the registry's
+        # are process-wide).
+        self._stat_pulled_rows = 0
+        self._stat_pushed_rows = 0
+        # The hot-row replica store, {table: {id: (row, applied_at,
+        # read_at)}}: rows this shard serves as a read replica.
+        self._replica_store: Dict[str, dict] = {}
+        self._replica_queue = None
+        self._replica_thread = None
+        # Shard-to-shard transports (migration streaming, replica
+        # refresh); tests and drills set an in-process factory.
+        self.transport_factory: Optional[Callable] = None
+        self._transports: Dict[str, object] = {}
         self._server: Optional[RpcServer] = None
         self._push_count = 0
         # Per-table update counters, bumped under the lock on every
@@ -256,24 +373,18 @@ class HostRowService:
             "pull_rows": self._pull_rows,
             "push_row_grads": self._push_row_grads,
             "export_rows": self._export_rows,
+            # The reshard plane:
             "get_shard_map": self._get_shard_map,
             "set_shard_map": self._set_shard_map,
-            "shard_stats": self._not_ported("shard_stats"),
-            "migrate_out": self._not_ported("migrate_out"),
-            "begin_ingest": self._not_ported("begin_ingest"),
-            "end_ingest": self._not_ported("end_ingest"),
-            "ingest_rows": self._not_ported("ingest_rows"),
-            "ingest_steps": self._not_ported("ingest_steps"),
-            "pull_replica_rows": self._not_ported("pull_replica_rows"),
-            "replica_refresh": self._not_ported("replica_refresh"),
+            "shard_stats": self._shard_stats,
+            "migrate_out": self._migrate_out,
+            "begin_ingest": self._begin_ingest,
+            "end_ingest": self._end_ingest,
+            "ingest_rows": self._ingest_rows,
+            "ingest_steps": self._ingest_steps,
+            "pull_replica_rows": self._pull_replica_rows,
+            "replica_refresh": self._replica_refresh,
         }
-
-    @staticmethod
-    def _not_ported(method: str) -> Callable[[dict], dict]:
-        def handler(request: dict) -> dict:
-            raise NotImplementedError(f"RowService.{method} {_ITEM_8}")
-
-        return handler
 
     def _table_info(self, request: dict) -> dict:
         return {
@@ -380,6 +491,7 @@ class HostRowService:
                 rows = (table.get(ids, _defer_sweep=True) if tiered
                         else table.get(ids))
                 applied_at = self._applied_at.get(table_name, 0.0)
+                self._stat_pulled_rows += int(ids.size)
                 map_version = 0
                 if self._shard_map is not None:
                     map_version = self._shard_map.version
@@ -392,6 +504,11 @@ class HostRowService:
                 # The budget sweep after the service lock is released:
                 # its cold writes stall no handler but this one.
                 table.maybe_sweep()
+            if map_version:
+                # Hot-id tracking feeds the authority's replica choice:
+                # kept only once a map is installed, and outside the
+                # service lock.
+                self._track_hot(table_name, ids)
         rows = np.asarray(rows, np.float32)
         self._m_pulled.inc(ids.size)
         wl_usage.meter_rows(who, "pull_rows", rows=int(ids.size),
@@ -441,12 +558,13 @@ class HostRowService:
         return {"rows": dense.astype(np.float32)}
 
     def _push_row_grads(self, request: dict) -> dict:
-        """validate → fault cold rows (tiered) → reject → drop a
-        duplicate (client, seq) → apply → bump the table's version and
-        applied_at → record the seq (only after a successful apply) →
-        queue the WAL record → wait for its fsync (durable acks) → sweep
-        the hot budget (tiered) → at every ``checkpoint_steps`` push, an
-        interval checkpoint."""
+        """validate → fault cold rows (tiered) → redirect or fence →
+        drop a duplicate (client, seq) → apply → bump the table's version
+        and applied_at → record the seq (only after a successful apply) →
+        queue the WAL record → note the ids in a moving range (catch-up)
+        → wait for the fsync (durable acks) → queue the replica refresh
+        → sweep the hot budget (tiered) → at every ``checkpoint_steps``
+        push, an interval checkpoint."""
         t0 = time.monotonic()
         who = wl_principal.current()
         table_name, table = self._validated_table(request)
@@ -470,12 +588,15 @@ class HostRowService:
             self._lock.acquire()
             hold_t0 = time.monotonic()
             try:
-                # Ownership check before any mutation: a redirected
-                # push applies nothing, so the client's retry is the
-                # first and only apply.
+                # Ownership and fence checks before any mutation: a
+                # redirected or fenced push applies nothing, so the
+                # client's retry (at the new home, or after the cutover)
+                # is the first and only apply.
                 reject = self._reshard_reject_locked(ids)
                 if reject is not None:
                     return reject
+                if self._fence_hit_locked(ids):
+                    return {"reshard": {"reason": "fenced"}}
                 if client and seq >= 0:
                     key = _client_key(client)
                     if seq <= self._applied_seq.get(key, -1):
@@ -493,6 +614,7 @@ class HostRowService:
                         self._applied_seq[_client_key(client)] = seq
                     self._push_count += 1
                     version = self._push_count
+                    self._stat_pushed_rows += int(ids.size)
                     if self._push_log is not None:
                         # Queued under the lock that applied: log order
                         # == apply order == version order. The fsync
@@ -507,6 +629,19 @@ class HostRowService:
                                 if self._shard_map is not None else 0
                             ),
                         )
+                    mig = self._out_migration
+                    if mig is not None:
+                        # Applied writes in the moving range feed the
+                        # migration's catch-up delta.
+                        b = bucket_of(ids)
+                        in_range = (b >= mig["lo"]) & (b < mig["hi"])
+                        if in_range.any():
+                            mig["touched"].setdefault(
+                                table_name, set()
+                            ).update(ids[in_range].tolist())
+                    refresh_ids = self._replicated_ids_locked(
+                        table_name, ids
+                    )
             finally:
                 self._lock.release()
                 wl_usage.meter_lock_hold(
@@ -534,6 +669,11 @@ class HostRowService:
                 wl_usage.meter_fsync_wait(
                     who, time.monotonic() - fsync_t0
                 )
+            if refresh_ids is not None:
+                # The push-driven replica refresh, queued outside the
+                # lock: the refresher thread reads the fresh rows and
+                # fans them out to the replica shards.
+                self._queue_refresh(table_name, refresh_ids)
             if prefault is not None:
                 # The fused apply's budget sweep, with the lock released.
                 table.maybe_sweep()
@@ -592,6 +732,64 @@ class HostRowService:
         self._m_redirects.inc()
         return {"reshard": {"reason": "not_owner", "map": m.to_json()}}
 
+    def _fence_hit_locked(self, ids: np.ndarray) -> bool:
+        """Whether an id lands in a write-fenced bucket range (between a
+        migration's final delta and its cutover). An expired fence lifts
+        itself: an authority that died before the cutover re-runs the
+        move from scratch."""
+        if not self._fences:
+            return False
+        now = time.monotonic()
+        expired = [f for f in self._fences if f[2] <= now]
+        if expired:
+            # Loud: the migration was abandoned mid-protocol (or the
+            # cutover is pathologically slow); writes accepted again here
+            # part from the target's copy until the move re-runs.
+            for lo, hi, _dl in expired:
+                logger.warning(
+                    "write fence on buckets [%d, %d) EXPIRED before "
+                    "cutover; accepting writes again (the abandoned "
+                    "migration must re-run)", lo, hi,
+                )
+            self._fences = [f for f in self._fences if f[2] > now]
+        if not self._fences:
+            return False
+        b = bucket_of(ids)
+        return any(
+            bool(((b >= lo) & (b < hi)).any())
+            for lo, hi, _deadline in self._fences
+        )
+
+    def _track_hot(self, table: str, ids: np.ndarray):
+        with self._hot_lock:
+            counts = self._hot_counts.setdefault(table, Counter())
+            counts.update(ids.tolist())
+            self._hot_track_pulls += 1
+            if (self._hot_track_pulls % 256 == 0
+                    and len(counts) > HOT_TRACK_MAX_IDS):
+                # Lossy decay: the head at half weight, the tail dropped,
+                # so one-touch ids cannot grow the counter without bound.
+                self._hot_counts[table] = Counter({
+                    i: n // 2
+                    for i, n in counts.most_common(
+                        HOT_TRACK_MAX_IDS // 2
+                    )
+                    if n > 1
+                })
+
+    def _replicated_ids_locked(self, table: str,
+                               ids: np.ndarray) -> Optional[np.ndarray]:
+        """The pushed ids whose replicas need a refresh (None: no
+        replication for this table)."""
+        m = self._shard_map
+        if m is None:
+            return None
+        per = m.replicas.get(table)
+        if not per:
+            return None
+        hot = [i for i in ids.tolist() if i in per]
+        return np.asarray(hot, np.int64) if hot else None
+
     # ---- shard map: install --------------------------------------------
 
     def install_shard_map(self, shard_map: ShardMap, shard_id: int):
@@ -611,7 +809,11 @@ class HostRowService:
     def _set_shard_map(self, request: dict) -> dict:
         """Install a newer map epoch (idempotent at the same version;
         an older one is refused: the monotonic version is the fence).
-        A new epoch erases the rows this shard no longer owns."""
+        A new epoch lifts the fences on ranges this shard no longer
+        owns, erases the rows it no longer owns (except those of a
+        registered inbound migration, which arrive ahead of the flip),
+        prunes replica copies it no longer serves, and warms the
+        replicas of the hot ids it homes."""
         fresh = ShardMap.from_json(request["map"])
         shard_id = int(request.get("shard_id", -1))
         with self._lock:
@@ -625,26 +827,53 @@ class HostRowService:
             self._m_map_version.set(float(fresh.version))
             erased = 0
             if not already:
+                # A fence on a range this shard gave away served its
+                # purpose (the cutover landed); writes there redirect.
+                kept = [
+                    (lo, hi, dl) for lo, hi, dl in self._fences
+                    if bool((fresh.owner_table[lo:hi]
+                             == self._shard_id).any())
+                ]
+                for lo, hi, _dl in set(self._fences) - set(kept):
+                    logger.info(
+                        "write fence on buckets [%d, %d) lifted by the "
+                        "cutover to map v%d", lo, hi, fresh.version,
+                    )
+                self._fences = kept
                 erased = self._erase_unowned_locked()
+                for table, store in self._replica_store.items():
+                    per = fresh.replicas.get(table, {})
+                    for i in list(store):
+                        if self._shard_id not in per.get(i, ()):
+                            del store[i]
+        if not already:
+            self._warm_replicas()
         return {"accepted": True, "version": fresh.version,
                 "erased_rows": erased}
 
     def _erase_unowned_locked(self) -> int:
         """Drop rows (and their optimizer slots) whose bucket this shard
-        no longer owns: every row has one home."""
+        no longer owns: every row has one home. Buckets of a registered
+        inbound migration are exempt (the copy precedes the flip)."""
         m = self._shard_map
         if m is None:
             return 0
+        exempt = [(g["lo"], g["hi"]) for g in self._ingests.values()]
         erased = 0
         for group in self._migration_views().values():
             for table in group.values():
                 ids = _all_ids(table)
                 if not ids.size:
                     continue
+                b = bucket_of(ids)
                 drop = m.home_of_ids(ids) != self._shard_id
+                for lo, hi in exempt:
+                    drop &= ~((b >= lo) & (b < hi))
                 if drop.any():
                     erased += int(table.erase(ids[drop]))
         return erased
+
+    # ---- live resharding: migration ------------------------------------
 
     def _migration_views(self) -> Dict[str, Dict[str, object]]:
         """{primary table: {view name: raw table}}: each table with its
@@ -660,6 +889,396 @@ class HostRowService:
                 )
             out[name] = group
         return out
+
+    def _transport(self, addr: str):
+        transport = self._transports.get(addr)
+        if transport is None:
+            if self.transport_factory is not None:
+                transport = self.transport_factory(addr)
+            else:
+                transport = RpcStub(addr, SERVICE_NAME, max_retries=2)
+            self._transports[addr] = transport
+        return transport
+
+    def _migrate_out(self, request: dict) -> dict:
+        """Source side of a live range move: stream every owned row of
+        buckets [lo, hi), with its optimizer slots, to the target's
+        ``ingest_rows`` chunk by chunk, without stalling pulls and pushes
+        (the service lock is held for one chunk's read; a tiered table
+        reads cold chunks from its segments). Writes landing in the
+        range meanwhile are re-shipped in catch-up rounds; the last
+        round fences the range, so the authority flips the map against
+        frozen bytes. Returns rows, bytes, seconds and catch-up rounds."""
+        mig_id = str(request["migration_id"])
+        lo, hi = int(request["lo"]), int(request["hi"])
+        target_addr = str(request["target_addr"])
+        t0 = time.monotonic()
+        transport = self._transport(target_addr)
+        views = self._migration_views()
+        moved_rows = 0
+        moved_bytes = 0
+        rounds = 0
+        with self._lock:
+            if self._out_migration is not None:
+                raise RuntimeError(
+                    f"migration {self._out_migration['id']} already in "
+                    "flight; one outbound move at a time"
+                )
+            self._out_migration = {
+                "id": mig_id, "lo": lo, "hi": hi, "touched": {},
+            }
+        try:
+            # Every ingest RPC below inherits purpose=migration, so the
+            # target bills these bytes to the move, never to a push.
+            with tracing.span("row_migrate_out", migration=mig_id,
+                              lo=lo, hi=hi), \
+                    wl_principal.pushed(purpose="migration"):
+                for primary, group in views.items():
+                    for vname, table in group.items():
+                        with self._lock:
+                            ids = _all_ids(table)
+                        b = bucket_of(ids)
+                        sel = ids[(b >= lo) & (b < hi)]
+                        for at in range(0, sel.size, MIGRATE_CHUNK_ROWS):
+                            chunk = sel[at:at + MIGRATE_CHUNK_ROWS]
+                            with self._lock:
+                                rows = _peek_rows(table, chunk)
+                            transport.call(
+                                "ingest_rows", migration_id=mig_id,
+                                table=vname, ids=chunk, rows=rows,
+                            )
+                            moved_rows += int(chunk.size)
+                            moved_bytes += int(rows.nbytes)
+                            hook = _mid_migrate_hook
+                            if hook is not None:
+                                hook(self, mig_id, vname, chunk)
+                # Catch-up: re-ship the rows written during the copy
+                # until the delta drains or the rounds run out; the last
+                # swap happens under a write fence, so no push slips
+                # between the final delta and the cutover.
+                while True:
+                    with self._lock:
+                        touched = self._out_migration["touched"]
+                        drained = not any(touched.values())
+                        if drained or rounds >= MIGRATE_CATCHUP_ROUNDS:
+                            self._fences.append(
+                                (lo, hi,
+                                 time.monotonic() + FENCE_TTL_SECS)
+                            )
+                            logger.info(
+                                "write fence on buckets [%d, %d) up "
+                                "(migration %s, %d catch-up round(s))",
+                                lo, hi, mig_id, rounds,
+                            )
+                            final = touched
+                            self._out_migration["touched"] = {}
+                            break
+                        self._out_migration["touched"] = {}
+                    rounds += 1
+                    r, nbytes = self._ship_delta(
+                        views, touched, transport, mig_id
+                    )
+                    moved_rows += r
+                    moved_bytes += nbytes
+                r, nbytes = self._ship_delta(
+                    views, final, transport, mig_id
+                )
+                moved_rows += r
+                moved_bytes += nbytes
+                # The per-table apply counts too, inside the fence so
+                # they are final: a fresh target would otherwise correct
+                # a migrated row's next Adam update as if it were step 1.
+                with self._lock:
+                    steps = {
+                        primary: int(
+                            self._optimizer._steps.get(primary, 0)
+                        )
+                        for primary in views
+                    }
+                if any(steps.values()):
+                    transport.call(
+                        "ingest_steps", migration_id=mig_id,
+                        steps=steps,
+                    )
+        finally:
+            with self._lock:
+                self._out_migration = None
+        secs = time.monotonic() - t0
+        self._m_mig_rows.inc(moved_rows)
+        self._m_mig_bytes.inc(moved_bytes)
+        self._m_mig_secs.inc(secs)
+        return {
+            "rows": moved_rows, "bytes": moved_bytes,
+            "seconds": secs, "catchup_rounds": rounds,
+        }
+
+    def _ship_delta(self, views, touched: Dict[str, set], transport,
+                    mig_id: str):
+        """Re-ship the touched rows and their slots (one catch-up round
+        or the fenced final one)."""
+        rows_out = 0
+        bytes_out = 0
+        for primary, id_set in touched.items():
+            if not id_set:
+                continue
+            ids = np.asarray(sorted(id_set), np.int64)
+            for vname, table in views.get(primary, {}).items():
+                with self._lock:
+                    rows = _peek_rows(table, ids)
+                transport.call(
+                    "ingest_rows", migration_id=mig_id,
+                    table=vname, ids=ids, rows=rows,
+                )
+                rows_out += int(ids.size)
+                bytes_out += int(rows.nbytes)
+        return rows_out, bytes_out
+
+    def _begin_ingest(self, request: dict) -> dict:
+        """Target side: register an inbound migration. Chunks of an
+        unregistered migration id are refused, so a zombie source of an
+        abandoned attempt cannot corrupt a later one."""
+        mig_id = str(request["migration_id"])
+        with self._lock:
+            self._ingests[mig_id] = {
+                "lo": int(request["lo"]), "hi": int(request["hi"]),
+                "rows": 0,
+            }
+        return {}
+
+    def _end_ingest(self, request: dict) -> dict:
+        with self._lock:
+            info = self._ingests.pop(str(request["migration_id"]), None)
+        return {"rows": int(info["rows"]) if info else 0}
+
+    def _ingest_rows(self, request: dict) -> dict:
+        """One migrated chunk, set into the named view (idempotent: a
+        re-run migration ships the same bytes again). ``set`` marks the
+        rows dirty when checkpoints are on, so they ride the target's
+        next delta."""
+        mig_id = str(request["migration_id"])
+        vname = str(request["table"])
+        ids = np.asarray(request["ids"], np.int64)
+        rows = np.asarray(request["rows"], np.float32)
+        flat = {}
+        for group in self._migration_views().values():
+            flat.update(group)
+        table = flat.get(vname)
+        if table is None:
+            raise ValueError(f"ingest for unknown view {vname!r}")
+        with self._lock:
+            info = self._ingests.get(mig_id)
+            if info is None:
+                raise ValueError(
+                    f"ingest for unregistered migration {mig_id!r} "
+                    "(stale source? re-run the migration)"
+                )
+            table.set(ids, rows)
+            info["rows"] += int(ids.size)
+        # Billed to the wire principal (the source's purpose=migration).
+        wl_usage.meter_rows(wl_principal.current(), "ingest_rows",
+                            rows=int(ids.size),
+                            nbytes=int(rows.nbytes))
+        return {}
+
+    def _ingest_steps(self, request: dict) -> dict:
+        """Adopt the source's per-table apply counts by max: a target
+        that applied pushes of its own keeps its larger count, a fresh
+        split target takes the source's."""
+        mig_id = str(request["migration_id"])
+        steps = request.get("steps") or {}
+        with self._lock:
+            if mig_id not in self._ingests:
+                raise ValueError(
+                    f"steps for unregistered migration {mig_id!r}"
+                )
+            for table, count in steps.items():
+                if table in self._tables:
+                    self._optimizer._steps[table] = max(
+                        int(self._optimizer._steps.get(table, 0)),
+                        int(count),
+                    )
+        return {}
+
+    # ---- live resharding: load and hot-row read replicas ---------------
+
+    def _shard_stats(self, request: dict) -> dict:
+        """Load and hot-set snapshot for the authority's policy tick."""
+        top_k = int(request.get("top_k", 64))
+        with self._hot_lock:
+            hot = {
+                table: [[int(i), int(n)]
+                        for i, n in counts.most_common(top_k)]
+                for table, counts in self._hot_counts.items()
+            }
+        with self._lock:
+            return {
+                "shard_id": self._shard_id,
+                "map_version": (
+                    self._shard_map.version
+                    if self._shard_map is not None else 0
+                ),
+                "pulled_rows": self._stat_pulled_rows,
+                "pushed_rows": self._stat_pushed_rows,
+                "num_rows": {
+                    name: int(t.num_rows)
+                    for name, t in self._tables.items()
+                    if hasattr(t, "num_rows")
+                },
+                "hot": hot,
+            }
+
+    def _pull_replica_rows(self, request: dict) -> dict:
+        """Hot-id reads from the replica store, with a found mask: a
+        miss (its refresh not landed yet) falls back to the home on the
+        client. A replica speeds reads up and is never needed for one."""
+        table = str(request["table"])
+        ids = np.asarray(request["ids"], np.int64)
+        dim = int(self._tables[table].dim)
+        rows = np.zeros((ids.size, dim), np.float32)
+        found = np.zeros(ids.size, bool)
+        applied_at = 0.0
+        with self._lock:
+            store = self._replica_store.get(table, {})
+            stamps = []
+            for k, i in enumerate(ids.tolist()):
+                entry = store.get(i)
+                if entry is not None:
+                    rows[k] = entry[0]
+                    found[k] = True
+                    stamps.append(entry[1])
+            if stamps:
+                # The oldest served copy's stamp: the conservative
+                # freshness bound.
+                applied_at = min(stamps)
+        self._m_replica_reads.inc(int(found.sum()))
+        wl_usage.meter_rows(wl_principal.current(), "pull_replica_rows",
+                            rows=int(found.sum()),
+                            nbytes=int(rows.nbytes))
+        return {"rows": rows, "found": found, "applied_at": applied_at}
+
+    def _replica_refresh(self, request: dict) -> dict:
+        """A home's copy of hot rows: store them and observe the
+        replication lag (the home's read time to now, wall clock).
+
+        ``map_version`` is the epoch the home fanned out under. One newer
+        than ours is taken whole (the home installs a new map first and
+        warms at once, racing our install; our install prunes what it
+        turns out not to replicate here). At or below ours, each id must
+        be designated to this shard, so a zombie home's stale fan-out
+        cannot bring copies back."""
+        table = str(request["table"])
+        ids = np.asarray(request["ids"], np.int64)
+        rows = np.asarray(request["rows"], np.float32)
+        applied_at = float(request.get("applied_at", 0.0))
+        read_at = float(request.get("read_at", 0.0))
+        sender_version = int(request.get("map_version", 0))
+        now = time.time()
+        with self._lock:
+            m = self._shard_map
+            ahead = m is None or sender_version > m.version
+            store = self._replica_store.setdefault(table, {})
+            for k, i in enumerate(ids.tolist()):
+                if not ahead and self._shard_id not in (
+                    m.replica_targets(table, i)
+                ):
+                    continue  # a stale designation: not served
+                store[i] = (rows[k].copy(), applied_at, read_at)
+        if read_at:
+            self._m_replica_stale.observe(max(0.0, now - read_at))
+        wl_usage.meter_rows(wl_principal.current(), "replica_refresh",
+                            rows=int(ids.size),
+                            nbytes=int(rows.nbytes))
+        return {}
+
+    def _queue_refresh(self, table: str, ids: np.ndarray):
+        if self._replica_thread is None:
+            import queue as _queue
+
+            with self._lock:
+                if self._replica_thread is None:
+                    self._replica_queue = _queue.Queue(maxsize=128)
+                    self._replica_thread = threading.Thread(
+                        target=self._replica_loop, daemon=True,
+                        name="row-replica-refresh",
+                    )
+                    self._replica_thread.start()
+        try:
+            self._replica_queue.put_nowait((table, ids))
+        except Exception:
+            # A full queue drops this refresh: replicas are best-effort
+            # copies of bounded staleness; the next push queues again.
+            pass
+
+    def _replica_loop(self):
+        while True:
+            item = self._replica_queue.get()
+            if item is None:
+                return
+            table, ids = item
+            try:
+                self._do_refresh(table, ids)
+            except Exception as exc:
+                logger.warning("replica refresh failed: %s", exc)
+
+    def _do_refresh(self, table_name: str, ids: np.ndarray):
+        with self._lock:
+            m = self._shard_map
+            if m is None:
+                return
+            per = m.replicas.get(table_name)
+            if not per:
+                return
+            table = self._tables[table_name]
+            if hasattr(table, "contains"):
+                ids = ids[table.contains(ids)]
+            if not ids.size:
+                return
+            rows = _peek_rows(table, ids)
+            applied_at = self._applied_at.get(table_name, 0.0)
+            shards = list(m.shards)
+            map_version = m.version
+        read_at = time.time()
+        targets: Dict[int, list] = {}
+        for k, i in enumerate(ids.tolist()):
+            for s in per.get(i, ()):
+                if s != self._shard_id:
+                    targets.setdefault(s, []).append(k)
+        # The refresher thread has no principal of its own: the fan-out
+        # bills to purpose=replica_refresh at the receiving shards.
+        with wl_principal.pushed(purpose="replica_refresh"):
+            for s, picks in targets.items():
+                sel = np.asarray(picks, np.intp)
+                try:
+                    self._transport(shards[s]).call(
+                        "replica_refresh", table=table_name,
+                        ids=ids[sel], rows=rows[sel],
+                        applied_at=applied_at, read_at=read_at,
+                        map_version=map_version,
+                    )
+                except Exception as exc:
+                    logger.warning(
+                        "replica refresh to shard %d failed: %s", s, exc
+                    )
+
+    def _warm_replicas(self):
+        """On a new map: push this shard's owned, materialised
+        replicated ids out once, so replicas start warm (afterwards the
+        pushes drive the refreshes)."""
+        with self._lock:
+            m = self._shard_map
+            if m is None:
+                return
+            work = []
+            for table, per in m.replicas.items():
+                if table not in self._tables or not per:
+                    continue
+                ids = np.fromiter(per.keys(), np.int64,
+                                  count=len(per))
+                owned = ids[m.owns(self._shard_id, ids)]
+                if owned.size:
+                    work.append((table, owned))
+        for table, owned in work:
+            self._queue_refresh(table, owned)
 
     # ---- tiered storage ------------------------------------------------
 
@@ -868,6 +1487,7 @@ class HostRowService:
                         self._applied_at.get(table_name, 0.0),
                         float(record.get("applied_at", 0.0)),
                     )
+                    self._stat_pushed_rows += int(ids.size)
                     applied = True
                 if client and seq >= 0 and not dup:
                     self._applied_seq[_client_key(client)] = seq
@@ -1063,6 +1683,20 @@ class HostRowService:
                 logger.error(
                     "checkpoint flush on stop failed: %s", exc
                 )
+        if self._replica_thread is not None:
+            # Retire the replica refresher after the handlers drained, so
+            # no push can re-arm it.
+            self._replica_queue.put(None)
+            self._replica_thread.join(timeout=10.0)
+            self._replica_thread = None
+        for transport in self._transports.values():
+            close = getattr(transport, "close", None)
+            if close is not None:
+                try:
+                    close()
+                except Exception:
+                    pass
+        self._transports.clear()
         for table in self._tables.values():
             # Tiered tables: flush the cold segments, stop the compactor
             # and write the index snapshot (the clean-close marker that
@@ -1112,8 +1746,8 @@ class ReshardRedirect(Exception):
 
 
 class ReshardFenced(Exception):
-    """Writes to the range are briefly fenced (a JAX service migrating
-    it answers so): back off and retry."""
+    """Writes to the range are briefly fenced (a migration is between
+    its final delta and the cutover): back off and retry."""
 
 
 def _check_reshard(resp: dict):
@@ -1126,7 +1760,7 @@ def _check_reshard(resp: dict):
 
 
 def _call_with_retry(stub: RpcStub, method: str, retries: int,
-                     backoff_secs: float, **fields):
+                     backoff_secs: float, hedge=None, **fields):
     """Ride out a service relaunch: bounded decorrelated-jitter backoff
     on transport codes only (INTERNAL, a handler's error, surfaces at
     once).
@@ -1135,14 +1769,29 @@ def _call_with_retry(stub: RpcStub, method: str, retries: int,
     budget (``comm/overload.py``); a denied spend waits for the refill
     rather than abandon the ride-out. A shed's retry-after hint
     overrides the local backoff, and an expired deadline ends the
-    ride-out."""
+    ride-out.
+
+    ``hedge`` (an ``overload.HedgeTimer``) makes each attempt of an
+    idempotent read a hedged pair: a second identical send after the
+    tracked p99 delay, the first answer wins. The hedge rides inside
+    the retry loop (one budgeted attempt, one hedged pair), never around
+    it: two stacked ride-outs would double the worst case."""
     delay = backoff_secs
     budget = None
     if wl_overload.controls_enabled():
         budget = wl_overload.retry_budget_for("RowService:rideout")
     for attempt in range(retries + 1):
         try:
-            resp = stub.call(method, **fields)
+            if hedge is not None:
+                t0 = time.monotonic()
+                resp = wl_overload.hedged_call(
+                    lambda: stub.call(method, **fields),
+                    lambda: stub.call(method, **fields),
+                    hedge.delay(), service=SERVICE_NAME, method=method,
+                )
+                hedge.observe(time.monotonic() - t0)
+            else:
+                resp = stub.call(method, **fields)
             if budget is not None:
                 budget.on_success()
             return resp
@@ -1183,12 +1832,15 @@ class _RemoteTable:
     concurrent_safe = True
 
     def __init__(self, stub: RpcStub, name: str, dim: int,
-                 retries: int = 12, backoff_secs: float = 0.5):
+                 retries: int = 12, backoff_secs: float = 0.5,
+                 hedge=None):
         self._stub = stub
         self.name = name
         self.dim = dim
         self._retries = retries
         self._backoff = backoff_secs
+        # The fleet's shared overload.HedgeTimer (None: no hedging).
+        self._hedge = hedge
         # The service's last-apply stamp as of our newest pull.
         self.last_applied_at = 0.0
         # The newest map epoch piggybacked on this shard's replies.
@@ -1197,6 +1849,7 @@ class _RemoteTable:
     def get(self, ids) -> np.ndarray:
         resp = _call_with_retry(
             self._stub, "pull_rows", self._retries, self._backoff,
+            hedge=self._hedge,
             table=self.name, ids=np.asarray(ids, np.int64),
         )
         _check_reshard(resp)
@@ -1208,6 +1861,19 @@ class _RemoteTable:
         return _call_with_retry(
             self._stub, "get_shard_map", self._retries, self._backoff,
         ).get("map")
+
+    def pull_replica(self, ids) -> dict:
+        """Hot-id read from this shard's replica store, with a found
+        mask (the caller falls back to the home on a miss)."""
+        resp = _call_with_retry(
+            self._stub, "pull_replica_rows", self._retries,
+            self._backoff, hedge=self._hedge, table=self.name,
+            ids=np.asarray(ids, np.int64),
+        )
+        stamp = float(resp.get("applied_at", 0.0) or 0.0)
+        if stamp > 0:
+            self.last_applied_at = stamp
+        return resp
 
     def export_ids(self, ids) -> np.ndarray:
         """Dense rows for explicit ids (trained rows over lazy init);
@@ -1295,7 +1961,8 @@ class _ShardRegistry:
     engine was never given), plus the fan-out pool. Shared by every
     table and the optimizer of one engine."""
 
-    def __init__(self, retries: int, backoff_secs: float):
+    def __init__(self, retries: int, backoff_secs: float,
+                 hedge_reads: bool = False):
         self._retries = retries
         self._backoff = backoff_secs
         self._lock = threading.Lock()
@@ -1303,6 +1970,11 @@ class _ShardRegistry:
         self._tables: Dict = {}
         self._optimizers: Dict = {}
         self._pool = None
+        # One p99 tracker for the whole fleet: the hedge delay models
+        # "slower than the fleet's tail", not one shard's own (a stalled
+        # shard must not teach itself that stalls are normal).
+        self._hedge = (wl_overload.HedgeTimer()
+                       if hedge_reads else None)
 
     def stub(self, addr: str) -> RpcStub:
         with self._lock:
@@ -1320,6 +1992,7 @@ class _ShardRegistry:
         if table is None:
             table = _RemoteTable(
                 self.stub(addr), name, dim, self._retries, self._backoff,
+                hedge=self._hedge,
             )
             with self._lock:
                 table = self._tables.setdefault(key, table)
@@ -1370,7 +2043,9 @@ class _ShardedTable:
     the shared ``ClientShardMap``: a row's home is the shard that owns
     its bucket under the newest epoch this client has seen. A stale
     epoch surfaces as a REDIRECT carrying the newer map; the holder
-    adopts it and only the unresolved ids retry."""
+    adopts it and only the unresolved ids retry. Hot ids with replicas
+    spread their reads over home and replicas (round robin); a replica
+    miss falls back to the home, and writes never touch a replica."""
 
     concurrent_safe = True
 
@@ -1380,6 +2055,7 @@ class _ShardedTable:
         self.dim = int(dim)
         self._cmap = cmap
         self._reg = registry
+        self._rr = itertools.count()
 
     def _remote(self, m: ShardMap, shard: int) -> "_RemoteTable":
         return self._reg.table(m.shards[shard], self.name, self.dim)
@@ -1388,41 +2064,68 @@ class _ShardedTable:
         ids = np.ascontiguousarray(np.asarray(ids, np.int64).ravel())
         out = np.empty((ids.size, self.dim), np.float32)
         pending = np.arange(ids.size, dtype=np.intp)
+        force_home = np.zeros(ids.size, bool)
         delay = _FENCE_BACKOFF_SECS
         for _attempt in range(_RESHARD_ATTEMPTS):
             m = self._cmap.get()
-            if m.replicas.get(self.name):
-                raise NotImplementedError(
-                    f"hot-row replica reads for table {self.name!r} "
-                    f"(shard map v{m.version}) {_ITEM_8}")
-            home = m.home_of_ids(ids[pending])
+            sub = ids[pending]
+            home = m.home_of_ids(sub)
+            target = home.copy()
+            via_replica = np.zeros(pending.size, bool)
+            per = m.replicas.get(self.name)
+            if per:
+                rr = next(self._rr)
+                for k in range(pending.size):
+                    if force_home[pending[k]]:
+                        continue
+                    reps = per.get(int(sub[k]))
+                    if reps:
+                        cands = (int(home[k]),) + tuple(
+                            s for s in reps if s != home[k]
+                        )
+                        pick = cands[rr % len(cands)]
+                        if pick != home[k]:
+                            target[k] = pick
+                            via_replica[k] = True
             outcome = {"map": None, "unresolved": [], "refresh": None}
             olock = threading.Lock()
-            jobs = [
-                self._pull_job(m, int(s), pending[home == s], ids, out,
-                               outcome, olock)
-                for s in sorted(set(home.tolist()))
-            ]
+            jobs = []
+            for s in sorted(set(target.tolist())):
+                for is_rep in (False, True):
+                    mask = (target == s) & (via_replica == is_rep)
+                    if mask.any():
+                        jobs.append(self._pull_job(
+                            m, int(s), is_rep, pending[mask], ids,
+                            out, outcome, olock, force_home,
+                        ))
             _run_jobs(
                 self._reg.pool if len(jobs) > 1 else None, jobs
             )
             if outcome["refresh"] is not None:
-                # A shard piggybacked a newer epoch without redirecting:
-                # fetch it so the next pulls route by it.
+                # A shard piggybacked a newer epoch without redirecting
+                # (a replica-only change): fetch it so the next pulls
+                # route by it.
                 try:
                     fresh = outcome["refresh"].fetch_map()
                     if fresh:
                         self._cmap.update(fresh)
                 except RpcError:
                     pass  # opportunistic; the next pull asks again
-            progressed = (outcome["map"] is not None
-                          and self._cmap.update(outcome["map"]))
+            if outcome["map"] is not None:
+                progressed = self._cmap.update(outcome["map"])
+            else:
+                # A replica miss makes progress too: its ids go home.
+                progressed = bool(
+                    force_home[np.asarray(outcome["unresolved"],
+                                          np.intp)].any()
+                ) if outcome["unresolved"] else False
             if not outcome["unresolved"]:
                 return out
             pending = np.asarray(sorted(outcome["unresolved"]),
                                  np.intp)
             if not progressed:
-                # No newer map: wait out the server's transition.
+                # No newer map and no replica fallback: wait out the
+                # server's transition.
                 time.sleep(delay)
                 delay = min(delay * 2, 4.0)
         raise RuntimeError(
@@ -1430,16 +2133,36 @@ class _ShardedTable:
             f"after {_RESHARD_ATTEMPTS} attempts (shard-map churn?)"
         )
 
-    def _pull_job(self, m, shard, positions, ids, out, outcome, olock):
+    def _pull_job(self, m, shard, is_replica, positions, ids, out,
+                  outcome, olock, force_home):
         def job():
             remote = self._remote(m, shard)
             try:
-                out[positions] = remote.get(ids[positions])
-                if remote.last_map_version > m.version:
-                    with olock:
-                        outcome["refresh"] = remote
+                if is_replica:
+                    resp = remote.pull_replica(ids[positions])
+                    found = np.asarray(resp["found"], bool)
+                    rows = np.asarray(resp["rows"], np.float32)
+                    out[positions[found]] = rows[found]
+                    miss = positions[~found]
+                    if miss.size:
+                        with olock:
+                            outcome["unresolved"].extend(miss.tolist())
+                            force_home[miss] = True
+                else:
+                    out[positions] = remote.get(ids[positions])
+                    if remote.last_map_version > m.version:
+                        with olock:
+                            outcome["refresh"] = remote
             except ReshardRedirect as exc:
                 _adopt_redirect(outcome, olock, positions, exc)
+            except RpcError:
+                if not is_replica:
+                    raise
+                # A dead replica must not fail the read: the home
+                # answers instead.
+                with olock:
+                    outcome["unresolved"].extend(positions.tolist())
+                    force_home[positions] = True
         return job
 
     def pull_version(self) -> int:
@@ -1576,6 +2299,7 @@ class _ShardedOptimizer:
 def make_remote_engine(
     addr: str, id_keys: Dict[str, str],
     retries: int = 12, backoff_secs: float = 0.5,
+    hedge_reads: bool = False,
 ) -> HostEmbeddingEngine:
     """Client-side engine over running ``HostRowService`` shard(s).
 
@@ -1585,13 +2309,14 @@ def make_remote_engine(
     then never redirect). A topology change under a live engine
     surfaces as a retryable REDIRECT carrying the newer map. Pulls and
     pushes retry across a shard relaunch (0.5 s doubling, capped at
-    30 s, 12 retries: about 4 minutes). The JAX engine's ``hedge_reads``
-    (hedged pulls, which no caller of either package sets) is not
-    ported."""
+    30 s, 12 retries: about 4 minutes). ``hedge_reads`` makes pulls and
+    replica reads hedged (``comm/overload.py``): a second send after the
+    fleet's p99 delay, the first answer wins."""
     addrs = [a.strip() for a in addr.split(",") if a.strip()]
     if not addrs:
         raise ValueError("empty row-service address")
-    registry = _ShardRegistry(retries, backoff_secs)
+    registry = _ShardRegistry(retries, backoff_secs,
+                              hedge_reads=hedge_reads)
     stubs = [registry.stub(a) for a in addrs]
     infos = [
         _call_with_retry(stub, "table_info", retries, backoff_secs)[
@@ -1687,7 +2412,8 @@ def validate_shard_layout(checkpoint_dir: str, shard: int,
             f"{PLACEMENT_SCHEME}); changing the static shard layout "
             "across a restore would silently lose the rows whose home "
             "moved. Start a fresh checkpoint dir (or repartition "
-            "offline via checkpoint.saver)."
+            "offline via checkpoint.saver), or grow the fleet live "
+            "through the shard-map controller (master/row_reshard.py)."
         )
 
 
@@ -1788,11 +2514,11 @@ def main(argv=None):
     for flag in _NOT_PORTED_FLAGS:
         parser.add_argument(f"--{flag}", default=None,
                             help=f"Not ported yet (ROADMAP Queue 1, "
-                                 f"item 8): {_NOT_PORTED_FLAGS[flag]}")
+                                 f"item 8f): {_NOT_PORTED_FLAGS[flag]}")
     args = parser.parse_args(argv)
     for flag, what in _NOT_PORTED_FLAGS.items():
         if getattr(args, flag) is not None:
-            raise NotImplementedError(f"--{flag}: {what} {_ITEM_8}")
+            raise NotImplementedError(f"--{flag}: {what} {_ITEM_8F}")
 
     module, _ = load_model_zoo_module(args.model_zoo, args.model_def)
     factory = getattr(module, "make_row_service", None)

@@ -16,13 +16,13 @@ exchange maps in ``get_shard_map`` and in a REDIRECT).
   single-home).
 
 The movement algebra is pure (``move_range``/``move_shard``/
-``add_shard``/``with_replicas`` return new maps). Servers enforce the
-map (``embedding/row_service.py``): a pull or push for buckets a shard
+``add_shard``/``with_replicas`` return new maps); the protocol that
+makes a move safe (copy, catch-up, fence, cutover) lives in
+``master/row_reshard.py`` (the authority) and
+``embedding/row_service.py`` (the shards, which also refresh the
+replicas). Servers enforce the map: a pull or push for buckets a shard
 does not own under its installed map returns a retryable REDIRECT
-carrying the newer map, which is how stale clients converge. The
-protocol that moves rows between live shards (copy, catch-up, fence,
-cutover) and the replica refresh are not ported yet (ROADMAP Queue 1,
-item 8).
+carrying the newer map, which is how stale clients converge.
 """
 
 import json

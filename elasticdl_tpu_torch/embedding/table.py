@@ -121,8 +121,18 @@ class EmbeddingTable:
 
     def all_ids(self) -> np.ndarray:
         """Every materialised id, sorted, without reading row bytes (the
-        row service's erase sweep after a new shard map)."""
+        row service's range scans for a live migration and its erase
+        sweep after a new shard map)."""
         return np.array(sorted(self.vectors), np.int64)
+
+    def peek(self, ids) -> np.ndarray:
+        """Read existing rows without materialising or dirtying them:
+        what a live migration streams. An absent id raises ``KeyError``
+        (the caller enumerated the ids, so absence is a logic error)."""
+        out = np.empty((len(list(ids)), self.dim), self.dtype)
+        for i, row_id in enumerate(ids):
+            out[i] = self.vectors[int(row_id)]
+        return out
 
     @property
     def num_rows(self) -> int:

@@ -12,15 +12,22 @@ Workers are started by hand (``python -m elasticdl_tpu_torch.worker.main
 no model: it imports the zoo module for its dataset shards, callbacks
 and metric functions, and builds the module's model on the CPU.
 
-Not ported yet, and raising when asked for: the k8s instance manager
-(``--image_name``), the journal and crash recovery (``--journal_dir``),
-the hot standby (``--standby``), the autoscaler (``--autoscale``), row
-resharding (``--row_reshard``), the gang scheduler (``--sched``),
-streaming ingestion (``--stream_dir``) and the prober (``--probes``):
-ROADMAP Queue 1, item 8. Row-service pods are not launched by the port's
-master either (that comes with the instance manager, item 8): start
-``python -m elasticdl_tpu_torch.embedding.row_service`` by hand and give
-the workers ``--row_service_addr``.
+``--row_reshard --row_reshard_state S --row_service_addr a,b`` hosts the
+row plane's shard-map authority (``master/row_reshard.py``): it
+bootstraps (or resumes) the map over the listed shards and ticks its
+policy (range moves off load imbalance, hot-row read replicas, the
+retirement of merged-away shards) every run tick.
+
+Not ported yet, and raising when asked for (ROADMAP Queue 1, item 8d):
+the k8s instance manager (``--image_name``), the journal and crash
+recovery (``--journal_dir``), the hot standby (``--standby``), the
+autoscaler (``--autoscale``), row-service pods grown and drained with
+the splits (``--row_pod_autoscale``), the gang scheduler (``--sched``),
+streaming ingestion (``--stream_dir``) and the prober (``--probes``).
+Row-service pods are not launched by the port's master either: start
+``python -m elasticdl_tpu_torch.embedding.row_service`` by hand (one a
+shard, and one more before a split onto it) and give the workers
+``--row_service_addr``.
 """
 
 import sys
@@ -46,7 +53,7 @@ _NOT_PORTED = {
     "journal_dir": "the master's journal and crash recovery",
     "standby": "the hot-standby master",
     "autoscale": "the autoscaler",
-    "row_reshard": "row-service resharding",
+    "row_pod_autoscale": "row-service pods grown and drained with splits",
     "sched": "the gang scheduler",
     "stream_dir": "streaming ingestion",
     "probes": "the synthetic prober",
@@ -58,7 +65,7 @@ def _refuse_unported(args):
         if getattr(args, flag, None):
             raise NotImplementedError(
                 f"--{flag}: {what} is not ported yet (ROADMAP Queue 1, "
-                "item 8)"
+                "item 8d)"
             )
 
 
@@ -209,6 +216,51 @@ class Master:
         # loop exits at the next poll tick and stop() tears the job
         # down in order.
         self._stop_requested = False
+        # The row plane's shard-map authority (--row_reshard), built in
+        # prepare() as the JAX master builds it.
+        self.row_reshard = None
+
+    def _build_row_reshard(self):
+        """Row-plane elasticity: the master hosts the shard-map authority
+        over the --row_service_addr fleet and ticks its policy in the
+        run loop. The state file must be named: the JAX master's default
+        under ``--journal_dir`` waits for the journal (item 8d)."""
+        from elasticdl_tpu_torch.master.row_reshard import (
+            ReshardPolicy,
+            ShardMapController,
+        )
+
+        args = self._args
+        addrs = [
+            a.strip()
+            for a in getattr(args, "row_service_addr", "").split(",")
+            if a.strip()
+        ]
+        if not addrs:
+            raise ValueError("--row_reshard needs --row_service_addr")
+        state_path = getattr(args, "row_reshard_state", "")
+        if not state_path:
+            raise ValueError(
+                "--row_reshard needs --row_reshard_state (the JAX "
+                "master's default, <journal_dir>/shard_map.json, waits "
+                "for the journal: ROADMAP Queue 1, item 8d)")
+        self.row_reshard = ShardMapController(
+            state_path,
+            journal=None,
+            policy=ReshardPolicy(
+                replica_top_k=int(getattr(args, "row_replica_top_k", 64)),
+                replica_count=int(getattr(args, "row_replica_count", 2)),
+                cooldown_secs=float(
+                    getattr(args, "row_reshard_cooldown_secs", 30.0)
+                ),
+            ),
+        )
+        if self.row_reshard.map is None:
+            self.row_reshard.bootstrap(addrs)
+        else:
+            # A restarted authority finishes any migration in flight and
+            # distributes the persisted epoch again.
+            self.row_reshard.resume()
 
     # ---- assembly -------------------------------------------------------
 
@@ -249,6 +301,8 @@ class Master:
             self.metrics_plane.serve(port=metrics_port)
         if self.tb_service is not None:
             self.tb_service.start()
+        if getattr(self._args, "row_reshard", False):
+            self._build_row_reshard()
 
     def request_stop(self):
         """Ask the run loop to exit at the next tick (SIGTERM path).
@@ -284,6 +338,11 @@ class Master:
                     self.servicer.maybe_complete_resize(
                         list(self.servicer.worker_liveness())
                     )
+                if self.row_reshard is not None:
+                    # Rebalance ranges, refresh hot-row replicas; tick()
+                    # contains its own failures (a flaky shard must not
+                    # take the master loop down).
+                    self.row_reshard.tick()
                 self.metrics_plane.publish_tensorboard(
                     self.servicer.model_version
                 )
@@ -298,6 +357,8 @@ class Master:
         return 0
 
     def stop(self):
+        if self.row_reshard is not None:
+            self.row_reshard.close()
         self.metrics_plane.stop()
         self.evaluation_service.stop()
         if self._server is not None:

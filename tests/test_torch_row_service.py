@@ -681,18 +681,101 @@ def test_malformed_pushes_are_invalid_requests(request_fields, match):
     assert svc._tables["items"].num_rows == 0
 
 
-@pytest.mark.parametrize("method", [
-    "shard_stats", "migrate_out", "begin_ingest", "end_ingest",
-    "ingest_rows", "ingest_steps", "pull_replica_rows", "replica_refresh",
-])
-def test_unported_handlers_name_item_8(method):
-    svc = HostRowService({"items": EmbeddingTable("items", DIM)},
-                         HostOptimizerWrapper(SGD(lr=0.5)))
-    assert sorted(svc.handlers()) == sorted(
-        jrs.HostRowService({"items": JaxTable("items", DIM)},
-                           JaxWrap(JaxSGD(lr=0.5))).handlers())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        svc.handlers()[method]({})
+def _handler_pair(pkg):
+    """A service of either package with a second one of the same package
+    behind its in-process transport (a migration's target)."""
+    mod, table, wrap, sgd = ((rs, EmbeddingTable, HostOptimizerWrapper, SGD)
+                             if pkg == "port" else
+                             (jrs, JaxTable, JaxWrap, JaxSGD))
+
+    def make():
+        return mod.HostRowService({"items": table("items", DIM)},
+                                  wrap(sgd(lr=0.5)))
+
+    svc, target = make(), make()
+    svc.transport_factory = lambda addr: mod.DirectTransport(target)
+    return mod, svc, target
+
+
+def _grads(n):
+    return np.arange(n * DIM, dtype=np.float32).reshape(n, DIM) / 64
+
+
+# method: (calls made first, on (service, target), then the request).
+_HANDLER_CASES = {
+    "table_info": ((), {}),
+    "table_versions": ((), {}),
+    "pull_rows": ((), {"table": "items", "ids": np.array([3, 9])}),
+    "push_row_grads": ((), {"table": "items", "ids": np.array([3, 9]),
+                            "grads": _grads(2), "client": "c", "seq": 1}),
+    "export_rows": ((), {"table": "items", "lo": 0, "hi": 6}),
+    "get_shard_map": ((), {}),
+    "set_shard_map": ((), {"map": {"version": 2, "shards": ["a", "b"],
+                                   "ranges": [[0, 100, 1], [100, 8192, 0]],
+                                   "replicas": {}},
+                           "shard_id": 0}),
+    "shard_stats": ((("svc", "pull_rows", {"table": "items",
+                                           "ids": np.array([3, 3000])}),),
+                    {"top_k": 4}),
+    "migrate_out": ((("svc", "pull_rows", {"table": "items",
+                                           "ids": np.array([3, 700, 9])}),
+                     ("target", "begin_ingest", {"migration_id": "m",
+                                                 "lo": 0, "hi": 600})),
+                    {"migration_id": "m", "lo": 0, "hi": 600,
+                     "target_addr": "b"}),
+    "begin_ingest": ((), {"migration_id": "m", "lo": 0, "hi": 8}),
+    "end_ingest": ((("svc", "begin_ingest", {"migration_id": "m",
+                                             "lo": 0, "hi": 8}),),
+                   {"migration_id": "m"}),
+    "ingest_rows": ((("svc", "begin_ingest", {"migration_id": "m",
+                                              "lo": 0, "hi": 8}),),
+                    {"migration_id": "m", "table": "items",
+                     "ids": np.array([1, 2]), "rows": _grads(2)}),
+    "ingest_steps": ((("svc", "begin_ingest", {"migration_id": "m",
+                                               "lo": 0, "hi": 8}),),
+                     {"migration_id": "m", "steps": {"items": 5}}),
+    "pull_replica_rows": ((("svc", "replica_refresh", {
+        "table": "items", "ids": np.array([4]), "rows": _grads(1),
+        "applied_at": 12.5, "read_at": 0.0, "map_version": 3}),),
+        {"table": "items", "ids": np.array([4, 5])}),
+    "replica_refresh": ((), {"table": "items", "ids": np.array([4, 6]),
+                             "rows": _grads(2), "applied_at": 1.0,
+                             "read_at": 0.0, "map_version": 1}),
+}
+
+
+def _plain(reply):
+    """A reply with arrays as lists and wall-clock fields dropped."""
+    if isinstance(reply, dict):
+        return {k: _plain(v) for k, v in reply.items()
+                if k not in ("seconds", "applied_at")}
+    if isinstance(reply, np.ndarray):
+        return [reply.dtype.str, reply.tolist()]
+    return reply
+
+
+@pytest.mark.parametrize("method", sorted(_HANDLER_CASES))
+def test_every_handler_answers_as_jax(method):
+    """The port's handler set is the JAX service's, and each handler
+    answers the JAX handler's reply to the same requests (the timing
+    fields aside) and leaves the same rows behind."""
+    before, request = _HANDLER_CASES[method]
+    replies, rows = {}, {}
+    for pkg in ("port", "jax"):
+        _mod, svc, target = _handler_pair(pkg)
+        for who, name, req in before:
+            (svc if who == "svc" else target).handlers()[name](dict(req))
+        replies[pkg] = svc.handlers()[method](dict(request))
+        rows[pkg] = [v.to_arrays() for svc_ in (svc, target)
+                     for v in svc_.host_tables.values()]
+        handlers = sorted(svc.handlers())
+        replies[pkg + "_handlers"] = handlers
+    assert replies["port_handlers"] == replies["jax_handlers"]
+    assert len(replies["port_handlers"]) == 15
+    assert _plain(replies["port"]) == _plain(replies["jax"])
+    for (pi, pr), (ji, jr) in zip(rows["port"], rows["jax"]):
+        assert pi.tobytes() == ji.tobytes()
+        assert np.asarray(pr).tobytes() == np.asarray(jr).tobytes()
 
 
 @pytest.mark.parametrize("flag", [
@@ -700,7 +783,7 @@ def test_unported_handlers_name_item_8(method):
     ["--master_addr", "localhost:1"], ["--metrics_report_secs", "15"],
 ])
 def test_main_refuses_unported_flags(flag):
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 8f"):
         rs.main(["--model_zoo", model_zoo_dir(), "--model_def",
                  "deepfm.deepfm_host.custom_model"] + flag)
 

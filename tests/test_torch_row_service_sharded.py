@@ -366,19 +366,52 @@ def test_map_rides_the_checkpoint(tmp_path):
         "reason"] == "not_owner"
 
 
-def test_replica_maps_wait_for_item_8():
-    svc = _start_shard()
+def test_replica_map_reads_go_through_the_replica():
+    """A hot id designated to a replica shard: once the home's warm-up
+    refresh lands, the client's reads alternate between home and replica
+    (``row_replica_reads_total`` rises) and answer the home's bytes; a
+    push refreshes the copy."""
+    from elasticdl_tpu_torch.observability import default_registry
+
+    def reads():
+        for f in default_registry().snapshot()["families"]:
+            if f["name"].endswith("row_replica_reads_total"):
+                return sum(s["value"] for s in f["series"])
+        return 0.0
+
+    shards = [_start_shard() for _ in range(2)]
     try:
-        addr = f"localhost:{svc.port}"
-        engine = make_remote_engine(addr, id_keys={"items": "ids"})
-        svc.install_shard_map(
-            ShardMap.bootstrap([addr]).with_replicas({"items": {3: (0,)}}),
-            0)
-        engine.shard_map.update(svc._get_shard_map({})["map"])
-        with pytest.raises(NotImplementedError, match="item 8"):
-            engine.tables["items"].get(np.array([3]))
+        addrs = [f"localhost:{s.port}" for s in shards]
+        engine = make_remote_engine(",".join(addrs),
+                                    id_keys={"items": "ids"})
+        hot = np.array([3], np.int64)  # bucket 3: homed on shard 0
+        table = engine.tables["items"]
+        ref = table.get(hot)
+        smap = ShardMap.bootstrap(addrs).with_replicas({"items": {3: (1,)}})
+        for k, s in enumerate(shards):
+            s.install_shard_map(smap, k)
+        deadline = time.time() + 5
+        while 3 not in shards[1]._replica_store.get("items", {}):
+            assert time.time() < deadline, "the replica never warmed"
+            time.sleep(0.01)
+        before = reads()
+        for _ in range(4):
+            np.testing.assert_array_equal(table.get(hot), ref)
+        assert engine.shard_map.version == smap.version
+        assert reads() >= before + 1
+        engine.optimizer.apply_gradients(table, hot,
+                                         np.ones((1, DIM), np.float32))
+        fresh = shards[0]._tables["items"].get(hot)
+        while not np.array_equal(
+                shards[1]._replica_store["items"][3][0], fresh[0]):
+            assert time.time() < deadline + 5, "the copy never refreshed"
+            time.sleep(0.01)
+        for _ in range(2):
+            np.testing.assert_array_equal(table.get(hot), fresh)
+        engine.close()
     finally:
-        svc.stop(0)
+        for s in shards:
+            s.stop(0)
 
 
 def _multi_run(tmp_path, remote):
