@@ -34,6 +34,9 @@
     python3 chip_smoke.py --phase moe    # MoE, the fused head and
                                          # generate alone (the flash
                                          # forward and backward kernels)
+    python3 chip_smoke.py --phase failover # 11f (a) and (e) alone, the
+                                           # port's failover drill and
+                                           # the journal's fsync times
 
 1. Prints the card (``nvidia-smi`` name and power limit), versions, and
    whether ``grpc`` can be imported.
@@ -231,7 +234,27 @@
    runs while (b) and (c) run here: the worker exits 0, the job drains,
    the master's accuracy equals (a)'s at each round; its wall time, the
    time from its first task and examples/s over it. Without a ``grpc``
-   module (and only then) (d) prints that it did not run.
+   module (and only then) (d) prints that it did not run. (e) (d)'s job
+   through a journaled primary ``master.main`` and a ``--standby`` on one
+   ``--journal_dir`` (heartbeat 0.2 s, 2 misses) and a worker subprocess
+   on the card with ``--master_addr primary,standby`` (a wrapper around
+   ``worker.main``'s entry point that holds its first training report and
+   its first evaluation report at a pause, times its master RPCs and
+   prints its launches last), started beside (d): the primary SIGKILLed
+   while the journal (read with ``read_records``) shows the training task
+   leased, so the standby fences and promotes; then the promoted standby
+   SIGKILLed with the eval round open and the task's fold in, and a cold
+   ``master.main`` relaunch on the primary's port (imported up front
+   behind a go file) replays the journal. The final journal, recovered
+   into a fresh dispatcher here, counts every training record once, its
+   generation is 2 and ``check_journal`` finds nothing; the master's
+   accuracy equals (a)'s bit for bit and the worker's launches equal
+   (a)'s; each takeover's time from the kill to the worker's first
+   acknowledged RPC and first task, and the cold replay's records and
+   seconds. ``--phase failover`` runs (a) and (e) alone, then the port's
+   failover drill (``chaos/failover_drill.py``: a twin, a standby run and
+   a restart-and-replay run, held to the drill's gates) and one journal
+   append's and one bare write+fsync's p50/p99 on the host's disk.
 11g. ``rowservice`` (the row service; ``--phase rowservice`` runs it
    alone, with no kernel build): deepfm_host's 5500 x 16 native table
    behind the port's ``HostRowService`` over localhost gRPC, 2048 frappe
@@ -4378,6 +4401,36 @@ def worker_wire_start(root, a_job):
         print("worker wire: not run, no grpc module on this machine",
               flush=True)
         return None
+    master, flags, order = wire_layout(root, a_job)
+    # The first task the worker pulls starts its training clock.
+    pulls = []
+    get_task = master.servicer.get_task
+
+    def timed_get_task(request):
+        pulls.append(time.monotonic())
+        return get_task(request)
+
+    master.servicer.get_task = timed_get_task
+    master.prepare()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (here, env.get("PYTHONPATH", "")) if p)
+    log = open(os.path.join(root, "worker_wire.log"), "w+")
+    t0 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "elasticdl_tpu_torch.worker.main",
+         "--worker_id", "0", "--master_addr", f"localhost:{master.port}",
+         "--device", DEVICE] + flags,
+        env=env, cwd=root, stdout=log, stderr=subprocess.STDOUT)
+    return dict(master=master, proc=proc, log=log, t0=t0, order=order,
+                pulls=pulls, flags=flags)
+
+
+def wire_layout(root, a_job):
+    """(a)'s records laid out so that the master's seeded shuffle hands
+    them out in (a)'s order: the port's Master over them (not started),
+    the job's flags, the training tasks in dispatch order."""
     from elasticdl_tpu_torch.common.args import build_parser
     from elasticdl_tpu_torch.common.constants import TaskType
     from elasticdl_tpu_torch.data.record_file import (
@@ -4414,29 +4467,7 @@ def worker_wire_start(root, a_job):
     with RecordFileWriter(wire_train) as writer:
         for payload in layout:
             writer.write(payload)
-    # The first task the worker pulls starts its training clock.
-    pulls = []
-    get_task = master.servicer.get_task
-
-    def timed_get_task(request):
-        pulls.append(time.monotonic())
-        return get_task(request)
-
-    master.servicer.get_task = timed_get_task
-    master.prepare()
-    here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (here, env.get("PYTHONPATH", "")) if p)
-    log = open(os.path.join(root, "worker_wire.log"), "w+")
-    t0 = time.monotonic()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "elasticdl_tpu_torch.worker.main",
-         "--worker_id", "0", "--master_addr", f"localhost:{master.port}",
-         "--device", DEVICE] + flags,
-        env=env, cwd=root, stdout=log, stderr=subprocess.STDOUT)
-    return dict(master=master, proc=proc, log=log, t0=t0, order=order,
-                pulls=pulls)
+    return master, flags, order
 
 
 def worker_wire_finish(wire, want, failed=False):
@@ -4471,6 +4502,7 @@ def worker_wire_finish(wire, want, failed=False):
                                     for t in wire["order"]],
         "worker_exit": proc.returncode,
         "wall_s": wall, "from_first_task_s": train_s,
+        "to_last_get_task_s": pulls[-1] - wire["t0"] if pulls else None,
         "examples_per_s_from_first_task": (
             WORKER_RECORDS / train_s if train_s else None),
         "get_task_calls": len(pulls),
@@ -4488,24 +4520,478 @@ def worker_wire_finish(wire, want, failed=False):
     return out
 
 
+# (e): (d)'s job through a journaled primary ``master.main`` and a
+# ``--standby`` on one journal directory, and a cold relaunch; every
+# process starts before (a) and imports while it runs, behind a go file
+# that carries its argv (JSON) when the run reaches it. The worker
+# subprocess runs this wrapper around ``worker.main``'s entry point,
+# which also makes its CUDA context while it waits. It holds its first
+# training task's report (and then its first evaluation task's, after
+# the task's fold went in) at a pause: it writes ``<pause>.at`` and waits
+# for ``<pause>.go``, so each SIGKILL lands on a known state. It times
+# every master RPC and prints its kernel launches and those times as its
+# last line.
+FAILOVER_WORKER = """\
+import json, os, sys, time
+import torch
+from elasticdl_tpu_torch.ops import flash_attention as fa
+from elasticdl_tpu_torch.ops import pallas_embedding as pe
+from elasticdl_tpu_torch.worker import main as worker_main
+from elasticdl_tpu_torch.worker import master_client as mc
+
+if torch.cuda.is_available():
+    torch.zeros(1, device="cuda")
+while not os.path.exists(sys.argv[3]):
+    time.sleep(0.005)
+with open(sys.argv[3]) as fh:
+    argv = json.load(fh)
+pauses = {"training": sys.argv[1], "evaluation": sys.argv[2]}
+kinds, rpcs = {}, []
+get_task = mc.MasterClient.get_task
+report = mc.MasterClient.report_task_result
+
+
+def timed(name, fn):
+    def call(self, *args, **kwargs):
+        try:
+            out = fn(self, *args, **kwargs)
+        except Exception:
+            rpcs.append([name, time.monotonic(), False, None, None])
+            raise
+        kind = (out[0].type if name == "get_task" and out[0] is not None
+                else None)
+        rpcs.append([name, time.monotonic(), True, self.last_generation,
+                     kind])
+        return out
+    return call
+
+
+def pulled(self, *args, **kwargs):
+    task, finished = get_task(self, *args, **kwargs)
+    if task is not None:
+        kinds[task.task_id] = task.type
+    return task, finished
+
+
+def held(self, task_id, *args, **kwargs):
+    pause = pauses.pop(kinds.get(task_id), None)
+    if pause:
+        open(pause + ".at", "w").close()
+        while not os.path.exists(pause + ".go"):
+            time.sleep(0.005)
+    return report(self, task_id, *args, **kwargs)
+
+
+mc.MasterClient.get_task = timed("get_task", pulled)
+mc.MasterClient.report_task_result = timed("report_task_result", held)
+code = worker_main.main(argv)
+print(json.dumps({"launches": {
+    "flash_attention_fwd": fa.launches,
+    "flash_chunk_update": fa.chunk_launches,
+    "flash_attention_bwd_dq": fa.dq_launches,
+    "flash_attention_bwd_dkv": fa.dkv_launches,
+    "lookup_combine": pe.lookup_launches,
+    "lookup_combine_aligned": pe.aligned_launches,
+    "row_update": pe.row_update_launches,
+    "row_update_adagrad": pe.row_update_rule_launches["adagrad"],
+    "fused_row_update": pe.fused_launches}, "rpcs": rpcs}), flush=True)
+sys.exit(code or 0)
+"""
+# The master's main behind a go file: the process imports the package
+# at once and runs ``main`` on the argv the file holds when it appears.
+WAITING_MASTER = (
+    "import json, os, sys, time\n"
+    "from elasticdl_tpu_torch.master import main as master_main\n"
+    "while not os.path.exists(sys.argv[1]):\n"
+    "    time.sleep(0.005)\n"
+    "with open(sys.argv[1]) as fh:\n"
+    "    argv = json.load(fh)\n"
+    "sys.exit(master_main.main(argv))\n")
+FAILOVER_HEARTBEAT_S, FAILOVER_MISSES = 0.2, 2
+
+
+def go_with(path, argv):
+    """A go file carrying ``argv`` (written whole, then renamed)."""
+    with open(path + ".tmp", "w") as fh:
+        json.dump(argv, fh)
+    os.replace(path + ".tmp", path)
+
+
+def free_ports(n):
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("localhost", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def wait_for(cond, what, timeout=240.0, procs=()):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        for proc, log in procs:
+            check(proc.poll() is None,
+                  f"{what}: a process exited early: {log_text(log)[-3000:]}")
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def journal_view(path):
+    """What the journal at ``path`` says now: the leased tasks by type
+    (dispatched, not reported), the open eval round's folds, the highest
+    generation."""
+    from elasticdl_tpu_torch.master.journal import read_records
+
+    leased, folds, generation, open_round = {}, [], -1, False
+    for _o, _e, rec in read_records(path):
+        if rec["t"] == "dispatch":
+            leased[rec["task_id"]] = rec["task"]["type"]
+        elif rec["t"] == "report":
+            leased.pop(rec["task_id"], None)
+        elif rec["t"] == "generation":
+            generation = max(generation, rec["generation"])
+        elif rec["t"] == "eval_round":
+            open_round = rec["event"] == "open"
+            folds = []
+        elif rec["t"] == "eval_fold":
+            folds.append(rec["task_id"])
+    return dict(leased=leased, folds=folds if open_round else [],
+                open_round=open_round, generation=generation)
+
+
+def worker_failover_prestart(root):
+    """(e), before (a): the primary, the standby, the cold relaunch and
+    the worker wrapper start importing behind their go files. None when
+    there is no grpc module ((d) and (e) do not run)."""
+    import importlib.util
+
+    if importlib.util.find_spec("grpc") is None:
+        return None
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (here, env.get("PYTHONPATH", "")) if p)
+    base = os.path.join(root, "failover")
+    os.makedirs(base)
+    wrapper = os.path.join(base, "failover_worker.py")
+    with open(wrapper, "w") as fh:
+        fh.write(FAILOVER_WORKER)
+    logs, procs = {}, {}
+    for name in ("primary", "standby", "relaunch", "worker"):
+        logs[name] = open(os.path.join(base, f"{name}.log"), "w+")
+        entry = (["-c", WAITING_MASTER] if name != "worker" else
+                 [wrapper, os.path.join(base, "lease"),
+                  os.path.join(base, "fold")])
+        procs[name] = subprocess.Popen(
+            [sys.executable, *entry, os.path.join(base, f"{name}.go")],
+            env=env, cwd=root, stdout=logs[name], stderr=subprocess.STDOUT)
+    return dict(procs=procs, logs=logs, base=base, kills={}, error=None)
+
+
+def worker_failover_start(fo, wire_flags):
+    """(e), first half: the go files of the primary and the worker (over
+    (d)'s records and flags), then a thread that starts the standby once
+    the primary serves, kills at the worker's pauses and lets the
+    relaunch go."""
+    if fo is None:
+        return None
+    procs, logs, base = fo["procs"], fo["logs"], fo["base"]
+    journal_dir = os.path.join(base, "journal")
+    p1, p2 = free_ports(2)
+    flags = wire_flags + ["--journal_dir", journal_dir,
+                          "--evaluation_steps", str(WORKER_EVAL_STEPS)]
+    go_standby = os.path.join(base, "standby.go")
+    go_relaunch = os.path.join(base, "relaunch.go")
+    fo.update(journal_dir=journal_dir, flags=flags, t0=time.monotonic())
+    go_with(os.path.join(base, "primary.go"),
+            flags + ["--master_addr", f"localhost:{p1}"])
+    go_with(os.path.join(base, "worker.go"), [
+        "--worker_id", "0", "--device", DEVICE,
+        "--master_addr", f"localhost:{p1},localhost:{p2}",
+        "--master_reattach_grace", "120", *wire_flags])
+
+    def choreography():
+        journal = os.path.join(journal_dir, "journal.log")
+        watch = [(procs["worker"], logs["worker"])]
+        wait_for(lambda: "Master RPC serving" in log_text(logs["primary"]),
+                 "the primary to serve", procs=watch)
+        go_with(go_standby, flags + [
+            "--standby", "--master_addr", f"localhost:{p2}",
+            "--primary_addr", f"localhost:{p1}",
+            "--standby_heartbeat_secs", str(FAILOVER_HEARTBEAT_S),
+            "--standby_miss_threshold", str(FAILOVER_MISSES)])
+        wait_for(lambda: "standby: heartbeating" in log_text(
+            logs["standby"]), "the standby to tail", procs=watch)
+        # Kill 1: the primary, while the worker holds a training task.
+        wait_for(lambda: os.path.exists(os.path.join(base, "lease.at")),
+                 "the worker to hold a training lease", procs=watch)
+        view = journal_view(journal)
+        check("training" in view["leased"].values(),
+              f"no training task leased at kill 1: {view}")
+        fo["kills"]["primary"] = dict(t=time.monotonic(), journal=view)
+        procs["primary"].kill()
+        procs["primary"].wait()
+        go(os.path.join(base, "lease.go"))
+        # Kill 2: the promoted standby, with the eval round open and the
+        # worker's fold in; the cold relaunch takes the primary's port.
+        wait_for(lambda: os.path.exists(os.path.join(base, "fold.at")),
+                 "the worker to hold a folded evaluation task",
+                 procs=watch + [(procs["standby"], logs["standby"])])
+        view = journal_view(journal)
+        check(view["generation"] == 1 and view["open_round"]
+              and view["folds"]
+              and "evaluation" in view["leased"].values(),
+              f"no open round with a fold in at kill 2: {view}")
+        fo["kills"]["standby"] = dict(t=time.monotonic(), journal=view)
+        procs["standby"].kill()
+        procs["standby"].wait()
+        go_with(go_relaunch, flags + ["--master_addr", f"localhost:{p1}"])
+        go(os.path.join(base, "fold.go"))
+
+    def run():
+        try:
+            choreography()
+        except BaseException as exc:  # re-raised by the finish
+            fo["error"] = exc
+
+    fo["thread"] = threading.Thread(target=run, daemon=True)
+    fo["thread"].start()
+    return fo
+
+
+def worker_failover_finish(fo, a_job, want_counts, failed=False):
+    """(e), second half: wait for the worker and the relaunch, then hold
+    the final journal (recovered into a fresh dispatcher here), its fsck,
+    its generation, the master's eval results and the worker's launches.
+    With ``failed`` it only stops every process."""
+    from elasticdl_tpu_torch.common.args import parse_master_args
+    from elasticdl_tpu_torch.common.constants import TaskType
+    from elasticdl_tpu_torch.core.model_spec import get_model_spec
+    from elasticdl_tpu_torch.master.journal import MasterJournal, apply_replay
+    from elasticdl_tpu_torch.master.main import build_dispatcher
+    from elasticdl_tpu_torch.tools.check_journal import check_journal
+
+    if fo is None:
+        return {"run": False, "reason": "no grpc module"}
+    procs, logs = fo["procs"], fo["logs"]
+    try:
+        if not failed:
+            check("thread" in fo, "(e) never started")
+            fo["thread"].join(timeout=300)
+            check(not fo["thread"].is_alive(), "the kills never happened")
+            if fo["error"] is not None:
+                raise fo["error"]
+            check(procs["worker"].wait(timeout=300) == 0,
+                  "the failover worker exited "
+                  f"{procs['worker'].returncode}: "
+                  f"{log_text(logs['worker'])[-3000:]}")
+            # The relaunch exits at its run loop's next 5 s tick; every
+            # report is journaled before its reply left, so it is
+            # stopped here unless it already ended (and then cleanly).
+            check(procs["relaunch"].poll() in (None, 0),
+                  "the relaunched master exited "
+                  f"{procs['relaunch'].returncode}: "
+                  f"{log_text(logs['relaunch'])[-3000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    texts = {name: log_text(log) for name, log in logs.items()}
+    for log in logs.values():
+        log.close()
+    if failed:
+        return None
+    worker_out = json.loads(texts["worker"].strip().splitlines()[-1])
+    # From (e)'s go to the worker's last master RPC (the get_task that
+    # said the job is finished): one clock, CLOCK_MONOTONIC, across the
+    # processes.
+    wall = worker_out["rpcs"][-1][1] - fo["t0"]
+    args = parse_master_args(fo["flags"])
+    spec = get_model_spec(args.model_zoo, args.model_def, device="cpu")
+    dispatcher = build_dispatcher(args, spec)
+    carry = apply_replay(dispatcher,
+                         MasterJournal(fo["journal_dir"]).replay_records())
+    resolved = dispatcher.export_state()["resolved"]
+    spans = sorted((t["start"], t["end"]) for _i, t, _w, _r in resolved
+                   if t and t["type"] == TaskType.TRAINING)
+    per_task = EMB_BATCH * WORKER_TASK_BATCHES
+    problems = check_journal(fo["journal_dir"])
+    results = carry["eval"]["results"]
+    rpcs = worker_out["rpcs"]
+
+    def first_after(t, gen, task=False):
+        for name, at, ok, seen, kind in rpcs:
+            if at > t and ok and seen == gen and (
+                    not task or kind not in (None, TaskType.WAIT)):
+                return at - t
+        return None
+
+    downtimes = {}
+    for gen, (name, kill) in enumerate(sorted(
+            fo["kills"].items(), key=lambda kv: kv[1]["t"]), start=1):
+        downtimes[name] = {
+            "kill_to_first_ack_s": first_after(kill["t"], gen),
+            "kill_to_first_task_s": first_after(kill["t"], gen, task=True),
+            "journal_at_kill": kill["journal"]}
+    import re
+
+    replay = re.search(r"(\d+) record\(s\) replayed .*in ([0-9.]+) s",
+                       texts["relaunch"])
+    out = {
+        "run": True, "wall_s": wall,
+        "generation": carry["generation"],
+        "finished": dispatcher.finished(),
+        "records": dict(dispatcher.counters.total_records),
+        "training_spans": len(spans),
+        "resolved_unique": len({r[0] for r in resolved}) == len(resolved),
+        "check_journal": problems,
+        "eval_results": {str(k): v for k, v in results.items()},
+        "launches": worker_out["launches"],
+        "downtimes": downtimes,
+        "cold_replay": {"records": int(replay.group(1)),
+                        "seconds": float(replay.group(2))} if replay
+        else None,
+        "takeover_log": [line for line in texts["standby"].splitlines()
+                         if "taking over" in line],
+    }
+    print("worker failover", json.dumps(out, default=str), flush=True)
+    check(out["generation"] == 2, f"final generation {out['generation']}")
+    check(out["finished"] and out["resolved_unique"]
+          and out["records"][TaskType.TRAINING] == WORKER_RECORDS
+          and spans == [(s, s + per_task)
+                        for s in range(0, WORKER_RECORDS, per_task)],
+          f"the failover job's accounting: {out}")
+    check(problems == [], f"check_journal: {problems}")
+    check(results == a_job["results"],
+          f"master eval after two kills {results} against (a)'s "
+          f"{a_job['results']}")
+    check(out["launches"] == want_counts,
+          f"failover worker launches {out['launches']}, not {want_counts}")
+    check(replay is not None and all(
+        d["kill_to_first_task_s"] is not None for d in downtimes.values()),
+        f"a takeover left no trace: {out}")
+    return out
+
+
 def worker_phase(torch, fa, pe, root):
     """The task plane on the card: the recsys twin through the worker
     in process against Local, a failed task, deepfm_host through the
-    worker, and the worker over gRPC (its subprocess started after (a),
-    while (b) and (c) run here)."""
+    worker, the worker over gRPC, and the same job through a primary, a
+    standby and a cold relaunch with two SIGKILLs ((d)'s worker started
+    after (a), (e)'s processes before it, importing behind go files; both
+    jobs run while (b) and (c) run here)."""
     t0 = time.monotonic()
-    out_a, a_job = worker_recsys_part(torch, fa, pe, root)
+    fo = worker_failover_prestart(root)
+    try:
+        out_a, a_job = worker_recsys_part(torch, fa, pe, root)
+    except BaseException:
+        worker_failover_finish(fo, None, None, failed=True)
+        raise
     out = {"in_process": out_a}
     torch.cuda.empty_cache()
-    wire = worker_wire_start(root, a_job)
+    wire = None
     try:
+        wire = worker_wire_start(root, a_job)
+        worker_failover_start(fo, wire and wire["flags"])
         out["failed_task"] = worker_failed_task_part(torch, fa, pe, a_job)
         out["host"] = worker_host_part(torch, fa, pe, root)
     except BaseException:
         worker_wire_finish(wire, None, failed=True)
+        worker_failover_finish(fo, a_job, None, failed=True)
         raise
-    out["wire"] = worker_wire_finish(wire, a_job["results"])
+    try:
+        out["wire"] = worker_wire_finish(wire, a_job["results"])
+    except BaseException:
+        worker_failover_finish(fo, a_job, None, failed=True)
+        raise
+    out["failover"] = worker_failover_finish(fo, a_job, a_job["counts"])
     out["seconds"] = time.monotonic() - t0
+    out["card"] = smi("name,power.limit")
+    return out
+
+
+def journal_append_times(root, appends=200):
+    """One journal append (flock, fence check, write, flush, fsync) and
+    the bare write + fsync of a frame of the same size, p50/p99 in ms,
+    on this host's disk under ``root``."""
+    from elasticdl_tpu_torch.master.journal import MasterJournal
+
+    journal = MasterJournal(os.path.join(root, "fsync_journal"))
+    journal.open_generation()
+    append_ms, fsync_ms = [], []
+    for i in range(appends):
+        t = time.perf_counter()
+        journal.append("version", model_version=i)
+        append_ms.append((time.perf_counter() - t) * 1e3)
+    journal.close()
+    frame = os.path.getsize(journal.path) // (appends + 1)
+    with open(os.path.join(root, "fsync_probe"), "ab") as fh:
+        for _ in range(appends):
+            t = time.perf_counter()
+            fh.write(b"x" * frame)
+            fh.flush()
+            os.fsync(fh.fileno())
+            fsync_ms.append((time.perf_counter() - t) * 1e3)
+
+    def p(xs):
+        return {"p50": float(np.percentile(xs, 50)),
+                "p99": float(np.percentile(xs, 99)), "n": len(xs)}
+
+    return {"append_ms": p(append_ms), "write_fsync_ms": p(fsync_ms),
+            "frame_bytes": frame, "card": smi("name,power.limit")}
+
+
+def failover_phase(torch, fa, pe, root):
+    """``--phase failover``: (a) for its results and launches, (e) alone,
+    the port's failover drill (twin, standby and restart-and-replay runs
+    and their gates), and one journal append's times on this host."""
+    from elasticdl_tpu_torch.chaos import failover_drill
+
+    fo = worker_failover_prestart(root)
+    try:
+        out_a, a_job = worker_recsys_part(torch, fa, pe, root)
+        torch.cuda.empty_cache()
+        master, flags, _order = wire_layout(root, a_job)
+        master.stop()
+        worker_failover_start(fo, flags)
+    except BaseException:
+        worker_failover_finish(fo, None, None, failed=True)
+        raise
+    out = {"failover": worker_failover_finish(fo, a_job, a_job["counts"]),
+           "in_process_wall_s": out_a["worker"]["job_wall_s"]}
+    workdir = os.path.join(root, "drill")
+    t = time.monotonic()
+    code = failover_drill.main(["run", "--workdir", workdir])
+    with open(os.path.join(workdir, "failover_drill.json")) as fh:
+        report = json.load(fh)
+
+    def scenario(run):
+        return [{"scenario": f["scenario"],
+                 "downtime_s": f.get("downtime_secs"),
+                 "recovery": f.get("recovery")}
+                for f in report[run]["failovers"]]
+
+    drill = {
+        "passed": report["passed"], "exit": code,
+        "problems": report["problems"], "seconds": time.monotonic() - t,
+        "downtime": report.get("downtime"),
+        "standby_downtimes_s": report["standby"]["downtimes_secs"],
+        "restart_downtimes_s": report["restart"]["downtimes_secs"],
+        "standby_failovers": scenario("standby"),
+        "restart_failovers": scenario("restart"),
+        "fsck": {run: report[run]["fsck"]
+                 for run in ("twin", "standby", "restart")},
+        "zombie": report["standby"].get("zombie"),
+    }
+    print("failover drill", json.dumps(drill, default=str), flush=True)
+    check(code == 0 and report["passed"],
+          f"the failover drill's gates: {report['problems']}")
+    out["drill"] = drill
+    out["journal_append"] = journal_append_times(root)
     out["card"] = smi("name,power.limit")
     return out
 
@@ -10089,7 +10575,7 @@ def main(argv=None) -> int:
         "--phase", choices=("all", "fwd", "bwd", "chunk", "lookup", "host",
                             "vision", "tabular", "checkpoint", "worker",
                             "rowservice", "fleet", "parallel", "multihost",
-                            "tpfault", "moe", "pipeline"),
+                            "tpfault", "moe", "pipeline", "failover"),
         default="all",
         help="fwd: build flash_attention_fwd.cu alone, then run kernel "
              "#1's checks and times and print its kernels row; bwd: the "
@@ -10117,7 +10603,10 @@ def main(argv=None) -> int:
              "(the flash forward and backward kernels); pipeline: "
              "PipelineLM at the flagship's widths on one card against "
              "TransformerLM, timed at M 4 and M 8 (the flash forward and "
-             "backward kernels)")
+             "backward kernels); failover: the worker phase's (a) and (e) "
+             "alone, then the port's failover drill (standby against "
+             "restart-and-replay) and one journal append's fsync times "
+             "(the embedding kernels only)")
     args = parser.parse_args(argv)
     import torch
 
@@ -10177,6 +10666,7 @@ def run(args, torch, mh) -> int:
              "chunk": [fa._CHUNK_SOURCE], "lookup": [pe._LOOKUP_SOURCE],
              "checkpoint": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
              "worker": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
+             "failover": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
              "parallel": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE,
                           fa._CHUNK_SOURCE, fa._BWD_SOURCE, fa._SOURCE],
              "multihost": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE,
@@ -10204,7 +10694,8 @@ def run(args, torch, mh) -> int:
         print(json.dumps({"kernels": lookup_phase(torch, pe)}))
         return 0
     if args.phase in ("checkpoint", "worker", "fleet", "parallel",
-                      "multihost", "tpfault", "moe", "pipeline"):
+                      "multihost", "tpfault", "moe", "pipeline",
+                      "failover"):
         with tempfile.TemporaryDirectory() as root:
             if args.phase == "pipeline":
                 t1 = time.monotonic()
@@ -10233,6 +10724,8 @@ def run(args, torch, mh) -> int:
                 line = {"parallel": parallel_phase(torch, fa, pe, root)}
             elif args.phase == "tpfault":
                 line = {"tpfault": tp_fault_phase(torch, fa, pe, root)}
+            elif args.phase == "failover":
+                line = {"failover": failover_phase(torch, fa, pe, root)}
             else:
                 phase = checkpoint_phase if args.phase == "checkpoint" \
                     else worker_phase
@@ -10353,6 +10846,9 @@ def run(args, torch, mh) -> int:
             "in_process": worker["in_process"]["launches_worker"][
                 row["name"]],
             "failed_task": worker["failed_task"]["launches"][row["name"]]}
+        if worker["failover"]["run"]:
+            row["launches_worker"]["failover"] = worker["failover"][
+                "launches"][row["name"]]
         row["launches_rowservice"] = {
             "one_shard": rowservice["one_shard"]["launches_service"][
                 row["name"]],

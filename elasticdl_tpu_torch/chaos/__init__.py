@@ -2,7 +2,8 @@
 kill parts of the system mid-protocol and hold what recovers to a
 fault-free twin.
 
-Ported so far: ``reshard_drill`` (the row service's live resharding).
-The fault plans, interceptors, invariants and the other drills are
-ROADMAP Queue 1, item 8g.
+Ported so far: ``reshard_drill`` (the row service's live resharding)
+and ``failover_drill`` (the master's hot standby against
+restart-and-replay). The fault plans, interceptors, invariants and the
+other drills are ROADMAP Queue 1, item 8g.
 """

@@ -6,10 +6,9 @@ the same names and defaults), plus ``--device``;
 command line, as there.
 
 The master's and worker's flags for parts that are not ported yet
-(k8s, the journal and hot standby, the autoscaler, row resharding, the
-gang scheduler, streams, the prober, the row service, the multi-host
-mesh) are parsed so that asking for one raises with the ROADMAP item
-that holds it.
+(k8s, the autoscaler, the gang scheduler, streams, the prober) are
+parsed so that asking for one raises with the ROADMAP item that holds
+it.
 """
 
 import argparse
@@ -188,26 +187,46 @@ def add_task_plane_params(parser):
                              "of shard addresses) of the shared row "
                              "service (embedding/row_service.py); "
                              "needed with --num_workers > 1")
+    parser.add_argument("--journal_dir", default="",
+                        help="Master write-ahead job-state journal "
+                             "directory: dispatch/report events + "
+                             "periodic snapshots, replayed on master "
+                             "restart so task accounting survives the "
+                             "crash. Point at storage that outlives "
+                             "the master; empty (default) disables")
+    add_bool_param(parser, "--standby", False,
+                   "Run this master as a HOT STANDBY: tail "
+                   "--journal_dir into a continuously-replayed warm "
+                   "state and heartbeat --primary_addr; on missed "
+                   "heartbeats fence the old incarnation and take over "
+                   "serving on --master_addr. Requires --journal_dir on "
+                   "storage shared with the primary")
+    parser.add_argument("--primary_addr", default="",
+                        help="Standby role: the primary master address "
+                             "to heartbeat (defaults to --master_addr)")
+    parser.add_argument("--standby_heartbeat_secs", type=pos_float,
+                        default=1.0,
+                        help="Standby role: primary heartbeat cadence")
+    parser.add_argument("--standby_miss_threshold", type=int, default=3,
+                        help="Standby role: consecutive missed "
+                             "heartbeats before takeover")
     # Not ported yet: each raises when asked for (master/main.py).
     parser.add_argument("--image_name", default="",
-                        help="k8s: not ported yet")
-    parser.add_argument("--journal_dir", default="",
-                        help="The master's journal: not ported yet")
-    add_bool_param(parser, "--standby", False,
-                   "Hot-standby master: not ported yet")
+                        help="k8s: not ported yet (item 8d-iii)")
     add_bool_param(parser, "--autoscale", False,
-                   "Autoscaling: not ported yet")
+                   "Autoscaling: not ported yet (item 8d-iii)")
     # Row-plane elasticity (master/row_reshard.py): the master runs the
     # shard-map authority over the --row_service_addr fleet.
     add_bool_param(parser, "--row_reshard", False,
                    "Run the row-service shard-map controller in the "
                    "master tick (needs --row_service_addr and "
-                   "--row_reshard_state; live range rebalancing + "
+                   "--row_reshard_state or --journal_dir; live range "
+                   "rebalancing + "
                    "hot-row read replicas)")
     parser.add_argument("--row_reshard_state", default="",
-                        help="Shard-map authority state file (the JAX "
-                             "master's default under --journal_dir "
-                             "waits for the journal: required here)")
+                        help="Shard-map authority state file (default: "
+                             "<journal_dir>/shard_map.json; required "
+                             "when no --journal_dir is set)")
     parser.add_argument("--row_reshard_cooldown_secs", type=pos_float,
                         default=30.0,
                         help="Quiet period between reshard actions "
@@ -221,13 +240,14 @@ def add_task_plane_params(parser):
                              "fleet size - 1; 0 disables replication)")
     add_bool_param(parser, "--row_pod_autoscale", False,
                    "Row-service pods grown and drained with splits and "
-                   "merges: not ported yet")
+                   "merges: not ported yet (item 8d-iii)")
     add_bool_param(parser, "--sched", False,
-                   "The gang scheduler: not ported yet")
+                   "The gang scheduler: not ported yet (item 8d-ii)")
     parser.add_argument("--stream_dir", default="",
-                        help="Streaming ingestion: not ported yet")
+                        help="Streaming ingestion: not ported yet (item "
+                             "8d-ii)")
     add_bool_param(parser, "--probes", False,
-                   "Synthetic probing: not ported yet")
+                   "Synthetic probing: not ported yet (item 8d-ii)")
 
 
 def add_worker_params(parser):

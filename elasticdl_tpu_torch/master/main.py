@@ -12,24 +12,36 @@ Workers are started by hand (``python -m elasticdl_tpu_torch.worker.main
 no model: it imports the zoo module for its dataset shards, callbacks
 and metric functions, and builds the module's model on the CPU.
 
-``--row_reshard --row_reshard_state S --row_service_addr a,b`` hosts the
-row plane's shard-map authority (``master/row_reshard.py``): it
-bootstraps (or resumes) the map over the listed shards and ticks its
-policy (range moves off load imbalance, hot-row read replicas, the
-retirement of merged-away shards) every run tick.
+``--journal_dir D`` writes every dispatch, report, eval-round and
+version event through the master's write-ahead journal
+(``master/journal.py``); a master started on a journal that holds state
+replays it before it serves (cold crash recovery), under the next
+generation. ``--standby --journal_dir D --primary_addr A`` runs a hot
+standby (``run_standby``): it tails D into a warm dispatcher, pings the
+primary at A, and after ``--standby_miss_threshold`` missed beats fences
+the primary's generation and promotes into a ``Master`` that adopts the
+warm dispatcher, serving on its own ``--master_addr``.
 
-Not ported yet, and raising when asked for (ROADMAP Queue 1, item 8d):
-the k8s instance manager (``--image_name``), the journal and crash
-recovery (``--journal_dir``), the hot standby (``--standby``), the
-autoscaler (``--autoscale``), row-service pods grown and drained with
-the splits (``--row_pod_autoscale``), the gang scheduler (``--sched``),
-streaming ingestion (``--stream_dir``) and the prober (``--probes``).
-Row-service pods are not launched by the port's master either: start
-``python -m elasticdl_tpu_torch.embedding.row_service`` by hand (one a
-shard, and one more before a split onto it) and give the workers
+``--row_reshard --row_service_addr a,b`` hosts the row plane's
+shard-map authority (``master/row_reshard.py``): it bootstraps (or
+resumes) the map over the listed shards and ticks its policy (range
+moves off load imbalance, hot-row read replicas, the retirement of
+merged-away shards) every run tick. Its state file is
+``--row_reshard_state``, or ``<journal_dir>/shard_map.json``; under a
+journal its epochs are journaled too.
+
+Not ported yet, and raising when asked for: the gang scheduler
+(``--sched``), streaming ingestion (``--stream_dir``) and the prober
+(``--probes``), ROADMAP Queue 1 item 8d-ii; the k8s instance manager
+(``--image_name``), the autoscaler (``--autoscale``) and row-service
+pods grown and drained with the splits (``--row_pod_autoscale``), item
+8d-iii. Row-service pods are not launched by the port's master either:
+start ``python -m elasticdl_tpu_torch.embedding.row_service`` by hand
+(one a shard, and one more before a split onto it) and give the workers
 ``--row_service_addr``.
 """
 
+import os
 import sys
 import time
 
@@ -46,26 +58,25 @@ from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
 
 logger = get_logger("master")
 
-# Flag -> what it asks for, for the parts of the JAX master that are not
-# ported yet.
+# Flag -> (what it asks for, the ROADMAP item that holds it), for the
+# parts of the JAX master that are not ported yet.
 _NOT_PORTED = {
-    "image_name": "the k8s instance manager (worker pods)",
-    "journal_dir": "the master's journal and crash recovery",
-    "standby": "the hot-standby master",
-    "autoscale": "the autoscaler",
-    "row_pod_autoscale": "row-service pods grown and drained with splits",
-    "sched": "the gang scheduler",
-    "stream_dir": "streaming ingestion",
-    "probes": "the synthetic prober",
+    "image_name": ("the k8s instance manager (worker pods)", "8d-iii"),
+    "autoscale": ("the autoscaler", "8d-iii"),
+    "row_pod_autoscale": (
+        "row-service pods grown and drained with splits", "8d-iii"),
+    "sched": ("the gang scheduler", "8d-ii"),
+    "stream_dir": ("streaming ingestion", "8d-ii"),
+    "probes": ("the synthetic prober", "8d-ii"),
 }
 
 
 def _refuse_unported(args):
-    for flag, what in _NOT_PORTED.items():
+    for flag, (what, item) in _NOT_PORTED.items():
         if getattr(args, flag, None):
             raise NotImplementedError(
                 f"--{flag}: {what} is not ported yet (ROADMAP Queue 1, "
-                "item 8d)"
+                f"item {item})"
             )
 
 
@@ -124,7 +135,15 @@ def build_dispatcher(args, spec) -> TaskDispatcher:
 
 
 class Master:
-    def __init__(self, args):
+    def __init__(self, args, warm_state=None):
+        """``warm_state`` (the ``--standby`` promotion handover):
+        ``{"dispatcher": a continuously-replayed TaskDispatcher,
+        "stats": its replay carry}``. With it, construction SKIPS the
+        cold journal replay — the standby already folded every record
+        into the dispatcher it hands over, and published the fence —
+        and only opens the new generation and re-arms around the warm
+        state. Without it: a fresh dispatcher, and a full recovery
+        replay when the journal has state."""
         _refuse_unported(args)
         self._args = args
         # The master trains nothing: the zoo's model is built on the CPU.
@@ -141,7 +160,52 @@ class Master:
         )
         validation_data = getattr(args, "validation_data", "")
         training_data = getattr(args, "training_data", "")
-        self.task_dispatcher = build_dispatcher(args, self._spec)
+        if warm_state is not None:
+            self.task_dispatcher = warm_state["dispatcher"]
+        else:
+            self.task_dispatcher = build_dispatcher(args, self._spec)
+
+        # Crash recovery (master/journal.py): with --journal_dir the
+        # dispatcher writes every dispatch/report through the journal;
+        # a restarted master replays snapshot + tail here, AFTER the
+        # deferred callback and max-steps config above, which replay
+        # depends on, and BEFORE the servicer exists, so it is born
+        # with the recovered state.
+        from elasticdl_tpu_torch.master.journal import (
+            MasterJournal,
+            recover_master_state,
+        )
+
+        self._journal = None
+        self._recovery_stats = None
+        journal_dir = getattr(args, "journal_dir", "")
+        if warm_state is not None and not journal_dir:
+            raise ValueError(
+                "warm_state handover requires --journal_dir (the "
+                "standby replays FROM it)"
+            )
+        if journal_dir:
+            self._journal = MasterJournal(journal_dir)
+            if warm_state is not None:
+                # Warm promotion: no replay — the handed-over
+                # dispatcher IS the replayed state (tail included; the
+                # caller drained it after publishing the fence). Open
+                # our generation above the fence, stamp the fence
+                # record, and re-attach write-through.
+                stats = dict(warm_state["stats"])
+                stats["known_workers"] = sorted(stats["known_workers"])
+                generation = self._journal.open_generation()
+                self._journal.append("fence", generation=generation)
+                self.task_dispatcher.attach_journal(self._journal)
+                stats["generation"] = generation
+                self._recovery_stats = stats
+            elif self._journal.has_state():
+                self._recovery_stats = recover_master_state(
+                    self._journal, self.task_dispatcher
+                )
+            else:
+                self._journal.open_generation()
+                self.task_dispatcher.attach_journal(self._journal)
         tb_service = None
         if getattr(args, "tensorboard_log_dir", ""):
             from elasticdl_tpu_torch.master.tensorboard_service import (
@@ -165,6 +229,16 @@ class Master:
             eval_only=bool(validation_data and not training_data),
             summary_writer=tb_service,
         )
+        if self._journal is not None:
+            # Round state is event-sourced onto the same journal:
+            # restore the replayed open round FIRST (a recovered master
+            # resumes it instead of dropping the metrics), then attach
+            # for write-through.
+            if self._recovery_stats is not None:
+                self.evaluation_service.restore_recovered(
+                    self._recovery_stats.get("eval")
+                )
+            self.evaluation_service.attach_journal(self._journal)
         # Telemetry plane: master-local registry (dispatcher gauges,
         # straggler counter) + worker snapshot aggregation + /metrics;
         # selected aggregates mirror into TensorBoard each run tick.
@@ -210,7 +284,26 @@ class Master:
             self.evaluation_service,
             task_timeout_secs=getattr(args, "task_timeout_secs", 300.0),
             metrics_plane=self.metrics_plane,
+            journal=self._journal,
+            generation=(
+                self._journal.generation if self._journal else 0
+            ),
         )
+        if self._recovery_stats is not None:
+            # Re-arm the servicer with the recovered high-water marks:
+            # eval triggering continues from the journaled model
+            # version, and surviving leases get fresh straggler clocks.
+            self.servicer.model_version = self._recovery_stats[
+                "model_version"
+            ]
+            self.servicer.seed_task_start_times(
+                list(self.task_dispatcher.doing_start_times())
+            )
+            if self._recovery_stats.get("resize"):
+                # Crash mid-resize: re-offer the pending directive.
+                self.servicer.rearm_resize(
+                    self._recovery_stats["resize"]
+                )
         self._server = None
         # SIGTERM grace path (main() installs the handler): the run
         # loop exits at the next poll tick and stop() tears the job
@@ -223,8 +316,9 @@ class Master:
     def _build_row_reshard(self):
         """Row-plane elasticity: the master hosts the shard-map authority
         over the --row_service_addr fleet and ticks its policy in the
-        run loop. The state file must be named: the JAX master's default
-        under ``--journal_dir`` waits for the journal (item 8d)."""
+        run loop. Its state file is ``--row_reshard_state``, else
+        ``<journal_dir>/shard_map.json``; its epochs ride the journal
+        as ``shard_map`` records."""
         from elasticdl_tpu_torch.master.row_reshard import (
             ReshardPolicy,
             ShardMapController,
@@ -240,13 +334,15 @@ class Master:
             raise ValueError("--row_reshard needs --row_service_addr")
         state_path = getattr(args, "row_reshard_state", "")
         if not state_path:
-            raise ValueError(
-                "--row_reshard needs --row_reshard_state (the JAX "
-                "master's default, <journal_dir>/shard_map.json, waits "
-                "for the journal: ROADMAP Queue 1, item 8d)")
+            journal_dir = getattr(args, "journal_dir", "")
+            if not journal_dir:
+                raise ValueError(
+                    "--row_reshard needs --row_reshard_state (or a "
+                    "--journal_dir to default into)")
+            state_path = os.path.join(journal_dir, "shard_map.json")
         self.row_reshard = ShardMapController(
             state_path,
-            journal=None,
+            journal=self._journal,
             policy=ReshardPolicy(
                 replica_top_k=int(getattr(args, "row_replica_top_k", 64)),
                 replica_count=int(getattr(args, "row_replica_count", 2)),
@@ -363,14 +459,129 @@ class Master:
         self.evaluation_service.stop()
         if self._server is not None:
             self._server.stop(grace=2.0)
+        # After the server: an in-flight report draining through the
+        # grace period still writes through the journal; closing first
+        # would turn it into an INTERNAL error at the worker.
+        if self._journal is not None:
+            self._journal.close()
 
     @property
     def port(self):
         return self._server.port if self._server else None
 
 
+def run_standby(args) -> int:
+    """``--standby`` role: keep a WARM continuously-replayed dispatcher
+    by tailing the primary's journal, heartbeat the primary, and on
+    missed heartbeats FENCE the old incarnation and promote into a full
+    ``Master`` that ADOPTS the warm dispatcher.
+
+    The standby pays the cold start (interpreter, imports, model-spec
+    load) up front and amortizes the journal replay over its lifetime:
+    each poll folds only the appended tail into the warm dispatcher
+    (``StandbyMaster.poll_journal``), so promotion replays nothing but
+    the last partial poll, and ``Master(args, warm_state=...)`` skips
+    ``recover_master_state``. The JAX standby also reports into the
+    primary's cluster view for the SLO absence rule; the port has no
+    component reporter yet (ROADMAP item 8f)."""
+    from elasticdl_tpu_torch.master.standby import StandbyMaster
+    from elasticdl_tpu_torch.observability import default_registry
+
+    journal_dir = getattr(args, "journal_dir", "")
+    if not journal_dir:
+        logger.error("--standby requires --journal_dir (shared with "
+                     "the primary)")
+        return 2
+    # Before the wait, not at promotion: a standby of a job the port
+    # cannot run must fail at its start.
+    _refuse_unported(args)
+    primary = getattr(args, "primary_addr", "") or args.master_addr
+    heartbeat_secs = float(getattr(args, "standby_heartbeat_secs", 1.0))
+    miss_threshold = int(getattr(args, "standby_miss_threshold", 3))
+    m_failover = default_registry().histogram(
+        "master_failover_seconds",
+        "Hot-standby takeover latency: primary declared dead -> "
+        "promoted master serving",
+    )
+    # Pre-warm the expensive import path (model zoo + spec); the spec
+    # also feeds the warm dispatcher factory below — the standby MUST
+    # build dispatchers from the identical job config the primary used,
+    # or its replay diverges. Bounded retries: a transient zoo read
+    # error at start must not one-shot the process and silently strip
+    # the job's failover protection.
+    spec = None
+    for attempt in range(5):
+        try:
+            spec = get_model_spec(
+                model_zoo=args.model_zoo, model_def=args.model_def,
+                dataset_fn=args.dataset_fn, loss=args.loss,
+                optimizer=args.optimizer,
+                eval_metrics_fn=args.eval_metrics_fn,
+                callbacks=args.callbacks,
+                custom_data_reader=args.custom_data_reader,
+                device="cpu",
+            )
+            break
+        except Exception as exc:
+            logger.warning(
+                "standby spec load failed (attempt %d/5): %s",
+                attempt + 1, exc,
+            )
+            time.sleep(2.0)
+    if spec is None:
+        logger.error(
+            "standby cannot load the model spec; exiting (the spec "
+            "builds the warm dispatcher — without it promotion would "
+            "diverge from the primary's replay)"
+        )
+        return 2
+    # The warm tail: StandbyMaster's poll/heartbeat halves only — the
+    # promotion itself goes through Master(warm_state=) below, so the
+    # CLI role keeps the whole assembly.
+    standby = StandbyMaster(
+        journal_dir,
+        dispatcher_factory=lambda: build_dispatcher(args, spec),
+        assemble=None,
+        primary_addr=primary,
+        serve_addr="",
+        heartbeat_secs=heartbeat_secs,
+        miss_threshold=miss_threshold,
+    )
+    logger.info(
+        "standby: heartbeating %s every %.2fs (takeover after %d "
+        "misses), warm-tailing %s", primary, heartbeat_secs,
+        miss_threshold, standby._journal.path,
+    )
+    while True:
+        standby.heartbeat()
+        standby.poll_journal()
+        if standby._misses >= miss_threshold:
+            break
+        time.sleep(heartbeat_secs)
+    t_detect = time.monotonic()
+    standby.stop()
+    # Fence FIRST (a partitioned-but-alive primary must be locked out
+    # of the journal before the promoted master trusts its replay),
+    # drain the race, release the journal — StandbyMaster.hand_over
+    # keeps this ordering in ONE place with the embedded take_over.
+    warm = standby.hand_over()
+    logger.warning(
+        "standby taking over: fence generation %d published; "
+        "promoting the WARM dispatcher into a full master "
+        "(%d record(s) were warm-replayed over this standby's "
+        "lifetime)", warm["fence_generation"],
+        warm["stats"]["replayed"],
+    )
+    master = Master(args, warm_state=warm)
+    master.prepare()
+    m_failover.observe(time.monotonic() - t_detect)
+    return master.run()
+
+
 def main(argv=None):
     args = parse_master_args(argv)
+    if getattr(args, "standby", False):
+        return run_standby(args)
     master = Master(args)
     master.prepare()
     # Graceful eviction: with a handler, run() exits at the next tick

@@ -32,8 +32,8 @@ retires a merged-away shard once no client can still route to it.
 Persistence: the state file is the authority's truth (tmp + fsync +
 rename, JSON with ``indent=2, sort_keys=True``). ``journal=`` takes any
 object with ``.append``: each published epoch also appends a
-``shard_map`` record there (the port's master passes none until its
-journal is ported, ROADMAP Queue 1, item 8d).
+``shard_map`` record there (the master passes its write-ahead journal,
+``master/journal.py``, when it runs with ``--journal_dir``).
 
 Splitting onto a new shard needs a process at the target address first
 (``python -m elasticdl_tpu_torch.embedding.row_service`` with the same

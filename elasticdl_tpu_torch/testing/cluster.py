@@ -17,9 +17,14 @@ the mesh (row-sharded tables), any other model through a ``MeshRunner``
 of the zoo module's layout extras; ``begin_resize`` opens the master's
 live-resize barrier.
 
-Not ported yet: ``journal_dir``/``restart_master`` (the master's
-journal and crash recovery), the chaos ``fault_injector`` and the
-``/metrics`` endpoint (ROADMAP Queue 1, item 8).
+With ``journal_dir`` the master writes through its journal
+(``master/journal.py``) and ``restart_master`` simulates a master crash
+and its journal-replay recovery mid-job: over gRPC the recovered master
+rebinds the same port, in process every client ``make_inprocess_client``
+made is rebound. The workers, each with its own model, are untouched.
+
+Not ported yet: the chaos ``fault_injector`` and the ``/metrics``
+endpoint (ROADMAP Queue 1, item 8).
 """
 
 import copy
@@ -67,6 +72,7 @@ class MiniCluster:
         device=None,
         random_seed: int = 0,
         mesh=None,
+        journal_dir: str = "",
     ):
         self.device = resolve_device(device)
         # The model's initial weights come from random_seed, as in the
@@ -103,7 +109,10 @@ class MiniCluster:
         self.predict_reader = (
             reader_of(prediction_data) if prediction_data else None
         )
-        self.dispatcher = TaskDispatcher(
+        # Kept for restart_master: a recovered dispatcher must be born
+        # from the IDENTICAL config (shards, sizing, seed) before the
+        # journal replays events into it.
+        self._dispatcher_config = dict(
             training_shards=(
                 self.train_reader.create_shards()
                 if self.train_reader else {}
@@ -120,13 +129,27 @@ class MiniCluster:
             num_epochs=num_epochs,
             shuffle=shuffle,
         )
+        self._eval_config = dict(
+            eval_steps=eval_steps,
+            eval_only=bool(validation_data and not training_data),
+        )
+        self.dispatcher = TaskDispatcher(**self._dispatcher_config)
+        self.journal_dir = journal_dir
+        self._journal = None
+        if journal_dir:
+            from elasticdl_tpu_torch.master.journal import MasterJournal
+
+            self._journal = MasterJournal(journal_dir)
+            self._journal.open_generation()
+            self.dispatcher.attach_journal(self._journal)
         metrics_fns = (
             self.spec.eval_metrics_fn() if self.spec.eval_metrics_fn else {}
         )
         self.eval_service = EvaluationService(
-            self.dispatcher, metrics_fns, eval_steps=eval_steps,
-            eval_only=bool(validation_data and not training_data),
+            self.dispatcher, metrics_fns, **self._eval_config
         )
+        if self._journal is not None:
+            self.eval_service.attach_journal(self._journal)
         # Telemetry: in-process tests share ONE process registry across
         # master and workers (production is one worker per process);
         # per-worker keying comes from each client's worker_id at report
@@ -138,7 +161,14 @@ class MiniCluster:
         self.servicer = MasterServicer(
             self.dispatcher, self.eval_service,
             metrics_plane=self.metrics_plane,
+            journal=self._journal,
+            generation=(
+                self._journal.generation if self._journal else 0
+            ),
         )
+        # Every InProcessMaster handed out registers here so
+        # restart_master can rebind them all to the recovered servicer.
+        self._inprocess_clients: List[InProcessMaster] = []
 
         self._server = None
         self._use_rpc = use_rpc
@@ -182,8 +212,8 @@ class MiniCluster:
                     connect_timeout=10, retries=1,
                 )
             else:
-                client = InProcessMaster(
-                    self.servicer, worker_id=wid, callbacks=worker_callbacks
+                client = self.make_inprocess_client(
+                    wid, callbacks=worker_callbacks
                 )
             runner = (
                 step_runner_factory() if step_runner_factory else None
@@ -224,6 +254,81 @@ class MiniCluster:
                     random_seed=random_seed,
                 )
             )
+
+    def make_inprocess_client(self, worker_id: int,
+                              callbacks=None) -> InProcessMaster:
+        """An InProcessMaster bound to the CURRENT servicer and
+        registered for restart_master's rebinding (a client bound to a
+        discarded servicer would keep mutating dead state)."""
+        client = InProcessMaster(
+            self.servicer, worker_id=worker_id, callbacks=callbacks
+        )
+        self._inprocess_clients.append(client)
+        return client
+
+    def restart_master(self) -> dict:
+        """Simulated master crash + journal-replay recovery (needs
+        ``journal_dir``). The old dispatcher, eval service and servicer
+        are DISCARDED, as a dead process would lose them: a fresh
+        dispatcher is built from the identical config and
+        ``recover_master_state`` replays the journal into it (the path
+        ``master/main.py`` runs on a real restart). Over gRPC the server
+        rebinds the same port (the workers' ride-out reconnects to it);
+        in process the registered clients are rebound. Returns the
+        replay stats."""
+        from elasticdl_tpu_torch.comm.rpc import RpcServer
+        from elasticdl_tpu_torch.master.journal import (
+            MasterJournal,
+            recover_master_state,
+        )
+
+        if self._journal is None:
+            raise RuntimeError(
+                "restart_master needs MiniCluster(journal_dir=...)"
+            )
+        port = self._server.port if self._server is not None else None
+        if self._server is not None:
+            self._server.stop(0)
+            self._server = None
+        self._journal.close()
+        # A new handle, as a new process would open: the old one's
+        # journal-side mirrors (eval round, model version) died with it,
+        # and its open_generation scan would fold the file onto them a
+        # second time. (The JAX seam reuses its handle.)
+        self._journal = MasterJournal(self.journal_dir)
+        dispatcher = TaskDispatcher(**self._dispatcher_config)
+        metrics_fns = (
+            self.spec.eval_metrics_fn() if self.spec.eval_metrics_fn else {}
+        )
+        eval_service = EvaluationService(
+            dispatcher, metrics_fns, **self._eval_config
+        )
+        servicer = MasterServicer(
+            dispatcher, eval_service,
+            metrics_plane=self.metrics_plane,
+            journal=self._journal,
+        )
+        stats = recover_master_state(
+            self._journal, dispatcher, servicer=servicer,
+            eval_service=eval_service,
+        )
+        self.dispatcher = dispatcher
+        self.eval_service = eval_service
+        self.servicer = servicer
+        if self._use_rpc:
+            self._server = RpcServer(
+                f"localhost:{port}",
+                {SERVICE_NAME: self.servicer.handlers()},
+            ).start()
+        else:
+            for client in self._inprocess_clients:
+                client.rebind(self.servicer)
+        return stats
+
+    def stop(self):
+        """Close the journal (the server stops at the end of ``run``)."""
+        if self._journal is not None:
+            self._journal.close()
 
     def begin_resize(self, mesh, direction: str = "resize") -> int:
         """Open a live-resize barrier offering ``mesh`` to every worker

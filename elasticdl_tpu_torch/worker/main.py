@@ -28,8 +28,8 @@ write each version together, each its parts of the state
 and ``--checkpoint_dir_for_init`` (or a rolling directory that holds a
 version) restores onto the job's layout. The gang restart that
 relaunches every process on a membership change is not ported (ROADMAP
-item 8d). The XLA compilation cache and the step profiler have no flag
-here.
+item 8d-iii). The XLA compilation cache and the step profiler have no
+flag here.
 """
 
 import os

@@ -145,7 +145,7 @@ def test_worker_main_needs_cuda_unless_cpu_is_asked_for(records):
         argv + ["--device", "cpu", "--row_service_addr", "x:1"]),
         master_client=object())
     assert worker._step_runner is None
-    for flag in (["--journal_dir", "/j"], ["--image_name", "img"]):
+    for flag in (["--stream_dir", "/s"], ["--image_name", "img"]):
         with pytest.raises(NotImplementedError, match="item 8"):
             Master(build_parser("master").parse_args(
                 _job_flags(tdata.model_zoo_dir(), train, evalf) + flag))
