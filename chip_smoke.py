@@ -37,6 +37,8 @@
     python3 chip_smoke.py --phase failover # 11f (a) and (e) alone, the
                                            # port's failover drill and
                                            # the journal's fsync times
+    python3 chip_smoke.py --phase sched  # the port's sched and stream
+                                         # drills, host only, no build
 
 1. Prints the card (``nvidia-smi`` name and power limit), versions, and
    whether ``grpc`` can be imported.
@@ -255,6 +257,40 @@
    failover drill (``chaos/failover_drill.py``: a twin, a standby run and
    a restart-and-replay run, held to the drill's gates) and one journal
    append's and one bare write+fsync's p50/p99 on the host's disk.
+   (f) A streaming recsys job under the gang scheduler: ``master.main
+   --sched --stream_dir S --journal_dir J --stream_max_todo 4
+   --stream_eval_every_records 2048 --validation_data <(a)'s eval
+   records>`` and a worker wrapper on the card (``worker.main --stream_dir
+   S`` with (a)'s RecordFile as its batch reader; its step runner behind a
+   proxy that counts train steps and eval batches), both importing
+   behind go files from the phase's start; the job starts after (a) and
+   runs beside (b)-(e) (in the whole smoke it ends beside the rowservice
+   and fleet phases), on its own copy of (a)'s records (the same
+   generator and seeds: the same bytes). A producer thread here appends
+   (a)'s training records to two partitions (256, then 1536
+   while the stream job is preempted, so the ingestor backpressures,
+   then 256 after the relaunch, a partition). After the first stream task
+   commits, a priority-10 batch job over 2048 records of (a)'s RecordFile
+   arrives over ``submit_job``, preempts the stream job and runs to done;
+   the stream job resumes; the worker holds the report of its first
+   stream task after the resume at a pause, the journal (replayed here)
+   shows the stream job running, the batch job done and the task leased,
+   and the master is SIGKILLed; a cold relaunch (imported ahead behind a
+   go file) replays the journal. Once the committed watermarks reach the
+   appended ends and an eval round has closed, the worker and then the
+   relaunch get SIGTERM. The final journal counts every stream record
+   once (committed = appended = next, the successful stream ranges tile
+   each partition, the training counter equals the appended total), the
+   worker's accepted batch reports tile the batch job once, the ``sched``
+   fold has the batch job done and exactly one preemption of the stream
+   job (which stays running: nothing in either package closes a stream
+   from outside the master), the watermark sampled from ``/stream`` in
+   both incarnations never goes back and resumes at or above the one
+   committed at the kill, the port's ``check_journal`` and check_stream's
+   contiguity and journal-coverage checks find nothing, and the worker's
+   launches are #6 = its steps + its eval batches, #7 = its steps; the
+   kill-to-first-task time, the backpressure seconds and the handback
+   count are printed.
 11g. ``rowservice`` (the row service; ``--phase rowservice`` runs it
    alone, with no kernel build): deepfm_host's 5500 x 16 native table
    behind the port's ``HostRowService`` over localhost gRPC, 2048 frappe
@@ -283,11 +319,25 @@
    commit; the 5500 x 16 table is ~10x the budget): its ``row_tier_*``
    readings from ``/metrics`` (``--metrics_port 0``) show at most 512 hot
    rows, evictions and cold rows. (f) Through the relaunch, 2 more
-   durably acked pushes (versions 6 and 7, under the checkpoint
-   interval), the touched rows read, then SIGKILL: the port's
-   ``tools.check_pushlog`` finds the log clean, and the third incarnation
-   restores version 5, replays exactly 2 records and answers the pull
-   bit for bit. Step
+   durably acked pushes (the two versions after the drained one, under
+   the checkpoint interval), the touched rows read, then SIGKILL: the
+   port's ``tools.check_pushlog`` finds the log clean, and the third
+   incarnation restores the drained version, replays exactly 2 records
+   and answers the pull bit for bit. (j) A port ``Master`` in this process with ``--probes
+   --probe_interval_secs 0.25 --row_service_addr <(c)'s service>``,
+   prepared before (c)'s workers start: once (c)'s job is done,
+   ``dispatch_roundtrip``, ``row_ryw`` and ``reshard_convergence`` are
+   green with 3 runs or more each, ``/healthz`` answers 200 and the
+   master's ``/usage`` meters the probes under ``canary``; the prober is
+   stopped and topped up (its row_ryw probe run by hand) to a multiple of
+   4 canary pushes, so (c)'s push count is its 5 job pushes plus the
+   canary pushes the service meters under ``canary``, the drained
+   version is that count, the checkpoint's rows outside the canary range
+   are exactly the job's, its canary rows are the probes' ids, and (f)'s
+   pushes cross no checkpoint boundary. After (c)'s SIGTERM the prober
+   runs again until row_ryw is red (``unhealthy_after`` failures, a
+   reason of ``REASONS``) and ``/healthz`` answers 503, before the
+   relaunch's go file; every kernel counter reads 0 over (j). Step
    ms (CUDA events) beside issue ms for (a)'s and (c)'s workers. Every
    kernel counter is zeroed just before each run and reads 0 after it.
    (d) ``--phase rowservice`` only: pull and push at the recsys shape
@@ -920,9 +970,10 @@ WORKER_RPCS = ("get_task", "report_task_result", "report_version",
 # the rows gathered from both equal to (a)'s, and so the export. (c) The
 # service's own main in a subprocess (``--checkpoint_steps``
 # ROWSVC_CKPT_STEPS) shared by two workers with the zoo's async runner
-# over ROWSVC_C_RECORDS records (two tasks, 5 pushes: an interval
-# checkpoint at 4, the SIGTERM drain at 5); a relaunch restores the
-# drained version and answers a pull with the saved rows bit for bit.
+# over ROWSVC_C_RECORDS records (two tasks, 5 job pushes beside (j)'s
+# canary pushes, a multiple of ROWSVC_CKPT_STEPS: interval checkpoints,
+# then the SIGTERM drain); a relaunch restores the drained version and
+# answers a pull with the saved rows bit for bit.
 # Each start imports torch (~8 s on the chip machine), so all three
 # incarnations are started ahead (the later two behind go files) and
 # import while the worker phase runs.
@@ -4520,18 +4571,11 @@ def worker_wire_finish(wire, want, failed=False):
     return out
 
 
-# (e): (d)'s job through a journaled primary ``master.main`` and a
-# ``--standby`` on one journal directory, and a cold relaunch; every
-# process starts before (a) and imports while it runs, behind a go file
-# that carries its argv (JSON) when the run reaches it. The worker
-# subprocess runs this wrapper around ``worker.main``'s entry point,
-# which also makes its CUDA context while it waits. It holds its first
-# training task's report (and then its first evaluation task's, after
-# the task's fold went in) at a pause: it writes ``<pause>.at`` and waits
-# for ``<pause>.go``, so each SIGKILL lands on a known state. It times
-# every master RPC and prints its kernel launches and those times as its
-# last line.
-FAILOVER_WORKER = """\
+# The worker wrappers' common part: the imports, the CUDA context made
+# while the process waits for its go file (argv 3, JSON), the argv, and
+# a wrapper that times every master RPC (name, CLOCK_MONOTONIC, ok, the
+# generation seen, a pulled task's type).
+WORKER_WRAPPER_HEAD = """\
 import json, os, sys, time
 import torch
 from elasticdl_tpu_torch.ops import flash_attention as fa
@@ -4545,7 +4589,6 @@ while not os.path.exists(sys.argv[3]):
     time.sleep(0.005)
 with open(sys.argv[3]) as fh:
     argv = json.load(fh)
-pauses = {"training": sys.argv[1], "evaluation": sys.argv[2]}
 kinds, rpcs = {}, []
 get_task = mc.MasterClient.get_task
 report = mc.MasterClient.report_task_result
@@ -4564,6 +4607,31 @@ def timed(name, fn):
                      kind])
         return out
     return call
+"""
+# The wrappers' launch counters, printed in their last line.
+WORKER_WRAPPER_LAUNCHES = '''{
+    "flash_attention_fwd": fa.launches,
+    "flash_chunk_update": fa.chunk_launches,
+    "flash_attention_bwd_dq": fa.dq_launches,
+    "flash_attention_bwd_dkv": fa.dkv_launches,
+    "lookup_combine": pe.lookup_launches,
+    "lookup_combine_aligned": pe.aligned_launches,
+    "row_update": pe.row_update_launches,
+    "row_update_adagrad": pe.row_update_rule_launches["adagrad"],
+    "fused_row_update": pe.fused_launches}'''
+# (e): (d)'s job through a journaled primary ``master.main`` and a
+# ``--standby`` on one journal directory, and a cold relaunch; every
+# process starts before (a) and imports while it runs, behind a go file
+# that carries its argv (JSON) when the run reaches it. The worker
+# subprocess runs this wrapper around ``worker.main``'s entry point,
+# which also makes its CUDA context while it waits. It holds its first
+# training task's report (and then its first evaluation task's, after
+# the task's fold went in) at a pause: it writes ``<pause>.at`` and waits
+# for ``<pause>.go``, so each SIGKILL lands on a known state. It times
+# every master RPC and prints its kernel launches and those times as its
+# last line.
+FAILOVER_WORKER = WORKER_WRAPPER_HEAD + """
+pauses = {"training": sys.argv[1], "evaluation": sys.argv[2]}
 
 
 def pulled(self, *args, **kwargs):
@@ -4585,18 +4653,9 @@ def held(self, task_id, *args, **kwargs):
 mc.MasterClient.get_task = timed("get_task", pulled)
 mc.MasterClient.report_task_result = timed("report_task_result", held)
 code = worker_main.main(argv)
-print(json.dumps({"launches": {
-    "flash_attention_fwd": fa.launches,
-    "flash_chunk_update": fa.chunk_launches,
-    "flash_attention_bwd_dq": fa.dq_launches,
-    "flash_attention_bwd_dkv": fa.dkv_launches,
-    "lookup_combine": pe.lookup_launches,
-    "lookup_combine_aligned": pe.aligned_launches,
-    "row_update": pe.row_update_launches,
-    "row_update_adagrad": pe.row_update_rule_launches["adagrad"],
-    "fused_row_update": pe.fused_launches}, "rpcs": rpcs}), flush=True)
+print(json.dumps({"launches": %s, "rpcs": rpcs}), flush=True)
 sys.exit(code or 0)
-"""
+""" % WORKER_WRAPPER_LAUNCHES
 # The master's main behind a go file: the process imports the package
 # at once and runs ``main`` on the argv the file holds when it appears.
 WAITING_MASTER = (
@@ -4877,24 +4936,540 @@ def worker_failover_finish(fo, a_job, want_counts, failed=False):
     return out
 
 
-def worker_phase(torch, fa, pe, root):
+# (f): a streaming recsys job under the gang scheduler, through
+# ``master.main --sched --stream_dir S --journal_dir J`` and a worker on
+# the card that reads S (stream tasks) and its copy of (a)'s RecordFile
+# (the batch job's tasks and the eval rounds). A producer thread here
+# appends (a)'s training records to two partitions in STREAM_CHUNKS;
+# mid-stream a priority-10 batch job over STREAM_BATCH_RECORDS of (a)'s
+# RecordFile arrives over ``submit_job``, preempts the stream job and
+# runs to done; once the stream job has resumed and its worker holds a
+# stream task's report at a pause, the master is SIGKILLed and a cold
+# relaunch (imported ahead behind a go file, like (e)'s) replays the
+# journal. When the
+# committed watermarks reach the appended ends the worker and then the
+# master are stopped with SIGTERM. The worker wrapper counts its train
+# steps and eval batches through a proxy of its step runner.
+STREAM_WORKER = WORKER_WRAPPER_HEAD + """
+pause, arm = sys.argv[1], sys.argv[2]
+counts = {"steps": 0, "eval_batches": 0}
+reports = []
+
+
+def pulled(self, *args, **kwargs):
+    task, finished = get_task(self, *args, **kwargs)
+    if task is not None and task.task_id >= 0:
+        kinds[task.task_id] = dict(
+            type=task.type, job=self.last_job, shard=task.shard_name,
+            start=task.start, end=task.end,
+            stream=bool((task.extended_config or {}).get("stream")),
+            armed=os.path.exists(arm))
+    return task, finished
+
+
+def held(self, task_id, *args, **kwargs):
+    kind = kinds.get(task_id) or {}
+    if (kind.get("stream") and kind.get("armed")
+            and kind.get("type") == "training"
+            and not os.path.exists(pause + ".at")):
+        open(pause + ".at", "w").close()
+        while not os.path.exists(pause + ".go"):
+            time.sleep(0.005)
+    accepted = report(self, task_id, *args, **kwargs)
+    reports.append([task_id, kind, bool(accepted), time.monotonic()])
+    return accepted
+
+
+class Counted:
+    def __init__(self, inner):
+        self._inner = inner
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def train_step(self, loss_fn):
+        step = self._inner.train_step(loss_fn)
+
+        def counted(*args, **kwargs):
+            counts["steps"] += 1
+            return step(*args, **kwargs)
+        return counted
+
+    def eval_step(self, *a, **k):
+        step = self._inner.eval_step(*a, **k)
+
+        def counted(*args, **kwargs):
+            counts["eval_batches"] += 1
+            return step(*args, **kwargs)
+        return counted
+
+
+build = worker_main.build_worker
+
+
+def built(*args, **kwargs):
+    worker = build(*args, **kwargs)
+    worker._step_runner = Counted(worker._step_runner)
+    return worker
+
+
+worker_main.build_worker = built
+mc.MasterClient.get_task = timed("get_task", pulled)
+mc.MasterClient.report_task_result = timed("report_task_result", held)
+code = worker_main.main(argv)
+print(json.dumps({"launches": %s, "counts": counts, "rpcs": rpcs,
+                  "reports": reports}), flush=True)
+sys.exit(code or 0)
+""" % WORKER_WRAPPER_LAUNCHES
+STREAM_PARTITIONS = ("clicks", "views")
+# Records a partition each chunk appends: before the go, after the batch
+# job preempted the stream job (more tasks than STREAM_MAX_TODO: the
+# ingestor backpressures until the resume), after the relaunch serves.
+STREAM_CHUNKS = (256, 1536, 256)
+STREAM_BATCH_RECORDS, STREAM_BATCH_TASK = 2048, 1024
+STREAM_MAX_TODO, STREAM_EVAL_EVERY = 4, 2048
+STREAM_SAMPLE_S = 0.1
+
+
+def worker_stream_prestart(root):
+    """(f), before (a): its master, the cold relaunch and the worker
+    wrapper start importing behind their go files. None when there is no
+    grpc module."""
+    import importlib.util
+
+    if importlib.util.find_spec("grpc") is None:
+        return None
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (here, env.get("PYTHONPATH", "")) if p)
+    base = os.path.join(root, "stream_f")
+    os.makedirs(base)
+    wrapper = os.path.join(base, "stream_worker.py")
+    with open(wrapper, "w") as fh:
+        fh.write(STREAM_WORKER)
+    logs, procs = {}, {}
+    for name in ("master", "relaunch", "worker"):
+        logs[name] = open(os.path.join(base, f"{name}.log"), "w+")
+        entry = (["-c", WAITING_MASTER] if name != "worker" else
+                 [wrapper, os.path.join(base, "pause"),
+                  os.path.join(base, "arm")])
+        procs[name] = subprocess.Popen(
+            [sys.executable, *entry, os.path.join(base, f"{name}.go")],
+            env=env, cwd=root, stdout=logs[name], stderr=subprocess.STDOUT)
+    return dict(procs=procs, logs=logs, base=base, error=None, marks={},
+                samples=[], last={})
+
+
+def http_json(port, path):
+    with urllib.request.urlopen(f"http://localhost:{port}{path}",
+                                timeout=10) as resp:
+        return json.loads(resp.read())
+
+
+def metrics_port_of(log):
+    import re
+
+    found = re.search(r"/metrics serving on port (\d+)", log_text(log))
+    return int(found.group(1)) if found else None
+
+
+def stream_journal_replay(args, journal_dir):
+    """The journal at ``journal_dir`` replayed into a fresh streaming
+    dispatcher, ``build_dispatcher``'s for (f)'s flags (whose streaming
+    branch reads of the spec only its custom reader, so no zoo model is
+    built in this process): (dispatcher, replay carry)."""
+    import types
+
+    from elasticdl_tpu_torch.master.journal import MasterJournal, apply_replay
+    from elasticdl_tpu_torch.master.main import build_dispatcher
+
+    dispatcher = build_dispatcher(
+        args, types.SimpleNamespace(custom_data_reader=None))
+    carry = apply_replay(dispatcher,
+                         MasterJournal(journal_dir).replay_records())
+    return dispatcher, carry
+
+
+def stream_job_files(root):
+    """(f)'s job: (a)'s training and eval records (the same generator and
+    seeds, so the same bytes, in files of its own, which (f)'s worker
+    reads while (a)'s later parts run) and the recsys zoo module, kernels
+    pinned, under a name of its own."""
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    base = os.path.join(root, "stream_f")
+    return dict(
+        train=tdata.create_frappe_record_file(
+            os.path.join(base, "train.rec"), WORKER_RECORDS,
+            seed=SEED + 30, input_length=EMB_IDS, max_id=EMB_VOCAB),
+        evalf=tdata.create_frappe_record_file(
+            os.path.join(base, "eval.rec"), WORKER_EVAL_RECORDS,
+            seed=SEED + 31, input_length=EMB_IDS, max_id=EMB_VOCAB),
+        zoo=write_zoo(root, "stream_recsys",
+                      RECSYS_ZOO.format(mode="always")),
+        model_def="stream_recsys.rec.custom_model")
+
+
+def worker_stream_start(fs, a_job):
+    """(f), first half: the go files of the master and the worker, the
+    producer's first chunk, then a thread that submits the batch job,
+    arms the worker's pause once the stream job is preempted, kills the
+    master at the pause (the journal read first), lets the relaunch go,
+    appends the rest and stops the worker and the relaunch once every
+    appended record is committed."""
+    from elasticdl_tpu_torch.common.args import parse_master_args
+    from elasticdl_tpu_torch.data.record_file import RecordFileScanner
+    from elasticdl_tpu_torch.data.stream import StreamWriter
+
+    if fs is None:
+        return None
+    procs, logs, base = fs["procs"], fs["logs"], fs["base"]
+    stream_dir = os.path.join(base, "stream")
+    journal_dir = os.path.join(base, "journal")
+    (port,) = free_ports(1)
+    flags = ["--model_zoo", a_job["zoo"], "--model_def", a_job["model_def"],
+             "--minibatch_size", str(EMB_BATCH),
+             "--num_minibatches_per_task", "1",
+             "--random_seed", str(SEED), "--stream_dir", stream_dir,
+             "--validation_data", a_job["evalf"]]
+    master_flags = flags + [
+        "--sched", "true", "--journal_dir", journal_dir,
+        "--job_name", "stream", "--stream_max_todo", str(STREAM_MAX_TODO),
+        "--stream_eval_every_records", str(STREAM_EVAL_EVERY),
+        "--stream_poll_secs", "0.2", "--metrics_port", "0",
+        "--master_addr", f"localhost:{port}"]
+    with RecordFileScanner(a_job["train"]) as scanner:
+        payloads = list(scanner)
+    parts = {p: payloads[i::len(STREAM_PARTITIONS)]
+             for i, p in enumerate(STREAM_PARTITIONS)}
+    writer = StreamWriter(stream_dir)
+    appended = {p: 0 for p in STREAM_PARTITIONS}
+
+    def produce(n):
+        for i in range(n):
+            for p in STREAM_PARTITIONS:
+                writer.append(p, parts[p][appended[p]])
+                appended[p] += 1
+        fs["marks"].setdefault("appended", []).append(dict(appended))
+
+    produce(STREAM_CHUNKS[0])
+    fs.update(flags=master_flags, journal_dir=journal_dir, port=port,
+              args=parse_master_args(master_flags), appended=appended,
+              t0=time.monotonic())
+    go_with(os.path.join(base, "master.go"), master_flags)
+    go_with(os.path.join(base, "worker.go"), [
+        "--worker_id", "0", "--device", DEVICE,
+        "--master_addr", f"localhost:{port}",
+        "--master_reattach_grace", "120",
+        "--training_data", a_job["train"]] + flags)
+
+    def sample(name):
+        """/stream and /sched of the serving master ``name``, read at
+        most every STREAM_SAMPLE_S (the waits poll every 5 ms, and this
+        thread shares the GIL with (a)-(c))."""
+        last = fs["last"].get(name)
+        if last is not None and time.monotonic() - last[2] < STREAM_SAMPLE_S:
+            return last[:2]
+        mport = metrics_port_of(logs[name])
+        if mport is None:
+            return None
+        try:
+            got = (http_json(mport, "/stream"), http_json(mport, "/sched"))
+        except (OSError, ValueError):
+            return None
+        fs["samples"].append([time.monotonic(), name, {
+            p: v["committed"] for p, v in got[0]["partitions"].items()}])
+        fs["last"][name] = (*got, time.monotonic())
+        return got
+
+    def wait_view(name, cond, what, timeout=300.0):
+        watch = [(procs["worker"], logs["worker"]),
+                 (procs[name], logs[name])]
+        got = [None]
+
+        def ready():
+            got[0] = sample(name)
+            return got[0] is not None and cond(*got[0])
+
+        wait_for(ready, what, timeout=timeout, procs=watch)
+        return got[0]
+
+    def committed(stream):
+        return sum(v["committed"] for v in stream["partitions"].values())
+
+    def state(sched, job):
+        return (sched["jobs"].get(job) or {}).get("state")
+
+    def choreography():
+        from elasticdl_tpu_torch.comm.rpc import RpcStub
+        from elasticdl_tpu_torch.master.servicer import SERVICE_NAME
+
+        wait_view("master", lambda s, _j: committed(s) >= EMB_BATCH,
+                  "the first stream task to commit")
+        fs["marks"]["first_commit"] = time.monotonic()
+        stub = RpcStub(f"localhost:{port}", SERVICE_NAME)
+        fs["submit"] = stub.call(
+            "submit_job", job="batch", priority=10, gang_size=1,
+            spec={"shards": {a_job["train"]: [0, STREAM_BATCH_RECORDS]},
+                  "records_per_task": STREAM_BATCH_TASK, "num_epochs": 1,
+                  "seed": 0})
+        stub.close()
+        fs["marks"]["submitted"] = time.monotonic()
+        wait_view("master", lambda _s, j: state(j, "stream") == "preempted",
+                  "the batch job to preempt the stream job")
+        fs["marks"]["preempted"] = time.monotonic()
+        go(os.path.join(base, "arm"))
+        produce(STREAM_CHUNKS[1])
+        watch = [(procs["worker"], logs["worker"]),
+                 (procs["master"], logs["master"])]
+        # /stream is sampled while the batch job runs (the stalled
+        # ingestor's backpressure seconds, the watermark).
+        wait_for(lambda: sample("master") is not None and os.path.exists(
+            os.path.join(base, "pause.at")),
+                 "the worker to hold a resumed stream task's report",
+                 procs=watch)
+        dispatcher, carry = stream_journal_replay(fs["args"], journal_dir)
+        jobs = carry["sched"]["jobs"]
+        leased = [t for _i, t, _w in dispatcher.export_state()["doing"]
+                  if t.get("extended_config", {}).get("stream")]
+        view = {"jobs": {j: e["state"] for j, e in jobs.items()},
+                "preemptions": carry["sched"]["preemptions"],
+                "leased_stream": [(t["shard_name"], t["start"], t["end"])
+                                  for t in leased],
+                "committed": {p: v["committed"] for p, v in
+                              dispatcher.stream_progress().items()},
+                "generation": carry["generation"]}
+        check(view["jobs"].get("stream") == "running"
+              and view["jobs"].get("batch") == "done"
+              and view["leased_stream"],
+              f"not a resumed stream job with a task leased: {view}")
+        fs["kill"] = dict(t=time.monotonic(), journal=view)
+        procs["master"].kill()
+        procs["master"].wait()
+        go_with(os.path.join(base, "relaunch.go"), master_flags)
+        go(os.path.join(base, "pause.go"))
+        wait_for(lambda: "Master RPC serving" in log_text(logs["relaunch"]),
+                 "the relaunch to serve",
+                 procs=[(procs["relaunch"], logs["relaunch"])])
+        fs["marks"]["relaunch_serving"] = time.monotonic()
+        produce(STREAM_CHUNKS[2])
+        end = dict(appended)
+        wait_view("relaunch", lambda s, _j: all(
+            s["partitions"].get(p, {}).get("committed") == end[p]
+            for p in STREAM_PARTITIONS), "every appended record committed")
+        fs["marks"]["committed"] = time.monotonic()
+        # The round opened at STREAM_EVAL_EVERY committed records closes
+        # (in either incarnation) before the stop.
+        wait_for(lambda: any("Eval @version" in log_text(logs[n])
+                             for n in ("master", "relaunch")),
+                 "a watermark eval round to close", timeout=120,
+                 procs=[(procs["relaunch"], logs["relaunch"])])
+        fs["marks"]["eval_closed"] = time.monotonic()
+        import signal
+
+        # Both at once: the worker exits from its WAIT loop, the master
+        # at its run loop's next tick.
+        procs["worker"].send_signal(signal.SIGTERM)
+        procs["relaunch"].send_signal(signal.SIGTERM)
+        procs["worker"].wait(timeout=120)
+        procs["relaunch"].wait(timeout=120)
+        fs["marks"]["stopped"] = time.monotonic()
+        writer.close()
+
+    def run():
+        try:
+            choreography()
+        except BaseException as exc:  # re-raised by the finish
+            fs["error"] = exc
+
+    fs["thread"] = threading.Thread(target=run, daemon=True)
+    fs["thread"].start()
+    return fs
+
+
+def worker_stream_finish(fs, failed=False):
+    """(f), second half: wait for the choreography, then hold the final
+    journal (replayed here), the port's check_journal and check_stream
+    checks, the watermark samples, the batch job's reports and the
+    worker's launches. With ``failed`` it only stops every process."""
+    import re
+
+    from elasticdl_tpu_torch.common.constants import TaskType
+    from elasticdl_tpu_torch.tools import check_stream
+    from elasticdl_tpu_torch.tools.check_journal import check_journal
+
+    if fs is None:
+        return {"run": False, "reason": "no grpc module"}
+    procs, logs = fs["procs"], fs["logs"]
+    try:
+        if not failed:
+            check("thread" in fs, "(f) never started")
+            fs["thread"].join(timeout=600)
+            check(not fs["thread"].is_alive(), "(f) never finished")
+            if fs["error"] is not None:
+                raise fs["error"]
+            check(procs["worker"].returncode == 0,
+                  f"the stream worker exited {procs['worker'].returncode}: "
+                  f"{log_text(logs['worker'])[-3000:]}")
+            check(procs["relaunch"].returncode == 0,
+                  "the relaunched stream master exited "
+                  f"{procs['relaunch'].returncode}: "
+                  f"{log_text(logs['relaunch'])[-3000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    texts = {name: log_text(log) for name, log in logs.items()}
+    for log in logs.values():
+        log.close()
+    if failed:
+        return None
+    worker_out = json.loads(texts["worker"].strip().splitlines()[-1])
+    dispatcher, carry = stream_journal_replay(fs["args"], fs["journal_dir"])
+    progress = dispatcher.stream_progress()
+    end = fs["appended"]
+    resolved = [t for _i, t, _w, requeued in
+                dispatcher.export_state()["resolved"]
+                if t and not requeued and t["type"] == TaskType.TRAINING]
+    spans = {p: sorted((t["start"], t["end"]) for t in resolved
+                       if t["shard_name"] == p) for p in STREAM_PARTITIONS}
+
+    def tiles(ranges, stop):
+        at = 0
+        for lo, hi in ranges:
+            if lo != at:
+                return False
+            at = hi
+        return at == stop
+
+    batch = sorted((k["start"], k["end"]) for _t, k, ok, _at in
+                   worker_out["reports"] if ok and k.get("job") == "batch")
+    kill, kill_t = fs["kill"]["journal"], fs["kill"]["t"]
+    # The watermark, sampled from /stream through both incarnations.
+    regress = []
+    last = {}
+    for at, name, seen in fs["samples"]:
+        for p, c in seen.items():
+            if c < last.get(p, 0):
+                regress.append((at, name, p, last[p], c))
+            last[p] = max(last.get(p, 0), c)
+    after = [s for s in fs["samples"] if s[1] == "relaunch"]
+    first_after = after[0][2] if after else {}
+
+    def first_task_after(t):
+        for name, at, ok, _gen, kind in worker_out["rpcs"]:
+            if at > t and ok and name == "get_task" and kind not in (
+                    None, TaskType.WAIT):
+                return at - t
+        return None
+
+    view = {p: {"committed": int(v["committed"]), "next": int(v["next"]),
+                "pending_ranges": len(v.get("pending") or {})}
+            for p, v in sorted(progress.items())}
+    fold = {p: {"committed": int(v["committed"]), "next": int(v["next"]),
+                "pending_ranges": len(v.get("pending") or {})}
+            for p, v in sorted(carry["stream"]["partitions"].items())}
+    run = {"final_progress": view, "journal_fold": fold}
+    stream_errors = []
+    report = {"config": {"partitions": list(STREAM_PARTITIONS),
+                         "records_per_partition": end[STREAM_PARTITIONS[0]]},
+              "kill": {"killed": run, "twin": run}}
+    check_stream._check_contiguity(report, stream_errors)
+    check_stream._check_journal_coverage(report, stream_errors)
+    handback = re.search(r"job stream: (\d+) leased task\(s\) handed back",
+                         texts["master"])
+    backpressure = {name: got[0]["backpressure_seconds"]
+                    for name, got in fs["last"].items()}
+    marks = {k: round(v - fs["t0"], 3) for k, v in fs["marks"].items()
+             if isinstance(v, float)}
+    marks["kill"] = round(kill_t - fs["t0"], 3)
+    counts = worker_out["counts"]
+    want = {k: 0 for k in worker_out["launches"]}
+    want.update(lookup_combine=counts["steps"] + counts["eval_batches"],
+                row_update=counts["steps"],
+                row_update_adagrad=counts["steps"])
+    results = carry["eval"]["results"]
+    out = {
+        "run": True, "wall_s": fs["marks"]["committed"] - fs["t0"],
+        "appended": end, "progress": view, "journal_fold": fold,
+        "generation": carry["generation"],
+        "sched": {j: {"state": e["state"], "preemptions": e["preemptions"]}
+                  for j, e in carry["sched"]["jobs"].items()},
+        "preemptions": carry["sched"]["preemptions"],
+        "records": dict(dispatcher.counters.total_records),
+        "stream_spans_tile": {p: tiles(spans[p], end[p])
+                              for p in STREAM_PARTITIONS},
+        "batch_reports": batch,
+        "check_journal": check_journal(fs["journal_dir"]),
+        "check_stream": stream_errors,
+        "watermark_samples": len(fs["samples"]), "regressions": regress,
+        "committed_at_kill": kill["committed"],
+        "first_after_relaunch": first_after,
+        "kill_journal": kill,
+        "kill_to_first_task_s": first_task_after(kill_t),
+        "kill_to_relaunch_serving_s": fs["marks"]["relaunch_serving"]
+        - kill_t,
+        "backpressure_s": backpressure,
+        "handed_back": int(handback.group(1)) if handback else 0,
+        "submit": fs["submit"], "marks_s": marks,
+        "eval_rounds_closed": sorted(int(k) for k in results),
+        "eval_results": {str(k): v for k, v in results.items()},
+        "counts": counts, "launches": worker_out["launches"],
+        "card": smi("name,power.limit"),
+    }
+    print("worker stream", json.dumps(out, default=str), flush=True)
+    check(out["generation"] == 1, f"final generation {out['generation']}")
+    check(all(view[p]["committed"] == end[p] for p in STREAM_PARTITIONS)
+          and all(out["stream_spans_tile"].values())
+          and out["records"].get(TaskType.TRAINING) == sum(end.values()),
+          f"the stream's offsets were not each resolved once: {out}")
+    check(batch == [(s, s + STREAM_BATCH_TASK) for s in range(
+        0, STREAM_BATCH_RECORDS, STREAM_BATCH_TASK)],
+          f"the batch job's records were not each resolved once: {batch}")
+    check(out["sched"].get("batch", {}).get("state") == "done"
+          and out["sched"].get("stream", {}).get("preemptions") == 1
+          and out["preemptions"] == 1,
+          f"the sched fold: {out['sched']}")
+    check(not regress and all(
+        first_after.get(p, 0) >= kill["committed"].get(p, 0)
+        for p in STREAM_PARTITIONS),
+          f"the watermark went back: {regress} {first_after} {kill}")
+    check(out["check_journal"] == [] and stream_errors == [],
+          f"journal checks: {out['check_journal']} {stream_errors}")
+    check(out["eval_rounds_closed"], "no watermark eval round closed")
+    check(out["launches"] == want,
+          f"stream worker launches {out['launches']}, not {want}")
+    return out
+
+
+def worker_phase(torch, fa, pe, root, defer_stream=False):
     """The task plane on the card: the recsys twin through the worker
     in process against Local, a failed task, deepfm_host through the
-    worker, the worker over gRPC, and the same job through a primary, a
-    standby and a cold relaunch with two SIGKILLs ((d)'s worker started
-    after (a), (e)'s processes before it, importing behind go files; both
-    jobs run while (b) and (c) run here)."""
+    worker, the worker over gRPC, the same job through a primary, a
+    standby and a cold relaunch with two SIGKILLs, and (f) a streaming
+    job under the gang scheduler that a batch job preempts and a
+    SIGKILLed master does not lose ((e)'s and (f)'s processes start
+    before (a), importing behind go files; (d)'s worker and (f)'s job
+    start after (a); the three jobs run while (b) and (c) run here).
+    With ``defer_stream`` the phase returns with (f) still running, in
+    ``out["stream"]``, for the caller's ``worker_stream_finish`` (the
+    whole smoke lets it end beside the row-service and fleet phases)."""
     t0 = time.monotonic()
     fo = worker_failover_prestart(root)
+    fs = worker_stream_prestart(root)
     try:
         out_a, a_job = worker_recsys_part(torch, fa, pe, root)
     except BaseException:
         worker_failover_finish(fo, None, None, failed=True)
+        worker_stream_finish(fs, failed=True)
         raise
     out = {"in_process": out_a}
     torch.cuda.empty_cache()
     wire = None
     try:
+        worker_stream_start(fs, fs and stream_job_files(root))
         wire = worker_wire_start(root, a_job)
         worker_failover_start(fo, wire and wire["flags"])
         out["failed_task"] = worker_failed_task_part(torch, fa, pe, a_job)
@@ -4902,15 +5477,78 @@ def worker_phase(torch, fa, pe, root):
     except BaseException:
         worker_wire_finish(wire, None, failed=True)
         worker_failover_finish(fo, a_job, None, failed=True)
+        worker_stream_finish(fs, failed=True)
         raise
     try:
         out["wire"] = worker_wire_finish(wire, a_job["results"])
     except BaseException:
         worker_failover_finish(fo, a_job, None, failed=True)
+        worker_stream_finish(fs, failed=True)
         raise
-    out["failover"] = worker_failover_finish(fo, a_job, a_job["counts"])
+    try:
+        out["failover"] = worker_failover_finish(fo, a_job,
+                                                 a_job["counts"])
+    except BaseException:
+        worker_stream_finish(fs, failed=True)
+        raise
+    out["stream"] = fs if defer_stream else worker_stream_finish(fs)
     out["seconds"] = time.monotonic() - t0
     out["card"] = smi("name,power.limit")
+    return out
+
+
+def sched_phase(torch, fa, pe, root):
+    """``--phase sched``: the port's gang-scheduler drill and streaming
+    drill (host only: the row services and the drill workers touch no
+    CUDA), held to their own gates, their reports passed through the
+    port's check_sched and check_stream, each drill's wall time."""
+    from elasticdl_tpu_torch.chaos import sched_drill, stream_drill
+    from elasticdl_tpu_torch.tools import check_sched, check_stream
+
+    before = kernel_launch_counts(fa, pe)
+    out = {}
+    t = time.monotonic()
+    report = sched_drill.run_drill(os.path.join(root, "sched"))
+    wall = time.monotonic() - t
+    path = os.path.join(root, "SCHED_DRILL.json")
+    with open(path, "w") as fh:
+        json.dump(report, fh, default=str)
+    out["sched"] = {"passed": report["passed"],
+                    "problems": report["problems"], "wall_s": wall,
+                    "events": report["scheduler"]["events"],
+                    "dropped_leases": report["scheduler"]["dropped_leases"],
+                    "replay": report["replay"],
+                    "check_sched": check_sched.check_sched(path)[0]}
+    t = time.monotonic()
+    path = os.path.join(root, "STREAM_DRILL.json")
+    code = stream_drill.main(["run", "--workdir",
+                              os.path.join(root, "stream"),
+                              "--report", path])
+    wall = time.monotonic() - t
+    with open(path) as fh:
+        report = json.load(fh)
+    kill = report["kill"]
+    out["stream"] = {
+        "passed": report["passed"], "exit": code,
+        "problems": report["problems"], "wall_s": wall,
+        "push_counts": kill["killed"]["push_counts"],
+        "read_your_writes": kill["killed"]["read_your_writes"],
+        "committed_at_kill": kill["killed"]["committed_at_kill"],
+        "resumed_progress": kill["killed"]["resumed_progress"],
+        "coexist": {k: report["coexist"].get(k) for k in (
+            "preemptions", "resumes", "dropped_leases",
+            "backpressure_seconds", "watermark_monotone", "states")},
+        "check_stream": check_stream.check_stream(path)[0]}
+    out["launches"] = launches_since(fa, pe, before)
+    out["card"] = smi("name,power.limit")
+    print("sched drills", json.dumps(out, default=str), flush=True)
+    check(out["sched"]["passed"] and out["sched"]["check_sched"] == [],
+          f"the sched drill's gates: {out['sched']}")
+    check(code == 0 and out["stream"]["passed"]
+          and out["stream"]["check_stream"] == [],
+          f"the stream drill's gates: {out['stream']}")
+    check(not any(out["launches"].values()),
+          f"the drills launched kernels: {out['launches']}")
     return out
 
 
@@ -5461,6 +6099,147 @@ def rowservice_stop(service):
         stop_service(service[name]["proc"], service[name]["log"])
 
 
+# (j): a port master with ``--probes`` against (c)'s service while (c)'s
+# workers train: the dispatch round trip against its own port, the row
+# tier's read-your-writes and fresh-client convergence against (c)'s
+# service every PROBE_INTERVAL_S. The canary rows live in (c)'s table
+# (the reserved id range, as in the JAX package), so (c)'s push counts
+# include the probes' pushes, metered at the service under the
+# ``canary`` purpose; after (c)'s readings the prober is stopped and
+# topped up to a multiple of ROWSVC_CKPT_STEPS canary pushes, which
+# keeps (f)'s checkpoint boundaries where they were. After (c)'s SIGTERM
+# the prober runs again until row_ryw is red.
+PROBE_INTERVAL_S, PROBE_MIN_RUNS = 0.25, 3
+PROBE_ROW = ("dispatch_roundtrip", "row_ryw", "reshard_convergence")
+
+
+def rowservice_probe_start(fa, pe, records, addr):
+    """(j), first half: the master over (c)'s records, prepared (its
+    prober thread running) before (c)'s workers start."""
+    from elasticdl_tpu_torch.common.args import build_parser
+    from elasticdl_tpu_torch.master.main import Master
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    before = kernel_launch_counts(fa, pe)
+    master = Master(build_parser("master").parse_args([
+        "--model_zoo", tdata.model_zoo_dir(),
+        "--model_def", "deepfm.deepfm_host.custom_model",
+        "--training_data", records, "--minibatch_size", str(HOST_BATCH),
+        "--probes", "true", "--probe_interval_secs", str(PROBE_INTERVAL_S),
+        "--row_service_addr", addr, "--master_addr", "localhost:0",
+        "--metrics_port", "0", "--job_name", "probed"]))
+    master.prepare()
+    return dict(master=master, before=before, t0=time.monotonic())
+
+
+def usage_pushes(log):
+    """A row-service subprocess's ``push_row_grads`` requests by purpose
+    (``usage_requests_total`` of its ``/metrics``)."""
+    import re
+
+    port = re.search(r"/metrics serving on port (\d+)", log_text(log))
+    check(port is not None, "the row service logged no /metrics port")
+    with urllib.request.urlopen(
+            f"http://localhost:{port.group(1)}/metrics", timeout=60) as r:
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if not line.startswith("edl_tpu_usage_requests_total{"):
+            continue
+        labels, value = line.rsplit(" ", 1)
+        if 'method="RowService.push_row_grads"' not in labels:
+            continue
+        purpose = re.search(r'purpose="([^"]*)"', labels).group(1)
+        out[purpose] = out.get(purpose, 0) + int(float(value))
+    return out
+
+
+def rowservice_probe_green(j, table, steps):
+    """(j), second half, after (c)'s job: every row probe green with
+    PROBE_MIN_RUNS runs or more, ``/healthz`` 200, the master's
+    ``/usage`` metering the probes under ``canary``; then the prober is
+    stopped and the canary pushes topped up (through its own row_ryw
+    probe) to a multiple of ROWSVC_CKPT_STEPS."""
+    from elasticdl_tpu_torch.observability import prober
+
+    master = j["master"]
+    base = f"http://localhost:{master.metrics_plane.http_port}"
+
+    def runs():
+        body = http_json(master.metrics_plane.http_port, "/probes")
+        return body, min(body["probes"][n]["attempts"] for n in PROBE_ROW)
+
+    wait_for(lambda: runs()[1] >= PROBE_MIN_RUNS,
+             f"{PROBE_MIN_RUNS} runs of every probe", timeout=60)
+    master.prober.stop()
+    body, _ = runs()
+    with urllib.request.urlopen(f"{base}/healthz", timeout=10) as resp:
+        health = (resp.status, json.loads(resp.read()))
+    usage = http_json(master.metrics_plane.http_port, "/usage?top=50")
+    purposes = sorted({row["principal"]["purpose"]
+                       for row in usage["principals"]})
+    pushed = table.pull_version() - steps
+    pad = -pushed % ROWSVC_CKPT_STEPS
+    for _ in range(pad):
+        check(master.prober.run_once("row_ryw")["ok"],
+              "a canary top-up push failed")
+    out = {"probes": {n: {k: body["probes"][n][k] for k in (
+        "status", "attempts", "failures", "last_reason")}
+        for n in body["probes"]},
+        "healthz": health, "usage_purposes": purposes,
+        "canary_pushes": pushed + pad, "top_up": pad,
+        "canary_id_base": body["canary_id_base"],
+        "interval_s": PROBE_INTERVAL_S}
+    check(all(body["probes"][n]["status"] == "green"
+              and body["probes"][n]["attempts"] >= PROBE_MIN_RUNS
+              for n in PROBE_ROW) and health[0] == 200 and health[1]["ok"],
+          f"(j)'s probes are not green: {out}")
+    check("canary" in purposes and body["canary_id_base"]
+          == prober.CANARY_ID_BASE,
+          f"(j)'s probe traffic is not metered as canary: {out}")
+    return out
+
+
+def rowservice_probe_red(fa, pe, j):
+    """(j), last part, after (c)'s SIGTERM: the prober runs again until
+    row_ryw is red (``unhealthy_after`` consecutive failures, a reason of
+    REASONS) and ``/healthz`` answers 503; every kernel counter read 0
+    over (j)."""
+    from elasticdl_tpu_torch.observability import prober
+
+    master = j["master"]
+    port = master.metrics_plane.http_port
+    try:
+        t0 = time.monotonic()
+        master.prober.start(poll_secs=PROBE_INTERVAL_S / 4)
+        wait_for(lambda: http_json(port, "/probes")["probes"]["row_ryw"][
+            "status"] == "red", "row_ryw to turn red", timeout=60)
+        red_s = time.monotonic() - t0
+        ryw = http_json(port, "/probes")["probes"]["row_ryw"]
+        try:
+            urllib.request.urlopen(f"http://localhost:{port}/healthz",
+                                   timeout=10)
+            health = (200, None)
+        except urllib.error.HTTPError as err:
+            health = (err.code, json.loads(err.read()))
+    finally:
+        master.stop()
+    counts = launches_since(fa, pe, j["before"])
+    out = {"row_ryw": {k: ryw[k] for k in (
+        "status", "consecutive_failures", "unhealthy_after", "reds",
+        "last_reason", "last_error")}, "red_after_s": red_s,
+        "healthz": health, "launches": counts,
+        "seconds": time.monotonic() - j["t0"]}
+    print("rowservice probes red", json.dumps(out, default=str), flush=True)
+    check(ryw["consecutive_failures"] >= ryw["unhealthy_after"]
+          and ryw["reds"] == 1 and ryw["last_reason"] in prober.REASONS
+          and health[0] == 503 and "row_ryw" in health[1]["red"]
+          and "dispatch_roundtrip" not in health[1]["red"],
+          f"row_ryw did not turn red after the SIGTERM: {out}")
+    check(not any(counts.values()), f"(j) launched kernels: {counts}")
+    return out
+
+
 def rowservice_shared_run(torch, fa, pe, root, records, service):
     """(c), first half: the started service shared by two workers on the
     card with the zoo's async runner, its tier readings, then SIGTERM,
@@ -5477,6 +6256,7 @@ def rowservice_shared_run(torch, fa, pe, root, records, service):
     proc, log = service["first"]["proc"], service["first"]["log"]
     port, _ = service_port(proc, log)
     addr = f"localhost:{port}"
+    probe = rowservice_probe_start(fa, pe, records, addr)
     cluster = MiniCluster(
         tdata.model_zoo_dir(), "deepfm.deepfm_host.custom_model",
         training_data=records, minibatch_size=HOST_BATCH,
@@ -5499,7 +6279,10 @@ def rowservice_shared_run(torch, fa, pe, root, records, service):
     counts = kernel_launch_counts(fa, pe)     # ... and ends
     table = make_remote_engine(
         addr, {twin.TABLE_NAME: twin.FEATURE_KEY}).tables[twin.TABLE_NAME]
+    steps = -(-ROWSVC_C_RECORDS // HOST_BATCH)
+    probes = rowservice_probe_green(probe, table, steps)
     pushes = table.pull_version()
+    metered = usage_pushes(log)
     touched = np.unique(frappe_ids(ROWSVC_C_RECORDS, HOST_IDS, HOST_MAX_ID,
                                    SEED + 64))
     live = table.get(touched)
@@ -5508,6 +6291,7 @@ def rowservice_shared_run(torch, fa, pe, root, records, service):
     exit_code = proc.wait(timeout=120)
     stop_service(proc, log)
     saved = CheckpointSaver(service["ckpt"]).get_valid_latest_version()
+    probes["red"] = rowservice_probe_red(fa, pe, probe)
     go(service["relaunch"]["go"])  # its imports are done
     out = {
         "service": addr, "workers": len(results),
@@ -5516,6 +6300,8 @@ def rowservice_shared_run(torch, fa, pe, root, records, service):
         "finished": cluster.finished,
         "losses": [float(x) for r in recorders for x in r.loss],
         "pushes": pushes, "touched_rows": int(touched.size),
+        "canary_pushes": probes["canary_pushes"],
+        "pushes_by_purpose": metered, "probes": probes,
         "sigterm_exit": exit_code, "saved_version": saved,
         "launches": counts, "wall_s": wall,
         "worker_steps": [card_steps(r) for r in recorders],
@@ -5523,7 +6309,7 @@ def rowservice_shared_run(torch, fa, pe, root, records, service):
     }
     return out, dict(service["relaunch"], ckpt=service["ckpt"],
                      wal=service["wal"], touched=touched, live=live,
-                     third=service["third"])
+                     third=service["third"], saved=saved)
 
 
 def rowservice_relaunch_check(out, relaunch):
@@ -5532,10 +6318,13 @@ def rowservice_relaunch_check(out, relaunch):
     from elasticdl_tpu_torch.checkpoint.saver import CheckpointSaver
     from elasticdl_tpu_torch.embedding.row_service import make_remote_engine
     from elasticdl_tpu_torch.model_zoo.deepfm import deepfm_host as twin
+    from elasticdl_tpu_torch.observability import prober
 
     touched, live = relaunch["touched"], relaunch["live"]
     _, _, embeddings = CheckpointSaver(relaunch["ckpt"]).restore()
     ids, rows = embeddings[twin.TABLE_NAME].to_arrays()
+    # (j)'s canary rows share the table; the job's rows are the rest.
+    canary = np.array([prober.is_canary_id(i) for i in ids], bool)
     t0 = time.monotonic()
     port, text = service_port(relaunch["proc"], relaunch["log"])
     again = make_remote_engine(
@@ -5546,7 +6335,11 @@ def rowservice_relaunch_check(out, relaunch):
         "restored_line": (f"Row service restored version "
                           f"{out['saved_version']}" in text),
         "checkpoint_rows_equal_live": bool(
-            np.array_equal(ids, touched) and np.array_equal(rows, live)),
+            np.array_equal(ids[~canary], touched)
+            and np.array_equal(rows[~canary], live)),
+        "checkpoint_canary_ids": sorted(int(i) for i in ids[canary]),
+        "canary_in_job_rows": bool(any(
+            prober.is_canary_id(i) for i in touched)),
         "relaunch_pull_bit_equal": bool(np.array_equal(again, live)),
     })
     print("rowservice subprocess", json.dumps(out), flush=True)
@@ -5557,9 +6350,21 @@ def rowservice_relaunch_check(out, relaunch):
     check(all(n > 0 for n in out["trained_batches"]),
           f"a worker took no task: {out['trained_batches']}")
     check(all(np.isfinite(out["losses"])), "non-finite loss")
-    check(out["pushes"] == steps and touched.size > 0,
-          f"{out['pushes']} pushes, {touched.size} rows on the service")
-    check(out["sigterm_exit"] == 0 and out["saved_version"] == steps,
+    check(out["pushes"] == steps + out["canary_pushes"]
+          and out["pushes_by_purpose"].get("canary") == out["canary_pushes"]
+          and sum(out["pushes_by_purpose"].values()) == out["pushes"]
+          and out["canary_pushes"] % ROWSVC_CKPT_STEPS == 0
+          and touched.size > 0,
+          f"{out['pushes']} pushes ({out['pushes_by_purpose']} by "
+          f"purpose, {out['canary_pushes']} canary), {touched.size} rows "
+          "on the service")
+    check(not out["canary_in_job_rows"] and set(
+        out["checkpoint_canary_ids"]) <= {prober.canary_id(s)
+                                          for s in range(4)}
+          and prober.canary_id(0) in out["checkpoint_canary_ids"],
+          f"canary rows in the job's rows: {out['checkpoint_canary_ids']}")
+    check(out["sigterm_exit"] == 0
+          and out["saved_version"] == out["pushes"],
           f"SIGTERM exit {out['sigterm_exit']}, newest version "
           f"{out['saved_version']}, {out['pushes']} pushes")
     check(out["restored_line"] and out["checkpoint_rows_equal_live"]
@@ -5579,9 +6384,11 @@ def rowservice_relaunch_check(out, relaunch):
 
 def rowservice_kill_check(torch, fa, pe, relaunch):
     """(f) Through the relaunched service: ROWSVC_KILL_PUSHES durably
-    acked pushes (versions 6 and 7), the touched rows read, SIGKILL; the
-    port's fsck over the log; the third incarnation restores version 5,
-    replays exactly those pushes and answers the pull bit for bit."""
+    acked pushes (the versions after (c)'s drained one, its 5 job pushes
+    and (j)'s canary pushes), the touched rows read, SIGKILL; the port's
+    fsck over the log; the third incarnation restores the drained
+    version, replays exactly those pushes and answers the pull bit for
+    bit."""
     import signal
 
     from elasticdl_tpu_torch.embedding.row_service import make_remote_engine
@@ -5590,6 +6397,7 @@ def rowservice_kill_check(torch, fa, pe, relaunch):
 
     keys = {twin.TABLE_NAME: twin.FEATURE_KEY}
     touched, third = relaunch["touched"], relaunch["third"]
+    drained = relaunch["saved"]
     port, _ = service_port(relaunch["proc"], relaunch["log"])
     engine = make_remote_engine(f"localhost:{port}", keys)
     table = engine.tables[twin.TABLE_NAME]
@@ -5620,19 +6428,22 @@ def rowservice_kill_check(torch, fa, pe, relaunch):
             "records", "first_version", "last_version", "checkpoint_tip",
             "torn_tail", "version_gaps")},
         "third_start_s": start_s,
-        "restored_5": "Row service restored version 5" in text,
+        "drained_version": drained,
+        "restored_drained": f"Row service restored version {drained} ("
+        in text,
         "replayed_2": (f"replayed {ROWSVC_KILL_PUSHES} record(s) past "
-                       f"checkpoint version 5") in text,
+                       f"checkpoint version {drained} ") in text,
         "pull_bit_equal": bool(np.array_equal(again, before)),
         "changed_rows": int((before != relaunch["live"]).any(1).sum()),
     }
     print("rowservice sigkill", json.dumps(out), flush=True)
     check(pushes == ROWSVC_KILL_PUSHES,
           f"{pushes} pushes through the relaunch")
-    check(not errors and report["last_version"] == 5 + ROWSVC_KILL_PUSHES
-          and report["checkpoint_tip"] == 5,
+    check(not errors
+          and report["last_version"] == drained + ROWSVC_KILL_PUSHES
+          and report["checkpoint_tip"] == drained,
           f"the push log's fsck: {errors} {report}")
-    check(out["restored_5"] and out["replayed_2"],
+    check(out["restored_drained"] and out["replayed_2"],
           f"the third incarnation's log: {text[-3000:]}")
     check(out["pull_bit_equal"] and out["changed_rows"] > 0,
           f"the third incarnation lost acked pushes: {out}")
@@ -10575,7 +11386,8 @@ def main(argv=None) -> int:
         "--phase", choices=("all", "fwd", "bwd", "chunk", "lookup", "host",
                             "vision", "tabular", "checkpoint", "worker",
                             "rowservice", "fleet", "parallel", "multihost",
-                            "tpfault", "moe", "pipeline", "failover"),
+                            "tpfault", "moe", "pipeline", "failover",
+                            "sched"),
         default="all",
         help="fwd: build flash_attention_fwd.cu alone, then run kernel "
              "#1's checks and times and print its kernels row; bwd: the "
@@ -10606,7 +11418,10 @@ def main(argv=None) -> int:
              "backward kernels); failover: the worker phase's (a) and (e) "
              "alone, then the port's failover drill (standby against "
              "restart-and-replay) and one journal append's fsync times "
-             "(the embedding kernels only)")
+             "(the embedding kernels only); sched: the port's gang-"
+             "scheduler drill and streaming drill, held to their gates "
+             "and passed through check_sched and check_stream (no "
+             "kernel build)")
     args = parser.parse_args(argv)
     import torch
 
@@ -10644,9 +11459,11 @@ def run(args, torch, mh) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    if args.phase in ("host", "vision", "tabular", "rowservice"):
+    if args.phase in ("host", "vision", "tabular", "rowservice", "sched"):
         with tempfile.TemporaryDirectory() as root:
-            if args.phase == "host":
+            if args.phase == "sched":
+                line = {"sched": sched_phase(torch, fa, pe, root)}
+            elif args.phase == "host":
                 line = {"host_training": host_training_phase(torch, fa, pe,
                                                              root)}
             elif args.phase == "rowservice":
@@ -10793,18 +11610,28 @@ def run(args, torch, mh) -> int:
         # phase runs.
         row_service = rowservice_start(root)
         try:
-            worker = worker_phase(torch, fa, pe, root)
+            worker = worker_phase(torch, fa, pe, root, defer_stream=True)
         except BaseException:
             rowservice_stop(row_service)
             raise
         mark("worker")
-        mh_results = mh_wait(mh)
-        mark("multihost_wait")
-        rowservice = rowservice_phase(torch, fa, pe, root,
-                                      service=row_service)
-        mark("rowservice")
-        fleet = fleet_phase(torch, fa, pe, root, os.path.join(root, "v1"))
-        mark("fleet")
+        # (f) waits for its masters' arbitration ticks (5 s each): it
+        # ends beside the row-service and fleet phases, which time
+        # nothing in the whole smoke.
+        try:
+            mh_results = mh_wait(mh)
+            mark("multihost_wait")
+            rowservice = rowservice_phase(torch, fa, pe, root,
+                                          service=row_service)
+            mark("rowservice")
+            fleet = fleet_phase(torch, fa, pe, root,
+                                os.path.join(root, "v1"))
+            mark("fleet")
+        except BaseException:
+            worker_stream_finish(worker["stream"], failed=True)
+            raise
+        worker["stream"] = worker_stream_finish(worker["stream"])
+        mark("worker_stream")
         reuse = {}
         parallel = parallel_phase(torch, fa, pe, root, reuse)
         mark("parallel")
@@ -10848,6 +11675,9 @@ def run(args, torch, mh) -> int:
             "failed_task": worker["failed_task"]["launches"][row["name"]]}
         if worker["failover"]["run"]:
             row["launches_worker"]["failover"] = worker["failover"][
+                "launches"][row["name"]]
+        if worker["stream"]["run"]:
+            row["launches_worker"]["stream"] = worker["stream"][
                 "launches"][row["name"]]
         row["launches_rowservice"] = {
             "one_shard": rowservice["one_shard"]["launches_service"][

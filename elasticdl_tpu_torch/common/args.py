@@ -6,9 +6,8 @@ the same names and defaults), plus ``--device``;
 command line, as there.
 
 The master's and worker's flags for parts that are not ported yet
-(k8s, the autoscaler, the gang scheduler, streams, the prober) are
-parsed so that asking for one raises with the ROADMAP item that holds
-it.
+(k8s, the autoscaler, row-service pods) are parsed so that asking for
+one raises with the ROADMAP item that holds it.
 """
 
 import argparse
@@ -241,13 +240,55 @@ def add_task_plane_params(parser):
     add_bool_param(parser, "--row_pod_autoscale", False,
                    "Row-service pods grown and drained with splits and "
                    "merges: not ported yet (item 8d-iii)")
+    # Multi-tenant gang scheduling (master/scheduler.py): many jobs on
+    # one fleet, the job table event-sourced onto --journal_dir.
     add_bool_param(parser, "--sched", False,
-                   "The gang scheduler: not ported yet (item 8d-ii)")
+                   "Run the multi-job gang scheduler in the master "
+                   "(submit_job RPC + /sched endpoint; job table "
+                   "event-sources onto --journal_dir and survives "
+                   "failover)")
+    # Streaming ingestion (master/stream_ingest.py + data/stream.py):
+    # online learning from an append-only record stream.
     parser.add_argument("--stream_dir", default="",
-                        help="Streaming ingestion: not ported yet (item "
-                             "8d-ii)")
+                        help="Directory of *.edlstream append-only "
+                             "partitions (data/stream.py). Non-empty "
+                             "switches the dispatcher to streaming "
+                             "mode: unbounded offset-ranged tasks, "
+                             "journaled watermarks, watermark-"
+                             "triggered eval, /stream endpoint")
+    parser.add_argument("--stream_max_todo", type=pos_int, default=64,
+                        help="Backpressure bound: stop generating "
+                             "stream tasks while the todo queue holds "
+                             "this many (stream_ingest_backpressure_"
+                             "seconds meters the stall)")
+    parser.add_argument("--stream_eval_every_records", type=non_neg_int,
+                        default=0,
+                        help="Open an eval round each time this many "
+                             "stream records commit past the watermark "
+                             "(replaces epoch-end eval in streaming "
+                             "mode; 0 disables)")
+    parser.add_argument("--stream_poll_secs", type=pos_float,
+                        default=0.5,
+                        help="Stream tail poll + pump cadence")
+    # Synthetic probing (observability/prober.py): black-box canary
+    # probes against the reserved top-of-int64 id range, served at
+    # /probes; /healthz becomes the aggregated probe verdict (200/503).
     add_bool_param(parser, "--probes", False,
-                   "Synthetic probing: not ported yet (item 8d-ii)")
+                   "Run the synthetic canary prober inside the master "
+                   "(dispatch/row/stream probes auto-wire from the "
+                   "matching flags; serving needs "
+                   "--probe_serving_addr)")
+    parser.add_argument("--probe_interval_secs", type=pos_float,
+                        default=15.0,
+                        help="Cadence for each registered probe")
+    parser.add_argument("--probe_serving_addr", default="",
+                        help="host:port of a serving router; non-empty "
+                             "registers the serving_freshness probe "
+                             "(canary push -> prediction change)")
+    parser.add_argument("--probe_serving_feature_key", default="",
+                        help="Sparse feature key the serving_freshness "
+                             "probe queries with a canary id (empty = "
+                             "'ids')")
 
 
 def add_worker_params(parser):

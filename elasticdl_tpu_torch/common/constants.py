@@ -39,7 +39,7 @@ class ReaderType:
     RECORD_FILE = "RecordFile"
     TEXT = "Text"
     TABLE = "Table"  # row-range table service (not ported yet)
-    STREAM = "Stream"  # append-only record stream (not ported yet)
+    STREAM = "Stream"  # append-only record stream (data/stream.py)
 
 
 MAX_TASK_RETRIES = 3

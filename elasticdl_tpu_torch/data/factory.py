@@ -1,7 +1,8 @@
 """Reader factory (port of elasticdl_tpu/data/factory.py): a reader from
 the data origin's extension, an explicit ``reader_type`` in
-data_reader_params, or a user ``custom_data_reader``. Stream and table
-origins are not ported yet and raise."""
+data_reader_params, or a user ``custom_data_reader``. A ``stream://``
+origin (or ``reader_type=Stream``) tails ``data/stream.py``'s append-only
+partitions. Table origins are not ported yet and raise."""
 
 import os
 
@@ -30,13 +31,22 @@ def create_data_reader(data_origin: str, custom_reader=None, **kwargs):
     if custom_reader is not None:
         return custom_reader(data_origin=data_origin, **kwargs)
     reader_type = kwargs.pop("reader_type", None)
-    if reader_type in (ReaderType.STREAM, ReaderType.TABLE) or (
-            data_origin.startswith(("stream://", "table+sqlite://",
-                                    "table+csv://", "table+rpc://",
-                                    "odps://"))):
+    # Stream origins (data/stream.py): the tail of append-only
+    # partitions, selected by scheme or explicit reader_type.
+    if reader_type == ReaderType.STREAM or data_origin.startswith(
+        "stream://"
+    ):
+        from elasticdl_tpu_torch.data.stream import StreamDataReader
+
+        stream_dir = data_origin
+        if stream_dir.startswith("stream://"):
+            stream_dir = stream_dir[len("stream://"):]
+        return StreamDataReader(stream_dir=stream_dir, **kwargs)
+    if reader_type == ReaderType.TABLE or data_origin.startswith(
+            ("table+sqlite://", "table+csv://", "table+rpc://", "odps://")):
         raise NotImplementedError(
-            f"data origin {data_origin!r}: stream and table readers are "
-            "not ported yet (ported: RecordFile, CSV)"
+            f"data origin {data_origin!r}: table readers are not ported "
+            "yet (ported: RecordFile, CSV, Stream)"
         )
     if reader_type == ReaderType.CSV:
         return CSVDataReader(data_origin=data_origin, **kwargs)

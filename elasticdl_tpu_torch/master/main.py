@@ -30,14 +30,44 @@ merged-away shards) every run tick. Its state file is
 ``--row_reshard_state``, or ``<journal_dir>/shard_map.json``; under a
 journal its epochs are journaled too.
 
-Not ported yet, and raising when asked for: the gang scheduler
-(``--sched``), streaming ingestion (``--stream_dir``) and the prober
-(``--probes``), ROADMAP Queue 1 item 8d-ii; the k8s instance manager
+``--sched`` makes the master a multi-job arbiter
+(``master/scheduler.py``): the CLI's own job enters the gang scheduler's
+table at construction (or is re-bound to its restored entry after
+recovery), more jobs arrive over the ``submit_job`` RPC, and in this
+mode leases come only from ``GangScheduler.lease_for``. The table is
+event-sourced onto the journal as ``sched`` records and served on
+``/sched``; each run tick arbitrates (completion, gang allocation,
+priority preemption, resume), and the run loop exits once every job is
+terminal, lingering two poll intervals so workers learn ``finished``.
+
+``--stream_dir S`` trains online from ``S``'s append-only partitions
+(``data/stream.py``): the dispatcher starts empty in streaming mode and
+a ``StreamIngestor`` (``master/stream_ingest.py``) pumps the tail into
+offset-ranged tasks every ``--stream_poll_secs``, pausing at
+``--stream_max_todo`` queued tasks; committed watermarks ride the
+journal, ``--stream_eval_every_records`` opens an eval round over
+``--validation_data`` each time that many records commit, and
+``/stream`` renders the partitions. Such a job ends when its stream is
+closed (``close_stream``), never by draining.
+
+``--probes`` runs the synthetic canary prober
+(``observability/prober.py``) once the RPC port is known: the dispatch
+round trip against the master's own port, and with
+``--row_service_addr`` the row tier's read-your-writes and fresh-client
+convergence, with ``--probe_serving_addr`` serving freshness, with
+``--stream_dir`` the canary partition's watermark. ``/probes`` renders
+them, ``/healthz`` answers their verdict (503 once one is red), and under
+``--sched`` the prober is a low-priority tenant (``__prober__``). The
+port has no incident recorder yet (item 8f), so a red probe captures no
+bundle.
+
+Not ported yet, and raising when asked for: the k8s instance manager
 (``--image_name``), the autoscaler (``--autoscale``) and row-service
-pods grown and drained with the splits (``--row_pod_autoscale``), item
-8d-iii. Row-service pods are not launched by the port's master either:
-start ``python -m elasticdl_tpu_torch.embedding.row_service`` by hand
-(one a shard, and one more before a split onto it) and give the workers
+pods grown and drained with the splits (``--row_pod_autoscale``),
+ROADMAP Queue 1 item 8d-iii. Row-service pods are not launched by the
+port's master either: start ``python -m
+elasticdl_tpu_torch.embedding.row_service`` by hand (one a shard, and
+one more before a split onto it) and give the workers
 ``--row_service_addr``.
 """
 
@@ -65,9 +95,6 @@ _NOT_PORTED = {
     "autoscale": ("the autoscaler", "8d-iii"),
     "row_pod_autoscale": (
         "row-service pods grown and drained with splits", "8d-iii"),
-    "sched": ("the gang scheduler", "8d-ii"),
-    "stream_dir": ("streaming ingestion", "8d-ii"),
-    "probes": ("the synthetic prober", "8d-ii"),
 }
 
 
@@ -94,6 +121,24 @@ def build_dispatcher(args, spec) -> TaskDispatcher:
     training_data = getattr(args, "training_data", "")
     validation_data = getattr(args, "validation_data", "")
     prediction_data = getattr(args, "prediction_data", "")
+    if getattr(args, "stream_dir", ""):
+        # Streaming mode (master/stream_ingest.py): no finite training
+        # shard table — tasks are generated from the stream tail by the
+        # StreamIngestor, so the dispatcher starts empty and never
+        # finishes until the stream closes. Eval shards still come from
+        # --validation_data; rounds open on watermark progress instead
+        # of epoch end.
+        return TaskDispatcher(
+            training_shards={},
+            evaluation_shards=(
+                reader_of(validation_data).create_shards()
+                if validation_data else {}
+            ),
+            records_per_task=(
+                args.minibatch_size * args.num_minibatches_per_task
+            ),
+            streaming=True,
+        )
     dispatcher = TaskDispatcher(
         training_shards=(
             reader_of(training_data).create_shards()
@@ -132,6 +177,34 @@ def build_dispatcher(args, spec) -> TaskDispatcher:
     if ms is not None and not getattr(args, "max_steps", 0):
         dispatcher.set_max_steps(ms.max_steps, args.minibatch_size)
     return dispatcher
+
+
+class _ProberTenantDispatcher:
+    """Dispatcher stand-in for the synthetic-prober tenant
+    (observability/prober.py PROBER_TENANT): the prober consumes no
+    worker leases and never drains — it registers with the gang
+    scheduler only so preemption/resume of the canary plane is
+    arbitrated and observable like any real job. ``finished()`` is
+    always False; _job_finished() cancels the tenant once it is the
+    only job keeping the scheduler busy, so it cannot wedge master
+    exit. Must be passed explicitly at submit() — a dispatcher-less
+    job would be rebuilt from ``default_dispatcher_factory`` at admit
+    time and cancelled as unloadable."""
+
+    def finished(self) -> bool:
+        return False
+
+    def queue_depths(self):
+        return (0, 0)
+
+    def preempt_leases(self, reason: str = "") -> int:
+        return 0
+
+    def get(self, worker_id):
+        return None
+
+    def apply_report(self, task_id, success, err_reason=""):
+        return None, -1, False, True
 
 
 class Master:
@@ -226,7 +299,14 @@ class Master:
                 args, "evaluation_start_delay_secs", 0
             ),
             throttle_secs=getattr(args, "evaluation_throttle_secs", 0),
-            eval_only=bool(validation_data and not training_data),
+            # A streaming job trains without --training_data, and its
+            # dispatcher holds the eval shards back for the watermark
+            # trigger — eval_only would open a round whose tasks were
+            # never queued and wedge every later trigger behind it.
+            eval_only=bool(
+                validation_data and not training_data
+                and not getattr(args, "stream_dir", "")
+            ),
             summary_writer=tb_service,
         )
         if self._journal is not None:
@@ -279,6 +359,13 @@ class Master:
         _usage.set_max_jobs(
             int(getattr(args, "usage_max_jobs", 0) or 0) or None
         )
+        # Multi-job control plane (master/scheduler.py, --sched): the
+        # gang scheduler's job table event-sources onto the same
+        # journal; cold recovery and the warm-standby handover both
+        # restore it from the replay carry below.
+        self.scheduler = None
+        if getattr(args, "sched", False):
+            self._build_scheduler()
         self.servicer = MasterServicer(
             self.task_dispatcher,
             self.evaluation_service,
@@ -288,6 +375,7 @@ class Master:
             generation=(
                 self._journal.generation if self._journal else 0
             ),
+            scheduler=self.scheduler,
         )
         if self._recovery_stats is not None:
             # Re-arm the servicer with the recovered high-water marks:
@@ -304,6 +392,40 @@ class Master:
                 self.servicer.rearm_resize(
                     self._recovery_stats["resize"]
                 )
+        # Streaming ingestion (master/stream_ingest.py): tail the
+        # --stream_dir partitions into the streaming dispatcher. Built
+        # AFTER the servicer so watermark-triggered eval rounds carry
+        # the live model version, and after recovery so the ingestor's
+        # eval marker seeds from the RESTORED committed watermark (a
+        # relaunch resumes pumping from the journaled cursors — offsets
+        # below the watermark are never re-tasked).
+        self.stream_ingestor = None
+        if getattr(args, "stream_dir", ""):
+            from elasticdl_tpu_torch.data.stream import FileTailStream
+            from elasticdl_tpu_torch.master.stream_ingest import (
+                StreamIngestor,
+            )
+
+            self.stream_ingestor = StreamIngestor(
+                FileTailStream(args.stream_dir),
+                self.task_dispatcher,
+                max_todo=int(getattr(args, "stream_max_todo", 64)),
+                eval_service=self.evaluation_service,
+                eval_every_records=int(
+                    getattr(args, "stream_eval_every_records", 0)
+                ),
+                model_version_fn=lambda: self.servicer.model_version,
+                metrics_registry=self.metrics_plane.registry,
+            )
+            self.metrics_plane.add_json_route(
+                "/stream",
+                lambda params: self.stream_ingestor.render(),
+            )
+        # Synthetic canary plane (observability/prober.py, --probes):
+        # built in prepare() once the RPC server's port is known — the
+        # probes go through the PUBLIC wire surfaces, including the
+        # master's own.
+        self.prober = None
         self._server = None
         # SIGTERM grace path (main() installs the handler): the run
         # loop exits at the next poll tick and stop() tears the job
@@ -312,6 +434,55 @@ class Master:
         # The row plane's shard-map authority (--row_reshard), built in
         # prepare() as the JAX master builds it.
         self.row_reshard = None
+
+    def _build_scheduler(self):
+        """The gang scheduler over this master's journal and usage plane,
+        its table restored from the recovery carry, and the CLI's own
+        job submitted into it (or re-bound to its restored entry)."""
+        from elasticdl_tpu_torch.master.scheduler import GangScheduler
+
+        args = self._args
+
+        def sched_slots():
+            # getattr: render()/this closure can run during __init__
+            # (primary-job adoption below), before the servicer exists.
+            servicer = getattr(self, "servicer", None)
+            live = len(servicer.worker_liveness()) if servicer else 0
+            return live or int(getattr(args, "num_workers", 1))
+
+        self.scheduler = GangScheduler(
+            sched_slots,
+            journal=self._journal,
+            usage_fn=self.metrics_plane.usage,
+            registry=self.metrics_plane.registry,
+        )
+        if self._recovery_stats is not None:
+            self.scheduler.restore(self._recovery_stats.get("sched"))
+        # The CLI's own job enters the table like any tenant — in
+        # --sched mode leases come exclusively from the arbiter, so an
+        # unsubmitted primary job would never dispatch. A fresh start
+        # submits it (journaled); after recovery the entry is already
+        # in the restored table and only the volatile half (the
+        # recovered dispatcher) needs re-binding.
+        primary_job = getattr(args, "job_name", "") or "default"
+        if not self.task_dispatcher.finished():
+            try:
+                self.scheduler.submit(
+                    primary_job,
+                    gang_size=max(1, int(
+                        getattr(args, "num_workers", 1) or 1
+                    )),
+                    dispatcher=self.task_dispatcher,
+                )
+            except ValueError:
+                # Already in the restored table (recovery path):
+                # re-bind the volatile half only.
+                self.scheduler.bind_job(
+                    primary_job, dispatcher=self.task_dispatcher
+                )
+        self.metrics_plane.add_json_route(
+            "/sched", lambda params: self.scheduler.render()
+        )
 
     def _build_row_reshard(self):
         """Row-plane elasticity: the master hosts the shard-map authority
@@ -373,6 +544,12 @@ class Master:
         from elasticdl_tpu_torch.comm.rpc import RpcServer
 
         self.evaluation_service.start_time_trigger()
+        if self.stream_ingestor is not None:
+            self.stream_ingestor.start(
+                interval_secs=float(
+                    getattr(self._args, "stream_poll_secs", 0.5)
+                )
+            )
         admission = None
         admission_limit = int(getattr(
             self._args, "master_admission_limit", 0
@@ -392,6 +569,7 @@ class Master:
             admission=admission,
         ).start()
         logger.info("Master RPC serving on port %d", self._server.port)
+        self._setup_prober()
         metrics_port = int(getattr(self._args, "metrics_port", -1))
         if metrics_port >= 0:
             self.metrics_plane.serve(port=metrics_port)
@@ -400,17 +578,175 @@ class Master:
         if getattr(self._args, "row_reshard", False):
             self._build_row_reshard()
 
+    def _setup_prober(self):
+        """Synthetic canary plane (--probes; observability/prober.py):
+        black-box probes on intervals against the reserved canary
+        keyspace, every run tagged with the ``canary`` principal
+        purpose. Wired in prepare() because the dispatch probe targets
+        the master's OWN public RPC port. Mounts ``/probes`` and the
+        aggregated ``/healthz`` verdict, and — in --sched mode —
+        registers the prober as a low-priority tenant so it survives
+        and observes preemption. The port has no incident recorder yet
+        (ROADMAP item 8f): a red probe captures no bundle."""
+        args = self._args
+        if not getattr(args, "probes", False):
+            return
+        from elasticdl_tpu_torch.observability import prober as prober_mod
+
+        interval = float(
+            getattr(args, "probe_interval_secs", 15.0) or 15.0
+        )
+        sched = prober_mod.ProbeScheduler(
+            registry=self.metrics_plane.registry,
+            incident_recorder=None,
+        )
+        # Dispatch plane: through the wire, like a worker would.
+        # worker_id -1 records no liveness; a leased task hands
+        # straight back under the graceful "preempted:" reason (no
+        # retry budget burned).
+        sched.register(
+            "dispatch_roundtrip",
+            prober_mod.make_dispatch_roundtrip_probe(
+                f"localhost:{self._server.port}"
+            ),
+            interval_secs=interval,
+            description="get_task/report_task_result roundtrip "
+                        "against the master's dispatch plane",
+        )
+        # Row tier: read-your-writes + fresh-client reshard
+        # convergence whenever a row-service fleet is addressable.
+        row_addr = getattr(args, "row_service_addr", "")
+        if row_addr:
+            canary_client = prober_mod.RowCanaryClient(row_addr)
+            sched.register(
+                "row_ryw",
+                prober_mod.make_row_ryw_probe(canary_client),
+                interval_secs=interval,
+                description="durable canary push -> immediate pull "
+                            "against the row tier (read-your-writes, "
+                            "RPO=0 from outside)",
+            )
+            sched.register(
+                "reshard_convergence",
+                prober_mod.make_reshard_convergence_probe(row_addr),
+                interval_secs=interval,
+                description="fresh client (no cached map) rides "
+                            "REDIRECTs to a converged canary pull",
+            )
+            serving_addr = getattr(args, "probe_serving_addr", "")
+            if serving_addr:
+                feature_key = (
+                    getattr(args, "probe_serving_feature_key", "")
+                    or "ids"
+                )
+                canary = prober_mod.canary_id(1)
+                predict = prober_mod.make_router_predictor(
+                    serving_addr, feature_key, [canary]
+                )
+
+                def push_canary(sign, _client=canary_client,
+                                _id=canary):
+                    import numpy as np
+
+                    dim = _client.dim()
+                    _client.push(
+                        np.array([_id], np.int64),
+                        np.full((1, dim), sign * 1e-3, np.float32),
+                    )
+
+                sched.register(
+                    "serving_freshness",
+                    prober_mod.make_serving_freshness_probe(
+                        predict, push_canary
+                    ),
+                    interval_secs=interval,
+                    description="canary push -> serving router "
+                                "prediction change (outside-in "
+                                "push-to-servable)",
+                )
+        if getattr(args, "stream_dir", "") and \
+                self.stream_ingestor is not None:
+            append = prober_mod.make_stream_appender(args.stream_dir)
+
+            def canary_watermark():
+                part = self.stream_ingestor.render()["partitions"].get(
+                    prober_mod.CANARY_STREAM_PARTITION
+                )
+                return None if part is None else int(part["committed"])
+
+            sched.register(
+                "stream_watermark",
+                prober_mod.make_stream_watermark_probe(
+                    append, canary_watermark
+                ),
+                interval_secs=interval,
+                description="canary stream append -> committed "
+                            "watermark advances past it",
+            )
+        if self.scheduler is not None:
+            tenant = prober_mod.PROBER_TENANT
+            tenant_disp = _ProberTenantDispatcher()
+            try:
+                self.scheduler.submit(
+                    tenant, spec={"synthetic": True}, priority=-100,
+                    gang_size=1, dispatcher=tenant_disp,
+                    preempt_cb=sched.note_preempted,
+                    resume_cb=sched.note_resumed,
+                )
+            except ValueError:
+                # Already in the journal-restored table (recovery):
+                # re-bind the volatile half only.
+                self.scheduler.bind_job(
+                    tenant, dispatcher=tenant_disp,
+                    preempt_cb=sched.note_preempted,
+                    resume_cb=sched.note_resumed,
+                )
+            sched.note_registered()
+        self.metrics_plane.add_json_route(
+            "/probes", lambda params: sched.render()
+        )
+        self.metrics_plane.set_health(sched.healthz)
+        sched.start(poll_secs=min(1.0, max(0.05, interval / 4.0)))
+        self.prober = sched
+
     def request_stop(self):
         """Ask the run loop to exit at the next tick (SIGTERM path).
         Signal-handler safe: sets a flag, no locks, no teardown here."""
         self._stop_requested = True
 
+    def _job_finished(self) -> bool:
+        """The run loop's exit gate: the primary dispatcher drained
+        AND (in --sched mode) every scheduler job reached a terminal
+        state — a preempted job still owed a resume must keep the
+        fleet up."""
+        if not self.task_dispatcher.finished():
+            return False
+        if self.scheduler is None:
+            return True
+        if not self.scheduler.idle() and self.prober is not None:
+            # The prober tenant never drains by design. When it is the
+            # ONLY job still non-terminal, the real work is done:
+            # retire the canary tenant so it cannot wedge master exit.
+            from elasticdl_tpu_torch.master.scheduler import TERMINAL_STATES
+            from elasticdl_tpu_torch.observability.prober import (
+                PROBER_TENANT,
+            )
+
+            jobs = self.scheduler.export_state()["jobs"]
+            open_jobs = [
+                job_id for job_id, job in jobs.items()
+                if job["state"] not in TERMINAL_STATES
+            ]
+            if open_jobs == [PROBER_TENANT]:
+                self.scheduler.cancel(PROBER_TENANT)
+        return self.scheduler.idle()
+
     def run(self, poll_secs: float = 5.0):
-        """Sleep until the dispatcher drains (reference master.py:218-238);
-        each tick, recover stragglers' tasks (3× mean task time,
-        :487-509)."""
+        """Sleep until the job is finished (reference
+        master.py:218-238); each tick, recover stragglers' tasks (3×
+        mean task time, :487-509) and, under --sched, arbitrate."""
         try:
-            while not self.task_dispatcher.finished():
+            while not self._job_finished():
                 if self._stop_requested:
                     logger.warning(
                         "stop requested (SIGTERM); tearing the job "
@@ -434,6 +770,15 @@ class Master:
                     self.servicer.maybe_complete_resize(
                         list(self.servicer.worker_liveness())
                     )
+                if self.scheduler is not None:
+                    # Multi-job arbitration: completion sweep, gang
+                    # allocation, preemption, resume. A fenced journal
+                    # aborts the tick (JournalFencedError) — a zombie
+                    # arbiter must stop.
+                    try:
+                        self.scheduler.tick()
+                    except Exception:
+                        logger.exception("scheduler tick failed")
                 if self.row_reshard is not None:
                     # Rebalance ranges, refresh hot-row replicas; tick()
                     # contains its own failures (a flaky shard must not
@@ -442,6 +787,16 @@ class Master:
                 self.metrics_plane.publish_tensorboard(
                     self.servicer.model_version
                 )
+            if self.scheduler is not None and not self._stop_requested:
+                # In --sched mode the finished signal flips at the
+                # same arbitration tick that satisfies the exit gate
+                # above — unlike the single-job plane, where workers
+                # observe it the moment the last report lands, a full
+                # poll window before the master exits. Serve the
+                # finished response for a couple of poll intervals so
+                # the fleet learns completion from get_task instead of
+                # burning its reattach grace on a drained job.
+                time.sleep(min(10.0, 2 * poll_secs))
         finally:
             # The last tasks finish during the final poll sleep; flush
             # that interval's aggregates to TensorBoard before stop()
@@ -453,6 +808,10 @@ class Master:
         return 0
 
     def stop(self):
+        if self.prober is not None:
+            self.prober.stop()
+        if self.stream_ingestor is not None:
+            self.stream_ingestor.stop()
         if self.row_reshard is not None:
             self.row_reshard.close()
         self.metrics_plane.stop()

@@ -11,6 +11,12 @@ A host-tier model (``make_host_runner``) with ``--row_service_addr``
 pulls and pushes its rows through a shared row service
 (``embedding/row_service.py``); with ``--num_workers`` > 1 it needs one.
 
+``--stream_dir S`` makes a streaming worker: tasks the master tags as
+stream tasks read their offset range from ``S``'s append-only partitions
+(``data/stream.py``), every other task (watermark eval rounds, a batch
+job the gang scheduler routes here) through the batch reader of
+``--training_data``/``--validation_data``.
+
 Under MeshStrategy a device-tier sparse model gets its runner with the
 mesh (row-sharded tables), any other model a ``MeshRunner`` wired to its
 zoo module's layout extras.
@@ -135,13 +141,27 @@ def build_worker(args, master_client=None) -> Worker:
         or getattr(args, "validation_data", "")
         or getattr(args, "prediction_data", "")
     )
-    # An origin-less worker gets a record-file reader that fails at
-    # first read, not at boot.
     reader = create_data_reader(
         data_origin=data_origin,
         custom_reader=spec.custom_data_reader,
         **reader_params,
-    )
+    ) if data_origin else None
+    stream_dir = getattr(args, "stream_dir", "")
+    if stream_dir:
+        # Streaming job: stream-tagged tasks read the live tail; the
+        # batch reader built above (if any) reads every other task (the
+        # watermark-triggered eval rounds, a submitted batch job).
+        from elasticdl_tpu_torch.data.stream import StreamDataReader
+
+        reader = StreamDataReader(stream_dir=stream_dir, fallback=reader)
+    elif reader is None:
+        # An origin-less worker gets a record-file reader that fails at
+        # first read, not at boot.
+        reader = create_data_reader(
+            data_origin="",
+            custom_reader=spec.custom_data_reader,
+            **reader_params,
+        )
     step_runner = None
     if args.distribution_strategy == DistributionStrategy.MESH:
         from elasticdl_tpu_torch.parallel.mesh import (

@@ -40,8 +40,19 @@ def test_readers_shard_and_read_like_jax(tmp_path, kind):
 
 
 def test_stream_and_table_origins_are_not_ported():
+    """Stream origins are ported (``data/stream.py``, held to JAX in
+    tests/test_torch_stream.py); table origins still raise."""
+    from elasticdl_tpu_torch.common.constants import ReaderType
+    from elasticdl_tpu_torch.data.stream import StreamDataReader
+
+    assert isinstance(factory.create_data_reader("stream:///tmp/x"),
+                      StreamDataReader)
+    for origin in ("table+sqlite:///tmp/x.db", "table+csv:///tmp/x.csv",
+                   "table+rpc://localhost:1/t", "odps://p/t"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            factory.create_data_reader(origin)
     with pytest.raises(NotImplementedError, match="not ported"):
-        factory.create_data_reader("stream:///tmp/x")
+        factory.create_data_reader("/tmp/x", reader_type=ReaderType.TABLE)
 
 
 @pytest.mark.parametrize("n", [16, 21])

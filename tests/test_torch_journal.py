@@ -510,8 +510,8 @@ def test_each_package_recovers_the_others_journal(tmp_path, writer,
 
 
 def test_jax_sched_and_stream_records_recover_in_the_port(tmp_path):
-    """``sched``, ``relaunch`` and ``stream`` records have no producer in
-    the port yet; a JAX-written journal holding them (a streaming
+    """A JAX-written journal holding ``sched``, ``relaunch`` and
+    ``stream`` records (a streaming
     dispatcher's partitions and ranges, a job table with a preemption,
     a row-service pod relaunch), with and without compaction, recovers
     in the port into the JAX recovery's state."""

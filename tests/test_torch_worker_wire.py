@@ -145,7 +145,16 @@ def test_worker_main_needs_cuda_unless_cpu_is_asked_for(records):
         argv + ["--device", "cpu", "--row_service_addr", "x:1"]),
         master_client=object())
     assert worker._step_runner is None
-    for flag in (["--stream_dir", "/s"], ["--image_name", "img"]):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            Master(build_parser("master").parse_args(
-                _job_flags(tdata.model_zoo_dir(), train, evalf) + flag))
+    # A streaming worker needs the card as well.
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        worker_main(argv + ["--stream_dir", "/s"])
+    # --stream_dir is ported (a streaming master); k8s is not.
+    master = Master(build_parser("master").parse_args(
+        _job_flags(tdata.model_zoo_dir(), train, evalf)
+        + ["--stream_dir", "/s"]))
+    assert master.task_dispatcher.is_streaming
+    master.stop()
+    with pytest.raises(NotImplementedError, match="item 8"):
+        Master(build_parser("master").parse_args(
+            _job_flags(tdata.model_zoo_dir(), train, evalf)
+            + ["--image_name", "img"]))
