@@ -39,6 +39,11 @@
                                            # the journal's fsync times
     python3 chip_smoke.py --phase sched  # the port's sched and stream
                                          # drills, host only, no build
+    python3 chip_smoke.py --phase k8s    # the worker phase's (g) alone,
+                                         # then row-service pods, the
+                                         # autoscaler and a gang restart
+                                         # through the port's Master with
+                                         # a stand-in k8s client
 
 1. Prints the card (``nvidia-smi`` name and power limit), versions, and
    whether ``grpc`` can be imported.
@@ -291,6 +296,47 @@
    launches are #6 = its steps + its eval batches, #7 = its steps; the
    kill-to-first-task time, the backpressure seconds and the handback
    count are printed.
+   (g) (d)'s job through the port's ``Master(args, k8s_client=
+   LocalPods)`` in this process (``--image_name edl-port-smoke
+   --num_workers 1 --checkpoint_dir C --checkpoint_steps 4 --journal_dir
+   J``; ``LocalPods``, the smoke's stand-in for a cluster, runs each pod
+   manifest's command as a local process), started after (a) and
+   running beside (b)-(f): the instance manager creates worker pod 0
+   (``python -m elasticdl_tpu_torch.worker.main`` behind a wrapper that
+   counts launches), which trains task 1, saves version 4 and holds its
+   second training lease at a pause; once version 4 is on disk and the
+   journal shows the lease, the pod is SIGKILLed. The watch delivers
+   Failed/137, the manager re-queues the task and creates worker pod 1,
+   which restores version 4 and finishes the job. The final journal
+   counts every training record once, ``check_journal`` finds nothing,
+   the master's accuracy at version 8 equals (a)'s bit for bit, pod 0's
+   launches are #6 = #7 = 4 (task 1) and pod 1's #6 = 4 + the eval
+   batches, #7 = 4; the pods' names, labels and commands are the
+   instance manager's; the kill-to-relaunch time (the event to
+   ``create_pod``) and the relaunch's time to its first task are printed.
+11f'. ``--phase k8s``: (a) the worker phase's (a), then (g) alone; (b)
+   deepfm_host (its rows applied synchronously) with
+   ``--num_row_service_shards 2``, a rolling checkpoint (so a durable
+   push log on each row-service pod), ``--row_reshard
+   --row_pod_autoscale`` and one worker pod on the card, beside an
+   unkilled twin job: shard 1's pod SIGKILLed while the worker holds a
+   lease, the relaunch journaled (``row_service``, generation 1) and
+   created under its generation-1 name, the worker riding it out; the
+   final tables byte-equal to the twin's; then ``RowServicePodScaler``'s
+   ``grow`` (a shard-2 pod, the hottest shard split onto it), ``shrink``
+   and, once the controller retires the slot, ``tick`` (the pod
+   drained), the rows unchanged and ``check_reshard`` clean; every
+   kernel counter 0. (c) mnist under ``--autoscale --num_workers 1
+   --autoscale_max_workers 2 --autoscale_hysteresis_ticks 1``: the
+   backlog creates a second worker pod at the first tick, the tail
+   drains the youngest; every record counted once; the decisions and
+   their ticks. (d) mnist with ``--num_jax_processes 2`` (two worker
+   pods, gloo on the one card) and multi-process checkpoints: pod 1
+   SIGKILLed after a checkpoint, the gang restarted (both deleted, a
+   ``gang`` relaunch journaled at generation 1, ids 0 and 1 recreated
+   under generation-1 names), each process restoring the checkpoint and
+   the job draining; every record counted once, ``check_journal``
+   clean.
 11g. ``rowservice`` (the row service; ``--phase rowservice`` runs it
    alone, with no kernel build): deepfm_host's 5500 x 16 native table
    behind the port's ``HostRowService`` over localhost gRPC, 2048 frappe
@@ -621,7 +667,8 @@
    service paths, ``launches_host_training``, ``launches_vision``,
    ``launches_tabular``, ``launches_checkpoint`` (the straight, first
    and resumed recsys runs), ``launches_worker`` (the in-process and
-   failed-task runs), ``launches_rowservice`` ((a)'s two runs, (b),
+   failed-task runs, (e), (f) and (g)'s two pods),
+   ``launches_rowservice`` ((a)'s two runs, (b),
    (c)), ``launches_fleet`` ((a), (b) over one and two shards, (c)),
    ``launches_parallel`` ((a), (b), (c) at dp4 and dp2, the fused step,
    (d)), ``launches_multihost`` ((a) in each process, (b), (c), (d),
@@ -640,6 +687,7 @@ exits 2 and prints no result.
 import dataclasses
 import json
 import os
+import queue
 import subprocess
 import sys
 import tempfile
@@ -4575,7 +4623,7 @@ def worker_wire_finish(wire, want, failed=False):
 # while the process waits for its go file (argv 3, JSON), the argv, and
 # a wrapper that times every master RPC (name, CLOCK_MONOTONIC, ok, the
 # generation seen, a pulled task's type).
-WORKER_WRAPPER_HEAD = """\
+_WRAPPER_IMPORTS = """\
 import json, os, sys, time
 import torch
 from elasticdl_tpu_torch.ops import flash_attention as fa
@@ -4585,10 +4633,14 @@ from elasticdl_tpu_torch.worker import master_client as mc
 
 if torch.cuda.is_available():
     torch.zeros(1, device="cuda")
+"""
+_WRAPPER_GO = """\
 while not os.path.exists(sys.argv[3]):
     time.sleep(0.005)
 with open(sys.argv[3]) as fh:
     argv = json.load(fh)
+"""
+_WRAPPER_RPCS = """\
 kinds, rpcs = {}, []
 get_task = mc.MasterClient.get_task
 report = mc.MasterClient.report_task_result
@@ -4608,6 +4660,7 @@ def timed(name, fn):
         return out
     return call
 """
+WORKER_WRAPPER_HEAD = _WRAPPER_IMPORTS + _WRAPPER_GO + _WRAPPER_RPCS
 # The wrappers' launch counters, printed in their last line.
 WORKER_WRAPPER_LAUNCHES = '''{
     "flash_attention_fwd": fa.launches,
@@ -4688,14 +4741,17 @@ def free_ports(n):
     return ports
 
 
-def wait_for(cond, what, timeout=240.0, procs=()):
+def wait_for(cond, what, timeout=240.0, procs=(), every=0.005):
+    """``cond`` polled every ``every`` s (a thread of this process that
+    waits beside timed parts must not poll in a tight loop: it takes the
+    GIL from them)."""
     deadline = time.monotonic() + timeout
     while not cond():
         for proc, log in procs:
             check(proc.poll() is None,
                   f"{what}: a process exited early: {log_text(log)[-3000:]}")
         check(time.monotonic() < deadline, f"timed out waiting for {what}")
-        time.sleep(0.005)
+        time.sleep(every)
 
 
 def journal_view(path):
@@ -4828,9 +4884,6 @@ def worker_failover_finish(fo, a_job, want_counts, failed=False):
     With ``failed`` it only stops every process."""
     from elasticdl_tpu_torch.common.args import parse_master_args
     from elasticdl_tpu_torch.common.constants import TaskType
-    from elasticdl_tpu_torch.core.model_spec import get_model_spec
-    from elasticdl_tpu_torch.master.journal import MasterJournal, apply_replay
-    from elasticdl_tpu_torch.master.main import build_dispatcher
     from elasticdl_tpu_torch.tools.check_journal import check_journal
 
     if fo is None:
@@ -4869,14 +4922,9 @@ def worker_failover_finish(fo, a_job, want_counts, failed=False):
     # said the job is finished): one clock, CLOCK_MONOTONIC, across the
     # processes.
     wall = worker_out["rpcs"][-1][1] - fo["t0"]
-    args = parse_master_args(fo["flags"])
-    spec = get_model_spec(args.model_zoo, args.model_def, device="cpu")
-    dispatcher = build_dispatcher(args, spec)
-    carry = apply_replay(dispatcher,
-                         MasterJournal(fo["journal_dir"]).replay_records())
-    resolved = dispatcher.export_state()["resolved"]
-    spans = sorted((t["start"], t["end"]) for _i, t, _w, _r in resolved
-                   if t and t["type"] == TaskType.TRAINING)
+    dispatcher, carry = journal_replay(parse_master_args(fo["flags"]),
+                                       fo["journal_dir"])
+    spans, unique = training_spans(dispatcher)
     per_task = EMB_BATCH * WORKER_TASK_BATCHES
     problems = check_journal(fo["journal_dir"])
     results = carry["eval"]["results"]
@@ -4906,7 +4954,7 @@ def worker_failover_finish(fo, a_job, want_counts, failed=False):
         "finished": dispatcher.finished(),
         "records": dict(dispatcher.counters.total_records),
         "training_spans": len(spans),
-        "resolved_unique": len({r[0] for r in resolved}) == len(resolved),
+        "resolved_unique": unique,
         "check_journal": problems,
         "eval_results": {str(k): v for k, v in results.items()},
         "launches": worker_out["launches"],
@@ -5074,18 +5122,18 @@ def metrics_port_of(log):
     return int(found.group(1)) if found else None
 
 
-def stream_journal_replay(args, journal_dir):
-    """The journal at ``journal_dir`` replayed into a fresh streaming
-    dispatcher, ``build_dispatcher``'s for (f)'s flags (whose streaming
-    branch reads of the spec only its custom reader, so no zoo model is
-    built in this process): (dispatcher, replay carry)."""
+def journal_replay(args, journal_dir):
+    """The journal at ``journal_dir`` replayed into a fresh dispatcher,
+    ``build_dispatcher``'s for the job's flags (it reads of the spec only
+    the custom reader and the callbacks, so no zoo model is built in this
+    process): (dispatcher, replay carry)."""
     import types
 
     from elasticdl_tpu_torch.master.journal import MasterJournal, apply_replay
     from elasticdl_tpu_torch.master.main import build_dispatcher
 
-    dispatcher = build_dispatcher(
-        args, types.SimpleNamespace(custom_data_reader=None))
+    dispatcher = build_dispatcher(args, types.SimpleNamespace(
+        custom_data_reader=None, callbacks_fn=None))
     carry = apply_replay(dispatcher,
                          MasterJournal(journal_dir).replay_records())
     return dispatcher, carry
@@ -5229,7 +5277,7 @@ def worker_stream_start(fs, a_job):
             os.path.join(base, "pause.at")),
                  "the worker to hold a resumed stream task's report",
                  procs=watch)
-        dispatcher, carry = stream_journal_replay(fs["args"], journal_dir)
+        dispatcher, carry = journal_replay(fs["args"], journal_dir)
         jobs = carry["sched"]["jobs"]
         leased = [t for _i, t, _w in dispatcher.export_state()["doing"]
                   if t.get("extended_config", {}).get("stream")]
@@ -5327,7 +5375,7 @@ def worker_stream_finish(fs, failed=False):
     if failed:
         return None
     worker_out = json.loads(texts["worker"].strip().splitlines()[-1])
-    dispatcher, carry = stream_journal_replay(fs["args"], fs["journal_dir"])
+    dispatcher, carry = journal_replay(fs["args"], fs["journal_dir"])
     progress = dispatcher.stream_progress()
     end = fs["appended"]
     resolved = [t for _i, t, _w, requeued in
@@ -5444,18 +5492,973 @@ def worker_stream_finish(fs, failed=False):
     return out
 
 
-def worker_phase(torch, fa, pe, root, defer_stream=False):
+# The k8s plane (slice 27): the port's Master with a k8s client, its
+# instance manager launching the job's pods. There is no cluster on the
+# chip machine, so ``LocalPods`` stands in for one: a pod is a local
+# process running its manifest's container command. Two traps are the
+# stand-in's to solve: a Service name resolves nowhere here, and every
+# row-service pod listens on ROW_SERVICE_PORT. Each Service gets a local
+# address (127.0.0.1 and a free port, in a names file), each pod runs
+# under POD_SHIM, which points gRPC's channels at those addresses (the
+# shard map carries Service names into every process: a split's source
+# dials its target by name), and a row-service pod's ``--addr`` is
+# rewritten to its Service's port. This process points the same names
+# there too (``point_names``). A worker pod's command may be swapped for
+# K8S_WORKER, the same arguments behind a wrapper that counts launches
+# and can hold a lease at a pause.
+K8S_IMAGE = "edl-port-smoke"
+POD_SHIM = """\
+import json, runpy, sys
+names_file, _names = sys.argv[1], {}
+
+
+def _resolve(target):
+    if target not in _names:
+        try:
+            with open(names_file) as fh:
+                _names.update(json.load(fh))
+        except (OSError, ValueError):
+            pass
+    return _names.get(target, target)
+
+
+import grpc
+
+_channel = grpc.insecure_channel
+grpc.insecure_channel = (
+    lambda target, *a, **kw: _channel(_resolve(target), *a, **kw))
+if sys.argv[2] == "-m":
+    sys.argv = [sys.argv[3]] + sys.argv[4:]
+    runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+else:
+    sys.argv = sys.argv[2:]
+    runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+# A worker pod's wrapper: argv is (pause prefix or "-", the training
+# lease to hold, the output file, the worker's arguments). At that
+# lease it writes ``<pause>.at`` (its launches so far) and waits for
+# ``<pause>.go``; once ``get_task`` says the job is finished it writes
+# its launches and RPC times to the output file (before the worker's
+# exit path: the master deletes its pods at its stop).
+K8S_WORKER = _WRAPPER_IMPORTS + "argv = sys.argv[4:]\n" + _WRAPPER_RPCS + """
+pause, hold_at, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+leases = []
+
+
+def launches():
+    return %s
+
+
+def dump(path, **extra):
+    with open(path + ".tmp", "w") as fh:
+        json.dump({"launches": launches(), "rpcs": rpcs,
+                   "t": time.monotonic(), **extra}, fh)
+    os.replace(path + ".tmp", path)
+
+
+def pulled(self, *args, **kwargs):
+    task, finished = get_task(self, *args, **kwargs)
+    if task is not None and task.type == "training":
+        leases.append(task.task_id)
+        if pause != "-" and len(leases) == hold_at:
+            dump(pause + ".at", task_id=task.task_id)
+            while not os.path.exists(pause + ".go"):
+                time.sleep(0.01)
+    if finished:
+        dump(out)
+    return task, finished
+
+
+mc.MasterClient.get_task = timed("get_task", pulled)
+mc.MasterClient.report_task_result = timed("report_task_result", report)
+code = worker_main.main(argv)
+dump(out, exit=code or 0)
+sys.exit(code or 0)
+""" % WORKER_WRAPPER_LAUNCHES
+_SMOKE_NAMES = {}
+
+
+def point_names():
+    """This process's gRPC channels resolve the stand-ins' Service names
+    (installed once)."""
+    import grpc
+
+    if getattr(grpc, "_smoke_names", None) is not None:
+        return
+    channel = grpc.insecure_channel
+    grpc._smoke_names = _SMOKE_NAMES
+    grpc.insecure_channel = (lambda target, *a, **kw: channel(
+        _SMOKE_NAMES.get(target, target), *a, **kw))
+
+
+class LocalPods:
+    """The k8s client's methods the instance manager calls, over local
+    processes. ``create_pod`` runs the manifest's command (through
+    POD_SHIM, and ``wrap`` where given) with the manifest's env and
+    MY_POD_IP=127.0.0.1; ``delete_pod`` SIGKILLs the process and emits
+    DELETED; a process that ends emits MODIFIED with phase Succeeded or
+    Failed and its exit code (a signal s as 128 + s, so SIGKILL is 137);
+    ``watch_job_pods`` delivers the events on the manager's watch
+    thread; ``create_service`` gives the Service a local address."""
+
+    def __init__(self, root, job, wrap=None):
+        self.dir = os.path.join(root, f"pods_{job}")
+        os.makedirs(self.dir)
+        self.job = job
+        self.names_file = os.path.join(self.dir, "names.json")
+        self.names = {}
+        self.pods = {}
+        self.created = []       # (t, manifest), pods and Services
+        self.emitted = []       # (t, type, pod, phase, exit code)
+        self.delivered = []     # (t, type, pod)
+        self._events = queue.Queue()
+        self._lock = threading.Lock()
+        self.wrap = wrap
+        here = os.path.dirname(os.path.abspath(__file__))
+        self.env = dict(os.environ)
+        self.env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (here, self.env.get("PYTHONPATH", "")) if p)
+        point_names()
+        self._write_names()
+
+    def _write_names(self):
+        with open(self.names_file + ".tmp", "w") as fh:
+            json.dump(self.names, fh)
+        os.replace(self.names_file + ".tmp", self.names_file)
+        _SMOKE_NAMES.update(self.names)
+
+    def serve_name(self, name, port, addr):
+        with self._lock:
+            self.names[f"{name}:{port}"] = addr
+            self._write_names()
+
+    def create_service(self, manifest):
+        port = manifest["spec"]["ports"][0]["port"]
+        key = f"{manifest['metadata']['name']}:{port}"
+        with self._lock:
+            if key not in self.names:
+                self.names[key] = f"127.0.0.1:{free_ports(1)[0]}"
+                self._write_names()
+            self.created.append((time.monotonic(), manifest))
+
+    def delete_service(self, name):
+        return True
+
+    def get_pod(self, name):
+        return None  # the master does not run as a pod here
+
+    def _argv(self, manifest):
+        from elasticdl_tpu_torch.platform import k8s_client as kc
+
+        cmd = list(manifest["spec"]["containers"][0]["command"])
+        labels = manifest["metadata"]["labels"]
+        if labels[kc.ELASTICDL_REPLICA_TYPE_KEY] == "rowservice":
+            shard = int(labels[kc.ELASTICDL_REPLICA_INDEX_KEY])
+            service = kc.get_row_service_service_name(self.job, shard)
+            port = self.names[f"{service}:{kc.ROW_SERVICE_PORT}"].rsplit(
+                ":", 1)[1]
+            cmd[cmd.index("--addr") + 1] = f"[::]:{port}"
+        if self.wrap is not None:
+            cmd = self.wrap(manifest, cmd)
+        return [sys.executable, "-c", POD_SHIM, self.names_file] + cmd[1:]
+
+    def create_pod(self, manifest):
+        name = manifest["metadata"]["name"]
+        container = manifest["spec"]["containers"][0]
+        env = dict(self.env)
+        env.update({e["name"]: e["value"] for e in container["env"]
+                    if "value" in e})
+        env["MY_POD_IP"] = "127.0.0.1"
+        log = open(os.path.join(self.dir, f"{name}.log"), "w+")
+        proc = subprocess.Popen(self._argv(manifest), env=env,
+                                cwd=self.dir, stdout=log,
+                                stderr=subprocess.STDOUT)
+        pod = dict(name=name, proc=proc, log=log, manifest=manifest,
+                   deleted=False)
+        with self._lock:
+            self.pods[name] = pod
+            self.created.append((time.monotonic(), manifest))
+        threading.Thread(target=self._reap, args=(pod,), daemon=True).start()
+
+    def _reap(self, pod):
+        code = pod["proc"].wait()
+        if not pod["deleted"]:
+            self._emit("MODIFIED", pod, code)
+
+    def _emit(self, etype, pod, code):
+        exit_code = code if code >= 0 else 128 - code
+        phase = "Succeeded" if code == 0 else "Failed"
+        self.emitted.append((time.monotonic(), etype, pod["name"], phase,
+                             exit_code))
+        self._events.put({"type": etype, "object": {
+            "metadata": {"name": pod["name"],
+                         "labels": pod["manifest"]["metadata"]["labels"]},
+            "status": {"phase": phase, "exit_code": exit_code}}})
+
+    def delete_pod(self, name, grace_period_seconds=0):
+        with self._lock:
+            pod = self.pods.get(name)
+            if pod is None or pod["deleted"]:
+                return None
+            pod["deleted"] = True
+        if pod["proc"].poll() is None:
+            pod["proc"].kill()
+        self._emit("DELETED", pod, pod["proc"].wait())
+        return True
+
+    def watch_job_pods(self, job_name, callback, stop):
+        while not stop():
+            try:
+                event = self._events.get(timeout=0.05)
+            except queue.Empty:
+                continue
+            self.delivered.append((time.monotonic(), event["type"],
+                                   event["object"]["metadata"]["name"]))
+            callback(event)
+
+    def kill(self, name):
+        """A SIGKILL from outside the cluster (the pod is not deleted)."""
+        self.pods[name]["proc"].kill()
+
+    def text(self, name):
+        return log_text(self.pods[name]["log"])
+
+    def pod_names(self, replica_type):
+        return [m["metadata"]["name"] for _t, m in self.created
+                if m["kind"] == "Pod" and m["metadata"]["labels"][
+                    "elasticdl-tpu-replica-type"] == replica_type]
+
+    def close(self):
+        for pod in self.pods.values():
+            if pod["proc"].poll() is None:
+                pod["deleted"] = True
+                pod["proc"].kill()
+                pod["proc"].wait()
+            pod["log"].close()
+
+
+def wait_until(cond, what, timeout=300.0):
+    wait_for(cond, what, timeout, every=0.1)
+
+
+def read_json(path):
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def k8s_wrap(base, holds):
+    """Worker pods run K8S_WORKER with their own arguments; ``holds``
+    maps a worker id to the training lease it holds at ``<base>/
+    hold<id>`` (a pause), the rest run straight through."""
+    wrapper = os.path.join(base, "k8s_worker.py")
+    with open(wrapper, "w") as fh:
+        fh.write(K8S_WORKER)
+
+    def wrap(manifest, cmd):
+        labels = manifest["metadata"]["labels"]
+        if labels["elasticdl-tpu-replica-type"] != "worker":
+            return cmd
+        wid = int(labels["elasticdl-tpu-replica-index"])
+        name = manifest["metadata"]["name"]
+        pause = (os.path.join(base, f"hold{wid}") if wid in holds
+                 else "-")
+        return [cmd[0], wrapper, pause, str(holds.get(wid, 0)),
+                os.path.join(base, f"{name}.out")] + cmd[3:]
+
+    return wrap
+
+
+def k8s_master(base, job, flags, wrap, extra=()):
+    """The port's Master over the job's flags with a LocalPods client,
+    its Service name pointed at its port (not yet prepared)."""
+    from elasticdl_tpu_torch.common.args import build_parser
+    from elasticdl_tpu_torch.master.main import Master
+    from elasticdl_tpu_torch.platform import k8s_client as kc
+
+    pods = LocalPods(base, job, wrap)
+    (port,) = free_ports(1)
+    pods.serve_name(kc.get_master_service_name(job), port,
+                    f"127.0.0.1:{port}")
+    args = build_parser("master").parse_args(
+        flags + ["--image_name", K8S_IMAGE, "--job_name", job,
+                 "--master_addr", f"localhost:{port}", *extra])
+    return Master(args, k8s_client=pods), pods, args
+
+
+def master_thread(job, master, poll_secs):
+    """``master.run`` on a thread; its exit code lands in
+    ``job["master_exit"]``, an error in ``job["error"]``."""
+    def run():
+        try:
+            job["master_exit"] = master.run(poll_secs=poll_secs)
+        except BaseException as exc:  # re-raised by the finish
+            job["error"] = exc
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread
+
+
+def end_master(master, thread):
+    """Stop a master whose run may still be going (``run`` stops it when
+    it returns)."""
+    if thread is None:
+        master.stop()
+        return
+    if thread.is_alive():
+        master.request_stop()
+        thread.join(timeout=60)
+        if thread.is_alive():
+            master.stop()
+
+
+def relaunch_records(journal_dir):
+    """The journal's ``relaunch`` records: (kind, generation, shard)."""
+    from elasticdl_tpu_torch.master.journal import read_records
+
+    return [(r["kind"], r["generation"], r["shard"])
+            for _o, _e, r in read_records(os.path.join(
+                journal_dir, "journal.log")) if r["t"] == "relaunch"]
+
+
+def training_spans(dispatcher):
+    """The successfully resolved training spans (a requeued attempt is
+    resolved too, as a failure), and whether no task id resolved
+    twice."""
+    from elasticdl_tpu_torch.common.constants import TaskType
+
+    resolved = dispatcher.export_state()["resolved"]
+    return (sorted((t["start"], t["end"]) for _i, t, _w, requeued
+                   in resolved
+                   if t and t["type"] == TaskType.TRAINING and not requeued),
+            len({r[0] for r in resolved}) == len(resolved))
+
+
+# (g): (d)'s recsys job at full width through the port's Master with a
+# k8s client (LocalPods), --num_workers 1, a rolling checkpoint every
+# K8S_G_CKPT_STEPS versions and a journal: the instance manager creates
+# worker pod 0, which trains task 1, saves version 4 and holds its second
+# training lease at a pause (before training it, so its launches are
+# task 1's); once version 4 is on disk and the journal shows the lease,
+# the pod is SIGKILLed. The watch delivers Failed/137, the manager
+# re-queues the task and creates worker 1, which restores version 4
+# (resolve_init_checkpoint) and finishes the job; the master's accuracy
+# at version 8 must be (a)'s bit for bit.
+K8S_G_JOB, K8S_G_CKPT_STEPS = "k8s-g", 4
+
+
+def worker_k8s_start(root, a_job, wire_flags):
+    """(g), first half: a thread that builds and prepares the master (pod
+    0 created; the recsys model it builds on this CPU stays off the
+    calling thread), starts its run loop on a thread of its own and
+    kills pod 0 at its pause. None without (d)'s flags (no grpc
+    module)."""
+    if wire_flags is None:
+        return None
+    base = os.path.join(root, "k8s_g")
+    os.makedirs(base)
+    ckpt, journal_dir = (os.path.join(base, "ckpt"),
+                         os.path.join(base, "journal"))
+    g = dict(base=base, ckpt=ckpt, journal_dir=journal_dir, error=None,
+             a_job=a_job, master=None, pods=None, master_thread=None,
+             abort=False)
+
+    def choreography():
+        from elasticdl_tpu_torch.checkpoint.saver import CheckpointSaver
+        from elasticdl_tpu_torch.platform import k8s_client as kc
+
+        master, pods, args = k8s_master(
+            base, K8S_G_JOB, wire_flags, k8s_wrap(base, {0: 2}),
+            ["--evaluation_steps", str(WORKER_EVAL_STEPS), "--num_workers",
+             "1", "--checkpoint_dir", ckpt, "--checkpoint_steps",
+             str(K8S_G_CKPT_STEPS), "--journal_dir", journal_dir])
+        g.update(master=master, pods=pods, args=args, t0=time.monotonic())
+        master.prepare()
+        g["master_thread"] = master_thread(g, master, poll_secs=1.0)
+        pod0 = kc.get_worker_pod_name(K8S_G_JOB, 0)
+        wait_until(lambda: g["abort"] or os.path.exists(
+            os.path.join(base, "hold0.at")),
+            "pod 0 to hold its second training lease")
+        wait_until(lambda: g["abort"] or CheckpointSaver(
+            ckpt).get_valid_latest_version() == K8S_G_CKPT_STEPS,
+            "version 4 on disk")
+        if g["abort"]:
+            return
+        view = journal_view(os.path.join(journal_dir, "journal.log"))
+        check("training" in view["leased"].values(),
+              f"no training task leased at the kill: {view}")
+        g["kill"] = dict(t=time.monotonic(), journal=view)
+        pods.kill(pod0)
+
+    def run():
+        try:
+            choreography()
+        except BaseException as exc:  # re-raised by the finish
+            g["error"] = exc
+
+    g["thread"] = threading.Thread(target=run, daemon=True)
+    g["thread"].start()
+    return g
+
+
+def worker_k8s_finish(g, failed=False):
+    """(g), second half: wait for the kill and the master's run, then
+    hold the final journal (replayed here), its fsck, the master's eval
+    results, the pods' launches, names, labels and commands, and time the
+    relaunch. With ``failed`` it only stops the master and the pods."""
+    from elasticdl_tpu_torch.common.constants import TaskType
+    from elasticdl_tpu_torch.platform import k8s_client as kc
+    from elasticdl_tpu_torch.tools.check_journal import check_journal
+
+    if g is None:
+        return {"run": False, "reason": "no grpc module"}
+    try:
+        if failed:
+            g["abort"] = True
+        g["thread"].join(timeout=60 if failed else 300)
+        if not failed:
+            check(not g["thread"].is_alive(), "(g): the kill never happened")
+            if g["error"] is not None:
+                raise g["error"]
+            g["master_thread"].join(timeout=300)
+            check(not g["master_thread"].is_alive(),
+                  "(g): the master's run did not end")
+    finally:
+        texts = {}
+        if g["master"] is not None:
+            end_master(g["master"], g["master_thread"])
+        if g["pods"] is not None:
+            texts = {name: g["pods"].text(name) for name in g["pods"].pods}
+            g["pods"].close()
+    if failed:
+        return None
+    if g["error"] is not None:
+        raise g["error"]
+    master, pods, a_job = g["master"], g["pods"], g["a_job"]
+    wall = time.monotonic() - g["t0"]
+    names = pods.pod_names("worker")
+    pod0, pod1 = (kc.get_worker_pod_name(K8S_G_JOB, w) for w in (0, 1))
+    check(names == [pod0, pod1], f"(g)'s worker pods {names}")
+    held = read_json(os.path.join(g["base"], "hold0.at"))
+    out1 = os.path.join(g["base"], f"{pod1}.out")
+    check(os.path.exists(out1),
+          f"(g): pod 1 wrote no result: {texts[pod1][-3000:]}")
+    done = read_json(out1)
+    dispatcher, carry = journal_replay(g["args"], g["journal_dir"])
+    problems = check_journal(g["journal_dir"])
+    spans, unique = training_spans(dispatcher)
+    per_task = EMB_BATCH * WORKER_TASK_BATCHES
+    results = master.evaluation_service.completed_results
+    manifests = {m["metadata"]["name"]: m for _t, m in pods.created
+                 if m["kind"] == "Pod"}
+    created_at = {m["metadata"]["name"]: t for t, m in pods.created}
+    event = next(t for t, kind, name in pods.delivered
+                 if name == pod0 and kind == "MODIFIED")
+    def first_task(rpcs):
+        return next((at for name, at, ok, _gen, kind in rpcs
+                     if name == "get_task" and ok
+                     and kind == TaskType.TRAINING), None)
+
+    def since(t):
+        return None if t is None else round(t - g["t0"], 3)
+    commands = {}
+    for name, wid in ((pod0, 0), (pod1, 1)):
+        m = manifests[name]
+        cmd = m["spec"]["containers"][0]["command"]
+        commands[name] = cmd[:7]
+        check(m["metadata"]["labels"] == {
+            "app": "elasticdl-tpu", "elasticdl-tpu-job-name": K8S_G_JOB,
+            "elasticdl-tpu-replica-type": "worker",
+            "elasticdl-tpu-replica-index": str(wid)}
+              and m["spec"]["containers"][0]["image"] == K8S_IMAGE
+              and m["spec"]["restartPolicy"] == "Never"
+              and cmd[1:7] == ["-m", "elasticdl_tpu_torch.worker.main",
+                               "--worker_id", str(wid), "--master_addr",
+                               f"{kc.get_master_service_name(K8S_G_JOB)}:"
+                               f"{master._master_port()}"],
+              f"(g)'s pod {name}: {m}")
+    eval_batches = -(-WORKER_EVAL_RECORDS // EMB_BATCH)
+    steps = WORKER_TASK_BATCHES
+    want0 = {k: 0 for k in held["launches"]}
+    want0.update(lookup_combine=steps, row_update=steps,
+                 row_update_adagrad=steps)
+    want1 = dict(want0, lookup_combine=steps + eval_batches)
+    out = {
+        "run": True, "wall_s": wall,
+        "pods": names, "commands": commands,
+        "events": [e[1:] for e in pods.emitted],
+        "held_task": held["task_id"],
+        "journal_at_kill": g["kill"]["journal"],
+        "kill_to_event_s": event - g["kill"]["t"],
+        "event_to_create_pod_s": created_at[pod1] - event,
+        "kill_to_relaunch_s": created_at[pod1] - g["kill"]["t"],
+        "relaunch_to_first_task_s": (
+            first_task(done["rpcs"]) - created_at[pod1]
+            if first_task(done["rpcs"]) else None),
+        # Seconds from the master's prepare: pod 0 created, its first
+        # task, its hold, the kill, pod 1 created, its first task, its
+        # last RPC before the job finished.
+        "timeline_s": {
+            "pod0_created": since(created_at[pod0]),
+            "pod0_first_task": since(first_task(held["rpcs"])),
+            "pod0_hold": since(held["t"]),
+            "kill": since(g["kill"]["t"]),
+            "pod1_created": since(created_at[pod1]),
+            "pod1_first_task": since(first_task(done["rpcs"])),
+            "pod1_last_rpc": since(done["rpcs"][-1][1]
+                                   if done["rpcs"] else None)},
+        "restored": "Restored state at version 4" in texts[pod1],
+        "generation": carry["generation"],
+        "finished": dispatcher.finished(),
+        "records": dict(dispatcher.counters.total_records),
+        "training_spans": len(spans), "resolved_unique": unique,
+        "check_journal": problems,
+        "eval_results": {str(k): v for k, v in results.items()},
+        "launches": {"pod0": held["launches"], "pod1": done["launches"]},
+        "master_exit": g.get("master_exit"),
+        "card": smi("name,power.limit"),
+    }
+    print("worker k8s", json.dumps(out, default=str), flush=True)
+    check(out["master_exit"] == 0, f"(g)'s master exited {out}")
+    check(out["finished"] and unique
+          and out["records"].get(TaskType.TRAINING) == WORKER_RECORDS
+          and spans == [(s, s + per_task)
+                        for s in range(0, WORKER_RECORDS, per_task)],
+          f"(g)'s accounting: {out}")
+    check(problems == [], f"(g)'s check_journal: {problems}")
+    check(("MODIFIED", pod0, "Failed", 137) in out["events"],
+          f"(g): no Failed/137 for pod 0: {out['events']}")
+    check(results == a_job["results"],
+          f"(g)'s master eval {results} against (a)'s {a_job['results']}")
+    check(held["launches"] == want0 and done["launches"] == want1,
+          f"(g)'s launches {out['launches']}, not {want0} / {want1}")
+    return out
+
+
+# ``--phase k8s`` (b): deepfm_host (the zoo's module with its rows
+# applied synchronously, so a run is a function of its records) with
+# --num_row_service_shards 2, a rolling checkpoint and so a durable push
+# log on each row-service pod, the shard-map authority and the pod
+# scaler (--row_reshard --row_pod_autoscale; no replicas, no policy
+# moves within the job), one worker pod on the card. The worker holds
+# its K8S_B_HOLD-th training lease at a pause, shard 1's pod is
+# SIGKILLed, the manager journals a row_service relaunch at generation 1
+# and creates the shard's generation-1 pod; the pause is released at
+# once, so the worker rides the relaunch out. An unkilled twin job runs
+# beside it. After the job: grow() spawns shard 2 and splits the hottest
+# shard onto it, shrink() merges the coldest away, the controller
+# retires it and tick() drains its pod; the rows stay the twin's.
+K8S_HOST_ZOO = """
+from elasticdl_tpu_torch.embedding.host_engine import HostStepRunner
+from elasticdl_tpu_torch.model_zoo.deepfm import deepfm_host as twin
+from elasticdl_tpu_torch.model_zoo.deepfm.deepfm_host import (  # noqa
+    custom_model, dataset_fn, eval_metrics_fn, loss, make_row_service,
+    optimizer)
+
+
+def make_host_runner(remote_addr=""):
+    return HostStepRunner(twin.make_host_runner(
+        remote_addr=remote_addr).engine, async_apply=False)
+"""
+K8S_B_RECORDS, K8S_B_TASK_BATCHES, K8S_B_EPOCHS, K8S_B_HOLD = 2048, 2, 2, 3
+
+
+def k8s_rows(addrs):
+    """Every row of deepfm_host's table, exported through the shard map
+    (redirects followed): its sha256."""
+    import hashlib
+
+    from elasticdl_tpu_torch.embedding.row_service import make_remote_engine
+    from elasticdl_tpu_torch.model_zoo.deepfm import deepfm_host as twin
+
+    engine = make_remote_engine(addrs, id_keys={
+        twin.TABLE_NAME: twin.FEATURE_KEY})
+    rows = engine.tables[twin.TABLE_NAME].export_dense(5500)
+    return hashlib.sha256(np.ascontiguousarray(rows).tobytes()).hexdigest()
+
+
+def k8s_rows_phase(root, fa, pe):
+    """``--phase k8s`` (b)."""
+    from elasticdl_tpu_torch.platform import k8s_client as kc
+    from elasticdl_tpu_torch.testing import data as tdata
+    from elasticdl_tpu_torch.tools.check_journal import check_journal
+    from elasticdl_tpu_torch.tools.check_reshard import check_reshard
+
+    before = kernel_launch_counts(fa, pe)
+    base = os.path.join(root, "k8s_b")
+    os.makedirs(base)
+    zoo = write_zoo(base, "k8s_host", K8S_HOST_ZOO)
+    records = tdata.create_frappe_record_file(
+        os.path.join(base, "train.rec"), K8S_B_RECORDS, seed=SEED,
+        input_length=10, max_id=5500)
+    jobs = {}
+    for job, holds in (("k8s-b", {0: K8S_B_HOLD}), ("k8s-b-twin", {})):
+        run = os.path.join(base, job)
+        os.makedirs(run)
+        names = ",".join(f"{kc.get_row_service_service_name(job, s)}:"
+                         f"{kc.ROW_SERVICE_PORT}" for s in (0, 1))
+        flags = ["--model_zoo", zoo, "--model_def",
+                 "k8s_host.rec.custom_model", "--training_data", records,
+                 "--minibatch_size", str(HOST_BATCH),
+                 "--num_minibatches_per_task", str(K8S_B_TASK_BATCHES),
+                 "--num_epochs", str(K8S_B_EPOCHS),
+                 "--num_row_service_shards", "2",
+                 "--checkpoint_dir", os.path.join(run, "ckpt"),
+                 "--checkpoint_steps", "2",
+                 "--journal_dir", os.path.join(run, "journal"),
+                 "--row_reshard", "--row_pod_autoscale",
+                 "--row_service_addr", names,
+                 "--row_reshard_state", os.path.join(run, "map.json"),
+                 "--row_reshard_cooldown_secs", "3600",
+                 "--row_replica_count", "0"]
+        master, pods, args = k8s_master(run, job, flags,
+                                        k8s_wrap(run, holds))
+        jobs[job] = dict(master=master, pods=pods, args=args, run=run,
+                         names=names, t0=time.monotonic())
+    try:
+        for j in jobs.values():
+            j["master"].prepare()
+        job, j = "k8s-b", jobs["k8s-b"]
+        pods, master = j["pods"], j["master"]
+        for name, jj in jobs.items():
+            for s in (0, 1):
+                pod = kc.get_row_service_pod_name(name, 0, s)
+                wait_until(lambda: "Row service on port" in
+                           jj["pods"].text(pod), f"{pod} to serve")
+            jj["master"].row_reshard.sync()
+        wait_until(lambda: os.path.exists(os.path.join(j["run"],
+                                                        "hold0.at")),
+                   "the worker to hold a lease")
+        shard1 = kc.get_row_service_pod_name(job, 0, 1)
+        view = journal_view(os.path.join(j["run"], "journal",
+                                         "journal.log"))
+        t_kill = time.monotonic()
+        pods.kill(shard1)
+        relaunch = kc.get_row_service_pod_name(job, 1, 1)
+        wait_until(lambda: relaunch in pods.pods, "shard 1's relaunch")
+        t_relaunch = time.monotonic()
+        go(os.path.join(j["run"], "hold0.go"))
+        relaunched = wait_text(pods, relaunch, "Row service on port")
+        for name, jj in jobs.items():
+            worker = kc.get_worker_pod_name(name, 0)
+            wait_until(lambda: jj["master"].task_dispatcher.finished()
+                       and os.path.exists(os.path.join(
+                           jj["run"], f"{worker}.out")),
+                       f"{name} to drain", timeout=600)
+            jj["wall_s"] = time.monotonic() - jj["t0"]
+        rows = {name: k8s_rows(jj["names"]) for name, jj in jobs.items()}
+        # The pod scaler, once the job drained: a pod and a split, then a
+        # merge that drains a pod after the controller retires its slot.
+        scaler, ctrl = master.row_pod_scaler, master.row_reshard
+        t = time.monotonic()
+        grown = scaler.grow()
+        grow_s = time.monotonic() - t
+        grown_shards = list(ctrl.map.shards)
+        rows_grown = k8s_rows(j["names"])
+        merged = scaler.shrink()
+        now = time.monotonic() + 1e4
+        ticks = [ctrl.tick(now=now), ctrl.tick(now=now + 3601.0)]
+        drained = scaler.tick()
+        rows_after = k8s_rows(j["names"])
+        fsck, report = check_reshard(os.path.join(j["run"], "map.json"),
+                                     probe_addrs=list(ctrl.map.shards))
+        dispatcher, carry = journal_replay(
+            j["args"], os.path.join(j["run"], "journal"))
+        problems = check_journal(os.path.join(j["run"], "journal"))
+        spans, unique = training_spans(dispatcher)
+        rs_relaunches = relaunch_records(os.path.join(j["run"],
+                                                      "journal"))
+        outs = {name: read_json(os.path.join(
+            jj["run"], f"{kc.get_worker_pod_name(name, 0)}.out"))
+            for name, jj in jobs.items()}
+        rideout = pods.text(kc.get_worker_pod_name(job, 0)).count(
+            "failed (attempt")
+        out = {
+            "wall_s": {n: jj["wall_s"] for n, jj in jobs.items()},
+            "journal_at_kill": view,
+            "kill_to_relaunch_pod_s": t_relaunch - t_kill,
+            "relaunch_serving_after_kill_s": relaunched - t_kill,
+            "row_pods": pods.pod_names("rowservice"),
+            "events": [e[1:] for e in pods.emitted],
+            "relaunch_records": rs_relaunches,
+            "rows_sha256": rows, "rows_after_grow": rows_grown,
+            "rows_after_drain": rows_after,
+            "grow": grown, "grow_s": grow_s, "shards_grown": grown_shards,
+            "merge": merged, "ticks": ticks, "drained": drained,
+            "shards_final": list(ctrl.map.shards),
+            "scaler_events": scaler.events,
+            "check_reshard": fsck, "map_version": report["map_version"],
+            "check_journal": problems,
+            "records": dict(dispatcher.counters.total_records),
+            "resolved_unique": unique,
+            "worker_exit": {n: o.get("exit") for n, o in outs.items()},
+            "worker_rideout_retries": rideout,
+            "launches_workers": {n: o["launches"] for n, o in outs.items()},
+            "launches_here": launches_since(fa, pe, before),
+            "card": smi("name,power.limit"),
+        }
+    finally:
+        for jj in jobs.values():
+            jj["master"].stop()
+            jj["pods"].close()
+    print("k8s rows", json.dumps(out, default=str), flush=True)
+    check(out["worker_exit"] == {"k8s-b": 0, "k8s-b-twin": 0},
+          f"(b)'s workers: {out['worker_exit']}")
+    check(rows["k8s-b"] == rows["k8s-b-twin"] == rows_grown == rows_after,
+          f"(b)'s tables are not the unkilled twin's: {out}")
+    check(rs_relaunches == [("row_service", 1, 1), ("row_service", 0, 2)],
+          f"(b)'s relaunch records {rs_relaunches}")
+    check(("MODIFIED", shard1, "Failed", 137) in out["events"]
+          and relaunch in out["row_pods"],
+          f"(b): shard 1's death or relaunch: {out}")
+    check(grown is not None and merged is not None and drained is not None
+          and len(out["shards_final"]) == 2 and fsck == [],
+          f"(b)'s pod scaler: {out}")
+    check(out["records"].get("training") == K8S_B_RECORDS * K8S_B_EPOCHS
+          and unique and problems == [], f"(b)'s accounting: {out}")
+    check(not any(v for counts in list(out["launches_workers"].values())
+                  + [out["launches_here"]] for v in counts.values()),
+          f"(b) launched kernels: {out}")
+    return out
+
+
+def wait_text(pods, name, text, timeout=300.0):
+    """When ``text`` first appeared in pod ``name``'s log (polled)."""
+    wait_until(lambda: text in pods.text(name), f"{name}: {text!r}",
+               timeout=timeout)
+    return time.monotonic()
+
+
+# ``--phase k8s`` (c): mnist under --autoscale, one worker pod at the
+# start, a ceiling of 2, hysteresis 1 tick. One epoch of K8S_C_RECORDS
+# records in tasks of K8S_C_TASK_BATCHES minibatches (long tasks: a new
+# pod's first task, with its warm-up, must stay under the straggler
+# check's 3x the mean; one epoch, since the dispatcher queues an epoch's
+# tasks only once the last one's are out, so the queue empties at every
+# epoch boundary and the policy drains there). The backlog scales up at
+# the first tick; at the tail (the queue empty, the last tasks in flight) the
+# youngest worker is drained. --autoscale_down_utilization 1.0: the
+# policy drains on an empty queue only where the workers' step
+# utilization (step seconds over wall seconds) is at most this, and
+# workers busy with the tail read near 1 (0.98-0.99 on a CPU drive), so
+# 1.0 makes the empty queue the trigger; the cooldown 0.01 s (both
+# packages' parsers refuse 0).
+K8S_C_RECORDS, K8S_C_BATCH, K8S_C_TASK_BATCHES, K8S_C_EPOCHS = (
+    16384, 64, 16, 1)
+
+
+def k8s_autoscale_phase(root, fa, pe):
+    """``--phase k8s`` (c)."""
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    before = kernel_launch_counts(fa, pe)
+    base = os.path.join(root, "k8s_c")
+    os.makedirs(base)
+    records = tdata.create_mnist_record_file(
+        os.path.join(base, "train.rec"), K8S_C_RECORDS, seed=1)
+    flags = ["--model_zoo", tdata.model_zoo_dir(), "--model_def",
+             "mnist.mnist_functional.custom_model", "--training_data",
+             records, "--minibatch_size", str(K8S_C_BATCH),
+             "--num_minibatches_per_task", str(K8S_C_TASK_BATCHES),
+             "--num_epochs", str(K8S_C_EPOCHS), "--autoscale",
+             "--num_workers", "1", "--autoscale_max_workers", "2",
+             "--autoscale_hysteresis_ticks", "1",
+             "--autoscale_cooldown_secs", "0.01",
+             "--autoscale_down_utilization", "1.0",
+             "--metrics_report_secs", "1"]
+    job = "k8s-c"
+    master, pods, _args = k8s_master(base, job, flags, k8s_wrap(base, {}))
+    c = dict(error=None)
+    ticks = []
+    master.prepare()
+    real_tick = master.autoscaler.tick
+
+    def tick():
+        decision = real_tick()
+        ticks.append((len(ticks), time.monotonic(), decision,
+                      master.task_dispatcher.queue_depths()))
+        return decision
+
+    master.autoscaler.tick = tick
+    t0 = time.monotonic()
+    thread = None
+    try:
+        thread = master_thread(c, master, poll_secs=0.25)
+        thread.join(timeout=600)
+        check(not thread.is_alive(), "(c)'s job did not end")
+        if c["error"] is not None:
+            raise c["error"]
+    finally:
+        end_master(master, thread)
+        outs = [os.path.join(base, f"{p}.out")
+                for p in pods.pod_names("worker")]
+        pods.close()
+    decisions = [(i, round(t - t0, 3), d, q) for i, t, d, q in ticks if d]
+    tasks_by_worker = {}
+    for _i, task, wid, requeued in master.task_dispatcher.export_state()[
+            "resolved"]:
+        if task and task["type"] == "training" and not requeued:
+            tasks_by_worker[wid] = tasks_by_worker.get(wid, 0) + 1
+    workers = pods.pod_names("worker")
+    out = {
+        "wall_s": time.monotonic() - t0, "ticks": len(ticks),
+        "decisions": decisions,
+        "decision_signals": master.autoscaler.decisions,
+        "worker_pods": workers,
+        "deleted": [e[2] for e in pods.emitted if e[1] == "DELETED"],
+        "records": dict(master.task_dispatcher.counters.total_records),
+        "stragglers": master.servicer._m_straggler.labels().value,
+        "training_tasks_by_worker": tasks_by_worker,
+        "launches_pods": [read_json(p)["launches"] for p in outs
+                          if os.path.exists(p)],
+        "master_exit": c.get("master_exit"),
+        "launches_here": launches_since(fa, pe, before),
+        "card": smi("name,power.limit"),
+    }
+    print("k8s autoscale", json.dumps(out, default=str), flush=True)
+    check(out["master_exit"] == 0 and out["records"].get("training")
+          == K8S_C_RECORDS * K8S_C_EPOCHS, f"(c)'s job: {out}")
+    directions = [d for _i, _t, d, _q in decisions]
+    check(directions[:1] == ["up"] and "down" in directions
+          and len(workers) >= 2,
+          f"(c): no scale-up then drain: {out}")
+    return out
+
+
+# ``--phase k8s`` (d): mnist over two worker processes
+# (--num_jax_processes 2, MeshStrategy dp 2, gloo on the one card) with
+# multi-process checkpoints every K8S_D_CKPT_STEPS versions and a
+# journal. After the first checkpoint is on disk, pod 1 is SIGKILLed:
+# the manager re-queues both workers' tasks, deletes pod 0, journals a
+# gang relaunch at generation 1 and recreates ids 0 and 1 under
+# generation-1 names; they restore the checkpoint and drain the job.
+K8S_D_RECORDS, K8S_D_BATCH, K8S_D_TASK_BATCHES, K8S_D_CKPT_STEPS = (
+    4096, 128, 4, 3)
+
+
+def k8s_gang_phase(root, fa, pe):
+    """``--phase k8s`` (d)."""
+    from elasticdl_tpu_torch.checkpoint.hooks import has_valid_checkpoint
+    from elasticdl_tpu_torch.platform import k8s_client as kc
+    from elasticdl_tpu_torch.testing import data as tdata
+    from elasticdl_tpu_torch.tools.check_journal import check_journal
+
+    before = kernel_launch_counts(fa, pe)
+    base = os.path.join(root, "k8s_d")
+    os.makedirs(base)
+    records = tdata.create_mnist_record_file(
+        os.path.join(base, "train.rec"), K8S_D_RECORDS, seed=1)
+    ckpt, journal_dir = (os.path.join(base, "ckpt"),
+                         os.path.join(base, "journal"))
+    (coordinator,) = free_ports(1)
+    flags = ["--model_zoo", tdata.model_zoo_dir(), "--model_def",
+             "mnist.mnist_functional.custom_model", "--training_data",
+             records, "--minibatch_size", str(K8S_D_BATCH),
+             "--num_minibatches_per_task", str(K8S_D_TASK_BATCHES),
+             "--num_workers", str(MH_PROCS), "--num_jax_processes",
+             str(MH_PROCS), "--coordinator_addr",
+             f"127.0.0.1:{coordinator}", "--distribution_strategy",
+             "MeshStrategy", "--mesh_shape", str(MH_PROCS), "--mesh_axes",
+             "dp", "--checkpoint_dir", ckpt, "--checkpoint_steps",
+             str(K8S_D_CKPT_STEPS), "--journal_dir", journal_dir]
+    job = "k8s-d"
+    master, pods, args = k8s_master(base, job, flags, k8s_wrap(base, {}))
+    d = dict(error=None)
+    master.prepare()
+    t0 = time.monotonic()
+    thread = None
+    try:
+        thread = master_thread(d, master, poll_secs=1.0)
+        wait_until(lambda: has_valid_checkpoint(ckpt),
+                   "(d)'s first checkpoint", timeout=300)
+        victim = kc.get_worker_pod_name(job, 1)
+        view = journal_view(os.path.join(journal_dir, "journal.log"))
+        t_kill = time.monotonic()
+        pods.kill(victim)
+        gen1 = [kc.get_worker_pod_name(job, w) + "-g1" for w in (0, 1)]
+        wait_until(lambda: all(p in pods.pods for p in gen1),
+                   "the gang's generation-1 pods")
+        t_gang = time.monotonic()
+        thread.join(timeout=600)
+        check(not thread.is_alive(), "(d)'s job did not end")
+        if d["error"] is not None:
+            raise d["error"]
+    finally:
+        end_master(master, thread)
+        texts = {name: pods.text(name) for name in pods.pods}
+        pods.close()
+    dispatcher, carry = journal_replay(args, journal_dir)
+    problems = check_journal(journal_dir)
+    outs = [os.path.join(base, f"{p}.out") for p in gen1]
+    spans, unique = training_spans(dispatcher)
+    out = {
+        "wall_s": time.monotonic() - t0,
+        "journal_at_kill": view,
+        "kill_to_gang_s": t_gang - t_kill,
+        "worker_pods": pods.pod_names("worker"),
+        "events": [e[1:] for e in pods.emitted],
+        "relaunch_records": relaunch_records(journal_dir),
+        "restored": {p: "Restored state at version" in texts[p]
+                     for p in gen1},
+        "launches_pods": [read_json(p)["launches"] for p in outs
+                          if os.path.exists(p)],
+        "records": dict(dispatcher.counters.total_records),
+        "finished": dispatcher.finished(),
+        "resolved_unique": unique, "check_journal": problems,
+        "master_exit": d.get("master_exit"),
+        "launches_here": launches_since(fa, pe, before),
+        "card": smi("name,power.limit"),
+    }
+    print("k8s gang", json.dumps(out, default=str), flush=True)
+    check(out["master_exit"] == 0 and out["finished"] and unique
+          and out["records"].get("training") == K8S_D_RECORDS
+          and problems == [], f"(d)'s accounting: {out}")
+    check(out["worker_pods"] == [kc.get_worker_pod_name(job, w)
+                                 for w in (0, 1)] + gen1
+          and out["relaunch_records"] == [("gang", 1, -1)],
+          f"(d)'s gang restart: {out}")
+    check(all(out["restored"].values()),
+          f"(d): a generation-1 process did not restore: {out}")
+    return out
+
+
+def k8s_phase(torch, fa, pe, root):
+    """``--phase k8s``: (a) the worker phase's (g) alone (after (a) of the
+    worker phase, for its results and launches), (b) row-service pods,
+    (c) the autoscaler, (d) the gang restart."""
+    out = {}
+    t = time.monotonic()
+    out_a, a_job = worker_recsys_part(torch, fa, pe, root)
+    torch.cuda.empty_cache()
+    master, flags, _order = wire_layout(root, a_job)
+    master.stop()
+    g = worker_k8s_start(root, a_job, flags)
+    out["a"] = worker_k8s_finish(g)
+    out["a"]["phase_s"] = time.monotonic() - t
+    for part, fn in (("b", k8s_rows_phase), ("c", k8s_autoscale_phase),
+                     ("d", k8s_gang_phase)):
+        t = time.monotonic()
+        out[part] = fn(root, fa, pe)
+        out[part]["phase_s"] = time.monotonic() - t
+    out["card"] = smi("name,power.limit")
+    return out
+
+
+def worker_phase(torch, fa, pe, root, defer=False):
     """The task plane on the card: the recsys twin through the worker
     in process against Local, a failed task, deepfm_host through the
     worker, the worker over gRPC, the same job through a primary, a
-    standby and a cold relaunch with two SIGKILLs, and (f) a streaming
+    standby and a cold relaunch with two SIGKILLs, (f) a streaming
     job under the gang scheduler that a batch job preempts and a
-    SIGKILLed master does not lose ((e)'s and (f)'s processes start
-    before (a), importing behind go files; (d)'s worker and (f)'s job
-    start after (a); the three jobs run while (b) and (c) run here).
-    With ``defer_stream`` the phase returns with (f) still running, in
-    ``out["stream"]``, for the caller's ``worker_stream_finish`` (the
-    whole smoke lets it end beside the row-service and fleet phases)."""
+    SIGKILLed master does not lose, and (g) the job through the port's
+    Master with a k8s client, its worker pod SIGKILLed and relaunched
+    ((e)'s and (f)'s processes start before (a), importing behind go
+    files; (d)'s worker, (f)'s job and (g)'s master start after (a); the
+    four jobs run while (b) and (c) run here).
+    With ``defer`` the phase returns with (f) and (g) still running, in
+    ``out["stream"]`` and ``out["k8s"]``, for the caller's
+    ``worker_stream_finish`` and ``worker_k8s_finish`` (the whole smoke
+    lets them end beside the row-service and fleet phases)."""
     t0 = time.monotonic()
     fo = worker_failover_prestart(root)
     fs = worker_stream_prestart(root)
@@ -5467,31 +6470,43 @@ def worker_phase(torch, fa, pe, root, defer_stream=False):
         raise
     out = {"in_process": out_a}
     torch.cuda.empty_cache()
-    wire = None
+    wire = gk = None
     try:
         worker_stream_start(fs, fs and stream_job_files(root))
         wire = worker_wire_start(root, a_job)
         worker_failover_start(fo, wire and wire["flags"])
+        gk = worker_k8s_start(root, a_job, wire and wire["flags"])
         out["failed_task"] = worker_failed_task_part(torch, fa, pe, a_job)
         out["host"] = worker_host_part(torch, fa, pe, root)
     except BaseException:
         worker_wire_finish(wire, None, failed=True)
         worker_failover_finish(fo, a_job, None, failed=True)
+        worker_k8s_finish(gk, failed=True)
         worker_stream_finish(fs, failed=True)
         raise
     try:
         out["wire"] = worker_wire_finish(wire, a_job["results"])
     except BaseException:
         worker_failover_finish(fo, a_job, None, failed=True)
+        worker_k8s_finish(gk, failed=True)
         worker_stream_finish(fs, failed=True)
         raise
     try:
         out["failover"] = worker_failover_finish(fo, a_job,
                                                  a_job["counts"])
     except BaseException:
+        worker_k8s_finish(gk, failed=True)
         worker_stream_finish(fs, failed=True)
         raise
-    out["stream"] = fs if defer_stream else worker_stream_finish(fs)
+    if defer:
+        out["k8s"], out["stream"] = gk, fs
+    else:
+        try:
+            out["k8s"] = worker_k8s_finish(gk)
+        except BaseException:
+            worker_stream_finish(fs, failed=True)
+            raise
+        out["stream"] = worker_stream_finish(fs)
     out["seconds"] = time.monotonic() - t0
     out["card"] = smi("name,power.limit")
     return out
@@ -11387,7 +12402,7 @@ def main(argv=None) -> int:
                             "vision", "tabular", "checkpoint", "worker",
                             "rowservice", "fleet", "parallel", "multihost",
                             "tpfault", "moe", "pipeline", "failover",
-                            "sched"),
+                            "sched", "k8s"),
         default="all",
         help="fwd: build flash_attention_fwd.cu alone, then run kernel "
              "#1's checks and times and print its kernels row; bwd: the "
@@ -11421,7 +12436,11 @@ def main(argv=None) -> int:
              "(the embedding kernels only); sched: the port's gang-"
              "scheduler drill and streaming drill, held to their gates "
              "and passed through check_sched and check_stream (no "
-             "kernel build)")
+             "kernel build); k8s: the worker phase's (a) and (g) alone, "
+             "then row-service pods with a shard SIGKILLed and the pod "
+             "scaler, the autoscaler, and a gang restart, each through "
+             "the port's Master with a stand-in k8s client (the "
+             "embedding kernels only)")
     args = parser.parse_args(argv)
     import torch
 
@@ -11484,6 +12503,7 @@ def run(args, torch, mh) -> int:
              "checkpoint": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
              "worker": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
              "failover": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
+             "k8s": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
              "parallel": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE,
                           fa._CHUNK_SOURCE, fa._BWD_SOURCE, fa._SOURCE],
              "multihost": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE,
@@ -11512,7 +12532,7 @@ def run(args, torch, mh) -> int:
         return 0
     if args.phase in ("checkpoint", "worker", "fleet", "parallel",
                       "multihost", "tpfault", "moe", "pipeline",
-                      "failover"):
+                      "failover", "k8s"):
         with tempfile.TemporaryDirectory() as root:
             if args.phase == "pipeline":
                 t1 = time.monotonic()
@@ -11543,6 +12563,8 @@ def run(args, torch, mh) -> int:
                 line = {"tpfault": tp_fault_phase(torch, fa, pe, root)}
             elif args.phase == "failover":
                 line = {"failover": failover_phase(torch, fa, pe, root)}
+            elif args.phase == "k8s":
+                line = {"k8s": k8s_phase(torch, fa, pe, root)}
             else:
                 phase = checkpoint_phase if args.phase == "checkpoint" \
                     else worker_phase
@@ -11610,14 +12632,15 @@ def run(args, torch, mh) -> int:
         # phase runs.
         row_service = rowservice_start(root)
         try:
-            worker = worker_phase(torch, fa, pe, root, defer_stream=True)
+            worker = worker_phase(torch, fa, pe, root, defer=True)
         except BaseException:
             rowservice_stop(row_service)
             raise
         mark("worker")
-        # (f) waits for its masters' arbitration ticks (5 s each): it
-        # ends beside the row-service and fleet phases, which time
-        # nothing in the whole smoke.
+        # (f) waits for its masters' arbitration ticks (5 s each) and
+        # (g) for its pods' set-up and the relaunch: they end beside the
+        # row-service and fleet phases, which time nothing in the whole
+        # smoke.
         try:
             mh_results = mh_wait(mh)
             mark("multihost_wait")
@@ -11628,8 +12651,15 @@ def run(args, torch, mh) -> int:
                                 os.path.join(root, "v1"))
             mark("fleet")
         except BaseException:
+            worker_k8s_finish(worker["k8s"], failed=True)
             worker_stream_finish(worker["stream"], failed=True)
             raise
+        try:
+            worker["k8s"] = worker_k8s_finish(worker["k8s"])
+        except BaseException:
+            worker_stream_finish(worker["stream"], failed=True)
+            raise
+        mark("worker_k8s")
         worker["stream"] = worker_stream_finish(worker["stream"])
         mark("worker_stream")
         reuse = {}
@@ -11679,6 +12709,10 @@ def run(args, torch, mh) -> int:
         if worker["stream"]["run"]:
             row["launches_worker"]["stream"] = worker["stream"][
                 "launches"][row["name"]]
+        if worker["k8s"]["run"]:
+            row["launches_worker"]["k8s"] = {
+                pod: counts[row["name"]] for pod, counts in
+                worker["k8s"]["launches"].items()}
         row["launches_rowservice"] = {
             "one_shard": rowservice["one_shard"]["launches_service"][
                 row["name"]],

@@ -1,13 +1,15 @@
-"""The flags of the ``train``, ``evaluate``, ``predict``, ``master`` and
-``worker`` roles (the subset of elasticdl_tpu/common/args.py that the
-port's executors, ``master/main.py`` and ``worker/main.py`` read, with
-the same names and defaults), plus ``--device``;
+"""The flags of the ``train``, ``evaluate``, ``predict``, ``clean``,
+``master`` and ``worker`` roles (the subset of
+elasticdl_tpu/common/args.py that the port's executors, the CLI
+(``api/client.py``), ``master/main.py`` and ``worker/main.py`` read,
+with the same names and defaults), plus ``--device``;
 ``build_arguments_from_parsed_result`` re-serializes parsed args into a
-command line, as there.
+command line, as there, and ``parse_envs`` reads ``k=v`` lists.
 
-The master's and worker's flags for parts that are not ported yet
-(k8s, the autoscaler, row-service pods) are parsed so that asking for
-one raises with the ROADMAP item that holds it.
+The k8s plane's flags (``add_k8s_params``) ride every role but
+``clean``: a ``train`` with another strategy than Local hands its whole
+command line to the master pod, and the master hands its own to the
+worker pods.
 """
 
 import argparse
@@ -33,6 +35,22 @@ def pos_float(value):
     if res <= 0:
         raise ValueError(f"Positive float required, got {value}")
     return res
+
+
+def parse_envs(arg):
+    """Parse ``key1=val1,key2=val2`` into a dict (reference args.py:61-87)."""
+    envs = {}
+    if not arg:
+        return envs
+    for kv in arg.split(","):
+        kv = kv.strip()
+        if not kv:
+            continue
+        if "=" not in kv:
+            raise ValueError(f"Malformed env entry {kv!r}; expected k=v")
+        key, _, value = kv.partition("=")
+        envs[key.strip()] = value.strip()
+    return envs
 
 
 def str2bool(value):
@@ -83,6 +101,47 @@ def add_common_params(parser):
                              "CPU must be asked for")
 
 
+def add_k8s_params(parser):
+    """The job's identity and its pods (JAX's ``add_common_params`` k8s
+    part): the master pod's manifest, the worker and row-service pods the
+    instance manager creates, and ``--wait`` on the submitted job."""
+    parser.add_argument("--job_name", default="elasticdl-tpu-job")
+    parser.add_argument("--envs", type=str, default="",
+                        help="Runtime environment variables, k1=v1,k2=v2")
+    parser.add_argument("--image_name", default="",
+                        help="Container image for spawned pods")
+    parser.add_argument("--namespace", default="default")
+    parser.add_argument("--num_workers", type=pos_int, default=1)
+    parser.add_argument("--worker_resource_request",
+                        default="cpu=1,memory=4096Mi")
+    parser.add_argument("--worker_resource_limit", default="")
+    parser.add_argument("--master_resource_request",
+                        default="cpu=0.1,memory=1024Mi")
+    parser.add_argument("--master_resource_limit", default="")
+    parser.add_argument("--volume", default="")
+    parser.add_argument("--restart_policy", default="Never")
+    parser.add_argument("--master_addr", default="localhost:50001")
+    parser.add_argument("--docker_image_repository", default="")
+    add_bool_param(parser, "--force_use_kube_config_file", False,
+                   "Use kube config file instead of in-cluster config")
+    add_bool_param(parser, "--wait", False,
+                   "After submitting to k8s, poll the job to completion "
+                   "(exit 0 on master Succeeded) — reference "
+                   "k8s_job_monitor semantics")
+    add_bool_param(parser, "--wait_unknown_ok", False,
+                   "With --wait: treat a master pod that vanishes while "
+                   "Running as completed (clusters that GC finished pods "
+                   "between polls); default treats it as not-success")
+
+
+def add_clean_params(parser):
+    add_bool_param(parser, "--force", False, "Force-delete job resources")
+    parser.add_argument("--job_name", default="")
+    parser.add_argument("--namespace", default="default")
+    add_bool_param(parser, "--force_use_kube_config_file", False,
+                   "Use kube config file instead of in-cluster config")
+
+
 def add_train_params(parser):
     parser.add_argument("--tensorboard_log_dir", default="")
     parser.add_argument("--num_epochs", type=pos_int, default=1)
@@ -129,9 +188,6 @@ def add_predict_params(parser):
 
 def add_task_plane_params(parser):
     """The master's and worker's flags beyond ``add_train_params``."""
-    parser.add_argument("--job_name", default="elasticdl-tpu-job")
-    parser.add_argument("--num_workers", type=pos_int, default=1)
-    parser.add_argument("--master_addr", default="localhost:50001")
     parser.add_argument("--prediction_data", default="")
     parser.add_argument("--num_minibatches_per_task", type=pos_int, default=2)
     parser.add_argument("--evaluation_start_delay_secs", type=pos_int,
@@ -209,11 +265,99 @@ def add_task_plane_params(parser):
     parser.add_argument("--standby_miss_threshold", type=int, default=3,
                         help="Standby role: consecutive missed "
                              "heartbeats before takeover")
-    # Not ported yet: each raises when asked for (master/main.py).
-    parser.add_argument("--image_name", default="",
-                        help="k8s: not ported yet (item 8d-iii)")
+    # Several processes over one mesh (worker/main.py): the master reads
+    # the count to give each worker pod a stable process id.
+    parser.add_argument("--num_jax_processes", type=pos_int, default=1,
+                        help=">1 wires torch.distributed across worker "
+                             "processes (one mesh over the processes)")
+    parser.add_argument("--coordinator_addr", default="",
+                        help="torch.distributed rendezvous host:port "
+                             "(required when num_jax_processes > 1)")
+    parser.add_argument("--jax_process_id", type=int, default=-1,
+                        help="Stable process id; -1 = use worker_id. "
+                             "Elastic relaunches must reuse the dead "
+                             "worker's id")
+    # Row-service pods (master/main.py _row_service_command): the master
+    # launches them for host-tier models whose zoo module defines
+    # make_row_service.
+    parser.add_argument("--num_row_service_shards", type=pos_int,
+                        default=1,
+                        help="Row-service shard pods (reference "
+                             "--num_ps_pods): rows live by id %% N, one "
+                             "stable Service + pod per shard, each with "
+                             "its own checkpoint subdir (max 16)")
+    parser.add_argument("--row_service_resource_request",
+                        default="cpu=1,memory=4096Mi",
+                        help="Resources for the row-service pod (the "
+                             "reference's --ps_resource_request role); "
+                             "CPU-only, independent of worker sizing")
+    parser.add_argument("--row_service_resource_limit", default="")
+    parser.add_argument("--row_service_checkpoint_steps", type=non_neg_int,
+                        default=0,
+                        help="Checkpoint interval for the row service, in "
+                             "gradient PUSHES (its version unit). 0 = "
+                             "derive from --checkpoint_steps scaled by "
+                             "num_workers")
+    parser.add_argument("--row_service_push_log",
+                        choices=["durable", "applied", "off"],
+                        default="durable",
+                        help="Write-ahead push log mode for launched "
+                             "row-service pods (with --checkpoint_dir): "
+                             "durable (default, acked-push RPO=0), "
+                             "applied (RPO = one group window), off")
+    parser.add_argument("--row_service_push_log_group_ms", type=float,
+                        default=2.0,
+                        help="Group-commit window for the row-service "
+                             "push log")
+    parser.add_argument("--row_service_admission_limit", type=int,
+                        default=0,
+                        help="Priority admission control on launched "
+                             "row-service pods; 0 (default) = off")
+    parser.add_argument("--row_service_push_durable_wait_secs",
+                        type=float, default=60.0,
+                        help="Ceiling on the row-service durable-ack "
+                             "fsync wait")
+    # Closed-loop elastic autoscaling (master/autoscaler.py): queue
+    # depth, worker step utilization and p99 straggler attribution grow
+    # and shrink the worker fleet between the bounds.
     add_bool_param(parser, "--autoscale", False,
-                   "Autoscaling: not ported yet (item 8d-iii)")
+                   "Enable the master's closed-loop autoscaler "
+                   "(k8s mode: scales worker pods between "
+                   "--autoscale_min_workers/--autoscale_max_workers)")
+    parser.add_argument("--autoscale_min_workers", type=pos_int,
+                        default=1)
+    parser.add_argument("--autoscale_max_workers", type=non_neg_int,
+                        default=0,
+                        help="0 = use --num_workers as the ceiling")
+    parser.add_argument("--autoscale_cooldown_secs", type=pos_float,
+                        default=60.0,
+                        help="Quiet period after any scale decision")
+    parser.add_argument("--autoscale_hysteresis_ticks", type=pos_int,
+                        default=3,
+                        help="Consecutive agreeing poll ticks required "
+                             "before a decision fires")
+    parser.add_argument("--autoscale_up_backlog_factor", type=pos_float,
+                        default=2.0,
+                        help="Scale up when todo depth exceeds this "
+                             "many tasks per live worker (and workers "
+                             "are saturated)")
+    parser.add_argument("--autoscale_up_utilization", type=pos_float,
+                        default=0.7,
+                        help="Minimum mean worker_step_utilization for "
+                             "scale-up")
+    parser.add_argument("--autoscale_down_utilization", type=pos_float,
+                        default=0.3,
+                        help="Scale down when the queue is empty and "
+                             "mean utilization sits below this")
+    add_bool_param(parser, "--autoscale_from_timeseries", False,
+                   "Feed the autoscaler the mean worker utilization "
+                   "over --autoscale_trend_window_secs from the "
+                   "time-series store (the store is ROADMAP item 8f: "
+                   "raises until it lands)")
+    parser.add_argument("--autoscale_trend_window_secs", type=pos_float,
+                        default=120.0,
+                        help="Trailing window for the time-series-"
+                             "backed utilization signal")
     # Row-plane elasticity (master/row_reshard.py): the master runs the
     # shard-map authority over the --row_service_addr fleet.
     add_bool_param(parser, "--row_reshard", False,
@@ -238,8 +382,12 @@ def add_task_plane_params(parser):
                         help="Read replicas per hot id (capped at "
                              "fleet size - 1; 0 disables replication)")
     add_bool_param(parser, "--row_pod_autoscale", False,
-                   "Row-service pods grown and drained with splits and "
-                   "merges: not ported yet (item 8d-iii)")
+                   "Close the split/merge pod loop (master/"
+                   "autoscaler.py RowServicePodScaler): grow spawns a "
+                   "row-service pod before splitting onto it, and a "
+                   "merged-away pod drains once the shard-map "
+                   "controller retires its slot (needs --row_reshard "
+                   "and k8s)")
     # Multi-tenant gang scheduling (master/scheduler.py): many jobs on
     # one fleet, the job table event-sourced onto --journal_dir.
     add_bool_param(parser, "--sched", False,
@@ -293,13 +441,6 @@ def add_task_plane_params(parser):
 
 def add_worker_params(parser):
     parser.add_argument("--worker_id", type=non_neg_int, required=True)
-    # Multi-host meshes: not ported yet (worker/main.py raises).
-    parser.add_argument("--num_jax_processes", type=pos_int, default=1,
-                        help="Multi-host mesh: not ported yet")
-    parser.add_argument("--coordinator_addr", default="",
-                        help="Multi-host mesh: not ported yet")
-    parser.add_argument("--jax_process_id", type=int, default=-1,
-                        help="Multi-host mesh: not ported yet")
 
 
 def _master_params(parser):
@@ -318,13 +459,15 @@ _ROLES = {"train": add_train_params, "evaluate": add_evaluate_params,
 
 
 def build_parser(role: str = "train") -> argparse.ArgumentParser:
-    if role not in _ROLES:
-        raise ValueError(
-            f"role {role!r} not ported yet (ported: {', '.join(_ROLES)}; "
-            "the clean role waits for k8s, ROADMAP Queue 1, item 8)")
     parser = argparse.ArgumentParser(prog=f"elasticdl_tpu_torch-{role}",
                                      allow_abbrev=False)
+    if role == "clean":
+        add_clean_params(parser)
+        return parser
+    if role not in _ROLES:
+        raise ValueError(f"Unknown role {role}")
     add_common_params(parser)
+    add_k8s_params(parser)
     _ROLES[role](parser)
     return parser
 

@@ -5,8 +5,8 @@ plane: model-spec load → reader shards → TaskDispatcher →
 EvaluationService (+ TensorBoard) → MasterServicer → gRPC RpcServer —
 then the run loop sleeps until the dispatcher drains, checking
 straggler timeouts each tick (reference master.py:218-238, :487-509).
-Workers are started by hand (``python -m elasticdl_tpu_torch.worker.main
---master_addr ...``).
+Without a k8s client the workers are started by hand (``python -m
+elasticdl_tpu_torch.worker.main --master_addr ...``).
 
 ``Master`` is also constructible in-process for tests. The master runs
 no model: it imports the zoo module for its dataset shards, callbacks
@@ -61,21 +61,38 @@ them, ``/healthz`` answers their verdict (503 once one is red), and under
 port has no incident recorder yet (item 8f), so a red probe captures no
 bundle.
 
-Not ported yet, and raising when asked for: the k8s instance manager
-(``--image_name``), the autoscaler (``--autoscale``) and row-service
-pods grown and drained with the splits (``--row_pod_autoscale``),
-ROADMAP Queue 1 item 8d-iii. Row-service pods are not launched by the
-port's master either: start ``python -m
-elasticdl_tpu_torch.embedding.row_service`` by hand (one a shard, and
-one more before a split onto it) and give the workers
-``--row_service_addr``.
+``--image_name IMG`` (with a ``kubernetes`` client, or any object with
+its methods, given as ``Master(args, k8s_client=...)``; ``main`` builds
+one and runs master-only when the package is missing) launches the job's
+pods through the instance manager (``master/instance_manager.py``):
+``--num_workers`` worker pods running ``python -m
+elasticdl_tpu_torch.worker.main`` against the master's Service, one
+row-service pod and Service a shard (``--num_row_service_shards``) for a
+host-tier model whose zoo module defines ``make_row_service``. A worker
+pod that is DELETED or fails with exit 137 has its tasks re-queued and
+is relaunched under a new id; a multi-process job
+(``--num_jax_processes`` > 1) restarts as a gang with its original ids
+under a new pod-name generation, each process resuming from the rolling
+checkpoint; a row-service pod is relaunched under its next generation.
+Gang and row-service generations are journaled, so a recovered master
+adopts the pods under their true names. ``--autoscale`` grows and
+drains worker pods from the queue depth and the workers' step
+utilization (``master/autoscaler.py``), and ``--row_pod_autoscale``
+(with ``--row_reshard``) lets ``RowServicePodScaler`` spawn a row-service
+pod before a split onto it and drain one after its merge retires.
+``--autoscale_from_timeseries`` raises: the time-series store is ROADMAP
+Queue 1 item 8f.
 """
 
 import os
 import sys
 import time
 
-from elasticdl_tpu_torch.common.args import parse_master_args
+from elasticdl_tpu_torch.common.args import (
+    build_arguments_from_parsed_result,
+    parse_envs,
+    parse_master_args,
+)
 from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.core.model_spec import get_model_spec
 from elasticdl_tpu_torch.data.factory import (
@@ -91,10 +108,8 @@ logger = get_logger("master")
 # Flag -> (what it asks for, the ROADMAP item that holds it), for the
 # parts of the JAX master that are not ported yet.
 _NOT_PORTED = {
-    "image_name": ("the k8s instance manager (worker pods)", "8d-iii"),
-    "autoscale": ("the autoscaler", "8d-iii"),
-    "row_pod_autoscale": (
-        "row-service pods grown and drained with splits", "8d-iii"),
+    "autoscale_from_timeseries": (
+        "the autoscaler's utilization from the time-series store", "8f"),
 }
 
 
@@ -208,7 +223,7 @@ class _ProberTenantDispatcher:
 
 
 class Master:
-    def __init__(self, args, warm_state=None):
+    def __init__(self, args, k8s_client=None, warm_state=None):
         """``warm_state`` (the ``--standby`` promotion handover):
         ``{"dispatcher": a continuously-replayed TaskDispatcher,
         "stats": its replay carry}``. With it, construction SKIPS the
@@ -427,13 +442,20 @@ class Master:
         # master's own.
         self.prober = None
         self._server = None
+        # The pod plane (--image_name with a k8s client), the autoscaler,
+        # the row plane's shard-map authority (--row_reshard) and its pod
+        # scaler (--row_pod_autoscale), built in prepare() as the JAX
+        # master builds them.
+        self.instance_manager = None
+        self.autoscaler = None
+        self.row_reshard = None
+        self.row_pod_scaler = None
+        self._k8s_client = k8s_client
         # SIGTERM grace path (main() installs the handler): the run
         # loop exits at the next poll tick and stop() tears the job
-        # down in order.
+        # down in order — workers get THEIR SIGTERMs (pod deletion) and
+        # checkpoint + hand tasks back inside their own grace windows.
         self._stop_requested = False
-        # The row plane's shard-map authority (--row_reshard), built in
-        # prepare() as the JAX master builds it.
-        self.row_reshard = None
 
     def _build_scheduler(self):
         """The gang scheduler over this master's journal and usage plane,
@@ -538,9 +560,159 @@ class Master:
         except (IndexError, ValueError):
             return 50001
 
+    def _worker_command(self, worker_id: int):
+        """Re-serialize parsed args into the worker CLI
+        (reference master.py:365-485 + build_arguments_from_parsed_result)."""
+        passthrough = build_arguments_from_parsed_result(
+            self._args,
+            # jax_process_id filtered: the master's own value (-1) must
+            # not override the per-worker flag set below.
+            filter_args=["worker_id", "force", "master_addr",
+                         "jax_process_id", "row_service_addr"],
+        )
+        # The user's --checkpoint_dir_for_init (warm start) passes through
+        # untouched; elastic relaunch resume comes from the worker itself
+        # preferring the rolling --checkpoint_dir when it holds a valid
+        # version (worker/main.py resolve_init_checkpoint).
+        cmd = [sys.executable, "-m", "elasticdl_tpu_torch.worker.main",
+               "--worker_id", str(worker_id),
+               "--master_addr", self._master_addr_for_workers()]
+        if self._uses_row_service():
+            cmd += ["--row_service_addr", self._row_service_addr()]
+        if getattr(self._args, "num_jax_processes", 1) > 1:
+            # Stable process id across gang restarts (multi-process
+            # workers always relaunch with original ids).
+            cmd += ["--jax_process_id", str(worker_id)]
+        return (
+            cmd
+            + passthrough
+        )
+
+    def _uses_row_service(self) -> bool:
+        """Host-tier models whose zoo module defines make_row_service get
+        a service pod (the reference always ran PS pods for the PS
+        strategy; modules wanting process-local tables simply don't
+        define the factory)."""
+        return (
+            self._spec.make_host_runner is not None
+            and getattr(self._spec.module, "make_row_service", None)
+            is not None
+        )
+
+    def _num_row_service_shards(self) -> int:
+        n = max(
+            1, int(getattr(self._args, "num_row_service_shards", 1) or 1)
+        )
+        if n > 16:
+            # `clean` sweeps per-shard Services over a fixed 0..15
+            # range (k8s_client.delete_job) — more shards would leak
+            # Services on cleanup.
+            raise ValueError(
+                f"--num_row_service_shards={n} exceeds the supported "
+                "maximum of 16"
+            )
+        return n
+
+    def _row_service_addr(self) -> str:
+        """Comma list of per-shard addresses: the workers scatter rows
+        by id % N client-side (the reference's N PS pods,
+        worker.py:404-414)."""
+        from elasticdl_tpu_torch.platform.k8s_client import (
+            ROW_SERVICE_PORT,
+            get_row_service_service_name,
+        )
+
+        return ",".join(
+            "%s:%d" % (
+                get_row_service_service_name(
+                    self._args.job_name, shard
+                ),
+                ROW_SERVICE_PORT,
+            )
+            for shard in range(self._num_row_service_shards())
+        )
+
+    def _row_service_command(self, shard: int = 0):
+        from elasticdl_tpu_torch.platform.k8s_client import ROW_SERVICE_PORT
+
+        cmd = [sys.executable, "-m",
+               "elasticdl_tpu_torch.embedding.row_service",
+               "--model_zoo", self._args.model_zoo,
+               "--model_def", self._args.model_def,
+               "--addr", f"[::]:{ROW_SERVICE_PORT}"]
+        ckpt = getattr(self._args, "checkpoint_dir", "")
+        if ckpt:
+            # Its own subdir: the service's row payload is keyed by push
+            # count, the workers' by model version. checkpoint_steps is
+            # in model versions; the service counts gradient pushes
+            # (~num_workers per version), so scale unless the user set
+            # the push-unit knob explicitly.
+            steps = int(getattr(
+                self._args, "row_service_checkpoint_steps", 0
+            ) or 0)
+            if not steps:
+                steps = int(getattr(self._args, "checkpoint_steps", 0)) * max(
+                    1, int(getattr(self._args, "num_workers", 1))
+                )
+            # Per-shard subdir: each shard owns exactly its id%N rows
+            # (client-side scatter), so checkpoints must not collide.
+            # Shard 0 keeps the legacy path (single-shard jobs resume
+            # pre-shard checkpoints unchanged).
+            subdir = (
+                "row_service" if shard == 0 else f"row_service/s{shard}"
+            )
+            cmd += ["--checkpoint_dir", f"{ckpt}/{subdir}",
+                    "--checkpoint_steps", str(steps),
+                    "--keep_checkpoint_max",
+                    str(getattr(self._args, "keep_checkpoint_max", 3))]
+            push_log = str(getattr(
+                self._args, "row_service_push_log", "durable"
+            ))
+            if push_log != "off":
+                # Zero-RPO by default wherever durability is configured
+                # at all: the write-ahead push log rides next to the
+                # checkpoint chain, so a SIGKILLed shard pod loses no
+                # acked push. --row_service_push_log applied|off
+                # tunes/disables it (slow-fsync media).
+                cmd += ["--push_log_dir", f"{ckpt}/{subdir}_pushlog",
+                        "--push_log_ack", push_log,
+                        "--push_log_group_ms",
+                        str(getattr(
+                            self._args,
+                            "row_service_push_log_group_ms", 2.0,
+                        ))]
+            cmd += [
+                    # Layout guard: a relaunch with a different
+                    # --num_row_service_shards must fail loudly, not
+                    # silently lose the rows whose id%N home moved.
+                    "--shard_id", str(shard),
+                    "--num_shards",
+                    str(self._num_row_service_shards())]
+        admission = int(getattr(
+            self._args, "row_service_admission_limit", 0
+        ))
+        if admission > 0:
+            cmd += ["--admission_limit", str(admission)]
+        durable_wait = float(getattr(
+            self._args, "row_service_push_durable_wait_secs", 60.0
+        ))
+        if durable_wait != 60.0:
+            cmd += ["--push_durable_wait_secs", str(durable_wait)]
+        return cmd
+
+    def _master_addr_for_workers(self) -> str:
+        from elasticdl_tpu_torch.platform.k8s_client import (
+            get_master_service_name,
+        )
+
+        return "%s:%d" % (
+            get_master_service_name(self._args.job_name),
+            self._master_port(),
+        )
+
     def prepare(self):
-        """Start services: eval trigger, RPC server (reference
-        Master.prepare, master.py:184-216)."""
+        """Start services: eval trigger, RPC server, worker pods
+        (reference Master.prepare, master.py:184-216)."""
         from elasticdl_tpu_torch.comm.rpc import RpcServer
 
         self.evaluation_service.start_time_trigger()
@@ -575,8 +747,186 @@ class Master:
             self.metrics_plane.serve(port=metrics_port)
         if self.tb_service is not None:
             self.tb_service.start()
+        if self._k8s_client is not None:
+            self._start_instance_manager()
+        if getattr(self._args, "autoscale", False):
+            self._build_autoscaler()
         if getattr(self._args, "row_reshard", False):
             self._build_row_reshard()
+        if (
+            getattr(self._args, "row_pod_autoscale", False)
+            and self.row_reshard is not None
+            and self.instance_manager is not None
+        ):
+            # Pod-closing autoscaling (master/autoscaler.py
+            # RowServicePodScaler): split/merge decisions can spawn and
+            # drain row-service pods instead of being confined to the
+            # launch-time fleet.
+            from elasticdl_tpu_torch.master.autoscaler import (
+                RowServicePodScaler,
+            )
+            from elasticdl_tpu_torch.platform.k8s_client import (
+                ROW_SERVICE_PORT,
+                get_row_service_service_name,
+            )
+
+            job_name = self._args.job_name
+
+            def rs_addr(shard: int) -> str:
+                name = get_row_service_service_name(job_name,
+                                                    shard=shard)
+                return f"{name}:{ROW_SERVICE_PORT}"
+
+            self.row_pod_scaler = RowServicePodScaler(
+                self.row_reshard, self.instance_manager, rs_addr,
+                metrics_registry=self.metrics_plane.registry,
+            )
+
+    def _start_instance_manager(self):
+        """The pod plane: the instance manager over the k8s client, its
+        watch, and either adoption of the running pods (a recovered
+        master) or the row-service pods then the worker pods."""
+        from elasticdl_tpu_torch.master.instance_manager import (
+            InstanceManager,
+        )
+        from elasticdl_tpu_torch.platform.k8s_client import (
+            get_master_pod_name,
+        )
+
+        # Owner reference master→workers so deleting the master pod
+        # garbage-collects the whole job (reference
+        # k8s_client.py:329-344). Absent when not running as a pod.
+        owner = None
+        try:
+            me = self._k8s_client.get_pod(
+                get_master_pod_name(self._args.job_name)
+            )
+            if me is not None:
+                owner = {
+                    "name": me.metadata.name,
+                    "uid": me.metadata.uid,
+                }
+        except Exception as exc:
+            logger.warning("No master pod owner reference: %s", exc)
+
+        self.instance_manager = InstanceManager(
+            self.task_dispatcher,
+            self._k8s_client,
+            job_name=self._args.job_name,
+            image_name=self._args.image_name,
+            worker_command=self._worker_command,
+            num_workers=self._args.num_workers,
+            namespace=self._args.namespace,
+            worker_resource_request=self._args.worker_resource_request,
+            worker_resource_limit=self._args.worker_resource_limit,
+            volume=self._args.volume,
+            envs=parse_envs(self._args.envs),
+            restart_policy=self._args.restart_policy,
+            owner=owner,
+            multihost=getattr(self._args, "num_jax_processes", 1) > 1,
+            row_service_command=(
+                self._row_service_command
+                if self._uses_row_service() else None
+            ),
+            row_service_resource_request=getattr(
+                self._args, "row_service_resource_request",
+                "cpu=1,memory=4096Mi",
+            ),
+            row_service_resource_limit=getattr(
+                self._args, "row_service_resource_limit", ""
+            ),
+            num_row_service_shards=self._num_row_service_shards(),
+            journal=self._journal,
+        )
+        self.instance_manager.start_watch()
+        if self._recovery_stats is not None:
+            # Recovered master: the job's pods are still running and
+            # their workers are riding out the outage on their reattach
+            # grace — re-creating them would 409 AND strand the
+            # survivors. Adopt the ids the journal saw; pods that died
+            # during the outage surface as watch events / straggler
+            # timeouts and recover through the normal paths.
+            relaunch = self._recovery_stats.get("relaunch") or {}
+            self.instance_manager.adopt_workers(
+                self._recovery_stats["known_workers"]
+                or list(range(self._args.num_workers)),
+                gang_generation=int(relaunch.get("gang", 0)),
+            )
+            self.instance_manager.adopt_row_service(
+                relaunch.get("row_service")
+            )
+        else:
+            # Row service first (reference Master.prepare starts PS pods
+            # before workers, master.py:202-205); workers retry until it
+            # answers.
+            self.instance_manager.start_row_service()
+            self.instance_manager.start_workers()
+
+    def _build_autoscaler(self):
+        """Closed-loop autoscaling (master/autoscaler.py): pod scaling
+        through the InstanceManager when one exists; without k8s the
+        loop still runs (decision telemetry, barrier upkeep) but both
+        actions are no-ops."""
+        from elasticdl_tpu_torch.master.autoscaler import (
+            Autoscaler,
+            AutoscalePolicy,
+            master_signals,
+        )
+
+        args = self._args
+        max_workers = int(
+            getattr(args, "autoscale_max_workers", 0)
+            or getattr(args, "num_workers", 1)
+        )
+        policy = AutoscalePolicy(
+            min_workers=int(getattr(args, "autoscale_min_workers", 1)),
+            max_workers=max_workers,
+            scale_up_backlog_factor=float(
+                getattr(args, "autoscale_up_backlog_factor", 2.0)
+            ),
+            scale_up_utilization=float(
+                getattr(args, "autoscale_up_utilization", 0.7)
+            ),
+            scale_down_utilization=float(
+                getattr(args, "autoscale_down_utilization", 0.3)
+            ),
+            hysteresis_ticks=int(
+                getattr(args, "autoscale_hysteresis_ticks", 3)
+            ),
+            cooldown_secs=float(
+                getattr(args, "autoscale_cooldown_secs", 60.0)
+            ),
+        )
+        manager = self.instance_manager
+
+        def live_count():
+            if manager is not None:
+                return len(manager.live_workers)
+            return max(1, len(self.servicer.worker_liveness()))
+
+        def scale_up(_signals):
+            if manager is not None:
+                manager.scale_up(1)
+
+        def scale_down(_signals):
+            if manager is None:
+                return
+            live = manager.live_workers
+            if live:
+                # Drain the youngest worker (highest id): oldest workers
+                # hold the warmest caches.
+                victim = max(live)
+                manager.drain_worker(victim)
+                self.servicer.remove_worker_metrics(victim)
+
+        self.autoscaler = Autoscaler(
+            policy,
+            master_signals(
+                self.task_dispatcher, self.servicer,
+                self.metrics_plane, live_count,
+            ),
+            scale_up, scale_down,
+        )
 
     def _setup_prober(self):
         """Synthetic canary plane (--probes; observability/prober.py):
@@ -743,8 +1093,9 @@ class Master:
 
     def run(self, poll_secs: float = 5.0):
         """Sleep until the job is finished (reference
-        master.py:218-238); each tick, recover stragglers' tasks (3×
-        mean task time, :487-509) and, under --sched, arbitrate."""
+        master.py:218-238); each tick, kill stragglers (3× mean task
+        time, :487-509), tick the autoscaler and, under --sched,
+        arbitrate."""
         try:
             while not self._job_finished():
                 if self._stop_requested:
@@ -759,17 +1110,26 @@ class Master:
                         "Task %d on worker %d timed out; recovering",
                         task_id, worker_id,
                     )
-                    self.task_dispatcher.recover_tasks(worker_id)
+                    if self.instance_manager is not None:
+                        self.instance_manager.kill_worker(worker_id)
+                    else:
+                        self.task_dispatcher.recover_tasks(worker_id)
                     # A relaunch comes back under a NEW worker id —
                     # drop the dead id's series now, not at the TTL.
                     self.servicer.remove_worker_metrics(worker_id)
                 # Resize-barrier upkeep: refresh membership from the
-                # live fleet so a worker that died mid-barrier cannot
-                # wedge it.
+                # live fleet so a worker that died mid-barrier (its
+                # tasks recovered above / by the watch path) cannot
+                # wedge it — its replacement acks under its own id.
                 if self.servicer.resize_status() is not None:
-                    self.servicer.maybe_complete_resize(
-                        list(self.servicer.worker_liveness())
+                    live = (
+                        list(self.instance_manager.live_workers)
+                        if self.instance_manager is not None
+                        else list(self.servicer.worker_liveness())
                     )
+                    self.servicer.maybe_complete_resize(live)
+                if self.autoscaler is not None:
+                    self.autoscaler.tick()
                 if self.scheduler is not None:
                     # Multi-job arbitration: completion sweep, gang
                     # allocation, preemption, resume. A fenced journal
@@ -784,6 +1144,13 @@ class Master:
                     # contains its own failures (a flaky shard must not
                     # take the master loop down).
                     self.row_reshard.tick()
+                if self.row_pod_scaler is not None:
+                    # Pod-closing half of merges: drain the pod behind
+                    # any slot the controller just retired.
+                    try:
+                        self.row_pod_scaler.tick()
+                    except Exception:
+                        logger.exception("row pod scaler tick failed")
                 self.metrics_plane.publish_tensorboard(
                     self.servicer.model_version
                 )
@@ -816,6 +1183,8 @@ class Master:
             self.row_reshard.close()
         self.metrics_plane.stop()
         self.evaluation_service.stop()
+        if self.instance_manager is not None:
+            self.instance_manager.stop()
         if self._server is not None:
             self._server.stop(grace=2.0)
         # After the server: an in-flight report draining through the
@@ -829,7 +1198,7 @@ class Master:
         return self._server.port if self._server else None
 
 
-def run_standby(args) -> int:
+def run_standby(args, k8s_client=None) -> int:
     """``--standby`` role: keep a WARM continuously-replayed dispatcher
     by tailing the primary's journal, heartbeat the primary, and on
     missed heartbeats FENCE the old incarnation and promote into a full
@@ -840,7 +1209,9 @@ def run_standby(args) -> int:
     each poll folds only the appended tail into the warm dispatcher
     (``StandbyMaster.poll_journal``), so promotion replays nothing but
     the last partial poll, and ``Master(args, warm_state=...)`` skips
-    ``recover_master_state``. The JAX standby also reports into the
+    ``recover_master_state`` and re-arms the whole assembly around the
+    handed-over state, the k8s adoption of running pods included. The
+    JAX standby also reports into the
     primary's cluster view for the SLO absence rule; the port has no
     component reporter yet (ROADMAP item 8f)."""
     from elasticdl_tpu_torch.master.standby import StandbyMaster
@@ -931,7 +1302,7 @@ def run_standby(args) -> int:
         "lifetime)", warm["fence_generation"],
         warm["stats"]["replayed"],
     )
-    master = Master(args, warm_state=warm)
+    master = Master(args, k8s_client=k8s_client, warm_state=warm)
     master.prepare()
     m_failover.observe(time.monotonic() - t_detect)
     return master.run()
@@ -939,12 +1310,24 @@ def run_standby(args) -> int:
 
 def main(argv=None):
     args = parse_master_args(argv)
+    k8s_client = None
+    if getattr(args, "image_name", ""):
+        from elasticdl_tpu_torch.platform import k8s_client as k8s_mod
+
+        try:
+            k8s_client = k8s_mod.Client(
+                namespace=args.namespace,
+                force_kube_config=args.force_use_kube_config_file,
+            )
+        except k8s_mod.K8sUnavailableError as exc:
+            logger.warning("k8s unavailable (%s); running master-only", exc)
     if getattr(args, "standby", False):
-        return run_standby(args)
-    master = Master(args)
+        return run_standby(args, k8s_client=k8s_client)
+    master = Master(args, k8s_client=k8s_client)
     master.prepare()
     # Graceful eviction: with a handler, run() exits at the next tick
-    # and stop() tears the job down inside the grace period.
+    # and stop() deletes the worker pods (each then runs its own SIGTERM
+    # checkpoint + task hand-back) inside the master's grace period.
     import signal
 
     try:

@@ -40,9 +40,12 @@ all-reduced in the forward, each process's masked loss is weighed by its
 share of the global mask count and the weighted losses and the gradients
 are all-reduced before the apply (``core/step.py``), so every process
 applies the same update, and each process steps its own entries' ZeRO
-slices, all-gathered after the apply (``parallel/zero.py``). A resize
-over such a mesh raises: the JAX package's answer there is a gang
-restart from a checkpoint (ROADMAP item 8).
+slices, all-gathered after the apply (``parallel/zero.py``). A live
+resize over such a mesh raises, as in the JAX package: a multi-process
+job changes its membership by the instance manager's gang restart
+(``master/instance_manager.py``), every process relaunched under its
+original id and resumed from the job's ``torch.distributed.checkpoint``
+checkpoint.
 
 Beside it, the reference's sync semantics (SURVEY.md §2.7):
 
@@ -471,16 +474,18 @@ class MeshRunner:
 
 
 def refuse_process_resize(old_mesh, new_mesh):
-    """A live resize to or from a mesh that spans processes raises: the
-    JAX package's multi-host jobs resize by a gang restart from a
-    checkpoint (ROADMAP item 8), its workers ack the barrier as a
-    no-op."""
+    """A live resize to or from a mesh that spans processes raises, as in
+    the JAX package: its workers ack the barrier as a no-op, and a
+    multi-process job changes its membership by the instance manager's
+    gang restart from a checkpoint."""
     if (getattr(old_mesh, "spans_processes", False)
             or getattr(new_mesh, "spans_processes", False)):
         raise NotImplementedError(
-            "a live resize of a mesh that spans processes: multi-host jobs "
-            "resize by a gang restart from a checkpoint, which waits for "
-            "ROADMAP item 8 (torch.distributed.checkpoint)")
+            "a live resize of a mesh that spans processes: a multi-process "
+            "job changes its membership by a gang restart (the instance "
+            "manager relaunches every process under its original id, "
+            "each resuming from the job's torch.distributed.checkpoint "
+            "checkpoint), not by a live resize")
 
 
 def make_runner_for_spec(spec, mesh: Optional[mesh_lib.Mesh] = None,

@@ -32,10 +32,11 @@ process holds a ``CheckpointHook(backend="orbax")``: the processes
 write each version together, each its parts of the state
 (``checkpoint/orbax_backend.py``, ``torch.distributed.checkpoint``),
 and ``--checkpoint_dir_for_init`` (or a rolling directory that holds a
-version) restores onto the job's layout. The gang restart that
-relaunches every process on a membership change is not ported (ROADMAP
-item 8d-iii). The XLA compilation cache and the step profiler have no
-flag here.
+version) restores onto the job's layout. On a membership change the
+master's instance manager restarts every process of the job as a gang
+under its original id, and each resumes from the rolling checkpoint
+(``resolve_init_checkpoint``). The XLA compilation cache and the step
+profiler have no flag here.
 """
 
 import os

@@ -41,8 +41,8 @@ winning step (``_await_turn``). An idle worker keeps ticking while it
 waits for tasks, and at the end every process drains the barrier until
 all are done (``_drain_multihost``). Under sync, task fusion and the
 host tier's pull-ahead are off, a resize directive is acked as a
-no-op (multi-host jobs resize by a gang restart from a checkpoint,
-ROADMAP item 8), and a failed step is fatal: a process that left the
+no-op (multi-host jobs resize by the instance manager's gang restart
+from a checkpoint), and a failed step is fatal: a process that left the
 tick would hang its peers inside a collective.
 """
 

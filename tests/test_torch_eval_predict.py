@@ -326,5 +326,6 @@ def test_jobs_need_a_checkpoint_and_data(tmp_path):
         build_parser("predict").parse_args(
             ["--model_zoo", zoo, "--model_def", "x.y", "--minibatch_size",
              "4", "--checkpoint_dir_for_init", empty])
-    with pytest.raises(ValueError, match="not ported yet"):
-        build_parser("clean")
+    clean = build_parser("clean").parse_args(["--job_name", "j", "--force"])
+    assert (clean.job_name, clean.force, clean.namespace) == (
+        "j", True, "default")

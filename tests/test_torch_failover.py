@@ -845,6 +845,11 @@ def test_cli_primary_standby_then_cold_relaunch(tmp_path):
 
     try:
         primary = master("--master_addr", f"localhost:{p1}", log="p.log")
+        # The standby starts once the primary serves: a standby whose
+        # first beats miss a still-importing primary promotes at once,
+        # and the primary then fences it.
+        until(lambda: "Master RPC serving" in log("p.log"),
+              "the primary never served")
         standby = master("--standby", "--master_addr", f"localhost:{p2}",
                          "--primary_addr", f"localhost:{p1}",
                          "--standby_heartbeat_secs", "0.1",
@@ -855,11 +860,13 @@ def test_cli_primary_standby_then_cold_relaunch(tmp_path):
               "the standby never started tailing")
         reported = []
 
-        def ride(fn):
+        def ride(fn, timeout=120.0):
+            deadline = time.monotonic() + timeout
             while True:
                 try:
                     return fn()
                 except prpc.RpcError:
+                    assert time.monotonic() < deadline, "a call never rode out"
                     client.reconnect()
                     time.sleep(0.05)
 

@@ -177,7 +177,7 @@ def test_train_cli_on_the_cpu(data, tmp_path):
     assert os.path.exists(os.path.join(out, "metadata.json"))
 
 
-def test_train_cli_needs_cuda_unless_cpu_is_asked_for(data):
+def test_train_cli_needs_cuda_unless_cpu_is_asked_for(data, capsys):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
     from elasticdl_tpu_torch.__main__ import main
@@ -187,5 +187,8 @@ def test_train_cli_needs_cuda_unless_cpu_is_asked_for(data):
             TWIN, "--training_data", train, "--minibatch_size", "4"]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(argv)
-    with pytest.raises(NotImplementedError, match="ported: Local"):
-        main(argv + ["--distribution_strategy", "MeshStrategy"])
+    # Another strategy submits a master pod; without the kubernetes
+    # package its manifests are printed.
+    assert main(argv + ["--distribution_strategy", "MeshStrategy"]) == 0
+    out = capsys.readouterr().out
+    assert "kind: Pod" in out and "elasticdl_tpu_torch.master.main" in out

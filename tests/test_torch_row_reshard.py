@@ -934,6 +934,44 @@ def test_master_main_starts_and_ticks_a_controller(tmp_path):
     with pytest.raises(ValueError, match="row_reshard_state"):
         no_state.prepare()
     no_state.stop()
-    with pytest.raises(NotImplementedError, match="item 8d"):
-        Master(parse_master_args(base + ["--row_reshard_state", state,
-                                         "--row_pod_autoscale"]))
+    # --row_pod_autoscale: with a k8s client the master launches the row
+    # service's pods and scales them with the controller's splits.
+
+    class Pods:
+        def __init__(self):
+            self.created, self.deleted = [], []
+
+        def get_pod(self, name):
+            return None
+
+        def create_pod(self, manifest):
+            self.created.append(manifest)
+
+        create_service = create_pod
+
+        def delete_pod(self, name, **kw):
+            self.deleted.append(name)
+            return True
+
+        def watch_job_pods(self, job_name, callback, stop):
+            pass
+
+    svcs = [_start_shard() for _ in range(2)]
+    addrs = ",".join(f"localhost:{s.port}" for s in svcs)
+    pods = Pods()
+    scaled = Master(parse_master_args(
+        base[:-3] + ["--row_service_addr", addrs, "--row_reshard",
+                     "--row_reshard_state", str(tmp_path / "pods.json"),
+                     "--row_pod_autoscale", "--image_name", "img",
+                     "--job_name", "rp"]), k8s_client=pods)
+    try:
+        scaled.prepare()
+        assert scaled.row_pod_scaler is not None
+        assert scaled.instance_manager.row_service_shards() == {
+            0: "elasticdl-tpu-rp-rowservice"}
+        assert [m["kind"] for m in pods.created] == ["Service", "Pod",
+                                                     "Pod"]
+    finally:
+        scaled.stop()
+        for s in svcs:
+            s.stop(0)

@@ -148,13 +148,42 @@ def test_worker_main_needs_cuda_unless_cpu_is_asked_for(records):
     # A streaming worker needs the card as well.
     with pytest.raises(RuntimeError, match="no CUDA device"):
         worker_main(argv + ["--stream_dir", "/s"])
-    # --stream_dir is ported (a streaming master); k8s is not.
+    # --stream_dir is ported (a streaming master), and so is k8s: with
+    # --image_name and a k8s client the master launches the worker pods.
     master = Master(build_parser("master").parse_args(
         _job_flags(tdata.model_zoo_dir(), train, evalf)
         + ["--stream_dir", "/s"]))
     assert master.task_dispatcher.is_streaming
     master.stop()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Master(build_parser("master").parse_args(
-            _job_flags(tdata.model_zoo_dir(), train, evalf)
-            + ["--image_name", "img"]))
+
+    class Pods:
+        def __init__(self):
+            self.created, self.deleted = [], []
+
+        def get_pod(self, name):
+            return None
+
+        def create_pod(self, manifest):
+            self.created.append(manifest)
+
+        def delete_pod(self, name, **kw):
+            self.deleted.append(name)
+            return True
+
+        def watch_job_pods(self, job_name, callback, stop):
+            pass
+
+    pods = Pods()
+    master = Master(build_parser("master").parse_args(
+        _job_flags(tdata.model_zoo_dir(), train, evalf)
+        + ["--image_name", "img", "--job_name", "wire",
+           "--master_addr", "localhost:0"]), k8s_client=pods)
+    master.prepare()
+    master.stop()
+    (pod,) = pods.created
+    assert pod["metadata"]["name"] == "elasticdl-tpu-wire-worker-0"
+    command = pod["spec"]["containers"][0]["command"]
+    assert command[1:7] == ["-m", "elasticdl_tpu_torch.worker.main",
+                            "--worker_id", "0", "--master_addr",
+                            "elasticdl-tpu-wire-master:0"]
+    assert pods.deleted == ["elasticdl-tpu-wire-worker-0"]
