@@ -44,6 +44,11 @@
                                          # autoscaler and a gang restart
                                          # through the port's Master with
                                          # a stand-in k8s client
+    python3 chip_smoke.py --phase observe # the worker phase's (a), then
+                                          # its job with the time-series
+                                          # store, SLO rules, incidents
+                                          # and profilers on, and census
+                                          # over table origins
 
 1. Prints the card (``nvidia-smi`` name and power limit), versions, and
    whether ``grpc`` can be imported.
@@ -337,6 +342,33 @@
    under generation-1 names), each process restoring the checkpoint and
    the job draining; every record counted once, ``check_journal``
    clean.
+11f''. ``observe`` (after the worker phase in the whole smoke;
+   ``--phase observe`` runs the worker phase's (a), then (h) and (i),
+   and builds only the embedding kernels). (h) (a)'s job through
+   ``master.main --timeseries_secs 0.5 --slo_rules R --incident_dir I
+   --flight_recorder 4096 --profile_hz 50 --profile_window_secs 1
+   --journal_dir J`` and a worker wrapper on the card around
+   ``worker.main --profile_hz 50 --profile_dir P --profile_start_step 2
+   --profile_steps 3``; ``R`` is the default rules plus a threshold rule
+   on the worker's step-time histogram that any train step fires. The
+   wrapper holds its two training reports and its evaluation report at
+   pauses: the job drains, the master's accuracy (from the journal)
+   equals (a)'s bit for bit and the worker's launches are (a)'s;
+   ``/alerts`` at the second pause fires the planted rule and no default
+   rule; ``/timeseries`` holds the master's series at every run tick and
+   the worker's step series at each tick it trained through; ``/profile``
+   holds the worker's windows with its training-task frames and passes
+   the port's ``check_profile``; the planted rule's incident bundle
+   passes the port's ``check_incident`` with the profile required; the
+   one Chrome trace in ``P`` holds steps 2-4 under ``train_step``
+   annotations and in them exactly 3 launches each of ``lookup_kernel``
+   (#6) and ``row_update_kernel`` (#7), the counters' count for the
+   window, and no library embedding kernel; the step ms (CUDA events)
+   and issue ms inside the traced window and outside it. (i)
+   census_sqlflow through the Local executor on the card over
+   ``table+sqlite://``, a RecordFile of the same rows and
+   ``table+rpc://`` (the port's table service in a subprocess): losses
+   bit-equal, every kernel counter 0.
 11g. ``rowservice`` (the row service; ``--phase rowservice`` runs it
    alone, with no kernel build): deepfm_host's 5500 x 16 native table
    behind the port's ``HostRowService`` over localhost gRPC, 2048 frappe
@@ -4528,44 +4560,16 @@ def worker_wire_start(root, a_job):
 
 def wire_layout(root, a_job):
     """(a)'s records laid out so that the master's seeded shuffle hands
-    them out in (a)'s order: the port's Master over them (not started),
-    the job's flags, the training tasks in dispatch order."""
+    them out in (a)'s order (``laid_out_records``): the port's Master
+    over them (not started), the job's flags, the training tasks in
+    dispatch order."""
     from elasticdl_tpu_torch.common.args import build_parser
-    from elasticdl_tpu_torch.common.constants import TaskType
-    from elasticdl_tpu_torch.data.record_file import (
-        RecordFileScanner,
-        RecordFileWriter,
-    )
     from elasticdl_tpu_torch.master.main import Master
 
-    with RecordFileScanner(a_job["train"]) as scanner:
-        payloads = list(scanner)
-    wire_train = os.path.join(root, "worker_wire_train.rec")
-    with RecordFileWriter(wire_train) as writer:
-        for payload in payloads:
-            writer.write(payload)
-    flags = ["--model_zoo", a_job["zoo"], "--model_def", a_job["model_def"],
-             "--training_data", wire_train,
-             "--validation_data", a_job["evalf"],
-             "--minibatch_size", str(EMB_BATCH),
-             "--num_minibatches_per_task", str(WORKER_TASK_BATCHES),
-             "--random_seed", str(SEED)]
+    _, flags, order = laid_out_records(root, a_job, "worker_wire_train.rec")
     master = Master(build_parser("master").parse_args(
         flags + ["--evaluation_steps", str(WORKER_EVAL_STEPS),
                  "--master_addr", "localhost:0"]))
-    # The master's dispatcher shuffles its tasks (seed 0): lay the
-    # records out so that the i-th task it hands out reads (a)'s i-th
-    # span of records.
-    order = [t for t in master.task_dispatcher.export_state()["todo"]
-             if t["type"] == TaskType.TRAINING]
-    per_task = EMB_BATCH * WORKER_TASK_BATCHES
-    layout = [None] * len(payloads)
-    for i, task in enumerate(order):
-        layout[task["start"]:task["end"]] = \
-            payloads[i * per_task:(i + 1) * per_task]
-    with RecordFileWriter(wire_train) as writer:
-        for payload in layout:
-            writer.write(payload)
     return master, flags, order
 
 
@@ -6444,7 +6448,578 @@ def k8s_phase(torch, fa, pe, root):
     return out
 
 
-def worker_phase(torch, fa, pe, root, defer=False):
+# ``--phase observe`` (h): the worker phase's (a) job with the
+# observability plane on. ``master.main`` over (a)'s records laid out in
+# its dispatch order, with the time-series store sampled at
+# OBSERVE_TICK_S, the default SLO rules plus one planted threshold rule
+# on the worker's step-time histogram (a healthy run must fire it, so an
+# incident is recorded on purpose), an incident directory, a flight
+# recorder, the journal and the sampling profiler; a worker wrapper on
+# the card around ``worker.main`` with the sampling profiler and the
+# step-window ``torch.profiler`` trace over OBSERVE_TRACE. Both import
+# behind go files and start before (i) runs (a step of (h) and one of (i)
+# may share the card).
+# The wrapper holds the reports of its two training tasks and of its
+# evaluation task at pauses (it writes ``<hold>_<kind><n>.at`` and waits
+# for ``.go``). The store samples a reporter only when its snapshot is
+# new, and a histogram makes a point only from its second sample: at the
+# first pause the smoke waits for a master tick, so the worker's first
+# four steps are sampled; at the second it reads ``/alerts`` until the
+# planted rule fires on the last four; at the third ``/profile`` and
+# ``/timeseries``. The master samples at its run-loop tick
+# (MASTER_POLL_S), so OBSERVE_TICK_S only bounds the cadence. It records
+# each step's CUDA-event ms and issue ms and whether the step ran inside
+# the traced window, and the launch counters at the window's open and
+# close, and prints them with its launches as its last line.
+OBSERVE_TICK_S = 0.5
+OBSERVE_PROFILE_HZ, OBSERVE_PROFILE_WINDOW_S = 50, 1
+OBSERVE_TRACE_START, OBSERVE_TRACE_STEPS = 2, 3
+OBSERVE_SPANS = 4096
+OBSERVE_RULE = "worker-step-planted"
+MASTER_POLL_S = 5.0      # master.main's run-loop tick
+OBSERVE_WORKER = WORKER_WRAPPER_HEAD + """
+from elasticdl_tpu_torch.utils import profiler as up
+from elasticdl_tpu_torch.worker import worker as wmod
+
+holds = {("training", 1), ("training", 2), ("evaluation", 1)}
+reported, window, steps = {}, {}, []
+
+
+def counts():
+    return %s
+
+
+class Backend(up.TorchProfilerBackend):
+    def start_trace(self, log_dir):
+        window["open"] = counts()
+        super().start_trace(log_dir)
+
+    def stop_trace(self):
+        window["close"] = counts()
+        torch.cuda.synchronize()
+        window["path"] = super().stop_trace()
+        return window["path"]
+
+
+up.TorchProfilerBackend = Backend
+train_step = wmod.Worker._process_train_batch
+
+
+def timed_step(self, batch):
+    inside = self._profiler is not None and self._profiler._active
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t = time.perf_counter()
+    train_step(self, batch)
+    issue = (time.perf_counter() - t) * 1e3
+    end.record()
+    steps.append((inside, start, end, issue))
+
+
+wmod.Worker._process_train_batch = timed_step
+
+
+def pulled(self, *args, **kwargs):
+    task, finished = get_task(self, *args, **kwargs)
+    if task is not None:
+        kinds[task.task_id] = task.type
+    return task, finished
+
+
+def held(self, task_id, *args, **kwargs):
+    kind = kinds.get(task_id)
+    reported[kind] = reported.get(kind, 0) + 1
+    if (kind, reported[kind]) in holds:
+        pause = f"{sys.argv[1]}_{kind}{reported[kind]}"
+        open(pause + ".at", "w").close()
+        while not os.path.exists(pause + ".go"):
+            time.sleep(0.005)
+    return report(self, task_id, *args, **kwargs)
+
+
+mc.MasterClient.get_task = timed("get_task", pulled)
+mc.MasterClient.report_task_result = timed("report_task_result", held)
+code = worker_main.main(argv)
+torch.cuda.synchronize()
+print(json.dumps({"launches": counts(), "window": window, "steps": [
+    [inside, start.elapsed_time(end), issue]
+    for inside, start, end, issue in steps]}), flush=True)
+sys.exit(code or 0)
+""" % WORKER_WRAPPER_LAUNCHES
+# (i): census_sqlflow through the Local executor on the card over a
+# sqlite table, over the port's table service in a subprocess serving the
+# same file, and over a RecordFile of the same rows (the payloads the
+# table reader yields, written as records).
+CENSUS_TABLE_ROWS, CENSUS_TABLE_BATCH = 2048, 64
+TABLE_SERVICE_WRAPPER = (
+    "import json, os, sys, time\n"
+    "from elasticdl_tpu_torch.data import table_service\n"
+    "while not os.path.exists(sys.argv[1]):\n"
+    "    time.sleep(0.005)\n"
+    "with open(sys.argv[1]) as fh:\n"
+    "    argv = json.load(fh)\n"
+    "table_service.main(argv)\n")
+
+
+def laid_out_records(root, a_job, name):
+    """(a)'s records laid out so that a master's seeded shuffle hands
+    them out in (a)'s order (the order from ``build_dispatcher`` alone,
+    which reads of the spec only the custom reader and the callbacks):
+    the file, the job's flags, the training tasks in dispatch order."""
+    import shutil
+    import types
+
+    from elasticdl_tpu_torch.common.args import build_parser
+    from elasticdl_tpu_torch.common.constants import TaskType
+    from elasticdl_tpu_torch.data.record_file import (
+        RecordFileScanner,
+        RecordFileWriter,
+    )
+    from elasticdl_tpu_torch.master.main import build_dispatcher
+
+    with RecordFileScanner(a_job["train"]) as scanner:
+        payloads = list(scanner)
+    path = os.path.join(root, name)
+    shutil.copyfile(a_job["train"], path)
+    flags = ["--model_zoo", a_job["zoo"], "--model_def", a_job["model_def"],
+             "--training_data", path,
+             "--validation_data", a_job["evalf"],
+             "--minibatch_size", str(EMB_BATCH),
+             "--num_minibatches_per_task", str(WORKER_TASK_BATCHES),
+             "--random_seed", str(SEED)]
+    dispatcher = build_dispatcher(
+        build_parser("master").parse_args(flags),
+        types.SimpleNamespace(custom_data_reader=None, callbacks_fn=None))
+    order = [t for t in dispatcher.export_state()["todo"]
+             if t["type"] == TaskType.TRAINING]
+    per_task = EMB_BATCH * WORKER_TASK_BATCHES
+    layout = [None] * len(payloads)
+    for i, task in enumerate(order):
+        layout[task["start"]:task["end"]] = \
+            payloads[i * per_task:(i + 1) * per_task]
+    with RecordFileWriter(path) as writer:
+        for payload in layout:
+            writer.write(payload)
+    return path, flags, order
+
+
+def census_table_rows(path, rows):
+    """tests/test_table_reader_and_tools.py:263's census table, ``rows``
+    rows from seed 0, as a sqlite file."""
+    import sqlite3
+
+    conn = sqlite3.connect(path)
+    conn.execute("CREATE TABLE census (education TEXT, workclass TEXT, "
+                 "age REAL, hours_per_week REAL, label INTEGER)")
+    rng = np.random.RandomState(0)
+    education = ["Bachelors", "HS-grad", "Masters", "Doctorate"]
+    workclass = ["Private", "Self-emp", "Federal-gov", "Local-gov"]
+    table = []
+    for _ in range(rows):
+        edu = int(rng.randint(len(education)))
+        work = int(rng.randint(len(workclass)))
+        age = float(20 + rng.rand() * 50)
+        hours = float(10 + rng.rand() * 60)
+        table.append((education[edu], workclass[work], age, hours,
+                      int(age + 10 * edu > 55)))
+    conn.executemany("INSERT INTO census VALUES (?,?,?,?,?)", table)
+    conn.commit()
+    conn.close()
+
+
+def observe_start(root, a_job):
+    """(h)'s and (i)'s processes, importing behind go files: the master,
+    the worker wrapper and the table service."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (here, env.get("PYTHONPATH", "")) if p)
+    h = {"dir": os.path.join(root, "observe")}
+    os.makedirs(h["dir"], exist_ok=True)
+    path = lambda name: os.path.join(h["dir"], name)  # noqa: E731
+    census_table_rows(path("census.db"), CENSUS_TABLE_ROWS)
+    procs = {}
+    for name, source, args in (
+            ("master", WAITING_MASTER, [path("master.go")]),
+            ("worker", OBSERVE_WORKER, [path("hold"), "-",
+                                        path("worker.go")]),
+            ("table", TABLE_SERVICE_WRAPPER, [path("table.go")])):
+        with open(path(f"{name}.py"), "w") as fh:
+            fh.write(source)
+        log = open(path(f"{name}.log"), "w+")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, path(f"{name}.py")] + args, env=env, cwd=root,
+            stdout=log, stderr=subprocess.STDOUT), log)
+    h["procs"] = procs
+    h["path"] = path
+    (h["master_port"], h["metrics_port"],
+     h["table_port"]) = free_ports(3)
+    go_with(path("table.go"), [
+        "--data_origin", f"table+sqlite://{path('census.db')}?table=census",
+        "--addr", f"localhost:{h['table_port']}"])
+    h["train"], h["flags"], h["order"] = laid_out_records(
+        h["dir"], a_job, "observe_train.rec")
+    return h
+
+
+def observe_stop(h):
+    for proc, log in h["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def observe_tables_part(torch, fa, pe, h):
+    """(i) census_sqlflow over ``table+sqlite://``, a RecordFile of the
+    same rows, and ``table+rpc://`` (the port's table service in a
+    subprocess over the same file): losses bit-equal, every kernel
+    counter 0."""
+    from elasticdl_tpu_torch.api.local_executor import LocalExecutor
+    from elasticdl_tpu_torch.common.task import Task
+    from elasticdl_tpu_torch.data.record_file import RecordFileWriter
+    from elasticdl_tpu_torch.data.table_reader import TableDataReader
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    path = h["path"]
+    sqlite = f"table+sqlite://{path('census.db')}?table=census"
+    reader = TableDataReader(sqlite)
+    ((_, (start, count)),) = reader.create_shards().items()
+    with RecordFileWriter(path("census.rec")) as writer:
+        for payload in reader.read_records(Task(
+                shard_name=sqlite, start=start, end=start + count)):
+            writer.write(payload)
+    origins = {"sqlite": sqlite, "record_file": path("census.rec"),
+               "rpc": f"table+rpc://localhost:{h['table_port']}"}
+    runs = {}
+    for name, origin in origins.items():
+        if name == "rpc":
+            proc, log = h["procs"]["table"]
+            wait_for(lambda: "Table service on port" in log_text(log),
+                     "the table service", timeout=120,
+                     procs=[(proc, log)])
+        args = tdata.make_local_args(
+            tdata.model_zoo_dir(), "census.census_sqlflow.custom_model",
+            origin, minibatch_size=CENSUS_TABLE_BATCH,
+            extra=["--device", DEVICE, "--random_seed", str(SEED)])
+        record = step_recorder(torch)
+        executor = LocalExecutor(args, callbacks=[record])
+        torch.cuda.synchronize()
+        reset_kernel_launches(fa, pe)         # the table path starts
+        t0 = time.monotonic()
+        executor.run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = kernel_launch_counts(fa, pe)  # ... and ends
+        runs[name] = {"losses": [float(x) for x in record.loss],
+                      "launches": counts, "wall_s": wall}
+    losses = {name: run["losses"] for name, run in runs.items()}
+    out = {"rows": CENSUS_TABLE_ROWS, "batch": CENSUS_TABLE_BATCH,
+           "steps": {n: len(v) for n, v in losses.items()},
+           "sqlite_rpc_bit_equal": losses["sqlite"] == losses["rpc"],
+           "record_file_equal": losses["sqlite"] == losses["record_file"],
+           "launches": {n: r["launches"] for n, r in runs.items()},
+           "wall_s": {n: r["wall_s"] for n, r in runs.items()},
+           "final_loss": {n: v[-1] for n, v in losses.items()}}
+    print("observe (i) table origins", json.dumps(out), flush=True)
+    steps = CENSUS_TABLE_ROWS // CENSUS_TABLE_BATCH
+    check(all(len(v) == steps for v in losses.values()),
+          f"census over table origins: {out['steps']} steps, not {steps}")
+    check(out["sqlite_rpc_bit_equal"] and out["record_file_equal"],
+          f"census losses differ across origins: {losses}")
+    check(all(np.isfinite(losses["sqlite"])), "census: non-finite loss")
+    check(not any(c for r in runs.values() for c in r["launches"].values()),
+          f"the tabular path launched kernels: {out['launches']}")
+    return out
+
+
+def trace_kernels(path):
+    """The trace's kernel events of #6 and #7 and of any library
+    embedding kernel, and how many of ours ran inside a ``train_step``:
+    the runtime call that launched the kernel (its correlation id) lies
+    within a CPU ``train_step`` range."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    steps = [(e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+             if e.get("name") == "train_step"
+             and e.get("cat") == "user_annotation"]
+    launches = {(e.get("args") or {}).get("correlation"): e["ts"]
+                for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+
+    def inside(e):
+        t = launches.get((e.get("args") or {}).get("correlation"))
+        return t is not None and any(a <= t <= b for a, b in steps)
+
+    out = {"train_steps": len(steps), "kernels": len(kernels)}
+    # Demangled names (``void (anonymous namespace)::lookup_kernel<2,
+    # true>(...)``) beside their siblings of the same files.
+    for name, other, row in (("lookup_kernel", "aligned", "lookup_combine"),
+                             ("row_update_kernel", "fused", "row_update")):
+        mine = [e for e in kernels
+                if name in e["name"] and other not in e["name"]]
+        out[row] = {"kernel": sorted({e["name"][:60] for e in mine}),
+                    "launches": len(mine),
+                    "inside": sum(inside(e) for e in mine)}
+    out["library_embedding"] = sorted({
+        e["name"][:120] for e in kernels
+        if "embedding" in e["name"].lower()
+        or "indexselect" in e["name"].lower()})
+    return out
+
+
+def profile_steps(body):
+    """Samples of a ``/profile`` window whose stack runs the worker's
+    training-task loop."""
+    samples = (body.get("window") or {}).get("samples") or {}
+    return sum(n for stack, n in samples.items()
+               if "worker.Worker._process_train_task" in stack)
+
+
+def observe_go(h):
+    """(h)'s master and worker: the rules file, then each argv through
+    its go file."""
+    from elasticdl_tpu_torch.observability import slo
+
+    path = h["path"]
+    rules = [r.to_dict() for r in slo.default_rules()] + [{
+        "name": OBSERVE_RULE, "kind": "threshold",
+        "series": "edl_tpu_worker_step_seconds", "aggregation": "p99",
+        "op": ">", "value": 0.0, "window_secs": 600.0, "min_count": 1,
+        "description": "planted: fires on any train step"}]
+    with open(path("rules.json"), "w") as fh:
+        json.dump({"rules": rules}, fh)
+    h["default_rules"] = {r["name"] for r in rules[:-1]}
+    h["master_argv"] = h["flags"] + [
+        "--evaluation_steps", str(WORKER_EVAL_STEPS),
+        "--master_addr", f"localhost:{h['master_port']}",
+        "--metrics_port", str(h["metrics_port"]),
+        "--journal_dir", path("journal"),
+        "--timeseries_secs", str(OBSERVE_TICK_S),
+        "--slo_rules", path("rules.json"),
+        "--incident_dir", path("incidents"),
+        "--flight_recorder", str(OBSERVE_SPANS),
+        "--profile_hz", str(OBSERVE_PROFILE_HZ),
+        "--profile_window_secs", str(OBSERVE_PROFILE_WINDOW_S)]
+    h["t0"] = time.monotonic()
+    go_with(path("master.go"), h["master_argv"])
+    # The worker sets up beside the master (it rides out the master's
+    # start): both build the 1M x 256 model, the master on the CPU.
+    go_with(path("worker.go"), h["flags"] + [
+        "--worker_id", "0", "--master_addr", f"localhost:{h['master_port']}",
+        "--device", DEVICE, "--metrics_report_secs", "0.001",
+        "--flight_recorder", str(OBSERVE_SPANS),
+        "--profile_hz", str(OBSERVE_PROFILE_HZ),
+        "--profile_window_secs", str(OBSERVE_PROFILE_WINDOW_S),
+        "--profile_dir", path("trace"),
+        "--profile_start_step", str(OBSERVE_TRACE_START),
+        "--profile_steps", str(OBSERVE_TRACE_STEPS)])
+
+
+def observe_job_part(torch, fa, pe, h, a_job):
+    """(h), see the block comment above OBSERVE_WORKER."""
+    from elasticdl_tpu_torch.common.args import build_parser
+    from elasticdl_tpu_torch.tools import check_incident, check_profile
+
+    path, (mproc, mlog), (wproc, wlog) = (
+        h["path"], h["procs"]["master"], h["procs"]["worker"])
+    procs = [(mproc, mlog), (wproc, wlog)]
+    t0 = h["t0"]
+    wait_for(lambda: "Master RPC serving on port" in log_text(mlog),
+             "the observed master", timeout=180, procs=procs, every=0.05)
+    t_master = time.monotonic() - t0
+    port = h["metrics_port"]
+
+    def hold(name, what):
+        wait_for(lambda: os.path.exists(path(f"hold_{name}.at")), what,
+                 timeout=240, procs=procs, every=0.05)
+        return time.monotonic() - t0, time.time()
+
+    def release(name):
+        open(path(f"hold_{name}.go"), "w").close()
+
+    def ticked_after(wall):
+        body = http_json(
+            port, "/timeseries?name=edl_tpu_master_task_queue_depth"
+            "&window=600")
+        return any(p[0] > wall for s in body["series"].values()
+                   for p in s["points"])
+
+    t_task1, wall = hold("training1", "the worker's first training report")
+    # A master tick samples the worker's snapshot of its first 4 steps.
+    wait_for(lambda: ticked_after(wall), "a master tick", timeout=60,
+             procs=procs, every=0.1)
+    release("training1")
+    t_trained, _ = hold("training2", "the worker's last training report")
+    alerts = {}
+
+    def planted_fires():
+        alerts.update(http_json(port, "/alerts"))
+        return OBSERVE_RULE in alerts.get("firing", ())
+
+    wait_for(planted_fires, "the planted rule", timeout=60, procs=procs,
+             every=0.1)
+    t_fired = time.monotonic() - t0
+    release("training2")
+    hold("evaluation1", "the worker's evaluation report")
+    profile = {}
+
+    def worker_profile():
+        profile.update(http_json(
+            port, "/profile?component=0&window=600&spans=0"))
+        return profile_steps(profile) > 0
+
+    wait_for(worker_profile, "the worker's profile windows", timeout=60,
+             procs=procs, every=0.2)
+    components = http_json(port, "/profile")["components"]
+    series = http_json(port, "/timeseries?window=600")["series"]
+    release("evaluation1")
+    wproc.wait(timeout=240)
+    mproc.wait(timeout=120)
+    wall = time.monotonic() - t0
+    wout = log_text(wlog)
+    last = json.loads(wout.strip().splitlines()[-1])
+
+    # The journal: the master's eval results.
+    args = build_parser("master").parse_args(h["master_argv"])
+    dispatcher, carry = journal_replay(args, path("journal"))
+    results = carry["eval"]["results"]
+    # The time series: the master's own queue gauge at every tick, the
+    # worker's step histogram at each tick it trained through.
+    ticks = sorted(t for t, _ in next(
+        s for k, s in series.items()
+        if k == "edl_tpu_master_task_queue_depth")["points"])
+    step_keys = [k for k in series
+                 if k.startswith("edl_tpu_worker_step_seconds")
+                 and k.endswith("@0")]
+    step_ts = sorted({p[0] for k in step_keys
+                      for p in series[k]["points"]})
+    gaps = [b - a for a, b in zip(ticks, ticks[1:])]
+    span_ticks = [t for t in ticks if step_ts and
+                  step_ts[0] <= t <= step_ts[-1]]
+    # The incident bundle of the planted rule.
+    bundles = sorted(glob_dirs(path("incidents"), f"*_{OBSERVE_RULE}*"))
+    incident_errors = (check_incident.check_incident(
+        bundles[-1], require_profile=True) if bundles else ["no bundle"])
+    profile_errors = check_profile.check_profile_payload(profile)
+    # The trace.
+    traces = sorted(glob_dirs(path("trace"), "trace-*.json"))
+    window = last["window"]
+    window_counts = {k: window["close"][k] - window["open"][k]
+                     for k in window["open"]}
+    kernels = trace_kernels(traces[0]) if len(traces) == 1 else None
+    steps = last["steps"]
+    inside = [s for s in steps if s[0]]
+    outside = [s for s in steps[1:] if not s[0]]  # after the first
+    default_names = h["default_rules"]
+    out = {
+        "master_serving_s": t_master, "task1_at_s": t_task1,
+        "trained_at_s": t_trained,
+        "planted_fired_at_s": t_fired, "wall_s": wall,
+        "master_exit": mproc.returncode, "worker_exit": wproc.returncode,
+        "launches": last["launches"],
+        "window_launches": window_counts, "trace": kernels,
+        "traces": len(traces),
+        "firing_while_training": alerts.get("firing"),
+        "eval_results": {str(k): v for k, v in results.items()},
+        "records": dict(dispatcher.counters.total_records),
+        "master_ticks": len(ticks), "max_tick_gap_s": max(gaps or [0.0]),
+        "worker_step_points": len(step_ts),
+        "ticks_in_worker_span": len(span_ticks),
+        "profile_components": [c["component"] for c in components],
+        "profile_train_samples": profile_steps(profile),
+        "profile_errors": profile_errors,
+        "incident_bundles": [os.path.basename(b) for b in bundles],
+        "incident_errors": incident_errors,
+        "step_ms_inside": spread([s[1] for s in inside]),
+        "issue_ms_inside": spread([s[2] for s in inside]),
+        "step_ms_outside": spread([s[1] for s in outside]),
+        "issue_ms_outside": spread([s[2] for s in outside]),
+        "card": smi("name,power.limit"),
+    }
+    print("observe (h) job", json.dumps(out), flush=True)
+    check(wproc.returncode == 0 and mproc.returncode == 0,
+          f"observed job exits {wproc.returncode} / {mproc.returncode}: "
+          f"{wout[-3000:]} {log_text(mlog)[-3000:]}")
+    check(results == a_job["results"],
+          f"observed master eval {results} against (a)'s "
+          f"{a_job['results']}")
+    check(last["launches"] == a_job["counts"],
+          f"observed worker launches {last['launches']}, not (a)'s "
+          f"{a_job['counts']}")
+    check(alerts.get("firing") == [OBSERVE_RULE]
+          and not default_names & set(alerts.get("firing", ())),
+          f"/alerts while training: {alerts.get('firing')}")
+    check(len(ticks) >= 2 and step_ts and set(span_ticks) <= set(step_ts),
+          f"/timeseries: master ticks {ticks}, worker step points "
+          f"{step_ts}")
+    check(max(gaps) <= 2 * MASTER_POLL_S,
+          f"/timeseries: a master tick missed: {ticks}")
+    check("0" in out["profile_components"] and not profile_errors
+          and out["profile_train_samples"] > 0,
+          f"/profile: {out['profile_components']} {profile_errors}")
+    check(bundles and not incident_errors,
+          f"incident bundles {bundles}: {incident_errors}")
+    check(len(traces) == 1, f"{len(traces)} traces in the trace dir")
+    check(sum(1 for s in steps if s[0]) == OBSERVE_TRACE_STEPS
+          and [i for i, s in enumerate(steps) if s[0]] == list(range(
+              OBSERVE_TRACE_START,
+              OBSERVE_TRACE_START + OBSERVE_TRACE_STEPS)),
+          f"traced steps {[s[0] for s in steps]}")
+    want = {k: 0 for k in window_counts}
+    want.update(lookup_combine=OBSERVE_TRACE_STEPS,
+                row_update=OBSERVE_TRACE_STEPS,
+                row_update_adagrad=OBSERVE_TRACE_STEPS)
+    check(window_counts == want,
+          f"launches in the traced window {window_counts}, not {want}")
+    check(kernels["train_steps"] == OBSERVE_TRACE_STEPS
+          and all(kernels[row]["launches"] == OBSERVE_TRACE_STEPS
+                  and kernels[row]["inside"] == OBSERVE_TRACE_STEPS
+                  for row in ("lookup_combine", "row_update"))
+          and not kernels["library_embedding"],
+          f"the trace's kernels {kernels}")
+    return out
+
+
+def glob_dirs(parent, pattern):
+    import glob
+
+    return glob.glob(os.path.join(parent, pattern))
+
+
+def observe_phase(torch, fa, pe, root, a_job):
+    """``--phase observe`` after (a): (h) and (i), their processes
+    importing while (i) runs here."""
+    t0 = time.monotonic()
+    h = observe_start(root, a_job)
+    try:
+        observe_go(h)
+        out_i = observe_tables_part(torch, fa, pe, h)
+        out_h = observe_job_part(torch, fa, pe, h, a_job)
+    finally:
+        observe_stop(h)
+    return {"job": out_h, "tables": out_i,
+            "seconds": time.monotonic() - t0}
+
+
+def observed_job(a_job):
+    """What (h) needs of (a)'s job (no tensors)."""
+    return {k: a_job[k] for k in ("zoo", "model_def", "train", "evalf",
+                                  "results", "counts")}
+
+
+def observe_alone_phase(torch, fa, pe, root):
+    """``--phase observe``: the worker phase's (a), then (h) and (i)."""
+    out_a, a_job = worker_recsys_part(torch, fa, pe, root)
+    a_job = observed_job(a_job)
+    torch.cuda.empty_cache()
+    return {"in_process": out_a, **observe_phase(torch, fa, pe, root,
+                                                   a_job)}
+
+
+def worker_phase(torch, fa, pe, root, defer=False, keep=None):
     """The task plane on the card: the recsys twin through the worker
     in process against Local, a failed task, deepfm_host through the
     worker, the worker over gRPC, the same job through a primary, a
@@ -6458,7 +7033,9 @@ def worker_phase(torch, fa, pe, root, defer=False):
     With ``defer`` the phase returns with (f) and (g) still running, in
     ``out["stream"]`` and ``out["k8s"]``, for the caller's
     ``worker_stream_finish`` and ``worker_k8s_finish`` (the whole smoke
-    lets them end beside the row-service and fleet phases)."""
+    lets them end beside the row-service and fleet phases). ``keep``
+    (a dict) receives (a)'s job under ``"a_job"`` for the observe
+    phase."""
     t0 = time.monotonic()
     fo = worker_failover_prestart(root)
     fs = worker_stream_prestart(root)
@@ -6469,6 +7046,8 @@ def worker_phase(torch, fa, pe, root, defer=False):
         worker_stream_finish(fs, failed=True)
         raise
     out = {"in_process": out_a}
+    if keep is not None:
+        keep["a_job"] = observed_job(a_job)
     torch.cuda.empty_cache()
     wire = gk = None
     try:
@@ -12402,7 +12981,7 @@ def main(argv=None) -> int:
                             "vision", "tabular", "checkpoint", "worker",
                             "rowservice", "fleet", "parallel", "multihost",
                             "tpfault", "moe", "pipeline", "failover",
-                            "sched", "k8s"),
+                            "sched", "k8s", "observe"),
         default="all",
         help="fwd: build flash_attention_fwd.cu alone, then run kernel "
              "#1's checks and times and print its kernels row; bwd: the "
@@ -12440,7 +13019,11 @@ def main(argv=None) -> int:
              "then row-service pods with a shard SIGKILLed and the pod "
              "scaler, the autoscaler, and a gang restart, each through "
              "the port's Master with a stand-in k8s client (the "
-             "embedding kernels only)")
+             "embedding kernels only); observe: the worker phase's (a), "
+             "then its job under master.main with the time-series store, "
+             "the SLO rules, an incident directory and the profilers, and "
+             "census_sqlflow over table origins (the embedding kernels "
+             "only)")
     args = parser.parse_args(argv)
     import torch
 
@@ -12504,6 +13087,7 @@ def run(args, torch, mh) -> int:
              "worker": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
              "failover": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
              "k8s": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
+             "observe": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE],
              "parallel": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE,
                           fa._CHUNK_SOURCE, fa._BWD_SOURCE, fa._SOURCE],
              "multihost": [pe._LOOKUP_SOURCE, pe._UPDATE_SOURCE,
@@ -12532,7 +13116,7 @@ def run(args, torch, mh) -> int:
         return 0
     if args.phase in ("checkpoint", "worker", "fleet", "parallel",
                       "multihost", "tpfault", "moe", "pipeline",
-                      "failover", "k8s"):
+                      "failover", "k8s", "observe"):
         with tempfile.TemporaryDirectory() as root:
             if args.phase == "pipeline":
                 t1 = time.monotonic()
@@ -12565,6 +13149,9 @@ def run(args, torch, mh) -> int:
                 line = {"failover": failover_phase(torch, fa, pe, root)}
             elif args.phase == "k8s":
                 line = {"k8s": k8s_phase(torch, fa, pe, root)}
+            elif args.phase == "observe":
+                line = {"observe": observe_alone_phase(torch, fa, pe,
+                                                       root)}
             else:
                 phase = checkpoint_phase if args.phase == "checkpoint" \
                     else worker_phase
@@ -12631,8 +13218,10 @@ def run(args, torch, mh) -> int:
         # The row service's main boots in a subprocess while the worker
         # phase runs.
         row_service = rowservice_start(root)
+        keep = {}
         try:
-            worker = worker_phase(torch, fa, pe, root, defer=True)
+            worker = worker_phase(torch, fa, pe, root, defer=True,
+                                  keep=keep)
         except BaseException:
             rowservice_stop(row_service)
             raise
@@ -12662,6 +13251,10 @@ def run(args, torch, mh) -> int:
         mark("worker_k8s")
         worker["stream"] = worker_stream_finish(worker["stream"])
         mark("worker_stream")
+        # After the worker phase (it saturates the host's cores): its
+        # job with the observability plane on, and the table readers.
+        observe = observe_phase(torch, fa, pe, root, keep.pop("a_job"))
+        mark("observe")
         reuse = {}
         parallel = parallel_phase(torch, fa, pe, root, reuse)
         mark("parallel")
@@ -12720,6 +13313,10 @@ def run(args, torch, mh) -> int:
                 row["name"]],
             "two_shards": rowservice["two_shards"]["launches"][row["name"]],
             "shared": rowservice["subprocess"]["launches"][row["name"]]}
+        row["launches_observe"] = {
+            "job": observe["job"]["launches"][row["name"]],
+            "tables": {run: counts[row["name"]] for run, counts in
+                       observe["tables"]["launches"].items()}}
         row["launches_fleet"] = {
             part: counts[row["name"]]
             for part, counts in fleet["launches"].items()}
@@ -12744,6 +13341,7 @@ def run(args, torch, mh) -> int:
     print(json.dumps({"tabular": tabular}))
     print(json.dumps({"checkpoint": checkpoint}))
     print(json.dumps({"worker": worker}))
+    print(json.dumps({"observe": observe}))
     print(json.dumps({"rowservice": rowservice}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"parallel": parallel}))

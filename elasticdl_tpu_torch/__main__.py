@@ -17,7 +17,9 @@
   ``PredictionOutputsProcessor`` (``api/eval_predict_executor``), in
   process under Local, else submitted as ``train`` is.
 - ``clean``: delete a job's pods and Services.
-- ``chaos`` and ``trace`` raise: ROADMAP Queue 1 items 8g and 8f.
+- ``trace``: a traced in-process job exported as Perfetto JSON
+  (observability/trace_export.py), on CUDA unless ``--device cpu``.
+- ``chaos`` raises: ROADMAP Queue 1 item 8g.
 
 Local jobs run on CUDA unless ``--device cpu``. The task plane also runs
 without k8s, started by hand: ``python -m

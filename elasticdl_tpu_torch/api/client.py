@@ -15,8 +15,9 @@ evaluate | predict | serve | route | chaos | trace | clean``.
 - ``route``: the serving fleet's router (serving/router.py).
 - ``clean``: delete every pod/service of a job (reference
   ``elasticdl clean``); 2 without the ``kubernetes`` package.
-- ``chaos`` and ``trace`` raise: the chaos plane is ROADMAP Queue 1 item
-  8g, the trace export item 8f.
+- ``trace``: a traced in-process job exported as Perfetto JSON, with
+  its critical-path report (observability/trace_export.py).
+- ``chaos`` raises: the chaos plane is ROADMAP Queue 1 item 8g.
 """
 
 import json
@@ -42,8 +43,7 @@ logger = get_logger("client")
 _SUBCOMMANDS = ("train", "evaluate", "predict", "serve", "route",
                 "chaos", "trace", "clean")
 # Subcommand -> the ROADMAP Queue 1 item that holds it.
-_NOT_PORTED = {"chaos": "8g (the chaos plane)",
-               "trace": "8f (the trace export)"}
+_NOT_PORTED = {"chaos": "8g (the chaos plane)"}
 
 
 def _master_manifests(args, mode: str):
@@ -177,6 +177,14 @@ def main(argv=None):
         from elasticdl_tpu_torch.serving.router import main as route_main
 
         return route_main(rest)
+    if mode == "trace":
+        # Distributed-tracing demo/smoke: traced in-process job →
+        # Perfetto JSON + the critical-path report.
+        from elasticdl_tpu_torch.observability.trace_export import (
+            main as trace_main,
+        )
+
+        return trace_main(rest)
     if mode in _NOT_PORTED:
         raise NotImplementedError(
             f"elasticdl_tpu_torch {mode}: not ported yet (ROADMAP Queue 1, "

@@ -230,6 +230,46 @@ def add_task_plane_params(parser):
                         default=15.0,
                         help="Seconds between the worker's registry "
                              "snapshots on master RPCs")
+    # SLO engine (observability/timeseries.py + slo.py): the master
+    # samples its telemetry into a bounded time-series store each run
+    # tick, evaluates the SLO rules on it, and serves /timeseries and
+    # /alerts next to /metrics.
+    parser.add_argument("--timeseries_secs", type=float, default=5.0,
+                        help="Master time-series sampling cadence "
+                             "(seconds); 0 disables the store, the SLO "
+                             "engine, and the /timeseries + /alerts "
+                             "endpoints")
+    parser.add_argument("--slo_rules", default="",
+                        help="JSON SLO rule file; empty = the built-in "
+                             "default rules")
+    parser.add_argument("--incident_dir", default="",
+                        help="Write a black-box incident bundle here "
+                             "(flight-recorder trace, time-series "
+                             "window, critical-path attribution, "
+                             "journal tail) whenever an SLO rule "
+                             "starts firing; empty (default) disables "
+                             "capture")
+    # The worker's step-window trace (utils/profiler.py).
+    parser.add_argument("--profile_dir", default="",
+                        help="Write a torch.profiler Chrome trace (CPU "
+                             "and CUDA activities) of a step window "
+                             "here")
+    parser.add_argument("--profile_start_step", type=non_neg_int,
+                        default=5)
+    parser.add_argument("--profile_steps", type=pos_int, default=5)
+    # Continuous profiling (observability/profiler.py): a sampling
+    # profiler whose flame-table windows ride the metrics piggyback
+    # into the master's /profile endpoint.
+    parser.add_argument("--profile_hz", type=float, default=0.0,
+                        help="Sampling-profiler rate (Hz) for master "
+                             "and workers; flame-table windows serve on "
+                             "the master's /profile endpoint; 0 "
+                             "(default) = off")
+    parser.add_argument("--profile_window_secs", type=pos_float,
+                        default=10.0,
+                        help="Sampling-profiler window length: stacks "
+                             "fold per window, windows ride the "
+                             "metrics piggyback to the master")
     parser.add_argument("--metrics_ttl_secs", type=pos_float, default=None,
                         help="Age-out of a silent worker's metrics; "
                              "default 2 x task_timeout_secs")
@@ -352,8 +392,8 @@ def add_task_plane_params(parser):
     add_bool_param(parser, "--autoscale_from_timeseries", False,
                    "Feed the autoscaler the mean worker utilization "
                    "over --autoscale_trend_window_secs from the "
-                   "time-series store (the store is ROADMAP item 8f: "
-                   "raises until it lands)")
+                   "time-series store (requires --timeseries_secs "
+                   "> 0)")
     parser.add_argument("--autoscale_trend_window_secs", type=pos_float,
                         default=120.0,
                         help="Trailing window for the time-series-"

@@ -38,7 +38,7 @@ class ReaderType:
     CSV = "CSV"
     RECORD_FILE = "RecordFile"
     TEXT = "Text"
-    TABLE = "Table"  # row-range table service (not ported yet)
+    TABLE = "Table"  # row-range table service (data/table_reader.py)
     STREAM = "Stream"  # append-only record stream (data/stream.py)
 
 

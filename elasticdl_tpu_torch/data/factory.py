@@ -2,7 +2,9 @@
 the data origin's extension, an explicit ``reader_type`` in
 data_reader_params, or a user ``custom_data_reader``. A ``stream://``
 origin (or ``reader_type=Stream``) tails ``data/stream.py``'s append-only
-partitions. Table origins are not ported yet and raise."""
+partitions; ``table+sqlite://``, ``table+csv://``, ``table+rpc://`` and
+``odps://`` origins (or ``reader_type=Table``) read rows through
+``data/table_reader.py``."""
 
 import os
 
@@ -31,6 +33,7 @@ def create_data_reader(data_origin: str, custom_reader=None, **kwargs):
     if custom_reader is not None:
         return custom_reader(data_origin=data_origin, **kwargs)
     reader_type = kwargs.pop("reader_type", None)
+    # Table origins (sqlite/csv-table/ODPS) route by URL scheme.
     # Stream origins (data/stream.py): the tail of append-only
     # partitions, selected by scheme or explicit reader_type.
     if reader_type == ReaderType.STREAM or data_origin.startswith(
@@ -44,10 +47,9 @@ def create_data_reader(data_origin: str, custom_reader=None, **kwargs):
         return StreamDataReader(stream_dir=stream_dir, **kwargs)
     if reader_type == ReaderType.TABLE or data_origin.startswith(
             ("table+sqlite://", "table+csv://", "table+rpc://", "odps://")):
-        raise NotImplementedError(
-            f"data origin {data_origin!r}: table readers are not ported "
-            "yet (ported: RecordFile, CSV, Stream)"
-        )
+        from elasticdl_tpu_torch.data.table_reader import TableDataReader
+
+        return TableDataReader(data_origin=data_origin, **kwargs)
     if reader_type == ReaderType.CSV:
         return CSVDataReader(data_origin=data_origin, **kwargs)
     if reader_type == ReaderType.RECORD_FILE:

@@ -36,13 +36,17 @@ pulls and pushes skip the engine lock and a multi-table batch fans its
 tables out on a pool; ``HostStepRunner.host_tables`` is None on it,
 because the service checkpoints its own rows.
 
-The JAX engine's telemetry (its lookup, pull, pad and update histograms
-and its dedup spans) is not ported yet (ROADMAP Queue 1, item 8): a
-``metrics_registry`` raises.
+Telemetry as the JAX engine's, under the same names: the lookup,
+dedup, row-pull, pad, device-placement and update histograms, the raw
+and unique id and updated-row counters and the rows-materialized gauge
+(into ``metrics_registry``, or the process registry), and ``dedup`` /
+``row_pull`` / ``pad`` spans a table under the step's span (or a
+``prepare_batch`` root on a pull-ahead thread).
 """
 
 import queue
 import threading
+import time
 import weakref
 from typing import Callable, Dict, Iterable, NamedTuple, Optional, Tuple
 
@@ -242,10 +246,6 @@ class HostEmbeddingEngine:
 
     def __init__(self, tables: Dict, optimizer, id_keys: Dict[str, str],
                  metrics_registry=None):
-        if metrics_registry is not None:
-            raise NotImplementedError(
-                "metrics_registry: the host engine's telemetry is not "
-                "ported yet (ROADMAP Queue 1, item 8)")
         # Serialises host-side table access: neither the dict table nor
         # the C++ open-addressing map (which rehashes on growth) is safe
         # under concurrent mutation, and the applier thread writes while
@@ -283,6 +283,73 @@ class HostEmbeddingEngine:
         # deadlock it.
         self._table_pool = None
         self._table_pool_lock = threading.Lock()
+        # Telemetry: lookup/update latency, row traffic, and the dedup
+        # ("cache hit") ratio — total vs unique ids per batch. Rows
+        # materialized is a pull-time gauge over the live tables.
+        from elasticdl_tpu_torch.observability import default_registry
+
+        registry = metrics_registry or default_registry()
+        self._m_lookup = registry.histogram(
+            "embedding_lookup_seconds",
+            "Host row pull + dedup + pad latency per batch",
+        )
+        # Phase split of the lookup (matching dedup/row_pull/pad child
+        # spans are emitted inside prepare_batch): "lookup is slow"
+        # becomes "the pull RPC is slow" or "dedup is slow".
+        self._m_dedup = registry.histogram(
+            "embedding_dedup_seconds",
+            "np.unique dedup latency per table per batch",
+        )
+        self._m_pull = registry.histogram(
+            "embedding_row_pull_seconds",
+            "Row fetch (store get / pull RPC) latency per table per "
+            "batch",
+        )
+        self._m_pad = registry.histogram(
+            "embedding_pad_seconds",
+            "Bucket-pad + inverse-map assembly latency per table per "
+            "batch",
+        )
+        self._m_device_put = registry.histogram(
+            "embedding_device_put_seconds",
+            "Device placement latency per prepared batch (the "
+            "pipeline's placement stage)",
+        )
+        self._m_update = registry.histogram(
+            "embedding_update_seconds",
+            "Row-gradient scatter/apply latency per step",
+        )
+        self._m_ids = registry.counter(
+            "embedding_lookup_ids_total",
+            "Raw ids looked up (pre-dedup)",
+        )
+        self._m_unique = registry.counter(
+            "embedding_lookup_unique_ids_total",
+            "Unique rows actually pulled (1 - unique/raw = batch dedup "
+            "hit rate)",
+        )
+        self._m_rows_updated = registry.counter(
+            "embedding_rows_updated_total",
+            "Rows receiving gradient updates",
+        )
+        # weakref: the registry is process-global and outlives engines;
+        # a strong closure over self would pin the host tables of every
+        # discarded engine for the process life.
+        self_ref = weakref.ref(self)
+
+        def _rows_materialized() -> float:
+            engine = self_ref()
+            if engine is None:
+                return 0.0
+            return sum(
+                t.num_rows for t in engine.tables.values()
+                if hasattr(t, "num_rows")
+            )
+
+        registry.gauge(
+            "embedding_rows_materialized",
+            "Rows resident across host tables (lazy-init high-water)",
+        ).set_function(_rows_materialized)
 
     def prepare_batch(self, batch: dict) -> Tuple[dict, dict, dict]:
         """The host half of the step: dedup ids, pull rows, bucket-pad.
@@ -293,11 +360,31 @@ class HostEmbeddingEngine:
         - host_rows: {table: (bucket, D) float32}; rows[u:] are zero
           padding whose gradients are dropped,
         - uniques: {table: (unique_ids, u)} for ``apply_row_grads``.
+
+        Tracing: each table emits ``dedup`` / ``row_pull`` / ``pad``
+        spans, children of the open span on the synchronous path, or of
+        a fresh ``prepare_batch`` root on a pull-ahead thread.
         """
-        if self.concurrent_io:
-            return self._prepare_batch_locked(batch)
-        with self.lock:
-            return self._prepare_batch_locked(batch)
+        from elasticdl_tpu_torch.observability import tracing
+
+        t0 = time.monotonic()
+        try:
+            ctx = tracing.current_ctx()
+            if ctx is not None:
+                if self.concurrent_io:
+                    return self._prepare_batch_locked(batch, ctx)
+                with self.lock:
+                    return self._prepare_batch_locked(batch, ctx)
+            with tracing.span(
+                "prepare_batch", tables=len(self.id_keys)
+            ) as sp:
+                ctx = sp.ctx()
+                if self.concurrent_io:
+                    return self._prepare_batch_locked(batch, ctx)
+                with self.lock:
+                    return self._prepare_batch_locked(batch, ctx)
+        finally:
+            self._m_lookup.observe(time.monotonic() - t0)
 
     def _get_table_pool(self):
         from concurrent.futures import ThreadPoolExecutor
@@ -320,17 +407,32 @@ class HostEmbeddingEngine:
         if pool is not None:
             pool.shutdown(wait=False)
 
-    def _prepare_table(self, table_name, ids):
-        """One table's prepare: dedup → pull → pad."""
+    def _prepare_table(self, table_name, ids, ctx=None):
+        """One table's prepare: dedup → pull → pad, phase-timed."""
+        from elasticdl_tpu_torch.observability import tracing
+
         ragged = isinstance(ids, RaggedIds)
         raw = np.asarray(ids.ids if ragged else ids)
-        uniq, inv = dedup_ids(raw)
+        t0 = time.monotonic()
+        with tracing.child_span("dedup", ctx, table=table_name):
+            uniq, inv = dedup_ids(raw)
+        t1 = time.monotonic()
+        self._m_dedup.observe(t1 - t0)
+        self._m_ids.inc(raw.size)
+        self._m_unique.inc(len(uniq))
         table = self.tables[table_name]
-        rows = pad_rows(table.get(uniq), table.dim)
+        with tracing.child_span("row_pull", ctx, table=table_name,
+                                rows=len(uniq)):
+            pulled = table.get(uniq)
+        t2 = time.monotonic()
+        self._m_pull.observe(t2 - t1)
+        with tracing.child_span("pad", ctx, table=table_name):
+            rows = pad_rows(pulled, table.dim)
+        self._m_pad.observe(time.monotonic() - t2)
         feature = RaggedIds(ids=inv, weights=ids.weights) if ragged else inv
         return feature, rows, (uniq, len(uniq))
 
-    def _prepare_batch_locked(self, batch):
+    def _prepare_batch_locked(self, batch, ctx=None):
         if not isinstance(batch["features"], dict):
             raise TypeError(
                 "host-tier batches need dict features (id_keys names the "
@@ -343,11 +445,12 @@ class HostEmbeddingEngine:
         if len(items) > 1 and self.concurrent_io:
             pool = self._get_table_pool()
             futures = [(name, key, pool.submit(self._prepare_table, name,
-                                               features[key]))
+                                               features[key], ctx))
                        for name, key in items]
             results = [(name, key, f.result()) for name, key, f in futures]
         else:
-            results = [(name, key, self._prepare_table(name, features[key]))
+            results = [(name, key,
+                        self._prepare_table(name, features[key], ctx))
                        for name, key in items]
         for name, key, (feature, rows, uniq_u) in results:
             features[key] = feature
@@ -362,6 +465,8 @@ class HostEmbeddingEngine:
         """The placement stage: the row blocks and the batch copied to
         ``device`` (from pinned memory, ``non_blocking``) for an
         upcoming step while the current one executes."""
+        from elasticdl_tpu_torch.observability import tracing
+
         device = torch.device(device)
 
         def put(x):
@@ -370,19 +475,27 @@ class HostEmbeddingEngine:
                                  weights=_pinned_to(x.weights, device))
             return _pinned_to(x, device)
 
+        t0 = time.monotonic()
+        with tracing.span("device_put", tables=len(prepared.host_rows)):
+            device_rows = {k: put(v) for k, v in prepared.host_rows.items()}
+            device_batch = tree_map(put, prepared.batch)
+        self._m_device_put.observe(time.monotonic() - t0)
         return prepared._replace(
-            device_rows={k: put(v) for k, v in prepared.host_rows.items()},
-            device_batch=tree_map(put, prepared.batch),
+            device_rows=device_rows, device_batch=device_batch,
         )
 
     def apply_row_grads(self, row_grads: dict, uniques: dict) -> None:
         """Apply the step's row gradients (numpy, (>= u, D) a table) to
         the host tables: look up, apply, write back."""
-        if self.concurrent_io:
-            self._apply_row_grads_inner(row_grads, uniques)
-            return
-        with self.lock:
-            self._apply_row_grads_inner(row_grads, uniques)
+        t0 = time.monotonic()
+        try:
+            if self.concurrent_io:
+                self._apply_row_grads_inner(row_grads, uniques)
+                return
+            with self.lock:
+                self._apply_row_grads_inner(row_grads, uniques)
+        finally:
+            self._m_update.observe(time.monotonic() - t0)
 
     def _apply_row_grads_inner(self, row_grads, uniques):
         items = list(uniques.items())
@@ -400,6 +513,7 @@ class HostEmbeddingEngine:
                 self._apply_table(name, uniq, u, row_grads[name])
 
     def _apply_table(self, table_name, uniq, u, grads):
+        self._m_rows_updated.inc(u)
         self.optimizer.apply_gradients(self.tables[table_name], uniq,
                                        np.asarray(grads)[:u])
 

@@ -48,9 +48,11 @@ applied push ahead of the checkpoints (group commit, ``durable`` or
 ``applied`` acks) and replays the log's tail on relaunch, so a SIGKILL
 loses no acked push. Both write the JAX service's bytes.
 
-Not ported yet: ``main``'s sampling-profiler and metrics-reporter flags
-(``--profile_hz``, ``--profile_window_secs``, ``--master_addr``,
-``--metrics_report_secs``) raise and name ROADMAP Queue 1, item 8f.
+``main`` runs the sampling profiler with ``--profile_hz`` (its windows
+on ``/profile`` beside ``/metrics``) and, with ``--master_addr``, a
+``ComponentMetricsReporter`` that pushes the shard's registry snapshot
+(spans and profile windows with it) into the master's cluster view as
+``rowservice-<shard_id>`` every ``--metrics_report_secs``.
 """
 
 import itertools
@@ -87,7 +89,6 @@ logger = get_logger("row_service")
 
 SERVICE_NAME = "RowService"
 SEQS_TABLE_NAME = "__row_service_seqs__"
-_ITEM_8F = "is not ported yet (ROADMAP Queue 1, item 8f)"
 
 # Rows a migration chunk: bounds how long the service lock is held for
 # one read and how large each ingest RPC is.
@@ -2417,15 +2418,6 @@ def validate_shard_layout(checkpoint_dir: str, shard: int,
         )
 
 
-# main's flags whose JAX code is not ported yet: they raise when given.
-_NOT_PORTED_FLAGS = {
-    "profile_hz": "the sampling profiler",
-    "profile_window_secs": "the sampling profiler",
-    "master_addr": "the metrics reporter to the master",
-    "metrics_report_secs": "the metrics reporter to the master",
-}
-
-
 def main(argv=None):
     """Process entry: ``python -m elasticdl_tpu_torch.embedding.row_service
     --model_zoo ... --model_def ... [--addr :6100] [--checkpoint_dir ...]``.
@@ -2511,14 +2503,26 @@ def main(argv=None):
                         help="Install a span flight recorder of this "
                              "many entries (served on /traces next to "
                              "/metrics); 0 (default) = tracing off")
-    for flag in _NOT_PORTED_FLAGS:
-        parser.add_argument(f"--{flag}", default=None,
-                            help=f"Not ported yet (ROADMAP Queue 1, "
-                                 f"item 8f): {_NOT_PORTED_FLAGS[flag]}")
+    parser.add_argument("--profile_hz", type=float, default=0.0,
+                        help="Sampling profiler rate (Hz); flame "
+                             "windows serve on /profile next to "
+                             "/metrics and piggyback to the master "
+                             "with --master_addr. 0 (default) = off")
+    parser.add_argument("--profile_window_secs", type=float,
+                        default=10.0,
+                        help="Sampling-profiler window length (secs)")
+    parser.add_argument("--master_addr", default="",
+                        help="Report this shard's registry snapshot "
+                             "(plus spans/profile windows) into the "
+                             "master's cluster view every "
+                             "--metrics_report_secs, keyed "
+                             "rowservice-<shard_id>. Empty (default) = "
+                             "standalone")
+    parser.add_argument("--metrics_report_secs", type=float,
+                        default=15.0,
+                        help="Master telemetry report interval (with "
+                             "--master_addr)")
     args = parser.parse_args(argv)
-    for flag, what in _NOT_PORTED_FLAGS.items():
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(f"--{flag}: {what} {_ITEM_8F}")
 
     module, _ = load_model_zoo_module(args.model_zoo, args.model_def)
     factory = getattr(module, "make_row_service", None)
@@ -2588,20 +2592,53 @@ def main(argv=None):
         tracing.install_recorder(
             tracing.FlightRecorder(args.flight_recorder)
         )
+    from elasticdl_tpu_torch.observability import profiler as profiler_mod
+
+    profiler_mod.maybe_start_from_args(
+        args, "rowservice", str(args.shard_id)
+    )
     if args.metrics_port >= 0:
+        # /traces serves the flight recorder when one is installed, and
+        # /profile the sampling profiler's own flame windows.
         from elasticdl_tpu_torch.observability import (
             MetricsHTTPServer,
             default_registry,
             render_prometheus,
         )
 
+        def _local_profile(params: dict):
+            prof = profiler_mod.profiler()
+            if prof is None:
+                return {"error": "profiler off (--profile_hz 0)"}
+            merged = profiler_mod.merge_windows(
+                prof.snapshot_windows(include_open=True)
+            )
+            if merged is None:
+                return {"error": "no samples yet"}
+            return {
+                "component": f"rowservice-{args.shard_id}",
+                "window": merged,
+                "folded": profiler_mod.folded_text(merged["samples"]),
+                "pprof": profiler_mod.pprof_json(merged),
+            }
+
         MetricsHTTPServer(
             lambda: render_prometheus(default_registry().snapshot()),
             port=args.metrics_port,
             traces=lambda: {"spans": tracing.recorder_spans()},
+            json_routes={"/profile": _local_profile},
             render_openmetrics=lambda: render_prometheus(
                 default_registry().snapshot(), exemplars=True
             ),
+        ).start()
+    if args.master_addr:
+        from elasticdl_tpu_torch.observability.reporter import (
+            ComponentMetricsReporter,
+        )
+
+        ComponentMetricsReporter(
+            args.master_addr, "rowservice", args.shard_id,
+            interval_secs=args.metrics_report_secs,
         ).start()
     service.wait()
 

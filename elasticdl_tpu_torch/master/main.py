@@ -57,9 +57,18 @@ round trip against the master's own port, and with
 convergence, with ``--probe_serving_addr`` serving freshness, with
 ``--stream_dir`` the canary partition's watermark. ``/probes`` renders
 them, ``/healthz`` answers their verdict (503 once one is red), and under
-``--sched`` the prober is a low-priority tenant (``__prober__``). The
-port has no incident recorder yet (item 8f), so a red probe captures no
-bundle.
+``--sched`` the prober is a low-priority tenant (``__prober__``); a red
+probe captures an incident bundle through the SLO plane's recorder.
+
+``--timeseries_secs`` (default 5.0; 0 turns it off) samples the cluster
+view into the time-series store (``observability/timeseries.py``) each
+run tick and evaluates the SLO rules on it (``observability/slo.py``:
+the default rules, or ``--slo_rules`` FILE); ``/timeseries`` and
+``/alerts`` serve beside ``/metrics``, and with ``--incident_dir`` a
+firing rule writes a black-box bundle (spans, the series window, the
+critical path, the journal's tail, the profile windows). ``--profile_hz``
+runs the sampling profiler (``observability/profiler.py``); the master
+serves its own and its reporters' windows on ``/profile``.
 
 ``--image_name IMG`` (with a ``kubernetes`` client, or any object with
 its methods, given as ``Master(args, k8s_client=...)``; ``main`` builds
@@ -80,8 +89,8 @@ drains worker pods from the queue depth and the workers' step
 utilization (``master/autoscaler.py``), and ``--row_pod_autoscale``
 (with ``--row_reshard``) lets ``RowServicePodScaler`` spawn a row-service
 pod before a split onto it and drain one after its merge retires.
-``--autoscale_from_timeseries`` raises: the time-series store is ROADMAP
-Queue 1 item 8f.
+``--autoscale_from_timeseries`` reads the workers' utilization as a mean
+over the time-series window instead of the last snapshot.
 """
 
 import os
@@ -104,22 +113,6 @@ from elasticdl_tpu_torch.master.servicer import SERVICE_NAME, MasterServicer
 from elasticdl_tpu_torch.master.task_dispatcher import TaskDispatcher
 
 logger = get_logger("master")
-
-# Flag -> (what it asks for, the ROADMAP item that holds it), for the
-# parts of the JAX master that are not ported yet.
-_NOT_PORTED = {
-    "autoscale_from_timeseries": (
-        "the autoscaler's utilization from the time-series store", "8f"),
-}
-
-
-def _refuse_unported(args):
-    for flag, (what, item) in _NOT_PORTED.items():
-        if getattr(args, flag, None):
-            raise NotImplementedError(
-                f"--{flag}: {what} is not ported yet (ROADMAP Queue 1, "
-                f"item {item})"
-            )
 
 
 def build_dispatcher(args, spec) -> TaskDispatcher:
@@ -232,7 +225,6 @@ class Master:
         and only opens the new generation and re-arms around the warm
         state. Without it: a fresh dispatcher, and a full recovery
         replay when the journal has state."""
-        _refuse_unported(args)
         self._args = args
         # The master trains nothing: the zoo's model is built on the CPU.
         self._spec = get_model_spec(
@@ -349,6 +341,41 @@ class Master:
             ttl_secs=metrics_ttl,
             summary_writer=tb_service,
         )
+        # SLO engine (observability/timeseries.py + slo.py): the run
+        # loop samples the cluster view into a bounded time-series
+        # store and evaluates burn-rate / threshold / absence rules on
+        # it; /timeseries and /alerts serve next to /metrics, and with
+        # --incident_dir a firing rule captures a black-box bundle.
+        ts_secs = float(getattr(args, "timeseries_secs", 5.0) or 0.0)
+        if ts_secs > 0:
+            from elasticdl_tpu_torch.observability import slo as slo_mod
+
+            self.metrics_plane.enable_timeseries(cadence_secs=ts_secs)
+            rules_path = getattr(args, "slo_rules", "")
+            rules = (
+                slo_mod.load_rules(rules_path) if rules_path else None
+            )
+            recorder = None
+            incident_dir = getattr(args, "incident_dir", "")
+            if incident_dir:
+                if not int(getattr(args, "flight_recorder", 0) or 0):
+                    logger.warning(
+                        "--incident_dir without --flight_recorder: "
+                        "incident bundles will carry an empty trace "
+                        "timeline (series window, attribution, and "
+                        "journal tail are still captured)"
+                    )
+                recorder = slo_mod.IncidentRecorder(
+                    incident_dir,
+                    metrics_plane=self.metrics_plane,
+                    store=self.metrics_plane.timeseries,
+                    journal_tail_fn=(
+                        self._journal.tail if self._journal else None
+                    ),
+                )
+            self.metrics_plane.enable_slo(
+                rules=rules, incident_recorder=recorder
+            )
         # Workload attribution (observability/principal.py): the
         # master's own outbound RPCs are control-plane by definition.
         from elasticdl_tpu_torch.observability import principal as _principal
@@ -368,6 +395,12 @@ class Master:
             tracing.install_recorder(
                 tracing.FlightRecorder(recorder_spans)
             )
+        # Continuous profiling (observability/profiler.py): flame-table
+        # windows from this process land on /profile next to the
+        # piggybacked worker/component profiles.
+        from elasticdl_tpu_torch.observability import profiler as _profiler
+
+        _profiler.maybe_start_from_args(args, "master")
         # Usage-plane tenant cap (observability/usage.py).
         from elasticdl_tpu_torch.observability import usage as _usage
 
@@ -919,11 +952,27 @@ class Master:
                 manager.drain_worker(victim)
                 self.servicer.remove_worker_metrics(victim)
 
+        # Opt-in trend signal: utilization as the mean over the
+        # time-series window instead of the instantaneous snapshot
+        # (the old path stays the default; see master_signals).
+        timeseries = None
+        if getattr(args, "autoscale_from_timeseries", False):
+            timeseries = self.metrics_plane.timeseries
+            if timeseries is None:
+                logger.warning(
+                    "--autoscale_from_timeseries needs "
+                    "--timeseries_secs > 0; falling back to the "
+                    "snapshot utilization signal"
+                )
         self.autoscaler = Autoscaler(
             policy,
             master_signals(
                 self.task_dispatcher, self.servicer,
                 self.metrics_plane, live_count,
+                timeseries=timeseries,
+                trend_window_secs=float(getattr(
+                    args, "autoscale_trend_window_secs", 120.0
+                )),
             ),
             scale_up, scale_down,
         )
@@ -936,8 +985,7 @@ class Master:
         the master's OWN public RPC port. Mounts ``/probes`` and the
         aggregated ``/healthz`` verdict, and — in --sched mode —
         registers the prober as a low-priority tenant so it survives
-        and observes preemption. The port has no incident recorder yet
-        (ROADMAP item 8f): a red probe captures no bundle."""
+        and observes preemption."""
         args = self._args
         if not getattr(args, "probes", False):
             return
@@ -946,9 +994,13 @@ class Master:
         interval = float(
             getattr(args, "probe_interval_secs", 15.0) or 15.0
         )
+        recorder = (
+            self.metrics_plane.slo.incident_recorder
+            if self.metrics_plane.slo is not None else None
+        )
         sched = prober_mod.ProbeScheduler(
             registry=self.metrics_plane.registry,
-            incident_recorder=None,
+            incident_recorder=recorder,
         )
         # Dispatch plane: through the wire, like a worker would.
         # worker_id -1 records no liveness; a leased task hands
@@ -1151,6 +1203,9 @@ class Master:
                         self.row_pod_scaler.tick()
                     except Exception:
                         logger.exception("row pod scaler tick failed")
+                # SLO plane: sample the time-series store (if due) and
+                # evaluate the rules on the fresh window.
+                self.metrics_plane.slo_tick()
                 self.metrics_plane.publish_tensorboard(
                     self.servicer.model_version
                 )
@@ -1211,9 +1266,9 @@ def run_standby(args, k8s_client=None) -> int:
     the last partial poll, and ``Master(args, warm_state=...)`` skips
     ``recover_master_state`` and re-arms the whole assembly around the
     handed-over state, the k8s adoption of running pods included. The
-    JAX standby also reports into the
-    primary's cluster view for the SLO absence rule; the port has no
-    component reporter yet (ROADMAP item 8f)."""
+    standby reports into the primary's cluster view
+    (``ComponentMetricsReporter``), so the SLO absence rule on its
+    heartbeat series fires when it dies."""
     from elasticdl_tpu_torch.master.standby import StandbyMaster
     from elasticdl_tpu_torch.observability import default_registry
 
@@ -1222,9 +1277,6 @@ def run_standby(args, k8s_client=None) -> int:
         logger.error("--standby requires --journal_dir (shared with "
                      "the primary)")
         return 2
-    # Before the wait, not at promotion: a standby of a job the port
-    # cannot run must fail at its start.
-    _refuse_unported(args)
     primary = getattr(args, "primary_addr", "") or args.master_addr
     heartbeat_secs = float(getattr(args, "standby_heartbeat_secs", 1.0))
     miss_threshold = int(getattr(args, "standby_miss_threshold", 3))
@@ -1265,6 +1317,15 @@ def run_standby(args, k8s_client=None) -> int:
             "diverge from the primary's replay)"
         )
         return 2
+    # Report into the primary's cluster view so the master-side
+    # absence rule on the heartbeat series can fire when this standby
+    # dies (failover protection gone).
+    from elasticdl_tpu_torch.observability.reporter import (
+        ComponentMetricsReporter,
+    )
+
+    reporter = ComponentMetricsReporter(primary, "standby")
+    reporter.start()
     # The warm tail: StandbyMaster's poll/heartbeat halves only — the
     # promotion itself goes through Master(warm_state=) below, so the
     # CLI role keeps the whole assembly.
@@ -1289,6 +1350,7 @@ def run_standby(args, k8s_client=None) -> int:
             break
         time.sleep(heartbeat_secs)
     t_detect = time.monotonic()
+    reporter.stop()
     standby.stop()
     # Fence FIRST (a partitioned-but-alive primary must be locked out
     # of the journal before the promoted master trusts its replay),

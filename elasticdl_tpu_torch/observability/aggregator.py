@@ -14,12 +14,8 @@ view, the ``/metrics`` HTTP endpoint, and the TensorBoard bridge that
 mirrors selected cluster aggregates into the existing ``SummaryWriter``
 so TensorBoard stays the human view.
 
-A copy of elasticdl_tpu/observability/aggregator.py as far as the
-master's servicer needs it: ``ClusterMetrics`` whole, and a
-``MetricsPlane`` without the continuous-profiling store (``/profile``;
-a snapshot carrying profile windows raises) and the SLO plane
-(``/timeseries``, ``/alerts``), which are not ported yet (ROADMAP Queue
-1, item 8).
+A copy of elasticdl_tpu/observability/aggregator.py: the profile store
+(``/profile``) and the SLO plane (``/timeseries``, ``/alerts``) with it.
 """
 
 import threading
@@ -272,16 +268,13 @@ class ClusterMetrics:
         return totals
 
 
-_NOT_PORTED = ("not ported yet (ROADMAP Queue 1, item 8: the rest of "
-               "observability/)")
-
-
 class MetricsPlane:
     """Master-side telemetry assembly: local registry + cluster view +
     exposition endpoint + TensorBoard bridge."""
 
     def __init__(self, registry: Optional[MetricsRegistry] = None,
                  ttl_secs: float = 60.0, summary_writer=None):
+        from elasticdl_tpu_torch.observability.profiler import ProfileStore
         from elasticdl_tpu_torch.observability.tracing import TraceCollector
 
         self.registry = registry or default_registry()
@@ -290,17 +283,27 @@ class MetricsPlane:
         # same worker snapshots the cluster view merges (a "spans" key
         # next to "families"); the collector dedups by span id.
         self.traces = TraceCollector()
+        # Continuous-profiling collection: flame-table windows ride the
+        # same snapshots under a "profiles" key (and the master's own
+        # profiler folds in via pull_local); served on /profile.
+        self.profiles = ProfileStore()
+        # The SLO plane (optional, see enable_timeseries/enable_slo):
+        # a time-series store periodically sampling this plane, and a
+        # rule engine evaluated right after each sample.
+        self.timeseries = None
+        self.slo = None
         # TensorboardService (write_dict_to_summary) or SummaryWriter
         # (add_scalars) — both are duck-typed below; None = no bridge.
         self._summary_writer = summary_writer
         self._last_published = None
         self._http: Optional[MetricsHTTPServer] = None
         # Extra JSON routes registered by subsystems that come up
-        # around the plane: merged into _json_routes() and live-added
-        # to an already started server.
+        # around the plane (e.g. the gang scheduler's /sched):
+        # merged into _json_routes() and live-added to an already
+        # started server.
         self._extra_routes: Dict[str, Callable] = {}
-        # /healthz verdict callable: None keeps the exposition layer's
-        # static "ok" liveness body.
+        # /healthz verdict callable (observability/prober.py healthz):
+        # None keeps the exposition layer's static "ok" liveness body.
         self._health_fn: Optional[Callable[[], dict]] = None
 
     # ---- ingest / render ----------------------------------------------
@@ -309,16 +312,20 @@ class MetricsPlane:
         spans = snapshot.pop("spans", None) if snapshot else None
         if spans:
             self.traces.ingest(spans)
-        if snapshot and snapshot.get("profiles"):
-            raise NotImplementedError(
-                f"profile windows in a snapshot: the profile store is "
-                f"{_NOT_PORTED}")
+        profiles = snapshot.pop("profiles", None) if snapshot else None
+        if profiles:
+            self.profiles.ingest(str(worker_id), profiles)
         self.cluster.ingest(worker_id, snapshot)
 
     def remove_worker(self, worker_id):
         """Deliberate departure (scale-down drain, recovery dropping a
-        dead id): retire from the cluster view."""
+        dead id): retire from the cluster view AND forget the
+        time-series — an intentional removal must not trip the absence
+        rules meant for reporters that died unexpectedly."""
         self.cluster.remove_worker(worker_id)
+        if self.timeseries is not None:
+            self.timeseries.drop_source(str(worker_id))
+        self.profiles.drop_source(str(worker_id))
 
     def render(self) -> str:
         return render_prometheus(
@@ -349,24 +356,130 @@ class MetricsPlane:
         """JSON body for the ``/traces`` endpoint."""
         return {"spans": self.trace_spans()}
 
+    # ---- SLO plane (observability/timeseries.py + slo.py) --------------
+
+    def enable_timeseries(self, cadence_secs: float = 5.0, **kwargs):
+        """Attach the master-side time-series store; sampled from the
+        run-loop tick via ``slo_tick`` and served on ``/timeseries``."""
+        from elasticdl_tpu_torch.observability.timeseries import (
+            TimeSeriesStore,
+        )
+
+        self.timeseries = TimeSeriesStore(
+            cadence_secs=cadence_secs, **kwargs
+        )
+        return self.timeseries
+
+    def enable_slo(self, rules=None, incident_recorder=None, clock=None):
+        """Attach the SLO engine over the (required) time-series store;
+        evaluated after every sample, served on ``/alerts``."""
+        from elasticdl_tpu_torch.observability.slo import SLOEngine
+
+        if self.timeseries is None:
+            raise RuntimeError(
+                "enable_timeseries() before enable_slo()"
+            )
+        kwargs = {"clock": clock} if clock is not None else {}
+        self.slo = SLOEngine(
+            self.timeseries, rules=rules,
+            metrics_registry=self.registry,
+            incident_recorder=incident_recorder, **kwargs,
+        )
+        return self.slo
+
+    def sample_timeseries(self, now: Optional[float] = None) -> bool:
+        """Feed one sample (if due) from the local registry + every
+        live cluster reporter into the store. Reporter snapshots carry
+        their arrival time as the staleness fingerprint."""
+        if self.timeseries is None or not self.timeseries.due(now):
+            return False
+        sources = {"": (self.registry.snapshot(), None)}
+        for wid, (snap, arrived) in \
+                self.cluster.snapshot_entries().items():
+            sources[str(wid)] = (snap, arrived)
+        self.timeseries.sample(sources, now=now)
+        return True
+
+    def slo_tick(self, now: Optional[float] = None):
+        """The master run-loop hook: sample if due, then evaluate the
+        rules on fresh data. Cheap when not due (one clock read).
+        Exception-contained: a malformed piggybacked snapshot (or any
+        store/engine bug) must degrade telemetry, never crash the run
+        loop that dispatches the job."""
+        try:
+            if self.sample_timeseries(now) and self.slo is not None:
+                return self.slo.evaluate(now)
+        except Exception:
+            from elasticdl_tpu_torch.common.log_utils import get_logger
+
+            get_logger("metrics_plane").exception("slo tick failed")
+        return None
+
     # ---- HTTP ----------------------------------------------------------
 
     def _json_routes(self):
+        # Both routes resolve self.timeseries/self.slo at request time:
+        # a plane enabled after serve() (tests, the drill harness)
+        # still gets its endpoints.
+        def timeseries_route(params: dict):
+            if self.timeseries is None:
+                return {"error": "time-series store disabled "
+                                 "(--timeseries_secs 0)"}
+            window = params.get("window")
+            return self.timeseries.render(
+                name=params.get("name"),
+                window_secs=float(window) if window else None,
+                tier=params.get("tier", "hot"),
+            )
+
+        def alerts_route(params: dict):
+            if self.slo is None:
+                return {"error": "SLO engine disabled", "rules": [],
+                        "firing": []}
+            return self.slo.render()
+
+        def profile_route(params: dict):
+            # /profile?component=<key>&window=<secs>[&base=<secs back>]
+            # [&spans=0]: the flame view of one component (folded text
+            # + pprof-style JSON), optionally differential against the
+            # same-length window ending `base` seconds earlier, with
+            # the component's trace spans folded in as `phases;...`
+            # pseudo-stacks (device/phase attribution). No component =
+            # the list of components with profile data.
+            component = params.get("component")
+            if component is None:
+                self.profiles.pull_local()
+                return {"components": self.profiles.components()}
+            window = float(params.get("window") or 60.0)
+            base = params.get("base")
+            spans = None
+            if params.get("spans", "1") != "0":
+                spans = self.trace_spans()
+            return self.profiles.render(
+                component, window_secs=window,
+                base_secs=float(base) if base else None,
+                spans=spans,
+            )
+
         def usage_route(params: dict):
-            # /usage[?top=K]: fleet-wide per-principal usage folded
-            # from the master's own registry plus every live reporter
-            # snapshot (observability/usage.py).
+            # /usage[?top=K]: fleet-wide per-principal usage — totals,
+            # shares, per-purpose handler time, top-K consumers per
+            # shard — folded from the master's own registry plus every
+            # live reporter snapshot (observability/usage.py,
+            # docs/observability.md "Workload attribution").
             top = params.get("top")
             return self.usage(top_k=int(top) if top else 5)
 
-        routes = {"/usage": usage_route}
+        routes = {"/timeseries": timeseries_route,
+                  "/alerts": alerts_route,
+                  "/profile": profile_route, "/usage": usage_route}
         routes.update(self._extra_routes)
         return routes
 
     def add_json_route(self, path: str, fn: Callable[[dict], dict]):
-        """Mount ``fn(params) -> dict`` at ``path``. Works before OR
-        after ``serve()``: the running server's route table is shared
-        by reference, so the mount is live."""
+        """Mount ``fn(params) -> dict`` at ``path`` (e.g. ``/sched``).
+        Works before OR after ``serve()``: the running server's route
+        table is shared by reference, so the mount is live."""
         self._extra_routes[str(path)] = fn
         if self._http is not None:
             self._http._json_routes[str(path)] = fn
@@ -381,7 +494,8 @@ class MetricsPlane:
             self._http.set_health(fn)
 
     def usage(self, top_k: int = 5) -> dict:
-        """The ``/usage`` body (also callable in-process)."""
+        """The ``/usage`` body (also callable in-process: drills and
+        tests read it without HTTP)."""
         from elasticdl_tpu_torch.observability.usage import summarize_usage
 
         snapshots = {"": self.registry.snapshot()}
@@ -407,6 +521,11 @@ class MetricsPlane:
         if self._http is not None:
             self._http.stop()
             self._http = None
+        # In-flight incident bundle writes must land before the
+        # process that triggered them exits.
+        if self.slo is not None and self.slo.incident_recorder \
+                is not None:
+            self.slo.incident_recorder.flush()
 
     # ---- TensorBoard bridge -------------------------------------------
 

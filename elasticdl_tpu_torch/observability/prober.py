@@ -52,10 +52,8 @@ default rules burn on the probe failure ratio
 ``render()`` on ``/probes`` and ``healthz()`` as the aggregated
 ``/healthz`` verdict, and registers the prober as a low-priority
 gang-scheduler tenant (``PROBER_TENANT``) so it survives — and
-observes — preemption. The port has no incident recorder and no SLO
-rules yet (ROADMAP item 8f): its master passes
-``incident_recorder=None``, as the JAX master does when no SLO engine
-runs, and nothing burns on the probe families.
+observes — preemption. With no SLO engine (``--timeseries_secs 0``) the
+master passes ``incident_recorder=None``, as the JAX master does.
 """
 
 import logging

@@ -8,8 +8,8 @@ mutation goes through one registry lock — instrumented paths are RPC
 handlers and per-step host code, where a lock acquisition is noise.
 
 ``snapshot()`` returns a plain-dict form (msgpack/json-safe, no numpy),
-the same as the JAX package's for the same calls. The master's
-aggregation and Prometheus exposition are not ported yet.
+the same as the JAX package's for the same calls; the master folds
+them in ``aggregator.py`` and ``exposition.py`` renders them.
 
 Families are idempotent per registry: re-declaring the same name
 returns the existing family (instrumented classes may be constructed

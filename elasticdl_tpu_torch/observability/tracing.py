@@ -22,10 +22,9 @@ byte-identical; the recorder is only *dumped* into red reports).
 Collection piggybacks on the worker-snapshot RPCs the metrics
 aggregator uses: ``spans_since`` gives each reporter an incremental
 cursor into the ring, and the master's ``TraceCollector`` dedups by
-span id (several in-process workers may share one recorder). The RPC
-layer, the export to Chrome/Perfetto JSON and the critical-path reports
-are not ported yet; in the port the checkpoint writer's ``ckpt_write``
-span is the first instrumented region.
+span id (several in-process workers may share one recorder). Export
+to Chrome/Perfetto JSON lives in ``trace_export.py``; critical-path /
+straggler attribution in ``critical_path.py``.
 """
 
 import threading

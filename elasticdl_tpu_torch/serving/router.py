@@ -39,11 +39,10 @@ headers, the 429's ``Retry-After`` and ``X-Shed-Tier``, and the
 consistent-hash ring (blake2b ``_hash64``, 64 virtual nodes), so a port
 router fronts JAX replicas and a JAX router fronts port replicas.
 
-Not ported yet (ROADMAP Queue 1, item 8): the master telemetry reporter
-(``--master_addr``, ``--metrics_report_secs``) and the sampling profiler
-(``--profile_hz``, ``--profile_window_secs``), and ``--router_id``, which
-only those two read; each flag raises when set, and so does
-``RouterServer(master_addr=)``.
+With ``--master_addr`` (``RouterServer(master_addr=)``) a
+``ComponentMetricsReporter`` folds the router's registry into the
+master's cluster view as ``router-<router_id>``; ``--profile_hz`` runs
+the sampling profiler, whose windows ride those reports.
 """
 
 import hashlib
@@ -1055,11 +1054,9 @@ class RouterServer:
     def __init__(self, replica_addrs: List[str], port: int = 8600,
                  host: str = "", request_timeout: float = 30.0,
                  routing_key_header: str = "X-User-Id",
-                 master_addr: str = "", **core_kwargs):
-        if master_addr:
-            raise NotImplementedError(
-                "master_addr: the metrics reporter to the master is not "
-                "ported yet (ROADMAP Queue 1, item 8)")
+                 master_addr: str = "", router_id: int = 0,
+                 metrics_report_secs: float = 15.0,
+                 **core_kwargs):
         self.core = RouterCore(replica_addrs, **core_kwargs)
         self.request_timeout = float(request_timeout)
         self.routing_key_header = routing_key_header
@@ -1068,6 +1065,20 @@ class RouterServer:
         self._requested_port = int(port)
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        # Fold this router's telemetry into the training master's
+        # cluster view (keyed router-<id>; same TTL aging and
+        # time-series sampling as a worker's piggybacked snapshots).
+        self._reporter = None
+        if master_addr:
+            from elasticdl_tpu_torch.observability.reporter import (
+                ComponentMetricsReporter,
+            )
+
+            self._reporter = ComponentMetricsReporter(
+                master_addr, "router", router_id,
+                interval_secs=metrics_report_secs,
+                registry=self.core.registry,
+            )
 
     @property
     def port(self) -> int:
@@ -1093,6 +1104,8 @@ class RouterServer:
             name="router-http",
         )
         self._thread.start()
+        if self._reporter is not None:
+            self._reporter.start()
         logger.info(
             "Router on port %d over %d replica(s), policy=%s",
             self.port, len(self.core.replicas), self.core.policy.name,
@@ -1103,6 +1116,8 @@ class RouterServer:
         self._thread.join()
 
     def stop(self):
+        if self._reporter is not None:
+            self._reporter.stop()
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -1116,6 +1131,8 @@ class RouterServer:
         new hard-kill point."""
         logger.info("draining router (grace %.1fs)", grace)
         self.draining = True
+        if self._reporter is not None:
+            self._reporter.stop()
         if self._httpd is not None:
             # Stop the accept loop; handler threads for accepted
             # requests keep running and block in core.handle().
@@ -1146,11 +1163,7 @@ def main(argv=None) -> int:
     import os
     import signal
 
-    from elasticdl_tpu_torch.serving.server import (
-        add_not_ported_flags,
-        not_ported_flags,
-        raise_on_not_ported_flags,
-    )
+    from elasticdl_tpu_torch.serving.server import add_telemetry_flags
 
     parser = argparse.ArgumentParser("elasticdl_tpu_torch-route")
     parser.add_argument(
@@ -1217,10 +1230,8 @@ def main(argv=None) -> int:
         "--replica_slo_error_ratio", type=float, default=0.05,
         help="Per-replica windowed error-ratio objective",
     )
-    unported = not_ported_flags("router_id")
-    add_not_ported_flags(parser, unported)
+    add_telemetry_flags(parser, "router", "router_id")
     args = parser.parse_args(argv)
-    raise_on_not_ported_flags(args, unported)
 
     from elasticdl_tpu_torch.observability import principal
 
@@ -1232,6 +1243,9 @@ def main(argv=None) -> int:
         tracing.set_process_role("router")
         tracing.install_recorder(
             tracing.FlightRecorder(args.flight_recorder))
+    from elasticdl_tpu_torch.observability import profiler as _profiler
+
+    _profiler.maybe_start_from_args(args, "router", str(args.router_id))
 
     addrs = [a.strip() for a in args.replicas.split(",") if a.strip()]
     server = RouterServer(
@@ -1246,6 +1260,9 @@ def main(argv=None) -> int:
         hedge_shed_frac=args.hedge_shed_frac,
         low_shed_frac=args.low_shed_frac,
         probe_secs=args.probe_secs,
+        master_addr=args.master_addr,
+        router_id=args.router_id,
+        metrics_report_secs=args.metrics_report_secs,
         slo_window_secs=args.replica_slo_window_secs,
         slo_p95_ms=args.replica_slo_p95_ms,
         slo_error_ratio=args.replica_slo_error_ratio,

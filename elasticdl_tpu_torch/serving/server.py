@@ -30,10 +30,12 @@ model sees one predict at a time.
   (``--flight_recorder N``) the ``request``, ``queue_wait``,
   ``batch_assembly`` and ``predict`` spans on ``GET /traces``.
 
-Not ported yet (ROADMAP Queue 1, item 8): the master telemetry reporter
-(``--master_addr``, ``--metrics_report_secs``) and the sampling profiler
-(``--profile_hz``, ``--profile_window_secs``), and ``--replica_id``,
-which only those two read; each flag raises when set.
+- **Master telemetry**: with ``--master_addr`` a
+  ``ComponentMetricsReporter`` pushes the replica's registry snapshot
+  into the master's cluster view as ``serving-<replica_id>`` every
+  ``--metrics_report_secs``; ``--profile_hz`` runs the sampling
+  profiler, whose windows ride those reports to the master's
+  ``/profile``.
 """
 
 import collections
@@ -63,33 +65,35 @@ MSGPACK_CONTENT_TYPE = "application/x-msgpack"
 # config uses (the registry's default buckets are latency-shaped).
 _BATCH_BUCKETS = tuple(float(2 ** i) for i in range(13))
 
-_ITEM_8 = "is not ported yet (ROADMAP Queue 1, item 8)"
 
-
-def not_ported_flags(id_flag: str) -> dict:
-    """Flags of JAX code that is not ported, each of which raises when
-    set: the reporter's and the profiler's, and the process's id
-    (``replica_id`` or ``router_id``), which only those two read."""
-    return {
-        "master_addr": "the metrics reporter to the master",
-        "metrics_report_secs": "the metrics reporter to the master",
-        "profile_hz": "the sampling profiler",
-        "profile_window_secs": "the sampling profiler",
-        id_flag: "the process id the reporter and the profiler read",
-    }
-
-
-def add_not_ported_flags(parser, flags: dict):
-    for flag, what in flags.items():
-        parser.add_argument(f"--{flag}", default=None,
-                            help=f"Not ported yet (ROADMAP Queue 1, "
-                                 f"item 8): {what}")
-
-
-def raise_on_not_ported_flags(args, flags: dict):
-    for flag, what in flags.items():
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(f"--{flag}: {what} {_ITEM_8}")
+def add_telemetry_flags(parser, component: str, id_flag: str):
+    """The master reporter's and the sampling profiler's flags of
+    ``serve`` (``replica_id``) and ``route`` (``router_id``)."""
+    parser.add_argument(
+        "--master_addr", default="",
+        help=f"Training master host:port — fold this {component}'s "
+             "telemetry into the master's cluster view and time-series "
+             "store; empty (default) = standalone",
+    )
+    parser.add_argument(
+        f"--{id_flag}", type=int, default=0,
+        help=f"This process's id in the master's cluster view (series "
+             f"label worker=\"{component}-<id>\")",
+    )
+    parser.add_argument(
+        "--metrics_report_secs", type=float, default=15.0,
+        help="Master telemetry report interval (with --master_addr)",
+    )
+    parser.add_argument(
+        "--profile_hz", type=float, default=0.0,
+        help="Sampling profiler rate (Hz); flame windows piggyback to "
+             "the master with --master_addr and serve on the master's "
+             f"/profile as {component}-<id>. 0 = off",
+    )
+    parser.add_argument(
+        "--profile_window_secs", type=float, default=10.0,
+        help="Sampling-profiler window length (secs)",
+    )
 
 
 # ---- trees: dicts / lists / tuples of arrays --------------------------
@@ -882,10 +886,8 @@ def main(argv=None) -> int:
         "--device", default=None,
         help="cuda (default) or cpu; with no GPU the default raises",
     )
-    unported = not_ported_flags("replica_id")
-    add_not_ported_flags(parser, unported)
+    add_telemetry_flags(parser, "serving", "replica_id")
     args = parser.parse_args(argv)
-    raise_on_not_ported_flags(args, unported)
 
     from elasticdl_tpu_torch.observability import principal
     from elasticdl_tpu_torch.serving.model_store import ModelStore
@@ -899,6 +901,11 @@ def main(argv=None) -> int:
         tracing.set_process_role("serving")
         tracing.install_recorder(
             tracing.FlightRecorder(args.flight_recorder))
+    from elasticdl_tpu_torch.observability import profiler as _profiler
+
+    _profiler.maybe_start_from_args(
+        args, "serving", str(args.replica_id)
+    )
     model_fn = None
     if args.model_zoo:
         from elasticdl_tpu_torch.core.model_spec import load_model_zoo_module
@@ -939,6 +946,17 @@ def main(argv=None) -> int:
         args.model_dir, server.port, store.device, args.max_batch_size,
         args.batch_deadline_ms,
     )
+    reporter = None
+    if args.master_addr:
+        from elasticdl_tpu_torch.observability.reporter import (
+            ComponentMetricsReporter,
+        )
+
+        reporter = ComponentMetricsReporter(
+            args.master_addr, "serving", args.replica_id,
+            interval_secs=args.metrics_report_secs,
+        )
+        reporter.start()
     stop_evt = threading.Event()
     try:
         signal.signal(signal.SIGTERM, lambda *_: stop_evt.set())
@@ -948,6 +966,8 @@ def main(argv=None) -> int:
         server.wait()
         return 0
     stop_evt.wait()
+    if reporter is not None:
+        reporter.stop()
     server.drain(grace=args.drain_grace)
     return 0
 

@@ -23,8 +23,10 @@ and its journal-replay recovery mid-job: over gRPC the recovered master
 rebinds the same port, in process every client ``make_inprocess_client``
 made is rebound. The workers, each with its own model, are untouched.
 
-Not ported yet: the chaos ``fault_injector`` and the ``/metrics``
-endpoint (ROADMAP Queue 1, item 8).
+``metrics_port`` serves the master's ``MetricsPlane`` (``/metrics``,
+``/traces``, ``/timeseries``, ``/alerts``, ``/profile``) until
+``stop``. Not ported yet: the chaos ``fault_injector`` (ROADMAP Queue 1,
+item 8g).
 """
 
 import copy
@@ -73,6 +75,7 @@ class MiniCluster:
         random_seed: int = 0,
         mesh=None,
         journal_dir: str = "",
+        metrics_port: Optional[int] = None,
     ):
         self.device = resolve_device(device)
         # The model's initial weights come from random_seed, as in the
@@ -166,6 +169,8 @@ class MiniCluster:
                 self._journal.generation if self._journal else 0
             ),
         )
+        if metrics_port is not None:
+            self.metrics_plane.serve(port=metrics_port)
         # Every InProcessMaster handed out registers here so
         # restart_master can rebind them all to the recovered servicer.
         self._inprocess_clients: List[InProcessMaster] = []
@@ -326,9 +331,12 @@ class MiniCluster:
         return stats
 
     def stop(self):
-        """Close the journal (the server stops at the end of ``run``)."""
+        """Close the journal and release the metrics endpoint (the
+        server stops at the end of ``run``; the endpoint outlives it so
+        tests can scrape the final cluster state first)."""
         if self._journal is not None:
             self._journal.close()
+        self.metrics_plane.stop()
 
     def begin_resize(self, mesh, direction: str = "resize") -> int:
         """Open a live-resize barrier offering ``mesh`` to every worker

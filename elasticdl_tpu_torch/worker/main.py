@@ -35,8 +35,11 @@ and ``--checkpoint_dir_for_init`` (or a rolling directory that holds a
 version) restores onto the job's layout. On a membership change the
 master's instance manager restarts every process of the job as a gang
 under its original id, and each resumes from the rolling checkpoint
-(``resolve_init_checkpoint``). The XLA compilation cache and the step
-profiler have no flag here.
+(``resolve_init_checkpoint``). The XLA compilation cache has no flag
+here. ``--profile_dir`` traces steps ``--profile_start_step`` to
+``--profile_start_step + --profile_steps - 1`` with ``torch.profiler``
+(``utils/profiler.py``); ``--profile_hz`` runs the sampling profiler,
+whose windows ride the metrics snapshots to the master's ``/profile``.
 """
 
 import os
@@ -54,6 +57,7 @@ from elasticdl_tpu_torch.data.factory import (
     create_data_reader,
     parse_data_reader_params,
 )
+from elasticdl_tpu_torch.utils.profiler import from_args as profiler_from_args
 from elasticdl_tpu_torch.worker.worker import Worker
 
 logger = get_logger("worker_main")
@@ -295,6 +299,13 @@ def build_worker(args, master_client=None) -> Worker:
         tracing.install_recorder(
             tracing.FlightRecorder(recorder_spans)
         )
+    # Continuous profiling: windows piggyback to the master inside the
+    # same metrics snapshots as spans (observability/profiler.py).
+    from elasticdl_tpu_torch.observability import profiler as _profiler
+
+    _profiler.maybe_start_from_args(
+        args, "worker", str(args.worker_id)
+    )
     checkpoint_hook = None
     # Single-host: one writer (worker 0) suffices, the state is the one
     # job's. Multi-host: EVERY process holds a hook; the orbax backend's
@@ -353,6 +364,7 @@ def build_worker(args, master_client=None) -> Worker:
         # (phase histograms on /metrics), which also enables measuring.
         timing=Timing(args.log_level.upper() == "DEBUG"),
         checkpoint_hook=checkpoint_hook,
+        profiler=profiler_from_args(args),
         fuse_task_steps=getattr(args, "fuse_task_steps", False),
         prefetch_depth=getattr(args, "prefetch_depth", 2),
         host_prefetch_depth=getattr(args, "host_prefetch_depth", 2),

@@ -29,7 +29,11 @@ Where the JAX worker differs by its platform:
   boundary through the runner's ``resize`` (``parallel/reshard``): a
   mesh-aware model is rebuilt for the new mesh and takes the trained
   parameters (torch modules hold their parameters, where the JAX worker
-  only re-binds ``apply_fn``). The profiler (item 8) is not ported.
+  only re-binds ``apply_fn``).
+- ``profiler=`` (``utils/profiler.Profiler``) traces a window of train
+  steps with ``torch.profiler``, each step under a ``train_step``
+  annotation; the sampling profiler's windows ride the metrics
+  snapshots beside the spans.
 
 Multi-host sync: when the runner's mesh spans worker processes
 (``parallel/multihost.py``), every process must run the same steps the
@@ -118,6 +122,7 @@ class Worker:
         metrics_report_secs: float = 15.0,
         master_reattach_grace: float = 60.0,
         random_seed: int = 0,
+        profiler=None,
     ):
         self._id = worker_id
         self._master = master_client
@@ -153,6 +158,11 @@ class Worker:
         # dedups by span id, so an ambiguous failure resends harmlessly).
         self._trace_cursor = 0
         self._trace_cursor_offered = 0
+        # Same offered/committed discipline for continuous-profiling
+        # windows (observability/profiler.py): the store dedups by
+        # (seq, t0), so an ambiguous failure resends harmlessly.
+        self._profile_cursor = 0
+        self._profile_cursor_offered = 0
         self._task_data = TaskDataService(
             master_client, data_reader, model_spec.dataset_fn,
             minibatch_size, prefetch_depth=prefetch_depth,
@@ -172,6 +182,9 @@ class Worker:
 
         self._checkpoint = checkpoint_hook or CheckpointHook()
         self._checkpoint_dir_for_init = checkpoint_dir_for_init
+        # torch.profiler step-window trace (utils/profiler.py); None =
+        # off.
+        self._profiler = profiler
         # Fused task execution: all of a task's minibatches in one call
         # (core/step.build_multi_step, the runner's train_multi_step).
         # Version reporting/checkpointing then happen at task
@@ -357,12 +370,21 @@ class Worker:
         )
         if spans:
             snapshot["spans"] = spans
+        from elasticdl_tpu_torch.observability import profiler
+
+        windows, self._profile_cursor_offered = profiler.windows_since(
+            self._profile_cursor
+        )
+        if windows:
+            snapshot["profiles"] = windows
         return snapshot
 
     def _metrics_delivered(self):
         """The RPC carrying the last snapshot succeeded — its spans
-        reached the master; advance the cursor past them."""
+        and profile windows reached the master; advance the cursors
+        past them."""
         self._trace_cursor = self._trace_cursor_offered
+        self._profile_cursor = self._profile_cursor_offered
 
     def _master_call(self, fn, description: str):
         """Run a master RPC, riding out transient unavailability up to
@@ -676,10 +698,18 @@ class Worker:
                 raw = batch.raw if isinstance(batch, prepared_type) else batch
                 self._maybe_init(raw)
                 self.last_batch = raw
+                if self._profiler is not None:
+                    # Pre-step so the window [start, start+num) captures
+                    # the steps it names.
+                    self._profiler.observe_step(int(self.state.step))
                 step_t0 = time.monotonic()
                 with self._tracer.span("device_step", kind="train"):
                     with self._timing.record("batch_process"):
-                        self._process_train_batch(batch)
+                        if self._profiler is not None:
+                            with self._profiler.annotation("train_step"):
+                                self._process_train_batch(batch)
+                        else:
+                            self._process_train_batch(batch)
                 self._observe_step("train", time.monotonic() - step_t0)
                 self._m_examples.labels(task.type).inc(
                     self._batch_examples(raw)
@@ -724,6 +754,8 @@ class Worker:
         """The task's minibatches in one multi-step call; version
         reporting and checkpointing at task granularity."""
         self.last_batch = batch_list[-1]
+        if self._profiler is not None:
+            self._profiler.observe_step(int(self.state.step))
         stacked = stack_batches(batch_list)
         step_t0 = time.monotonic()
         with self._tracer.span(
@@ -822,6 +854,10 @@ class Worker:
         try:
             return self._run()
         finally:
+            if self._profiler is not None:
+                # Close a still-open trace even on preemption, or a later
+                # start_trace in this process raises "already started".
+                self._profiler.stop()
             try:
                 # Land any in-flight async checkpoint write — a dying
                 # worker's freshest checkpoint must hit disk before the

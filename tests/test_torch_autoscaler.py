@@ -10,8 +10,8 @@ instance managers makes the same grow, merge and drain calls;
 the signal functions agree; ``critical_path.analyze`` and
 ``render_report`` give JAX's report on the same seeded span trees. The
 port's master builds the autoscaler under ``--autoscale`` (pods through
-its instance manager) and refuses ``--autoscale_from_timeseries``
-(ROADMAP item 8f).
+its instance manager), with ``--autoscale_from_timeseries`` over its
+time-series store (held to JAX in tests/test_torch_slo.py).
 """
 
 import itertools
@@ -325,11 +325,14 @@ def test_master_scales_worker_pods(tmp_path):
              "--autoscale_max_workers", "2",
              "--autoscale_hysteresis_ticks", "1",
              "--autoscale_cooldown_secs", "0.001"]
-    with pytest.raises(NotImplementedError, match="item 8f"):
-        Master(parse_master_args(flags + ["--autoscale_from_timeseries"]))
+    # The trend signal reads the master's time-series store (an empty
+    # window falls back to the snapshot, so the ticks below are the
+    # same as without the flag).
     pods = Pods()
-    master = Master(parse_master_args(flags), k8s_client=pods)
+    master = Master(parse_master_args(
+        flags + ["--autoscale_from_timeseries"]), k8s_client=pods)
     try:
+        assert master.metrics_plane.timeseries is not None
         master.prepare()
         assert master.autoscaler.policy.max_workers == 2
         assert master.autoscaler.tick() == "up"  # 16 tasks queued

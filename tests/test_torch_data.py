@@ -39,20 +39,45 @@ def test_readers_shard_and_read_like_jax(tmp_path, kind):
     assert port.records_output_type == ref.records_output_type
 
 
-def test_stream_and_table_origins_are_not_ported():
-    """Stream origins are ported (``data/stream.py``, held to JAX in
-    tests/test_torch_stream.py); table origins still raise."""
+def test_stream_and_table_origins_are_not_ported(tmp_path):
+    """Stream and table origins dispatch as JAX's factory does: stream
+    origins to ``data/stream.py`` (held to JAX in
+    tests/test_torch_stream.py), table origins and ``reader_type=Table``
+    to ``data/table_reader.TableDataReader`` (held to JAX in
+    tests/test_torch_table_reader.py), ``odps://`` refused alike without
+    pyodps."""
+    import sqlite3
+
     from elasticdl_tpu_torch.common.constants import ReaderType
     from elasticdl_tpu_torch.data.stream import StreamDataReader
+    from elasticdl_tpu_torch.data.table_reader import TableDataReader
 
     assert isinstance(factory.create_data_reader("stream:///tmp/x"),
                       StreamDataReader)
-    for origin in ("table+sqlite:///tmp/x.db", "table+csv:///tmp/x.csv",
-                   "table+rpc://localhost:1/t", "odps://p/t"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            factory.create_data_reader(origin)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        factory.create_data_reader("/tmp/x", reader_type=ReaderType.TABLE)
+    db = str(tmp_path / "t.db")
+    with sqlite3.connect(db) as conn:
+        conn.execute("CREATE TABLE data (a INTEGER, b TEXT)")
+        conn.executemany("INSERT INTO data VALUES (?, ?)",
+                         [(i, f"r{i}") for i in range(5)])
+    csv = str(tmp_path / "t.csv")
+    with open(csv, "w") as f:
+        f.write("a,b\n" + "".join(f"{i},r{i}\n" for i in range(5)))
+    for origin, kwargs in ((f"table+sqlite://{db}", {}),
+                           (f"table+csv://{csv}", {}),
+                           (f"table+sqlite://{db}",
+                            {"reader_type": ReaderType.TABLE})):
+        port = factory.create_data_reader(origin, **dict(kwargs))
+        ref = jfactory.create_data_reader(origin, **dict(kwargs))
+        assert isinstance(port, TableDataReader)
+        shards = port.create_shards()
+        assert shards == ref.create_shards() == {origin: (0, 5)}
+        assert _records(port, shards) == _records(ref, shards)
+    assert isinstance(
+        factory.create_data_reader("table+rpc://localhost:1"),
+        TableDataReader)
+    for mod in (factory, jfactory):
+        with pytest.raises(ImportError, match="pyodps"):
+            mod.create_data_reader("odps://p/tables/t")
 
 
 @pytest.mark.parametrize("n", [16, 21])

@@ -430,3 +430,48 @@ def test_concurrent_safe_stores_fan_out_per_table():
             np.testing.assert_array_equal(a, b)
     safe.close()
     assert safe._table_pool is None
+
+
+@pytest.mark.parametrize("tables", [("items",), ("items", "users", "ctx")])
+def test_telemetry_families_as_jax(tables):
+    """The engine's telemetry as the JAX engine's: the same families
+    (names, kinds, labels) in its registry, the same id, unique-id and
+    updated-row counts and rows-materialized gauge, one lookup and one
+    update observation a batch, one dedup, pull and pad observation a
+    table and batch."""
+    from elasticdl_tpu.observability.registry import MetricsRegistry as JR
+    from elasticdl_tpu_torch.observability.registry import MetricsRegistry
+
+    keys = {name: TABLES[name][0] for name in tables}
+    regs = {"jax": JR(), "port": MetricsRegistry()}
+    made = {
+        "jax": jhe.HostEmbeddingEngine(
+            {n: JaxTable(n, DIM) for n in tables},
+            JaxWrap(JaxSGD(lr=0.5)), id_keys=keys,
+            metrics_registry=regs["jax"]),
+        "port": the.HostEmbeddingEngine(
+            {n: EmbeddingTable(n, DIM) for n in tables},
+            HostOptimizerWrapper(SGD(lr=0.5)), id_keys=keys,
+            metrics_registry=regs["port"]),
+    }
+    readings = {}
+    for name, engine in made.items():
+        for seed in range(3):
+            batch = make_batch(seed, tables=tables, span=40)
+            if name == "jax":
+                batch = jax_batch(batch)
+            _, rows, uniques = engine.prepare_batch(batch)
+            engine.apply_row_grads(
+                {t: np.ones_like(r) for t, r in rows.items()}, uniques)
+        families = {}
+        for fam in regs[name].snapshot()["families"]:
+            values = [s.get("count", s.get("value"))
+                      for s in fam["series"]]
+            families[fam["name"]] = (fam["kind"], fam["labelnames"],
+                                     values)
+        readings[name] = families
+    assert readings["port"] == readings["jax"]
+    fams = readings["port"]
+    assert fams["edl_tpu_embedding_lookup_seconds"][2] == [3]
+    assert fams["edl_tpu_embedding_row_pull_seconds"][2] == [3 * len(tables)]
+    assert fams["edl_tpu_embedding_rows_materialized"][2][0] > 0

@@ -9,11 +9,11 @@ the port's master and carries the port's own flags (they parse back to
 the job's). With a stand-in ``Client`` the manifests are created and
 ``--wait`` follows the master pod to its end. ``clean`` returns 2
 without ``kubernetes`` or a job name, and ``Client.delete_job`` deletes
-what JAX's deletes, past errors under ``--force``. ``chaos`` and
-``trace`` raise naming their ROADMAP items. The image builder, given a
-fake docker client, builds and pushes the port's package (not JAX's,
-without the kernel and row-store build caches) under a Dockerfile that
-installs torch and no jax.
+what JAX's deletes, past errors under ``--force``. ``chaos`` raises
+naming its ROADMAP item; ``trace`` runs the trace export. The image
+builder, given a fake docker client, builds and pushes the port's
+package (not JAX's, without the kernel and row-store build caches)
+under a Dockerfile that installs torch and no jax.
 """
 
 import os
@@ -160,11 +160,19 @@ def test_clean_without_kubernetes_or_a_job_returns_2():
         assert mod.main([]) == 2
 
 
-def test_chaos_and_trace_raise_naming_their_items():
+def test_chaos_and_trace_raise_naming_their_items(monkeypatch):
+    """``chaos`` raises naming its ROADMAP item; ``trace`` hands its
+    flags to ``observability/trace_export.main``, as JAX's CLI does
+    (the traced job itself: tests/test_torch_profile_plane.py)."""
+    from elasticdl_tpu_torch.observability import trace_export
+
     with pytest.raises(NotImplementedError, match="item 8g"):
         pcl.main(["chaos", "--scenario", "x"])
-    with pytest.raises(NotImplementedError, match="item 8f"):
-        pcl.main(["trace"])
+    seen = []
+    monkeypatch.setattr(trace_export, "main",
+                        lambda argv: seen.append(argv) or 0)
+    assert pcl.main(["trace", "--model", "dense"]) == 0
+    assert seen == [["--model", "dense"]]
 
 
 class FakeCore:

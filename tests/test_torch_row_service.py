@@ -780,12 +780,47 @@ def test_every_handler_answers_as_jax(method):
 
 @pytest.mark.parametrize("flag", [
     ["--profile_hz", "20"], ["--profile_window_secs", "10"],
-    ["--master_addr", "localhost:1"], ["--metrics_report_secs", "15"],
+    ["--master_addr", "localhost:1"], ["--metrics_report_secs", "5"],
 ])
-def test_main_refuses_unported_flags(flag):
-    with pytest.raises(NotImplementedError, match="item 8f"):
+def test_main_refuses_unported_flags(flag, monkeypatch):
+    """main takes the sampling profiler's and the master reporter's
+    flags as JAX's does: ``--profile_hz`` starts a profiler of role
+    ``rowservice``, ``--master_addr`` a ``ComponentMetricsReporter``
+    keyed ``rowservice-<shard_id>`` at ``--metrics_report_secs``."""
+    import signal
+
+    from elasticdl_tpu_torch.observability import profiler as prof_mod
+    from elasticdl_tpu_torch.observability import reporter as rep_mod
+
+    started, reporters = [], []
+    monkeypatch.setattr(HostRowService, "start",
+                        lambda self, *a, **k: started.append(self) or self)
+    monkeypatch.setattr(HostRowService, "wait", lambda self: None)
+    monkeypatch.setattr(signal, "signal", lambda *a: None)
+    monkeypatch.setattr(rep_mod.ComponentMetricsReporter, "start",
+                        lambda self: reporters.append(self))
+    argv = flag + (["--master_addr", "localhost:1"]
+                   if flag[0] == "--metrics_report_secs" else [])
+    try:
         rs.main(["--model_zoo", model_zoo_dir(), "--model_def",
-                 "deepfm.deepfm_host.custom_model"] + flag)
+                 "deepfm.deepfm_host.custom_model", "--shard_id", "1"]
+                + argv)
+        prof = prof_mod.profiler()
+        if flag[0] == "--profile_hz":
+            assert prof is not None and prof.hz == 20.0
+            assert prof.role == "rowservice"
+        else:
+            assert prof is None
+        if "--master_addr" in argv:
+            (rep,) = reporters
+            assert (rep._component, rep._component_id) == ("rowservice", 1)
+            assert rep._interval == (5.0 if "5" in argv else 15.0)
+        else:
+            assert reporters == []
+    finally:
+        prof_mod.uninstall_profiler()
+        for svc in started:
+            svc.stop()
 
 
 def _tier_policy(svc):

@@ -576,9 +576,19 @@ class TestRouterEndToEnd:
             replica.stop()
 
     def test_master_reporter_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            RouterServer(["localhost:1"], port=0, master_addr="m:1",
-                         metrics_registry=MetricsRegistry())
+        """``master_addr`` builds the router's reporter as JAX's does:
+        keyed ``router-<router_id>``, over the core's registry."""
+        server = RouterServer(["localhost:1"], port=0, master_addr="m:1",
+                              router_id=3, metrics_report_secs=2.0,
+                              metrics_registry=MetricsRegistry())
+        rep = server._reporter
+        assert (rep._master_addr, rep._component, rep._component_id) \
+            == ("m:1", "router", 3)
+        assert rep._interval == 2.0
+        assert rep._registry is server.core.registry
+        assert RouterServer(["localhost:1"], port=0,
+                            metrics_registry=MetricsRegistry()
+                            )._reporter is None
 
 
 class TestRouterDrain:
@@ -616,19 +626,106 @@ class TestRouterDrain:
     ["--replicas", "localhost:1", "--profile_hz", "50"],
     ["--replicas", "localhost:1", "--router_id", "3"],
 ])
-def test_route_flags_of_unported_parts_raise(argv):
-    from elasticdl_tpu_torch.serving.router import main
+def test_route_flags_of_unported_parts_raise(argv, monkeypatch):
+    """``route`` takes the reporter's and the profiler's flags as JAX's
+    does: ``--master_addr`` reaches ``RouterServer`` with the router's
+    id, ``--profile_hz`` starts a profiler of role ``router``."""
+    import signal
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        main(argv)
+    from elasticdl_tpu_torch.observability import profiler as prof_mod
+    from elasticdl_tpu_torch.observability import reporter as rep_mod
+    from elasticdl_tpu_torch.serving import router as router_mod
+
+    servers = []
+
+    def no_signals(*a):
+        raise ValueError("not the main thread")
+
+    monkeypatch.setattr(router_mod.RouterServer, "start",
+                        lambda self: servers.append(self) or self)
+    monkeypatch.setattr(router_mod.RouterServer, "wait", lambda self: None)
+    monkeypatch.setattr(rep_mod.ComponentMetricsReporter, "start",
+                        lambda self: None)
+    monkeypatch.setattr(signal, "signal", no_signals)
+    try:
+        assert router_mod.main(argv) == 0
+        (server,) = servers
+        if "--master_addr" in argv:
+            assert (server._reporter._component,
+                    server._reporter._component_id) == ("router", 0)
+        else:
+            assert server._reporter is None
+        prof = prof_mod.profiler()
+        if "--profile_hz" in argv:
+            assert prof.role == "router" and prof.hz == 50.0
+        else:
+            assert prof is None
+    finally:
+        prof_mod.uninstall_profiler()
+        for server in servers:
+            server.core.stop()
 
 
 @pytest.mark.parametrize("flag,value", [
     ("--master_addr", "m:1"), ("--metrics_report_secs", "5"),
     ("--profile_window_secs", "2"), ("--replica_id", "1"),
 ])
-def test_serve_flags_of_unported_parts_raise(tmp_path, flag, value):
-    from elasticdl_tpu_torch.serving.server import main
+def test_serve_flags_of_unported_parts_raise(tmp_path, flag, value,
+                                             monkeypatch):
+    """``serve`` takes the reporter's and the profiler's flags as JAX's
+    does: with ``--master_addr`` a ``ComponentMetricsReporter`` keyed
+    ``serving-<replica_id>`` at ``--metrics_report_secs`` starts once the
+    server listens."""
+    import signal
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        main(["--model_dir", str(tmp_path), "--device", "cpu", flag, value])
+    from elasticdl_tpu_torch.observability import profiler as prof_mod
+    from elasticdl_tpu_torch.observability import reporter as rep_mod
+    from elasticdl_tpu_torch.serving import model_store
+    from elasticdl_tpu_torch.serving import server as server_mod
+
+    class FakeStore:
+        device = "cpu"
+
+        def __init__(self, *a, **k):
+            pass
+
+        def load_initial(self):
+            return None
+
+        def start_polling(self):
+            return self
+
+    class FakeServer:
+        port = 0
+
+        def __init__(self, *a, **k):
+            pass
+
+        def start(self):
+            return self
+
+        def wait(self):
+            pass
+
+    def no_signals(*a):
+        raise ValueError("not the main thread")
+
+    reporters = []
+    monkeypatch.setattr(model_store, "ModelStore", FakeStore)
+    monkeypatch.setattr(server_mod, "InferenceServer", FakeServer)
+    monkeypatch.setattr(rep_mod.ComponentMetricsReporter, "start",
+                        lambda self: reporters.append(self))
+    monkeypatch.setattr(signal, "signal", no_signals)
+    argv = ["--model_dir", str(tmp_path), "--device", "cpu", flag, value]
+    if flag != "--master_addr":
+        argv += ["--master_addr", "m:1"]
+    try:
+        assert server_mod.main(argv) == 0
+        (rep,) = reporters
+        assert (rep._master_addr, rep._component) == ("m:1", "serving")
+        assert rep._component_id == (1 if flag == "--replica_id" else 0)
+        assert rep._interval == (5.0 if flag == "--metrics_report_secs"
+                                 else 15.0)
+        assert prof_mod.profiler() is None  # --profile_hz 0
+    finally:
+        prof_mod.uninstall_profiler()
