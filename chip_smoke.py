@@ -49,6 +49,8 @@
                                           # store, SLO rules, incidents
                                           # and profilers on, and census
                                           # over table origins
+    python3 chip_smoke.py --phase chaos  # the chaos harness and its
+                                         # drills, no kernel build
 
 1. Prints the card (``nvidia-smi`` name and power limit), versions, and
    whether ``grpc`` can be imported.
@@ -650,6 +652,27 @@
    flagship's. In the whole smoke it runs while the checkpoint phase's
    evaluate/predict subprocesses run, after the moe phase's parts; its
    run is (g)'s reference.
+11m. ``chaos`` (the chaos plane; ``--phase chaos`` runs (a)-(i), no
+   kernel build; the whole smoke runs (a) and (a') after the fleet
+   phase, while the worker phase's (f) and (g) processes run on): (a)
+   ``python -m elasticdl_tpu_torch chaos run --seed 0 --timings`` on
+   CUDA (``chaos/runner.main``): the canonical plan (a worker kill at a
+   task boundary, a row-shard stall, the first state checkpoint
+   truncated, a dropped ``get_task``) against deepfm_host over one
+   in-process row service on localhost gRPC, with its fault-free twin;
+   every invariant passes; the replacement worker's kill to relaunch to
+   first task seconds. (a') the same seed without ``--timings``: its
+   report byte-equal to (a)'s without the ``timings`` section. (b)
+   ``--master_kill`` (two master kills recovered by journal replay),
+   (c) ``--model dense`` (mnist_functional). (d)-(i) the drills, each
+   at its own gates (the wall-clock ones at the JAX drills' values) and
+   through the port's checker where it has one: (d) autoscale (dp4 ->
+   dp2 -> dp4 on the one-card mesh, a kill mid-barrier, against a
+   checkpoint-restart control), (e) serving (a router and two replicas,
+   one hard-killed mid-load), (f) slo, (g) brownout (controlled and
+   uncontrolled), (h) usage, (i) tiered, quake, profile and probe.
+   Every path's launches are read from zero and must be 0 (no kernel
+   is on them); each drill's gates and wall seconds are printed.
 12. ``fused path``: ``DeviceSparseRunner`` over the recsys table with
    Momentum (Nesterov) and ``use_pallas="fused"`` for 10 steps against
    "never": one fused-kernel launch a step.
@@ -689,7 +712,8 @@
    memory.
 17. Prints a ``serving``, a ``training``, a ``sparse_training``, a
    ``ring_training``, a ``host_training``, a ``vision``, a ``tabular``,
-   a ``checkpoint``, a ``worker``, a ``rowservice``, a ``fleet``, a
+   a ``checkpoint``, a ``worker``, a ``chaos``, a ``rowservice``, a
+   ``fleet``, a
    ``parallel``, a ``multihost``, a ``moe``, a ``pipeline``, a
    ``phase_s`` (each phase's seconds)
    and a
@@ -701,7 +725,7 @@
    and resumed recsys runs), ``launches_worker`` (the in-process and
    failed-task runs, (e), (f) and (g)'s two pods),
    ``launches_rowservice`` ((a)'s two runs, (b),
-   (c)), ``launches_fleet`` ((a), (b) over one and two shards, (c)),
+   (c)), ``launches_chaos`` ((a) and (a')), ``launches_fleet`` ((a), (b) over one and two shards, (c)),
    ``launches_parallel`` ((a), (b), (c) at dp4 and dp2, the fused step,
    (d)), ``launches_multihost`` ((a) in each process, (b), (c), (d),
    (d'), (e) and (g) a step in each process), ``launches_moe`` ((a),
@@ -3787,10 +3811,14 @@ def ckpt_run(torch, fa, pe, zoo, model_def, data, batch, extra,
     return executor, [float(x) for x in record.loss], result, counts
 
 
-def restored_check(torch, want_leaves, want_tables=None):
+def restored_check(torch, want_leaves, want_tables=None, lazy_rows=None):
     """A Callback that, at the first batch of a resumed run (after the
     restore, before the first step), reads the state's leaves and the
-    runner's host tables against the saved ones, bit for bit."""
+    runner's host tables against the saved ones, bit for bit. A host
+    runner's ``init_state`` pulls the first batch's rows before the
+    restore (as the JAX runner does), so a table may also hold ids the
+    save lacks: with ``lazy_rows(name, ids)`` those must sit at their
+    lazy-init rows, untouched."""
     from elasticdl_tpu_torch.callbacks import Callback
     from elasticdl_tpu_torch.checkpoint import named_leaves_from_state
 
@@ -3803,18 +3831,35 @@ def restored_check(torch, want_leaves, want_tables=None):
             got = named_leaves_from_state(owner.state)
             bad = unequal_leaves(got, want_leaves)
             extra = sorted(set(got) - set(want_leaves))
-            tables_bad = []
+            tables_bad, tables_extra = [], {}
             for name, (ids, rows) in (want_tables or {}).items():
                 got_ids, got_rows = \
                     owner._step_runner.host_tables[name].to_arrays()
-                if not (bit_equal(got_ids, ids) and bit_equal(got_rows,
-                                                              rows)):
+                got_ids = np.asarray(got_ids)
+                got_rows = np.asarray(got_rows)
+                saved = np.isin(got_ids, ids)
+                beyond = got_ids[~saved]
+                if lazy_rows is not None and beyond.size:
+                    tables_extra[name] = int(beyond.size)
+                    order = np.argsort(got_ids[saved], kind="stable")
+                    want_order = np.argsort(ids, kind="stable")
+                    ok = (bit_equal(got_ids[saved][order],
+                                    np.asarray(ids)[want_order])
+                          and bit_equal(got_rows[saved][order],
+                                        np.asarray(rows)[want_order])
+                          and bit_equal(got_rows[~saved],
+                                        lazy_rows(name, beyond)))
+                else:
+                    ok = (bit_equal(got_ids, ids)
+                          and bit_equal(got_rows, rows))
+                if not ok:
                     tables_bad.append(name)
             self.reading = {"step": owner.state.step,
                             "leaves": len(want_leaves), "unequal": bad,
                             "unexpected": extra,
                             "host_tables": sorted(want_tables or {}),
-                            "host_tables_unequal": tables_bad}
+                            "host_tables_unequal": tables_bad,
+                            "host_tables_lazy_extra": tables_extra}
 
     return RestoredCheck()
 
@@ -3984,8 +4029,10 @@ def checkpoint_host_part(torch, fa, pe, root):
     layout = sorted(os.listdir(ckpt))
     tables = {n: t.to_arrays()
               for n, t in first._step_runner.host_tables.items()}
-    restored = restored_check(torch, named_leaves_from_state(first.state),
-                              tables)
+    restored = restored_check(
+        torch, named_leaves_from_state(first.state), tables,
+        lambda name, ids: NativeEmbeddingTable(
+            name, twin.EMBEDDING_DIM).get(ids))
     resumed, r_loss, _, r_counts = run(files[1], [
         "--checkpoint_dir_for_init", ckpt], [restored])
     r_ids, r_rows = main_rows(resumed)
@@ -5340,6 +5387,25 @@ def worker_stream_start(fs, a_job):
     return fs
 
 
+def stream_diagnosis(fs, tail=3000):
+    """(f) failed: the marks it reached, the last /stream and /sched
+    views, and each process's last warnings and errors and the end of
+    its log, on stderr (the logs live in the run's temporary
+    directory)."""
+    marks = {k: round(v - fs["t0"], 3) for k, v in fs["marks"].items()
+             if isinstance(v, float)} if "t0" in fs else {}
+    print(f"(f) failed at marks {marks}; last views "
+          f"{json.dumps({n: v[:2] for n, v in fs['last'].items()})}",
+          file=sys.stderr, flush=True)
+    for name, log in fs["logs"].items():
+        text = log_text(log)
+        flagged = [line for line in text.splitlines()
+                   if "WARNING" in line or "ERROR" in line][-20:]
+        print(f"--- (f) {name} log: its last 20 warnings and errors, then "
+              f"its last {tail} characters:\n" + "\n".join(flagged)
+              + f"\n...\n{text[-tail:]}", file=sys.stderr, flush=True)
+
+
 def worker_stream_finish(fs, failed=False):
     """(f), second half: wait for the choreography, then hold the final
     journal (replayed here), the port's check_journal and check_stream
@@ -5360,6 +5426,7 @@ def worker_stream_finish(fs, failed=False):
             fs["thread"].join(timeout=600)
             check(not fs["thread"].is_alive(), "(f) never finished")
             if fs["error"] is not None:
+                stream_diagnosis(fs)
                 raise fs["error"]
             check(procs["worker"].returncode == 0,
                   f"the stream worker exited {procs['worker'].returncode}: "
@@ -7144,6 +7211,266 @@ def sched_phase(torch, fa, pe, root):
     check(not any(out["launches"].values()),
           f"the drills launched kernels: {out['launches']}")
     return out
+
+
+# The chaos plane (slice 29; ``--phase chaos`` runs (a)-(i), the whole
+# smoke (a) and (a') alone): the port's chaos harness and its drills on
+# the card. No kernel is on these paths (deepfm_host's rows live on the
+# host, mnist runs none): every path's launches are read from zero and
+# must stay 0.
+
+
+def chaos_run_part(torch, fa, pe, root, args, name, recovery=False):
+    """One ``python -m elasticdl_tpu_torch chaos run`` (``runner.main``
+    with ``args``) on CUDA into ``root/name``: its report, exit code,
+    wall seconds and launches. With ``recovery`` the replacement
+    worker's timeline is read too: kill (the injected ``ChaosKill``),
+    relaunch (the replacement built, its restore behind it) and first
+    task (its first ``get_task`` answered)."""
+    from elasticdl_tpu_torch.chaos import interceptors, runner
+
+    work = os.path.join(root, name)
+    path = os.path.join(work, "report.json")
+    marks = {}
+    real_hook = interceptors.FaultInjector.client_hook
+    real_make = runner.ChaosRunner._make_replacement
+
+    def client_hook(self, service, method, request):
+        try:
+            return real_hook(self, service, method, request)
+        except interceptors.ChaosKill:
+            marks.setdefault("kill", time.monotonic())
+            raise
+
+    def make_replacement(self, cluster, *rest):
+        worker = real_make(self, cluster, *rest)
+        marks.setdefault("relaunch", time.monotonic())
+        get_task = worker._master.get_task
+
+        def first_task(*a, **kw):
+            out = get_task(*a, **kw)
+            marks.setdefault("first_task", time.monotonic())
+            return out
+
+        worker._master.get_task = first_task
+        return worker
+
+    if recovery:
+        interceptors.FaultInjector.client_hook = client_hook
+        runner.ChaosRunner._make_replacement = make_replacement
+    before = kernel_launch_counts(fa, pe)
+    t = time.monotonic()
+    try:
+        code = runner.main(["run", "--workdir", work, "--report", path]
+                           + list(args))
+    finally:
+        interceptors.FaultInjector.client_hook = real_hook
+        runner.ChaosRunner._make_replacement = real_make
+    out = {"exit": code, "wall_s": time.monotonic() - t,
+           "launches": launches_since(fa, pe, before)}
+    with open(path) as fh:
+        out["text"] = fh.read()
+    report = json.loads(out["text"])
+    out["passed"] = report["passed"]
+    out["invariants"] = {v["name"]: v["passed"]
+                         for v in report["invariants"]}
+    out["fault_counts"] = report["fault_counts"]
+    out["job"] = report["job"]
+    out["timings"] = report.get("timings")
+    if recovery and {"kill", "relaunch", "first_task"} <= set(marks):
+        out["recovery_s"] = {
+            "kill_to_relaunch": marks["relaunch"] - marks["kill"],
+            "relaunch_to_first_task": marks["first_task"]
+            - marks["relaunch"],
+            "kill_to_first_task": marks["first_task"] - marks["kill"]}
+    check(code == 0 and report["passed"]
+          and all(out["invariants"].values()),
+          f"chaos run {args}: {out['invariants']} "
+          f"{report.get('harness_error')}")
+    check(not any(out["launches"].values()),
+          f"chaos run {args} launched kernels: {out['launches']}")
+    return out
+
+
+def chaos_repeat_part(torch, fa, pe, root):
+    """(a) ``chaos run --seed 0 --timings`` (the canonical plan: a
+    worker kill, a row-shard stall, a corrupted checkpoint and an RPC
+    drop; sparse, one shard over localhost gRPC, with its twin) and (a')
+    the same seed without ``--timings``: (a')'s report must equal (a)'s
+    without its ``timings`` section byte for byte."""
+    from elasticdl_tpu_torch.chaos import runner
+
+    out = {"run": chaos_run_part(torch, fa, pe, root,
+                                 ["--seed", "0", "--timings"], "run",
+                                 recovery=True)}
+    out["repeat"] = chaos_run_part(torch, fa, pe, root, ["--seed", "0"],
+                                   "repeat")
+    first = json.loads(out["run"]["text"])
+    timings = first.pop("timings")
+    out["run"]["timings"] = timings
+    out["byte_equal"] = runner.render_report(first) == out["repeat"][
+        "text"]
+    if not out["byte_equal"]:
+        again = json.loads(out["repeat"]["text"])
+        out["differs"] = sorted(k for k in set(first) | set(again)
+                                if first.get(k) != again.get(k))
+        out["job_pair"] = [first.get("job"), again.get("job")]
+    for part in ("run", "repeat"):
+        out[part].pop("text")
+    print("chaos run", json.dumps(out, default=str), flush=True)
+    check(out["byte_equal"], f"(a') differs from (a): {out.get('differs')}"
+          f" {out.get('job_pair')}")
+    check(timings and timings["recoveries"],
+          f"(a) has no recovery timing: {timings}")
+    return out
+
+
+def chaos_drill_part(fa, pe, name, failures, fn):
+    """Run one drill (``fn() -> (passed, report)``), its wall seconds and
+    launches; a drill that failed or launched a kernel is added to
+    ``failures`` (the phase fails after every drill has run)."""
+    before = kernel_launch_counts(fa, pe)
+    t = time.monotonic()
+    passed, report = fn()
+    out = {"passed": bool(passed), "wall_s": time.monotonic() - t,
+           "launches": launches_since(fa, pe, before), "report": report}
+    print(f"chaos drill {name}", json.dumps(
+        {k: v for k, v in out.items() if k != "report"}, default=str),
+        flush=True)
+    if not out["passed"]:
+        failures.append(f"the {name} drill's gates: "
+                        f"{json.dumps(report, default=str)[:4000]}")
+    if any(out["launches"].values()):
+        failures.append(f"the {name} drill launched kernels: "
+                        f"{out['launches']}")
+    return out
+
+
+def chaos_phase(torch, fa, pe, root):
+    """``--phase chaos``: (a)/(a'), (b) ``--master_kill``, (c) ``--model
+    dense``, then the drills on the card, each held to its own gates
+    (the wall-clock ones at the JAX drills' values) and its report to
+    the port's checker where it has one."""
+    from elasticdl_tpu_torch.chaos import (
+        autoscale_drill,
+        brownout_drill,
+        probe_drill,
+        profile_drill,
+        quake_drill,
+        serving_drill,
+        slo_drill,
+        tiered_drill,
+        usage_drill,
+    )
+    from elasticdl_tpu_torch.tools import (
+        check_overload,
+        check_probe,
+        check_usage,
+    )
+
+    out = {"a": chaos_repeat_part(torch, fa, pe, root)}
+    out["b"] = chaos_run_part(torch, fa, pe, root,
+                              ["--seed", "0", "--master_kill"], "master")
+    out["c"] = chaos_run_part(torch, fa, pe, root,
+                              ["--seed", "0", "--model", "dense"], "dense")
+    for part in ("b", "c"):
+        out[part].pop("text")
+
+    def report_of(path):
+        with open(path) as fh:
+            return json.load(fh)
+
+    def cli(module, argv, path, checker=None, own_process=False):
+        def run():
+            if own_process:
+                # The profiler's overhead pin walks every thread of its
+                # process: the drill runs in a process of its own, as a
+                # user starts it, not among this one's threads.
+                code = subprocess.run(
+                    [sys.executable, "-m", module.__name__] + argv,
+                    cwd=os.path.dirname(os.path.abspath(__file__)),
+                    timeout=600).returncode
+            else:
+                code = module.main(argv)
+            report = report_of(path)
+            errors = checker(path)[0] if checker else []
+            ok = report.get("passed", report.get("ok"))
+            return code == 0 and ok and not errors, {
+                "exit": code, "report": report, "checker": errors}
+        return run
+
+    d = os.path.join(root, "drills")
+    failed = []
+
+    def serving():
+        report = serving_drill.run_drill()
+        return report["passed"], report
+
+    # (key, module, the subcommand before --workdir, report, checker)
+    for key, module, sub, name, checker, *own in (
+            ("d_autoscale", autoscale_drill, [], "AUTOSCALE_DRILL.json",
+             None),
+            ("e_serving", None, [], "", None),
+            ("f_slo", slo_drill, [], "SLO_DRILL.json", None),
+            ("g_brownout", brownout_drill, ["run"], "BROWNOUT_DRILL.json",
+             check_overload.check_overload),
+            ("h_usage", usage_drill, [], "USAGE_DRILL.json",
+             check_usage.check_usage),
+            ("i_tiered", tiered_drill, [], "TIERED_DRILL.json", None),
+            ("i_quake", quake_drill, ["run"], "QUAKE_DRILL.json", None),
+            ("i_profile", profile_drill, [], "PROFILE_DRILL.json", None,
+             True),
+            ("i_probe", probe_drill, [], "PROBE_DRILL.json",
+             check_probe.check_probe)):
+        drill = key.split("_", 1)[1]
+        work = os.path.join(d, drill)
+        fn = serving if module is None else cli(
+            module, sub + ["--workdir", work], os.path.join(work, name),
+            checker, own_process=bool(own))
+        out[key] = chaos_drill_part(fa, pe, drill, failed, fn)
+    gates = {}
+    for key, part in out.items():
+        if key.startswith(("d_", "e_", "f_", "g_", "h_", "i_")):
+            gates[key] = _drill_gates(key, part.pop("report"))
+            gates[key]["wall_s"] = part["wall_s"]
+    out["gates"] = gates
+    out["card"] = smi("name,power.limit")
+    print("chaos gates", json.dumps(gates, default=str), flush=True)
+    check(not failed, "; ".join(failed))
+    return out
+
+
+def _drill_gates(key, report):
+    """The gates a drill read, for the printed line."""
+    report = report.get("report", report)
+    if key == "g_brownout":
+        return {g["name"]: [g["passed"], g["observed"], g["bound"]]
+                for g in report["gates"]}
+    if key == "h_usage":
+        return {"latency": report["latency"],
+                "purity": report["purity"]["ok"],
+                "share": report["attribution"]}
+    if key == "i_profile":
+        return {"overhead": report["overhead"],
+                "dominance": report["capture"].get("dominance")}
+    if key == "i_quake":
+        return {s["scenario"]: {k: s.get(k) for k in (
+            "passed", "problems", "p99_median_secs", "p99_ratio",
+            "wal_medium")} for s in report["scenarios"]}
+    if key == "i_probe":
+        return {"windows": report["faulted"].get("windows"),
+                "twin_failures": report["twin"].get("failures")}
+    if key == "e_serving":
+        return {inv["name"]: [inv["passed"], inv["detail"]]
+                for inv in report["invariants"]}
+    if key == "f_slo":
+        return {"faulted_fired": report["faulted"]["fired_count"],
+                "healthy_fired": report["healthy"]["fired_count"]}
+    if key == "d_autoscale":
+        return {v["name"]: v["passed"] for v in report["invariants"]}
+    if key == "i_tiered":
+        return {s["scenario"]: s["passed"] for s in report["scenarios"]}
+    return {}
 
 
 def journal_append_times(root, appends=200):
@@ -12981,7 +13308,7 @@ def main(argv=None) -> int:
                             "vision", "tabular", "checkpoint", "worker",
                             "rowservice", "fleet", "parallel", "multihost",
                             "tpfault", "moe", "pipeline", "failover",
-                            "sched", "k8s", "observe"),
+                            "sched", "k8s", "observe", "chaos"),
         default="all",
         help="fwd: build flash_attention_fwd.cu alone, then run kernel "
              "#1's checks and times and print its kernels row; bwd: the "
@@ -13023,7 +13350,11 @@ def main(argv=None) -> int:
              "then its job under master.main with the time-series store, "
              "the SLO rules, an incident directory and the profilers, and "
              "census_sqlflow over table origins (the embedding kernels "
-             "only)")
+             "only); chaos: the port's chaos harness on the card (the "
+             "canonical plan twice, --master_kill, --model dense) and "
+             "its drills (autoscale, serving, slo, brownout, usage, "
+             "tiered, quake, profile, probe), each at its own gates "
+             "(no kernel build)")
     args = parser.parse_args(argv)
     import torch
 
@@ -13061,9 +13392,15 @@ def run(args, torch, mh) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    if args.phase in ("host", "vision", "tabular", "rowservice", "sched"):
+    if args.phase in ("host", "vision", "tabular", "rowservice", "sched",
+                      "chaos"):
         with tempfile.TemporaryDirectory() as root:
-            if args.phase == "sched":
+            if args.phase == "chaos":
+                t1 = time.monotonic()
+                line = {"chaos": chaos_phase(torch, fa, pe, root)}
+                print(json.dumps({"phase_s": {
+                    "chaos": round(time.monotonic() - t1, 2)}}))
+            elif args.phase == "sched":
                 line = {"sched": sched_phase(torch, fa, pe, root)}
             elif args.phase == "host":
                 line = {"host_training": host_training_phase(torch, fa, pe,
@@ -13239,6 +13576,10 @@ def run(args, torch, mh) -> int:
             fleet = fleet_phase(torch, fa, pe, root,
                                 os.path.join(root, "v1"))
             mark("fleet")
+            # The chaos harness's (a) and (a') while (g)'s pods and (f)'s
+            # stream job run on.
+            chaos = chaos_repeat_part(torch, fa, pe, root)
+            mark("chaos")
         except BaseException:
             worker_k8s_finish(worker["k8s"], failed=True)
             worker_stream_finish(worker["stream"], failed=True)
@@ -13313,6 +13654,9 @@ def run(args, torch, mh) -> int:
                 row["name"]],
             "two_shards": rowservice["two_shards"]["launches"][row["name"]],
             "shared": rowservice["subprocess"]["launches"][row["name"]]}
+        row["launches_chaos"] = {
+            part: chaos[part]["launches"][row["name"]]
+            for part in ("run", "repeat")}
         row["launches_observe"] = {
             "job": observe["job"]["launches"][row["name"]],
             "tables": {run: counts[row["name"]] for run, counts in
@@ -13342,6 +13686,7 @@ def run(args, torch, mh) -> int:
     print(json.dumps({"checkpoint": checkpoint}))
     print(json.dumps({"worker": worker}))
     print(json.dumps({"observe": observe}))
+    print(json.dumps({"chaos": chaos}, default=str))
     print(json.dumps({"rowservice": rowservice}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"parallel": parallel}))

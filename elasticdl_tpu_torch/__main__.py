@@ -19,7 +19,9 @@
 - ``clean``: delete a job's pods and Services.
 - ``trace``: a traced in-process job exported as Perfetto JSON
   (observability/trace_export.py), on CUDA unless ``--device cpu``.
-- ``chaos`` raises: ROADMAP Queue 1 item 8g.
+- ``chaos``: ``run``/``soak`` a fault plan against an in-process job
+  and its fault-free twin (chaos/runner.py), on CUDA unless ``--device
+  cpu``.
 
 Local jobs run on CUDA unless ``--device cpu``. The task plane also runs
 without k8s, started by hand: ``python -m

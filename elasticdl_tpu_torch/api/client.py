@@ -17,7 +17,8 @@ evaluate | predict | serve | route | chaos | trace | clean``.
   ``elasticdl clean``); 2 without the ``kubernetes`` package.
 - ``trace``: a traced in-process job exported as Perfetto JSON, with
   its critical-path report (observability/trace_export.py).
-- ``chaos`` raises: the chaos plane is ROADMAP Queue 1 item 8g.
+- ``chaos``: the chaos harness's ``run``/``soak``
+  (chaos/runner.py), on CUDA unless ``--device cpu``.
 """
 
 import json
@@ -42,8 +43,6 @@ logger = get_logger("client")
 
 _SUBCOMMANDS = ("train", "evaluate", "predict", "serve", "route",
                 "chaos", "trace", "clean")
-# Subcommand -> the ROADMAP Queue 1 item that holds it.
-_NOT_PORTED = {"chaos": "8g (the chaos plane)"}
 
 
 def _master_manifests(args, mode: str):
@@ -185,11 +184,12 @@ def main(argv=None):
         )
 
         return trace_main(rest)
-    if mode in _NOT_PORTED:
-        raise NotImplementedError(
-            f"elasticdl_tpu_torch {mode}: not ported yet (ROADMAP Queue 1, "
-            f"item {_NOT_PORTED[mode]})"
-        )
+    if mode == "chaos":
+        # Fault-injection harness: runs against the in-process cluster,
+        # no job/k8s context — dispatch directly.
+        from elasticdl_tpu_torch.chaos.runner import main as chaos_main
+
+        return chaos_main(rest)
     try:
         args = build_parser(mode).parse_args(rest)
     except SystemExit as exc:  # argparse has printed the usage

@@ -442,8 +442,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser("elasticdl_tpu_torch-reshard-drill")
     parser.add_argument("--seed", type=int, default=7)
     parser.add_argument("--workdir", required=True)
-    parser.add_argument("--report", default="RESHARD_DRILL.json")
+    parser.add_argument("--report", default="",
+                        help="default: <workdir>/RESHARD_DRILL.json")
     args = parser.parse_args(argv)
+    args.report = args.report or os.path.join(args.workdir,
+                                              "RESHARD_DRILL.json")
 
     report = run_drill(args.workdir, args.seed)
     with open(args.report, "w") as fh:

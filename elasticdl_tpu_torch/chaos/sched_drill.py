@@ -499,8 +499,11 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser("elasticdl_tpu_torch-sched-drill")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--workdir", required=True)
-    parser.add_argument("--report", default="SCHED_DRILL.json")
+    parser.add_argument("--report", default="",
+                        help="default: <workdir>/SCHED_DRILL.json")
     args = parser.parse_args(argv)
+    args.report = args.report or os.path.join(args.workdir,
+                                              "SCHED_DRILL.json")
 
     report = run_drill(args.workdir, args.seed)
     with open(args.report, "w") as fh:

@@ -1071,12 +1071,15 @@ def main(argv=None) -> int:
     for p in (run, parser):
         p.add_argument("--seed", type=int, default=0)
         p.add_argument("--workdir")
-        p.add_argument("--report", default="STREAM_DRILL.json")
+        p.add_argument("--report", default="",
+                       help="default: <workdir>/STREAM_DRILL.json")
     args = parser.parse_args(argv)
     if args.cmd == "work":
         return _work(args)
     if not args.workdir:
         parser.error("--workdir required")
+    args.report = args.report or os.path.join(args.workdir,
+                                              "STREAM_DRILL.json")
     report = run_drill(args.workdir, args.seed)
     with open(args.report, "w") as fh:
         json.dump(report, fh, indent=2, sort_keys=True, default=str)

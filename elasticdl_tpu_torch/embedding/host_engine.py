@@ -683,6 +683,13 @@ class HostStepRunner:
 
     def init_state(self, model, make_optimizer, batch, seed: int = 0):
         self.flush()
+        if batch is not None:
+            # The first batch's rows are pulled once here, as the JAX
+            # runner pulls them to trace its model: the engine then
+            # makes the same calls in the same order in both packages
+            # (a chaos plan counts them), and the rows exist before the
+            # first step.
+            self.engine.prepare_batch(batch)
         self._template = host_rows_template(model)
         state = init_train_state(model, make_optimizer, seed=seed)
         self._device = state.device

@@ -25,8 +25,14 @@ made is rebound. The workers, each with its own model, are untouched.
 
 ``metrics_port`` serves the master's ``MetricsPlane`` (``/metrics``,
 ``/traces``, ``/timeseries``, ``/alerts``, ``/profile``) until
-``stop``. Not ported yet: the chaos ``fault_injector`` (ROADMAP Queue 1,
-item 8g).
+``stop``.
+
+With ``fault_injector`` (``chaos/interceptors.FaultInjector``) the
+chaos plan reaches the master's RPCs: over gRPC through the injector's
+process-wide hooks, in process through its per-RPC callbacks merged
+into ``worker_callbacks``. ``checkpoint_async=False`` writes every
+checkpoint on the caller's thread, so corrupt-at-save events land in
+the same order against worker progress every run.
 """
 
 import copy
@@ -76,8 +82,24 @@ class MiniCluster:
         mesh=None,
         journal_dir: str = "",
         metrics_port: Optional[int] = None,
+        fault_injector=None,
+        checkpoint_async: bool = True,
     ):
         self.device = resolve_device(device)
+        if fault_injector is not None and not use_rpc:
+            merged = dict(fault_injector.in_process_callbacks())
+            for name, cb in (worker_callbacks or {}).items():
+                if name in merged:
+                    chaos_cb = merged[name]
+
+                    def both(request, _user=cb, _chaos=chaos_cb):
+                        _chaos(request)
+                        _user(request)
+
+                    merged[name] = both
+                else:
+                    merged[name] = cb
+            worker_callbacks = merged
         # The model's initial weights come from random_seed, as in the
         # Local executor and worker/main.py.
         with torch.random.fork_rng(devices=[]):
@@ -232,6 +254,7 @@ class MiniCluster:
                     checkpoint_dir=checkpoint_dir,
                     checkpoint_steps=checkpoint_steps,
                     host_tables=getattr(runner, "host_tables", None),
+                    async_save=checkpoint_async,
                 )
             self.workers.append(
                 Worker(
@@ -347,16 +370,20 @@ class MiniCluster:
         return self.servicer.begin_resize(reshard.mesh_spec(mesh),
                                           direction=direction)
 
+    def own_models(self):
+        """Give each worker that has not trained yet its own copy of the
+        template's weights as they stand now (as each JAX worker holds
+        its own dense state from one seed), so no two optimizers step
+        one set of parameters. ``run`` calls it; a caller that drives
+        ``workers`` itself calls it first."""
+        for worker, spec in zip(self.workers, self._worker_specs):
+            if worker.state is None:
+                spec.model = copy.deepcopy(self.spec.model)
+
     def run(self) -> List[dict]:
         """Run all workers (threads if >1) to completion."""
         results = [None] * len(self.workers)
-        for worker, spec in zip(self.workers, self._worker_specs):
-            if worker.state is None:
-                # Each worker trains its own copy of the template's
-                # weights as they stand now (as each JAX worker holds
-                # its own dense state from one seed), so no two
-                # optimizers step one set of parameters.
-                spec.model = copy.deepcopy(self.spec.model)
+        self.own_models()
         if len(self.workers) == 1:
             results[0] = self.workers[0].run()
         else:

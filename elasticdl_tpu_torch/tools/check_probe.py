@@ -1,7 +1,7 @@
-"""Schema-check synthetic-probe drill output (the JAX package's
-``chaos/probe_drill.py``; the port's probe drill is ROADMAP item 8g),
-the port's copy of ``tools/check_probe.py``: the same checks, messages
-and exit codes (0 clean, 1 errors, 2 usage).
+"""Schema-check synthetic-probe drill output
+(``elasticdl_tpu_torch/chaos/probe_drill.py``), the port's copy of
+``tools/check_probe.py``: the same checks, messages and exit codes (0
+clean, 1 errors, 2 usage). Either package's report passes it.
 
 Usage::
 

@@ -161,13 +161,18 @@ def test_clean_without_kubernetes_or_a_job_returns_2():
 
 
 def test_chaos_and_trace_raise_naming_their_items(monkeypatch):
-    """``chaos`` raises naming its ROADMAP item; ``trace`` hands its
-    flags to ``observability/trace_export.main``, as JAX's CLI does
-    (the traced job itself: tests/test_torch_profile_plane.py)."""
+    """``chaos`` hands its flags to ``chaos/runner.main`` and ``trace``
+    to ``observability/trace_export.main``, as JAX's CLI does (the
+    chaos runs themselves: tests/test_torch_chaos.py; the traced job:
+    tests/test_torch_profile_plane.py)."""
+    from elasticdl_tpu_torch.chaos import runner
     from elasticdl_tpu_torch.observability import trace_export
 
-    with pytest.raises(NotImplementedError, match="item 8g"):
-        pcl.main(["chaos", "--scenario", "x"])
+    handed = []
+    monkeypatch.setattr(runner, "main",
+                        lambda argv: handed.append(argv) or 0)
+    assert pcl.main(["chaos", "run", "--seed", "3"]) == 0
+    assert handed == [["run", "--seed", "3"]]
     seen = []
     monkeypatch.setattr(trace_export, "main",
                         lambda argv: seen.append(argv) or 0)
