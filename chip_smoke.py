@@ -51,6 +51,11 @@
                                           # over table origins
     python3 chip_smoke.py --phase chaos  # the chaos harness and its
                                          # drills, no kernel build
+    python3 chip_smoke.py --phase tools  # raw CSV to a served census
+                                         # model, a JAX-written
+                                         # checkpoint resumed, the client
+                                         # tools and the umbrella fsck,
+                                         # no kernel build
 
 1. Prints the card (``nvidia-smi`` name and power limit), versions, and
    whether ``grpc`` can be imported.
@@ -233,6 +238,13 @@
    equal to the Local run's final eval, the dispatcher's counters at
    4096 training records; step ms (CUDA events) beside issue ms and
    examples/s for the worker and the Local run, and the RPCs a step.
+   Both read their RecordFiles through the native range reader
+   (``native/record_ext.c``, built on the card machine): the reader,
+   the mean record's bytes and the native range reads (zeroed just
+   before each run, read just after: the Local run's 2, the files once
+   each, and the worker's one a task) are printed, and one task's
+   records read by both readers are bit-equal; a reader that did not
+   build fails with the compiler's message.
    (b) The same job with the zoo's ``dataset_fn`` raising once at the
    first batch of task 2: the task is re-queued at the front, the job
    drains, the run is bit-equal to (a) with (a)'s launches. (c)
@@ -614,7 +626,13 @@
    seconds. (i) (c)'s job writes its checkpoints (``--checkpoint_dir``,
    every 3 versions): its newest version is its final one, and a
    second job in the same processes from ``--checkpoint_dir_for_init``
-   resumes there. Prints the data backend (and
+   resumes there. (j) 11l's PipelineLM with ``dp`` across the processes
+   (the (pp 2, dp 2) mesh laid out by dp: each process holds both
+   stages and reads its 8 of the 16 rows) against 11l (a)'s one-process
+   run (PIPE_MH_TOL), the processes' losses and parameters equal,
+   #1 = #3 = #4 = 32 a process a step, one launch of #1 and of #3/#4
+   held to its plain version, the data group's all-reduce ms a step.
+   Prints the data backend (and
    why), which gloo collectives take CUDA tensors, and per step the
    step ms (CUDA events), issue ms and the ms inside the collectives
    (the all-reduces, the all-gathers, the ring's and the pipeline's
@@ -673,6 +691,26 @@
    uncontrolled), (h) usage, (i) tiered, quake, profile and probe.
    Every path's launches are read from zero and must be 0 (no kernel
    is on them); each drill's gates and wall seconds are printed.
+11n. ``tools`` (no kernel build; ``--phase tools`` runs it alone, the
+   whole smoke last in its work directory): (a) ``create_adult_csv``
+   (4,096 raw rows) through the port's ``tools/record_gen/census_gen``
+   to train and val RecordFiles; census_wide_deep trained on the card at
+   B 512 with a checkpoint and a bundle, the same job again with the
+   record extension off (losses bit-equal, no native read), ``predict``
+   from the checkpoint; (b) the committed JAX-written mnist_functional
+   checkpoint (``tests/torch_fixtures/jax_mnist_functional``) through
+   ``--checkpoint_dir_for_init`` on the card and on the CPU: the
+   restored leaves equal the fixture's transposed, five steps within
+   TRAJ_TOL; (c) (a)'s bundle served on the card, the port's
+   ``serve_client`` closed-loop (200 requests at concurrency 4, every
+   one 200, p50 and p99) and ``dump_metrics --raw`` on its ``/metrics``;
+   (d) the port's umbrella ``fsck`` over the work directory (in the
+   whole smoke: every phase's checkpoint chains, journals, cold stores
+   and push logs; that audit runs on a thread from the end of the
+   parallel phase, beside the multihost and moe phases' checks and
+   (a)-(c), which write elsewhere) and over (a)-(c)'s, every kind green and counted,
+   then a torn shard in a copy of (a)'s checkpoint flagged. Every
+   kernel counter 0 over (a)-(c).
 12. ``fused path``: ``DeviceSparseRunner`` over the recsys table with
    Momentum (Nesterov) and ``use_pallas="fused"`` for 10 steps against
    "never": one fused-kernel launch a step.
@@ -715,7 +753,7 @@
    a ``checkpoint``, a ``worker``, a ``chaos``, a ``rowservice``, a
    ``fleet``, a
    ``parallel``, a ``multihost``, a ``moe``, a ``pipeline``, a
-   ``phase_s`` (each phase's seconds)
+   ``tools``, a ``phase_s`` (each phase's seconds)
    and a
    ``kernels`` JSON line (the four flash kernels and the four embedding kernels
    with their ms, plain ms, library ms, bound ms and launches, and their
@@ -728,7 +766,8 @@
    (c)), ``launches_chaos`` ((a) and (a')), ``launches_fleet`` ((a), (b) over one and two shards, (c)),
    ``launches_parallel`` ((a), (b), (c) at dp4 and dp2, the fused step,
    (d)), ``launches_multihost`` ((a) in each process, (b), (c), (d),
-   (d'), (e) and (g) a step in each process), ``launches_moe`` ((a),
+   (d'), (e), (g) and (j) a step in each process), ``launches_tools``
+   (0), ``launches_moe`` ((a),
    (d) fused and materialised, (e) decoding, (f) in each process),
    ``launches_pipeline`` ((a)'s step at M 4, the timed steps at M 4
    and M 8);
@@ -760,6 +799,7 @@ SERVE_TOKENS = 128
 RAGGED_TOKENS = 100   # a served length that is not a multiple of the tile
 SEED = 0
 DEVICE = "cuda"
+REPO = os.path.dirname(os.path.abspath(__file__))
 # The whole smoke's aim in seconds (after the builds start), printed
 # beside its total in the phase_s line (the script must end within
 # 1200 s, the builds included).
@@ -4273,6 +4313,47 @@ class RecordingRunner:
         return recorded
 
 
+def record_ext_status():
+    """Which reader reads RecordFiles here: "native" (the extension built
+    and loaded, with its build seconds in this process) or the compiler's
+    own message when it did not build."""
+    import subprocess
+    import sysconfig
+
+    from elasticdl_tpu_torch import native
+    from elasticdl_tpu_torch.native.record_codec import (
+        native_record_reader_available,
+    )
+
+    if native_record_reader_available():
+        return {"reader": "native", "extension": os.path.relpath(
+            native.extension_path(), REPO),
+            "build_s": native.ext_build_seconds}
+    include = sysconfig.get_paths()["include"]
+    proc = subprocess.run(
+        ["gcc", *native.EXT_FLAGS, f"-I{include}", "-o", os.devnull,
+         native.EXT_SOURCE], capture_output=True, text=True)
+    return {"reader": "scanner", "python_h": os.path.exists(
+        os.path.join(include, "Python.h")),
+        "compiler": (proc.stderr or proc.stdout)[-2000:]}
+
+
+def native_matches_scanner(task):
+    """One task's records through the reader's native path and through
+    the Python scanner: bit-equal."""
+    from elasticdl_tpu_torch.common.task import Task
+    from elasticdl_tpu_torch.data.reader import RecordFileDataReader
+    from elasticdl_tpu_torch.data.record_file import RecordFileScanner
+
+    task = Task(shard_name=task["shard_name"], start=task["start"],
+                end=task["end"])
+    got = list(RecordFileDataReader(task.shard_name).read_records(task))
+    with RecordFileScanner(task.shard_name, task.start,
+                           task.end - task.start) as scanner:
+        want = list(scanner)
+    return bool(got) and got == want
+
+
 def worker_cluster_run(torch, fa, pe, zoo, model_def, train, evalf, device,
                        batch, dataset_fn=None, runner_factory=None):
     """The port's MiniCluster (one worker, InProcessMaster, no shuffle)
@@ -4336,10 +4417,15 @@ def step_times(record, batch, window):
 
 def worker_recsys_part(torch, fa, pe, root):
     """(a) In process against the Local executor; returns its readings
-    and what (b) and (d) compare with."""
+    and what (b) and (d) compare with. Both read their RecordFiles
+    through the native range reader (``native/record_ext.c``)."""
     from elasticdl_tpu_torch.api.local_executor import LocalExecutor
     from elasticdl_tpu_torch.common.constants import TaskType
+    from elasticdl_tpu_torch.data import reader
+    from elasticdl_tpu_torch.data.record_file import num_records_in_file
     from elasticdl_tpu_torch.testing import data as tdata
+
+    ext = record_ext_status()
 
     train = tdata.create_frappe_record_file(
         os.path.join(root, "worker_train.rec"), WORKER_RECORDS,
@@ -4362,19 +4448,23 @@ def worker_recsys_part(torch, fa, pe, root):
     local = LocalExecutor(args, callbacks=[local_record])
     torch.cuda.synchronize()
     reset_kernel_launches(fa, pe)             # the Local path starts
+    reader.native_range_reads = 0
     t0 = time.monotonic()
     local_result = local.run()
     torch.cuda.synchronize()
     local_wall = time.monotonic() - t0
     local_counts = kernel_launch_counts(fa, pe)   # ... and ends
+    local_reads = reader.native_range_reads
     local_loss = [float(x) for x in local_record.loss]
     l_table = local.state.tables[RECSYS_TABLE]
     l_acc = local.state.slot_tables[RECSYS_TABLE]["accumulator"]
     local_times = step_times(local_record, EMB_BATCH, WORKER_TASK_BATCHES)
     del local
 
+    reader.native_range_reads = 0
     a = worker_cluster_run(torch, fa, pe, zoo, model_def, train, evalf,
                            DEVICE, EMB_BATCH)
+    worker_reads = reader.native_range_reads
     state = a["worker"].state
     table = state.tables[RECSYS_TABLE]
     acc = state.slot_tables[RECSYS_TABLE]["accumulator"]
@@ -4410,7 +4500,27 @@ def worker_recsys_part(torch, fa, pe, root):
                   "executor_examples_per_s":
                       local_result["examples_per_sec"]},
     }
+    read_tasks = [t for t in a["tasks"] if t and t["type"] in (
+        TaskType.TRAINING, TaskType.EVALUATION)]
+    out_a["record_reader"] = {
+        **ext, "mean_record_bytes": {
+            name: os.path.getsize(path) / num_records_in_file(path)
+            for name, path in (("train", train), ("eval", evalf))},
+        # The Local executor reads each file once a pass (one training
+        # pass, one evaluation at the end); the worker once a task.
+        "native_range_reads": {"local": local_reads,
+                               "worker": worker_reads},
+        "tasks_read_by_worker": len(read_tasks),
+        "one_task_both_readers_equal": native_matches_scanner(
+            read_tasks[0])}
+    print("record reader", json.dumps(out_a["record_reader"]), flush=True)
     print("worker in process", json.dumps(out_a), flush=True)
+    check(ext["reader"] == "native",
+          f"the record extension did not load: {ext}")
+    check(local_reads == 2 and worker_reads == len(read_tasks) > 0,
+          f"native range reads {out_a['record_reader']}")
+    check(out_a["record_reader"]["one_task_both_readers_equal"],
+          "the native reader and the scanner read one task differently")
     want = {k: 0 for k in a["counts"]}
     want.update(lookup_combine=steps + rounds * eval_batches,
                 row_update=steps, row_update_adagrad=steps)
@@ -11777,7 +11887,7 @@ def multihost_child(pid, root):
     parts = {"recsys": mh_child_recsys, "dense": mh_child_dense,
              "job": mh_child_job, "tp": mh_child_tp,
              "table": mh_child_table, "pipe": mh_child_pipe,
-             "moe": mh_child_moe}
+             "pipe_dp": mh_child_pipe_dp, "moe": mh_child_moe}
     names = {"moe": ["moe"], "multihost": list(parts)[:-1]}.get(
         wanted, list(parts))
     marks = [time.monotonic()]
@@ -11975,6 +12085,8 @@ def multihost_phase(torch, fa, pe, root, started, recsys_ref=None,
                                  table_params)
     pipe_out, pipe_launches = mh_pipe_results(torch, started["root"], res,
                                               pipe_ref)
+    pipe_dp_out, pipe_dp_launches = mh_pipe_dp_results(
+        torch, started["root"], res, pipe_ref)
     ckpt_out = mh_checkpoint_results(res, job)
     out = {
         "data_backend": res[0]["data_backend"],
@@ -12015,7 +12127,8 @@ def multihost_phase(torch, fa, pe, root, started, recsys_ref=None,
                 "zero_entries")}
                for pid in dense}},
         "job": job, "tp": tp_out, "table": table_out,
-        "pipeline": pipe_out, "checkpoint": ckpt_out,
+        "pipeline": pipe_out, "pipeline_dp": pipe_dp_out,
+        "checkpoint": ckpt_out,
         "part_s": {"reference": marks[1] - marks[0],
                    "children": marks[2] - marks[1],
                    "child_parts": {pid: res[pid]["part_s"] for pid in res}},
@@ -12064,7 +12177,7 @@ def multihost_phase(torch, fa, pe, root, started, recsys_ref=None,
     launches = {"recsys_p0": rec[0]["launches"],
                 "recsys_p1": rec[1]["launches"],
                 "dense": dense[0]["launches"], "job": job[0]["launches"],
-                **tp_launches, **pipe_launches}
+                **tp_launches, **pipe_launches, **pipe_dp_launches}
     return out, launches
 
 
@@ -12882,6 +12995,9 @@ def moe_phase(torch, fa, pe, root, started, local=None, res=None):
 # 3 Adam steps, against the port's TransformerLM with the same weights
 # and batches; its step timed at M 4 and M 8.
 PIPE_MESH = ((2, 2), ("pp", "dp"))
+# (j): the same (pp 2, dp 2) mesh laid over the two processes by dp, so
+# that dp spans them and each holds both stages.
+PIPE_DP_AXES = ("dp", "pp")
 PIPE_STAGE_LAYERS, PIPE_M, PIPE_STEPS = 4, 4, 3
 PIPE_BATCH, PIPE_TIMED_M, PIPE_TIMED_STEPS = 16, (4, 8), 4
 # (a) against TransformerLM, TRAJ_TOL's readings per tensor: each
@@ -13177,6 +13293,100 @@ def mh_child_pipe(torch, fa, pe, pid, root, out):
     out["pipe"] = rec
 
 
+def mh_child_pipe_dp(torch, fa, pe, pid, root, out):
+    """(j) in process ``pid``: PipelineLM with ``dp`` across the two
+    processes (each holds both stages, 8 blocks, and reads its 8 rows of
+    (a)'s global 16), (a)'s weights and batches; its step sums the
+    gradients over the data group (gloo); launches exact; one launch of
+    #1 and of #3/#4 held to its plain version; the final parameters
+    saved."""
+    from elasticdl_tpu_torch.parallel import multihost
+    from elasticdl_tpu_torch.parallel.mesh import make_mesh
+
+    shape, _ = PIPE_MESH
+    mesh = make_mesh(shape, PIPE_DP_AXES, [torch.device(DEVICE)] * (
+        int(np.prod(shape)) // multihost.process_count()))
+    lm = pipe_model(torch, mesh)
+    lm.place()
+    held = {n: list(p.shape) for n, p in lm.named_parameters()
+            if n in ("blocks.attn.query.weight", "ends.lm_head.weight")}
+    # The data group's all-reduce of the gradients (and the loss), and
+    # the host sum of the masks that weighs each process's loss.
+    clock = CollectiveClock(torch, multihost, ("all_reduce_", "host_sum"))
+    capture = KernelCapture(torch, fa)
+    try:
+        rec, start, _, final = pipe_steps(
+            torch, fa, pe, lm, [mh_local(b, pid) for b in pipe_batches()],
+            clock)
+    finally:
+        capture.restore()
+        clock.restore()
+    rec["kernel_checks"] = capture.checks()
+    rec["collective_calls"] = clock.calls
+    rec["collective_ms_by_name"] = clock.ms_by_name
+    rec["held_shapes"] = held
+    rec["dp_block"] = list(mesh.block_of("dp"))
+    torch.save({"start": start, "final": final},
+               os.path.join(root, f"pipe_dp_{pid}.pt"))
+    del lm
+    torch.cuda.empty_cache()
+    out["pipe_dp"] = rec
+
+
+def mh_pipe_dp_results(torch, root, res, ref):
+    """(j) of both processes against (a)'s one-process run: losses and
+    parameter changes within PIPE_MH_TOL, the processes' losses and
+    whole parameters equal, exact launches a step, the captured launches
+    within their plain versions' limits."""
+    rec = {pid: res[pid]["pipe_dp"] for pid in res}
+    got = [torch.load(os.path.join(root, f"pipe_dp_{pid}.pt"))
+           for pid in sorted(res)]
+    gaps = tp_gaps(got[0]["final"], ref["final"], ref["start"],
+                   rec[0]["losses"], ref["losses"])
+    equal = all(torch.equal(got[0]["final"][k], got[1]["final"][k])
+                for k in got[0]["final"])
+    # (a) launches #1, #3 and #4 once a layer a microbatch: 8 blocks x
+    # M 4 = 32 a step over its 16 rows. Here each process runs all 8
+    # blocks on its own 8 rows, cut into the same M 4 microbatches (of
+    # 2 rows): 32 a step in each process.
+    want = pipe_expected(PIPE_M, FLAGSHIP["n_layers"])
+    out = {"mesh": f"{PIPE_MESH[0]} over {PIPE_DP_AXES}, 2 processes (dp "
+                   "across, pp within each)", **gaps,
+           "global_batch": PIPE_BATCH, "rows_a_process":
+               PIPE_BATCH // MH_PROCS,
+           "losses": {p: rec[p]["losses"] for p in rec},
+           "losses_one_process": ref["losses"],
+           "params_equal_across_processes": equal,
+           **{f"p{p}": {k: rec[p][k] for k in (
+               "step_ms", "issue_ms", "collective_ms", "collective_calls",
+               "collective_ms_by_name", "kernel_checks", "held_shapes",
+               "dp_block")}
+              for p in rec}, "tol": PIPE_MH_TOL}
+    print("multihost pipeline dp across", json.dumps(out), flush=True)
+    launches = {}
+    for pid in rec:
+        launches[f"pipe_j_p{pid}"] = rec[pid]["launches"][0]
+        for counts in rec[pid]["launches"]:
+            check(counts == want, f"(j) process {pid} launches {counts} a "
+                                  f"step, want {want}")
+        checks = rec[pid]["kernel_checks"]
+        check(set(checks) == {"flash_attention_fwd", "flash_attention_bwd"}
+              and all(r["ok"] for r in checks.values()),
+              f"(j) process {pid} kernels vs their plain versions: "
+              f"{checks}")
+        check(rec[pid]["held_shapes"]["blocks.attn.query.weight"][0] == 2
+              and rec[pid]["dp_block"] == [MH_PROCS, pid],
+              f"(j) process {pid} holds {rec[pid]['held_shapes']}, dp "
+              f"block {rec[pid]['dp_block']}")
+    check(rec[0]["losses"] == rec[1]["losses"] and equal
+          and all(np.isfinite(rec[0]["losses"])),
+          f"(j) the processes differ: {out['losses']}")
+    check(gaps["loss_max_rel_diff"] <= PIPE_MH_TOL["loss"]
+          and gaps["delta_l2"] <= PIPE_MH_TOL["delta_l2"],
+          f"(j) dp across processes vs one process: {gaps}")
+    return out, launches
+
+
 def mh_pipe_results(torch, root, res, ref):
     """(g) of both processes against (a)'s one-process run: losses and
     parameter changes within PIPE_MH_TOL, the processes' losses and
@@ -13296,6 +13506,365 @@ def mh_checkpoint_part(torch, root, pid, runner, state, spec, mesh, tx):
     return rec
 
 
+# ---- the tools phase: raw CSV, a JAX-written checkpoint, the client
+# tools and the umbrella fsck (no kernel runs on its path) -------------
+
+TOOLS_ADULT_ROWS, TOOLS_BATCH = 4096, 512
+TOOLS_RESUME_BATCH, TOOLS_RESUME_STEPS = 16, 5
+TOOLS_SERVE_REQUESTS, TOOLS_SERVE_CONCURRENCY, TOOLS_SERVE_ROWS = 200, 4, 8
+# A checkpoint the JAX package wrote (the JAX zoo's mnist_functional
+# after 2 steps, tests/test_torch_jax_checkpoint.py): this machine has
+# no jax to write one.
+JAX_FIXTURE = os.path.join(REPO, "tests", "torch_fixtures",
+                           "jax_mnist_functional")
+FSCK_KINDS = ("checkpoint", "journal", "store", "pushlog")
+
+
+class _KeepPredictions:
+    """A PredictionOutputsProcessor that keeps each batch."""
+
+    def __init__(self):
+        self.batches = []
+
+    def process(self, predictions, worker_id):
+        self.batches.append(np.asarray(predictions))
+
+
+def tools_census_part(torch, root):
+    """(a) ``create_adult_csv`` (4,096 raw rows) through the port's
+    census_gen into train/val RecordFiles; census_wide_deep trained on
+    the card through the Local executor (B 512, a checkpoint and a
+    bundle), then ``predict`` from its checkpoint; the same job with
+    the record extension off gives bit-equal losses."""
+    from elasticdl_tpu_torch import native
+    from elasticdl_tpu_torch.api.eval_predict_executor import (
+        EvalPredictExecutor,
+    )
+    from elasticdl_tpu_torch.api.local_executor import LocalExecutor
+    from elasticdl_tpu_torch.common.args import build_parser
+    from elasticdl_tpu_torch.data import reader
+    from elasticdl_tpu_torch.testing import data as tdata
+    from elasticdl_tpu_torch.tools.record_gen import census_gen
+
+    base = os.path.join(root, "tools_census")
+    adult = tdata.create_adult_csv(os.path.join(base + "_adult.data"),
+                                   TOOLS_ADULT_ROWS, seed=SEED)
+    t0 = time.perf_counter()
+    counts = census_gen.convert(adult, base, seed=SEED)
+    convert_s = time.perf_counter() - t0
+    train = os.path.join(base, "census_train.rec")
+    val = os.path.join(base, "census_val.rec")
+    ckpt, bundles = base + "_ckpt", base + "_bundles"
+
+    def train_job(extra):
+        args = tdata.make_local_args(
+            tdata.model_zoo_dir(), "census.census_wide_deep.custom_model",
+            train, validation_data=val, minibatch_size=TOOLS_BATCH,
+            extra=["--device", "cuda", "--random_seed", str(SEED)] + extra)
+        record = step_recorder(torch)
+        reader.native_range_reads = 0
+        result = LocalExecutor(args, callbacks=[record]).run()
+        return ([float(x) for x in record.loss], result,
+                reader.native_range_reads)
+
+    t0 = time.perf_counter()
+    losses, result, reads = train_job(
+        ["--checkpoint_dir", ckpt, "--output", os.path.join(bundles, "v1")])
+    train_s = time.perf_counter() - t0
+    # The same job with the extension off: the Python scanner.
+    saved = native._ext, native._ext_load_attempted
+    native._ext, native._ext_load_attempted = None, True
+    try:
+        scan_losses, _, scan_reads = train_job([])
+    finally:
+        native._ext, native._ext_load_attempted = saved
+    args = build_parser("predict").parse_args([
+        "--model_zoo", tdata.model_zoo_dir(), "--model_def",
+        "census.census_wide_deep.custom_model", "--prediction_data", val,
+        "--checkpoint_dir_for_init", ckpt, "--minibatch_size",
+        str(TOOLS_BATCH), "--device", "cuda"])
+    job = EvalPredictExecutor(args, "predict")
+    job._spec.prediction_outputs_processor = kept = _KeepPredictions()
+    t0 = time.perf_counter()
+    summary = job.run()
+    predict_s = time.perf_counter() - t0
+    preds = np.concatenate(kept.batches) if kept.batches else np.zeros(0)
+    out = {"adult_rows": TOOLS_ADULT_ROWS, "records": counts,
+           "convert_s": convert_s, "steps": len(losses), "losses": losses,
+           "losses_scanner": scan_losses,
+           "losses_bit_equal_scanner": losses == scan_losses,
+           "native_range_reads": reads, "scanner_native_reads": scan_reads,
+           "eval_metrics": result["eval_metrics"], "train_s": train_s,
+           "predict": {**summary, "rows": int(preds.shape[0]),
+                       "restored_version": int(job.state.step),
+                       "finite": bool(np.isfinite(preds).all()),
+                       "seconds": predict_s}}
+    print("tools (a) raw CSV to a served model", json.dumps(out), flush=True)
+    n_train, n_val = counts["census_train.rec"], counts["census_val.rec"]
+    check(n_train + n_val == TOOLS_ADULT_ROWS and n_val > 0,
+          f"(a) census_gen wrote {counts}")
+    check(len(losses) == -(-n_train // TOOLS_BATCH)
+          and all(np.isfinite(losses)), f"(a) census losses {losses}")
+    check(out["losses_bit_equal_scanner"],
+          f"(a) native vs scanner losses: {losses} vs {scan_losses}")
+    check(reads > 0 and scan_reads == 0,
+          f"(a) native range reads {reads}, with the extension off "
+          f"{scan_reads}")
+    check(0.0 <= result["eval_metrics"]["accuracy"] <= 1.0,
+          f"(a) eval metrics {result['eval_metrics']}")
+    check(out["predict"]["rows"] == n_val and out["predict"]["finite"]
+          and out["predict"]["restored_version"] == len(losses),
+          f"(a) predict {out['predict']}")
+    return out, {"ckpt": ckpt, "bundles": bundles, "val": val}
+
+
+def _keystr_path(name):
+    """``params['Conv_0']['kernel']`` -> ["Conv_0", "kernel"]."""
+    import re
+
+    return re.findall(r"\['([^']*)'\]", name)
+
+
+def tools_jax_checkpoint_part(torch, root):
+    """(b) The committed JAX-written mnist_functional checkpoint resumed
+    through ``--checkpoint_dir_for_init`` on the card and on the CPU:
+    the restored leaves are the fixture's, transposed (HWIO -> OIHW,
+    (in, out) -> (out, in)), and five Local steps on the card are held
+    to the same five on the CPU at TRAJ_TOL."""
+    from elasticdl_tpu_torch.api.local_executor import LocalExecutor
+    from elasticdl_tpu_torch.callbacks import Callback
+    from elasticdl_tpu_torch.checkpoint import (
+        CheckpointSaver,
+        named_leaves_from_state,
+    )
+    from elasticdl_tpu_torch.testing import data as tdata
+
+    version, fixture, _ = CheckpointSaver(JAX_FIXTURE).restore()
+    records = tdata.create_mnist_record_file(
+        os.path.join(root, "tools_mnist_resume.rec"),
+        TOOLS_RESUME_STEPS * TOOLS_RESUME_BATCH, seed=SEED + 2)
+
+    class Restored(Callback):
+        leaves = None
+
+        def on_train_batch_begin(self, owner=None):
+            if self.leaves is None:
+                self.leaves = named_leaves_from_state(owner.state)
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        args = tdata.make_local_args(
+            tdata.model_zoo_dir(), "mnist.mnist_functional.custom_model",
+            records, minibatch_size=TOOLS_RESUME_BATCH,
+            extra=["--device", dev, "--random_seed", str(SEED),
+                   "--checkpoint_dir_for_init", JAX_FIXTURE])
+        record, restored = step_recorder(torch), Restored()
+        executor = LocalExecutor(args, callbacks=[record, restored])
+        executor.run()
+        record.final = {n: p.detach().float().cpu()
+                        for n, p in executor.state.model.named_parameters()}
+        record.restored, record.step = restored.leaves, executor.state.step
+        runs[dev] = record
+    card, cpu = runs["cuda"], runs["cpu"]
+
+    def transposed(value):
+        value = np.asarray(value)
+        if value.ndim == 4:
+            return value.transpose(3, 2, 0, 1)
+        return value.T if value.ndim == 2 else value
+
+    mismatched = []
+    for name, value in fixture.items():
+        path = _keystr_path(name)
+        if name.startswith("params["):
+            port = "params." + ".".join(
+                path[:-1] + ["weight" if path[-1] == "kernel" else path[-1]])
+        elif name.startswith("opt_state[0].trace["):
+            port = "opt_state." + ".".join(
+                path[:-1] + ["weight" if path[-1] == "kernel"
+                             else path[-1]]) + ".momentum_buffer"
+        elif name.startswith("batch_stats["):
+            port = "batch_stats." + ".".join(path)
+        else:
+            continue
+        if not np.array_equal(card.restored.get(port), transposed(value)):
+            mismatched.append(port)
+    losses = {dev: [float(x) for x in r.loss] for dev, r in runs.items()}
+    rel = [abs(a - b) / max(abs(b), 1e-6)
+           for a, b in zip(losses["cuda"], losses["cpu"])]
+    delta_l2 = {n: rel_err((card.final[n] - card.initial[n]).numpy(),
+                           (cpu.final[n] - cpu.initial[n]).numpy())
+                for n in cpu.initial}
+    out = {"fixture": os.path.relpath(JAX_FIXTURE, REPO),
+           "fixture_version": version, "fixture_leaves": len(fixture),
+           "restored_leaves": len(card.restored),
+           "mismatched_leaves": mismatched,
+           "restored_step": int(card.restored["step"]),
+           "losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"],
+           "loss_max_rel_diff": max(rel), "delta_l2": delta_l2,
+           "tol": TRAJ_TOL}
+    print("tools (b) JAX-written checkpoint resumed", json.dumps(out),
+          flush=True)
+    check(not mismatched and out["restored_step"] == version,
+          f"(b) restored leaves differ from the fixture's: {mismatched}")
+    check(len(rel) == TOOLS_RESUME_STEPS and card.step == cpu.step
+          == version + TOOLS_RESUME_STEPS, f"(b) steps {len(rel)}")
+    check(all(np.isfinite(losses["cuda"])), f"(b) losses {losses}")
+    check(max(rel) <= TRAJ_TOL["loss"]
+          and max(delta_l2.values()) <= TRAJ_TOL["delta_l2"],
+          f"(b) card vs CPU from the JAX checkpoint: {out}")
+    return out
+
+
+def tools_serving_part(torch, census):
+    """(c) (a)'s bundle served on the card (ModelStore and
+    InferenceServer, the ``serve`` entry's parts, in process); the port's
+    serve_client drives it closed-loop (200 requests at concurrency 4,
+    batches of the val records) and dump_metrics --raw reads its
+    /metrics."""
+    import io
+    from contextlib import redirect_stdout
+
+    from elasticdl_tpu_torch.common.constants import Mode
+    from elasticdl_tpu_torch.data.record_file import RecordFileScanner
+    from elasticdl_tpu_torch.model_zoo.census import census_wide_deep as twin
+    from elasticdl_tpu_torch.serving.model_store import ModelStore
+    from elasticdl_tpu_torch.serving.server import InferenceServer
+    from elasticdl_tpu_torch.tools import dump_metrics, serve_client
+
+    with RecordFileScanner(census["val"], 0, 4 * TOOLS_SERVE_ROWS) as sc:
+        records = list(sc)
+    pool = [twin.dataset_fn(records[i:i + TOOLS_SERVE_ROWS],
+                            Mode.PREDICTION, None)[0]
+            for i in range(0, len(records), TOOLS_SERVE_ROWS)]
+    store = ModelStore(census["bundles"], device="cuda",
+                       model_fn=lambda: twin.custom_model(device="cuda"))
+    store.load_initial()
+    server = InferenceServer(store, port=0, batch_deadline_ms=2).start()
+    addr = f"localhost:{server.port}"
+    try:
+        status, first = serve_client.predict_once(addr, pool[0])
+        load = serve_client.run_load(addr, pool, TOOLS_SERVE_REQUESTS,
+                                     TOOLS_SERVE_CONCURRENCY)
+        text = io.StringIO()
+        with redirect_stdout(text):
+            rc = dump_metrics.main([addr, "--raw"])
+    finally:
+        server.stop()
+        store.stop()
+    exposition = text.getvalue()
+    families = sorted({line.split()[2] for line in exposition.splitlines()
+                       if line.startswith("# TYPE edl_tpu_serving_")})
+    load.pop("latencies_ms")
+    out = {"first_status": status,
+           "first_rows": int(np.asarray(first["predictions"]).shape[0])
+           if first else 0, "load": load, "dump_metrics_rc": rc,
+           "metrics_bytes": len(exposition),
+           "serving_families": families}
+    print("tools (c) client tools against a served bundle",
+          json.dumps(out), flush=True)
+    check(status == 200 and out["first_rows"] == TOOLS_SERVE_ROWS,
+          f"(c) first predict {status}")
+    check(load["ok"] == TOOLS_SERVE_REQUESTS and load["statuses"] == {
+        "200": TOOLS_SERVE_REQUESTS}, f"(c) serve_client {load}")
+    check(rc == 0 and families, f"(c) dump_metrics --raw rc {rc}, "
+                                f"families {families}")
+    return out
+
+
+def tools_fsck_part(earlier, work, ckpt, whole):
+    """(d) The port's umbrella fsck over every work directory the smoke
+    left before this phase (``earlier``: its ``run_fsck`` result and
+    seconds; in the whole smoke its checkpoint chains, journals, cold
+    stores and push logs among them) and over this phase's own: every
+    kind green, the count per kind printed; then a shard of a copy of
+    (a)'s checkpoint torn (cut to half) and flagged."""
+    import shutil
+
+    from elasticdl_tpu_torch.tools import fsck
+
+    (errors, report), fsck_s = earlier
+    own_errors, own = fsck.run_fsck(work)
+    errors = errors + own_errors
+    checked = {k: n + own["checked"][k] for k, n in report["checked"].items()}
+    torn = os.path.join(work + "_fsck_torn", "ckpt")
+    shutil.copytree(ckpt, torn)
+    newest = max((e for e in os.listdir(torn) if e.startswith("version-")),
+                 key=lambda e: int(e.split("-")[1]))
+    shard = sorted(f for f in os.listdir(os.path.join(torn, newest))
+                   if f.endswith(".ckpt"))[0]
+    path = os.path.join(torn, newest, shard)
+    with open(path, "rb") as f:
+        blob = f.read()
+    with open(path, "wb") as f:
+        f.write(blob[:len(blob) // 2])
+    torn_errors, _ = fsck.run_fsck(os.path.dirname(torn))
+    shutil.rmtree(os.path.dirname(torn), ignore_errors=True)
+    out = {"checked": checked, "artifacts": len(report["artifacts"])
+           + len(own["artifacts"]), "errors": errors[:20],
+           "seconds_earlier": fsck_s, "torn_copy_errors": torn_errors[:5]}
+    print("tools (d) umbrella fsck", json.dumps(out), flush=True)
+    check(not errors, f"(d) fsck found errors: {errors[:20]}")
+    wanted = FSCK_KINDS if whole else ("checkpoint",)
+    check(all(checked[k] > 0 for k in wanted),
+          f"(d) fsck saw {checked}, want each of {wanted}")
+    check(any("crc32" in e for e in torn_errors),
+          f"(d) the torn shard was not flagged: {torn_errors}")
+    return out
+
+
+def start_audit(root):
+    """The umbrella fsck over ``root`` on a thread of its own (it reads
+    files and CRCs their bytes, mostly outside the interpreter's lock):
+    its pool and the future of its result and seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from elasticdl_tpu_torch.tools import fsck
+
+    def audit():
+        t0 = time.perf_counter()
+        return fsck.run_fsck(root), time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(1)
+    return pool, pool.submit(audit)
+
+
+def tools_phase(torch, fa, pe, root, whole=False, audit=None):
+    """(a)-(d); every kernel counter 0 over (a)-(c). The audit of what
+    the earlier phases left under ``root`` (``audit``, started by the
+    caller once nothing more writes there, else here) runs beside
+    (a)-(c), which write to a directory of their own."""
+    import shutil
+
+    work = root + "_tools"
+    os.makedirs(work)
+    marks = [time.monotonic()]
+    pool, earlier = audit or start_audit(root)
+    try:
+        reset_kernel_launches(fa, pe)          # the tools path starts here
+        census, paths = tools_census_part(torch, work)
+        marks.append(time.monotonic())
+        resumed = tools_jax_checkpoint_part(torch, work)
+        marks.append(time.monotonic())
+        served = tools_serving_part(torch, paths)
+        launches = kernel_launch_counts(fa, pe)    # ... and ends
+        marks.append(time.monotonic())
+        audited = tools_fsck_part(earlier.result(), work, paths["ckpt"],
+                                  whole)
+        marks.append(time.monotonic())
+    finally:
+        pool.shutdown(wait=True)
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"census": census, "jax_checkpoint": resumed, "serving": served,
+           "fsck": audited, "launches": launches,
+           "part_s": dict(zip(("a", "b", "c", "d"),
+                              np.diff(marks).tolist())),
+           "card": smi("name,power.limit")}
+    check(not any(launches.values()),
+          f"the tools path launched kernels: {launches}")
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -13308,7 +13877,7 @@ def main(argv=None) -> int:
                             "vision", "tabular", "checkpoint", "worker",
                             "rowservice", "fleet", "parallel", "multihost",
                             "tpfault", "moe", "pipeline", "failover",
-                            "sched", "k8s", "observe", "chaos"),
+                            "sched", "k8s", "observe", "chaos", "tools"),
         default="all",
         help="fwd: build flash_attention_fwd.cu alone, then run kernel "
              "#1's checks and times and print its kernels row; bwd: the "
@@ -13354,7 +13923,10 @@ def main(argv=None) -> int:
              "canonical plan twice, --master_kill, --model dense) and "
              "its drills (autoscale, serving, slo, brownout, usage, "
              "tiered, quake, profile, probe), each at its own gates "
-             "(no kernel build)")
+             "(no kernel build); tools: raw CSV through census_gen to a "
+             "trained, predicted and served census model, a JAX-written "
+             "checkpoint resumed, serve_client and dump_metrics against "
+             "the served bundle, and the umbrella fsck (no kernel build)")
     args = parser.parse_args(argv)
     import torch
 
@@ -13393,9 +13965,14 @@ def run(args, torch, mh) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     if args.phase in ("host", "vision", "tabular", "rowservice", "sched",
-                      "chaos"):
+                      "chaos", "tools"):
         with tempfile.TemporaryDirectory() as root:
-            if args.phase == "chaos":
+            if args.phase == "tools":
+                t1 = time.monotonic()
+                line = {"tools": tools_phase(torch, fa, pe, root)}
+                print(json.dumps({"phase_s": {
+                    "tools": round(time.monotonic() - t1, 2)}}))
+            elif args.phase == "chaos":
                 t1 = time.monotonic()
                 line = {"chaos": chaos_phase(torch, fa, pe, root)}
                 print(json.dumps({"phase_s": {
@@ -13599,6 +14176,9 @@ def run(args, torch, mh) -> int:
         reuse = {}
         parallel = parallel_phase(torch, fa, pe, root, reuse)
         mark("parallel")
+        # Nothing below writes under root: the tools phase's audit of
+        # every phase's directories starts here, beside the rest.
+        audit = start_audit(root)
         multihost, multihost_counts = multihost_phase(
             torch, fa, pe, root, mh, reuse.pop("recsys"), mh_results,
             reuse.pop("tp"), pipe["ref"])
@@ -13606,6 +14186,10 @@ def run(args, torch, mh) -> int:
         moe, moe_counts = moe_phase(torch, fa, pe, root, mh, moe_local,
                                     mh_results)
         mark("moe")
+        # Last in the work directory: its fsck audits what every phase
+        # above left there.
+        tools = tools_phase(torch, fa, pe, root, whole=True, audit=audit)
+        mark("tools")
     fused = fused_path_phase(torch, pe)
     sweep, sweep_counts = sweep_phase(torch, pe)
     emb_times = embedding_times(torch, pe)
@@ -13676,6 +14260,7 @@ def run(args, torch, mh) -> int:
         row["launches_pipeline"] = {
             part: counts[row["name"]]
             for part, counts in pipe["launches"].items()}
+        row["launches_tools"] = tools["launches"][row["name"]]
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"sparse_training": sparse}))
@@ -13693,6 +14278,7 @@ def run(args, torch, mh) -> int:
     print(json.dumps({"multihost": multihost}))
     print(json.dumps({"moe": moe}))
     print(json.dumps({"pipeline": pipe["line"]}))
+    print(json.dumps({"tools": tools}))
     marks["total"] = round(time.monotonic() - t0, 2)
     marks["aim"] = SMOKE_AIM_S
     print(json.dumps({"phase_s": marks}))

@@ -39,6 +39,16 @@ transposed), the embedding tables (``fm_embedding``, ``fm_linear``) →
 ``(ids, rows)`` through ``to_arrays``/``set``, from a JAX
 ``EmbeddingTable`` or ``NativeEmbeddingTable`` into the port's.
 
+``is_jax_named`` and ``port_leaves_from_jax`` read a checkpoint the
+JAX package wrote (the same shard files, but each leaf named by
+``jax.tree_util.keystr``: ``params['Conv_0']['kernel']``,
+``opt_state[0].trace['Conv_0']['kernel']``) into the port's leaf names
+for a given train state (``checkpoint/state_io.py``): the params and
+the optimizer's slots go through the twin's weight map below (kernels
+transposed), optax's ``mu``/``nu``/``trace`` become torch's
+``exp_avg``/``exp_avg_sq``/``momentum_buffer`` and its one ``count``
+each parameter's ``step``; the device-tier tables keep their names.
+
 ``flax_state_dict`` carries a flax model's ``params`` (and
 ``batch_stats``) into a zoo twin's ``state_dict`` by module path: the
 vision and tabular twins name their submodules as flax does
@@ -52,12 +62,17 @@ become ``weight`` (out, in, kh, kw), Dense kernels (in, out) ``weight``
 parameter such as ``wide_weights``).
 """
 
+import re
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from elasticdl_tpu_torch.common import dtypes
+from elasticdl_tpu_torch.common.log_utils import get_logger
 from elasticdl_tpu_torch.models.transformer import TransformerConfig
+
+logger = get_logger(__name__)
 
 
 def _params(tree: dict) -> dict:
@@ -387,3 +402,147 @@ def state_dict_for(model: torch.nn.Module, variables: dict
             else "embedding")
         return deepfm_state_dict_from_flax(variables, embed_param)
     return flax_state_dict(variables)
+
+
+# ---- checkpoints the JAX package wrote ------------------------------------
+
+# optax's slot fields -> torch's optimizer-state keys (the zoo's Adam and
+# SGD-with-momentum); optax's ``count`` becomes every parameter's step.
+OPTAX_SLOTS = {"mu": "exp_avg", "nu": "exp_avg_sq",
+               "trace": "momentum_buffer"}
+_KEY_TOKEN = re.compile(r"\['([^']*)'\]|\[(\d+)\]|\.(\w+)")
+
+
+def is_jax_named(named: Dict[str, np.ndarray]) -> bool:
+    """Leaves named by ``jax.tree_util.keystr`` (``params['Dense_0']
+    ['kernel']``); the port's names never hold a bracket."""
+    return any("[" in name for name in named)
+
+
+def _keystr_tokens(path: str):
+    """``[0].mu['Dense_0']['kernel']`` -> [(kind, value), ...] with kind
+    "key" (a dict key), "index" or "attr"."""
+    tokens, pos = [], 0
+    while pos < len(path):
+        m = _KEY_TOKEN.match(path, pos)
+        if m is None:
+            raise ValueError(f"cannot parse JAX leaf path {path!r}")
+        if m.group(1) is not None:
+            tokens.append(("key", m.group(1)))
+        elif m.group(2) is not None:
+            tokens.append(("index", int(m.group(2))))
+        else:
+            tokens.append(("attr", m.group(3)))
+        pos = m.end()
+    return tokens
+
+
+def _set_path(tree: dict, keys, value):
+    for key in keys[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[keys[-1]] = value
+
+
+def _as_f32(value) -> np.ndarray:
+    value = np.asarray(value)
+    if value.dtype == dtypes.BFLOAT16_BITS:
+        return dtypes.bf16_from_numpy(value).float().numpy()
+    return value
+
+
+def _weight_map(model, variables: dict) -> Dict[str, torch.Tensor]:
+    """The twin's ``state_dict`` names for a flax variables tree (a slot
+    tree maps as the params it shadows)."""
+    from elasticdl_tpu_torch.model_zoo.recsys.recsys_sparse import (
+        RecsysRanker,
+    )
+    from elasticdl_tpu_torch.models.pipeline_lm import PipelineLM
+
+    if isinstance(model, RecsysRanker):
+        return _dense_layers(_params(variables), "layers")
+    if isinstance(model, PipelineLM):
+        return pipeline_state_dict_from_flax(_params(variables),
+                                             model.pp_size)
+    return state_dict_for(model, variables)
+
+
+def port_leaves_from_jax(state, named: Dict[str, np.ndarray]
+                         ) -> Dict[str, np.ndarray]:
+    """A JAX-named leaf dict (``checkpoint.state_io`` of the JAX package)
+    as the port's names for ``state``. Kernels are transposed as
+    ``flax_state_dict`` transposes them; a leaf that maps to nothing of
+    the state raises ValueError. JAX's ``rng`` (a PRNG key) has no
+    counterpart in a ``torch.Generator``'s state: the port's generator
+    keeps its own seeded state, and a log line says so."""
+    variables = {"params": {}, "batch_stats": {}}
+    slots: Dict[str, dict] = {}           # torch slot -> params-shaped tree
+    counts: Dict[tuple, np.ndarray] = {}  # opt_state prefix -> count
+    slot_prefix = set()
+    out: Dict[str, np.ndarray] = {}
+    for name, value in named.items():
+        # the state's field, then the keystr path below it
+        head = re.match(r"\w+", name).group(0)
+        tokens = _keystr_tokens(name[len(head):])
+        keys = [v for kind, v in tokens if kind == "key"]
+        if head in ("params", "batch_stats"):
+            _set_path(variables[head], keys, _as_f32(value))
+        elif head == "opt_state":
+            attrs = [i for i, (kind, _v) in enumerate(tokens)
+                     if kind == "attr"]
+            if not attrs:
+                raise ValueError(f"JAX leaf {name}: no optax field")
+            at = attrs[-1]
+            field, prefix = tokens[at][1], tuple(tokens[:at])
+            if field == "count":
+                counts[prefix] = np.asarray(value)
+            elif field in OPTAX_SLOTS:
+                slot_prefix.add(prefix)
+                _set_path(slots.setdefault(OPTAX_SLOTS[field], {}),
+                          [v for kind, v in tokens[at + 1:]
+                           if kind == "key"], _as_f32(value))
+            else:
+                raise ValueError(
+                    f"JAX leaf {name}: optax field {field!r} has no "
+                    "torch slot this port maps")
+        elif head == "tables":
+            out[f"tables.{keys[0]}"] = np.asarray(value)
+        elif head == "slot_tables":
+            out[f"slot_tables.{keys[0]}.{keys[1]}"] = np.asarray(value)
+        elif head == "table_steps":
+            out[f"table_steps.{keys[0]}"] = np.asarray(value, np.int64)
+        elif head == "step":
+            out["step"] = np.asarray(value, np.int64)
+        elif head == "rng":
+            logger.info(
+                "JAX checkpoint's rng (a PRNG key) has no torch.Generator "
+                "counterpart; the port's generator keeps its own seed")
+        else:
+            raise ValueError(f"JAX leaf {name}: no port counterpart")
+
+    model = state.model
+    param_names = {n for n, _ in model.named_parameters()}
+    stats = set(getattr(state, "batch_stats", {}) or {})
+    for key, tensor in _weight_map(model, variables).items():
+        if key in param_names:
+            out[f"params.{key}"] = tensor.numpy()
+        elif key in stats:
+            out[f"batch_stats.{key}"] = tensor.numpy()
+        else:
+            raise ValueError(
+                f"JAX leaf maps to {key}, which {type(model).__name__} "
+                "holds as neither a parameter nor a statistic")
+    if getattr(state, "generator", None) is not None:
+        out["rng"] = state.generator.get_state().numpy()
+    step_count = None
+    if slots:
+        # the count that sits beside the slots (a schedule's own count,
+        # ``opt_state[1].count`` under a LearningRateScheduler, is not it)
+        beside = [counts[p] for p in slot_prefix if p in counts]
+        if beside:
+            step_count = np.asarray(beside[0], np.float32)
+    for slot, tree in slots.items():
+        for key, tensor in _weight_map(model, {"params": tree}).items():
+            out[f"opt_state.{key}.{slot}"] = tensor.numpy()
+            if step_count is not None:
+                out[f"opt_state.{key}.step"] = step_count
+    return out

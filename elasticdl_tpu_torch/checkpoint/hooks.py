@@ -14,6 +14,7 @@ import os
 import re
 import time
 
+from elasticdl_tpu_torch.bridge import is_jax_named, port_leaves_from_jax
 from elasticdl_tpu_torch.checkpoint.saver import (
     ChainPlanner,
     CheckpointSaver,
@@ -92,6 +93,11 @@ def restore_from_dir(state, checkpoint_dir: str, required: bool = True,
             "No valid checkpoint under %s; starting fresh", checkpoint_dir
         )
         return state
+    if is_jax_named(dense):
+        # A directory the JAX package wrote: the same files, its leaf
+        # names; the strict check below runs on the mapped names.
+        dense = port_leaves_from_jax(state, dense)
+        logger.info("Read %s as a JAX-written checkpoint", checkpoint_dir)
     state = restore_state_from_named_leaves(state, dense)
     missing = [n for n in (host_tables or {}) if n not in embeddings]
     if missing:

@@ -24,11 +24,22 @@ process's block, ``module._placed`` and ``_whole_shapes`` record it),
 so a checkpoint writes each stage once. Every process computes the
 ends: the embedding's output feeds the first stage, the last stage's
 output is broadcast and every process computes the head and the loss.
-The gradients of the ends are then the same in every process with no
-exchange: the head's from the same loss, the embedding's from the
-first stage's input gradient, which the pipeline's backward broadcasts.
+The gradients of the ends are then the same in every process of a
+``pp`` group with no exchange: the head's from the same loss, the
+embedding's from the first stage's input gradient, which the pipeline's
+backward broadcasts.
+
+Where ``dp`` spans processes, each process reads its rows of the global
+batch and each group of processes with one ``dp`` coordinate runs the
+pipeline (over its ``pp`` group, or within the process). The train step
+weighs each process's loss by its share of the global batch and sums
+every gradient, the stages' and the ends', over the data group once
+(``core/step.py``'s ``_loss_share`` and ``_sum_over_processes``), as
+JAX's GSPMD program does for its global batch. No other axis may span
+processes.
 """
 
+from types import SimpleNamespace
 from typing import Dict, Optional
 
 import torch
@@ -135,13 +146,14 @@ class PipelineLM(nn.Module):
                 "dropout under pipelining needs per-stage rng "
                 "threading; set dropout_rate=0 for PipelineLM"
             )
-        others = [a for a in mesh.axis_names if a != pp_axis]
+        others = [a for a in mesh.axis_names
+                  if a not in (pp_axis, self.dp_axis)]
         if mesh.group(others).size > 1:
-            # Its train step sums no gradient over processes: only the
-            # stages may be split across them.
+            # The train step sums gradients over the data group alone:
+            # only the stages and the rows may be split across processes.
             raise NotImplementedError(
-                f"PipelineLM on {mesh!r}: only {pp_axis!r} may span "
-                "processes")
+                f"PipelineLM on {mesh!r}: only {pp_axis!r} and "
+                f"{dp_axis!r} may span processes")
         self.ends = _EmbedHead(cfg)
         # The layer the stages run, without parameters of its own: each
         # call is given its slice of the stacked ones.
@@ -281,9 +293,21 @@ class PipelineLM(nn.Module):
         ``place``; ``step.optimizer``). ``batch``: ``features`` (B, S)
         ids, ``labels`` (B, S), ``mask`` (B,), host arrays or tensors.
         The gradients stay in ``.grad`` after the step."""
+        from elasticdl_tpu_torch.core.step import (
+            _loss_share,
+            _sum_over_processes,
+        )
+        from elasticdl_tpu_torch.parallel.multihost import GlobalBatch
+
         self.place()
         optimizer = make_optimizer(self.parameters())
         device = next(self.parameters()).device
+        # dp across processes: ``batch`` is this process's rows of the
+        # global batch, and the step is the global batch's.
+        global_batch = None
+        if self.dp_axis and self.mesh.group([self.dp_axis]).size > 1:
+            global_batch = GlobalBatch(self.mesh, (self.dp_axis, "sp"))
+        held = SimpleNamespace(global_batch=global_batch, model=self)
 
         def train_step(batch):
             feats, labels, mask = (torch.as_tensor(batch[k]).to(device)
@@ -291,7 +315,15 @@ class PipelineLM(nn.Module):
             self.train()
             optimizer.zero_grad(set_to_none=True)
             loss = loss_fn(labels, self(feats), mask)
+            share = _loss_share(global_batch, batch["mask"], device)
+            if share is not None:
+                loss = loss * share
             loss.backward()
+            if share is not None:
+                # The stages' and the ends' gradients summed over the
+                # data group once (under pp across the ends' are already
+                # equal within the pp group, from its broadcasts).
+                loss = _sum_over_processes(held, loss.detach())
             optimizer.step()
             return loss.detach()
 

@@ -26,6 +26,14 @@ stages, bubble fraction ``(n - 1) / (M + n - 1)``.
   is broadcast over the group, so a replicated input (the embedding's
   output, computed in every process) gets the same gradient in every
   process.
+- **A data axis across processes** (``x_spec``'s rows split over
+  processes): ``x`` is this process's rows. Each group of processes
+  that share a data coordinate runs the pipeline over its own ``pp``
+  group (``mesh.group([axis])``: the sends, receives and both
+  broadcasts use that group's ranks), or, where ``pp`` is inside one
+  process, runs the stages in tick order as on one card. Summing the
+  gradients over the data group is the caller's (``models/
+  pipeline_lm.py``'s train step).
 
 The JAX program computes every stage at every tick, bubble ticks
 included, on values it then discards (drain ticks re-feed ``x[m-1]``);
@@ -91,12 +99,6 @@ def pipeline_apply(
     n = mesh.shape[axis]
     group = mesh.group([axis])
     if group.size > 1:
-        data_axes = [a for e in spec[1:] if e is not None
-                     for a in (e if isinstance(e, tuple) else (e,))]
-        if mesh.group(data_axes).size > 1:
-            raise NotImplementedError(
-                f"x split over {data_axes} across processes under a "
-                "pipeline: only pp may span processes")
         leaves = list(stacked_params.values())
         graph = torch.is_grad_enabled() and (
             x.requires_grad or any(leaf.requires_grad for leaf in leaves))

@@ -62,7 +62,7 @@ class ColdStoreError(RuntimeError):
     pointing past a segment, id mismatch at the indexed offset)."""
 
 
-# ---- chaos seam (its installer, the chaos plane, is not ported yet) ------
+# ---- chaos seam (installed by chaos/tiered_drill.py) --------------------
 # _mid_compact_hook(seg_id): after a victim segment's live rows were
 # re-appended to the tail but BEFORE the victim file is deleted — the
 # window a kill-mid-compaction drill targets.

@@ -79,7 +79,7 @@ class PushLogError(RuntimeError):
     body, write/fsync failure on the commit thread, closed log)."""
 
 
-# ---- chaos seam (its installer, the chaos plane, is not ported yet) ------
+# ---- chaos seam (installed by chaos/interceptors.py) --------------------
 # _fsync_hook("pushlog"): runs on the commit thread ahead of each group
 # commit's write+fsync; a fault plan's ``fsync_stall`` sleeps here so a
 # slow-WAL-disk brownout lands exactly where durable-ack waiters feel

@@ -43,7 +43,7 @@ from elasticdl_tpu_torch.storage.cold_store import ColdRowStore
 logger = get_logger("tiered")
 
 
-# ---- chaos seam (its installer, the chaos plane, is not ported yet) ------
+# ---- chaos seam (installed by chaos/tiered_drill.py) --------------------
 # _pre_erase_hook(table_name, ids): during a demotion, after the rows
 # were written to the cold store but BEFORE they are erased from the
 # hot arena — the window a kill-mid-eviction drill targets.

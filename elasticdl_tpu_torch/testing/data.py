@@ -180,3 +180,26 @@ def model_zoo_dir():
     """Path of the port's model_zoo directory."""
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     return os.path.join(here, "model_zoo")
+
+
+def create_adult_csv(path, num_records, seed=0):
+    """Raw UCI-Adult-format CSV (15 comma-separated columns, no header,
+    '>50K'/'<=50K' labels) with a learnable age+education signal — the
+    input of ``tools/record_gen/census_gen.py``. The JAX package's
+    generator: the same seed gives the same bytes."""
+    rng = np.random.RandomState(seed)
+    education = ["Bachelors", "HS-grad", "Masters", "Doctorate"]
+    workclass = ["Private", "Self-emp", "Federal-gov", "Local-gov"]
+    with open(path, "w", newline="") as f:
+        out = csv.writer(f)
+        for _ in range(num_records):
+            e = int(rng.randint(len(education)))
+            age = 20 + rng.rand() * 50
+            label = ">50K" if age + 10 * e > 55 else "<=50K"
+            out.writerow([
+                f"{age:.1f}", workclass[int(rng.randint(len(workclass)))],
+                "77516", education[e], "13", "Never-married",
+                "Tech-support", "Own-child", "White", "Female", "0", "0",
+                f"{10 + rng.rand() * 60:.1f}", "United-States", label,
+            ])
+    return path
